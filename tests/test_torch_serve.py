@@ -336,6 +336,7 @@ def test_import_leaves_jax_out():
         "import sys\n"
         "import transformergrooveinfilling_tpu_torch.serve\n"
         "import transformergrooveinfilling_tpu_torch.ops\n"
+        "import transformergrooveinfilling_tpu_torch.train\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'optax', 'yaml', 'msgpack', "
         "'transformergrooveinfilling_tpu'))\n"

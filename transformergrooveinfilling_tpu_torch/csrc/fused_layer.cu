@@ -1,0 +1,826 @@
+// Whole post-LN encoder layer for training, forward and backward, sm_90a.
+//
+// Replaces the Pallas TPU kernel transformergrooveinfilling_tpu/ops/
+// fused_layer.py::encoder_layer_train (forward _fwd_call/_fwd_kernel,
+// backward _bwd_call/_bwd_kernel):
+//
+//   qkv = x·Wqkv + b;  per head P = softmax(QKᵀ/√hd), A = drop(P)·V
+//   y1 = LN1(x + drop(A·Wo + bo));  h = drop(relu(y1·W1 + b1))
+//   y2 = LN2(y1 + drop(h·W2 + b2))
+//
+// Three kernels:
+//   layer_fwd          one block per sequence (T ≤ 32 rows): writes y and
+//                      the residuals qkv, a1, h_drop, a2.
+//   layer_bwd_rows     one block per sequence: recomputes LN statistics and
+//                      the attention forward from the stored qkv and a1,
+//                      writes dx and the row-wise gradients (df, dhpre,
+//                      dproj, dqkv, dy1·zh1, dy1, dy·zh2, LN1 mean/rstd)
+//                      into an f32 scratch.
+//   layer_bwd_weights  one block per 64×64 tile of dWqkv, dWo, dW1, dW2
+//                      (Σ over all rows of dYᵀ·X, sequence by sequence, in
+//                      a fixed order), plus blocks that sum the bias and LN
+//                      parameter gradients, 32 columns a block. No atomics:
+//                      two runs with one seed agree bit for bit.
+//
+// What bounds it on the H100: about 1.05 MFLOP of products per row forward
+// and twice that backward at d 256 / ff 512, on CUDA cores (f32 FMAs,
+// 67 TFLOP/s peak), against a few KB of activations per row: compute-bound.
+// The weights (1 MB in bf16) do not fit a block's 227 KB of shared memory;
+// each thread streams one output's weights from global memory, where the
+// whole set stays in the 50 MB L2, and reuses every weight for all T rows of its
+// block (T accumulators in registers). Activations of one sequence live in
+// shared memory in f32, buffers reused as the layer goes (h takes qkv's
+// place). Neither the probabilities, nor the attention output, nor any mask
+// ever reaches device memory: the backward and the weight-gradient kernel
+// recompute them (the same device functions in the same order, so the
+// recompute is bit-identical to the forward).
+//
+// Dropout: Philox4x32-10, keyed by (seed, 0) and counted by
+// (col / 16, row, site, 0); element (row, col) takes byte col % 16. Sites:
+// 0 attention probabilities (row = (seq·H + head)·T + i, col = j), 1 the
+// attention projection, 2 the FFN hidden, 3 the FFN output (row = global
+// row). A byte below `thresh` keeps the element, which is then divided by
+// thresh/256 (ops/fused_layer.py::dropout_mask draws the same bytes).
+//
+// Rounding points (S = storage dtype, f32 or bf16), as the TPU kernel's:
+// qkv, P after dropout, the attention output, y1, h are rounded to S;
+// residual sums and LayerNorms (one-pass variance, clamped at 0) are f32;
+// every product accumulates in f32.
+//
+// Weights and their gradients are in nn.Linear's (out, in) layout: Wqkv
+// (3d, d), Wo (d, d), W1 (ff, d), W2 (d, ff). Plain C entry points, bound
+// from Python with ctypes (ops/fused_layer.py); each returns
+// cudaGetLastError() after its launch.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stddef.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kThreads = 256;
+constexpr int kMaxT = 32;
+constexpr int kTile = 64;
+constexpr float kLnEps = 1e-5f;
+constexpr int kSiteAttn = 0, kSiteProj = 1, kSiteFfn = 2, kSiteOut = 3;
+
+__device__ __forceinline__ float ld(float x) { return x; }
+__device__ __forceinline__ float ld(__nv_bfloat16 x) { return __bfloat162float(x); }
+
+template <typename S>
+__device__ __forceinline__ S st(float x);
+template <>
+__device__ __forceinline__ float st<float>(float x) { return x; }
+template <>
+__device__ __forceinline__ __nv_bfloat16 st<__nv_bfloat16>(float x) {
+  return __float2bfloat16(x);  // round to nearest even, as astype(bf16)
+}
+// round an f32 value through S
+template <typename S>
+__device__ __forceinline__ float rnd(float x) { return ld(st<S>(x)); }
+
+__device__ __forceinline__ void load4(const float* p, float* w) {
+  const float4 v = *reinterpret_cast<const float4*>(p);
+  w[0] = v.x; w[1] = v.y; w[2] = v.z; w[3] = v.w;
+}
+__device__ __forceinline__ void load4(const __nv_bfloat16* p, float* w) {
+  const uint2 v = *reinterpret_cast<const uint2*>(p);
+  const __nv_bfloat162 lo = *reinterpret_cast<const __nv_bfloat162*>(&v.x);
+  const __nv_bfloat162 hi = *reinterpret_cast<const __nv_bfloat162*>(&v.y);
+  w[0] = __low2float(lo); w[1] = __high2float(lo);
+  w[2] = __low2float(hi); w[3] = __high2float(hi);
+}
+
+// ---------------------------------------------------------------- dropout
+
+__device__ __forceinline__ uint32_t dropout_byte(uint32_t seed, uint32_t site,
+                                                 uint32_t row, uint32_t col) {
+  uint32_t c0 = col >> 4, c1 = row, c2 = site, c3 = 0u, k0 = seed, k1 = 0u;
+#pragma unroll
+  for (int i = 0; i < 10; ++i) {
+    if (i) {
+      k0 += 0x9E3779B9u;
+      k1 += 0xBB67AE85u;
+    }
+    const uint32_t hi0 = __umulhi(0xD2511F53u, c0), lo0 = 0xD2511F53u * c0;
+    const uint32_t hi1 = __umulhi(0xCD9E8D57u, c2), lo1 = 0xCD9E8D57u * c2;
+    const uint32_t n0 = hi1 ^ c1 ^ k0, n2 = hi0 ^ c3 ^ k1;
+    c0 = n0; c1 = lo1; c2 = n2; c3 = lo0;
+  }
+  const uint32_t w = (col & 8) ? ((col & 4) ? c3 : c2) : ((col & 4) ? c1 : c0);
+  return (w >> (8 * (col & 3))) & 0xFFu;
+}
+
+struct Drop {
+  uint32_t seed;
+  int thresh;
+  float keep;
+  // dropout of v at (site, row, col): v / keep where kept, else 0
+  __device__ __forceinline__ float apply(float v, int site, int row, int col) const {
+    if (thresh >= 256) return v;
+    return dropout_byte(seed, site, row, col) < static_cast<uint32_t>(thresh) ? v / keep : 0.f;
+  }
+};
+
+// ---------------------------------------------------------------- shared pieces
+
+__device__ __forceinline__ float warp_sum(float v) {
+  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
+  return v;
+}
+__device__ __forceinline__ float warp_max(float v) {
+  for (int off = 16; off > 0; off >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, off));
+  return v;
+}
+
+// out[r][n] = Σ_k A[r][k]·W(k, n) for r < T, n < N: A in shared memory (f32,
+// row stride lda), W in device memory, W(k, n) = W[k·N + n] (TRANS false) or
+// W[n·K + k] (TRANS true). Weights come in nn.Linear's (out, in) layout, so
+// the forward's A·Wᵀ takes TRANS true and the backward's dY·W TRANS false.
+// One thread per output column keeps T sums in registers; K is a multiple
+// of 4. epi(r, n, sum) writes the result.
+template <typename S, bool TRANS, typename Epi>
+__device__ __forceinline__ void rowmm(const float* A, int lda, const S* __restrict__ W,
+                                      int K, int N, int T, Epi epi) {
+  for (int n = threadIdx.x; n < N; n += blockDim.x) {
+    float acc[kMaxT];
+#pragma unroll
+    for (int r = 0; r < kMaxT; ++r) acc[r] = 0.f;
+    for (int k = 0; k < K; k += 4) {
+      float w[4];
+      if (TRANS) {
+        load4(W + static_cast<size_t>(n) * K + k, w);
+      } else {
+#pragma unroll
+        for (int j = 0; j < 4; ++j) w[j] = ld(W[static_cast<size_t>(k + j) * N + n]);
+      }
+#pragma unroll
+      for (int r = 0; r < kMaxT; ++r) {
+        if (r < T) {
+          const float4 a = *reinterpret_cast<const float4*>(A + r * lda + k);
+          acc[r] = fmaf(a.x, w[0], acc[r]);
+          acc[r] = fmaf(a.y, w[1], acc[r]);
+          acc[r] = fmaf(a.z, w[2], acc[r]);
+          acc[r] = fmaf(a.w, w[3], acc[r]);
+        }
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < kMaxT; ++r)
+      if (r < T) epi(r, n, acc[r]);
+  }
+}
+
+// One head's softmax(q·kᵀ·scale) into P (T, T), f32, unrounded. q and k are
+// rows of stride ld in shared memory. Each dot product walks the head dim
+// starting at column j (rotated), so the 32 lanes of a warp, which read 32
+// key rows, hit 32 banks. Every kernel calls this one function, so the
+// backward's recompute is bit-identical to the forward.
+__device__ void head_probs(const float* q, const float* k, int ld, int hd, int T,
+                           float scale, float* P) {
+  for (int idx = threadIdx.x; idx < T * T; idx += blockDim.x) {
+    const int i = idx / T, j = idx - i * T;
+    const float* qi = q + i * ld;
+    const float* kj = k + j * ld;
+    float acc = 0.f;
+    int c = j % hd;
+    for (int t = 0; t < hd; ++t) {
+      acc = fmaf(qi[c], kj[c], acc);
+      if (++c == hd) c = 0;
+    }
+    P[idx] = acc * scale;
+  }
+  __syncthreads();
+  const int lane = threadIdx.x & 31;
+  for (int i = threadIdx.x >> 5; i < T; i += blockDim.x >> 5) {
+    const float v = lane < T ? P[i * T + lane] : -INFINITY;
+    const float m = warp_max(v);
+    const float e = lane < T ? expf(v - m) : 0.f;
+    const float sum = warp_sum(e);
+    if (lane < T) P[i * T + lane] = e / sum;
+  }
+  __syncthreads();
+}
+
+// mean and 1/sqrt(var + eps) of one row of width d (f32 values from get(c)),
+// one-pass variance clamped at 0; called by a whole warp
+template <typename Get>
+__device__ __forceinline__ void ln_stats(int d, Get get, float& mu, float& rstd) {
+  const int lane = threadIdx.x & 31;
+  float s = 0.f, s2 = 0.f;
+  for (int c = lane; c < d; c += 32) {
+    const float a = get(c);
+    s += a;
+    s2 = fmaf(a, a, s2);
+  }
+  s = warp_sum(s);
+  s2 = warp_sum(s2);
+  mu = s / d;
+  const float var = fmaxf(s2 / d - mu * mu, 0.f);
+  rstd = rsqrtf(var + kLnEps);
+}
+
+__device__ __forceinline__ float zhat(float a, float mu, float rstd) {
+  return __fmul_rn(__fsub_rn(a, mu), rstd);
+}
+__device__ __forceinline__ float affine(float z, float g, float b) {
+  return __fadd_rn(__fmul_rn(z, g), b);
+}
+
+struct Shape {
+  int nseq, T, d, H, ff, thresh;
+};
+
+__device__ __forceinline__ Drop make_drop(const int* seed, int thresh) {
+  Drop dr;
+  dr.seed = static_cast<uint32_t>(*seed);
+  dr.thresh = thresh;
+  dr.keep = thresh / 256.f;
+  return dr;
+}
+
+// ---------------------------------------------------------------- forward
+
+template <typename S>
+struct FwdArgs {
+  const S *x, *wqkv, *wo, *w1, *w2;
+  const float *bqkv, *bo, *g1, *b1, *b1f, *b2f, *g2, *b2;
+  const int* seed;
+  S *y, *qkv, *a1, *h, *a2;
+};
+
+template <typename S>
+__global__ void __launch_bounds__(kThreads) layer_fwd(FwdArgs<S> p, Shape sh) {
+  extern __shared__ __align__(16) float sm[];
+  const int T = sh.T, d = sh.d, H = sh.H, ff = sh.ff, d3 = 3 * d;
+  const int hd = d / H, big = d3 > ff ? d3 : ff;
+  float* sX = sm;             // (T, d): x, then y1
+  float* sBig = sX + T * d;   // (T, 3d): qkv; then a1 (T, d); then h (T, ff)
+  float* sA = sBig + T * big;  // (T, d): attention output, then a2
+  float* sP = sA + T * d;     // (T, T)
+  const int s = blockIdx.x, r0 = s * T;
+  const Drop dr = make_drop(p.seed, sh.thresh);
+  const float scale = 1.f / sqrtf(static_cast<float>(hd));
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, nwarps = blockDim.x >> 5;
+
+  for (int idx = threadIdx.x; idx < T * d; idx += blockDim.x)
+    sX[idx] = ld(p.x[static_cast<size_t>(r0) * d + idx]);
+  __syncthreads();
+
+  rowmm<S, true>(sX, d, p.wqkv, d, d3, T, [&](int r, int n, float acc) {
+    const S v = st<S>(acc + p.bqkv[n]);
+    sBig[r * d3 + n] = ld(v);
+    p.qkv[static_cast<size_t>(r0 + r) * d3 + n] = v;
+  });
+  __syncthreads();
+
+  for (int hh = 0; hh < H; ++hh) {
+    head_probs(sBig + hh * hd, sBig + d + hh * hd, d3, hd, T, scale, sP);
+    for (int idx = threadIdx.x; idx < T * T; idx += blockDim.x) {
+      const int i = idx / T, j = idx - i * T;
+      sP[idx] = rnd<S>(dr.apply(sP[idx], kSiteAttn, (s * H + hh) * T + i, j));
+    }
+    __syncthreads();
+    for (int idx = threadIdx.x; idx < T * hd; idx += blockDim.x) {
+      const int i = idx / hd, c = hh * hd + (idx - i * hd);
+      float acc = 0.f;
+      for (int j = 0; j < T; ++j) acc = fmaf(sP[i * T + j], sBig[j * d3 + 2 * d + c], acc);
+      sA[i * d + c] = rnd<S>(acc);
+    }
+    __syncthreads();
+  }
+
+  // a1 = x + drop(A·Wo + bo), into sBig (qkv is no longer needed)
+  rowmm<S, true>(sA, d, p.wo, d, d, T, [&](int r, int n, float acc) {
+    const float pr = dr.apply(acc + p.bo[n], kSiteProj, r0 + r, n);
+    const float a = sX[r * d + n] + pr;
+    sBig[r * d + n] = a;
+    p.a1[static_cast<size_t>(r0 + r) * d + n] = st<S>(a);
+  });
+  __syncthreads();
+  for (int r = warp; r < T; r += nwarps) {
+    float mu, rstd;
+    const float* a = sBig + r * d;
+    ln_stats(d, [&](int c) { return a[c]; }, mu, rstd);
+    for (int c = lane; c < d; c += 32)
+      sX[r * d + c] = rnd<S>(affine(zhat(a[c], mu, rstd), p.g1[c], p.b1[c]));
+  }
+  __syncthreads();
+
+  // h = drop(relu(y1·W1 + b1)), into sBig
+  rowmm<S, true>(sX, d, p.w1, d, ff, T, [&](int r, int n, float acc) {
+    const S v = st<S>(dr.apply(fmaxf(acc + p.b1f[n], 0.f), kSiteFfn, r0 + r, n));
+    sBig[r * ff + n] = ld(v);
+    p.h[static_cast<size_t>(r0 + r) * ff + n] = v;
+  });
+  __syncthreads();
+
+  // a2 = y1 + drop(h·W2 + b2), into sA
+  rowmm<S, true>(sBig, ff, p.w2, ff, d, T, [&](int r, int n, float acc) {
+    const float f = dr.apply(acc + p.b2f[n], kSiteOut, r0 + r, n);
+    const float a = sX[r * d + n] + f;
+    sA[r * d + n] = a;
+    p.a2[static_cast<size_t>(r0 + r) * d + n] = st<S>(a);
+  });
+  __syncthreads();
+  for (int r = warp; r < T; r += nwarps) {
+    float mu, rstd;
+    const float* a = sA + r * d;
+    ln_stats(d, [&](int c) { return a[c]; }, mu, rstd);
+    for (int c = lane; c < d; c += 32)
+      p.y[static_cast<size_t>(r0 + r) * d + c] =
+          st<S>(affine(zhat(a[c], mu, rstd), p.g2[c], p.b2[c]));
+  }
+}
+
+// ---------------------------------------------------------------- backward, rows
+
+// scratch columns per row (f32), width 8d + ff + 2
+struct Cols {
+  int df, dhpre, dproj, dqkv, dy1zh1, dy1, dyzh2, stats, width;
+  __host__ __device__ Cols(int d, int ff)
+      : df(0), dhpre(d), dproj(d + ff), dqkv(2 * d + ff), dy1zh1(5 * d + ff),
+        dy1(6 * d + ff), dyzh2(7 * d + ff), stats(8 * d + ff), width(8 * d + ff + 2) {}
+};
+
+template <typename S>
+struct BwdArgs {
+  const S *dy, *x, *qkv, *a1, *h, *a2, *wqkv, *wo, *w1, *w2;
+  const float *g1, *b1, *g2;
+  const int* seed;
+  S* dx;
+  float* scratch;
+};
+
+template <typename S>
+__global__ void __launch_bounds__(kThreads) layer_bwd_rows(BwdArgs<S> p, Shape sh) {
+  extern __shared__ __align__(16) float sm[];
+  const int T = sh.T, d = sh.d, H = sh.H, ff = sh.ff, d3 = 3 * d;
+  const int hd = d / H, big = d3 > ff ? d3 : ff;
+  const Cols col(d, ff);
+  float* B0 = sm;              // (T, d): da2, then da1
+  float* B1 = B0 + T * d;      // (T, d): df rounded, then dproj rounded
+  float* B2 = B1 + T * d;      // (T, d): zh1, then dattn
+  float* sBig = B2 + T * d;    // (T, ff): dhpre rounded; (T, 3d): qkv, then dqkv
+  float* sP = sBig + T * big;  // (T, T): P, then P after dropout, rounded
+  float* sD = sP + T * T;      // (T, T): dP, then dS
+  float* sStat = sD + T * T;   // (T, 2): LN1 mean, rstd
+  const int s = blockIdx.x, r0 = s * T;
+  const Drop dr = make_drop(p.seed, sh.thresh);
+  const float scale = 1.f / sqrtf(static_cast<float>(hd));
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, nwarps = blockDim.x >> 5;
+  float* scr = p.scratch + static_cast<size_t>(r0) * col.width;
+
+  // LN2 backward from the stored a2; df = drop(da2)
+  for (int r = warp; r < T; r += nwarps) {
+    const size_t g = static_cast<size_t>(r0 + r) * d;
+    float mu, rstd;
+    ln_stats(d, [&](int c) { return ld(p.a2[g + c]); }, mu, rstd);
+    float m1 = 0.f, m2 = 0.f;
+    for (int c = lane; c < d; c += 32) {
+      const float z = zhat(ld(p.a2[g + c]), mu, rstd);
+      const float dyv = ld(p.dy[g + c]);
+      const float dz = dyv * p.g2[c];
+      m1 += dz;
+      m2 = fmaf(dz, z, m2);
+      scr[r * col.width + col.dyzh2 + c] = dyv * z;
+    }
+    m1 = warp_sum(m1) / d;
+    m2 = warp_sum(m2) / d;
+    for (int c = lane; c < d; c += 32) {
+      const float z = zhat(ld(p.a2[g + c]), mu, rstd);
+      const float dz = ld(p.dy[g + c]) * p.g2[c];
+      const float da2 = rstd * (dz - m1 - z * m2);
+      B0[r * d + c] = da2;
+      const float df = dr.apply(da2, kSiteOut, r0 + r, c);
+      scr[r * col.width + col.df + c] = df;
+      B1[r * d + c] = rnd<S>(df);
+    }
+  }
+  // LN1 statistics and zh1 from the stored a1
+  for (int r = warp; r < T; r += nwarps) {
+    const size_t g = static_cast<size_t>(r0 + r) * d;
+    float mu, rstd;
+    ln_stats(d, [&](int c) { return ld(p.a1[g + c]); }, mu, rstd);
+    for (int c = lane; c < d; c += 32) B2[r * d + c] = zhat(ld(p.a1[g + c]), mu, rstd);
+    if (lane == 0) {
+      sStat[2 * r] = mu;
+      sStat[2 * r + 1] = rstd;
+      scr[r * col.width + col.stats] = mu;
+      scr[r * col.width + col.stats + 1] = rstd;
+    }
+  }
+  __syncthreads();
+
+  // dhpre = (h > 0) · (df·W2ᵀ) / keep: h_drop > 0 carries both mask and ReLU
+  rowmm<S, false>(B1, d, p.w2, d, ff, T, [&](int r, int n, float acc) {
+    const float hv = ld(p.h[static_cast<size_t>(r0 + r) * ff + n]);
+    const float dh = hv > 0.f ? acc / dr.keep : 0.f;
+    scr[r * col.width + col.dhpre + n] = dh;
+    sBig[r * ff + n] = rnd<S>(dh);
+  });
+  __syncthreads();
+
+  // dy1 = dhpre·W1ᵀ + da2, into B0
+  rowmm<S, false>(sBig, ff, p.w1, ff, d, T, [&](int r, int n, float acc) {
+    const float dy1 = acc + B0[r * d + n];
+    B0[r * d + n] = dy1;
+    scr[r * col.width + col.dy1 + n] = dy1;
+    scr[r * col.width + col.dy1zh1 + n] = dy1 * B2[r * d + n];
+  });
+  __syncthreads();
+
+  // LN1 backward: da1 into B0; dproj = drop(da1)
+  for (int r = warp; r < T; r += nwarps) {
+    const float rstd = sStat[2 * r + 1];
+    float m1 = 0.f, m2 = 0.f;
+    for (int c = lane; c < d; c += 32) {
+      const float dz = B0[r * d + c] * p.g1[c];
+      m1 += dz;
+      m2 = fmaf(dz, B2[r * d + c], m2);
+    }
+    m1 = warp_sum(m1) / d;
+    m2 = warp_sum(m2) / d;
+    for (int c = lane; c < d; c += 32) {
+      const float dz = B0[r * d + c] * p.g1[c];
+      const float da1 = rstd * (dz - m1 - B2[r * d + c] * m2);
+      B0[r * d + c] = da1;
+      const float dproj = dr.apply(da1, kSiteProj, r0 + r, c);
+      scr[r * col.width + col.dproj + c] = dproj;
+      B1[r * d + c] = rnd<S>(dproj);
+    }
+  }
+  __syncthreads();
+
+  // dattn = round(dproj·Woᵀ) into B2; qkv into sBig
+  for (int idx = threadIdx.x; idx < T * d3; idx += blockDim.x)
+    sBig[idx] = ld(p.qkv[static_cast<size_t>(r0) * d3 + idx]);
+  rowmm<S, false>(B1, d, p.wo, d, d, T,
+                 [&](int r, int n, float acc) { B2[r * d + n] = rnd<S>(acc); });
+  __syncthreads();
+
+  // attention backward, head by head; dq, dk, dv go to the scratch
+  for (int hh = 0; hh < H; ++hh) {
+    const int q0 = hh * hd, k0 = d + hh * hd, v0 = 2 * d + hh * hd;
+    head_probs(sBig + q0, sBig + k0, d3, hd, T, scale, sP);
+    for (int idx = threadIdx.x; idx < T * T; idx += blockDim.x) {
+      const int i = idx / T, j = idx - i * T;
+      const float* da = B2 + i * d + q0;
+      const float* vj = sBig + j * d3 + v0;
+      float acc = 0.f;
+      int c = j % hd;
+      for (int t = 0; t < hd; ++t) {
+        acc = fmaf(da[c], vj[c], acc);
+        if (++c == hd) c = 0;
+      }
+      sD[idx] = dr.apply(acc, kSiteAttn, (s * H + hh) * T + i, j);
+    }
+    __syncthreads();
+    for (int i = warp; i < T; i += nwarps) {
+      const int idx = i * T + lane;
+      const float pv = lane < T ? sP[idx] : 0.f;
+      const float dp = lane < T ? sD[idx] : 0.f;
+      const float dot = warp_sum(dp * pv);
+      if (lane < T) {
+        sD[idx] = rnd<S>(pv * (dp - dot) * scale);
+        sP[idx] = rnd<S>(dr.apply(pv, kSiteAttn, (s * H + hh) * T + i, lane));
+      }
+    }
+    __syncthreads();
+    for (int idx = threadIdx.x; idx < T * hd; idx += blockDim.x) {
+      const int j = idx / hd, c = idx - j * hd;
+      float dv = 0.f, dk = 0.f, dq = 0.f;
+      for (int i = 0; i < T; ++i) {
+        dv = fmaf(sP[i * T + j], B2[i * d + q0 + c], dv);
+        dk = fmaf(sD[i * T + j], sBig[i * d3 + q0 + c], dk);
+        dq = fmaf(sD[j * T + i], sBig[i * d3 + k0 + c], dq);
+      }
+      float* out = scr + j * col.width + col.dqkv;
+      out[q0 + c] = rnd<S>(dq);
+      out[k0 + c] = rnd<S>(dk);
+      out[v0 + c] = rnd<S>(dv);
+    }
+    __syncthreads();
+  }
+
+  // dx = da1 + dqkv·Wqkvᵀ
+  for (int idx = threadIdx.x; idx < T * d3; idx += blockDim.x) {
+    const int r = idx / d3, c = idx - r * d3;
+    sBig[idx] = scr[r * col.width + col.dqkv + c];
+  }
+  __syncthreads();
+  rowmm<S, false>(sBig, d3, p.wqkv, d3, d, T, [&](int r, int n, float acc) {
+    p.dx[static_cast<size_t>(r0 + r) * d + n] = st<S>(B0[r * d + n] + acc);
+  });
+}
+
+// ---------------------------------------------------------------- backward, weights
+
+template <typename S>
+struct WgradArgs {
+  const S *dy, *x, *qkv, *a1, *h;
+  const float *g1, *b1;
+  const int* seed;
+  const float* scratch;
+  float *dwqkv, *dwo, *dw1, *dw2, *vec;
+};
+
+__host__ __device__ inline int tiles(int n) { return (n + kTile - 1) / kTile; }
+
+template <typename S>
+__global__ void __launch_bounds__(kThreads) layer_bwd_weights(WgradArgs<S> p, Shape sh) {
+  extern __shared__ __align__(16) float sm[];
+  const int T = sh.T, d = sh.d, H = sh.H, ff = sh.ff, d3 = 3 * d;
+  const int hd = d / H, m = sh.nseq * T;
+  const Cols col(d, ff);
+  const Drop dr = make_drop(p.seed, sh.thresh);
+  const float scale = 1.f / sqrtf(static_cast<float>(hd));
+
+  // which matrix, as (K inputs, N outputs); each is stored (N, K):
+  // 0 dWqkv (d, 3d), 1 dWo (d, d), 2 dW1 (d, ff), 3 dW2 (ff, d)
+  const int counts[4] = {tiles(d) * tiles(d3), tiles(d) * tiles(d), tiles(d) * tiles(ff),
+                         tiles(ff) * tiles(d)};
+  int b = blockIdx.x, mat = 0;
+  while (mat < 4 && b >= counts[mat]) b -= counts[mat++];
+
+  if (mat == 4) {  // bias and LN parameter sums: 32 columns a block, a lane
+                   // per column, the 8 warps over interleaved rows
+    __shared__ float part[kThreads / 32][32];
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, nwarps = blockDim.x >> 5;
+    const int c = b * 32 + lane;
+    // vec: dbqkv 3d | dbo d | dg1 d | db1 d | db1f ff | db2f d | dg2 d | db2 d
+    int src = -1;
+    if (c < d3) src = col.dqkv + c;
+    else if (c < 4 * d) src = col.dproj + c - d3;
+    else if (c < 5 * d) src = col.dy1zh1 + c - 4 * d;
+    else if (c < 6 * d) src = col.dy1 + c - 5 * d;
+    else if (c < 6 * d + ff) src = col.dhpre + c - 6 * d;
+    else if (c < 7 * d + ff) src = col.df + c - 6 * d - ff;
+    else if (c < 8 * d + ff) src = col.dyzh2 + c - 7 * d - ff;
+    float acc[4] = {0.f, 0.f, 0.f, 0.f};
+    if (c < 9 * d + ff) {
+      for (int r = warp, i = 0; r < m; r += nwarps, ++i)
+        acc[i & 3] += src >= 0 ? p.scratch[static_cast<size_t>(r) * col.width + src]
+                               : ld(p.dy[static_cast<size_t>(r) * d + c - 8 * d - ff]);
+    }
+    part[warp][lane] = (acc[0] + acc[1]) + (acc[2] + acc[3]);
+    __syncthreads();
+    if (warp == 0 && c < 9 * d + ff) {
+      float total = 0.f;
+      for (int w = 0; w < nwarps; ++w) total += part[w][lane];
+      p.vec[c] = total;
+    }
+    return;
+  }
+
+  const int K = mat == 3 ? ff : d;
+  const int N = mat == 0 ? d3 : mat == 2 ? ff : d;
+  const int k0 = (b / tiles(N)) * kTile, n0 = (b % tiles(N)) * kTile;
+  float* sA = sm;                  // (T, 64)
+  float* sB = sA + T * kTile;      // (T, 64)
+  float* sQ = sB + T * kTile;      // (T, hd)
+  float* sK = sQ + T * hd;         // (T, hd)
+  float* sP = sK + T * hd;         // (T, T)
+  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
+  float acc[4][4];
+#pragma unroll
+  for (int a = 0; a < 4; ++a)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) acc[a][c] = 0.f;
+
+  for (int s = 0; s < sh.nseq; ++s) {
+    const int r0 = s * T;
+    const float* scr = p.scratch + static_cast<size_t>(r0) * col.width;
+    // B: the row gradients of columns n0.., rounded to S where the TPU
+    // kernel rounds them before the product
+    for (int idx = threadIdx.x; idx < T * kTile; idx += blockDim.x) {
+      const int r = idx / kTile, n = n0 + idx - r * kTile;
+      float v = 0.f;
+      if (n < N) {
+        const float* row = scr + r * col.width;
+        v = mat == 0 ? row[col.dqkv + n]
+            : mat == 1 ? rnd<S>(row[col.dproj + n])
+            : mat == 2 ? rnd<S>(row[col.dhpre + n])
+                       : rnd<S>(row[col.df + n]);
+      }
+      sB[idx] = v;
+    }
+    // A: the layer inputs of rows k0.. (x, attention output, y1, h)
+    if (mat == 1) {
+      const int kend = min(k0 + kTile, d);
+      for (int hh = k0 / hd; hh * hd < kend; ++hh) {
+        for (int idx = threadIdx.x; idx < T * hd; idx += blockDim.x) {
+          const int r = idx / hd, c = idx - r * hd;
+          const size_t g = static_cast<size_t>(r0 + r) * d3 + hh * hd + c;
+          sQ[idx] = ld(p.qkv[g]);
+          sK[idx] = ld(p.qkv[g + d]);
+        }
+        __syncthreads();
+        head_probs(sQ, sK, hd, hd, T, scale, sP);
+        for (int idx = threadIdx.x; idx < T * T; idx += blockDim.x) {
+          const int i = idx / T, j = idx - i * T;
+          sP[idx] = rnd<S>(dr.apply(sP[idx], kSiteAttn, (s * H + hh) * T + i, j));
+        }
+        __syncthreads();
+        const int c_lo = max(k0, hh * hd), c_hi = min(kend, (hh + 1) * hd);
+        const int w = c_hi - c_lo;
+        for (int idx = threadIdx.x; idx < T * w; idx += blockDim.x) {
+          const int i = idx / w, c = c_lo + idx - i * w;
+          float a = 0.f;
+          for (int j = 0; j < T; ++j)
+            a = fmaf(sP[i * T + j], ld(p.qkv[static_cast<size_t>(r0 + j) * d3 + 2 * d + c]), a);
+          sA[i * kTile + c - k0] = rnd<S>(a);
+        }
+        __syncthreads();
+      }
+      for (int idx = threadIdx.x; idx < T * kTile; idx += blockDim.x)
+        if (k0 + idx % kTile >= d) sA[idx] = 0.f;
+    } else {
+      for (int idx = threadIdx.x; idx < T * kTile; idx += blockDim.x) {
+        const int r = idx / kTile, k = k0 + idx - r * kTile;
+        float v = 0.f;
+        if (k < K) {
+          const size_t row = static_cast<size_t>(r0 + r);
+          if (mat == 0) {
+            v = ld(p.x[row * d + k]);
+          } else if (mat == 3) {
+            v = ld(p.h[row * ff + k]);
+          } else {  // y1 from the stored a1 and the row kernel's statistics
+            const float* st_ = scr + r * col.width + col.stats;
+            v = rnd<S>(affine(zhat(ld(p.a1[row * d + k]), st_[0], st_[1]), p.g1[k], p.b1[k]));
+          }
+        }
+        sA[idx] = v;
+      }
+    }
+    __syncthreads();
+    for (int r = 0; r < T; ++r) {
+      const float4 a = *reinterpret_cast<const float4*>(sA + r * kTile + ty * 4);
+      const float4 bb = *reinterpret_cast<const float4*>(sB + r * kTile + tx * 4);
+      const float av[4] = {a.x, a.y, a.z, a.w}, bv[4] = {bb.x, bb.y, bb.z, bb.w};
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+    }
+    __syncthreads();
+  }
+  float* out = mat == 0 ? p.dwqkv : mat == 1 ? p.dwo : mat == 2 ? p.dw1 : p.dw2;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int k = k0 + ty * 4 + i;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int n = n0 + tx * 4 + j;
+      if (k < K && n < N) out[static_cast<size_t>(n) * K + k] = acc[i][j];
+    }
+  }
+}
+
+// ---------------------------------------------------------------- launch
+
+size_t fwd_smem(const Shape& s) {
+  const int big = 3 * s.d > s.ff ? 3 * s.d : s.ff;
+  return 4 * (static_cast<size_t>(s.T) * (2 * s.d + big) + s.T * s.T);
+}
+size_t rows_smem(const Shape& s) {
+  const int big = 3 * s.d > s.ff ? 3 * s.d : s.ff;
+  return 4 * (static_cast<size_t>(s.T) * (3 * s.d + big) + 2 * s.T * s.T + 4 * s.T);
+}
+size_t weights_smem(const Shape& s) {
+  return 4 * (2 * static_cast<size_t>(s.T) * kTile + 2 * s.T * (s.d / s.H) + s.T * s.T);
+}
+
+// launch kernel with `smem` dynamic shared memory, opting in above 48 KB
+template <typename Kernel, typename Args>
+int launch(Kernel kernel, int blocks, size_t smem, cudaStream_t stream, const Args& args,
+           const Shape& sh) {
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  kernel<<<blocks, kThreads, smem, stream>>>(args, sh);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename S>
+int fwd(void* const* ptr, const Shape& sh, cudaStream_t stream) {
+  FwdArgs<S> a;
+  a.x = static_cast<const S*>(ptr[0]);
+  a.wqkv = static_cast<const S*>(ptr[1]);
+  a.bqkv = static_cast<const float*>(ptr[2]);
+  a.wo = static_cast<const S*>(ptr[3]);
+  a.bo = static_cast<const float*>(ptr[4]);
+  a.g1 = static_cast<const float*>(ptr[5]);
+  a.b1 = static_cast<const float*>(ptr[6]);
+  a.w1 = static_cast<const S*>(ptr[7]);
+  a.b1f = static_cast<const float*>(ptr[8]);
+  a.w2 = static_cast<const S*>(ptr[9]);
+  a.b2f = static_cast<const float*>(ptr[10]);
+  a.g2 = static_cast<const float*>(ptr[11]);
+  a.b2 = static_cast<const float*>(ptr[12]);
+  a.seed = static_cast<const int*>(ptr[13]);
+  a.y = static_cast<S*>(ptr[14]);
+  a.qkv = static_cast<S*>(ptr[15]);
+  a.a1 = static_cast<S*>(ptr[16]);
+  a.h = static_cast<S*>(ptr[17]);
+  a.a2 = static_cast<S*>(ptr[18]);
+  return launch(layer_fwd<S>, sh.nseq, fwd_smem(sh), stream, a, sh);
+}
+
+template <typename S>
+int bwd_rows(void* const* ptr, const Shape& sh, cudaStream_t stream) {
+  BwdArgs<S> a;
+  a.dy = static_cast<const S*>(ptr[0]);
+  a.x = static_cast<const S*>(ptr[1]);
+  a.qkv = static_cast<const S*>(ptr[2]);
+  a.a1 = static_cast<const S*>(ptr[3]);
+  a.h = static_cast<const S*>(ptr[4]);
+  a.a2 = static_cast<const S*>(ptr[5]);
+  a.wqkv = static_cast<const S*>(ptr[6]);
+  a.wo = static_cast<const S*>(ptr[7]);
+  a.w1 = static_cast<const S*>(ptr[8]);
+  a.w2 = static_cast<const S*>(ptr[9]);
+  a.g1 = static_cast<const float*>(ptr[10]);
+  a.b1 = static_cast<const float*>(ptr[11]);
+  a.g2 = static_cast<const float*>(ptr[12]);
+  a.seed = static_cast<const int*>(ptr[13]);
+  a.dx = static_cast<S*>(ptr[14]);
+  a.scratch = static_cast<float*>(ptr[15]);
+  return launch(layer_bwd_rows<S>, sh.nseq, rows_smem(sh), stream, a, sh);
+}
+
+template <typename S>
+int bwd_weights(void* const* ptr, const Shape& sh, cudaStream_t stream) {
+  WgradArgs<S> a;
+  a.dy = static_cast<const S*>(ptr[0]);
+  a.x = static_cast<const S*>(ptr[1]);
+  a.qkv = static_cast<const S*>(ptr[2]);
+  a.a1 = static_cast<const S*>(ptr[3]);
+  a.h = static_cast<const S*>(ptr[4]);
+  a.g1 = static_cast<const float*>(ptr[5]);
+  a.b1 = static_cast<const float*>(ptr[6]);
+  a.seed = static_cast<const int*>(ptr[7]);
+  a.scratch = static_cast<const float*>(ptr[8]);
+  a.dwqkv = static_cast<float*>(ptr[9]);
+  a.dwo = static_cast<float*>(ptr[10]);
+  a.dw1 = static_cast<float*>(ptr[11]);
+  a.dw2 = static_cast<float*>(ptr[12]);
+  a.vec = static_cast<float*>(ptr[13]);
+  const int d = sh.d, ff = sh.ff;
+  const int blocks = tiles(d) * tiles(3 * d) + tiles(d) * tiles(d) + tiles(d) * tiles(ff) +
+                     tiles(ff) * tiles(d) + (9 * d + ff + 31) / 32;
+  return launch(layer_bwd_weights<S>, blocks, weights_smem(sh), stream, a, sh);
+}
+
+}  // namespace
+
+extern "C" {
+
+// Shapes: nseq sequences of T rows (rows = nseq·T), width d, H heads, ff
+// hidden; thresh the 8-bit keep threshold (256: no dropout); is_bf16 picks
+// the storage dtype (0 float32, 1 bfloat16). All pointers are device
+// pointers of contiguous tensors; seed points to one int32.
+
+int tgi_layer_fwd(void* x, void* wqkv, void* bqkv, void* wo, void* bo, void* g1,
+                  void* b1, void* w1, void* b1f, void* w2, void* b2f, void* g2,
+                  void* b2, void* seed, void* y, void* qkv, void* a1, void* h,
+                  void* a2, int nseq, int T, int d, int H, int ff, int thresh,
+                  int is_bf16, void* stream) {
+  void* const ptr[] = {x, wqkv, bqkv, wo, bo, g1, b1, w1, b1f, w2, b2f, g2, b2,
+                       seed, y, qkv, a1, h, a2};
+  const Shape sh{nseq, T, d, H, ff, thresh};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return is_bf16 ? fwd<__nv_bfloat16>(ptr, sh, s) : fwd<float>(ptr, sh, s);
+}
+
+int tgi_layer_bwd_rows(void* dy, void* x, void* qkv, void* a1, void* h, void* a2,
+                       void* wqkv, void* wo, void* w1, void* w2, void* g1, void* b1,
+                       void* g2, void* seed, void* dx, void* scratch, int nseq, int T,
+                       int d, int H, int ff, int thresh, int is_bf16, void* stream) {
+  void* const ptr[] = {dy, x, qkv, a1, h, a2, wqkv, wo, w1, w2, g1, b1, g2, seed,
+                       dx, scratch};
+  const Shape sh{nseq, T, d, H, ff, thresh};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return is_bf16 ? bwd_rows<__nv_bfloat16>(ptr, sh, s) : bwd_rows<float>(ptr, sh, s);
+}
+
+int tgi_layer_bwd_weights(void* dy, void* x, void* qkv, void* a1, void* h, void* g1,
+                          void* b1, void* seed, void* scratch, void* dwqkv, void* dwo,
+                          void* dw1, void* dw2, void* vec, int nseq, int T, int d,
+                          int H, int ff, int thresh, int is_bf16, void* stream) {
+  void* const ptr[] = {dy, x, qkv, a1, h, g1, b1, seed, scratch, dwqkv, dwo, dw1,
+                       dw2, vec};
+  const Shape sh{nseq, T, d, H, ff, thresh};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return is_bf16 ? bwd_weights<__nv_bfloat16>(ptr, sh, s) : bwd_weights<float>(ptr, sh, s);
+}
+
+const char* tgi_layer_error_string(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}
+
+}  // extern "C"

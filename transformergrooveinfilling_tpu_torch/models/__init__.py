@@ -5,8 +5,10 @@ from .transformer import (
     GrooveTransformerEncoder,
     sinusoidal_positional_encoding,
     build_model,
+    init_parameters,
     predict,
 )
+from .losses import LossOutputs, calculate_loss
 from . import torch_compat
 
 __all__ = [
@@ -14,6 +16,9 @@ __all__ = [
     "GrooveTransformerEncoder",
     "sinusoidal_positional_encoding",
     "build_model",
+    "init_parameters",
     "predict",
+    "LossOutputs",
+    "calculate_loss",
     "torch_compat",
 ]

@@ -1,10 +1,10 @@
-"""Groove infilling transformer, encoder-only inference (``torch.nn``).
+"""Groove infilling transformer, encoder-only (``torch.nn``), serving and training.
 
-Counterpart of ``transformergrooveinfilling_tpu/models/transformer.py`` on its
-deterministic path: Linear(src→d_model) embedding → ReLU → sinusoidal PE, N
-post-LN encoder layers (packed-QKV self-attention, ReLU FFN), a final
-LayerNorm, and Linear(d_model→3V) split into hit logits / velocity (sigmoid) /
-offset (tanh·0.5).
+Counterpart of ``transformergrooveinfilling_tpu/models/transformer.py``:
+Linear(src→d_model) embedding → ReLU → sinusoidal PE → dropout, N post-LN
+encoder layers (packed-QKV self-attention, ReLU FFN), a final LayerNorm, and
+Linear(d_model→3V) split into hit logits / velocity (sigmoid) / offset
+(tanh·0.5).
 
 Submodules carry the reference checkpoint's names
 (``InputLayerEncoder.Linear``, ``Encoder.Encoder.layers.{i}.self_attn.
@@ -18,9 +18,17 @@ Numerics follow the JAX model, including where it differs from torch's
 (the per-layer ones torch's 1e-5), and ``compute_dtype=bfloat16`` runs every
 projection as a bf16 product (weights cast at the op, storage stays f32)
 while the LayerNorms, the final norm and the output head run in f32.
+Parameters start as flax's do (:func:`init_parameters`).
 
-Dropout and the training-only switches are accepted and ignored: this slice
-serves; training comes in a later one.
+``eval()`` mode is the JAX deterministic path: no dropout, and the training
+switches (``fused_layer``, ``fused_ffn``, ``fused_dropout_ln``, ``remat``)
+change nothing. ``train()`` mode is the JAX ``deterministic=False`` path:
+``forward(src, generator)`` draws every dropout site from ``generator``
+(``fast_dropout`` picks the 8-bit or the exact-rate rule), and
+``fused_layer`` runs each encoder layer through ``ops/fused_layer.py``
+(the CUDA kernels on a CUDA tensor). A training forward that would take a
+path not ported yet raises ``NotPortedError``: the fused FFN, the fused
+dropout+LayerNorm at rate > 0, and remat.
 """
 
 from __future__ import annotations
@@ -36,6 +44,8 @@ from torch import nn
 
 from .. import NotPortedError
 from ..ops.attention import fused_mha, mha_reference
+from ..ops.dropout import dropout as drop_site
+from ..ops.fused_layer import encoder_layer_train, supports_fused_layer
 
 
 @dataclasses.dataclass(frozen=True)
@@ -55,8 +65,9 @@ class GrooveTransformerConfig:
     # every encoder layer's attention through the CUDA kernel
     # (ops/attention.py::fused_mha; the JAX field is use_pallas_attention)
     use_fused_attention: bool = False
-    # training-path switches of the JAX config, accepted and ignored until
-    # the training slice is ported
+    # training-path switches of the JAX config. fused_layer and fast_dropout
+    # act in train() mode; fused_ffn, fused_dropout_ln (at rate > 0) and
+    # remat raise NotPortedError there; eval() mode ignores them all
     remat: bool = False
     remat_policy: Optional[str] = None
     fused_dropout_ln: bool = False
@@ -99,6 +110,14 @@ def _linear(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
     return F.linear(x.to(dtype), weight.to(dtype), bias.to(dtype))
 
 
+def _new_linear(in_features: int, out_features: int, device) -> nn.Linear:
+    """An ``nn.Linear`` whose parameters are left for :func:`init_parameters`
+    (no draw from torch's global RNG)."""
+    if device is None:
+        device = torch.get_default_device()
+    return nn.utils.skip_init(nn.Linear, in_features, out_features, device=device)
+
+
 def _add_layer_norm(x: torch.Tensor, y: torch.Tensor, norm: nn.LayerNorm) -> torch.Tensor:
     """``LN(x + y)`` in f32, cast back to ``x.dtype`` (the JAX
     ``DropAddLayerNorm`` on its deterministic path)."""
@@ -107,14 +126,58 @@ def _add_layer_norm(x: torch.Tensor, y: torch.Tensor, norm: nn.LayerNorm) -> tor
                         norm.eps).to(x.dtype)
 
 
+def _drop_add_layer_norm(x: torch.Tensor, y: torch.Tensor, norm: nn.LayerNorm,
+                         rate: float, fast: bool, generator) -> torch.Tensor:
+    """``LN(x + dropout(y))`` on the training path: f32, the one-pass
+    variance clamped at 0, as the JAX ``DropAddLayerNorm``."""
+    a = (x + drop_site(y, generator, rate, fast)).float()
+    mu = a.mean(-1, keepdim=True)
+    var = torch.clamp((a * a).mean(-1, keepdim=True) - mu * mu, min=0.0)
+    zhat = (a - mu) * torch.rsqrt(var + norm.eps)
+    return (zhat * norm.weight + norm.bias).to(x.dtype)
+
+
+LECUN_TRUNC_STD = 0.87962566103423978  # std of a unit normal cut at ±2
+
+
+def _lecun_normal_(w: torch.Tensor, fan_in: int, generator: torch.Generator) -> None:
+    """flax ``lecun_normal``: a normal of variance 1/fan_in, cut at ±2 of its
+    own scale (std √(1/fan_in) ÷ 0.8796…), drawn on the CPU from
+    ``generator`` by the inverse CDF and copied to ``w``'s device."""
+    lo, hi = (0.5 * (1.0 + math.erf(z / math.sqrt(2.0))) for z in (-2.0, 2.0))
+    u = torch.rand(w.shape, generator=generator, dtype=torch.float64) * (hi - lo) + lo
+    z = torch.clamp(math.sqrt(2.0) * torch.erfinv(2.0 * u - 1.0), -2.0, 2.0)
+    std = math.sqrt(1.0 / fan_in) / LECUN_TRUNC_STD
+    with torch.no_grad():
+        w.copy_((z * std).to(torch.float32))
+
+
+def init_parameters(model: nn.Module, generator: torch.Generator) -> nn.Module:
+    """Initialise every parameter as the JAX package's ``model.init`` does:
+    linear weights (``in_proj_weight`` included, fan_in = its input width)
+    truncated-normal ``lecun_normal``, biases 0, LayerNorm scales 1 and
+    biases 0. Draws come from the CPU ``generator`` in ``named_parameters``
+    order, so the weights do not depend on the device."""
+    norms = {id(m.weight) for m in model.modules() if isinstance(m, nn.LayerNorm)}
+    with torch.no_grad():
+        for _, p in model.named_parameters():
+            if id(p) in norms:
+                p.fill_(1.0)
+            elif p.dim() == 2:
+                _lecun_normal_(p, p.shape[1], generator)
+            else:
+                p.zero_()
+    return model
+
+
 class InputLayer(nn.Module):
-    """Linear embed → ReLU → +PE (reference ``InputLayerEncoder``)."""
+    """Linear embed → ReLU → +PE → dropout (reference ``InputLayerEncoder``)."""
 
     def __init__(self, embedding_size_src: int, d_model: int, max_len: int,
                  dtype: torch.dtype, device=None):
         super().__init__()
         self.dtype = dtype
-        self.Linear = nn.Linear(embedding_size_src, d_model, device=device)
+        self.Linear = _new_linear(embedding_size_src, d_model, device)
         self.register_buffer(
             "pe", sinusoidal_positional_encoding(max_len, d_model, device),
             persistent=False)
@@ -122,6 +185,15 @@ class InputLayer(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = torch.relu(_linear(x, self.Linear.weight, self.Linear.bias, self.dtype))
         return x + self.pe[:, : x.shape[-2]].to(x.dtype)
+
+
+def attention_train(q, k, v, rate: float, fast: bool, generator) -> torch.Tensor:
+    """Attention with dropout on the probabilities (the JAX unfused training
+    path): f32 scores and softmax, probabilities rounded to ``v.dtype``, then
+    dropped and multiplied by V with f32 accumulation."""
+    s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * (1.0 / math.sqrt(q.shape[-1]))
+    p = drop_site(torch.softmax(s, dim=-1).to(v.dtype), generator, rate, fast)
+    return torch.matmul(p.float(), v.float()).to(q.dtype)
 
 
 class SelfAttention(nn.Module):
@@ -139,40 +211,83 @@ class SelfAttention(nn.Module):
         self.in_proj_weight = nn.Parameter(
             torch.empty(3 * d_model, d_model, device=device))
         self.in_proj_bias = nn.Parameter(torch.zeros(3 * d_model, device=device))
-        nn.init.xavier_uniform_(self.in_proj_weight)
-        self.out_proj = nn.Linear(d_model, d_model, device=device)
+        self.out_proj = _new_linear(d_model, d_model, device)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, dropout=None) -> torch.Tensor:
+        """``dropout``: ``(rate, fast, generator)`` on the training path, where
+        the probabilities are dropped and the plain attention runs (the JAX
+        kernel path is deterministic only)."""
         b, t, d = x.shape
         h = self.n_heads
         qkv = _linear(x, self.in_proj_weight, self.in_proj_bias, self.dtype)
         # one copy into (3, B, H, T, hd): q, k, v come out contiguous
         q, k, v = qkv.view(b, t, 3, h, d // h).permute(2, 0, 3, 1, 4).contiguous()
-        out = self.attend(q, k, v)
+        out = self.attend(q, k, v) if dropout is None else attention_train(q, k, v, *dropout)
         out = out.transpose(1, 2).reshape(b, t, d)
         return _linear(out, self.out_proj.weight, self.out_proj.bias, self.dtype)
 
 
 class EncoderLayer(nn.Module):
-    """Post-LN encoder layer, torch 1.10 ``TransformerEncoderLayer`` at
-    inference: ``x = LN(x + SA(x)); x = LN(x + W2·relu(W1·x))``."""
+    """Post-LN encoder layer, torch 1.10 ``TransformerEncoderLayer``:
+    ``x = LN(x + Drop(SA(x))); x = LN(x + Drop(W2·Drop(relu(W1·x))))``."""
 
-    def __init__(self, d_model: int, n_heads: int, dim_feedforward: int,
-                 dtype: torch.dtype, use_fused_attention: bool, device=None):
+    def __init__(self, config: GrooveTransformerConfig, device=None):
         super().__init__()
-        self.dtype = dtype
-        self.self_attn = SelfAttention(d_model, n_heads, dtype,
-                                       use_fused_attention, device)
-        self.linear1 = nn.Linear(d_model, dim_feedforward, device=device)
-        self.linear2 = nn.Linear(dim_feedforward, d_model, device=device)
-        self.norm1 = nn.LayerNorm(d_model, eps=1e-5, device=device)
-        self.norm2 = nn.LayerNorm(d_model, eps=1e-5, device=device)
+        cfg = self.config = config
+        self.dtype = cfg.compute_dtype
+        self.self_attn = SelfAttention(cfg.d_model, cfg.n_heads, cfg.compute_dtype,
+                                       cfg.use_fused_attention, device)
+        self.linear1 = _new_linear(cfg.d_model, cfg.dim_feedforward, device)
+        self.linear2 = _new_linear(cfg.dim_feedforward, cfg.d_model, device)
+        self.norm1 = nn.LayerNorm(cfg.d_model, eps=1e-5, device=device)
+        self.norm2 = nn.LayerNorm(cfg.d_model, eps=1e-5, device=device)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = _add_layer_norm(x, self.self_attn(x), self.norm1)
+    def forward(self, x: torch.Tensor, generator=None) -> torch.Tensor:
+        if not self.training:
+            x = _add_layer_norm(x, self.self_attn(x), self.norm1)
+            ff = torch.relu(_linear(x, self.linear1.weight, self.linear1.bias, self.dtype))
+            ff = _linear(ff, self.linear2.weight, self.linear2.bias, self.dtype)
+            return _add_layer_norm(x, ff, self.norm2)
+        cfg = self.config
+        if cfg.fused_layer:
+            return self._fused(x, generator)
+        rate, fast = cfg.dropout, cfg.fast_dropout
+        if cfg.fused_dropout_ln and rate > 0.0:
+            raise NotPortedError("fused_dropout_ln at dropout > 0: the fused "
+                                 "dropout+LayerNorm kernel is not ported yet")
+        if cfg.fused_ffn:
+            raise NotPortedError("fused_ffn: the fused FFN kernel is not ported yet")
+        sa = self.self_attn(x, dropout=(rate, fast, generator))
+        x = _drop_add_layer_norm(x, sa, self.norm1, rate, fast, generator)
         ff = torch.relu(_linear(x, self.linear1.weight, self.linear1.bias, self.dtype))
+        ff = drop_site(ff, generator, rate, fast)
         ff = _linear(ff, self.linear2.weight, self.linear2.bias, self.dtype)
-        return _add_layer_norm(x, ff, self.norm2)
+        return _drop_add_layer_norm(x, ff, self.norm2, rate, fast, generator)
+
+    def _fused(self, x: torch.Tensor, generator) -> torch.Tensor:
+        """The whole layer through ``ops/fused_layer.py`` (JAX
+        ``EncoderLayer``'s fused dispatch), one seed per step and layer."""
+        cfg = self.config
+        b, t, d = x.shape
+        cd = self.dtype
+        if not supports_fused_layer(d, cfg.n_heads, cfg.dim_feedforward, t, cd):
+            raise ValueError(
+                f"fused_layer=True, but the fused layer does not take d_model={d}, "
+                f"n_heads={cfg.n_heads}, dim_feedforward={cfg.dim_feedforward}, "
+                f"T={t}, {cd} (ops/fused_layer.py::supports_fused_layer)")
+        seed = torch.randint(0, 2**31 - 1, (1,), generator=generator,
+                             device=x.device, dtype=torch.int32)
+        sa, f32 = self.self_attn, torch.float32
+        y = encoder_layer_train(
+            x.reshape(b * t, d).to(cd),
+            sa.in_proj_weight.to(cd), sa.in_proj_bias.to(f32),
+            sa.out_proj.weight.to(cd), sa.out_proj.bias.to(f32),
+            self.norm1.weight.to(f32), self.norm1.bias.to(f32),
+            self.linear1.weight.to(cd), self.linear1.bias.to(f32),
+            self.linear2.weight.to(cd), self.linear2.bias.to(f32),
+            self.norm2.weight.to(f32), self.norm2.bias.to(f32),
+            seed, float(cfg.dropout), cfg.n_heads, t)
+        return y.reshape(b, t, d).to(x.dtype)
 
 
 class OutputLayer(nn.Module):
@@ -180,7 +295,7 @@ class OutputLayer(nn.Module):
 
     def __init__(self, d_model: int, embedding_size_tgt: int, device=None):
         super().__init__()
-        self.Linear = nn.Linear(d_model, embedding_size_tgt, device=device)
+        self.Linear = _new_linear(d_model, embedding_size_tgt, device)
 
     def forward(self, x: torch.Tensor):
         y = self.Linear(x)
@@ -191,41 +306,55 @@ class OutputLayer(nn.Module):
 class GrooveTransformerEncoder(nn.Module):
     """Encoder-only groove transformer: ``(B, T, E_src)`` → ``(h_logits, v, o)``."""
 
-    def __init__(self, config: GrooveTransformerConfig, device=None):
+    def __init__(self, config: GrooveTransformerConfig, device=None,
+                 generator: Optional[torch.Generator] = None):
         super().__init__()
         cfg = self.config = config
         self.InputLayerEncoder = InputLayer(
             cfg.embedding_size_src, cfg.d_model, cfg.max_len, cfg.compute_dtype,
             device)
-        layers = nn.ModuleList(
-            EncoderLayer(cfg.d_model, cfg.n_heads, cfg.dim_feedforward,
-                         cfg.compute_dtype, cfg.use_fused_attention, device)
-            for _ in range(cfg.num_encoder_layers))
+        layers = nn.ModuleList(EncoderLayer(cfg, device)
+                               for _ in range(cfg.num_encoder_layers))
         # the reference's key prefix: Encoder.Encoder.{layers.i, norm}
         self.Encoder = nn.ModuleDict({"Encoder": nn.ModuleDict({
             "layers": layers,
             "norm": nn.LayerNorm(cfg.d_model, eps=1e-6, device=device)})})
         self.OutputLayer = OutputLayer(cfg.d_model, cfg.embedding_size_tgt, device)
+        init_parameters(self, generator if generator is not None
+                        else torch.Generator().manual_seed(0))
 
-    def forward(self, src: torch.Tensor):
+    def forward(self, src: torch.Tensor, generator: Optional[torch.Generator] = None):
+        """``generator`` (on ``src``'s device) feeds every dropout site in
+        ``train()`` mode; ``eval()`` mode needs none."""
+        cfg = self.config
+        if self.training:
+            if generator is None:
+                raise ValueError("a training forward needs a torch.Generator "
+                                 "for its dropout draws")
+            if cfg.remat:
+                raise NotPortedError("remat: layer rematerialisation is not ported yet")
         stack = self.Encoder["Encoder"]
-        x = self.InputLayerEncoder(src.to(self.config.compute_dtype))
+        x = self.InputLayerEncoder(src.to(cfg.compute_dtype))
+        if self.training:
+            x = drop_site(x, generator, cfg.dropout, cfg.fast_dropout)
         for layer in stack["layers"]:
-            x = layer(x)
+            x = layer(x, generator)
         norm = stack["norm"]
         x = F.layer_norm(x.float(), norm.normalized_shape, norm.weight,
                          norm.bias, norm.eps)  # heads in f32
         return self.OutputLayer(x)
 
 
-def build_model(config: GrooveTransformerConfig, device=None) -> GrooveTransformerEncoder:
-    """The encoder-only model on ``device``, in eval mode, randomly
-    initialised (load weights with ``load_state_dict``)."""
+def build_model(config: GrooveTransformerConfig, device=None,
+                generator: Optional[torch.Generator] = None) -> GrooveTransformerEncoder:
+    """The encoder-only model on ``device``, in eval mode, initialised as
+    :func:`init_parameters` says from ``generator`` (a CPU generator; seed 0
+    when none is given). Load weights with ``load_state_dict``."""
     if not config.encoder_only:
         raise NotPortedError(
             f"num_decoder_layers={config.num_decoder_layers}: the "
             "encoder-decoder family is not ported yet")
-    return GrooveTransformerEncoder(config, device).eval()
+    return GrooveTransformerEncoder(config, device, generator).eval()
 
 
 def predict(model: GrooveTransformerEncoder, inputs: torch.Tensor,

@@ -9,6 +9,7 @@ entry point's ``argtypes``.
 
 Nothing is built at import time, and nothing here falls back: a missing
 ``nvcc`` or a failed build raises with the compiler's own message.
+:func:`build_all` runs one ``nvcc`` per source, all at once.
 """
 
 from __future__ import annotations
@@ -19,6 +20,7 @@ import os
 import subprocess
 import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
@@ -29,6 +31,7 @@ NVCC_FLAGS = (
 )
 
 _lock = threading.Lock()
+_name_locks: dict[str, threading.Lock] = {}
 _libraries: dict[str, ctypes.CDLL] = {}
 # per kernel: {"seconds": build time (0.0 when cached), "log": nvcc's output}
 build_info: dict[str, dict] = {}
@@ -52,10 +55,19 @@ def find_nvcc() -> str:
 def load_library(name: str) -> ctypes.CDLL:
     """Build (once per source hash) and load ``csrc/<name>.cu``."""
     with _lock:
+        name_lock = _name_locks.setdefault(name, threading.Lock())
+    with name_lock:
         lib = _libraries.get(name)
         if lib is None:
             lib = _libraries[name] = ctypes.CDLL(str(_build(name)))
         return lib
+
+
+def build_all(names) -> None:
+    """Build and load several kernels, one ``nvcc`` each, in parallel."""
+    with ThreadPoolExecutor(max_workers=len(names)) as pool:
+        for future in [pool.submit(load_library, n) for n in names]:
+            future.result()
 
 
 def _build(name: str) -> Path:

@@ -1,0 +1,199 @@
+"""Training configuration, as the JAX package's ``train/config.py``.
+
+The reference's YAML surface (the hyperparameter keys of
+``configs/*_training.yaml``) maps onto :class:`HyperParams`, and
+:func:`derive_model_config` derives the model config from it
+(``num_decoder_layers=0`` when encoder-only, ``embedding_size_src`` 16 for MSO
+input vs 27 for the symbolic experiment, ``max_len=32``). The switches the JAX
+package resolves for the TPU are resolved here for one CUDA card (or the CPU):
+bf16 matmuls on CUDA, the whole-layer kernel where its Hopper gate admits the
+shape, no fused FFN until it is ported, and remat by the same memory estimate.
+``yaml`` is imported only inside :func:`load_hyperparameters`.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import os
+import warnings
+from typing import Any, Optional
+
+import torch
+
+from ..models.transformer import GrooveTransformerConfig
+from ..ops.fused_layer import supports_fused_layer
+
+HVO_WIDTH = 27
+MSO_BANDS = 16
+MAX_LEN = 32
+
+
+@dataclasses.dataclass
+class HyperParams:
+    """The reference's hyperparameter schema, field for field the JAX
+    package's (``bf16``, ``fused_*``, ``remat*``: None = auto)."""
+
+    experiment: str = ""
+    encoder_only: int = 1
+    optimizer_algorithm: str = "sgd"
+    d_model: int = 64
+    n_heads: int = 16
+    dropout: float = 0.2
+    num_encoder_decoder_layers: int = 7
+    hit_loss_penalty: float = 1.0
+    batch_size: int = 16
+    dim_feedforward: int = 256
+    learning_rate: float = 0.05
+    epochs: int = 100
+    load_model: Optional[Any] = None
+    notes: Optional[str] = None
+    bf16: Optional[bool] = None
+    fused_ffn: Optional[bool] = None
+    fused_layer: Optional[bool] = None
+    fused_decoder_layer: Optional[bool] = None
+    remat: Optional[bool] = None
+    remat_policy: Optional[str] = None
+
+    @classmethod
+    def from_dict(cls, d: dict) -> "HyperParams":
+        known = {f.name for f in dataclasses.fields(cls)}
+        hp = cls(**{k: v for k, v in d.items() if k in known})
+        hp.extra = {k: v for k, v in d.items() if k not in known}  # round-tripped
+        return hp
+
+    def to_dict(self) -> dict:
+        d = dataclasses.asdict(self)
+        d.pop("notes", None)
+        return d
+
+
+def load_hyperparameters(config_path: str) -> HyperParams:
+    """Load a reference-format training YAML."""
+    import yaml
+
+    with open(config_path) as f:
+        return HyperParams.from_dict(yaml.safe_load(f))
+
+
+def embedding_size_src_for(experiment: str) -> int:
+    """16 MSO bands for audio experiments; 27 (raw HVO) for symbolic ones."""
+    return HVO_WIDTH if "Symbolic" in experiment else MSO_BANDS
+
+
+def resolve_compute_dtype(bf16: Optional[bool], device="cpu") -> torch.dtype:
+    """bf16 hyperparameter → matmul dtype. ``None`` = auto: bfloat16 on a
+    CUDA device (as the JAX package picks it on its accelerator), float32 on
+    the CPU."""
+    if bf16 is None:
+        bf16 = torch.device(device).type == "cuda"
+    return torch.bfloat16 if bf16 else torch.float32
+
+
+def resolve_fused_ffn(fused_ffn: Optional[bool]) -> bool:
+    """fused_ffn hyperparameter → switch. ``None`` = auto: off, until the
+    fused FFN kernel is ported; a forced True is kept, and a training forward
+    that takes it raises ``NotPortedError``."""
+    return bool(fused_ffn) if fused_ffn is not None else False
+
+
+def resolve_fused_layer(fused_layer: Optional[bool], d_model: int, n_heads: int,
+                        dim_feedforward: int, n_devices: int = 1,
+                        compute_dtype=torch.float32, seq_len: int = MAX_LEN) -> bool:
+    """fused_layer hyperparameter → whole-encoder-layer kernel switch.
+    ``None`` = auto: on for a single device wherever the kernels' Hopper gate
+    (``ops/fused_layer.py::supports_fused_layer``) admits the shape. A forced
+    True is kept; the model raises if the gate rejects it.
+
+    Auto-on is a measured gain at the flagship YAML's batch of 32 only. At
+    batch 512 (bench.py's) the kernel path is 2.6-3.2x slower on an H100 than
+    ``fused_layer=False``: its weight-gradient kernel walks every sequence in
+    each of a few tile blocks (PERF.md, "Where the time goes"). Pass False
+    for large-batch runs until that kernel is reworked."""
+    if fused_layer is not None:
+        return bool(fused_layer)
+    return n_devices == 1 and supports_fused_layer(
+        d_model, n_heads, dim_feedforward, seq_len, compute_dtype)
+
+
+def device_hbm_bytes(device="cpu") -> int:
+    """Device memory for the auto-remat estimate: ``TGI_HBM_BYTES`` if set
+    (a positive byte count; invalid values are ignored with a warning), the
+    CUDA card's total memory, else the 16 GiB fallback (CPU)."""
+    env = os.environ.get("TGI_HBM_BYTES")
+    if env:
+        try:
+            override = int(float(env))
+        except ValueError:
+            override = 0
+        if override > 0:
+            return override
+        warnings.warn(f"ignoring invalid TGI_HBM_BYTES={env!r} "
+                      "(need a positive byte count)")
+    device = torch.device(device)
+    if device.type == "cuda":
+        return torch.cuda.get_device_properties(device).total_memory
+    return 16 * 1024**3
+
+
+def resolve_remat(remat: Optional[bool], *, d_model: int, n_heads: int,
+                  dim_feedforward: int, n_layers: int, batch_size: int,
+                  n_decoder_layers: int = 0, optimizer: str = "sgd",
+                  n_data_shards: int = 1, n_replicas: int = 1,
+                  max_len: int = MAX_LEN, compute_dtype=None,
+                  hbm_bytes: Optional[int] = None, device="cpu") -> bool:
+    """remat hyperparameter → layer rematerialisation. ``None`` = auto, the
+    JAX package's estimate: on only when the stored backward residuals
+    (at the compute dtype, plus u8 masks) and params + grads + optimizer
+    state (f32) would exceed 60 % of device memory."""
+    if remat is not None:
+        return bool(remat)
+    per_device_batch = max(1, batch_size // max(1, n_data_shards))
+    itemsize = (compute_dtype or torch.bfloat16).itemsize
+    d, ff, t = d_model, dim_feedforward, max_len
+    layer_cost = n_layers + 2 * n_decoder_layers
+    act_per_layer_token = (itemsize * (7 * d + ff + n_heads * t)
+                           + (2 * d + ff + n_heads * t))
+    act_bytes = per_device_batch * t * layer_cost * act_per_layer_token
+    param_count = layer_cost * (4 * d * d + 2 * d * ff + 9 * d)
+    copies = 4 if optimizer == "adam" else 3
+    static_bytes = copies * 4 * param_count
+    act_bytes *= n_replicas
+    static_bytes *= n_replicas
+    if hbm_bytes is None:
+        hbm_bytes = device_hbm_bytes(device)
+    return act_bytes + static_bytes > 0.6 * hbm_bytes
+
+
+def derive_model_config(hp: HyperParams, compute_dtype=None, n_devices: int = 1,
+                        device="cpu") -> GrooveTransformerConfig:
+    """The model config of a :class:`HyperParams`, switches resolved for
+    ``device``."""
+    if compute_dtype is None:
+        compute_dtype = resolve_compute_dtype(hp.bf16, device)
+    n_dec = 0 if hp.encoder_only else hp.num_encoder_decoder_layers
+    return GrooveTransformerConfig(
+        fused_ffn=resolve_fused_ffn(hp.fused_ffn),
+        fused_layer=resolve_fused_layer(hp.fused_layer, hp.d_model, hp.n_heads,
+                                        hp.dim_feedforward, n_devices, compute_dtype),
+        fused_decoder_layer=(
+            resolve_fused_layer(hp.fused_decoder_layer, hp.d_model, hp.n_heads,
+                                hp.dim_feedforward, n_devices, compute_dtype)
+            if n_dec > 0 else False),
+        remat=resolve_remat(hp.remat, d_model=hp.d_model, n_heads=hp.n_heads,
+                            dim_feedforward=hp.dim_feedforward,
+                            n_layers=hp.num_encoder_decoder_layers,
+                            n_decoder_layers=n_dec, optimizer=hp.optimizer_algorithm,
+                            batch_size=hp.batch_size, compute_dtype=compute_dtype,
+                            device=device),
+        remat_policy=hp.remat_policy,
+        d_model=hp.d_model,
+        n_heads=hp.n_heads,
+        dim_feedforward=hp.dim_feedforward,
+        dropout=hp.dropout,
+        num_encoder_layers=hp.num_encoder_decoder_layers,
+        num_decoder_layers=n_dec,
+        max_len=MAX_LEN,
+        embedding_size_src=embedding_size_src_for(hp.experiment),
+        embedding_size_tgt=HVO_WIDTH,
+        compute_dtype=compute_dtype,
+    )
