@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving and training paths once on one NVIDIA GPU
-and check them.
+"""Drive the PyTorch port's serving, training and audio front-end paths once
+on one NVIDIA GPU and check them.
 
     python3 chip_smoke.py            # from the repository root; needs one card
 
@@ -9,14 +9,18 @@ then non-zero):
 
 1. device   the card (``nvidia-smi`` name and power limit), torch and CUDA
             versions; TF32 is switched off for matmuls and cuDNN.
-2. build    ``csrc/fused_mha.cu`` and ``csrc/fused_layer.cu`` compiled from
-            this checkout with nvcc, one process each, in parallel; ptxas'
-            registers, spills, stack and static shared memory per entry, and
-            each layer kernel's dynamic shared memory at the flagship shape.
+2. build    ``csrc/fused_mha.cu``, ``csrc/fused_layer.cu``,
+            ``csrc/band_energies.cu`` and ``csrc/device_synth.cu`` compiled
+            from this checkout with nvcc, one process each, in parallel;
+            ptxas' registers, spills, stack and static shared memory per
+            entry, and each layer kernel's dynamic shared memory at the
+            flagship shape.
 3. kernel   ``fused_mha`` against ``mha_reference`` on the card, at the
             serving shapes (B 1/8/32/512 × flagship H 2 hd 128 and demo H 4
             hd 8, T 32, causal off/on; f32 at atol 1e-5, bf16 at atol and
-            rtol 2e-2), and both timed.
+            rtol 2e-2), and both timed, with
+            ``torch.nn.functional.scaled_dot_product_attention`` beside them
+            (the library call for the same function; the port never calls it).
 4. serve    ``InfillServer`` at the flagship width (configs/
             InfillingRandom_training.yaml: d 256, 2 heads, ff 512, 6 layers,
             16 in, 27 out; seeded random weights) on the card: the kernel's
@@ -45,6 +49,32 @@ then non-zero):
             dropout 0 against the plain paths on the card and on the CPU;
             training throughput at batch 32 and 512 and where a step's
             device time goes; the trained weights served by ``InfillServer``.
+10. front-end kernels  ``band_energies`` against its plain version on frames
+            of kit renders (bar 1e-4 · max|ref|: f32 sums of 1,024 terms in
+            another order) and ``device_synth`` against its plain version bit
+            for bit, at M 1 and 64 × 90/120/150 bpm and at the shapes phases
+            12 and 13 give them (1 loop at 90 bpm, 6 at 120, 40 at 150; 256
+            loops at phase 13's own tempos, N ≈ 140,000 frames); reruns
+            bit-identical; each timed on the stream and the device beside its
+            plain version, the library routes (``torch.fft.rfft`` of the same
+            frames, ``torch.stft``, the ``"conv"`` method; one ``index_add_``
+            over prepared indices for the synthesizer) and its bound;
+            ``band_energies`` at one request with and without its bin split.
+11. front end  64 seeded loops at mixed tempos, grids → MSO on the card by
+            the kernel route against the plain route on the card and the host
+            route (numpy mixer + ``"fft"`` on the CPU), at atol 2e-5 · max,
+            rtol 1e-3; each kernel launched once per chunk; loops/s by chunk
+            size and method.
+12. serve hvo_input  the flagship-width server answers partial grids with
+            ``qpm`` 90/120/150 in process and over HTTP through kernels #6,
+            #7 and #1 (launch counts), within 1e-4 of the plain path on the
+            CPU; B = 1 latency of an ``hvo_input`` request beside an
+            MSO-input request, and the front end / model split.
+13. train with audio augment  the flagship config through ``make_epoch_fn``
+            with ``make_on_device_augment(mode="audio")`` on 256 loops: every
+            kernel launched the expected number of times, one augment call
+            equal to the same call through the plain versions, the loss finite
+            and falling, seqs/s beside the un-augmented epoch.
 
 Then one line ``{"kernels": [...]}``, the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``. Without CUDA it exits non-zero and prints
@@ -53,6 +83,7 @@ no result.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import subprocess
@@ -76,10 +107,15 @@ from transformergrooveinfilling_tpu_torch.ops import _build
 from transformergrooveinfilling_tpu_torch.ops.attention import (
     fused_mha, mha_reference,
 )
+from transformergrooveinfilling_tpu_torch.data import make_on_device_augment
+from transformergrooveinfilling_tpu_torch.ops import band_energies as be
+from transformergrooveinfilling_tpu_torch.ops import device_synth as ds
 from transformergrooveinfilling_tpu_torch.ops import fused_layer as fl
+from transformergrooveinfilling_tpu_torch.ops import mso
 from transformergrooveinfilling_tpu_torch.train import (
-    initialize_model, make_train_step, train_loop,
+    initialize_model, make_epoch_fn, make_train_step, train_loop,
 )
+from transformergrooveinfilling_tpu_torch.train.loop import fetch
 from transformergrooveinfilling_tpu_torch.train.config import embedding_size_src_for
 
 FLAGSHIP = GrooveTransformerConfig(  # configs/InfillingRandom_training.yaml
@@ -106,6 +142,15 @@ FLAGSHIP_HP = {
     "epochs": 500, "encoder_only": 1, "hit_loss_penalty": 0.73, "load_model": None,
 }
 LAYER_SHAPE = dict(d=256, h=2, ff=512, t=32)  # the flagship's encoder layer
+BAND_SOURCE = "transformergrooveinfilling_tpu_torch/csrc/band_energies.cu"
+BAND_TPU_KERNEL = "transformergrooveinfilling_tpu/ops/mso_pallas.py:56"
+SYNTH_SOURCE = "transformergrooveinfilling_tpu_torch/csrc/device_synth.cu"
+SYNTH_TPU_KERNEL = "transformergrooveinfilling_tpu/ops/device_synth.py:140"
+KERNEL_NAMES = ["fused_mha", "fused_layer", "band_energies", "device_synth"]
+BAND, SYNTH = be.band_energies, ds.synth_events  # the wrappers that count launches
+# NVIDIA's published peaks for one H100 SXM, dense, at its 700 W limit
+PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
+HBM_BYTES_PER_S = 3.35e12
 THROUGHPUT_BATCHES = (32, 512)  # the YAML's batch and bench.py's
 # 3 f32 steps, kernel path against the unfused plain path (cuBLAS), which
 # cannot be given the kernel's side of a ReLU kink: one such unit in the first
@@ -143,19 +188,31 @@ def time_us(fn, n: int = 200) -> float:
 def device_us(fn, n: int = 50) -> dict:
     """Device time per call from the profiler, by kernel (or copy) name:
     ``{name: [µs per call, launches per call]}``, device-side events only,
-    without the profiler's own buffer requests."""
+    without the profiler's own buffer requests. The profiler can lose the
+    device events of some calls (on an H100 it kept 4 to 8 of 10 calls of a
+    2 ms kernel, and 2 of 3 without the calls run inside it first), so read
+    the launches per call beside the time. Only events that start inside the
+    marked window are counted."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, record_function
 
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
+        for _ in range(3):
             fn()
         torch.cuda.synchronize()
+        with record_function("chip_smoke_window"):
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+    events = prof.events()
+    window = next(e for e in events if e.name == "chip_smoke_window").time_range
     per_kernel: dict = {}
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA and e.name != "Activity Buffer Request":
+    for e in events:
+        if (e.device_type == DeviceType.CUDA and e.name != "Activity Buffer Request"
+                and e.name != "chip_smoke_window"
+                and window.start <= e.time_range.start <= window.end):
             us, count = per_kernel.get(e.name[:70], (0.0, 0.0))
             per_kernel[e.name[:70]] = (us + e.time_range.elapsed_us() / n, count + 1 / n)
     return per_kernel
@@ -170,6 +227,72 @@ def host_us(fn, n: int = 200) -> float:
         fn()
         torch.cuda.synchronize()
     return (time.perf_counter() - t0) * 1e6 / n
+
+
+def bound(n_bytes: float, flops: float, dtype: str) -> dict:
+    """The least time the card could take: the larger of the bytes (each input
+    read once, each output written once) over the memory rate and the
+    operations over the peak rate for the inputs' type."""
+    t_bytes, t_flops = n_bytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS[dtype]
+    return {"bound_ms": max(t_bytes, t_flops) * 1e3,
+            "bound_by": "bytes" if t_bytes >= t_flops else "operations",
+            "bytes": int(n_bytes), "flops": int(flops)}
+
+
+def mha_bound(b, h, t, hd, dtype) -> dict:
+    size = 4 if dtype == "float32" else 2
+    return bound(4 * b * h * t * hd * size, 4 * b * h * t * t * hd, dtype)
+
+
+def layer_bounds(b, dtype) -> dict:
+    """Bounds of the three layer kernels at the flagship layer, batch ``b``."""
+    d, ff, t = LAYER_SHAPE["d"], LAYER_SHAPE["ff"], LAYER_SHAPE["t"]
+    m, s = b * t, 4 if dtype == "float32" else 2
+    weights = (4 * d * d + 2 * d * ff)
+    products = 2 * m * weights  # the four dense products, forward
+    attn = b * t * t * d  # one (T, T, d) product over all heads per sequence
+    scratch = m * (8 * d + ff + 2) * 4
+    return {
+        "fused_layer_fwd": bound(
+            m * d * s + weights * s + (9 * d + ff) * 4 + 4  # x, weights, vectors, seed
+            + (3 * m * d + 3 * m * d + m * ff) * s,  # y, a1, a2, qkv, h
+            products + 4 * attn, dtype),
+        "fused_layer_bwd_rows": bound(
+            (4 * m * d + 3 * m * d + m * ff) * s + weights * s + 3 * d * 4 + 4
+            + m * d * s + scratch,  # dx and the row-wise gradients
+            products + 10 * attn, dtype),  # P again, dP, dV, dQ, dK
+        "fused_layer_bwd_weights": bound(
+            (3 * m * d + 3 * m * d + m * ff) * s + 2 * d * 4 + 4 + scratch
+            + (weights + 9 * d + ff) * 4,  # f32 weight, bias and LN gradients
+            products + 4 * attn, dtype),  # the attention output again, for dWo
+    }
+
+
+def band_bound(n: int, n_fft: int = 1024, n_bands: int = 16) -> dict:
+    """What the function needs of its inputs: frames and filterbank read once,
+    band energies written once, and per frame a real FFT (2.5 · n_fft ·
+    log2 n_fft operations), the magnitude (4 a bin) and the projection. The
+    kernel's own algorithm, two dense DFT products, costs far more: its
+    operations and their time at the f32 peak go beside the bound as
+    ``dense_dft_flops`` and ``dense_dft_ms``, and are no bound."""
+    bins = n_fft // 2
+    fft = 2.5 * n_fft * np.log2(n_fft)
+    dense = 4 * n * n_fft * bins + 2 * n * bins * n_bands
+    return {**bound(4 * (n * n_fft + (bins + 1) * n_bands + n * n_bands),
+                    n * (fft + 4 * bins + 2 * bins * n_bands), "float32"),
+            "dense_dft_flops": int(dense),
+            "dense_dft_ms": dense / PEAK_FLOPS["float32"] * 1e3}
+
+
+def synth_bound(onset, row, gain, table, lengths, length: int) -> dict:
+    """What this run's events need: two operations per (live event, sample)
+    pair that lands inside the waveform."""
+    live = gain != 0
+    span = (onset + lengths[row.long()]).clamp(max=length) - onset
+    pairs = int(span[live].sum())
+    m, e = onset.shape
+    return bound(4 * (3 * m * e + table.numel() + lengths.numel() + m * length),
+                 2 * pairs, "float32")
 
 
 def hit_agreement(h, h_ref, sig_ref, margin=1e-4) -> bool:
@@ -209,8 +332,8 @@ def phase_device() -> tuple[str, str]:
 
 def phase_build() -> None:
     t0 = time.perf_counter()
-    _build.build_all(["fused_mha", "fused_layer"])  # one nvcc each, together
-    for name in ("fused_mha", "fused_layer"):
+    _build.build_all(KERNEL_NAMES)  # one nvcc each, together
+    for name in KERNEL_NAMES:
         info = _build.build_info[name]
         ptxas = [ln.strip() for ln in info["log"].splitlines()
                  if "registers" in ln or "spill" in ln or "Compiling entry" in ln]
@@ -252,11 +375,18 @@ def phase_kernel(dev, rng) -> dict:
                    .to(dev, dtype) for _ in range(3))
         kern = lambda: fused_mha(q, k, v)  # noqa: E731
         plain = lambda: mha_reference(q, k, v)  # noqa: E731
-        k1, p1, p2, k2 = time_us(kern), time_us(plain), time_us(plain), time_us(kern)
-        dk, dp = device_us(kern), device_us(plain)
+        # the library call that computes the same function; timed, never used
+        sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(q, k, v)  # noqa: E731
+        check(torch.allclose(sdpa().float(), kern().float(),
+                             atol=2e-2 if dtype == torch.bfloat16 else 1e-5),
+              "scaled_dot_product_attention disagrees with fused_mha")
+        k1, p1, l1, l2, p2, k2 = (time_us(f) for f in (kern, plain, sdpa, sdpa, plain, kern))
+        dk, dp, dl = device_us(kern), device_us(plain), device_us(sdpa)
         timings.append({
             "shape": [b, h, 32, hd], "dtype": str(dtype).replace("torch.", ""),
-            "kernel_us": [k1, k2], "plain_us": [p1, p2],
+            "kernel_us": [k1, k2], "plain_us": [p1, p2], "sdpa_us": [l1, l2],
+            "sdpa_device_us": sum(us for us, _ in dl.values()),
+            **mha_bound(b, h, 32, hd, str(dtype).replace("torch.", "")),
             "kernel_device_us": sum(us for us, _ in dk.values()),
             "plain_device_us": sum(us for us, _ in dp.values()),
             "plain_kernels_us": {k: us for k, (us, _) in dp.items()}})
@@ -546,12 +676,14 @@ def phase_layer(dev, rng) -> dict:
                 fl.encoder_layer_reference(*args, seed, 0.3, h_, t)
 
         pb = lambda: torch.autograd.grad(y_ref, leaves, dy, retain_graph=True)  # noqa: E731
-        row = {"B": b, "dtype": str(dtype)[6:], "rate": 0.3}
+        row = {"B": b, "dtype": str(dtype)[6:], "rate": 0.3,
+               "bounds": layer_bounds(b, str(dtype)[6:])}
         for key, k, p in (("fwd", kf, pf), ("bwd", kb, pb)):
             k1, p1, p2, k2 = (time_us(f, n) / 1000.0 for f in (k, p, p, k))
             row[f"{key}_kernel_ms"], row[f"{key}_plain_ms"] = [k1, k2], [p1, p2]
         dev_k = device_us(lambda: (kf(), kb()), n=3)
         row["kernel_device_us"] = {k: us for k, (us, _) in dev_k.items()}
+        row["kernel_device_launches"] = {k: c for k, (_, c) in dev_k.items()}
         dev_f, dev_b = device_us(pf, n=3), device_us(pb, n=3)
         row["plain_fwd_device_us"] = sum(us for us, _ in dev_f.values())
         row["plain_bwd_device_us"] = sum(us for us, _ in dev_b.values())
@@ -614,7 +746,7 @@ def seqs_per_s(bundle, data, batch: int) -> float:
 
 
 def phase_train(dev, rng) -> dict:
-    data, held = Loops(2048, 1), Loops(256, 2)
+    data, held, twin_data = Loops(2048, 1), Loops(256, 2), Loops(512, 1)
     batch, epochs = FLAGSHIP_HP["batch_size"], 3
     steps = epochs * (len(data.processed_inputs) // batch)
     bundle, _, _ = initialize_model(flagship_params(), dev)
@@ -705,9 +837,12 @@ def phase_train(dev, rng) -> dict:
             saved = transformer.encoder_layer_train
             if which == "twin":
                 transformer.encoder_layer_train = fl.encoder_layer_reference
+            # the twin's int64 Philox makes it ~10x slower at batch 32: a
+            # quarter of the corpus keeps its turn short
+            corpus = twin_data if which == "twin" else data
             try:
-                seqs_per_s(models[which], data, b)  # warm-up epoch
-                runs[which].append(seqs_per_s(models[which], data, b))
+                seqs_per_s(models[which], corpus, b)  # warm-up epoch
+                runs[which].append(seqs_per_s(models[which], corpus, b))
             finally:
                 transformer.encoder_layer_train = saved
         throughput[b] = runs
@@ -749,6 +884,408 @@ def phase_train(dev, rng) -> dict:
     return {"launches": counts}
 
 
+def augment_corpus():
+    """The audio-augmented training phase's corpus: 256 seeded loops and their
+    tempos."""
+    return (Loops(256, 26).processed_outputs,
+            np.random.default_rng(27).uniform(90.0, 150.0, 256))
+
+
+@contextlib.contextmanager
+def plain_front_end():
+    """Route the front end through the kernels' plain versions, on whatever
+    device the tensors are (the card included), for comparisons."""
+    saved = (ds.synth_events, be.band_energies)
+    ds.synth_events = lambda onset, row, gain, table, lengths, length: \
+        ds.synth_events_plain(onset, row, gain, table, length)
+    be.band_energies = be.band_energies_plain
+    try:
+        yield
+    finally:
+        ds.synth_events, be.band_energies = saved
+
+
+def reset_front_end_launches() -> None:
+    BAND.launches = SYNTH.launches = 0
+
+
+def events_for(dev, grids: np.ndarray, qpm, params):
+    """The synthesizer's inputs for ``grids`` at one tempo, or at one tempo per
+    item (the waveform is then as long as the slowest needs, as the front end
+    makes it): (onset, row, gain, table, lengths, length)."""
+    table, _, luts, _, lengths = ds.pack_tables([None], params.sr, device=dev)
+    m = grids.shape[0]
+    zeros = torch.zeros(m, dtype=torch.int32, device=dev)
+    qpms = np.broadcast_to(np.asarray(qpm, np.float64), (m,))
+    sps = torch.from_numpy((qpms / 60.0 * 4.0).astype(np.float32)).to(dev)
+    length = mso.mso_waveform_length(grids.shape[1], float(qpms.min() / 60.0 * 4.0), params)
+    onset, row, gain = ds._extract_events(torch.from_numpy(grids).to(dev), sps, zeros, length,
+                                          float(params.sr), luts, zeros)
+    return onset, row, gain, table, lengths, length
+
+
+def timed(kernel, plain, n_plain: int = 20) -> dict:
+    """Stream ms in turns (kernel, plain, plain, kernel), the kernel's ms on
+    the host clock over 20 queued calls and one synchronize, and the
+    profiler's device ms. The profiler may report fewer launches than were
+    made (``kernel_device_launches`` below 1 per call: it lost events), so the
+    kernel's device time is the mean per captured launch, summed over the
+    wrapper's kernels, each of which launches once per call."""
+    k1, p1, p2, k2 = (time_us(kernel, 50), time_us(plain, n_plain), time_us(plain, n_plain),
+                      time_us(kernel, 50))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(20):
+        kernel()
+    torch.cuda.synchronize()
+    queued = (time.perf_counter() - t0) * 1e3 / 20
+    dev_k, dev_p = device_us(kernel, 10), device_us(plain, 3)
+    return {"kernel_ms": [k1 / 1e3, k2 / 1e3], "plain_ms": [p1 / 1e3, p2 / 1e3],
+            "kernel_host_queued_ms": queued,
+            "kernel_device_ms": sum(us / c for us, c in dev_k.values()) / 1e3,
+            "kernel_device_launches": sum(c for _, c in dev_k.values()),
+            "plain_device_ms": sum(us for us, _ in dev_p.values()) / 1e3,
+            "plain_device_launches": sum(c for _, c in dev_p.values())}
+
+
+def phase_front_end_kernels(dev, rng) -> dict:
+    params = mso.MSOParams()
+    _, fb_t = mso._filterbank(params, dev)
+    loops = Loops(64, 21).processed_outputs
+    hann = mso.hann_window(params.win_length, dev)
+
+    # device_synth against its plain version, bit for bit: M 1 and 64 at three
+    # tempos, then the shapes the serving and training phases give it
+    aug_grids, aug_qpms = augment_corpus()
+    serve_loops = Loops(40, 25).processed_outputs
+    main_path = [(serve_loops[:1], 90.0), (serve_loops[:6], 120.0), (serve_loops, 150.0),
+                 (aug_grids, aug_qpms)]
+    cases = [(loops[:m], qpm) for m in (1, 64) for qpm in (90.0, 120.0, 150.0)] + main_path
+    synth_checks, worst_synth = [], 0.0
+    for grids, qpm in cases:
+        m, tempo = len(grids), qpm if np.isscalar(qpm) else [qpm.min(), qpm.max()]
+        onset, row, gain, table, lengths, length = events_for(dev, grids, qpm, params)
+        got = SYNTH(onset, row, gain, table, lengths, length)
+        again = SYNTH(onset, row, gain, table, lengths, length)
+        torch.cuda.synchronize()
+        want = ds.synth_events_plain(onset, row, gain, table, length)
+        err = max_err(got, want)
+        worst_synth = max(worst_synth, err)
+        check(torch.equal(got, want), f"device_synth != plain version at M {m}, {tempo} bpm: "
+                                      f"max abs err {err}")
+        check(torch.equal(got, again), f"device_synth reruns differ at M {m}, {tempo} bpm")
+        check(bool(torch.isfinite(got).all()) and float(got.abs().max()) > 0.1,
+              "device_synth rendered silence")
+        synth_checks.append({"M": m, "qpm": tempo, "length": length, "max_abs_err": err,
+                             "bitwise_equal": True, "bitwise_repeat": True,
+                             "live_events": int((gain != 0).sum())})
+        del got, again, want
+    synth_timings = []
+    for m in (1, 64):
+        onset, row, gain, table, lengths, length = events_for(dev, loops[:m], 120.0, params)
+        row_t = timed(lambda: SYNTH(onset, row, gain, table, lengths, length),
+                      lambda: ds.synth_events_plain(onset, row, gain, table, length), 3)
+        # the library yardstick: ONE index_add_ over indices and sources
+        # prepared outside the timed call (the port never calls it)
+        live = (gain != 0).nonzero()
+        o, r = onset[live[:, 0], live[:, 1]].long(), row[live[:, 0], live[:, 1]].long()
+        span = (o + lengths[r]).clamp(max=length) - o
+        event = torch.repeat_interleave(torch.arange(len(span), device=dev), span)
+        within = torch.arange(int(span.sum()), device=dev) - (span.cumsum(0) - span)[event]
+        index = (live[:, 0] * length + o)[event] + within
+        source = gain[live[:, 0], live[:, 1]][event] * table[r[event], within]
+        flat = torch.zeros(m * length, device=dev)
+        flat.index_add_(0, index, source)
+        want = SYNTH(onset, row, gain, table, lengths, length)
+        lib_err = max_err(flat.view(m, length), want)
+        check(lib_err <= 1e-5, f"index_add_ yardstick differs from the kernel by {lib_err}")
+        lib = [time_us(lambda: flat.index_add_(0, index, source), 10) / 1e3 for _ in range(2)]
+        synth_timings.append({"M": m, "qpm": 120.0, "length": length, **row_t,
+                              "index_add_ms": lib, "index_add_elements": int(index.numel()),
+                              **synth_bound(onset, row, gain, table, lengths, length)})
+        del event, within, index, source, flat
+
+    # band_energies against its plain version, on frames of kit renders
+    band_checks, band_timings = [], []
+    for grids, qpm in [(loops[:1], 120.0), (loops, 120.0)] + main_path:
+        is_timed = len(band_checks) < 2  # one request and a chunk of 64 at 120 bpm
+        onset, row, gain, table, lengths, length = events_for(dev, grids, qpm, params)
+        waves = SYNTH(onset, row, gain, table, lengths, length)
+        waves = waves / waves.abs().amax(dim=-1, keepdim=True).clamp_min(1e-9)
+        frames = mso._windowed_frames(waves, params).reshape(-1, params.n_fft)
+        n = frames.shape[0]
+        got, again = BAND(frames, fb_t), BAND(frames, fb_t)
+        torch.cuda.synchronize()
+        want = be.band_energies_plain(frames, fb_t)
+        err, scale = max_err(got, want), float(want.abs().max())
+        check(got.shape == (n, 16) and err <= 1e-4 * scale,
+              f"band_energies != plain version at N {n}: {err} > 1e-4 * {scale}")
+        check(torch.equal(got, again), f"band_energies reruns differ at N {n}")
+        del again, want
+        fft = lambda: torch.fft.rfft(frames).abs() @ fb_t  # noqa: E731
+        fft_err = max_err(got, fft())
+        check(fft_err <= 2e-4 * scale, f"kernel vs rfft at N {n}: {fft_err}")
+        band_checks.append({"M": len(grids), "N": n, "max_abs_err": err, "max_ref": scale,
+                            "bitwise_repeat": True, "max_abs_err_vs_rfft": fft_err})
+        if not is_timed:
+            del frames, waves, got
+            continue
+        stft = lambda: (torch.stft(  # noqa: E731
+            waves, params.n_fft, params.hop_length, params.win_length, window=hann,
+            center=True, pad_mode="reflect", return_complex=True).abs().transpose(1, 2)
+            @ fb_t).reshape(-1, 16)
+        conv = lambda: (mso.stft_magnitude_conv(waves, params) @ fb_t).reshape(-1, 16)  # noqa: E731
+        check(max_err(fft(), stft()) <= 2e-4 * scale and max_err(fft(), conv()) <= 2e-4 * scale,
+              f"library routes disagree at N {n}")
+        row_t = timed(lambda: BAND(frames, fb_t), lambda: be.band_energies_plain(frames, fb_t))
+        band_timings.append({
+            "N": n, **row_t,
+            "rfft_matmul_ms": [time_us(fft, 20) / 1e3 for _ in range(2)],
+            "stft_matmul_ms": [time_us(stft, 20) / 1e3 for _ in range(2)],
+            "conv_matmul_ms": [time_us(conv, 10) / 1e3 for _ in range(2)],
+            "framing_ms": time_us(lambda: mso._windowed_frames(waves, params).reshape(
+                -1, params.n_fft), 20) / 1e3,
+            **band_bound(n)})
+        if be.bin_split(n, params.n_fft) > 1:
+            # what the split of the bin tiles over more blocks buys at this N:
+            # the same call with one block per row block, in turns
+            split_on = lambda: BAND(frames, fb_t)  # noqa: E731
+            saved = be.bin_split
+            try:
+                be.bin_split = lambda frames_n, n_fft: 1
+                unsplit = BAND(frames, fb_t)
+                check(max_err(unsplit, got) <= 1e-4 * scale, "unsplit band_energies differs")
+                a1 = time_us(split_on, 50)
+                be.bin_split = saved
+                s1, s2 = time_us(split_on, 50), time_us(split_on, 50)
+                be.bin_split = lambda frames_n, n_fft: 1
+                a2 = time_us(split_on, 50)
+            finally:
+                be.bin_split = saved
+            band_timings[-1]["unsplit_ms"] = [a1 / 1e3, a2 / 1e3]
+            band_timings[-1]["split_ms"] = [s1 / 1e3, s2 / 1e3]
+            band_timings[-1]["split"] = be.bin_split(n, params.n_fft)
+    emit({"phase": "front_end_kernels",
+          "bars": {"band_energies": "1e-4 * max|ref| (f32 sums of 1,024 terms, another order)",
+                   "device_synth": "bit for bit"},
+          "device_synth": {"checks": synth_checks, "timings": synth_timings},
+          "band_energies": {"checks": band_checks, "timings": band_timings}})
+    return {"synth_err": worst_synth, "band_err": max(c["max_abs_err"] for c in band_checks),
+            "synth_timings": synth_timings, "band_timings": band_timings}
+
+
+def onsets_agree(grids: np.ndarray, qpms: np.ndarray, length: int, sr: int = 44100):
+    """Per item: does every hit's onset, computed in f32 as the device route
+    computes it, equal the host mixer's f64 onset? Where the f32 value crosses
+    an integer the two routes place that sample one position apart."""
+    v = grids.shape[2] // 3
+    sps = (qpms / 60.0) * 4.0
+    cells = np.arange(grids.shape[1])[None, :, None] + grids[:, :, 2 * v:]
+    host = np.clip(cells / sps[:, None, None] * sr, 0, length - 1).astype(np.int64)
+    sps32 = sps.astype(np.float32)[:, None, None]
+    device = np.clip(cells.astype(np.float32) / sps32 * np.float32(sr), 0, length - 1).astype(
+        np.int64)
+    return ((host == device) | (grids[:, :, :v] <= 0)).all(axis=(1, 2))
+
+
+def phase_front_end(dev, rng) -> None:
+    grids = Loops(64, 22).processed_outputs
+    qpms = np.random.default_rng(23).uniform(60.0, 200.0, 64)
+    reset_front_end_launches()
+    got = mso.mso_batch_from_hvo(grids, None, qpms, device=dev, chunk_size=64)
+    counts = {"device_synth": SYNTH.launches, "band_energies": BAND.launches}
+    check(counts == {"device_synth": 1, "band_energies": 1},
+          f"one chunk of 64 launched {counts}, expected each kernel once")
+    got32 = mso.mso_batch_from_hvo(grids, None, qpms, device=dev, chunk_size=32)
+    check((SYNTH.launches, BAND.launches) == (3, 3), "two chunks of 32: one launch per chunk each")
+    check(got.shape == (64, 32, 16) and np.isfinite(got).all() and got.min() >= 0
+          and got.max() > 0.5, "bad MSO from the kernel route")
+    with plain_front_end():
+        plain = mso.mso_batch_from_hvo(grids, None, qpms, device=dev, method="fused")
+    check((SYNTH.launches, BAND.launches) == (3, 3), "the plain route launched a kernel")
+    host = mso.mso_batch_from_hvo(grids, None, qpms, device="cpu")  # numpy mixer + "fft"
+    scale = float(np.abs(host).max())
+    errs = {}
+    for name, ref in (("plain_route_on_card", plain), ("chunks_of_32", got32)):
+        errs[name] = max_err(got, ref)
+        check(np.allclose(got, ref, atol=2e-5 * scale, rtol=1e-3),
+              f"kernel route vs {name}: max abs err {errs[name]} at scale {scale}")
+    # the host mixer computes onsets in f64, the device route in f32 (as the
+    # JAX package's two routes do): a loop whose onsets all agree is held to
+    # the same bar; one with a hit placed a sample apart (a hat or a cymbal
+    # shifted by 23 µs changes its top bands; 2.6 % of the scale on an H100) to
+    # 5e-2 of the scale
+    length = mso.mso_waveform_length(32, float(qpms.min() / 15.0), mso.MSOParams())
+    same = onsets_agree(grids, qpms, length)
+    errs["host_route_on_cpu_same_onsets"] = max_err(got[same], host[same])
+    errs["host_route_on_cpu_shifted_onsets"] = max_err(got[~same], host[~same]) if (
+        ~same).any() else 0.0
+    check(same.sum() >= 32 and np.allclose(got[same], host[same], atol=2e-5 * scale, rtol=1e-3),
+          f"kernel route vs host route on {int(same.sum())} loops with equal onsets: max abs "
+          f"err {errs['host_route_on_cpu_same_onsets']} at scale {scale}")
+    check(errs["host_route_on_cpu_shifted_onsets"] <= 5e-2 * scale,
+          f"kernel route vs host route on loops with a shifted onset: "
+          f"{errs['host_route_on_cpu_shifted_onsets']} at scale {scale}")
+    # loops per second through grids -> MSO, by chunk size and method, 120 bpm
+    many = Loops(512, 24).processed_outputs
+    tempo = np.full((512,), 120.0)
+    rates = {}
+    for method in ("fused", "fft", "conv"):
+        for chunk in (64, 128, 256):
+            run = lambda: mso.mso_batch_from_hvo(  # noqa: E731
+                many, None, tempo, device=dev, chunk_size=chunk, method=method)
+            rates[f"{method}_chunk{chunk}"] = [512e6 / host_us(run, 3) for _ in range(2)]
+    torch.cuda.reset_peak_memory_stats()
+    mso.mso_batch_from_hvo(many, None, tempo, device=dev, chunk_size=64)
+    peak64 = torch.cuda.max_memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    mso.mso_batch_from_hvo(many, None, tempo, device=dev, chunk_size=256)
+    emit({"phase": "front_end", "loops": 64, "qpm_range": [float(qpms.min()), float(qpms.max())],
+          "launches_per_chunk": counts, "max_mso": scale, "max_abs_err": errs,
+          "loops_with_equal_onsets": int(same.sum()),
+          "bar": "atol 2e-5 * max|host route|, rtol 1e-3; 5e-2 * max where an onset differs "
+                 "by a sample between the f32 and f64 routes",
+          "loops_per_s_512_loops_120bpm": rates,
+          "peak_bytes_chunk64": peak64,
+          "peak_bytes_chunk256": torch.cuda.max_memory_allocated()})
+
+
+def phase_serve_hvo(dev, rng, sd, srv) -> dict:
+    """``hvo_input`` + ``qpm`` to the flagship-width server: the synth + MSO
+    front end and the model on the card."""
+    loops = Loops(40, 25).processed_outputs
+    requests = [(loops[0], 90.0), (loops[:6], 120.0), (loops, 150.0)]
+    chunks = [1, 1, 2]  # model buckets (1, 8, 32): 1 | 8 | 32 + 8; front end: 1 chunk each
+    fused_mha.launches = 0  # the main path's run starts here
+    reset_front_end_launches()
+    out = [srv.infill_from_hvo(g, qpm=q) for g, q in requests]
+    counts = {"fused_mha": fused_mha.launches, "band_energies": BAND.launches,
+              "device_synth": SYNTH.launches}  # ... and ends here
+    check(counts == {"fused_mha": 6 * sum(chunks), "band_energies": 3, "device_synth": 3},
+          f"hvo_input requests launched {counts}; expected 6 fused_mha per model chunk "
+          f"({6 * sum(chunks)}) and the front-end kernels once per request")
+    cpu_model = build_model(FLAGSHIP, "cpu")
+    cpu_model.load_state_dict(sd, strict=True)
+    worst = 0.0
+    for (g, q), y in zip(requests, out):
+        g3 = g[None] if g.ndim == 2 else g
+        check(y.shape == g.shape and np.isfinite(y).all(), f"bad hvo_input answer at {q} bpm")
+        # the plain versions on the CPU, front end and model
+        x_cpu = mso.mso_batch_from_hvo(g3, None, np.full((len(g3),), q), device="cpu",
+                                       device_synth=True, method="fused")
+        h_cpu, v_cpu, o_cpu = predict(cpu_model, torch.from_numpy(x_cpu))
+        sig = predict(cpu_model, torch.from_numpy(x_cpu), use_thres=False)[0].numpy()
+        y3 = y[None] if y.ndim == 2 else y
+        err = max(max_err(y3[..., 9:18], v_cpu), max_err(y3[..., 18:], o_cpu))
+        worst = max(worst, err)
+        check(err <= 1e-4, f"hvo_input at {q} bpm vs the CPU plain path: v/o differ by {err}")
+        check(hit_agreement(y3[..., :9], h_cpu.numpy(), sig),
+              f"hvo_input at {q} bpm: hits differ away from the threshold")
+    httpd = srv.serve_http(port=0, block=False)
+    try:
+        port = httpd.server_address[1]
+        for (g, q), y in zip(requests, out):
+            code, payload = post(port, {"hvo_input": g.tolist(), "qpm": q})
+            check(code == 200, f"POST hvo_input answered {code}: {payload}")
+            check(np.array_equal(np.asarray(payload["hvo"], np.float32), y),
+                  f"HTTP hvo_input answer at {q} bpm differs from the direct path")
+        code, payload = post(port, {"hvo_input": loops[0].tolist(), "sf_path": "kit.sf2"})
+        check(code == 501, f"sf_path answered {code}, expected 501 (not ported)")
+        url = f"http://127.0.0.1:{port}/infill"
+        http = serve.latency_benchmark(srv, n_requests=200, url=url, hvo_input=True)
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+    runs = {"hvo_input": [], "mso_input": []}
+    for which in ("hvo_input", "mso_input", "mso_input", "hvo_input"):  # in turns
+        runs[which].append(serve.latency_benchmark(srv, n_requests=300,
+                                                   hvo_input=which == "hvo_input"))
+    # where a B = 1 hvo_input request's time goes
+    g1 = loops[:1]
+    x1 = srv._front_end(g1, 120.0)
+    request = host_us(lambda: srv.infill_from_hvo(g1, qpm=120.0))
+    front = host_us(lambda: srv._front_end(g1, 120.0))
+    model = host_us(lambda: srv.infill(x1))
+    per_kernel = device_us(lambda: srv.infill_from_hvo(g1, qpm=120.0), n=30)
+    front_kernels = device_us(lambda: srv._front_end(g1, 120.0), n=30)
+    device_total = sum(us for us, _ in per_kernel.values())
+    emit({"phase": "serve_hvo_input", "config": "InfillingRandom flagship d256 h2 ff512 6L",
+          "requests": [[1 if g.ndim == 2 else len(g), q] for g, q in requests],
+          "launches": counts, "max_abs_err_vs_cpu_plain": worst})
+    emit({"phase": "serve_hvo_input_latency", "batch": 1, "qpm": 120.0,
+          "in_process": runs, "http_hvo_input": http})
+    emit({"phase": "serve_hvo_input_split",
+          "breakdown_us": {"request": request, "front_end": front, "model_request": model},
+          "request_device_us": device_total,
+          "front_end_device_us": sum(us for us, _ in front_kernels.values()),
+          "device_launches_per_request": sum(c for _, c in per_kernel.values()),
+          "front_end_launches_per_request": sum(c for _, c in front_kernels.values()),
+          "device_busy_share": device_total / request,
+          "top_front_end_kernels_us_launches": sorted(
+              front_kernels.items(), key=lambda kv: -kv[1][0])[:8]})
+    return {"launches": counts}
+
+
+def phase_train_augment(dev, rng) -> dict:
+    """The flagship config trained on MSO inputs rendered inside the epoch:
+    random masking, synthesis and MSO on the card, every epoch anew."""
+    batch, epochs = FLAGSHIP_HP["batch_size"], 3
+    grids, qpms = augment_corpus()
+    n = len(grids)
+    base = torch.from_numpy(grids).to(dev)
+    augment = make_on_device_augment(qpms=qpms, mode="audio")
+    bundle, _, _ = initialize_model(flagship_params(), dev)
+    epoch_fn = make_epoch_fn(FLAGSHIP_HP["hit_loss_penalty"], batch, n, augment=augment)
+    gen = torch.Generator(dev).manual_seed(0)
+    reset_launches()  # the main path's run starts here
+    reset_front_end_launches()
+    metrics = [fetch(epoch_fn(bundle.state, base, base, gen)) for _ in range(epochs)]
+    counts = {**launches(), "band_energies": BAND.launches,
+              "device_synth": SYNTH.launches}  # ... and ends here
+    steps, n_layers = epochs * (n // batch), FLAGSHIP_HP["num_encoder_decoder_layers"]
+    n_chunks = epochs * -(-n // ds.DEFAULT_CHUNK)
+    want = {**{k: steps * n_layers for k in fl.KERNELS},
+            "band_energies": n_chunks, "device_synth": n_chunks}
+    check(counts == want, f"augmented training launched {counts}, expected {want}")
+    losses = [m["loss"] for m in metrics]
+    check(all(np.isfinite(v) for m in metrics for v in m.values()), f"non-finite: {metrics}")
+    check(losses[-1] < losses[0], f"loss did not fall: {losses}")
+    # seqs/s with the front end inside the epoch, beside the same epoch on
+    # inputs rendered once
+    inputs, outputs = augment(torch.Generator(dev).manual_seed(1), base, base)
+    before = (SYNTH.launches, BAND.launches)
+    with plain_front_end():  # the same call, same draws, through the plain versions
+        plain_inputs, plain_outputs = augment(torch.Generator(dev).manual_seed(1), base, base)
+    check((SYNTH.launches, BAND.launches) == before, "the plain augment launched a kernel")
+    augment_err, scale = max_err(inputs, plain_inputs), float(plain_inputs.abs().max())
+    check(torch.equal(outputs, plain_outputs)
+          and torch.allclose(inputs, plain_inputs, atol=2e-5 * scale, rtol=1e-3),
+          f"augment through the kernels vs the plain versions: {augment_err} at scale {scale}")
+    del plain_inputs, plain_outputs
+    plain_fn = make_epoch_fn(FLAGSHIP_HP["hit_loss_penalty"], batch, n)
+
+    def seqs(fn, x, y):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fetch(fn(bundle.state, x, y, gen))
+        return n / (time.perf_counter() - t0)
+
+    rates = {"augmented": [], "rendered_once": []}
+    for which in ("augmented", "rendered_once", "rendered_once", "augmented"):
+        if which == "augmented":
+            rates[which].append(seqs(epoch_fn, base, base))
+        else:
+            rates[which].append(seqs(plain_fn, inputs, outputs))
+    augment_ms = host_us(lambda: augment(gen, base, base), 5) / 1e3
+    emit({"phase": "train_audio_augment", "config": FLAGSHIP_HP,
+          "data": f"{n} seeded synthetic loops, 90-150 bpm", "epochs": epochs, "steps": steps,
+          "launches": counts, "losses": losses, "last_metrics": metrics[-1],
+          "augment_max_abs_err_vs_plain": augment_err, "augment_max": scale,
+          "augment_bar": "atol 2e-5 * max, rtol 1e-3; targets equal",
+          "seqs_per_s": rates, "augment_ms_per_epoch": augment_ms})
+    return {"launches": counts}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -768,29 +1305,78 @@ def main() -> int:
     phase_latency(dev, srv, plain)
     layer = phase_layer(dev, rng)
     train = phase_train(dev, rng)
+    front = phase_front_end_kernels(dev, rng)
+    phase_front_end(dev, rng)
+    hvo = phase_serve_hvo(dev, rng, sd, srv)
+    augmented = phase_train_augment(dev, rng)
     b1 = next(t for t in kernel["timings"]
               if t["shape"] == [1, 2, 32, 128] and t["dtype"] == "float32")
     at32 = next(t for t in layer["timings"] if t["B"] == 32 and t["dtype"] == "bfloat16")
     layer_err = layer["max_abs_err"][torch.float32]
+    bounds32 = layer_bounds(32, "bfloat16")
     kernels = [{
         "name": "fused_mha", "route": "cuda", "source": KERNEL_SOURCE,
         "replaces": TPU_KERNEL, "launches": launches_mha,
+        "launches_hvo_input_path": hvo["launches"]["fused_mha"],
         "max_abs_err": kernel["max_abs_err"],
         "ms": float(np.mean(b1["kernel_us"])) / 1000.0,
         "plain_ms": float(np.mean(b1["plain_us"])) / 1000.0,
-        "at": "B 1, H 2, T 32, hd 128, float32; err over all f32 checks"}]
+        "bound_ms": b1["bound_ms"], "bound_by": b1["bound_by"],
+        "library_ms": float(np.mean(b1["sdpa_us"])) / 1000.0,
+        "at": "B 1, H 2, T 32, hd 128, float32; err over all f32 checks; library: "
+              "scaled_dot_product_attention"}]
     for kname in fl.KERNELS:
-        device_ms = sum(us for k, us in at32["kernel_device_us"].items()
+        # mean per captured launch (the profiler may lose events)
+        device_ms = sum(us / at32["kernel_device_launches"][k]
+                        for k, us in at32["kernel_device_us"].items()
                         if fl.KERNELS[kname].entry.removeprefix("tgi_") in k) / 1000.0
         plain = at32["fwd_plain_ms"] if kname.endswith("fwd") else at32["bwd_plain_ms"]
         kernels.append({
             "name": kname, "route": "cuda", "source": LAYER_SOURCE,
             "replaces": LAYER_TPU_KERNELS[kname], "launches": train["launches"][kname],
+            "launches_audio_augment_path": augmented["launches"][kname],
             "max_abs_err": layer_err, "ms": device_ms, "plain_ms": float(np.mean(plain)),
+            "bound_ms": bounds32[kname]["bound_ms"], "bound_by": bounds32[kname]["bound_by"],
+            "library_ms": None,
             "at": "B 32, T 32, d 256, 2 heads, ff 512, bf16, rate 0.30; ms: device time "
                   "per call; plain_ms: the twin's whole forward (fwd) or autograd backward "
                   "(both backward kernels) on the stream; err: the largest over the f32 "
-                  "layer checks (y, residuals, dx, 12 grads; B 32 and 512; rate 0 and 0.30)"})
+                  "layer checks (y, residuals, dx, 12 grads; B 32 and 512; rate 0 and 0.30); "
+                  "no one PyTorch call computes a whole layer"})
+    band1, band64 = front["band_timings"]
+    synth1, synth64 = front["synth_timings"]
+    kernels.append({
+        "name": "band_energies", "route": "cuda", "source": BAND_SOURCE,
+        "replaces": BAND_TPU_KERNEL, "launches": hvo["launches"]["band_energies"],
+        "launches_audio_augment_path": augmented["launches"]["band_energies"],
+        "max_abs_err": front["band_err"], "ms": float(np.mean(band1["kernel_ms"])),
+        "plain_ms": float(np.mean(band1["plain_ms"])), "bound_ms": band1["bound_ms"],
+        "bound_by": band1["bound_by"], "library_ms": float(np.mean(band1["rfft_matmul_ms"])),
+        "dense_dft_ms": band1["dense_dft_ms"],
+        "chunk_of_64": {"N": band64["N"], "ms": float(np.mean(band64["kernel_ms"])),
+                        "plain_ms": float(np.mean(band64["plain_ms"])),
+                        "bound_ms": band64["bound_ms"], "bound_by": band64["bound_by"],
+                        "library_ms": float(np.mean(band64["rfft_matmul_ms"])),
+                        "dense_dft_ms": band64["dense_dft_ms"]},
+        "at": f"N {band1['N']} frames (one request at 120 bpm) x 1024, float32, stream time; "
+              "library: torch.fft.rfft of the same frames, abs, one matmul; bound: frames "
+              "read once and an FFT's operations; dense_dft_ms: the kernel's own two dense "
+              "DFT products at the f32 peak, no bound; one launch is two kernels (partial "
+              "band sums, then their sum) below 66 row blocks, one above"})
+    kernels.append({
+        "name": "device_synth", "route": "cuda", "source": SYNTH_SOURCE,
+        "replaces": SYNTH_TPU_KERNEL, "launches": hvo["launches"]["device_synth"],
+        "launches_audio_augment_path": augmented["launches"]["device_synth"],
+        "max_abs_err": front["synth_err"], "ms": float(np.mean(synth1["kernel_ms"])),
+        "plain_ms": float(np.mean(synth1["plain_ms"])), "bound_ms": synth1["bound_ms"],
+        "bound_by": synth1["bound_by"], "library_ms": float(np.mean(synth1["index_add_ms"])),
+        "chunk_of_64": {"ms": float(np.mean(synth64["kernel_ms"])),
+                        "plain_ms": float(np.mean(synth64["plain_ms"])),
+                        "bound_ms": synth64["bound_ms"], "bound_by": synth64["bound_by"],
+                        "library_ms": float(np.mean(synth64["index_add_ms"]))},
+        "at": f"M 1 loop, 288 cells, length {synth1['length']} (120 bpm), float32, stream "
+              "time; library: one index_add_ over indices and sources prepared outside the "
+              "timed call"})
     emit({"kernels": kernels, "seconds": time.perf_counter() - t_start})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,

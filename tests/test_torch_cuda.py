@@ -12,16 +12,21 @@ import pytest
 import torch
 
 from transformergrooveinfilling_tpu_torch.models import GrooveTransformerConfig, build_model
-from transformergrooveinfilling_tpu_torch.ops import attention, fused_layer
+from transformergrooveinfilling_tpu_torch.data import make_on_device_augment
+from transformergrooveinfilling_tpu_torch.ops import attention, band_energies, device_synth
+from transformergrooveinfilling_tpu_torch.ops import fused_layer, mso
 from transformergrooveinfilling_tpu_torch.serve import InfillServer
-from transformergrooveinfilling_tpu_torch.train import create_train_state, make_train_step
+from transformergrooveinfilling_tpu_torch.train import (
+    create_train_state, make_epoch_fn, make_train_step,
+)
 
 
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device: the fused_mha kernel has no CPU build")
+        pytest.skip("needs a CUDA device: the CUDA kernels have no CPU build")
     torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     return torch.device("cuda")
 
 
@@ -169,4 +174,144 @@ def test_train_steps_run_every_layer_through_the_kernels(cuda, rng, dtype):
     losses = [float(step(state, x, y, None, gen)["loss"]) for _ in range(5)]
     assert {k: f.launches - before[k] for k, f in fused_layer.KERNELS.items()} == {
         k: 5 * 2 for k in fused_layer.KERNELS}
+    assert np.isfinite(losses).all() and losses[-1] < losses[0]
+
+
+# ---------------------------------------------------------------- audio front end
+
+
+def _grids(rng, m, density=0.3):
+    h = (rng.random((m, 32, 9)) < density).astype(np.float32)
+    return np.concatenate([h, h * rng.random(h.shape), h * (rng.random(h.shape) - 0.5)],
+                          axis=-1).astype(np.float32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 417, 418, 26752, 140544])
+def test_band_energies_kernel_matches_plain_version(cuda, rng, n):
+    """Ragged frame counts (one frame; one short of, and exactly, one request;
+    a chunk of 64; a chunk of 256 at 90 bpm), split and unsplit bin tiles. f32 sums of 1,024 terms in
+    another order than cuBLAS takes them: 1e-4 of the largest band energy."""
+    frames = torch.from_numpy(rng.standard_normal((n, 1024)).astype(np.float32)).to(cuda)
+    fb_t = mso._filterbank(mso.MSOParams(), frames.device)[1]
+    before = band_energies.band_energies.launches
+    got = band_energies.band_energies(frames, fb_t)
+    again = band_energies.band_energies(frames, fb_t)
+    torch.cuda.synchronize()
+    assert band_energies.band_energies.launches == before + 2
+    assert got.shape == (n, 16) and torch.equal(got, again)  # no atomics: bit-identical
+    want = band_energies.band_energies_plain(frames, fb_t)
+    assert float((got - want).abs().max()) <= 1e-4 * float(want.abs().max())
+    # against the rFFT, which keeps the Nyquist bin
+    fft = torch.fft.rfft(frames).abs() @ fb_t
+    torch.testing.assert_close(got, fft, rtol=2e-4, atol=2e-4 * float(fft.abs().max()))
+
+
+@pytest.mark.cuda
+def test_band_energies_kernel_refuses_what_it_does_not_take(cuda):
+    frames = torch.zeros(8, 1024, device=cuda)
+    fb_t = torch.zeros(513, 16, device=cuda)
+    with pytest.raises(ValueError, match="one CUDA device"):
+        band_energies.band_energies(frames, fb_t.cpu())
+    with pytest.raises(ValueError, match="float32"):
+        band_energies.band_energies(frames.double(), fb_t)
+    with pytest.raises(ValueError, match="n_fft"):
+        band_energies.band_energies(frames[:, :1000].contiguous(), fb_t)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("qpm", [60.0, 97.0, 120.0, 150.0, 200.0])
+@pytest.mark.parametrize("m", [1, 3, 64, 256])
+def test_synth_kernel_equals_plain_version_bit_for_bit(cuda, rng, m, qpm):
+    params = mso.MSOParams()
+    table, _, luts, _, lengths = device_synth.pack_tables([None], params.sr, device=cuda)
+    hvos = torch.from_numpy(_grids(rng, m)).to(cuda)
+    sps = torch.full((m,), qpm / 15.0, device=cuda)
+    zeros = torch.zeros(m, dtype=torch.int32, device=cuda)
+    length = mso.mso_waveform_length(32, qpm / 15.0, params)
+    onset, row, gain = device_synth._extract_events(hvos, sps, zeros, length, 44100.0, luts,
+                                                    zeros)
+    before = device_synth.synth_events.launches
+    got = device_synth.synth_events(onset, row, gain, table, lengths, length)
+    torch.cuda.synchronize()
+    assert device_synth.synth_events.launches == before + 1 and got.shape == (m, length)
+    assert torch.equal(got, device_synth.synth_events_plain(onset, row, gain, table, length))
+    # and the plain version on the CPU: the same sums in the same order
+    cpu = device_synth.synth_events_plain(onset.cpu(), row.cpu(), gain.cpu(), table.cpu(),
+                                          length)
+    assert torch.equal(got.cpu(), cpu)
+    with pytest.raises(ValueError, match="one CUDA device"):
+        device_synth.synth_events(onset.cpu(), row, gain, table, lengths, length)
+
+
+@pytest.mark.cuda
+def test_front_end_on_the_card_matches_the_plain_and_host_routes(cuda, rng):
+    hvos = _grids(rng, 70)
+    qpms = np.linspace(60.0, 200.0, 70)
+    counts = (device_synth.synth_events.launches, band_energies.band_energies.launches)
+    got = mso.mso_batch_from_hvo(hvos, None, qpms, device=cuda, chunk_size=64)  # 64 + 6
+    assert (device_synth.synth_events.launches - counts[0],
+            band_energies.band_energies.launches - counts[1]) == (2, 2)
+    scale = float(np.abs(got).max())
+    plain = mso.mso_batch_from_hvo(hvos, None, qpms, device="cpu", device_synth=True,
+                                   method="fused")
+    host = mso.mso_batch_from_hvo(hvos, None, qpms, device="cpu")
+    np.testing.assert_allclose(got, plain, atol=2e-5 * scale, rtol=1e-3)
+    # the host mixer's onsets are f64, the device route's f32: hold the loops
+    # whose onsets all agree to the same bar, the others (a sample shifted by
+    # one position; 2.6 % of the scale measured on an H100) to 5e-2 of the scale
+    length = mso.mso_waveform_length(32, qpms.min() / 15.0, mso.MSOParams())
+    cells = np.arange(32)[None, :, None] + hvos[:, :, 18:]
+    sps = qpms[:, None, None] / 15.0
+    f64 = np.clip(cells / sps * 44100, 0, length - 1).astype(np.int64)
+    f32 = np.clip(cells.astype(np.float32) / sps.astype(np.float32) * np.float32(44100),
+                  0, length - 1).astype(np.int64)
+    same = ((f64 == f32) | (hvos[:, :, :9] <= 0)).all(axis=(1, 2))
+    assert same.sum() >= 35
+    np.testing.assert_allclose(got[same], host[same], atol=2e-5 * scale, rtol=1e-3)
+    np.testing.assert_allclose(got, host, atol=5e-2 * scale)
+    for method in ("fft", "conv"):
+        other = mso.mso_batch_from_hvo(hvos[:8], None, qpms[:8], device=cuda, method=method)
+        np.testing.assert_allclose(got[:8], other, atol=2e-5 * scale, rtol=1e-3)
+
+
+@pytest.mark.cuda
+def test_audio_server_answers_hvo_input_through_every_kernel(cuda, rng):
+    cfg = GrooveTransformerConfig(d_model=64, n_heads=4, dim_feedforward=128,
+                                  num_encoder_layers=2)
+    torch.manual_seed(0)
+    sd = build_model(cfg, "cpu").state_dict()
+    card = InfillServer(sd, cfg, batch_sizes=(1, 4), device=cuda)
+    cpu = InfillServer(sd, cfg, batch_sizes=(1, 4), device="cpu")
+    assert device_synth.synth_events.launches > 0  # the front end was warmed at start-up
+    grids = _grids(rng, 3)
+    counts = (device_synth.synth_events.launches, band_energies.band_energies.launches,
+              attention.fused_mha.launches)
+    got = card.infill_from_hvo(grids, qpm=97.0)
+    assert (device_synth.synth_events.launches - counts[0],
+            band_energies.band_energies.launches - counts[1],
+            attention.fused_mha.launches - counts[2]) == (1, 1, cfg.num_encoder_layers)
+    # the plain versions on the CPU, by the same (f32-onset) device route; the
+    # CPU server's own route is the host mixer, whose f64 onsets may differ
+    mso_cpu = mso.mso_batch_from_hvo(grids, None, np.full(3, 97.0), device="cpu",
+                                     device_synth=True, method="fused")
+    np.testing.assert_allclose(got[..., 9:], cpu.infill(mso_cpu)[..., 9:], atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_audio_augmented_training_runs_every_kernel(cuda, rng):
+    cfg = GrooveTransformerConfig(d_model=64, n_heads=2, dim_feedforward=128, dropout=0.3,
+                                  num_encoder_layers=2, fused_layer=True)
+    state = create_train_state(cfg, "sgd", 0.05, seed=0, device=cuda)
+    base = torch.from_numpy(_grids(rng, 24)).to(cuda)
+    augment = make_on_device_augment(qpms=np.linspace(90.0, 150.0, 24), mode="audio", chunk=16)
+    epoch = make_epoch_fn(0.73, 8, 24, augment=augment)
+    counts = (device_synth.synth_events.launches, band_energies.band_energies.launches)
+    before = {k: f.launches for k, f in fused_layer.KERNELS.items()}
+    gen = torch.Generator(cuda).manual_seed(0)
+    losses = [float(epoch(state, base, base, gen)["loss"]) for _ in range(4)]
+    assert (device_synth.synth_events.launches - counts[0],
+            band_energies.band_energies.launches - counts[1]) == (8, 8)  # 2 chunks × 4 epochs
+    assert {k: f.launches - before[k] for k, f in fused_layer.KERNELS.items()} == {
+        k: 4 * 3 * 2 for k in fused_layer.KERNELS}
     assert np.isfinite(losses).all() and losses[-1] < losses[0]

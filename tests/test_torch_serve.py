@@ -239,14 +239,97 @@ def test_hvo_input(state_dict, rng):
         sym.infill_from_hvo(grid[:, :20])
 
     audio = InfillServer(state_dict, CFG, batch_sizes=(1,), device="cpu")
-    with pytest.raises(NotPortedError, match="synth"):
-        audio.infill_from_hvo(grid)
     with pytest.raises(ValueError, match="HVO grid"):
         audio.infill_from_hvo(grid[:, :16])  # a model-space input is no grid
+    # SoundFont kits are the part of hvo_input that is not ported yet
+    with pytest.raises(NotPortedError, match="SoundFont"):
+        audio.infill_from_hvo(grid, sf_path="kit.sf2")
+    with pytest.raises(NotPortedError, match="SoundFont"):
+        sym.infill_from_hvo(grid, sf_path="kit.sf2")
     httpd = audio.serve_http(port=0, block=False)
     try:
-        code, payload = _post(httpd.server_address[1], {"hvo_input": grid.tolist()})
+        code, payload = _post(httpd.server_address[1],
+                              {"hvo_input": grid.tolist(), "sf_path": "kit.sf2"})
         assert code == 501 and "not ported" in payload["error"]
+        code, payload = _post(httpd.server_address[1], {"hvo_input": grid[:, :16].tolist()})
+        assert code == 400 and payload["error"].startswith("ValueError")
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+
+
+def _partial_loops(n, seed):
+    """Synthetic drum loops with the hats removed: what a client sends."""
+    from transformergrooveinfilling_tpu.data.synthetic import synthetic_gmd_sequences
+
+    x = np.stack([s.hvo for s in synthetic_gmd_sequences(n, seed=seed)]).astype(np.float32)
+    x[:, :, [2, 11, 20]] = 0
+    return x
+
+
+@pytest.mark.parametrize("qpm", [120.0, 90.0, 150.0])
+def test_audio_hvo_input_matches_jax_server(params, state_dict, qpm):
+    """The slice as a whole: a partial grid + tempo to an audio-width server
+    on the CPU goes through the port's synth + MSO front end and the model,
+    and returns what the JAX server returns on the same weights (the front
+    end has no parameters: the kit and the filterbank are recomputed and
+    tested equal). v/o within 1e-4; hits equal wherever the JAX sigmoid is
+    not within 1e-4 of the threshold."""
+    jax_srv = JaxInfillServer(params, JAX_CFG, batch_sizes=(1, 4), use_pallas=False)
+    jax_raw = JaxInfillServer(params, JAX_CFG, batch_sizes=(1, 4), use_pallas=False,
+                              use_thres=False)
+    port_srv = InfillServer(state_dict, CFG, batch_sizes=(1, 4), device="cpu")
+    grids = _partial_loops(3, seed=int(qpm))
+    want = jax_srv.infill_from_hvo(grids, qpm=qpm)
+    sig = jax_raw.infill_from_hvo(grids, qpm=qpm)[..., :9]
+    got = port_srv.infill_from_hvo(grids, qpm=qpm)
+    assert got.shape == want.shape == (3, 32, 27)
+    np.testing.assert_allclose(got[..., 9:], want[..., 9:], atol=1e-4)
+    sure = np.abs(sig - 0.5) >= 1e-4
+    np.testing.assert_array_equal(got[..., :9][sure], want[..., :9][sure])
+    # a single (T, 27) grid answers (T, 27), the same row
+    one = port_srv.infill_from_hvo(grids[1], qpm=qpm)
+    assert one.shape == (32, 27)
+    np.testing.assert_allclose(one[:, 9:], got[1, :, 9:], atol=1e-5)
+    # the tempo matters: another qpm renders another input
+    other = port_srv.infill_from_hvo(grids, qpm=qpm + 37.0)
+    assert np.abs(other[..., 9:] - got[..., 9:]).max() > 1e-3
+
+
+def test_audio_hvo_input_over_http_matches_jax_server(params, state_dict):
+    jax_srv = JaxInfillServer(params, JAX_CFG, batch_sizes=(1,), use_pallas=False)
+    port_srv = InfillServer(state_dict, CFG, batch_sizes=(1,), device="cpu")
+    grid = _partial_loops(1, seed=3)[0]
+    httpd = port_srv.serve_http(port=0, block=False)
+    try:
+        port = httpd.server_address[1]
+        code, payload = _post(port, {"hvo_input": grid.tolist(), "qpm": 97})
+        assert code == 200
+        got = np.asarray(payload["hvo"], np.float32)
+        np.testing.assert_allclose(got[:, 9:], jax_srv.infill_from_hvo(grid, qpm=97.0)[:, 9:],
+                                   atol=1e-4)
+        np.testing.assert_array_equal(got, port_srv.infill_from_hvo(grid, qpm=97.0))
+        # no "qpm": 120, as the JAX handler
+        code, payload = _post(port, {"hvo_input": grid.tolist()})
+        assert code == 200
+        np.testing.assert_array_equal(np.asarray(payload["hvo"], np.float32),
+                                      port_srv.infill_from_hvo(grid))
+        code, payload = _post(port, {"hvo_input": grid.tolist(), "qpm": "fast"})
+        assert code == 400 and payload["error"].startswith("ValueError")
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+
+
+def test_latency_benchmark_with_hvo_input(server):
+    stats = latency_benchmark(server, n_requests=3, hvo_input=True, qpm=150.0)
+    assert 0 < stats["p50_ms"] <= stats["p99_ms"]
+    httpd = server.serve_http(port=0, block=False)
+    try:
+        url = f"http://127.0.0.1:{httpd.server_address[1]}/infill"
+        count = server.stats.count
+        stats = latency_benchmark(server, n_requests=2, url=url, hvo_input=True)
+        assert 0 < stats["p50_ms"] and server.stats.count == count + 3
     finally:
         httpd.shutdown()
         httpd.server_close()
@@ -337,6 +420,13 @@ def test_import_leaves_jax_out():
         "import transformergrooveinfilling_tpu_torch.serve\n"
         "import transformergrooveinfilling_tpu_torch.ops\n"
         "import transformergrooveinfilling_tpu_torch.train\n"
+        "import transformergrooveinfilling_tpu_torch.hvo\n"
+        "import transformergrooveinfilling_tpu_torch.audio\n"
+        "import transformergrooveinfilling_tpu_torch.data\n"
+        "import transformergrooveinfilling_tpu_torch.ops.mso\n"
+        "import transformergrooveinfilling_tpu_torch.ops.band_energies\n"
+        "import transformergrooveinfilling_tpu_torch.ops.device_synth\n"
+        "import chip_smoke\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'optax', 'yaml', 'msgpack', "
         "'transformergrooveinfilling_tpu'))\n"

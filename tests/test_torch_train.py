@@ -36,8 +36,8 @@ from transformergrooveinfilling_tpu_torch.ops.dropout import (
     bernoulli_dropout, fast_dropout, quantized_keep_rate,
 )
 from transformergrooveinfilling_tpu_torch.train import (
-    HyperParams, TrainState, derive_model_config, initialize_model, load_hyperparameters,
-    make_epoch_fn, make_optimizer, make_train_step, train_loop,
+    HyperParams, TrainState, create_train_state, derive_model_config, initialize_model,
+    load_hyperparameters, make_epoch_fn, make_optimizer, make_train_step, train_loop,
 )
 from transformergrooveinfilling_tpu_torch.train import config as port_config
 
@@ -273,6 +273,132 @@ def test_epoch_with_a_partial_batch_matches_jax(rng, fused):
     _assert_params_close(state, jax_state, port_cfg)
 
 
+# ---------------------------------------------------------------- augment
+
+
+def _jax_mask_draws(key, m):
+    """The thresholds and uniforms ``random_mask_on_device`` draws from
+    ``key`` for ``m`` items (one key per item, split into two)."""
+    thres, u = [], []
+    for k in jax.random.split(key, m):
+        k_thres, k_events = jax.random.split(k)
+        thres.append(np.array(jax.random.uniform(k_thres, (), minval=0.4, maxval=0.6)))
+        u.append(np.array(jax.random.uniform(k_events, (32, 9))))
+    return torch.from_numpy(np.stack(thres))[:, None, None], torch.from_numpy(np.stack(u))
+
+
+@pytest.mark.parametrize("per_epoch", [True, False])
+def test_epoch_with_symbolic_augment_matches_jax(rng, per_epoch):
+    """The augment hook sits where the JAX epoch has it: with the JAX key's
+    own draws fed to the port's select, one epoch (per-epoch hook) or one
+    single-epoch block (per-block hook) trains on the same masked grids and
+    ends at the same metrics and weights."""
+    from transformergrooveinfilling_tpu.data.device_pipeline import (
+        make_on_device_augment as jax_make_augment,
+    )
+    from transformergrooveinfilling_tpu_torch.hvo.ops import _remove_events
+
+    arch = dict(d_model=32, n_heads=2, dim_feedforward=64, num_encoder_layers=2,
+                embedding_size_src=27)
+    jax_cfg = JaxConfig(dropout=0.0, **arch)
+    model = jax_build_model(jax_cfg)
+    params = model.init(jax.random.PRNGKey(1), jnp.zeros((1, 32, 27)),
+                        deterministic=True)["params"]
+    port_cfg = GrooveTransformerConfig(dropout=0.0, **arch)
+    port = build_model(port_cfg, "cpu")
+    port.load_state_dict(state_dict_from_flax_params(jax.tree.map(np.asarray, params), port_cfg),
+                         strict=True)
+    tx = optax.sgd(LR)
+    jax_state = jax_loop.TrainState(step=jnp.zeros((), jnp.int32), params=params,
+                                    opt_state=tx.init(params))
+    state = TrainState(step=0, model=port, optimizer=make_optimizer("sgd", LR, port.parameters()))
+    base = hvo_targets(rng, 20)
+    key = jax.random.PRNGKey(5)
+    jax_epoch = jax_loop.make_epoch_fn(model, tx, PENALTY, 8, 20, donate=False, shuffle=False,
+                                       augment=jax_make_augment(mode="symbolic"),
+                                       augment_per_epoch=per_epoch)
+    jax_state, want = jax_epoch(jax_state, jnp.asarray(base), jnp.asarray(base), key)
+    thres, u = _jax_mask_draws(jax.random.split(key)[0], 20)  # aug_key, key = split(key)
+    seen = []
+
+    def augment(generator, base_in, base_out):
+        assert base_in is base_out or torch.equal(base_in, base_out)
+        seen.append(generator)
+        return _remove_events(base_in, thres, u)
+
+    gen = torch.Generator().manual_seed(0)
+    epoch = make_epoch_fn(PENALTY, 8, 20, shuffle=False, augment=augment,
+                          augment_per_epoch=per_epoch)
+    tbase = torch.from_numpy(base)
+    got = epoch(state, tbase, tbase, gen)
+    assert seen == [gen] and state.step == 3
+    for k in got:
+        np.testing.assert_allclose(float(got[k]), float(want[k]), rtol=2e-4, err_msg=k)
+    _assert_params_close(state, jax_state, port_cfg)
+
+
+def test_augment_is_called_per_epoch_or_per_block(rng):
+    from transformergrooveinfilling_tpu_torch.data import make_on_device_augment
+
+    cfg = GrooveTransformerConfig(d_model=16, n_heads=2, dim_feedforward=32, dropout=0.0,
+                                  num_encoder_layers=1, embedding_size_src=27)
+    state = create_train_state(cfg, "sgd", 0.05, device="cpu")
+    base = torch.from_numpy(hvo_targets(rng, 12))
+    inner = make_on_device_augment(mode="symbolic")
+    calls = []
+
+    def augment(generator, a, b):
+        out = inner(generator, a, b)
+        assert torch.equal(out[0] + out[1], a)  # kept + removed = the clean grids
+        calls.append(out[1])
+        return out
+
+    gen = torch.Generator().manual_seed(3)
+    make_epoch_fn(PENALTY, 4, 12, n_epochs=3, augment=augment)(state, base, base, gen)
+    assert len(calls) == 3 and state.step == 9
+    assert not torch.equal(calls[0], calls[1])  # a fresh masking every epoch
+    calls.clear()
+    make_epoch_fn(PENALTY, 4, 12, n_epochs=3, augment=augment,
+                  augment_per_epoch=False)(state, base, base, gen)
+    assert len(calls) == 1 and state.step == 18  # once per block of 3 epochs
+    calls.clear()
+    make_epoch_fn(PENALTY, 4, 12, augment=augment,
+                  augment_per_epoch=False)(state, base, base, gen)
+    assert len(calls) == 1  # also when the block is a single epoch
+    calls.clear()
+    make_epoch_fn(PENALTY, 4, 12)(state, base, base, gen)
+    assert not calls
+
+
+def test_audio_augment_inputs_are_the_mso_of_the_kept_grids_and_loss_falls(rng):
+    from transformergrooveinfilling_tpu.data.synthetic import synthetic_gmd_sequences
+    from transformergrooveinfilling_tpu_torch.data import (
+        make_on_device_augment, random_mask_on_device,
+    )
+    from transformergrooveinfilling_tpu_torch.ops.mso import mso_batch_from_hvo
+
+    base = torch.from_numpy(np.stack(
+        [s.hvo for s in synthetic_gmd_sequences(12, seed=2)]).astype(np.float32))
+    qpms = np.linspace(150.0, 200.0, 12)
+    augment = make_on_device_augment(qpms=qpms, mode="audio", chunk=5)  # 5 + 5 + 2
+    inputs, outputs = augment(torch.Generator().manual_seed(7), base, base)
+    kept, removed = random_mask_on_device(torch.Generator().manual_seed(7), base)
+    assert inputs.shape == (12, 32, 16) and torch.equal(outputs, removed)
+    want = mso_batch_from_hvo(kept.numpy(), None, qpms, device="cpu", device_synth=True)
+    np.testing.assert_allclose(inputs.numpy(), want, atol=1e-6)  # the same code, other chunks
+    with pytest.raises(NotPortedError, match="SoundFont"):
+        make_on_device_augment(mode="audio", soundfonts=["kit.sf2"])(
+            torch.Generator(), base, base)
+
+    cfg = GrooveTransformerConfig(d_model=32, n_heads=2, dim_feedforward=64, dropout=0.0,
+                                  num_encoder_layers=2, embedding_size_src=16)
+    state = create_train_state(cfg, "sgd", 0.05, device="cpu")
+    epoch = make_epoch_fn(PENALTY, 4, 12, augment=augment)
+    gen = torch.Generator().manual_seed(0)
+    losses = [float(epoch(state, base, base, gen)["loss"]) for _ in range(6)]
+    assert np.isfinite(losses).all() and losses[-1] < 0.9 * losses[0], losses
+
+
 # ---------------------------------------------------------------- config
 
 
@@ -287,7 +413,7 @@ def test_config_matches_jax(path, monkeypatch):
     assert got_hp.to_dict() == want_hp.to_dict()
     assert got_hp.extra == want_hp.extra
     want = jax_config.derive_model_config(want_hp, compute_dtype=jnp.float32)
-    got = derive_model_config(got_hp, compute_dtype=torch.float32)
+    got = derive_model_config(got_hp, compute_dtype=torch.float32, device="cpu")
     switches = {"compute_dtype", "use_pallas_attention", "use_fused_attention", "fused_layer",
                 "fused_ffn", "fused_decoder_layer"}
     for field in dataclasses.fields(got):
@@ -298,10 +424,13 @@ def test_config_matches_jax(path, monkeypatch):
         got.d_model, got.n_heads, got.dim_feedforward, 32, torch.float32))
 
 
-def test_config_resolution():
+def test_config_resolution(monkeypatch):
     assert port_config.resolve_compute_dtype(None, "cpu") == torch.float32
-    assert port_config.resolve_compute_dtype(None, "cuda") == torch.bfloat16
-    assert port_config.resolve_compute_dtype(False, "cuda") == torch.float32
+    with monkeypatch.context() as m:  # the policy for a card, decided without one
+        m.setattr(torch.cuda, "is_available", lambda: True)
+        assert port_config.resolve_compute_dtype(None, "cuda") == torch.bfloat16
+        assert port_config.resolve_compute_dtype(None) == torch.bfloat16
+        assert port_config.resolve_compute_dtype(False, "cuda") == torch.float32
     assert port_config.resolve_fused_layer(None, 256, 2, 512) is True
     assert port_config.resolve_fused_layer(None, 256, 2, 512, n_devices=4) is False
     assert port_config.resolve_fused_layer(True, 30, 2, 64) is True  # forced, kept
@@ -319,7 +448,7 @@ def test_config_resolution():
 
 def test_device_hbm_bytes(monkeypatch):
     monkeypatch.setenv("TGI_HBM_BYTES", "2e9")
-    assert port_config.device_hbm_bytes() == 2_000_000_000
+    assert port_config.device_hbm_bytes("cpu") == 2_000_000_000
     monkeypatch.setenv("TGI_HBM_BYTES", "nonsense")
     with pytest.warns(UserWarning):
         assert port_config.device_hbm_bytes("cpu") == 16 * 1024**3
@@ -376,6 +505,29 @@ def test_initialize_model_and_train_loop(rng):
         train_loop(_Data(x, y), bundle, save=True)
     with pytest.raises(NotPortedError):
         initialize_model(dict(params, load_model={"path": "x"}), "cpu")
+
+
+def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
+    """No training entry point or helper carries on on the CPU unless asked."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.delenv("TGI_HBM_BYTES", raising=False)
+    params = {"model": {"d_model": 32, "n_heads": 2, "dim_feedforward": 64, "dropout": 0.1,
+                        "num_encoder_layers": 1}, "training": {}}
+    cfg = GrooveTransformerConfig(num_encoder_layers=1)
+    kw = dict(d_model=32, n_heads=2, dim_feedforward=64, n_layers=1, batch_size=8)
+    for call in (lambda: initialize_model(params),
+                 lambda: create_train_state(cfg, "sgd", 0.1),
+                 lambda: derive_model_config(HyperParams()),
+                 lambda: port_config.resolve_compute_dtype(None),
+                 lambda: port_config.device_hbm_bytes(),
+                 lambda: port_config.resolve_remat(None, **kw)):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            call()
+    # asked for the CPU, each runs there
+    assert initialize_model(params, "cpu")[0].device.type == "cpu"
+    assert create_train_state(cfg, "sgd", 0.1, device="cpu").step == 0
+    assert derive_model_config(HyperParams(), device="cpu").compute_dtype == torch.float32
+    assert port_config.resolve_remat(None, **kw, device="cpu") is False
 
 
 def test_unported_training_switches_raise(rng):

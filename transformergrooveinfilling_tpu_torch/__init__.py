@@ -12,7 +12,14 @@ Layering (bottom → top), as far as it is ported:
                 kernels' counterparts), built with ``nvcc`` at first use
 - ``ops``       kernel wrappers, each beside its plain PyTorch version
                 (``fused_mha`` / ``mha_reference``; ``encoder_layer_train``
-                / ``encoder_layer_reference``), dropout, and the kernel build
+                / ``encoder_layer_reference``; ``band_energies`` /
+                ``band_energies_plain``; ``synth_events`` /
+                ``synth_events_plain``), the MSO DSP, the on-device drum
+                synthesizer, dropout, and the kernel build
+- ``hvo``       HVO grid operations on tensors, the drum-voice mapping
+- ``audio``     the procedural drum kit and the host (numpy) mixer
+- ``data``      random masking and the synth + MSO front end as a training
+                augmentation on the device
 - ``models``    the encoder-only groove transformer (``nn.Module``) with its
                 training mode, the loss, legacy ``.Model`` / flax-parameter
                 interop
@@ -21,9 +28,11 @@ Layering (bottom → top), as far as it is ported:
 - ``serve``     bucketed inference server, dynamic batching, HTTP endpoint
 
 Not ported yet (see ROADMAP.md): the training CLI (``train.py``,
-``run_training``), checkpoints, evaluation and logging, the audio front end,
-the encoder-decoder family, the fused FFN and fused LayerNorm kernels,
-multi-GPU, export.
+``run_training``), checkpoints, evaluation and logging, SoundFont (``.sf2``)
+kits, the C++ mixer and WAV I/O, the encoder-decoder family, the fused FFN and
+fused LayerNorm kernels, multi-GPU, export.
+Every entry point runs on ``"cuda"`` unless the caller names another device,
+and raises without CUDA (:func:`require_device`); none carries on on the CPU.
 Importing this package has no side effects: no backend is selected and no
 kernel is built until a CUDA tensor first reaches a kernel wrapper.
 """
@@ -33,3 +42,17 @@ __version__ = "0.1.0"
 
 class NotPortedError(NotImplementedError):
     """A feature of the JAX package that this port does not carry yet."""
+
+
+def require_device(device, who: str):
+    """``torch.device(device)``; a CUDA device without CUDA raises (``who``
+    names the caller in the message). The port never falls back to the CPU."""
+    import torch
+
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"{who}(device={str(device)!r}): CUDA is not available "
+            "(the port does not fall back to the CPU; pass device=\"cpu\" "
+            "to run there)")
+    return device

@@ -1,6 +1,15 @@
-"""Hand-written CUDA kernels' wrappers, each beside its plain PyTorch version."""
+"""Hand-written CUDA kernels' wrappers, each beside its plain PyTorch version,
+and the MSO DSP and on-device drum synthesis built on them.
 
+The band-energy kernel's wrapper is ``ops.band_energies.band_energies``: the
+function is not re-exported here, since it shares its module's name.
+"""
+
+from . import band_energies, device_synth, mso
 from .attention import fused_mha, mha_reference
+from .device_synth import synth_events, synth_events_plain, synthesize_on_device
 from .fused_layer import encoder_layer_reference, encoder_layer_train
 
-__all__ = ["fused_mha", "mha_reference", "encoder_layer_train", "encoder_layer_reference"]
+__all__ = ["fused_mha", "mha_reference", "encoder_layer_train", "encoder_layer_reference",
+           "synth_events", "synth_events_plain", "synthesize_on_device",
+           "band_energies", "device_synth", "mso"]

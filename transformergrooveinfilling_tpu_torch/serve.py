@@ -11,13 +11,19 @@ Counterpart of ``transformergrooveinfilling_tpu/serve.py``. Design:
   fused kernel (``ops/attention.py::fused_mha``); ``use_kernel=False`` runs
   its plain PyTorch version instead (for comparison). There is no CPU
   fallback: ``device="cuda"`` without CUDA raises.
+- a partial HVO grid sent to an audio-modality model (``hvo_input``) goes
+  through the synth + MSO front end on the server's device: on a CUDA device
+  the hand-written synthesizer and band-energy kernels
+  (``ops/device_synth.py``, ``ops/band_energies.py``), never leaving the card
+  between the grid and the model's input.
 
 ``InfillServer.serve_http`` exposes a stdlib ThreadingHTTPServer JSON endpoint
-(POST /infill with {"input": [[...]]} or {"hvo_input": [[...]]}; GET /healthz).
+(POST /infill with {"input": [[...]]} or {"hvo_input": [[...]], "qpm": 120};
+GET /healthz).
 
-Not ported yet, each raising :class:`NotPortedError`: ``hvo_input`` to an
-audio-modality model (needs the synth + MSO front end), ``"format": "midi"``
-replies, native ``.ckpt`` checkpoints and ``--artifact`` export files.
+Not ported yet, each raising :class:`NotPortedError`: a SoundFont
+(``sf_path``) for ``hvo_input``, ``"format": "midi"`` replies, native
+``.ckpt`` checkpoints and ``--artifact`` export files.
 """
 
 from __future__ import annotations
@@ -35,7 +41,7 @@ from typing import Sequence
 import numpy as np
 import torch
 
-from . import NotPortedError
+from . import NotPortedError, require_device
 from .models import build_model
 from .models.torch_compat import find_latest_checkpoint, load_legacy_checkpoint
 from .models.transformer import GrooveTransformerConfig
@@ -130,11 +136,7 @@ class InfillServer:
                  device: str | torch.device = "cuda"):
         """``state_dict``: the model's weights (reference key names, as
         ``models.torch_compat`` produces them)."""
-        self.device = torch.device(device)
-        if self.device.type == "cuda" and not torch.cuda.is_available():
-            raise RuntimeError(
-                f"InfillServer(device={str(device)!r}): CUDA is not available "
-                "(the server does not fall back to the CPU)")
+        self.device = require_device(device, "InfillServer")
         if use_kernel is None:
             use_kernel = self.device.type == "cuda"
         if use_kernel and self.device.type != "cuda":
@@ -153,6 +155,11 @@ class InfillServer:
         for b in self.batch_sizes:
             self._forward(torch.zeros((b,) + shape, device=self.device))
         if self.device.type == "cuda":
+            if self.config.embedding_size_src != self.config.embedding_size_tgt:
+                # an audio model on the card: build the kit, its table and the
+                # front end's kernels now, not inside the first hvo_input request
+                self._front_end(np.zeros((1, self.config.max_len,
+                                          self.config.embedding_size_tgt), np.float32), 120.0)
             torch.cuda.synchronize(self.device)
         self._coalescer = (_Coalescer(self, coalesce_wait_ms) if coalesce
                            else None)
@@ -208,23 +215,37 @@ class InfillServer:
         self.stats.record((time.perf_counter() - t0) * 1000.0)
         return out[0] if single else out
 
-    def infill_from_hvo(self, partial_hvo) -> np.ndarray:
+    def _front_end(self, grids: np.ndarray, qpm: float) -> np.ndarray:
+        """``(N, T, 27)`` partial grids → ``(N, T, 16)`` MSO of their renders
+        with the procedural kit at ``qpm``, on the server's device."""
+        from .ops.mso import MSOParams, mso_batch_from_hvo
+
+        return mso_batch_from_hvo(grids, None, np.full((grids.shape[0],), qpm),
+                                  params=MSOParams(), device=self.device)
+
+    def infill_from_hvo(self, partial_hvo, qpm: float = 120.0, sf_path=None) -> np.ndarray:
         """Infill from a partial HVO grid ``(T, 27)`` or ``(N, T, 27)``.
-        Symbolic models take the grid as their input; audio-modality models
-        need the synth + MSO front end (and its ``qpm``), which is not
-        ported yet."""
+
+        Symbolic models take the grid as their input. Audio-modality models
+        (16-wide input) get the full direct-audio front end on the server's
+        device: synthesize the partial loop at ``qpm`` and compute its MSO,
+        then infill. ``sf_path`` other than None raises ``NotPortedError``
+        (only the procedural kit is ported)."""
         x = np.asarray(partial_hvo, np.float32)
         width = self.config.embedding_size_tgt
         if x.ndim not in (2, 3) or x.shape[-1] != width:
             raise ValueError(
                 f"hvo_input must be a (T, {width}) or (N, T, {width}) HVO grid; "
                 f"got {x.shape}")
-        if self.config.embedding_size_src != width:
+        if sf_path is not None:
             raise NotPortedError(
-                "hvo_input to an audio-modality model (input width "
-                f"{self.config.embedding_size_src}) needs the synth + MSO "
-                "front end, which is not ported yet")
-        return self.infill(x)
+                f"SoundFont kits are not ported yet (sf_path={sf_path!r}); "
+                "hvo_input renders with the procedural kit")
+        if self.config.embedding_size_src == width:
+            return self.infill(x)  # symbolic model: the grid is the input
+        single = x.ndim == 2
+        out = self.infill(self._front_end(x[None] if single else x, float(qpm)))
+        return out[0] if single else out
 
     # -- HTTP endpoint ---------------------------------------------------------
 
@@ -255,7 +276,11 @@ class InfillServer:
                         raise NotPortedError(
                             '"format": "midi" replies are not ported yet')
                     if "hvo_input" in payload:
-                        out = server_self.infill_from_hvo(payload["hvo_input"])
+                        # partial HVO grid: the server runs the synth + MSO
+                        # front end for audio models
+                        out = server_self.infill_from_hvo(
+                            payload["hvo_input"], qpm=float(payload.get("qpm", 120.0)),
+                            sf_path=payload.get("sf_path"))
                     elif "input" in payload:
                         out = server_self.infill(payload["input"])
                     else:
@@ -314,20 +339,29 @@ def _start_http(handler, host: str, port: int, block: bool):
 
 def latency_benchmark(server: InfillServer, n_requests: int = 100,
                       batch: int = 1, seed: int = 0,
-                      url: str | None = None) -> dict:
+                      url: str | None = None, hvo_input: bool = False,
+                      qpm: float = 120.0) -> dict:
     """p50/p99 request latency through the full infill path: in-process, or,
     with ``url`` (``http://host:port/infill`` of ``server.serve_http``), as
-    JSON over HTTP."""
+    JSON over HTTP. ``hvo_input=True`` sends partial HVO grids (30 % hits) at
+    ``qpm`` instead of model-space inputs, so an audio model's requests
+    include the synth + MSO front end."""
     rng = np.random.default_rng(seed)
-    e = server.config.embedding_size_src
-    xs = rng.standard_normal(
-        (n_requests + 1, batch, server.config.max_len, e)).astype(np.float32)
+    shape = (n_requests + 1, batch, server.config.max_len)
+    if hvo_input:
+        h = (rng.random(shape + (server.config.embedding_size_tgt // 3,)) < 0.3)
+        xs = np.concatenate([h, h * rng.random(h.shape), h * (rng.random(h.shape) - 0.5)],
+                            axis=-1).astype(np.float32)
+        field, extra = "hvo_input", {"qpm": qpm}
+    else:
+        xs = rng.standard_normal(shape + (server.config.embedding_size_src,)).astype(np.float32)
+        field, extra = "input", {}
 
     def one(x):
         if url is None:
-            return server.infill(x)
+            return server.infill_from_hvo(x, qpm=qpm) if hvo_input else server.infill(x)
         req = urllib.request.Request(
-            url, data=json.dumps({"input": x.tolist()}).encode(),
+            url, data=json.dumps({field: x.tolist(), **extra}).encode(),
             headers={"Content-Type": "application/json"})
         with urllib.request.urlopen(req, timeout=60) as resp:
             return json.loads(resp.read())["hvo"]

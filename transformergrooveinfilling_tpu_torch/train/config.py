@@ -20,6 +20,7 @@ from typing import Any, Optional
 
 import torch
 
+from .. import require_device
 from ..models.transformer import GrooveTransformerConfig
 from ..ops.fused_layer import supports_fused_layer
 
@@ -80,12 +81,13 @@ def embedding_size_src_for(experiment: str) -> int:
     return HVO_WIDTH if "Symbolic" in experiment else MSO_BANDS
 
 
-def resolve_compute_dtype(bf16: Optional[bool], device="cpu") -> torch.dtype:
+def resolve_compute_dtype(bf16: Optional[bool], device="cuda") -> torch.dtype:
     """bf16 hyperparameter → matmul dtype. ``None`` = auto: bfloat16 on a
     CUDA device (as the JAX package picks it on its accelerator), float32 on
-    the CPU."""
+    the CPU. ``device="cuda"`` without CUDA raises."""
+    device = require_device(device, "resolve_compute_dtype")
     if bf16 is None:
-        bf16 = torch.device(device).type == "cuda"
+        bf16 = device.type == "cuda"
     return torch.bfloat16 if bf16 else torch.float32
 
 
@@ -115,10 +117,12 @@ def resolve_fused_layer(fused_layer: Optional[bool], d_model: int, n_heads: int,
         d_model, n_heads, dim_feedforward, seq_len, compute_dtype)
 
 
-def device_hbm_bytes(device="cpu") -> int:
+def device_hbm_bytes(device="cuda") -> int:
     """Device memory for the auto-remat estimate: ``TGI_HBM_BYTES`` if set
     (a positive byte count; invalid values are ignored with a warning), the
-    CUDA card's total memory, else the 16 GiB fallback (CPU)."""
+    CUDA card's total memory, else 16 GiB (``device="cpu"``). ``device="cuda"``
+    without CUDA raises."""
+    device = require_device(device, "device_hbm_bytes")
     env = os.environ.get("TGI_HBM_BYTES")
     if env:
         try:
@@ -129,7 +133,6 @@ def device_hbm_bytes(device="cpu") -> int:
             return override
         warnings.warn(f"ignoring invalid TGI_HBM_BYTES={env!r} "
                       "(need a positive byte count)")
-    device = torch.device(device)
     if device.type == "cuda":
         return torch.cuda.get_device_properties(device).total_memory
     return 16 * 1024**3
@@ -140,11 +143,12 @@ def resolve_remat(remat: Optional[bool], *, d_model: int, n_heads: int,
                   n_decoder_layers: int = 0, optimizer: str = "sgd",
                   n_data_shards: int = 1, n_replicas: int = 1,
                   max_len: int = MAX_LEN, compute_dtype=None,
-                  hbm_bytes: Optional[int] = None, device="cpu") -> bool:
+                  hbm_bytes: Optional[int] = None, device="cuda") -> bool:
     """remat hyperparameter → layer rematerialisation. ``None`` = auto, the
     JAX package's estimate: on only when the stored backward residuals
     (at the compute dtype, plus u8 masks) and params + grads + optimizer
-    state (f32) would exceed 60 % of device memory."""
+    state (f32) would exceed 60 % of ``device``'s memory (``hbm_bytes`` if
+    given; else ``device="cuda"`` without CUDA raises)."""
     if remat is not None:
         return bool(remat)
     per_device_batch = max(1, batch_size // max(1, n_data_shards))
@@ -165,9 +169,10 @@ def resolve_remat(remat: Optional[bool], *, d_model: int, n_heads: int,
 
 
 def derive_model_config(hp: HyperParams, compute_dtype=None, n_devices: int = 1,
-                        device="cpu") -> GrooveTransformerConfig:
+                        device="cuda") -> GrooveTransformerConfig:
     """The model config of a :class:`HyperParams`, switches resolved for
-    ``device``."""
+    ``device`` (``"cuda"`` without CUDA raises)."""
+    device = require_device(device, "derive_model_config")
     if compute_dtype is None:
         compute_dtype = resolve_compute_dtype(hp.bf16, device)
     n_dec = 0 if hp.encoder_only else hp.num_encoder_decoder_layers

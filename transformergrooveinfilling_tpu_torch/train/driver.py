@@ -14,7 +14,7 @@ from typing import Any
 import numpy as np
 import torch
 
-from .. import NotPortedError
+from .. import NotPortedError, require_device
 from ..models import predict as model_predict
 from ..models.transformer import GrooveTransformerConfig
 from .config import (
@@ -48,15 +48,16 @@ class ModelBundle:
         return list(torch.stack(out).cpu().numpy())
 
 
-def initialize_model(params: dict, device="cpu") -> tuple[ModelBundle, Any, int]:
+def initialize_model(params: dict, device="cuda") -> tuple[ModelBundle, Any, int]:
     """Reference ``initialize_model`` contract: ``params = {"model": {...},
     "training": {...}, "load_model": None | ...}`` → (bundle, optimizer,
-    initial_epoch), on ``device``. ``bf16``, ``fused_layer``, ``fused_ffn``
+    initial_epoch), on ``device`` (``"cuda"`` without CUDA raises; the CPU
+    only when asked for). ``bf16``, ``fused_layer``, ``fused_ffn``
     and ``remat`` in ``params["model"]`` are resolved for that device
     (``train/config.py``; None or absent = auto)."""
     m = params["model"]
     t = params.get("training", {})
-    device = torch.device(device)
+    device = require_device(device, "initialize_model")
     if params.get("load_model"):
         raise NotPortedError("load_model: restoring a checkpoint into the port is "
                              "not ported yet")

@@ -18,6 +18,7 @@ from typing import Callable
 
 import torch
 
+from .. import require_device
 from ..models.losses import calculate_loss
 
 METRIC_KEYS = ("grad_norm", "loss", "hit_accuracy", "hit_perplexity", "bce_hits",
@@ -45,11 +46,13 @@ def make_optimizer(algorithm: str, learning_rate: float, params) -> torch.optim.
 
 
 def create_train_state(config, algorithm: str, learning_rate: float, seed: int = 0,
-                       device="cpu") -> TrainState:
+                       device="cuda") -> TrainState:
     """A freshly initialised model (from a CPU generator seeded ``seed``, so
-    the weights are the same on every device) and its optimizer."""
+    the weights are the same on every device) and its optimizer, on ``device``
+    (``"cuda"`` without CUDA raises)."""
     from ..models import build_model
 
+    device = require_device(device, "create_train_state")
     model = build_model(config, device, torch.Generator().manual_seed(int(seed)))
     return TrainState(step=0, model=model,
                       optimizer=make_optimizer(algorithm, learning_rate, model.parameters()))
@@ -79,17 +82,28 @@ def make_train_step(hit_loss_penalty: float) -> Callable:
 
 
 def make_epoch_fn(hit_loss_penalty: float, batch_size: int, n_samples: int,
-                  n_epochs: int = 1, shuffle: bool = True) -> Callable:
+                  n_epochs: int = 1, shuffle: bool = True, augment: Callable | None = None,
+                  augment_per_epoch: bool = True) -> Callable:
     """``epoch(state, inputs, outputs, generator) -> metrics``: ``n_epochs``
     epochs over the resident ``inputs``/``outputs`` (device tensors), in
     ``ceil(N/B)`` steps each; returns the last epoch's live-sample-weighted
     metric means, as 0-d device tensors. ``shuffle=False`` takes the samples
-    in order (parity tests)."""
+    in order (parity tests).
+
+    ``augment``: optional ``(generator, inputs, outputs) -> (inputs, outputs)``
+    run on the device inside the epoch function
+    (``data/device_pipeline.py::make_on_device_augment``): callers pass the
+    clean base grids as inputs and outputs, and every epoch (or, with
+    ``augment_per_epoch=False``, every call: a block of ``n_epochs``, also
+    when that is 1) trains on a fresh masking/render. Its draws come from
+    ``generator``, before the epoch's shuffle."""
     step_fn = make_train_step(hit_loss_penalty)
     n_batches = -(-n_samples // batch_size)
     padded = n_batches * batch_size
 
     def one_epoch(state, inputs, outputs, generator):
+        if augment is not None and augment_per_epoch:
+            inputs, outputs = augment(generator, inputs, outputs)
         dev = inputs.device
         perm = (torch.randperm(n_samples, generator=generator, device=dev) if shuffle
                 else torch.arange(n_samples, device=dev))
@@ -104,6 +118,8 @@ def make_epoch_fn(hit_loss_penalty: float, batch_size: int, n_samples: int,
         return dict(zip(METRIC_KEYS, sums / n_samples))
 
     def epoch(state, inputs, outputs, generator):
+        if augment is not None and not augment_per_epoch:
+            inputs, outputs = augment(generator, inputs, outputs)
         for _ in range(n_epochs):
             metrics = one_epoch(state, inputs, outputs, generator)
         return metrics
