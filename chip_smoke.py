@@ -10,8 +10,9 @@ then non-zero):
 1. device   the card (``nvidia-smi`` name and power limit), torch and CUDA
             versions; TF32 is switched off for matmuls and cuDNN.
 2. build    ``csrc/fused_mha.cu``, ``csrc/fused_layer.cu``,
-            ``csrc/band_energies.cu`` and ``csrc/device_synth.cu`` compiled
-            from this checkout with nvcc, one process each, in parallel;
+            ``csrc/fused_decoder_layer.cu``, ``csrc/band_energies.cu`` and
+            ``csrc/device_synth.cu`` compiled from this checkout with nvcc,
+            one process each, in parallel;
             ptxas' registers, spills, stack and static shared memory per
             entry, and each layer kernel's dynamic shared memory at the
             flagship shape.
@@ -75,6 +76,25 @@ then non-zero):
             kernel launched the expected number of times, one augment call
             equal to the same call through the plain versions, the loss finite
             and falling, seqs/s beside the un-augmented epoch.
+14. decoder layer  the whole-decoder-layer kernels (``fused_decoder_layer.cu``:
+            forward, row backward, weight gradients) against
+            ``decoder_layer_reference`` at the flagship shapes, B 32 and 512,
+            f32 and bf16, dropout 0 and 0.30: y3, the 7 residuals, dx, dmem
+            and the 20 parameter grads (phase 8's bars); reruns bit-identical;
+            forward and backward timed against the twin.
+15. train encoder-decoder  the 6 + 6 layer model at the flagship width
+            (scripts/bench_encdec.py's) through ``initialize_model`` +
+            ``train_loop(encoder_only=0)``: every step launches each encoder
+            and each decoder layer kernel 6 times, the loss falls; the same
+            with both fused switches off; 3 f32 steps at dropout 0 through
+            ``make_epoch_fn(encoder_only=False)`` against the twin path and
+            the unfused path; seqs/s at batch 32 and 512, kernel path and
+            unfused path in turns; where a step's device time goes.
+16. serve encoder-decoder  ``InfillServer`` over the same config: 18
+            ``fused_mha`` launches per forward chunk (6 encoder, 6 causal
+            decoder self-, 6 decoder cross-attentions), answers within 1e-4
+            of the CPU plain path, one ``hvo_input`` request through kernels
+            #6, #7 and #1, B = 1 latency beside the encoder-only server's.
 
 Then one line ``{"kernels": [...]}``, the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``. Without CUDA it exits non-zero and prints
@@ -110,6 +130,7 @@ from transformergrooveinfilling_tpu_torch.ops.attention import (
 from transformergrooveinfilling_tpu_torch.data import make_on_device_augment
 from transformergrooveinfilling_tpu_torch.ops import band_energies as be
 from transformergrooveinfilling_tpu_torch.ops import device_synth as ds
+from transformergrooveinfilling_tpu_torch.ops import fused_decoder_layer as fdl
 from transformergrooveinfilling_tpu_torch.ops import fused_layer as fl
 from transformergrooveinfilling_tpu_torch.ops import mso
 from transformergrooveinfilling_tpu_torch.train import (
@@ -141,12 +162,25 @@ FLAGSHIP_HP = {
     "learning_rate": 0.089, "n_heads": 2, "num_encoder_decoder_layers": 6,
     "epochs": 500, "encoder_only": 1, "hit_loss_penalty": 0.73, "load_model": None,
 }
-LAYER_SHAPE = dict(d=256, h=2, ff=512, t=32)  # the flagship's encoder layer
+LAYER_SHAPE = dict(d=256, h=2, ff=512, t=32)  # the flagship's encoder and decoder layers
+# the encoder-decoder family at the width the JAX package benchmarks it at
+# (scripts/bench_encdec.py): the flagship's hyperparameters with 6 + 6 layers
+ENCDEC = dataclasses.replace(FLAGSHIP, num_decoder_layers=6)
+ENCDEC_LAYERS = 6
 BAND_SOURCE = "transformergrooveinfilling_tpu_torch/csrc/band_energies.cu"
 BAND_TPU_KERNEL = "transformergrooveinfilling_tpu/ops/mso_pallas.py:56"
 SYNTH_SOURCE = "transformergrooveinfilling_tpu_torch/csrc/device_synth.cu"
 SYNTH_TPU_KERNEL = "transformergrooveinfilling_tpu/ops/device_synth.py:140"
-KERNEL_NAMES = ["fused_mha", "fused_layer", "band_energies", "device_synth"]
+DEC_SOURCE = "transformergrooveinfilling_tpu_torch/csrc/fused_decoder_layer.cu"
+DEC_TPU_KERNELS = {  # the Pallas kernel bodies each CUDA kernel stands in for
+    "fused_decoder_layer_fwd": "transformergrooveinfilling_tpu/ops/fused_decoder_layer.py:160",
+    "fused_decoder_layer_bwd_rows":
+        "transformergrooveinfilling_tpu/ops/fused_decoder_layer.py:236",
+    "fused_decoder_layer_bwd_weights":
+        "transformergrooveinfilling_tpu/ops/fused_decoder_layer.py:236",
+}
+KERNEL_NAMES = ["fused_mha", "fused_layer", "fused_decoder_layer", "band_energies",
+                "device_synth"]
 BAND, SYNTH = be.band_energies, ds.synth_events  # the wrappers that count launches
 # NVIDIA's published peaks for one H100 SXM, dense, at its 700 W limit
 PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
@@ -268,6 +302,34 @@ def layer_bounds(b, dtype) -> dict:
     }
 
 
+def decoder_layer_bounds(b, dtype) -> dict:
+    """Bounds of the three decoder-layer kernels at the flagship layer, batch
+    ``b``: seven dense products (8d² + 2·d·ff multiply-adds a row; the TPU
+    kernel's cost estimate leaves the kv projection's 2d² out) and two
+    attentions (the causal one counted in full)."""
+    d, ff, t = LAYER_SHAPE["d"], LAYER_SHAPE["ff"], LAYER_SHAPE["t"]
+    m, s = b * t, 4 if dtype == "float32" else 2
+    weights = 8 * d * d + 2 * d * ff
+    products = 2 * m * weights  # the seven dense products, forward
+    attn = b * t * t * d  # one (T, T, d) product over all heads per sequence
+    vectors = (15 * d + ff) * 4
+    scratch = m * (14 * d + ff + 4) * 4
+    return {
+        "fused_decoder_layer_fwd": bound(
+            2 * m * d * s + weights * s + vectors + 4  # y, mem, weights, vectors, seed
+            + m * (10 * d + ff) * s,  # y3, a1, qc, a2, a3, qkv, kv, h
+            products + 8 * attn, dtype),
+        "fused_decoder_layer_bwd_rows": bound(
+            m * (10 * d + ff) * s + weights * s + 3 * d * 4 + 4  # dy, 7 residuals, weights
+            + 2 * m * d * s + scratch,  # dx, dmem and the row-wise gradients
+            products + 20 * attn, dtype),  # per attention: P again, dP, dV, dQ, dK
+        "fused_decoder_layer_bwd_weights": bound(
+            m * (11 * d + ff) * s + 4 * d * 4 + 4 + scratch  # dy, y, mem, 6 residuals
+            + (weights + 15 * d + ff) * 4,  # f32 weight, bias and LN gradients
+            products + 8 * attn, dtype),  # both attention outputs again, for dWo and dWo2
+    }
+
+
 def band_bound(n: int, n_fft: int = 1024, n_bands: int = 16) -> dict:
     """What the function needs of its inputs: frames and filterbank read once,
     band energies written once, and per frame a real FFT (2.5 · n_fft ·
@@ -345,6 +407,12 @@ def phase_build() -> None:
         "layer_bwd_rows": fl.bwd_rows_smem_bytes(t, d, ff),
         "layer_bwd_weights": fl.bwd_weights_smem_bytes(t, d, h)},
         "limit": fl.MAX_SMEM_BYTES})
+    emit({"phase": "build", "kernel": "fused_decoder_layer",
+          "dynamic_smem_bytes_at_flagship": {
+              "dec_fwd": fl.fwd_smem_bytes(t, d, ff),
+              "dec_bwd_rows": fdl.bwd_rows_smem_bytes(t, d, ff),
+              "dec_bwd_weights": fl.bwd_weights_smem_bytes(t, d, h)},
+          "limit": fl.MAX_SMEM_BYTES})
 
 
 def phase_kernel(dev, rng) -> dict:
@@ -543,7 +611,7 @@ def phase_latency(dev, srv, plain) -> dict:
     runs = {"kernel": [], "plain": []}
     for which in ("kernel", "plain", "plain", "kernel"):  # in turns
         runs[which].append(serve.latency_benchmark(
-            srv if which == "kernel" else plain, n_requests=500, batch=1))
+            srv if which == "kernel" else plain, n_requests=300, batch=1))
     batch32 = {"kernel": [], "plain": []}  # one full bucket-32 chunk per request
     for which in ("kernel", "plain", "plain", "kernel"):
         batch32[which].append(serve.latency_benchmark(
@@ -695,6 +763,124 @@ def phase_layer(dev, rng) -> dict:
     return {"max_abs_err": worst, "timings": timings}
 
 
+def decoder_case(dev, rng, b: int, dtype):
+    """Flagship-shaped decoder-layer inputs from ``rng``: (y, mem and the 20
+    parameters in ``fdl.ARG_NAMES`` order, dy)."""
+    d, ff = LAYER_SHAPE["d"], LAYER_SHAPE["ff"]
+    m = b * LAYER_SHAPE["t"]
+
+    def n(*shape, scale=1.0, offset=0.0):
+        a = (offset + scale * rng.standard_normal(shape)).astype(np.float32)
+        return torch.from_numpy(a).to(dev)
+
+    def w(out, inp):  # nn.Linear's (out, in) layout
+        return n(out, inp, scale=inp ** -0.5).to(dtype)
+
+    def vec(width):
+        return n(width, scale=0.1)
+
+    def gain():
+        return n(d, scale=0.1, offset=1.0)
+
+    args = [n(m, d).to(dtype), n(m, d).to(dtype), w(3 * d, d), vec(3 * d), w(d, d), vec(d),
+            w(d, d), vec(d), w(2 * d, d), vec(2 * d), w(d, d), vec(d), gain(), vec(d),
+            w(ff, d), vec(ff), w(d, ff), vec(d), gain(), vec(d), gain(), vec(d)]
+    return args, n(m, d).to(dtype)
+
+
+DEC_GRAD_NAMES = tuple("d" + name for name in ("x",) + fdl.ARG_NAMES[1:])
+
+
+def decoder_backward_args(args, res, seed):
+    a = dict(zip(fdl.ARG_NAMES, args))
+    return (a["y"], a["mem"], *res[1:], *(a[k] for k in fdl.WEIGHT_NAMES),
+            a["g1"], a["b1"], a["g2"], a["b2"], a["g3"], seed)
+
+
+def phase_decoder_layer(dev, rng) -> dict:
+    """The three decoder-layer kernels against ``decoder_layer_reference`` on
+    the card: y3, the seven residuals, dx, dmem and the 20 parameter grads.
+    Bars, masks and ReLU kinks as ``phase_layer``'s."""
+    h_, t = LAYER_SHAPE["h"], LAYER_SHAPE["t"]
+    checks, worst = [], {torch.float32: 0.0, torch.bfloat16: 0.0}
+    for b in (32, 512):
+        for dtype in (torch.float32, torch.bfloat16):
+            args, dy = decoder_case(dev, rng, b, dtype)
+            for rate in (0.0, 0.3):
+                seed = torch.tensor([4321 + b], dtype=torch.int32, device=dev)
+                res = fdl.layer_forward(*args, seed, rate, h_, t)
+                grads = fdl.layer_backward(dy, *decoder_backward_args(args, res, seed),
+                                           rate, h_, t)
+                res2 = fdl.layer_forward(*args, seed, rate, h_, t)
+                grads2 = fdl.layer_backward(dy, *decoder_backward_args(args, res2, seed),
+                                            rate, h_, t)
+                torch.cuda.synchronize()
+                bitwise = all(torch.equal(u, v) for u, v in zip(res + grads, res2 + grads2))
+                check(bitwise, f"decoder layer: two runs with one seed differ at B {b} "
+                               f"{dtype} rate {rate}")
+                with torch.no_grad():
+                    own = fdl.decoder_layer_reference(*args, seed, rate, h_, t,
+                                                      return_residuals=True)
+                flips, kink = fl.kink_flips(own[6], res[6])
+                leaves = [a.detach().clone().requires_grad_(True) for a in args]
+                want = fdl.decoder_layer_reference(*leaves, seed, rate, h_, t,
+                                                   return_residuals=True, relu_flips=flips)
+                want[0].backward(dy)
+                errs = {}
+                for name, g, w in zip(("y",) + fdl.RESIDUAL_NAMES, res, want):
+                    w = w.detach().float()
+                    bar = 1e-4 if dtype == torch.float32 else 2e-2 * float(w.abs().max())
+                    errs[name] = max_err(g, w)
+                    check(errs[name] <= bar, f"decoder {name} at B {b} {dtype} rate {rate}: "
+                                             f"{errs[name]} > {bar}")
+                for name, g, leaf in zip(DEC_GRAD_NAMES, grads, leaves):
+                    w = leaf.grad.float()
+                    rel = 1e-4 if dtype == torch.float32 else 2e-2
+                    errs[name] = max_err(g, w)
+                    check(errs[name] <= rel * float(w.abs().max()),
+                          f"decoder {name} at B {b} {dtype} rate {rate}: {errs[name]} > "
+                          f"{rel} * {float(w.abs().max())}")
+                worst[dtype] = max(worst[dtype], *errs.values())
+                checks.append({"B": b, "dtype": str(dtype)[6:], "rate": rate,
+                               "max_abs_err": errs, "bitwise_repeat": bitwise,
+                               "relu_kink_flips": kink})
+    timings = []
+    for b, dtype in ((32, torch.bfloat16), (512, torch.bfloat16), (32, torch.float32),
+                     (512, torch.float32)):
+        args, dy = decoder_case(dev, rng, b, dtype)
+        seed = torch.tensor([7], dtype=torch.int32, device=dev)
+        res = fdl.layer_forward(*args, seed, 0.3, h_, t)
+        bargs = decoder_backward_args(args, res, seed)
+        leaves = [a.detach().clone().requires_grad_(True) for a in args]
+        y_ref = fdl.decoder_layer_reference(*leaves, seed, 0.3, h_, t)
+        n = 30 if b == 32 else 5  # calls per timing, after 10 warm-up calls
+        kf = lambda: fdl.layer_forward(*args, seed, 0.3, h_, t)  # noqa: E731
+        kb = lambda: fdl.layer_backward(dy, *bargs, 0.3, h_, t)  # noqa: E731
+
+        def pf():
+            with torch.no_grad():
+                fdl.decoder_layer_reference(*args, seed, 0.3, h_, t)
+
+        pb = lambda: torch.autograd.grad(y_ref, leaves, dy, retain_graph=True)  # noqa: E731
+        row = {"B": b, "dtype": str(dtype)[6:], "rate": 0.3,
+               "bounds": decoder_layer_bounds(b, str(dtype)[6:])}
+        for key, k, p in (("fwd", kf, pf), ("bwd", kb, pb)):
+            k1, p1, p2, k2 = (time_us(f, n) / 1000.0 for f in (k, p, p, k))
+            row[f"{key}_kernel_ms"], row[f"{key}_plain_ms"] = [k1, k2], [p1, p2]
+        dev_k = device_us(lambda: (kf(), kb()), n=3)
+        row["kernel_device_us"] = {k: us for k, (us, _) in dev_k.items()}
+        row["kernel_device_launches"] = {k: c for k, (_, c) in dev_k.items()}
+        dev_f, dev_b = device_us(pf, n=3), device_us(pb, n=3)
+        row["plain_fwd_device_us"] = sum(us for us, _ in dev_f.values())
+        row["plain_bwd_device_us"] = sum(us for us, _ in dev_b.values())
+        timings.append(row)
+    emit({"phase": "decoder_layer", "shape": LAYER_SHAPE, "checks": checks,
+          "bars": {"float32": "1e-4 abs (y, residuals); 1e-4 * max|grad| (grads)",
+                   "bfloat16": "2e-2 * max|ref|"},
+          "timings": timings})
+    return {"max_abs_err": worst, "timings": timings}
+
+
 def flagship_params(**model):
     """``initialize_model``'s params from ``FLAGSHIP_HP``."""
     hp = FLAGSHIP_HP
@@ -721,28 +907,76 @@ class Loops:
         ).astype(np.float32)
 
 
-def launches() -> dict:
-    return {name: f.launches for name, f in fl.KERNELS.items()}
+LAYER_KERNELS = {**fl.KERNELS, **fdl.KERNELS}  # encoder and decoder layer kernels
+
+
+def launches(kernels=fl.KERNELS) -> dict:
+    return {name: f.launches for name, f in kernels.items()}
 
 
 def reset_launches() -> None:
-    for f in fl.KERNELS.values():
+    for f in LAYER_KERNELS.values():
         f.launches = 0
 
 
-def run_epochs(bundle, data, held, epochs: int, batch: int) -> list:
+def run_epochs(bundle, data, held, epochs: int, batch: int, encoder_only: int = 1) -> list:
     return [train_loop(dataset=data, groove_transformer=bundle, epoch=e, batch_size=batch,
+                       encoder_only=encoder_only,
                        hit_loss_penalty=FLAGSHIP_HP["hit_loss_penalty"],
                        validation_inputs=held.processed_inputs,
                        validation_gt=held.processed_outputs) for e in range(epochs)]
 
 
-def seqs_per_s(bundle, data, batch: int) -> float:
+def seqs_per_s(bundle, data, batch: int, encoder_only: int = 1) -> float:
     """One epoch through ``train_loop`` (it ends in the metrics' fetch)."""
     t0 = time.perf_counter()
     train_loop(dataset=data, groove_transformer=bundle, batch_size=batch,
-               hit_loss_penalty=FLAGSHIP_HP["hit_loss_penalty"])
+               encoder_only=encoder_only, hit_loss_penalty=FLAGSHIP_HP["hit_loss_penalty"])
     return len(data.processed_inputs) / (time.perf_counter() - t0)
+
+
+@contextlib.contextmanager
+def fused_layers_as(role: str, kernel_h: list, kinks: list):
+    """Stand-ins for the model's two fused layer functions, for comparing a
+    few f32 steps of the kernel path with its twins. A hidden unit within
+    rounding of 0 can fall on either side of the ReLU's kink, and one such
+    unit moves a W1 row by lr·|grad| (on an H100: one unit of one layer in
+    the first step, 1.2e-4). So as ``"kernel"`` every fused layer call also
+    records the kernel's h_drop into ``kernel_h``; as ``"twin"`` the twin runs
+    in place of the kernels and takes the kernel's side at the units where
+    ``kink_flips`` finds the two within rounding of 0 (their number per call
+    goes into ``kinks``), its own side everywhere else. Any other role leaves
+    the model as it is."""
+    # per module: the train function, kernel forward, twin, tensor arguments, h's place
+    specs = ((fl, "encoder_layer_train", fl.layer_forward, fl.encoder_layer_reference, 14, 3),
+             (fdl, "decoder_layer_train", fdl.layer_forward, fdl.decoder_layer_reference, 23, 6))
+    replay = iter(kernel_h)
+
+    def stand_in(mod, name, forward, reference, n_tensors, h_at):
+        train = getattr(mod, name)
+
+        def recording(*a):
+            kernel_h.append(forward(*[t.detach() for t in a[:n_tensors]], *a[n_tensors:])[h_at])
+            return train(*a)
+
+        def replaying(*a):
+            with torch.no_grad():
+                own_h = reference(*[t.detach() for t in a[:n_tensors]], *a[n_tensors:],
+                                  return_residuals=True)[h_at]
+            flips, kink = fl.kink_flips(own_h, next(replay).to(own_h.device))
+            kinks.append(kink["flips"])
+            return reference(*a, relu_flips=flips)
+
+        return {"kernel": recording, "twin": replaying}.get(role, train)
+
+    saved = {name: getattr(transformer, name) for _, name, *_ in specs}
+    for spec in specs:
+        setattr(transformer, spec[1], stand_in(*spec))
+    try:
+        yield
+    finally:
+        for name, fn in saved.items():
+            setattr(transformer, name, fn)
 
 
 def phase_train(dev, rng) -> dict:
@@ -781,22 +1015,10 @@ def phase_train(dev, rng) -> dict:
     # (on an H100: one unit of layer 1 in the first step, 1.2e-4). So the
     # kernel path records its h_drop for each layer and step, and the twins
     # take the kernel's side at the units where ``kink_flips`` finds the two
-    # within rounding of 0, their own side everywhere else. The unfused plain
-    # path on the card cannot; it is held to UNFUSED_BAR.
+    # within rounding of 0, their own side everywhere else
+    # (``fused_layers_as``). The unfused plain path on the card cannot; it is
+    # held to UNFUSED_BAR.
     kernel_h, kinks = [], []
-
-    def recording_kernel(*a):
-        kernel_h.append(fl.layer_forward(*[t.detach() for t in a[:14]], *a[14:])[3])
-        return fl.encoder_layer_train(*a)
-
-    def replaying_twin(*a):
-        with torch.no_grad():
-            own_h = fl.encoder_layer_reference(*[t.detach() for t in a[:14]], *a[14:],
-                                               return_residuals=True)[3]
-        flips, kink = fl.kink_flips(own_h, next(replay).to(own_h.device))
-        kinks.append(kink["flips"])
-        return fl.encoder_layer_reference(*a, relu_flips=flips)
-
     x = torch.from_numpy(data.processed_inputs[:96]).to(dev)
     y = torch.from_numpy(data.processed_outputs[:96]).to(dev)
     three = {}
@@ -807,18 +1029,10 @@ def phase_train(dev, rng) -> dict:
                                    device)
         step = make_train_step(FLAGSHIP_HP["hit_loss_penalty"])
         gen = torch.Generator(device).manual_seed(0)
-        saved = transformer.encoder_layer_train
-        replay = iter(kernel_h)
-        if name == "kernel":
-            transformer.encoder_layer_train = recording_kernel
-        elif name.endswith("twin"):
-            transformer.encoder_layer_train = replaying_twin
-        try:
+        with fused_layers_as("twin" if name.endswith("twin") else name, kernel_h, kinks):
             for i in range(3):
                 step(b.state, x[32 * i:32 * i + 32].to(device),
                      y[32 * i:32 * i + 32].to(device), None, gen)
-        finally:
-            transformer.encoder_layer_train = saved
         three[name] = {k: v.detach().cpu() for k, v in b.model.state_dict().items()}
     param_err = {other: max(max_err(three["kernel"][k], three[other][k]) for k in three["kernel"])
                  for other in ("card_twin", "cpu_twin", "card_unfused")}
@@ -1286,6 +1500,162 @@ def phase_train_augment(dev, rng) -> dict:
     return {"launches": counts}
 
 
+def phase_train_encdec(dev, rng) -> dict:
+    """The encoder-decoder family (6 + 6 layers at the flagship width) trained
+    with teacher forcing through ``initialize_model`` +
+    ``train_loop(encoder_only=0)``: every encoder and decoder layer's forward
+    and backward through its kernels."""
+    data, held = Loops(512, 31), Loops(256, 32)
+    batch, epochs = FLAGSHIP_HP["batch_size"], 3
+    steps = epochs * (len(data.processed_inputs) // batch)
+    params = lambda **model: flagship_params(num_decoder_layers=ENCDEC_LAYERS, **model)  # noqa: E731
+    unfused = dict(fused_layer=False, fused_decoder_layer=False)
+    bundle, _, _ = initialize_model(params(), dev)
+    cfg = bundle.config
+    check(cfg.fused_layer and cfg.fused_decoder_layer and cfg.compute_dtype == torch.bfloat16
+          and cfg.num_decoder_layers == ENCDEC_LAYERS and not cfg.encoder_only,
+          f"auto policy did not pick both layer kernels in bf16: {cfg}")
+    reset_launches()  # the main path's run starts here
+    t0 = time.perf_counter()
+    metrics = run_epochs(bundle, data, held, epochs, batch, encoder_only=0)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = launches(LAYER_KERNELS)  # ... and ends here
+    check(all(c == steps * ENCDEC_LAYERS for c in counts.values()),
+          f"layer kernels launched {counts}, expected {steps * ENCDEC_LAYERS} each "
+          f"({steps} steps x {ENCDEC_LAYERS} encoder and {ENCDEC_LAYERS} decoder layers)")
+    losses = [m["loss"] for m in metrics]
+    check(all(np.isfinite(v) for m in metrics for v in m.values()), f"non-finite: {metrics}")
+    check(losses[-1] < losses[0], f"loss did not fall: {losses}")
+
+    plain, _, _ = initialize_model(params(**unfused), dev)
+    before = launches(LAYER_KERNELS)
+    plain_losses = [m["loss"] for m in run_epochs(plain, data, held, epochs, batch, 0)]
+    check(launches(LAYER_KERNELS) == before, "the unfused path launched a layer kernel")
+    check(all(np.isfinite(plain_losses)) and plain_losses[-1] < plain_losses[0],
+          f"unfused path loss did not fall: {plain_losses}")
+
+    # 3 f32 steps at dropout 0 through make_epoch_fn: the kernel path against
+    # the twin path (the kernel's side of a ReLU kink, ``fused_layers_as``)
+    # and the unfused path, on the card
+    kernel_h, kinks, three = [], [], {}
+    x = torch.from_numpy(data.processed_inputs[:96]).to(dev)
+    y = torch.from_numpy(data.processed_outputs[:96]).to(dev)
+    for name in ("kernel", "twin", "unfused"):
+        b, _, _ = initialize_model(
+            params(bf16=False, dropout=0.0, **(unfused if name == "unfused" else {})), dev)
+        epoch_fn = make_epoch_fn(FLAGSHIP_HP["hit_loss_penalty"], 32, 96, shuffle=False,
+                                 encoder_only=False)
+        with fused_layers_as(name, kernel_h, kinks):
+            epoch_fn(b.state, x, y, torch.Generator(dev).manual_seed(0))
+        check(b.state.step == 3, f"{name}: {b.state.step} steps, expected 3")
+        three[name] = {k: v.detach().cpu() for k, v in b.model.state_dict().items()}
+    param_err = {other: max(max_err(three["kernel"][k], three[other][k]) for k in three["kernel"])
+                 for other in ("twin", "unfused")}
+    check(param_err["twin"] <= 1e-4 and param_err["unfused"] <= UNFUSED_BAR,
+          f"3 f32 steps: params differ by {param_err} (kink flips per layer call: {kinks})")
+
+    # throughput, kernel path and unfused path in turns
+    throughput = {}
+    for b in THROUGHPUT_BATCHES:
+        runs = {"kernel": [], "unfused": []}
+        models = {"kernel": initialize_model(params(), dev)[0],
+                  "unfused": initialize_model(params(**unfused), dev)[0]}
+        for which in ("kernel", "unfused", "unfused", "kernel"):
+            seqs_per_s(models[which], data, b, 0)  # warm-up epoch
+            runs[which].append(seqs_per_s(models[which], data, b, 0))
+        throughput[b] = runs
+
+    # where a step's device time goes (kernel path)
+    breakdown = {}
+    for b in THROUGHPUT_BATCHES:
+        small = Loops(2 * b, 33)
+        bnd = initialize_model(params(), dev)[0]
+        seqs_per_s(bnd, small, b, 0)
+        t0 = time.perf_counter()
+        seqs_per_s(bnd, small, b, 0)
+        host = (time.perf_counter() - t0) / 2
+        per_kernel = device_us(lambda: seqs_per_s(bnd, small, b, 0), n=2)
+        total = sum(us for us, _ in per_kernel.values()) / 2
+        top = sorted(per_kernel.items(), key=lambda kv: -kv[1][0])[:8]
+        breakdown[b] = {"step_host_ms": host * 1e3, "step_device_ms": total / 1e3,
+                        "device_busy_share": total / 1e6 / host,
+                        "launches_per_step": sum(c for _, c in per_kernel.values()) / 2,
+                        "top_kernels_us_per_step": {k: us / 2 for k, (us, _) in top}}
+    emit({"phase": "train_encdec",
+          "config": {**FLAGSHIP_HP, "encoder_only": 0, "num_decoder_layers": ENCDEC_LAYERS},
+          "data": "512 seeded synthetic loops", "epochs": epochs, "steps": steps,
+          "seconds": seconds, "launches": counts, "losses": losses,
+          "last_metrics": metrics[-1], "unfused_losses": plain_losses,
+          "three_f32_steps_param_err": param_err, "three_f32_steps_kink_flips": kinks,
+          "unfused_bar": UNFUSED_BAR, "seqs_per_s": throughput, "step_breakdown": breakdown})
+    return {"launches": counts}
+
+
+def phase_serve_encdec(dev, rng, enc_srv) -> dict:
+    """``InfillServer`` over the encoder-decoder config: no target is passed,
+    the decoder reads zeros, and every chunk's 6 encoder, 6 causal decoder
+    self- and 6 decoder cross-attentions go through ``fused_mha``."""
+    sd = build_model(ENCDEC, "cpu", torch.Generator().manual_seed(16)).state_dict()
+    srv = serve.InfillServer(sd, ENCDEC, batch_sizes=BUCKETS, device=dev)
+    xs = {n: rng.standard_normal((n, 32, 16)).astype(np.float32) for n in (1, 6, 40)}
+    chunks = {1: 1, 6: 1, 40: 2}  # buckets (1, 8, 32): 1 | 8 | 32 + 8
+    per_chunk = ENCDEC.num_encoder_layers + 2 * ENCDEC.num_decoder_layers
+    fused_mha.launches = 0  # the main path's run starts here
+    out = {n: srv.infill(x) for n, x in xs.items()}
+    launches_mha = fused_mha.launches  # ... and ends here
+    check(launches_mha == per_chunk * sum(chunks.values()),
+          f"fused_mha launched {launches_mha} times, expected {per_chunk} per forward chunk "
+          f"({per_chunk * sum(chunks.values())})")
+    cpu_model = build_model(ENCDEC, "cpu")
+    cpu_model.load_state_dict(sd, strict=True)
+
+    def against_cpu(x_cpu, y, what):
+        h_cpu, v_cpu, o_cpu = predict(cpu_model, torch.from_numpy(x_cpu))
+        sig = predict(cpu_model, torch.from_numpy(x_cpu), use_thres=False)[0].numpy()
+        check(y.shape == x_cpu.shape[:2] + (27,) and np.isfinite(y).all(), f"bad output, {what}")
+        err = max(max_err(y[..., 9:18], v_cpu), max_err(y[..., 18:], o_cpu))
+        check(err <= 1e-4, f"{what}: v/o differ from the CPU plain path by {err}")
+        check(hit_agreement(y[..., :9], h_cpu.numpy(), sig),
+              f"{what}: hits differ away from the threshold")
+        return err
+
+    worst = max(against_cpu(x, out[n], f"encoder-decoder server at N={n}")
+                for n, x in xs.items())
+    # one hvo_input request: the front end's kernels, then 18 attentions
+    grid = Loops(1, 34).processed_outputs
+    fused_mha.launches = 0
+    reset_front_end_launches()
+    y_hvo = srv.infill_from_hvo(grid[0], qpm=120.0)
+    hvo_counts = {"fused_mha": fused_mha.launches, "band_energies": BAND.launches,
+                  "device_synth": SYNTH.launches}
+    check(hvo_counts == {"fused_mha": per_chunk, "band_energies": 1, "device_synth": 1},
+          f"one hvo_input request launched {hvo_counts}")
+    x_cpu = mso.mso_batch_from_hvo(grid, None, np.full((1,), 120.0), device="cpu",
+                                   device_synth=True, method="fused")
+    hvo_err = against_cpu(x_cpu, y_hvo[None], "encoder-decoder hvo_input")
+
+    runs = {"encoder_decoder": [], "encoder_only": []}
+    for which in ("encoder_decoder", "encoder_only", "encoder_only", "encoder_decoder"):
+        runs[which].append(serve.latency_benchmark(
+            srv if which == "encoder_decoder" else enc_srv, n_requests=200, batch=1))
+    x1 = np.zeros((1, 32, 16), np.float32)
+    request = host_us(lambda: srv.infill(x1))
+    per_kernel = device_us(lambda: srv.infill(x1), n=30)
+    device_total = sum(us for us, _ in per_kernel.values())
+    emit({"phase": "serve_encdec", "config": "d256 h2 ff512, 6 + 6 layers, f32",
+          "requests": sorted(xs), "chunks": sum(chunks.values()), "launches": launches_mha,
+          "launches_per_chunk": per_chunk, "max_abs_err_vs_cpu_plain": worst,
+          "hvo_input": {"launches": hvo_counts, "max_abs_err_vs_cpu_plain": hvo_err},
+          "latency_b1_in_process": runs,
+          "request_us": request, "request_device_us": device_total,
+          "device_launches_per_request": sum(c for _, c in per_kernel.values()),
+          "device_busy_share": device_total / request,
+          "top_device_kernels_us_launches": sorted(
+              per_kernel.items(), key=lambda kv: -kv[1][0])[:6]})
+    return {"launches": launches_mha}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -1294,21 +1664,34 @@ def main() -> int:
     t_start = time.perf_counter()
     dev = torch.device("cuda", 0)
     rng = np.random.default_rng(0)
-    name, smi = phase_device()
-    phase_build()
-    kernel = phase_kernel(dev, rng)
+    took = {}
+
+    def timed_phase(fn, *args):
+        t0 = time.perf_counter()
+        result = fn(*args)
+        torch.cuda.synchronize()
+        took[fn.__name__.removeprefix("phase_")] = time.perf_counter() - t0
+        return result
+
+    name, smi = timed_phase(phase_device)
+    timed_phase(phase_build)
+    kernel = timed_phase(phase_kernel, dev, rng)
     torch.manual_seed(0)  # seeded random flagship weights
     sd = build_model(FLAGSHIP, "cpu").state_dict()
-    srv, plain, raw, launches_mha = phase_serve(dev, rng, sd)
-    phase_http(dev, rng, sd, srv, raw)
-    phase_demo(rng)
-    phase_latency(dev, srv, plain)
-    layer = phase_layer(dev, rng)
-    train = phase_train(dev, rng)
-    front = phase_front_end_kernels(dev, rng)
-    phase_front_end(dev, rng)
-    hvo = phase_serve_hvo(dev, rng, sd, srv)
-    augmented = phase_train_augment(dev, rng)
+    srv, plain, raw, launches_mha = timed_phase(phase_serve, dev, rng, sd)
+    timed_phase(phase_http, dev, rng, sd, srv, raw)
+    timed_phase(phase_demo, rng)
+    timed_phase(phase_latency, dev, srv, plain)
+    layer = timed_phase(phase_layer, dev, rng)
+    train = timed_phase(phase_train, dev, rng)
+    front = timed_phase(phase_front_end_kernels, dev, rng)
+    timed_phase(phase_front_end, dev, rng)
+    hvo = timed_phase(phase_serve_hvo, dev, rng, sd, srv)
+    augmented = timed_phase(phase_train_augment, dev, rng)
+    dec_layer = timed_phase(phase_decoder_layer, dev, rng)
+    encdec = timed_phase(phase_train_encdec, dev, rng)
+    served_encdec = timed_phase(phase_serve_encdec, dev, rng, srv)
+    emit({"phase_seconds": took})
     b1 = next(t for t in kernel["timings"]
               if t["shape"] == [1, 2, 32, 128] and t["dtype"] == "float32")
     at32 = next(t for t in layer["timings"] if t["B"] == 32 and t["dtype"] == "bfloat16")
@@ -1318,6 +1701,7 @@ def main() -> int:
         "name": "fused_mha", "route": "cuda", "source": KERNEL_SOURCE,
         "replaces": TPU_KERNEL, "launches": launches_mha,
         "launches_hvo_input_path": hvo["launches"]["fused_mha"],
+        "launches_encdec_serving_path": served_encdec["launches"],
         "max_abs_err": kernel["max_abs_err"],
         "ms": float(np.mean(b1["kernel_us"])) / 1000.0,
         "plain_ms": float(np.mean(b1["plain_us"])) / 1000.0,
@@ -1335,6 +1719,7 @@ def main() -> int:
             "name": kname, "route": "cuda", "source": LAYER_SOURCE,
             "replaces": LAYER_TPU_KERNELS[kname], "launches": train["launches"][kname],
             "launches_audio_augment_path": augmented["launches"][kname],
+            "launches_encdec_training_path": encdec["launches"][kname],
             "max_abs_err": layer_err, "ms": device_ms, "plain_ms": float(np.mean(plain)),
             "bound_ms": bounds32[kname]["bound_ms"], "bound_by": bounds32[kname]["bound_by"],
             "library_ms": None,
@@ -1343,6 +1728,25 @@ def main() -> int:
                   "(both backward kernels) on the stream; err: the largest over the f32 "
                   "layer checks (y, residuals, dx, 12 grads; B 32 and 512; rate 0 and 0.30); "
                   "no one PyTorch call computes a whole layer"})
+    dec32 = next(t for t in dec_layer["timings"] if t["B"] == 32 and t["dtype"] == "bfloat16")
+    dec_bounds = decoder_layer_bounds(32, "bfloat16")
+    for kname in fdl.KERNELS:
+        device_ms = sum(us / dec32["kernel_device_launches"][k]
+                        for k, us in dec32["kernel_device_us"].items()
+                        if fdl.KERNELS[kname].entry.removeprefix("tgi_") in k) / 1000.0
+        plain = dec32["fwd_plain_ms"] if kname.endswith("fwd") else dec32["bwd_plain_ms"]
+        kernels.append({
+            "name": kname, "route": "cuda", "source": DEC_SOURCE,
+            "replaces": DEC_TPU_KERNELS[kname], "launches": encdec["launches"][kname],
+            "max_abs_err": dec_layer["max_abs_err"][torch.float32], "ms": device_ms,
+            "plain_ms": float(np.mean(plain)),
+            "bound_ms": dec_bounds[kname]["bound_ms"], "bound_by": dec_bounds[kname]["bound_by"],
+            "library_ms": None,
+            "at": "B 32, T 32, d 256, 2 heads, ff 512, bf16, rate 0.30; ms: device time "
+                  "per call; plain_ms: the twin's whole forward (fwd) or autograd backward "
+                  "(both backward kernels) on the stream; err: the largest over the f32 "
+                  "layer checks (y3, 7 residuals, dx, dmem, 20 grads; B 32 and 512; rate 0 "
+                  "and 0.30); no one PyTorch call computes a whole layer"})
     band1, band64 = front["band_timings"]
     synth1, synth64 = front["synth_timings"]
     kernels.append({

@@ -14,7 +14,7 @@ import torch
 from transformergrooveinfilling_tpu_torch.models import GrooveTransformerConfig, build_model
 from transformergrooveinfilling_tpu_torch.data import make_on_device_augment
 from transformergrooveinfilling_tpu_torch.ops import attention, band_energies, device_synth
-from transformergrooveinfilling_tpu_torch.ops import fused_layer, mso
+from transformergrooveinfilling_tpu_torch.ops import fused_decoder_layer, fused_layer, mso
 from transformergrooveinfilling_tpu_torch.serve import InfillServer
 from transformergrooveinfilling_tpu_torch.train import (
     create_train_state, make_epoch_fn, make_train_step,
@@ -175,6 +175,124 @@ def test_train_steps_run_every_layer_through_the_kernels(cuda, rng, dtype):
     assert {k: f.launches - before[k] for k, f in fused_layer.KERNELS.items()} == {
         k: 5 * 2 for k in fused_layer.KERNELS}
     assert np.isfinite(losses).all() and losses[-1] < losses[0]
+
+
+# ---------------------------------------------------------------- decoder layer
+
+
+def _decoder_inputs(cuda, rng, t, d, ff, nseq, dtype):
+    """y, mem and the 20 parameters in ``ARG_NAMES`` order (weights in
+    nn.Linear's (out, in) layout), and dy."""
+    def n(*shape, scale=1.0, offset=0.0):
+        return torch.from_numpy((offset + scale * rng.standard_normal(shape))
+                                .astype(np.float32)).to(cuda)
+
+    def w(out, inp):
+        return n(out, inp, scale=inp ** -0.5).to(dtype)
+
+    m = nseq * t
+    args = [n(m, d).to(dtype), n(m, d).to(dtype), w(3 * d, d), n(3 * d, scale=0.1), w(d, d),
+            n(d, scale=0.1), w(d, d), n(d, scale=0.1), w(2 * d, d), n(2 * d, scale=0.1),
+            w(d, d), n(d, scale=0.1), n(d, scale=0.1, offset=1.0), n(d, scale=0.1), w(ff, d),
+            n(ff, scale=0.1), w(d, ff), n(d, scale=0.1), n(d, scale=0.1, offset=1.0),
+            n(d, scale=0.1), n(d, scale=0.1, offset=1.0), n(d, scale=0.1)]
+    return args, n(m, d).to(dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rate", [0.0, 0.3])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("t, d, h, ff, nseq", [(32, 256, 2, 512, 8), (32, 128, 2, 256, 4),
+                                               (17, 64, 4, 96, 3), (32, 32, 4, 512, 2)])
+def test_decoder_layer_kernels_match_the_twin(cuda, rng, t, d, h, ff, nseq, dtype, rate):
+    """Forward, row backward and weight gradients against
+    decoder_layer_reference (same masks; the kernel's side of the ReLU only
+    at units within rounding of 0, kink_flips): y3, the 7 residuals, dx, dmem
+    and the 20 parameter grads; bars as the encoder layer's."""
+    dl = fused_decoder_layer
+    args, dy = _decoder_inputs(cuda, rng, t, d, ff, nseq, dtype)
+    seed = torch.tensor([99], dtype=torch.int32, device=cuda)
+    before = {k: f.launches for k, f in dl.KERNELS.items()}
+    leaves = [a.detach().clone().requires_grad_(True) for a in args]
+    y = dl.decoder_layer_train(*leaves, seed, rate, h, t)
+    y.backward(dy)
+    torch.cuda.synchronize()
+    assert {k: f.launches - before[k] for k, f in dl.KERNELS.items()} == {
+        k: 1 for k in dl.KERNELS}
+    res = dl.layer_forward(*args, seed, rate, h, t)
+    with torch.no_grad():
+        own = dl.decoder_layer_reference(*args, seed, rate, h, t, return_residuals=True)
+    flips, _ = fused_layer.kink_flips(own[6], res[6])
+    ref_leaves = [a.detach().clone().requires_grad_(True) for a in args]
+    want = dl.decoder_layer_reference(*ref_leaves, seed, rate, h, t, return_residuals=True,
+                                      relu_flips=flips)
+    want[0].backward(dy)
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    for got, ref in [(y.detach(), want[0])] + list(zip(res[1:], want[1:])):
+        ref = ref.detach().float()
+        assert float((got.float() - ref).abs().max()) <= tol * max(1.0, float(ref.abs().max()))
+    for name, leaf, ref in zip(dl.ARG_NAMES, leaves, ref_leaves):
+        assert leaf.grad.dtype == leaf.dtype, name
+        scale = float(ref.grad.float().abs().max())
+        assert float((leaf.grad.float() - ref.grad.float()).abs().max()) <= tol * scale, name
+
+
+@pytest.mark.cuda
+def test_decoder_layer_kernels_are_deterministic_and_refuse_what_they_do_not_take(cuda, rng):
+    dl = fused_decoder_layer
+    args, dy = _decoder_inputs(cuda, rng, 32, 256, 512, 16, torch.float32)
+    seed = torch.tensor([5], dtype=torch.int32, device=cuda)
+    outs = []
+    for _ in range(2):
+        leaves = [a.detach().clone().requires_grad_(True) for a in args]
+        y = dl.decoder_layer_train(*leaves, seed, 0.3, 2, 32)
+        y.backward(dy)
+        outs.append([y.detach()] + [leaf.grad for leaf in leaves])
+    assert all(torch.equal(a, b) for a, b in zip(*outs))
+    mixed = list(args)
+    mixed[4] = mixed[4].cpu()
+    with pytest.raises(ValueError, match="one CUDA device"):
+        dl.decoder_layer_train(*mixed, seed, 0.3, 2, 32)
+    with pytest.raises(ValueError, match="supports_fused_decoder_layer"):
+        dl.decoder_layer_train(*args, seed, 0.3, 2, 64)  # T beyond one block
+    short = list(args)
+    short[1] = short[1][:256].contiguous()  # a memory of another length
+    with pytest.raises(ValueError, match="equal source and target lengths"):
+        dl.decoder_layer_train(*short, seed, 0.3, 2, 32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_encoder_decoder_train_steps_run_every_layer_through_the_kernels(cuda, rng, dtype):
+    cfg = GrooveTransformerConfig(d_model=64, n_heads=2, dim_feedforward=128, dropout=0.3,
+                                  num_encoder_layers=2, num_decoder_layers=3, fused_layer=True,
+                                  fused_decoder_layer=True, compute_dtype=dtype)
+    state = create_train_state(cfg, "sgd", 0.05, seed=0, device=cuda)
+    step = make_train_step(0.73, encoder_only=False)
+    x = torch.from_numpy(rng.standard_normal((8, 32, 16)).astype(np.float32)).to(cuda)
+    y = torch.from_numpy((rng.random((8, 32, 27)) < 0.3).astype(np.float32)).to(cuda)
+    kernels = {**fused_layer.KERNELS, **fused_decoder_layer.KERNELS}
+    before = {k: f.launches for k, f in kernels.items()}
+    gen = torch.Generator(cuda).manual_seed(0)
+    losses = [float(step(state, x, y, None, gen)["loss"]) for _ in range(5)]
+    assert {k: f.launches - before[k] for k, f in kernels.items()} == {
+        **{k: 5 * 2 for k in fused_layer.KERNELS},
+        **{k: 5 * 3 for k in fused_decoder_layer.KERNELS}}
+    assert np.isfinite(losses).all() and losses[-1] < losses[0]
+
+
+@pytest.mark.cuda
+def test_encoder_decoder_server_runs_18_attentions_through_the_kernel(cuda, rng):
+    cfg = GrooveTransformerConfig(d_model=64, n_heads=4, dim_feedforward=128,
+                                  num_encoder_layers=6, num_decoder_layers=6)
+    sd = build_model(cfg, "cpu").state_dict()
+    fused = InfillServer(sd, cfg, batch_sizes=(1, 4), device=cuda)
+    plain = InfillServer(sd, cfg, batch_sizes=(1, 4), device=cuda, use_kernel=False)
+    x = rng.standard_normal((6, 32, 16)).astype(np.float32)
+    before = attention.fused_mha.launches
+    got = fused.infill(x)  # 6 → two chunks of bucket 4
+    assert attention.fused_mha.launches - before == 2 * 18
+    np.testing.assert_allclose(got[..., 9:], plain.infill(x)[..., 9:], atol=1e-4)
 
 
 # ---------------------------------------------------------------- audio front end

@@ -20,7 +20,6 @@ from transformergrooveinfilling_tpu.models.transformer import (
     GrooveTransformerConfig as JaxConfig,
     sinusoidal_positional_encoding as jax_pe,
 )
-from transformergrooveinfilling_tpu_torch import NotPortedError
 from transformergrooveinfilling_tpu_torch.models import (
     GrooveTransformerConfig, build_model, predict, sinusoidal_positional_encoding,
 )
@@ -164,16 +163,6 @@ def test_find_latest_checkpoint(tmp_path):
     assert find_latest_checkpoint(DEMO_DIR)[1] == 799
     with pytest.raises(FileNotFoundError):
         find_latest_checkpoint(str(tmp_path), "nothing_{}_{}.Model")
-
-
-def test_encoder_decoder_is_not_ported():
-    cfg = GrooveTransformerConfig(num_decoder_layers=2)
-    with pytest.raises(NotPortedError, match="encoder-decoder"):
-        build_model(cfg)
-    with pytest.raises(NotPortedError):
-        load_legacy_checkpoint(DEMO_MODEL, cfg)
-    with pytest.raises(NotPortedError):
-        state_dict_from_flax_params({}, cfg)
 
 
 def test_training_switches_are_accepted_and_change_nothing(rng):

@@ -406,7 +406,8 @@ def test_audio_augment_inputs_are_the_mso_of_the_kept_grids_and_loss_falls(rng):
 def test_config_matches_jax(path, monkeypatch):
     """HyperParams and derive_model_config field for field. The switches are
     mapped: the JAX package resolves them for the TPU, the port for one
-    card (fused_layer by the Hopper gate, no fused FFN yet)."""
+    card (fused_layer by the Hopper gate, no fused FFN yet). Every YAML in
+    the repo is encoder-only; the test below covers ``encoder_only: 0``."""
     monkeypatch.setenv("TGI_HBM_BYTES", str(16 * 1024**3))
     want_hp = jax_config.load_hyperparameters(path)
     got_hp = load_hyperparameters(path)
@@ -420,8 +421,38 @@ def test_config_matches_jax(path, monkeypatch):
         if field.name not in switches:
             assert getattr(got, field.name) == getattr(want, field.name), field.name
     assert got.compute_dtype == torch.float32 and not got.fused_ffn
-    assert got.fused_layer == (got.num_decoder_layers == 0 and port_config.supports_fused_layer(
-        got.d_model, got.n_heads, got.dim_feedforward, 32, torch.float32))
+    assert got.fused_layer == port_config.supports_fused_layer(
+        got.d_model, got.n_heads, got.dim_feedforward, 32, torch.float32)
+    assert got.encoder_only and not got.fused_decoder_layer  # every YAML here is encoder-only
+
+
+def test_config_of_an_encoder_decoder_yaml_matches_jax(monkeypatch):
+    """``encoder_only: 0`` over the flagship YAML's hyperparameters:
+    ``fused_decoder_layer`` by the decoder kernels' own gate, every other
+    field as the JAX package's ``derive_model_config``."""
+    monkeypatch.setenv("TGI_HBM_BYTES", str(16 * 1024**3))
+    path = os.path.join(REPO, "configs", "InfillingRandom_training.yaml")
+    want_hp = jax_config.load_hyperparameters(path)
+    want_hp.encoder_only = 0
+    hp = HyperParams.from_dict({**want_hp.to_dict(), "encoder_only": 0})
+    want = jax_config.derive_model_config(want_hp, compute_dtype=jnp.float32)
+    got = derive_model_config(hp, compute_dtype=torch.float32, device="cpu")
+    switches = {"compute_dtype", "use_pallas_attention", "use_fused_attention", "fused_layer",
+                "fused_ffn", "fused_decoder_layer"}
+    for field in dataclasses.fields(got):
+        if field.name not in switches:
+            assert getattr(got, field.name) == getattr(want, field.name), field.name
+    assert got.num_decoder_layers == got.num_encoder_layers == 6 and not got.encoder_only
+    assert got.fused_decoder_layer == port_config.supports_fused_decoder_layer(
+        got.d_model, got.n_heads, got.dim_feedforward, 32, torch.float32) is True
+    assert got.fused_layer is True and not got.fused_ffn
+    # forced values are kept; several devices switch the auto policy off
+    assert port_config.resolve_fused_decoder_layer(False, 256, 2, 512) is False
+    assert port_config.resolve_fused_decoder_layer(True, 30, 2, 64) is True
+    assert port_config.resolve_fused_decoder_layer(None, 256, 2, 512, n_devices=4) is False
+    assert port_config.resolve_fused_decoder_layer(None, 30, 2, 64) is False
+    hp.encoder_only = 1
+    assert derive_model_config(hp, torch.float32, device="cpu").fused_decoder_layer is False
 
 
 def test_config_resolution(monkeypatch):

@@ -12,7 +12,8 @@ Layering (bottom → top), as far as it is ported:
                 kernels' counterparts), built with ``nvcc`` at first use
 - ``ops``       kernel wrappers, each beside its plain PyTorch version
                 (``fused_mha`` / ``mha_reference``; ``encoder_layer_train``
-                / ``encoder_layer_reference``; ``band_energies`` /
+                / ``encoder_layer_reference``; ``decoder_layer_train`` /
+                ``decoder_layer_reference``; ``band_energies`` /
                 ``band_energies_plain``; ``synth_events`` /
                 ``synth_events_plain``), the MSO DSP, the on-device drum
                 synthesizer, dropout, and the kernel build
@@ -20,17 +21,17 @@ Layering (bottom → top), as far as it is ported:
 - ``audio``     the procedural drum kit and the host (numpy) mixer
 - ``data``      random masking and the synth + MSO front end as a training
                 augmentation on the device
-- ``models``    the encoder-only groove transformer (``nn.Module``) with its
-                training mode, the loss, legacy ``.Model`` / flax-parameter
-                interop
+- ``models``    the groove transformer (``nn.Module``), encoder-only and
+                encoder-decoder, with its training mode, the loss, legacy
+                ``.Model`` / flax-parameter interop
 - ``train``     the training contract (``initialize_model`` + ``train_loop``),
                 step and epoch functions, hyperparameters
 - ``serve``     bucketed inference server, dynamic batching, HTTP endpoint
 
 Not ported yet (see ROADMAP.md): the training CLI (``train.py``,
 ``run_training``), checkpoints, evaluation and logging, SoundFont (``.sf2``)
-kits, the C++ mixer and WAV I/O, the encoder-decoder family, the fused FFN and
-fused LayerNorm kernels, multi-GPU, export.
+kits, the C++ mixer and WAV I/O, the fused FFN and fused LayerNorm kernels,
+remat, multi-GPU, export.
 Every entry point runs on ``"cuda"`` unless the caller names another device,
 and raises without CUDA (:func:`require_device`); none carries on on the CPU.
 Importing this package has no side effects: no backend is selected and no

@@ -8,7 +8,8 @@
 //   y1 = LN1(x + drop(A·Wo + bo));  h = drop(relu(y1·W1 + b1))
 //   y2 = LN2(y1 + drop(h·W2 + b2))
 //
-// Three kernels:
+// Three kernels (their shared device functions, which the decoder layer's
+// kernels use too, are in layer_common.cuh):
 //   layer_fwd          one block per sequence (T ≤ 32 rows): writes y and
 //                      the residuals qkv, a1, h_drop, a2.
 //   layer_bwd_rows     one block per sequence: recomputes LN statistics and
@@ -35,12 +36,9 @@
 // recompute them (the same device functions in the same order, so the
 // recompute is bit-identical to the forward).
 //
-// Dropout: Philox4x32-10, keyed by (seed, 0) and counted by
-// (col / 16, row, site, 0); element (row, col) takes byte col % 16. Sites:
-// 0 attention probabilities (row = (seq·H + head)·T + i, col = j), 1 the
-// attention projection, 2 the FFN hidden, 3 the FFN output (row = global
-// row). A byte below `thresh` keeps the element, which is then divided by
-// thresh/256 (ops/fused_layer.py::dropout_mask draws the same bytes).
+// Dropout sites (layer_common.cuh has the stream): 0 attention probabilities
+// (row = (seq·H + head)·T + i, col = j), 1 the attention projection, 2 the FFN
+// hidden, 3 the FFN output (row = global row).
 //
 // Rounding points (S = storage dtype, f32 or bf16), as the TPU kernel's:
 // qkv, P after dropout, the attention output, y1, h are rounded to S;
@@ -52,194 +50,11 @@
 // from Python with ctypes (ops/fused_layer.py); each returns
 // cudaGetLastError() after its launch.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stddef.h>
-#include <stdint.h>
+#include "layer_common.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kMaxT = 32;
-constexpr int kTile = 64;
-constexpr float kLnEps = 1e-5f;
 constexpr int kSiteAttn = 0, kSiteProj = 1, kSiteFfn = 2, kSiteOut = 3;
-
-__device__ __forceinline__ float ld(float x) { return x; }
-__device__ __forceinline__ float ld(__nv_bfloat16 x) { return __bfloat162float(x); }
-
-template <typename S>
-__device__ __forceinline__ S st(float x);
-template <>
-__device__ __forceinline__ float st<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 st<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);  // round to nearest even, as astype(bf16)
-}
-// round an f32 value through S
-template <typename S>
-__device__ __forceinline__ float rnd(float x) { return ld(st<S>(x)); }
-
-__device__ __forceinline__ void load4(const float* p, float* w) {
-  const float4 v = *reinterpret_cast<const float4*>(p);
-  w[0] = v.x; w[1] = v.y; w[2] = v.z; w[3] = v.w;
-}
-__device__ __forceinline__ void load4(const __nv_bfloat16* p, float* w) {
-  const uint2 v = *reinterpret_cast<const uint2*>(p);
-  const __nv_bfloat162 lo = *reinterpret_cast<const __nv_bfloat162*>(&v.x);
-  const __nv_bfloat162 hi = *reinterpret_cast<const __nv_bfloat162*>(&v.y);
-  w[0] = __low2float(lo); w[1] = __high2float(lo);
-  w[2] = __low2float(hi); w[3] = __high2float(hi);
-}
-
-// ---------------------------------------------------------------- dropout
-
-__device__ __forceinline__ uint32_t dropout_byte(uint32_t seed, uint32_t site,
-                                                 uint32_t row, uint32_t col) {
-  uint32_t c0 = col >> 4, c1 = row, c2 = site, c3 = 0u, k0 = seed, k1 = 0u;
-#pragma unroll
-  for (int i = 0; i < 10; ++i) {
-    if (i) {
-      k0 += 0x9E3779B9u;
-      k1 += 0xBB67AE85u;
-    }
-    const uint32_t hi0 = __umulhi(0xD2511F53u, c0), lo0 = 0xD2511F53u * c0;
-    const uint32_t hi1 = __umulhi(0xCD9E8D57u, c2), lo1 = 0xCD9E8D57u * c2;
-    const uint32_t n0 = hi1 ^ c1 ^ k0, n2 = hi0 ^ c3 ^ k1;
-    c0 = n0; c1 = lo1; c2 = n2; c3 = lo0;
-  }
-  const uint32_t w = (col & 8) ? ((col & 4) ? c3 : c2) : ((col & 4) ? c1 : c0);
-  return (w >> (8 * (col & 3))) & 0xFFu;
-}
-
-struct Drop {
-  uint32_t seed;
-  int thresh;
-  float keep;
-  // dropout of v at (site, row, col): v / keep where kept, else 0
-  __device__ __forceinline__ float apply(float v, int site, int row, int col) const {
-    if (thresh >= 256) return v;
-    return dropout_byte(seed, site, row, col) < static_cast<uint32_t>(thresh) ? v / keep : 0.f;
-  }
-};
-
-// ---------------------------------------------------------------- shared pieces
-
-__device__ __forceinline__ float warp_sum(float v) {
-  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
-  return v;
-}
-__device__ __forceinline__ float warp_max(float v) {
-  for (int off = 16; off > 0; off >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, off));
-  return v;
-}
-
-// out[r][n] = Σ_k A[r][k]·W(k, n) for r < T, n < N: A in shared memory (f32,
-// row stride lda), W in device memory, W(k, n) = W[k·N + n] (TRANS false) or
-// W[n·K + k] (TRANS true). Weights come in nn.Linear's (out, in) layout, so
-// the forward's A·Wᵀ takes TRANS true and the backward's dY·W TRANS false.
-// One thread per output column keeps T sums in registers; K is a multiple
-// of 4. epi(r, n, sum) writes the result.
-template <typename S, bool TRANS, typename Epi>
-__device__ __forceinline__ void rowmm(const float* A, int lda, const S* __restrict__ W,
-                                      int K, int N, int T, Epi epi) {
-  for (int n = threadIdx.x; n < N; n += blockDim.x) {
-    float acc[kMaxT];
-#pragma unroll
-    for (int r = 0; r < kMaxT; ++r) acc[r] = 0.f;
-    for (int k = 0; k < K; k += 4) {
-      float w[4];
-      if (TRANS) {
-        load4(W + static_cast<size_t>(n) * K + k, w);
-      } else {
-#pragma unroll
-        for (int j = 0; j < 4; ++j) w[j] = ld(W[static_cast<size_t>(k + j) * N + n]);
-      }
-#pragma unroll
-      for (int r = 0; r < kMaxT; ++r) {
-        if (r < T) {
-          const float4 a = *reinterpret_cast<const float4*>(A + r * lda + k);
-          acc[r] = fmaf(a.x, w[0], acc[r]);
-          acc[r] = fmaf(a.y, w[1], acc[r]);
-          acc[r] = fmaf(a.z, w[2], acc[r]);
-          acc[r] = fmaf(a.w, w[3], acc[r]);
-        }
-      }
-    }
-#pragma unroll
-    for (int r = 0; r < kMaxT; ++r)
-      if (r < T) epi(r, n, acc[r]);
-  }
-}
-
-// One head's softmax(q·kᵀ·scale) into P (T, T), f32, unrounded. q and k are
-// rows of stride ld in shared memory. Each dot product walks the head dim
-// starting at column j (rotated), so the 32 lanes of a warp, which read 32
-// key rows, hit 32 banks. Every kernel calls this one function, so the
-// backward's recompute is bit-identical to the forward.
-__device__ void head_probs(const float* q, const float* k, int ld, int hd, int T,
-                           float scale, float* P) {
-  for (int idx = threadIdx.x; idx < T * T; idx += blockDim.x) {
-    const int i = idx / T, j = idx - i * T;
-    const float* qi = q + i * ld;
-    const float* kj = k + j * ld;
-    float acc = 0.f;
-    int c = j % hd;
-    for (int t = 0; t < hd; ++t) {
-      acc = fmaf(qi[c], kj[c], acc);
-      if (++c == hd) c = 0;
-    }
-    P[idx] = acc * scale;
-  }
-  __syncthreads();
-  const int lane = threadIdx.x & 31;
-  for (int i = threadIdx.x >> 5; i < T; i += blockDim.x >> 5) {
-    const float v = lane < T ? P[i * T + lane] : -INFINITY;
-    const float m = warp_max(v);
-    const float e = lane < T ? expf(v - m) : 0.f;
-    const float sum = warp_sum(e);
-    if (lane < T) P[i * T + lane] = e / sum;
-  }
-  __syncthreads();
-}
-
-// mean and 1/sqrt(var + eps) of one row of width d (f32 values from get(c)),
-// one-pass variance clamped at 0; called by a whole warp
-template <typename Get>
-__device__ __forceinline__ void ln_stats(int d, Get get, float& mu, float& rstd) {
-  const int lane = threadIdx.x & 31;
-  float s = 0.f, s2 = 0.f;
-  for (int c = lane; c < d; c += 32) {
-    const float a = get(c);
-    s += a;
-    s2 = fmaf(a, a, s2);
-  }
-  s = warp_sum(s);
-  s2 = warp_sum(s2);
-  mu = s / d;
-  const float var = fmaxf(s2 / d - mu * mu, 0.f);
-  rstd = rsqrtf(var + kLnEps);
-}
-
-__device__ __forceinline__ float zhat(float a, float mu, float rstd) {
-  return __fmul_rn(__fsub_rn(a, mu), rstd);
-}
-__device__ __forceinline__ float affine(float z, float g, float b) {
-  return __fadd_rn(__fmul_rn(z, g), b);
-}
-
-struct Shape {
-  int nseq, T, d, H, ff, thresh;
-};
-
-__device__ __forceinline__ Drop make_drop(const int* seed, int thresh) {
-  Drop dr;
-  dr.seed = static_cast<uint32_t>(*seed);
-  dr.thresh = thresh;
-  dr.keep = thresh / 256.f;
-  return dr;
-}
 
 // ---------------------------------------------------------------- forward
 
@@ -276,21 +91,9 @@ __global__ void __launch_bounds__(kThreads) layer_fwd(FwdArgs<S> p, Shape sh) {
   });
   __syncthreads();
 
-  for (int hh = 0; hh < H; ++hh) {
-    head_probs(sBig + hh * hd, sBig + d + hh * hd, d3, hd, T, scale, sP);
-    for (int idx = threadIdx.x; idx < T * T; idx += blockDim.x) {
-      const int i = idx / T, j = idx - i * T;
-      sP[idx] = rnd<S>(dr.apply(sP[idx], kSiteAttn, (s * H + hh) * T + i, j));
-    }
-    __syncthreads();
-    for (int idx = threadIdx.x; idx < T * hd; idx += blockDim.x) {
-      const int i = idx / hd, c = hh * hd + (idx - i * hd);
-      float acc = 0.f;
-      for (int j = 0; j < T; ++j) acc = fmaf(sP[i * T + j], sBig[j * d3 + 2 * d + c], acc);
-      sA[i * d + c] = rnd<S>(acc);
-    }
-    __syncthreads();
-  }
+  for (int hh = 0; hh < H; ++hh)
+    attn_head_fwd<S>(sBig + hh * hd, d3, sBig + d + hh * hd, sBig + 2 * d + hh * hd, d3, hd, T,
+                     scale, false, dr, kSiteAttn, (s * H + hh) * T, sP, sA + hh * hd, d);
 
   // a1 = x + drop(A·Wo + bo), into sBig (qkv is no longer needed)
   rowmm<S, true>(sA, d, p.wo, d, d, T, [&](int r, int n, float acc) {
@@ -433,25 +236,15 @@ __global__ void __launch_bounds__(kThreads) layer_bwd_rows(BwdArgs<S> p, Shape s
   __syncthreads();
 
   // LN1 backward: da1 into B0; dproj = drop(da1)
-  for (int r = warp; r < T; r += nwarps) {
-    const float rstd = sStat[2 * r + 1];
-    float m1 = 0.f, m2 = 0.f;
-    for (int c = lane; c < d; c += 32) {
-      const float dz = B0[r * d + c] * p.g1[c];
-      m1 += dz;
-      m2 = fmaf(dz, B2[r * d + c], m2);
-    }
-    m1 = warp_sum(m1) / d;
-    m2 = warp_sum(m2) / d;
-    for (int c = lane; c < d; c += 32) {
-      const float dz = B0[r * d + c] * p.g1[c];
-      const float da1 = rstd * (dz - m1 - B2[r * d + c] * m2);
-      B0[r * d + c] = da1;
-      const float dproj = dr.apply(da1, kSiteProj, r0 + r, c);
-      scr[r * col.width + col.dproj + c] = dproj;
-      B1[r * d + c] = rnd<S>(dproj);
-    }
-  }
+  ln_bwd_rows(
+      T, d, p.g1, [&](int r, int c) { return B0[r * d + c]; },
+      [&](int r, int c) { return B2[r * d + c]; }, [&](int r) { return sStat[2 * r + 1]; },
+      [&](int r, int c, float da1) {
+        B0[r * d + c] = da1;
+        const float dproj = dr.apply(da1, kSiteProj, r0 + r, c);
+        scr[r * col.width + col.dproj + c] = dproj;
+        B1[r * d + c] = rnd<S>(dproj);
+      });
   __syncthreads();
 
   // dattn = round(dproj·Woᵀ) into B2; qkv into sBig
@@ -464,45 +257,14 @@ __global__ void __launch_bounds__(kThreads) layer_bwd_rows(BwdArgs<S> p, Shape s
   // attention backward, head by head; dq, dk, dv go to the scratch
   for (int hh = 0; hh < H; ++hh) {
     const int q0 = hh * hd, k0 = d + hh * hd, v0 = 2 * d + hh * hd;
-    head_probs(sBig + q0, sBig + k0, d3, hd, T, scale, sP);
-    for (int idx = threadIdx.x; idx < T * T; idx += blockDim.x) {
-      const int i = idx / T, j = idx - i * T;
-      const float* da = B2 + i * d + q0;
-      const float* vj = sBig + j * d3 + v0;
-      float acc = 0.f;
-      int c = j % hd;
-      for (int t = 0; t < hd; ++t) {
-        acc = fmaf(da[c], vj[c], acc);
-        if (++c == hd) c = 0;
-      }
-      sD[idx] = dr.apply(acc, kSiteAttn, (s * H + hh) * T + i, j);
-    }
-    __syncthreads();
-    for (int i = warp; i < T; i += nwarps) {
-      const int idx = i * T + lane;
-      const float pv = lane < T ? sP[idx] : 0.f;
-      const float dp = lane < T ? sD[idx] : 0.f;
-      const float dot = warp_sum(dp * pv);
-      if (lane < T) {
-        sD[idx] = rnd<S>(pv * (dp - dot) * scale);
-        sP[idx] = rnd<S>(dr.apply(pv, kSiteAttn, (s * H + hh) * T + i, lane));
-      }
-    }
-    __syncthreads();
-    for (int idx = threadIdx.x; idx < T * hd; idx += blockDim.x) {
-      const int j = idx / hd, c = idx - j * hd;
-      float dv = 0.f, dk = 0.f, dq = 0.f;
-      for (int i = 0; i < T; ++i) {
-        dv = fmaf(sP[i * T + j], B2[i * d + q0 + c], dv);
-        dk = fmaf(sD[i * T + j], sBig[i * d3 + q0 + c], dk);
-        dq = fmaf(sD[j * T + i], sBig[i * d3 + k0 + c], dq);
-      }
-      float* out = scr + j * col.width + col.dqkv;
-      out[q0 + c] = rnd<S>(dq);
-      out[k0 + c] = rnd<S>(dk);
-      out[v0 + c] = rnd<S>(dv);
-    }
-    __syncthreads();
+    attn_head_bwd<S>(sBig + q0, d3, sBig + k0, sBig + v0, d3, B2 + q0, d, hd, T, scale, false,
+                     dr, kSiteAttn, (s * H + hh) * T, sP, sD,
+                     [&](int j, int c, float dq, float dk, float dv) {
+                       float* out = scr + j * col.width + col.dqkv;
+                       out[q0 + c] = dq;
+                       out[k0 + c] = dk;
+                       out[v0 + c] = dv;
+                     });
   }
 
   // dx = da1 + dqkv·Wqkvᵀ
@@ -526,8 +288,6 @@ struct WgradArgs {
   const float* scratch;
   float *dwqkv, *dwo, *dw1, *dw2, *vec;
 };
-
-__host__ __device__ inline int tiles(int n) { return (n + kTile - 1) / kTile; }
 
 template <typename S>
 __global__ void __launch_bounds__(kThreads) layer_bwd_weights(WgradArgs<S> p, Shape sh) {
@@ -611,29 +371,11 @@ __global__ void __launch_bounds__(kThreads) layer_bwd_weights(WgradArgs<S> p, Sh
     if (mat == 1) {
       const int kend = min(k0 + kTile, d);
       for (int hh = k0 / hd; hh * hd < kend; ++hh) {
-        for (int idx = threadIdx.x; idx < T * hd; idx += blockDim.x) {
-          const int r = idx / hd, c = idx - r * hd;
-          const size_t g = static_cast<size_t>(r0 + r) * d3 + hh * hd + c;
-          sQ[idx] = ld(p.qkv[g]);
-          sK[idx] = ld(p.qkv[g + d]);
-        }
-        __syncthreads();
-        head_probs(sQ, sK, hd, hd, T, scale, sP);
-        for (int idx = threadIdx.x; idx < T * T; idx += blockDim.x) {
-          const int i = idx / T, j = idx - i * T;
-          sP[idx] = rnd<S>(dr.apply(sP[idx], kSiteAttn, (s * H + hh) * T + i, j));
-        }
-        __syncthreads();
         const int c_lo = max(k0, hh * hd), c_hi = min(kend, (hh + 1) * hd);
-        const int w = c_hi - c_lo;
-        for (int idx = threadIdx.x; idx < T * w; idx += blockDim.x) {
-          const int i = idx / w, c = c_lo + idx - i * w;
-          float a = 0.f;
-          for (int j = 0; j < T; ++j)
-            a = fmaf(sP[i * T + j], ld(p.qkv[static_cast<size_t>(r0 + j) * d3 + 2 * d + c]), a);
-          sA[i * kTile + c - k0] = rnd<S>(a);
-        }
-        __syncthreads();
+        const S* q = p.qkv + static_cast<size_t>(r0) * d3 + hh * hd;
+        attn_head_cols<S>(q, d3, q + d, q + 2 * d, d3, hd, T, scale, false, dr, kSiteAttn,
+                          (s * H + hh) * T, c_lo - hh * hd, c_hi - hh * hd, sQ, sK, sP,
+                          sA + c_lo - k0, kTile);
       }
       for (int idx = threadIdx.x; idx < T * kTile; idx += blockDim.x)
         if (k0 + idx % kTile >= d) sA[idx] = 0.f;
@@ -691,19 +433,6 @@ size_t rows_smem(const Shape& s) {
 }
 size_t weights_smem(const Shape& s) {
   return 4 * (2 * static_cast<size_t>(s.T) * kTile + 2 * s.T * (s.d / s.H) + s.T * s.T);
-}
-
-// launch kernel with `smem` dynamic shared memory, opting in above 48 KB
-template <typename Kernel, typename Args>
-int launch(Kernel kernel, int blocks, size_t smem, cudaStream_t stream, const Args& args,
-           const Shape& sh) {
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  kernel<<<blocks, kThreads, smem, stream>>>(args, sh);
-  return static_cast<int>(cudaGetLastError());
 }
 
 template <typename S>

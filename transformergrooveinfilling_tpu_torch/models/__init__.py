@@ -1,7 +1,9 @@
-"""Model family: the encoder-only groove transformer with h/v/o heads."""
+"""Model families: the encoder-only and the encoder-decoder groove transformer
+with h/v/o heads."""
 
 from .transformer import (
     GrooveTransformerConfig,
+    GrooveTransformer,
     GrooveTransformerEncoder,
     sinusoidal_positional_encoding,
     build_model,
@@ -13,6 +15,7 @@ from . import torch_compat
 
 __all__ = [
     "GrooveTransformerConfig",
+    "GrooveTransformer",
     "GrooveTransformerEncoder",
     "sinusoidal_positional_encoding",
     "build_model",

@@ -1,17 +1,25 @@
-"""Groove infilling transformer, encoder-only (``torch.nn``), serving and training.
+"""Groove infilling transformer (``torch.nn``), both families, serving and training.
 
 Counterpart of ``transformergrooveinfilling_tpu/models/transformer.py``:
 Linear(src→d_model) embedding → ReLU → sinusoidal PE → dropout, N post-LN
 encoder layers (packed-QKV self-attention, ReLU FFN), a final LayerNorm, and
 Linear(d_model→3V) split into hit logits / velocity (sigmoid) / offset
-(tanh·0.5).
+(tanh·0.5). With ``num_decoder_layers > 0`` the encoder's normalised output is
+the memory of a teacher-forced decoder: the target grid, shifted right behind
+a zero start row, goes through its own input layer and N post-LN decoder layers
+(causal self-attention, cross-attention over the memory, FFN), a final
+LayerNorm and the same output head. Without a target (serving) the decoder
+reads zeros, as the JAX model does.
 
 Submodules carry the reference checkpoint's names
 (``InputLayerEncoder.Linear``, ``Encoder.Encoder.layers.{i}.self_attn.
 in_proj_weight``, ``...out_proj``, ``linear1``, ``linear2``, ``norm1``,
-``norm2``, ``Encoder.Encoder.norm``, ``OutputLayer.Linear``), so a legacy
-``.Model`` state dict loads with ``load_state_dict(strict=True)`` once its
-stored PE buffer is dropped (``models/torch_compat.py``).
+``norm2``, ``Encoder.Encoder.norm``, ``OutputLayer.Linear``; for the decoder
+``InputLayerDecoder.Linear``, ``Decoder.Decoder.layers.{i}.{self_attn,
+multihead_attn, linear1, linear2, norm1, norm2, norm3}``,
+``Decoder.Decoder.norm``), so a legacy ``.Model`` state dict loads with
+``load_state_dict(strict=True)`` once its stored PE buffers are dropped
+(``models/torch_compat.py``).
 
 Numerics follow the JAX model, including where it differs from torch's
 ``nn.TransformerEncoder``: the final LayerNorm uses flax's default eps 1e-6
@@ -25,10 +33,12 @@ switches (``fused_layer``, ``fused_ffn``, ``fused_dropout_ln``, ``remat``)
 change nothing. ``train()`` mode is the JAX ``deterministic=False`` path:
 ``forward(src, generator)`` draws every dropout site from ``generator``
 (``fast_dropout`` picks the 8-bit or the exact-rate rule), and
-``fused_layer`` runs each encoder layer through ``ops/fused_layer.py``
-(the CUDA kernels on a CUDA tensor). A training forward that would take a
-path not ported yet raises ``NotPortedError``: the fused FFN, the fused
-dropout+LayerNorm at rate > 0, and remat.
+``fused_layer`` runs each encoder layer through ``ops/fused_layer.py`` and
+``fused_decoder_layer`` each decoder layer through
+``ops/fused_decoder_layer.py`` (the CUDA kernels on a CUDA tensor). A training
+forward that would take a path not ported yet raises ``NotPortedError``: the
+fused FFN, the fused dropout+LayerNorm at rate > 0, and remat, in encoder and
+decoder layers alike.
 """
 
 from __future__ import annotations
@@ -42,9 +52,10 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .. import NotPortedError
+from .. import NotPortedError, require_device
 from ..ops.attention import fused_mha, mha_reference
 from ..ops.dropout import dropout as drop_site
+from ..ops.fused_decoder_layer import decoder_layer_train, supports_fused_decoder_layer
 from ..ops.fused_layer import encoder_layer_train, supports_fused_layer
 
 
@@ -62,12 +73,14 @@ class GrooveTransformerConfig:
     embedding_size_src: int = 16  # 16 = MSO bands; 27 for the symbolic experiment
     embedding_size_tgt: int = 27  # HVO width (9 voices × h/v/o)
     compute_dtype: torch.dtype = torch.float32
-    # every encoder layer's attention through the CUDA kernel
-    # (ops/attention.py::fused_mha; the JAX field is use_pallas_attention)
+    # every layer's attention (encoder, decoder self and cross) through the
+    # CUDA kernel (ops/attention.py::fused_mha; the JAX field is
+    # use_pallas_attention)
     use_fused_attention: bool = False
-    # training-path switches of the JAX config. fused_layer and fast_dropout
-    # act in train() mode; fused_ffn, fused_dropout_ln (at rate > 0) and
-    # remat raise NotPortedError there; eval() mode ignores them all
+    # training-path switches of the JAX config. fused_layer (encoder layers),
+    # fused_decoder_layer (decoder layers) and fast_dropout act in train()
+    # mode; fused_ffn, fused_dropout_ln (at rate > 0) and remat raise
+    # NotPortedError there; eval() mode ignores them all
     remat: bool = False
     remat_policy: Optional[str] = None
     fused_dropout_ln: bool = False
@@ -187,44 +200,89 @@ class InputLayer(nn.Module):
         return x + self.pe[:, : x.shape[-2]].to(x.dtype)
 
 
-def attention_train(q, k, v, rate: float, fast: bool, generator) -> torch.Tensor:
+def attention_train(q, k, v, rate: float, fast: bool, generator,
+                    causal: bool = False) -> torch.Tensor:
     """Attention with dropout on the probabilities (the JAX unfused training
-    path): f32 scores and softmax, probabilities rounded to ``v.dtype``, then
-    dropped and multiplied by V with f32 accumulation."""
+    path): f32 scores (``-1e9`` above the diagonal when ``causal``) and
+    softmax, probabilities rounded to ``v.dtype``, then dropped and multiplied
+    by V with f32 accumulation."""
     s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * (1.0 / math.sqrt(q.shape[-1]))
+    if causal:
+        t = s.shape[-1]
+        s = s.masked_fill(torch.ones(t, t, dtype=torch.bool, device=s.device).triu(1), -1e9)
     p = drop_site(torch.softmax(s, dim=-1).to(v.dtype), generator, rate, fast)
     return torch.matmul(p.float(), v.float()).to(q.dtype)
 
 
 class SelfAttention(nn.Module):
-    """Packed-QKV multi-head self-attention (torch ``nn.MultiheadAttention``
-    parameter names: ``in_proj_weight`` rows ``[q; k; v]``, ``out_proj``)."""
+    """Packed-QKV multi-head attention (torch ``nn.MultiheadAttention``
+    parameter names: ``in_proj_weight`` rows ``[q; k; v]``, ``out_proj``).
+    ``causal`` masks future positions (the decoder's teacher-forced
+    self-attention). ``forward(x, kv=memory)`` is cross-attention: the first
+    d rows of ``in_proj_weight`` project the queries from ``x``, the other 2d
+    the keys and values from ``memory`` (the JAX module's ``q`` and packed
+    ``kv`` projections)."""
 
     def __init__(self, d_model: int, n_heads: int, dtype: torch.dtype,
-                 use_fused: bool, device=None):
+                 use_fused: bool, device=None, causal: bool = False):
         super().__init__()
         if d_model % n_heads:
             raise ValueError(f"d_model={d_model} not divisible by n_heads={n_heads}")
         self.n_heads = n_heads
         self.dtype = dtype
+        self.causal = causal
         self.attend = fused_mha if use_fused else mha_reference
         self.in_proj_weight = nn.Parameter(
             torch.empty(3 * d_model, d_model, device=device))
         self.in_proj_bias = nn.Parameter(torch.zeros(3 * d_model, device=device))
         self.out_proj = _new_linear(d_model, d_model, device)
 
-    def forward(self, x: torch.Tensor, dropout=None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, dropout=None, kv=None) -> torch.Tensor:
         """``dropout``: ``(rate, fast, generator)`` on the training path, where
         the probabilities are dropped and the plain attention runs (the JAX
         kernel path is deterministic only)."""
         b, t, d = x.shape
         h = self.n_heads
-        qkv = _linear(x, self.in_proj_weight, self.in_proj_bias, self.dtype)
-        # one copy into (3, B, H, T, hd): q, k, v come out contiguous
-        q, k, v = qkv.view(b, t, 3, h, d // h).permute(2, 0, 3, 1, 4).contiguous()
-        out = self.attend(q, k, v) if dropout is None else attention_train(q, k, v, *dropout)
+        if kv is None:
+            qkv = _linear(x, self.in_proj_weight, self.in_proj_bias, self.dtype)
+            # one copy into (3, B, H, T, hd): q, k, v come out contiguous
+            q, k, v = qkv.view(b, t, 3, h, d // h).permute(2, 0, 3, 1, 4).contiguous()
+        else:
+            q = _linear(x, self.in_proj_weight[:d], self.in_proj_bias[:d], self.dtype)
+            q = q.view(b, t, h, d // h).transpose(1, 2).contiguous()
+            k_v = _linear(kv, self.in_proj_weight[d:], self.in_proj_bias[d:], self.dtype)
+            k, v = k_v.view(b, kv.shape[1], 2, h, d // h).permute(2, 0, 3, 1, 4).contiguous()
+        if dropout is None:
+            out = self.attend(q, k, v, self.causal)
+        else:
+            out = attention_train(q, k, v, *dropout, causal=self.causal)
         out = out.transpose(1, 2).reshape(b, t, d)
         return _linear(out, self.out_proj.weight, self.out_proj.bias, self.dtype)
+
+
+def _ffn(layer: nn.Module, x: torch.Tensor, dropout=None) -> torch.Tensor:
+    """``W2·Drop(relu(W1·x))`` of an encoder or decoder layer; ``dropout``:
+    ``(rate, fast, generator)`` on the training path."""
+    ff = torch.relu(_linear(x, layer.linear1.weight, layer.linear1.bias, layer.dtype))
+    if dropout is not None:
+        rate, fast, generator = dropout
+        ff = drop_site(ff, generator, rate, fast)
+    return _linear(ff, layer.linear2.weight, layer.linear2.bias, layer.dtype)
+
+
+def _refuse_unported_switches(cfg: "GrooveTransformerConfig") -> None:
+    """The unfused training path of a layer: the kernels it would need."""
+    if cfg.fused_dropout_ln and cfg.dropout > 0.0:
+        raise NotPortedError("fused_dropout_ln at dropout > 0: the fused "
+                             "dropout+LayerNorm kernel is not ported yet")
+    if cfg.fused_ffn:
+        raise NotPortedError("fused_ffn: the fused FFN kernel is not ported yet")
+
+
+def _layer_seed(generator, device) -> torch.Tensor:
+    """One int32 seed for a fused layer's dropout stream (per step and layer)."""
+    return torch.randint(0, 2**31 - 1, (1,), generator=generator, device=device,
+                         dtype=torch.int32)
 
 
 class EncoderLayer(nn.Module):
@@ -245,23 +303,15 @@ class EncoderLayer(nn.Module):
     def forward(self, x: torch.Tensor, generator=None) -> torch.Tensor:
         if not self.training:
             x = _add_layer_norm(x, self.self_attn(x), self.norm1)
-            ff = torch.relu(_linear(x, self.linear1.weight, self.linear1.bias, self.dtype))
-            ff = _linear(ff, self.linear2.weight, self.linear2.bias, self.dtype)
-            return _add_layer_norm(x, ff, self.norm2)
+            return _add_layer_norm(x, _ffn(self, x), self.norm2)
         cfg = self.config
         if cfg.fused_layer:
             return self._fused(x, generator)
+        _refuse_unported_switches(cfg)
         rate, fast = cfg.dropout, cfg.fast_dropout
-        if cfg.fused_dropout_ln and rate > 0.0:
-            raise NotPortedError("fused_dropout_ln at dropout > 0: the fused "
-                                 "dropout+LayerNorm kernel is not ported yet")
-        if cfg.fused_ffn:
-            raise NotPortedError("fused_ffn: the fused FFN kernel is not ported yet")
         sa = self.self_attn(x, dropout=(rate, fast, generator))
         x = _drop_add_layer_norm(x, sa, self.norm1, rate, fast, generator)
-        ff = torch.relu(_linear(x, self.linear1.weight, self.linear1.bias, self.dtype))
-        ff = drop_site(ff, generator, rate, fast)
-        ff = _linear(ff, self.linear2.weight, self.linear2.bias, self.dtype)
+        ff = _ffn(self, x, (rate, fast, generator))
         return _drop_add_layer_norm(x, ff, self.norm2, rate, fast, generator)
 
     def _fused(self, x: torch.Tensor, generator) -> torch.Tensor:
@@ -275,8 +325,7 @@ class EncoderLayer(nn.Module):
                 f"fused_layer=True, but the fused layer does not take d_model={d}, "
                 f"n_heads={cfg.n_heads}, dim_feedforward={cfg.dim_feedforward}, "
                 f"T={t}, {cd} (ops/fused_layer.py::supports_fused_layer)")
-        seed = torch.randint(0, 2**31 - 1, (1,), generator=generator,
-                             device=x.device, dtype=torch.int32)
+        seed = _layer_seed(generator, x.device)
         sa, f32 = self.self_attn, torch.float32
         y = encoder_layer_train(
             x.reshape(b * t, d).to(cd),
@@ -288,6 +337,73 @@ class EncoderLayer(nn.Module):
             self.norm2.weight.to(f32), self.norm2.bias.to(f32),
             seed, float(cfg.dropout), cfg.n_heads, t)
         return y.reshape(b, t, d).to(x.dtype)
+
+
+class DecoderLayer(nn.Module):
+    """Post-LN decoder layer, torch 1.10 ``TransformerDecoderLayer``:
+    ``y = LN(y + Drop(SA_causal(y))); y = LN(y + Drop(CA(y, memory)));
+    y = LN(y + Drop(W2·Drop(relu(W1·y))))``."""
+
+    def __init__(self, config: GrooveTransformerConfig, device=None):
+        super().__init__()
+        cfg = self.config = config
+        self.dtype = cfg.compute_dtype
+        self.self_attn = SelfAttention(cfg.d_model, cfg.n_heads, cfg.compute_dtype,
+                                       cfg.use_fused_attention, device, causal=True)
+        self.multihead_attn = SelfAttention(cfg.d_model, cfg.n_heads, cfg.compute_dtype,
+                                            cfg.use_fused_attention, device)
+        self.linear1 = _new_linear(cfg.d_model, cfg.dim_feedforward, device)
+        self.linear2 = _new_linear(cfg.dim_feedforward, cfg.d_model, device)
+        self.norm1 = nn.LayerNorm(cfg.d_model, eps=1e-5, device=device)
+        self.norm2 = nn.LayerNorm(cfg.d_model, eps=1e-5, device=device)
+        self.norm3 = nn.LayerNorm(cfg.d_model, eps=1e-5, device=device)
+
+    def forward(self, y: torch.Tensor, memory: torch.Tensor, generator=None) -> torch.Tensor:
+        if not self.training:
+            y = _add_layer_norm(y, self.self_attn(y), self.norm1)
+            y = _add_layer_norm(y, self.multihead_attn(y, kv=memory), self.norm2)
+            return _add_layer_norm(y, _ffn(self, y), self.norm3)
+        cfg = self.config
+        if cfg.fused_decoder_layer:
+            return self._fused(y, memory, generator)
+        _refuse_unported_switches(cfg)
+        rate, fast = cfg.dropout, cfg.fast_dropout
+        drop = (rate, fast, generator)
+        y = _drop_add_layer_norm(y, self.self_attn(y, dropout=drop), self.norm1, *drop)
+        ca = self.multihead_attn(y, dropout=drop, kv=memory)
+        y = _drop_add_layer_norm(y, ca, self.norm2, *drop)
+        return _drop_add_layer_norm(y, _ffn(self, y, drop), self.norm3, *drop)
+
+    def _fused(self, y: torch.Tensor, memory: torch.Tensor, generator) -> torch.Tensor:
+        """The whole layer through ``ops/fused_decoder_layer.py`` (JAX
+        ``DecoderLayer``'s fused dispatch), one seed per step and layer."""
+        cfg = self.config
+        b, t, d = y.shape
+        cd = self.dtype
+        if memory.shape != y.shape or not supports_fused_decoder_layer(
+                d, cfg.n_heads, cfg.dim_feedforward, t, cd):
+            raise ValueError(
+                f"fused_decoder_layer=True, but the fused decoder layer does not take "
+                f"d_model={d}, n_heads={cfg.n_heads}, dim_feedforward={cfg.dim_feedforward}, "
+                f"T={t}, memory {tuple(memory.shape)}, {cd} "
+                "(ops/fused_decoder_layer.py::supports_fused_decoder_layer; the memory "
+                "must have the target's shape)")
+        seed = _layer_seed(generator, y.device)
+        sa, ca, f32 = self.self_attn, self.multihead_attn, torch.float32
+        out = decoder_layer_train(
+            y.reshape(b * t, d).to(cd), memory.reshape(b * t, d).to(cd),
+            sa.in_proj_weight.to(cd), sa.in_proj_bias.to(f32),
+            sa.out_proj.weight.to(cd), sa.out_proj.bias.to(f32),
+            ca.in_proj_weight[:d].to(cd), ca.in_proj_bias[:d].to(f32),
+            ca.in_proj_weight[d:].to(cd), ca.in_proj_bias[d:].to(f32),
+            ca.out_proj.weight.to(cd), ca.out_proj.bias.to(f32),
+            self.norm1.weight.to(f32), self.norm1.bias.to(f32),
+            self.linear1.weight.to(cd), self.linear1.bias.to(f32),
+            self.linear2.weight.to(cd), self.linear2.bias.to(f32),
+            self.norm2.weight.to(f32), self.norm2.bias.to(f32),
+            self.norm3.weight.to(f32), self.norm3.bias.to(f32),
+            seed, float(cfg.dropout), cfg.n_heads, t)
+        return out.reshape(b, t, d).to(y.dtype)
 
 
 class OutputLayer(nn.Module):
@@ -319,13 +435,23 @@ class GrooveTransformerEncoder(nn.Module):
         self.Encoder = nn.ModuleDict({"Encoder": nn.ModuleDict({
             "layers": layers,
             "norm": nn.LayerNorm(cfg.d_model, eps=1e-6, device=device)})})
+        self._build_decoder(device)
         self.OutputLayer = OutputLayer(cfg.d_model, cfg.embedding_size_tgt, device)
         init_parameters(self, generator if generator is not None
                         else torch.Generator().manual_seed(0))
 
-    def forward(self, src: torch.Tensor, generator: Optional[torch.Generator] = None):
-        """``generator`` (on ``src``'s device) feeds every dropout site in
-        ``train()`` mode; ``eval()`` mode needs none."""
+    def _build_decoder(self, device) -> None:
+        """Nothing here; :class:`GrooveTransformer` adds its decoder."""
+
+    def _embed(self, input_layer: InputLayer, x: torch.Tensor, generator) -> torch.Tensor:
+        x = input_layer(x.to(self.config.compute_dtype))
+        if self.training:
+            x = drop_site(x, generator, self.config.dropout, self.config.fast_dropout)
+        return x
+
+    def _encode(self, src: torch.Tensor, generator) -> torch.Tensor:
+        """The encoder stack's f32 normalised output; checks what a training
+        forward needs."""
         cfg = self.config
         if self.training:
             if generator is None:
@@ -334,27 +460,66 @@ class GrooveTransformerEncoder(nn.Module):
             if cfg.remat:
                 raise NotPortedError("remat: layer rematerialisation is not ported yet")
         stack = self.Encoder["Encoder"]
-        x = self.InputLayerEncoder(src.to(cfg.compute_dtype))
-        if self.training:
-            x = drop_site(x, generator, cfg.dropout, cfg.fast_dropout)
+        x = self._embed(self.InputLayerEncoder, src, generator)
         for layer in stack["layers"]:
             x = layer(x, generator)
-        norm = stack["norm"]
-        x = F.layer_norm(x.float(), norm.normalized_shape, norm.weight,
-                         norm.bias, norm.eps)  # heads in f32
-        return self.OutputLayer(x)
+        return _final_norm(x, stack["norm"])
+
+    def forward(self, src: torch.Tensor, generator: Optional[torch.Generator] = None):
+        """``generator`` (on ``src``'s device) feeds every dropout site in
+        ``train()`` mode; ``eval()`` mode needs none."""
+        return self.OutputLayer(self._encode(src, generator))  # heads in f32
 
 
-def build_model(config: GrooveTransformerConfig, device=None,
+class GrooveTransformer(GrooveTransformerEncoder):
+    """Encoder-decoder groove transformer (``num_decoder_layers > 0``):
+    ``(B, T, E_src)`` and an optional target ``(B, T, E_tgt)`` →
+    ``(h_logits, v, o)``. The decoder is teacher-forced over the target
+    shifted right behind a zero start row."""
+
+    def _build_decoder(self, device) -> None:
+        cfg = self.config
+        self.InputLayerDecoder = InputLayer(
+            cfg.embedding_size_tgt, cfg.d_model, cfg.max_len, cfg.compute_dtype, device)
+        layers = nn.ModuleList(DecoderLayer(cfg, device)
+                               for _ in range(cfg.num_decoder_layers))
+        # the reference's key prefix: Decoder.Decoder.{layers.i, norm}
+        self.Decoder = nn.ModuleDict({"Decoder": nn.ModuleDict({
+            "layers": layers,
+            "norm": nn.LayerNorm(cfg.d_model, eps=1e-6, device=device)})})
+
+    def forward(self, src: torch.Tensor, tgt: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None):
+        """``tgt=None`` (serving) decodes over zeros. ``generator`` as the
+        encoder-only model's."""
+        cfg = self.config
+        memory = self._encode(src, generator).to(cfg.compute_dtype)
+        if tgt is None:
+            tgt = src.new_zeros(src.shape[:-1] + (cfg.embedding_size_tgt,))
+        # shift right with a zero "start" row (teacher forcing)
+        tgt_in = torch.cat([torch.zeros_like(tgt[..., :1, :]), tgt[..., :-1, :]], dim=-2)
+        stack = self.Decoder["Decoder"]
+        y = self._embed(self.InputLayerDecoder, tgt_in, generator)
+        for layer in stack["layers"]:
+            y = layer(y, memory, generator)
+        return self.OutputLayer(_final_norm(y, stack["norm"]))  # heads in f32
+
+
+def _final_norm(x: torch.Tensor, norm: nn.LayerNorm) -> torch.Tensor:
+    """A stack's last LayerNorm (flax's eps 1e-6), in f32."""
+    return F.layer_norm(x.float(), norm.normalized_shape, norm.weight, norm.bias, norm.eps)
+
+
+def build_model(config: GrooveTransformerConfig, device="cuda",
                 generator: Optional[torch.Generator] = None) -> GrooveTransformerEncoder:
-    """The encoder-only model on ``device``, in eval mode, initialised as
-    :func:`init_parameters` says from ``generator`` (a CPU generator; seed 0
-    when none is given). Load weights with ``load_state_dict``."""
-    if not config.encoder_only:
-        raise NotPortedError(
-            f"num_decoder_layers={config.num_decoder_layers}: the "
-            "encoder-decoder family is not ported yet")
-    return GrooveTransformerEncoder(config, device, generator).eval()
+    """The model of ``config``'s family (:class:`GrooveTransformer` when
+    ``num_decoder_layers > 0``) on ``device`` (``"cuda"`` without CUDA
+    raises), in eval mode, initialised as :func:`init_parameters` says from
+    ``generator`` (a CPU generator; seed 0 when none is given). Load weights
+    with ``load_state_dict``."""
+    device = require_device(device, "build_model")
+    cls = GrooveTransformerEncoder if config.encoder_only else GrooveTransformer
+    return cls(config, device, generator).eval()
 
 
 def predict(model: GrooveTransformerEncoder, inputs: torch.Tensor,

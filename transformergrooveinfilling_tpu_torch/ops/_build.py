@@ -1,9 +1,11 @@
 """Build the port's CUDA kernels at first use.
 
-Each kernel is one ``csrc/*.cu`` file with a plain C interface. ``nvcc``
-compiles it for Hopper (``sm_90a``) into a shared library under
+Each kernel is one ``csrc/*.cu`` file with a plain C interface, which may
+include headers of ``csrc/`` (``#include "x.cuh"``). ``nvcc`` compiles it for
+Hopper (``sm_90a``) into a shared library under
 ``build/kernels/<name>-<hash>/`` at the repository root, keyed by a hash of the
-source and the flags, so an unchanged kernel is built once per checkout. The
+source, every header it includes and the flags, so an unchanged kernel is built
+once per checkout and an edited header rebuilds every kernel that uses it. The
 library is loaded with ``ctypes``; the wrappers in this package declare each
 entry point's ``argtypes``.
 
@@ -17,6 +19,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import subprocess
 import threading
 import time
@@ -70,10 +73,25 @@ def build_all(names) -> None:
             future.result()
 
 
+def source_files(source: Path) -> list[Path]:
+    """``source`` and the ``csrc`` headers it includes (``#include "..."``),
+    transitively, each once, in the order first met."""
+    files, todo = [], [source]
+    while todo:
+        path = todo.pop(0)
+        if path in files:
+            continue
+        files.append(path)
+        todo += [CSRC / inc for inc in
+                 re.findall(r'^\s*#\s*include\s+"([^"]+)"', path.read_text(), re.MULTILINE)]
+    return files
+
+
 def _build(name: str) -> Path:
     source = CSRC / f"{name}.cu"
     digest = hashlib.sha256(
-        source.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+        b"".join(f.read_bytes() for f in source_files(source))
+        + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     out_dir = BUILD_ROOT / f"{name}-{digest}"
     lib_path = out_dir / f"lib{name}.so"
     if lib_path.exists():
@@ -84,7 +102,7 @@ def _build(name: str) -> Path:
     tmp = out_dir / f"lib{name}.{os.getpid()}.so.tmp"
     t0 = time.perf_counter()
     proc = subprocess.run(
-        [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(source)],
+        [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp), str(source)],
         capture_output=True, text=True)
     seconds = time.perf_counter() - t0
     if proc.returncode != 0:

@@ -7,10 +7,15 @@ Counterpart of ``transformergrooveinfilling_tpu/serve.py``. Design:
   every bucket is run once at start-up, which also builds the CUDA kernel.
 - a request's chunks go to the device as ONE host→device copy, and the stacked
   ``(B, T, 27)`` h/v/o result comes back as ONE device→host copy.
-- on a CUDA device every encoder layer's attention runs the hand-written
-  fused kernel (``ops/attention.py::fused_mha``); ``use_kernel=False`` runs
-  its plain PyTorch version instead (for comparison). There is no CPU
-  fallback: ``device="cuda"`` without CUDA raises.
+- on a CUDA device every layer's attention runs the hand-written fused kernel
+  (``ops/attention.py::fused_mha``); ``use_kernel=False`` runs its plain
+  PyTorch version instead (for comparison). There is no CPU fallback:
+  ``device="cuda"`` without CUDA raises.
+- an encoder-decoder config (``num_decoder_layers > 0``) is served like an
+  encoder-only one: the forward passes no target, so the decoder reads zeros
+  (as the JAX server does), and each forward chunk launches the kernel once
+  per encoder layer, per causal decoder self-attention and per decoder
+  cross-attention (18 times at 6 + 6 layers).
 - a partial HVO grid sent to an audio-modality model (``hvo_input``) goes
   through the synth + MSO front end on the server's device: on a CUDA device
   the hand-written synthesizer and band-energy kernels

@@ -6,8 +6,9 @@ The reference's YAML surface (the hyperparameter keys of
 (``num_decoder_layers=0`` when encoder-only, ``embedding_size_src`` 16 for MSO
 input vs 27 for the symbolic experiment, ``max_len=32``). The switches the JAX
 package resolves for the TPU are resolved here for one CUDA card (or the CPU):
-bf16 matmuls on CUDA, the whole-layer kernel where its Hopper gate admits the
-shape, no fused FFN until it is ported, and remat by the same memory estimate.
+bf16 matmuls on CUDA, the whole-layer kernels (encoder and decoder) where
+their Hopper gates admit the shape, no fused FFN until it is ported, and remat
+by the same memory estimate.
 ``yaml`` is imported only inside :func:`load_hyperparameters`.
 """
 
@@ -22,6 +23,7 @@ import torch
 
 from .. import require_device
 from ..models.transformer import GrooveTransformerConfig
+from ..ops.fused_decoder_layer import supports_fused_decoder_layer
 from ..ops.fused_layer import supports_fused_layer
 
 HVO_WIDTH = 27
@@ -110,10 +112,34 @@ def resolve_fused_layer(fused_layer: Optional[bool], d_model: int, n_heads: int,
     batch 512 (bench.py's) the kernel path is 2.6-3.2x slower on an H100 than
     ``fused_layer=False``: its weight-gradient kernel walks every sequence in
     each of a few tile blocks (PERF.md, "Where the time goes"). Pass False
-    for large-batch runs until that kernel is reworked."""
+    for large-batch runs until that kernel is reworked
+    (``resolve_fused_decoder_layer`` has the encoder-decoder model's numbers)."""
     if fused_layer is not None:
         return bool(fused_layer)
     return n_devices == 1 and supports_fused_layer(
+        d_model, n_heads, dim_feedforward, seq_len, compute_dtype)
+
+
+def resolve_fused_decoder_layer(fused_decoder_layer: Optional[bool], d_model: int,
+                                n_heads: int, dim_feedforward: int, n_devices: int = 1,
+                                compute_dtype=torch.float32, seq_len: int = MAX_LEN) -> bool:
+    """fused_decoder_layer hyperparameter → whole-decoder-layer kernel switch
+    (encoder-decoder models). ``None`` = auto: on for a single device wherever
+    the decoder kernels' own Hopper gate
+    (``ops/fused_decoder_layer.py::supports_fused_decoder_layer``) admits the
+    shape. A forced True is kept; the model raises if the gate rejects it.
+
+    As for the encoder layer, auto-on is a measured gain at the flagship
+    YAML's batch of 32 only. The 6 + 6 layer model at the flagship width on an
+    NVIDIA H100 80GB HBM3 at 700 W (chip_smoke.py, phase 15, two runs;
+    PERF.md): 698-700 seqs/s on the kernel path against 329-386 with both
+    fused switches off at batch 32, and 1,517-1,530 against 3,766-6,757 at
+    batch 512, where the two weight-gradient kernels are 191 ms of a 332 ms
+    step. Pass False (for both switches) for large-batch runs until those
+    kernels are reworked."""
+    if fused_decoder_layer is not None:
+        return bool(fused_decoder_layer)
+    return n_devices == 1 and supports_fused_decoder_layer(
         d_model, n_heads, dim_feedforward, seq_len, compute_dtype)
 
 
@@ -181,8 +207,8 @@ def derive_model_config(hp: HyperParams, compute_dtype=None, n_devices: int = 1,
         fused_layer=resolve_fused_layer(hp.fused_layer, hp.d_model, hp.n_heads,
                                         hp.dim_feedforward, n_devices, compute_dtype),
         fused_decoder_layer=(
-            resolve_fused_layer(hp.fused_decoder_layer, hp.d_model, hp.n_heads,
-                                hp.dim_feedforward, n_devices, compute_dtype)
+            resolve_fused_decoder_layer(hp.fused_decoder_layer, hp.d_model, hp.n_heads,
+                                        hp.dim_feedforward, n_devices, compute_dtype)
             if n_dec > 0 else False),
         remat=resolve_remat(hp.remat, d_model=hp.d_model, n_heads=hp.n_heads,
                             dim_feedforward=hp.dim_feedforward,

@@ -1,5 +1,7 @@
 """The reference's training contract, as the JAX package's ``train/driver.py``:
-``initialize_model`` + ``train_loop``, over :class:`ModelBundle`.
+``initialize_model`` + ``train_loop``, over :class:`ModelBundle`, for both
+model families (``num_decoder_layers`` in the model parameters,
+``train_loop(encoder_only=0)`` for teacher forcing).
 
 Not ported yet, each raising ``NotPortedError``: resuming from a checkpoint
 (``load_model``), saving one (``train_loop(save=True)``). ``train_loop`` logs
@@ -18,7 +20,8 @@ from .. import NotPortedError, require_device
 from ..models import predict as model_predict
 from ..models.transformer import GrooveTransformerConfig
 from .config import (
-    resolve_compute_dtype, resolve_fused_ffn, resolve_fused_layer, resolve_remat,
+    resolve_compute_dtype, resolve_fused_decoder_layer, resolve_fused_ffn, resolve_fused_layer,
+    resolve_remat,
 )
 from .loop import TrainState, create_train_state, fetch, make_epoch_fn, make_eval_loss_fn
 
@@ -52,9 +55,10 @@ def initialize_model(params: dict, device="cuda") -> tuple[ModelBundle, Any, int
     """Reference ``initialize_model`` contract: ``params = {"model": {...},
     "training": {...}, "load_model": None | ...}`` → (bundle, optimizer,
     initial_epoch), on ``device`` (``"cuda"`` without CUDA raises; the CPU
-    only when asked for). ``bf16``, ``fused_layer``, ``fused_ffn``
-    and ``remat`` in ``params["model"]`` are resolved for that device
-    (``train/config.py``; None or absent = auto)."""
+    only when asked for). ``num_decoder_layers`` > 0 builds the
+    encoder-decoder family. ``bf16``, ``fused_layer``, ``fused_decoder_layer``,
+    ``fused_ffn`` and ``remat`` in ``params["model"]`` are resolved for that
+    device (``train/config.py``; None or absent = auto)."""
     m = params["model"]
     t = params.get("training", {})
     device = require_device(device, "initialize_model")
@@ -62,15 +66,18 @@ def initialize_model(params: dict, device="cuda") -> tuple[ModelBundle, Any, int
         raise NotPortedError("load_model: restoring a checkpoint into the port is "
                              "not ported yet")
     compute_dtype = resolve_compute_dtype(m.get("bf16"), device)
+    n_dec = m.get("num_decoder_layers", 0)
+    gate = (m["d_model"], m["n_heads"], m["dim_feedforward"], 1, compute_dtype,
+            m.get("max_len", 32))
     config = GrooveTransformerConfig(
         fused_ffn=resolve_fused_ffn(m.get("fused_ffn")),
-        fused_layer=resolve_fused_layer(m.get("fused_layer"), m["d_model"], m["n_heads"],
-                                        m["dim_feedforward"], 1, compute_dtype,
-                                        m.get("max_len", 32)),
+        fused_layer=resolve_fused_layer(m.get("fused_layer"), *gate),
+        fused_decoder_layer=(resolve_fused_decoder_layer(m.get("fused_decoder_layer"), *gate)
+                             if n_dec > 0 else False),
         remat=resolve_remat(
             m.get("remat"), d_model=m["d_model"], n_heads=m["n_heads"],
             dim_feedforward=m["dim_feedforward"], n_layers=m["num_encoder_layers"],
-            n_decoder_layers=m.get("num_decoder_layers", 0),
+            n_decoder_layers=n_dec,
             optimizer=m.get("optimizer", "sgd"), batch_size=t.get("batch_size", 16),
             max_len=m.get("max_len", 32), compute_dtype=compute_dtype, device=device),
         d_model=m["d_model"],
@@ -78,7 +85,7 @@ def initialize_model(params: dict, device="cuda") -> tuple[ModelBundle, Any, int
         dim_feedforward=m["dim_feedforward"],
         dropout=m["dropout"],
         num_encoder_layers=m["num_encoder_layers"],
-        num_decoder_layers=m.get("num_decoder_layers", 0),
+        num_decoder_layers=n_dec,
         max_len=m.get("max_len", 32),
         embedding_size_src=m.get("embedding_size_src", 16),
         embedding_size_tgt=m.get("embedding_size_tgt", 27),
@@ -105,7 +112,8 @@ def train_loop(dataloader=None, groove_transformer: ModelBundle | None = None,
                *, dataset=None, batch_size: int = 16, ckpt_dir: str = "checkpoints",
                run_id: str = "local", seed: int | None = None) -> dict:
     """Reference ``train_loop`` contract: one epoch of training, then the
-    held-out losses (``test_*``, ``validation_*``). ``dataloader`` is the
+    held-out losses (``test_*``, ``validation_*``). ``encoder_only=0`` trains
+    the encoder-decoder family with teacher forcing. ``dataloader`` is the
     dataset object itself (``processed_inputs``/``processed_outputs``), or
     pass ``dataset=``; ``loss_fn``/``bce_fn``/``mse_fn``/``device``/``opt``
     are accepted for the signature and ignored (the bundle holds the
@@ -113,8 +121,6 @@ def train_loop(dataloader=None, groove_transformer: ModelBundle | None = None,
     generator seeded with ``seed``, else ``epoch``."""
     if save:
         raise NotPortedError("train_loop(save=True): checkpoints are not ported yet")
-    if not encoder_only:
-        raise NotPortedError("the encoder-decoder family is not ported yet")
     bundle = groove_transformer
     data = dataset if dataset is not None else dataloader
     if bundle is None or data is None:
@@ -122,8 +128,9 @@ def train_loop(dataloader=None, groove_transformer: ModelBundle | None = None,
     dev = bundle.device
     inputs = _device_tensor(data.processed_inputs, dev)
     outputs = _device_tensor(data.processed_outputs, dev)
-    epoch_fn = make_epoch_fn(hit_loss_penalty, batch_size, int(inputs.shape[0]))
-    eval_loss_fn = make_eval_loss_fn(hit_loss_penalty)
+    epoch_fn = make_epoch_fn(hit_loss_penalty, batch_size, int(inputs.shape[0]),
+                             encoder_only=bool(encoder_only))
+    eval_loss_fn = make_eval_loss_fn(hit_loss_penalty, bool(encoder_only))
     generator = torch.Generator(dev).manual_seed(epoch if seed is None else seed)
     metrics = epoch_fn(bundle.state, inputs, outputs, generator)
     for name, (hx, hy) in (("test", (test_inputs, test_gt)),

@@ -58,16 +58,20 @@ def create_train_state(config, algorithm: str, learning_rate: float, seed: int =
                       optimizer=make_optimizer(algorithm, learning_rate, model.parameters()))
 
 
-def make_train_step(hit_loss_penalty: float) -> Callable:
+def make_train_step(hit_loss_penalty: float, encoder_only: bool = True) -> Callable:
     """``step(state, x, y, w, generator) -> metrics``: one update in place.
     ``w`` are the ``(B,)`` sample weights (or None); ``generator`` feeds the
-    dropout sites. ``grad_norm`` is the global L2 norm of the gradients."""
+    dropout sites. ``grad_norm`` is the global L2 norm of the gradients.
+    ``encoder_only=False`` trains the encoder-decoder family with teacher
+    forcing: the target grid also feeds the decoder (shifted inside the
+    model)."""
 
     def step(state: TrainState, x, y, w, generator) -> dict:
         model, opt = state.model, state.optimizer
         model.train()
         opt.zero_grad(set_to_none=True)
-        out = calculate_loss(model(x, generator), y, hit_loss_penalty, sample_weights=w)
+        pred = model(x, generator=generator) if encoder_only else model(x, y, generator)
+        out = calculate_loss(pred, y, hit_loss_penalty, sample_weights=w)
         out.total_loss.backward()
         grads = [p.grad for p in model.parameters() if p.grad is not None]
         grad_norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
@@ -83,12 +87,12 @@ def make_train_step(hit_loss_penalty: float) -> Callable:
 
 def make_epoch_fn(hit_loss_penalty: float, batch_size: int, n_samples: int,
                   n_epochs: int = 1, shuffle: bool = True, augment: Callable | None = None,
-                  augment_per_epoch: bool = True) -> Callable:
+                  augment_per_epoch: bool = True, encoder_only: bool = True) -> Callable:
     """``epoch(state, inputs, outputs, generator) -> metrics``: ``n_epochs``
     epochs over the resident ``inputs``/``outputs`` (device tensors), in
     ``ceil(N/B)`` steps each; returns the last epoch's live-sample-weighted
     metric means, as 0-d device tensors. ``shuffle=False`` takes the samples
-    in order (parity tests).
+    in order (parity tests). ``encoder_only`` as :func:`make_train_step`'s.
 
     ``augment``: optional ``(generator, inputs, outputs) -> (inputs, outputs)``
     run on the device inside the epoch function
@@ -97,7 +101,7 @@ def make_epoch_fn(hit_loss_penalty: float, batch_size: int, n_samples: int,
     ``augment_per_epoch=False``, every call: a block of ``n_epochs``, also
     when that is 1) trains on a fresh masking/render. Its draws come from
     ``generator``, before the epoch's shuffle."""
-    step_fn = make_train_step(hit_loss_penalty)
+    step_fn = make_train_step(hit_loss_penalty, encoder_only)
     n_batches = -(-n_samples // batch_size)
     padded = n_batches * batch_size
 
@@ -127,16 +131,18 @@ def make_epoch_fn(hit_loss_penalty: float, batch_size: int, n_samples: int,
     return epoch
 
 
-def make_eval_loss_fn(hit_loss_penalty: float) -> Callable:
+def make_eval_loss_fn(hit_loss_penalty: float, encoder_only: bool = True) -> Callable:
     """``eval_loss(model, x, y) -> metrics``: the deterministic held-out loss
-    (eval mode, no dropout, no gradients), as 0-d device tensors."""
+    (eval mode, no dropout, no gradients), as 0-d device tensors; teacher
+    forced on ``y`` when ``encoder_only`` is false."""
 
     def eval_loss(model, x, y) -> dict:
         was_training = model.training
         model.eval()
         try:
             with torch.no_grad():
-                out = calculate_loss(model(x), y, hit_loss_penalty)
+                pred = model(x) if encoder_only else model(x, y)
+                out = calculate_loss(pred, y, hit_loss_penalty)
         finally:
             model.train(was_training)
         return {k: getattr(out, "total_loss" if k == "loss" else k) for k in EVAL_KEYS}
