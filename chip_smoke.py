@@ -10,8 +10,9 @@ then non-zero):
 1. device   the card (``nvidia-smi`` name and power limit), torch and CUDA
             versions; TF32 is switched off for matmuls and cuDNN.
 2. build    ``csrc/fused_mha.cu``, ``csrc/fused_layer.cu``,
-            ``csrc/fused_decoder_layer.cu``, ``csrc/band_energies.cu`` and
-            ``csrc/device_synth.cu`` compiled from this checkout with nvcc,
+            ``csrc/fused_decoder_layer.cu``, ``csrc/band_energies.cu``,
+            ``csrc/device_synth.cu``, ``csrc/fused_ffn.cu`` and
+            ``csrc/fused_ln.cu`` compiled from this checkout with nvcc,
             one process each, in parallel;
             ptxas' registers, spills, stack and static shared memory per
             entry, and each layer kernel's dynamic shared memory at the
@@ -95,6 +96,36 @@ then non-zero):
             decoder self-, 6 decoder cross-attentions), answers within 1e-4
             of the CPU plain path, one ``hvo_input`` request through kernels
             #6, #7 and #1, B = 1 latency beside the encoder-only server's.
+17. ffn and ln kernels  the fused FFN kernels (``fused_ffn.cu``: forward, row
+            backward, weight gradients) against ``ffn_reference`` and the fused
+            dropout + add + LayerNorm kernels (``fused_ln.cu``: forward,
+            backward) against ``dropout_add_layernorm_reference``, at rows
+            1,024 and 16,384 × d 256 × ff 2048 and rows 4,096 × d 1024 × ff
+            4096, f32 and bf16, rate 0 and the config's (0.16 / 0.1) with the
+            same masks (phase 8's bars); each mask's realised keep rate; reruns
+            bit-identical; each timed beside its plain version, the library
+            composition (``F.linear``, relu, ``F.dropout``, ``F.linear``;
+            ``F.layer_norm(x + F.dropout(y))``; autograd's backward) and its
+            bound.
+18. train wide FFN  configs/InfillingRandomLow_lm_training.yaml (d 256, ff
+            2048, 8 layers, dropout 0.16; written here, held to the file by a
+            CPU test) through ``initialize_model`` + ``train_loop``: the auto
+            policy picks ``fused_ffn`` and not ``fused_layer``, every step
+            launches each FFN kernel 8 times, the loss falls; with
+            ``fused_dropout_ln`` 16 + 16 LN launches a step; with ``remat`` 16
+            FFN forward launches a step, one step's gradients equal to the
+            un-rematerialised step's, peak memory with and without at batch
+            512; 3 f32 steps at dropout 0 against the plain-version path and
+            ``fused_ffn=False``; a 1 + 1 layer encoder-decoder model at the
+            same width (1 + 1 FFN and 2 + 3 LN launches a step); seqs/s at
+            batch 32 and 512 with ``fused_ffn`` on and off, with the LN kernels
+            and with remat, in turns; where a step's device time goes.
+19. train GrooveXL  d 1024, 8 heads, ff 4096, 12 layers, dropout 0.1, batch
+            128, bf16, remat on (scripts/bench_groovexl_ffn.py's; nothing cut
+            but the number of steps) through ``make_epoch_fn``: 24 FFN forward
+            launches a step under remat, the loss finite and falling, peak
+            memory with and without remat, seqs/s with ``fused_ffn`` on and
+            off.
 
 Then one line ``{"kernels": [...]}``, the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``. Without CUDA it exits non-zero and prints
@@ -105,6 +136,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import json
 import subprocess
 import sys
@@ -115,10 +147,11 @@ import urllib.request
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from transformergrooveinfilling_tpu_torch import serve
 from transformergrooveinfilling_tpu_torch.models import (
-    GrooveTransformerConfig, build_model, predict, transformer,
+    GrooveTransformerConfig, build_model, calculate_loss, predict, transformer,
 )
 from transformergrooveinfilling_tpu_torch.models.torch_compat import (
     load_legacy_checkpoint,
@@ -131,13 +164,18 @@ from transformergrooveinfilling_tpu_torch.data import make_on_device_augment
 from transformergrooveinfilling_tpu_torch.ops import band_energies as be
 from transformergrooveinfilling_tpu_torch.ops import device_synth as ds
 from transformergrooveinfilling_tpu_torch.ops import fused_decoder_layer as fdl
+from transformergrooveinfilling_tpu_torch.ops import fused_ffn as ffn
 from transformergrooveinfilling_tpu_torch.ops import fused_layer as fl
+from transformergrooveinfilling_tpu_torch.ops import fused_ln as ln
 from transformergrooveinfilling_tpu_torch.ops import mso
+from transformergrooveinfilling_tpu_torch.ops.dropout import quantized_keep_rate
 from transformergrooveinfilling_tpu_torch.train import (
     initialize_model, make_epoch_fn, make_train_step, train_loop,
 )
 from transformergrooveinfilling_tpu_torch.train.loop import fetch
-from transformergrooveinfilling_tpu_torch.train.config import embedding_size_src_for
+from transformergrooveinfilling_tpu_torch.train.config import (
+    embedding_size_src_for, resolve_remat,
+)
 
 FLAGSHIP = GrooveTransformerConfig(  # configs/InfillingRandom_training.yaml
     d_model=256, n_heads=2, dim_feedforward=512, dropout=0.30,
@@ -162,6 +200,14 @@ FLAGSHIP_HP = {
     "learning_rate": 0.089, "n_heads": 2, "num_encoder_decoder_layers": 6,
     "epochs": 500, "encoder_only": 1, "hit_loss_penalty": 0.73, "load_model": None,
 }
+# configs/InfillingRandomLow_lm_training.yaml, written out likewise;
+# tests/test_torch_remat.py holds it to the file
+LM_HP = {
+    "experiment": "InfillingRandomLow", "batch_size": 32, "d_model": 256,
+    "dim_feedforward": 2048, "dropout": 0.16, "optimizer_algorithm": "sgd",
+    "learning_rate": 0.070, "n_heads": 2, "num_encoder_decoder_layers": 8,
+    "epochs": 3000, "encoder_only": 1, "hit_loss_penalty": 0.46, "load_model": None,
+}
 LAYER_SHAPE = dict(d=256, h=2, ff=512, t=32)  # the flagship's encoder and decoder layers
 # the encoder-decoder family at the width the JAX package benchmarks it at
 # (scripts/bench_encdec.py): the flagship's hyperparameters with 6 + 6 layers
@@ -179,8 +225,17 @@ DEC_TPU_KERNELS = {  # the Pallas kernel bodies each CUDA kernel stands in for
     "fused_decoder_layer_bwd_weights":
         "transformergrooveinfilling_tpu/ops/fused_decoder_layer.py:236",
 }
+FFN_SOURCE = "transformergrooveinfilling_tpu_torch/csrc/fused_ffn.cu"
+FFN_TPU_KERNELS = {  # the Pallas kernel bodies each CUDA kernel stands in for
+    "fused_ffn_fwd": "transformergrooveinfilling_tpu/ops/fused_ffn.py:138",  # and :63
+    "fused_ffn_bwd_rows": "transformergrooveinfilling_tpu/ops/fused_ffn.py:83",
+    "fused_ffn_bwd_weights": "transformergrooveinfilling_tpu/ops/fused_ffn.py:83",
+}
+LN_SOURCE = "transformergrooveinfilling_tpu_torch/csrc/fused_ln.cu"
+LN_TPU_KERNELS = {"fused_ln_fwd": "transformergrooveinfilling_tpu/ops/fused_ln.py:54",
+                  "fused_ln_bwd": "transformergrooveinfilling_tpu/ops/fused_ln.py:68"}
 KERNEL_NAMES = ["fused_mha", "fused_layer", "fused_decoder_layer", "band_energies",
-                "device_synth"]
+                "device_synth", "fused_ffn", "fused_ln"]
 BAND, SYNTH = be.band_energies, ds.synth_events  # the wrappers that count launches
 # NVIDIA's published peaks for one H100 SXM, dense, at its 700 W limit
 PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
@@ -226,7 +281,9 @@ def device_us(fn, n: int = 50) -> dict:
     device events of some calls (on an H100 it kept 4 to 8 of 10 calls of a
     2 ms kernel, and 2 of 3 without the calls run inside it first), so read
     the launches per call beside the time. Only events that start inside the
-    marked window are counted."""
+    marked window are counted. The events are read as the profiler recorded
+    them: ``prof.events()`` gives the same times, but building its list takes
+    9 s for two training steps of the wide config (95,000 records)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, record_function
 
@@ -240,15 +297,16 @@ def device_us(fn, n: int = 50) -> dict:
             for _ in range(n):
                 fn()
             torch.cuda.synchronize()
-    events = prof.events()
-    window = next(e for e in events if e.name == "chip_smoke_window").time_range
+    events = prof.profiler.kineto_results.events()
+    window = next(e for e in events if e.name() == "chip_smoke_window")
+    first, last = window.start_ns(), window.start_ns() + window.duration_ns()
     per_kernel: dict = {}
     for e in events:
-        if (e.device_type == DeviceType.CUDA and e.name != "Activity Buffer Request"
-                and e.name != "chip_smoke_window"
-                and window.start <= e.time_range.start <= window.end):
-            us, count = per_kernel.get(e.name[:70], (0.0, 0.0))
-            per_kernel[e.name[:70]] = (us + e.time_range.elapsed_us() / n, count + 1 / n)
+        name = e.name()
+        if (e.device_type() == DeviceType.CUDA and name != "Activity Buffer Request"
+                and name != "chip_smoke_window" and first <= e.start_ns() <= last):
+            us, count = per_kernel.get(name[:70], (0.0, 0.0))
+            per_kernel[name[:70]] = (us + e.duration_ns() / 1e3 / n, count + 1 / n)
     return per_kernel
 
 
@@ -397,8 +455,8 @@ def phase_build() -> None:
     _build.build_all(KERNEL_NAMES)  # one nvcc each, together
     for name in KERNEL_NAMES:
         info = _build.build_info[name]
-        ptxas = [ln.strip() for ln in info["log"].splitlines()
-                 if "registers" in ln or "spill" in ln or "Compiling entry" in ln]
+        ptxas = [line.strip() for line in info["log"].splitlines()
+                 if "registers" in line or "spill" in line or "Compiling entry" in line]
         emit({"phase": "build", "kernel": name, "seconds": time.perf_counter() - t0,
               "nvcc_seconds": info["seconds"], "ptxas": ptxas})
     d, h, ff, t = LAYER_SHAPE["d"], LAYER_SHAPE["h"], LAYER_SHAPE["ff"], LAYER_SHAPE["t"]
@@ -413,6 +471,10 @@ def phase_build() -> None:
               "dec_bwd_rows": fdl.bwd_rows_smem_bytes(t, d, ff),
               "dec_bwd_weights": fl.bwd_weights_smem_bytes(t, d, h)},
           "limit": fl.MAX_SMEM_BYTES})
+    emit({"phase": "build", "kernel": "fused_ffn, fused_ln", "dynamic_smem_bytes": {
+        f"d {d}": {"ffn_fwd, ffn_bwd_rows": ffn.rows_smem_bytes(d), "ln_fwd": 32 * d,
+                   "ln_bwd": ln.bwd_smem_bytes(d)} for d in (256, 1024)},
+        "limit": fl.MAX_SMEM_BYTES})
 
 
 def phase_kernel(dev, rng) -> dict:
@@ -727,8 +789,7 @@ def phase_layer(dev, rng) -> dict:
                                "max_abs_err": errs, "bitwise_repeat": bitwise,
                                "relu_kink_flips": kink})
     timings = []
-    for b, dtype in ((32, torch.bfloat16), (512, torch.bfloat16), (32, torch.float32),
-                     (512, torch.float32)):
+    for b, dtype in ((32, torch.bfloat16), (512, torch.bfloat16), (32, torch.float32)):
         args, dy = layer_case(dev, rng, b, dtype)
         seed = torch.tensor([7], dtype=torch.int32, device=dev)
         res = fl.layer_forward(*args, seed, 0.3, h_, t)
@@ -845,8 +906,7 @@ def phase_decoder_layer(dev, rng) -> dict:
                                "max_abs_err": errs, "bitwise_repeat": bitwise,
                                "relu_kink_flips": kink})
     timings = []
-    for b, dtype in ((32, torch.bfloat16), (512, torch.bfloat16), (32, torch.float32),
-                     (512, torch.float32)):
+    for b, dtype in ((32, torch.bfloat16), (512, torch.bfloat16), (32, torch.float32)):
         args, dy = decoder_case(dev, rng, b, dtype)
         seed = torch.tensor([7], dtype=torch.int32, device=dev)
         res = fdl.layer_forward(*args, seed, 0.3, h_, t)
@@ -881,9 +941,8 @@ def phase_decoder_layer(dev, rng) -> dict:
     return {"max_abs_err": worst, "timings": timings}
 
 
-def flagship_params(**model):
-    """``initialize_model``'s params from ``FLAGSHIP_HP``."""
-    hp = FLAGSHIP_HP
+def model_params(hp: dict, **model):
+    """``initialize_model``'s params from a YAML's hyperparameters."""
     return {"model": {"d_model": hp["d_model"], "n_heads": hp["n_heads"],
                       "dim_feedforward": hp["dim_feedforward"], "dropout": hp["dropout"],
                       "num_encoder_layers": hp["num_encoder_decoder_layers"],
@@ -892,6 +951,10 @@ def flagship_params(**model):
             "training": {"learning_rate": hp["learning_rate"], "batch_size": hp["batch_size"],
                          "seed": 0},
             "load_model": hp["load_model"]}
+
+
+flagship_params = functools.partial(model_params, FLAGSHIP_HP)
+lm_params = functools.partial(model_params, LM_HP)
 
 
 class Loops:
@@ -915,14 +978,14 @@ def launches(kernels=fl.KERNELS) -> dict:
 
 
 def reset_launches() -> None:
-    for f in LAYER_KERNELS.values():
+    for f in (*LAYER_KERNELS.values(), *ffn.KERNELS.values(), *ln.KERNELS.values()):
         f.launches = 0
 
 
-def run_epochs(bundle, data, held, epochs: int, batch: int, encoder_only: int = 1) -> list:
+def run_epochs(bundle, data, held, epochs: int, batch: int, encoder_only: int = 1,
+               penalty: float = FLAGSHIP_HP["hit_loss_penalty"]) -> list:
     return [train_loop(dataset=data, groove_transformer=bundle, epoch=e, batch_size=batch,
-                       encoder_only=encoder_only,
-                       hit_loss_penalty=FLAGSHIP_HP["hit_loss_penalty"],
+                       encoder_only=encoder_only, hit_loss_penalty=penalty,
                        validation_inputs=held.processed_inputs,
                        validation_gt=held.processed_outputs) for e in range(epochs)]
 
@@ -933,6 +996,22 @@ def seqs_per_s(bundle, data, batch: int, encoder_only: int = 1) -> float:
     train_loop(dataset=data, groove_transformer=bundle, batch_size=batch,
                encoder_only=encoder_only, hit_loss_penalty=FLAGSHIP_HP["hit_loss_penalty"])
     return len(data.processed_inputs) / (time.perf_counter() - t0)
+
+
+def step_breakdown(bundle, b: int, seed: int, encoder_only: int = 1) -> dict:
+    """Where a step's host and device time goes: two steps on 2·b loops."""
+    small = Loops(2 * b, seed)
+    seqs_per_s(bundle, small, b, encoder_only)
+    t0 = time.perf_counter()
+    seqs_per_s(bundle, small, b, encoder_only)
+    host = (time.perf_counter() - t0) / 2
+    per_kernel = device_us(lambda: seqs_per_s(bundle, small, b, encoder_only), n=2)
+    total = sum(us for us, _ in per_kernel.values()) / 2
+    top = sorted(per_kernel.items(), key=lambda kv: -kv[1][0])[:8]
+    return {"step_host_ms": host * 1e3, "step_device_ms": total / 1e3,
+            "device_busy_share": total / 1e6 / host,
+            "launches_per_step": sum(c for _, c in per_kernel.values()) / 2,
+            "top_kernels_us_per_step": {k: us / 2 for k, (us, _) in top}}
 
 
 @contextlib.contextmanager
@@ -980,7 +1059,9 @@ def fused_layers_as(role: str, kernel_h: list, kinks: list):
 
 
 def phase_train(dev, rng) -> dict:
-    data, held, twin_data = Loops(2048, 1), Loops(256, 2), Loops(512, 1)
+    # 1,024 loops for the epochs and the batch-32 rates, 2,048 (4 steps) at
+    # batch 512; the twin, ~10x slower at batch 32, takes a quarter
+    data, held, twin_data, big = Loops(1024, 1), Loops(256, 2), Loops(512, 1), Loops(2048, 1)
     batch, epochs = FLAGSHIP_HP["batch_size"], 3
     steps = epochs * (len(data.processed_inputs) // batch)
     bundle, _, _ = initialize_model(flagship_params(), dev)
@@ -1051,9 +1132,7 @@ def phase_train(dev, rng) -> dict:
             saved = transformer.encoder_layer_train
             if which == "twin":
                 transformer.encoder_layer_train = fl.encoder_layer_reference
-            # the twin's int64 Philox makes it ~10x slower at batch 32: a
-            # quarter of the corpus keeps its turn short
-            corpus = twin_data if which == "twin" else data
+            corpus = twin_data if which == "twin" else data if b == batch else big
             try:
                 seqs_per_s(models[which], corpus, b)  # warm-up epoch
                 runs[which].append(seqs_per_s(models[which], corpus, b))
@@ -1062,21 +1141,8 @@ def phase_train(dev, rng) -> dict:
         throughput[b] = runs
 
     # where a step's device time goes (kernel path)
-    breakdown = {}
-    for b in THROUGHPUT_BATCHES:
-        small = Loops(2 * b, 3)
-        bnd = initialize_model(flagship_params(), dev)[0]
-        seqs_per_s(bnd, small, b)
-        t0 = time.perf_counter()
-        seqs_per_s(bnd, small, b)
-        host = (time.perf_counter() - t0) / 2
-        per_kernel = device_us(lambda: seqs_per_s(bnd, small, b), n=2)
-        total = sum(us for us, _ in per_kernel.values()) / 2
-        top = sorted(per_kernel.items(), key=lambda kv: -kv[1][0])[:8]
-        breakdown[b] = {"step_host_ms": host * 1e3, "step_device_ms": total / 1e3,
-                        "device_busy_share": total / 1e6 / host,
-                        "launches_per_step": sum(c for _, c in per_kernel.values()) / 2,
-                        "top_kernels_us_per_step": {k: us / 2 for k, (us, _) in top}}
+    breakdown = {b: step_breakdown(initialize_model(flagship_params(), dev)[0], b, 3)
+                 for b in THROUGHPUT_BATCHES}
 
     # the trained weights served by the serving slice, against the CPU plain path
     sd = {k: v.detach().cpu() for k, v in bundle.model.state_dict().items()}
@@ -1088,7 +1154,8 @@ def phase_train(dev, rng) -> dict:
     _, v_cpu, o_cpu = predict(cpu_model, torch.from_numpy(xs))
     serve_err = max(max_err(served[..., 9:18], v_cpu), max_err(served[..., 18:], o_cpu))
     check(serve_err <= 1e-4, f"trained weights served: v/o differ from the CPU by {serve_err}")
-    emit({"phase": "train", "config": FLAGSHIP_HP, "data": "2048 seeded synthetic loops",
+    emit({"phase": "train", "config": FLAGSHIP_HP,
+          "data": "1024 seeded synthetic loops (2048 for the rates at batch 512)",
           "epochs": epochs, "steps": steps, "seconds": seconds, "launches": counts,
           "losses": losses, "last_metrics": metrics[-1], "plain_losses": plain_losses,
           "three_f32_steps_param_err": param_err,
@@ -1505,7 +1572,8 @@ def phase_train_encdec(dev, rng) -> dict:
     with teacher forcing through ``initialize_model`` +
     ``train_loop(encoder_only=0)``: every encoder and decoder layer's forward
     and backward through its kernels."""
-    data, held = Loops(512, 31), Loops(256, 32)
+    # 256 loops for the epochs and the batch-32 rates, 512 (one step) at batch 512
+    data, held, big = Loops(256, 31), Loops(256, 32), Loops(512, 31)
     batch, epochs = FLAGSHIP_HP["batch_size"], 3
     steps = epochs * (len(data.processed_inputs) // batch)
     params = lambda **model: flagship_params(num_decoder_layers=ENCDEC_LAYERS, **model)  # noqa: E731
@@ -1561,30 +1629,19 @@ def phase_train_encdec(dev, rng) -> dict:
         runs = {"kernel": [], "unfused": []}
         models = {"kernel": initialize_model(params(), dev)[0],
                   "unfused": initialize_model(params(**unfused), dev)[0]}
+        corpus = data if b == batch else big
         for which in ("kernel", "unfused", "unfused", "kernel"):
-            seqs_per_s(models[which], data, b, 0)  # warm-up epoch
-            runs[which].append(seqs_per_s(models[which], data, b, 0))
+            seqs_per_s(models[which], corpus, b, 0)  # warm-up epoch
+            runs[which].append(seqs_per_s(models[which], corpus, b, 0))
         throughput[b] = runs
 
     # where a step's device time goes (kernel path)
-    breakdown = {}
-    for b in THROUGHPUT_BATCHES:
-        small = Loops(2 * b, 33)
-        bnd = initialize_model(params(), dev)[0]
-        seqs_per_s(bnd, small, b, 0)
-        t0 = time.perf_counter()
-        seqs_per_s(bnd, small, b, 0)
-        host = (time.perf_counter() - t0) / 2
-        per_kernel = device_us(lambda: seqs_per_s(bnd, small, b, 0), n=2)
-        total = sum(us for us, _ in per_kernel.values()) / 2
-        top = sorted(per_kernel.items(), key=lambda kv: -kv[1][0])[:8]
-        breakdown[b] = {"step_host_ms": host * 1e3, "step_device_ms": total / 1e3,
-                        "device_busy_share": total / 1e6 / host,
-                        "launches_per_step": sum(c for _, c in per_kernel.values()) / 2,
-                        "top_kernels_us_per_step": {k: us / 2 for k, (us, _) in top}}
+    breakdown = {b: step_breakdown(initialize_model(params(), dev)[0], b, 33, 0)
+                 for b in THROUGHPUT_BATCHES}
     emit({"phase": "train_encdec",
           "config": {**FLAGSHIP_HP, "encoder_only": 0, "num_decoder_layers": ENCDEC_LAYERS},
-          "data": "512 seeded synthetic loops", "epochs": epochs, "steps": steps,
+          "data": "256 seeded synthetic loops (512 for the rates at batch 512)",
+          "epochs": epochs, "steps": steps,
           "seconds": seconds, "launches": counts, "losses": losses,
           "last_metrics": metrics[-1], "unfused_losses": plain_losses,
           "three_f32_steps_param_err": param_err, "three_f32_steps_kink_flips": kinks,
@@ -1656,6 +1713,525 @@ def phase_serve_encdec(dev, rng, enc_srv) -> dict:
     return {"launches": launches_mha}
 
 
+# ---------------------------------------------------------------- slice 5
+
+# rows × d × ff and the config's dropout rate: configs/
+# InfillingRandomLow_lm_training.yaml at batch 32 and 512, then GrooveXL
+# (scripts/bench_groovexl_ffn.py) at batch 128
+FFN_SHAPES = ((1024, 256, 2048, 0.16), (16384, 256, 2048, 0.16), (4096, 1024, 4096, 0.1))
+FFN_GRADS = ("dx", "dw1", "db1", "dw2", "db2")
+LN_GRADS = ("dx", "dy", "dscale", "dbias")
+NEW_KERNELS = {**ffn.KERNELS, **ln.KERNELS}
+# "GrooveXL", scripts/bench_groovexl_ffn.py: the one shape with remat on. That
+# script's SGD rate of 0.05 makes the loss climb on these loops, with the FFN
+# kernels and with fused_ffn=False alike (8.6 → 20 → 36 in three steps on an
+# H100); 0.003 lets it fall
+XL_HP = {
+    "d_model": 1024, "n_heads": 8, "dim_feedforward": 4096, "dropout": 0.1,
+    "num_encoder_layers": 12, "batch_size": 128, "remat": True, "learning_rate": 0.003,
+    "hit_loss_penalty": 0.73, "optimizer": "sgd",
+}
+
+
+def ffn_bounds(rows, d, ff, dtype) -> dict:
+    """Bounds of the three FFN kernels: each product of 2·rows·d·ff FLOP once
+    (two forward, two in the row backward, two weight gradients)."""
+    s = 4 if dtype == "float32" else 2
+    flops = 4 * rows * d * ff
+    total = 2 * d * ff + ff + d
+    return {
+        "fused_ffn_fwd": bound((2 * rows * d + rows * ff + 2 * d * ff) * s + (ff + d) * 4 + 4,
+                               flops, dtype),  # x, out, h, weights, biases, seed
+        "fused_ffn_bwd_rows": bound((2 * rows * d + 2 * rows * ff + 2 * d * ff) * s,
+                                    flops, dtype),  # dy, dx, h, dh, weights
+        "fused_ffn_bwd_weights": bound((2 * rows * d + 2 * rows * ff) * s + total * 4,
+                                       flops, dtype),  # dy, x, h, dh; f32 gradients
+    }
+
+
+def ln_bounds(rows, d, dtype) -> dict:
+    """Bounds of the two LN kernels: x, y (and g) read, out (or dx, dy)
+    written; about 10 operations an element forward (mask, add, two-pass
+    statistics, normalise, affine) and 25 backward."""
+    s = 4 if dtype == "float32" else 2
+    return {"fused_ln_fwd": bound(3 * rows * d * s + 2 * d * 4 + 4, 10 * rows * d, dtype),
+            "fused_ln_bwd": bound(5 * rows * d * s + 3 * d * 4 + 4, 25 * rows * d, dtype)}
+
+
+def time_ms(fn, n: int, warm: int = 2) -> float:
+    """Mean ms per call on the stream over ``n`` calls after ``warm``."""
+    for _ in range(warm):
+        fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(n):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / n
+
+
+def normal(dev, rng, *shape, scale=1.0, offset=0.0) -> torch.Tensor:
+    """f32 normal draws from ``rng``, on ``dev``."""
+    a = (offset + scale * rng.standard_normal(shape)).astype(np.float32)
+    return torch.from_numpy(a).to(dev)
+
+
+def ffn_case(dev, rng, rows, d, ff, dtype):
+    """(x, w1, b1, w2, b2) in the port's layout, then dy, y (a second
+    (rows, d) input for the LN kernels) and LN's scale and bias, from ``rng``."""
+    n = functools.partial(normal, dev, rng)
+    return ([n(rows, d).to(dtype), n(ff, d, scale=d ** -0.5).to(dtype), n(ff, scale=0.1),
+             n(d, ff, scale=ff ** -0.5).to(dtype), n(d, scale=0.1)],
+            n(rows, d).to(dtype), n(rows, d).to(dtype), n(d, scale=0.1, offset=1.0),
+            n(d, scale=0.1))
+
+
+def held_to(errs, name, got, want, dtype, what) -> None:
+    """Phase 8's bars: f32 within 1e-4 (``relative``: of max|want|, for
+    gradients, whose sums run over thousands of rows), bf16 within 2e-2 of
+    max|want|."""
+    want = want.detach().float()
+    top = float(want.abs().max())
+    relative = name.startswith("d")
+    bar = (1e-4 * (top if relative else 1.0)) if dtype == torch.float32 else 2e-2 * top
+    errs[name] = max_err(got, want)
+    check(errs[name] <= bar, f"{name} at {what}: {errs[name]} > {bar}")
+
+
+def phase_ffn_ln(dev, rng) -> dict:
+    """The three FFN kernels against ``ffn_reference`` and the two LN kernels
+    against ``dropout_add_layernorm_reference`` on the card, with the same
+    masks, at the shapes phases 18 and 19 give them. A hidden unit within
+    rounding of 0 may fall on either side of the ReLU's kink: the plain
+    version takes the kernel's side at such units only (``kink_flips``)."""
+    checks, worst = [], {"ffn": 0.0, "ln": 0.0}
+    for rows, d, ff, cfg_rate in FFN_SHAPES:
+        for dtype in (torch.float32, torch.bfloat16):
+            args, dy, y, scale, bias = ffn_case(dev, rng, rows, d, ff, dtype)
+            x, w1, _, w2, _ = args
+            active = None
+            for rate in (0.0, cfg_rate):
+                what = f"rows {rows} d {d} ff {ff} {dtype} rate {rate}"
+                seed = torch.tensor([1234 + rows], dtype=torch.int32, device=dev)
+                runs = []
+                for _ in range(2):
+                    out, h = ffn.ffn_forward(*args, seed, rate)
+                    runs.append((out, h, *ffn.ffn_backward(dy, x, h, w1, w2, rate)))
+                torch.cuda.synchronize()
+                bitwise = all(torch.equal(u, v) for u, v in zip(*runs))
+                check(bitwise, f"two FFN runs with one seed differ at {what}")
+                out, h, *grads = runs[0]
+                with torch.no_grad():
+                    own_h = ffn.ffn_reference(*args, seed, rate, return_hidden=True)[1]
+                flips, kink = fl.kink_flips(own_h, h)
+                leaves = [a.detach().clone().requires_grad_(True) for a in args]
+                want_out, want_h = ffn.ffn_reference(*leaves, seed, rate, return_hidden=True,
+                                                     relu_flips=flips)
+                want_out.backward(dy)
+                errs = {}
+                held_to(errs, "out", out, want_out, dtype, what)
+                held_to(errs, "h", h, want_h, dtype, what)
+                for name, g, leaf in zip(FFN_GRADS, grads, leaves):
+                    held_to(errs, name, g, leaf.grad, dtype, what)
+                # the share of the ReLU's live units that the mask kept
+                live = int((h > 0).sum())
+                active = live if rate == 0.0 else active
+                kept = live / active
+                check(abs(kept - quantized_keep_rate(rate)) < 2e-3,
+                      f"FFN mask kept {kept} at {what}")
+                if dtype == torch.float32:
+                    worst["ffn"] = max(worst["ffn"], errs["out"], errs["h"], errs["dx"])
+                checks.append({"kernel": "fused_ffn", "rows": rows, "d": d, "ff": ff,
+                               "dtype": str(dtype)[6:], "rate": rate, "max_abs_err": errs,
+                               "bitwise_repeat": bitwise, "relu_kink_flips": kink,
+                               "kept_share": kept})
+                del leaves, want_out, want_h, own_h, flips, runs
+
+                runs = []
+                for _ in range(2):
+                    runs.append((ln.ln_forward(x, y, scale, bias, seed, rate),
+                                 *ln.ln_backward(dy, x, y, scale, seed, rate)))
+                torch.cuda.synchronize()
+                bitwise = all(torch.equal(u, v) for u, v in zip(*runs))
+                check(bitwise, f"two LN runs with one seed differ at {what}")
+                out, *grads = runs[0]
+                leaves = [a.detach().clone().requires_grad_(True) for a in (x, y, scale, bias)]
+                want = ln.dropout_add_layernorm_reference(*leaves, seed, rate)
+                want.backward(dy)
+                errs = {}
+                held_to(errs, "out", out, want, dtype, what)
+                for name, g, leaf in zip(LN_GRADS, grads, leaves):
+                    held_to(errs, name, g, leaf.grad, dtype, what)
+                kept = float((grads[1] != 0).float().mean())  # dy is 0 where y was dropped
+                n_el = rows * d
+                check(abs(kept - (1 - rate)) < 5 * (rate * (1 - rate) / n_el) ** 0.5 + 1e-4,
+                      f"LN mask kept {kept} at {what}")
+                if dtype == torch.float32:
+                    worst["ln"] = max(worst["ln"], errs["out"], errs["dx"], errs["dy"])
+                checks.append({"kernel": "fused_ln", "rows": rows, "d": d,
+                               "dtype": str(dtype)[6:], "rate": rate, "max_abs_err": errs,
+                               "bitwise_repeat": bitwise, "kept_share": kept})
+                del leaves, want, runs
+
+    timings = []
+    for rows, d, ff, rate in FFN_SHAPES:
+        for dtype in (torch.bfloat16, torch.float32):
+            name = str(dtype)[6:]
+            args, dy, y, scale, bias = ffn_case(dev, rng, rows, d, ff, dtype)
+            x, w1, b1, w2, b2 = args
+            seed = torch.tensor([7], dtype=torch.int32, device=dev)
+            h = ffn.ffn_forward(*args, seed, rate)[1]
+            n = 20 if rows * d * ff < 2 ** 31 else 5
+            row = {"rows": rows, "d": d, "ff": ff, "dtype": name, "rate": rate,
+                   "bounds": {**ffn_bounds(rows, d, ff, name), **ln_bounds(rows, d, name)}}
+
+            # the FFN: kernels, plain version, library composition (cuBLAS
+            # products, eager relu and dropout, autograd's backward)
+            leaves = [a.detach().clone().requires_grad_(True) for a in args]
+            ref_out = ffn.ffn_reference(*leaves, seed, rate)
+            lib = [a.detach().clone().requires_grad_(True) for a in args]
+            lib[2], lib[4] = (lib[i].detach().to(dtype).requires_grad_(True) for i in (2, 4))
+
+            def lib_ffn(p=lib):
+                hid = F.dropout(torch.relu(F.linear(p[0], p[1], p[2])), rate, training=True)
+                return F.linear(hid, p[3], p[4])
+
+            lib_out = lib_ffn()
+
+            def plain_ffn():
+                with torch.no_grad():
+                    ffn.ffn_reference(*args, seed, rate)
+
+            fns = {
+                "ffn_fwd": (lambda: ffn.ffn_forward(*args, seed, rate), plain_ffn,
+                            lambda: lib_ffn()),
+                "ffn_bwd": (lambda: ffn.ffn_backward(dy, x, h, w1, w2, rate),
+                            lambda: torch.autograd.grad(ref_out, leaves, dy, retain_graph=True),
+                            lambda: torch.autograd.grad(lib_out, lib, dy, retain_graph=True)),
+            }
+            # LN: kernels, plain version, F.layer_norm(x + F.dropout(y))
+            ln_leaves = [a.detach().clone().requires_grad_(True) for a in (x, y, scale, bias)]
+            ln_ref = ln.dropout_add_layernorm_reference(*ln_leaves, seed, rate)
+            ln_lib = [a.detach().clone().to(dtype).requires_grad_(True)
+                      for a in (x, y, scale, bias)]
+
+            def lib_ln(p=ln_lib):
+                return F.layer_norm(p[0] + F.dropout(p[1], rate, training=True), (d,), p[2], p[3])
+
+            ln_lib_out = lib_ln()
+
+            def plain_ln():
+                with torch.no_grad():
+                    ln.dropout_add_layernorm_reference(x, y, scale, bias, seed, rate)
+
+            fns["ln_fwd"] = (lambda: ln.ln_forward(x, y, scale, bias, seed, rate), plain_ln,
+                             lambda: lib_ln())
+            fns["ln_bwd"] = (
+                lambda: ln.ln_backward(dy, x, y, scale, seed, rate),
+                lambda: torch.autograd.grad(ln_ref, ln_leaves, dy, retain_graph=True),
+                lambda: torch.autograd.grad(ln_lib_out, ln_lib, dy, retain_graph=True))
+            for key, (k, p, lb) in fns.items():
+                k1, p1, l1, l2, p2, k2 = (time_ms(f, m) for f, m in
+                                          ((k, n), (p, 3), (lb, n), (lb, n), (p, 3), (k, n)))
+                row[f"{key}_kernel_ms"], row[f"{key}_plain_ms"] = [k1, k2], [p1, p2]
+                row[f"{key}_library_ms"] = [l1, l2]
+            dev_k = device_us(lambda: [fns[key][0]() for key in fns], n=3)
+            row["kernel_device_us"] = {k: us / c for k, (us, c) in dev_k.items()}
+            row["kernel_device_launches"] = {k: c for k, (_, c) in dev_k.items()}
+            timings.append(row)
+            del leaves, ref_out, lib, lib_out, ln_leaves, ln_ref, ln_lib, ln_lib_out, fns
+    emit({"phase": "ffn_ln_kernels", "checks": checks,
+          "bars": {"float32": "1e-4 abs (out, h); 1e-4 * max|grad| (grads)",
+                   "bfloat16": "2e-2 * max|ref|"},
+          "library": "F.linear, relu, F.dropout, F.linear and autograd's backward; "
+                     "F.layer_norm(x + F.dropout(y)) and autograd's backward",
+          "timings": timings})
+    return {"max_abs_err": worst, "timings": timings}
+
+
+@contextlib.contextmanager
+def ffn_as(role: str, kernel_h: list, kinks: list):
+    """A stand-in for the model's ``ffn_train``, as ``fused_layers_as`` is for
+    the layer functions: as ``"kernel"`` every call also records the kernel's
+    h; as ``"plain"`` the plain version runs in place of the kernels and takes
+    the kernel's side of the ReLU's kink at the units ``kink_flips`` finds
+    within rounding of 0. Any other role leaves the model as it is."""
+    train, replay = transformer.ffn_train, iter(kernel_h)
+
+    def recording(*a):
+        kernel_h.append(ffn.ffn_forward(*[t.detach() for t in a[:6]], a[6])[1])
+        return train(*a)
+
+    def replaying(*a):
+        with torch.no_grad():
+            own_h = ffn.ffn_reference(*[t.detach() for t in a[:6]], a[6], return_hidden=True)[1]
+        flips, kink = fl.kink_flips(own_h, next(replay).to(own_h.device))
+        kinks.append(kink["flips"])
+        return ffn.ffn_reference(*a, relu_flips=flips)
+
+    transformer.ffn_train = {"kernel": recording, "plain": replaying}.get(role, train)
+    try:
+        yield
+    finally:
+        transformer.ffn_train = train
+
+
+def reconfigure(bundle, **switches) -> None:
+    """Flip training switches of a model in place (they change no parameter):
+    a model takes up to seconds to initialise on the host (GrooveXL has 151 M
+    parameters), so the variants of one comparison share one."""
+    cfg = dataclasses.replace(bundle.config, **switches)
+    for m in bundle.model.modules():
+        if hasattr(m, "config"):
+            m.config = cfg
+    bundle.config = cfg
+
+
+def phase_train_wide(dev, rng) -> dict:
+    """The slice's main path: the InfillingRandomLow_lm config (d 256, ff 2048,
+    8 layers, dropout 0.16, batch 32; nothing cut) through ``initialize_model``
+    + ``train_loop``: the whole-layer gate rejects ff 2048, and the layers take
+    their unfused path with the FFN kernels in it; then with the LN kernels,
+    then rematerialised, then a 1 + 1 layer encoder-decoder model."""
+    data, held = Loops(1024, 41), Loops(256, 42)
+    batch, epochs, n_layers = LM_HP["batch_size"], 3, LM_HP["num_encoder_decoder_layers"]
+    penalty = LM_HP["hit_loss_penalty"]
+    per_epoch = len(data.processed_inputs) // batch
+    steps = epochs * per_epoch
+    bundle, _, _ = initialize_model(lm_params(), dev)
+    cfg = bundle.config
+    check(cfg.fused_ffn and not cfg.fused_layer and not cfg.remat and not cfg.fused_dropout_ln
+          and cfg.compute_dtype == torch.bfloat16,
+          f"auto policy did not pick the FFN kernel alone in bf16: {cfg}")
+    reset_launches()  # the main path's run starts here
+    t0 = time.perf_counter()
+    metrics = run_epochs(bundle, data, held, epochs, batch, penalty=penalty)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = launches(NEW_KERNELS)  # ... and ends here
+    want = {**{k: steps * n_layers for k in ffn.KERNELS}, **{k: 0 for k in ln.KERNELS}}
+    check(counts == want and not any(launches(LAYER_KERNELS).values()),
+          f"wide-FFN training launched {counts}, expected {want} ({steps} steps x {n_layers} "
+          f"layers), and the layer kernels {launches(LAYER_KERNELS)}")
+    losses = [m["loss"] for m in metrics]
+    check(all(np.isfinite(v) for m in metrics for v in m.values()), f"non-finite: {metrics}")
+    check(losses[-1] < losses[0], f"loss did not fall: {losses}")
+
+    # the same with every LN(x + dropout(y)) site through the LN kernels: the
+    # LN kernels' main path
+    ln_bundle, _, _ = initialize_model(lm_params(fused_dropout_ln=True), dev)
+    reset_launches()  # the LN kernels' main path starts here
+    ln_losses = [m["loss"] for m in run_epochs(ln_bundle, data, held, 2, batch, penalty=penalty)]
+    ln_counts = launches(NEW_KERNELS)  # ... and ends here
+    want = {**{k: 2 * per_epoch * n_layers for k in ffn.KERNELS},
+            **{k: 2 * per_epoch * 2 * n_layers for k in ln.KERNELS}}
+    check(ln_counts == want, f"with fused_dropout_ln: launched {ln_counts}, expected {want}")
+    check(all(np.isfinite(ln_losses)) and ln_losses[-1] < ln_losses[0],
+          f"with fused_dropout_ln the loss did not fall: {ln_losses}")
+
+    # rematerialised: every layer's forward runs again in the backward
+    remat_bundle, _, _ = initialize_model(lm_params(remat=True), dev)
+    reset_launches()
+    remat_losses = [m["loss"] for m in
+                    run_epochs(remat_bundle, data, held, 2, batch, penalty=penalty)]
+    remat_counts = launches(ffn.KERNELS)
+    want = {k: 2 * per_epoch * n_layers * (2 if k.endswith("fwd") else 1) for k in ffn.KERNELS}
+    check(remat_counts == want, f"with remat: launched {remat_counts}, expected {want}")
+    check(all(np.isfinite(remat_losses)) and remat_losses[-1] < remat_losses[0],
+          f"with remat the loss did not fall: {remat_losses}")
+
+    # one step's gradients with and without remat, at dropout 0.16: equal only
+    # if the recompute replays the forward's masks
+    x = torch.from_numpy(data.processed_inputs[:batch]).to(dev)
+    y = torch.from_numpy(data.processed_outputs[:batch]).to(dev)
+    grads = {}
+    probe, _, _ = initialize_model(lm_params(), dev)
+    probe.model.train()
+    for name, switches in (("plain", {}), ("remat", dict(remat=True)),
+                           ("remat_dots", dict(remat=True, remat_policy="dots")),
+                           ("remat_ln", dict(remat=True, fused_dropout_ln=True)),
+                           ("plain_ln", dict(fused_dropout_ln=True))):
+        reconfigure(probe, remat=False, remat_policy=None, fused_dropout_ln=False)
+        reconfigure(probe, **switches)
+        probe.model.zero_grad(set_to_none=True)
+        pred = probe.model(x, generator=torch.Generator(dev).manual_seed(5))
+        calculate_loss(pred, y, penalty).total_loss.backward()
+        grads[name] = [p.grad for p in probe.model.parameters()]
+    remat_err = {}
+    for name, other in (("remat", "plain"), ("remat_dots", "plain"), ("remat_ln", "plain_ln")):
+        top = max(float(g.abs().max()) for g in grads[other])
+        remat_err[name] = {
+            "max_abs_err": max(max_err(a, g) for a, g in zip(grads[name], grads[other])),
+            "max_abs_grad": top,
+            "bitwise": all(torch.equal(a, g) for a, g in zip(grads[name], grads[other]))}
+        check(remat_err[name]["max_abs_err"] <= 1e-6 * top,
+              f"gradients with {name} differ from {other}: {remat_err[name]}")
+    del grads, probe
+
+    # peak memory of a step at batch 512, with and without remat
+    big = Loops(1024, 43)
+    peak = {}
+    for name, b in (("plain", bundle), ("remat", remat_bundle)):
+        seqs_per_s(b, big, 512)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        seqs_per_s(b, big, 512)
+        peak[name] = {"peak_bytes": torch.cuda.max_memory_allocated(),
+                      "over_resident_bytes": torch.cuda.max_memory_allocated() - base}
+    check(peak["remat"]["over_resident_bytes"] < peak["plain"]["over_resident_bytes"],
+          f"remat did not lower the step's peak memory: {peak}")
+
+    # 3 f32 steps at dropout 0: the kernel path against the plain-version path
+    # (the kernel's side of a ReLU kink, ``ffn_as``) and against fused_ffn=False
+    kernel_h, kinks, three = [], [], {}
+    x = torch.from_numpy(data.processed_inputs[:96]).to(dev)
+    y = torch.from_numpy(data.processed_outputs[:96]).to(dev)
+    for name in ("kernel", "plain", "unfused"):
+        b, _, _ = initialize_model(
+            lm_params(bf16=False, dropout=0.0, fused_ffn=name != "unfused"), dev)
+        epoch_fn = make_epoch_fn(penalty, 32, 96, shuffle=False)
+        with ffn_as(name, kernel_h, kinks):
+            epoch_fn(b.state, x, y, torch.Generator(dev).manual_seed(0))
+        check(b.state.step == 3, f"{name}: {b.state.step} steps, expected 3")
+        three[name] = {k: v.detach().cpu() for k, v in b.model.state_dict().items()}
+    param_err = {other: max(max_err(three["kernel"][k], three[other][k]) for k in three["kernel"])
+                 for other in ("plain", "unfused")}
+    check(param_err["plain"] <= 1e-4 and param_err["unfused"] <= UNFUSED_BAR,
+          f"3 f32 steps: params differ by {param_err} (kink flips per FFN call: {kinks})")
+
+    # a 1 + 1 layer encoder-decoder model at the same width, FFN and LN kernels
+    # in both layers
+    small = Loops(128, 44)
+    encdec, _, _ = initialize_model(
+        lm_params(num_encoder_layers=1, num_decoder_layers=1, fused_dropout_ln=True), dev)
+    check(encdec.config.fused_ffn and not encdec.config.fused_layer
+          and not encdec.config.fused_decoder_layer, f"1 + 1 model's switches: {encdec.config}")
+    reset_launches()
+    encdec_losses = [m["loss"] for m in
+                     run_epochs(encdec, small, held, 3, batch, encoder_only=0, penalty=penalty)]
+    encdec_counts = launches(NEW_KERNELS)
+    encdec_steps = 3 * (128 // batch)
+    want = {**{k: encdec_steps * 2 for k in ffn.KERNELS},
+            **{k: encdec_steps * 5 for k in ln.KERNELS}}
+    check(encdec_counts == want, f"1 + 1 model launched {encdec_counts}, expected {want}")
+    check(all(np.isfinite(encdec_losses)) and encdec_losses[-1] < encdec_losses[0],
+          f"1 + 1 model's loss did not fall: {encdec_losses}")
+
+    # throughput: fused_ffn on and off, then with the LN kernels, then with
+    # remat, in turns; 16 steps at batch 32, 4 at batch 512
+    models = {"fused_ffn": bundle, "unfused": initialize_model(lm_params(fused_ffn=False), dev)[0],
+              "fused_ffn_ln": ln_bundle, "fused_ffn_remat": remat_bundle}
+    throughput, breakdown = {}, {}
+    for b in THROUGHPUT_BATCHES:
+        corpus, warm = Loops(512 if b == 32 else 2048, 45), Loops(2 * b, 46)
+        runs = {k: [] for k in models}
+        for which in [*models, *reversed(models)]:
+            seqs_per_s(models[which], warm, b)
+            runs[which].append(seqs_per_s(models[which], corpus, b))
+        throughput[b] = runs
+        breakdown[b] = step_breakdown(bundle, b, 47)
+    emit({"phase": "train_wide_ffn", "config": LM_HP, "data": "1024 seeded synthetic loops",
+          "epochs": epochs, "steps": steps, "seconds": seconds, "launches": counts,
+          "losses": losses, "last_metrics": metrics[-1],
+          "fused_dropout_ln": {"launches": ln_counts, "losses": ln_losses},
+          "remat": {"launches": remat_counts, "losses": remat_losses,
+                    "one_step_gradients_vs_unrematerialised": remat_err,
+                    "step_memory_batch_512": peak},
+          "three_f32_steps_param_err": param_err, "three_f32_steps_kink_flips": kinks,
+          "unfused_bar": UNFUSED_BAR,
+          "encoder_decoder_1_plus_1": {"steps": encdec_steps, "launches": encdec_counts,
+                                       "losses": encdec_losses},
+          "seqs_per_s": throughput, "step_breakdown": breakdown})
+    return {"launches": counts, "ln_launches": ln_counts, "encdec_launches": encdec_counts}
+
+
+def phase_train_groovexl(dev, rng) -> dict:
+    """GrooveXL (d 1024, 8 heads, ff 4096, 12 layers, dropout 0.1, batch 128,
+    bf16, remat on; nothing cut but the number of steps) through
+    ``initialize_model`` + ``make_epoch_fn``."""
+    hp = XL_HP
+    n_layers, batch = hp["num_encoder_layers"], hp["batch_size"]
+    params = {"model": {k: hp[k] for k in ("d_model", "n_heads", "dim_feedforward", "dropout",
+                                           "num_encoder_layers", "remat", "optimizer")},
+              "training": {"learning_rate": hp["learning_rate"], "batch_size": batch, "seed": 0}}
+    t0 = time.perf_counter()
+    bundle, _, _ = initialize_model(params, dev)
+    init_seconds = time.perf_counter() - t0
+    cfg = bundle.config
+    check(cfg.fused_ffn and cfg.remat and not cfg.fused_layer
+          and cfg.compute_dtype == torch.bfloat16, f"GrooveXL's switches: {cfg}")
+    auto_remat = resolve_remat(None, d_model=hp["d_model"], n_heads=hp["n_heads"],
+                               dim_feedforward=hp["dim_feedforward"], n_layers=n_layers,
+                               batch_size=batch, compute_dtype=torch.bfloat16, device=dev)
+    n = 4 * batch  # scripts/bench_groovexl_ffn.py's corpus: 4 steps an epoch
+    data = Loops(n, 51)
+    x = torch.from_numpy(data.processed_inputs).to(dev)
+    y = torch.from_numpy(data.processed_outputs).to(dev)
+    epoch_fn = make_epoch_fn(hp["hit_loss_penalty"], batch, n)
+    gen = torch.Generator(dev).manual_seed(0)
+    one_step = make_epoch_fn(hp["hit_loss_penalty"], batch, batch)  # warm-ups, breakdown
+    epochs, steps = 2, 2 * 4
+    reset_launches()  # the main path's run starts here
+    t0 = time.perf_counter()
+    metrics = [fetch(epoch_fn(bundle.state, x, y, gen)) for _ in range(epochs)]
+    seconds = time.perf_counter() - t0
+    counts = launches(NEW_KERNELS)  # ... and ends here
+    want = {**{k: steps * n_layers * (2 if k.endswith("fwd") else 1) for k in ffn.KERNELS},
+            **{k: 0 for k in ln.KERNELS}}
+    check(counts == want, f"GrooveXL launched {counts}, expected {want} ({steps} steps x "
+                          f"{n_layers} layers, the forward twice under remat)")
+    losses = [m["loss"] for m in metrics]
+    check(all(np.isfinite(v) for m in metrics for v in m.values()), f"non-finite: {metrics}")
+    check(losses[-1] < losses[0], f"loss did not fall: {losses}")
+
+    def epoch_rate() -> float:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fetch(epoch_fn(bundle.state, x, y, gen))
+        return n / (time.perf_counter() - t0)
+
+    def step_peak() -> dict:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        fetch(epoch_fn(bundle.state, x, y, gen))
+        return {"peak_bytes": torch.cuda.max_memory_allocated(),
+                "over_resident_bytes": torch.cuda.max_memory_allocated() - base}
+
+    peak = {"remat": step_peak()}
+    reconfigure(bundle, remat=False)
+    before = launches(ffn.KERNELS)
+    peak["plain"] = step_peak()
+    no_remat_counts = {k: v - before[k] for k, v in launches(ffn.KERNELS).items()}
+    check(all(v == 4 * n_layers for v in no_remat_counts.values()),
+          f"GrooveXL without remat launched {no_remat_counts} in 4 steps")
+    check(peak["remat"]["over_resident_bytes"] < peak["plain"]["over_resident_bytes"],
+          f"remat did not lower GrooveXL's peak memory: {peak}")
+    rates = {"fused_ffn_remat": [], "unfused_remat": [], "fused_ffn": [], "unfused": []}
+    for which in [*rates, *reversed(rates)]:
+        reconfigure(bundle, fused_ffn=which.startswith("fused_ffn"),
+                    remat=which.endswith("remat"))
+        fetch(one_step(bundle.state, x[:batch], y[:batch], gen))
+        rates[which].append(epoch_rate())
+    reconfigure(bundle, fused_ffn=True, remat=True)
+    per_kernel = device_us(lambda: fetch(one_step(bundle.state, x[:batch], y[:batch], gen)), n=2)
+    total = sum(us for us, _ in per_kernel.values())
+    top = sorted(per_kernel.items(), key=lambda kv: -kv[1][0])[:8]
+    emit({"phase": "train_groovexl", "config": hp, "auto_remat_on_this_card": auto_remat,
+          "parameters": sum(p.numel() for p in bundle.model.parameters()),
+          "initialize_model_seconds": init_seconds, "data": f"{n} seeded synthetic loops",
+          "epochs": epochs, "steps": steps, "seconds": seconds, "launches": counts,
+          "losses": losses, "last_metrics": metrics[-1], "step_memory": peak,
+          "seqs_per_s": rates,
+          "step_breakdown": {"step_device_ms": total / 1e3,
+                             "launches_per_step": sum(c for _, c in per_kernel.values()),
+                             "top_kernels_us_per_step": {k: us for k, (us, _) in top}}})
+    return {"launches": counts}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -1671,6 +2247,7 @@ def main() -> int:
         result = fn(*args)
         torch.cuda.synchronize()
         took[fn.__name__.removeprefix("phase_")] = time.perf_counter() - t0
+        print(f"{fn.__name__}: {time.perf_counter() - t0:.1f} s", file=sys.stderr, flush=True)
         return result
 
     name, smi = timed_phase(phase_device)
@@ -1691,6 +2268,9 @@ def main() -> int:
     dec_layer = timed_phase(phase_decoder_layer, dev, rng)
     encdec = timed_phase(phase_train_encdec, dev, rng)
     served_encdec = timed_phase(phase_serve_encdec, dev, rng, srv)
+    ffn_ln = timed_phase(phase_ffn_ln, dev, rng)
+    wide = timed_phase(phase_train_wide, dev, rng)
+    xl = timed_phase(phase_train_groovexl, dev, rng)
     emit({"phase_seconds": took})
     b1 = next(t for t in kernel["timings"]
               if t["shape"] == [1, 2, 32, 128] and t["dtype"] == "float32")
@@ -1781,6 +2361,49 @@ def main() -> int:
         "at": f"M 1 loop, 288 cells, length {synth1['length']} (120 bpm), float32, stream "
               "time; library: one index_add_ over indices and sources prepared outside the "
               "timed call"})
+    small = next(t for t in ffn_ln["timings"] if t["rows"] == 1024 and t["dtype"] == "bfloat16")
+    xl_row = next(t for t in ffn_ln["timings"] if t["d"] == 1024 and t["dtype"] == "bfloat16")
+
+    def device_ms(row, *entries):
+        """Device ms per launch of the kernels whose names hold ``entries``."""
+        return sum(us for k, us in row["kernel_device_us"].items()
+                   if any(e in k for e in entries)) / 1000.0
+
+    for kname, entries in (("fused_ffn_fwd", ("ffn_fwd",)),
+                           ("fused_ffn_bwd_rows", ("ffn_bwd_rows",)),
+                           ("fused_ffn_bwd_weights", ("ffn_bwd_weights", "ffn_reduce")),
+                           ("fused_ln_fwd", ("ln_fwd",)), ("fused_ln_bwd", ("ln_bwd",))):
+        is_ffn = kname.startswith("fused_ffn")
+        key = ("ffn_" if is_ffn else "ln_") + ("fwd" if kname.endswith("fwd") else "bwd")
+        kernels.append({
+            "name": kname, "route": "cuda", "source": FFN_SOURCE if is_ffn else LN_SOURCE,
+            "replaces": (FFN_TPU_KERNELS if is_ffn else LN_TPU_KERNELS)[kname],
+            "launches": (wide["launches"] if is_ffn else wide["ln_launches"])[kname],
+            "launches_encdec_1_plus_1_path": wide["encdec_launches"][kname],
+            "launches_groovexl_path": xl["launches"][kname],
+            "max_abs_err": ffn_ln["max_abs_err"]["ffn" if is_ffn else "ln"],
+            "ms": device_ms(small, *entries),
+            "stream_ms_of_the_call": float(np.mean(small[f"{key}_kernel_ms"])),
+            "plain_ms": float(np.mean(small[f"{key}_plain_ms"])),
+            "bound_ms": small["bounds"][kname]["bound_ms"],
+            "bound_by": small["bounds"][kname]["bound_by"],
+            "library_ms": float(np.mean(small[f"{key}_library_ms"])),
+            "groovexl": {"ms": device_ms(xl_row, *entries),
+                         "stream_ms_of_the_call": float(np.mean(xl_row[f"{key}_kernel_ms"])),
+                         "plain_ms": float(np.mean(xl_row[f"{key}_plain_ms"])),
+                         "bound_ms": xl_row["bounds"][kname]["bound_ms"],
+                         "bound_by": xl_row["bounds"][kname]["bound_by"],
+                         "library_ms": float(np.mean(xl_row[f"{key}_library_ms"]))},
+            "at": "rows 1,024 (batch 32), d 256, ff 2048, bf16, rate 0.16; groovexl: rows "
+                  "4,096, d 1024, ff 4096, rate 0.1; ms: device time per launch (the weight "
+                  "kernel with its reduce); stream_ms_of_the_call, plain_ms and library_ms are "
+                  "on the stream and for a backward kernel cover the whole backward call "
+                  "(both FFN backward kernels; the LN backward with the sum of its partials); "
+                  "library: F.linear, relu, F.dropout, F.linear (FFN) or F.layer_norm(x + "
+                  "F.dropout(y)) (LN), and autograd's backward; err: the largest of out, h, "
+                  "dx (FFN) or out, dx, dy (LN) over the f32 checks; launches: the FFN "
+                  "kernels over phase 18's main run, the LN kernels over its run with "
+                  "fused_dropout_ln"})
     emit({"kernels": kernels, "seconds": time.perf_counter() - t_start})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -7,6 +7,8 @@ where the repository's conftest (which imports JAX) is left out:
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -14,7 +16,8 @@ import torch
 from transformergrooveinfilling_tpu_torch.models import GrooveTransformerConfig, build_model
 from transformergrooveinfilling_tpu_torch.data import make_on_device_augment
 from transformergrooveinfilling_tpu_torch.ops import attention, band_energies, device_synth
-from transformergrooveinfilling_tpu_torch.ops import fused_decoder_layer, fused_layer, mso
+from transformergrooveinfilling_tpu_torch.ops import fused_decoder_layer, fused_ffn, fused_layer
+from transformergrooveinfilling_tpu_torch.ops import fused_ln, mso
 from transformergrooveinfilling_tpu_torch.serve import InfillServer
 from transformergrooveinfilling_tpu_torch.train import (
     create_train_state, make_epoch_fn, make_train_step,
@@ -433,3 +436,130 @@ def test_audio_augmented_training_runs_every_kernel(cuda, rng):
     assert {k: f.launches - before[k] for k, f in fused_layer.KERNELS.items()} == {
         k: 4 * 3 * 2 for k in fused_layer.KERNELS}
     assert np.isfinite(losses).all() and losses[-1] < losses[0]
+
+
+def _ffn_args(cuda, rng, rows, d, ff, dtype):
+    n = lambda *s, k=1.0: torch.from_numpy(  # noqa: E731
+        (k * rng.standard_normal(s)).astype(np.float32)).to(cuda)
+    return [n(rows, d).to(dtype), n(ff, d, k=d ** -0.5).to(dtype), n(ff, k=0.1),
+            n(d, ff, k=ff ** -0.5).to(dtype), n(d, k=0.1)], n(rows, d).to(dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rate", [0.0, 0.16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rows, d, ff", [(1024, 256, 2048), (256, 1024, 4096), (100, 72, 200)])
+def test_ffn_kernels_match_the_plain_version(cuda, rng, rows, d, ff, dtype, rate):
+    """out, h, dx and the four parameter gradients through the autograd
+    Function, with the same mask; ragged rows and widths that are no multiples
+    of the tiles; two runs bit-identical."""
+    args, dy = _ffn_args(cuda, rng, rows, d, ff, dtype)
+    seed = torch.tensor([99], dtype=torch.int32, device=cuda)
+    before = {k: f.launches for k, f in fused_ffn.KERNELS.items()}
+    runs = []
+    for _ in range(2):
+        leaves = [a.clone().requires_grad_(True) for a in args]
+        out = fused_ffn.ffn_train(*leaves, seed, rate)
+        out.backward(dy)
+        runs.append([out.detach(), *[leaf.grad for leaf in leaves]])
+    torch.cuda.synchronize()
+    assert all(f.launches == before[k] + 2 for k, f in fused_ffn.KERNELS.items())
+    assert all(torch.equal(a, b) for a, b in zip(*runs))
+    h = fused_ffn.ffn_forward(*args, seed, rate)[1]
+    with torch.no_grad():
+        own_h = fused_ffn.ffn_reference(*args, seed, rate, return_hidden=True)[1]
+    flips, _ = fused_layer.kink_flips(own_h, h)
+    leaves = [a.clone().requires_grad_(True) for a in args]
+    want = fused_ffn.ffn_reference(*leaves, seed, rate, relu_flips=flips)
+    want.backward(dy)
+    for got, ref in zip(runs[0], [want.detach(), *[leaf.grad for leaf in leaves]]):
+        assert got.dtype == ref.dtype and got.shape == ref.shape
+        rel = 1e-4 if dtype == torch.float32 else 2e-2
+        assert float((got.float() - ref.float()).abs().max()) <= rel * max(
+            1.0, float(ref.float().abs().max()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(1024, 256), (4, 32, 1024), (100, 72)])
+def test_ln_kernels_match_the_plain_version(cuda, rng, shape, dtype, rate):
+    n = lambda *s: torch.from_numpy(  # noqa: E731
+        rng.standard_normal(s).astype(np.float32)).to(cuda)
+    d = shape[-1]
+    args = [n(*shape).to(dtype), n(*shape).to(dtype), 1 + 0.1 * n(d), 0.1 * n(d)]
+    g = n(*shape).to(dtype)
+    seed = torch.tensor([5], dtype=torch.int32, device=cuda)
+    before = {k: f.launches for k, f in fused_ln.KERNELS.items()}
+    runs = []
+    for fn in (fused_ln.dropout_add_layernorm, fused_ln.dropout_add_layernorm,
+               fused_ln.dropout_add_layernorm_reference):
+        leaves = [a.clone().requires_grad_(True) for a in args]
+        out = fn(*leaves, seed, rate)
+        out.backward(g)
+        runs.append([out.detach(), *[leaf.grad for leaf in leaves]])
+    torch.cuda.synchronize()
+    assert all(f.launches == before[k] + 2 for k, f in fused_ln.KERNELS.items())
+    assert all(torch.equal(a, b) for a, b in zip(runs[0], runs[1]))
+    for got, ref in zip(runs[0], runs[2]):
+        assert got.dtype == ref.dtype and got.shape == ref.shape
+        rel = 1e-4 if dtype == torch.float32 else 2e-2
+        assert float((got.float() - ref.float()).abs().max()) <= rel * max(
+            1.0, float(ref.float().abs().max()))
+
+
+@pytest.mark.cuda
+def test_ffn_and_ln_kernels_refuse_what_they_do_not_take(cuda, rng):
+    args, _ = _ffn_args(cuda, rng, 64, 64, 128, torch.float32)
+    seed = torch.tensor([1], dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="one CUDA device"):
+        fused_ffn.ffn_train(args[0].cpu(), *args[1:], seed, 0.1)
+    with pytest.raises(ValueError, match="x's dtype"):
+        fused_ffn.ffn_train(args[0], args[1].bfloat16(), *args[2:], seed, 0.1)
+    with pytest.raises(ValueError, match="supports_fused_ffn"):
+        fused_ffn.ffn_train(args[0][:, :62].contiguous(), args[1][:, :62].contiguous(), args[2],
+                            args[3][:62].contiguous(), args[4][:62].contiguous(), seed, 0.1)
+    with pytest.raises(ValueError, match="contiguous"):
+        fused_ffn.ffn_train(args[0], args[3].t(), *args[2:], seed, 0.1)
+    x = args[0]
+    scale, bias = torch.ones(64, device=cuda), torch.zeros(64, device=cuda)
+    with pytest.raises(ValueError, match="one CUDA device"):
+        fused_ln.dropout_add_layernorm(x, x.cpu(), scale, bias, seed, 0.1)
+    with pytest.raises(ValueError, match="float32 scale"):
+        fused_ln.dropout_add_layernorm(x, x, scale.bfloat16(), bias, seed, 0.1)
+    with pytest.raises(ValueError, match="int32 seed"):
+        fused_ln.dropout_add_layernorm(x, x, scale, bias, seed.long(), 0.1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_dec", [0, 1])
+def test_wide_ffn_train_steps_run_the_ffn_and_ln_kernels_and_remat_replays(cuda, rng, n_dec):
+    """Two steps at d 256 / ff 2048 with fused_ffn and fused_dropout_ln: the
+    launch counts per layer, and under remat the forward kernels twice and the
+    same weights after the steps."""
+    cfg = GrooveTransformerConfig(d_model=256, n_heads=2, dim_feedforward=2048, dropout=0.16,
+                                  num_encoder_layers=2, num_decoder_layers=n_dec,
+                                  compute_dtype=torch.bfloat16, fused_ffn=True,
+                                  fused_dropout_ln=True)
+    x = torch.from_numpy(rng.standard_normal((64, 32, 16)).astype(np.float32)).to(cuda)
+    h = (rng.random((64, 32, 9)) < 0.3).astype(np.float32)
+    y = torch.from_numpy(np.concatenate([h, h * 0.5, h * 0.1], 2)).to(cuda)
+    kernels = {**fused_ffn.KERNELS, **fused_ln.KERNELS}
+    weights = []
+    for remat in (False, True):
+        state = create_train_state(
+            dataclasses.replace(cfg, remat=remat), "sgd", 0.05, 0, cuda)
+        before = {k: f.launches for k, f in kernels.items()}
+        epoch = make_epoch_fn(0.46, 32, 64, shuffle=False, encoder_only=not n_dec)
+        metrics = epoch(state, x, y, torch.Generator(cuda).manual_seed(0))
+        torch.cuda.synchronize()
+        assert all(np.isfinite(float(v)) for v in metrics.values())
+        ffn_sites, ln_sites = 2 + n_dec, 2 * 2 + 3 * n_dec
+        want = {"fused_ffn_fwd": ffn_sites * (1 + remat), "fused_ffn_bwd_rows": ffn_sites,
+                "fused_ffn_bwd_weights": ffn_sites, "fused_ln_fwd": ln_sites * (1 + remat),
+                "fused_ln_bwd": ln_sites}
+        assert {k: f.launches - before[k] for k, f in kernels.items()} == \
+            {k: 2 * v for k, v in want.items()}
+        weights.append([p.detach().clone() for p in state.model.parameters()])
+    for a, b in zip(*weights):
+        torch.testing.assert_close(a, b, rtol=0, atol=1e-6 * max(1.0, float(a.abs().max())))

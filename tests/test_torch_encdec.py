@@ -27,7 +27,6 @@ from transformergrooveinfilling_tpu.models.transformer import (
     GrooveTransformerConfig as JaxConfig,
 )
 from transformergrooveinfilling_tpu.train import loop as jax_loop
-from transformergrooveinfilling_tpu_torch import NotPortedError
 from transformergrooveinfilling_tpu_torch.models import (
     GrooveTransformer, GrooveTransformerConfig, GrooveTransformerEncoder, build_model, predict,
 )
@@ -403,16 +402,25 @@ def test_fused_training_draws_one_seed_per_layer_and_is_seeded(rng):
 
 
 def test_unported_switches_raise_in_decoder_layers_too(rng):
+    """The switches that used to refuse now run in decoder layers too (the
+    encoder layer here takes its whole-layer path); a forced switch whose
+    kernel does not take the shape raises ``ValueError``."""
     base = GrooveTransformerConfig(num_encoder_layers=1, num_decoder_layers=1, dropout=0.3,
-                                   fused_layer=True)  # the encoder layer passes; the decoder refuses
+                                   fused_layer=True)
     x = torch.from_numpy(rng.standard_normal((2, 32, 16)).astype(np.float32))
-    for switch in (dict(fused_ffn=True), dict(fused_dropout_ln=True)):
+    for switch in (dict(fused_ffn=True), dict(fused_dropout_ln=True), dict(remat=True),
+                   dict(fused_ffn=True, fused_dropout_ln=True, remat=True)):
         model = build_model(dataclasses.replace(base, **switch), "cpu").train()
-        with pytest.raises(NotPortedError):
+        out = model(x, None, torch.Generator())
+        sum(o.sum() for o in out).backward()
+        assert all(p.grad is not None and torch.isfinite(p.grad).all()
+                   for p in model.parameters()), switch
+    for switch, match in ((dict(fused_ffn=True, dim_feedforward=18), "fused_ffn=True"),
+                          (dict(fused_dropout_ln=True, d_model=34, n_heads=2),
+                           "fused_dropout_ln=True")):
+        model = build_model(dataclasses.replace(base, fused_layer=False, **switch), "cpu").train()
+        with pytest.raises(ValueError, match=match):
             model(x, None, torch.Generator())
-    with pytest.raises(NotPortedError, match="remat"):
-        build_model(dataclasses.replace(base, remat=True), "cpu").train()(
-            x, None, torch.Generator())
     with pytest.raises(ValueError, match="Generator"):
         build_model(base, "cpu").train()(x)
 

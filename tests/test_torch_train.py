@@ -465,8 +465,8 @@ def test_config_resolution(monkeypatch):
     assert port_config.resolve_fused_layer(None, 256, 2, 512) is True
     assert port_config.resolve_fused_layer(None, 256, 2, 512, n_devices=4) is False
     assert port_config.resolve_fused_layer(True, 30, 2, 64) is True  # forced, kept
-    assert port_config.resolve_fused_ffn(None) is False
-    assert port_config.resolve_fused_ffn(True) is True
+    assert port_config.resolve_fused_ffn(None, 2048, 256, device="cpu") is False
+    assert port_config.resolve_fused_ffn(True, 2048, 256, device="cpu") is True
     kw = dict(d_model=1024, n_heads=16, dim_feedforward=4096, n_layers=12, batch_size=128,
               hbm_bytes=16 * 1024**3, n_data_shards=1)
     for dtype in (torch.bfloat16, torch.float32):
@@ -562,11 +562,24 @@ def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
 
 
 def test_unported_training_switches_raise(rng):
+    """The switches that used to refuse (remat, fused_ffn, fused_dropout_ln)
+    now run a training forward and backward; a forced switch whose kernel does
+    not take the shape raises ``ValueError`` and never gives way quietly."""
     base = GrooveTransformerConfig(num_encoder_layers=1, dropout=0.3)
     x = torch.from_numpy(rng.standard_normal((2, 32, 16)).astype(np.float32))
-    for switch in (dict(remat=True), dict(fused_ffn=True), dict(fused_dropout_ln=True)):
+    for switch in (dict(remat=True), dict(fused_ffn=True), dict(fused_dropout_ln=True),
+                   dict(remat=True, fused_ffn=True, fused_dropout_ln=True)):
         model = build_model(dataclasses.replace(base, **switch), "cpu").train()
-        with pytest.raises(NotPortedError):
+        out = model(x, torch.Generator())
+        sum(o.sum() for o in out).backward()
+        assert all(p.grad is not None and torch.isfinite(p.grad).all()
+                   for p in model.parameters()), switch
+    for switch, match in ((dict(fused_ffn=True, dim_feedforward=18), "fused_ffn=True"),
+                          (dict(fused_ffn=True, compute_dtype=torch.float16), "fused_ffn=True"),
+                          (dict(fused_dropout_ln=True, d_model=34, n_heads=2),
+                           "fused_dropout_ln=True")):
+        model = build_model(dataclasses.replace(base, **switch), "cpu").train()
+        with pytest.raises(ValueError, match=match):
             model(x, torch.Generator())
     # fused_dropout_ln at rate 0 is the plain path, as in the JAX package
     model = build_model(dataclasses.replace(base, dropout=0.0, fused_dropout_ln=True), "cpu")

@@ -13,7 +13,9 @@ Layering (bottom → top), as far as it is ported:
 - ``ops``       kernel wrappers, each beside its plain PyTorch version
                 (``fused_mha`` / ``mha_reference``; ``encoder_layer_train``
                 / ``encoder_layer_reference``; ``decoder_layer_train`` /
-                ``decoder_layer_reference``; ``band_energies`` /
+                ``decoder_layer_reference``; ``ffn_train`` /
+                ``ffn_reference``; ``dropout_add_layernorm`` /
+                ``dropout_add_layernorm_reference``; ``band_energies`` /
                 ``band_energies_plain``; ``synth_events`` /
                 ``synth_events_plain``), the MSO DSP, the on-device drum
                 synthesizer, dropout, and the kernel build
@@ -22,7 +24,8 @@ Layering (bottom → top), as far as it is ported:
 - ``data``      random masking and the synth + MSO front end as a training
                 augmentation on the device
 - ``models``    the groove transformer (``nn.Module``), encoder-only and
-                encoder-decoder, with its training mode, the loss, legacy
+                encoder-decoder, with its training mode (fused layers, fused
+                FFN, fused dropout+LayerNorm, remat), the loss, legacy
                 ``.Model`` / flax-parameter interop
 - ``train``     the training contract (``initialize_model`` + ``train_loop``),
                 step and epoch functions, hyperparameters
@@ -30,8 +33,8 @@ Layering (bottom → top), as far as it is ported:
 
 Not ported yet (see ROADMAP.md): the training CLI (``train.py``,
 ``run_training``), checkpoints, evaluation and logging, SoundFont (``.sf2``)
-kits, the C++ mixer and WAV I/O, the fused FFN and fused LayerNorm kernels,
-remat, multi-GPU, export.
+kits, the C++ mixer and WAV I/O, multi-GPU, export. Every function of the JAX
+package that reaches a Pallas kernel has its CUDA counterpart here.
 Every entry point runs on ``"cuda"`` unless the caller names another device,
 and raises without CUDA (:func:`require_device`); none carries on on the CPU.
 Importing this package has no side effects: no backend is selected and no

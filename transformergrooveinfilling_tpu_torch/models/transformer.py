@@ -35,15 +35,21 @@ change nothing. ``train()`` mode is the JAX ``deterministic=False`` path:
 (``fast_dropout`` picks the 8-bit or the exact-rate rule), and
 ``fused_layer`` runs each encoder layer through ``ops/fused_layer.py`` and
 ``fused_decoder_layer`` each decoder layer through
-``ops/fused_decoder_layer.py`` (the CUDA kernels on a CUDA tensor). A training
-forward that would take a path not ported yet raises ``NotPortedError``: the
-fused FFN, the fused dropout+LayerNorm at rate > 0, and remat, in encoder and
-decoder layers alike.
+``ops/fused_decoder_layer.py`` (the CUDA kernels on a CUDA tensor). On the
+unfused path of either layer, ``fused_ffn`` runs the feed-forward block through
+``ops/fused_ffn.py`` and ``fused_dropout_ln`` (at rate > 0) every
+``LN(x + dropout(y))`` site through ``ops/fused_ln.py``, each with one seed
+drawn from ``generator``; a forced switch whose kernel does not take the shape
+raises ``ValueError``. ``remat`` runs each layer under
+``torch.utils.checkpoint`` and replays ``generator`` in the recompute, so the
+backward sees the masks of the forward. No switch changes a parameter's name
+or shape.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Optional
 
@@ -51,12 +57,15 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils import checkpoint as torch_checkpoint
 
-from .. import NotPortedError, require_device
+from .. import require_device
 from ..ops.attention import fused_mha, mha_reference
 from ..ops.dropout import dropout as drop_site
 from ..ops.fused_decoder_layer import decoder_layer_train, supports_fused_decoder_layer
+from ..ops.fused_ffn import ffn_train, supports_fused_ffn
 from ..ops.fused_layer import encoder_layer_train, supports_fused_layer
+from ..ops.fused_ln import dropout_add_layernorm, supports_fused_ln
 
 
 @dataclasses.dataclass(frozen=True)
@@ -77,10 +86,13 @@ class GrooveTransformerConfig:
     # CUDA kernel (ops/attention.py::fused_mha; the JAX field is
     # use_pallas_attention)
     use_fused_attention: bool = False
-    # training-path switches of the JAX config. fused_layer (encoder layers),
-    # fused_decoder_layer (decoder layers) and fast_dropout act in train()
-    # mode; fused_ffn, fused_dropout_ln (at rate > 0) and remat raise
-    # NotPortedError there; eval() mode ignores them all
+    # training-path switches of the JAX config, acting in train() mode only:
+    # fused_layer (encoder layers) and fused_decoder_layer (decoder layers)
+    # take the whole layer; on a layer's unfused path fused_ffn takes the
+    # feed-forward block and fused_dropout_ln (at rate > 0) each
+    # LN(x + dropout(y)) site; remat recomputes each layer in the backward
+    # (remat_policy None/"nothing": everything, "dots": all but the dense
+    # products); eval() mode ignores them all
     remat: bool = False
     remat_policy: Optional[str] = None
     fused_dropout_ln: bool = False
@@ -140,9 +152,20 @@ def _add_layer_norm(x: torch.Tensor, y: torch.Tensor, norm: nn.LayerNorm) -> tor
 
 
 def _drop_add_layer_norm(x: torch.Tensor, y: torch.Tensor, norm: nn.LayerNorm,
-                         rate: float, fast: bool, generator) -> torch.Tensor:
-    """``LN(x + dropout(y))`` on the training path: f32, the one-pass
-    variance clamped at 0, as the JAX ``DropAddLayerNorm``."""
+                         rate: float, fast: bool, generator,
+                         fused: bool = False) -> torch.Tensor:
+    """``LN(x + dropout(y))`` on the training path, as the JAX
+    ``DropAddLayerNorm``: f32 with the one-pass variance clamped at 0, or,
+    with ``fused`` at rate > 0, ``ops/fused_ln.py`` (the exact-rate mask drawn
+    inside from one seed, the two-pass variance)."""
+    if fused and rate > 0.0:
+        if not supports_fused_ln(x.shape[-1], x.dtype):
+            raise ValueError(
+                f"fused_dropout_ln=True, but the fused dropout+LayerNorm does not take "
+                f"d_model={x.shape[-1]}, {x.dtype} (ops/fused_ln.py::supports_fused_ln)")
+        return dropout_add_layernorm(
+            x.contiguous(), y.contiguous(), norm.weight.float(), norm.bias.float(),
+            _layer_seed(generator, x.device), float(rate))
     a = (x + drop_site(y, generator, rate, fast)).float()
     mu = a.mean(-1, keepdim=True)
     var = torch.clamp((a * a).mean(-1, keepdim=True) - mu * mu, min=0.0)
@@ -262,7 +285,25 @@ class SelfAttention(nn.Module):
 
 def _ffn(layer: nn.Module, x: torch.Tensor, dropout=None) -> torch.Tensor:
     """``W2·Drop(relu(W1·x))`` of an encoder or decoder layer; ``dropout``:
-    ``(rate, fast, generator)`` on the training path."""
+    ``(rate, fast, generator)`` on the training path, where ``fused_ffn`` sends
+    the whole block through ``ops/fused_ffn.py`` (JAX ``_ffn_block``): one
+    seed per step and layer, weights cast to the compute dtype, biases f32."""
+    cfg = layer.config
+    if dropout is not None and cfg.fused_ffn:
+        rate, _, generator = dropout
+        b, t, d = x.shape
+        cd, f32 = layer.dtype, torch.float32
+        if not supports_fused_ffn(d, cfg.dim_feedforward, cd):
+            raise ValueError(
+                f"fused_ffn=True, but the fused FFN does not take d_model={d}, "
+                f"dim_feedforward={cfg.dim_feedforward}, {cd} "
+                "(ops/fused_ffn.py::supports_fused_ffn)")
+        out = ffn_train(
+            x.reshape(b * t, d).to(cd),
+            layer.linear1.weight.to(cd), layer.linear1.bias.to(f32),
+            layer.linear2.weight.to(cd), layer.linear2.bias.to(f32),
+            _layer_seed(generator, x.device), float(rate))
+        return out.reshape(b, t, d)
     ff = torch.relu(_linear(x, layer.linear1.weight, layer.linear1.bias, layer.dtype))
     if dropout is not None:
         rate, fast, generator = dropout
@@ -270,13 +311,44 @@ def _ffn(layer: nn.Module, x: torch.Tensor, dropout=None) -> torch.Tensor:
     return _linear(ff, layer.linear2.weight, layer.linear2.bias, layer.dtype)
 
 
-def _refuse_unported_switches(cfg: "GrooveTransformerConfig") -> None:
-    """The unfused training path of a layer: the kernels it would need."""
-    if cfg.fused_dropout_ln and cfg.dropout > 0.0:
-        raise NotPortedError("fused_dropout_ln at dropout > 0: the fused "
-                             "dropout+LayerNorm kernel is not ported yet")
-    if cfg.fused_ffn:
-        raise NotPortedError("fused_ffn: the fused FFN kernel is not ported yet")
+REMAT_POLICIES = (None, "nothing", "dots")
+# what "dots" keeps from the forward: the dense products' outputs (JAX's
+# dots_with_no_batch_dims_saveable: not the attention's batched products)
+_DOT_OPS = ("mm", "addmm")
+
+
+def _remat(config: "GrooveTransformerConfig", generator, layer, *tensors) -> torch.Tensor:
+    """``layer(*tensors, generator)`` under ``torch.utils.checkpoint`` (JAX
+    ``_remat_wrap``): the layer's activations are dropped after the forward and
+    recomputed in the backward. checkpoint restores the global generators
+    only, and the dropout sites draw from ``generator``: so the recompute runs
+    from the state ``generator`` had before the forward, and puts the current
+    state back afterwards. The fused kernels then get the same seeds and draw
+    the same masks again."""
+    policy = config.remat_policy
+    if policy not in REMAT_POLICIES:
+        raise ValueError(f"unknown remat_policy: {policy!r}")
+    before = generator.get_state()
+    first = True
+
+    def run(*args):
+        nonlocal first
+        if first:
+            first = False
+            return layer(*args, generator)
+        now = generator.get_state()
+        generator.set_state(before)
+        try:
+            return layer(*args, generator)
+        finally:
+            generator.set_state(now)
+
+    kwargs = {}
+    if policy == "dots":
+        ops = [getattr(torch.ops.aten, name).default for name in _DOT_OPS]
+        kwargs["context_fn"] = functools.partial(
+            torch_checkpoint.create_selective_checkpoint_contexts, ops)
+    return torch_checkpoint.checkpoint(run, *tensors, use_reentrant=False, **kwargs)
 
 
 def _layer_seed(generator, device) -> torch.Tensor:
@@ -307,12 +379,10 @@ class EncoderLayer(nn.Module):
         cfg = self.config
         if cfg.fused_layer:
             return self._fused(x, generator)
-        _refuse_unported_switches(cfg)
-        rate, fast = cfg.dropout, cfg.fast_dropout
-        sa = self.self_attn(x, dropout=(rate, fast, generator))
-        x = _drop_add_layer_norm(x, sa, self.norm1, rate, fast, generator)
-        ff = _ffn(self, x, (rate, fast, generator))
-        return _drop_add_layer_norm(x, ff, self.norm2, rate, fast, generator)
+        drop = (cfg.dropout, cfg.fast_dropout, generator)
+        fused_ln = cfg.fused_dropout_ln
+        x = _drop_add_layer_norm(x, self.self_attn(x, dropout=drop), self.norm1, *drop, fused_ln)
+        return _drop_add_layer_norm(x, _ffn(self, x, drop), self.norm2, *drop, fused_ln)
 
     def _fused(self, x: torch.Tensor, generator) -> torch.Tensor:
         """The whole layer through ``ops/fused_layer.py`` (JAX
@@ -366,13 +436,12 @@ class DecoderLayer(nn.Module):
         cfg = self.config
         if cfg.fused_decoder_layer:
             return self._fused(y, memory, generator)
-        _refuse_unported_switches(cfg)
-        rate, fast = cfg.dropout, cfg.fast_dropout
-        drop = (rate, fast, generator)
-        y = _drop_add_layer_norm(y, self.self_attn(y, dropout=drop), self.norm1, *drop)
+        drop = (cfg.dropout, cfg.fast_dropout, generator)
+        fused_ln = cfg.fused_dropout_ln
+        y = _drop_add_layer_norm(y, self.self_attn(y, dropout=drop), self.norm1, *drop, fused_ln)
         ca = self.multihead_attn(y, dropout=drop, kv=memory)
-        y = _drop_add_layer_norm(y, ca, self.norm2, *drop)
-        return _drop_add_layer_norm(y, _ffn(self, y, drop), self.norm3, *drop)
+        y = _drop_add_layer_norm(y, ca, self.norm2, *drop, fused_ln)
+        return _drop_add_layer_norm(y, _ffn(self, y, drop), self.norm3, *drop, fused_ln)
 
     def _fused(self, y: torch.Tensor, memory: torch.Tensor, generator) -> torch.Tensor:
         """The whole layer through ``ops/fused_decoder_layer.py`` (JAX
@@ -452,18 +521,21 @@ class GrooveTransformerEncoder(nn.Module):
     def _encode(self, src: torch.Tensor, generator) -> torch.Tensor:
         """The encoder stack's f32 normalised output; checks what a training
         forward needs."""
-        cfg = self.config
-        if self.training:
-            if generator is None:
-                raise ValueError("a training forward needs a torch.Generator "
-                                 "for its dropout draws")
-            if cfg.remat:
-                raise NotPortedError("remat: layer rematerialisation is not ported yet")
+        if self.training and generator is None:
+            raise ValueError("a training forward needs a torch.Generator "
+                             "for its dropout draws")
         stack = self.Encoder["Encoder"]
         x = self._embed(self.InputLayerEncoder, src, generator)
         for layer in stack["layers"]:
-            x = layer(x, generator)
+            x = self._run_layer(layer, generator, x)
         return _final_norm(x, stack["norm"])
+
+    def _run_layer(self, layer, generator, *tensors) -> torch.Tensor:
+        """One encoder or decoder layer, rematerialised in ``train()`` mode
+        when the config says so."""
+        if self.training and self.config.remat:
+            return _remat(self.config, generator, layer, *tensors)
+        return layer(*tensors, generator)
 
     def forward(self, src: torch.Tensor, generator: Optional[torch.Generator] = None):
         """``generator`` (on ``src``'s device) feeds every dropout site in
@@ -501,7 +573,7 @@ class GrooveTransformer(GrooveTransformerEncoder):
         stack = self.Decoder["Decoder"]
         y = self._embed(self.InputLayerDecoder, tgt_in, generator)
         for layer in stack["layers"]:
-            y = layer(y, memory, generator)
+            y = self._run_layer(layer, generator, y, memory)
         return self.OutputLayer(_final_norm(y, stack["norm"]))  # heads in f32
 
 

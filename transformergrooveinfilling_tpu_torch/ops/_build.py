@@ -26,6 +26,8 @@ import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
+import torch
+
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = (
@@ -64,6 +66,38 @@ def load_library(name: str) -> ctypes.CDLL:
         if lib is None:
             lib = _libraries[name] = ctypes.CDLL(str(_build(name)))
         return lib
+
+
+class CountedKernel:
+    """One C entry point of a kernel library and its launch count: one more
+    per launch, and nowhere else. ``library`` returns the loaded library with
+    its ``argtypes`` declared; ``error_string`` names its entry point that
+    turns a ``cudaError`` into text."""
+
+    _count_lock = threading.Lock()
+
+    def __init__(self, library, entry: str, error_string: str):
+        self.library, self.entry, self.error_string = library, entry, error_string
+        self.launches = 0
+
+    @staticmethod
+    def pointers(tensors) -> list:
+        """The entry point's leading arguments: one device pointer a tensor."""
+        return [t.data_ptr() for t in tensors]
+
+    def launch(self, tensors, scalars, device) -> None:
+        """Call the entry point with the tensors' device pointers, then
+        ``scalars``, then ``device``'s current stream; raise on a refused
+        launch."""
+        lib = self.library()
+        with torch.cuda.device(device):
+            rc = getattr(lib, self.entry)(*self.pointers(tensors), *scalars,
+                                          torch.cuda.current_stream(device).cuda_stream)
+        if rc != 0:
+            raise RuntimeError(f"{self.entry} launch failed: "
+                               f"{getattr(lib, self.error_string)(rc).decode()} (cudaError {rc})")
+        with self._count_lock:
+            self.launches += 1
 
 
 def build_all(names) -> None:

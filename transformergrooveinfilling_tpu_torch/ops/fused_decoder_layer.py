@@ -45,7 +45,7 @@ import torch
 from . import _build
 from .dropout import quantized_threshold
 from .fused_layer import (
-    KERNEL_DTYPES, MAX_SMEM_BYTES, MAX_T, _count_lock, _ln, bwd_weights_smem_bytes,
+    KERNEL_DTYPES, MAX_SMEM_BYTES, MAX_T, _ln, bwd_weights_smem_bytes,
     dropout_mask, fwd_smem_bytes,
 )
 
@@ -176,31 +176,19 @@ def _kernels():
     return lib
 
 
-class _Kernel:
-    """One kernel of ``csrc/fused_decoder_layer.cu``: its C entry point and
-    its launch count (one per launch, nowhere else)."""
+class _Kernel(_build.CountedKernel):
+    """One kernel of ``csrc/fused_decoder_layer.cu``; its entry point reads
+    its pointers from one array and checks their number."""
 
-    def __init__(self, entry: str):
-        self.entry, self.launches = entry, 0
-
-    def launch(self, tensors, shape_args, device) -> None:
-        """``tensors`` in the order the entry point reads its pointers (it
-        checks their number)."""
-        lib = _kernels()
-        pointers = (ctypes.c_void_p * len(tensors))(*[t.data_ptr() for t in tensors])
-        with torch.cuda.device(device):
-            rc = getattr(lib, self.entry)(pointers, len(tensors), *shape_args,
-                                          torch.cuda.current_stream(device).cuda_stream)
-        if rc != 0:
-            raise RuntimeError(f"{self.entry} launch failed: "
-                               f"{lib.tgi_dec_error_string(rc).decode()} (code {rc})")
-        with _count_lock:
-            self.launches += 1
+    @staticmethod
+    def pointers(tensors) -> list:
+        return [(ctypes.c_void_p * len(tensors))(*[t.data_ptr() for t in tensors]), len(tensors)]
 
 
-KERNELS = {"fused_decoder_layer_fwd": _Kernel("tgi_dec_fwd"),
-           "fused_decoder_layer_bwd_rows": _Kernel("tgi_dec_bwd_rows"),
-           "fused_decoder_layer_bwd_weights": _Kernel("tgi_dec_bwd_weights")}
+KERNELS = {name: _Kernel(_kernels, entry, "tgi_dec_error_string")
+           for name, entry in (("fused_decoder_layer_fwd", "tgi_dec_fwd"),
+                               ("fused_decoder_layer_bwd_rows", "tgi_dec_bwd_rows"),
+                               ("fused_decoder_layer_bwd_weights", "tgi_dec_bwd_weights"))}
 
 
 def _check(args: dict, seed, n_heads: int, seq_len: int) -> None:

@@ -35,7 +35,6 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
-import threading
 
 import torch
 
@@ -58,7 +57,6 @@ SITE_ATTN, SITE_PROJ, SITE_FFN, SITE_OUT = 0, 1, 2, 3
 KINK_BAND = {torch.float32: 1e-5, torch.bfloat16: 2e-3}
 KINK_SHARE = 1e-5
 
-_count_lock = threading.Lock()
 _M0, _M1 = 0xD2511F53, 0xCD9E8D57
 _W0, _W1 = 0x9E3779B9, 0xBB67AE85
 _U32 = 0xFFFFFFFF
@@ -268,28 +266,10 @@ def _kernels():
     return lib
 
 
-class _Kernel:
-    """One kernel of ``csrc/fused_layer.cu``: its C entry point and its
-    launch count (one per launch, nowhere else)."""
-
-    def __init__(self, entry: str):
-        self.entry, self.launches = entry, 0
-
-    def launch(self, args, shape_args, device) -> None:
-        lib = _kernels()
-        with torch.cuda.device(device):
-            rc = getattr(lib, self.entry)(*[a.data_ptr() for a in args], *shape_args,
-                                          torch.cuda.current_stream(device).cuda_stream)
-        if rc != 0:
-            raise RuntimeError(f"{self.entry} launch failed: "
-                               f"{lib.tgi_layer_error_string(rc).decode()} (cudaError {rc})")
-        with _count_lock:
-            self.launches += 1
-
-
-KERNELS = {"fused_layer_fwd": _Kernel("tgi_layer_fwd"),
-           "fused_layer_bwd_rows": _Kernel("tgi_layer_bwd_rows"),
-           "fused_layer_bwd_weights": _Kernel("tgi_layer_bwd_weights")}
+KERNELS = {name: _build.CountedKernel(_kernels, entry, "tgi_layer_error_string")
+           for name, entry in (("fused_layer_fwd", "tgi_layer_fwd"),
+                               ("fused_layer_bwd_rows", "tgi_layer_bwd_rows"),
+                               ("fused_layer_bwd_weights", "tgi_layer_bwd_weights"))}
 
 
 def _check(x, weights, vectors, seed, n_heads: int, seq_len: int) -> None:

@@ -7,8 +7,8 @@ The reference's YAML surface (the hyperparameter keys of
 input vs 27 for the symbolic experiment, ``max_len=32``). The switches the JAX
 package resolves for the TPU are resolved here for one CUDA card (or the CPU):
 bf16 matmuls on CUDA, the whole-layer kernels (encoder and decoder) where
-their Hopper gates admit the shape, no fused FFN until it is ported, and remat
-by the same memory estimate.
+their Hopper gates admit the shape, the fused FFN kernel at ff >= 2048 where
+its gate does, and remat by the same memory estimate.
 ``yaml`` is imported only inside :func:`load_hyperparameters`.
 """
 
@@ -24,6 +24,7 @@ import torch
 from .. import require_device
 from ..models.transformer import GrooveTransformerConfig
 from ..ops.fused_decoder_layer import supports_fused_decoder_layer
+from ..ops.fused_ffn import supports_fused_ffn
 from ..ops.fused_layer import supports_fused_layer
 
 HVO_WIDTH = 27
@@ -93,11 +94,34 @@ def resolve_compute_dtype(bf16: Optional[bool], device="cuda") -> torch.dtype:
     return torch.bfloat16 if bf16 else torch.float32
 
 
-def resolve_fused_ffn(fused_ffn: Optional[bool]) -> bool:
-    """fused_ffn hyperparameter → switch. ``None`` = auto: off, until the
-    fused FFN kernel is ported; a forced True is kept, and a training forward
-    that takes it raises ``NotPortedError``."""
-    return bool(fused_ffn) if fused_ffn is not None else False
+def resolve_fused_ffn(fused_ffn: Optional[bool], dim_feedforward: int, d_model: int,
+                      compute_dtype=None, device="cuda") -> bool:
+    """fused_ffn hyperparameter → fused FFN kernel switch (the JAX package's
+    signature, and ``device``). ``None`` = auto: on for training on a CUDA
+    device at ff >= 2048 (the JAX package's threshold) where the kernels' own
+    Hopper gate (``ops/fused_ffn.py::supports_fused_ffn``) admits the width at
+    the compute dtype; off on the CPU. A forced True is kept; the model raises
+    if the gate rejects it. ``device="cuda"`` without CUDA raises.
+
+    The JAX package also asks that both weight matrices fit 4 MB of VMEM
+    (``fits_resident``). That is not carried over: no weight pair fits a
+    Hopper block's shared memory, the one kernel streams ff tiles at every
+    width, and the gate bounds d_model (<= 1,508), not the weights' bytes.
+
+    Auto-on is no measured gain yet. On an NVIDIA H100 80GB HBM3 at 700 W
+    (chip_smoke.py, phases 18 and 19; PERF.md), bf16: at d 256 / ff 2048, 8
+    layers, 654-867 seqs/s on the kernel path against 799-808 with
+    ``fused_ffn=False`` at batch 32, where the host's eager launches set the
+    step either way, and 11,481-11,555 against 12,583-15,808 at batch 512; at
+    d 1024 / ff 4096, 12 layers, batch 128 under remat, 694-699 against
+    1,040-1,105. The kernels run their products as f32 FMAs on CUDA cores;
+    cuBLAS' tensor cores are faster at both widths. Pass False for speed until
+    the kernels use ``wgmma``."""
+    if fused_ffn is not None:
+        return bool(fused_ffn)
+    device = require_device(device, "resolve_fused_ffn")
+    return (device.type == "cuda" and dim_feedforward >= 2048
+            and supports_fused_ffn(d_model, dim_feedforward, compute_dtype or torch.bfloat16))
 
 
 def resolve_fused_layer(fused_layer: Optional[bool], d_model: int, n_heads: int,
@@ -203,7 +227,8 @@ def derive_model_config(hp: HyperParams, compute_dtype=None, n_devices: int = 1,
         compute_dtype = resolve_compute_dtype(hp.bf16, device)
     n_dec = 0 if hp.encoder_only else hp.num_encoder_decoder_layers
     return GrooveTransformerConfig(
-        fused_ffn=resolve_fused_ffn(hp.fused_ffn),
+        fused_ffn=resolve_fused_ffn(hp.fused_ffn, hp.dim_feedforward, hp.d_model, compute_dtype,
+                                    device),
         fused_layer=resolve_fused_layer(hp.fused_layer, hp.d_model, hp.n_heads,
                                         hp.dim_feedforward, n_devices, compute_dtype),
         fused_decoder_layer=(

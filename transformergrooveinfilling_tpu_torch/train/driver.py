@@ -58,7 +58,8 @@ def initialize_model(params: dict, device="cuda") -> tuple[ModelBundle, Any, int
     only when asked for). ``num_decoder_layers`` > 0 builds the
     encoder-decoder family. ``bf16``, ``fused_layer``, ``fused_decoder_layer``,
     ``fused_ffn`` and ``remat`` in ``params["model"]`` are resolved for that
-    device (``train/config.py``; None or absent = auto)."""
+    device (``train/config.py``; None or absent = auto); ``fused_dropout_ln``
+    (off unless given) and ``remat_policy`` are taken as they are."""
     m = params["model"]
     t = params.get("training", {})
     device = require_device(device, "initialize_model")
@@ -70,7 +71,9 @@ def initialize_model(params: dict, device="cuda") -> tuple[ModelBundle, Any, int
     gate = (m["d_model"], m["n_heads"], m["dim_feedforward"], 1, compute_dtype,
             m.get("max_len", 32))
     config = GrooveTransformerConfig(
-        fused_ffn=resolve_fused_ffn(m.get("fused_ffn")),
+        fused_ffn=resolve_fused_ffn(m.get("fused_ffn"), m["dim_feedforward"], m["d_model"],
+                                    compute_dtype, device),
+        fused_dropout_ln=bool(m.get("fused_dropout_ln", False)),
         fused_layer=resolve_fused_layer(m.get("fused_layer"), *gate),
         fused_decoder_layer=(resolve_fused_decoder_layer(m.get("fused_decoder_layer"), *gate)
                              if n_dec > 0 else False),
@@ -80,6 +83,7 @@ def initialize_model(params: dict, device="cuda") -> tuple[ModelBundle, Any, int
             n_decoder_layers=n_dec,
             optimizer=m.get("optimizer", "sgd"), batch_size=t.get("batch_size", 16),
             max_len=m.get("max_len", 32), compute_dtype=compute_dtype, device=device),
+        remat_policy=m.get("remat_policy"),
         d_model=m["d_model"],
         n_heads=m["n_heads"],
         dim_feedforward=m["dim_feedforward"],
