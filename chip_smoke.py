@@ -96,36 +96,44 @@ then non-zero):
             decoder self-, 6 decoder cross-attentions), answers within 1e-4
             of the CPU plain path, one ``hvo_input`` request through kernels
             #6, #7 and #1, B = 1 latency beside the encoder-only server's.
-17. ffn and ln kernels  the fused FFN kernels (``fused_ffn.cu``: forward, row
-            backward, weight gradients) against ``ffn_reference`` and the fused
-            dropout + add + LayerNorm kernels (``fused_ln.cu``: forward,
-            backward) against ``dropout_add_layernorm_reference``, at rows
-            1,024 and 16,384 × d 256 × ff 2048 and rows 4,096 × d 1024 × ff
-            4096, f32 and bf16, rate 0 and the config's (0.16 / 0.1) with the
+17. ffn and ln kernels  the fused FFN kernels (``fused_ffn.cu``; bf16: the
+            two forward products, the two row-backward products, the weight
+            gradients and the reduce of their row splits on the tensor cores;
+            f32: the CUDA-core forward, row backward and weight gradients)
+            against ``ffn_reference`` and the fused dropout + add + LayerNorm
+            kernels (``fused_ln.cu``: forward, backward) against
+            ``dropout_add_layernorm_reference``, at rows 1,024 and 16,384 × d
+            256 × ff 2048, rows 4,096 × d 1024 × ff 4096 and a ragged 100 × 72
+            × 200, f32 and bf16, rate 0 and the config's (0.16 / 0.1) with the
             same masks (phase 8's bars); each mask's realised keep rate; reruns
-            bit-identical; each timed beside its plain version, the library
-            composition (``F.linear``, relu, ``F.dropout``, ``F.linear``;
-            ``F.layer_norm(x + F.dropout(y))``; autograd's backward) and its
-            bound.
+            bit-identical; each call timed beside its plain version, the
+            library composition (``F.linear``, relu, ``F.dropout``,
+            ``F.linear``; ``F.layer_norm(x + F.dropout(y))``; autograd's
+            backward) and its bound, each kernel's device time per launch.
 18. train wide FFN  configs/InfillingRandomLow_lm_training.yaml (d 256, ff
             2048, 8 layers, dropout 0.16; written here, held to the file by a
-            CPU test) through ``initialize_model`` + ``train_loop``: the auto
-            policy picks ``fused_ffn`` and not ``fused_layer``, every step
-            launches each FFN kernel 8 times, the loss falls; with
+            CPU test) through ``initialize_model`` + ``train_loop`` with
+            ``fused_ffn`` given (auto leaves it off) and
+            ``fused_layer`` off by the gate: every step
+            launches each bf16 FFN kernel 8 times (the reduce too: the weight
+            gradients split the rows in two), the loss falls; with
             ``fused_dropout_ln`` 16 + 16 LN launches a step; with ``remat`` 16
-            FFN forward launches a step, one step's gradients equal to the
-            un-rematerialised step's, peak memory with and without at batch
+            launches of each FFN forward kernel a step, one step's gradients
+            equal to the un-rematerialised step's, peak memory with and without at batch
             512; 3 f32 steps at dropout 0 against the plain-version path and
             ``fused_ffn=False``; a 1 + 1 layer encoder-decoder model at the
             same width (1 + 1 FFN and 2 + 3 LN launches a step); seqs/s at
-            batch 32 and 512 with ``fused_ffn`` on and off, with the LN kernels
-            and with remat, in turns; where a step's device time goes.
+            batch 32 and 512 with ``fused_ffn`` on and off, with the LN kernels,
+            and with remat with and without ``fused_ffn``, in turns; where a
+            step's device time goes.
 19. train GrooveXL  d 1024, 8 heads, ff 4096, 12 layers, dropout 0.1, batch
             128, bf16, remat on (scripts/bench_groovexl_ffn.py's; nothing cut
-            but the number of steps) through ``make_epoch_fn``: 24 FFN forward
-            launches a step under remat, the loss finite and falling, peak
-            memory with and without remat, seqs/s with ``fused_ffn`` on and
-            off.
+            but the number of steps) through ``make_epoch_fn``: 24 launches of
+            each FFN forward kernel a step under remat (no reduce: the weight
+            gradients' 256 tiles fill the card), the loss finite and falling,
+            peak memory with and without remat, seqs/s with ``fused_ffn`` on
+            (given: auto leaves it off) and off under remat and without, two
+            epochs a turn, and their ratio in each turn.
 
 Then one line ``{"kernels": [...]}``, the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``. Without CUDA it exits non-zero and prints
@@ -168,13 +176,15 @@ from transformergrooveinfilling_tpu_torch.ops import fused_ffn as ffn
 from transformergrooveinfilling_tpu_torch.ops import fused_layer as fl
 from transformergrooveinfilling_tpu_torch.ops import fused_ln as ln
 from transformergrooveinfilling_tpu_torch.ops import mso
-from transformergrooveinfilling_tpu_torch.ops.dropout import quantized_keep_rate
+from transformergrooveinfilling_tpu_torch.ops.dropout import (
+    quantized_keep_rate, quantized_threshold,
+)
 from transformergrooveinfilling_tpu_torch.train import (
     initialize_model, make_epoch_fn, make_train_step, train_loop,
 )
 from transformergrooveinfilling_tpu_torch.train.loop import fetch
 from transformergrooveinfilling_tpu_torch.train.config import (
-    embedding_size_src_for, resolve_remat,
+    embedding_size_src_for, resolve_fused_ffn, resolve_remat,
 )
 
 FLAGSHIP = GrooveTransformerConfig(  # configs/InfillingRandom_training.yaml
@@ -227,9 +237,21 @@ DEC_TPU_KERNELS = {  # the Pallas kernel bodies each CUDA kernel stands in for
 }
 FFN_SOURCE = "transformergrooveinfilling_tpu_torch/csrc/fused_ffn.cu"
 FFN_TPU_KERNELS = {  # the Pallas kernel bodies each CUDA kernel stands in for
-    "fused_ffn_fwd": "transformergrooveinfilling_tpu/ops/fused_ffn.py:138",  # and :63
-    "fused_ffn_bwd_rows": "transformergrooveinfilling_tpu/ops/fused_ffn.py:83",
-    "fused_ffn_bwd_weights": "transformergrooveinfilling_tpu/ops/fused_ffn.py:83",
+    **{k: "transformergrooveinfilling_tpu/ops/fused_ffn.py:138"  # and :63
+       for k in ("fused_ffn_fwd_h", "fused_ffn_fwd_out", "fused_ffn_fwd_f32")},
+    **{k: "transformergrooveinfilling_tpu/ops/fused_ffn.py:83"
+       for k in ("fused_ffn_bwd_dh", "fused_ffn_bwd_dx", "fused_ffn_bwd_weights",
+                 "fused_ffn_reduce", "fused_ffn_bwd_rows_f32", "fused_ffn_bwd_weights_f32")},
+}
+# what each FFN launch type is called in a profile (the bf16 products are one
+# template, told apart by their epilogues; the f32 weight launch ends in the
+# reduce)
+FFN_DEVICE_NAMES = {
+    "fused_ffn_fwd_h": ("EpiHidden",), "fused_ffn_fwd_out": ("EpiOut",),
+    "fused_ffn_bwd_dh": ("EpiDh",), "fused_ffn_bwd_dx": ("EpiDx",),
+    "fused_ffn_bwd_weights": ("EpiWgrad",), "fused_ffn_reduce": ("ffn_reduce",),
+    "fused_ffn_fwd_f32": ("ffn_fwd",), "fused_ffn_bwd_rows_f32": ("ffn_bwd_rows",),
+    "fused_ffn_bwd_weights_f32": ("ffn_bwd_weights", "ffn_reduce"),
 }
 LN_SOURCE = "transformergrooveinfilling_tpu_torch/csrc/fused_ln.cu"
 LN_TPU_KERNELS = {"fused_ln_fwd": "transformergrooveinfilling_tpu/ops/fused_ln.py:54",
@@ -305,8 +327,11 @@ def device_us(fn, n: int = 50) -> dict:
         name = e.name()
         if (e.device_type() == DeviceType.CUDA and name != "Activity Buffer Request"
                 and name != "chip_smoke_window" and first <= e.start_ns() <= last):
-            us, count = per_kernel.get(name[:70], (0.0, 0.0))
-            per_kernel[name[:70]] = (us + e.duration_ns() / 1e3 / n, count + 1 / n)
+            # short names that keep a template's arguments (the FFN's products
+            # differ in their epilogue, the last one)
+            key = name.removeprefix("void ").replace("(anonymous namespace)::", "")[:80]
+            us, count = per_kernel.get(key, (0.0, 0.0))
+            per_kernel[key] = (us + e.duration_ns() / 1e3 / n, count + 1 / n)
     return per_kernel
 
 
@@ -472,7 +497,7 @@ def phase_build() -> None:
               "dec_bwd_weights": fl.bwd_weights_smem_bytes(t, d, h)},
           "limit": fl.MAX_SMEM_BYTES})
     emit({"phase": "build", "kernel": "fused_ffn, fused_ln", "dynamic_smem_bytes": {
-        f"d {d}": {"ffn_fwd, ffn_bwd_rows": ffn.rows_smem_bytes(d), "ln_fwd": 32 * d,
+        f"d {d}": {"ffn_fwd, ffn_bwd_rows (f32)": ffn.rows_smem_bytes(d), "ln_fwd": 32 * d,
                    "ln_bwd": ln.bwd_smem_bytes(d)} for d in (256, 1024)},
         "limit": fl.MAX_SMEM_BYTES})
 
@@ -954,7 +979,9 @@ def model_params(hp: dict, **model):
 
 
 flagship_params = functools.partial(model_params, FLAGSHIP_HP)
-lm_params = functools.partial(model_params, LM_HP)
+# the wide config's runs ask for the FFN kernels: auto leaves them off at its
+# batches, where they were measured no faster (phase 18 checks it)
+lm_params = functools.partial(model_params, LM_HP, fused_ffn=True)
 
 
 class Loops:
@@ -1061,7 +1088,7 @@ def fused_layers_as(role: str, kernel_h: list, kinks: list):
 def phase_train(dev, rng) -> dict:
     # 1,024 loops for the epochs and the batch-32 rates, 2,048 (4 steps) at
     # batch 512; the twin, ~10x slower at batch 32, takes a quarter
-    data, held, twin_data, big = Loops(1024, 1), Loops(256, 2), Loops(512, 1), Loops(2048, 1)
+    data, held, twin_data, big = Loops(1024, 1), Loops(256, 2), Loops(256, 1), Loops(2048, 1)
     batch, epochs = FLAGSHIP_HP["batch_size"], 3
     steps = epochs * (len(data.processed_inputs) // batch)
     bundle, _, _ = initialize_model(flagship_params(), dev)
@@ -1719,6 +1746,8 @@ def phase_serve_encdec(dev, rng, enc_srv) -> dict:
 # InfillingRandomLow_lm_training.yaml at batch 32 and 512, then GrooveXL
 # (scripts/bench_groovexl_ffn.py) at batch 128
 FFN_SHAPES = ((1024, 256, 2048, 0.16), (16384, 256, 2048, 0.16), (4096, 1024, 4096, 0.1))
+# widths that are no multiples of the tiles, rows of no whole tile
+RAGGED_FFN_SHAPE = (100, 72, 200, 0.16)
 FFN_GRADS = ("dx", "dw1", "db1", "dw2", "db2")
 LN_GRADS = ("dx", "dy", "dscale", "dbias")
 NEW_KERNELS = {**ffn.KERNELS, **ln.KERNELS}
@@ -1729,24 +1758,50 @@ NEW_KERNELS = {**ffn.KERNELS, **ln.KERNELS}
 XL_HP = {
     "d_model": 1024, "n_heads": 8, "dim_feedforward": 4096, "dropout": 0.1,
     "num_encoder_layers": 12, "batch_size": 128, "remat": True, "learning_rate": 0.003,
-    "hit_loss_penalty": 0.73, "optimizer": "sgd",
+    "hit_loss_penalty": 0.73, "optimizer": "sgd", "fused_ffn": True,  # auto leaves it off
 }
 
 
 def ffn_bounds(rows, d, ff, dtype) -> dict:
-    """Bounds of the three FFN kernels: each product of 2·rows·d·ff FLOP once
-    (two forward, two in the row backward, two weight gradients)."""
+    """Bounds of each FFN launch type: a product of 2·rows·d·ff FLOP, its
+    inputs read once and its outputs written once (storage dtype s; biases,
+    seed, gradients and the weight partials f32)."""
     s = 4 if dtype == "float32" else 2
-    flops = 4 * rows * d * ff
+    flops = 2 * rows * d * ff
     total = 2 * d * ff + ff + d
+    splits = (ffn.wgrad_splits(rows, d, ff, torch.cuda.get_device_properties(0)
+                               .multi_processor_count)[0] if dtype == "bfloat16" else 1)
+    act, hid, wts = rows * d * s, rows * ff * s, d * ff * s
     return {
-        "fused_ffn_fwd": bound((2 * rows * d + rows * ff + 2 * d * ff) * s + (ff + d) * 4 + 4,
-                               flops, dtype),  # x, out, h, weights, biases, seed
-        "fused_ffn_bwd_rows": bound((2 * rows * d + 2 * rows * ff + 2 * d * ff) * s,
-                                    flops, dtype),  # dy, dx, h, dh, weights
-        "fused_ffn_bwd_weights": bound((2 * rows * d + 2 * rows * ff) * s + total * 4,
-                                       flops, dtype),  # dy, x, h, dh; f32 gradients
+        "fused_ffn_fwd_h": bound(act + wts + ff * 4 + 4 + hid, flops, dtype),  # x, W1, b1 → h
+        "fused_ffn_fwd_out": bound(hid + wts + d * 4 + act, flops, dtype),  # h, W2, b2 → out
+        "fused_ffn_bwd_dh": bound(act + wts + 2 * hid, flops, dtype),  # dy, W2, h → dh
+        "fused_ffn_bwd_dx": bound(hid + wts + act, flops, dtype),  # dh, W1 → dx
+        "fused_ffn_bwd_weights": bound(2 * act + 2 * hid + splits * total * 4,
+                                       2 * flops + rows * (ff + d), dtype),
+        "fused_ffn_reduce": bound((splits + 1) * total * 4, (splits - 1) * total, "float32"),
+        "fused_ffn_fwd_f32": bound(2 * act + hid + 2 * wts + (ff + d) * 4 + 4, 2 * flops, dtype),
+        "fused_ffn_bwd_rows_f32": bound(2 * act + 2 * hid + 2 * wts, 2 * flops, dtype),
+        "fused_ffn_bwd_weights_f32": bound(2 * act + 2 * hid + total * 4,
+                                           2 * flops + rows * (ff + d), dtype),
     }
+
+
+def ffn_launches(rows, d, ff, dtype, sites: int, forward_passes: int = 1) -> dict:
+    """FFN launches of ``sites`` forward and backward passes at ``rows``, each
+    forward run ``forward_passes`` times (2 under remat): bf16 two forward
+    products, two row-backward products, one weight launch and, when it splits
+    the rows, one reduce; f32 its three kernels."""
+    if dtype == torch.bfloat16:
+        splits = ffn.wgrad_splits(rows, d, ff,
+                                  torch.cuda.get_device_properties(0).multi_processor_count)[0]
+        per = {"fused_ffn_fwd_h": forward_passes, "fused_ffn_fwd_out": forward_passes,
+               "fused_ffn_bwd_dh": 1, "fused_ffn_bwd_dx": 1, "fused_ffn_bwd_weights": 1,
+               "fused_ffn_reduce": int(splits > 1)}
+    else:
+        per = {"fused_ffn_fwd_f32": forward_passes, "fused_ffn_bwd_rows_f32": 1,
+               "fused_ffn_bwd_weights_f32": 1}
+    return {k: sites * per.get(k, 0) for k in ffn.KERNELS}
 
 
 def ln_bounds(rows, d, dtype) -> dict:
@@ -1800,6 +1855,55 @@ def held_to(errs, name, got, want, dtype, what) -> None:
     check(errs[name] <= bar, f"{name} at {what}: {errs[name]} > {bar}")
 
 
+def ffn_tile_shapes(dev, args, dy, seed, rate) -> dict:
+    """Device µs per launch of each bf16 product with each of the two tile
+    shapes it is built for (``ffn.PRODUCT_TILES``; the weight gradients with
+    their row splits for it), launched directly with preallocated outputs,
+    and the shapes the wrappers pick. Every shape's results are held to the
+    wrappers' within 2e-2 of their maxima (phase 17 holds the wrappers to the
+    plain version)."""
+    x, w1, b1, w2, b2 = args
+    (rows, d), ff = x.shape, w1.shape[0]
+    want_out, want_h = ffn.ffn_forward(*args, seed, rate)
+    want_dx, *want_grads = ffn.ffn_backward(dy, x, want_h, w1, w2, rate)
+    want = {"h": want_h, "out": want_out, "dx": want_dx,
+            "weights": torch.cat([g.flatten() for g in want_grads])}  # dW1 | db1 | dW2 | db2
+    out, h, dh, dx = (torch.empty_like(t) for t in (x, want_h, want_h, x))
+    thresh, k = quantized_threshold(rate), ffn.KERNELS
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    total = 2 * d * ff + ff + d
+
+    def launches_with(cfgs, part):
+        splits, per = ffn.wgrad_splits(rows, d, ff, sms, cfgs[4])
+        return lambda: (
+            k["fused_ffn_fwd_h"].launch((x, w1, b1, seed, h), (rows, d, ff, thresh, cfgs[0]), dev),
+            k["fused_ffn_fwd_out"].launch((h, w2, b2, out), (rows, d, ff, cfgs[1]), dev),
+            k["fused_ffn_bwd_dh"].launch((dy, w2, h, dh), (rows, d, ff, thresh, cfgs[2]), dev),
+            k["fused_ffn_bwd_dx"].launch((dh, w1, dx), (rows, d, ff, cfgs[3]), dev),
+            k["fused_ffn_bwd_weights"].launch((dy, x, h, dh, part),
+                                              (rows, d, ff, splits, per, cfgs[4]), dev))
+
+    names = ("fused_ffn_fwd_h", "fused_ffn_fwd_out", "fused_ffn_bwd_dh", "fused_ffn_bwd_dx",
+             "fused_ffn_bwd_weights")
+    result = {name: {} for name in names}
+    for i in range(2):
+        cfgs = tuple(shapes[i] for shapes in ffn.PRODUCT_TILES)
+        part = torch.empty((ffn.wgrad_splits(rows, d, ff, sms, cfgs[4])[0], total), device=dev)
+        per = device_us(launches_with(cfgs, part), n=5)
+        # the partials in the wrappers' order: dW1 | dW2 | db1 | db2 → dW1 | db1 | dW2 | db2
+        dw1, dw2, db1, db2 = part.sum(0).split([d * ff, d * ff, ff, d])
+        got = {"h": h, "out": out, "dx": dx, "weights": torch.cat([dw1, db1, dw2, db2])}
+        for key, ref in want.items():
+            err, top = max_err(got[key], ref.float()), float(ref.float().abs().max())
+            check(err <= 2e-2 * top, f"{key} with tiles {cfgs} at rows {rows} d {d} ff {ff} "
+                                     f"rate {rate}: {err} > 2e-2 * {top}")
+        for name, cfg in zip(names, cfgs):
+            result[name]["x".join(map(str, ffn.TILES[cfg]))] = sum(
+                us / c for kn, (us, c) in per.items() if FFN_DEVICE_NAMES[name][0] in kn)
+    result["picked"] = dict(zip(names, ffn.tile_configs(rows, d, ff, sms)))
+    return result
+
+
 def phase_ffn_ln(dev, rng) -> dict:
     """The three FFN kernels against ``ffn_reference`` and the two LN kernels
     against ``dropout_add_layernorm_reference`` on the card, with the same
@@ -1807,7 +1911,7 @@ def phase_ffn_ln(dev, rng) -> dict:
     rounding of 0 may fall on either side of the ReLU's kink: the plain
     version takes the kernel's side at such units only (``kink_flips``)."""
     checks, worst = [], {"ffn": 0.0, "ln": 0.0}
-    for rows, d, ff, cfg_rate in FFN_SHAPES:
+    for rows, d, ff, cfg_rate in (*FFN_SHAPES, RAGGED_FFN_SHAPE):
         for dtype in (torch.float32, torch.bfloat16):
             args, dy, y, scale, bias = ffn_case(dev, rng, rows, d, ff, dtype)
             x, w1, _, w2, _ = args
@@ -1835,11 +1939,13 @@ def phase_ffn_ln(dev, rng) -> dict:
                 held_to(errs, "h", h, want_h, dtype, what)
                 for name, g, leaf in zip(FFN_GRADS, grads, leaves):
                     held_to(errs, name, g, leaf.grad, dtype, what)
-                # the share of the ReLU's live units that the mask kept
+                # the share of the ReLU's live units that the mask kept: within
+                # 2e-3 of the quantised rate, or 5 standard deviations where
+                # the units are too few for that (the ragged shape)
                 live = int((h > 0).sum())
                 active = live if rate == 0.0 else active
-                kept = live / active
-                check(abs(kept - quantized_keep_rate(rate)) < 2e-3,
+                kept, p_keep = live / active, quantized_keep_rate(rate)
+                check(abs(kept - p_keep) < max(2e-3, 5 * (p_keep * (1 - p_keep) / active) ** 0.5),
                       f"FFN mask kept {kept} at {what}")
                 if dtype == torch.float32:
                     worst["ffn"] = max(worst["ffn"], errs["out"], errs["h"], errs["dx"])
@@ -1940,11 +2046,19 @@ def phase_ffn_ln(dev, rng) -> dict:
             dev_k = device_us(lambda: [fns[key][0]() for key in fns], n=3)
             row["kernel_device_us"] = {k: us / c for k, (us, c) in dev_k.items()}
             row["kernel_device_launches"] = {k: c for k, (_, c) in dev_k.items()}
+            for key in ("ffn_fwd", "ffn_bwd"):
+                row[f"{key}_over_library"] = (float(np.mean(row[f"{key}_kernel_ms"]))
+                                              / float(np.mean(row[f"{key}_library_ms"])))
+            if dtype == torch.bfloat16:
+                row["tile_shapes_device_us"] = ffn_tile_shapes(dev, args, dy, seed, rate)
             timings.append(row)
             del leaves, ref_out, lib, lib_out, ln_leaves, ln_ref, ln_lib, ln_lib_out, fns
     emit({"phase": "ffn_ln_kernels", "checks": checks,
           "bars": {"float32": "1e-4 abs (out, h); 1e-4 * max|grad| (grads)",
-                   "bfloat16": "2e-2 * max|ref|"},
+                   "bfloat16": "2e-2 * max|ref|",
+                   "kept_share": "max(2e-3, 5 sigma) of the quantised keep rate, sigma "
+                                 "from the ReLU's live units (5 sigma only at the ragged "
+                                 "shape's ~10,000)"},
           "library": "F.linear, relu, F.dropout, F.linear and autograd's backward; "
                      "F.layer_norm(x + F.dropout(y)) and autograd's backward",
           "timings": timings})
@@ -1996,7 +2110,7 @@ def phase_train_wide(dev, rng) -> dict:
     their unfused path with the FFN kernels in it; then with the LN kernels,
     then rematerialised, then a 1 + 1 layer encoder-decoder model."""
     data, held = Loops(1024, 41), Loops(256, 42)
-    batch, epochs, n_layers = LM_HP["batch_size"], 3, LM_HP["num_encoder_decoder_layers"]
+    batch, epochs, n_layers = LM_HP["batch_size"], 2, LM_HP["num_encoder_decoder_layers"]
     penalty = LM_HP["hit_loss_penalty"]
     per_epoch = len(data.processed_inputs) // batch
     steps = epochs * per_epoch
@@ -2004,14 +2118,18 @@ def phase_train_wide(dev, rng) -> dict:
     cfg = bundle.config
     check(cfg.fused_ffn and not cfg.fused_layer and not cfg.remat and not cfg.fused_dropout_ln
           and cfg.compute_dtype == torch.bfloat16,
-          f"auto policy did not pick the FFN kernel alone in bf16: {cfg}")
+          f"the wide config did not take the FFN kernels alone in bf16: {cfg}")
+    check(not resolve_fused_ffn(None, LM_HP["dim_feedforward"], LM_HP["d_model"], torch.bfloat16,
+                                dev), "fused_ffn's auto is on at the lm config")
     reset_launches()  # the main path's run starts here
     t0 = time.perf_counter()
     metrics = run_epochs(bundle, data, held, epochs, batch, penalty=penalty)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     counts = launches(NEW_KERNELS)  # ... and ends here
-    want = {**{k: steps * n_layers for k in ffn.KERNELS}, **{k: 0 for k in ln.KERNELS}}
+    lm_rows, d, ff = batch * 32, LM_HP["d_model"], LM_HP["dim_feedforward"]
+    want = {**ffn_launches(lm_rows, d, ff, torch.bfloat16, steps * n_layers),
+            **{k: 0 for k in ln.KERNELS}}
     check(counts == want and not any(launches(LAYER_KERNELS).values()),
           f"wide-FFN training launched {counts}, expected {want} ({steps} steps x {n_layers} "
           f"layers), and the layer kernels {launches(LAYER_KERNELS)}")
@@ -2025,7 +2143,7 @@ def phase_train_wide(dev, rng) -> dict:
     reset_launches()  # the LN kernels' main path starts here
     ln_losses = [m["loss"] for m in run_epochs(ln_bundle, data, held, 2, batch, penalty=penalty)]
     ln_counts = launches(NEW_KERNELS)  # ... and ends here
-    want = {**{k: 2 * per_epoch * n_layers for k in ffn.KERNELS},
+    want = {**ffn_launches(lm_rows, d, ff, torch.bfloat16, 2 * per_epoch * n_layers),
             **{k: 2 * per_epoch * 2 * n_layers for k in ln.KERNELS}}
     check(ln_counts == want, f"with fused_dropout_ln: launched {ln_counts}, expected {want}")
     check(all(np.isfinite(ln_losses)) and ln_losses[-1] < ln_losses[0],
@@ -2037,7 +2155,7 @@ def phase_train_wide(dev, rng) -> dict:
     remat_losses = [m["loss"] for m in
                     run_epochs(remat_bundle, data, held, 2, batch, penalty=penalty)]
     remat_counts = launches(ffn.KERNELS)
-    want = {k: 2 * per_epoch * n_layers * (2 if k.endswith("fwd") else 1) for k in ffn.KERNELS}
+    want = ffn_launches(lm_rows, d, ff, torch.bfloat16, 2 * per_epoch * n_layers, 2)
     check(remat_counts == want, f"with remat: launched {remat_counts}, expected {want}")
     check(all(np.isfinite(remat_losses)) and remat_losses[-1] < remat_losses[0],
           f"with remat the loss did not fall: {remat_losses}")
@@ -2089,6 +2207,7 @@ def phase_train_wide(dev, rng) -> dict:
     kernel_h, kinks, three = [], [], {}
     x = torch.from_numpy(data.processed_inputs[:96]).to(dev)
     y = torch.from_numpy(data.processed_outputs[:96]).to(dev)
+    reset_launches()  # the f32 route's path: its kernels launch here only
     for name in ("kernel", "plain", "unfused"):
         b, _, _ = initialize_model(
             lm_params(bf16=False, dropout=0.0, fused_ffn=name != "unfused"), dev)
@@ -2097,6 +2216,12 @@ def phase_train_wide(dev, rng) -> dict:
             epoch_fn(b.state, x, y, torch.Generator(dev).manual_seed(0))
         check(b.state.step == 3, f"{name}: {b.state.step} steps, expected 3")
         three[name] = {k: v.detach().cpu() for k, v in b.model.state_dict().items()}
+    f32_counts = launches(ffn.F32_KERNELS)  # the forward twice a call: ffn_as records h
+    check(f32_counts == {k: v for k, v in ffn_launches(32 * 32, d, ff, torch.float32,
+                                                       3 * n_layers, 2).items()
+                         if k in ffn.F32_KERNELS}
+          and not any(launches(ffn.BF16_KERNELS).values()),
+          f"3 f32 steps launched {launches(ffn.KERNELS)}")
     param_err = {other: max(max_err(three["kernel"][k], three[other][k]) for k in three["kernel"])
                  for other in ("plain", "unfused")}
     check(param_err["plain"] <= 1e-4 and param_err["unfused"] <= UNFUSED_BAR,
@@ -2114,16 +2239,17 @@ def phase_train_wide(dev, rng) -> dict:
                      run_epochs(encdec, small, held, 3, batch, encoder_only=0, penalty=penalty)]
     encdec_counts = launches(NEW_KERNELS)
     encdec_steps = 3 * (128 // batch)
-    want = {**{k: encdec_steps * 2 for k in ffn.KERNELS},
+    want = {**ffn_launches(lm_rows, d, ff, torch.bfloat16, encdec_steps * 2),
             **{k: encdec_steps * 5 for k in ln.KERNELS}}
     check(encdec_counts == want, f"1 + 1 model launched {encdec_counts}, expected {want}")
     check(all(np.isfinite(encdec_losses)) and encdec_losses[-1] < encdec_losses[0],
           f"1 + 1 model's loss did not fall: {encdec_losses}")
 
     # throughput: fused_ffn on and off, then with the LN kernels, then with
-    # remat, in turns; 16 steps at batch 32, 4 at batch 512
+    # remat on and off, in turns; 16 steps at batch 32, 4 at batch 512
     models = {"fused_ffn": bundle, "unfused": initialize_model(lm_params(fused_ffn=False), dev)[0],
-              "fused_ffn_ln": ln_bundle, "fused_ffn_remat": remat_bundle}
+              "fused_ffn_ln": ln_bundle, "fused_ffn_remat": remat_bundle,
+              "unfused_remat": initialize_model(lm_params(fused_ffn=False, remat=True), dev)[0]}
     throughput, breakdown = {}, {}
     for b in THROUGHPUT_BATCHES:
         corpus, warm = Loops(512 if b == 32 else 2048, 45), Loops(2 * b, 46)
@@ -2141,11 +2267,13 @@ def phase_train_wide(dev, rng) -> dict:
                     "one_step_gradients_vs_unrematerialised": remat_err,
                     "step_memory_batch_512": peak},
           "three_f32_steps_param_err": param_err, "three_f32_steps_kink_flips": kinks,
+          "three_f32_steps_launches": f32_counts,
           "unfused_bar": UNFUSED_BAR,
           "encoder_decoder_1_plus_1": {"steps": encdec_steps, "launches": encdec_counts,
                                        "losses": encdec_losses},
           "seqs_per_s": throughput, "step_breakdown": breakdown})
-    return {"launches": counts, "ln_launches": ln_counts, "encdec_launches": encdec_counts}
+    return {"launches": counts, "ln_launches": ln_counts, "encdec_launches": encdec_counts,
+            "f32_launches": f32_counts}
 
 
 def phase_train_groovexl(dev, rng) -> dict:
@@ -2155,7 +2283,8 @@ def phase_train_groovexl(dev, rng) -> dict:
     hp = XL_HP
     n_layers, batch = hp["num_encoder_layers"], hp["batch_size"]
     params = {"model": {k: hp[k] for k in ("d_model", "n_heads", "dim_feedforward", "dropout",
-                                           "num_encoder_layers", "remat", "optimizer")},
+                                           "num_encoder_layers", "remat", "optimizer",
+                                           "fused_ffn")},
               "training": {"learning_rate": hp["learning_rate"], "batch_size": batch, "seed": 0}}
     t0 = time.perf_counter()
     bundle, _, _ = initialize_model(params, dev)
@@ -2179,7 +2308,9 @@ def phase_train_groovexl(dev, rng) -> dict:
     metrics = [fetch(epoch_fn(bundle.state, x, y, gen)) for _ in range(epochs)]
     seconds = time.perf_counter() - t0
     counts = launches(NEW_KERNELS)  # ... and ends here
-    want = {**{k: steps * n_layers * (2 if k.endswith("fwd") else 1) for k in ffn.KERNELS},
+    xl_rows = batch * 32
+    want = {**ffn_launches(xl_rows, hp["d_model"], hp["dim_feedforward"], torch.bfloat16,
+                           steps * n_layers, 2),
             **{k: 0 for k in ln.KERNELS}}
     check(counts == want, f"GrooveXL launched {counts}, expected {want} ({steps} steps x "
                           f"{n_layers} layers, the forward twice under remat)")
@@ -2187,11 +2318,12 @@ def phase_train_groovexl(dev, rng) -> dict:
     check(all(np.isfinite(v) for m in metrics for v in m.values()), f"non-finite: {metrics}")
     check(losses[-1] < losses[0], f"loss did not fall: {losses}")
 
-    def epoch_rate() -> float:
+    def epoch_rate(epochs: int = 2) -> float:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        fetch(epoch_fn(bundle.state, x, y, gen))
-        return n / (time.perf_counter() - t0)
+        for _ in range(epochs):
+            fetch(epoch_fn(bundle.state, x, y, gen))
+        return epochs * n / (time.perf_counter() - t0)
 
     def step_peak() -> dict:
         torch.cuda.synchronize()
@@ -2206,7 +2338,8 @@ def phase_train_groovexl(dev, rng) -> dict:
     before = launches(ffn.KERNELS)
     peak["plain"] = step_peak()
     no_remat_counts = {k: v - before[k] for k, v in launches(ffn.KERNELS).items()}
-    check(all(v == 4 * n_layers for v in no_remat_counts.values()),
+    check(no_remat_counts == ffn_launches(xl_rows, hp["d_model"], hp["dim_feedforward"],
+                                          torch.bfloat16, 4 * n_layers),
           f"GrooveXL without remat launched {no_remat_counts} in 4 steps")
     check(peak["remat"]["over_resident_bytes"] < peak["plain"]["over_resident_bytes"],
           f"remat did not lower GrooveXL's peak memory: {peak}")
@@ -2226,6 +2359,10 @@ def phase_train_groovexl(dev, rng) -> dict:
           "epochs": epochs, "steps": steps, "seconds": seconds, "launches": counts,
           "losses": losses, "last_metrics": metrics[-1], "step_memory": peak,
           "seqs_per_s": rates,
+          # each turn's pair of paths ran back to back
+          "fused_over_unfused": {
+              "remat": [a / b for a, b in zip(rates["fused_ffn_remat"], rates["unfused_remat"])],
+              "plain": [a / b for a, b in zip(rates["fused_ffn"], rates["unfused"])]},
           "step_breakdown": {"step_device_ms": total / 1e3,
                              "launches_per_step": sum(c for _, c in per_kernel.values()),
                              "top_kernels_us_per_step": {k: us for k, (us, _) in top}}})
@@ -2361,49 +2498,56 @@ def main() -> int:
         "at": f"M 1 loop, 288 cells, length {synth1['length']} (120 bpm), float32, stream "
               "time; library: one index_add_ over indices and sources prepared outside the "
               "timed call"})
-    small = next(t for t in ffn_ln["timings"] if t["rows"] == 1024 and t["dtype"] == "bfloat16")
-    xl_row = next(t for t in ffn_ln["timings"] if t["d"] == 1024 and t["dtype"] == "bfloat16")
+    def ffn_row(rows, d, dtype):
+        return next(t for t in ffn_ln["timings"]
+                    if t["rows"] == rows and t["d"] == d and t["dtype"] == dtype)
 
     def device_ms(row, *entries):
         """Device ms per launch of the kernels whose names hold ``entries``."""
         return sum(us for k, us in row["kernel_device_us"].items()
                    if any(e in k for e in entries)) / 1000.0
 
-    for kname, entries in (("fused_ffn_fwd", ("ffn_fwd",)),
-                           ("fused_ffn_bwd_rows", ("ffn_bwd_rows",)),
-                           ("fused_ffn_bwd_weights", ("ffn_bwd_weights", "ffn_reduce")),
-                           ("fused_ln_fwd", ("ln_fwd",)), ("fused_ln_bwd", ("ln_bwd",))):
-        is_ffn = kname.startswith("fused_ffn")
-        key = ("ffn_" if is_ffn else "ln_") + ("fwd" if kname.endswith("fwd") else "bwd")
+    def at_shape(row, kname, entries, key):
+        return {"ms": device_ms(row, *entries),
+                "stream_ms_of_the_call": float(np.mean(row[f"{key}_kernel_ms"])),
+                "plain_ms": float(np.mean(row[f"{key}_plain_ms"])),
+                "bound_ms": row["bounds"][kname]["bound_ms"],
+                "bound_by": row["bounds"][kname]["bound_by"],
+                "library_ms": float(np.mean(row[f"{key}_library_ms"]))}
+
+    names = {**{k: (FFN_DEVICE_NAMES[k], "ffn_") for k in ffn.KERNELS},
+             "fused_ln_fwd": (("ln_fwd",), "ln_"), "fused_ln_bwd": (("ln_bwd",), "ln_")}
+    for kname, (entries, prefix) in names.items():
+        is_ffn, is_f32 = kname.startswith("fused_ffn"), kname.endswith("_f32")
+        dtype = "float32" if is_f32 else "bfloat16"
+        key = prefix + ("fwd" if "_fwd" in kname else "bwd")
+        small = ffn_row(1024, 256, dtype)
+        if not is_ffn:
+            launches_main = wide["ln_launches"][kname]
+        else:
+            launches_main = (wide["f32_launches"] if is_f32 else wide["launches"])[kname]
         kernels.append({
             "name": kname, "route": "cuda", "source": FFN_SOURCE if is_ffn else LN_SOURCE,
             "replaces": (FFN_TPU_KERNELS if is_ffn else LN_TPU_KERNELS)[kname],
-            "launches": (wide["launches"] if is_ffn else wide["ln_launches"])[kname],
+            "launches": launches_main,
             "launches_encdec_1_plus_1_path": wide["encdec_launches"][kname],
             "launches_groovexl_path": xl["launches"][kname],
             "max_abs_err": ffn_ln["max_abs_err"]["ffn" if is_ffn else "ln"],
-            "ms": device_ms(small, *entries),
-            "stream_ms_of_the_call": float(np.mean(small[f"{key}_kernel_ms"])),
-            "plain_ms": float(np.mean(small[f"{key}_plain_ms"])),
-            "bound_ms": small["bounds"][kname]["bound_ms"],
-            "bound_by": small["bounds"][kname]["bound_by"],
-            "library_ms": float(np.mean(small[f"{key}_library_ms"])),
-            "groovexl": {"ms": device_ms(xl_row, *entries),
-                         "stream_ms_of_the_call": float(np.mean(xl_row[f"{key}_kernel_ms"])),
-                         "plain_ms": float(np.mean(xl_row[f"{key}_plain_ms"])),
-                         "bound_ms": xl_row["bounds"][kname]["bound_ms"],
-                         "bound_by": xl_row["bounds"][kname]["bound_by"],
-                         "library_ms": float(np.mean(xl_row[f"{key}_library_ms"]))},
-            "at": "rows 1,024 (batch 32), d 256, ff 2048, bf16, rate 0.16; groovexl: rows "
-                  "4,096, d 1024, ff 4096, rate 0.1; ms: device time per launch (the weight "
-                  "kernel with its reduce); stream_ms_of_the_call, plain_ms and library_ms are "
-                  "on the stream and for a backward kernel cover the whole backward call "
-                  "(both FFN backward kernels; the LN backward with the sum of its partials); "
-                  "library: F.linear, relu, F.dropout, F.linear (FFN) or F.layer_norm(x + "
-                  "F.dropout(y)) (LN), and autograd's backward; err: the largest of out, h, "
-                  "dx (FFN) or out, dx, dy (LN) over the f32 checks; launches: the FFN "
-                  "kernels over phase 18's main run, the LN kernels over its run with "
-                  "fused_dropout_ln"})
+            **at_shape(small, kname, entries, key),
+            "rows_16384": at_shape(ffn_row(16384, 256, dtype), kname, entries, key),
+            "groovexl": at_shape(ffn_row(4096, 1024, dtype), kname, entries, key),
+            "at": f"rows 1,024 (batch 32), d 256, ff 2048, {dtype}, rate 0.16; rows_16384: "
+                  "batch 512; groovexl: rows 4,096, d 1024, ff 4096, rate 0.1; ms: device "
+                  "time per launch (the f32 weight kernel with its reduce); "
+                  "stream_ms_of_the_call, plain_ms and library_ms are on the stream and "
+                  "cover the whole forward or backward call the kernel is part of (the FFN's "
+                  "plain version, ffn_reference or backward_formulas; the LN's the reference "
+                  "and autograd); library: F.linear, relu, F.dropout, F.linear (FFN) or "
+                  "F.layer_norm(x + F.dropout(y)) (LN), and autograd's backward; bound: this "
+                  "launch's own bytes and operations; err: the largest of out, h, dx (FFN) or "
+                  "out, dx, dy (LN) over the f32 checks; launches: phase 18's main run (bf16 "
+                  "FFN kernels), its run with fused_dropout_ln (LN), its 3 f32 steps (f32 FFN "
+                  "kernels, the forward twice a call there)"})
     emit({"kernels": kernels, "seconds": time.perf_counter() - t_start})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,

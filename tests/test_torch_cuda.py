@@ -445,14 +445,31 @@ def _ffn_args(cuda, rng, rows, d, ff, dtype):
             n(d, ff, k=ff ** -0.5).to(dtype), n(d, k=0.1)], n(rows, d).to(dtype)
 
 
+def _ffn_launches(rows, d, ff, dtype, calls):
+    """Launches of ``calls`` forward + backward passes, per kernel: bf16 runs
+    two products forward, two in the row backward, one weight-gradient launch
+    and the reduce of its row splits; f32 the three CUDA-core kernels."""
+    if dtype == torch.bfloat16:
+        sms = torch.cuda.get_device_properties(0).multi_processor_count
+        splits = fused_ffn.wgrad_splits(rows, d, ff, sms)[0]
+        per = {k: 1 for k in fused_ffn.BF16_KERNELS}
+        per["fused_ffn_reduce"] = int(splits > 1)
+        per.update({k: 0 for k in fused_ffn.F32_KERNELS})
+    else:
+        per = {k: int(k in fused_ffn.F32_KERNELS) for k in fused_ffn.KERNELS}
+    return {k: calls * v for k, v in per.items()}
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("rate", [0.0, 0.16])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("rows, d, ff", [(1024, 256, 2048), (256, 1024, 4096), (100, 72, 200)])
+@pytest.mark.parametrize("rows, d, ff", [(1024, 256, 2048), (256, 1024, 4096), (100, 72, 200),
+                                         (16384, 256, 2048), (4096, 1024, 4096)])
 def test_ffn_kernels_match_the_plain_version(cuda, rng, rows, d, ff, dtype, rate):
     """out, h, dx and the four parameter gradients through the autograd
     Function, with the same mask; ragged rows and widths that are no multiples
-    of the tiles; two runs bit-identical."""
+    of the tiles; two runs bit-identical; the launches of each route (a bf16
+    call never reaches the f32 kernels), at chip_smoke.py's FFN_SHAPES too."""
     args, dy = _ffn_args(cuda, rng, rows, d, ff, dtype)
     seed = torch.tensor([99], dtype=torch.int32, device=cuda)
     before = {k: f.launches for k, f in fused_ffn.KERNELS.items()}
@@ -463,7 +480,8 @@ def test_ffn_kernels_match_the_plain_version(cuda, rng, rows, d, ff, dtype, rate
         out.backward(dy)
         runs.append([out.detach(), *[leaf.grad for leaf in leaves]])
     torch.cuda.synchronize()
-    assert all(f.launches == before[k] + 2 for k, f in fused_ffn.KERNELS.items())
+    assert {k: f.launches - before[k] for k, f in fused_ffn.KERNELS.items()} == \
+        _ffn_launches(rows, d, ff, dtype, 2)
     assert all(torch.equal(a, b) for a, b in zip(*runs))
     h = fused_ffn.ffn_forward(*args, seed, rate)[1]
     with torch.no_grad():
@@ -477,6 +495,44 @@ def test_ffn_kernels_match_the_plain_version(cuda, rng, rows, d, ff, dtype, rate
         rel = 1e-4 if dtype == torch.float32 else 2e-2
         assert float((got.float() - ref.float()).abs().max()) <= rel * max(
             1.0, float(ref.float().abs().max()))
+
+
+@pytest.mark.cuda
+def test_ffn_bf16_kernels_launch_from_a_thread_that_made_no_cuda_call(cuda, rng):
+    """The tensor maps are encoded by a driver call, which needs the thread's
+    context bound; autograd runs a backward on a worker thread of its own,
+    where no runtime call may have bound it yet."""
+    import threading
+
+    args, dy = _ffn_args(cuda, rng, 256, 128, 512, torch.bfloat16)
+    seed = torch.tensor([4], dtype=torch.int32, device=cuda)
+    out, h = fused_ffn.ffn_forward(*args, seed, 0.1)
+    got = {}
+    worker = threading.Thread(target=lambda: got.update(
+        grads=fused_ffn.ffn_backward(dy, args[0], h, args[1], args[3], 0.1)))
+    worker.start()
+    worker.join()
+    torch.cuda.synchronize()
+    want = fused_ffn.ffn_backward(dy, args[0], h, args[1], args[3], 0.1)
+    assert all(torch.equal(a, b) for a, b in zip(got["grads"], want))
+
+
+@pytest.mark.cuda
+def test_ffn_bf16_route_refuses_widths_that_are_no_multiple_of_8(cuda, rng):
+    """TMA's 16-byte strides: a bf16 call at d 36 raises ValueError and
+    launches nothing (the f32 route takes d 36)."""
+    args, _ = _ffn_args(cuda, rng, 64, 36, 128, torch.bfloat16)
+    seed = torch.tensor([1], dtype=torch.int32, device=cuda)
+    before = {k: f.launches for k, f in fused_ffn.KERNELS.items()}
+    with pytest.raises(ValueError, match="supports_fused_ffn"):
+        fused_ffn.ffn_train(*args, seed, 0.1)
+    with pytest.raises(ValueError, match="supports_fused_ffn"):
+        fused_ffn.ffn_forward(*args, seed, 0.1)
+    torch.cuda.synchronize()
+    assert {k: f.launches for k, f in fused_ffn.KERNELS.items()} == before
+    f32 = [a.float() if a.dtype == torch.bfloat16 else a for a in args]
+    fused_ffn.ffn_forward(*f32, seed, 0.1)
+    assert fused_ffn.KERNELS["fused_ffn_fwd_f32"].launches == before["fused_ffn_fwd_f32"] + 1
 
 
 @pytest.mark.cuda
@@ -555,9 +611,10 @@ def test_wide_ffn_train_steps_run_the_ffn_and_ln_kernels_and_remat_replays(cuda,
         torch.cuda.synchronize()
         assert all(np.isfinite(float(v)) for v in metrics.values())
         ffn_sites, ln_sites = 2 + n_dec, 2 * 2 + 3 * n_dec
-        want = {"fused_ffn_fwd": ffn_sites * (1 + remat), "fused_ffn_bwd_rows": ffn_sites,
-                "fused_ffn_bwd_weights": ffn_sites, "fused_ln_fwd": ln_sites * (1 + remat),
-                "fused_ln_bwd": ln_sites}
+        want = {k: v * ffn_sites for k, v in _ffn_launches(32 * 32, 256, 2048, torch.bfloat16,
+                                                           1).items()}
+        want.update({k: want[k] * (1 + remat) for k in ("fused_ffn_fwd_h", "fused_ffn_fwd_out")})
+        want.update({"fused_ln_fwd": ln_sites * (1 + remat), "fused_ln_bwd": ln_sites})
         assert {k: f.launches - before[k] for k, f in kernels.items()} == \
             {k: 2 * v for k, v in want.items()}
         weights.append([p.detach().clone() for p in state.model.parameters()])

@@ -157,19 +157,62 @@ def test_relu_flips_take_the_other_side_of_the_kink():
     (1024, 4096, torch.float32, True), (1024, 4096, torch.bfloat16, True),
     (72, 200, torch.float32, True),  # no multiples of 128 are asked for
     (256, 2050, torch.float32, False), (254, 2048, torch.float32, False),
-    (1512, 4096, torch.bfloat16, False),  # 232,960 bytes of shared memory
-    (256, 2048, torch.float16, False)])
+    (1512, 4096, torch.bfloat16, True),  # the bf16 route keeps no (rows, d) tile on chip
+    (256, 2048, torch.float16, False),
+    (1512, 4096, torch.float32, False),  # 232,960 bytes of shared memory
+    (1020, 4096, torch.float32, True), (1020, 4096, torch.bfloat16, False),  # TMA: d % 8
+    (256, 2052, torch.bfloat16, False), (8, 8, torch.bfloat16, True)])
 def test_gate(d, ff, dtype, ok):
     assert ffn.supports_fused_ffn(d, ff, dtype) is ok
-    assert (ffn.rows_smem_bytes(d) <= 232448) or not ok
+    if dtype == torch.float32:  # the CUDA-core route's (32, d) f32 accumulator
+        assert (ffn.rows_smem_bytes(d) <= 232448) or not ok
+
+
+SHAPES = ((1024, 256, 2048), (16384, 256, 2048), (4096, 1024, 4096))  # chip_smoke.FFN_SHAPES
 
 
 def test_weight_splits_cover_the_rows_in_whole_chunks():
-    for rows, d, ff in ((1024, 256, 2048), (16384, 256, 2048), (4096, 1024, 4096), (100, 72, 200)):
+    """f32: ranges of at least 128 rows; bf16: splits of whole 64-row stages
+    that cover the rows, none empty, where the tiles of dW1 and dW2 are fewer
+    than the SMs, at every tile shape."""
+    for rows, d, ff in SHAPES + ((100, 72, 200),):
         splits = ffn.weight_splits(rows, d, ff, 132)
         assert 1 <= splits <= max(1, -(-rows // 128))
+        for config in (None, *ffn.TILES):
+            splits, per = ffn.wgrad_splits(rows, d, ff, 132, config)
+            assert per % ffn.K_STAGE == 0 and (splits - 1) * per < rows <= splits * per
+            assert splits == 1 or per >= ffn.WGRAD_MIN_STAGES * ffn.K_STAGE
     assert ffn.weight_splits(4096, 1024, 4096, 132) == 1  # 2,128 blocks already
     assert ffn.weight_splits(16384, 256, 2048, 132) > 1
+    assert ffn.wgrad_splits(4096, 1024, 4096, 132) == (1, 4096)  # 256 tiles of 128 × 256
+    assert ffn.wgrad_splits(16384, 256, 2048, 132) == (2, 8192)  # 64 of 128 × 128
+    assert ffn.wgrad_splits(1024, 256, 2048, 132) == (2, 512)
+    assert ffn.wgrad_splits(100, 72, 200, 132) == (1, 128)
+    assert ffn.wgrad_splits(16384, 256, 2048, 132, 2) == (4, 4096)  # 32 of 128 × 256
+
+
+def test_tile_configs_follow_the_measured_choice():
+    """64 × 64 where 128 × 128 tiles leave SMs idle; 128 × 256 for dh·W1 and
+    for weight gradients whose tiles fill the card; 128 × 128 otherwise."""
+    assert ffn.tile_configs(1024, 256, 2048, 132) == (1, 0, 1, 0, 1)
+    assert ffn.tile_configs(16384, 256, 2048, 132) == (1, 1, 1, 2, 1)
+    assert ffn.tile_configs(4096, 1024, 4096, 132) == (1, 1, 1, 2, 2)
+    assert ffn.tile_configs(100, 72, 200, 132) == (0, 0, 0, 0, 1)
+    assert ffn.TILES == {0: (64, 64), 1: (128, 128), 2: (128, 256)}
+
+
+@pytest.mark.parametrize("rows", [1, 100, 1024, 4096, 16384, 65536])
+@pytest.mark.parametrize("d, ff", [(8, 8), (72, 200), (256, 2048), (1024, 4096), (4096, 16384)])
+def test_tile_configs_pick_only_the_shapes_that_are_built(rows, d, ff):
+    """csrc/fused_ffn.cu builds each product for its two shapes of
+    ``PRODUCT_TILES`` only (another config launches nothing), so every pick of
+    ``tile_configs`` must be one of them, on this card's 132 SMs and others."""
+    assert all(set(shapes) <= set(ffn.TILES) and len(set(shapes)) == 2
+               for shapes in ffn.PRODUCT_TILES)
+    for sms in (78, 114, 132):
+        picked = ffn.tile_configs(rows, d, ff, sms)
+        assert len(picked) == len(ffn.PRODUCT_TILES)
+        assert all(c in shapes for c, shapes in zip(picked, ffn.PRODUCT_TILES)), (picked, sms)
 
 
 def test_cuda_tensors_never_take_the_plain_version():

@@ -241,40 +241,57 @@ def test_fused_dropout_ln_draws_its_own_mask_per_site(rng):
 
 
 def test_resolve_fused_ffn_auto_boundary(monkeypatch):
-    """Auto: on a CUDA device from ff 2048 up, where the Hopper gate admits the
-    width; off on the CPU; a forced value is kept. The JAX package's 4 MB
-    residency limit is not carried over: GrooveXL's width is on."""
+    """Auto is off everywhere, on the CPU and on a card, at every width, dtype,
+    batch and remat setting: no setting measured on the card has shown the
+    FFN kernels faster than ``fused_ffn=False`` by more than the spread
+    between turns (PERF.md §5). A forced value is kept, also where the Hopper
+    gate would reject the width (the model raises then). The signature is
+    the JAX package's."""
     r = port_config.resolve_fused_ffn
-    assert r(None, 2048, 256, torch.bfloat16, "cpu") is False
+    assert r(None, 4096, 1024, torch.bfloat16, "cpu") is False
     assert r(True, 64, 30, torch.float32, "cpu") is True
     assert r(False, 4096, 1024, torch.bfloat16, "cpu") is False
     with monkeypatch.context() as m:  # the policy for a card, decided without one
         m.setattr(torch.cuda, "is_available", lambda: True)
-        assert r(None, 2048, 256, torch.bfloat16) is True
-        assert r(None, 2047, 256, torch.bfloat16) is False
-        assert r(None, 512, 256, torch.bfloat16) is False  # the flagship
-        assert r(None, 4096, 1024, torch.bfloat16) is True  # GrooveXL
-        assert r(None, 4096, 1024, torch.float32) is True
-        assert r(None, 4096, 2048, torch.bfloat16) is False  # past the gate's d
-        assert r(None, 2048, 256) is True  # dtype left out: bf16, as in the JAX package
+        for ff, d in ((4096, 1024), (2048, 256), (512, 256), (4096, 2048), (4100, 1024)):
+            for dtype in (torch.bfloat16, torch.float32, None):
+                assert r(None, ff, d, dtype) is False, (ff, d, dtype)
+        assert r(True, 4096, 1024, torch.bfloat16) is True
+        assert r(True, 4096, 1024, torch.float32) is True
+        assert r(True, 4100, 1024, torch.bfloat16) is True  # the model's gate raises
+        assert r(False, 2048, 256, torch.bfloat16) is False
+    with monkeypatch.context() as m:
+        m.setattr(torch.cuda, "is_available", lambda: False)
+        with pytest.raises(RuntimeError):
+            r(None, 4096, 1024, torch.bfloat16)
     assert jax_config.resolve_fused_ffn(True, 64, 32) is True  # the same signature
 
 
 def test_lm_config_resolves_to_the_fused_ffn_and_not_the_fused_layer(monkeypatch):
     """configs/InfillingRandomLow_lm_training.yaml on a card: the whole-layer
-    gate rejects ff 2048 (331,776 bytes of shared memory), the FFN gate
-    admits it; GrooveXL at batch 128 on 80 GB needs no remat by the estimate."""
+    gate rejects ff 2048 (331,776 bytes of shared memory); the FFN kernels
+    are taken when the config asks for them, and auto leaves them off at the
+    YAML's batch of 32, at 512 and 1,024, with and without remat; GrooveXL at
+    batch 128 on 80 GB needs no remat by the estimate."""
     hp = load_hyperparameters(os.path.join(REPO, "configs",
                                            "InfillingRandomLow_lm_training.yaml"))
     with monkeypatch.context() as m:
         m.setattr(torch.cuda, "is_available", lambda: True)
         m.setenv("TGI_HBM_BYTES", str(80 * 1024**3))
         cfg = derive_model_config(hp, device="cuda")
-        assert cfg.fused_ffn and not cfg.fused_layer and not cfg.remat
+        assert not cfg.fused_ffn and not cfg.fused_layer and not cfg.remat
         assert (cfg.d_model, cfg.dim_feedforward, cfg.num_encoder_layers) == (256, 2048, 8)
+        for batch in (512, 1024):
+            for remat in (True, None):
+                hp.batch_size, hp.remat = batch, remat
+                assert not derive_model_config(hp, device="cuda").fused_ffn, (batch, remat)
+        hp.fused_ffn = True
+        cfg = derive_model_config(hp, device="cuda")
+        assert cfg.fused_ffn and not cfg.fused_layer
         assert port_config.resolve_remat(
             None, d_model=1024, n_heads=8, dim_feedforward=4096, n_layers=12, batch_size=128,
             compute_dtype=torch.bfloat16, device="cuda") is False
+    hp.fused_ffn = None
     cpu = derive_model_config(hp, device="cpu")
     assert not cpu.fused_ffn and not cpu.fused_layer
 

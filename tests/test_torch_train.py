@@ -273,6 +273,46 @@ def test_epoch_with_a_partial_batch_matches_jax(rng, fused):
     _assert_params_close(state, jax_state, port_cfg)
 
 
+def test_groovexl_width_sgd_0p05_matches_jax():
+    """GrooveXL's width (scripts/bench_groovexl_ffn.py: d 1024, 8 heads, ff
+    4096; 2 layers, batch 4, f32, dropout 0) at that script's SGD rate of 0.05
+    and hit penalty 0.73, on its kind of data: 3 steps in both packages from
+    the same flax weights. Equal curves say that a loss which climbs at this
+    rate is the rate's, not the port's."""
+    rng = np.random.default_rng(1)
+    arch = dict(d_model=1024, n_heads=8, dim_feedforward=4096, num_encoder_layers=2,
+                embedding_size_src=16)
+    model = jax_build_model(JaxConfig(dropout=0.0, **arch))
+    params = model.init(jax.random.PRNGKey(0), jnp.zeros((1, 32, 16)),
+                        deterministic=True)["params"]
+    port_cfg = GrooveTransformerConfig(dropout=0.0, **arch)
+    port = build_model(port_cfg, "cpu")
+    port.load_state_dict(state_dict_from_flax_params(jax.tree.map(np.asarray, params),
+                                                     port_cfg), strict=True)
+    tx = optax.sgd(0.05)
+    jax_state = jax_loop.TrainState(step=jnp.zeros((), jnp.int32), params=params,
+                                    opt_state=tx.init(params))
+    state = TrainState(step=0, model=port, optimizer=make_optimizer("sgd", 0.05,
+                                                                    port.parameters()))
+    jax_step = jax.jit(jax_loop.make_train_step(model, tx, 0.73))
+    step = make_train_step(0.73)
+    x = rng.standard_normal((4, 32, 16)).astype(np.float32)
+    hits = (rng.random((4, 32, 9)) < 0.3).astype(np.float32)
+    y = np.concatenate([hits, hits * 0.5, hits * 0.1], 2)
+    w = np.ones(4, np.float32)
+    losses = []
+    for i in range(3):
+        jax_state, want = jax_step(jax_state, jnp.asarray(x), jnp.asarray(y), jnp.asarray(w),
+                                   jax.random.PRNGKey(i))
+        got = step(state, torch.from_numpy(x), torch.from_numpy(y), torch.from_numpy(w),
+                   torch.Generator().manual_seed(i))
+        np.testing.assert_allclose(float(got["loss"]), float(want["loss"]), rtol=2e-4,
+                                   err_msg=f"step {i}")
+        losses.append(float(want["loss"]))
+    assert state.step == 3 and all(np.isfinite(losses))
+    _assert_params_close(state, jax_state, port_cfg)
+
+
 # ---------------------------------------------------------------- augment
 
 
@@ -421,8 +461,9 @@ def test_config_matches_jax(path, monkeypatch):
         if field.name not in switches:
             assert getattr(got, field.name) == getattr(want, field.name), field.name
     assert got.compute_dtype == torch.float32 and not got.fused_ffn
-    assert got.fused_layer == port_config.supports_fused_layer(
+    assert got.fused_layer == (port_config.supports_fused_layer(
         got.d_model, got.n_heads, got.dim_feedforward, 32, torch.float32)
+        and got_hp.batch_size <= port_config.LAYER_KERNEL_MAX_BATCH)
     assert got.encoder_only and not got.fused_decoder_layer  # every YAML here is encoder-only
 
 
@@ -462,8 +503,8 @@ def test_config_resolution(monkeypatch):
         assert port_config.resolve_compute_dtype(None, "cuda") == torch.bfloat16
         assert port_config.resolve_compute_dtype(None) == torch.bfloat16
         assert port_config.resolve_compute_dtype(False, "cuda") == torch.float32
-    assert port_config.resolve_fused_layer(None, 256, 2, 512) is True
-    assert port_config.resolve_fused_layer(None, 256, 2, 512, n_devices=4) is False
+    assert port_config.resolve_fused_layer(None, 256, 2, 512, batch_size=32) is True
+    assert port_config.resolve_fused_layer(None, 256, 2, 512, n_devices=4, batch_size=32) is False
     assert port_config.resolve_fused_layer(True, 30, 2, 64) is True  # forced, kept
     assert port_config.resolve_fused_ffn(None, 2048, 256, device="cpu") is False
     assert port_config.resolve_fused_ffn(True, 2048, 256, device="cpu") is True
@@ -475,6 +516,53 @@ def test_config_resolution(monkeypatch):
             assert port_config.resolve_remat(None, **dict(kw, batch_size=batch),
                                              compute_dtype=dtype) == \
                 jax_config.resolve_remat(None, **dict(kw, batch_size=batch), compute_dtype=jdtype)
+
+
+@pytest.mark.parametrize("resolve", ["resolve_fused_layer", "resolve_fused_decoder_layer"])
+def test_layer_resolvers_turn_auto_on_only_at_a_measured_batch(resolve):
+    """Auto is gated by measurement, as the JAX package's: the whole-layer
+    kernels won at batch 32 and lost at 512 on the card (PERF.md §5), so auto
+    is on at <= 32 and off above, and off when no batch is given; a forced
+    value is kept at any batch; the JAX positional signature (switch, d_model,
+    n_heads, dim_feedforward, n_devices) is still accepted."""
+    r = getattr(port_config, resolve)
+    assert r(None, 256, 2, 512, batch_size=32) is True
+    assert r(None, 256, 2, 512, batch_size=16) is True
+    assert r(None, 256, 2, 512, batch_size=33) is False
+    assert r(None, 256, 2, 512, batch_size=512) is False
+    assert r(None, 256, 2, 512) is False
+    assert r(None, 256, 2, 512, 1) is False
+    assert r(True, 256, 2, 512, batch_size=512) is True
+    assert r(True, 256, 2, 512, 1) is True
+    assert r(False, 256, 2, 512, batch_size=32) is False
+    assert r(None, 30, 2, 64, batch_size=32) is False  # the gate still decides
+    hp = HyperParams(d_model=256, n_heads=2, dim_feedforward=512, num_encoder_decoder_layers=2,
+                     encoder_only=0)
+    for batch, on in ((32, True), (512, False)):
+        hp.batch_size = batch
+        cfg = derive_model_config(hp, compute_dtype=torch.float32, device="cpu")
+        assert cfg.fused_layer is on and cfg.fused_decoder_layer is on, batch
+
+
+def test_initialize_model_resolves_the_layer_switches_unlike_the_reference():
+    """The reference's ``initialize_model`` passes only ``fused_ffn`` and
+    ``remat`` and leaves ``fused_layer`` and ``fused_decoder_layer`` off; the
+    port resolves both by the training batch (``train/driver.py``), so that a
+    caller of the reference contract gets the kernels where they are faster."""
+    from transformergrooveinfilling_tpu.train import driver as jax_driver
+
+    model = {"d_model": 32, "n_heads": 2, "dim_feedforward": 64, "dropout": 0.1,
+             "num_encoder_layers": 1, "num_decoder_layers": 1}
+    jax_bundle = jax_driver.initialize_model({"model": model, "training": {"batch_size": 16}})[0]
+    assert not jax_bundle.config.fused_layer and not jax_bundle.config.fused_decoder_layer
+    for batch, on in ((16, True), (32, True), (512, False)):
+        cfg = initialize_model({"model": model, "training": {"batch_size": batch}}, "cpu")[0].config
+        assert cfg.fused_layer is on and cfg.fused_decoder_layer is on, batch
+    forced = dict(model, fused_layer=True, fused_decoder_layer=True)
+    cfg = initialize_model({"model": forced, "training": {"batch_size": 512}}, "cpu")[0].config
+    assert cfg.fused_layer and cfg.fused_decoder_layer
+    cfg = initialize_model({"model": model}, "cpu")[0].config  # the reference's default batch, 16
+    assert cfg.fused_layer and cfg.fused_decoder_layer
 
 
 def test_device_hbm_bytes(monkeypatch):

@@ -13,44 +13,60 @@
 // intermediate that reaches device memory and the backward's only residual:
 // h > 0 says both that the mask kept the unit and that the ReLU was active.
 //
-// One forward design stands in for both TPU layouts. "Resident" against
-// "tiled" is a question of 16 MB of VMEM; no FFN weight pair fits an SM's
-// 227 KB, so the forward streams ff tiles at every width, as _fwd_kernel_tiled
-// does:
-//   ffn_fwd          one block per 32 rows. It keeps an f32 accumulator of
-//                    out (32, d) in shared memory, and for each tile of 128
-//                    hidden units computes relu(x·W1ᵀ + b1), drops, rounds,
-//                    writes that tile of h, and adds h_tile·W2ᵀ into the
-//                    accumulator. x and the weights stream through shared
-//                    memory in chunks of 32 along the reduction, the next
-//                    chunk on its way in registers while this one is used.
-//   ffn_bwd_rows     the same walk backward: g tile = dy·W2, dh from h,
-//                    written to a scratch in the storage dtype, and
-//                    dh_tile·W1 added into an f32 accumulator of dx.
-//   ffn_bwd_weights  dW1 and dW2 by 64×64 tiles, the rows split over
-//                    gridDim.y; each block sums its rows in order into a
-//                    partial, and blocks of 64 columns do the same for db1 and
-//                    db2. ffn_reduce then adds the partials in split order. No
-//                    float atomics: two runs with one seed agree bit for bit.
+// What bounds it on the H100: operations, 4·rows·d·ff FLOP for the forward,
+// as much for the row backward and again for the weight gradients, against
+// rows·(2d + ff) + 2·d·ff values moved (2.1 GFLOP and 7 MB at rows 1,024, d
+// 256, ff 2048 in bf16). Only the tensor cores (989 TFLOP/s in bf16, 15× the
+// CUDA cores' f32 rate) come near that bound, so the bf16 route is five
+// products on one wgmma core (gemm_sm90.cuh: TMA into a 4-stage ring, one or
+// two consumer warpgroups, f32 accumulators in registers, persistent blocks),
+// each with its own epilogue on the accumulator fragment:
+//   ffn_fwd_h        x·W1ᵀ (K-major A and B) → + b1, ReLU, mask, ÷ keep,
+//                    round: h. One dropout draw per (row, 16 columns) a
+//                    thread holds, bit for bit dropout_mask's.
+//   ffn_fwd_out      h·W2ᵀ → + b2, round: out.
+//   ffn_bwd_dh       dy·W2 (W2 read MN-major, wgmma's transpose bit) →
+//                    h > 0 ? g / keep : 0, round: dh.
+//   ffn_bwd_dx       dh·W1 (MN-major B) → round: dx.
+//   ffn_bwd_weights  dhᵀ·x and dyᵀ·h in one launch (both operands MN-major,
+//                    the reduction over rows), cut into row splits of whole
+//                    64-row chunks when the tiles alone do not fill the card;
+//                    f32 partials (dW1 | dW2 | db1 | db2 per split), the
+//                    biases as column sums in a fixed order by blocks of
+//                    their own; ffn_reduce adds the splits in order. No float
+//                    atomics: two runs with one seed agree bit for bit.
+// A launch takes 64 × 64 tiles (one consumer warpgroup, several blocks an
+// SM) where 128 × 128 ones would leave SMs idle, 128 × 256 for dh·W1 and for
+// weight gradients whose tiles fill the card (their epilogues read nothing
+// but the accumulator; those that read a bias or h spill at 128 × 256), and
+// 128 × 128 otherwise: ops/fused_ffn.py::tile_configs, by measurement.
+// The TPU kernel fuses the two forward products to keep h in VMEM; here h
+// must reach device memory anyway as the backward's residual, and the fusion
+// would cost an on-chip (rows, d) f32 accumulator, which is what capped the
+// CUDA-core forward at one block an SM and d ≤ 1,508. The ragged edges are
+// TMA's zero fill; the epilogues mask their stores. d and ff must be
+// multiples of 8 (TMA's 16-byte strides); rows is free. On an NVIDIA H100
+// 80GB HBM3 at 700 W (chip_smoke.py, phase 17), device time per launch at
+// rows 4,096 × d 1024 × ff 4096: ffn_fwd_h 0.086 ms, ffn_fwd_out 0.060,
+// ffn_bwd_dh 0.092, ffn_bwd_dx 0.049, ffn_bwd_weights 0.143 (38-71 % of the
+// tensor cores' bound), where the CUDA-core kernels took 3.75 ms forward and
+// 3.47 + 2.02 backward.
 //
-// What bounds it on the H100: operations. Forward 4·rows·d·ff FLOP against
-// rows·(2d + ff) + 2·d·ff values moved (2.1 GFLOP and 7 MB at rows 1,024,
-// d 256, ff 2048 in bf16), each backward kernel about the same again. The
-// products run as f32 FMAs on CUDA cores (67 TFLOP/s peak), every thread a
-// 4×4 register tile fed by 16-byte shared-memory loads (8 loads for 64 FMAs);
-// a block reuses each weight for its 32 rows, so the weights stream from the
-// 50 MB L2 once per 32 rows. Tensor cores (wgmma) are later work.
+// f32 storage keeps the CUDA-core kernels below (ffn_fwd, ffn_bwd_rows,
+// ffn_bwd_weights): the tensor cores' f32 mode is TF32, which would miss the
+// f32 bars of 1e-4. They stream ff tiles of 128 through shared memory with a
+// (32, d) f32 accumulator a block (d ≤ 1,508), 4×4 register tiles of f32 FMAs.
 //
 // Dropout is the layer kernels' 8-bit rule and stream (layer_common.cuh), site
 // 2, counted by (row, column) of the (rows, ff) hidden: the mask does not
 // depend on the tiling, and ops/fused_ffn.py::ffn_reference draws the same.
 //
 // Weights and their gradients are in nn.Linear's (out, in) layout: W1 (ff, d),
-// W2 (d, ff); d and ff multiples of 4. S is the storage dtype (f32 or bf16);
-// biases and gradients of weights and biases are f32. Plain C entry points,
-// bound from Python with ctypes (ops/fused_ffn.py); each returns
+// W2 (d, ff). Biases and the gradients of weights and biases are f32. Plain C
+// entry points, bound from Python with ctypes (ops/fused_ffn.py); each returns
 // cudaGetLastError() after its launch.
 
+#include "gemm_sm90.cuh"
 #include "vec4.cuh"
 
 namespace {
@@ -86,8 +102,8 @@ struct FfnShape {
 template <bool TRANS>
 __device__ __forceinline__ int col_of(int tx, int j) { return TRANS ? tx + 32 * j : 4 * tx + j; }
 
-template <typename S, bool TRANS>
-__device__ __forceinline__ void fetch_w(const S* __restrict__ W, int ldw, int n_valid, int K,
+template <bool TRANS>
+__device__ __forceinline__ void fetch_w(const float* __restrict__ W, int ldw, int n_valid, int K,
                                         int kc, float (&w)[4][4]) {
   const int t = threadIdx.x;
 #pragma unroll
@@ -113,8 +129,7 @@ __device__ __forceinline__ void store_w(float* sW, const float (&w)[4][4]) {
   }
 }
 
-template <typename S>
-__device__ __forceinline__ void fetch_a(const S* __restrict__ A, int lda, int rows_valid, int K,
+__device__ __forceinline__ void fetch_a(const float* __restrict__ A, int lda, int rows_valid, int K,
                                         int kc, float (&a)[4]) {
   const int r = threadIdx.x >> 3, k = kc + (threadIdx.x & 7) * 4;
   if (r < rows_valid && k < K) {
@@ -165,23 +180,23 @@ __device__ __forceinline__ void chunk_fma(const float* A, int lda, const float* 
   }
 }
 
-template <typename S, bool TRANS, bool AG>
-__device__ __forceinline__ void tile_mm(const void* A, int lda, int rows_valid,
-                                        const S* __restrict__ W, int ldw, int n_valid, int K,
+template <bool TRANS, bool AG>
+__device__ __forceinline__ void tile_mm(const float* A, int lda, int rows_valid,
+                                        const float* __restrict__ W, int ldw, int n_valid, int K,
                                         float* sW, float* sA, float (&acc)[4][4]) {
   float w[4][4], a[4];
-  fetch_w<S, TRANS>(W, ldw, n_valid, K, 0, w);
-  if (AG) fetch_a<S>(static_cast<const S*>(A), lda, rows_valid, K, 0, a);
+  fetch_w<TRANS>(W, ldw, n_valid, K, 0, w);
+  if (AG) fetch_a(A, lda, rows_valid, K, 0, a);
   for (int kc = 0; kc < K; kc += BK) {
     store_w<TRANS>(sW, w);
     if (AG) store4(sA + (threadIdx.x >> 3) * LDK + (threadIdx.x & 7) * 4, a);
     __syncthreads();
     if (kc + BK < K) {  // the next chunk travels while this one is used
-      fetch_w<S, TRANS>(W, ldw, n_valid, K, kc + BK, w);
-      if (AG) fetch_a<S>(static_cast<const S*>(A), lda, rows_valid, K, kc + BK, a);
+      fetch_w<TRANS>(W, ldw, n_valid, K, kc + BK, w);
+      if (AG) fetch_a(A, lda, rows_valid, K, kc + BK, a);
     }
     if (AG) chunk_fma<TRANS>(sA, LDK, sW, acc);
-    else chunk_fma<TRANS>(static_cast<const float*>(A) + kc, lda, sW, acc);
+    else chunk_fma<TRANS>(A + kc, lda, sW, acc);
     __syncthreads();
   }
 }
@@ -219,18 +234,15 @@ __device__ __forceinline__ void acc_zero(float (&acc)[4][4]) {
     for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
 }
 
-// ---------------------------------------------------------------- forward
+// ---------------------------------------------------------------- f32 route: forward
 
-template <typename S>
 struct FwdArgs {
-  const S *x, *w1, *w2;
-  const float *b1, *b2;
+  const float *x, *w1, *w2, *b1, *b2;
   const int* seed;
-  S *out, *h;
+  float *out, *h;
 };
 
-template <typename S>
-__global__ void __launch_bounds__(kThreads) ffn_fwd(FwdArgs<S> p, FfnShape sh) {
+__global__ void __launch_bounds__(kThreads) ffn_fwd(FwdArgs p, FfnShape sh) {
   extern __shared__ __align__(16) float sm[];
   const int d = sh.d, ff = sh.ff;
   float* sAcc = sm;             // (BM, d): out, f32 until the end
@@ -246,8 +258,8 @@ __global__ void __launch_bounds__(kThreads) ffn_fwd(FwdArgs<S> p, FfnShape sh) {
   for (int j0 = 0; j0 < ff; j0 += BN) {
     const int nv = min(BN, ff - j0);
     acc_zero(acc);
-    tile_mm<S, true, true>(p.x + static_cast<size_t>(row0) * d, d, rows_valid,
-                           p.w1 + static_cast<size_t>(j0) * d, d, nv, d, sW, sA, acc);
+    tile_mm<true, true>(p.x + static_cast<size_t>(row0) * d, d, rows_valid,
+                        p.w1 + static_cast<size_t>(j0) * d, d, nv, d, sW, sA, acc);
 #pragma unroll
     for (int i = 0; i < 4; ++i)
 #pragma unroll
@@ -255,10 +267,8 @@ __global__ void __launch_bounds__(kThreads) ffn_fwd(FwdArgs<S> p, FfnShape sh) {
         const int r = 4 * ty + i, c = col_of<true>(tx, j);
         float hv = 0.f;
         if (r < rows_valid && c < nv) {
-          const S v = st<S>(dr.apply(fmaxf(acc[i][j] + p.b1[j0 + c], 0.f), kSiteFfn, row0 + r,
-                                     j0 + c));
-          p.h[static_cast<size_t>(row0 + r) * ff + j0 + c] = v;
-          hv = ld(v);
+          hv = dr.apply(fmaxf(acc[i][j] + p.b1[j0 + c], 0.f), kSiteFfn, row0 + r, j0 + c);
+          p.h[static_cast<size_t>(row0 + r) * ff + j0 + c] = hv;
         }
         sH[r * BN + c] = hv;
       }
@@ -267,26 +277,24 @@ __global__ void __launch_bounds__(kThreads) ffn_fwd(FwdArgs<S> p, FfnShape sh) {
     for (int n0 = 0; n0 < d; n0 += BN) {
       const int nv2 = min(BN, d - n0);
       acc_load<true>(sAcc, d, n0, nv2, acc);
-      tile_mm<S, true, false>(sH, BN, BM, p.w2 + static_cast<size_t>(n0) * ff + j0, ff, nv2, nv,
-                              sW, sA, acc);
+      tile_mm<true, false>(sH, BN, BM, p.w2 + static_cast<size_t>(n0) * ff + j0, ff, nv2, nv, sW,
+                           sA, acc);
       acc_store<true>(sAcc, d, n0, nv2, acc);
     }
   }
   __syncthreads();
   for (int idx = threadIdx.x; idx < rows_valid * d; idx += blockDim.x)
-    p.out[static_cast<size_t>(row0) * d + idx] = st<S>(sAcc[idx]);
+    p.out[static_cast<size_t>(row0) * d + idx] = sAcc[idx];
 }
 
 // ---------------------------------------------------------------- backward, rows
 
-template <typename S>
 struct BwdArgs {
-  const S *dy, *h, *w1, *w2;
-  S *dx, *dh;
+  const float *dy, *h, *w1, *w2;
+  float *dx, *dh;
 };
 
-template <typename S>
-__global__ void __launch_bounds__(kThreads) ffn_bwd_rows(BwdArgs<S> p, FfnShape sh) {
+__global__ void __launch_bounds__(kThreads) ffn_bwd_rows(BwdArgs p, FfnShape sh) {
   extern __shared__ __align__(16) float sm[];
   const int d = sh.d, ff = sh.ff;
   float* sAcc = sm;             // (BM, d): dx, f32 until the end
@@ -302,8 +310,8 @@ __global__ void __launch_bounds__(kThreads) ffn_bwd_rows(BwdArgs<S> p, FfnShape 
   for (int j0 = 0; j0 < ff; j0 += BN) {
     const int nv = min(BN, ff - j0);
     acc_zero(acc);
-    tile_mm<S, false, true>(p.dy + static_cast<size_t>(row0) * d, d, rows_valid, p.w2 + j0, ff,
-                            nv, d, sW, sA, acc);
+    tile_mm<false, true>(p.dy + static_cast<size_t>(row0) * d, d, rows_valid, p.w2 + j0, ff, nv,
+                         d, sW, sA, acc);
 #pragma unroll
     for (int i = 0; i < 4; ++i)
 #pragma unroll
@@ -312,39 +320,36 @@ __global__ void __launch_bounds__(kThreads) ffn_bwd_rows(BwdArgs<S> p, FfnShape 
         float v = 0.f;
         if (r < rows_valid && c < nv) {
           const size_t at = static_cast<size_t>(row0 + r) * ff + j0 + c;
-          const S dv = st<S>(ld(p.h[at]) > 0.f ? acc[i][j] / keep : 0.f);
-          p.dh[at] = dv;
-          v = ld(dv);
+          v = p.h[at] > 0.f ? acc[i][j] / keep : 0.f;
+          p.dh[at] = v;
         }
         sH[r * BN + c] = v;
       }
     for (int n0 = 0; n0 < d; n0 += BN) {
       const int nv2 = min(BN, d - n0);
       acc_load<false>(sAcc, d, n0, nv2, acc);
-      tile_mm<S, false, false>(sH, BN, BM, p.w1 + static_cast<size_t>(j0) * d + n0, d, nv2, nv,
-                               sW, sA, acc);
+      tile_mm<false, false>(sH, BN, BM, p.w1 + static_cast<size_t>(j0) * d + n0, d, nv2, nv, sW,
+                            sA, acc);
       acc_store<false>(sAcc, d, n0, nv2, acc);
     }
   }
   __syncthreads();
   for (int idx = threadIdx.x; idx < rows_valid * d; idx += blockDim.x)
-    p.dx[static_cast<size_t>(row0) * d + idx] = st<S>(sAcc[idx]);
+    p.dx[static_cast<size_t>(row0) * d + idx] = sAcc[idx];
 }
 
 // ---------------------------------------------------------------- backward, weights
 
-template <typename S>
 struct WgradArgs {
-  const S *dy, *x, *h, *dh;
+  const float *dy, *x, *h, *dh;
   float* part;  // (splits, 2·d·ff + ff + d): dW1 | dW2 | db1 | db2 per split
 };
 
 // gridDim.x: the 64×64 tiles of dW1 (ff, d), then of dW2 (d, ff), then blocks
 // of 64 bias columns (db1 | db2); gridDim.y: the row splits. A tile is
 // Σ_r A[r][m]·B[r][n] over the split's rows in order: dW1 = dhᵀ·x, dW2 = dyᵀ·h.
-template <typename S>
 __global__ void __launch_bounds__(kThreads)
-ffn_bwd_weights(WgradArgs<S> p, FfnShape sh, int rows_per_split) {
+ffn_bwd_weights(WgradArgs p, FfnShape sh, int rows_per_split) {
   __shared__ __align__(16) float sA[WK * kTile];
   __shared__ __align__(16) float sB[WK * kTile];
   const int d = sh.d, ff = sh.ff, t = threadIdx.x;
@@ -359,9 +364,9 @@ ffn_bwd_weights(WgradArgs<S> p, FfnShape sh, int rows_per_split) {
     const int cx = t & 63, ry = t >> 6, gc = (b - 2 * n_tiles) * 64 + cx;
     float s = 0.f;
     if (gc < ff + d) {
-      const S* src = gc < ff ? p.dh + gc : p.dy + (gc - ff);
+      const float* src = gc < ff ? p.dh + gc : p.dy + (gc - ff);
       const int ld_ = gc < ff ? ff : d;
-      for (int r = r_begin + ry; r < r_end; r += 4) s += ld(src[static_cast<size_t>(r) * ld_]);
+      for (int r = r_begin + ry; r < r_end; r += 4) s += src[static_cast<size_t>(r) * ld_];
     }
     sA[ry * 64 + cx] = s;
     __syncthreads();
@@ -373,8 +378,8 @@ ffn_bwd_weights(WgradArgs<S> p, FfnShape sh, int rows_per_split) {
 
   const bool second = b >= n_tiles;
   if (second) b -= n_tiles;
-  const S* A = second ? p.dy : p.dh;
-  const S* B = second ? p.h : p.x;
+  const float* A = second ? p.dy : p.dh;
+  const float* B = second ? p.h : p.x;
   const int M = second ? d : ff, N = second ? ff : d;
   const int m0 = (b / tiles(N)) * kTile, n0 = (b % tiles(N)) * kTile;
   const int tx = t & 15, ty = t >> 4;
@@ -438,51 +443,337 @@ __global__ void ffn_reduce(const float* __restrict__ part, float* __restrict__ o
   out[i] = s;
 }
 
+
+// ---------------------------------------------------------------- bf16 route
+
+using bf16 = __nv_bfloat16;
+
+__device__ __forceinline__ void store2(bf16* p, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+}
+
+// The epilogues of sm90::gemm_kernel. store() gets the values at (row, col),
+// (row, col+1), (row, col+8), (row, col+9); col is even and the widths are
+// multiples of 8, so a pair is in or out of the matrix as a whole. load()
+// fetches what store() reads besides them, for a whole tile before its
+// first store.
+
+struct NoAux {};
+struct NoExtra {
+  __device__ __forceinline__ void extra(int, int, int, int) const {}
+};
+
+// the tile's aux by load_one(problem, split, row, col) of each quad
+template <class Epi, int G>
+__device__ __forceinline__ void load_quads(const Epi& epi, int problem, int split, int row,
+                                           int col, typename Epi::Aux (&aux)[G][2]) {
+#pragma unroll
+  for (int g = 0; g < G; ++g)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) aux[g][h] = epi.load_one(problem, split, row + 8 * h, col + 16 * g);
+}
+
+// the bias at columns col, col + 1, col + 8, col + 9 (0 past the width)
+__device__ __forceinline__ float4 bias4(const float* bias, int col, int width) {
+  float4 b = make_float4(0.f, 0.f, 0.f, 0.f);
+  if (col < width) b.x = bias[col], b.y = bias[col + 1];
+  if (col + 8 < width) b.z = bias[col + 8], b.w = bias[col + 9];
+  return b;
+}
+
+// h = round(drop(relu(x·W1ᵀ + b1))). The four threads of a quad hold one
+// row's columns of the same 16-column groups, so they share its dropout
+// draws: each computes a quarter of them and passes on the two words that
+// each of the others needs (word q/2 for columns 2q, 2q+1 of a group, word
+// 2 + q/2 for columns 8 + 2q, 9 + 2q).
+struct EpiHidden : NoExtra {
+  bf16* h;
+  const float* b1;
+  const int* seed;
+  int rows, ff, thresh;
+  struct Aux {
+    float4 b;
+    uint32_t lo, hi;  // this thread's words of the (row, group) draw
+  };
+  template <int G>
+  __device__ __forceinline__ void load(int, int, int row, int col, Aux (&aux)[G][2]) const {
+#pragma unroll
+    for (int g = 0; g < G; ++g) aux[g][0].b = aux[g][1].b = bias4(b1, col + 16 * g, ff);
+    if (thresh >= 256) return;
+    const int j = threadIdx.x & 3, q2 = (threadIdx.x >> 1) & 1;
+    const uint32_t s = static_cast<uint32_t>(*seed);
+    uint4 mine[G / 2];  // draws i = 2g + h with i % 4 == j: g = 2t + j/2, h = j % 2
+#pragma unroll
+    for (int t = 0; t < G / 2; ++t)
+      mine[t] = dropout_words(s, kSiteFfn, row + 8 * (j & 1), (col >> 4) + 2 * t + (j >> 1));
+    const int quad = threadIdx.x & 28;  // lane of the quad's first thread
+#pragma unroll
+    for (int i = 0; i < 2 * G; ++i) {
+      const int src = quad | (i & 3);
+      const uint4& m = mine[i >> 2];
+      const uint32_t w0 = __shfl_sync(0xffffffffu, m.x, src);
+      const uint32_t w1 = __shfl_sync(0xffffffffu, m.y, src);
+      const uint32_t w2 = __shfl_sync(0xffffffffu, m.z, src);
+      const uint32_t w3 = __shfl_sync(0xffffffffu, m.w, src);
+      aux[i >> 1][i & 1].lo = q2 ? w1 : w0;
+      aux[i >> 1][i & 1].hi = q2 ? w3 : w2;
+    }
+  }
+  __device__ __forceinline__ void store(int, int, int row, int col, const float (&v)[4],
+                                        const Aux& a) const {
+    if (row >= rows) return;
+    const float inv_keep = 256.f / thresh;
+    const int shift = 16 * (threadIdx.x & 1);  // byte 2(q % 2) of a word, then the next
+    const float b[4] = {a.b.x, a.b.y, a.b.z, a.b.w};
+#pragma unroll
+    for (int p = 0; p < 2; ++p) {
+      const int c = col + 8 * p;
+      if (c >= ff) continue;
+      const uint32_t w = p ? a.hi : a.lo;
+      float o[2];
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        o[e] = fmaxf(v[2 * p + e] + b[2 * p + e], 0.f);
+        if (thresh < 256)
+          o[e] = ((w >> (shift + 8 * e)) & 0xFFu) < static_cast<uint32_t>(thresh) ? o[e] * inv_keep
+                                                                                 : 0.f;
+      }
+      store2(h + static_cast<size_t>(row) * ff + c, o[0], o[1]);
+    }
+  }
+};
+
+// out = round(h·W2ᵀ + b2)
+struct EpiOut : NoExtra {
+  bf16* out;
+  const float* bias;
+  int rows, width;
+  using Aux = float4;
+  __device__ __forceinline__ Aux load_one(int, int, int, int col) const {
+    return bias4(bias, col, width);
+  }
+  template <int G>
+  __device__ __forceinline__ void load(int problem, int split, int row, int col,
+                                       Aux (&aux)[G][2]) const {
+    load_quads(*this, problem, split, row, col, aux);
+  }
+  __device__ __forceinline__ void store(int, int, int row, int col, const float (&v)[4],
+                                        const Aux& b) const {
+    if (row >= rows) return;
+    bf16* o = out + static_cast<size_t>(row) * width + col;
+    if (col < width) store2(o, v[0] + b.x, v[1] + b.y);
+    if (col + 8 < width) store2(o + 8, v[2] + b.z, v[3] + b.w);
+  }
+};
+
+// dx = round(dh·W1): nothing to read besides the accumulator
+struct EpiDx : NoExtra {
+  bf16* dx;
+  int rows, d;
+  using Aux = NoAux;
+  template <int G>
+  __device__ __forceinline__ void load(int, int, int, int, Aux (&)[G][2]) const {}
+  __device__ __forceinline__ void store(int, int, int row, int col, const float (&v)[4],
+                                        const Aux&) const {
+    if (row >= rows) return;
+    bf16* o = dx + static_cast<size_t>(row) * d + col;
+    if (col < d) store2(o, v[0], v[1]);
+    if (col + 8 < d) store2(o + 8, v[2], v[3]);
+  }
+};
+
+// dh = round(h > 0 ? g / keep : 0), g = dy·W2
+struct EpiDh : NoExtra {
+  bf16* dh;
+  const bf16* h;
+  int rows, ff, thresh;
+  using Aux = uint2;  // the bf16 pairs of h at col and col + 8
+  __device__ __forceinline__ Aux load_one(int, int, int row, int col) const {
+    uint2 a = make_uint2(0u, 0u);
+    if (row >= rows) return a;
+    const uint32_t* p = reinterpret_cast<const uint32_t*>(h + static_cast<size_t>(row) * ff + col);
+    if (col < ff) a.x = p[0];
+    if (col + 8 < ff) a.y = p[4];
+    return a;
+  }
+  template <int G>
+  __device__ __forceinline__ void load(int problem, int split, int row, int col,
+                                       Aux (&aux)[G][2]) const {
+    load_quads(*this, problem, split, row, col, aux);
+  }
+  __device__ __forceinline__ void store(int, int, int row, int col, const float (&v)[4],
+                                        const Aux& a) const {
+    if (row >= rows) return;
+    const float inv_keep = 256.f / thresh;
+#pragma unroll
+    for (int p = 0; p < 2; ++p) {
+      const int c = col + 8 * p;
+      if (c >= ff) continue;
+      const uint32_t bits = p ? a.y : a.x;
+      const float2 hv = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&bits));
+      store2(dh + static_cast<size_t>(row) * ff + c, hv.x > 0.f ? v[2 * p] * inv_keep : 0.f,
+             hv.y > 0.f ? v[2 * p + 1] * inv_keep : 0.f);
+    }
+  }
+};
+
+// The weight gradients: problem 0 is dW1 = dhᵀ·x (ff × d), problem 1 dW2 =
+// dyᵀ·h (d × ff), each tile into its split's f32 partial (dW1 | dW2 | db1 |
+// db2); the extra blocks of a split sum 64 columns of dh (db1), then of dy
+// (db2), over the split's rows in a fixed order.
+struct EpiWgrad {
+  float* part;
+  const bf16 *dh, *dy;
+  int d, ff;
+  using Aux = NoAux;
+  __device__ __forceinline__ float* split_base(int split) const {
+    return part + split * (2 * static_cast<size_t>(d) * ff + ff + d);
+  }
+  __device__ __forceinline__ Aux load_one(int, int, int, int) const { return {}; }
+  template <int G>
+  __device__ __forceinline__ void load(int problem, int split, int row, int col,
+                                       Aux (&aux)[G][2]) const {
+    load_quads(*this, problem, split, row, col, aux);
+  }
+  __device__ __forceinline__ void store(int problem, int split, int row, int col,
+                                        const float (&v)[4], const Aux&) const {
+    const int m = problem ? d : ff, n = problem ? ff : d;
+    if (row >= m) return;
+    float* out = split_base(split) + (problem ? static_cast<size_t>(d) * ff : 0) +
+                 static_cast<size_t>(row) * n;
+    if (col < n) *reinterpret_cast<float2*>(out + col) = make_float2(v[0], v[1]);
+    if (col + 8 < n) *reinterpret_cast<float2*>(out + col + 8) = make_float2(v[2], v[3]);
+  }
+  __device__ __forceinline__ void extra(int b, int split, int r_begin, int r_end) const {
+    __shared__ float sums[48][64];  // (row groups, columns); up to 384 threads
+    const int ff_blocks = (ff + 63) / 64;
+    const bool first = b < ff_blocks;
+    const bf16* src = first ? dh : dy;
+    const int width = first ? ff : d, c0 = (first ? b : b - ff_blocks) * 64;
+    const int cg = threadIdx.x & 7, rg = threadIdx.x >> 3, groups = blockDim.x >> 3;
+    const int c = c0 + 8 * cg;
+    float s[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+    if (c < width) {
+      for (int r = r_begin + rg; r < r_end; r += groups) {
+        const uint4 u = *reinterpret_cast<const uint4*>(src + static_cast<size_t>(r) * width + c);
+        const __nv_bfloat162* p2 = reinterpret_cast<const __nv_bfloat162*>(&u);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const float2 f = __bfloat1622float2(p2[i]);
+          s[2 * i] += f.x;
+          s[2 * i + 1] += f.y;
+        }
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < 8; ++i) sums[rg][8 * cg + i] = s[i];
+    __syncthreads();
+    if (threadIdx.x < 64 && c0 + static_cast<int>(threadIdx.x) < width) {
+      float t = 0.f;
+      for (int gi = 0; gi < groups; ++gi) t += sums[gi][threadIdx.x];
+      split_base(split)[2 * static_cast<size_t>(d) * ff + (first ? 0 : ff) + c0 + threadIdx.x] = t;
+    }
+  }
+};
+
+// The tile shapes a launch may take: 0 is 64 × 64 (one consumer warpgroup:
+// several blocks an SM, one's epilogue beside another's products), 1 is
+// 128 × 128 and 2 is 128 × 256 (two; the epilogues that read bias or h spill
+// there). Each product is built for the two that ops/fused_ffn.py::
+// tile_configs can pick for it (PRODUCT_TILES there), a bit each in Shapes.
+struct Operand {
+  const void* ptr;
+  int rows;  // extent along m (A) or n (B)
+};
+
+template <int WG, int BN, bool A_MN, bool B_MN, class Epi>
+int run_tiles(const Operand* a, const Operand* b, int problems, int k_total, int k_len,
+              int splits, int extra_blocks, const Epi& epi, cudaStream_t stream) {
+  if (const int err = sm90::bind_context()) return err;
+  CUtensorMap ma[2], mb[2];
+  sm90::GemmGrid g;
+  int tiles[2] = {0, 0};
+  for (int p = 0; p < 2; ++p) {
+    const int q = p < problems ? p : 0;
+    if (const int err = sm90::operand_map<A_MN>(&ma[p], a[q].ptr, a[q].rows, k_total, 64 * WG))
+      return err;
+    if (const int err = sm90::operand_map<B_MN>(&mb[p], b[q].ptr, b[q].rows, k_total, BN))
+      return err;
+    g.n_tiles[p] = (b[q].rows + BN - 1) / BN;
+    tiles[p] = p < problems ? (a[q].rows + 64 * WG - 1) / (64 * WG) * g.n_tiles[p] : 0;
+  }
+  g.tiles0 = tiles[0];
+  g.tiles = tiles[0] + tiles[1];
+  g.splits = splits;
+  g.k_len = k_len;
+  g.k_total = k_total;
+  g.extra = extra_blocks;
+  return sm90::launch_gemm<WG, BN, A_MN, B_MN>(ma[0], mb[0], ma[1], mb[1], epi, g, stream);
+}
+
+template <unsigned Shapes, bool A_MN, bool B_MN, class Epi>
+int run(int config, const Operand* a, const Operand* b, int problems, int k_total, int k_len,
+        int splits, int extra_blocks, const Epi& epi, cudaStream_t stream) {
+  if constexpr ((Shapes & 1u) != 0) {
+    if (config == 0)
+      return run_tiles<1, 64, A_MN, B_MN>(a, b, problems, k_total, k_len, splits, extra_blocks,
+                                          epi, stream);
+  }
+  if constexpr ((Shapes & 2u) != 0) {
+    if (config == 1)
+      return run_tiles<2, 128, A_MN, B_MN>(a, b, problems, k_total, k_len, splits, extra_blocks,
+                                           epi, stream);
+  }
+  if constexpr ((Shapes & 4u) != 0) {
+    if (config == 2)
+      return run_tiles<2, 256, A_MN, B_MN>(a, b, problems, k_total, k_len, splits, extra_blocks,
+                                           epi, stream);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
 // ---------------------------------------------------------------- launch
 
 size_t rows_smem(const FfnShape& s) {
   return sizeof(float) * (static_cast<size_t>(BM) * s.d + BM * BN + kStage + BM * LDK);
 }
 
-template <typename S>
 int fwd(void* const* ptr, const FfnShape& sh, cudaStream_t stream) {
-  FwdArgs<S> a;
-  a.x = static_cast<const S*>(ptr[0]);
-  a.w1 = static_cast<const S*>(ptr[1]);
+  FwdArgs a;
+  a.x = static_cast<const float*>(ptr[0]);
+  a.w1 = static_cast<const float*>(ptr[1]);
   a.b1 = static_cast<const float*>(ptr[2]);
-  a.w2 = static_cast<const S*>(ptr[3]);
+  a.w2 = static_cast<const float*>(ptr[3]);
   a.b2 = static_cast<const float*>(ptr[4]);
   a.seed = static_cast<const int*>(ptr[5]);
-  a.out = static_cast<S*>(ptr[6]);
-  a.h = static_cast<S*>(ptr[7]);
+  a.out = static_cast<float*>(ptr[6]);
+  a.h = static_cast<float*>(ptr[7]);
   const size_t smem = rows_smem(sh);
-  if (const int err = opt_in(ffn_fwd<S>, smem)) return err;
-  ffn_fwd<S><<<(sh.rows + BM - 1) / BM, kThreads, smem, stream>>>(a, sh);
+  if (const int err = opt_in(ffn_fwd, smem)) return err;
+  ffn_fwd<<<(sh.rows + BM - 1) / BM, kThreads, smem, stream>>>(a, sh);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename S>
 int bwd_rows(void* const* ptr, const FfnShape& sh, cudaStream_t stream) {
-  BwdArgs<S> a;
-  a.dy = static_cast<const S*>(ptr[0]);
-  a.h = static_cast<const S*>(ptr[1]);
-  a.w1 = static_cast<const S*>(ptr[2]);
-  a.w2 = static_cast<const S*>(ptr[3]);
-  a.dx = static_cast<S*>(ptr[4]);
-  a.dh = static_cast<S*>(ptr[5]);
+  BwdArgs a;
+  a.dy = static_cast<const float*>(ptr[0]);
+  a.h = static_cast<const float*>(ptr[1]);
+  a.w1 = static_cast<const float*>(ptr[2]);
+  a.w2 = static_cast<const float*>(ptr[3]);
+  a.dx = static_cast<float*>(ptr[4]);
+  a.dh = static_cast<float*>(ptr[5]);
   const size_t smem = rows_smem(sh);
-  if (const int err = opt_in(ffn_bwd_rows<S>, smem)) return err;
-  ffn_bwd_rows<S><<<(sh.rows + BM - 1) / BM, kThreads, smem, stream>>>(a, sh);
+  if (const int err = opt_in(ffn_bwd_rows, smem)) return err;
+  ffn_bwd_rows<<<(sh.rows + BM - 1) / BM, kThreads, smem, stream>>>(a, sh);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename S>
 int bwd_weights(void* const* ptr, const FfnShape& sh, int splits, cudaStream_t stream) {
-  WgradArgs<S> a;
-  a.dy = static_cast<const S*>(ptr[0]);
-  a.x = static_cast<const S*>(ptr[1]);
-  a.h = static_cast<const S*>(ptr[2]);
-  a.dh = static_cast<const S*>(ptr[3]);
+  WgradArgs a;
+  a.dy = static_cast<const float*>(ptr[0]);
+  a.x = static_cast<const float*>(ptr[1]);
+  a.h = static_cast<const float*>(ptr[2]);
+  a.dh = static_cast<const float*>(ptr[3]);
   float* part = static_cast<float*>(ptr[4]);
   float* out = static_cast<float*>(ptr[5]);
   a.part = splits > 1 ? part : out;  // one split writes the result itself
@@ -490,7 +781,7 @@ int bwd_weights(void* const* ptr, const FfnShape& sh, int splits, cudaStream_t s
   // rows a split, a multiple of the chunk
   const int per = ((sh.rows + splits - 1) / splits + WK - 1) / WK * WK;
   const dim3 grid(2 * tiles(ff) * tiles(d) + (ff + d + 63) / 64, splits);
-  ffn_bwd_weights<S><<<grid, kThreads, 0, stream>>>(a, sh, per);
+  ffn_bwd_weights<<<grid, kThreads, 0, stream>>>(a, sh, per);
   int err = static_cast<int>(cudaGetLastError());
   if (err || splits == 1) return err;
   const size_t total = 2 * static_cast<size_t>(d) * ff + ff + d;
@@ -503,36 +794,87 @@ int bwd_weights(void* const* ptr, const FfnShape& sh, int splits, cudaStream_t s
 
 extern "C" {
 
-// rows × d inputs, ff hidden units; thresh the 8-bit keep threshold (256: no
-// dropout); is_bf16 picks the storage dtype (0 float32, 1 bfloat16). All
-// pointers are device pointers of contiguous tensors; seed points to one int32.
+// bf16 route. rows × d inputs, ff hidden units; thresh the 8-bit keep
+// threshold (256: no dropout); config the tile shape (run above; another
+// returns cudaErrorInvalidValue and launches nothing). All
+// pointers are device pointers of contiguous bf16 tensors, 16-byte aligned,
+// except the f32 biases and the int32 seed.
 
-int tgi_ffn_fwd(void* x, void* w1, void* b1, void* w2, void* b2, void* seed, void* out, void* h,
-                int rows, int d, int ff, int thresh, int is_bf16, void* stream) {
-  void* const ptr[] = {x, w1, b1, w2, b2, seed, out, h};
-  const FfnShape sh{rows, d, ff, thresh};
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return is_bf16 ? fwd<__nv_bfloat16>(ptr, sh, s) : fwd<float>(ptr, sh, s);
+int tgi_ffn_fwd_h(void* x, void* w1, void* b1, void* seed, void* h, int rows, int d, int ff,
+                  int thresh, int config, void* stream) {
+  const Operand a{x, rows}, b{w1, ff};
+  const EpiHidden epi{{}, static_cast<bf16*>(h), static_cast<const float*>(b1),
+                      static_cast<const int*>(seed), rows, ff, thresh};
+  return run<0b011, false, false>(config, &a, &b, 1, d, d, 1, 0, epi,
+                                  static_cast<cudaStream_t>(stream));
 }
 
-// dh: (rows, ff) scratch in the storage dtype, read by tgi_ffn_bwd_weights
-int tgi_ffn_bwd_rows(void* dy, void* h, void* w1, void* w2, void* dx, void* dh, int rows, int d,
-                     int ff, int thresh, int is_bf16, void* stream) {
+int tgi_ffn_fwd_out(void* h, void* w2, void* b2, void* out, int rows, int d, int ff, int config,
+                    void* stream) {
+  const Operand a{h, rows}, b{w2, d};
+  const EpiOut epi{{}, static_cast<bf16*>(out), static_cast<const float*>(b2), rows, d};
+  return run<0b011, false, false>(config, &a, &b, 1, ff, ff, 1, 0, epi,
+                                  static_cast<cudaStream_t>(stream));
+}
+
+int tgi_ffn_bwd_dh(void* dy, void* w2, void* h, void* dh, int rows, int d, int ff, int thresh,
+                   int config, void* stream) {
+  const Operand a{dy, rows}, b{w2, ff};
+  const EpiDh epi{{}, static_cast<bf16*>(dh), static_cast<const bf16*>(h), rows, ff, thresh};
+  return run<0b011, false, true>(config, &a, &b, 1, d, d, 1, 0, epi,
+                                 static_cast<cudaStream_t>(stream));
+}
+
+int tgi_ffn_bwd_dx(void* dh, void* w1, void* dx, int rows, int d, int ff, int config,
+                   void* stream) {
+  const Operand a{dh, rows}, b{w1, d};
+  const EpiDx epi{{}, static_cast<bf16*>(dx), rows, d};
+  return run<0b101, false, true>(config, &a, &b, 1, ff, ff, 1, 0, epi,
+                                 static_cast<cudaStream_t>(stream));
+}
+
+// part: `splits` × (2·d·ff + ff + d) f32 (dW1 | dW2 | db1 | db2 each), the
+// rows cut into splits of rows_per_split (a multiple of 64 when splits > 1)
+int tgi_ffn_bwd_wgrad(void* dy, void* x, void* h, void* dh, void* part, int rows, int d, int ff,
+                      int splits, int rows_per_split, int config, void* stream) {
+  const Operand a[2] = {{dh, ff}, {dy, d}}, b[2] = {{x, d}, {h, ff}};
+  const EpiWgrad epi{static_cast<float*>(part), static_cast<const bf16*>(dh),
+                     static_cast<const bf16*>(dy), d, ff};
+  const int bias_blocks = (ff + 63) / 64 + (d + 63) / 64;  // 64 columns each
+  return run<0b110, true, true>(config, a, b, 2, rows, rows_per_split, splits, bias_blocks, epi,
+                                static_cast<cudaStream_t>(stream));
+}
+
+// out[i] = Σ_s part[s][i] in split order, for i < total
+int tgi_ffn_reduce(void* part, void* out, int total, int splits, void* stream) {
+  ffn_reduce<<<(total + kThreads - 1) / kThreads, kThreads, 0,
+               static_cast<cudaStream_t>(stream)>>>(static_cast<const float*>(part),
+                                                    static_cast<float*>(out), total, splits);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// f32 route (the CUDA-core kernels): the same shapes and threshold.
+
+int tgi_ffn_fwd_f32(void* x, void* w1, void* b1, void* w2, void* b2, void* seed, void* out,
+                    void* h, int rows, int d, int ff, int thresh, void* stream) {
+  void* const ptr[] = {x, w1, b1, w2, b2, seed, out, h};
+  return fwd(ptr, FfnShape{rows, d, ff, thresh}, static_cast<cudaStream_t>(stream));
+}
+
+// dh: (rows, ff) scratch, read by tgi_ffn_bwd_weights_f32
+int tgi_ffn_bwd_rows_f32(void* dy, void* h, void* w1, void* w2, void* dx, void* dh, int rows,
+                         int d, int ff, int thresh, void* stream) {
   void* const ptr[] = {dy, h, w1, w2, dx, dh};
-  const FfnShape sh{rows, d, ff, thresh};
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return is_bf16 ? bwd_rows<__nv_bfloat16>(ptr, sh, s) : bwd_rows<float>(ptr, sh, s);
+  return bwd_rows(ptr, FfnShape{rows, d, ff, thresh}, static_cast<cudaStream_t>(stream));
 }
 
 // out: 2·d·ff + ff + d f32 (dW1 | dW2 | db1 | db2); part: `splits` times that
-// (unused when splits is 1). The rows are cut into `splits` ranges.
-int tgi_ffn_bwd_weights(void* dy, void* x, void* h, void* dh, void* part, void* out, int rows,
-                        int d, int ff, int splits, int is_bf16, void* stream) {
+// (unused when splits is 1); the reduce is part of the call.
+int tgi_ffn_bwd_weights_f32(void* dy, void* x, void* h, void* dh, void* part, void* out,
+                            int rows, int d, int ff, int splits, void* stream) {
   void* const ptr[] = {dy, x, h, dh, part, out};
-  const FfnShape sh{rows, d, ff, 256};
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return is_bf16 ? bwd_weights<__nv_bfloat16>(ptr, sh, splits, s)
-                 : bwd_weights<float>(ptr, sh, splits, s);
+  return bwd_weights(ptr, FfnShape{rows, d, ff, 256}, splits,
+                            static_cast<cudaStream_t>(stream));
 }
 
 const char* tgi_ffn_error_string(int code) {

@@ -57,9 +57,11 @@ __device__ __forceinline__ void load4(const __nv_bfloat16* p, float* w) {
 
 // ---------------------------------------------------------------- dropout
 
-__device__ __forceinline__ uint32_t dropout_byte(uint32_t seed, uint32_t site,
-                                                 uint32_t row, uint32_t col) {
-  uint32_t c0 = col >> 4, c1 = row, c2 = site, c3 = 0u, k0 = seed, k1 = 0u;
+// the four words of (seed, site, row, col16): the bytes of columns 16·col16
+// to 16·col16 + 15, column c in byte c % 4 of word (c / 4) % 4
+__device__ __forceinline__ uint4 dropout_words(uint32_t seed, uint32_t site, uint32_t row,
+                                               uint32_t col16) {
+  uint32_t c0 = col16, c1 = row, c2 = site, c3 = 0u, k0 = seed, k1 = 0u;
 #pragma unroll
   for (int i = 0; i < 10; ++i) {
     if (i) {
@@ -71,8 +73,18 @@ __device__ __forceinline__ uint32_t dropout_byte(uint32_t seed, uint32_t site,
     const uint32_t n0 = hi1 ^ c1 ^ k0, n2 = hi0 ^ c3 ^ k1;
     c0 = n0; c1 = lo1; c2 = n2; c3 = lo0;
   }
-  const uint32_t w = (col & 8) ? ((col & 4) ? c3 : c2) : ((col & 4) ? c1 : c0);
+  return make_uint4(c0, c1, c2, c3);
+}
+
+// column col's byte of a draw of dropout_words
+__device__ __forceinline__ uint32_t word_byte(const uint4& w4, uint32_t col) {
+  const uint32_t w = (col & 8) ? ((col & 4) ? w4.w : w4.z) : ((col & 4) ? w4.y : w4.x);
   return (w >> (8 * (col & 3))) & 0xFFu;
+}
+
+__device__ __forceinline__ uint32_t dropout_byte(uint32_t seed, uint32_t site,
+                                                 uint32_t row, uint32_t col) {
+  return word_byte(dropout_words(seed, site, row, col >> 4), col);
 }
 
 struct Drop {

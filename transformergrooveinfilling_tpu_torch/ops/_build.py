@@ -88,11 +88,18 @@ class CountedKernel:
     def launch(self, tensors, scalars, device) -> None:
         """Call the entry point with the tensors' device pointers, then
         ``scalars``, then ``device``'s current stream; raise on a refused
-        launch."""
+        launch. The stream is read as a raw handle and the current device is
+        switched only when it is another: both cost more host time than a
+        kernel launch does."""
         lib = self.library()
-        with torch.cuda.device(device):
-            rc = getattr(lib, self.entry)(*self.pointers(tensors), *scalars,
-                                          torch.cuda.current_stream(device).cuda_stream)
+        index = device.index if device.index is not None else torch.cuda.current_device()
+        call = getattr(lib, self.entry)
+        args = (*self.pointers(tensors), *scalars, torch._C._cuda_getCurrentRawStream(index))
+        if torch.cuda.current_device() == index:
+            rc = call(*args)
+        else:
+            with torch.cuda.device(index):
+                rc = call(*args)
         if rc != 0:
             raise RuntimeError(f"{self.entry} launch failed: "
                                f"{getattr(lib, self.error_string)(rc).decode()} (cudaError {rc})")

@@ -6,9 +6,11 @@ The reference's YAML surface (the hyperparameter keys of
 (``num_decoder_layers=0`` when encoder-only, ``embedding_size_src`` 16 for MSO
 input vs 27 for the symbolic experiment, ``max_len=32``). The switches the JAX
 package resolves for the TPU are resolved here for one CUDA card (or the CPU):
-bf16 matmuls on CUDA, the whole-layer kernels (encoder and decoder) where
-their Hopper gates admit the shape, the fused FFN kernel at ff >= 2048 where
-its gate does, and remat by the same memory estimate.
+bf16 matmuls on CUDA; the whole-layer kernels (encoder and decoder) where
+their Hopper gates admit the shape and the batch is one at which they were
+measured faster; the fused FFN kernels nowhere yet (their gain has not
+cleared the spread between turns); remat by the same memory estimate. Each
+auto switch is on only where the card showed a gain (PERF.md §5).
 ``yaml`` is imported only inside :func:`load_hyperparameters`.
 """
 
@@ -24,7 +26,6 @@ import torch
 from .. import require_device
 from ..models.transformer import GrooveTransformerConfig
 from ..ops.fused_decoder_layer import supports_fused_decoder_layer
-from ..ops.fused_ffn import supports_fused_ffn
 from ..ops.fused_layer import supports_fused_layer
 
 HVO_WIDTH = 27
@@ -97,74 +98,80 @@ def resolve_compute_dtype(bf16: Optional[bool], device="cuda") -> torch.dtype:
 def resolve_fused_ffn(fused_ffn: Optional[bool], dim_feedforward: int, d_model: int,
                       compute_dtype=None, device="cuda") -> bool:
     """fused_ffn hyperparameter → fused FFN kernel switch (the JAX package's
-    signature, and ``device``). ``None`` = auto: on for training on a CUDA
-    device at ff >= 2048 (the JAX package's threshold) where the kernels' own
-    Hopper gate (``ops/fused_ffn.py::supports_fused_ffn``) admits the width at
-    the compute dtype; off on the CPU. A forced True is kept; the model raises
-    if the gate rejects it. ``device="cuda"`` without CUDA raises.
+    signature, and ``device``). ``None`` = auto, gated by measurement as the
+    JAX package's is: off, because no setting has shown the kernel path
+    faster than ``fused_ffn=False`` by more than the spread between turns. A
+    forced True is kept; the model raises if the kernels' Hopper gate
+    (``ops/fused_ffn.py::supports_fused_ffn``) rejects the width.
+    ``device="cuda"`` without CUDA raises.
 
-    The JAX package also asks that both weight matrices fit 4 MB of VMEM
-    (``fits_resident``). That is not carried over: no weight pair fits a
-    Hopper block's shared memory, the one kernel streams ff tiles at every
-    width, and the gate bounds d_model (<= 1,508), not the weights' bytes.
-
-    Auto-on is no measured gain yet. On an NVIDIA H100 80GB HBM3 at 700 W
-    (chip_smoke.py, phases 18 and 19; PERF.md), bf16: at d 256 / ff 2048, 8
-    layers, 654-867 seqs/s on the kernel path against 799-808 with
-    ``fused_ffn=False`` at batch 32, where the host's eager launches set the
-    step either way, and 11,481-11,555 against 12,583-15,808 at batch 512; at
-    d 1024 / ff 4096, 12 layers, batch 128 under remat, 694-699 against
-    1,040-1,105. The kernels run their products as f32 FMAs on CUDA cores;
-    cuBLAS' tensor cores are faster at both widths. Pass False for speed until
-    the kernels use ``wgmma``."""
+    On an NVIDIA H100 80GB HBM3 at 700 W (chip_smoke.py phases 18 and 19,
+    bf16; PERF.md §5), seqs/s with the kernels over seqs/s with
+    ``fused_ffn=False``, each pair of turns run back to back: GrooveXL (d
+    1024, ff 4096, 12 layers, batch 128) under remat 0.92-1.33 (median 1.04,
+    13 pairs in 7 runs, 6 of them below 1.035), without remat 0.93-1.12
+    (median 1.03, 12 pairs in 6 runs), while one path's two turns in one run
+    differ by 0.6-26 % (median 5.5 %). The lm config (d 256, ff 2048, 8
+    layers) was slower in 9 of 14 turns at batch 32 and 5 of 14 at 512. The
+    steps are host-bound (3,056 launches a GrooveXL step), so the device time
+    the kernels save (178 to 31 ms a GrooveXL step) does not reach seqs/s by
+    more than the host's noise. The f32 kernels lose to
+    cuBLAS at every width measured."""
     if fused_ffn is not None:
         return bool(fused_ffn)
-    device = require_device(device, "resolve_fused_ffn")
-    return (device.type == "cuda" and dim_feedforward >= 2048
-            and supports_fused_ffn(d_model, dim_feedforward, compute_dtype or torch.bfloat16))
+    require_device(device, "resolve_fused_ffn")
+    return False
+
+
+# The batch sizes at which the whole-layer kernels were measured faster than
+# the unfused path on the card (PERF.md §5)
+LAYER_KERNEL_MAX_BATCH = 32
 
 
 def resolve_fused_layer(fused_layer: Optional[bool], d_model: int, n_heads: int,
                         dim_feedforward: int, n_devices: int = 1,
-                        compute_dtype=torch.float32, seq_len: int = MAX_LEN) -> bool:
-    """fused_layer hyperparameter → whole-encoder-layer kernel switch.
-    ``None`` = auto: on for a single device wherever the kernels' Hopper gate
-    (``ops/fused_layer.py::supports_fused_layer``) admits the shape. A forced
-    True is kept; the model raises if the gate rejects it.
+                        compute_dtype=torch.float32, seq_len: int = MAX_LEN, *,
+                        batch_size: Optional[int] = None) -> bool:
+    """fused_layer hyperparameter → whole-encoder-layer kernel switch (the
+    JAX package's positional signature, then ``batch_size``). ``None`` = auto,
+    gated by measurement as the JAX package's is: on for a single device
+    where the kernels' Hopper gate (``ops/fused_layer.py::supports_fused_layer``)
+    admits the shape and the training batch is one at which the kernels were
+    measured faster, ``batch_size`` <= 32; off when the batch is larger or not
+    given. A forced True is kept; the model raises if the gate rejects it.
 
-    Auto-on is a measured gain at the flagship YAML's batch of 32 only. At
-    batch 512 (bench.py's) the kernel path is 2.6-3.2x slower on an H100 than
-    ``fused_layer=False``: its weight-gradient kernel walks every sequence in
-    each of a few tile blocks (PERF.md, "Where the time goes"). Pass False
-    for large-batch runs until that kernel is reworked
-    (``resolve_fused_decoder_layer`` has the encoder-decoder model's numbers)."""
+    On an NVIDIA H100 80GB HBM3 at 700 W (chip_smoke.py, phase 9; PERF.md §5),
+    flagship width, bf16: 1,667-1,713 seqs/s on the kernel path against
+    855-938 with ``fused_layer=False`` at batch 32; 3,328-3,381 against
+    12,600-17,500 at batch 512, where the weight-gradient kernel, one block
+    per 64×64 tile walking every sequence, is 63 % of the step."""
     if fused_layer is not None:
         return bool(fused_layer)
-    return n_devices == 1 and supports_fused_layer(
-        d_model, n_heads, dim_feedforward, seq_len, compute_dtype)
+    return (n_devices == 1 and batch_size is not None and batch_size <= LAYER_KERNEL_MAX_BATCH
+            and supports_fused_layer(d_model, n_heads, dim_feedforward, seq_len, compute_dtype))
 
 
 def resolve_fused_decoder_layer(fused_decoder_layer: Optional[bool], d_model: int,
                                 n_heads: int, dim_feedforward: int, n_devices: int = 1,
-                                compute_dtype=torch.float32, seq_len: int = MAX_LEN) -> bool:
+                                compute_dtype=torch.float32, seq_len: int = MAX_LEN, *,
+                                batch_size: Optional[int] = None) -> bool:
     """fused_decoder_layer hyperparameter → whole-decoder-layer kernel switch
-    (encoder-decoder models). ``None`` = auto: on for a single device wherever
-    the decoder kernels' own Hopper gate
-    (``ops/fused_decoder_layer.py::supports_fused_decoder_layer``) admits the
-    shape. A forced True is kept; the model raises if the gate rejects it.
+    (encoder-decoder models), by the rule of :func:`resolve_fused_layer`:
+    ``None`` = auto, on for a single device where the decoder kernels' Hopper
+    gate (``ops/fused_decoder_layer.py::supports_fused_decoder_layer``) admits
+    the shape and ``batch_size`` <= 32; off when the batch is larger or not
+    given. A forced True is kept; the model raises if the gate rejects it.
 
-    As for the encoder layer, auto-on is a measured gain at the flagship
-    YAML's batch of 32 only. The 6 + 6 layer model at the flagship width on an
-    NVIDIA H100 80GB HBM3 at 700 W (chip_smoke.py, phase 15, two runs;
-    PERF.md): 698-700 seqs/s on the kernel path against 329-386 with both
-    fused switches off at batch 32, and 1,517-1,530 against 3,766-6,757 at
-    batch 512, where the two weight-gradient kernels are 191 ms of a 332 ms
-    step. Pass False (for both switches) for large-batch runs until those
-    kernels are reworked."""
+    The 6 + 6 layer model at the flagship width on an NVIDIA H100 80GB HBM3
+    at 700 W (chip_smoke.py, phase 15; PERF.md §5), bf16: 694-700 seqs/s on
+    the kernel path against 347-457 with both fused switches off at batch 32;
+    1,514-1,530 against 3,766-7,569 at batch 512, where the two
+    weight-gradient kernels are 191 ms of a 332 ms step."""
     if fused_decoder_layer is not None:
         return bool(fused_decoder_layer)
-    return n_devices == 1 and supports_fused_decoder_layer(
-        d_model, n_heads, dim_feedforward, seq_len, compute_dtype)
+    return (n_devices == 1 and batch_size is not None and batch_size <= LAYER_KERNEL_MAX_BATCH
+            and supports_fused_decoder_layer(d_model, n_heads, dim_feedforward, seq_len,
+                                             compute_dtype))
 
 
 def device_hbm_bytes(device="cuda") -> int:
@@ -226,21 +233,23 @@ def derive_model_config(hp: HyperParams, compute_dtype=None, n_devices: int = 1,
     if compute_dtype is None:
         compute_dtype = resolve_compute_dtype(hp.bf16, device)
     n_dec = 0 if hp.encoder_only else hp.num_encoder_decoder_layers
+    remat = resolve_remat(hp.remat, d_model=hp.d_model, n_heads=hp.n_heads,
+                          dim_feedforward=hp.dim_feedforward,
+                          n_layers=hp.num_encoder_decoder_layers, n_decoder_layers=n_dec,
+                          optimizer=hp.optimizer_algorithm, batch_size=hp.batch_size,
+                          compute_dtype=compute_dtype, device=device)
     return GrooveTransformerConfig(
         fused_ffn=resolve_fused_ffn(hp.fused_ffn, hp.dim_feedforward, hp.d_model, compute_dtype,
                                     device),
         fused_layer=resolve_fused_layer(hp.fused_layer, hp.d_model, hp.n_heads,
-                                        hp.dim_feedforward, n_devices, compute_dtype),
+                                        hp.dim_feedforward, n_devices, compute_dtype,
+                                        batch_size=hp.batch_size),
         fused_decoder_layer=(
             resolve_fused_decoder_layer(hp.fused_decoder_layer, hp.d_model, hp.n_heads,
-                                        hp.dim_feedforward, n_devices, compute_dtype)
+                                        hp.dim_feedforward, n_devices, compute_dtype,
+                                        batch_size=hp.batch_size)
             if n_dec > 0 else False),
-        remat=resolve_remat(hp.remat, d_model=hp.d_model, n_heads=hp.n_heads,
-                            dim_feedforward=hp.dim_feedforward,
-                            n_layers=hp.num_encoder_decoder_layers,
-                            n_decoder_layers=n_dec, optimizer=hp.optimizer_algorithm,
-                            batch_size=hp.batch_size, compute_dtype=compute_dtype,
-                            device=device),
+        remat=remat,
         remat_policy=hp.remat_policy,
         d_model=hp.d_model,
         n_heads=hp.n_heads,

@@ -56,10 +56,18 @@ def initialize_model(params: dict, device="cuda") -> tuple[ModelBundle, Any, int
     "training": {...}, "load_model": None | ...}`` → (bundle, optimizer,
     initial_epoch), on ``device`` (``"cuda"`` without CUDA raises; the CPU
     only when asked for). ``num_decoder_layers`` > 0 builds the
-    encoder-decoder family. ``bf16``, ``fused_layer``, ``fused_decoder_layer``,
-    ``fused_ffn`` and ``remat`` in ``params["model"]`` are resolved for that
-    device (``train/config.py``; None or absent = auto); ``fused_dropout_ln``
-    (off unless given) and ``remat_policy`` are taken as they are."""
+    encoder-decoder family. ``bf16``, ``fused_ffn`` and ``remat`` in
+    ``params["model"]`` are resolved for that device (``train/config.py``;
+    None or absent = auto); ``fused_dropout_ln`` (off unless given) and
+    ``remat_policy`` are taken as they are.
+
+    Unlike the reference, ``fused_layer`` and ``fused_decoder_layer`` are
+    resolved here too: the JAX ``initialize_model`` passes only ``fused_ffn``
+    and ``remat`` and leaves both at their default, off, but on the card the
+    whole-layer kernels are why the port exists, so auto turns them on at the
+    batch sizes where they were measured faster (<= 32,
+    ``resolve_fused_layer``). Every kernel switch is resolved by
+    ``params["training"]["batch_size"]`` (default 16)."""
     m = params["model"]
     t = params.get("training", {})
     device = require_device(device, "initialize_model")
@@ -68,21 +76,23 @@ def initialize_model(params: dict, device="cuda") -> tuple[ModelBundle, Any, int
                              "not ported yet")
     compute_dtype = resolve_compute_dtype(m.get("bf16"), device)
     n_dec = m.get("num_decoder_layers", 0)
+    batch = t.get("batch_size", 16)
     gate = (m["d_model"], m["n_heads"], m["dim_feedforward"], 1, compute_dtype,
             m.get("max_len", 32))
+    remat = resolve_remat(
+        m.get("remat"), d_model=m["d_model"], n_heads=m["n_heads"],
+        dim_feedforward=m["dim_feedforward"], n_layers=m["num_encoder_layers"],
+        n_decoder_layers=n_dec, optimizer=m.get("optimizer", "sgd"), batch_size=batch,
+        max_len=m.get("max_len", 32), compute_dtype=compute_dtype, device=device)
     config = GrooveTransformerConfig(
         fused_ffn=resolve_fused_ffn(m.get("fused_ffn"), m["dim_feedforward"], m["d_model"],
                                     compute_dtype, device),
         fused_dropout_ln=bool(m.get("fused_dropout_ln", False)),
-        fused_layer=resolve_fused_layer(m.get("fused_layer"), *gate),
-        fused_decoder_layer=(resolve_fused_decoder_layer(m.get("fused_decoder_layer"), *gate)
+        fused_layer=resolve_fused_layer(m.get("fused_layer"), *gate, batch_size=batch),
+        fused_decoder_layer=(resolve_fused_decoder_layer(m.get("fused_decoder_layer"), *gate,
+                                                         batch_size=batch)
                              if n_dec > 0 else False),
-        remat=resolve_remat(
-            m.get("remat"), d_model=m["d_model"], n_heads=m["n_heads"],
-            dim_feedforward=m["dim_feedforward"], n_layers=m["num_encoder_layers"],
-            n_decoder_layers=n_dec,
-            optimizer=m.get("optimizer", "sgd"), batch_size=t.get("batch_size", 16),
-            max_len=m.get("max_len", 32), compute_dtype=compute_dtype, device=device),
+        remat=remat,
         remat_policy=m.get("remat_policy"),
         d_model=m["d_model"],
         n_heads=m["n_heads"],
