@@ -20,9 +20,13 @@ then non-zero):
 3. kernel   ``fused_mha`` against ``mha_reference`` on the card, at the
             serving shapes (B 1/8/32/512 × flagship H 2 hd 128 and demo H 4
             hd 8, T 32, causal off/on; f32 at atol 1e-5, bf16 at atol and
-            rtol 2e-2), and both timed, with
-            ``torch.nn.functional.scaled_dot_product_attention`` beside them
-            (the library call for the same function; the port never calls it).
+            rtol 2e-2), contiguous and, at B 1 and 512, as the slices of a
+            packed qkv and of q with a packed kv (no copies), one launch a
+            call and the (B, T, H, hd) output layout; then timed, stream and
+            device, beside its bound and
+            ``torch.nn.functional.scaled_dot_product_attention`` on the same
+            views (the library call for the same function; the port never
+            calls it).
 4. serve    ``InfillServer`` at the flagship width (configs/
             InfillingRandom_training.yaml: d 256, 2 heads, ff 512, 6 layers,
             16 in, 27 out; seeded random weights) on the card: the kernel's
@@ -51,17 +55,18 @@ then non-zero):
             dropout 0 against the plain paths on the card and on the CPU;
             training throughput at batch 32 and 512 and where a step's
             device time goes; the trained weights served by ``InfillServer``.
-10. front-end kernels  ``band_energies`` against its plain version on frames
-            of kit renders (bar 1e-4 · max|ref|: f32 sums of 1,024 terms in
-            another order) and ``device_synth`` against its plain version bit
-            for bit, at M 1 and 64 × 90/120/150 bpm and at the shapes phases
-            12 and 13 give them (1 loop at 90 bpm, 6 at 120, 40 at 150; 256
-            loops at phase 13's own tempos, N ≈ 140,000 frames); reruns
-            bit-identical; each timed on the stream and the device beside its
-            plain version, the library routes (``torch.fft.rfft`` of the same
-            frames, ``torch.stft``, the ``"conv"`` method; one ``index_add_``
-            over prepared indices for the synthesizer) and its bound;
-            ``band_energies`` at one request with and without its bin split.
+10. front-end kernels  ``device_synth`` against its plain version bit for
+            bit, and ``band_energies_from_audio`` (framing inside the kernel)
+            against its plain version on kit renders (bar 1e-4 · max|ref|: an
+            f32 FFT against dense f32 products), at M 1 and 64 × 90/120/150
+            bpm and at the shapes phases 12 and 13 give them (1 loop at 90
+            bpm, 6 at 120, 40 at 150; 256 loops at phase 13's own tempos);
+            the frames entry ``band_energies`` at N 1, 417, 418, 26,752 and
+            140,544; reruns bit-identical; each timed on the stream and the
+            device beside its plain version, its bound and the library routes
+            (framing + ``torch.fft.rfft`` + abs + matmul from the same
+            waveform, ``torch.stft``, the ``"conv"`` method; one
+            ``index_add_`` over prepared indices for the synthesizer).
 11. front end  64 seeded loops at mixed tempos, grids → MSO on the card by
             the kernel route against the plain route on the card and the host
             route (numpy mixer + ``"fft"`` on the CPU), at atol 2e-5 · max,
@@ -165,6 +170,7 @@ from transformergrooveinfilling_tpu_torch.models.torch_compat import (
     load_legacy_checkpoint,
 )
 from transformergrooveinfilling_tpu_torch.ops import _build
+from transformergrooveinfilling_tpu_torch.ops import attention
 from transformergrooveinfilling_tpu_torch.ops.attention import (
     fused_mha, mha_reference,
 )
@@ -258,7 +264,9 @@ LN_TPU_KERNELS = {"fused_ln_fwd": "transformergrooveinfilling_tpu/ops/fused_ln.p
                   "fused_ln_bwd": "transformergrooveinfilling_tpu/ops/fused_ln.py:68"}
 KERNEL_NAMES = ["fused_mha", "fused_layer", "fused_decoder_layer", "band_energies",
                 "device_synth", "fused_ffn", "fused_ln"]
-BAND, SYNTH = be.band_energies, ds.synth_events  # the wrappers that count launches
+# the wrappers, and the counts of launches of their kernels
+BAND, BAND_AUDIO, SYNTH = be.band_energies, be.band_energies_from_audio, ds.synth_events
+MHA, BAND_K, SYNTH_K = attention.KERNEL, be.KERNEL, ds.KERNEL
 # NVIDIA's published peaks for one H100 SXM, dense, at its 700 W limit
 PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
 HBM_BYTES_PER_S = 3.35e12
@@ -429,6 +437,16 @@ def band_bound(n: int, n_fft: int = 1024, n_bands: int = 16) -> dict:
             "dense_dft_ms": dense / PEAK_FLOPS["float32"] * 1e3}
 
 
+def band_audio_bound(m: int, length: int, f: int, n_fft: int = 1024, n_bands: int = 16) -> dict:
+    """What the waveform entry needs: the samples, window, filterbank and
+    twiddles read once, band energies written once, and per frame a real FFT
+    (2.5 · n_fft · log2 n_fft operations), the magnitude and the projection."""
+    bins = n_fft // 2
+    fft = 2.5 * n_fft * np.log2(n_fft)
+    return bound(4 * (m * length + n_fft + bins * n_bands + 2 * n_fft + m * f * n_bands),
+                 m * f * (fft + 4 * bins + 2 * bins * n_bands), "float32")
+
+
 def synth_bound(onset, row, gain, table, lengths, length: int) -> dict:
     """What this run's events need: two operations per (live event, sample)
     pair that lands inside the waveform."""
@@ -502,51 +520,84 @@ def phase_build() -> None:
         "limit": fl.MAX_SMEM_BYTES})
 
 
+def mha_inputs(dev, rng, b: int, h: int, hd: int, dtype, form: str, t: int = 32):
+    """q, k, v of shape (b, h, t, hd) as the model passes them: contiguous, the
+    slices of a packed qkv (b, t, 3, h, hd), or q (b, t, h, hd) with the
+    slices of a packed kv (b, t, 2, h, hd)."""
+    def n(*shape):
+        return torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(dev, dtype)
+
+    if form == "contiguous":
+        return n(b, h, t, hd), n(b, h, t, hd), n(b, h, t, hd)
+    if form == "packed_qkv":
+        return tuple(n(b, t, 3, h, hd).permute(2, 0, 3, 1, 4))
+    k, v = n(b, t, 2, h, hd).permute(2, 0, 3, 1, 4)
+    return n(b, t, h, hd).transpose(1, 2), k, v
+
+
+MHA_FORMS = ("contiguous", "packed_qkv", "packed_kv")
+MHA_BARS = {torch.float32: (1e-5, 0.0), torch.bfloat16: (2e-2, 2e-2)}
+
+
 def phase_kernel(dev, rng) -> dict:
+    """``fused_mha`` against ``mha_reference`` (on contiguous copies) at the
+    serving shapes, contiguous and as the slices of packed projections; then
+    device times beside the bound and SDPA on the same views."""
     worst = {torch.float32: 0.0, torch.bfloat16: 0.0}
-    bars = {torch.float32: (1e-5, 0.0), torch.bfloat16: (2e-2, 2e-2)}
-    for h, hd in ((2, 128), (4, 8)):
-        for b in (1, 8, 32, 512):
-            base = [rng.standard_normal((b, h, 32, hd)).astype(np.float32)
-                    for _ in range(3)]
-            for dtype, (atol, rtol) in bars.items():
-                q, k, v = (torch.from_numpy(a).to(dev, dtype) for a in base)
-                for causal in (False, True):
-                    got = fused_mha(q, k, v, causal=causal)
-                    want = mha_reference(q, k, v, causal=causal)
-                    torch.cuda.synchronize()
-                    err = max_err(got, want)
-                    worst[dtype] = max(worst[dtype], err)
-                    ok = torch.allclose(got.float(), want.float(), atol=atol, rtol=rtol)
-                    check(ok and got.dtype == dtype and got.shape == q.shape,
-                          f"fused_mha != mha_reference at {(b, h, 32, hd)} {dtype} "
-                          f"causal={causal}: max abs err {err}")
+    cases = [(b, h, hd, "contiguous") for h, hd in ((2, 128), (4, 8)) for b in (1, 8, 32, 512)]
+    cases += [(b, 2, 128, form) for b in (1, 512) for form in MHA_FORMS[1:]]
+    checks = 0
+    for b, h, hd, form in cases:
+        for dtype, (atol, rtol) in MHA_BARS.items():
+            q, k, v = mha_inputs(dev, rng, b, h, hd, dtype, form)
+            for causal in (False, True):
+                before = MHA.launches
+                got = fused_mha(q, k, v, causal=causal)
+                torch.cuda.synchronize()
+                want = mha_reference(q.contiguous(), k.contiguous(), v.contiguous(),
+                                     causal=causal)
+                err = max_err(got, want)
+                worst[dtype] = max(worst[dtype], err)
+                ok = torch.allclose(got.float(), want.float(), atol=atol, rtol=rtol)
+                check(ok and got.dtype == dtype and got.shape == q.shape
+                      and got.transpose(1, 2).is_contiguous() and MHA.launches == before + 1,
+                      f"fused_mha != mha_reference at {(b, h, 32, hd)} {dtype} {form} "
+                      f"causal={causal}: max abs err {err}")
+                checks += 1
     timings = []
-    for h, hd, b, dtype in ((2, 128, 1, torch.float32), (2, 128, 8, torch.float32),
-                            (2, 128, 32, torch.float32), (2, 128, 512, torch.float32),
-                            (2, 128, 1, torch.bfloat16), (2, 128, 512, torch.bfloat16),
-                            (4, 8, 1, torch.float32)):
-        q, k, v = (torch.from_numpy(rng.standard_normal((b, h, 32, hd)).astype(np.float32))
-                   .to(dev, dtype) for _ in range(3))
-        kern = lambda: fused_mha(q, k, v)  # noqa: E731
-        plain = lambda: mha_reference(q, k, v)  # noqa: E731
-        # the library call that computes the same function; timed, never used
-        sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(q, k, v)  # noqa: E731
-        check(torch.allclose(sdpa().float(), kern().float(),
-                             atol=2e-2 if dtype == torch.bfloat16 else 1e-5),
-              "scaled_dot_product_attention disagrees with fused_mha")
-        k1, p1, l1, l2, p2, k2 = (time_us(f) for f in (kern, plain, sdpa, sdpa, plain, kern))
-        dk, dp, dl = device_us(kern), device_us(plain), device_us(sdpa)
-        timings.append({
-            "shape": [b, h, 32, hd], "dtype": str(dtype).replace("torch.", ""),
-            "kernel_us": [k1, k2], "plain_us": [p1, p2], "sdpa_us": [l1, l2],
-            "sdpa_device_us": sum(us for us, _ in dl.values()),
-            **mha_bound(b, h, 32, hd, str(dtype).replace("torch.", "")),
-            "kernel_device_us": sum(us for us, _ in dk.values()),
-            "plain_device_us": sum(us for us, _ in dp.values()),
-            "plain_kernels_us": {k: us for k, (us, _) in dp.items()}})
-    emit({"phase": "kernel", "max_abs_err": {"float32": worst[torch.float32],
-                                             "bfloat16": worst[torch.bfloat16]},
+    for b, dtype in ((1, torch.float32), (8, torch.float32), (32, torch.float32),
+                     (512, torch.float32), (1, torch.bfloat16), (512, torch.bfloat16)):
+        forms = MHA_FORMS if b in (1, 512) else MHA_FORMS[:1]
+        for form in forms:
+            q, k, v = mha_inputs(dev, rng, b, 2, 128, dtype, form)
+            kern = lambda: fused_mha(q, k, v)  # noqa: E731
+            plain = lambda: mha_reference(q, k, v)  # noqa: E731
+            # the library call that computes the same function; timed, never used
+            sdpa = lambda: F.scaled_dot_product_attention(q, k, v)  # noqa: E731
+            check(torch.allclose(sdpa().float(), kern().float(),
+                                 atol=2e-2 if dtype == torch.bfloat16 else 1e-5),
+                  "scaled_dot_product_attention disagrees with fused_mha")
+            k1, p1, l1, l2, p2, k2 = (time_us(f) for f in (kern, plain, sdpa, sdpa, plain, kern))
+            before = MHA.launches
+            dk, dp, dl = device_us(kern), device_us(plain), device_us(sdpa)
+            launches_profiled = MHA.launches - before
+            dtype_name = str(dtype).replace("torch.", "")
+            bnd = mha_bound(b, 2, 32, 128, dtype_name)
+            # per captured launch (the profiler may lose events)
+            kernel_device = max(sum(us / c for us, c in dk.values()), 1e-9)
+            timings.append({
+                "shape": [b, 2, 32, 128], "dtype": dtype_name, "form": form,
+                "tensor_cores": attention.uses_tensor_cores(q, k, v),
+                "kernel_us": [k1, k2], "plain_us": [p1, p2], "sdpa_us": [l1, l2],
+                "sdpa_device_us": sum(us for us, _ in dl.values()),
+                **bnd, "kernel_device_us": kernel_device,
+                "kernel_device_launches_per_call": sum(c for _, c in dk.values()),
+                "wrapper_launches_in_profiled_calls": launches_profiled,
+                "bound_share_of_device_time": bnd["bound_ms"] * 1e3 / kernel_device,
+                "plain_device_us": sum(us for us, _ in dp.values()),
+                "plain_kernels_us": {k: us for k, (us, _) in dp.items()}})
+    emit({"phase": "kernel", "checks": checks,
+          "max_abs_err": {"float32": worst[torch.float32], "bfloat16": worst[torch.bfloat16]},
           "bars": {"float32": {"atol": 1e-5}, "bfloat16": {"atol": 2e-2, "rtol": 2e-2}},
           "timings": timings})
     return {"max_abs_err": worst[torch.float32], "timings": timings}
@@ -563,9 +614,9 @@ def phase_serve(dev, rng, sd):
     xs = {n: rng.standard_normal((n, 32, 16)).astype(np.float32) for n in (1, 6, 40)}
     chunks = {1: 1, 6: 1, 40: 2}  # buckets (1, 8, 32): 1 | 8 | 32 + 8
 
-    fused_mha.launches = 0  # the main path's run starts here
+    MHA.launches = 0  # the main path's run starts here
     out = {n: srv.infill(x) for n, x in xs.items()}
-    launches = fused_mha.launches  # ... and ends here
+    launches = MHA.launches  # ... and ends here
     check(launches == 6 * sum(chunks.values()),
           f"fused_mha launched {launches} times, expected 6 per forward chunk "
           f"({6 * sum(chunks.values())})")
@@ -592,9 +643,9 @@ def phase_serve(dev, rng, sd):
     srv16 = serve.InfillServer(sd, bf16_cfg, batch_sizes=BUCKETS, device=dev)
     plain16 = serve.InfillServer(sd, bf16_cfg, batch_sizes=BUCKETS, device=dev,
                                  use_kernel=False)
-    before = fused_mha.launches
+    before = MHA.launches
     y16 = srv16.infill(xs[40])
-    check(fused_mha.launches - before == 6 * chunks[40], "bf16 run missed the kernel")
+    check(MHA.launches - before == 6 * chunks[40], "bf16 run missed the kernel")
     check(np.isfinite(y16).all(), "bf16 output not finite")
     err16_plain = max_err(y16[..., 9:], plain16.infill(xs[40])[..., 9:])
     check(err16_plain <= 2e-2, f"bf16 kernel vs plain server: v/o differ by {err16_plain}")
@@ -666,7 +717,7 @@ def phase_http(dev, rng, sd, srv, raw) -> None:
 
 
 def phase_demo(rng) -> None:
-    before = fused_mha.launches
+    before = MHA.launches
     httpd = serve.main(["--ckpt", "demo", "--port", "0"] + DEMO_FLAGS, block=False)
     try:
         grid = (rng.random((32, 27)) < 0.25).astype(np.float32)
@@ -687,7 +738,7 @@ def phase_demo(rng) -> None:
     err = max(max_err(y[:, 9:18], v[0]), max_err(y[:, 18:], o[0]))
     check(err <= 1e-4, f"demo answer vs CPU plain path: v/o differ by {err}")
     check(hit_agreement(y[:, :9], h[0].numpy(), sig), "demo hits differ")
-    launches = fused_mha.launches - before
+    launches = MHA.launches - before
     check(launches >= 6, "the demo server did not run the kernel")
     emit({"phase": "demo", "checkpoint": DEMO_MODEL, "epoch": epoch,
           "max_abs_err_vs_cpu_plain": err, "hits": int(y[:, :9].sum()),
@@ -1095,7 +1146,7 @@ def phase_train(dev, rng) -> dict:
     check(bundle.config.fused_layer and bundle.config.compute_dtype == torch.bfloat16,
           f"auto policy did not pick the kernel in bf16: {bundle.config}")
     reset_launches()  # the main path's run starts here
-    fused_mha.launches = 0
+    MHA.launches = 0
     t0 = time.perf_counter()
     metrics = run_epochs(bundle, data, held, epochs, batch)
     torch.cuda.synchronize()
@@ -1203,18 +1254,19 @@ def augment_corpus():
 def plain_front_end():
     """Route the front end through the kernels' plain versions, on whatever
     device the tensors are (the card included), for comparisons."""
-    saved = (ds.synth_events, be.band_energies)
+    saved = (ds.synth_events, be.band_energies, be.band_energies_from_audio)
     ds.synth_events = lambda onset, row, gain, table, lengths, length: \
         ds.synth_events_plain(onset, row, gain, table, length)
     be.band_energies = be.band_energies_plain
+    be.band_energies_from_audio = be.band_energies_from_audio_plain
     try:
         yield
     finally:
-        ds.synth_events, be.band_energies = saved
+        ds.synth_events, be.band_energies, be.band_energies_from_audio = saved
 
 
 def reset_front_end_launches() -> None:
-    BAND.launches = SYNTH.launches = 0
+    BAND_K.launches = SYNTH_K.launches = 0
 
 
 def events_for(dev, grids: np.ndarray, qpm, params):
@@ -1313,15 +1365,76 @@ def phase_front_end_kernels(dev, rng) -> dict:
                               **synth_bound(onset, row, gain, table, lengths, length)})
         del event, within, index, source, flat
 
-    # band_energies against its plain version, on frames of kit renders
+    # band_energies: the waveform entry (the front end's) against its plain
+    # version on kit renders, M 1 and 64 at three tempos and the shapes phases
+    # 12 and 13 give it; one request and a chunk of 64 at 120 bpm timed
     band_checks, band_timings = [], []
-    for grids, qpm in [(loops[:1], 120.0), (loops, 120.0)] + main_path:
-        is_timed = len(band_checks) < 2  # one request and a chunk of 64 at 120 bpm
+    hop, n_fft, window = params.hop_length, params.n_fft, mso._window(params.n_fft, dev)
+    for case, (grids, qpm) in enumerate(cases):
+        m, tempo = len(grids), qpm if np.isscalar(qpm) else [qpm.min(), qpm.max()]
         onset, row, gain, table, lengths, length = events_for(dev, grids, qpm, params)
         waves = SYNTH(onset, row, gain, table, lengths, length)
-        waves = waves / waves.abs().amax(dim=-1, keepdim=True).clamp_min(1e-9)
-        frames = mso._windowed_frames(waves, params).reshape(-1, params.n_fft)
-        n = frames.shape[0]
+        y = waves / waves.abs().amax(dim=-1, keepdim=True).clamp_min(1e-9)
+        del waves
+        got = BAND_AUDIO(y, fb_t, window, hop, n_fft)
+        again = BAND_AUDIO(y, fb_t, window, hop, n_fft)
+        torch.cuda.synchronize()
+        want = be.band_energies_from_audio_plain(y, fb_t, window, hop, n_fft)
+        err, scale = max_err(got, want), float(want.abs().max())
+        f = be.n_frames(length, hop, n_fft)
+        check(got.shape == (m, f, 16) and err <= 1e-4 * scale,
+              f"band_energies_from_audio != plain version at M {m}, {tempo} bpm: "
+              f"{err} > 1e-4 * {scale}")
+        check(torch.equal(got, again), f"band_energies_from_audio reruns differ at M {m}")
+        del again, want
+        # the library route from the same waveform: framing, rfft (keeps the
+        # Nyquist bin), abs, one matmul; timed, never used by the port
+        library = lambda: torch.fft.rfft(mso._windowed_frames(y, params)).abs() @ fb_t  # noqa: E731
+        lib_err = max_err(got, library())
+        check(lib_err <= 2e-4 * scale, f"kernel vs rfft route at M {m}: {lib_err}")
+        band_checks.append({"entry": "waveform", "M": m, "qpm": tempo, "N": m * f,
+                            "max_abs_err": err, "max_ref": scale, "bitwise_repeat": True,
+                            "max_abs_err_vs_rfft": lib_err})
+        if not (case < 6 and qpm == 120.0):  # M 1 and 64 at 120 bpm
+            del y, got
+            continue
+        stft = lambda: (torch.stft(  # noqa: E731
+            y, n_fft, hop, params.win_length, window=hann, center=True, pad_mode="reflect",
+            return_complex=True).abs().transpose(1, 2) @ fb_t)
+        conv = lambda: mso.stft_magnitude_conv(y, params) @ fb_t  # noqa: E731
+        check(max_err(library(), stft()) <= 2e-4 * scale
+              and max_err(library(), conv()) <= 2e-4 * scale,
+              f"library routes disagree at M {m}")
+        row_t = timed(lambda: BAND_AUDIO(y, fb_t, window, hop, n_fft),
+                      lambda: be.band_energies_from_audio_plain(y, fb_t, window, hop, n_fft))
+        lib_device = device_us(library, 5)
+        bnd = band_audio_bound(m, length, f)
+        band_timings.append({
+            "M": m, "N": m * f, "length": length, **row_t,
+            "library_ms": [time_us(library, 20) / 1e3 for _ in range(2)],
+            "library_device_ms": sum(us for us, _ in lib_device.values()) / 1e3,
+            "library_device_launches": sum(c for _, c in lib_device.values()),
+            "stft_matmul_ms": [time_us(stft, 20) / 1e3 for _ in range(2)],
+            "conv_matmul_ms": [time_us(conv, 10) / 1e3 for _ in range(2)],
+            "framing_ms": time_us(lambda: mso._windowed_frames(y, params), 20) / 1e3,
+            **bnd,
+            "bound_share_of_device_time": bnd["bound_ms"] / max(row_t["kernel_device_ms"], 1e-12),
+            "frames_bytes_bound_ms": band_bound(m * f)["bound_ms"],
+            "dense_dft_ms": band_bound(m * f)["dense_dft_ms"]})
+        del y, got
+
+    # the frames entry (the JAX kernel's signature; the same kernel with hop
+    # n_fft, no padding, no window) at ragged N, on frames of phase 13's 256
+    # loops rendered at 90 bpm (549 frames each); N 418 and 26,752 timed
+    onset, row, gain, table, lengths, length = events_for(dev, aug_grids, 90.0, params)
+    waves = SYNTH(onset, row, gain, table, lengths, length)
+    waves = waves / waves.abs().amax(dim=-1, keepdim=True).clamp_min(1e-9)
+    all_frames = mso._windowed_frames(waves, params).reshape(-1, n_fft)
+    del waves
+    frame_timings = []
+    for n in (1, 417, 418, 26752, 140544):
+        check(all_frames.shape[0] >= n, f"the render gives {all_frames.shape[0]} frames, not {n}")
+        frames = all_frames[:n]
         got, again = BAND(frames, fb_t), BAND(frames, fb_t)
         torch.cuda.synchronize()
         want = be.band_energies_plain(frames, fb_t)
@@ -1329,57 +1442,29 @@ def phase_front_end_kernels(dev, rng) -> dict:
         check(got.shape == (n, 16) and err <= 1e-4 * scale,
               f"band_energies != plain version at N {n}: {err} > 1e-4 * {scale}")
         check(torch.equal(got, again), f"band_energies reruns differ at N {n}")
-        del again, want
         fft = lambda: torch.fft.rfft(frames).abs() @ fb_t  # noqa: E731
         fft_err = max_err(got, fft())
         check(fft_err <= 2e-4 * scale, f"kernel vs rfft at N {n}: {fft_err}")
-        band_checks.append({"M": len(grids), "N": n, "max_abs_err": err, "max_ref": scale,
+        band_checks.append({"entry": "frames", "N": n, "max_abs_err": err, "max_ref": scale,
                             "bitwise_repeat": True, "max_abs_err_vs_rfft": fft_err})
-        if not is_timed:
-            del frames, waves, got
-            continue
-        stft = lambda: (torch.stft(  # noqa: E731
-            waves, params.n_fft, params.hop_length, params.win_length, window=hann,
-            center=True, pad_mode="reflect", return_complex=True).abs().transpose(1, 2)
-            @ fb_t).reshape(-1, 16)
-        conv = lambda: (mso.stft_magnitude_conv(waves, params) @ fb_t).reshape(-1, 16)  # noqa: E731
-        check(max_err(fft(), stft()) <= 2e-4 * scale and max_err(fft(), conv()) <= 2e-4 * scale,
-              f"library routes disagree at N {n}")
-        row_t = timed(lambda: BAND(frames, fb_t), lambda: be.band_energies_plain(frames, fb_t))
-        band_timings.append({
-            "N": n, **row_t,
-            "rfft_matmul_ms": [time_us(fft, 20) / 1e3 for _ in range(2)],
-            "stft_matmul_ms": [time_us(stft, 20) / 1e3 for _ in range(2)],
-            "conv_matmul_ms": [time_us(conv, 10) / 1e3 for _ in range(2)],
-            "framing_ms": time_us(lambda: mso._windowed_frames(waves, params).reshape(
-                -1, params.n_fft), 20) / 1e3,
-            **band_bound(n)})
-        if be.bin_split(n, params.n_fft) > 1:
-            # what the split of the bin tiles over more blocks buys at this N:
-            # the same call with one block per row block, in turns
-            split_on = lambda: BAND(frames, fb_t)  # noqa: E731
-            saved = be.bin_split
-            try:
-                be.bin_split = lambda frames_n, n_fft: 1
-                unsplit = BAND(frames, fb_t)
-                check(max_err(unsplit, got) <= 1e-4 * scale, "unsplit band_energies differs")
-                a1 = time_us(split_on, 50)
-                be.bin_split = saved
-                s1, s2 = time_us(split_on, 50), time_us(split_on, 50)
-                be.bin_split = lambda frames_n, n_fft: 1
-                a2 = time_us(split_on, 50)
-            finally:
-                be.bin_split = saved
-            band_timings[-1]["unsplit_ms"] = [a1 / 1e3, a2 / 1e3]
-            band_timings[-1]["split_ms"] = [s1 / 1e3, s2 / 1e3]
-            band_timings[-1]["split"] = be.bin_split(n, params.n_fft)
+        if n in (418, 26752):
+            row_t = timed(lambda: BAND(frames, fb_t), lambda: be.band_energies_plain(frames, fb_t))
+            frame_timings.append({"N": n, **row_t,
+                                  "rfft_matmul_ms": [time_us(fft, 20) / 1e3 for _ in range(2)],
+                                  **band_bound(n)})
+        del got, again, want
+    del all_frames
     emit({"phase": "front_end_kernels",
-          "bars": {"band_energies": "1e-4 * max|ref| (f32 sums of 1,024 terms, another order)",
+          "bars": {"band_energies": "1e-4 * max|ref| (an f32 FFT against the plain version's "
+                                    "dense f32 products)",
                    "device_synth": "bit for bit"},
           "device_synth": {"checks": synth_checks, "timings": synth_timings},
-          "band_energies": {"checks": band_checks, "timings": band_timings}})
-    return {"synth_err": worst_synth, "band_err": max(c["max_abs_err"] for c in band_checks),
-            "synth_timings": synth_timings, "band_timings": band_timings}
+          "band_energies": {"checks": band_checks, "timings": band_timings,
+                            "frames_entry_timings": frame_timings}})
+    return {"synth_err": worst_synth,
+            "band_err": max(c["max_abs_err"] for c in band_checks),
+            "synth_timings": synth_timings, "band_timings": band_timings,
+            "band_frame_timings": frame_timings}
 
 
 def onsets_agree(grids: np.ndarray, qpms: np.ndarray, length: int, sr: int = 44100):
@@ -1401,16 +1486,17 @@ def phase_front_end(dev, rng) -> None:
     qpms = np.random.default_rng(23).uniform(60.0, 200.0, 64)
     reset_front_end_launches()
     got = mso.mso_batch_from_hvo(grids, None, qpms, device=dev, chunk_size=64)
-    counts = {"device_synth": SYNTH.launches, "band_energies": BAND.launches}
+    counts = {"device_synth": SYNTH_K.launches, "band_energies": BAND_K.launches}
     check(counts == {"device_synth": 1, "band_energies": 1},
           f"one chunk of 64 launched {counts}, expected each kernel once")
     got32 = mso.mso_batch_from_hvo(grids, None, qpms, device=dev, chunk_size=32)
-    check((SYNTH.launches, BAND.launches) == (3, 3), "two chunks of 32: one launch per chunk each")
+    check((SYNTH_K.launches, BAND_K.launches) == (3, 3),
+          "two chunks of 32: one launch per chunk each")
     check(got.shape == (64, 32, 16) and np.isfinite(got).all() and got.min() >= 0
           and got.max() > 0.5, "bad MSO from the kernel route")
     with plain_front_end():
         plain = mso.mso_batch_from_hvo(grids, None, qpms, device=dev, method="fused")
-    check((SYNTH.launches, BAND.launches) == (3, 3), "the plain route launched a kernel")
+    check((SYNTH_K.launches, BAND_K.launches) == (3, 3), "the plain route launched a kernel")
     host = mso.mso_batch_from_hvo(grids, None, qpms, device="cpu")  # numpy mixer + "fft"
     scale = float(np.abs(host).max())
     errs = {}
@@ -1464,11 +1550,11 @@ def phase_serve_hvo(dev, rng, sd, srv) -> dict:
     loops = Loops(40, 25).processed_outputs
     requests = [(loops[0], 90.0), (loops[:6], 120.0), (loops, 150.0)]
     chunks = [1, 1, 2]  # model buckets (1, 8, 32): 1 | 8 | 32 + 8; front end: 1 chunk each
-    fused_mha.launches = 0  # the main path's run starts here
+    MHA.launches = 0  # the main path's run starts here
     reset_front_end_launches()
     out = [srv.infill_from_hvo(g, qpm=q) for g, q in requests]
-    counts = {"fused_mha": fused_mha.launches, "band_energies": BAND.launches,
-              "device_synth": SYNTH.launches}  # ... and ends here
+    counts = {"fused_mha": MHA.launches, "band_energies": BAND_K.launches,
+              "device_synth": SYNTH_K.launches}  # ... and ends here
     check(counts == {"fused_mha": 6 * sum(chunks), "band_energies": 3, "device_synth": 3},
           f"hvo_input requests launched {counts}; expected 6 fused_mha per model chunk "
           f"({6 * sum(chunks)}) and the front-end kernels once per request")
@@ -1548,8 +1634,8 @@ def phase_train_augment(dev, rng) -> dict:
     reset_launches()  # the main path's run starts here
     reset_front_end_launches()
     metrics = [fetch(epoch_fn(bundle.state, base, base, gen)) for _ in range(epochs)]
-    counts = {**launches(), "band_energies": BAND.launches,
-              "device_synth": SYNTH.launches}  # ... and ends here
+    counts = {**launches(), "band_energies": BAND_K.launches,
+              "device_synth": SYNTH_K.launches}  # ... and ends here
     steps, n_layers = epochs * (n // batch), FLAGSHIP_HP["num_encoder_decoder_layers"]
     n_chunks = epochs * -(-n // ds.DEFAULT_CHUNK)
     want = {**{k: steps * n_layers for k in fl.KERNELS},
@@ -1561,10 +1647,10 @@ def phase_train_augment(dev, rng) -> dict:
     # seqs/s with the front end inside the epoch, beside the same epoch on
     # inputs rendered once
     inputs, outputs = augment(torch.Generator(dev).manual_seed(1), base, base)
-    before = (SYNTH.launches, BAND.launches)
+    before = (SYNTH_K.launches, BAND_K.launches)
     with plain_front_end():  # the same call, same draws, through the plain versions
         plain_inputs, plain_outputs = augment(torch.Generator(dev).manual_seed(1), base, base)
-    check((SYNTH.launches, BAND.launches) == before, "the plain augment launched a kernel")
+    check((SYNTH_K.launches, BAND_K.launches) == before, "the plain augment launched a kernel")
     augment_err, scale = max_err(inputs, plain_inputs), float(plain_inputs.abs().max())
     check(torch.equal(outputs, plain_outputs)
           and torch.allclose(inputs, plain_inputs, atol=2e-5 * scale, rtol=1e-3),
@@ -1685,9 +1771,9 @@ def phase_serve_encdec(dev, rng, enc_srv) -> dict:
     xs = {n: rng.standard_normal((n, 32, 16)).astype(np.float32) for n in (1, 6, 40)}
     chunks = {1: 1, 6: 1, 40: 2}  # buckets (1, 8, 32): 1 | 8 | 32 + 8
     per_chunk = ENCDEC.num_encoder_layers + 2 * ENCDEC.num_decoder_layers
-    fused_mha.launches = 0  # the main path's run starts here
+    MHA.launches = 0  # the main path's run starts here
     out = {n: srv.infill(x) for n, x in xs.items()}
-    launches_mha = fused_mha.launches  # ... and ends here
+    launches_mha = MHA.launches  # ... and ends here
     check(launches_mha == per_chunk * sum(chunks.values()),
           f"fused_mha launched {launches_mha} times, expected {per_chunk} per forward chunk "
           f"({per_chunk * sum(chunks.values())})")
@@ -1708,11 +1794,11 @@ def phase_serve_encdec(dev, rng, enc_srv) -> dict:
                 for n, x in xs.items())
     # one hvo_input request: the front end's kernels, then 18 attentions
     grid = Loops(1, 34).processed_outputs
-    fused_mha.launches = 0
+    MHA.launches = 0
     reset_front_end_launches()
     y_hvo = srv.infill_from_hvo(grid[0], qpm=120.0)
-    hvo_counts = {"fused_mha": fused_mha.launches, "band_energies": BAND.launches,
-                  "device_synth": SYNTH.launches}
+    hvo_counts = {"fused_mha": MHA.launches, "band_energies": BAND_K.launches,
+                  "device_synth": SYNTH_K.launches}
     check(hvo_counts == {"fused_mha": per_chunk, "band_energies": 1, "device_synth": 1},
           f"one hvo_input request launched {hvo_counts}")
     x_cpu = mso.mso_batch_from_hvo(grid, None, np.full((1,), 120.0), device="cpu",
@@ -2409,8 +2495,19 @@ def main() -> int:
     wide = timed_phase(phase_train_wide, dev, rng)
     xl = timed_phase(phase_train_groovexl, dev, rng)
     emit({"phase_seconds": took})
-    b1 = next(t for t in kernel["timings"]
-              if t["shape"] == [1, 2, 32, 128] and t["dtype"] == "float32")
+    def mha_row(b, dtype, form="contiguous"):
+        return next(t for t in kernel["timings"]
+                    if t["shape"] == [b, 2, 32, 128] and t["dtype"] == dtype and t["form"] == form)
+
+    def mha_at(row):
+        return {"ms": float(np.mean(row["kernel_us"])) / 1000.0,
+                "device_ms": row["kernel_device_us"] / 1000.0,
+                "plain_ms": float(np.mean(row["plain_us"])) / 1000.0,
+                "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+                "library_ms": float(np.mean(row["sdpa_us"])) / 1000.0,
+                "library_device_ms": row["sdpa_device_us"] / 1000.0}
+
+    b1 = mha_row(1, "float32")
     at32 = next(t for t in layer["timings"] if t["B"] == 32 and t["dtype"] == "bfloat16")
     layer_err = layer["max_abs_err"][torch.float32]
     bounds32 = layer_bounds(32, "bfloat16")
@@ -2419,13 +2516,13 @@ def main() -> int:
         "replaces": TPU_KERNEL, "launches": launches_mha,
         "launches_hvo_input_path": hvo["launches"]["fused_mha"],
         "launches_encdec_serving_path": served_encdec["launches"],
-        "max_abs_err": kernel["max_abs_err"],
-        "ms": float(np.mean(b1["kernel_us"])) / 1000.0,
-        "plain_ms": float(np.mean(b1["plain_us"])) / 1000.0,
-        "bound_ms": b1["bound_ms"], "bound_by": b1["bound_by"],
-        "library_ms": float(np.mean(b1["sdpa_us"])) / 1000.0,
-        "at": "B 1, H 2, T 32, hd 128, float32; err over all f32 checks; library: "
-              "scaled_dot_product_attention"}]
+        "max_abs_err": kernel["max_abs_err"], **mha_at(b1),
+        **{f"B{b}_{dtype}_{form}": mha_at(mha_row(b, dtype, form))
+           for b, dtype in ((1, "float32"), (512, "float32"), (512, "bfloat16"), (1, "bfloat16"))
+           for form in MHA_FORMS if (b, dtype, form) != (1, "float32", "contiguous")},
+        "at": "B 1, H 2, T 32, hd 128, float32, contiguous; ms: stream time; device_ms: the "
+              "profiler's per launch; err over all f32 checks; library: "
+              "scaled_dot_product_attention on the same views"}]
     for kname in fl.KERNELS:
         # mean per captured launch (the profiler may lose events)
         device_ms = sum(us / at32["kernel_device_launches"][k]
@@ -2465,25 +2562,33 @@ def main() -> int:
                   "layer checks (y3, 7 residuals, dx, dmem, 20 grads; B 32 and 512; rate 0 "
                   "and 0.30); no one PyTorch call computes a whole layer"})
     band1, band64 = front["band_timings"]
+    frames418, frames26752 = front["band_frame_timings"]
     synth1, synth64 = front["synth_timings"]
+
+    def band_at(row, library_key):
+        return {"N": row["N"], "ms": float(np.mean(row["kernel_ms"])),
+                "device_ms": row["kernel_device_ms"],
+                "plain_ms": float(np.mean(row["plain_ms"])), "bound_ms": row["bound_ms"],
+                "bound_by": row["bound_by"], "library_ms": float(np.mean(row[library_key]))}
+
     kernels.append({
         "name": "band_energies", "route": "cuda", "source": BAND_SOURCE,
         "replaces": BAND_TPU_KERNEL, "launches": hvo["launches"]["band_energies"],
         "launches_audio_augment_path": augmented["launches"]["band_energies"],
-        "max_abs_err": front["band_err"], "ms": float(np.mean(band1["kernel_ms"])),
-        "plain_ms": float(np.mean(band1["plain_ms"])), "bound_ms": band1["bound_ms"],
-        "bound_by": band1["bound_by"], "library_ms": float(np.mean(band1["rfft_matmul_ms"])),
-        "dense_dft_ms": band1["dense_dft_ms"],
-        "chunk_of_64": {"N": band64["N"], "ms": float(np.mean(band64["kernel_ms"])),
-                        "plain_ms": float(np.mean(band64["plain_ms"])),
-                        "bound_ms": band64["bound_ms"], "bound_by": band64["bound_by"],
-                        "library_ms": float(np.mean(band64["rfft_matmul_ms"])),
-                        "dense_dft_ms": band64["dense_dft_ms"]},
-        "at": f"N {band1['N']} frames (one request at 120 bpm) x 1024, float32, stream time; "
-              "library: torch.fft.rfft of the same frames, abs, one matmul; bound: frames "
-              "read once and an FFT's operations; dense_dft_ms: the kernel's own two dense "
-              "DFT products at the f32 peak, no bound; one launch is two kernels (partial "
-              "band sums, then their sum) below 66 row blocks, one above"})
+        "max_abs_err": front["band_err"], **band_at(band1, "library_ms"),
+        "library_device_ms": band1["library_device_ms"],
+        "chunk_of_64": {**band_at(band64, "library_ms"),
+                        "library_device_ms": band64["library_device_ms"]},
+        "frames_entry": {"N 418": band_at(frames418, "rfft_matmul_ms"),
+                         "N 26752": band_at(frames26752, "rfft_matmul_ms")},
+        "at": f"one request at 120 bpm: M 1, {band1['length']} samples, N {band1['N']} "
+              "frames x 1024, float32, through band_energies_from_audio; ms: stream time; "
+              "device_ms: the profiler's per launch; library: _windowed_frames, "
+              "torch.fft.rfft, abs, one matmul from the same waveform; bound: the waveform "
+              "read once and an FFT's operations; err: the largest over every check, each "
+              "held to 1e-4 of its largest band energy; frames_entry: "
+              "band_energies(frames), library rfft of the "
+              "same frames, bound: frames read once"})
     kernels.append({
         "name": "device_synth", "route": "cuda", "source": SYNTH_SOURCE,
         "replaces": SYNTH_TPU_KERNEL, "launches": hvo["launches"]["device_synth"],

@@ -46,10 +46,10 @@ def rng():
 def test_kernel_matches_plain_version(cuda, rng, shape, dtype, tol, causal):
     q, k, v = (torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
                .to(cuda, dtype) for _ in range(3))
-    before = attention.fused_mha.launches
+    before = attention.KERNEL.launches
     got = attention.fused_mha(q, k, v, causal=causal)
     torch.cuda.synchronize()
-    assert attention.fused_mha.launches == before + 1
+    assert attention.KERNEL.launches == before + 1
     want = attention.mha_reference(q, k, v, causal=causal)
     # f32: summation order only; bf16: p and the output rounded to 8 bits
     torch.testing.assert_close(got.float(), want.float(), atol=tol,
@@ -64,6 +64,68 @@ def test_kernel_refuses_a_cpu_tensor_mix(cuda):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("dtype, tol", [(torch.float32, 1e-5), (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("form", ["self", "cross"])
+@pytest.mark.parametrize("b, t, h, hd", [(1, 32, 2, 128), (64, 32, 2, 128), (3, 17, 4, 16),
+                                         (2, 64, 1, 256), (5, 32, 4, 8)])
+def test_kernel_reads_packed_projections(cuda, rng, b, t, h, hd, form, dtype, tol, causal):
+    """The slices of the model's packed qkv (self) or of q and a packed kv
+    (cross) without a copy, against the plain version on contiguous copies;
+    the output a (B, H, T, hd) view of a (B, T, H, hd) buffer. bf16 at hd 16,
+    128, 256 takes the tensor cores, at hd 8 the CUDA-core path."""
+    def n(*shape):
+        return torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(cuda, dtype)
+
+    if form == "self":
+        q, k, v = n(b, t, 3, h, hd).permute(2, 0, 3, 1, 4)
+    else:
+        q = n(b, t, h, hd).transpose(1, 2)
+        k, v = n(b, t, 2, h, hd).permute(2, 0, 3, 1, 4)
+    assert attention.uses_tensor_cores(q, k, v) == (dtype == torch.bfloat16 and hd % 16 == 0)
+    before = attention.KERNEL.launches
+    got = attention.fused_mha(q, k, v, causal=causal)
+    again = attention.fused_mha(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert attention.KERNEL.launches == before + 2
+    assert got.shape == (b, h, t, hd) and got.transpose(1, 2).is_contiguous()
+    assert torch.equal(got, again)
+    want = attention.mha_reference(q.contiguous(), k.contiguous(), v.contiguous(), causal=causal)
+    torch.testing.assert_close(got.float(), want.float(), atol=tol,
+                               rtol=0 if dtype == torch.float32 else tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv", [False, True])
+def test_attention_module_makes_no_copies_around_the_kernel(cuda, rng, kv):
+    """SelfAttention's kernel path in f32 runs the projections, the kernel and
+    the out-projection: no permute, contiguous or output copy."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from transformergrooveinfilling_tpu_torch.models.transformer import SelfAttention
+
+    attn = SelfAttention(256, 2, torch.float32, True, device=cuda)
+    with torch.no_grad():
+        for p in attn.parameters():
+            p.copy_(torch.from_numpy(0.05 * rng.standard_normal(p.shape).astype(np.float32)))
+    x = torch.from_numpy(rng.standard_normal((4, 32, 256)).astype(np.float32)).to(cuda)
+    memory = x.flip(1) if kv else None
+    attn(x, kv=memory)
+    torch.cuda.synchronize()
+    before = attention.KERNEL.launches
+    with profile(activities=[ProfilerActivity.CPU]) as prof, torch.no_grad():
+        out = attn(x, kv=memory)
+        torch.cuda.synchronize()
+    assert attention.KERNEL.launches == before + 1
+    ops = {e.key for e in prof.key_averages()}
+    assert not ops & {"aten::copy_", "aten::clone", "aten::contiguous"}, sorted(ops)
+    plain = SelfAttention(256, 2, torch.float32, False, device=cuda)
+    plain.load_state_dict(attn.state_dict())
+    with torch.no_grad():
+        torch.testing.assert_close(out, plain(x, kv=memory), atol=1e-5, rtol=0)
+
+
+@pytest.mark.cuda
 def test_server_runs_every_layer_through_the_kernel(cuda, rng):
     cfg = GrooveTransformerConfig(d_model=64, n_heads=4, dim_feedforward=128,
                                   num_encoder_layers=2)
@@ -72,9 +134,9 @@ def test_server_runs_every_layer_through_the_kernel(cuda, rng):
     fused = InfillServer(sd, cfg, batch_sizes=(1, 4), device=cuda)
     plain = InfillServer(sd, cfg, batch_sizes=(1, 4), device=cuda, use_kernel=False)
     x = rng.standard_normal((6, 32, 16)).astype(np.float32)
-    before = attention.fused_mha.launches
+    before = attention.KERNEL.launches
     got = fused.infill(x)  # 6 → two chunks of bucket 4
-    assert attention.fused_mha.launches - before == 2 * cfg.num_encoder_layers
+    assert attention.KERNEL.launches - before == 2 * cfg.num_encoder_layers
     np.testing.assert_allclose(got[..., 9:], plain.infill(x)[..., 9:], atol=1e-4)
 
 
@@ -292,9 +354,9 @@ def test_encoder_decoder_server_runs_18_attentions_through_the_kernel(cuda, rng)
     fused = InfillServer(sd, cfg, batch_sizes=(1, 4), device=cuda)
     plain = InfillServer(sd, cfg, batch_sizes=(1, 4), device=cuda, use_kernel=False)
     x = rng.standard_normal((6, 32, 16)).astype(np.float32)
-    before = attention.fused_mha.launches
+    before = attention.KERNEL.launches
     got = fused.infill(x)  # 6 → two chunks of bucket 4
-    assert attention.fused_mha.launches - before == 2 * 18
+    assert attention.KERNEL.launches - before == 2 * 18
     np.testing.assert_allclose(got[..., 9:], plain.infill(x)[..., 9:], atol=1e-4)
 
 
@@ -310,22 +372,48 @@ def _grids(rng, m, density=0.3):
 @pytest.mark.cuda
 @pytest.mark.parametrize("n", [1, 417, 418, 26752, 140544])
 def test_band_energies_kernel_matches_plain_version(cuda, rng, n):
-    """Ragged frame counts (one frame; one short of, and exactly, one request;
-    a chunk of 64; a chunk of 256 at 90 bpm), split and unsplit bin tiles. f32 sums of 1,024 terms in
-    another order than cuBLAS takes them: 1e-4 of the largest band energy."""
+    """The frames entry at ragged frame counts (one frame; one short of, and
+    exactly, one request; a chunk of 64; a chunk of 256 at 90 bpm): an FFT
+    against the plain version's dense f32 products, sums of 1,024 terms in
+    another order: 1e-4 of the largest band energy."""
     frames = torch.from_numpy(rng.standard_normal((n, 1024)).astype(np.float32)).to(cuda)
     fb_t = mso._filterbank(mso.MSOParams(), frames.device)[1]
-    before = band_energies.band_energies.launches
+    before = band_energies.KERNEL.launches
     got = band_energies.band_energies(frames, fb_t)
     again = band_energies.band_energies(frames, fb_t)
     torch.cuda.synchronize()
-    assert band_energies.band_energies.launches == before + 2
+    assert band_energies.KERNEL.launches == before + 2
     assert got.shape == (n, 16) and torch.equal(got, again)  # no atomics: bit-identical
     want = band_energies.band_energies_plain(frames, fb_t)
     assert float((got - want).abs().max()) <= 1e-4 * float(want.abs().max())
     # against the rFFT, which keeps the Nyquist bin
     fft = torch.fft.rfft(frames).abs() @ fb_t
     torch.testing.assert_close(got, fft, rtol=2e-4, atol=2e-4 * float(fft.abs().max()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("qpm", [90.0, 120.0, 150.0])
+@pytest.mark.parametrize("m", [1, 3, 64])
+def test_band_energies_from_audio_matches_plain_version(cuda, rng, m, qpm):
+    """The waveform entry (framing, reflection and window inside the kernel)
+    against the plain version (frames materialised, dense f32 products) at the
+    front end's lengths; reruns bit-identical."""
+    params = mso.MSOParams()
+    length = mso.mso_waveform_length(32, qpm / 15.0, params) + m  # ragged lengths
+    y = torch.from_numpy(rng.standard_normal((m, length)).astype(np.float32)).to(cuda)
+    fb_t = mso._filterbank(params, cuda)[1]
+    window = mso.hann_window(params.n_fft, cuda)
+    before = band_energies.KERNEL.launches
+    got = band_energies.band_energies_from_audio(y, fb_t, window, params.hop_length, params.n_fft)
+    again = band_energies.band_energies_from_audio(y, fb_t, window, params.hop_length,
+                                                   params.n_fft)
+    torch.cuda.synchronize()
+    assert band_energies.KERNEL.launches == before + 2
+    assert torch.equal(got, again)
+    want = band_energies.band_energies_from_audio_plain(y, fb_t, window, params.hop_length,
+                                                        params.n_fft)
+    assert got.shape == want.shape == (m, 1 + length // params.hop_length, 16)
+    assert float((got - want).abs().max()) <= 1e-4 * float(want.abs().max())
 
 
 @pytest.mark.cuda
@@ -352,10 +440,10 @@ def test_synth_kernel_equals_plain_version_bit_for_bit(cuda, rng, m, qpm):
     length = mso.mso_waveform_length(32, qpm / 15.0, params)
     onset, row, gain = device_synth._extract_events(hvos, sps, zeros, length, 44100.0, luts,
                                                     zeros)
-    before = device_synth.synth_events.launches
+    before = device_synth.KERNEL.launches
     got = device_synth.synth_events(onset, row, gain, table, lengths, length)
     torch.cuda.synchronize()
-    assert device_synth.synth_events.launches == before + 1 and got.shape == (m, length)
+    assert device_synth.KERNEL.launches == before + 1 and got.shape == (m, length)
     assert torch.equal(got, device_synth.synth_events_plain(onset, row, gain, table, length))
     # and the plain version on the CPU: the same sums in the same order
     cpu = device_synth.synth_events_plain(onset.cpu(), row.cpu(), gain.cpu(), table.cpu(),
@@ -369,10 +457,10 @@ def test_synth_kernel_equals_plain_version_bit_for_bit(cuda, rng, m, qpm):
 def test_front_end_on_the_card_matches_the_plain_and_host_routes(cuda, rng):
     hvos = _grids(rng, 70)
     qpms = np.linspace(60.0, 200.0, 70)
-    counts = (device_synth.synth_events.launches, band_energies.band_energies.launches)
+    counts = (device_synth.KERNEL.launches, band_energies.KERNEL.launches)
     got = mso.mso_batch_from_hvo(hvos, None, qpms, device=cuda, chunk_size=64)  # 64 + 6
-    assert (device_synth.synth_events.launches - counts[0],
-            band_energies.band_energies.launches - counts[1]) == (2, 2)
+    assert (device_synth.KERNEL.launches - counts[0],
+            band_energies.KERNEL.launches - counts[1]) == (2, 2)
     scale = float(np.abs(got).max())
     plain = mso.mso_batch_from_hvo(hvos, None, qpms, device="cpu", device_synth=True,
                                    method="fused")
@@ -404,14 +492,14 @@ def test_audio_server_answers_hvo_input_through_every_kernel(cuda, rng):
     sd = build_model(cfg, "cpu").state_dict()
     card = InfillServer(sd, cfg, batch_sizes=(1, 4), device=cuda)
     cpu = InfillServer(sd, cfg, batch_sizes=(1, 4), device="cpu")
-    assert device_synth.synth_events.launches > 0  # the front end was warmed at start-up
+    assert device_synth.KERNEL.launches > 0  # the front end was warmed at start-up
     grids = _grids(rng, 3)
-    counts = (device_synth.synth_events.launches, band_energies.band_energies.launches,
-              attention.fused_mha.launches)
+    counts = (device_synth.KERNEL.launches, band_energies.KERNEL.launches,
+              attention.KERNEL.launches)
     got = card.infill_from_hvo(grids, qpm=97.0)
-    assert (device_synth.synth_events.launches - counts[0],
-            band_energies.band_energies.launches - counts[1],
-            attention.fused_mha.launches - counts[2]) == (1, 1, cfg.num_encoder_layers)
+    assert (device_synth.KERNEL.launches - counts[0],
+            band_energies.KERNEL.launches - counts[1],
+            attention.KERNEL.launches - counts[2]) == (1, 1, cfg.num_encoder_layers)
     # the plain versions on the CPU, by the same (f32-onset) device route; the
     # CPU server's own route is the host mixer, whose f64 onsets may differ
     mso_cpu = mso.mso_batch_from_hvo(grids, None, np.full(3, 97.0), device="cpu",
@@ -427,12 +515,12 @@ def test_audio_augmented_training_runs_every_kernel(cuda, rng):
     base = torch.from_numpy(_grids(rng, 24)).to(cuda)
     augment = make_on_device_augment(qpms=np.linspace(90.0, 150.0, 24), mode="audio", chunk=16)
     epoch = make_epoch_fn(0.73, 8, 24, augment=augment)
-    counts = (device_synth.synth_events.launches, band_energies.band_energies.launches)
+    counts = (device_synth.KERNEL.launches, band_energies.KERNEL.launches)
     before = {k: f.launches for k, f in fused_layer.KERNELS.items()}
     gen = torch.Generator(cuda).manual_seed(0)
     losses = [float(epoch(state, base, base, gen)["loss"]) for _ in range(4)]
-    assert (device_synth.synth_events.launches - counts[0],
-            band_energies.band_energies.launches - counts[1]) == (8, 8)  # 2 chunks × 4 epochs
+    assert (device_synth.KERNEL.launches - counts[0],
+            band_energies.KERNEL.launches - counts[1]) == (8, 8)  # 2 chunks × 4 epochs
     assert {k: f.launches - before[k] for k, f in fused_layer.KERNELS.items()} == {
         k: 4 * 3 * 2 for k in fused_layer.KERNELS}
     assert np.isfinite(losses).all() and losses[-1] < losses[0]

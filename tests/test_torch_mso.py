@@ -162,9 +162,9 @@ def test_band_energies_plain_matches_pallas_interpret_and_rfft(rng):
     # against the rFFT, which keeps the Nyquist bin: the JAX test's own bar
     ref = band_energies_reference(jnp.asarray(frames), jnp.asarray(fb_t))
     np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=2e-4, atol=2e-4)
-    before = BE.band_energies.launches
+    before = BE.KERNEL.launches
     BE.band_energies(torch.from_numpy(frames), torch.from_numpy(fb_t))
-    assert BE.band_energies.launches == before  # the plain version is no launch
+    assert BE.KERNEL.launches == before  # the plain version is no launch
 
 
 def test_band_energies_basis_and_split():
@@ -174,8 +174,15 @@ def test_band_energies_basis_and_split():
 
     np.testing.assert_array_equal(cos_b.numpy(), _dft_basis(1024)[0])
     np.testing.assert_array_equal(sin_b.numpy(), _dft_basis(1024)[1])
-    assert BE.bin_split(418, 1024) == 8 and BE.bin_split(26752, 1024) == 1
-    assert BE.bin_split(65 * 64 + 1, 1024) == 1 and BE.bin_split(65 * 64, 1024) == 8
+    # the kernel's FFT twiddles exp(-2πi·m/1024): f64 angles, one cast to f32
+    tw = BE.twiddle_table(1024)
+    assert tw.shape == (1024, 2) and tw.dtype == np.float32
+    w = np.exp(-2j * np.pi * np.arange(1024, dtype=np.float64) / 1024)
+    np.testing.assert_array_equal(tw[:, 0], w.real.astype(np.float32))
+    np.testing.assert_array_equal(tw[:, 1], w.imag.astype(np.float32))
+    # and the split step's twiddles are the DFT basis's first row of bins
+    np.testing.assert_array_equal(tw[:512, 0], _dft_basis(1024)[0][1])
+    np.testing.assert_array_equal(tw[:512, 1], _dft_basis(1024)[1][1])
 
 
 def test_band_energies_kernel_argument_checks():
@@ -186,6 +193,41 @@ def test_band_energies_kernel_argument_checks():
                                (frames[None], fb_t), (frames.T.contiguous().T, fb_t)):
         with pytest.raises(ValueError):
             BE.check_kernel_args(bad_frames, bad_fb)
+
+
+@pytest.mark.parametrize("qpm", [90.0, 120.0, 150.0])
+def test_band_energies_from_audio_plain_matches_pallas_on_jax_frames(renders, qpm):
+    """The waveform entry's plain path (framing by ``_reflect_pad`` + unfold
+    on the CPU) against the JAX kernel in interpret mode on frames the JAX
+    package cut itself, at the length of one request at three tempos."""
+    length = M.mso_waveform_length(32, qpm / 15.0, P)
+    y = np.resize(renders[1], (2, length)).astype(np.float32)
+    y[1] = y[1, ::-1]
+    fb_t = M.log_frequency_filterbank(P).T.copy()
+    got = BE.band_energies_from_audio(torch.from_numpy(y), torch.from_numpy(fb_t),
+                                      M.hann_window(P.n_fft), P.hop_length, P.n_fft)
+    n = BE.n_frames(length, P.hop_length, P.n_fft)
+    assert got.shape == (2, n, 16) and n == 1 + length // P.hop_length
+    frames = J._windowed_frames(jnp.asarray(y), JP)
+    assert frames.shape == (2, n, P.n_fft)
+    want = band_energies_pallas(frames.reshape(-1, P.n_fft), jnp.asarray(fb_t), interpret=True)
+    close(got.reshape(-1, 16), want, 1e-5, rtol=1e-4)
+    # the plain version of the frames entry on the port's own frames: the same
+    # products on the same values
+    frames_port = M._windowed_frames(torch.from_numpy(y), P).reshape(-1, P.n_fft)
+    assert torch.equal(got.reshape(-1, 16), BE.band_energies(frames_port, torch.from_numpy(fb_t)))
+
+
+def test_band_energies_from_audio_argument_checks():
+    y, fb_t, win = torch.zeros(2, 5000), torch.zeros(513, 16), torch.zeros(1024)
+    BE.check_audio_args(y, fb_t, win, 441, 1024)
+    for bad in ((y.double(), fb_t, win, 441, 1024), (y, fb_t, win[:1000], 441, 1024),
+                (y, fb_t, win, 441, 2048), (y[:, :512].contiguous(), fb_t, win, 441, 1024),
+                (y.T.contiguous().T, fb_t, win, 441, 1024), (y, fb_t[:, :8], win, 441, 1024),
+                (y, fb_t[:500], win, 441, 1024), (y[0], fb_t, win, 441, 1024),
+                (y, fb_t, win, 0, 1024)):
+        with pytest.raises(ValueError):
+            BE.check_audio_args(*bad)
 
 
 # ------------------------------------------------------------ mso_batch

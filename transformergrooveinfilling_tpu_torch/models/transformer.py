@@ -266,15 +266,17 @@ class SelfAttention(nn.Module):
         kernel path is deterministic only)."""
         b, t, d = x.shape
         h = self.n_heads
+        # (B, H, T, hd) views of the packed projections, no copies: the
+        # kernel reads them through their strides and writes its output as
+        # (B, T, H, hd), so the transpose back below is a view as well
         if kv is None:
             qkv = _linear(x, self.in_proj_weight, self.in_proj_bias, self.dtype)
-            # one copy into (3, B, H, T, hd): q, k, v come out contiguous
-            q, k, v = qkv.view(b, t, 3, h, d // h).permute(2, 0, 3, 1, 4).contiguous()
+            q, k, v = qkv.view(b, t, 3, h, d // h).permute(2, 0, 3, 1, 4)
         else:
             q = _linear(x, self.in_proj_weight[:d], self.in_proj_bias[:d], self.dtype)
-            q = q.view(b, t, h, d // h).transpose(1, 2).contiguous()
+            q = q.view(b, t, h, d // h).transpose(1, 2)
             k_v = _linear(kv, self.in_proj_weight[d:], self.in_proj_bias[d:], self.dtype)
-            k, v = k_v.view(b, kv.shape[1], 2, h, d // h).permute(2, 0, 3, 1, 4).contiguous()
+            k, v = k_v.view(b, kv.shape[1], 2, h, d // h).permute(2, 0, 3, 1, 4)
         if dropout is None:
             out = self.attend(q, k, v, self.causal)
         else:

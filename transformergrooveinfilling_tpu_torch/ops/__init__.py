@@ -1,8 +1,9 @@
 """Hand-written CUDA kernels' wrappers, each beside its plain PyTorch version,
 and the MSO DSP and on-device drum synthesis built on them.
 
-The band-energy kernel's wrapper is ``ops.band_energies.band_energies``: the
-function is not re-exported here, since it shares its module's name.
+The band-energy kernel's wrappers are ``ops.band_energies.band_energies``
+(frames) and ``ops.band_energies.band_energies_from_audio`` (waveforms): they
+are not re-exported here, since the first shares its module's name.
 """
 
 from . import band_energies, device_synth, mso

@@ -82,8 +82,9 @@ class CountedKernel:
 
     @staticmethod
     def pointers(tensors) -> list:
-        """The entry point's leading arguments: one device pointer a tensor."""
-        return [t.data_ptr() for t in tensors]
+        """The entry point's leading arguments: one device pointer a tensor,
+        a null pointer for None."""
+        return [None if t is None else t.data_ptr() for t in tensors]
 
     def launch(self, tensors, scalars, device) -> None:
         """Call the entry point with the tensors' device pointers, then

@@ -51,7 +51,6 @@ from __future__ import annotations
 
 import ctypes
 import functools
-import threading
 
 import numpy as np
 import torch
@@ -64,7 +63,6 @@ MAX_ITEMS = 65535          # gridDim.y
 MAX_EVENT_SMEM = 48 * 1024  # static limit of dynamic shared memory, 16 B per event
 
 _table_cache: dict = {}
-_count_lock = threading.Lock()
 
 
 def pack_tables(sf_paths, sr: int = 44100, s_max: int | None = None, device="cuda"):
@@ -157,14 +155,17 @@ def synth_events_plain(onset, row, gain, table, length: int) -> torch.Tensor:
 
 
 @functools.cache
-def _kernel():
+def _library():
     lib = _build.load_library("device_synth")
-    fn = lib.tgi_device_synth
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    lib.tgi_device_synth.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [
+        ctypes.c_void_p]
+    lib.tgi_device_synth.restype = ctypes.c_int
     lib.tgi_cuda_error_string.argtypes = [ctypes.c_int]
     lib.tgi_cuda_error_string.restype = ctypes.c_char_p
-    return fn, lib.tgi_cuda_error_string
+    return lib
+
+
+KERNEL = _build.CountedKernel(_library, "tgi_device_synth", "tgi_cuda_error_string")
 
 
 def synth_events(onset, row, gain, table, lengths, length: int) -> torch.Tensor:
@@ -174,7 +175,7 @@ def synth_events(onset, row, gain, table, lengths, length: int) -> torch.Tensor:
 
     CUDA tensors go through the hand-written kernel; CPU tensors through
     :func:`synth_events_plain`. Each kernel launch adds one to
-    ``synth_events.launches``.
+    ``KERNEL.launches``.
     """
     tensors = (onset, row, gain, table, lengths)
     if all(t.device.type == "cpu" for t in tensors):
@@ -197,21 +198,10 @@ def synth_events(onset, row, gain, table, lengths, length: int) -> torch.Tensor:
                          f"E {n_events}, length {length}")
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("device_synth kernel takes contiguous tensors")
-    launch, error_string = _kernel()
     out = torch.empty((m, length), dtype=torch.float32, device=table.device)
-    with torch.cuda.device(table.device):
-        rc = launch(onset.data_ptr(), row.data_ptr(), gain.data_ptr(), table.data_ptr(),
-                    lengths.data_ptr(), out.data_ptr(), m, n_events, table.shape[1], length,
-                    torch.cuda.current_stream(table.device).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"device_synth kernel launch failed at M {m}, E {n_events}, length "
-                           f"{length}: {error_string(rc).decode()} (cudaError {rc})")
-    with _count_lock:
-        synth_events.launches += 1
+    KERNEL.launch((onset, row, gain, table, lengths, out), (m, n_events, table.shape[1], length),
+                  table.device)
     return out
-
-
-synth_events.launches = 0
 
 
 @torch.no_grad()

@@ -13,27 +13,29 @@ centres log-spaced over 9 octaves from 40 Hz, mean filter 22):
 
 Which method computes the band energies (:func:`mso_batch`):
 
-- ``"fused"`` (alias ``"pallas"``, ``use_pallas=True``): windowed frames
-  through ``ops/band_energies.py`` — the hand-written CUDA kernel on a CUDA
-  tensor, its plain version on a CPU tensor. The default on a CUDA tensor.
+- ``"fused"`` (alias ``"pallas"``, ``use_pallas=True``): the peak-normalised
+  waveform through ``ops/band_energies.py::band_energies_from_audio`` — the
+  hand-written CUDA kernel on a CUDA tensor, which frames, windows and
+  transforms inside the kernel (no frame tensor is materialised); the plain
+  version (framed, two dense DFT products) on a CPU tensor. The default on a
+  CUDA tensor. Needs ``win_length == n_fft``.
 - ``"fft"``: ``torch.fft.rfft`` over the frames (cuFFT on the card). The
   default on a CPU tensor.
 - ``"conv"``: framing + DFT as one strided ``conv1d``.
 
 The JAX package picks ``"conv"`` on a TPU because an rFFT is poor there; that
 is no fact about an H100, where all three are timed side by side
-(``chip_smoke.py``, PERF.md): grids → MSO for 512 loops at 120 bpm on an
-NVIDIA H100 80GB HBM3 at 700 W runs at 22,600–31,500 loops/s by ``"fused"``,
-46,700–84,400 by ``"fft"`` and 22,500–24,900 by ``"conv"`` (chunks of 64 to
-256). ``"fft"`` is 2.1–2.7× faster than the kernel today; the kernel is the
-default on CUDA tensors nonetheless, and its redesign is queued (ROADMAP.md).
+(``chip_smoke.py`` phase 11, PERF.md §5): grids → MSO for 512 loops at 120 bpm
+on an NVIDIA H100 80GB HBM3 at 700 W runs at 36,000–110,400 loops/s by
+``"fused"``, 23,600–78,900 by ``"fft"`` and 20,300–24,100 by ``"conv"``
+(chunks of 64 to 256; the kernel route at least as fast at every chunk size).
 ``"fft"`` keeps the Nyquist bin, ``"fused"`` drops it (as the TPU kernel
 does); the filterbank has almost no weight there.
 
 Precision: the DFT sums 1,024 nearly cancelling terms, so no route may run in
 TF32. ``"conv"`` switches cuDNN's TF32 off for its call; the plain products of
 ``"fused"`` need ``torch.backends.cuda.matmul.allow_tf32`` False (PyTorch's
-default), and the kernel uses plain f32 FMAs.
+default), and the kernel's FFT is plain f32 arithmetic.
 """
 
 from __future__ import annotations
@@ -70,6 +72,12 @@ def hann_window(n: int, device=None) -> torch.Tensor:
     """Periodic Hann window, in f32 as the JAX package computes it."""
     return 0.5 - 0.5 * torch.cos(2 * math.pi * torch.arange(n, dtype=torch.float32,
                                                             device=device) / n)
+
+
+@functools.lru_cache(maxsize=8)
+def _window(n: int, device: torch.device) -> torch.Tensor:
+    """:func:`hann_window` resident on ``device``."""
+    return hann_window(n, device)
 
 
 @functools.lru_cache(maxsize=8)
@@ -231,12 +239,13 @@ def mso_batch(y: torch.Tensor, steps_per_sec, n_steps: int, params: MSOParams,
     y = y / peak.clamp_min(1e-9)
     fb, fb_t = _filterbank(params, y.device)
     if method == "fused":
-        from .band_energies import band_energies
+        from .band_energies import band_energies_from_audio
 
-        frames = _windowed_frames(y, params)
-        m, f = frames.shape[0], frames.shape[1]
-        bands = band_energies(frames.reshape(m * f, params.n_fft), fb_t).reshape(
-            m, f, params.n_bands)
+        if params.win_length != params.n_fft:
+            raise ValueError("the fused method frames inside the kernel and needs "
+                             "win_length == n_fft")
+        bands = band_energies_from_audio(y, fb_t, _window(params.n_fft, y.device),
+                                         params.hop_length, params.n_fft)
     elif method == "conv":
         bands = stft_magnitude_conv(y, params) @ fb_t
     else:
