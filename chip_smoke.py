@@ -10,7 +10,8 @@ then non-zero):
 1. device   the card (``nvidia-smi`` name and power limit), torch and CUDA
             versions; TF32 is switched off for matmuls and cuDNN.
 2. build    ``csrc/fused_mha.cu``, ``csrc/fused_layer.cu``,
-            ``csrc/fused_decoder_layer.cu``, ``csrc/band_energies.cu``,
+            ``csrc/fused_decoder_layer.cu``, ``csrc/layer_sm90.cu``,
+            ``csrc/band_energies.cu``,
             ``csrc/device_synth.cu``, ``csrc/fused_ffn.cu`` and
             ``csrc/fused_ln.cu`` compiled from this checkout with nvcc,
             one process each, in parallel;
@@ -40,19 +41,31 @@ then non-zero):
 7. latency  B = 1 p50/p99, in-process and over loopback HTTP, and rows/s
             with requests of one full bucket (32), kernel and plain attention
             in turns; where a B = 1 request's host and device time goes.
-8. layer    the whole-encoder-layer kernels (``fused_layer.cu``: forward,
-            row backward, weight gradients) against
-            ``encoder_layer_reference`` at the flagship shapes (d 256, 2
-            heads, ff 512, T 32), B 32 and 512, f32 and bf16, dropout 0 and
-            0.30 (the same Philox masks): y, the residuals, dx and the 12
-            parameter grads; two runs with one seed bit-identical; forward
-            and backward timed against the twin.
+8. layer    the whole encoder layer, bf16 through the chain of
+            ``layer_sm90.cu`` and f32 through ``fused_layer.cu``'s kernels,
+            against ``encoder_layer_reference`` at the flagship shapes (d
+            256, 2 heads, ff 512, T 32), B 32 and 512, dropout 0 and 0.30
+            (the same Philox masks): y, the residuals, dx and the 12
+            parameter grads (f32 1e-4, bf16 2e-2 · max; ReLU kinks by
+            ``layer_flips``); two runs with one seed bit-identical; forward
+            and backward timed against the twin (stream and device). bf16 at
+            B 32 and 512: every launch of the chain recorded and held to its
+            plain version on the same inputs (2e-2 · max each; the hidden
+            product's ReLU decisions to ``kink_flips`` in full), each
+            launch's device time and own bound, at B 32 its plain version's
+            and (bias products, plain products) one library call's time; the
+            layer's bound from its own inputs, weights and outputs; and
+            ``nn.TransformerEncoderLayer`` with the same weights, forward and
+            autograd backward (the library call for the whole layer; the
+            port never calls it).
 9. train    ``initialize_model`` + ``train_loop`` with the flagship YAML's
             hyperparameters (written here: the card's machine has no pyyaml;
             a CPU test holds them to the file) on seeded synthetic loops:
-            the loss falls, every step launches each layer kernel once per
-            layer; the same with ``fused_layer=False``; 3 f32 steps at
-            dropout 0 against the plain paths on the card and on the CPU;
+            the loss falls, every step launches each bf16 launch of the
+            layer chain once per layer and the f32 kernels never (launches
+            per step by kernel); the same with ``fused_layer=False``; 3 f32
+            steps at dropout 0 through the f32 kernels against the plain
+            paths on the card and on the CPU;
             training throughput at batch 32 and 512 and where a step's
             device time goes; the trained weights served by ``InfillServer``.
 10. front-end kernels  ``device_synth`` against its plain version bit for
@@ -82,17 +95,20 @@ then non-zero):
             kernel launched the expected number of times, one augment call
             equal to the same call through the plain versions, the loss finite
             and falling, seqs/s beside the un-augmented epoch.
-14. decoder layer  the whole-decoder-layer kernels (``fused_decoder_layer.cu``:
-            forward, row backward, weight gradients) against
+14. decoder layer  the whole decoder layer (bf16: the chain of
+            ``layer_sm90.cu``; f32: ``fused_decoder_layer.cu``) against
             ``decoder_layer_reference`` at the flagship shapes, B 32 and 512,
             f32 and bf16, dropout 0 and 0.30: y3, the 7 residuals, dx, dmem
             and the 20 parameter grads (phase 8's bars); reruns bit-identical;
-            forward and backward timed against the twin.
+            forward and backward timed against the twin; in bf16 every launch
+            held to its plain version and timed, the layer's own bound and
+            ``nn.TransformerDecoderLayer``, as phase 8.
 15. train encoder-decoder  the 6 + 6 layer model at the flagship width
             (scripts/bench_encdec.py's) through ``initialize_model`` +
             ``train_loop(encoder_only=0)``: every step launches each encoder
-            and each decoder layer kernel 6 times, the loss falls; the same
-            with both fused switches off; 3 f32 steps at dropout 0 through
+            and each decoder bf16 launch 6 times (launches per step by
+            kernel), the loss falls; the same with both fused switches off; 3
+            f32 steps at dropout 0 through the f32 kernels and
             ``make_epoch_fn(encoder_only=False)`` against the twin path and
             the unfused path; seqs/s at batch 32 and 512, kernel path and
             unfused path in turns; where a step's device time goes.
@@ -118,8 +134,8 @@ then non-zero):
 18. train wide FFN  configs/InfillingRandomLow_lm_training.yaml (d 256, ff
             2048, 8 layers, dropout 0.16; written here, held to the file by a
             CPU test) through ``initialize_model`` + ``train_loop`` with
-            ``fused_ffn`` given (auto leaves it off) and
-            ``fused_layer`` off by the gate: every step
+            ``fused_ffn`` given (auto leaves it off) and the unfused layers
+            (``fused_layer`` given off; the bf16 gate admits ff 2048): every step
             launches each bf16 FFN kernel 8 times (the reduce too: the weight
             gradients split the rows in two), the loss falls; with
             ``fused_dropout_ln`` 16 + 16 LN launches a step; with ``remat`` 16
@@ -129,7 +145,8 @@ then non-zero):
             ``fused_ffn=False``; a 1 + 1 layer encoder-decoder model at the
             same width (1 + 1 FFN and 2 + 3 LN launches a step); seqs/s at
             batch 32 and 512 with ``fused_ffn`` on and off, with the LN kernels,
-            and with remat with and without ``fused_ffn``, in turns; where a
+            with remat with and without ``fused_ffn``, and with
+            ``fused_layer`` given (the whole-layer chains), in turns; where a
             step's device time goes.
 19. train GrooveXL  d 1024, 8 heads, ff 4096, 12 layers, dropout 0.1, batch
             128, bf16, remat on (scripts/bench_groovexl_ffn.py's; nothing cut
@@ -181,6 +198,7 @@ from transformergrooveinfilling_tpu_torch.ops import fused_decoder_layer as fdl
 from transformergrooveinfilling_tpu_torch.ops import fused_ffn as ffn
 from transformergrooveinfilling_tpu_torch.ops import fused_layer as fl
 from transformergrooveinfilling_tpu_torch.ops import fused_ln as ln
+from transformergrooveinfilling_tpu_torch.ops import layer_sm90
 from transformergrooveinfilling_tpu_torch.ops import mso
 from transformergrooveinfilling_tpu_torch.ops.dropout import (
     quantized_keep_rate, quantized_threshold,
@@ -203,6 +221,7 @@ BUCKETS = (1, 8, 32)
 KERNEL_SOURCE = "transformergrooveinfilling_tpu_torch/csrc/fused_mha.cu"
 TPU_KERNEL = "transformergrooveinfilling_tpu/ops/attention.py:25"
 LAYER_SOURCE = "transformergrooveinfilling_tpu_torch/csrc/fused_layer.cu"
+LAYER_SM90_SOURCE = "transformergrooveinfilling_tpu_torch/csrc/layer_sm90.cu"
 LAYER_TPU_KERNELS = {  # the Pallas kernel bodies each CUDA kernel stands in for
     "fused_layer_fwd": "transformergrooveinfilling_tpu/ops/fused_layer.py:164",
     "fused_layer_bwd_rows": "transformergrooveinfilling_tpu/ops/fused_layer.py:236",
@@ -254,16 +273,16 @@ FFN_TPU_KERNELS = {  # the Pallas kernel bodies each CUDA kernel stands in for
 # reduce)
 FFN_DEVICE_NAMES = {
     "fused_ffn_fwd_h": ("EpiHidden",), "fused_ffn_fwd_out": ("EpiOut",),
-    "fused_ffn_bwd_dh": ("EpiDh",), "fused_ffn_bwd_dx": ("EpiDx",),
-    "fused_ffn_bwd_weights": ("EpiWgrad",), "fused_ffn_reduce": ("ffn_reduce",),
+    "fused_ffn_bwd_dh": ("EpiDh",), "fused_ffn_bwd_dx": ("EpiRound",),
+    "fused_ffn_bwd_weights": ("EpiWgrad",), "fused_ffn_reduce": ("reduce_splits",),
     "fused_ffn_fwd_f32": ("ffn_fwd",), "fused_ffn_bwd_rows_f32": ("ffn_bwd_rows",),
-    "fused_ffn_bwd_weights_f32": ("ffn_bwd_weights", "ffn_reduce"),
+    "fused_ffn_bwd_weights_f32": ("ffn_bwd_weights", "reduce_splits"),
 }
 LN_SOURCE = "transformergrooveinfilling_tpu_torch/csrc/fused_ln.cu"
 LN_TPU_KERNELS = {"fused_ln_fwd": "transformergrooveinfilling_tpu/ops/fused_ln.py:54",
                   "fused_ln_bwd": "transformergrooveinfilling_tpu/ops/fused_ln.py:68"}
-KERNEL_NAMES = ["fused_mha", "fused_layer", "fused_decoder_layer", "band_energies",
-                "device_synth", "fused_ffn", "fused_ln"]
+KERNEL_NAMES = ["fused_mha", "fused_layer", "fused_decoder_layer", "layer_sm90",
+                "band_energies", "device_synth", "fused_ffn", "fused_ln"]
 # the wrappers, and the counts of launches of their kernels
 BAND, BAND_AUDIO, SYNTH = be.band_energies, be.band_energies_from_audio, ds.synth_events
 MHA, BAND_K, SYNTH_K = attention.KERNEL, be.KERNEL, ds.KERNEL
@@ -369,6 +388,13 @@ def mha_bound(b, h, t, hd, dtype) -> dict:
     return bound(4 * b * h * t * hd * size, 4 * b * h * t * t * hd, dtype)
 
 
+def attn_pairs(rows: int, t: int, causal: bool) -> int:
+    """The (query, key) pairs an attention over ``rows`` rows in sequences of
+    ``t`` computes: t a row, (t + 1) / 2 a row where it is causal (row i
+    attends to keys 0..i)."""
+    return rows * (t + 1) // 2 if causal else rows * t
+
+
 def layer_bounds(b, dtype) -> dict:
     """Bounds of the three layer kernels at the flagship layer, batch ``b``."""
     d, ff, t = LAYER_SHAPE["d"], LAYER_SHAPE["ff"], LAYER_SHAPE["t"]
@@ -397,28 +423,294 @@ def decoder_layer_bounds(b, dtype) -> dict:
     """Bounds of the three decoder-layer kernels at the flagship layer, batch
     ``b``: seven dense products (8d² + 2·d·ff multiply-adds a row; the TPU
     kernel's cost estimate leaves the kv projection's 2d² out) and two
-    attentions (the causal one counted in full)."""
+    attentions (the causal one over its T(T+1)/2 pairs)."""
     d, ff, t = LAYER_SHAPE["d"], LAYER_SHAPE["ff"], LAYER_SHAPE["t"]
     m, s = b * t, 4 if dtype == "float32" else 2
     weights = 8 * d * d + 2 * d * ff
     products = 2 * m * weights  # the seven dense products, forward
-    attn = b * t * t * d  # one (T, T, d) product over all heads per sequence
+    # both attentions' (T, T, d) products over all heads, summed
+    attn = (attn_pairs(m, t, False) + attn_pairs(m, t, True)) * d
     vectors = (15 * d + ff) * 4
     scratch = m * (14 * d + ff + 4) * 4
     return {
         "fused_decoder_layer_fwd": bound(
             2 * m * d * s + weights * s + vectors + 4  # y, mem, weights, vectors, seed
             + m * (10 * d + ff) * s,  # y3, a1, qc, a2, a3, qkv, kv, h
-            products + 8 * attn, dtype),
+            products + 4 * attn, dtype),
         "fused_decoder_layer_bwd_rows": bound(
             m * (10 * d + ff) * s + weights * s + 3 * d * 4 + 4  # dy, 7 residuals, weights
             + 2 * m * d * s + scratch,  # dx, dmem and the row-wise gradients
-            products + 20 * attn, dtype),  # per attention: P again, dP, dV, dQ, dK
+            products + 10 * attn, dtype),  # per attention: P again, dP, dV, dQ, dK
         "fused_decoder_layer_bwd_weights": bound(
             m * (11 * d + ff) * s + 4 * d * 4 + 4 + scratch  # dy, y, mem, 6 residuals
             + (weights + 15 * d + ff) * 4,  # f32 weight, bias and LN gradients
-            products + 8 * attn, dtype),  # both attention outputs again, for dWo and dWo2
+            products + 4 * attn, dtype),  # both attention outputs again, for dWo and dWo2
     }
+
+
+def layer_io_bounds(b: int, decoder: bool = False) -> dict:
+    """The least time for a whole layer's forward and for its backward in
+    bf16 at the flagship layer, batch ``b``, from the function's own inputs,
+    weights and outputs alone (no residual, no design's scratch): the forward
+    reads x (and the decoder's memory), the weights and vectors and writes y;
+    the backward reads dy, x (and memory), the weights and the LayerNorm
+    gains and writes dx (and dmem) and the f32 parameter gradients. Its
+    operations: the dense products (forward once, backward twice) and per
+    attention QKᵀ and PV forward, dP, dV, dQ and dK backward, the causal one
+    over its T(T+1)/2 pairs only."""
+    d, ff, t = LAYER_SHAPE["d"], LAYER_SHAPE["ff"], LAYER_SHAPE["t"]
+    m = b * t
+    if decoder:
+        weights, vectors, acts = 8 * d * d + 2 * d * ff, 15 * d + ff, 2
+        pairs = attn_pairs(m, t, True) + attn_pairs(m, t, False)
+    else:
+        weights, vectors, acts = 4 * d * d + 2 * d * ff, 9 * d + ff, 1
+        pairs = attn_pairs(m, t, False)
+    products = 2 * m * weights
+    return {"fwd": bound(acts * m * d * 2 + weights * 2 + vectors * 4 + m * d * 2,
+                         products + 4 * pairs * d, "bfloat16"),
+            "bwd": bound(m * d * 2 + acts * m * d * 2 + weights * 2 + 3 * d * 4
+                         + acts * m * d * 2 + (weights + vectors) * 4,
+                         2 * products + 8 * pairs * d, "bfloat16")}
+
+
+SM90_BAR = 2e-2  # each bf16 launch against its plain version: 2e-2 · max|ref|
+# The share of a bf16 whole layer's hidden units (plus 4) that may fall on the
+# other side of the ReLU's kink from its twin's (``layer_flips``)
+LAYER_KINK_SHARE = 1e-4
+KINK_SEEDS = 4  # further inputs and seeds a rate at which phases 8 and 14 read the flips
+
+
+def layer_flips(twin_h, kernel_h):
+    """The hidden units at which a whole layer's kernels and its twin fall on
+    opposite sides of the ReLU's kink, for the twin's ``relu_flips``. f32:
+    ``kink_flips`` (within ``KINK_BAND`` of 0, at most ``KINK_SHARE`` of the
+    units). bf16: each within ``KINK_BAND`` of 0 as well, and at most
+    ``LAYER_KINK_SHARE`` of the units (plus 4). ``KINK_SHARE`` itself is held
+    where the kernel decides the side, the hidden product against its plain
+    version on the same inputs (``sm90_launches``: 0–1 flips in 8.4M units),
+    and not across the whole layer: there the tensor cores' f32 accumulation
+    order, not cuBLAS's sequential one, rounds ~1.4e-4 of qkv's bf16 values to
+    the neighbouring value, and the bf16 rounding of P carries each to ~15
+    attention outputs, so inputs of W1 differ by one bf16 step (on an H100:
+    101–173 flips in 8.4M units at the encoder at B 512, 248–380 at the
+    decoder, 30 in 524,288 at the decoder at B 32, at most 5.7e-5 of the
+    units, each within 1.8e-3 of max|h|)."""
+    if twin_h.dtype == torch.float32:
+        return fl.kink_flips(twin_h, kernel_h)
+    th, kh = twin_h.float(), kernel_h.float()
+    flips = (th > 0) != (kh > 0)
+    n = int(flips.sum())
+    largest = float(torch.maximum(th, kh)[flips].max()) / float(th.abs().max()) if n else 0.0
+    stats = {"flips": n, "units": flips.numel(), "largest_rel": largest}
+    check(largest <= fl.KINK_BAND[twin_h.dtype] and n <= LAYER_KINK_SHARE * flips.numel() + 4,
+          f"kernel and twin ReLU decisions differ beyond rounding: {stats}, "
+          f"band {fl.KINK_BAND[twin_h.dtype]}, share {LAYER_KINK_SHARE}")
+    return flips, stats
+
+
+def kink_survey(dev, decoder: bool) -> dict:
+    """A bf16 whole layer's ReLU flips against its twin at ``KINK_SEEDS``
+    further inputs and dropout seeds a rate, at B 32 and 512, rates 0 and
+    0.3, forward only, each held by ``layer_flips``: per batch, the flips of
+    each case, the largest share of the units and the largest flipped unit
+    over max|h|. Its inputs come from a generator of its own, so the
+    phases after it draw what they drew without it."""
+    h_, t = LAYER_SHAPE["h"], LAYER_SHAPE["t"]
+    rng = np.random.default_rng(90 + decoder)
+    if decoder:
+        mod, case, ref, at = fdl, decoder_case, fdl.decoder_layer_reference, 6
+    else:
+        mod, case, ref, at = fl, layer_case, fl.encoder_layer_reference, 3
+    out = {}
+    for b in (32, 512):
+        readings = []
+        for i in range(2 * KINK_SEEDS):
+            rate = 0.3 * (i % 2)
+            args, _ = case(dev, rng, b, torch.bfloat16)
+            seed = torch.tensor([9001 + 97 * i + b], dtype=torch.int32, device=dev)
+            res = mod.layer_forward(*args, seed, rate, h_, t)
+            with torch.no_grad():
+                own = ref(*args, seed, rate, h_, t, return_residuals=True)
+            readings.append(layer_flips(own[at], res[at])[1])
+        out[f"B{b}"] = {"flips": [r["flips"] for r in readings], "units": readings[0]["units"],
+                        "largest_share": max(r["flips"] for r in readings) / readings[0]["units"],
+                        "largest_rel": max(r["largest_rel"] for r in readings)}
+    return out
+
+
+def tensors_in(obj):
+    """The tensors among a launch's arguments (lists and tuples walked)."""
+    if isinstance(obj, torch.Tensor):
+        yield obj
+    elif isinstance(obj, (list, tuple)):
+        for o in obj:
+            yield from tensors_in(o)
+
+
+def launch_bound(launch) -> dict:
+    """A launch's own bound: each distinct input read once and each output
+    written once (views of one packed buffer count what they cover), and its
+    operations: the product's 2·rows·n·k, the attention's 4·d forward and
+    12·d backward (P again, dP, dS·K, dSᵀ·Q, PᵀdA and the output again) for
+    each (query, key) pair it computes (``attn_pairs``),
+    the weight gradients' 2·rows·m·n each; row passes and the reduce are
+    bytes."""
+    seen = {}
+    for t in [*tensors_in(launch.args), *tensors_in(launch.outputs)]:
+        seen[(t.data_ptr(), tuple(t.shape), t.stride())] = t.numel() * t.element_size()
+    ref, a = launch.reference, launch.args
+    flops = 0
+    if ref in (layer_sm90.bias_reference, layer_sm90.hidden_reference,
+               layer_sm90.residual_ln_reference, layer_sm90.dh_reference,
+               layer_sm90.round_reference, layer_sm90.ln_backward_reference):
+        flops = 2 * a[0].shape[0] * a[1].shape[0] * a[1].shape[1]
+    elif ref is layer_sm90.attention_forward_reference:
+        flops = 4 * attn_pairs(a[0].shape[0], a[7], a[8]) * a[0].shape[1]
+    elif ref is layer_sm90.attention_backward_reference:
+        flops = 12 * attn_pairs(a[0].shape[0], a[8], a[9]) * a[0].shape[1]
+    elif ref is layer_sm90.weight_partials_reference:
+        flops = sum(2 * dy.shape[0] * dy.shape[1] * x.shape[1] for dy, x in a[0])
+    return bound(sum(seen.values()), flops, "bfloat16")
+
+
+def launch_library(launch):
+    """One PyTorch call computing a launch's function, where there is one:
+    F.linear for the bias products (the bias in bf16), a matmul for the
+    products without a residual or epilogue."""
+    a = launch.args
+    if launch.reference is layer_sm90.bias_reference:
+        bias = a[2].to(a[0].dtype)
+        return lambda: F.linear(a[0], a[1], bias)
+    if launch.reference is layer_sm90.round_reference and a[2] is None:
+        return lambda: torch.matmul(a[0], a[1])
+    return None
+
+
+def launch_device_us(record, n: int) -> list:
+    """Device µs per call of each recorded launch replayed ``n`` times, and
+    the profiler's launches per call (it can lose events), from one profile
+    with a marked window per launch."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    for launch in record:
+        launch.replay()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for i, launch in enumerate(record):
+            with record_function(f"chip_smoke_launch_{i}"):
+                for _ in range(n):
+                    launch.replay()
+                torch.cuda.synchronize()
+    events = prof.profiler.kineto_results.events()
+    windows = {}  # the host's marked ranges (the device's copies of the marks are skipped)
+    for e in events:
+        if e.name().startswith("chip_smoke_launch_") and e.device_type() == DeviceType.CPU:
+            windows[int(e.name().rsplit("_", 1)[1])] = (e.start_ns(), e.start_ns() + e.duration_ns())
+    us, count = [0.0] * len(record), [0.0] * len(record)
+    for e in events:
+        if (e.device_type() != DeviceType.CUDA or e.name() == "Activity Buffer Request"
+                or e.name().startswith("chip_smoke_launch_")):
+            continue
+        for i, (lo, hi) in windows.items():
+            if lo <= e.start_ns() <= hi:
+                us[i] += e.duration_ns() / 1e3 / n
+                count[i] += 1 / n
+                break
+    return us, count
+
+
+def sm90_launches(record, kernels: dict, plain: bool, n: int) -> dict:
+    """Every bf16 launch of one layer call, as recorded on the card: its
+    outputs held to its plain version on the same inputs (``SM90_BAR`` ·
+    max|ref| each), its device time per launch (profiler, ``n`` replays),
+    its own bound, and with ``plain`` the plain version's and the library
+    call's stream time. Keyed by the counted kernel's name."""
+    names = {id(k): name for name, k in kernels.items()}
+    rows = {}
+    for launch in record:
+        name = names[id(launch.kernel)]
+        want = launch.reference(*launch.args, **launch.kwargs)
+        want = want if isinstance(want, tuple) else (want,)
+        err = 0.0
+        for got, ref in zip(launch.outputs, want, strict=True):
+            e, top = max_err(got, ref), float(ref.float().abs().max())
+            check(e <= SM90_BAR * top, f"{name}: {e} > {SM90_BAR} * {top}")
+            err = max(err, e)
+        rows[name] = {"max_abs_err": err, **launch_bound(launch)}
+        if launch.reference is layer_sm90.hidden_reference:  # band and share, in full
+            rows[name]["relu_kink_flips"] = fl.kink_flips(want[0], launch.outputs[0])[1]
+    us, count = launch_device_us(record, n)
+    for launch, u, c in zip(record, us, count):
+        name = names[id(launch.kernel)]
+        rows[name].update(device_ms=u / 1000.0, device_launches_per_call=c)
+        if plain:
+            rows[name]["plain_ms"] = time_us(
+                lambda: launch.reference(*launch.args, **launch.kwargs), 5) / 1000.0
+            lib = launch_library(launch)
+            rows[name]["library_ms"] = time_us(lib, 50) / 1000.0 if lib else None
+    return rows
+
+
+def library_layer(args, dy, b: int, decoder: bool) -> dict:
+    """``nn.TransformerEncoderLayer`` / ``nn.TransformerDecoderLayer`` (post-LN,
+    ReLU, batch_first, dropout 0.30, bf16, training mode) with the layer's
+    weights: forward, and its autograd backward, stream and device time. The
+    port never calls it; it is the yardstick one PyTorch call gives."""
+    h_, t = LAYER_SHAPE["h"], LAYER_SHAPE["t"]
+    d, ff = LAYER_SHAPE["d"], LAYER_SHAPE["ff"]
+    dev, dtype = args[0].device, args[0].dtype
+    kw = dict(dropout=0.3, batch_first=True, device=dev, dtype=dtype)
+    with torch.no_grad():
+        if decoder:
+            a = dict(zip(fdl.ARG_NAMES, args))
+            lib = torch.nn.TransformerDecoderLayer(d, h_, ff, **kw)
+            pairs = [(lib.self_attn.in_proj_weight, a["wqkv"]), (lib.self_attn.in_proj_bias, a["bqkv"]),
+                     (lib.self_attn.out_proj.weight, a["wo"]), (lib.self_attn.out_proj.bias, a["bo"]),
+                     (lib.multihead_attn.in_proj_weight, torch.cat([a["wq"], a["wkv"]])),
+                     (lib.multihead_attn.in_proj_bias, torch.cat([a["bq"], a["bkv"]])),
+                     (lib.multihead_attn.out_proj.weight, a["wo2"]),
+                     (lib.multihead_attn.out_proj.bias, a["bo2"]),
+                     (lib.norm1.weight, a["g1"]), (lib.norm1.bias, a["b1"]),
+                     (lib.norm2.weight, a["g2"]), (lib.norm2.bias, a["b2"]),
+                     (lib.norm3.weight, a["g3"]), (lib.norm3.bias, a["b3"]),
+                     (lib.linear1.weight, a["w1"]), (lib.linear1.bias, a["b1f"]),
+                     (lib.linear2.weight, a["w2"]), (lib.linear2.bias, a["b2f"])]
+            inputs = [a["y"].view(b, t, d).detach().requires_grad_(True),
+                      a["mem"].view(b, t, d).detach().requires_grad_(True)]
+            mask = torch.nn.Transformer.generate_square_subsequent_mask(t, device=dev,
+                                                                        dtype=dtype)
+
+            def fwd():
+                return lib(*inputs, tgt_mask=mask, tgt_is_causal=True)
+        else:
+            x, wqkv, bqkv, wo, bo, g1, b1, w1, b1f, w2, b2f, g2, b2 = args
+            lib = torch.nn.TransformerEncoderLayer(d, h_, ff, **kw)
+            pairs = [(lib.self_attn.in_proj_weight, wqkv), (lib.self_attn.in_proj_bias, bqkv),
+                     (lib.self_attn.out_proj.weight, wo), (lib.self_attn.out_proj.bias, bo),
+                     (lib.norm1.weight, g1), (lib.norm1.bias, b1), (lib.norm2.weight, g2),
+                     (lib.norm2.bias, b2), (lib.linear1.weight, w1), (lib.linear1.bias, b1f),
+                     (lib.linear2.weight, w2), (lib.linear2.bias, b2f)]
+            inputs = [x.view(b, t, d).detach().requires_grad_(True)]
+
+            def fwd():
+                return lib(*inputs)
+        for param, value in pairs:
+            param.copy_(value)
+    lib.train()
+    out = fwd()
+    leaves = [*lib.parameters(), *inputs]
+    grad = dy.view(b, t, d)
+
+    def bwd():
+        return torch.autograd.grad(out, leaves, grad, retain_graph=True)
+
+    n = 50 if b == 32 else 10
+    f1, b1_, b2_, f2 = (time_us(fn, n) / 1000.0 for fn in (fwd, bwd, bwd, fwd))
+    return {"fwd_ms": [f1, f2], "bwd_ms": [b1_, b2_],
+            "fwd_device_ms": sum(us for us, _ in device_us(fwd, n=3).values()) / 1000.0,
+            "bwd_device_ms": sum(us for us, _ in device_us(bwd, n=3).values()) / 1000.0}
 
 
 def band_bound(n: int, n_fft: int = 1024, n_bands: int = 16) -> dict:
@@ -814,6 +1106,22 @@ def layer_backward_args(args, res, seed):
     return (x, qkv, a1, h, a2, wqkv, wo, w1, w2, g1, b1, g2, seed)
 
 
+def layer_device_times(kf, kb, pf, pb) -> dict:
+    """Device time of a layer call's forward and backward on the kernels and
+    on the twin (profiler), and the kernels' device µs by kernel name."""
+    dev_f, dev_b = device_us(kf, n=3), device_us(kb, n=3)
+    per_kernel, launched = {}, {}
+    for part in (dev_f, dev_b):
+        for k, (us, c) in part.items():
+            per_kernel[k] = per_kernel.get(k, 0.0) + us
+            launched[k] = launched.get(k, 0.0) + c
+    return {"kernel_fwd_device_ms": sum(us for us, _ in dev_f.values()) / 1000.0,
+            "kernel_bwd_device_ms": sum(us for us, _ in dev_b.values()) / 1000.0,
+            "kernel_device_us": per_kernel, "kernel_device_launches": launched,
+            "plain_fwd_device_us": sum(us for us, _ in device_us(pf, n=3).values()),
+            "plain_bwd_device_us": sum(us for us, _ in device_us(pb, n=3).values())}
+
+
 def phase_layer(dev, rng) -> dict:
     """The three layer kernels against ``encoder_layer_reference`` on the
     card. Bars: f32 atol 1e-4 on y and the residuals, and 1e-4 · max|grad|
@@ -841,7 +1149,7 @@ def phase_layer(dev, rng) -> dict:
                 with torch.no_grad():
                     own = fl.encoder_layer_reference(*args, seed, rate, h_, t,
                                                      return_residuals=True)
-                flips, kink = fl.kink_flips(own[3], res[3])
+                flips, kink = layer_flips(own[3], res[3])
                 leaves = [a.detach().clone().requires_grad_(True) for a in args]
                 want = fl.encoder_layer_reference(*leaves, seed, rate, h_, t,
                                                   return_residuals=True, relu_flips=flips)
@@ -869,12 +1177,13 @@ def phase_layer(dev, rng) -> dict:
         args, dy = layer_case(dev, rng, b, dtype)
         seed = torch.tensor([7], dtype=torch.int32, device=dev)
         res = fl.layer_forward(*args, seed, 0.3, h_, t)
-        bargs = layer_backward_args(args, res, seed)
         leaves = [a.detach().clone().requires_grad_(True) for a in args]
         y_ref = fl.encoder_layer_reference(*leaves, seed, 0.3, h_, t)
         n = 50 if b == 32 else 10  # calls per timing, after 10 warm-up calls
         kf = lambda: fl.layer_forward(*args, seed, 0.3, h_, t)  # noqa: E731
-        kb = lambda: fl.layer_backward(dy, *bargs, 0.3, h_, t)  # noqa: E731
+
+        def kb(fwd=res):
+            return fl.layer_backward(dy, *layer_backward_args(args, fwd, seed), 0.3, h_, t)
 
         def pf():
             with torch.no_grad():
@@ -886,17 +1195,19 @@ def phase_layer(dev, rng) -> dict:
         for key, k, p in (("fwd", kf, pf), ("bwd", kb, pb)):
             k1, p1, p2, k2 = (time_us(f, n) / 1000.0 for f in (k, p, p, k))
             row[f"{key}_kernel_ms"], row[f"{key}_plain_ms"] = [k1, k2], [p1, p2]
-        dev_k = device_us(lambda: (kf(), kb()), n=3)
-        row["kernel_device_us"] = {k: us for k, (us, _) in dev_k.items()}
-        row["kernel_device_launches"] = {k: c for k, (_, c) in dev_k.items()}
-        dev_f, dev_b = device_us(pf, n=3), device_us(pb, n=3)
-        row["plain_fwd_device_us"] = sum(us for us, _ in dev_f.values())
-        row["plain_bwd_device_us"] = sum(us for us, _ in dev_b.values())
+        row.update(layer_device_times(kf, kb, pf, pb))
+        if dtype == torch.bfloat16:
+            with layer_sm90.recording() as record:
+                kb(kf())
+            row["launches"] = sm90_launches(record, fl.SM90_KERNELS, plain=b == 32,
+                                            n=20 if b == 32 else 5)
+            row["io_bounds"] = layer_io_bounds(b)
+            row["library"] = library_layer(args, dy, b, decoder=False)
         timings.append(row)
     emit({"phase": "layer", "shape": LAYER_SHAPE, "checks": checks,
           "bars": {"float32": "1e-4 abs (y, residuals); 1e-4 * max|grad| (grads)",
                    "bfloat16": "2e-2 * max|ref|"},
-          "timings": timings})
+          "kink_survey": kink_survey(dev, decoder=False), "timings": timings})
     return {"max_abs_err": worst, "timings": timings}
 
 
@@ -958,7 +1269,7 @@ def phase_decoder_layer(dev, rng) -> dict:
                 with torch.no_grad():
                     own = fdl.decoder_layer_reference(*args, seed, rate, h_, t,
                                                       return_residuals=True)
-                flips, kink = fl.kink_flips(own[6], res[6])
+                flips, kink = layer_flips(own[6], res[6])
                 leaves = [a.detach().clone().requires_grad_(True) for a in args]
                 want = fdl.decoder_layer_reference(*leaves, seed, rate, h_, t,
                                                    return_residuals=True, relu_flips=flips)
@@ -986,12 +1297,13 @@ def phase_decoder_layer(dev, rng) -> dict:
         args, dy = decoder_case(dev, rng, b, dtype)
         seed = torch.tensor([7], dtype=torch.int32, device=dev)
         res = fdl.layer_forward(*args, seed, 0.3, h_, t)
-        bargs = decoder_backward_args(args, res, seed)
         leaves = [a.detach().clone().requires_grad_(True) for a in args]
         y_ref = fdl.decoder_layer_reference(*leaves, seed, 0.3, h_, t)
         n = 30 if b == 32 else 5  # calls per timing, after 10 warm-up calls
         kf = lambda: fdl.layer_forward(*args, seed, 0.3, h_, t)  # noqa: E731
-        kb = lambda: fdl.layer_backward(dy, *bargs, 0.3, h_, t)  # noqa: E731
+
+        def kb(fwd=res):
+            return fdl.layer_backward(dy, *decoder_backward_args(args, fwd, seed), 0.3, h_, t)
 
         def pf():
             with torch.no_grad():
@@ -1003,17 +1315,19 @@ def phase_decoder_layer(dev, rng) -> dict:
         for key, k, p in (("fwd", kf, pf), ("bwd", kb, pb)):
             k1, p1, p2, k2 = (time_us(f, n) / 1000.0 for f in (k, p, p, k))
             row[f"{key}_kernel_ms"], row[f"{key}_plain_ms"] = [k1, k2], [p1, p2]
-        dev_k = device_us(lambda: (kf(), kb()), n=3)
-        row["kernel_device_us"] = {k: us for k, (us, _) in dev_k.items()}
-        row["kernel_device_launches"] = {k: c for k, (_, c) in dev_k.items()}
-        dev_f, dev_b = device_us(pf, n=3), device_us(pb, n=3)
-        row["plain_fwd_device_us"] = sum(us for us, _ in dev_f.values())
-        row["plain_bwd_device_us"] = sum(us for us, _ in dev_b.values())
+        row.update(layer_device_times(kf, kb, pf, pb))
+        if dtype == torch.bfloat16:
+            with layer_sm90.recording() as record:
+                kb(kf())
+            row["launches"] = sm90_launches(record, fdl.SM90_KERNELS, plain=b == 32,
+                                            n=20 if b == 32 else 5)
+            row["io_bounds"] = layer_io_bounds(b, decoder=True)
+            row["library"] = library_layer(args, dy, b, decoder=True)
         timings.append(row)
     emit({"phase": "decoder_layer", "shape": LAYER_SHAPE, "checks": checks,
           "bars": {"float32": "1e-4 abs (y, residuals); 1e-4 * max|grad| (grads)",
                    "bfloat16": "2e-2 * max|ref|"},
-          "timings": timings})
+          "kink_survey": kink_survey(dev, decoder=True), "timings": timings})
     return {"max_abs_err": worst, "timings": timings}
 
 
@@ -1031,8 +1345,11 @@ def model_params(hp: dict, **model):
 
 flagship_params = functools.partial(model_params, FLAGSHIP_HP)
 # the wide config's runs ask for the FFN kernels: auto leaves them off at its
-# batches, where they were measured no faster (phase 18 checks it)
-lm_params = functools.partial(model_params, LM_HP, fused_ffn=True)
+# batches, where they were measured no faster (phase 18 checks it); and the
+# unfused layers, in which the FFN kernels run (the whole-layer path, which the
+# bf16 gate now admits at ff 2048, is timed beside them)
+lm_params = functools.partial(model_params, LM_HP, fused_ffn=True, fused_layer=False,
+                              fused_decoder_layer=False)
 
 
 class Loops:
@@ -1048,10 +1365,13 @@ class Loops:
         ).astype(np.float32)
 
 
-LAYER_KERNELS = {**fl.KERNELS, **fdl.KERNELS}  # encoder and decoder layer kernels
+# encoder and decoder layer kernels: the bf16 chains' launches, the f32 kernels
+SM90_LAYER_KERNELS = {**fl.SM90_KERNELS, **fdl.SM90_KERNELS}
+F32_LAYER_KERNELS = {**fl.KERNELS, **fdl.KERNELS}
+LAYER_KERNELS = {**SM90_LAYER_KERNELS, **F32_LAYER_KERNELS}
 
 
-def launches(kernels=fl.KERNELS) -> dict:
+def launches(kernels) -> dict:
     return {name: f.launches for name, f in kernels.items()}
 
 
@@ -1151,20 +1471,21 @@ def phase_train(dev, rng) -> dict:
     metrics = run_epochs(bundle, data, held, epochs, batch)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    counts = launches()  # ... and ends here
+    counts = launches(fl.SM90_KERNELS)  # ... and ends here
     n_layers = FLAGSHIP_HP["num_encoder_decoder_layers"]
-    check(all(c == steps * n_layers for c in counts.values()),
-          f"layer kernels launched {counts}, expected {steps * n_layers} each "
-          f"({steps} steps x {n_layers} layers)")
+    check(all(c == steps * n_layers for c in counts.values())
+          and not any(launches(F32_LAYER_KERNELS).values()),
+          f"layer launches {counts}, expected {steps * n_layers} each ({steps} steps x "
+          f"{n_layers} layers), and the f32 kernels {launches(F32_LAYER_KERNELS)}, expected 0")
     losses = [m["loss"] for m in metrics]
     check(all(np.isfinite(v) for m in metrics for v in m.values()), f"non-finite: {metrics}")
     check(losses[-1] < losses[0], f"loss did not fall: {losses}")
 
     plain, _, _ = initialize_model(flagship_params(fused_layer=False), dev)
-    before = launches()
+    before = launches(LAYER_KERNELS)
     plain_metrics = run_epochs(plain, data, held, epochs, batch)
     plain_losses = [m["loss"] for m in plain_metrics]
-    check(launches() == before, "fused_layer=False launched a layer kernel")
+    check(launches(LAYER_KERNELS) == before, "fused_layer=False launched a layer kernel")
     check(all(np.isfinite(plain_losses)) and plain_losses[-1] < plain_losses[0],
           f"plain path loss did not fall: {plain_losses}")
 
@@ -1181,6 +1502,7 @@ def phase_train(dev, rng) -> dict:
     x = torch.from_numpy(data.processed_inputs[:96]).to(dev)
     y = torch.from_numpy(data.processed_outputs[:96]).to(dev)
     three = {}
+    reset_launches()  # the f32 route's path: its kernels launch here only
     for name, device, fused in (("kernel", dev, True), ("card_twin", dev, True),
                                 ("cpu_twin", torch.device("cpu"), True),
                                 ("card_unfused", dev, False)):
@@ -1193,6 +1515,11 @@ def phase_train(dev, rng) -> dict:
                 step(b.state, x[32 * i:32 * i + 32].to(device),
                      y[32 * i:32 * i + 32].to(device), None, gen)
         three[name] = {k: v.detach().cpu() for k, v in b.model.state_dict().items()}
+    f32_counts = launches(fl.KERNELS)  # the forward twice a call: fused_layers_as records h
+    check(f32_counts == {"fused_layer_fwd": 2 * 3 * n_layers, "fused_layer_bwd_rows": 3 * n_layers,
+                         "fused_layer_bwd_weights": 3 * n_layers}
+          and not any(launches(SM90_LAYER_KERNELS).values()),
+          f"3 f32 steps launched {launches(LAYER_KERNELS)}")
     param_err = {other: max(max_err(three["kernel"][k], three[other][k]) for k in three["kernel"])
                  for other in ("card_twin", "cpu_twin", "card_unfused")}
     check(max(param_err["card_twin"], param_err["cpu_twin"]) <= 1e-4
@@ -1235,12 +1562,14 @@ def phase_train(dev, rng) -> dict:
     emit({"phase": "train", "config": FLAGSHIP_HP,
           "data": "1024 seeded synthetic loops (2048 for the rates at batch 512)",
           "epochs": epochs, "steps": steps, "seconds": seconds, "launches": counts,
+          "launches_per_step": {k: c / steps for k, c in counts.items()},
+          "three_f32_steps_launches": f32_counts,
           "losses": losses, "last_metrics": metrics[-1], "plain_losses": plain_losses,
           "three_f32_steps_param_err": param_err,
           "three_f32_steps_kink_flips": kinks, "unfused_bar": UNFUSED_BAR,
           "seqs_per_s": throughput, "step_breakdown": breakdown,
           "served_max_abs_err_vs_cpu": serve_err})
-    return {"launches": counts}
+    return {"launches": counts, "f32_launches": f32_counts, "seqs_per_s": throughput}
 
 
 def augment_corpus():
@@ -1634,11 +1963,11 @@ def phase_train_augment(dev, rng) -> dict:
     reset_launches()  # the main path's run starts here
     reset_front_end_launches()
     metrics = [fetch(epoch_fn(bundle.state, base, base, gen)) for _ in range(epochs)]
-    counts = {**launches(), "band_energies": BAND_K.launches,
+    counts = {**launches(fl.SM90_KERNELS), "band_energies": BAND_K.launches,
               "device_synth": SYNTH_K.launches}  # ... and ends here
     steps, n_layers = epochs * (n // batch), FLAGSHIP_HP["num_encoder_decoder_layers"]
     n_chunks = epochs * -(-n // ds.DEFAULT_CHUNK)
-    want = {**{k: steps * n_layers for k in fl.KERNELS},
+    want = {**{k: steps * n_layers for k in fl.SM90_KERNELS},
             "band_energies": n_chunks, "device_synth": n_chunks}
     check(counts == want, f"augmented training launched {counts}, expected {want}")
     losses = [m["loss"] for m in metrics]
@@ -1701,10 +2030,12 @@ def phase_train_encdec(dev, rng) -> dict:
     metrics = run_epochs(bundle, data, held, epochs, batch, encoder_only=0)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    counts = launches(LAYER_KERNELS)  # ... and ends here
-    check(all(c == steps * ENCDEC_LAYERS for c in counts.values()),
-          f"layer kernels launched {counts}, expected {steps * ENCDEC_LAYERS} each "
-          f"({steps} steps x {ENCDEC_LAYERS} encoder and {ENCDEC_LAYERS} decoder layers)")
+    counts = launches(SM90_LAYER_KERNELS)  # ... and ends here
+    check(all(c == steps * ENCDEC_LAYERS for c in counts.values())
+          and not any(launches(F32_LAYER_KERNELS).values()),
+          f"layer launches {counts}, expected {steps * ENCDEC_LAYERS} each ({steps} steps x "
+          f"{ENCDEC_LAYERS} encoder and {ENCDEC_LAYERS} decoder layers), and the f32 kernels "
+          f"{launches(F32_LAYER_KERNELS)}, expected 0")
     losses = [m["loss"] for m in metrics]
     check(all(np.isfinite(v) for m in metrics for v in m.values()), f"non-finite: {metrics}")
     check(losses[-1] < losses[0], f"loss did not fall: {losses}")
@@ -1722,6 +2053,7 @@ def phase_train_encdec(dev, rng) -> dict:
     kernel_h, kinks, three = [], [], {}
     x = torch.from_numpy(data.processed_inputs[:96]).to(dev)
     y = torch.from_numpy(data.processed_outputs[:96]).to(dev)
+    reset_launches()  # the f32 route's path: its kernels launch here only
     for name in ("kernel", "twin", "unfused"):
         b, _, _ = initialize_model(
             params(bf16=False, dropout=0.0, **(unfused if name == "unfused" else {})), dev)
@@ -1731,6 +2063,11 @@ def phase_train_encdec(dev, rng) -> dict:
             epoch_fn(b.state, x, y, torch.Generator(dev).manual_seed(0))
         check(b.state.step == 3, f"{name}: {b.state.step} steps, expected 3")
         three[name] = {k: v.detach().cpu() for k, v in b.model.state_dict().items()}
+    f32_counts = launches(F32_LAYER_KERNELS)  # the forwards twice a call (fused_layers_as)
+    check(all(c == (2 if k.endswith("fwd") else 1) * 3 * ENCDEC_LAYERS
+              for k, c in f32_counts.items())
+          and not any(launches(SM90_LAYER_KERNELS).values()),
+          f"3 f32 steps launched {launches(LAYER_KERNELS)}")
     param_err = {other: max(max_err(three["kernel"][k], three[other][k]) for k in three["kernel"])
                  for other in ("twin", "unfused")}
     check(param_err["twin"] <= 1e-4 and param_err["unfused"] <= UNFUSED_BAR,
@@ -1755,11 +2092,13 @@ def phase_train_encdec(dev, rng) -> dict:
           "config": {**FLAGSHIP_HP, "encoder_only": 0, "num_decoder_layers": ENCDEC_LAYERS},
           "data": "256 seeded synthetic loops (512 for the rates at batch 512)",
           "epochs": epochs, "steps": steps,
-          "seconds": seconds, "launches": counts, "losses": losses,
+          "seconds": seconds, "launches": counts,
+          "launches_per_step": {k: c / steps for k, c in counts.items()},
+          "three_f32_steps_launches": f32_counts, "losses": losses,
           "last_metrics": metrics[-1], "unfused_losses": plain_losses,
           "three_f32_steps_param_err": param_err, "three_f32_steps_kink_flips": kinks,
           "unfused_bar": UNFUSED_BAR, "seqs_per_s": throughput, "step_breakdown": breakdown})
-    return {"launches": counts}
+    return {"launches": counts, "f32_launches": f32_counts, "seqs_per_s": throughput}
 
 
 def phase_serve_encdec(dev, rng, enc_srv) -> dict:
@@ -2335,7 +2674,10 @@ def phase_train_wide(dev, rng) -> dict:
     # remat on and off, in turns; 16 steps at batch 32, 4 at batch 512
     models = {"fused_ffn": bundle, "unfused": initialize_model(lm_params(fused_ffn=False), dev)[0],
               "fused_ffn_ln": ln_bundle, "fused_ffn_remat": remat_bundle,
-              "unfused_remat": initialize_model(lm_params(fused_ffn=False, remat=True), dev)[0]}
+              "unfused_remat": initialize_model(lm_params(fused_ffn=False, remat=True), dev)[0],
+              "fused_layer": initialize_model(lm_params(fused_layer=True), dev)[0]}
+    check(models["fused_layer"].config.fused_layer, "fused_layer=True was not kept")
+    reset_launches()
     throughput, breakdown = {}, {}
     for b in THROUGHPUT_BATCHES:
         corpus, warm = Loops(512 if b == 32 else 2048, 45), Loops(2 * b, 46)
@@ -2345,6 +2687,9 @@ def phase_train_wide(dev, rng) -> dict:
             runs[which].append(seqs_per_s(models[which], corpus, b))
         throughput[b] = runs
         breakdown[b] = step_breakdown(bundle, b, 47)
+    layer_counts = launches(fl.SM90_KERNELS)
+    check(len(set(layer_counts.values())) == 1 and min(layer_counts.values()) > 0,
+          f"the forced whole-layer path launched {layer_counts}")
     emit({"phase": "train_wide_ffn", "config": LM_HP, "data": "1024 seeded synthetic loops",
           "epochs": epochs, "steps": steps, "seconds": seconds, "launches": counts,
           "losses": losses, "last_metrics": metrics[-1],
@@ -2357,7 +2702,8 @@ def phase_train_wide(dev, rng) -> dict:
           "unfused_bar": UNFUSED_BAR,
           "encoder_decoder_1_plus_1": {"steps": encdec_steps, "launches": encdec_counts,
                                        "losses": encdec_losses},
-          "seqs_per_s": throughput, "step_breakdown": breakdown})
+          "seqs_per_s": throughput, "step_breakdown": breakdown,
+          "fused_layer_launches_in_its_turns": layer_counts})
     return {"launches": counts, "ln_launches": ln_counts, "encdec_launches": encdec_counts,
             "f32_launches": f32_counts}
 
@@ -2508,9 +2854,6 @@ def main() -> int:
                 "library_device_ms": row["sdpa_device_us"] / 1000.0}
 
     b1 = mha_row(1, "float32")
-    at32 = next(t for t in layer["timings"] if t["B"] == 32 and t["dtype"] == "bfloat16")
-    layer_err = layer["max_abs_err"][torch.float32]
-    bounds32 = layer_bounds(32, "bfloat16")
     kernels = [{
         "name": "fused_mha", "route": "cuda", "source": KERNEL_SOURCE,
         "replaces": TPU_KERNEL, "launches": launches_mha,
@@ -2523,44 +2866,65 @@ def main() -> int:
         "at": "B 1, H 2, T 32, hd 128, float32, contiguous; ms: stream time; device_ms: the "
               "profiler's per launch; err over all f32 checks; library: "
               "scaled_dot_product_attention on the same views"}]
-    for kname in fl.KERNELS:
-        # mean per captured launch (the profiler may lose events)
-        device_ms = sum(us / at32["kernel_device_launches"][k]
-                        for k, us in at32["kernel_device_us"].items()
-                        if fl.KERNELS[kname].entry.removeprefix("tgi_") in k) / 1000.0
-        plain = at32["fwd_plain_ms"] if kname.endswith("fwd") else at32["bwd_plain_ms"]
-        kernels.append({
-            "name": kname, "route": "cuda", "source": LAYER_SOURCE,
-            "replaces": LAYER_TPU_KERNELS[kname], "launches": train["launches"][kname],
-            "launches_audio_augment_path": augmented["launches"][kname],
-            "launches_encdec_training_path": encdec["launches"][kname],
-            "max_abs_err": layer_err, "ms": device_ms, "plain_ms": float(np.mean(plain)),
-            "bound_ms": bounds32[kname]["bound_ms"], "bound_by": bounds32[kname]["bound_by"],
-            "library_ms": None,
-            "at": "B 32, T 32, d 256, 2 heads, ff 512, bf16, rate 0.30; ms: device time "
-                  "per call; plain_ms: the twin's whole forward (fwd) or autograd backward "
-                  "(both backward kernels) on the stream; err: the largest over the f32 "
-                  "layer checks (y, residuals, dx, 12 grads; B 32 and 512; rate 0 and 0.30); "
-                  "no one PyTorch call computes a whole layer"})
-    dec32 = next(t for t in dec_layer["timings"] if t["B"] == 32 and t["dtype"] == "bfloat16")
-    dec_bounds = decoder_layer_bounds(32, "bfloat16")
-    for kname in fdl.KERNELS:
-        device_ms = sum(us / dec32["kernel_device_launches"][k]
-                        for k, us in dec32["kernel_device_us"].items()
-                        if fdl.KERNELS[kname].entry.removeprefix("tgi_") in k) / 1000.0
-        plain = dec32["fwd_plain_ms"] if kname.endswith("fwd") else dec32["bwd_plain_ms"]
-        kernels.append({
-            "name": kname, "route": "cuda", "source": DEC_SOURCE,
-            "replaces": DEC_TPU_KERNELS[kname], "launches": encdec["launches"][kname],
-            "max_abs_err": dec_layer["max_abs_err"][torch.float32], "ms": device_ms,
-            "plain_ms": float(np.mean(plain)),
-            "bound_ms": dec_bounds[kname]["bound_ms"], "bound_by": dec_bounds[kname]["bound_by"],
-            "library_ms": None,
-            "at": "B 32, T 32, d 256, 2 heads, ff 512, bf16, rate 0.30; ms: device time "
-                  "per call; plain_ms: the twin's whole forward (fwd) or autograd backward "
-                  "(both backward kernels) on the stream; err: the largest over the f32 "
-                  "layer checks (y3, 7 residuals, dx, dmem, 20 grads; B 32 and 512; rate 0 "
-                  "and 0.30); no one PyTorch call computes a whole layer"})
+
+    def timing(phase_out, b, dtype):
+        return next(t for t in phase_out["timings"] if t["B"] == b and t["dtype"] == dtype)
+
+    # per layer: the phase, its module, its sources, the f32 kernels' bounds,
+    # the main path's launches and the forward's launch count
+    layers = (("encoder", layer, fl, LAYER_SOURCE, LAYER_TPU_KERNELS, layer_bounds, train, 5,
+               {"launches_audio_augment_path": augmented["launches"],
+                "launches_encdec_training_path": encdec["launches"]}),
+              ("decoder", dec_layer, fdl, DEC_SOURCE, DEC_TPU_KERNELS, decoder_layer_bounds,
+               encdec, 9, {}))
+    for which, out, mod, source, tpu, bounds_of, path, n_fwd, more in layers:
+        f32_32, bounds32 = timing(out, 32, "float32"), bounds_of(32, "float32")
+        fwd_key, bwd_key = list(tpu)[0], list(tpu)[1]
+        for kname, k in mod.KERNELS.items():
+            # mean per captured launch (the profiler may lose events)
+            device_ms = sum(us / f32_32["kernel_device_launches"][name]
+                            for name, us in f32_32["kernel_device_us"].items()
+                            if k.entry.removeprefix("tgi_") in name) / 1000.0
+            plain = f32_32["fwd_plain_ms"] if kname.endswith("fwd") else f32_32["bwd_plain_ms"]
+            kernels.append({
+                "name": kname, "route": "cuda", "source": source, "replaces": tpu[kname],
+                "launches": path["f32_launches"][kname],
+                "max_abs_err": out["max_abs_err"][torch.float32], "ms": device_ms,
+                "plain_ms": float(np.mean(plain)), "bound_ms": bounds32[kname]["bound_ms"],
+                "bound_by": bounds32[kname]["bound_by"], "library_ms": None,
+                "at": f"the {which} layer's f32 route: B 32, T 32, d 256, 2 heads, ff 512, "
+                      "float32, rate 0.30; launches: the 3 f32 training steps (the forward "
+                      "twice a call there); ms: device time per call; plain_ms: the twin's "
+                      "whole forward (fwd) or autograd backward (both backward kernels) on "
+                      "the stream; err: the largest over the f32 layer checks"})
+        at32, at512 = timing(out, 32, "bfloat16"), timing(out, 512, "bfloat16")
+        for i, kname in enumerate(mod.SM90_KERNELS):
+            l32, l512 = at32["launches"][kname], at512["launches"][kname]
+            kernels.append({
+                "name": kname, "route": "cuda", "source": LAYER_SM90_SOURCE,
+                "replaces": tpu[fwd_key if i < n_fwd else bwd_key],
+                "launches": path["launches"][kname],
+                **{key: counts[kname] for key, counts in more.items()},
+                "max_abs_err": max(l32["max_abs_err"], l512["max_abs_err"]),
+                "ms": l32["device_ms"], "plain_ms": l32["plain_ms"],
+                "bound_ms": l32["bound_ms"], "bound_by": l32["bound_by"],
+                "library_ms": l32["library_ms"],
+                "B512": {"ms": l512["device_ms"], "bound_ms": l512["bound_ms"],
+                         "bound_by": l512["bound_by"]},
+                "layer_B32": {"fwd_device_ms": at32["kernel_fwd_device_ms"],
+                              "bwd_device_ms": at32["kernel_bwd_device_ms"],
+                              "io_bounds_ms": {k: v["bound_ms"]
+                                               for k, v in at32["io_bounds"].items()},
+                              "library_fwd_device_ms": at32["library"]["fwd_device_ms"],
+                              "library_bwd_device_ms": at32["library"]["bwd_device_ms"]},
+                "at": f"the {which} layer's bf16 chain: B 32 (B512: batch 512), T 32, d 256, "
+                      "2 heads, ff 512, rate 0.30; ms: device time per launch (profiler); "
+                      "plain_ms: its plain version on the stream; bound: this launch's own "
+                      "bytes and operations; library: F.linear (bias products) or one matmul "
+                      "(products without residual), else none; err: the largest over every "
+                      "output at B 32 and 512, each held to 2e-2 of its largest value; "
+                      "layer_B32: the whole layer, the bound from its own inputs, weights "
+                      f"and outputs, the library call nn.Transformer{which.title()}Layer"})
     band1, band64 = front["band_timings"]
     frames418, frames26752 = front["band_frame_timings"]
     synth1, synth64 = front["synth_timings"]

@@ -17,7 +17,7 @@ from transformergrooveinfilling_tpu_torch.models import GrooveTransformerConfig,
 from transformergrooveinfilling_tpu_torch.data import make_on_device_augment
 from transformergrooveinfilling_tpu_torch.ops import attention, band_energies, device_synth
 from transformergrooveinfilling_tpu_torch.ops import fused_decoder_layer, fused_ffn, fused_layer
-from transformergrooveinfilling_tpu_torch.ops import fused_ln, mso
+from transformergrooveinfilling_tpu_torch.ops import fused_ln, layer_sm90, mso
 from transformergrooveinfilling_tpu_torch.serve import InfillServer
 from transformergrooveinfilling_tpu_torch.train import (
     create_train_state, make_epoch_fn, make_train_step,
@@ -163,16 +163,20 @@ def test_layer_kernels_match_the_twin(cuda, rng, t, d, h, ff, nseq, dtype, rate)
     """Forward, row backward and weight gradients against
     encoder_layer_reference (same masks; the kernel's side of the ReLU only
     at units within rounding of 0, kink_flips); f32: summation order only,
-    bf16: the backward's rounding points differ from autograd's."""
+    bf16: the backward's rounding points differ from autograd's. Each launch
+    of the dtype's route once (bf16: the chain of csrc/layer_sm90.cu, f32:
+    the kernels of csrc/fused_layer.cu), the other route's none."""
     args, dy = _layer_inputs(cuda, rng, t, d, ff, nseq, dtype)
     seed = torch.tensor([99], dtype=torch.int32, device=cuda)
-    before = {k: f.launches for k, f in fused_layer.KERNELS.items()}
+    every = {**fused_layer.KERNELS, **fused_layer.SM90_KERNELS}
+    before = {k: f.launches for k, f in every.items()}
     leaves = [a.detach().clone().requires_grad_(True) for a in args]
     y = fused_layer.encoder_layer_train(*leaves, seed, rate, h, t)
     y.backward(dy)
     torch.cuda.synchronize()
-    assert {k: f.launches - before[k] for k, f in fused_layer.KERNELS.items()} == {
-        k: 1 for k in fused_layer.KERNELS}
+    route = fused_layer.route_kernels(dtype)
+    assert {k: f.launches - before[k] for k, f in every.items()} == {
+        k: int(k in route) for k in every}
     res = fused_layer.layer_forward(*args, seed, rate, h, t)
     with torch.no_grad():
         own = fused_layer.encoder_layer_reference(*args, seed, rate, h, t, return_residuals=True)
@@ -234,11 +238,11 @@ def test_train_steps_run_every_layer_through_the_kernels(cuda, rng, dtype):
     step = make_train_step(0.73)
     x = torch.from_numpy(rng.standard_normal((8, 32, 16)).astype(np.float32)).to(cuda)
     y = torch.from_numpy((rng.random((8, 32, 27)) < 0.3).astype(np.float32)).to(cuda)
-    before = {k: f.launches for k, f in fused_layer.KERNELS.items()}
+    route = fused_layer.route_kernels(dtype)
+    before = {k: f.launches for k, f in route.items()}
     gen = torch.Generator(cuda).manual_seed(0)
     losses = [float(step(state, x, y, None, gen)["loss"]) for _ in range(5)]
-    assert {k: f.launches - before[k] for k, f in fused_layer.KERNELS.items()} == {
-        k: 5 * 2 for k in fused_layer.KERNELS}
+    assert {k: f.launches - before[k] for k, f in route.items()} == {k: 5 * 2 for k in route}
     assert np.isfinite(losses).all() and losses[-1] < losses[0]
 
 
@@ -277,13 +281,15 @@ def test_decoder_layer_kernels_match_the_twin(cuda, rng, t, d, h, ff, nseq, dtyp
     dl = fused_decoder_layer
     args, dy = _decoder_inputs(cuda, rng, t, d, ff, nseq, dtype)
     seed = torch.tensor([99], dtype=torch.int32, device=cuda)
-    before = {k: f.launches for k, f in dl.KERNELS.items()}
+    every = {**dl.KERNELS, **dl.SM90_KERNELS}
+    before = {k: f.launches for k, f in every.items()}
     leaves = [a.detach().clone().requires_grad_(True) for a in args]
     y = dl.decoder_layer_train(*leaves, seed, rate, h, t)
     y.backward(dy)
     torch.cuda.synchronize()
-    assert {k: f.launches - before[k] for k, f in dl.KERNELS.items()} == {
-        k: 1 for k in dl.KERNELS}
+    route = dl.route_kernels(dtype)
+    assert {k: f.launches - before[k] for k, f in every.items()} == {
+        k: int(k in route) for k in every}
     res = dl.layer_forward(*args, seed, rate, h, t)
     with torch.no_grad():
         own = dl.decoder_layer_reference(*args, seed, rate, h, t, return_residuals=True)
@@ -336,13 +342,13 @@ def test_encoder_decoder_train_steps_run_every_layer_through_the_kernels(cuda, r
     step = make_train_step(0.73, encoder_only=False)
     x = torch.from_numpy(rng.standard_normal((8, 32, 16)).astype(np.float32)).to(cuda)
     y = torch.from_numpy((rng.random((8, 32, 27)) < 0.3).astype(np.float32)).to(cuda)
-    kernels = {**fused_layer.KERNELS, **fused_decoder_layer.KERNELS}
+    enc, dec = fused_layer.route_kernels(dtype), fused_decoder_layer.route_kernels(dtype)
+    kernels = {**enc, **dec}
     before = {k: f.launches for k, f in kernels.items()}
     gen = torch.Generator(cuda).manual_seed(0)
     losses = [float(step(state, x, y, None, gen)["loss"]) for _ in range(5)]
     assert {k: f.launches - before[k] for k, f in kernels.items()} == {
-        **{k: 5 * 2 for k in fused_layer.KERNELS},
-        **{k: 5 * 3 for k in fused_decoder_layer.KERNELS}}
+        **{k: 5 * 2 for k in enc}, **{k: 5 * 3 for k in dec}}
     assert np.isfinite(losses).all() and losses[-1] < losses[0]
 
 
@@ -358,6 +364,87 @@ def test_encoder_decoder_server_runs_18_attentions_through_the_kernel(cuda, rng)
     got = fused.infill(x)  # 6 → two chunks of bucket 4
     assert attention.KERNEL.launches - before == 2 * 18
     np.testing.assert_allclose(got[..., 9:], plain.infill(x)[..., 9:], atol=1e-4)
+
+
+# ---------------------------------------------------------------- bf16 layer chains
+
+
+def _sm90_record(cuda, rng, decoder, t, d, h, ff, nseq, rate, seed=7):
+    """One bf16 layer call (forward and backward through the layer module's
+    chain) with every launch recorded."""
+    make = _decoder_inputs if decoder else _layer_inputs
+    mod = fused_decoder_layer if decoder else fused_layer
+    args, dy = make(cuda, rng, t, d, ff, nseq, torch.bfloat16)
+    seed = torch.tensor([seed], dtype=torch.int32, device=cuda)
+    with layer_sm90.recording() as record:
+        leaves = [a.detach().clone().requires_grad_(True) for a in args]
+        y = (mod.decoder_layer_train if decoder else mod.encoder_layer_train)(
+            *leaves, seed, rate, h, t)
+        y.backward(dy)
+        torch.cuda.synchronize()
+    return mod, record, [y.detach()] + [leaf.grad for leaf in leaves]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("decoder", [False, True])
+@pytest.mark.parametrize("t, d, h, ff, nseq", [(32, 256, 2, 512, 16), (17, 64, 4, 96, 3),
+                                               (32, 256, 2, 2048, 4), (8, 32, 4, 64, 5)])
+def test_sm90_launches_match_their_plain_versions(cuda, rng, decoder, t, d, h, ff, nseq):
+    """Every launch of a bf16 layer call against its plain version on the
+    same inputs, each output within 2e-2 of its largest value (bf16
+    rounding of the outputs, f32 sums in another order), every launch of the
+    layer's chain once."""
+    mod, record, _ = _sm90_record(cuda, rng, decoder, t, d, h, ff, nseq, 0.3)
+    names = {id(k): n for n, k in mod.SM90_KERNELS.items()}
+    assert sorted(names[id(launch.kernel)] for launch in record) == sorted(mod.SM90_KERNELS)
+    for launch in record:
+        want = launch.reference(*launch.args, **launch.kwargs)
+        want = want if isinstance(want, tuple) else (want,)
+        assert len(want) == len(launch.outputs)
+        for got, ref in zip(launch.outputs, want):
+            ref = ref.float()
+            err = float((got.float() - ref).abs().max())
+            assert err <= 2e-2 * float(ref.abs().max()), names[id(launch.kernel)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("decoder", [False, True])
+def test_sm90_layers_rerun_bit_identical(cuda, rng, decoder):
+    """No float atomics: two bf16 layer calls with one seed agree bit for bit
+    (forward output and every gradient), also with several row splits."""
+    first = _sm90_record(cuda, np.random.default_rng(3), decoder, 32, 256, 2, 512, 64, 0.3)[2]
+    again = _sm90_record(cuda, np.random.default_rng(3), decoder, 32, 256, 2, 512, 64, 0.3)[2]
+    assert all(torch.equal(a, b) for a, b in zip(first, again))
+
+
+@pytest.mark.cuda
+def test_sm90_launches_refuse_what_they_do_not_take(cuda, rng):
+    args, _ = _layer_inputs(cuda, rng, 32, 64, 128, 2, torch.bfloat16)
+    seed = torch.tensor([1], dtype=torch.int32, device=cuda)
+    k = fused_layer.SM90_KERNELS["fused_layer_sm90_qkv"]
+    x, wqkv, bqkv = args[0], args[1], args[2]
+    with pytest.raises(ValueError, match="one CUDA device"):
+        layer_sm90.bias_product(k, x, wqkv.cpu(), bqkv)
+    with pytest.raises(ValueError, match="contiguous bf16"):
+        layer_sm90.bias_product(k, x.float(), wqkv, bqkv)
+    with pytest.raises(ValueError, match="contiguous bf16"):
+        layer_sm90.bias_product(k, x[:, :60], wqkv[:, :60], bqkv)  # rows not a multiple of 8
+    wide, _ = _layer_inputs(cuda, rng, 32, 264, 128, 2, torch.bfloat16)  # d beyond 256
+    with pytest.raises(ValueError, match="supports_fused_layer"):
+        fused_layer.encoder_layer_train(*wide, seed, 0.3, 2, 32)
+    with pytest.raises(ValueError, match="supports_fused_layer"):
+        fused_layer.encoder_layer_train(*args, seed, 0.3, 2, 64)  # T beyond one warp
+    mixed = list(args)
+    mixed[3] = mixed[3].cpu()
+    with pytest.raises(ValueError, match="one CUDA device"):
+        fused_layer.encoder_layer_train(*mixed, seed, 0.3, 2, 32)
+    attn = fused_layer.SM90_KERNELS["fused_layer_sm90_attn_fwd"]
+    packed = torch.zeros(64, 48, dtype=torch.bfloat16, device=cuda)
+    q = packed[:, :32]
+    with pytest.raises(ValueError, match="multiple of 8"):  # hd 4
+        layer_sm90.attention_forward(attn, q, q, q, seed, 0, 0.3, 8, 32, False)
+    with pytest.raises(ValueError, match="16-byte aligned"):  # starts 8 bytes into a row
+        layer_sm90.attention_forward(attn, packed[:, 4:36], q, q, seed, 0, 0.3, 2, 32, False)
 
 
 # ---------------------------------------------------------------- audio front end

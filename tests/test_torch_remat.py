@@ -268,26 +268,30 @@ def test_resolve_fused_ffn_auto_boundary(monkeypatch):
 
 
 def test_lm_config_resolves_to_the_fused_ffn_and_not_the_fused_layer(monkeypatch):
-    """configs/InfillingRandomLow_lm_training.yaml on a card: the whole-layer
-    gate rejects ff 2048 (331,776 bytes of shared memory); the FFN kernels
-    are taken when the config asks for them, and auto leaves them off at the
-    YAML's batch of 32, at 512 and 1,024, with and without remat; GrooveXL at
-    batch 128 on 80 GB needs no remat by the estimate."""
+    """configs/InfillingRandomLow_lm_training.yaml on a card: the bf16
+    whole-layer gate now admits ff 2048 (the chains of csrc/layer_sm90.cu),
+    so auto takes the whole-layer kernels at the YAML's batch of 32 and at
+    512, the batches where they were measured faster, and not at 1,024; the
+    FFN kernels are taken when the config asks for them, and auto leaves them
+    off at 32, 512 and 1,024, with and without remat; GrooveXL at batch 128
+    on 80 GB needs no remat by the estimate. On the CPU (f32) the f32
+    whole-layer gate rejects ff 2048 (331,776 bytes of shared memory)."""
     hp = load_hyperparameters(os.path.join(REPO, "configs",
                                            "InfillingRandomLow_lm_training.yaml"))
     with monkeypatch.context() as m:
         m.setattr(torch.cuda, "is_available", lambda: True)
         m.setenv("TGI_HBM_BYTES", str(80 * 1024**3))
         cfg = derive_model_config(hp, device="cuda")
-        assert not cfg.fused_ffn and not cfg.fused_layer and not cfg.remat
+        assert not cfg.fused_ffn and cfg.fused_layer and not cfg.remat
         assert (cfg.d_model, cfg.dim_feedforward, cfg.num_encoder_layers) == (256, 2048, 8)
         for batch in (512, 1024):
             for remat in (True, None):
                 hp.batch_size, hp.remat = batch, remat
-                assert not derive_model_config(hp, device="cuda").fused_ffn, (batch, remat)
-        hp.fused_ffn = True
+                got = derive_model_config(hp, device="cuda")
+                assert not got.fused_ffn and got.fused_layer is (batch <= 512), (batch, remat)
+        hp.fused_ffn, hp.batch_size = True, 32
         cfg = derive_model_config(hp, device="cuda")
-        assert cfg.fused_ffn and not cfg.fused_layer
+        assert cfg.fused_ffn and cfg.fused_layer
         assert port_config.resolve_remat(
             None, d_model=1024, n_heads=8, dim_feedforward=4096, n_layers=12, batch_size=128,
             compute_dtype=torch.bfloat16, device="cuda") is False

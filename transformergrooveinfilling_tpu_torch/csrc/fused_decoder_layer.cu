@@ -1,4 +1,5 @@
-// Whole post-LN decoder layer for training, forward and backward, sm_90a.
+// Whole post-LN decoder layer for training, forward and backward, sm_90a:
+// the f32 route (the bf16 route is layer_sm90.cu's chain of launches).
 //
 // Replaces the Pallas TPU kernel transformergrooveinfilling_tpu/ops/
 // fused_decoder_layer.py::decoder_layer_train (forward _fwd_call/_fwd_kernel,
@@ -44,12 +45,12 @@
 // mask and the ReLU's side in the backward. A masked (future) score gets
 // probability exactly 0, so its dS vanishes without masking again.
 //
-// Rounding points (S = storage dtype, f32 or bf16), as the TPU kernel's: qkv,
-// qc, kv, P after dropout, both attention outputs, y1, y2, h, dS, dq/dk/dv,
-// both dattn and the row gradients that feed a product are rounded to S;
-// residual sums and LayerNorms (one-pass variance, clamped at 0) are f32;
-// every product accumulates in f32. a1, a2, a3 are stored rounded and the
-// backward takes its LayerNorm statistics from the stored values.
+// Everything is f32 here: the TPU kernel's rounding points (qkv, qc, kv, P
+// after dropout, both attention outputs, y1, y2, h, dS, dq/dk/dv, both dattn
+// and the row gradients that feed a product, rounded to the storage dtype)
+// round only on the bf16 route, layer_sm90.cu; LayerNorms take a one-pass
+// variance, clamped at 0. The backward takes its LayerNorm statistics from
+// the stored a1, a2, a3.
 //
 // Weights and their gradients are in nn.Linear's (out, in) layout: Wqkv
 // (3d, d), Wo (d, d), Wq (d, d), Wkv (2d, d), Wo2 (d, d), W1 (ff, d), W2
@@ -67,17 +68,16 @@ constexpr int kBadPointerCount = -1;
 
 // ---------------------------------------------------------------- forward
 
-template <typename S>
 struct FwdArgs {
-  const S *y, *mem, *wqkv, *wo, *wq, *wkv, *wo2, *w1, *w2;
+  const float *y, *mem, *wqkv, *wo, *wq, *wkv, *wo2, *w1, *w2;
   const float *bqkv, *bo, *bq, *bkv, *bo2, *g1, *b1, *b1f, *b2f, *g2, *b2, *g3, *b3;
   const int* seed;
-  S *out, *qkv, *a1, *qc, *kv, *a2, *h, *a3;
+  float *out, *qkv, *a1, *qc, *kv, *a2, *h, *a3;
 };
 
-// y = LN(a)·g + b for the T rows of `a` (shared memory, f32), rounded to S;
-// emit(r, c, y) writes
-template <typename S, typename Emit>
+// y = LN(a)·g + b for the T rows of `a` (shared memory, f32); emit(r, c, y)
+// writes
+template <typename Emit>
 __device__ __forceinline__ void ln_rows(const float* a, int T, int d, const float* g,
                                         const float* b, Emit emit) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, nwarps = blockDim.x >> 5;
@@ -86,12 +86,11 @@ __device__ __forceinline__ void ln_rows(const float* a, int T, int d, const floa
     const float* row = a + r * d;
     ln_stats(d, [&](int c) { return row[c]; }, mu, rstd);
     for (int c = lane; c < d; c += 32)
-      emit(r, c, st<S>(affine(zhat(row[c], mu, rstd), g[c], b[c])));
+      emit(r, c, affine(zhat(row[c], mu, rstd), g[c], b[c]));
   }
 }
 
-template <typename S>
-__global__ void __launch_bounds__(kThreads) dec_fwd(FwdArgs<S> p, Shape sh) {
+__global__ void __launch_bounds__(kThreads) dec_fwd(FwdArgs p, Shape sh) {
   extern __shared__ __align__(16) float sm[];
   const int T = sh.T, d = sh.d, H = sh.H, ff = sh.ff, d2 = 2 * d, d3 = 3 * d;
   const int hd = d / H, big = d3 > ff ? d3 : ff;
@@ -108,74 +107,74 @@ __global__ void __launch_bounds__(kThreads) dec_fwd(FwdArgs<S> p, Shape sh) {
     sX[idx] = ld(p.y[static_cast<size_t>(r0) * d + idx]);
   __syncthreads();
 
-  rowmm<S, true>(sX, d, p.wqkv, d, d3, T, [&](int r, int n, float acc) {
-    const S v = st<S>(acc + p.bqkv[n]);
+  rowmm<float, true>(sX, d, p.wqkv, d, d3, T, [&](int r, int n, float acc) {
+    const float v = acc + p.bqkv[n];
     sBig[r * d3 + n] = ld(v);
     p.qkv[static_cast<size_t>(r0 + r) * d3 + n] = v;
   });
   __syncthreads();
 
   for (int hh = 0; hh < H; ++hh)
-    attn_head_fwd<S>(sBig + hh * hd, d3, sBig + d + hh * hd, sBig + d2 + hh * hd, d3, hd, T,
+    attn_head_fwd<float>(sBig + hh * hd, d3, sBig + d + hh * hd, sBig + d2 + hh * hd, d3, hd, T,
                      scale, true, dr, kSiteSelf, (s * H + hh) * T, sP, sA + hh * hd, d);
 
   // a1 = y + drop(A·Wo + bo), into sBig (qkv is no longer needed)
-  rowmm<S, true>(sA, d, p.wo, d, d, T, [&](int r, int n, float acc) {
+  rowmm<float, true>(sA, d, p.wo, d, d, T, [&](int r, int n, float acc) {
     const float a = sX[r * d + n] + dr.apply(acc + p.bo[n], kSiteProj1, r0 + r, n);
     sBig[r * d + n] = a;
-    p.a1[static_cast<size_t>(r0 + r) * d + n] = st<S>(a);
+    p.a1[static_cast<size_t>(r0 + r) * d + n] = a;
   });
   __syncthreads();
-  ln_rows<S>(sBig, T, d, p.g1, p.b1, [&](int r, int c, S v) { sX[r * d + c] = ld(v); });
+  ln_rows(sBig, T, d, p.g1, p.b1, [&](int r, int c, float v) { sX[r * d + c] = ld(v); });
   // mem into sA (the self-attention output is no longer needed)
   for (int idx = threadIdx.x; idx < T * d; idx += blockDim.x)
     sA[idx] = ld(p.mem[static_cast<size_t>(r0) * d + idx]);
   __syncthreads();
 
   // qc = y1·Wq + bq into sBig's first (T, d); kv = mem·Wkv + bkv beside it
-  rowmm<S, true>(sX, d, p.wq, d, d, T, [&](int r, int n, float acc) {
-    const S v = st<S>(acc + p.bq[n]);
+  rowmm<float, true>(sX, d, p.wq, d, d, T, [&](int r, int n, float acc) {
+    const float v = acc + p.bq[n];
     sBig[r * d + n] = ld(v);
     p.qc[static_cast<size_t>(r0 + r) * d + n] = v;
   });
-  rowmm<S, true>(sA, d, p.wkv, d, d2, T, [&](int r, int n, float acc) {
-    const S v = st<S>(acc + p.bkv[n]);
+  rowmm<float, true>(sA, d, p.wkv, d, d2, T, [&](int r, int n, float acc) {
+    const float v = acc + p.bkv[n];
     sKv[r * d2 + n] = ld(v);
     p.kv[static_cast<size_t>(r0 + r) * d2 + n] = v;
   });
   __syncthreads();
 
   for (int hh = 0; hh < H; ++hh)
-    attn_head_fwd<S>(sBig + hh * hd, d, sKv + hh * hd, sKv + d + hh * hd, d2, hd, T, scale,
+    attn_head_fwd<float>(sBig + hh * hd, d, sKv + hh * hd, sKv + d + hh * hd, d2, hd, T, scale,
                      false, dr, kSiteCross, (s * H + hh) * T, sP, sA + hh * hd, d);
 
   // a2 = y1 + drop(B·Wo2 + bo2), into sBig (qc is no longer needed)
-  rowmm<S, true>(sA, d, p.wo2, d, d, T, [&](int r, int n, float acc) {
+  rowmm<float, true>(sA, d, p.wo2, d, d, T, [&](int r, int n, float acc) {
     const float a = sX[r * d + n] + dr.apply(acc + p.bo2[n], kSiteProj2, r0 + r, n);
     sBig[r * d + n] = a;
-    p.a2[static_cast<size_t>(r0 + r) * d + n] = st<S>(a);
+    p.a2[static_cast<size_t>(r0 + r) * d + n] = a;
   });
   __syncthreads();
-  ln_rows<S>(sBig, T, d, p.g2, p.b2, [&](int r, int c, S v) { sX[r * d + c] = ld(v); });
+  ln_rows(sBig, T, d, p.g2, p.b2, [&](int r, int c, float v) { sX[r * d + c] = ld(v); });
   __syncthreads();
 
   // h = drop(relu(y2·W1 + b1)), into sBig
-  rowmm<S, true>(sX, d, p.w1, d, ff, T, [&](int r, int n, float acc) {
-    const S v = st<S>(dr.apply(fmaxf(acc + p.b1f[n], 0.f), kSiteFfn, r0 + r, n));
+  rowmm<float, true>(sX, d, p.w1, d, ff, T, [&](int r, int n, float acc) {
+    const float v = dr.apply(fmaxf(acc + p.b1f[n], 0.f), kSiteFfn, r0 + r, n);
     sBig[r * ff + n] = ld(v);
     p.h[static_cast<size_t>(r0 + r) * ff + n] = v;
   });
   __syncthreads();
 
   // a3 = y2 + drop(h·W2 + b2), into sA
-  rowmm<S, true>(sBig, ff, p.w2, ff, d, T, [&](int r, int n, float acc) {
+  rowmm<float, true>(sBig, ff, p.w2, ff, d, T, [&](int r, int n, float acc) {
     const float a = sX[r * d + n] + dr.apply(acc + p.b2f[n], kSiteOut, r0 + r, n);
     sA[r * d + n] = a;
-    p.a3[static_cast<size_t>(r0 + r) * d + n] = st<S>(a);
+    p.a3[static_cast<size_t>(r0 + r) * d + n] = a;
   });
   __syncthreads();
-  ln_rows<S>(sA, T, d, p.g3, p.b3,
-             [&](int r, int c, S v) { p.out[static_cast<size_t>(r0 + r) * d + c] = v; });
+  ln_rows(sA, T, d, p.g3, p.b3,
+          [&](int r, int c, float v) { p.out[static_cast<size_t>(r0 + r) * d + c] = v; });
 }
 
 // ---------------------------------------------------------------- backward, rows
@@ -189,23 +188,21 @@ struct Cols {
         dy1zh1(12 * d + ff), dy1(13 * d + ff), stats(14 * d + ff), width(14 * d + ff + 4) {}
 };
 
-template <typename S>
 struct RowArgs {
-  const S *dy, *qkv, *a1, *qc, *kv, *a2, *h, *a3, *wqkv, *wo, *wq, *wkv, *wo2, *w1, *w2;
+  const float *dy, *qkv, *a1, *qc, *kv, *a2, *h, *a3, *wqkv, *wo, *wq, *wkv, *wo2, *w1, *w2;
   const float *g1, *g2, *g3;
   const int* seed;
-  S *dx, *dmem;
+  float *dx, *dmem;
   float* scratch;
 };
 
 // zh = (a − mean)·rstd of the T stored pre-norm rows a (device memory) into
 // zh (shared memory); (mean, rstd) into stat[2r], stat[2r + 1]
-template <typename S>
-__device__ __forceinline__ void zhat_rows(const S* a, int T, int d, float* zh, float* stat,
+__device__ __forceinline__ void zhat_rows(const float* a, int T, int d, float* zh, float* stat,
                                           int stat_stride) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, nwarps = blockDim.x >> 5;
   for (int r = warp; r < T; r += nwarps) {
-    const S* row = a + static_cast<size_t>(r) * d;
+    const float* row = a + static_cast<size_t>(r) * d;
     float mu, rstd;
     ln_stats(d, [&](int c) { return ld(row[c]); }, mu, rstd);
     for (int c = lane; c < d; c += 32) zh[r * d + c] = zhat(ld(row[c]), mu, rstd);
@@ -216,17 +213,16 @@ __device__ __forceinline__ void zhat_rows(const S* a, int T, int d, float* zh, f
   }
 }
 
-template <typename S>
-__global__ void __launch_bounds__(kThreads) dec_bwd_rows(RowArgs<S> p, Shape sh) {
+__global__ void __launch_bounds__(kThreads) dec_bwd_rows(RowArgs p, Shape sh) {
   extern __shared__ __align__(16) float sm[];
   const int T = sh.T, d = sh.d, H = sh.H, ff = sh.ff, d2 = 2 * d, d3 = 3 * d;
   const int hd = d / H, big = d3 > ff ? d3 : ff;
   const Cols col(d, ff);
   float* B0 = sm;              // (T, d): da3, dy2, da2, dy1, da1 in turn
-  float* B1 = B0 + T * d;      // (T, d): df, dproj2, dproj in turn, rounded
+  float* B1 = B0 + T * d;      // (T, d): df, dproj2, dproj in turn
   float* B2 = B1 + T * d;      // (T, d): zh3, zh2, dcatt, zh1, dattn in turn
-  float* sBig = B2 + T * d;    // (T, ff): dhpre rounded; (T, 3d): qc | kv, dqc | dkv, qkv, dqkv
-  float* sP = sBig + T * big;  // (T, T): P, then P after dropout, rounded
+  float* sBig = B2 + T * d;    // (T, ff): dhpre; (T, 3d): qc | kv, dqc | dkv, qkv, dqkv
+  float* sP = sBig + T * big;  // (T, T): P, then P after dropout
   float* sD = sP + T * T;      // (T, T): dP, then dS
   float* sStat = sD + T * T;   // (T, 8): mean, rstd of LN1, LN2, LN3
   float* sKv = sBig + T * d;   // (T, 2d), beside qc
@@ -252,23 +248,23 @@ __global__ void __launch_bounds__(kThreads) dec_bwd_rows(RowArgs<S> p, Shape sh)
         B0[r * d + c] = da3;
         const float df = dr.apply(da3, kSiteOut, r0 + r, c);
         scr[r * col.width + col.df + c] = df;
-        B1[r * d + c] = rnd<S>(df);
+        B1[r * d + c] = df;
       });
   __syncthreads();
   zhat_rows(p.a2 + g0, T, d, B2, sStat + 2, 8);
   __syncthreads();
 
   // dhpre = (h > 0) · (df·W2ᵀ) / keep: h_drop > 0 carries both mask and ReLU
-  rowmm<S, false>(B1, d, p.w2, d, ff, T, [&](int r, int n, float acc) {
+  rowmm<float, false>(B1, d, p.w2, d, ff, T, [&](int r, int n, float acc) {
     const float hv = ld(p.h[static_cast<size_t>(r0 + r) * ff + n]);
     const float dh = hv > 0.f ? acc / dr.keep : 0.f;
     scr[r * col.width + col.dhpre + n] = dh;
-    sBig[r * ff + n] = rnd<S>(dh);
+    sBig[r * ff + n] = dh;
   });
   __syncthreads();
 
   // dy2 = dhpre·W1ᵀ + da3, into B0
-  rowmm<S, false>(sBig, ff, p.w1, ff, d, T, [&](int r, int n, float acc) {
+  rowmm<float, false>(sBig, ff, p.w1, ff, d, T, [&](int r, int n, float acc) {
     const float dy2 = acc + B0[r * d + n];
     B0[r * d + n] = dy2;
     scr[r * col.width + col.dy2 + n] = dy2;
@@ -283,7 +279,7 @@ __global__ void __launch_bounds__(kThreads) dec_bwd_rows(RowArgs<S> p, Shape sh)
         B0[r * d + c] = da2;
         const float dproj2 = dr.apply(da2, kSiteProj2, r0 + r, c);
         scr[r * col.width + col.dproj2 + c] = dproj2;
-        B1[r * d + c] = rnd<S>(dproj2);
+        B1[r * d + c] = dproj2;
       });
   __syncthreads();
 
@@ -292,12 +288,12 @@ __global__ void __launch_bounds__(kThreads) dec_bwd_rows(RowArgs<S> p, Shape sh)
   for (int idx = threadIdx.x; idx < T * d; idx += blockDim.x) sBig[idx] = ld(p.qc[g0 + idx]);
   for (int idx = threadIdx.x; idx < T * d2; idx += blockDim.x)
     sKv[idx] = ld(p.kv[static_cast<size_t>(r0) * d2 + idx]);
-  rowmm<S, false>(B1, d, p.wo2, d, d, T,
-                  [&](int r, int n, float acc) { B2[r * d + n] = rnd<S>(acc); });
+  rowmm<float, false>(B1, d, p.wo2, d, d, T,
+                      [&](int r, int n, float acc) { B2[r * d + n] = acc; });
   __syncthreads();
   for (int hh = 0; hh < H; ++hh) {
     const int q0 = hh * hd;
-    attn_head_bwd<S>(sBig + q0, d, sKv + q0, sKv + d + q0, d2, B2 + q0, d, hd, T, scale, false,
+    attn_head_bwd<float>(sBig + q0, d, sKv + q0, sKv + d + q0, d2, B2 + q0, d, hd, T, scale, false,
                      dr, kSiteCross, (s * H + hh) * T, sP, sD,
                      [&](int j, int c, float dq, float dk, float dv) {
                        float* row = scr + j * col.width;
@@ -322,14 +318,14 @@ __global__ void __launch_bounds__(kThreads) dec_bwd_rows(RowArgs<S> p, Shape sh)
     scr[r * col.width + col.stats + k] = sStat[8 * r + k];
   }
   // dy1 = dqc·Wqᵀ + da2, into B0;  dmem = dkv·Wkvᵀ
-  rowmm<S, false>(sBig, d, p.wq, d, d, T, [&](int r, int n, float acc) {
+  rowmm<float, false>(sBig, d, p.wq, d, d, T, [&](int r, int n, float acc) {
     const float dy1 = acc + B0[r * d + n];
     B0[r * d + n] = dy1;
     scr[r * col.width + col.dy1 + n] = dy1;
     scr[r * col.width + col.dy1zh1 + n] = dy1 * B2[r * d + n];
   });
-  rowmm<S, false>(sKv, d2, p.wkv, d2, d, T, [&](int r, int n, float acc) {
-    p.dmem[g0 + r * d + n] = st<S>(acc);
+  rowmm<float, false>(sKv, d2, p.wkv, d2, d, T, [&](int r, int n, float acc) {
+    p.dmem[g0 + r * d + n] = acc;
   });
   __syncthreads();
 
@@ -340,7 +336,7 @@ __global__ void __launch_bounds__(kThreads) dec_bwd_rows(RowArgs<S> p, Shape sh)
         B0[r * d + c] = da1;
         const float dproj = dr.apply(da1, kSiteProj1, r0 + r, c);
         scr[r * col.width + col.dproj + c] = dproj;
-        B1[r * d + c] = rnd<S>(dproj);
+        B1[r * d + c] = dproj;
       });
   __syncthreads();
 
@@ -348,12 +344,12 @@ __global__ void __launch_bounds__(kThreads) dec_bwd_rows(RowArgs<S> p, Shape sh)
   // dattn = round(dproj·Woᵀ) into B2; qkv into sBig
   for (int idx = threadIdx.x; idx < T * d3; idx += blockDim.x)
     sBig[idx] = ld(p.qkv[static_cast<size_t>(r0) * d3 + idx]);
-  rowmm<S, false>(B1, d, p.wo, d, d, T,
-                  [&](int r, int n, float acc) { B2[r * d + n] = rnd<S>(acc); });
+  rowmm<float, false>(B1, d, p.wo, d, d, T,
+                      [&](int r, int n, float acc) { B2[r * d + n] = acc; });
   __syncthreads();
   for (int hh = 0; hh < H; ++hh) {
     const int q0 = hh * hd, k0 = d + hh * hd, v0 = d2 + hh * hd;
-    attn_head_bwd<S>(sBig + q0, d3, sBig + k0, sBig + v0, d3, B2 + q0, d, hd, T, scale, true,
+    attn_head_bwd<float>(sBig + q0, d3, sBig + k0, sBig + v0, d3, B2 + q0, d, hd, T, scale, true,
                      dr, kSiteSelf, (s * H + hh) * T, sP, sD,
                      [&](int j, int c, float dq, float dk, float dv) {
                        float* out = scr + j * col.width + col.dqkv;
@@ -369,8 +365,8 @@ __global__ void __launch_bounds__(kThreads) dec_bwd_rows(RowArgs<S> p, Shape sh)
     sBig[idx] = scr[r * col.width + col.dqkv + c];
   }
   __syncthreads();
-  rowmm<S, false>(sBig, d3, p.wqkv, d3, d, T, [&](int r, int n, float acc) {
-    p.dx[g0 + r * d + n] = st<S>(B0[r * d + n] + acc);
+  rowmm<float, false>(sBig, d3, p.wqkv, d3, d, T, [&](int r, int n, float acc) {
+    p.dx[g0 + r * d + n] = B0[r * d + n] + acc;
   });
 }
 
@@ -380,26 +376,23 @@ constexpr int kMats = 7, kVecs = 13;
 enum AKind { kRows = 0, kLayerNorm = 1, kAttention = 2 };
 
 // One weight gradient dW (N, K) = Σ_rows dY[row][n]·A[row][k]. dY is a scratch
-// column (rounded to S first where the TPU kernel rounds it). A is rows of a
-// stored tensor, or y = LN(a)·g + b of a stored pre-norm tensor with the row
-// kernel's statistics, or an attention output recomputed from its stored
-// projections.
-template <typename S>
+// column. A is rows of a stored tensor, or y = LN(a)·g + b of a stored
+// pre-norm tensor with the row kernel's statistics, or an attention output
+// recomputed from its stored projections.
 struct MatDesc {
   int K, N, a_kind;
-  const S* a;           // kRows: (rows, K); kLayerNorm: the pre-norm tensor (rows, d)
-  int stat_col;         // kLayerNorm: scratch column of (mean, rstd)
-  const float *g, *b;   // kLayerNorm
-  const S *q, *k, *v;   // kAttention: the first head's first column of each
+  const float* a;          // kRows: (rows, K); kLayerNorm: the pre-norm tensor (rows, d)
+  int stat_col;            // kLayerNorm: scratch column of (mean, rstd)
+  const float *g, *b;      // kLayerNorm
+  const float *q, *k, *v;  // kAttention: the first head's first column of each
   int ldq, ldk, causal, site;
-  int dy_col, dy_round;
+  int dy_col;
   float* out;
 };
 
-template <typename S>
 struct WgradArgs {
-  MatDesc<S> mat[kMats];
-  const S* dy;
+  MatDesc mat[kMats];
+  const float* dy;
   const int* seed;
   const float* scratch;
   float* vec;
@@ -407,8 +400,7 @@ struct WgradArgs {
   int vec_width[kVecs];
 };
 
-template <typename S>
-__global__ void __launch_bounds__(kThreads) dec_bwd_weights(WgradArgs<S> p, Shape sh) {
+__global__ void __launch_bounds__(kThreads) dec_bwd_weights(WgradArgs p, Shape sh) {
   extern __shared__ __align__(16) float sm[];
   const int T = sh.T, d = sh.d, H = sh.H, ff = sh.ff;
   const int hd = d / H, m = sh.nseq * T;
@@ -451,7 +443,7 @@ __global__ void __launch_bounds__(kThreads) dec_bwd_weights(WgradArgs<S> p, Shap
     return;
   }
 
-  const MatDesc<S>& md = p.mat[mi];
+  const MatDesc& md = p.mat[mi];
   const int K = md.K, N = md.N;
   const int k0 = (b / tiles(N)) * kTile, n0 = (b % tiles(N)) * kTile;
   float* sA = sm;                  // (T, 64)
@@ -475,7 +467,6 @@ __global__ void __launch_bounds__(kThreads) dec_bwd_weights(WgradArgs<S> p, Shap
       float v = 0.f;
       if (n < N) {
         v = scr[r * col.width + md.dy_col + n];
-        if (md.dy_round) v = rnd<S>(v);
       }
       sB[idx] = v;
     }
@@ -486,7 +477,7 @@ __global__ void __launch_bounds__(kThreads) dec_bwd_weights(WgradArgs<S> p, Shap
         const int c_lo = max(k0, hh * hd), c_hi = min(kend, (hh + 1) * hd);
         const size_t qoff = static_cast<size_t>(r0) * md.ldq + hh * hd;
         const size_t koff = static_cast<size_t>(r0) * md.ldk + hh * hd;
-        attn_head_cols<S>(md.q + qoff, md.ldq, md.k + koff, md.v + koff, md.ldk, hd, T, scale,
+        attn_head_cols<float>(md.q + qoff, md.ldq, md.k + koff, md.v + koff, md.ldk, hd, T, scale,
                           md.causal != 0, dr, md.site, (s * H + hh) * T, c_lo - hh * hd,
                           c_hi - hh * hd, sQ, sK, sP, sA + c_lo - k0, kTile);
       }
@@ -501,7 +492,7 @@ __global__ void __launch_bounds__(kThreads) dec_bwd_weights(WgradArgs<S> p, Shap
           v = ld(md.a[row * K + k]);
           if (md.a_kind == kLayerNorm) {
             const float* st_ = scr + r * col.width + md.stat_col;
-            v = rnd<S>(affine(zhat(v, st_[0], st_[1]), md.g[k], md.b[k]));
+            v = affine(zhat(v, st_[0], st_[1]), md.g[k], md.b[k]);
           }
         }
         sA[idx] = v;
@@ -554,90 +545,87 @@ struct Pointers {
 
 constexpr int kFwdPointers = 31, kRowPointers = 22, kWeightPointers = 23;
 
-template <typename S>
 int fwd(void* const* ptr, const Shape& sh, cudaStream_t stream) {
   Pointers in{ptr, 0};
-  FwdArgs<S> a;
-  a.y = in.next<const S>();
-  a.mem = in.next<const S>();
-  a.wqkv = in.next<const S>();
+  FwdArgs a;
+  a.y = in.next<const float>();
+  a.mem = in.next<const float>();
+  a.wqkv = in.next<const float>();
   a.bqkv = in.next<const float>();
-  a.wo = in.next<const S>();
+  a.wo = in.next<const float>();
   a.bo = in.next<const float>();
-  a.wq = in.next<const S>();
+  a.wq = in.next<const float>();
   a.bq = in.next<const float>();
-  a.wkv = in.next<const S>();
+  a.wkv = in.next<const float>();
   a.bkv = in.next<const float>();
-  a.wo2 = in.next<const S>();
+  a.wo2 = in.next<const float>();
   a.bo2 = in.next<const float>();
   a.g1 = in.next<const float>();
   a.b1 = in.next<const float>();
-  a.w1 = in.next<const S>();
+  a.w1 = in.next<const float>();
   a.b1f = in.next<const float>();
-  a.w2 = in.next<const S>();
+  a.w2 = in.next<const float>();
   a.b2f = in.next<const float>();
   a.g2 = in.next<const float>();
   a.b2 = in.next<const float>();
   a.g3 = in.next<const float>();
   a.b3 = in.next<const float>();
   a.seed = in.next<const int>();
-  a.out = in.next<S>();
-  a.qkv = in.next<S>();
-  a.a1 = in.next<S>();
-  a.qc = in.next<S>();
-  a.kv = in.next<S>();
-  a.a2 = in.next<S>();
-  a.h = in.next<S>();
-  a.a3 = in.next<S>();
+  a.out = in.next<float>();
+  a.qkv = in.next<float>();
+  a.a1 = in.next<float>();
+  a.qc = in.next<float>();
+  a.kv = in.next<float>();
+  a.a2 = in.next<float>();
+  a.h = in.next<float>();
+  a.a3 = in.next<float>();
   if (in.i != kFwdPointers) return kBadPointerCount;
-  return launch(dec_fwd<S>, sh.nseq, fwd_smem(sh), stream, a, sh);
+  return launch(dec_fwd, sh.nseq, fwd_smem(sh), stream, a, sh);
 }
 
-template <typename S>
 int bwd_rows(void* const* ptr, const Shape& sh, cudaStream_t stream) {
   Pointers in{ptr, 0};
-  RowArgs<S> a;
-  a.dy = in.next<const S>();
-  a.qkv = in.next<const S>();
-  a.a1 = in.next<const S>();
-  a.qc = in.next<const S>();
-  a.kv = in.next<const S>();
-  a.a2 = in.next<const S>();
-  a.h = in.next<const S>();
-  a.a3 = in.next<const S>();
-  a.wqkv = in.next<const S>();
-  a.wo = in.next<const S>();
-  a.wq = in.next<const S>();
-  a.wkv = in.next<const S>();
-  a.wo2 = in.next<const S>();
-  a.w1 = in.next<const S>();
-  a.w2 = in.next<const S>();
+  RowArgs a;
+  a.dy = in.next<const float>();
+  a.qkv = in.next<const float>();
+  a.a1 = in.next<const float>();
+  a.qc = in.next<const float>();
+  a.kv = in.next<const float>();
+  a.a2 = in.next<const float>();
+  a.h = in.next<const float>();
+  a.a3 = in.next<const float>();
+  a.wqkv = in.next<const float>();
+  a.wo = in.next<const float>();
+  a.wq = in.next<const float>();
+  a.wkv = in.next<const float>();
+  a.wo2 = in.next<const float>();
+  a.w1 = in.next<const float>();
+  a.w2 = in.next<const float>();
   a.g1 = in.next<const float>();
   a.g2 = in.next<const float>();
   a.g3 = in.next<const float>();
   a.seed = in.next<const int>();
-  a.dx = in.next<S>();
-  a.dmem = in.next<S>();
+  a.dx = in.next<float>();
+  a.dmem = in.next<float>();
   a.scratch = in.next<float>();
   if (in.i != kRowPointers) return kBadPointerCount;
-  return launch(dec_bwd_rows<S>, sh.nseq, rows_smem(sh), stream, a, sh);
+  return launch(dec_bwd_rows, sh.nseq, rows_smem(sh), stream, a, sh);
 }
 
-template <typename S>
 int bwd_weights(void* const* ptr, const Shape& sh, cudaStream_t stream) {
   Pointers in{ptr, 0};
   const int d = sh.d, ff = sh.ff;
   const Cols col(d, ff);
-  WgradArgs<S> a;
-  a.dy = in.next<const S>();
-  const S* y = in.next<const S>();
-  const S* mem = in.next<const S>();
-  const S* qkv = in.next<const S>();
-  const S* a1 = in.next<const S>();
-  const S* qc = in.next<const S>();
-  const S* kv = in.next<const S>();
-  const S* a2 = in.next<const S>();
-  const S* h = in.next<const S>();
+  WgradArgs a;
+  a.dy = in.next<const float>();
+  const float* y = in.next<const float>();
+  const float* mem = in.next<const float>();
+  const float* qkv = in.next<const float>();
+  const float* a1 = in.next<const float>();
+  const float* qc = in.next<const float>();
+  const float* kv = in.next<const float>();
+  const float* a2 = in.next<const float>();
+  const float* h = in.next<const float>();
   const float* g1 = in.next<const float>();
   const float* b1 = in.next<const float>();
   const float* g2 = in.next<const float>();
@@ -645,30 +633,30 @@ int bwd_weights(void* const* ptr, const Shape& sh, cudaStream_t stream) {
   a.seed = in.next<const int>();
   a.scratch = in.next<const float>();
 
-  const auto mat = [&](int i, int K, int N, int a_kind, int dy_col, int dy_round) -> MatDesc<S>& {
-    MatDesc<S>& md = a.mat[i];
-    md = MatDesc<S>{};
-    md.K = K; md.N = N; md.a_kind = a_kind; md.dy_col = dy_col; md.dy_round = dy_round;
+  const auto mat = [&](int i, int K, int N, int a_kind, int dy_col) -> MatDesc& {
+    MatDesc& md = a.mat[i];
+    md = MatDesc{};
+    md.K = K; md.N = N; md.a_kind = a_kind; md.dy_col = dy_col;
     md.out = in.next<float>();
     return md;
   };
-  const auto attention = [](MatDesc<S>& md, const S* q, int ldq, const S* k, const S* v, int ldk,
-                            int causal, int site) {
+  const auto attention = [](MatDesc& md, const float* q, int ldq, const float* k,
+                            const float* v, int ldk, int causal, int site) {
     md.q = q; md.ldq = ldq; md.k = k; md.v = v; md.ldk = ldk; md.causal = causal; md.site = site;
   };
-  const auto layer_norm = [&](MatDesc<S>& md, const S* pre, int stat, const float* g,
+  const auto layer_norm = [&](MatDesc& md, const float* pre, int stat, const float* g,
                               const float* b) {
     md.a = pre; md.stat_col = col.stats + stat; md.g = g; md.b = b;
   };
   // in the order of the outputs: dwqkv, dwo, dwq, dwkv, dwo2, dw1, dw2
-  mat(0, d, 3 * d, kRows, col.dqkv, 0).a = y;
-  attention(mat(1, d, d, kAttention, col.dproj, 1), qkv, 3 * d, qkv + d, qkv + 2 * d, 3 * d, 1,
+  mat(0, d, 3 * d, kRows, col.dqkv).a = y;
+  attention(mat(1, d, d, kAttention, col.dproj), qkv, 3 * d, qkv + d, qkv + 2 * d, 3 * d, 1,
             kSiteSelf);
-  layer_norm(mat(2, d, d, kLayerNorm, col.dqc, 0), a1, 0, g1, b1);
-  mat(3, d, 2 * d, kRows, col.dkv, 0).a = mem;
-  attention(mat(4, d, d, kAttention, col.dproj2, 1), qc, d, kv, kv + d, 2 * d, 0, kSiteCross);
-  layer_norm(mat(5, d, ff, kLayerNorm, col.dhpre, 1), a2, 2, g2, b2);
-  mat(6, ff, d, kRows, col.df, 1).a = h;
+  layer_norm(mat(2, d, d, kLayerNorm, col.dqc), a1, 0, g1, b1);
+  mat(3, d, 2 * d, kRows, col.dkv).a = mem;
+  attention(mat(4, d, d, kAttention, col.dproj2), qc, d, kv, kv + d, 2 * d, 0, kSiteCross);
+  layer_norm(mat(5, d, ff, kLayerNorm, col.dhpre), a2, 2, g2, b2);
+  mat(6, ff, d, kRows, col.df).a = h;
   a.vec = in.next<float>();
   if (in.i != kWeightPointers) return kBadPointerCount;
 
@@ -683,7 +671,7 @@ int bwd_weights(void* const* ptr, const Shape& sh, cudaStream_t stream) {
     a.vec_width[i] = widths[i];
   }
   for (int i = 0; i < kMats; ++i) blocks += tiles(a.mat[i].K) * tiles(a.mat[i].N);
-  return launch(dec_bwd_weights<S>, blocks, weights_smem(sh), stream, a, sh);
+  return launch(dec_bwd_weights, blocks, weights_smem(sh), stream, a, sh);
 }
 
 }  // namespace
@@ -694,15 +682,16 @@ extern "C" {
 // tensors, in the order the function above reads them (a wrong count returns
 // -1 and launches nothing); nseq sequences of T rows (rows = nseq·T), width
 // d, H heads, ff hidden; thresh the 8-bit keep threshold (256: no dropout);
-// is_bf16 picks the storage dtype (0 float32, 1 bfloat16); the seed pointer
-// is to one int32.
+// is_bf16 must be 0 (float32; bf16 returns cudaErrorInvalidValue); the seed
+// pointer is to one int32.
 
 int tgi_dec_fwd(void* const* ptr, int n_ptr, int nseq, int T, int d, int H, int ff, int thresh,
                 int is_bf16, void* stream) {
   if (n_ptr != kFwdPointers) return kBadPointerCount;
   const Shape sh{nseq, T, d, H, ff, thresh};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return is_bf16 ? fwd<__nv_bfloat16>(ptr, sh, s) : fwd<float>(ptr, sh, s);
+  if (is_bf16) return static_cast<int>(cudaErrorInvalidValue);  // layer_sm90.cu's route
+  return fwd(ptr, sh, s);
 }
 
 int tgi_dec_bwd_rows(void* const* ptr, int n_ptr, int nseq, int T, int d, int H, int ff,
@@ -710,7 +699,8 @@ int tgi_dec_bwd_rows(void* const* ptr, int n_ptr, int nseq, int T, int d, int H,
   if (n_ptr != kRowPointers) return kBadPointerCount;
   const Shape sh{nseq, T, d, H, ff, thresh};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return is_bf16 ? bwd_rows<__nv_bfloat16>(ptr, sh, s) : bwd_rows<float>(ptr, sh, s);
+  if (is_bf16) return static_cast<int>(cudaErrorInvalidValue);  // layer_sm90.cu's route
+  return bwd_rows(ptr, sh, s);
 }
 
 int tgi_dec_bwd_weights(void* const* ptr, int n_ptr, int nseq, int T, int d, int H, int ff,
@@ -718,7 +708,8 @@ int tgi_dec_bwd_weights(void* const* ptr, int n_ptr, int nseq, int T, int d, int
   if (n_ptr != kWeightPointers) return kBadPointerCount;
   const Shape sh{nseq, T, d, H, ff, thresh};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return is_bf16 ? bwd_weights<__nv_bfloat16>(ptr, sh, s) : bwd_weights<float>(ptr, sh, s);
+  if (is_bf16) return static_cast<int>(cudaErrorInvalidValue);  // layer_sm90.cu's route
+  return bwd_weights(ptr, sh, s);
 }
 
 const char* tgi_dec_error_string(int code) {

@@ -33,7 +33,7 @@
 //                    64-row chunks when the tiles alone do not fill the card;
 //                    f32 partials (dW1 | dW2 | db1 | db2 per split), the
 //                    biases as column sums in a fixed order by blocks of
-//                    their own; ffn_reduce adds the splits in order. No float
+//                    their own; reduce_splits adds the splits in order. No float
 //                    atomics: two runs with one seed agree bit for bit.
 // A launch takes 64 × 64 tiles (one consumer warpgroup, several blocks an
 // SM) where 128 × 128 ones would leave SMs idle, 128 × 256 for dh·W1 and for
@@ -66,7 +66,7 @@
 // entry points, bound from Python with ctypes (ops/fused_ffn.py); each returns
 // cudaGetLastError() after its launch.
 
-#include "gemm_sm90.cuh"
+#include "epilogues_sm90.cuh"
 #include "vec4.cuh"
 
 namespace {
@@ -433,304 +433,10 @@ ffn_bwd_weights(WgradArgs p, FfnShape sh, int rows_per_split) {
   }
 }
 
-// out[i] = Σ_s part[s][i], in split order
-__global__ void ffn_reduce(const float* __restrict__ part, float* __restrict__ out, size_t total,
-                           int splits) {
-  const size_t i = static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (i >= total) return;
-  float s = part[i];
-  for (int k = 1; k < splits; ++k) s += part[k * total + i];
-  out[i] = s;
-}
-
-
 // ---------------------------------------------------------------- bf16 route
 
-using bf16 = __nv_bfloat16;
-
-__device__ __forceinline__ void store2(bf16* p, float a, float b) {
-  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
-}
-
-// The epilogues of sm90::gemm_kernel. store() gets the values at (row, col),
-// (row, col+1), (row, col+8), (row, col+9); col is even and the widths are
-// multiples of 8, so a pair is in or out of the matrix as a whole. load()
-// fetches what store() reads besides them, for a whole tile before its
-// first store.
-
-struct NoAux {};
-struct NoExtra {
-  __device__ __forceinline__ void extra(int, int, int, int) const {}
-};
-
-// the tile's aux by load_one(problem, split, row, col) of each quad
-template <class Epi, int G>
-__device__ __forceinline__ void load_quads(const Epi& epi, int problem, int split, int row,
-                                           int col, typename Epi::Aux (&aux)[G][2]) {
-#pragma unroll
-  for (int g = 0; g < G; ++g)
-#pragma unroll
-    for (int h = 0; h < 2; ++h) aux[g][h] = epi.load_one(problem, split, row + 8 * h, col + 16 * g);
-}
-
-// the bias at columns col, col + 1, col + 8, col + 9 (0 past the width)
-__device__ __forceinline__ float4 bias4(const float* bias, int col, int width) {
-  float4 b = make_float4(0.f, 0.f, 0.f, 0.f);
-  if (col < width) b.x = bias[col], b.y = bias[col + 1];
-  if (col + 8 < width) b.z = bias[col + 8], b.w = bias[col + 9];
-  return b;
-}
-
-// h = round(drop(relu(x·W1ᵀ + b1))). The four threads of a quad hold one
-// row's columns of the same 16-column groups, so they share its dropout
-// draws: each computes a quarter of them and passes on the two words that
-// each of the others needs (word q/2 for columns 2q, 2q+1 of a group, word
-// 2 + q/2 for columns 8 + 2q, 9 + 2q).
-struct EpiHidden : NoExtra {
-  bf16* h;
-  const float* b1;
-  const int* seed;
-  int rows, ff, thresh;
-  struct Aux {
-    float4 b;
-    uint32_t lo, hi;  // this thread's words of the (row, group) draw
-  };
-  template <int G>
-  __device__ __forceinline__ void load(int, int, int row, int col, Aux (&aux)[G][2]) const {
-#pragma unroll
-    for (int g = 0; g < G; ++g) aux[g][0].b = aux[g][1].b = bias4(b1, col + 16 * g, ff);
-    if (thresh >= 256) return;
-    const int j = threadIdx.x & 3, q2 = (threadIdx.x >> 1) & 1;
-    const uint32_t s = static_cast<uint32_t>(*seed);
-    uint4 mine[G / 2];  // draws i = 2g + h with i % 4 == j: g = 2t + j/2, h = j % 2
-#pragma unroll
-    for (int t = 0; t < G / 2; ++t)
-      mine[t] = dropout_words(s, kSiteFfn, row + 8 * (j & 1), (col >> 4) + 2 * t + (j >> 1));
-    const int quad = threadIdx.x & 28;  // lane of the quad's first thread
-#pragma unroll
-    for (int i = 0; i < 2 * G; ++i) {
-      const int src = quad | (i & 3);
-      const uint4& m = mine[i >> 2];
-      const uint32_t w0 = __shfl_sync(0xffffffffu, m.x, src);
-      const uint32_t w1 = __shfl_sync(0xffffffffu, m.y, src);
-      const uint32_t w2 = __shfl_sync(0xffffffffu, m.z, src);
-      const uint32_t w3 = __shfl_sync(0xffffffffu, m.w, src);
-      aux[i >> 1][i & 1].lo = q2 ? w1 : w0;
-      aux[i >> 1][i & 1].hi = q2 ? w3 : w2;
-    }
-  }
-  __device__ __forceinline__ void store(int, int, int row, int col, const float (&v)[4],
-                                        const Aux& a) const {
-    if (row >= rows) return;
-    const float inv_keep = 256.f / thresh;
-    const int shift = 16 * (threadIdx.x & 1);  // byte 2(q % 2) of a word, then the next
-    const float b[4] = {a.b.x, a.b.y, a.b.z, a.b.w};
-#pragma unroll
-    for (int p = 0; p < 2; ++p) {
-      const int c = col + 8 * p;
-      if (c >= ff) continue;
-      const uint32_t w = p ? a.hi : a.lo;
-      float o[2];
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        o[e] = fmaxf(v[2 * p + e] + b[2 * p + e], 0.f);
-        if (thresh < 256)
-          o[e] = ((w >> (shift + 8 * e)) & 0xFFu) < static_cast<uint32_t>(thresh) ? o[e] * inv_keep
-                                                                                 : 0.f;
-      }
-      store2(h + static_cast<size_t>(row) * ff + c, o[0], o[1]);
-    }
-  }
-};
-
-// out = round(h·W2ᵀ + b2)
-struct EpiOut : NoExtra {
-  bf16* out;
-  const float* bias;
-  int rows, width;
-  using Aux = float4;
-  __device__ __forceinline__ Aux load_one(int, int, int, int col) const {
-    return bias4(bias, col, width);
-  }
-  template <int G>
-  __device__ __forceinline__ void load(int problem, int split, int row, int col,
-                                       Aux (&aux)[G][2]) const {
-    load_quads(*this, problem, split, row, col, aux);
-  }
-  __device__ __forceinline__ void store(int, int, int row, int col, const float (&v)[4],
-                                        const Aux& b) const {
-    if (row >= rows) return;
-    bf16* o = out + static_cast<size_t>(row) * width + col;
-    if (col < width) store2(o, v[0] + b.x, v[1] + b.y);
-    if (col + 8 < width) store2(o + 8, v[2] + b.z, v[3] + b.w);
-  }
-};
-
-// dx = round(dh·W1): nothing to read besides the accumulator
-struct EpiDx : NoExtra {
-  bf16* dx;
-  int rows, d;
-  using Aux = NoAux;
-  template <int G>
-  __device__ __forceinline__ void load(int, int, int, int, Aux (&)[G][2]) const {}
-  __device__ __forceinline__ void store(int, int, int row, int col, const float (&v)[4],
-                                        const Aux&) const {
-    if (row >= rows) return;
-    bf16* o = dx + static_cast<size_t>(row) * d + col;
-    if (col < d) store2(o, v[0], v[1]);
-    if (col + 8 < d) store2(o + 8, v[2], v[3]);
-  }
-};
-
-// dh = round(h > 0 ? g / keep : 0), g = dy·W2
-struct EpiDh : NoExtra {
-  bf16* dh;
-  const bf16* h;
-  int rows, ff, thresh;
-  using Aux = uint2;  // the bf16 pairs of h at col and col + 8
-  __device__ __forceinline__ Aux load_one(int, int, int row, int col) const {
-    uint2 a = make_uint2(0u, 0u);
-    if (row >= rows) return a;
-    const uint32_t* p = reinterpret_cast<const uint32_t*>(h + static_cast<size_t>(row) * ff + col);
-    if (col < ff) a.x = p[0];
-    if (col + 8 < ff) a.y = p[4];
-    return a;
-  }
-  template <int G>
-  __device__ __forceinline__ void load(int problem, int split, int row, int col,
-                                       Aux (&aux)[G][2]) const {
-    load_quads(*this, problem, split, row, col, aux);
-  }
-  __device__ __forceinline__ void store(int, int, int row, int col, const float (&v)[4],
-                                        const Aux& a) const {
-    if (row >= rows) return;
-    const float inv_keep = 256.f / thresh;
-#pragma unroll
-    for (int p = 0; p < 2; ++p) {
-      const int c = col + 8 * p;
-      if (c >= ff) continue;
-      const uint32_t bits = p ? a.y : a.x;
-      const float2 hv = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&bits));
-      store2(dh + static_cast<size_t>(row) * ff + c, hv.x > 0.f ? v[2 * p] * inv_keep : 0.f,
-             hv.y > 0.f ? v[2 * p + 1] * inv_keep : 0.f);
-    }
-  }
-};
-
-// The weight gradients: problem 0 is dW1 = dhᵀ·x (ff × d), problem 1 dW2 =
-// dyᵀ·h (d × ff), each tile into its split's f32 partial (dW1 | dW2 | db1 |
-// db2); the extra blocks of a split sum 64 columns of dh (db1), then of dy
-// (db2), over the split's rows in a fixed order.
-struct EpiWgrad {
-  float* part;
-  const bf16 *dh, *dy;
-  int d, ff;
-  using Aux = NoAux;
-  __device__ __forceinline__ float* split_base(int split) const {
-    return part + split * (2 * static_cast<size_t>(d) * ff + ff + d);
-  }
-  __device__ __forceinline__ Aux load_one(int, int, int, int) const { return {}; }
-  template <int G>
-  __device__ __forceinline__ void load(int problem, int split, int row, int col,
-                                       Aux (&aux)[G][2]) const {
-    load_quads(*this, problem, split, row, col, aux);
-  }
-  __device__ __forceinline__ void store(int problem, int split, int row, int col,
-                                        const float (&v)[4], const Aux&) const {
-    const int m = problem ? d : ff, n = problem ? ff : d;
-    if (row >= m) return;
-    float* out = split_base(split) + (problem ? static_cast<size_t>(d) * ff : 0) +
-                 static_cast<size_t>(row) * n;
-    if (col < n) *reinterpret_cast<float2*>(out + col) = make_float2(v[0], v[1]);
-    if (col + 8 < n) *reinterpret_cast<float2*>(out + col + 8) = make_float2(v[2], v[3]);
-  }
-  __device__ __forceinline__ void extra(int b, int split, int r_begin, int r_end) const {
-    __shared__ float sums[48][64];  // (row groups, columns); up to 384 threads
-    const int ff_blocks = (ff + 63) / 64;
-    const bool first = b < ff_blocks;
-    const bf16* src = first ? dh : dy;
-    const int width = first ? ff : d, c0 = (first ? b : b - ff_blocks) * 64;
-    const int cg = threadIdx.x & 7, rg = threadIdx.x >> 3, groups = blockDim.x >> 3;
-    const int c = c0 + 8 * cg;
-    float s[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-    if (c < width) {
-      for (int r = r_begin + rg; r < r_end; r += groups) {
-        const uint4 u = *reinterpret_cast<const uint4*>(src + static_cast<size_t>(r) * width + c);
-        const __nv_bfloat162* p2 = reinterpret_cast<const __nv_bfloat162*>(&u);
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const float2 f = __bfloat1622float2(p2[i]);
-          s[2 * i] += f.x;
-          s[2 * i + 1] += f.y;
-        }
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < 8; ++i) sums[rg][8 * cg + i] = s[i];
-    __syncthreads();
-    if (threadIdx.x < 64 && c0 + static_cast<int>(threadIdx.x) < width) {
-      float t = 0.f;
-      for (int gi = 0; gi < groups; ++gi) t += sums[gi][threadIdx.x];
-      split_base(split)[2 * static_cast<size_t>(d) * ff + (first ? 0 : ff) + c0 + threadIdx.x] = t;
-    }
-  }
-};
-
-// The tile shapes a launch may take: 0 is 64 × 64 (one consumer warpgroup:
-// several blocks an SM, one's epilogue beside another's products), 1 is
-// 128 × 128 and 2 is 128 × 256 (two; the epilogues that read bias or h spill
-// there). Each product is built for the two that ops/fused_ffn.py::
-// tile_configs can pick for it (PRODUCT_TILES there), a bit each in Shapes.
-struct Operand {
-  const void* ptr;
-  int rows;  // extent along m (A) or n (B)
-};
-
-template <int WG, int BN, bool A_MN, bool B_MN, class Epi>
-int run_tiles(const Operand* a, const Operand* b, int problems, int k_total, int k_len,
-              int splits, int extra_blocks, const Epi& epi, cudaStream_t stream) {
-  if (const int err = sm90::bind_context()) return err;
-  CUtensorMap ma[2], mb[2];
-  sm90::GemmGrid g;
-  int tiles[2] = {0, 0};
-  for (int p = 0; p < 2; ++p) {
-    const int q = p < problems ? p : 0;
-    if (const int err = sm90::operand_map<A_MN>(&ma[p], a[q].ptr, a[q].rows, k_total, 64 * WG))
-      return err;
-    if (const int err = sm90::operand_map<B_MN>(&mb[p], b[q].ptr, b[q].rows, k_total, BN))
-      return err;
-    g.n_tiles[p] = (b[q].rows + BN - 1) / BN;
-    tiles[p] = p < problems ? (a[q].rows + 64 * WG - 1) / (64 * WG) * g.n_tiles[p] : 0;
-  }
-  g.tiles0 = tiles[0];
-  g.tiles = tiles[0] + tiles[1];
-  g.splits = splits;
-  g.k_len = k_len;
-  g.k_total = k_total;
-  g.extra = extra_blocks;
-  return sm90::launch_gemm<WG, BN, A_MN, B_MN>(ma[0], mb[0], ma[1], mb[1], epi, g, stream);
-}
-
-template <unsigned Shapes, bool A_MN, bool B_MN, class Epi>
-int run(int config, const Operand* a, const Operand* b, int problems, int k_total, int k_len,
-        int splits, int extra_blocks, const Epi& epi, cudaStream_t stream) {
-  if constexpr ((Shapes & 1u) != 0) {
-    if (config == 0)
-      return run_tiles<1, 64, A_MN, B_MN>(a, b, problems, k_total, k_len, splits, extra_blocks,
-                                          epi, stream);
-  }
-  if constexpr ((Shapes & 2u) != 0) {
-    if (config == 1)
-      return run_tiles<2, 128, A_MN, B_MN>(a, b, problems, k_total, k_len, splits, extra_blocks,
-                                           epi, stream);
-  }
-  if constexpr ((Shapes & 4u) != 0) {
-    if (config == 2)
-      return run_tiles<2, 256, A_MN, B_MN>(a, b, problems, k_total, k_len, splits, extra_blocks,
-                                           epi, stream);
-  }
-  return static_cast<int>(cudaErrorInvalidValue);
-}
+// The products' epilogues are in epilogues_sm90.cuh (shared with the layer
+// chains of layer_sm90.cu).
 
 // ---------------------------------------------------------------- launch
 
@@ -785,8 +491,8 @@ int bwd_weights(void* const* ptr, const FfnShape& sh, int splits, cudaStream_t s
   int err = static_cast<int>(cudaGetLastError());
   if (err || splits == 1) return err;
   const size_t total = 2 * static_cast<size_t>(d) * ff + ff + d;
-  ffn_reduce<<<static_cast<unsigned>((total + kThreads - 1) / kThreads), kThreads, 0, stream>>>(
-      part, out, total, splits);
+  reduce_splits<<<static_cast<unsigned>((total + kThreads - 1) / kThreads), kThreads, 0,
+                  stream>>>(part, out, total, splits);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -795,7 +501,7 @@ int bwd_weights(void* const* ptr, const FfnShape& sh, int splits, cudaStream_t s
 extern "C" {
 
 // bf16 route. rows × d inputs, ff hidden units; thresh the 8-bit keep
-// threshold (256: no dropout); config the tile shape (run above; another
+// threshold (256: no dropout); config the tile shape (gemm_sm90.cuh's run; another
 // returns cudaErrorInvalidValue and launches nothing). All
 // pointers are device pointers of contiguous bf16 tensors, 16-byte aligned,
 // except the f32 biases and the int32 seed.
@@ -804,7 +510,7 @@ int tgi_ffn_fwd_h(void* x, void* w1, void* b1, void* seed, void* h, int rows, in
                   int thresh, int config, void* stream) {
   const Operand a{x, rows}, b{w1, ff};
   const EpiHidden epi{{}, static_cast<bf16*>(h), static_cast<const float*>(b1),
-                      static_cast<const int*>(seed), rows, ff, thresh};
+                      static_cast<const int*>(seed), rows, ff, thresh, kSiteFfn};
   return run<0b011, false, false>(config, &a, &b, 1, d, d, 1, 0, epi,
                                   static_cast<cudaStream_t>(stream));
 }
@@ -828,7 +534,7 @@ int tgi_ffn_bwd_dh(void* dy, void* w2, void* h, void* dh, int rows, int d, int f
 int tgi_ffn_bwd_dx(void* dh, void* w1, void* dx, int rows, int d, int ff, int config,
                    void* stream) {
   const Operand a{dh, rows}, b{w1, d};
-  const EpiDx epi{{}, static_cast<bf16*>(dx), rows, d};
+  const EpiRound epi{{}, static_cast<bf16*>(dx), nullptr, rows, d};
   return run<0b101, false, true>(config, &a, &b, 1, ff, ff, 1, 0, epi,
                                  static_cast<cudaStream_t>(stream));
 }
@@ -838,18 +544,21 @@ int tgi_ffn_bwd_dx(void* dh, void* w1, void* dx, int rows, int d, int ff, int co
 int tgi_ffn_bwd_wgrad(void* dy, void* x, void* h, void* dh, void* part, int rows, int d, int ff,
                       int splits, int rows_per_split, int config, void* stream) {
   const Operand a[2] = {{dh, ff}, {dy, d}}, b[2] = {{x, d}, {h, ff}};
-  const EpiWgrad epi{static_cast<float*>(part), static_cast<const bf16*>(dh),
-                     static_cast<const bf16*>(dy), d, ff};
-  const int bias_blocks = (ff + 63) / 64 + (d + 63) / 64;  // 64 columns each
+  EpiWgrad epi{};  // dW1 = dhᵀ·x, dW2 = dyᵀ·h; db1 = Σ dh, db2 = Σ dy
+  epi.part = static_cast<float*>(part);
+  epi.m[0] = ff, epi.n[0] = d, epi.m[1] = d, epi.n[1] = ff;
+  epi.seg[0].x = dh, epi.seg[0].width = ff;
+  epi.seg[1].x = dy, epi.seg[1].width = d;
+  const int bias_blocks = wgrad_layout(epi, 2, 2);
   return run<0b110, true, true>(config, a, b, 2, rows, rows_per_split, splits, bias_blocks, epi,
                                 static_cast<cudaStream_t>(stream));
 }
 
 // out[i] = Σ_s part[s][i] in split order, for i < total
 int tgi_ffn_reduce(void* part, void* out, int total, int splits, void* stream) {
-  ffn_reduce<<<(total + kThreads - 1) / kThreads, kThreads, 0,
-               static_cast<cudaStream_t>(stream)>>>(static_cast<const float*>(part),
-                                                    static_cast<float*>(out), total, splits);
+  reduce_splits<<<(total + kThreads - 1) / kThreads, kThreads, 0,
+                  static_cast<cudaStream_t>(stream)>>>(static_cast<const float*>(part),
+                                                       static_cast<float*>(out), total, splits);
   return static_cast<int>(cudaGetLastError());
 }
 

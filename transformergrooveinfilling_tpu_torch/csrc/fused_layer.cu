@@ -1,4 +1,5 @@
-// Whole post-LN encoder layer for training, forward and backward, sm_90a.
+// Whole post-LN encoder layer for training, forward and backward, sm_90a:
+// the f32 route (the bf16 route is layer_sm90.cu's chain of launches).
 //
 // Replaces the Pallas TPU kernel transformergrooveinfilling_tpu/ops/
 // fused_layer.py::encoder_layer_train (forward _fwd_call/_fwd_kernel,
@@ -40,10 +41,10 @@
 // (row = (seq·H + head)·T + i, col = j), 1 the attention projection, 2 the FFN
 // hidden, 3 the FFN output (row = global row).
 //
-// Rounding points (S = storage dtype, f32 or bf16), as the TPU kernel's:
-// qkv, P after dropout, the attention output, y1, h are rounded to S;
-// residual sums and LayerNorms (one-pass variance, clamped at 0) are f32;
-// every product accumulates in f32.
+// Everything is f32 here: the TPU kernel's rounding points (qkv, P after
+// dropout, the attention output, y1, h, rounded to the storage dtype) round
+// only on the bf16 route, layer_sm90.cu; LayerNorms take a one-pass variance,
+// clamped at 0.
 //
 // Weights and their gradients are in nn.Linear's (out, in) layout: Wqkv
 // (3d, d), Wo (d, d), W1 (ff, d), W2 (d, ff). Plain C entry points, bound
@@ -58,16 +59,14 @@ constexpr int kSiteAttn = 0, kSiteProj = 1, kSiteFfn = 2, kSiteOut = 3;
 
 // ---------------------------------------------------------------- forward
 
-template <typename S>
 struct FwdArgs {
-  const S *x, *wqkv, *wo, *w1, *w2;
+  const float *x, *wqkv, *wo, *w1, *w2;
   const float *bqkv, *bo, *g1, *b1, *b1f, *b2f, *g2, *b2;
   const int* seed;
-  S *y, *qkv, *a1, *h, *a2;
+  float *y, *qkv, *a1, *h, *a2;
 };
 
-template <typename S>
-__global__ void __launch_bounds__(kThreads) layer_fwd(FwdArgs<S> p, Shape sh) {
+__global__ void __launch_bounds__(kThreads) layer_fwd(FwdArgs p, Shape sh) {
   extern __shared__ __align__(16) float sm[];
   const int T = sh.T, d = sh.d, H = sh.H, ff = sh.ff, d3 = 3 * d;
   const int hd = d / H, big = d3 > ff ? d3 : ff;
@@ -84,23 +83,23 @@ __global__ void __launch_bounds__(kThreads) layer_fwd(FwdArgs<S> p, Shape sh) {
     sX[idx] = ld(p.x[static_cast<size_t>(r0) * d + idx]);
   __syncthreads();
 
-  rowmm<S, true>(sX, d, p.wqkv, d, d3, T, [&](int r, int n, float acc) {
-    const S v = st<S>(acc + p.bqkv[n]);
+  rowmm<float, true>(sX, d, p.wqkv, d, d3, T, [&](int r, int n, float acc) {
+    const float v = acc + p.bqkv[n];
     sBig[r * d3 + n] = ld(v);
     p.qkv[static_cast<size_t>(r0 + r) * d3 + n] = v;
   });
   __syncthreads();
 
   for (int hh = 0; hh < H; ++hh)
-    attn_head_fwd<S>(sBig + hh * hd, d3, sBig + d + hh * hd, sBig + 2 * d + hh * hd, d3, hd, T,
+    attn_head_fwd<float>(sBig + hh * hd, d3, sBig + d + hh * hd, sBig + 2 * d + hh * hd, d3, hd, T,
                      scale, false, dr, kSiteAttn, (s * H + hh) * T, sP, sA + hh * hd, d);
 
   // a1 = x + drop(A·Wo + bo), into sBig (qkv is no longer needed)
-  rowmm<S, true>(sA, d, p.wo, d, d, T, [&](int r, int n, float acc) {
+  rowmm<float, true>(sA, d, p.wo, d, d, T, [&](int r, int n, float acc) {
     const float pr = dr.apply(acc + p.bo[n], kSiteProj, r0 + r, n);
     const float a = sX[r * d + n] + pr;
     sBig[r * d + n] = a;
-    p.a1[static_cast<size_t>(r0 + r) * d + n] = st<S>(a);
+    p.a1[static_cast<size_t>(r0 + r) * d + n] = a;
   });
   __syncthreads();
   for (int r = warp; r < T; r += nwarps) {
@@ -108,24 +107,24 @@ __global__ void __launch_bounds__(kThreads) layer_fwd(FwdArgs<S> p, Shape sh) {
     const float* a = sBig + r * d;
     ln_stats(d, [&](int c) { return a[c]; }, mu, rstd);
     for (int c = lane; c < d; c += 32)
-      sX[r * d + c] = rnd<S>(affine(zhat(a[c], mu, rstd), p.g1[c], p.b1[c]));
+      sX[r * d + c] = affine(zhat(a[c], mu, rstd), p.g1[c], p.b1[c]);
   }
   __syncthreads();
 
   // h = drop(relu(y1·W1 + b1)), into sBig
-  rowmm<S, true>(sX, d, p.w1, d, ff, T, [&](int r, int n, float acc) {
-    const S v = st<S>(dr.apply(fmaxf(acc + p.b1f[n], 0.f), kSiteFfn, r0 + r, n));
+  rowmm<float, true>(sX, d, p.w1, d, ff, T, [&](int r, int n, float acc) {
+    const float v = dr.apply(fmaxf(acc + p.b1f[n], 0.f), kSiteFfn, r0 + r, n);
     sBig[r * ff + n] = ld(v);
     p.h[static_cast<size_t>(r0 + r) * ff + n] = v;
   });
   __syncthreads();
 
   // a2 = y1 + drop(h·W2 + b2), into sA
-  rowmm<S, true>(sBig, ff, p.w2, ff, d, T, [&](int r, int n, float acc) {
+  rowmm<float, true>(sBig, ff, p.w2, ff, d, T, [&](int r, int n, float acc) {
     const float f = dr.apply(acc + p.b2f[n], kSiteOut, r0 + r, n);
     const float a = sX[r * d + n] + f;
     sA[r * d + n] = a;
-    p.a2[static_cast<size_t>(r0 + r) * d + n] = st<S>(a);
+    p.a2[static_cast<size_t>(r0 + r) * d + n] = a;
   });
   __syncthreads();
   for (int r = warp; r < T; r += nwarps) {
@@ -134,7 +133,7 @@ __global__ void __launch_bounds__(kThreads) layer_fwd(FwdArgs<S> p, Shape sh) {
     ln_stats(d, [&](int c) { return a[c]; }, mu, rstd);
     for (int c = lane; c < d; c += 32)
       p.y[static_cast<size_t>(r0 + r) * d + c] =
-          st<S>(affine(zhat(a[c], mu, rstd), p.g2[c], p.b2[c]));
+          affine(zhat(a[c], mu, rstd), p.g2[c], p.b2[c]);
   }
 }
 
@@ -148,26 +147,24 @@ struct Cols {
         dy1(6 * d + ff), dyzh2(7 * d + ff), stats(8 * d + ff), width(8 * d + ff + 2) {}
 };
 
-template <typename S>
 struct BwdArgs {
-  const S *dy, *x, *qkv, *a1, *h, *a2, *wqkv, *wo, *w1, *w2;
+  const float *dy, *x, *qkv, *a1, *h, *a2, *wqkv, *wo, *w1, *w2;
   const float *g1, *b1, *g2;
   const int* seed;
-  S* dx;
+  float* dx;
   float* scratch;
 };
 
-template <typename S>
-__global__ void __launch_bounds__(kThreads) layer_bwd_rows(BwdArgs<S> p, Shape sh) {
+__global__ void __launch_bounds__(kThreads) layer_bwd_rows(BwdArgs p, Shape sh) {
   extern __shared__ __align__(16) float sm[];
   const int T = sh.T, d = sh.d, H = sh.H, ff = sh.ff, d3 = 3 * d;
   const int hd = d / H, big = d3 > ff ? d3 : ff;
   const Cols col(d, ff);
   float* B0 = sm;              // (T, d): da2, then da1
-  float* B1 = B0 + T * d;      // (T, d): df rounded, then dproj rounded
+  float* B1 = B0 + T * d;      // (T, d): df, then dproj
   float* B2 = B1 + T * d;      // (T, d): zh1, then dattn
-  float* sBig = B2 + T * d;    // (T, ff): dhpre rounded; (T, 3d): qkv, then dqkv
-  float* sP = sBig + T * big;  // (T, T): P, then P after dropout, rounded
+  float* sBig = B2 + T * d;    // (T, ff): dhpre; (T, 3d): qkv, then dqkv
+  float* sP = sBig + T * big;  // (T, T): P, then P after dropout
   float* sD = sP + T * T;      // (T, T): dP, then dS
   float* sStat = sD + T * T;   // (T, 2): LN1 mean, rstd
   const int s = blockIdx.x, r0 = s * T;
@@ -199,7 +196,7 @@ __global__ void __launch_bounds__(kThreads) layer_bwd_rows(BwdArgs<S> p, Shape s
       B0[r * d + c] = da2;
       const float df = dr.apply(da2, kSiteOut, r0 + r, c);
       scr[r * col.width + col.df + c] = df;
-      B1[r * d + c] = rnd<S>(df);
+      B1[r * d + c] = df;
     }
   }
   // LN1 statistics and zh1 from the stored a1
@@ -218,16 +215,16 @@ __global__ void __launch_bounds__(kThreads) layer_bwd_rows(BwdArgs<S> p, Shape s
   __syncthreads();
 
   // dhpre = (h > 0) · (df·W2ᵀ) / keep: h_drop > 0 carries both mask and ReLU
-  rowmm<S, false>(B1, d, p.w2, d, ff, T, [&](int r, int n, float acc) {
+  rowmm<float, false>(B1, d, p.w2, d, ff, T, [&](int r, int n, float acc) {
     const float hv = ld(p.h[static_cast<size_t>(r0 + r) * ff + n]);
     const float dh = hv > 0.f ? acc / dr.keep : 0.f;
     scr[r * col.width + col.dhpre + n] = dh;
-    sBig[r * ff + n] = rnd<S>(dh);
+    sBig[r * ff + n] = dh;
   });
   __syncthreads();
 
   // dy1 = dhpre·W1ᵀ + da2, into B0
-  rowmm<S, false>(sBig, ff, p.w1, ff, d, T, [&](int r, int n, float acc) {
+  rowmm<float, false>(sBig, ff, p.w1, ff, d, T, [&](int r, int n, float acc) {
     const float dy1 = acc + B0[r * d + n];
     B0[r * d + n] = dy1;
     scr[r * col.width + col.dy1 + n] = dy1;
@@ -243,21 +240,21 @@ __global__ void __launch_bounds__(kThreads) layer_bwd_rows(BwdArgs<S> p, Shape s
         B0[r * d + c] = da1;
         const float dproj = dr.apply(da1, kSiteProj, r0 + r, c);
         scr[r * col.width + col.dproj + c] = dproj;
-        B1[r * d + c] = rnd<S>(dproj);
+        B1[r * d + c] = dproj;
       });
   __syncthreads();
 
   // dattn = round(dproj·Woᵀ) into B2; qkv into sBig
   for (int idx = threadIdx.x; idx < T * d3; idx += blockDim.x)
     sBig[idx] = ld(p.qkv[static_cast<size_t>(r0) * d3 + idx]);
-  rowmm<S, false>(B1, d, p.wo, d, d, T,
-                 [&](int r, int n, float acc) { B2[r * d + n] = rnd<S>(acc); });
+  rowmm<float, false>(B1, d, p.wo, d, d, T,
+                      [&](int r, int n, float acc) { B2[r * d + n] = acc; });
   __syncthreads();
 
   // attention backward, head by head; dq, dk, dv go to the scratch
   for (int hh = 0; hh < H; ++hh) {
     const int q0 = hh * hd, k0 = d + hh * hd, v0 = 2 * d + hh * hd;
-    attn_head_bwd<S>(sBig + q0, d3, sBig + k0, sBig + v0, d3, B2 + q0, d, hd, T, scale, false,
+    attn_head_bwd<float>(sBig + q0, d3, sBig + k0, sBig + v0, d3, B2 + q0, d, hd, T, scale, false,
                      dr, kSiteAttn, (s * H + hh) * T, sP, sD,
                      [&](int j, int c, float dq, float dk, float dv) {
                        float* out = scr + j * col.width + col.dqkv;
@@ -273,24 +270,22 @@ __global__ void __launch_bounds__(kThreads) layer_bwd_rows(BwdArgs<S> p, Shape s
     sBig[idx] = scr[r * col.width + col.dqkv + c];
   }
   __syncthreads();
-  rowmm<S, false>(sBig, d3, p.wqkv, d3, d, T, [&](int r, int n, float acc) {
-    p.dx[static_cast<size_t>(r0 + r) * d + n] = st<S>(B0[r * d + n] + acc);
+  rowmm<float, false>(sBig, d3, p.wqkv, d3, d, T, [&](int r, int n, float acc) {
+    p.dx[static_cast<size_t>(r0 + r) * d + n] = B0[r * d + n] + acc;
   });
 }
 
 // ---------------------------------------------------------------- backward, weights
 
-template <typename S>
 struct WgradArgs {
-  const S *dy, *x, *qkv, *a1, *h;
+  const float *dy, *x, *qkv, *a1, *h;
   const float *g1, *b1;
   const int* seed;
   const float* scratch;
   float *dwqkv, *dwo, *dw1, *dw2, *vec;
 };
 
-template <typename S>
-__global__ void __launch_bounds__(kThreads) layer_bwd_weights(WgradArgs<S> p, Shape sh) {
+__global__ void __launch_bounds__(kThreads) layer_bwd_weights(WgradArgs p, Shape sh) {
   extern __shared__ __align__(16) float sm[];
   const int T = sh.T, d = sh.d, H = sh.H, ff = sh.ff, d3 = 3 * d;
   const int hd = d / H, m = sh.nseq * T;
@@ -353,17 +348,16 @@ __global__ void __launch_bounds__(kThreads) layer_bwd_weights(WgradArgs<S> p, Sh
   for (int s = 0; s < sh.nseq; ++s) {
     const int r0 = s * T;
     const float* scr = p.scratch + static_cast<size_t>(r0) * col.width;
-    // B: the row gradients of columns n0.., rounded to S where the TPU
-    // kernel rounds them before the product
+    // B: the row gradients of columns n0..
     for (int idx = threadIdx.x; idx < T * kTile; idx += blockDim.x) {
       const int r = idx / kTile, n = n0 + idx - r * kTile;
       float v = 0.f;
       if (n < N) {
         const float* row = scr + r * col.width;
         v = mat == 0 ? row[col.dqkv + n]
-            : mat == 1 ? rnd<S>(row[col.dproj + n])
-            : mat == 2 ? rnd<S>(row[col.dhpre + n])
-                       : rnd<S>(row[col.df + n]);
+            : mat == 1 ? (row[col.dproj + n])
+            : mat == 2 ? (row[col.dhpre + n])
+                       : row[col.df + n];
       }
       sB[idx] = v;
     }
@@ -372,8 +366,8 @@ __global__ void __launch_bounds__(kThreads) layer_bwd_weights(WgradArgs<S> p, Sh
       const int kend = min(k0 + kTile, d);
       for (int hh = k0 / hd; hh * hd < kend; ++hh) {
         const int c_lo = max(k0, hh * hd), c_hi = min(kend, (hh + 1) * hd);
-        const S* q = p.qkv + static_cast<size_t>(r0) * d3 + hh * hd;
-        attn_head_cols<S>(q, d3, q + d, q + 2 * d, d3, hd, T, scale, false, dr, kSiteAttn,
+        const float* q = p.qkv + static_cast<size_t>(r0) * d3 + hh * hd;
+        attn_head_cols<float>(q, d3, q + d, q + 2 * d, d3, hd, T, scale, false, dr, kSiteAttn,
                           (s * H + hh) * T, c_lo - hh * hd, c_hi - hh * hd, sQ, sK, sP,
                           sA + c_lo - k0, kTile);
       }
@@ -391,7 +385,7 @@ __global__ void __launch_bounds__(kThreads) layer_bwd_weights(WgradArgs<S> p, Sh
             v = ld(p.h[row * ff + k]);
           } else {  // y1 from the stored a1 and the row kernel's statistics
             const float* st_ = scr + r * col.width + col.stats;
-            v = rnd<S>(affine(zhat(ld(p.a1[row * d + k]), st_[0], st_[1]), p.g1[k], p.b1[k]));
+            v = affine(zhat(ld(p.a1[row * d + k]), st_[0], st_[1]), p.g1[k], p.b1[k]);
           }
         }
         sA[idx] = v;
@@ -435,61 +429,58 @@ size_t weights_smem(const Shape& s) {
   return 4 * (2 * static_cast<size_t>(s.T) * kTile + 2 * s.T * (s.d / s.H) + s.T * s.T);
 }
 
-template <typename S>
 int fwd(void* const* ptr, const Shape& sh, cudaStream_t stream) {
-  FwdArgs<S> a;
-  a.x = static_cast<const S*>(ptr[0]);
-  a.wqkv = static_cast<const S*>(ptr[1]);
+  FwdArgs a;
+  a.x = static_cast<const float*>(ptr[0]);
+  a.wqkv = static_cast<const float*>(ptr[1]);
   a.bqkv = static_cast<const float*>(ptr[2]);
-  a.wo = static_cast<const S*>(ptr[3]);
+  a.wo = static_cast<const float*>(ptr[3]);
   a.bo = static_cast<const float*>(ptr[4]);
   a.g1 = static_cast<const float*>(ptr[5]);
   a.b1 = static_cast<const float*>(ptr[6]);
-  a.w1 = static_cast<const S*>(ptr[7]);
+  a.w1 = static_cast<const float*>(ptr[7]);
   a.b1f = static_cast<const float*>(ptr[8]);
-  a.w2 = static_cast<const S*>(ptr[9]);
+  a.w2 = static_cast<const float*>(ptr[9]);
   a.b2f = static_cast<const float*>(ptr[10]);
   a.g2 = static_cast<const float*>(ptr[11]);
   a.b2 = static_cast<const float*>(ptr[12]);
   a.seed = static_cast<const int*>(ptr[13]);
-  a.y = static_cast<S*>(ptr[14]);
-  a.qkv = static_cast<S*>(ptr[15]);
-  a.a1 = static_cast<S*>(ptr[16]);
-  a.h = static_cast<S*>(ptr[17]);
-  a.a2 = static_cast<S*>(ptr[18]);
-  return launch(layer_fwd<S>, sh.nseq, fwd_smem(sh), stream, a, sh);
+  a.y = static_cast<float*>(ptr[14]);
+  a.qkv = static_cast<float*>(ptr[15]);
+  a.a1 = static_cast<float*>(ptr[16]);
+  a.h = static_cast<float*>(ptr[17]);
+  a.a2 = static_cast<float*>(ptr[18]);
+  return launch(layer_fwd, sh.nseq, fwd_smem(sh), stream, a, sh);
 }
 
-template <typename S>
 int bwd_rows(void* const* ptr, const Shape& sh, cudaStream_t stream) {
-  BwdArgs<S> a;
-  a.dy = static_cast<const S*>(ptr[0]);
-  a.x = static_cast<const S*>(ptr[1]);
-  a.qkv = static_cast<const S*>(ptr[2]);
-  a.a1 = static_cast<const S*>(ptr[3]);
-  a.h = static_cast<const S*>(ptr[4]);
-  a.a2 = static_cast<const S*>(ptr[5]);
-  a.wqkv = static_cast<const S*>(ptr[6]);
-  a.wo = static_cast<const S*>(ptr[7]);
-  a.w1 = static_cast<const S*>(ptr[8]);
-  a.w2 = static_cast<const S*>(ptr[9]);
+  BwdArgs a;
+  a.dy = static_cast<const float*>(ptr[0]);
+  a.x = static_cast<const float*>(ptr[1]);
+  a.qkv = static_cast<const float*>(ptr[2]);
+  a.a1 = static_cast<const float*>(ptr[3]);
+  a.h = static_cast<const float*>(ptr[4]);
+  a.a2 = static_cast<const float*>(ptr[5]);
+  a.wqkv = static_cast<const float*>(ptr[6]);
+  a.wo = static_cast<const float*>(ptr[7]);
+  a.w1 = static_cast<const float*>(ptr[8]);
+  a.w2 = static_cast<const float*>(ptr[9]);
   a.g1 = static_cast<const float*>(ptr[10]);
   a.b1 = static_cast<const float*>(ptr[11]);
   a.g2 = static_cast<const float*>(ptr[12]);
   a.seed = static_cast<const int*>(ptr[13]);
-  a.dx = static_cast<S*>(ptr[14]);
+  a.dx = static_cast<float*>(ptr[14]);
   a.scratch = static_cast<float*>(ptr[15]);
-  return launch(layer_bwd_rows<S>, sh.nseq, rows_smem(sh), stream, a, sh);
+  return launch(layer_bwd_rows, sh.nseq, rows_smem(sh), stream, a, sh);
 }
 
-template <typename S>
 int bwd_weights(void* const* ptr, const Shape& sh, cudaStream_t stream) {
-  WgradArgs<S> a;
-  a.dy = static_cast<const S*>(ptr[0]);
-  a.x = static_cast<const S*>(ptr[1]);
-  a.qkv = static_cast<const S*>(ptr[2]);
-  a.a1 = static_cast<const S*>(ptr[3]);
-  a.h = static_cast<const S*>(ptr[4]);
+  WgradArgs a;
+  a.dy = static_cast<const float*>(ptr[0]);
+  a.x = static_cast<const float*>(ptr[1]);
+  a.qkv = static_cast<const float*>(ptr[2]);
+  a.a1 = static_cast<const float*>(ptr[3]);
+  a.h = static_cast<const float*>(ptr[4]);
   a.g1 = static_cast<const float*>(ptr[5]);
   a.b1 = static_cast<const float*>(ptr[6]);
   a.seed = static_cast<const int*>(ptr[7]);
@@ -502,7 +493,7 @@ int bwd_weights(void* const* ptr, const Shape& sh, cudaStream_t stream) {
   const int d = sh.d, ff = sh.ff;
   const int blocks = tiles(d) * tiles(3 * d) + tiles(d) * tiles(d) + tiles(d) * tiles(ff) +
                      tiles(ff) * tiles(d) + (9 * d + ff + 31) / 32;
-  return launch(layer_bwd_weights<S>, blocks, weights_smem(sh), stream, a, sh);
+  return launch(layer_bwd_weights, blocks, weights_smem(sh), stream, a, sh);
 }
 
 }  // namespace
@@ -510,8 +501,8 @@ int bwd_weights(void* const* ptr, const Shape& sh, cudaStream_t stream) {
 extern "C" {
 
 // Shapes: nseq sequences of T rows (rows = nseq·T), width d, H heads, ff
-// hidden; thresh the 8-bit keep threshold (256: no dropout); is_bf16 picks
-// the storage dtype (0 float32, 1 bfloat16). All pointers are device
+// hidden; thresh the 8-bit keep threshold (256: no dropout); is_bf16 must
+// be 0 (float32; bf16 returns cudaErrorInvalidValue). All pointers are device
 // pointers of contiguous tensors; seed points to one int32.
 
 int tgi_layer_fwd(void* x, void* wqkv, void* bqkv, void* wo, void* bo, void* g1,
@@ -523,7 +514,8 @@ int tgi_layer_fwd(void* x, void* wqkv, void* bqkv, void* wo, void* bo, void* g1,
                        seed, y, qkv, a1, h, a2};
   const Shape sh{nseq, T, d, H, ff, thresh};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return is_bf16 ? fwd<__nv_bfloat16>(ptr, sh, s) : fwd<float>(ptr, sh, s);
+  if (is_bf16) return static_cast<int>(cudaErrorInvalidValue);  // layer_sm90.cu's route
+  return fwd(ptr, sh, s);
 }
 
 int tgi_layer_bwd_rows(void* dy, void* x, void* qkv, void* a1, void* h, void* a2,
@@ -534,7 +526,8 @@ int tgi_layer_bwd_rows(void* dy, void* x, void* qkv, void* a1, void* h, void* a2
                        dx, scratch};
   const Shape sh{nseq, T, d, H, ff, thresh};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return is_bf16 ? bwd_rows<__nv_bfloat16>(ptr, sh, s) : bwd_rows<float>(ptr, sh, s);
+  if (is_bf16) return static_cast<int>(cudaErrorInvalidValue);  // layer_sm90.cu's route
+  return bwd_rows(ptr, sh, s);
 }
 
 int tgi_layer_bwd_weights(void* dy, void* x, void* qkv, void* a1, void* h, void* g1,
@@ -545,7 +538,8 @@ int tgi_layer_bwd_weights(void* dy, void* x, void* qkv, void* a1, void* h, void*
                        dw2, vec};
   const Shape sh{nseq, T, d, H, ff, thresh};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return is_bf16 ? bwd_weights<__nv_bfloat16>(ptr, sh, s) : bwd_weights<float>(ptr, sh, s);
+  if (is_bf16) return static_cast<int>(cudaErrorInvalidValue);  // layer_sm90.cu's route
+  return bwd_weights(ptr, sh, s);
 }
 
 const char* tgi_layer_error_string(int code) {

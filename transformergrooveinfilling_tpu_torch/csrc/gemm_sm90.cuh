@@ -225,23 +225,32 @@ __device__ __forceinline__ void wgmma(float (&d)[BN / 2], uint64_t da, uint64_t 
 
 // ---------------------------------------------------------------- the kernel
 
-// The work of one launch: up to two products ("problems"), each cut into
-// tiles (n fastest), times `splits` ranges of the reduction, each k_len long
-// (a multiple of kBK when there are several). The first `workers` blocks
-// walk the (split, tile) items persistently, blockIdx.x, + workers, ...; the
-// producer runs on into the next item's stages while the consumers finish
-// the last one's epilogue. Blocks past them are the epilogue's own, `extra`
-// a split, run by all the block's threads (Epi::extra), e.g. column sums
-// that need no product.
+// The work of one launch: up to kMaxProblems products ("problems") that share
+// the reduction length, each cut into tiles (n fastest), times `splits`
+// ranges of the reduction, each k_len long (a multiple of kBK when there are
+// several). The first `workers` blocks walk the (split, tile) items
+// persistently, blockIdx.x, + workers, ...; the producer runs on into the
+// next item's stages while the consumers finish the last one's epilogue.
+// Blocks past them are the epilogue's own, `extra` a split, run by all the
+// block's threads (Epi::extra), e.g. column sums that need no product.
+constexpr int kMaxProblems = 8;
+
 struct GemmGrid {
-  int n_tiles[2];  // tiles along n of each problem
-  int tiles0;      // tiles of problem 0; problem 1's follow
-  int tiles;       // tiles of both problems
-  int splits;      // ranges of the reduction
-  int k_len;       // reduction a split
-  int k_total;     // reduction length
-  int workers;     // blocks that walk the tiles
-  int extra;       // Epi::extra blocks a split
+  int n_tiles[kMaxProblems];    // tiles along n of each problem
+  int start[kMaxProblems + 1];  // first tile of each problem; start[problems] = tiles
+  int problems;
+  int tiles;    // tiles of all problems
+  int splits;   // ranges of the reduction
+  int k_len;    // reduction a split
+  int k_total;  // reduction length
+  int workers;  // blocks that walk the tiles
+  int extra;    // Epi::extra blocks a split
+};
+
+// the tensor maps of a launch's operands, problem by problem
+template <int P>
+struct Maps {
+  CUtensorMap a[P], b[P];
 };
 
 struct Item {
@@ -253,14 +262,31 @@ __device__ __forceinline__ Item item_of(const GemmGrid& g, int i) {
   Item it;
   it.split = i / g.tiles;
   const int t = i - it.split * g.tiles;
-  it.problem = t >= g.tiles0;
-  const int tp = t - (it.problem ? g.tiles0 : 0);
+  it.problem = 0;
+  while (it.problem + 1 < g.problems && t >= g.start[it.problem + 1]) ++it.problem;
+  const int tp = t - g.start[it.problem];
   it.m0 = (tp / g.n_tiles[it.problem]) * BM;
   it.n0 = (tp % g.n_tiles[it.problem]) * BN;
   it.k_begin = it.split * g.k_len;
   it.nk = (min(g.k_total, it.k_begin + g.k_len) - it.k_begin + kBK - 1) / kBK;
   return it;
 }
+
+// An epilogue that defines kWholeTile = true gets the tile's whole
+// accumulator at once, tile<BN>(problem, split, row, col, acc), in place of
+// load() and store() by quads: a row's columns of one tile sit in the four
+// threads of a lane quad, so a row sum is the thread's own sum and two
+// shuffles (LayerNorm in the epilogue, where BN spans the row). Its
+// prologue(threads) runs once in the consumer warpgroups before their first
+// tile (threadIdx.x < threads; they may sync by named barrier 1).
+template <class E, class = void>
+struct WholeTile {
+  static constexpr bool value = false;
+};
+template <class E>
+struct WholeTile<E, decltype(void(E::kWholeTile))> {
+  static constexpr bool value = E::kWholeTile;
+};
 
 // Loads of one stage's A or B tile: one box for a K-major operand, rows/64
 // boxes side by side for an MN-major one.
@@ -284,11 +310,9 @@ __device__ __forceinline__ void load_operand(uint8_t* dst, const CUtensorMap* ma
 //     col+1), (row, col+8), (row, col+9), unmasked (rows and columns past
 //     the problem are the epilogue's to drop);
 //   extra(block, split, k_begin, k_end).
-template <int WG, int BN, bool A_MN, bool B_MN, class Epi>
+template <int WG, int BN, bool A_MN, bool B_MN, int P, class Epi>
 __global__ void __launch_bounds__(Tile<WG, BN>::kThreads, 1)
-    gemm_kernel(const __grid_constant__ CUtensorMap a0, const __grid_constant__ CUtensorMap b0,
-                const __grid_constant__ CUtensorMap a1, const __grid_constant__ CUtensorMap b1,
-                const Epi epi, const GemmGrid g) {
+    gemm_kernel(const __grid_constant__ Maps<P> maps, const Epi epi, const GemmGrid g) {
   using T = Tile<WG, BN>;
   if (static_cast<int>(blockIdx.x) >= g.workers) {
     const int b = blockIdx.x - g.workers, split = b / g.extra;
@@ -318,8 +342,8 @@ __global__ void __launch_bounds__(Tile<WG, BN>::kThreads, 1)
       int n = 0;  // stages filled so far, over all items
       for (int i = blockIdx.x; i < items; i += g.workers) {
         const Item it = item_of<T::kBM, BN>(g, i);
-        const CUtensorMap* ma = it.problem ? &a1 : &a0;
-        const CUtensorMap* mb = it.problem ? &b1 : &b0;
+        const CUtensorMap* ma = &maps.a[it.problem];
+        const CUtensorMap* mb = &maps.b[it.problem];
         for (int kt = 0; kt < it.nk; ++kt, ++n) {
           const int s = n % kStages;
           mbar_wait(&empty[s], ((n / kStages) & 1) ^ 1);
@@ -332,6 +356,7 @@ __global__ void __launch_bounds__(Tile<WG, BN>::kThreads, 1)
       }
     }
   } else {  // a consumer warpgroup: rows 64·wg .. of each tile
+    if constexpr (WholeTile<Epi>::value) epi.prologue(128 * WG);  // the consumers' own setup
     const uint32_t base = smem_u32(smem);
     const int lane = threadIdx.x & 31, warp = (threadIdx.x >> 5) & 3;
     int n = 0;  // stages consumed so far, over all items
@@ -361,16 +386,20 @@ __global__ void __launch_bounds__(Tile<WG, BN>::kThreads, 1)
       if (it.nk > 0) mbar_arrive(&empty[(n - 1) % kStages]);
 
       const int row = it.m0 + 64 * wg + 16 * warp + (lane >> 2), col = it.n0 + 2 * (lane & 3);
-      typename Epi::Aux aux[BN / 16][2];
-      epi.load(it.problem, it.split, row, col, aux);
+      if constexpr (WholeTile<Epi>::value) {
+        epi.template tile<BN>(it.problem, it.split, row, col, acc);
+      } else {
+        typename Epi::Aux aux[BN / 16][2];
+        epi.load(it.problem, it.split, row, col, aux);
 #pragma unroll
-      for (int q = 0; q < BN / 16; ++q)
+        for (int q = 0; q < BN / 16; ++q)
 #pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const float v[4] = {acc[8 * q + 2 * h], acc[8 * q + 2 * h + 1], acc[8 * q + 4 + 2 * h],
-                              acc[8 * q + 5 + 2 * h]};
-          epi.store(it.problem, it.split, row + 8 * h, col + 16 * q, v, aux[q][h]);
-        }
+          for (int h = 0; h < 2; ++h) {
+            const float v[4] = {acc[8 * q + 2 * h], acc[8 * q + 2 * h + 1],
+                                acc[8 * q + 4 + 2 * h], acc[8 * q + 5 + 2 * h]};
+            epi.store(it.problem, it.split, row + 8 * h, col + 16 * q, v, aux[q][h]);
+          }
+      }
     }
   }
 }
@@ -430,11 +459,10 @@ int operand_map(CUtensorMap* map, const void* base, int rows, int k, int tile_ro
   return MN ? make_map(map, base, rows, k, 64) : make_map(map, base, k, rows, tile_rows);
 }
 
-template <int WG, int BN, bool A_MN, bool B_MN, class Epi>
-int launch_gemm(const CUtensorMap& a0, const CUtensorMap& b0, const CUtensorMap& a1,
-                const CUtensorMap& b1, const Epi& epi, GemmGrid g, cudaStream_t stream) {
+template <int WG, int BN, bool A_MN, bool B_MN, int P, class Epi>
+int launch_gemm(const Maps<P>& maps, const Epi& epi, GemmGrid g, cudaStream_t stream) {
   using T = Tile<WG, BN>;
-  auto kernel = gemm_kernel<WG, BN, A_MN, B_MN, Epi>;
+  auto kernel = gemm_kernel<WG, BN, A_MN, B_MN, P, Epi>;
   static int per_sm = 0, sms = 0;  // once per kernel: its blocks an SM, and the SMs
   if (!per_sm) {
     cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -450,9 +478,115 @@ int launch_gemm(const CUtensorMap& a0, const CUtensorMap& b0, const CUtensorMap&
   g.workers = min(g.tiles * g.splits, per_sm * sms);
   const int blocks = g.workers + g.extra * g.splits;
   if (blocks == 0) return 0;
-  kernel<<<blocks, T::kThreads, T::kSmem, stream>>>(a0, b0, a1, b1, epi, g);
+  kernel<<<blocks, T::kThreads, T::kSmem, stream>>>(maps, epi, g);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace sm90
+
+// ---------------------------------------------------------------- running a launch
+
+// One operand of a problem: a contiguous bf16 matrix in device memory and its
+// extent along m (A) or n (B); the other extent is the launch's reduction.
+struct Operand {
+  const void* ptr;
+  int rows;
+};
+
+// Launch `problems` (≤ P) products of one tile shape: A[p] (M × K) and B[p]
+// (N × K), each K-major or MN-major as A_MN and B_MN say, over a reduction of
+// k_total cut into `splits` ranges of k_len, with extra_blocks Epi::extra
+// blocks a split.
+template <int WG, int BN, bool A_MN, bool B_MN, int P, class Epi>
+int run_tiles(const Operand* a, const Operand* b, int problems, int k_total, int k_len,
+              int splits, int extra_blocks, const Epi& epi, cudaStream_t stream) {
+  if (problems < 1 || problems > P) return static_cast<int>(cudaErrorInvalidValue);
+  if (const int err = sm90::bind_context()) return err;
+  sm90::Maps<P> maps;
+  sm90::GemmGrid g;
+  g.start[0] = 0;
+  for (int p = 0; p < P; ++p) {
+    const int q = p < problems ? p : 0;  // unused maps repeat the first
+    if (const int err = sm90::operand_map<A_MN>(&maps.a[p], a[q].ptr, a[q].rows, k_total, 64 * WG))
+      return err;
+    if (const int err = sm90::operand_map<B_MN>(&maps.b[p], b[q].ptr, b[q].rows, k_total, BN))
+      return err;
+    if (p < problems) {
+      g.n_tiles[p] = (b[p].rows + BN - 1) / BN;
+      g.start[p + 1] = g.start[p] + (a[p].rows + 64 * WG - 1) / (64 * WG) * g.n_tiles[p];
+    }
+  }
+  g.problems = problems;
+  g.tiles = g.start[problems];
+  g.splits = splits;
+  g.k_len = k_len;
+  g.k_total = k_total;
+  g.extra = extra_blocks;
+  return sm90::launch_gemm<WG, BN, A_MN, B_MN, P>(maps, epi, g, stream);
+}
+
+// The tile shapes a launch may take, by `config`: 0 is 64 × 64 (one consumer
+// warpgroup: several blocks an SM, one's epilogue beside another's products),
+// 1 is 128 × 128 and 2 is 128 × 256 (two), 3 is 64 × 256 (one: a whole row of
+// up to 256 columns in one tile, for LayerNorm in the epilogue). A product is
+// built for the configs whose bits are set in Shapes; another config returns
+// cudaErrorInvalidValue and launches nothing.
+template <unsigned Shapes, bool A_MN, bool B_MN, int P = 2, class Epi>
+int run(int config, const Operand* a, const Operand* b, int problems, int k_total, int k_len,
+        int splits, int extra_blocks, const Epi& epi, cudaStream_t stream) {
+  if constexpr ((Shapes & 1u) != 0) {
+    if (config == 0)
+      return run_tiles<1, 64, A_MN, B_MN, P>(a, b, problems, k_total, k_len, splits,
+                                             extra_blocks, epi, stream);
+  }
+  if constexpr ((Shapes & 2u) != 0) {
+    if (config == 1)
+      return run_tiles<2, 128, A_MN, B_MN, P>(a, b, problems, k_total, k_len, splits,
+                                              extra_blocks, epi, stream);
+  }
+  if constexpr ((Shapes & 4u) != 0) {
+    if (config == 2)
+      return run_tiles<2, 256, A_MN, B_MN, P>(a, b, problems, k_total, k_len, splits,
+                                              extra_blocks, epi, stream);
+  }
+  if constexpr ((Shapes & 8u) != 0) {
+    if (config == 3)
+      return run_tiles<1, 256, A_MN, B_MN, P>(a, b, problems, k_total, k_len, splits,
+                                              extra_blocks, epi, stream);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// ---------------------------------------------------------------- epilogue helpers
+
+// Epi's members (gemm_kernel): load() fetches what store() reads besides the
+// accumulator, for a whole tile before its first store; store() gets the
+// values at (row, col), (row, col+1), (row, col+8), (row, col+9), col even.
+struct NoAux {};
+struct NoExtra {
+  __device__ __forceinline__ void extra(int, int, int, int) const {}
+};
+
+// the tile's aux by load_one(problem, split, row, col) of each quad
+template <class Epi, int G>
+__device__ __forceinline__ void load_quads(const Epi& epi, int problem, int split, int row,
+                                           int col, typename Epi::Aux (&aux)[G][2]) {
+#pragma unroll
+  for (int g = 0; g < G; ++g)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) aux[g][h] = epi.load_one(problem, split, row + 8 * h, col + 16 * g);
+}
+
+__device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+}
+
+// the bias at columns col, col + 1, col + 8, col + 9 (0 past the width)
+__device__ __forceinline__ float4 bias4(const float* bias, int col, int width) {
+  float4 b = make_float4(0.f, 0.f, 0.f, 0.f);
+  if (col < width) b.x = bias[col], b.y = bias[col + 1];
+  if (col + 8 < width) b.z = bias[col + 8], b.w = bias[col + 9];
+  return b;
+}
+
 }  // namespace

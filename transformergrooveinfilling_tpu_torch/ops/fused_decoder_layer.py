@@ -13,21 +13,30 @@ decoder layer
 
 with six dropout sites, and its backward, which returns ``dx``, ``dmem`` (the
 cross-attention's gradient into the encoder memory) and 20 parameter
-gradients. The kernels are ``csrc/fused_decoder_layer.cu``, on the design of
-the encoder layer's (``ops/fused_layer.py``, whose device functions they share
-through ``csrc/layer_common.cuh``): a forward kernel and a row-backward kernel
-with one block per sequence (the target rows and the memory rows of one
-sequence, so source and target lengths must be equal), and a weight-gradient
-kernel that sums dYᵀ·X over all rows in a fixed order (no float atomics: two
-runs with one seed agree bit for bit).
+gradients. The memory rows of a sequence are the target's (source and
+target lengths must be equal). Two routes, by the storage dtype, on the
+encoder layer's designs (``ops/fused_layer.py``):
+
+- bf16: a chain of launches of ``csrc/layer_sm90.cu`` (``ops/layer_sm90.py``)
+  with every product on the tensor cores (``wgmma`` + TMA) and the
+  elementwise work in the products' epilogues (:func:`forward_sm90`,
+  :func:`backward_sm90`): nine launches forward, twelve backward, the seven
+  weight gradients and 13 bias and LayerNorm-parameter sums in one grouped
+  launch with a fixed-order reduce of its row splits. ``SM90_KERNELS``
+  counts each launch.
+- f32: ``csrc/fused_decoder_layer.cu``'s CUDA-core kernels (``KERNELS``): a
+  forward kernel and a row-backward kernel with one block per sequence, and a
+  weight-gradient kernel that sums dYᵀ·X over all rows in a fixed order.
+
+No float atomics on either route: two runs with one seed agree bit for bit.
 
 What bounds it on the H100: about 1.6 MFLOP of products per row forward and
-twice that backward at d 256 / ff 512, on CUDA cores in f32 (67 TFLOP/s peak):
-compute, not memory. The probabilities, both attention outputs and every mask
-are recomputed in the backward (masks from the Philox stream of
-``ops/fused_layer.py::dropout_mask``), and the autograd Function saves exactly
-what the TPU kernel stores: y, mem, qkv, a1, qc, kv, a2, h_drop, a3. Tensor
-cores (``wgmma``) and a faster weight-gradient reduction are later work.
+twice that backward at d 256 / ff 512: operations, not memory, on the tensor
+cores in bf16 (989 TFLOP/s) and on the CUDA cores in f32 (67 TFLOP/s). The
+probabilities, both attention outputs and every mask are recomputed in the
+backward (masks from the Philox stream of ``ops/fused_layer.py::
+dropout_mask``), and the autograd Function saves exactly what the TPU kernel
+stores: y, mem, qkv, a1, qc, kv, a2, h_drop, a3.
 
 On a CPU tensor :func:`decoder_layer_train` runs the twin
 :func:`decoder_layer_reference`; on a CUDA tensor it launches the kernels or
@@ -42,11 +51,11 @@ import math
 
 import torch
 
-from . import _build
+from . import _build, layer_sm90
 from .dropout import quantized_threshold
 from .fused_layer import (
     KERNEL_DTYPES, MAX_SMEM_BYTES, MAX_T, _ln, bwd_weights_smem_bytes,
-    dropout_mask, fwd_smem_bytes,
+    dropout_mask, fwd_smem_bytes, supports_fused_layer,
 )
 
 # dropout sites, in the order the layer reaches them
@@ -138,12 +147,18 @@ def bwd_rows_smem_bytes(t: int, d: int, ff: int) -> int:
 
 def supports_fused_decoder_layer(d_model: int, n_heads: int, dim_feedforward: int,
                                  seq_len: int, dtype=torch.float32) -> bool:
-    """Whether ``csrc/fused_decoder_layer.cu`` takes this layer.
+    """Whether the kernels take this layer, by route.
 
-    The gate is the kernels' own, as ``supports_fused_layer``'s: one block
-    holds one sequence (T ≤ 32 rows), every block's shared memory fits the
-    232,448 bytes a block may have, the products read 4 columns at a time (d
-    and ff multiples of 4), and the storage dtype is f32 or bf16. The decoder
+    bf16 (``csrc/layer_sm90.cu``): the encoder layer's bf16 gate
+    (``supports_fused_layer``: d a multiple of 8 up to the LayerNorm
+    epilogues' 256, ff a multiple of 8, hd a multiple of 8 and T ≤ 32 for
+    the attention's blocks); the cross-attention's blocks are the
+    self-attention's.
+
+    f32 (``csrc/fused_decoder_layer.cu``): the gate is the kernels' own, as
+    ``supports_fused_layer``'s: one block holds one sequence (T ≤ 32 rows),
+    every block's shared memory fits the 232,448 bytes a block may have, the
+    products read 4 columns at a time (d and ff multiples of 4). The decoder
     layer needs no more shared memory than the encoder layer although it
     carries more: the forward's qc (d) and kv (2d) share the space qkv (3d)
     had, and the row backward runs in three stages (FFN, cross-attention,
@@ -152,6 +167,8 @@ def supports_fused_decoder_layer(d_model: int, n_heads: int, dim_feedforward: in
     the row backward. The TPU gate's 128-lane widths, ≤ 5 heads and ff ≤ 1024
     do not apply.
     """
+    if dtype == torch.bfloat16:
+        return supports_fused_layer(d_model, n_heads, dim_feedforward, seq_len, dtype)
     if dtype not in KERNEL_DTYPES or n_heads < 1 or d_model % n_heads:
         return False
     if not (1 <= seq_len <= MAX_T and d_model % 4 == 0 and dim_feedforward % 4 == 0):
@@ -185,10 +202,27 @@ class _Kernel(_build.CountedKernel):
         return [(ctypes.c_void_p * len(tensors))(*[t.data_ptr() for t in tensors]), len(tensors)]
 
 
+# f32 route: the three CUDA-core kernels of csrc/fused_decoder_layer.cu
 KERNELS = {name: _Kernel(_kernels, entry, "tgi_dec_error_string")
            for name, entry in (("fused_decoder_layer_fwd", "tgi_dec_fwd"),
                                ("fused_decoder_layer_bwd_rows", "tgi_dec_bwd_rows"),
                                ("fused_decoder_layer_bwd_weights", "tgi_dec_bwd_weights"))}
+# bf16 route: the chain's launches of csrc/layer_sm90.cu, in launch order, by
+# launch type (ops/layer_sm90.py)
+SM90_LAUNCHES = {"qkv": "bias", "self_attn_fwd": "attn_fwd", "proj_ln1": "res_ln",
+                 "qc": "bias", "kv": "bias", "cross_attn_fwd": "attn_fwd",
+                 "proj2_ln2": "res_ln", "ffn_hidden": "hidden", "ffn_out_ln3": "res_ln",
+                 "ln_rows": "ln_rows", "dh": "dh", "dy2_ln2": "ln_bwd", "dcross": "round",
+                 "cross_attn_bwd": "attn_bwd", "dy1_ln1": "ln_bwd", "dmem": "round",
+                 "dattn": "round", "self_attn_bwd": "attn_bwd", "dx": "round",
+                 "wgrad": "wgrad", "reduce": "reduce"}
+SM90_KERNELS = layer_sm90.counted_kernels("fused_decoder_layer_sm90", SM90_LAUNCHES)
+
+
+def route_kernels(dtype) -> dict:
+    """The counted kernels a layer call launches in ``dtype``: each once per
+    forward (the first nine) or backward (the rest)."""
+    return SM90_KERNELS if dtype == torch.bfloat16 else KERNELS
 
 
 def _check(args: dict, seed, n_heads: int, seq_len: int) -> None:
@@ -223,6 +257,80 @@ def _check(args: dict, seed, n_heads: int, seq_len: int) -> None:
                          "must have the target's rows (equal source and target lengths)")
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("fused_decoder_layer kernels take contiguous tensors")
+    if y.dtype == torch.bfloat16 and any(args[n].data_ptr() % 16
+                                         for n in WEIGHT_NAMES + ("y", "mem")):
+        raise ValueError("fused_decoder_layer's bf16 kernels take y, mem and the weights "
+                         "16-byte aligned (TMA)")
+
+
+def forward_sm90(y, mem, wqkv, bqkv, wo, bo, wq, bq, wkv, bkv, wo2, bo2, g1, b1, w1, b1f,
+                 w2, b2f, g2, b2, g3, b3, seed, rate: float, n_heads: int, seq_len: int):
+    """The bf16 route's forward as its chain of launches (``SM90_KERNELS``):
+    ``(y3, qkv, a1, qc, kv, a2, h, a3)``. On CPU tensors each launch runs its
+    plain version (any dtype)."""
+    k = {name.removeprefix("fused_decoder_layer_sm90_"): f for name, f in SM90_KERNELS.items()}
+    L = layer_sm90
+    d = y.shape[1]
+    qkv = L.bias_product(k["qkv"], y, wqkv, bqkv)
+    attn = L.attention_forward(k["self_attn_fwd"], qkv[:, :d], qkv[:, d:2 * d], qkv[:, 2 * d:],
+                               seed, SITE_SELF, rate, n_heads, seq_len, causal=True)
+    a1, y1 = L.residual_ln_product(k["proj_ln1"], attn, wo, bo, y, g1, b1, seed, SITE_PROJ1,
+                                   rate)
+    qc = L.bias_product(k["qc"], y1, wq, bq)
+    kv = L.bias_product(k["kv"], mem, wkv, bkv)
+    catt = L.attention_forward(k["cross_attn_fwd"], qc, kv[:, :d], kv[:, d:], seed, SITE_CROSS,
+                               rate, n_heads, seq_len, causal=False)
+    a2, y2 = L.residual_ln_product(k["proj2_ln2"], catt, wo2, bo2, y1, g2, b2, seed,
+                                   SITE_PROJ2, rate)
+    h = L.hidden_product(k["ffn_hidden"], y2, w1, b1f, seed, SITE_FFN, rate)
+    a3, y3 = L.residual_ln_product(k["ffn_out_ln3"], h, w2, b2f, y2, g3, b3, seed, SITE_OUT,
+                                   rate)
+    return y3, qkv, a1, qc, kv, a2, h, a3
+
+
+def backward_sm90(dy, y, mem, qkv, a1, qc, kv, a2, h, a3, wqkv, wo, wq, wkv, wo2, w1, w2,
+                  g1, b1, g2, b2, g3, seed, rate: float, n_heads: int, seq_len: int):
+    """The bf16 route's backward as its chain of launches (``SM90_KERNELS``),
+    :func:`layer_backward`'s outputs. On CPU tensors each launch runs its
+    plain version (any dtype)."""
+    k = {name.removeprefix("fused_decoder_layer_sm90_"): f for name, f in SM90_KERNELS.items()}
+    L = layer_sm90
+    m, d = y.shape
+    ff = w1.shape[0]
+    (y1, y2, _), stats, da3, df = L.ln_rows(
+        k["ln_rows"], [(a1, g1, b1, True), (a2, g2, b2, True), (a3, g3, None, False)], dy, seed,
+        SITE_OUT, rate)
+    dh = L.dh_product(k["dh"], df, w2, h, rate)
+    da2, dy2, dproj2 = L.ln_backward_product(k["dy2_ln2"], dh, w1, da3, g2, a2, stats[:, 2:4],
+                                             seed, SITE_PROJ2, rate)
+    dcatt = L.round_product(k["dcross"], dproj2, wo2)
+    dqc, dkv, catt = y.new_empty((m, d)), y.new_empty((m, 2 * d)), y.new_empty((m, d))
+    L.attention_backward(k["cross_attn_bwd"], qc, kv[:, :d], kv[:, d:], dcatt, dqc, dkv[:, :d],
+                         dkv[:, d:], catt, seed, SITE_CROSS, rate, n_heads, seq_len,
+                         causal=False)
+    da1, dy1, dproj = L.ln_backward_product(k["dy1_ln1"], dqc, wq, da2, g1, a1, stats[:, 0:2],
+                                            seed, SITE_PROJ1, rate)
+    dmem = L.round_product(k["dmem"], dkv, wkv)
+    dattn = L.round_product(k["dattn"], dproj, wo)
+    dqkv, attn = y.new_empty((m, 3 * d)), y.new_empty((m, d))
+    L.attention_backward(k["self_attn_bwd"], qkv[:, :d], qkv[:, d:2 * d], qkv[:, 2 * d:],
+                         dattn, dqkv[:, :d], dqkv[:, d:2 * d], dqkv[:, 2 * d:], attn, seed,
+                         SITE_SELF, rate, n_heads, seq_len, causal=True)
+    dx = L.round_product(k["dx"], dqkv, wqkv, da1)
+    grads = L.weight_gradients(
+        k["wgrad"], k["reduce"],
+        [(dqkv, y), (dproj, attn), (dqc, y1), (dkv, mem), (dproj2, catt), (dh, y2), (df, h)],
+        [(dqkv, None, None), (dproj, None, None), (dqc, None, None), (dkv, None, None),
+         (dproj2, None, None), (dy1, a1, stats[:, 0:2]), (dy1, None, None), (dh, None, None),
+         (df, None, None), (dy2, a2, stats[:, 2:4]), (dy2, None, None),
+         (dy, a3, stats[:, 4:6]), (dy, None, None)])
+    dwqkv, dwo, dwq, dwkv, dwo2, dw1, dw2, vec = grads.split(
+        [3 * d * d, d * d, d * d, 2 * d * d, d * d, ff * d, d * ff, 15 * d + ff])
+    (dbqkv, dbo, dbq, dbkv, dbo2, dg1, db1, db1f, db2f, dg2, db2, dg3, db3) = vec.split(
+        [3 * d, d, d, 2 * d, d, d, d, ff, d, d, d, d, d])
+    return (dx, dmem, dwqkv.view(3 * d, d), dbqkv, dwo.view(d, d), dbo, dwq.view(d, d), dbq,
+            dwkv.view(2 * d, d), dbkv, dwo2.view(d, d), dbo2, dg1, db1, dw1.view(ff, d), db1f,
+            dw2.view(d, ff), db2f, dg2, db2, dg3, db3)
 
 
 def _shape(m, d, n_heads, ff, seq_len, rate, dtype):
@@ -232,10 +340,13 @@ def _shape(m, d, n_heads, ff, seq_len, rate, dtype):
 
 def layer_forward(y, mem, wqkv, bqkv, wo, bo, wq, bq, wkv, bkv, wo2, bo2, g1, b1, w1, b1f,
                   w2, b2f, g2, b2, g3, b3, seed, rate: float, n_heads: int, seq_len: int):
-    """Launch the forward kernel: ``(y3, qkv, a1, qc, kv, a2, h, a3)``."""
+    """Launch the forward: ``(y3, qkv, a1, qc, kv, a2, h, a3)``. bf16: the
+    chain of :func:`forward_sm90`; f32: one CUDA-core kernel."""
     inputs = (y, mem, wqkv, bqkv, wo, bo, wq, bq, wkv, bkv, wo2, bo2, g1, b1, w1, b1f, w2,
               b2f, g2, b2, g3, b3)
     _check(dict(zip(ARG_NAMES, inputs)), seed, n_heads, seq_len)
+    if y.dtype == torch.bfloat16:
+        return forward_sm90(*inputs, seed, rate, n_heads, seq_len)
     m, d = y.shape
     ff = w1.shape[0]
     out, a1, qc, a2, a3 = (torch.empty_like(y) for _ in range(5))
@@ -248,15 +359,20 @@ def layer_forward(y, mem, wqkv, bqkv, wo, bo, wq, bq, wkv, bkv, wo2, bo2, g1, b1
 
 def layer_backward(dy, y, mem, qkv, a1, qc, kv, a2, h, a3, wqkv, wo, wq, wkv, wo2, w1, w2,
                    g1, b1, g2, b2, g3, seed, rate: float, n_heads: int, seq_len: int):
-    """Launch the row-backward and weight-gradient kernels: ``(dx, dmem,
-    dwqkv, dbqkv, dwo, dbo, dwq, dbq, dwkv, dbkv, dwo2, dbo2, dg1, db1, dw1,
-    db1f, dw2, db2f, dg2, db2, dg3, db3)``, weight gradients in f32."""
+    """Launch the backward: ``(dx, dmem, dwqkv, dbqkv, dwo, dbo, dwq, dbq,
+    dwkv, dbkv, dwo2, dbo2, dg1, db1, dw1, db1f, dw2, db2f, dg2, db2, dg3,
+    db3)``, weight gradients in f32. bf16: the chain of
+    :func:`backward_sm90`; f32: the row-backward and weight-gradient
+    kernels."""
     m, d = y.shape
     ff = w1.shape[0]
     dy = dy.contiguous()
     if dy.dtype != y.dtype or dy.shape != y.shape or dy.device != y.device:
         raise ValueError(f"fused_decoder_layer backward: dy {dy.dtype} {tuple(dy.shape)} "
                          f"does not match y {y.dtype} {tuple(y.shape)}")
+    if y.dtype == torch.bfloat16:
+        return backward_sm90(dy, y, mem, qkv, a1, qc, kv, a2, h, a3, wqkv, wo, wq, wkv, wo2,
+                             w1, w2, g1, b1, g2, b2, g3, seed, rate, n_heads, seq_len)
     shape = _shape(m, d, n_heads, ff, seq_len, rate, y.dtype)
     dx, dmem = torch.empty_like(y), torch.empty_like(y)
     f32 = dict(device=y.device, dtype=torch.float32)

@@ -8,21 +8,32 @@ backward ``_bwd_call`` → ``_bwd_kernel``): the whole post-LN encoder layer
     y1 = LN1(x + drop(A·Wo + bo));  h = drop(relu(y1·W1 + b1))
     y2 = LN2(y1 + drop(h·W2 + b2))
 
-with four dropout sites, and its backward. The kernels are
-``csrc/fused_layer.cu``: a forward kernel and a row-backward kernel with one
-block per sequence, and a weight-gradient kernel that sums dYᵀ·X over all rows
-in a fixed order (no float atomics, so two runs with one seed agree bit for
-bit).
+with four dropout sites, and its backward. Two routes, by the storage dtype:
+
+- bf16: a chain of launches of ``csrc/layer_sm90.cu`` (``ops/layer_sm90.py``)
+  with every product on the tensor cores (``wgmma`` + TMA) and the layer's
+  elementwise work in the products' epilogues: forward qkv, the attention
+  per (sequence, head), Wo with the residual and LN1, W1 with ReLU and the
+  mask, W2 with the residual and LN2 (:func:`forward_sm90`); backward the
+  LayerNorm rows (LN2's backward, y1 again), dh, dh·W1 with LN1's backward,
+  dattn, the attention's backward, dx, and all weight and LayerNorm-parameter
+  gradients in one grouped launch with a fixed-order reduce of its row splits
+  (:func:`backward_sm90`). ``SM90_KERNELS`` counts each launch.
+- f32: ``csrc/fused_layer.cu``'s CUDA-core kernels: a forward kernel and a
+  row-backward kernel with one block per sequence, and a weight-gradient
+  kernel that sums dYᵀ·X over all rows in a fixed order (``KERNELS``). The
+  tensor cores' f32 mode is TF32, which would miss the f32 bars.
+
+No float atomics on either route, so two runs with one seed agree bit for bit.
 
 What bounds it on the H100: about 1.05 MFLOP of products per row forward and
-2.1 MFLOP backward at the flagship width (d 256, ff 512), on CUDA cores in f32
-(67 TFLOP/s peak) — compute, not memory: the six weight matrices (1 MB in
-bf16) stream from the 50 MB L2, and the per-row activations cross device
-memory once. The design keeps what the TPU kernel keeps out of device memory
-out of it here too: the probabilities, the attention output and every mask are
-recomputed (masks from a counter-based Philox4x32-10 stream keyed by the seed
-and counted by (site, row, column)), and the autograd Function saves exactly
-x, qkv, a1, h_drop and a2. Tensor cores (``wgmma``) are later work.
+2.1 MFLOP backward at the flagship width (d 256, ff 512) — operations, not
+memory: on the tensor cores (989 TFLOP/s in bf16) 17 µs forward at 16,384
+rows, on the CUDA cores (67 TFLOP/s in f32) 15 times that. Both routes keep
+what the TPU kernel keeps out of device memory out of it: the probabilities
+and every mask are recomputed (masks from a counter-based Philox4x32-10
+stream keyed by the seed and counted by (site, row, column)), and the
+autograd Function saves exactly x, qkv, a1, h_drop and a2.
 
 ``dropout_mask`` is the kernels' mask generator in plain PyTorch, so the
 kernel and :func:`encoder_layer_reference` draw the same masks. On a CPU
@@ -38,7 +49,7 @@ import math
 
 import torch
 
-from . import _build
+from . import _build, layer_sm90
 from .dropout import quantized_threshold
 
 LN_EPS = 1e-5
@@ -229,19 +240,33 @@ def bwd_weights_smem_bytes(t: int, d: int, n_heads: int) -> int:
 
 def supports_fused_layer(d_model: int, n_heads: int, dim_feedforward: int,
                          seq_len: int, dtype=torch.float32) -> bool:
-    """Whether ``csrc/fused_layer.cu`` takes this layer.
+    """Whether the kernels take this layer, by route.
 
-    The Hopper gate is the kernels' own: one block holds one sequence
-    (T ≤ 32 rows: the row loops keep T accumulators per thread in
-    registers), every block's shared memory fits the 232,448 bytes a block
-    may have, the products read 4 columns at a time (d and ff multiples of 4),
-    and the storage dtype is f32 or bf16. The TPU gate's 128-lane widths,
-    ≤ 5 heads and ff ≤ 1024 (scoped VMEM) do not apply. The flagship
-    (T 32, d 256, ff 512) needs 168 KB forward and 205 KB in the row backward.
+    bf16 (``csrc/layer_sm90.cu``): d a multiple of 8 up to 256 (the
+    LayerNorm epilogues' tile spans a row; TMA's 16-byte strides), ff a
+    multiple of 8, d divisible by the heads into heads of a width hd that is
+    a multiple of 8 (the attention loads 16-byte rows by cp.async and
+    zero-fills hd to the mma's k of 16), and T ≤ 32 (the attention keeps a
+    (sequence, head) in one block of 32 padded rows on the tensor cores).
+    Rows and the head count are otherwise free: the products' ragged edges
+    are TMA's zero fill.
+
+    f32 (``csrc/fused_layer.cu``): one block holds one sequence (T ≤ 32 rows:
+    the row loops keep T accumulators per thread in registers), every block's
+    shared memory fits the 232,448 bytes a block may have, and the products
+    read 4 columns at a time (d and ff multiples of 4). The flagship (T 32, d
+    256, ff 512) needs 168 KB forward and 205 KB in the row backward.
+
+    The TPU gate's 128-lane widths, ≤ 5 heads and ff ≤ 1024 (scoped VMEM) do
+    not apply.
     """
-    if dtype not in KERNEL_DTYPES or n_heads < 1 or d_model % n_heads:
+    if dtype not in KERNEL_DTYPES or n_heads < 1 or d_model % n_heads or not 1 <= seq_len <= MAX_T:
         return False
-    if not (1 <= seq_len <= MAX_T and d_model % 4 == 0 and dim_feedforward % 4 == 0):
+    if dtype == torch.bfloat16:
+        return (8 <= d_model <= layer_sm90.LN_TILE and d_model % 8 == 0
+                and (d_model // n_heads) % 8 == 0
+                and dim_feedforward >= 8 and dim_feedforward % 8 == 0)
+    if not (d_model % 4 == 0 and dim_feedforward % 4 == 0):
         return False
     return max(fwd_smem_bytes(seq_len, d_model, dim_feedforward),
                bwd_rows_smem_bytes(seq_len, d_model, dim_feedforward),
@@ -266,10 +291,24 @@ def _kernels():
     return lib
 
 
+# f32 route: the three CUDA-core kernels of csrc/fused_layer.cu
 KERNELS = {name: _build.CountedKernel(_kernels, entry, "tgi_layer_error_string")
            for name, entry in (("fused_layer_fwd", "tgi_layer_fwd"),
                                ("fused_layer_bwd_rows", "tgi_layer_bwd_rows"),
                                ("fused_layer_bwd_weights", "tgi_layer_bwd_weights"))}
+# bf16 route: the chain's launches of csrc/layer_sm90.cu, in launch order, by
+# launch type (ops/layer_sm90.py)
+SM90_LAUNCHES = {"qkv": "bias", "attn_fwd": "attn_fwd", "proj_ln1": "res_ln",
+                 "ffn_hidden": "hidden", "ffn_out_ln2": "res_ln", "ln_rows": "ln_rows",
+                 "dh": "dh", "dy1_ln1": "ln_bwd", "dattn": "round", "attn_bwd": "attn_bwd",
+                 "dx": "round", "wgrad": "wgrad", "reduce": "reduce"}
+SM90_KERNELS = layer_sm90.counted_kernels("fused_layer_sm90", SM90_LAUNCHES)
+
+
+def route_kernels(dtype) -> dict:
+    """The counted kernels a layer call launches in ``dtype``: each once per
+    forward (the first five) or backward (the rest)."""
+    return SM90_KERNELS if dtype == torch.bfloat16 else KERNELS
 
 
 def _check(x, weights, vectors, seed, n_heads: int, seq_len: int) -> None:
@@ -296,13 +335,72 @@ def _check(x, weights, vectors, seed, n_heads: int, seq_len: int) -> None:
                          f"expected {want}")
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("fused_layer kernels take contiguous tensors")
+    if x.dtype == torch.bfloat16 and any(t.data_ptr() % 16 for t in (x, *weights)):
+        raise ValueError("fused_layer's bf16 kernels take x and the weights 16-byte aligned "
+                         "(TMA)")
+
+
+def forward_sm90(x, wqkv, bqkv, wo, bo, g1, b1, w1, b1f, w2, b2f, g2, b2, seed,
+                 rate: float, n_heads: int, seq_len: int):
+    """The bf16 route's forward as its chain of launches (``SM90_KERNELS``):
+    ``(y, qkv, a1, h, a2)``. On CPU tensors each launch runs its plain
+    version (any dtype)."""
+    k = SM90_KERNELS
+    d = x.shape[1]
+    qkv = layer_sm90.bias_product(k["fused_layer_sm90_qkv"], x, wqkv, bqkv)
+    attn = layer_sm90.attention_forward(k["fused_layer_sm90_attn_fwd"], qkv[:, :d],
+                                        qkv[:, d:2 * d], qkv[:, 2 * d:], seed, SITE_ATTN, rate,
+                                        n_heads, seq_len, causal=False)
+    a1, y1 = layer_sm90.residual_ln_product(k["fused_layer_sm90_proj_ln1"], attn, wo, bo, x, g1,
+                                            b1, seed, SITE_PROJ, rate)
+    h = layer_sm90.hidden_product(k["fused_layer_sm90_ffn_hidden"], y1, w1, b1f, seed,
+                                  SITE_FFN, rate)
+    a2, y = layer_sm90.residual_ln_product(k["fused_layer_sm90_ffn_out_ln2"], h, w2, b2f, y1,
+                                           g2, b2, seed, SITE_OUT, rate)
+    return y, qkv, a1, h, a2
+
+
+def backward_sm90(dy, x, qkv, a1, h, a2, wqkv, wo, w1, w2, g1, b1, g2, seed,
+                  rate: float, n_heads: int, seq_len: int):
+    """The bf16 route's backward as its chain of launches (``SM90_KERNELS``),
+    :func:`layer_backward`'s outputs. On CPU tensors each launch runs its
+    plain version (any dtype)."""
+    k = SM90_KERNELS
+    m, d = x.shape
+    ff = w1.shape[0]
+    (y1, _), stats, da2, df = layer_sm90.ln_rows(
+        k["fused_layer_sm90_ln_rows"], [(a1, g1, b1, True), (a2, g2, None, False)], dy, seed,
+        SITE_OUT, rate)
+    dh = layer_sm90.dh_product(k["fused_layer_sm90_dh"], df, w2, h, rate)
+    da1, dy1, dproj = layer_sm90.ln_backward_product(
+        k["fused_layer_sm90_dy1_ln1"], dh, w1, da2, g1, a1, stats[:, 0:2], seed, SITE_PROJ, rate)
+    dattn = layer_sm90.round_product(k["fused_layer_sm90_dattn"], dproj, wo)
+    dqkv, attn = x.new_empty((m, 3 * d)), x.new_empty((m, d))
+    layer_sm90.attention_backward(k["fused_layer_sm90_attn_bwd"], qkv[:, :d], qkv[:, d:2 * d],
+                                  qkv[:, 2 * d:], dattn, dqkv[:, :d], dqkv[:, d:2 * d],
+                                  dqkv[:, 2 * d:], attn, seed, SITE_ATTN, rate, n_heads,
+                                  seq_len, causal=False)
+    dx = layer_sm90.round_product(k["fused_layer_sm90_dx"], dqkv, wqkv, da1)
+    grads = layer_sm90.weight_gradients(
+        k["fused_layer_sm90_wgrad"], k["fused_layer_sm90_reduce"],
+        [(dqkv, x), (dproj, attn), (dh, y1), (df, h)],
+        [(dqkv, None, None), (dproj, None, None), (dy1, a1, stats[:, 0:2]), (dy1, None, None),
+         (dh, None, None), (df, None, None), (dy, a2, stats[:, 2:4]), (dy, None, None)])
+    dwqkv, dwo, dw1, dw2, vec = grads.split([3 * d * d, d * d, ff * d, d * ff, 9 * d + ff])
+    dbqkv, dbo, dg1, db1, db1f, db2f, dg2, db2 = vec.split([3 * d, d, d, d, ff, d, d, d])
+    return (dx, dwqkv.view(3 * d, d), dbqkv, dwo.view(d, d), dbo, dg1, db1, dw1.view(ff, d),
+            db1f, dw2.view(d, ff), db2f, dg2, db2)
 
 
 def layer_forward(x, wqkv, bqkv, wo, bo, g1, b1, w1, b1f, w2, b2f, g2, b2,
                   seed, rate: float, n_heads: int, seq_len: int):
-    """Launch the forward kernel: ``(y, qkv, a1, h, a2)``."""
+    """Launch the forward: ``(y, qkv, a1, h, a2)``. bf16: the chain of
+    :func:`forward_sm90`; f32: one CUDA-core kernel."""
     weights, vectors = (wqkv, wo, w1, w2), (bqkv, bo, g1, b1, b1f, b2f, g2, b2)
     _check(x, weights, vectors, seed, n_heads, seq_len)
+    if x.dtype == torch.bfloat16:
+        return forward_sm90(x, wqkv, bqkv, wo, bo, g1, b1, w1, b1f, w2, b2f, g2, b2, seed,
+                            rate, n_heads, seq_len)
     m, d = x.shape
     ff = w1.shape[0]
     y, a1, a2 = (torch.empty_like(x) for _ in range(3))
@@ -321,15 +419,19 @@ def _shape(m, d, n_heads, ff, seq_len, rate, dtype):
 
 def layer_backward(dy, x, qkv, a1, h, a2, wqkv, wo, w1, w2, g1, b1, g2, seed,
                    rate: float, n_heads: int, seq_len: int):
-    """Launch the row-backward and weight-gradient kernels: ``(dx, dwqkv,
-    dbqkv, dwo, dbo, dg1, db1, dw1, db1f, dw2, db2f, dg2, db2)``, weight
-    gradients in f32."""
+    """Launch the backward: ``(dx, dwqkv, dbqkv, dwo, dbo, dg1, db1, dw1,
+    db1f, dw2, db2f, dg2, db2)``, weight gradients in f32. bf16: the chain of
+    :func:`backward_sm90`; f32: the row-backward and weight-gradient
+    kernels."""
     m, d = x.shape
     ff = w1.shape[0]
     dy = dy.contiguous()
     if dy.dtype != x.dtype or dy.shape != x.shape or dy.device != x.device:
         raise ValueError(f"fused_layer backward: dy {dy.dtype} {tuple(dy.shape)} "
                          f"does not match x {x.dtype} {tuple(x.shape)}")
+    if x.dtype == torch.bfloat16:
+        return backward_sm90(dy, x, qkv, a1, h, a2, wqkv, wo, w1, w2, g1, b1, g2, seed,
+                             rate, n_heads, seq_len)
     shape = _shape(m, d, n_heads, ff, seq_len, rate, x.dtype)
     dx = torch.empty_like(x)
     # row-wise gradients, f32: df | dhpre | dproj | dqkv | dy1·zh1 | dy1 |

@@ -123,9 +123,21 @@ def resolve_fused_ffn(fused_ffn: Optional[bool], dim_feedforward: int, d_model: 
     return False
 
 
-# The batch sizes at which the whole-layer kernels were measured faster than
-# the unfused path on the card (PERF.md §5)
-LAYER_KERNEL_MAX_BATCH = 32
+# The largest training batch at which each route's whole-layer kernels were
+# measured faster than the unfused path by more than the spread between turns
+# (PERF.md §5). bf16, the chains of csrc/layer_sm90.cu: faster at 32 and at 512,
+# the two batches measured; above 512 nothing was measured. f32, the CUDA-core
+# kernels of csrc/fused_layer.cu and csrc/fused_decoder_layer.cu: their design
+# won at 32 and ran about 4x slower than the unfused path at 512, so 32
+LAYER_KERNEL_MAX_BATCH = {torch.bfloat16: 512, torch.float32: 32}
+
+
+def _measured_batch(batch_size: Optional[int], compute_dtype) -> bool:
+    """Whether the kernels of ``compute_dtype``'s route were measured faster
+    at ``batch_size`` (``LAYER_KERNEL_MAX_BATCH``); False when no batch is
+    given."""
+    limit = LAYER_KERNEL_MAX_BATCH.get(compute_dtype)
+    return batch_size is not None and limit is not None and batch_size <= limit
 
 
 def resolve_fused_layer(fused_layer: Optional[bool], d_model: int, n_heads: int,
@@ -136,18 +148,25 @@ def resolve_fused_layer(fused_layer: Optional[bool], d_model: int, n_heads: int,
     JAX package's positional signature, then ``batch_size``). ``None`` = auto,
     gated by measurement as the JAX package's is: on for a single device
     where the kernels' Hopper gate (``ops/fused_layer.py::supports_fused_layer``)
-    admits the shape and the training batch is one at which the kernels were
-    measured faster, ``batch_size`` <= 32; off when the batch is larger or not
+    admits the shape and the training batch is one at which the route's
+    kernels were measured faster, ``batch_size`` <= 512 in bf16 and <= 32 in
+    f32 (``LAYER_KERNEL_MAX_BATCH``); off when the batch is larger or not
     given. A forced True is kept; the model raises if the gate rejects it.
 
     On an NVIDIA H100 80GB HBM3 at 700 W (chip_smoke.py, phase 9; PERF.md §5),
-    flagship width, bf16: 1,667-1,713 seqs/s on the kernel path against
-    855-938 with ``fused_layer=False`` at batch 32; 3,328-3,381 against
-    12,600-17,500 at batch 512, where the weight-gradient kernel, one block
-    per 64×64 tile walking every sequence, is 63 % of the step."""
+    flagship width, bf16, the bf16 chain of csrc/layer_sm90.cu against
+    ``fused_layer=False``, two turns each: 2,319-2,433 seqs/s against 819-925
+    at batch 32 (one path's two turns up to 13 % apart), 33,591-45,043 against
+    13,324-13,672 at batch 512 (up to 34 % apart); the worst pair of turns
+    gains 2.5x at both. Phase 18 gives the same verdict at ff 2048
+    (configs/InfillingRandomLow_lm_training.yaml): 2,174-2,298 against the
+    unfused path's 721-799 at batch 32, 34,160-37,921 against 10,067-10,984
+    at 512. The f32 route keeps the verdict of its CUDA-core design, measured
+    with bf16 storage before the bf16 chains existed: 1,667-1,713 seqs/s
+    against 855-938 at batch 32, 3,328-3,381 against 12,600-17,500 at 512."""
     if fused_layer is not None:
         return bool(fused_layer)
-    return (n_devices == 1 and batch_size is not None and batch_size <= LAYER_KERNEL_MAX_BATCH
+    return (n_devices == 1 and _measured_batch(batch_size, compute_dtype)
             and supports_fused_layer(d_model, n_heads, dim_feedforward, seq_len, compute_dtype))
 
 
@@ -159,17 +178,18 @@ def resolve_fused_decoder_layer(fused_decoder_layer: Optional[bool], d_model: in
     (encoder-decoder models), by the rule of :func:`resolve_fused_layer`:
     ``None`` = auto, on for a single device where the decoder kernels' Hopper
     gate (``ops/fused_decoder_layer.py::supports_fused_decoder_layer``) admits
-    the shape and ``batch_size`` <= 32; off when the batch is larger or not
-    given. A forced True is kept; the model raises if the gate rejects it.
+    the shape and ``batch_size`` is within the route's
+    ``LAYER_KERNEL_MAX_BATCH`` (bf16 512, f32 32); off when the batch is
+    larger or not given. A forced True is kept; the model raises if the gate
+    rejects it.
 
     The 6 + 6 layer model at the flagship width on an NVIDIA H100 80GB HBM3
-    at 700 W (chip_smoke.py, phase 15; PERF.md §5), bf16: 694-700 seqs/s on
-    the kernel path against 347-457 with both fused switches off at batch 32;
-    1,514-1,530 against 3,766-7,569 at batch 512, where the two
-    weight-gradient kernels are 191 ms of a 332 ms step."""
+    at 700 W (chip_smoke.py, phase 15; PERF.md §5), bf16: 901-1,134 seqs/s on
+    the kernel path against 370-386 with both fused switches off at batch 32;
+    14,845-15,176 against 4,707-4,813 at batch 512."""
     if fused_decoder_layer is not None:
         return bool(fused_decoder_layer)
-    return (n_devices == 1 and batch_size is not None and batch_size <= LAYER_KERNEL_MAX_BATCH
+    return (n_devices == 1 and _measured_batch(batch_size, compute_dtype)
             and supports_fused_decoder_layer(d_model, n_heads, dim_feedforward, seq_len,
                                              compute_dtype))
 

@@ -65,7 +65,7 @@ def initialize_model(params: dict, device="cuda") -> tuple[ModelBundle, Any, int
     resolved here too: the JAX ``initialize_model`` passes only ``fused_ffn``
     and ``remat`` and leaves both at their default, off, but on the card the
     whole-layer kernels are why the port exists, so auto turns them on at the
-    batch sizes where they were measured faster (<= 32,
+    batch sizes where they were measured faster (<= 512,
     ``resolve_fused_layer``). Every kernel switch is resolved by
     ``params["training"]["batch_size"]`` (default 16)."""
     m = params["model"]
