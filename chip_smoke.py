@@ -71,15 +71,18 @@ then non-zero):
 10. front-end kernels  ``device_synth`` against its plain version bit for
             bit, and ``band_energies_from_audio`` (framing inside the kernel)
             against its plain version on kit renders (bar 1e-4 · max|ref|: an
-            f32 FFT against dense f32 products), at M 1 and 64 × 90/120/150
-            bpm and at the shapes phases 12 and 13 give them (1 loop at 90
+            f32 FFT against dense f32 products), at M 1, 64 and 256 × 90/120/
+            150 bpm and at the shapes phases 12 and 13 give them (1 loop at 90
             bpm, 6 at 120, 40 at 150; 256 loops at phase 13's own tempos);
             the frames entry ``band_energies`` at N 1, 417, 418, 26,752 and
             140,544; reruns bit-identical; each timed on the stream and the
             device beside its plain version, its bound and the library routes
             (framing + ``torch.fft.rfft`` + abs + matmul from the same
             waveform, ``torch.stft``, the ``"conv"`` method; one
-            ``index_add_`` over prepared indices for the synthesizer).
+            ``index_add_`` over prepared indices for the synthesizer, on the
+            stream and the device), the synthesizer at M 1, 64 and 256 with
+            its tile, grid, dynamic shared memory and each instance's
+            registers.
 11. front end  64 seeded loops at mixed tempos, grids → MSO on the card by
             the kernel route against the plain route on the card and the host
             route (numpy mixer + ``"fft"`` on the CPU), at atol 2e-5 · max,
@@ -130,7 +133,10 @@ then non-zero):
             bit-identical; each call timed beside its plain version, the
             library composition (``F.linear``, relu, ``F.dropout``,
             ``F.linear``; ``F.layer_norm(x + F.dropout(y))``; autograd's
-            backward) and its bound, each kernel's device time per launch.
+            backward; the LN's also on the device) and its bound, each
+            kernel's device time per launch; an LN backward is one launch
+            (dscale and dbias summed inside it); the LN kernels' registers,
+            shared memory and grids.
 18. train wide FFN  configs/InfillingRandomLow_lm_training.yaml (d 256, ff
             2048, 8 layers, dropout 0.16; written here, held to the file by a
             CPU test) through ``initialize_model`` + ``train_loop`` with
@@ -138,7 +144,8 @@ then non-zero):
             (``fused_layer`` given off; the bf16 gate admits ff 2048): every step
             launches each bf16 FFN kernel 8 times (the reduce too: the weight
             gradients split the rows in two), the loss falls; with
-            ``fused_dropout_ln`` 16 + 16 LN launches a step; with ``remat`` 16
+            ``fused_dropout_ln`` 16 + 16 LN launches a step, and a step's device
+            launches with them (one ``ln_bwd`` a backward site); with ``remat`` 16
             launches of each FFN forward kernel a step, one step's gradients
             equal to the un-rematerialised step's, peak memory with and without at batch
             512; 3 f32 steps at dropout 0 against the plain-version path and
@@ -168,6 +175,7 @@ import contextlib
 import dataclasses
 import functools
 import json
+import re
 import subprocess
 import sys
 import threading
@@ -807,9 +815,29 @@ def phase_build() -> None:
               "dec_bwd_weights": fl.bwd_weights_smem_bytes(t, d, h)},
           "limit": fl.MAX_SMEM_BYTES})
     emit({"phase": "build", "kernel": "fused_ffn, fused_ln", "dynamic_smem_bytes": {
-        f"d {d}": {"ffn_fwd, ffn_bwd_rows (f32)": ffn.rows_smem_bytes(d), "ln_fwd": 32 * d,
-                   "ln_bwd": ln.bwd_smem_bytes(d)} for d in (256, 1024)},
+        f"d {d}": {"ffn_fwd, ffn_bwd_rows (f32)": ffn.rows_smem_bytes(d), "ln_fwd": 0,
+                   "ln_bwd": ln.bwd_smem_bytes(d, torch.bfloat16)} for d in (256, 1024)},
         "limit": fl.MAX_SMEM_BYTES})
+
+
+def kernel_resources(name: str) -> dict:
+    """ptxas' registers, spilled bytes and static shared memory of each entry
+    of ``csrc/<name>.cu`` (one per template instance), from the build log."""
+    out, entry = {}, None
+    for line in _build.build_info[name]["log"].splitlines():
+        found = re.search(r"Compiling entry function '_Z\w*?\d+([a-z_]+)I(\w+?)EEEv", line)
+        if found:
+            args = found.group(2)
+            dtype = ["bf16"] if args.startswith("13__nv_bfloat16") else ["f32"] * (args[0] == "f")
+            entry = f"{found.group(1)}<{', '.join(dtype + re.findall(r'Li(\d+)E', args + 'E'))}>"
+            out[entry] = {}
+        elif entry and "spill stores" in line:
+            out[entry]["spill_bytes"] = int(re.search(r"(\d+) bytes spill stores", line).group(1))
+        elif entry and "registers" in line:
+            out[entry]["registers"] = int(re.search(r"Used (\d+) registers", line).group(1))
+            smem = re.search(r"(\d+) bytes smem", line)
+            out[entry]["static_smem_bytes"] = int(smem.group(1)) if smem else 0
+    return out
 
 
 def mha_inputs(dev, rng, b: int, h: int, hd: int, dtype, form: str, t: int = 32):
@@ -1396,8 +1424,10 @@ def seqs_per_s(bundle, data, batch: int, encoder_only: int = 1) -> float:
     return len(data.processed_inputs) / (time.perf_counter() - t0)
 
 
-def step_breakdown(bundle, b: int, seed: int, encoder_only: int = 1) -> dict:
-    """Where a step's host and device time goes: two steps on 2·b loops."""
+def step_breakdown(bundle, b: int, seed: int, encoder_only: int = 1, count=()) -> dict:
+    """Where a step's host and device time goes: two steps on 2·b loops; with
+    ``count``, the device launches a step of the kernels whose names hold each
+    of those strings."""
     small = Loops(2 * b, seed)
     seqs_per_s(bundle, small, b, encoder_only)
     t0 = time.perf_counter()
@@ -1409,7 +1439,10 @@ def step_breakdown(bundle, b: int, seed: int, encoder_only: int = 1) -> dict:
     return {"step_host_ms": host * 1e3, "step_device_ms": total / 1e3,
             "device_busy_share": total / 1e6 / host,
             "launches_per_step": sum(c for _, c in per_kernel.values()) / 2,
-            "top_kernels_us_per_step": {k: us / 2 for k, (us, _) in top}}
+            "top_kernels_us_per_step": {k: us / 2 for k, (us, _) in top},
+            **({"launches_per_step_of": {name: sum(c for k, (_, c) in per_kernel.items()
+                                                   if name in k) / 2 for name in count}}
+               if count else {})}
 
 
 @contextlib.contextmanager
@@ -1649,7 +1682,8 @@ def phase_front_end_kernels(dev, rng) -> dict:
     serve_loops = Loops(40, 25).processed_outputs
     main_path = [(serve_loops[:1], 90.0), (serve_loops[:6], 120.0), (serve_loops, 150.0),
                  (aug_grids, aug_qpms)]
-    cases = [(loops[:m], qpm) for m in (1, 64) for qpm in (90.0, 120.0, 150.0)] + main_path
+    cases = ([(grids[:m], qpm) for grids, m in ((loops, 1), (loops, 64), (aug_grids, 256))
+              for qpm in (90.0, 120.0, 150.0)] + main_path)
     synth_checks, worst_synth = [], 0.0
     for grids, qpm in cases:
         m, tempo = len(grids), qpm if np.isscalar(qpm) else [qpm.min(), qpm.max()]
@@ -1670,8 +1704,9 @@ def phase_front_end_kernels(dev, rng) -> dict:
                              "live_events": int((gain != 0).sum())})
         del got, again, want
     synth_timings = []
-    for m in (1, 64):
-        onset, row, gain, table, lengths, length = events_for(dev, loops[:m], 120.0, params)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for m, grids in ((1, loops), (64, loops), (256, aug_grids)):
+        onset, row, gain, table, lengths, length = events_for(dev, grids[:m], 120.0, params)
         row_t = timed(lambda: SYNTH(onset, row, gain, table, lengths, length),
                       lambda: ds.synth_events_plain(onset, row, gain, table, length), 3)
         # the library yardstick: ONE index_add_ over indices and sources
@@ -1689,10 +1724,29 @@ def phase_front_end_kernels(dev, rng) -> dict:
         lib_err = max_err(flat.view(m, length), want)
         check(lib_err <= 1e-5, f"index_add_ yardstick differs from the kernel by {lib_err}")
         lib = [time_us(lambda: flat.index_add_(0, index, source), 10) / 1e3 for _ in range(2)]
-        synth_timings.append({"M": m, "qpm": 120.0, "length": length, **row_t,
-                              "index_add_ms": lib, "index_add_elements": int(index.numel()),
-                              **synth_bound(onset, row, gain, table, lengths, length)})
-        del event, within, index, source, flat
+        lib_device = device_us(lambda: flat.index_add_(0, index, source), 3)
+        per_thread = ds.samples_per_thread(m, length, sms)
+        bnd = synth_bound(onset, row, gain, table, lengths, length)
+        # every tile the kernel is built for, launched directly: the chooser's
+        # pick against the others
+        out = torch.empty((m, length), device=dev)
+        tiles = {}
+        for p in ds.PER_THREAD:
+            args = ((onset, row, gain, table, lengths, out),
+                    (m, onset.shape[1], table.shape[0], table.shape[1], length, p), dev)
+            per = device_us(lambda: SYNTH_K.launch(*args), 5)
+            tiles[ds.THREADS * p] = sum(us / c for us, c in per.values()) / 1e3
+            check(torch.equal(out, want), f"device_synth with tiles of {ds.THREADS * p} differs")
+        synth_timings.append({
+            "M": m, "qpm": 120.0, "length": length, **row_t, "index_add_ms": lib,
+            "device_ms_by_tile": tiles,
+            "index_add_device_ms": sum(us for us, _ in lib_device.values()) / 1e3,
+            "index_add_elements": int(index.numel()), **bnd,
+            "bound_share_of_device_time": bnd["bound_ms"] / max(row_t["kernel_device_ms"], 1e-12),
+            "samples_per_thread": per_thread,
+            "blocks": m * -(-length // (ds.THREADS * per_thread)),
+            "dynamic_smem_bytes": ds.smem_bytes(table.shape[0], onset.shape[1])})
+        del event, within, index, source, flat, out
 
     # band_energies: the waveform entry (the front end's) against its plain
     # version on kit renders, M 1 and 64 at three tempos and the shapes phases
@@ -1787,7 +1841,8 @@ def phase_front_end_kernels(dev, rng) -> dict:
           "bars": {"band_energies": "1e-4 * max|ref| (an f32 FFT against the plain version's "
                                     "dense f32 products)",
                    "device_synth": "bit for bit"},
-          "device_synth": {"checks": synth_checks, "timings": synth_timings},
+          "device_synth": {"checks": synth_checks, "timings": synth_timings,
+                           "resources": kernel_resources("device_synth")},
           "band_energies": {"checks": band_checks, "timings": band_timings,
                             "frames_entry_timings": frame_timings}})
     return {"synth_err": worst_synth,
@@ -2329,6 +2384,16 @@ def ffn_tile_shapes(dev, args, dy, seed, rate) -> dict:
     return result
 
 
+def ln_grids(dev, rows: int, d: int) -> dict:
+    """The LN kernels' grids at one bf16 shape: blocks, backward warps a block
+    and the backward's tree of tickets."""
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    bwd = ln.ln_grid(rows, d, torch.bfloat16, sms, True)
+    return {"fwd_blocks": ln.ln_grid(rows, d, torch.bfloat16, sms, False), "bwd_blocks": bwd,
+            "bwd_warps_a_block": ln.bwd_warps(d, torch.bfloat16),
+            "bwd_ticket_tree": ln.ticket_tree(bwd)}
+
+
 def phase_ffn_ln(dev, rng) -> dict:
     """The three FFN kernels against ``ffn_reference`` and the two LN kernels
     against ``dropout_add_layernorm_reference`` on the card, with the same
@@ -2468,6 +2533,15 @@ def phase_ffn_ln(dev, rng) -> dict:
                                           ((k, n), (p, 3), (lb, n), (lb, n), (p, 3), (k, n)))
                 row[f"{key}_kernel_ms"], row[f"{key}_plain_ms"] = [k1, k2], [p1, p2]
                 row[f"{key}_library_ms"] = [l1, l2]
+            for key in ("ln_fwd", "ln_bwd"):
+                lib_device = device_us(fns[key][2], 5)
+                row[f"{key}_library_device_ms"] = sum(us for us, _ in lib_device.values()) / 1e3
+                row[f"{key}_library_device_launches"] = sum(c for _, c in lib_device.values())
+            # the LN backward is one launch, dscale and dbias summed inside it
+            one = device_us(fns["ln_bwd"][0], 5)
+            check(all("ln_bwd" in k for k in one) and sum(c for _, c in one.values()) <= 1.0 + 1e-9,
+                  f"an LN backward launched {one}, not one ln_bwd")
+            row["ln_bwd_device_launches_per_call"] = {k: c for k, (_, c) in one.items()}
             dev_k = device_us(lambda: [fns[key][0]() for key in fns], n=3)
             row["kernel_device_us"] = {k: us / c for k, (us, c) in dev_k.items()}
             row["kernel_device_launches"] = {k: c for k, (_, c) in dev_k.items()}
@@ -2486,7 +2560,14 @@ def phase_ffn_ln(dev, rng) -> dict:
                                  "shape's ~10,000)"},
           "library": "F.linear, relu, F.dropout, F.linear and autograd's backward; "
                      "F.layer_norm(x + F.dropout(y)) and autograd's backward",
-          "timings": timings})
+          "timings": timings,
+          "ln_resources": {"ptxas": kernel_resources("fused_ln"),
+                           "ln_bwd_dynamic_smem_bytes": {
+                               f"d {d} {str(t)[6:]}": ln.bwd_smem_bytes(d, t)
+                               for d in (72, 256, 1024) for t in (torch.float32, torch.bfloat16)},
+                           "grids_bf16": {f"rows {rows} d {d}": ln_grids(dev, rows, d)
+                                          for rows, d in ((1024, 256), (16384, 256),
+                                                          (4096, 1024))}}})
     return {"max_abs_err": worst, "timings": timings}
 
 
@@ -2573,6 +2654,15 @@ def phase_train_wide(dev, rng) -> dict:
     check(ln_counts == want, f"with fused_dropout_ln: launched {ln_counts}, expected {want}")
     check(all(np.isfinite(ln_losses)) and ln_losses[-1] < ln_losses[0],
           f"with fused_dropout_ln the loss did not fall: {ln_losses}")
+    # a step's device launches: one ln_bwd a backward site and nothing else of
+    # the LN's (dscale and dbias are summed inside it; the design before it
+    # launched a sum of its partials as well)
+    ln_step = step_breakdown(ln_bundle, batch, 48, count=("ln_fwd", "ln_bwd", "reduce"))
+    sites = 2 * n_layers
+    check(ln_step["launches_per_step_of"]["ln_fwd"] <= sites
+          and ln_step["launches_per_step_of"]["ln_bwd"] <= sites,
+          f"the LN path's step launched {ln_step['launches_per_step_of']}, more than "
+          f"{sites} of each LN kernel")
 
     # rematerialised: every layer's forward runs again in the backward
     remat_bundle, _, _ = initialize_model(lm_params(remat=True), dev)
@@ -2693,7 +2783,8 @@ def phase_train_wide(dev, rng) -> dict:
     emit({"phase": "train_wide_ffn", "config": LM_HP, "data": "1024 seeded synthetic loops",
           "epochs": epochs, "steps": steps, "seconds": seconds, "launches": counts,
           "losses": losses, "last_metrics": metrics[-1],
-          "fused_dropout_ln": {"launches": ln_counts, "losses": ln_losses},
+          "fused_dropout_ln": {"launches": ln_counts, "losses": ln_losses,
+                               "step_breakdown_batch_32": ln_step},
           "remat": {"launches": remat_counts, "losses": remat_losses,
                     "one_step_gradients_vs_unrematerialised": remat_err,
                     "step_memory_batch_512": peak},
@@ -2927,7 +3018,13 @@ def main() -> int:
                       f"and outputs, the library call nn.Transformer{which.title()}Layer"})
     band1, band64 = front["band_timings"]
     frames418, frames26752 = front["band_frame_timings"]
-    synth1, synth64 = front["synth_timings"]
+    synth1, synth64, synth256 = front["synth_timings"]
+
+    def synth_at(row):
+        return {"ms": float(np.mean(row["kernel_ms"])), "device_ms": row["kernel_device_ms"],
+                "plain_ms": float(np.mean(row["plain_ms"])), "bound_ms": row["bound_ms"],
+                "bound_by": row["bound_by"], "library_ms": float(np.mean(row["index_add_ms"])),
+                "library_device_ms": row["index_add_device_ms"]}
 
     def band_at(row, library_key):
         return {"N": row["N"], "ms": float(np.mean(row["kernel_ms"])),
@@ -2957,16 +3054,12 @@ def main() -> int:
         "name": "device_synth", "route": "cuda", "source": SYNTH_SOURCE,
         "replaces": SYNTH_TPU_KERNEL, "launches": hvo["launches"]["device_synth"],
         "launches_audio_augment_path": augmented["launches"]["device_synth"],
-        "max_abs_err": front["synth_err"], "ms": float(np.mean(synth1["kernel_ms"])),
-        "plain_ms": float(np.mean(synth1["plain_ms"])), "bound_ms": synth1["bound_ms"],
-        "bound_by": synth1["bound_by"], "library_ms": float(np.mean(synth1["index_add_ms"])),
-        "chunk_of_64": {"ms": float(np.mean(synth64["kernel_ms"])),
-                        "plain_ms": float(np.mean(synth64["plain_ms"])),
-                        "bound_ms": synth64["bound_ms"], "bound_by": synth64["bound_by"],
-                        "library_ms": float(np.mean(synth64["index_add_ms"]))},
-        "at": f"M 1 loop, 288 cells, length {synth1['length']} (120 bpm), float32, stream "
-              "time; library: one index_add_ over indices and sources prepared outside the "
-              "timed call"})
+        "max_abs_err": front["synth_err"], **synth_at(synth1),
+        "chunk_of_64": synth_at(synth64), "chunk_of_256": synth_at(synth256),
+        "at": f"M 1 loop, 288 cells, length {synth1['length']} (120 bpm), float32; ms: stream "
+              "time; device_ms: the profiler's per launch; library: one index_add_ over "
+              "indices and sources prepared outside the timed call; chunk_of_256: the audio "
+              "augment's chunk"})
     def ffn_row(rows, d, dtype):
         return next(t for t in ffn_ln["timings"]
                     if t["rows"] == rows and t["d"] == d and t["dtype"] == dtype)
@@ -2977,12 +3070,14 @@ def main() -> int:
                    if any(e in k for e in entries)) / 1000.0
 
     def at_shape(row, kname, entries, key):
+        library_device = ({"library_device_ms": row[f"{key}_library_device_ms"]}
+                          if key.startswith("ln_") else {})
         return {"ms": device_ms(row, *entries),
                 "stream_ms_of_the_call": float(np.mean(row[f"{key}_kernel_ms"])),
                 "plain_ms": float(np.mean(row[f"{key}_plain_ms"])),
                 "bound_ms": row["bounds"][kname]["bound_ms"],
                 "bound_by": row["bounds"][kname]["bound_by"],
-                "library_ms": float(np.mean(row[f"{key}_library_ms"]))}
+                "library_ms": float(np.mean(row[f"{key}_library_ms"])), **library_device}
 
     names = {**{k: (FFN_DEVICE_NAMES[k], "ffn_") for k in ffn.KERNELS},
              "fused_ln_fwd": (("ln_fwd",), "ln_"), "fused_ln_bwd": (("ln_bwd",), "ln_")}

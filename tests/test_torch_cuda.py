@@ -517,7 +517,7 @@ def test_band_energies_kernel_refuses_what_it_does_not_take(cuda):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("qpm", [60.0, 97.0, 120.0, 150.0, 200.0])
-@pytest.mark.parametrize("m", [1, 3, 64, 256])
+@pytest.mark.parametrize("m", [1, 3, 64, 65, 256])
 def test_synth_kernel_equals_plain_version_bit_for_bit(cuda, rng, m, qpm):
     params = mso.MSOParams()
     table, _, luts, _, lengths = device_synth.pack_tables([None], params.sr, device=cuda)
@@ -538,6 +538,27 @@ def test_synth_kernel_equals_plain_version_bit_for_bit(cuda, rng, m, qpm):
     assert torch.equal(got.cpu(), cpu)
     with pytest.raises(ValueError, match="one CUDA device"):
         device_synth.synth_events(onset.cpu(), row, gain, table, lengths, length)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [1, 65, 256])
+def test_synth_kernel_at_a_length_that_is_no_multiple_of_its_tile(cuda, rng, m):
+    """The last tile of every item is ragged: 2 samples past a multiple of
+    the largest tile (and so of every tile), events clipped to the waveform."""
+    table, _, luts, _, lengths = device_synth.pack_tables([None], 44100, device=cuda)
+    length = 22 * device_synth.THREADS * device_synth.PER_THREAD[-1] + 2
+    p = device_synth.samples_per_thread(
+        m, length, torch.cuda.get_device_properties(cuda).multi_processor_count)
+    assert length % (device_synth.THREADS * p) == 2
+    hvos = torch.from_numpy(_grids(rng, m)).to(cuda)
+    sps = torch.full((m,), 8.0, device=cuda)
+    zeros = torch.zeros(m, dtype=torch.int32, device=cuda)
+    onset, row, gain = device_synth._extract_events(hvos, sps, zeros, length, 44100.0, luts,
+                                                    zeros)
+    got = device_synth.synth_events(onset, row, gain, table, lengths, length)
+    torch.cuda.synchronize()
+    assert got.shape == (m, length) and bool(got.ne(0).any())
+    assert torch.equal(got, device_synth.synth_events_plain(onset, row, gain, table, length))
 
 
 @pytest.mark.cuda
@@ -713,7 +734,8 @@ def test_ffn_bf16_route_refuses_widths_that_are_no_multiple_of_8(cuda, rng):
 @pytest.mark.cuda
 @pytest.mark.parametrize("rate", [0.0, 0.1])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("shape", [(1024, 256), (4, 32, 1024), (100, 72)])
+@pytest.mark.parametrize("shape", [(1024, 256), (4, 32, 1024), (100, 72), (1, 256), (7, 256),
+                                   (4096, 1024), (64, 20)])
 def test_ln_kernels_match_the_plain_version(cuda, rng, shape, dtype, rate):
     n = lambda *s: torch.from_numpy(  # noqa: E731
         rng.standard_normal(s).astype(np.float32)).to(cuda)
@@ -737,6 +759,69 @@ def test_ln_kernels_match_the_plain_version(cuda, rng, shape, dtype, rate):
         rel = 1e-4 if dtype == torch.float32 else 2e-2
         assert float((got.float() - ref.float()).abs().max()) <= rel * max(
             1.0, float(ref.float().abs().max()))
+
+
+def _graph_kernels(graph: torch.cuda.CUDAGraph) -> list:
+    """The names of the kernel nodes of a captured graph (``keep_graph``),
+    read through the driver: every launch the capture saw, none lost."""
+    import ctypes
+
+    drv = ctypes.CDLL("libcuda.so.1")
+    raw = ctypes.c_void_p(graph.raw_cuda_graph())
+    count = ctypes.c_size_t(0)
+    assert drv.cuGraphGetNodes(raw, None, ctypes.byref(count)) == 0
+    nodes = (ctypes.c_void_p * count.value)()
+    assert drv.cuGraphGetNodes(raw, nodes, ctypes.byref(count)) == 0
+    names = []
+    for node in nodes:
+        kind = ctypes.c_int(-1)
+        assert drv.cuGraphNodeGetType(ctypes.c_void_p(node), ctypes.byref(kind)) == 0
+        if kind.value != 0:  # CU_GRAPH_NODE_TYPE_KERNEL
+            names.append(f"node type {kind.value}")
+            continue
+        params = (ctypes.c_void_p * 16)()  # CUDA_KERNEL_NODE_PARAMS: the function first
+        name = ctypes.c_char_p()
+        found = (drv.cuGraphKernelNodeGetParams(ctypes.c_void_p(node), params) == 0
+                 and params[0] and hasattr(drv, "cuFuncGetName")
+                 and drv.cuFuncGetName(ctypes.byref(name), ctypes.c_void_p(params[0])) == 0)
+        names.append(name.value.decode() if found else "kernel (name not readable)")
+    return names
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows, d", [(7, 256), (16384, 256), (4096, 1024)])
+def test_ln_backward_is_one_launch_and_reruns_bit_identical(cuda, rng, rows, d):
+    """One kernel launch a backward, dscale and dbias included (no second
+    launch sums the partials): a captured backward holds one kernel node,
+    `ln_bwd`. Back-to-back launches and the graph's replays equal the first
+    bit for bit, so the last blocks left the tickets at zero; a launch on
+    another stream takes its own tickets and gives the same result."""
+    n = lambda *s: torch.from_numpy(  # noqa: E731
+        rng.standard_normal(s).astype(np.float32)).to(cuda)
+    x, y, g = (n(rows, d).bfloat16() for _ in range(3))
+    scale, seed = 1 + 0.1 * n(d), torch.tensor([3], dtype=torch.int32, device=cuda)
+    first = fused_ln.ln_backward(g, x, y, scale, seed, 0.16)
+    side = torch.cuda.Stream(cuda)
+    side.wait_stream(torch.cuda.current_stream(cuda))
+    with torch.cuda.stream(side):
+        runs = [fused_ln.ln_backward(g, x, y, scale, seed, 0.16)]  # side's tickets made here
+    torch.cuda.synchronize()
+    before = fused_ln.KERNELS["fused_ln_bwd"].launches
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(graph, stream=side, capture_error_mode="relaxed"):
+        captured = fused_ln.ln_backward(g, x, y, scale, seed, 0.16)
+    assert fused_ln.KERNELS["fused_ln_bwd"].launches == before + 1
+    names = _graph_kernels(graph)
+    assert len(names) == 1 and ("ln_bwd" in names[0] or "not readable" in names[0]), names
+    for _ in range(2):
+        graph.replay()
+        torch.cuda.synchronize()
+        runs.append([t.clone() for t in captured])
+    runs += [fused_ln.ln_backward(g, x, y, scale, seed, 0.16) for _ in range(3)]
+    torch.cuda.synchronize()
+    for run in runs:
+        assert all(torch.equal(a, b) for a, b in zip(first, run))
+    assert all(int(t.abs().max()) == 0 for t in fused_ln._tickets.values())
 
 
 @pytest.mark.cuda

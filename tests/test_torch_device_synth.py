@@ -1,7 +1,12 @@
 """The port's drum synthesis against the JAX package's: the procedural kit,
 the packed table, event extraction, the plain synthesizer against the Pallas
-kernel (interpret mode), the XLA scan and both host mixers, and the whole
-front end (grids → MSO) by both routes."""
+kernel (interpret mode), the XLA scan and both host mixers, the whole front
+end (grids → MSO) by both routes, the kernel's tile chooser and its C entry
+point against its ctypes declaration."""
+
+import ctypes
+import re
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -165,6 +170,44 @@ def test_synth_events_refuses_mixed_devices_and_bad_arguments():
     meta = torch.zeros((2, 8), device="meta")
     with pytest.raises(ValueError, match="one CUDA device"):
         D.synth_events(onset, onset, gain, meta, lengths, 16)
+
+
+@pytest.mark.parametrize("m", [1, 3, 6, 40, 64, 65, 256, 65535])
+@pytest.mark.parametrize("qpm", [60.0, 120.0, 200.0])
+def test_tiles_cover_the_waveform_and_the_grid_the_card(m, qpm):
+    """The kernel's tile (THREADS · p samples) covers ``length`` with no empty
+    block; one loop's grid still covers the 132 SMs of an H100; a chunk of 64
+    or 256 takes the largest tile (4,096 samples)."""
+    sms = 132
+    length = M.mso_waveform_length(32, qpm / 15.0, M.MSOParams())
+    p = D.samples_per_thread(m, length, sms)
+    assert p in D.PER_THREAD
+    tile = D.THREADS * p
+    tiles = -(-length // tile)
+    assert tiles * tile >= length > (tiles - 1) * tile
+    assert m * tiles >= sms  # at M 1 too
+    if p != D.PER_THREAD[0]:
+        assert m * tiles >= 4 * sms  # a larger tile only where the grid keeps 4 blocks an SM
+    if p != D.PER_THREAD[-1]:
+        assert m * -(-length // (2 * tile)) < 4 * sms  # ... and the largest such
+    if m >= 64:
+        assert p == D.PER_THREAD[-1]
+
+
+def test_shared_memory_and_entry_point():
+    """A block's shared memory (lengths and its kept events, 4.6 KB at 288
+    cells and 9 rows) and the C entry point of csrc/device_synth.cu against
+    its ctypes declaration, the stream last."""
+    assert D.smem_bytes(9, 288) == 4 * (9 + 4 * 288) <= D.MAX_SMEM
+    assert D.smem_bytes(16, 3068) <= D.MAX_SMEM < D.smem_bytes(16, 3069)
+    src = (Path(D.__file__).parents[1] / "csrc" / "device_synth.cu").read_text()
+    (params,) = re.findall(r"^int tgi_device_synth\(([^)]*)\)", src, re.MULTILINE)
+    params = [" ".join(p.split()) for p in params.split(",")]
+    assert params[-1] == "void* stream"
+    kinds = {ctypes.c_void_p: ("const void*", "void*"), ctypes.c_int: ("int",)}
+    assert len(params) - 1 == len(D.SIGNATURE)
+    for p, t in zip(params[:-1], D.SIGNATURE):
+        assert p.rsplit(" ", 1)[0] in kinds[t], p
 
 
 def test_device_synth_matches_both_host_mixers(tables):

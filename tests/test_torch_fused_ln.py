@@ -1,7 +1,13 @@
 """The port's fused dropout + add + LayerNorm wrapper (ops/fused_ln.py) on the
 CPU, where it runs its plain version, against the JAX package's Pallas kernel
 under its interpreter and its plain reference (rate 0), its exact-rate word
-mask, the Function's hand-written backward against autograd, and the gate."""
+mask, the Function's hand-written backward against autograd, the gate, the
+grid and lane layout choosers, and each C entry point against its ctypes
+declaration."""
+
+import ctypes
+import re
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -15,6 +21,7 @@ from transformergrooveinfilling_tpu.ops.fused_ln import (
     dropout_add_layernorm_reference as jax_reference,
 )
 from transformergrooveinfilling_tpu_torch.ops import fused_ln as ln
+from transformergrooveinfilling_tpu_torch.ops.fused_layer import MAX_SMEM_BYTES
 
 D = 256
 SEED = torch.tensor([11], dtype=torch.int32)
@@ -148,14 +155,84 @@ def test_leading_axes_and_dtype():
 
 @pytest.mark.parametrize("d, dtype, ok", [
     (256, torch.float32, True), (1024, torch.bfloat16, True), (72, torch.float32, True),
-    (2420, torch.float32, True), (2424, torch.float32, False), (258, torch.float32, False),
-    (256, torch.float16, False)])
+    (2420, torch.float32, False), (2424, torch.float32, False), (258, torch.float32, False),
+    (256, torch.float16, False), (2048, torch.float32, False), (2048, torch.bfloat16, True),
+    (2056, torch.bfloat16, False), (1024, torch.float32, True), (1028, torch.float32, False),
+    (1020, torch.bfloat16, True), (1028, torch.bfloat16, False), (72, torch.bfloat16, True),
+    (20, torch.bfloat16, True), (16, torch.float32, True), (4, torch.bfloat16, True),
+    (0, torch.float32, False)])
 def test_gate(d, dtype, ok):
+    """d a multiple of 4, at most 8 chunks a lane: up to 2,048 in bf16 with
+    chunks of 8, else up to 1,024; a bf16 width that is no multiple of 8 (20,
+    1,020) takes the 8-byte chunks, not a refusal."""
     assert ln.supports_fused_ln(d, dtype) is ok
 
 
-def test_rows_per_warp_keeps_about_256_blocks():
-    assert [ln.rows_per_warp(r) for r in (1, 1024, 4096, 16384, 10**6)] == [1, 1, 2, 8, 8]
+@pytest.mark.parametrize("d, dtype, width, values", [
+    (256, torch.bfloat16, 8, 8), (1024, torch.bfloat16, 8, 32), (256, torch.float32, 4, 8),
+    (1024, torch.float32, 4, 32), (72, torch.float32, 4, 4), (72, torch.bfloat16, 8, 8),
+    (20, torch.bfloat16, 4, 4), (512, torch.bfloat16, 8, 16), (2048, torch.bfloat16, 8, 64),
+    (1020, torch.bfloat16, 4, 32)])
+def test_lane_layout_mirrors_the_kernels_instances(d, dtype, width, values):
+    """A lane's chunk and its values of a row (chunks rounded up to a power of
+    2, as csrc/fused_ln.cu's NC, at most 8), which size the backward's shared
+    memory."""
+    assert ln.chunk_width(d, dtype) == width and ln.lane_values(d, dtype) == values
+    per_lane = values // width  # chunks a lane, a power of 2
+    assert per_lane & (per_lane - 1) == 0 and per_lane <= ln.MAX_CHUNKS
+    assert (per_lane // 2) * width * 32 < d <= values * 32
+    assert ln.bwd_smem_bytes(d, dtype) == 4 * 2 * ln.bwd_warps(d, dtype) * 32 * values
+    assert ln.bwd_smem_bytes(d, dtype) <= MAX_SMEM_BYTES
+
+
+@pytest.mark.parametrize("rows", [1, 7, 8, 9, 1024, 2112, 4096, 16384, 10**6])
+@pytest.mark.parametrize("d, dtype, bwd_warps", [(256, torch.bfloat16, 24),
+                                                 (1024, torch.bfloat16, 16),
+                                                 (2048, torch.bfloat16, 8),
+                                                 (72, torch.float32, 24)])
+def test_grid_is_one_wave_that_gives_every_warp_rows(rows, d, dtype, bwd_warps):
+    """One wave: the forward 2 blocks of 8 warps an SM, the backward one block
+    an SM of 24 warps (rows of up to 16 values a lane), 16 (up to 32) or 8;
+    no warp without a row where the rows are fewer than the warps."""
+    sms = 132
+    assert ln.bwd_warps(d, dtype) == bwd_warps
+    for backward, per_block, cap in ((False, ln.WARPS, 2 * sms), (True, bwd_warps, sms)):
+        blocks = ln.ln_grid(rows, d, dtype, sms, backward)
+        warps = blocks * per_block
+        assert 1 <= blocks <= cap
+        assert blocks == cap or warps >= rows > warps - per_block
+        # the kernels' equal, contiguous shares: every row once, within one row
+        shares = [(w + 1) * rows // warps - w * rows // warps for w in range(warps)]
+        assert sum(shares) == rows and max(shares) - min(shares) <= 1
+
+
+@pytest.mark.parametrize("blocks", [1, 2, 16, 17, 64, 132, 256, 257, 264, 4096])
+def test_ticket_tree_adds_every_partial_up_to_one_root(blocks):
+    tree = ln.ticket_tree(blocks)
+    assert (tree == []) == (blocks == 1)
+    below = blocks
+    for nodes in tree:
+        assert nodes == -(-below // ln.FAN_IN)  # each node takes 16 below it, the last the rest
+        below = nodes
+    assert below == 1 and sum(tree) <= ln.TICKETS
+    assert ln.ticket_tree(132) == [9, 1]  # an H100's one block an SM: 2 levels
+
+
+def test_entry_points_declare_every_argument():
+    """Each C entry point of csrc/fused_ln.cu takes what SIGNATURES declares
+    for ctypes, and the stream last: a missing argument would shift every
+    later one."""
+    src = (Path(ln.__file__).parents[1] / "csrc" / "fused_ln.cu").read_text()
+    kinds = {ctypes.c_void_p: "void*", ctypes.c_int: "int", ctypes.c_uint: "unsigned int",
+             ctypes.c_float: "float"}
+    found = {}
+    for name, params in re.findall(r"^int (tgi_ln_\w+)\(([^)]*)\)", src, re.MULTILINE):
+        params = [" ".join(p.split()) for p in params.split(",")]
+        assert params[-1] == "void* stream", name
+        found[name] = [p.rsplit(" ", 1)[0] for p in params[:-1]]
+    assert set(found) == set(ln.SIGNATURES) == {k.entry for k in ln.KERNELS.values()}
+    for name, params in found.items():
+        assert params == [kinds[t] for t in ln.SIGNATURES[name]], name
 
 
 def test_cuda_tensors_never_take_the_plain_version():

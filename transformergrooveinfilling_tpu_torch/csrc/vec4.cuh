@@ -1,6 +1,6 @@
-// Helpers shared by the row-wise training kernels (fused_ln.cu, fused_ffn.cu):
-// 4-element stores in the storage dtype (the counterpart of layer_common.cuh's
-// load4) and the opt-in to more than 48 KB of dynamic shared memory.
+// Helpers of fused_ffn.cu's CUDA-core kernels: 4-element stores in the storage
+// dtype (the counterpart of layer_common.cuh's load4) and the opt-in to more
+// than 48 KB of dynamic shared memory.
 
 #pragma once
 

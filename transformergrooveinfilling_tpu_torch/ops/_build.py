@@ -17,6 +17,7 @@ Nothing is built at import time, and nothing here falls back: a missing
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import re
@@ -106,6 +107,16 @@ class CountedKernel:
                                f"{getattr(lib, self.error_string)(rc).decode()} (cudaError {rc})")
         with self._count_lock:
             self.launches += 1
+
+
+def sm_count(device) -> int:
+    """Streaming multiprocessors of the CUDA ``device`` (cached per card)."""
+    return _sm_count(device.index if device.index is not None else torch.cuda.current_device())
+
+
+@functools.cache
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def build_all(names) -> None:

@@ -18,25 +18,32 @@ the JAX package's scan); the kernel rounds the product and the sum separately
 and equals it bit for bit.
 
 What bounds it on the H100: memory — the waveforms written once (47 MB for 64
-loops at 120 bpm) while the sample table (2.2 MB for the procedural kit) stays
-in L2. On an NVIDIA H100 80GB HBM3 at 700 W (``chip_smoke.py``, PERF.md) 64
-loops take 0.075 ms, 20 % of the 0.015 ms the memory rate allows (one
-``index_add_`` over prepared indices: 0.83 ms); one loop takes 5 µs on the
-device and 23–52 µs per call, the host's launch cost.
+loops at 120 bpm), and, since every (event, sample) pair reads one value of
+the 2.2 MB sample table, some 420 MB of L2 reads for the same 64 loops, which
+no tiling shares. The tile is chosen here (:func:`samples_per_thread`): 512
+samples a block for one loop, so the grid covers the card; 4,096 for a chunk
+of 64 or 256, so a block reads its item's events once per 16 KB of output.
+Inside a block the events are read 4 at a time and kept by one block-wide
+scan; the table loads of 4 or 8 kept events are issued before their adds. On
+an NVIDIA H100 80GB HBM3 at 700 W (``chip_smoke.py`` phase 10; PERF.md §6)
+one loop at 120 bpm takes 4.3 µs of device time, 64 loops 65 µs and 256
+loops 215 µs, against 0.9, 14.8 and 57 µs of bytes bound; one ``index_add_``
+over prepared indices takes 7.3, 826 and 3,349 µs.
 
 Limits, derived for this card rather than carried over: the TPU kernel pads
 every sample to a multiple of 128 lanes and caps a call at 64 items by its
 scalar-memory budget. Here the table rows are as long as the longest sample
-and no longer (threads read single floats), the event list of an item is
-``16·T·V`` bytes of shared memory (4.6 KB at 288 cells; the kernel takes up to
-48 KB, 3,072 cells), and a call takes up to 65,535 items (``gridDim.y``).
-``chunk_size`` therefore only bounds memory: a chunk holds its waveforms
-(``4·L`` bytes per item, 0.74 MB at 120 bpm) and its windowed frames
-(``4·1024`` bytes per frame, 1.7 MB per item; 312 MB peak for a chunk of 64).
-The default, :data:`DEFAULT_CHUNK` = 256, is the fastest of 64, 128 and 256
-measured on an NVIDIA H100 80GB HBM3 at 700 W over 512 loops at 120 bpm
-(kernel route 21,900 / 26,300–27,100 / 30,100–30,300 loops/s; PERF.md): the
-~70 eager launches around the two kernels are paid once per chunk.
+and no longer (threads read single floats), a block keeps ``lengths`` and the
+events that overlap its tile in shared memory (``4·(rows + 4·events)`` bytes,
+4.6 KB at 9 rows and 288 cells; up to 48 KB), and a call takes up to 65,535
+items (``gridDim.y``). ``chunk_size`` therefore only bounds memory: a chunk
+holds its waveforms (``4·L`` bytes per item, 0.74 MB at 120 bpm) and its
+windowed frames (``4·1024`` bytes per frame, 1.7 MB per item; 312 MB peak for
+a chunk of 64). The default, :data:`DEFAULT_CHUNK` = 256, is the fastest of
+64, 128 and 256 measured on an NVIDIA H100 80GB HBM3 at 700 W over 512 loops
+at 120 bpm (kernel route 21,900 / 26,300–27,100 / 30,100–30,300 loops/s;
+PERF.md): the ~70 eager launches around the two kernels are paid once per
+chunk.
 
 Numerics follow the JAX device route: onsets in f32, in the same expression
 order, truncated; velocities rounded half to even. The host mixer
@@ -60,7 +67,7 @@ from . import _build
 
 DEFAULT_CHUNK = 256        # items per front-end call (see the module docstring)
 MAX_ITEMS = 65535          # gridDim.y
-MAX_EVENT_SMEM = 48 * 1024  # static limit of dynamic shared memory, 16 B per event
+MAX_SMEM = 48 * 1024       # dynamic shared memory without opting in: lengths + 16 B an event
 
 _table_cache: dict = {}
 
@@ -154,11 +161,38 @@ def synth_events_plain(onset, row, gain, table, length: int) -> torch.Tensor:
     return y[:, :length].contiguous()
 
 
+THREADS = 256  # csrc/device_synth.cu::kThreads
+PER_THREAD = (2, 4, 8, 16)  # the kernel's tiles: THREADS · p samples a block
+
+
+def samples_per_thread(m: int, length: int, sms: int) -> int:
+    """Samples each thread of the kernel owns, so that a block's tile is
+    ``THREADS`` times as many: the largest that still gives the grid (tiles ×
+    items) 4 blocks an SM, else the smallest. One loop at 120 bpm takes tiles
+    of 512 samples (360 blocks, the card covered); a chunk of 64 or 256 loops
+    tiles of 4,096, so each block reads its item's events once per 16 KB of
+    output (``chip_smoke.py`` phase 10 times every tile: this pick was the
+    fastest at M 1, 64 and 256 on an H100; PERF.md §6)."""
+    for p in reversed(PER_THREAD):
+        if m * -(-length // (THREADS * p)) >= 4 * sms:
+            return p
+    return PER_THREAD[0]
+
+
+def smem_bytes(n_rows: int, n_events: int) -> int:
+    """A block's dynamic shared memory: ``lengths`` and its kept events (onset,
+    length, row, gain)."""
+    return 4 * (n_rows + 4 * n_events)
+
+
+# the entry point's arguments before the stream, as ctypes declares them
+SIGNATURE = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6
+
+
 @functools.cache
 def _library():
     lib = _build.load_library("device_synth")
-    lib.tgi_device_synth.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [
-        ctypes.c_void_p]
+    lib.tgi_device_synth.argtypes = SIGNATURE + [ctypes.c_void_p]
     lib.tgi_device_synth.restype = ctypes.c_int
     lib.tgi_cuda_error_string.argtypes = [ctypes.c_int]
     lib.tgi_cuda_error_string.restype = ctypes.c_char_p
@@ -192,15 +226,18 @@ def synth_events(onset, row, gain, table, lengths, length: int) -> torch.Tensor:
             or lengths.shape != table.shape[:1]:
         raise ValueError("device_synth kernel takes (M, E) events, an (R, S_max) table and (R,) "
                          f"lengths; got {[tuple(t.shape) for t in tensors]}")
-    if not (1 <= m <= MAX_ITEMS) or not (1 <= n_events <= MAX_EVENT_SMEM // 16) or length < 1:
-        raise ValueError(f"device_synth kernel takes 1..{MAX_ITEMS} items, 1.."
-                         f"{MAX_EVENT_SMEM // 16} events per item and length ≥ 1; got M {m}, "
-                         f"E {n_events}, length {length}")
+    n_rows = table.shape[0]
+    if not (1 <= m <= MAX_ITEMS) or n_events < 1 or length < 1 \
+            or smem_bytes(n_rows, n_events) > MAX_SMEM:
+        raise ValueError(f"device_synth kernel takes 1..{MAX_ITEMS} items, at least one event "
+                         f"and sample, and 4·(rows + 4·events) ≤ {MAX_SMEM} bytes of shared "
+                         f"memory; got M {m}, E {n_events}, R {n_rows}, length {length}")
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("device_synth kernel takes contiguous tensors")
     out = torch.empty((m, length), dtype=torch.float32, device=table.device)
-    KERNEL.launch((onset, row, gain, table, lengths, out), (m, n_events, table.shape[1], length),
-                  table.device)
+    KERNEL.launch((onset, row, gain, table, lengths, out),
+                  (m, n_events, n_rows, table.shape[1], length,
+                   samples_per_thread(m, length, _build.sm_count(table.device))), table.device)
     return out
 
 

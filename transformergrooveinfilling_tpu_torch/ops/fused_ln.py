@@ -9,19 +9,27 @@ fused_ln.py`` under ``dropout_add_layernorm`` (forward ``_run_fwd`` →
 
 in f32 with the two-pass variance, and its backward, which draws the mask
 again from the seed instead of loading a stored one: the mask never reaches
-device memory in either direction. The kernels are ``csrc/fused_ln.cu``: a
-forward kernel (one warp per row) and a backward kernel that writes dx, dy and
-one partial of (dscale | dbias) per block; the partials are summed here, as the
-JAX code sums its per-block partials outside its Pallas call. No float
-atomics, so two runs with one seed agree bit for bit.
+device memory in either direction. The kernels are ``csrc/fused_ln.cu``, one
+launch each way. A warp holds its rows in registers (each lane whole 16-byte
+chunks: 8 bf16 or 4 f32 values; 8 bytes where a bf16 width is no multiple of
+8), loads several rows before their reductions, and takes an equal share of
+the rows of a grid that is one wave (:func:`ln_grid`). The backward writes dx
+and dy and sums dscale and dbias in the same launch: each block adds its
+warps' sums in warp order into one partial, and a tree of integer tickets
+(:func:`ticket_tree`: the last of 16 blocks to finish adds their partials,
+the last of 16 such nodes theirs) gives the root the totals, all in a fixed
+order, with no float atomics; two runs with one seed agree bit for bit. The
+tickets are a buffer per (device, stream) that this module caches and the
+kernel leaves at zero after every launch; two backward calls on two streams
+at once each take their own, so they cannot corrupt each other's sums.
 
 What bounds it on the H100: bytes (3 values an element forward, 5 backward,
-against some 20 f32 operations). The design moves each value once, 4 elements a
-lane, and draws one Philox call per 4 elements. On an NVIDIA H100 80GB HBM3 at
-700 W (chip_smoke.py, phase 17; PERF.md), bf16: the forward kernel 14 µs and
-the backward 36 µs of device time at rows 16,384 × d 256 (53 % and 35 % of the
-bytes bound), 3.5 and 4.8 µs at rows 1,024; a call is 27-95 µs on the stream,
-most of it this wrapper's host work.
+against some 20 f32 operations). On an NVIDIA H100 80GB HBM3 at 700 W
+(``chip_smoke.py`` phase 17; PERF.md §6), bf16: the forward 12.1 µs and the
+backward 22.2 µs of device time at rows 16,384 × d 256 (62 % and 56 % of the
+bytes bound), 13.5 and 26.5 µs at rows 4,096 × d 1,024; at rows 1,024 3.5 and
+11.9 µs, set by latency. ``F.layer_norm(x + F.dropout(y))`` takes 38.3 µs and
+its autograd backward 72.0 µs at rows 16,384.
 
 Dropout here is the TPU kernel's exact-rate rule, not the layers' 8-bit one:
 an element is kept when its 32-bit word is at least ``int(rate·2³²)`` and
@@ -37,14 +45,15 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
+import threading
 
 import torch
 
 from . import _build
-from .fused_layer import KERNEL_DTYPES, LN_EPS, MAX_SMEM_BYTES, _U32, philox4x32
+from .fused_layer import KERNEL_DTYPES, LN_EPS, _U32, philox4x32
 
 SITE_LN = 4  # the word stream's site, apart from the layer kernels' 0-3
-WARPS = 8  # rows a block of the kernels works on at a time
+WARPS = 8  # warps a forward block has
 
 
 # ---------------------------------------------------------------- masks
@@ -118,28 +127,70 @@ def backward_formulas(g, x, y, scale, seed, rate: float):
             gf.reshape(-1, d).sum(0))
 
 
-# ---------------------------------------------------------------- gate
+# ---------------------------------------------------------------- gate and grid
 
-def bwd_smem_bytes(d: int) -> int:
-    """Backward block: a, Σ g·zhat and Σ g, one f32 row of each per warp (the
-    forward block holds a alone)."""
-    return 4 * 3 * WARPS * d
+MAX_CHUNKS = 8  # csrc/fused_ln.cu::kMaxChunks: a lane's chunks of a row, at most
+FAN_IN = 16  # csrc/fused_ln.cu::kFan: partials a node of the backward's tree adds
+
+
+def chunk_width(d: int, dtype) -> int:
+    """Columns a lane loads with one instruction: 16 bytes (8 bf16, 4 f32), or
+    8 bytes (4 bf16) where a bf16 width is a multiple of 4 but not of 8."""
+    return 8 if dtype == torch.bfloat16 and d % 8 == 0 else 4
+
+
+def lane_values(d: int, dtype) -> int:
+    """f32 values of one row a lane holds in registers: its chunks (l, l + 32,
+    ...) rounded up to a power of 2, as the kernels' template instances are."""
+    per_lane = -(-(d // chunk_width(d, dtype)) // 32)
+    return chunk_width(d, dtype) * (1 << (per_lane - 1).bit_length())
 
 
 def supports_fused_ln(d_model: int, dtype=torch.float32) -> bool:
-    """Whether ``csrc/fused_ln.cu`` takes this width: f32 or bf16 storage,
-    columns read 4 at a time (d a multiple of 4), and the backward block's
-    three f32 rows per warp inside the 232,448 bytes of shared memory a block
-    may have on Hopper (d ≤ 2,420). The TPU kernel's blocks of 256 rows are
-    not carried over: any row count is taken, without padding."""
+    """Whether ``csrc/fused_ln.cu`` takes this width: f32 or bf16 storage, d a
+    multiple of 4 (a lane's chunk is 4 or 8 columns; a bf16 width that is no
+    multiple of 8 takes 8-byte chunks), and at most 8 chunks a lane, since a
+    lane holds its chunks of a row in registers: d ≤ 2,048 in bf16 (16-byte
+    chunks of 8), else d ≤ 1,024 (chunks of 4): beyond that a backward row
+    would not fit a thread's registers without spilling. Every width of the repo's configs is inside (16-512 in the sweeps, 256,
+    1,024; 72 in the card tests). The TPU kernel's blocks of 256 rows are not
+    carried over: any row count is taken, without padding."""
     return (dtype in KERNEL_DTYPES and d_model >= 4 and d_model % 4 == 0
-            and bwd_smem_bytes(d_model) <= MAX_SMEM_BYTES)
+            and d_model <= 32 * MAX_CHUNKS * chunk_width(d_model, dtype))
 
 
-def rows_per_warp(rows: int) -> int:
-    """Rows each warp of the backward kernel takes one after the other: about
-    256 blocks at any size, so that few partials are written."""
-    return max(1, min(8, rows // (WARPS * 256)))
+def bwd_warps(d: int, dtype) -> int:
+    """Warps of a backward block, one block an SM (``fused_ln.cu::bwd_warps``):
+    24 while a lane holds at most 16 values of a row, 16 up to 32, else 8, so
+    that the launch bounds leave each thread the registers its row needs."""
+    values = lane_values(d, dtype)
+    return 24 if values <= 16 else 16 if values <= 32 else 8
+
+
+def ln_grid(rows: int, d: int, dtype, sms: int, backward: bool) -> int:
+    """Blocks of a launch, one wave: the forward 2 blocks of 8 warps an SM, the
+    backward one block of ``bwd_warps`` an SM (its partials feed the tree of
+    tickets, then 2 levels deep), or a warp a row where the rows are fewer.
+    Each warp takes an equal, contiguous share of the rows."""
+    warps = bwd_warps(d, dtype) if backward else WARPS
+    return max(1, min(-(-rows // warps), sms if backward else 2 * sms))
+
+
+def ticket_tree(blocks: int) -> list[int]:
+    """Nodes of each level of the backward's tree above the blocks: 16 blocks
+    a node, 16 nodes a node of the next level, up to the root (none for one
+    block, which writes dscale and dbias itself). Each node has a ticket and,
+    but the root, a partial."""
+    levels = []
+    while (levels[-1] if levels else blocks) > 1:
+        levels.append(-(-(levels[-1] if levels else blocks) // FAN_IN))
+    return levels
+
+
+def bwd_smem_bytes(d: int, dtype) -> int:
+    """Backward block: each warp's Σ g·zhat and Σ g over its lanes' padded
+    chunks, f32 (the forward uses no shared memory)."""
+    return 4 * 2 * bwd_warps(d, dtype) * 32 * lane_values(d, dtype)
 
 
 # ---------------------------------------------------------------- kernels
@@ -148,16 +199,44 @@ def rows_per_warp(rows: int) -> int:
 def _kernels():
     lib = _build.load_library("fused_ln")
     p, i, u, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctypes.c_float
-    lib.tgi_ln_fwd.argtypes = [p] * 6 + [i, i, u, f, i, i, p]
-    lib.tgi_ln_bwd.argtypes = [p] * 8 + [i, i, u, f, i, i, i, p]
+    lib.tgi_ln_fwd.argtypes = SIGNATURES["tgi_ln_fwd"] + [p]
+    lib.tgi_ln_bwd.argtypes = SIGNATURES["tgi_ln_bwd"] + [p]
     lib.tgi_ln_fwd.restype = lib.tgi_ln_bwd.restype = i
     lib.tgi_ln_error_string.argtypes = [i]
     lib.tgi_ln_error_string.restype = ctypes.c_char_p
     return lib
 
 
+# each entry point's arguments before the stream, as ctypes declares them
+SIGNATURES = {
+    "tgi_ln_fwd": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 2 + [ctypes.c_uint, ctypes.c_float]
+    + [ctypes.c_int] * 3,
+    "tgi_ln_bwd": [ctypes.c_void_p] * 10 + [ctypes.c_int] * 2 + [ctypes.c_uint, ctypes.c_float]
+    + [ctypes.c_int] * 3,
+}
 KERNELS = {"fused_ln_fwd": _build.CountedKernel(_kernels, "tgi_ln_fwd", "tgi_ln_error_string"),
            "fused_ln_bwd": _build.CountedKernel(_kernels, "tgi_ln_bwd", "tgi_ln_error_string")}
+
+TICKETS = 1024  # counters a ticket buffer holds: the nodes of a tree of up to 15,000 blocks
+_tickets: dict = {}
+_tickets_lock = threading.Lock()
+
+
+def _ticket_buffer(device) -> torch.Tensor:
+    """The backward's ticket counters for ``device``'s current stream, zeroed
+    once (the kernel leaves them zero after every launch). One buffer a
+    stream: two backward launches on one stream run one after the other, and
+    two streams never share a counter, so launches on two streams at once
+    cannot take each other's tickets."""
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    key = (index, torch._C._cuda_getCurrentRawStream(index))
+    with _tickets_lock:
+        buf = _tickets.get(key)
+        if buf is None:
+            buf = _tickets[key] = torch.zeros(TICKETS, dtype=torch.int32, device=device)
+        return buf
+
+
 
 
 def _check(rows, vectors, seed) -> None:
@@ -182,37 +261,47 @@ def _check(rows, vectors, seed) -> None:
         raise ValueError("fused_ln kernels take a one-element int32 seed")
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("fused_ln kernels take contiguous tensors")
+    align = chunk_width(d, x.dtype) * x.element_size()
+    if any(t.data_ptr() % align for t in rows) or any(v.data_ptr() % 16 for v in vectors):
+        raise ValueError(f"fused_ln kernels take rows aligned to {align} bytes and scale and "
+                         "bias to 16")
 
 
 def _scalars(x, rate: float):
     d = x.shape[-1]
-    return (x.numel() // d, d, keep_threshold(rate), 1.0 / (1.0 - rate), int(rate > 0.0))
+    return (x.numel() // d, d, keep_threshold(rate), 1.0 / (1.0 - rate), int(rate > 0.0),
+            int(x.dtype == torch.bfloat16))
 
 
 def ln_forward(x, y, scale, bias, seed, rate: float):
     """Launch the forward kernel."""
     _check((x, y), (scale, bias), seed)
     out = torch.empty_like(x)
+    rows, d = x.numel() // x.shape[-1], x.shape[-1]
+    blocks = ln_grid(rows, d, x.dtype, _build.sm_count(x.device), False)
     KERNELS["fused_ln_fwd"].launch((x, y, scale, bias, seed, out),
-                                   (*_scalars(x, rate), int(x.dtype == torch.bfloat16)), x.device)
+                                   (*_scalars(x, rate), blocks), x.device)
     return out
 
 
 def ln_backward(g, x, y, scale, seed, rate: float):
-    """Launch the backward kernel and sum its partials: ``(dx, dy, dscale,
-    dbias)``."""
+    """Launch the backward kernel, one launch in all: ``(dx, dy, dscale,
+    dbias)``, dscale and dbias summed inside it."""
     g = g.contiguous()
     _check((x, y, g), (scale,), seed)
     rows, d = x.numel() // x.shape[-1], x.shape[-1]
-    rpw = rows_per_warp(rows)
-    blocks = -(-rows // (WARPS * rpw))
+    blocks = ln_grid(rows, d, x.dtype, _build.sm_count(x.device), True)
+    tree = ticket_tree(blocks)
+    if sum(tree) > TICKETS:
+        raise ValueError(f"fused_ln backward: {blocks} blocks need {sum(tree)} tickets")
     dx, dy = torch.empty_like(x), torch.empty_like(y)
-    partials = torch.empty((blocks, 2, d), device=x.device, dtype=torch.float32)
-    KERNELS["fused_ln_bwd"].launch((x, y, scale, seed, g, dx, dy, partials),
-                                   (*_scalars(x, rate), rpw, int(x.dtype == torch.bfloat16)),
-                                   x.device)
-    dscale, dbias = partials.sum(0)
-    return dx, dy, dscale, dbias
+    dparams = torch.empty((2, d), device=x.device, dtype=torch.float32)
+    partials = torch.empty((max(1, blocks + sum(tree[:-1])), 2, d), device=x.device,
+                           dtype=torch.float32)
+    KERNELS["fused_ln_bwd"].launch(
+        (x, y, scale, seed, g, dx, dy, dparams, partials, _ticket_buffer(x.device)),
+        (*_scalars(x, rate), blocks), x.device)
+    return dx, dy, dparams[0], dparams[1]
 
 
 class _DropoutAddLayerNorm(torch.autograd.Function):
