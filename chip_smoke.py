@@ -36,8 +36,9 @@ then non-zero):
             same card and the plain path on the CPU; then again in bf16.
 5. http     POST /infill, GET /healthz, a malformed body (400), and 8
             concurrent clients of a coalescing server against the direct path.
-6. demo     the in-repo demo checkpoint served through ``serve.main``,
-            answering an ``hvo_input`` request like the CPU plain path.
+6. demo     the in-repo demo ``.Model`` (legacy: with the architecture
+            flags) served through ``serve.main``, answering an
+            ``hvo_input`` request like the CPU plain path.
 7. latency  B = 1 p50/p99, in-process and over loopback HTTP, and rows/s
             with requests of one full bucket (32), kernel and plain attention
             in turns; where a B = 1 request's host and device time goes.
@@ -56,8 +57,8 @@ then non-zero):
             and (bias products, plain products) one library call's time; the
             layer's bound from its own inputs, weights and outputs; and
             ``nn.TransformerEncoderLayer`` with the same weights, forward and
-            autograd backward (the library call for the whole layer; the
-            port never calls it).
+            autograd backward, at B 32 in f32 too (the library call for the
+            whole layer; the port never calls it).
 9. train    ``initialize_model`` + ``train_loop`` with the flagship YAML's
             hyperparameters (written here: the card's machine has no pyyaml;
             a CPU test holds them to the file) on seeded synthetic loops:
@@ -164,6 +165,24 @@ then non-zero):
             (given: auto leaves it off) and off under remat and without, two
             epochs a turn, and their ratio in each turn.
 
+20. save, resume, serve  ``run_training`` with the flagship YAML (read on
+            the card by the port's YAML reader) on 512 seeded loops rendered by
+            the audio augment inside every epoch (kernels #2's bf16 chain, #6,
+            #7; launches counted), 4 epochs in blocks of 1, a snapshot save
+            after each, watch histograms every 32 steps, ``metrics.jsonl``;
+            2 epochs, a stop, a fresh ``initialize_model(load_model=...)`` and
+            2 more, equal bit for bit to the uninterrupted run in parameters
+            and the last block's metrics, and Adam 1 + 1 against 2 likewise;
+            ``serve.main(["--ckpt", dir])`` with no architecture flags answers
+            an MSO and an ``hvo_input`` request (#1 six times a forward, #6,
+            #7) equal to a server on the in-memory weights, and the loaded
+            weights served in f32 within 1e-4 of the CPU plain path; the
+            ``.ckpt`` size, the seconds a save holds the training thread,
+            synchronous against snapshot, the save worker's seconds and the
+            restore's, at the flagship and at GrooveXL width (151 M
+            parameters, freshly initialised), beside the card's name and
+            power limit. Checkpoints go to a temporary directory.
+
 Then one line ``{"kernels": [...]}``, the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``. Without CUDA it exits non-zero and prints
 no result.
@@ -175,6 +194,7 @@ import contextlib
 import dataclasses
 import functools
 import json
+import os
 import re
 import subprocess
 import sys
@@ -212,13 +232,18 @@ from transformergrooveinfilling_tpu_torch.ops.dropout import (
     quantized_keep_rate, quantized_threshold,
 )
 from transformergrooveinfilling_tpu_torch.train import (
-    initialize_model, make_epoch_fn, make_train_step, train_loop,
+    HyperParams, checkpoint as ckpt, create_train_state, initialize_model, load_hyperparameters,
+    make_epoch_fn, make_train_step, run_training, train_loop,
 )
+from transformergrooveinfilling_tpu_torch.models import torch_compat
+from transformergrooveinfilling_tpu_torch.train.driver import _GracefulStop
 from transformergrooveinfilling_tpu_torch.train.loop import fetch
+from transformergrooveinfilling_tpu_torch.utils import logging as xlog
 from transformergrooveinfilling_tpu_torch.train.config import (
     embedding_size_src_for, resolve_fused_ffn, resolve_remat,
 )
 
+ROOT = os.path.dirname(os.path.abspath(__file__))
 FLAGSHIP = GrooveTransformerConfig(  # configs/InfillingRandom_training.yaml
     d_model=256, n_heads=2, dim_feedforward=512, dropout=0.30,
     num_encoder_layers=6, embedding_size_src=16)
@@ -663,7 +688,8 @@ def sm90_launches(record, kernels: dict, plain: bool, n: int) -> dict:
 
 def library_layer(args, dy, b: int, decoder: bool) -> dict:
     """``nn.TransformerEncoderLayer`` / ``nn.TransformerDecoderLayer`` (post-LN,
-    ReLU, batch_first, dropout 0.30, bf16, training mode) with the layer's
+    ReLU, batch_first, dropout 0.30, training mode, in the dtype of
+    ``args``: bf16 and f32 both) with the layer's
     weights: forward, and its autograd backward, stream and device time. The
     port never calls it; it is the yardstick one PyTorch call gives."""
     h_, t = LAYER_SHAPE["h"], LAYER_SHAPE["t"]
@@ -1038,7 +1064,7 @@ def phase_http(dev, rng, sd, srv, raw) -> None:
 
 def phase_demo(rng) -> None:
     before = MHA.launches
-    httpd = serve.main(["--ckpt", "demo", "--port", "0"] + DEMO_FLAGS, block=False)
+    httpd = serve.main(["--ckpt", DEMO_MODEL, "--port", "0"] + DEMO_FLAGS, block=False)
     try:
         grid = (rng.random((32, 27)) < 0.25).astype(np.float32)
         code, payload = post(httpd.server_address[1], {"hvo_input": grid.tolist()})
@@ -1230,7 +1256,7 @@ def phase_layer(dev, rng) -> dict:
             row["launches"] = sm90_launches(record, fl.SM90_KERNELS, plain=b == 32,
                                             n=20 if b == 32 else 5)
             row["io_bounds"] = layer_io_bounds(b)
-            row["library"] = library_layer(args, dy, b, decoder=False)
+        row["library"] = library_layer(args, dy, b, decoder=False)
         timings.append(row)
     emit({"phase": "layer", "shape": LAYER_SHAPE, "checks": checks,
           "bars": {"float32": "1e-4 abs (y, residuals); 1e-4 * max|grad| (grads)",
@@ -1350,7 +1376,7 @@ def phase_decoder_layer(dev, rng) -> dict:
             row["launches"] = sm90_launches(record, fdl.SM90_KERNELS, plain=b == 32,
                                             n=20 if b == 32 else 5)
             row["io_bounds"] = layer_io_bounds(b, decoder=True)
-            row["library"] = library_layer(args, dy, b, decoder=True)
+        row["library"] = library_layer(args, dy, b, decoder=True)
         timings.append(row)
     emit({"phase": "decoder_layer", "shape": LAYER_SHAPE, "checks": checks,
           "bars": {"float32": "1e-4 abs (y, residuals); 1e-4 * max|grad| (grads)",
@@ -2235,6 +2261,8 @@ NEW_KERNELS = {**ffn.KERNELS, **ln.KERNELS}
 # script's SGD rate of 0.05 makes the loss climb on these loops, with the FFN
 # kernels and with fused_ffn=False alike (8.6 → 20 → 36 in three steps on an
 # H100); 0.003 lets it fall
+# phase 20: epochs of the checkpointed flagship run, its loops, its watch cadence
+CKPT_EPOCHS, CKPT_LOOPS, CKPT_WATCH_FREQ = 4, 512, 32
 XL_HP = {
     "d_model": 1024, "n_heads": 8, "dim_feedforward": 4096, "dropout": 0.1,
     "num_encoder_layers": 12, "batch_size": 128, "remat": True, "learning_rate": 0.003,
@@ -2892,6 +2920,215 @@ def phase_train_groovexl(dev, rng) -> dict:
     return {"launches": counts}
 
 
+class StopAfterBlocks(_GracefulStop):
+    """``run_training``'s ``_stopper`` hook: a stop requested at the end of
+    block ``blocks`` (the loop reads ``requested`` once a block)."""
+
+    def __init__(self, blocks: int):
+        super().__init__()
+        self._reads, self._blocks = 0, blocks
+
+    @property
+    def requested(self):
+        self._reads += 1
+        return self._reads >= self._blocks
+
+    @requested.setter
+    def requested(self, value):
+        pass
+
+
+def train_run(hp, data, dev, root, name, augment, bundle=None, initial_epoch=0, stopper=None):
+    """``run_training`` logging into its own run directory under ``root`` →
+    (bundle, metrics.jsonl's records, checkpoint directory)."""
+    xlog.init(run_dir=os.path.join(root, "runs", name))
+    run_dir, ckpt_dir = xlog.run.dir, os.path.join(root, name)
+    try:
+        bundle = run_training(hp, data, device=dev, bundle=bundle, initial_epoch=initial_epoch,
+                              ckpt_dir=ckpt_dir, on_device_augment=augment,
+                              watch_log_freq=CKPT_WATCH_FREQ, _stopper=stopper)
+    finally:
+        xlog.finish()
+    with open(os.path.join(run_dir, "metrics.jsonl")) as f:
+        return bundle, [json.loads(line) for line in f], ckpt_dir
+
+
+def resumed_run(hp, data, dev, root, name, augment, stop_after: int) -> dict:
+    """``hp.epochs`` epochs uninterrupted against ``stop_after`` blocks, a stop,
+    a fresh ``initialize_model(load_model=...)`` and the rest: parameters and
+    the last block's metrics must be equal bit for bit."""
+    reset_launches()  # the main path's run starts here
+    reset_front_end_launches()
+    full, full_lines, _ = train_run(hp, data, dev, root, f"{name}_full", augment)
+    counts = {**launches(fl.SM90_KERNELS), "band_energies": BAND_K.launches,
+              "device_synth": SYNTH_K.launches}  # ... and ends here
+    _, stopped_lines, stopped_dir = train_run(hp, data, dev, root, f"{name}_stopped", augment,
+                                              stopper=StopAfterBlocks(stop_after))
+    check([r["epoch"] for r in stopped_lines] == list(range(stop_after)),
+          f"{name}: the stopped run logged epochs {[r['epoch'] for r in stopped_lines]}")
+    spec = hp.to_dict()
+    params = model_params({**FLAGSHIP_HP, **spec, "load_model": {"dir": stopped_dir}})
+    bundle, _opt, initial = initialize_model(params, dev)
+    check(initial == stop_after and bundle.config == full.config,
+          f"{name}: resumed at epoch {initial} with {bundle.config}")
+    resumed, resumed_lines, _ = train_run(hp, data, dev, root, f"{name}_resumed", augment,
+                                          bundle=bundle, initial_epoch=initial)
+    torch.cuda.synchronize()
+    unequal = [k for (k, a), b in zip(full.model.state_dict().items(),
+                                      resumed.model.state_dict().values())
+               if not torch.equal(a, b)]
+    check(not unequal, f"{name}: resumed parameters differ from the uninterrupted run's: "
+                       f"{unequal[:4]}")
+    keys = ("loss", "grad_norm", "hit_accuracy", "hit_perplexity", "bce_hits",
+            "mse_velocities", "mse_offsets")
+    differ = {k: (full_lines[-1][k], resumed_lines[-1][k]) for k in keys
+              if full_lines[-1][k] != resumed_lines[-1][k]}
+    check(not differ and full_lines[-1]["epoch"] == resumed_lines[-1]["epoch"],
+          f"{name}: the last block's metrics differ: {differ}")
+    return {"full": full, "last_metrics": {k: full_lines[-1][k] for k in keys},
+            "losses": [r["loss"] for r in full_lines], "records": full_lines, "counts": counts}
+
+
+def save_costs(state, config, root: str, name: str) -> dict:
+    """What a save costs the training thread, synchronous (fetch, serialise,
+    write on the caller) and by snapshot (a device copy and a queued job),
+    the save worker's seconds, the file's size and the restore's seconds
+    (read and parse the file, map it to the state dict, load that into a
+    model on the card; the model is built before the clock starts)."""
+    sync_dir, async_dir = os.path.join(root, f"{name}_sync"), os.path.join(root, f"{name}_async")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    path = ckpt.save_checkpoint(sync_dir, name, 0, state, 1.0, config)
+    sync_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ckpt.save_snapshot_async(async_dir, name, 0, ckpt.snapshot_state_on_device(state), 1.0,
+                             config)
+    held_s = time.perf_counter() - t0
+    ckpt.flush_async_saves()
+    worker_s = time.perf_counter() - t0
+    model = build_model(config, next(state.model.parameters()).device)
+    ckpt._blob_cache.clear()  # a restore that parses the file
+    t0 = time.perf_counter()
+    params, opt_state, epoch = ckpt.restore({"dir": async_dir}, config)
+    model.load_state_dict(torch_compat.state_dict_from_flax_params(params, config), strict=True)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    live = state.model.state_dict()
+    check(epoch == 1 and all(torch.equal(model.state_dict()[k], v) for k, v in live.items()),
+          f"{name}: the restored weights differ from the saved ones")
+    with open(path, "rb") as a, open(os.path.join(async_dir, os.path.basename(path)), "rb") as b:
+        check(a.read() == b.read(), f"{name}: the snapshot file differs from the sync file")
+    return {"ckpt_bytes": os.path.getsize(path),
+            "parameters": sum(v.numel() for v in live.values()),
+            "sync_save_held_s": sync_s, "snapshot_save_held_s": held_s,
+            "save_worker_s": worker_s, "restore_s": restore_s}
+
+
+def phase_checkpoint(dev, rng, smi: str) -> dict:
+    """20. save, resume, serve: ``run_training`` at the flagship width from
+    the YAML (read on the card by the port's reader), 512 loops rendered by
+    the audio augment inside every epoch, 4 epochs in blocks of 1, a save
+    after each, watch histograms every 32 steps; 2 + 2 epochs with a stop and
+    a resume equal to it bit for bit, and Adam 1 + 1 against 2; the newest
+    ``.ckpt`` served by ``serve.main`` with no architecture flags; what a
+    save and a restore cost at the flagship and at GrooveXL width."""
+    import tempfile
+
+    yaml_hp = load_hyperparameters(os.path.join(ROOT, "configs", "InfillingRandom_training.yaml"))
+    check(yaml_hp.to_dict() == HyperParams.from_dict(FLAGSHIP_HP).to_dict(),
+          "the YAML read on the card differs from FLAGSHIP_HP")
+    hp = HyperParams.from_dict({**yaml_hp.to_dict(), "epochs": CKPT_EPOCHS})
+    grids = Loops(CKPT_LOOPS, 28).processed_outputs
+    qpms = np.random.default_rng(29).uniform(90.0, 150.0, CKPT_LOOPS)
+    augment = make_on_device_augment(qpms=qpms, mode="audio")
+
+    class Grids:
+        processed_inputs = processed_outputs = grids
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ckpt_") as root:
+        sgd = resumed_run(hp, Grids, dev, root, "sgd", augment, stop_after=2)
+        counts = sgd["counts"]  # the uninterrupted run's
+        steps = CKPT_EPOCHS * (CKPT_LOOPS // hp.batch_size)
+        watches = steps // CKPT_WATCH_FREQ
+        renders = CKPT_EPOCHS * -(-CKPT_LOOPS // ds.DEFAULT_CHUNK) + watches
+        want = {**{k: (steps + watches) * hp.num_encoder_decoder_layers
+                   for k in fl.SM90_KERNELS},
+                "band_energies": renders, "device_synth": renders}
+        check(counts == want, f"the checkpointed run launched {counts}, expected {want}")
+        check(all(np.isfinite(v) for v in sgd["last_metrics"].values()),
+              f"non-finite metrics: {sgd['last_metrics']}")
+        check(sgd["losses"][-1] < sgd["losses"][0], f"loss did not fall: {sgd['losses']}")
+        watch_lines = sum(any(k.startswith("gradients/") for k in r) for r in sgd["records"])
+        check(watch_lines == watches, f"{watch_lines} records hold watch histograms, "
+                                      f"expected {watches}")
+        adam_hp = HyperParams.from_dict({**hp.to_dict(), "optimizer_algorithm": "adam",
+                                         "learning_rate": 1e-3, "epochs": 2})
+        adam = resumed_run(adam_hp, Grids, dev, root, "adam", augment, stop_after=1)
+
+        # serve the newest .ckpt of the uninterrupted run: the file carries
+        # the architecture (and the run's bf16), so no flags
+        ckpt_dir = os.path.join(root, "sgd_full")
+        trained = sgd["full"]
+        sd_live = {k: v.detach().cpu() for k, v in trained.model.state_dict().items()}
+        memory_srv = serve.InfillServer(sd_live, trained.config, batch_sizes=(1,), device=dev)
+        x = rng.standard_normal((1, 32, 16)).astype(np.float32)
+        grid = (rng.random((32, 27)) < 0.25).astype(np.float32)
+        httpd = serve.main(["--ckpt", ckpt_dir, "--port", "0", "--batch-sizes", "1"],
+                           block=False)
+        try:
+            MHA.launches = 0  # the serving path's run starts here
+            reset_front_end_launches()
+            code, mso_reply = post(httpd.server_address[1], {"input": x.tolist()})
+            mso_launches = MHA.launches
+            code2, hvo_reply = post(httpd.server_address[1],
+                                    {"hvo_input": grid.tolist(), "qpm": 120})
+            serve_counts = {"fused_mha": MHA.launches, "band_energies": BAND_K.launches,
+                            "device_synth": SYNTH_K.launches}  # ... and ends here
+        finally:
+            httpd.shutdown()
+            httpd.server_close()
+        check(code == 200 and code2 == 200, f"the served .ckpt answered {code}, {code2}")
+        check(mso_launches == 6 and serve_counts == {"fused_mha": 12, "band_energies": 1,
+                                                     "device_synth": 1},
+              f"serving the .ckpt launched {mso_launches} then {serve_counts}")
+        mso_y = np.asarray(mso_reply["hvo"], np.float32)
+        hvo_y = np.asarray(hvo_reply["hvo"], np.float32)
+        check(np.array_equal(mso_y.reshape(1, 32, 27), memory_srv.infill(x))
+              and np.array_equal(hvo_y, memory_srv.infill_from_hvo(grid, qpm=120)),
+              "the served .ckpt answers unlike the in-memory model's server")
+        # the serving bar on the loaded weights: an f32 server on the card
+        # against the in-memory model's plain path on the CPU
+        loaded, cfg, epoch, _loss = ckpt.load_params_and_config(ckpt_dir)
+        check(epoch == CKPT_EPOCHS - 1 and cfg == trained.config,
+              f"the newest .ckpt is epoch {epoch} with {cfg}")
+        f32 = dataclasses.replace(cfg, compute_dtype=torch.float32)
+        y32 = serve.InfillServer(loaded, f32, batch_sizes=(1,), device=dev).infill(x)[0]
+        cpu_model = build_model(f32, "cpu")
+        cpu_model.load_state_dict(sd_live, strict=True)
+        _h, v_cpu, o_cpu = predict(cpu_model, torch.from_numpy(x))
+        serve_err = max(max_err(y32[:, 9:18], v_cpu[0]), max_err(y32[:, 18:], o_cpu[0]))
+        check(serve_err <= 1e-4, f"the loaded weights served in f32 vs the CPU plain path: "
+                                 f"{serve_err}")
+
+        costs = {"flagship": save_costs(trained.state, trained.config, root, "flagship")}
+        xl_cfg = GrooveTransformerConfig(
+            d_model=XL_HP["d_model"], n_heads=XL_HP["n_heads"],
+            dim_feedforward=XL_HP["dim_feedforward"], dropout=XL_HP["dropout"],
+            num_encoder_layers=XL_HP["num_encoder_layers"], compute_dtype=torch.bfloat16)
+        xl_state = create_train_state(xl_cfg, "sgd", XL_HP["learning_rate"], 0, dev)
+        costs["groovexl"] = save_costs(xl_state, xl_cfg, root, "groovexl")
+        del xl_state
+    torch.cuda.empty_cache()
+    emit({"phase": "checkpoint", "card": smi, "config": hp.to_dict(),
+          "data": f"{CKPT_LOOPS} seeded synthetic loops, 90-150 bpm, audio augment",
+          "launches": counts, "losses": sgd["losses"], "last_metrics": sgd["last_metrics"],
+          "resume": "bit for bit (SGD 2 + 2 against 4, Adam 1 + 1 against 2)",
+          "adam_last_metrics": adam["last_metrics"], "serving_launches": serve_counts,
+          "served_max_abs_err_f32_vs_cpu_plain": serve_err, "save_costs": costs})
+    return {"launches": counts, "serving_launches": serve_counts, "save_costs": costs}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -2931,6 +3168,7 @@ def main() -> int:
     ffn_ln = timed_phase(phase_ffn_ln, dev, rng)
     wide = timed_phase(phase_train_wide, dev, rng)
     xl = timed_phase(phase_train_groovexl, dev, rng)
+    saved = timed_phase(phase_checkpoint, dev, rng, smi)
     emit({"phase_seconds": took})
     def mha_row(b, dtype, form="contiguous"):
         return next(t for t in kernel["timings"]
@@ -2949,6 +3187,7 @@ def main() -> int:
         "name": "fused_mha", "route": "cuda", "source": KERNEL_SOURCE,
         "replaces": TPU_KERNEL, "launches": launches_mha,
         "launches_hvo_input_path": hvo["launches"]["fused_mha"],
+        "launches_checkpoint_serving_path": saved["serving_launches"]["fused_mha"],
         "launches_encdec_serving_path": served_encdec["launches"],
         "max_abs_err": kernel["max_abs_err"], **mha_at(b1),
         **{f"B{b}_{dtype}_{form}": mha_at(mha_row(b, dtype, form))
@@ -2965,7 +3204,8 @@ def main() -> int:
     # the main path's launches and the forward's launch count
     layers = (("encoder", layer, fl, LAYER_SOURCE, LAYER_TPU_KERNELS, layer_bounds, train, 5,
                {"launches_audio_augment_path": augmented["launches"],
-                "launches_encdec_training_path": encdec["launches"]}),
+                "launches_encdec_training_path": encdec["launches"],
+                "launches_checkpoint_path": saved["launches"]}),
               ("decoder", dec_layer, fdl, DEC_SOURCE, DEC_TPU_KERNELS, decoder_layer_bounds,
                encdec, 9, {}))
     for which, out, mod, source, tpu, bounds_of, path, n_fwd, more in layers:
@@ -2976,18 +3216,25 @@ def main() -> int:
             device_ms = sum(us / f32_32["kernel_device_launches"][name]
                             for name, us in f32_32["kernel_device_us"].items()
                             if k.entry.removeprefix("tgi_") in name) / 1000.0
-            plain = f32_32["fwd_plain_ms"] if kname.endswith("fwd") else f32_32["bwd_plain_ms"]
+            part = "fwd" if kname.endswith("fwd") else "bwd"
+            library = f32_32["library"]
             kernels.append({
                 "name": kname, "route": "cuda", "source": source, "replaces": tpu[kname],
                 "launches": path["f32_launches"][kname],
                 "max_abs_err": out["max_abs_err"][torch.float32], "ms": device_ms,
-                "plain_ms": float(np.mean(plain)), "bound_ms": bounds32[kname]["bound_ms"],
-                "bound_by": bounds32[kname]["bound_by"], "library_ms": None,
+                "plain_ms": float(np.mean(f32_32[f"{part}_plain_ms"])),
+                "bound_ms": bounds32[kname]["bound_ms"],
+                "bound_by": bounds32[kname]["bound_by"],
+                "library_ms": float(np.mean(library[f"{part}_ms"])),
+                "library_device_ms": library[f"{part}_device_ms"],
                 "at": f"the {which} layer's f32 route: B 32, T 32, d 256, 2 heads, ff 512, "
                       "float32, rate 0.30; launches: the 3 f32 training steps (the forward "
                       "twice a call there); ms: device time per call; plain_ms: the twin's "
                       "whole forward (fwd) or autograd backward (both backward kernels) on "
-                      "the stream; err: the largest over the f32 layer checks"})
+                      "the stream; library: nn.Transformer"
+                      f"{which.title()}Layer in f32, its forward (fwd) or autograd backward "
+                      "(both backward kernels), on the stream and as device time; err: the "
+                      "largest over the f32 layer checks"})
         at32, at512 = timing(out, 32, "bfloat16"), timing(out, 512, "bfloat16")
         for i, kname in enumerate(mod.SM90_KERNELS):
             l32, l512 = at32["launches"][kname], at512["launches"][kname]
@@ -3036,6 +3283,7 @@ def main() -> int:
         "name": "band_energies", "route": "cuda", "source": BAND_SOURCE,
         "replaces": BAND_TPU_KERNEL, "launches": hvo["launches"]["band_energies"],
         "launches_audio_augment_path": augmented["launches"]["band_energies"],
+        "launches_checkpoint_path": saved["launches"]["band_energies"],
         "max_abs_err": front["band_err"], **band_at(band1, "library_ms"),
         "library_device_ms": band1["library_device_ms"],
         "chunk_of_64": {**band_at(band64, "library_ms"),
@@ -3054,6 +3302,7 @@ def main() -> int:
         "name": "device_synth", "route": "cuda", "source": SYNTH_SOURCE,
         "replaces": SYNTH_TPU_KERNEL, "launches": hvo["launches"]["device_synth"],
         "launches_audio_augment_path": augmented["launches"]["device_synth"],
+        "launches_checkpoint_path": saved["launches"]["device_synth"],
         "max_abs_err": front["synth_err"], **synth_at(synth1),
         "chunk_of_64": synth_at(synth64), "chunk_of_256": synth_at(synth256),
         "at": f"M 1 loop, 288 cells, length {synth1['length']} (120 bpm), float32; ms: stream "

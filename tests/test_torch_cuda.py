@@ -880,3 +880,86 @@ def test_wide_ffn_train_steps_run_the_ffn_and_ln_kernels_and_remat_replays(cuda,
         weights.append([p.detach().clone() for p in state.model.parameters()])
     for a, b in zip(*weights):
         torch.testing.assert_close(a, b, rtol=0, atol=1e-6 * max(1.0, float(a.abs().max())))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("algorithm", ["sgd", "adam"])
+def test_snapshot_is_a_clone_the_next_step_does_not_change(cuda, rng, algorithm, tmp_path):
+    """A save snapshot is a device copy enqueued before the next update:
+    the step that follows rewrites the live parameters (and Adam's moments)
+    in place, and the file still holds the state at the snapshot."""
+    from transformergrooveinfilling_tpu_torch.models import torch_compat
+    from transformergrooveinfilling_tpu_torch.train import checkpoint as ckpt
+
+    cfg = GrooveTransformerConfig(d_model=256, n_heads=2, dim_feedforward=512, dropout=0.3,
+                                  num_encoder_layers=2, compute_dtype=torch.bfloat16,
+                                  fused_layer=True)
+    state = create_train_state(cfg, algorithm, 0.05 if algorithm == "sgd" else 1e-3, 0, cuda)
+    step = make_train_step(0.73)
+    x = torch.from_numpy(rng.standard_normal((32, 32, 16)).astype(np.float32)).to(cuda)
+    h = (rng.random((32, 32, 9)) < 0.3).astype(np.float32)
+    y = torch.from_numpy(np.concatenate([h, h * 0.5, h * 0.1], 2)).to(cuda)
+    gen = torch.Generator(cuda).manual_seed(0)
+    step(state, x, y, None, gen)
+    want = torch_compat.optax_state_from_optimizer(state.optimizer, state.model, cfg)
+    want_params = torch_compat.flax_params_from_state_dict(state.model.state_dict(), cfg)
+    snap = ckpt.snapshot_state_on_device(state)
+    step(state, x, y, None, gen)  # enqueued behind the copy, before the save reads it
+    ckpt.save_snapshot_async(str(tmp_path), "snap", 1, snap, 0.5, cfg)
+    ckpt.flush_async_saves()
+    params, opt_state, epoch, _loss = ckpt.load_checkpoint(
+        str(tmp_path / ckpt.CKPT_PATTERN.format("snap", 1)))
+    now = torch_compat.flax_params_from_state_dict(state.model.state_dict(), cfg)
+    assert epoch == 1
+    assert not np.array_equal(now["output"]["proj"]["kernel"], params["output"]["proj"]["kernel"])
+    for a, b in zip(_leaves(params), _leaves(want_params)):
+        np.testing.assert_array_equal(a, b)
+    for a, b in zip(_leaves(opt_state), _leaves(want)):
+        np.testing.assert_array_equal(a, b)
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        return [leaf for k in sorted(tree) for leaf in _leaves(tree[k])]
+    return [np.asarray(tree)]
+
+
+@pytest.mark.cuda
+def test_save_and_restore_round_trip_on_the_card_in_bf16(cuda, rng, tmp_path):
+    """A bf16 run's checkpoint holds f32 parameters and a bfloat16 config;
+    ``initialize_model(load_model=...)`` on the card restores the weights bit
+    for bit and the run goes on through the bf16 layer chain."""
+    from transformergrooveinfilling_tpu_torch.train import (
+        checkpoint as ckpt, initialize_model, train_loop,
+    )
+
+    params = {"model": {"d_model": 256, "n_heads": 2, "dim_feedforward": 512, "dropout": 0.3,
+                        "num_encoder_layers": 2, "embedding_size_src": 16, "optimizer": "adam"},
+              "training": {"learning_rate": 1e-3, "batch_size": 32, "seed": 0}}
+    bundle, _opt, epoch = initialize_model(params, cuda)
+    assert bundle.config.compute_dtype == torch.bfloat16 and bundle.config.fused_layer
+
+    class Data:
+        processed_inputs = rng.standard_normal((64, 32, 16)).astype(np.float32)
+        processed_outputs = (rng.random((64, 32, 27)) < 0.3).astype(np.float32)
+
+    train_loop(Data, bundle, epoch=0, batch_size=32, save=True, ckpt_dir=str(tmp_path),
+               run_id="bf16")
+    assert ckpt.load_checkpoint_config(
+        str(tmp_path / ckpt.CKPT_PATTERN.format("bf16", 0))).compute_dtype == torch.bfloat16
+    resumed, _opt, epoch = initialize_model(dict(params, load_model={"dir": str(tmp_path)}),
+                                            cuda)
+    assert epoch == 1
+    for (name, a), b in zip(bundle.model.state_dict().items(),
+                            resumed.model.state_dict().values()):
+        assert b.device.type == "cuda" and torch.equal(a, b), name
+    for p, q in zip(bundle.model.parameters(), resumed.model.parameters()):
+        s, t = bundle.state.optimizer.state[p], resumed.state.optimizer.state[q]
+        assert float(s["step"]) == float(t["step"]) == 2
+        assert torch.equal(s["exp_avg"], t["exp_avg"]) and torch.equal(s["exp_avg_sq"],
+                                                                       t["exp_avg_sq"])
+    before = sum(k.launches for k in fused_layer.SM90_KERNELS.values())
+    m = train_loop(Data, resumed, epoch=1, batch_size=32)
+    torch.cuda.synchronize()
+    assert np.isfinite(m["loss"])
+    assert sum(k.launches for k in fused_layer.SM90_KERNELS.values()) > before

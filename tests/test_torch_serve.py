@@ -371,10 +371,11 @@ def test_multi_task_server(state_dict, rng):
 
 
 def test_main_serves_the_demo_checkpoint_like_jax(rng, capsys):
-    """``main`` loads a legacy .Model dir with the architecture flags and
-    answers an hvo_input request as the JAX server does on the same file."""
-    httpd = serve.main(["--ckpt", DEMO_DIR, "--device", "cpu", "--port", "0"]
-                       + DEMO_FLAGS, block=False)
+    """``main`` loads a legacy .Model with the architecture flags and
+    answers an hvo_input request as the JAX server does on the same file
+    (the demo directory also holds a .ckpt, which a directory would pick)."""
+    httpd = serve.main(["--ckpt", os.path.join(DEMO_DIR, "transformer_run_demo_Epoch_799.Model"),
+                        "--device", "cpu", "--port", "0"] + DEMO_FLAGS, block=False)
     try:
         assert "serving" in capsys.readouterr().out
         grid = (rng.random((32, 27)) < 0.2).astype(np.float32)
@@ -397,11 +398,36 @@ def test_main_serves_the_demo_checkpoint_like_jax(rng, capsys):
 def test_main_refuses_what_is_not_ported():
     with pytest.raises(NotPortedError, match="artifact"):
         serve.main(["--artifact", "m.tgix", "--device", "cpu"])
-    with pytest.raises(NotPortedError, match="ckpt"):
-        serve.main(["--ckpt", os.path.join(DEMO_DIR, "transformer_run_demo_Epoch_799.ckpt"),
-                    "--device", "cpu"] + DEMO_FLAGS)
+    # a native .ckpt is ported now: it serves (its test is below)
+    httpd = serve.main(["--ckpt", os.path.join(DEMO_DIR, "transformer_run_demo_Epoch_799.ckpt"),
+                        "--device", "cpu", "--port", "0"], block=False)
+    httpd.shutdown()
+    httpd.server_close()
     with pytest.raises(SystemExit):
         serve.main(["--device", "cpu"])
+
+
+def test_main_serves_the_demo_ckpt_without_architecture_flags_like_jax(rng, capsys):
+    """The JAX-written demo ``.ckpt`` carries its config: ``main`` serves it
+    with no architecture flags and answers as the JAX server does on the
+    same file."""
+    from transformergrooveinfilling_tpu.train import checkpoint as jax_ckpt
+
+    path = os.path.join(DEMO_DIR, "transformer_run_demo_Epoch_799.ckpt")
+    httpd = serve.main(["--ckpt", path, "--device", "cpu", "--port", "0"], block=False)
+    try:
+        assert "serving" in capsys.readouterr().out
+        grid = (rng.random((32, 27)) < 0.2).astype(np.float32)
+        code, payload = _post(httpd.server_address[1], {"input": grid.tolist()})
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+    assert code == 200
+    params, jax_cfg, _epoch, _loss = jax_ckpt.load_params_and_config(path)
+    want = JaxInfillServer(params, jax_cfg, batch_sizes=(1,), use_pallas=False).infill(grid)
+    got = np.asarray(payload["hvo"], np.float32)
+    np.testing.assert_array_equal(got[:, :9], want[:, :9])
+    np.testing.assert_allclose(got[:, 9:], want[:, 9:], atol=3e-5)
 
 
 def test_no_fallback(state_dict, monkeypatch):
@@ -426,9 +452,17 @@ def test_import_leaves_jax_out():
         "import transformergrooveinfilling_tpu_torch.ops.mso\n"
         "import transformergrooveinfilling_tpu_torch.ops.band_energies\n"
         "import transformergrooveinfilling_tpu_torch.ops.device_synth\n"
+        "import transformergrooveinfilling_tpu_torch.train.checkpoint\n"
+        "import transformergrooveinfilling_tpu_torch.train.schedule\n"
+        "import transformergrooveinfilling_tpu_torch.utils.msgpack\n"
+        "import transformergrooveinfilling_tpu_torch.utils.yaml_subset\n"
+        "import transformergrooveinfilling_tpu_torch.utils.logging\n"
+        "import transformergrooveinfilling_tpu_torch.utils.serialization\n"
+        "from transformergrooveinfilling_tpu_torch.train import load_hyperparameters\n"
+        "load_hyperparameters('configs/InfillingRandom_training.yaml')\n"
         "import chip_smoke\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'jaxlib', 'flax', 'optax', 'yaml', 'msgpack', "
+        "('jax', 'jaxlib', 'flax', 'optax', 'yaml', 'msgpack', 'wandb', "
         "'transformergrooveinfilling_tpu'))\n"
         "assert not bad, bad\n"
         "assert 'triton' not in sys.modules\n"

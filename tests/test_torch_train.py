@@ -609,7 +609,7 @@ def _grids(rng, n):
     return x, y
 
 
-def test_initialize_model_and_train_loop(rng):
+def test_initialize_model_and_train_loop(rng, tmp_path):
     params = {"model": {"d_model": 32, "n_heads": 2, "dim_feedforward": 64, "dropout": 0.1,
                         "num_encoder_layers": 2, "embedding_size_src": 27,
                         "optimizer": "sgd"},
@@ -633,10 +633,15 @@ def test_initialize_model_and_train_loop(rng):
     assert bundle.state.step == 6 * 5
     h, v, o = bundle.predict(vx)
     assert h.shape == (16, 32, 9) and set(np.unique(h)) <= {0.0, 1.0}
-    with pytest.raises(NotPortedError):
-        train_loop(_Data(x, y), bundle, save=True)
-    with pytest.raises(NotPortedError):
-        initialize_model(dict(params, load_model={"path": "x"}), "cpu")
+    # save=True writes the epoch's checkpoint; load_model resumes from it
+    m = train_loop(_Data(x, y), bundle, epoch=6, hit_loss_penalty=PENALTY, batch_size=16,
+                   save=True, ckpt_dir=str(tmp_path), run_id="t")
+    assert os.listdir(tmp_path) == ["transformer_run_t_Epoch_6.ckpt"]
+    resumed, _opt, epoch = initialize_model(
+        dict(params, load_model={"location": "local", "dir": str(tmp_path)}), "cpu")
+    assert epoch == 7
+    for name, p in bundle.model.state_dict().items():
+        assert torch.equal(resumed.model.state_dict()[name], p), name
 
 
 def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):

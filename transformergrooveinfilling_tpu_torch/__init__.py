@@ -27,13 +27,16 @@ Layering (bottom → top), as far as it is ported:
                 encoder-decoder, with its training mode (fused layers, fused
                 FFN, fused dropout+LayerNorm, remat), the loss, legacy
                 ``.Model`` / flax-parameter interop
+- ``utils``     experiment logging (wandb's call surface over a local run
+                directory), the flax msgpack codec, the configs' YAML reader
 - ``train``     the training contract (``initialize_model`` + ``train_loop``),
-                step and epoch functions, hyperparameters
+                the production loop ``run_training``, checkpoints in the JAX
+                package's format, step and epoch functions, hyperparameters
 - ``serve``     bucketed inference server, dynamic batching, HTTP endpoint
 
-Not ported yet (see ROADMAP.md): the training CLI (``train.py``,
-``run_training``), checkpoints, evaluation and logging, SoundFont (``.sf2``)
-kits, the C++ mixer and WAV I/O, multi-GPU, export. Every function of the JAX
+Not ported yet (see ROADMAP.md): the training CLI (``train.py``) and the
+datasets, evaluation, SoundFont (``.sf2``) kits, the C++ mixer, multi-GPU,
+export. Every function of the JAX
 package that reaches a Pallas kernel has its CUDA counterpart here.
 Every entry point runs on ``"cuda"`` unless the caller names another device,
 and raises without CUDA (:func:`require_device`); none carries on on the CPU.

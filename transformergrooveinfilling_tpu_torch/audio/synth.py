@@ -7,11 +7,17 @@ fractional offset, in 16th-note units at the loop's tempo), scaled by the SF2
 default modulator's velocity gain (:func:`velocity_gain`). There is one mixer,
 the numpy one; the on-device synthesizer is held against it.
 
+:func:`write_wav` writes a 16-bit mono WAV file through the standard
+library's ``wave``, as the JAX package does.
+
 Not ported yet: SoundFont kits (a ``sf_path`` other than None raises
-``NotPortedError``), the C++ mixer, WAV I/O and ``synthesize_hvo_list``.
+``NotPortedError``), the C++ mixer, ``read_wav`` and ``synthesize_hvo_list``.
 """
 
 from __future__ import annotations
+
+import os
+import wave
 
 import numpy as np
 
@@ -115,3 +121,15 @@ def _mix_events_numpy(buf: np.ndarray, table, voices: np.ndarray, onsets: np.nda
         end = min(onset + len(s), n)
         if end > onset:
             buf[onset:end] += vel * s[: end - onset]
+
+
+def write_wav(filename: str, y: np.ndarray, sr: int = 44100) -> None:
+    """A float waveform in [-1, 1] (clipped) → a 16-bit mono WAV file."""
+    os.makedirs(os.path.dirname(filename) or ".", exist_ok=True)
+    pcm16 = (np.clip(np.asarray(y), -1.0, 1.0) * 32767.0).astype("<i2")
+    with wave.open(filename, "wb") as w:
+        w.setnchannels(1)
+        w.setsampwidth(2)
+        w.setframerate(sr)
+        w.writeframes(pcm16.tobytes())
+

@@ -26,9 +26,13 @@ Counterpart of ``transformergrooveinfilling_tpu/serve.py``. Design:
 (POST /infill with {"input": [[...]]} or {"hvo_input": [[...]], "qpm": 120};
 GET /healthz).
 
+The CLI serves a native ``.ckpt`` (either package's; the architecture comes
+from the file), a directory (newest epoch wins, a ``.Model`` as fallback) or a
+reference ``.Model`` (with the architecture flags).
+
 Not ported yet, each raising :class:`NotPortedError`: a SoundFont
-(``sf_path``) for ``hvo_input``, ``"format": "midi"`` replies, native
-``.ckpt`` checkpoints and ``--artifact`` export files.
+(``sf_path``) for ``hvo_input``, ``"format": "midi"`` replies and
+``--artifact`` export files.
 """
 
 from __future__ import annotations
@@ -48,7 +52,6 @@ import torch
 
 from . import NotPortedError, require_device
 from .models import build_model
-from .models.torch_compat import find_latest_checkpoint, load_legacy_checkpoint
 from .models.transformer import GrooveTransformerConfig
 
 
@@ -447,31 +450,28 @@ class MultiTaskServer:
 
 
 def load_checkpoint(path: str, legacy_config: GrooveTransformerConfig):
-    """A ``.Model`` file, or a directory (newest ``.Model`` epoch wins) →
-    ``(state_dict, config, epoch, loss)``. Legacy files carry no
-    architecture, so ``legacy_config`` gives it."""
-    if os.path.isdir(path):
-        path, _epoch = find_latest_checkpoint(path)
-    if not path.endswith(".Model"):
-        raise NotPortedError(
-            f"{path}: native .ckpt (msgpack) checkpoints are not ported yet; "
-            "serve a legacy .Model file")
-    state_dict, epoch, loss = load_legacy_checkpoint(path, legacy_config)
-    return state_dict, legacy_config, epoch, loss
+    """A native ``.ckpt``, a reference ``.Model`` or a directory (newest
+    epoch wins; a ``.Model`` when no ``.ckpt`` is there) → ``(state_dict,
+    config, epoch, loss)``. A ``.ckpt`` carries its config; a ``.Model``
+    carries no architecture, so ``legacy_config`` gives it."""
+    from .train.checkpoint import load_params_and_config
+
+    return load_params_and_config(path, legacy_config=legacy_config)
 
 
 def main(argv=None, block: bool = True):
     """Serve a trained checkpoint over HTTP.
 
     Usage: python -m transformergrooveinfilling_tpu_torch.serve \\
-               --ckpt <file.Model-or-dir> [--port 8327] [--batch-sizes 1 8 32]
-    Legacy ``.Model`` files carry no config: pass the architecture flags.
+               --ckpt <file-or-dir> [--port 8327] [--batch-sizes 1 8 32]
+    A native ``.ckpt`` carries its model config; legacy ``.Model`` files
+    carry none: pass the architecture flags.
     Returns the HTTP server (with ``block=False`` it serves on a thread).
     """
     import argparse
 
     p = argparse.ArgumentParser()
-    p.add_argument("--ckpt", help=".Model file, or a directory (newest epoch wins)")
+    p.add_argument("--ckpt", help=".ckpt/.Model file, or a directory (newest epoch wins)")
     p.add_argument("--artifact", help="export.py artifact (.tgix): not ported yet")
     p.add_argument("--host", default="127.0.0.1")
     p.add_argument("--port", type=int, default=8327)

@@ -11,7 +11,8 @@ their Hopper gates admit the shape and the batch is one at which they were
 measured faster; the fused FFN kernels nowhere yet (their gain has not
 cleared the spread between turns); remat by the same memory estimate. Each
 auto switch is on only where the card showed a gain (PERF.md §5).
-``yaml`` is imported only inside :func:`load_hyperparameters`.
+The YAML files are read by ``utils/yaml_subset.py`` (the machine with the
+card has no pyyaml), which gives what ``yaml.safe_load`` gives on them.
 """
 
 from __future__ import annotations
@@ -27,6 +28,7 @@ from .. import require_device
 from ..models.transformer import GrooveTransformerConfig
 from ..ops.fused_decoder_layer import supports_fused_decoder_layer
 from ..ops.fused_layer import supports_fused_layer
+from ..utils import yaml_subset
 
 HVO_WIDTH = 27
 MSO_BANDS = 16
@@ -74,10 +76,12 @@ class HyperParams:
 
 def load_hyperparameters(config_path: str) -> HyperParams:
     """Load a reference-format training YAML."""
-    import yaml
+    return HyperParams.from_dict(yaml_subset.load_file(config_path))
 
-    with open(config_path) as f:
-        return HyperParams.from_dict(yaml.safe_load(f))
+
+def load_paths(paths_path: str) -> dict:
+    """Load the experiment → dataset/evaluator path map (configs/paths.yaml)."""
+    return yaml_subset.load_file(paths_path)
 
 
 def embedding_size_src_for(experiment: str) -> int:

@@ -16,6 +16,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Callable
 
+import numpy as np
 import torch
 
 from .. import require_device
@@ -129,6 +130,61 @@ def make_epoch_fn(hit_loss_penalty: float, batch_size: int, n_samples: int,
         return metrics
 
     return epoch
+
+
+def make_watch_fn(hit_loss_penalty: float, batch_size: int, encoder_only: bool = True,
+                  bins: int = 64, augment: Callable | None = None) -> Callable:
+    """The reference's ``wandb.watch``: per-tensor histograms of the
+    parameters and of the gradients from one batch. Returns
+    ``watch(model, inputs, outputs, generator) -> {key: (counts, edges)}``
+    with wandb.watch's keys, ``parameters/<path>`` and ``gradients/<path>``,
+    ``<path>`` the flax path (``encoder_layer_0/self_attn/qkv/kernel``) in
+    the JAX package's order, so the logs of the two packages line up. The
+    batch is the first ``batch_size`` items (after ``augment`` on a window
+    rounded up to 64 items, as the JAX package's), one train-mode forward and
+    backward that leaves the parameters, their ``.grad`` and the optimizer
+    alone. The histograms are ``torch.histc`` on the device over each
+    tensor's [min, max] (widened by 0.5 each way when they are equal, as
+    ``jnp.histogram`` does): the ranges come to the host in one transfer, the
+    stacked counts in another."""
+    window = batch_size if augment is None else -(-batch_size // 64) * 64
+
+    def watch(model, inputs, outputs, generator) -> dict:
+        from ..models.torch_compat import flax_layout
+
+        x, y = inputs[:window], outputs[:window]
+        if augment is not None:
+            x, y = augment(generator, x, y)
+        x, y = x[:batch_size], y[:batch_size]
+        named = dict(model.named_parameters())
+        was_training = model.training
+        model.train()
+        try:
+            pred = model(x, generator=generator) if encoder_only else model(x, y, generator)
+            loss = calculate_loss(pred, y, hit_loss_penalty).total_loss
+            grads = dict(zip(named, torch.autograd.grad(loss, list(named.values()))))
+        finally:
+            model.train(was_training)
+        layout = sorted(flax_layout(model.config))
+        names, leaves = [], []
+        for prefix, source in (("parameters", named), ("gradients", grads)):
+            for path, key, _transposed, rows in layout:
+                names.append(prefix + "/" + "/".join(path))
+                t = source[key].detach()
+                leaves.append((t if rows is None else t[rows]).float().reshape(-1))
+        with torch.no_grad():
+            ranges = torch.stack([torch.stack(torch.aminmax(t)) for t in leaves]).cpu().numpy()
+            lo, hi = ranges[:, 0].astype(np.float64), ranges[:, 1].astype(np.float64)
+            same = lo == hi
+            lo[same] -= 0.5
+            hi[same] += 0.5
+            counts = torch.stack([torch.histc(t, bins, float(a), float(b))
+                                  for t, a, b in zip(leaves, lo, hi)]).cpu().numpy()
+        return {name: (counts[i].astype(np.int64),
+                       np.linspace(lo[i], hi[i], bins + 1, dtype=np.float32))
+                for i, name in enumerate(names)}
+
+    return watch
 
 
 def make_eval_loss_fn(hit_loss_penalty: float, encoder_only: bool = True) -> Callable:
