@@ -182,6 +182,27 @@ then non-zero):
             restore's, at the flagship and at GrooveXL width (151 M
             parameters, freshly initialised), beside the card's name and
             power limit. Checkpoints go to a temporary directory.
+21. command lines  as a user runs them, each in a child process that
+            writes its kernels' launch counts when it exits, all under a
+            temporary directory: ``python -m
+            transformergrooveinfilling_tpu_torch.process_dataset
+            --experiments InfillingRandom`` at the default synthetic sizes
+            (3,300 / 1,100 / 1,100 items) on the card (#6, #7), beside the
+            same build of the validation split with ``--device cpu``
+            (outputs and indices bit for bit, 64 MSO inputs within atol
+            1e-5 · max and rtol 1e-4); ``python -m
+            transformergrooveinfilling_tpu_torch.train --config
+            configs/InfillingRandom_training.yaml --wandb False --eval_train
+            False`` at the flagship width, nothing cut, for a few blocks
+            (``--max_wall_s``) each with ``--streaming off``, ``host``
+            (``--regen_cadence auto``) and ``fused``: #2's bf16 chain in every
+            run, #6 and #7 in the streaming ones, the loss finite and falling,
+            seqs/s per block; the fused run resumes the off run's newest
+            ``.ckpt`` (``--load_model``) at its epoch + 1 under
+            ``TGI_PROFILE=1``, and its trace of the first block names #2's,
+            #6's and #7's kernels; one
+            host generation and one fused render of the train split timed in
+            process, with their launches.
 
 Then one line ``{"kernels": [...]}``, the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``. Without CUDA it exits non-zero and prints
@@ -3129,6 +3150,254 @@ def phase_checkpoint(dev, rng, smi: str) -> dict:
     return {"launches": counts, "serving_launches": serve_counts, "save_costs": costs}
 
 
+# phase 21: the command lines as a user runs them, each in a child process.
+# The child runs the module as ``python -m`` does (runpy) and, when it exits,
+# writes its kernels' launch counts (each starts at 0 in a new process) and
+# the module's own seconds to the file named after the module
+CLI_RUNNER = """
+import json, runpy, sys, time
+from transformergrooveinfilling_tpu_torch.ops import band_energies, device_synth, fused_layer
+module, out = sys.argv[1], sys.argv[2]
+sys.argv = [module] + sys.argv[3:]
+t0 = time.perf_counter()
+try:
+    runpy.run_module(module, run_name="__main__", alter_sys=True)
+finally:
+    kernels = {"band_energies": band_energies.KERNEL, "device_synth": device_synth.KERNEL,
+               **fused_layer.SM90_KERNELS}
+    with open(out, "w") as f:
+        json.dump({"seconds": time.perf_counter() - t0,
+                   "launches": {k: v.launches for k, v in kernels.items()}}, f)
+"""
+CLI_PROCESS = "transformergrooveinfilling_tpu_torch.process_dataset"
+CLI_TRAIN = "transformergrooveinfilling_tpu_torch.train"
+CLI_SPLITS = {"train": 3300, "test": 1100, "validation": 1100}  # 330 / 110 / 110 loops x 10
+CLI_WALL_S = 5.0  # --max_wall_s of each training run: a few flagship blocks
+CLI_TRACE_S = 10.0  # and more for the traced run: its first block writes a ~90 MB trace
+CLI_MSO_ITEMS = 64
+CLI_CONFIG = os.path.join(ROOT, "configs", "InfillingRandom_training.yaml")
+# the kernels a trace of the first block must name: #2's bf16 chain (its
+# products, attention and LayerNorm launches), #6 and #7
+TRACE_KERNELS = ("gemm_kernel", "attn_fwd_mma", "attn_bwd_mma", "ln_rows", "synth_kernel",
+                 "band_energies_kernel")
+
+
+def start_cli(module: str, args, cwd: str, threads: int | None = None, **env):
+    """Start ``python -m module args`` (through :data:`CLI_RUNNER`) in
+    ``cwd`` with this checkout on the path → (process, counts file, start)."""
+    os.makedirs(cwd, exist_ok=True)
+    counts = os.path.join(cwd, f"{module.rsplit('.', 1)[-1]}.launches.json")
+    child_env = {**os.environ, "PYTHONPATH": ROOT, **env}
+    if threads:
+        child_env["OMP_NUM_THREADS"] = str(threads)
+    proc = subprocess.Popen([sys.executable, "-c", CLI_RUNNER, module, counts, *args], cwd=cwd,
+                            env=child_env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True)
+    return proc, counts, time.perf_counter()
+
+
+def finish_cli(started, what: str, timeout: float = 300.0) -> dict:
+    """Wait for a child of :func:`start_cli`; it must exit 0 → its wall
+    seconds, module seconds, launch counts and output."""
+    proc, counts, t0 = started
+    try:
+        out, err = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.communicate()
+        raise
+    wall = time.perf_counter() - t0
+    check(proc.returncode == 0, f"{what} exited {proc.returncode}:\n{err[-6000:]}")
+    with open(counts) as f:
+        result = json.load(f)
+    return {**result, "wall_seconds": wall, "stdout": out, "stderr": err}
+
+
+def run_cli(module: str, args, cwd: str, what: str, **env) -> dict:
+    return finish_cli(start_cli(module, args, cwd, **env), what)
+
+
+def cli_metrics(cwd: str) -> list:
+    """The records of the one run a training command line logged under ``cwd``."""
+    found = [os.path.join(d, "metrics.jsonl") for d, _subs, files in os.walk(cwd)
+             if "metrics.jsonl" in files]
+    check(len(found) == 1, f"{cwd}: {len(found)} metrics.jsonl files")
+    with open(found[0]) as f:
+        return [json.loads(line) for line in f]
+
+
+def newest_epoch(ckpt_dir: str) -> int:
+    epochs = [int(m.group(1)) for f in os.listdir(ckpt_dir)
+              if (m := re.search(r"_Epoch_(\d+)\.ckpt$", f))]
+    check(bool(epochs), f"no .ckpt in {ckpt_dir}")
+    return max(epochs)
+
+
+def trace_kernels(run_cwd: str) -> dict:
+    """The ``TGI_PROFILE`` trace of a run under ``run_cwd``: its path, and
+    the device kernels it holds by the names of :data:`TRACE_KERNELS`."""
+    found = [os.path.join(d, f) for d, _subs, files in os.walk(run_cwd) for f in files
+             if os.path.basename(d) == "profile"]
+    check(len(found) == 1, f"{run_cwd}: {len(found)} profile traces: {found}")
+    with open(found[0]) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    by_name = {k: sum(k in e.get("name", "") for e in kernels) for k in TRACE_KERNELS}
+    return {"file": os.path.relpath(found[0], run_cwd), "bytes": os.path.getsize(found[0]),
+            "kernel_events": len(kernels), "by_name": by_name,
+            "device_busy_us": sum(e.get("dur", 0) for e in kernels)}
+
+
+def generation_costs(dev, train_dir: str) -> dict:
+    """One host generation (``StreamingAugmenter``, audio, on the producer's
+    stream) and one fused render (``make_on_device_augment``, once a block)
+    of the train split, each with its seconds and the launches of #6 and #7."""
+    from transformergrooveinfilling_tpu_torch.data import load_processed_dataset
+    from transformergrooveinfilling_tpu_torch.data.pipeline import StreamingAugmenter
+
+    data = load_processed_dataset(train_dir, "InfillingRandom")
+    base = np.stack([s.hvo for s in data.hvo_sequences]).astype(np.float32)
+    qpms = np.asarray([s.tempos[0].qpm for s in data.hvo_sequences], np.float64)
+    reset_front_end_launches()
+    with StreamingAugmenter(base, qpms=qpms, aug_per_item=data.max_aug_items, mode="audio",
+                            device=dev) as streamer:
+        seconds = []
+        for _ in range(3):
+            streamer.next_epoch_delta()
+            seconds.append(streamer.last_generation_seconds)
+        host_n = streamer.n_samples
+    # a generation the consumer has not taken may be in flight when close() ran
+    per_generation = sum(-(-min(2048, host_n - s) // ds.DEFAULT_CHUNK)
+                         for s in range(0, host_n, 2048))  # 2048-item slabs, 256-item chunks
+    host = {"items": host_n, "seconds": seconds,
+            "launches_per_generation": {"band_energies": per_generation,
+                                        "device_synth": per_generation},
+            "launches_seen": {"band_energies": BAND_K.launches,
+                              "device_synth": SYNTH_K.launches}}
+    check(BAND_K.launches >= 3 * host["launches_per_generation"]["band_energies"]
+          and SYNTH_K.launches >= 3 * host["launches_per_generation"]["device_synth"],
+          f"3 host generations launched {host['launches_seen']}")
+    grids = np.repeat(base, data.max_aug_items, axis=0)
+    n = len(grids) // 64 * 64
+    augment = make_on_device_augment(qpms=np.repeat(qpms, data.max_aug_items)[:n], mode="audio")
+    g = torch.from_numpy(grids[:n]).to(dev)
+    fused = []
+    for i in range(3):
+        torch.cuda.synchronize()
+        reset_front_end_launches()
+        t0 = time.perf_counter()
+        inputs, _outputs = augment(torch.Generator(dev).manual_seed(i), g, g)
+        torch.cuda.synchronize()
+        fused.append({"seconds": time.perf_counter() - t0,
+                      "launches": {"band_energies": BAND_K.launches,
+                                   "device_synth": SYNTH_K.launches}})
+    check(bool(torch.isfinite(inputs).all()), "the fused render is not finite")
+    return {"host": host, "fused": {"items": n, "calls": fused}}
+
+
+def cli_launches(cli: dict, kernel: str) -> dict:
+    """A front-end kernel's launches in each command line of phase 21."""
+    return {"process_dataset": cli["process_dataset"]["launches"][kernel],
+            **{f"train_{mode}": run["launches"][kernel] for mode, run in cli["train"].items()}}
+
+
+def phase_cli(dev, smi: str) -> dict:
+    """21. the command lines: ``process_dataset --experiments InfillingRandom``
+    at the default synthetic sizes on the card, beside a CPU build of the
+    validation split (outputs bit for bit, 64 MSO inputs at the MSO bar);
+    ``train --config configs/InfillingRandom_training.yaml`` at the flagship
+    width for a few blocks each with ``--streaming off``, ``host`` (auto
+    cadence) and ``fused``, the last resumed from the off run's newest
+    ``.ckpt`` under ``TGI_PROFILE=1``; one host generation and one fused render
+    timed in process. All under a temporary directory."""
+    import tempfile
+
+    from transformergrooveinfilling_tpu_torch.data import load_processed_dataset
+
+    on_dev = ["--device", dev.type]
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_cli_") as root:
+        card = start_cli(CLI_PROCESS, ["--experiments", "InfillingRandom", *on_dev],
+                         os.path.join(root, "card"))
+        cpu = start_cli(CLI_PROCESS, ["--experiments", "InfillingRandom", "--splits",
+                                      "validation", "--device", "cpu"],
+                        os.path.join(root, "cpu"), threads=2)
+        built = finish_cli(card, "process_dataset on the card")
+        cpu_built = finish_cli(cpu, "process_dataset --device cpu")
+        data_dir = os.path.join(root, "card", "datasets", "InfillingRandom", "0.0.0")
+        sizes = {s: len(load_processed_dataset(os.path.join(data_dir, s), "InfillingRandom"))
+                 for s in CLI_SPLITS}
+        check(sizes == CLI_SPLITS, f"process_dataset built {sizes}")
+        on_card = load_processed_dataset(os.path.join(data_dir, "validation"), "InfillingRandom")
+        on_cpu = load_processed_dataset(os.path.join(root, "cpu", "datasets", "InfillingRandom",
+                                                     "0.0.0", "validation"), "InfillingRandom")
+        check(np.array_equal(on_card.processed_outputs, on_cpu.processed_outputs)
+              and on_card.hvo_index == on_cpu.hvo_index
+              and on_card.soundfonts == on_cpu.soundfonts,
+              "the card's validation split differs from the CPU build's in its outputs")
+        got, want = on_card.processed_inputs[:CLI_MSO_ITEMS], on_cpu.processed_inputs[:CLI_MSO_ITEMS]
+        mso_err = max_err(got, want)
+        check(np.allclose(got, want, atol=1e-5 * np.abs(want).max(), rtol=1e-4),
+              f"64 MSO inputs from the card against the CPU route: {mso_err}")
+        check(built["launches"]["device_synth"] > 0 and built["launches"]["band_energies"] > 0,
+              f"process_dataset on the card launched {built['launches']}")
+
+        paths = os.path.join(root, "paths.yaml")
+        with open(paths, "w") as f:
+            f.write("InfillingRandom:\n  datasets:\n" + "".join(
+                f"    {s}: {os.path.join(data_dir, s)}\n" for s in CLI_SPLITS))
+        common = ["--config", CLI_CONFIG, "--paths", paths, "--wandb", "False", "--eval_train",
+                  "False", "--eval_validation", "False", "--dump_eval", "False", *on_dev]
+        # off and host from fresh weights; fused resumed from the off run's
+        # newest .ckpt, its first block traced
+        runs, resumed = {}, {}
+        for mode, extra, env in (
+                ("off", [], {}), ("host", ["--regen_cadence", "auto"], {}),
+                ("fused", ["--load_model", os.path.join(root, "off", "ck")],
+                 {"TGI_PROFILE": "1"})):
+            cwd = os.path.join(root, mode)
+            wall = CLI_WALL_S
+            if mode == "fused":
+                resumed["from_epoch"] = newest_epoch(os.path.join(root, "off", "ck"))
+                wall += CLI_TRACE_S
+            run = run_cli(CLI_TRAIN, common + extra + [
+                "--streaming", mode, "--max_wall_s", str(wall),
+                "--ckpt_dir", os.path.join(cwd, "ck")], cwd, f"train --streaming {mode}", **env)
+            records = cli_metrics(cwd)
+            losses = [r["loss"] for r in records]
+            check(len(records) >= 2 and all(np.isfinite(losses)) and losses[-1] < losses[0],
+                  f"--streaming {mode}: losses {losses}")
+            chain = {k: v for k, v in run["launches"].items() if k in fl.SM90_KERNELS}
+            check(all(v > 0 for v in chain.values()),
+                  f"--streaming {mode} did not run #2's bf16 chain: {chain}")
+            if mode != "off":
+                check(run["launches"]["device_synth"] > 0 and run["launches"]["band_energies"] > 0,
+                      f"--streaming {mode} launched {run['launches']}")
+            runs[mode] = {"wall_seconds": run["wall_seconds"], "module_seconds": run["seconds"],
+                          "launches": run["launches"], "losses": losses,
+                          "epochs": [r["epoch"] for r in records],
+                          "seqs_per_sec": [r["seqs_per_sec"] for r in records],
+                          "epoch_time_s": [r["epoch_time_s"] for r in records],
+                          "printed": [line for line in run["stdout"].splitlines()
+                                      if line.startswith("streaming")]}
+        check(runs["fused"]["epochs"][0] == resumed["from_epoch"] + 1,
+              f"resumed from epoch {resumed['from_epoch']}, logged epochs "
+              f"{runs['fused']['epochs']}")
+        resumed["trace"] = trace_kernels(os.path.join(root, "fused"))
+        check(all(resumed["trace"]["by_name"].values()),
+              f"the trace misses kernels: {resumed['trace']['by_name']}")
+        costs = generation_costs(dev, os.path.join(data_dir, "train"))
+    out = {"card": smi, "process_dataset": {
+               "items": CLI_SPLITS, "wall_seconds": built["wall_seconds"],
+               "module_seconds": built["seconds"],
+               "items_per_s": sum(CLI_SPLITS.values()) / built["seconds"],
+               "launches": {k: built["launches"][k] for k in ("device_synth", "band_energies")},
+               "cpu_validation_wall_seconds": cpu_built["wall_seconds"],
+               "mso_max_abs_err_vs_cpu": mso_err},
+           "train": runs, "resumed": resumed, "generations": costs}
+    emit({"phase": "cli", **out})
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -3169,6 +3438,7 @@ def main() -> int:
     wide = timed_phase(phase_train_wide, dev, rng)
     xl = timed_phase(phase_train_groovexl, dev, rng)
     saved = timed_phase(phase_checkpoint, dev, rng, smi)
+    cli = timed_phase(phase_cli, dev, smi)
     emit({"phase_seconds": took})
     def mha_row(b, dtype, form="contiguous"):
         return next(t for t in kernel["timings"]
@@ -3205,7 +3475,9 @@ def main() -> int:
     layers = (("encoder", layer, fl, LAYER_SOURCE, LAYER_TPU_KERNELS, layer_bounds, train, 5,
                {"launches_audio_augment_path": augmented["launches"],
                 "launches_encdec_training_path": encdec["launches"],
-                "launches_checkpoint_path": saved["launches"]}),
+                "launches_checkpoint_path": saved["launches"],
+                **{f"launches_cli_train_{mode}": run["launches"]
+                   for mode, run in cli["train"].items()}}),
               ("decoder", dec_layer, fdl, DEC_SOURCE, DEC_TPU_KERNELS, decoder_layer_bounds,
                encdec, 9, {}))
     for which, out, mod, source, tpu, bounds_of, path, n_fwd, more in layers:
@@ -3284,6 +3556,7 @@ def main() -> int:
         "replaces": BAND_TPU_KERNEL, "launches": hvo["launches"]["band_energies"],
         "launches_audio_augment_path": augmented["launches"]["band_energies"],
         "launches_checkpoint_path": saved["launches"]["band_energies"],
+        "launches_cli_path": cli_launches(cli, "band_energies"),
         "max_abs_err": front["band_err"], **band_at(band1, "library_ms"),
         "library_device_ms": band1["library_device_ms"],
         "chunk_of_64": {**band_at(band64, "library_ms"),
@@ -3303,6 +3576,7 @@ def main() -> int:
         "replaces": SYNTH_TPU_KERNEL, "launches": hvo["launches"]["device_synth"],
         "launches_audio_augment_path": augmented["launches"]["device_synth"],
         "launches_checkpoint_path": saved["launches"]["device_synth"],
+        "launches_cli_path": cli_launches(cli, "device_synth"),
         "max_abs_err": front["synth_err"], **synth_at(synth1),
         "chunk_of_64": synth_at(synth64), "chunk_of_256": synth_at(synth256),
         "at": f"M 1 loop, 288 cells, length {synth1['length']} (120 bpm), float32; ms: stream "

@@ -460,3 +460,29 @@ def test_snapshot_saves_backpressure_releases(tmp_path):
             os.path.join(tmp_path, ckpt.CKPT_PATTERN.format("bp", ep)))
         jax.tree.map(np.testing.assert_array_equal, params, want[ep])
         assert int(opt_state["0"]["count"]) == ep
+
+
+@pytest.mark.parametrize("family", FAMILIES)
+def test_jax_names_of_the_state_dict_map_are_aliases_equal_to_jax(rng, family):
+    """``torch_compat.params_to_state_dict`` / ``state_dict_to_params`` are the
+    port's ``state_dict_from_flax_params`` / ``flax_params_from_state_dict``
+    under the JAX module's names, and give what the JAX functions give on the
+    same tree (the JAX map also writes the PE buffers the port recomputes)."""
+    from transformergrooveinfilling_tpu.models import torch_compat as jax_compat
+
+    assert torch_compat.params_to_state_dict is torch_compat.state_dict_from_flax_params
+    assert torch_compat.state_dict_to_params is torch_compat.flax_params_from_state_dict
+    jax_cfg, port_cfg = _configs(FAMILIES[family])
+    params = jax.tree.map(lambda a: np.asarray(a) + 0.05 * rng.standard_normal(a.shape)
+                          .astype(np.float32), _jax_params(jax_cfg, 2))
+    got = torch_compat.params_to_state_dict(params, port_cfg)
+    want = jax_compat.params_to_state_dict(params, jax_cfg)
+    assert set(got) == {k for k in want if not k.endswith(".pe")}
+    for key, value in got.items():
+        np.testing.assert_array_equal(value.numpy(), np.asarray(want[key], np.float32), key)
+    back = torch_compat.state_dict_to_params(got, port_cfg)
+    jax_back = jax_compat.state_dict_to_params(
+        {k: torch.from_numpy(np.array(v)) for k, v in want.items()}, jax_cfg)
+    for (path, a), (_p, b) in zip(jax.tree_util.tree_flatten_with_path(back)[0],
+                                  jax.tree_util.tree_flatten_with_path(jax_back)[0], strict=True):
+        np.testing.assert_array_equal(a, np.asarray(b), str(path))

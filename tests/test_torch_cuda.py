@@ -129,8 +129,7 @@ def test_attention_module_makes_no_copies_around_the_kernel(cuda, rng, kv):
 def test_server_runs_every_layer_through_the_kernel(cuda, rng):
     cfg = GrooveTransformerConfig(d_model=64, n_heads=4, dim_feedforward=128,
                                   num_encoder_layers=2)
-    torch.manual_seed(0)
-    sd = build_model(cfg, "cpu").state_dict()
+    sd = build_model(cfg, "cpu", torch.Generator().manual_seed(0)).state_dict()
     fused = InfillServer(sd, cfg, batch_sizes=(1, 4), device=cuda)
     plain = InfillServer(sd, cfg, batch_sizes=(1, 4), device=cuda, use_kernel=False)
     x = rng.standard_normal((6, 32, 16)).astype(np.float32)
@@ -596,8 +595,7 @@ def test_front_end_on_the_card_matches_the_plain_and_host_routes(cuda, rng):
 def test_audio_server_answers_hvo_input_through_every_kernel(cuda, rng):
     cfg = GrooveTransformerConfig(d_model=64, n_heads=4, dim_feedforward=128,
                                   num_encoder_layers=2)
-    torch.manual_seed(0)
-    sd = build_model(cfg, "cpu").state_dict()
+    sd = build_model(cfg, "cpu", torch.Generator().manual_seed(0)).state_dict()
     card = InfillServer(sd, cfg, batch_sizes=(1, 4), device=cuda)
     cpu = InfillServer(sd, cfg, batch_sizes=(1, 4), device="cpu")
     assert device_synth.KERNEL.launches > 0  # the front end was warmed at start-up
@@ -963,3 +961,37 @@ def test_save_and_restore_round_trip_on_the_card_in_bf16(cuda, rng, tmp_path):
     torch.cuda.synchronize()
     assert np.isfinite(m["loss"])
     assert sum(k.launches for k in fused_layer.SM90_KERNELS.values()) > before
+
+
+@pytest.mark.cuda
+def test_streaming_producer_launches_on_its_own_stream(cuda, monkeypatch):
+    """In audio mode the producer thread renders through kernels #6 and #7 on
+    a stream of its own (each launch takes its calling thread's current
+    stream), and its generation agrees with the CPU route (phase 11's bar)."""
+    import threading
+
+    from transformergrooveinfilling_tpu_torch.data import synthetic
+    from transformergrooveinfilling_tpu_torch.data.pipeline import StreamingAugmenter
+    from transformergrooveinfilling_tpu_torch.ops import _build
+
+    base = np.stack([s.hvo for s in synthetic.synthetic_gmd_sequences(16, seed=3)])
+    qpms = np.linspace(90.0, 150.0, 16)
+    seen = []
+    launch = _build.CountedKernel.launch
+
+    def spy(self, tensors, scalars, device):
+        seen.append((threading.current_thread() is threading.main_thread(),
+                     torch.cuda.current_stream(device).cuda_stream, self.entry))
+        return launch(self, tensors, scalars, device)
+
+    monkeypatch.setattr(_build.CountedKernel, "launch", spy)
+    kw = dict(qpms=qpms, aug_per_item=2, mode="audio", seed=4)
+    with StreamingAugmenter(base, device=cuda, **kw) as st:
+        _sl, got_in, got_out = st.next_epoch_delta()
+    with StreamingAugmenter(base, device="cpu", **kw) as st:
+        _sl, want_in, want_out = st.next_epoch_delta()
+    producer = {(stream, entry) for main, stream, entry in seen if not main}
+    assert {entry for _s, entry in producer} == {"tgi_device_synth", "tgi_band_energies"}
+    assert torch.cuda.default_stream(cuda).cuda_stream not in {s for s, _e in producer}
+    assert np.array_equal(got_out, want_out)
+    np.testing.assert_allclose(got_in, want_in, atol=2e-5 * np.abs(want_in).max(), rtol=1e-3)

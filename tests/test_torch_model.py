@@ -167,8 +167,7 @@ def test_find_latest_checkpoint(tmp_path):
 
 def test_training_switches_are_accepted_and_change_nothing(rng):
     base = GrooveTransformerConfig(num_encoder_layers=2)
-    torch.manual_seed(0)
-    model = build_model(base, "cpu")
+    model = build_model(base, "cpu", torch.Generator().manual_seed(0))
     switched = dataclasses.replace(
         base, fused_layer=True, fused_ffn=True, fused_dropout_ln=True,
         fast_dropout=False, remat=True, remat_policy="dots", dropout=0.3)

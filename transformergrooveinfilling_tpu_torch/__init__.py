@@ -19,10 +19,13 @@ Layering (bottom → top), as far as it is ported:
                 ``band_energies_plain``; ``synth_events`` /
                 ``synth_events_plain``), the MSO DSP, the on-device drum
                 synthesizer, dropout, and the kernel build
-- ``hvo``       HVO grid operations on tensors, the drum-voice mapping
+- ``hvo``       HVO grid operations on tensors, the drum-voice mapping, the
+                ``HVOSequence`` record
 - ``audio``     the procedural drum kit and the host (numpy) mixer
-- ``data``      random masking and the synth + MSO front end as a training
-                augmentation on the device
+- ``data``      the infilling datasets and their samplers, corpus subsetting,
+                the synthetic corpus, reference-era pickles, the streaming
+                augmenter, and random masking and the synth + MSO front end as
+                a training augmentation on the device
 - ``models``    the groove transformer (``nn.Module``), encoder-only and
                 encoder-decoder, with its training mode (fused layers, fused
                 FFN, fused dropout+LayerNorm, remat), the loss, legacy
@@ -33,10 +36,11 @@ Layering (bottom → top), as far as it is ported:
                 the production loop ``run_training``, checkpoints in the JAX
                 package's format, step and epoch functions, hyperparameters
 - ``serve``     bucketed inference server, dynamic batching, HTTP endpoint
+- ``process_dataset``, ``train`` (``python -m``)  the command lines of the
+                repository's root ``process_dataset.py`` and ``train.py``
 
-Not ported yet (see ROADMAP.md): the training CLI (``train.py``) and the
-datasets, evaluation, SoundFont (``.sf2``) kits, the C++ mixer, multi-GPU,
-export. Every function of the JAX
+Not ported yet (see ROADMAP.md): evaluation, MIDI, SoundFont (``.sf2``) kits,
+the C++ mixer, multi-GPU, export, batched sweeps. Every function of the JAX
 package that reaches a Pallas kernel has its CUDA counterpart here.
 Every entry point runs on ``"cuda"`` unless the caller names another device,
 and raises without CUDA (:func:`require_device`); none carries on on the CPU.

@@ -9,8 +9,8 @@ trees and files.
   its packed ``kv`` the other 2d).
 - :func:`state_dict_from_flax_params` and its inverse
   :func:`flax_params_from_state_dict` (the JAX ``params_to_state_dict`` /
-  ``state_dict_to_params`` pair, on this model's keys), both through that
-  table.
+  ``state_dict_to_params`` pair, on this model's keys, and under those names
+  too), both through that table.
 - the optimizer state both ways: optax ``sgd`` is ``{"0": {}, "1": {}}``;
   ``adam`` is ``{"0": {"count", "mu", "nu"}, "1": {}}`` with ``mu``/``nu``
   parameter trees. ``torch.optim.Adam`` keeps per parameter ``step``,
@@ -124,6 +124,11 @@ def flax_params_from_state_dict(state_dict, config: GrooveTransformerConfig) -> 
         # a copy: on the CPU the state dict's tensors are the live parameters
         _set(params, path, np.array(a.T if transposed else a, dtype=np.float32, order="C"))
     return params
+
+
+# the JAX module's names, same arguments
+state_dict_to_params = flax_params_from_state_dict
+params_to_state_dict = state_dict_from_flax_params
 
 
 def _algorithm(optimizer) -> str:

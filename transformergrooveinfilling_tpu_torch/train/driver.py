@@ -14,13 +14,19 @@ The dropout and shuffle generator of an epoch block is seeded from ``(seed +
 run stopped and resumed from its checkpoint trains exactly as the
 uninterrupted run does.
 
-Not ported yet, each raising ``NotPortedError``: ``run_training``'s
-evaluators (ROADMAP A5), ``streamer`` and ``regen_cadence`` (A4), a ``plan``
-(multi-device, A10) and ``TGI_PROFILE`` traces.
+``run_training`` also takes a host ``streamer`` (``data/pipeline.py``) whose
+generations it swaps into the resident tensors every ``regen_cadence`` blocks
+(an int, or ``"auto"``: fit a generation's build time into the blocks it
+serves), a partial generation written in place; and with ``TGI_PROFILE`` set
+and a run active it writes a ``torch.profiler`` trace of the first block to
+``<run dir>/profile``. Not ported yet, each raising ``NotPortedError``:
+``run_training``'s evaluators (ROADMAP A5) and a ``plan`` (multi-device and
+multi-process streaming, A10).
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import os
 import signal
@@ -233,6 +239,53 @@ def block_generator(seed: int, epoch: int, device) -> torch.Generator:
     return torch.Generator(device).manual_seed(((seed + 1) << 32) | int(epoch))
 
 
+def _slab_update(full: torch.Tensor, slab: np.ndarray, start: int) -> torch.Tensor:
+    """Write ``slab`` over ``full[start:start + len(slab)]`` in place, on the
+    current stream: after every kernel already queued there (the previous
+    block's reads) and before the next block's. On a CUDA tensor the slab is
+    copied through pinned host memory without blocking the host; PyTorch's
+    pinned-memory allocator keeps that buffer until the copy has run, and the
+    returned buffer is the caller's to hold as well."""
+    src = torch.from_numpy(np.ascontiguousarray(slab, np.float32))
+    if full.is_cuda:
+        src = src.pin_memory()
+    full[start:start + src.shape[0]].copy_(src, non_blocking=full.is_cuda)
+    return src
+
+
+def _next_cadence(cadence: int, pending: int | None, gen_s: float, block_s: float):
+    """The auto regen cadence after a block: the fewest blocks whose time
+    covers one generation's build (``gen_s <= cadence · block_s``). A rise
+    applies at once; a fall needs two blocks in a row that agree on it (a
+    generation about as long as a block would flap between 1 and 2
+    otherwise). → ``(cadence, pending)``."""
+    want = max(1, int(np.ceil(gen_s / max(block_s, 1e-9))))
+    if want >= cadence:
+        return want, None
+    if want == pending:
+        return want, None
+    return cadence, want
+
+
+@contextlib.contextmanager
+def _device_trace(profile_dir: str, device: torch.device):
+    """A ``torch.profiler`` trace (CPU ops and, on a CUDA device, its kernels,
+    from every thread) of the ``with`` body, written as one Chrome trace
+    ``profile_dir/trace.json``; the device is synchronised before the trace
+    closes, so every kernel of the body is in it."""
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if device.type == "cuda":
+        activities.append(ProfilerActivity.CUDA)
+    os.makedirs(profile_dir, exist_ok=True)
+    with profile(activities=activities) as prof:
+        yield
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+    prof.export_chrome_trace(os.path.join(profile_dir, "trace.json"))
+
+
 def run_training(hp: HyperParams, dataset, evaluators: dict | None = None, *,
                  bundle: ModelBundle | None = None, initial_epoch: int = 0, plan=None,
                  only_final_eval: bool = False, dump_eval: bool = False,
@@ -249,36 +302,45 @@ def run_training(hp: HyperParams, dataset, evaluators: dict | None = None, *,
     stop check and saves happen per block. ``on_device_augment`` (from
     ``data/device_pipeline.py::make_on_device_augment``) runs inside every
     epoch, or once a block with ``augment_per_epoch=False``; pass the clean
-    grids as the dataset's ``processed_inputs``/``processed_outputs``. A
-    checkpoint is saved after every block that holds an epoch of the
-    reference schedule (``eval_log_freq``; ``only_final_eval``: the last
-    epoch only) and at a stop, by a device snapshot written on the save
-    worker, with a ``.Model`` beside it when ``export_legacy`` (encoder-only models).
-    ``watch_log_freq``: parameter and gradient histograms every that many
-    steps (None: never). ``max_wall_s``: stop after the first block that
-    crosses the wall-clock budget; SIGTERM/SIGINT stop the same way. Every
-    block logs its metrics, ``epoch_time_s`` and ``seqs_per_sec``; saves are
-    flushed before the function returns. ``_stopper``: a test hook.
+    grids as the dataset's ``processed_inputs``/``processed_outputs``.
+    ``streamer`` (``data/pipeline.py::StreamingAugmenter``, or anything with
+    ``n_samples`` and ``next_epoch``/``next_epoch_delta``) supplies the
+    arrays instead, ``streamer.n_samples`` rows of them: a fresh generation is
+    swapped in before the first block and then every ``regen_cadence``
+    blocks, or with ``"auto"`` every as many blocks as one generation takes
+    to build (the JAX driver's rule and hysteresis, :func:`_next_cadence`);
+    a partial generation's slab is written into the resident tensors in
+    place (:func:`_slab_update`). A checkpoint is saved after every block
+    that holds an epoch of the reference schedule (``eval_log_freq``;
+    ``only_final_eval``: the last epoch only) and at a stop, by a device
+    snapshot written on the save worker, with a ``.Model`` beside it when
+    ``export_legacy`` (encoder-only models). ``watch_log_freq``: parameter
+    and gradient histograms every that many steps (None: never).
+    ``max_wall_s``: stop after the first block that crosses the wall-clock
+    budget; SIGTERM/SIGINT stop the same way. Every block logs its metrics,
+    ``epoch_time_s`` and ``seqs_per_sec``; saves are flushed before the
+    function returns. With ``TGI_PROFILE`` set and a run active
+    (``utils.logging.init``), the first block runs under a ``torch.profiler``
+    trace written to ``<run dir>/profile/trace.json``. ``_stopper``: a test
+    hook.
 
     ``log_media``, ``dump_eval`` and ``media_async`` act on the evaluators'
     passes only. Not ported yet, each raising ``NotPortedError``:
-    ``evaluators`` (ROADMAP A5), ``streamer`` and ``regen_cadence`` other than 1
-    (A4), a ``plan`` (A10), ``TGI_PROFILE`` with a run active."""
+    ``evaluators`` (ROADMAP A5) and a ``plan`` (A10)."""
     if evaluators:
         raise NotPortedError("run_training(evaluators=...): held-out losses and metric "
                              "families come from the evaluators, which are not ported yet "
                              "(ROADMAP A5)")
-    if streamer is not None or regen_cadence != 1:
-        raise NotPortedError("run_training(streamer=, regen_cadence=): host-streamed "
-                             "augmentation is not ported yet (ROADMAP A4); use "
-                             "on_device_augment")
     if plan is not None:
-        raise NotPortedError("run_training(plan=...): meshes and multi-device training are "
-                             "not ported yet (ROADMAP A10); the port trains on one device")
-    run = xlog.run
-    if os.environ.get("TGI_PROFILE") and run is not None:
-        raise NotPortedError("TGI_PROFILE: device traces of a run are not ported yet "
-                             "(ROADMAP A3)")
+        raise NotPortedError("run_training(plan=...): meshes, multi-device training and "
+                             "multi-process streaming are not ported yet (ROADMAP A10); the "
+                             "port trains on one device")
+    if streamer is not None and on_device_augment is not None:
+        raise ValueError("streamer and on_device_augment are mutually exclusive")
+    auto_cadence = regen_cadence == "auto"
+    if not auto_cadence and not (isinstance(regen_cadence, int) and regen_cadence >= 1):
+        raise ValueError(f"regen_cadence must be a positive int or 'auto', got "
+                         f"{regen_cadence!r}")
     if bundle is None:
         device = require_device(device, "run_training")
         config = derive_model_config(hp, device=device)
@@ -288,9 +350,13 @@ def run_training(hp: HyperParams, dataset, evaluators: dict | None = None, *,
                              optimizer_algorithm=hp.optimizer_algorithm,
                              learning_rate=hp.learning_rate)
     dev = bundle.device
-    inputs = _device_tensor(dataset.processed_inputs, dev)
-    outputs = _device_tensor(dataset.processed_outputs, dev)
-    n = int(inputs.shape[0])
+    if streamer is not None:
+        # the first generation fills them before any use
+        n, inputs, outputs = int(streamer.n_samples), None, None
+    else:
+        inputs = _device_tensor(dataset.processed_inputs, dev)
+        outputs = _device_tensor(dataset.processed_outputs, dev)
+        n = int(inputs.shape[0])
     if n == 0:
         raise ValueError("dataset is empty")
     encoder_only = bundle.config.encoder_only
@@ -307,11 +373,16 @@ def run_training(hp: HyperParams, dataset, evaluators: dict | None = None, *,
         initial_step_all=1, secondary_step_partial=10, secondary_step_all=20,
         only_final=only_final_eval)
     scheduled = set(int(e) for e in save_partial) | set(int(e) for e in save_all)
+    run = xlog.run
     run_id = run.id if run is not None else time.strftime("%H%M%S")
+    profile_dir = (os.path.join(run.dir, "profile")
+                   if os.environ.get("TGI_PROFILE") and run is not None else None)
     steps_per_epoch = -(-n // hp.batch_size)
     steps_done = initial_epoch * steps_per_epoch
     watch_events = steps_done // watch_log_freq if watch_log_freq else 0
     watch_fn = None
+    cadence, cadence_pending, blocks_run = (1 if auto_cadence else regen_cadence), None, 0
+    slabs = ()  # the pinned host buffers of the last in-place swap, held until the next
     stopper = _stopper or _GracefulStop()
     run_start = time.time()
     try:
@@ -321,12 +392,41 @@ def run_training(hp: HyperParams, dataset, evaluators: dict | None = None, *,
                 block = min(epoch_block, hp.epochs - ep)
                 run_fn = epoch_fn if block == epoch_block else epoch_fn_of(block)
                 t0 = time.time()
-                metrics = fetch(run_fn(bundle.state, inputs, outputs,
-                                       block_generator(seed, ep, dev)))
+                if streamer is not None and blocks_run % cadence == 0:
+                    if hasattr(streamer, "next_epoch_delta"):
+                        sl, fresh_in, fresh_out = streamer.next_epoch_delta()
+                    else:  # plain next_epoch streamers (tests, custom producers)
+                        sl, (fresh_in, fresh_out) = None, streamer.next_epoch()
+                    if sl is None:
+                        if fresh_in.shape[0] != n or fresh_out.shape[0] != n:
+                            raise ValueError(
+                                f"streamer generation size {fresh_in.shape[0]} != the "
+                                f"epoch's n_samples {n}; generations must keep a constant "
+                                "size")
+                        inputs, outputs = _device_tensor(fresh_in, dev), _device_tensor(
+                            fresh_out, dev)
+                    else:
+                        slabs = (_slab_update(inputs, fresh_in, sl.start),
+                                 _slab_update(outputs, fresh_out, sl.start))
+                generator = block_generator(seed, ep, dev)
+                if profile_dir and ep == initial_epoch:
+                    with _device_trace(profile_dir, dev):
+                        metrics = fetch(run_fn(bundle.state, inputs, outputs, generator))
+                else:
+                    metrics = fetch(run_fn(bundle.state, inputs, outputs, generator))
                 ep += block  # one past the last epoch trained
                 dt = time.time() - t0
                 metrics["epoch_time_s"] = dt / block
                 metrics["seqs_per_sec"] = n * block / dt if dt > 0 else 0.0
+                blocks_run += 1
+                if streamer is not None and auto_cadence:
+                    gen_s = getattr(streamer, "last_generation_seconds", 0.0)
+                    new_cadence, cadence_pending = _next_cadence(cadence, cadence_pending,
+                                                                 gen_s, dt)
+                    if new_cadence != cadence:
+                        print(f"streaming: auto regen cadence -> every {new_cadence} "
+                              f"block(s) (generation {gen_s:.1f}s, block {dt:.1f}s)")
+                    cadence = new_cadence
                 stop_now = stopper.requested or (
                     max_wall_s is not None and time.time() - run_start > max_wall_s)
                 if stop_now:
