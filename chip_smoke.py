@@ -9,15 +9,13 @@ then non-zero):
 
 1. device   the card (``nvidia-smi`` name and power limit), torch and CUDA
             versions; TF32 is switched off for matmuls and cuDNN.
-2. build    ``csrc/fused_mha.cu``, ``csrc/fused_layer.cu``,
-            ``csrc/fused_decoder_layer.cu``, ``csrc/layer_sm90.cu``,
+2. build    ``csrc/fused_mha.cu``, ``csrc/layer_sm90.cu``,
             ``csrc/band_energies.cu``,
             ``csrc/device_synth.cu``, ``csrc/fused_ffn.cu`` and
             ``csrc/fused_ln.cu`` compiled from this checkout with nvcc,
             one process each, in parallel;
             ptxas' registers, spills, stack and static shared memory per
-            entry, and each layer kernel's dynamic shared memory at the
-            flagship shape.
+            entry, and the FFN and LN kernels' dynamic shared memory.
 3. kernel   ``fused_mha`` against ``mha_reference`` on the card, at the
             serving shapes (B 1/8/32/512 × flagship H 2 hd 128 and demo H 4
             hd 8, T 32, causal off/on; f32 at atol 1e-5, bf16 at atol and
@@ -42,33 +40,38 @@ then non-zero):
 7. latency  B = 1 p50/p99, in-process and over loopback HTTP, and rows/s
             with requests of one full bucket (32), kernel and plain attention
             in turns; where a B = 1 request's host and device time goes.
-8. layer    the whole encoder layer, bf16 through the chain of
-            ``layer_sm90.cu`` and f32 through ``fused_layer.cu``'s kernels,
+8. layer    the whole encoder layer through the chain of
+            ``layer_sm90.cu``, bf16 and f32 (its products in split TF32),
             against ``encoder_layer_reference`` at the flagship shapes (d
             256, 2 heads, ff 512, T 32), B 32 and 512, dropout 0 and 0.30
             (the same Philox masks): y, the residuals, dx and the 12
             parameter grads (f32 1e-4, bf16 2e-2 · max; ReLU kinks by
             ``layer_flips``); two runs with one seed bit-identical; forward
-            and backward timed against the twin (stream and device). bf16 at
-            B 32 and 512: every launch of the chain recorded and held to its
-            plain version on the same inputs (2e-2 · max each; the hidden
-            product's ReLU decisions to ``kink_flips`` in full), each
-            launch's device time and own bound, at B 32 its plain version's
-            and (bias products, plain products) one library call's time; the
-            layer's bound from its own inputs, weights and outputs; and
+            and backward timed against the twin (stream and device). Each
+            dtype at B 32 and 512: every launch of the chain recorded and held
+            to its plain version on the same inputs (bf16 2e-2, f32 1e-5 ·
+            max each; the hidden product's ReLU decisions to ``kink_flips``
+            in full), each launch's device time and own bound (f32 at 495/3
+            TFLOP/s and at 67), at B 32 its plain version's and (bias
+            products, plain products) one library call's time; the layer's
+            bound from its own inputs, weights and outputs; and
             ``nn.TransformerEncoderLayer`` with the same weights, forward and
-            autograd backward, at B 32 in f32 too (the library call for the
+            autograd backward, in f32 with TF32 off (the library call for the
             whole layer; the port never calls it).
 9. train    ``initialize_model`` + ``train_loop`` with the flagship YAML's
             hyperparameters (written here: the card's machine has no pyyaml;
             a CPU test holds them to the file) on seeded synthetic loops:
             the loss falls, every step launches each bf16 launch of the
-            layer chain once per layer and the f32 kernels never (launches
+            layer chain once per layer and the f32 chain never (launches
             per step by kernel); the same with ``fused_layer=False``; 3 f32
-            steps at dropout 0 through the f32 kernels against the plain
+            steps at dropout 0 through the f32 chain against the plain
             paths on the card and on the CPU;
             training throughput at batch 32 and 512 and where a step's
-            device time goes; the trained weights served by ``InfillServer``.
+            device time goes; f32 (``bf16: false``) seqs/s of the f32 chain
+            and ``fused_layer=False`` in 3 pairs of turns at batch 32 and
+            512, no profiler in the timed epochs (the numbers behind
+            ``LAYER_KERNEL_MAX_BATCH[torch.float32]``); the trained weights
+            served by ``InfillServer``.
 10. front-end kernels  ``device_synth`` against its plain version bit for
             bit, and ``band_energies_from_audio`` (framing inside the kernel)
             against its plain version on kit renders (bar 1e-4 · max|ref|: an
@@ -99,23 +102,25 @@ then non-zero):
             kernel launched the expected number of times, one augment call
             equal to the same call through the plain versions, the loss finite
             and falling, seqs/s beside the un-augmented epoch.
-14. decoder layer  the whole decoder layer (bf16: the chain of
-            ``layer_sm90.cu``; f32: ``fused_decoder_layer.cu``) against
-            ``decoder_layer_reference`` at the flagship shapes, B 32 and 512,
-            f32 and bf16, dropout 0 and 0.30: y3, the 7 residuals, dx, dmem
-            and the 20 parameter grads (phase 8's bars); reruns bit-identical;
-            forward and backward timed against the twin; in bf16 every launch
-            held to its plain version and timed, the layer's own bound and
-            ``nn.TransformerDecoderLayer``, as phase 8.
+14. decoder layer  the whole decoder layer (the chain of ``layer_sm90.cu``,
+            bf16 and f32) against ``decoder_layer_reference`` at the flagship
+            shapes, B 32 and 512, f32 and bf16, dropout 0 and 0.30: y3, the 7
+            residuals, dx, dmem and the 20 parameter grads (phase 8's bars);
+            reruns bit-identical; forward and backward timed against the
+            twin; in each dtype every launch held to its plain version and
+            timed, the layer's own bound and ``nn.TransformerDecoderLayer``,
+            as phase 8.
 15. train encoder-decoder  the 6 + 6 layer model at the flagship width
             (scripts/bench_encdec.py's) through ``initialize_model`` +
             ``train_loop(encoder_only=0)``: every step launches each encoder
             and each decoder bf16 launch 6 times (launches per step by
             kernel), the loss falls; the same with both fused switches off; 3
-            f32 steps at dropout 0 through the f32 kernels and
+            f32 steps at dropout 0 through the f32 chains and
             ``make_epoch_fn(encoder_only=False)`` against the twin path and
             the unfused path; seqs/s at batch 32 and 512, kernel path and
-            unfused path in turns; where a step's device time goes.
+            unfused path in turns; where a step's device time goes; f32
+            seqs/s of both f32 chains and both switches off in 3 pairs of
+            turns at batch 32 and 512.
 16. serve encoder-decoder  ``InfillServer`` over the same config: 18
             ``fused_mha`` launches per forward chunk (6 encoder, 6 causal
             decoder self-, 6 decoder cross-attentions), answers within 1e-4
@@ -261,7 +266,8 @@ from transformergrooveinfilling_tpu_torch.train.driver import _GracefulStop
 from transformergrooveinfilling_tpu_torch.train.loop import fetch
 from transformergrooveinfilling_tpu_torch.utils import logging as xlog
 from transformergrooveinfilling_tpu_torch.train.config import (
-    embedding_size_src_for, resolve_fused_ffn, resolve_remat,
+    embedding_size_src_for, resolve_fused_decoder_layer, resolve_fused_ffn, resolve_fused_layer,
+    resolve_remat,
 )
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -274,13 +280,10 @@ DEMO_MODEL = "demo/transformer_run_demo_Epoch_799.Model"
 BUCKETS = (1, 8, 32)
 KERNEL_SOURCE = "transformergrooveinfilling_tpu_torch/csrc/fused_mha.cu"
 TPU_KERNEL = "transformergrooveinfilling_tpu/ops/attention.py:25"
-LAYER_SOURCE = "transformergrooveinfilling_tpu_torch/csrc/fused_layer.cu"
 LAYER_SM90_SOURCE = "transformergrooveinfilling_tpu_torch/csrc/layer_sm90.cu"
-LAYER_TPU_KERNELS = {  # the Pallas kernel bodies each CUDA kernel stands in for
-    "fused_layer_fwd": "transformergrooveinfilling_tpu/ops/fused_layer.py:164",
-    "fused_layer_bwd_rows": "transformergrooveinfilling_tpu/ops/fused_layer.py:236",
-    "fused_layer_bwd_weights": "transformergrooveinfilling_tpu/ops/fused_layer.py:236",
-}
+# the Pallas kernel bodies a layer chain's forward and backward launches stand in for
+LAYER_TPU_KERNELS = {"fwd": "transformergrooveinfilling_tpu/ops/fused_layer.py:164",
+                     "bwd": "transformergrooveinfilling_tpu/ops/fused_layer.py:236"}
 # configs/InfillingRandom_training.yaml, written out (the card's machine has
 # no pyyaml); tests/test_torch_train.py holds it to the file
 FLAGSHIP_HP = {
@@ -306,14 +309,8 @@ BAND_SOURCE = "transformergrooveinfilling_tpu_torch/csrc/band_energies.cu"
 BAND_TPU_KERNEL = "transformergrooveinfilling_tpu/ops/mso_pallas.py:56"
 SYNTH_SOURCE = "transformergrooveinfilling_tpu_torch/csrc/device_synth.cu"
 SYNTH_TPU_KERNEL = "transformergrooveinfilling_tpu/ops/device_synth.py:140"
-DEC_SOURCE = "transformergrooveinfilling_tpu_torch/csrc/fused_decoder_layer.cu"
-DEC_TPU_KERNELS = {  # the Pallas kernel bodies each CUDA kernel stands in for
-    "fused_decoder_layer_fwd": "transformergrooveinfilling_tpu/ops/fused_decoder_layer.py:160",
-    "fused_decoder_layer_bwd_rows":
-        "transformergrooveinfilling_tpu/ops/fused_decoder_layer.py:236",
-    "fused_decoder_layer_bwd_weights":
-        "transformergrooveinfilling_tpu/ops/fused_decoder_layer.py:236",
-}
+DEC_TPU_KERNELS = {"fwd": "transformergrooveinfilling_tpu/ops/fused_decoder_layer.py:160",
+                   "bwd": "transformergrooveinfilling_tpu/ops/fused_decoder_layer.py:236"}
 FFN_SOURCE = "transformergrooveinfilling_tpu_torch/csrc/fused_ffn.cu"
 FFN_TPU_KERNELS = {  # the Pallas kernel bodies each CUDA kernel stands in for
     **{k: "transformergrooveinfilling_tpu/ops/fused_ffn.py:138"  # and :63
@@ -335,15 +332,17 @@ FFN_DEVICE_NAMES = {
 LN_SOURCE = "transformergrooveinfilling_tpu_torch/csrc/fused_ln.cu"
 LN_TPU_KERNELS = {"fused_ln_fwd": "transformergrooveinfilling_tpu/ops/fused_ln.py:54",
                   "fused_ln_bwd": "transformergrooveinfilling_tpu/ops/fused_ln.py:68"}
-KERNEL_NAMES = ["fused_mha", "fused_layer", "fused_decoder_layer", "layer_sm90",
-                "band_energies", "device_synth", "fused_ffn", "fused_ln"]
+KERNEL_NAMES = ["fused_mha", "layer_sm90", "band_energies", "device_synth", "fused_ffn",
+                "fused_ln"]
 # the wrappers, and the counts of launches of their kernels
 BAND, BAND_AUDIO, SYNTH = be.band_energies, be.band_energies_from_audio, ds.synth_events
 MHA, BAND_K, SYNTH_K = attention.KERNEL, be.KERNEL, ds.KERNEL
-# NVIDIA's published peaks for one H100 SXM, dense, at its 700 W limit
-PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
+# NVIDIA's published peaks for one H100 SXM, dense, at its 700 W limit; an f32
+# product on the tensor cores in split TF32 is three TF32 products (495 / 3)
+PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12, "tf32x3": 495e12 / 3}
 HBM_BYTES_PER_S = 3.35e12
 THROUGHPUT_BATCHES = (32, 512)  # the YAML's batch and bench.py's
+F32_PAIRS = 3  # paired f32 turns (chain, unfused, back to back) a batch in phases 9 and 15
 # 3 f32 steps, kernel path against the unfused plain path (cuBLAS), which
 # cannot be given the kernel's side of a ReLU kink: one such unit in the first
 # step moved a W1 row by 1.2e-4 on an H100, and the bar is about four times that
@@ -449,71 +448,19 @@ def attn_pairs(rows: int, t: int, causal: bool) -> int:
     return rows * (t + 1) // 2 if causal else rows * t
 
 
-def layer_bounds(b, dtype) -> dict:
-    """Bounds of the three layer kernels at the flagship layer, batch ``b``."""
+def layer_io_bounds(b: int, decoder: bool = False, dtype: str = "bfloat16") -> dict:
+    """The least time for a whole layer's forward and for its backward at the
+    flagship layer, batch ``b``, from the function's own inputs, weights and
+    outputs alone (no residual, no design's scratch): the forward reads x
+    (and the decoder's memory), the weights and vectors and writes y; the
+    backward reads dy, x (and memory), the weights and the LayerNorm gains and
+    writes dx (and dmem) and the f32 parameter gradients. Its operations: the
+    dense products (forward once, backward twice) and per attention QKᵀ and
+    PV forward, dP, dV, dQ and dK backward, the causal one over its T(T+1)/2
+    pairs only; in ``dtype`` bf16 at the bf16 peak, float32 at the split-TF32
+    rate (the bound) and at the CUDA cores' 67 TFLOP/s (``at_67``)."""
     d, ff, t = LAYER_SHAPE["d"], LAYER_SHAPE["ff"], LAYER_SHAPE["t"]
     m, s = b * t, 4 if dtype == "float32" else 2
-    weights = (4 * d * d + 2 * d * ff)
-    products = 2 * m * weights  # the four dense products, forward
-    attn = b * t * t * d  # one (T, T, d) product over all heads per sequence
-    scratch = m * (8 * d + ff + 2) * 4
-    return {
-        "fused_layer_fwd": bound(
-            m * d * s + weights * s + (9 * d + ff) * 4 + 4  # x, weights, vectors, seed
-            + (3 * m * d + 3 * m * d + m * ff) * s,  # y, a1, a2, qkv, h
-            products + 4 * attn, dtype),
-        "fused_layer_bwd_rows": bound(
-            (4 * m * d + 3 * m * d + m * ff) * s + weights * s + 3 * d * 4 + 4
-            + m * d * s + scratch,  # dx and the row-wise gradients
-            products + 10 * attn, dtype),  # P again, dP, dV, dQ, dK
-        "fused_layer_bwd_weights": bound(
-            (3 * m * d + 3 * m * d + m * ff) * s + 2 * d * 4 + 4 + scratch
-            + (weights + 9 * d + ff) * 4,  # f32 weight, bias and LN gradients
-            products + 4 * attn, dtype),  # the attention output again, for dWo
-    }
-
-
-def decoder_layer_bounds(b, dtype) -> dict:
-    """Bounds of the three decoder-layer kernels at the flagship layer, batch
-    ``b``: seven dense products (8d² + 2·d·ff multiply-adds a row; the TPU
-    kernel's cost estimate leaves the kv projection's 2d² out) and two
-    attentions (the causal one over its T(T+1)/2 pairs)."""
-    d, ff, t = LAYER_SHAPE["d"], LAYER_SHAPE["ff"], LAYER_SHAPE["t"]
-    m, s = b * t, 4 if dtype == "float32" else 2
-    weights = 8 * d * d + 2 * d * ff
-    products = 2 * m * weights  # the seven dense products, forward
-    # both attentions' (T, T, d) products over all heads, summed
-    attn = (attn_pairs(m, t, False) + attn_pairs(m, t, True)) * d
-    vectors = (15 * d + ff) * 4
-    scratch = m * (14 * d + ff + 4) * 4
-    return {
-        "fused_decoder_layer_fwd": bound(
-            2 * m * d * s + weights * s + vectors + 4  # y, mem, weights, vectors, seed
-            + m * (10 * d + ff) * s,  # y3, a1, qc, a2, a3, qkv, kv, h
-            products + 4 * attn, dtype),
-        "fused_decoder_layer_bwd_rows": bound(
-            m * (10 * d + ff) * s + weights * s + 3 * d * 4 + 4  # dy, 7 residuals, weights
-            + 2 * m * d * s + scratch,  # dx, dmem and the row-wise gradients
-            products + 10 * attn, dtype),  # per attention: P again, dP, dV, dQ, dK
-        "fused_decoder_layer_bwd_weights": bound(
-            m * (11 * d + ff) * s + 4 * d * 4 + 4 + scratch  # dy, y, mem, 6 residuals
-            + (weights + 15 * d + ff) * 4,  # f32 weight, bias and LN gradients
-            products + 4 * attn, dtype),  # both attention outputs again, for dWo and dWo2
-    }
-
-
-def layer_io_bounds(b: int, decoder: bool = False) -> dict:
-    """The least time for a whole layer's forward and for its backward in
-    bf16 at the flagship layer, batch ``b``, from the function's own inputs,
-    weights and outputs alone (no residual, no design's scratch): the forward
-    reads x (and the decoder's memory), the weights and vectors and writes y;
-    the backward reads dy, x (and memory), the weights and the LayerNorm
-    gains and writes dx (and dmem) and the f32 parameter gradients. Its
-    operations: the dense products (forward once, backward twice) and per
-    attention QKᵀ and PV forward, dP, dV, dQ and dK backward, the causal one
-    over its T(T+1)/2 pairs only."""
-    d, ff, t = LAYER_SHAPE["d"], LAYER_SHAPE["ff"], LAYER_SHAPE["t"]
-    m = b * t
     if decoder:
         weights, vectors, acts = 8 * d * d + 2 * d * ff, 15 * d + ff, 2
         pairs = attn_pairs(m, t, True) + attn_pairs(m, t, False)
@@ -521,14 +468,28 @@ def layer_io_bounds(b: int, decoder: bool = False) -> dict:
         weights, vectors, acts = 4 * d * d + 2 * d * ff, 9 * d + ff, 1
         pairs = attn_pairs(m, t, False)
     products = 2 * m * weights
-    return {"fwd": bound(acts * m * d * 2 + weights * 2 + vectors * 4 + m * d * 2,
-                         products + 4 * pairs * d, "bfloat16"),
-            "bwd": bound(m * d * 2 + acts * m * d * 2 + weights * 2 + 3 * d * 4
-                         + acts * m * d * 2 + (weights + vectors) * 4,
-                         2 * products + 8 * pairs * d, "bfloat16")}
+    fwd = (acts * m * d * s + weights * s + vectors * 4 + m * d * s, products + 4 * pairs * d)
+    bwd = (m * d * s + acts * m * d * s + weights * s + 3 * d * 4 + acts * m * d * s
+           + (weights + vectors) * 4, 2 * products + 8 * pairs * d)
+    return {k: op_bounds(n_bytes, flops, dtype) for k, (n_bytes, flops) in
+            (("fwd", fwd), ("bwd", bwd))}
 
 
-SM90_BAR = 2e-2  # each bf16 launch against its plain version: 2e-2 · max|ref|
+def op_bounds(n_bytes: float, flops: float, dtype: str) -> dict:
+    """``bound`` for products in ``dtype``: bf16 at its peak; float32 at the
+    split-TF32 rate, with the bound at the CUDA cores' f32 rate beside it
+    (``at_67``)."""
+    if dtype != "float32":
+        return bound(n_bytes, flops, dtype)
+    return {**bound(n_bytes, flops, "tf32x3"),
+            "at_67": bound(n_bytes, flops, "float32")["bound_ms"]}
+
+
+# each launch of a layer chain against its plain version on the same inputs,
+# · max|ref|: bf16 rounds where the plain version rounds, in another order;
+# an f32 split-TF32 product is within ~2⁻²² of each term of the f32 product
+# (a ReLU decision at the kink moves a unit within KINK_BAND[f32] · max|h|)
+SM90_BAR = {torch.bfloat16: 2e-2, torch.float32: 1e-5}
 # The share of a bf16 whole layer's hidden units (plus 4) that may fall on the
 # other side of the ReLU's kink from its twin's (``layer_flips``)
 LAYER_KINK_SHARE = 1e-4
@@ -609,7 +570,7 @@ def launch_bound(launch) -> dict:
     12·d backward (P again, dP, dS·K, dSᵀ·Q, PᵀdA and the output again) for
     each (query, key) pair it computes (``attn_pairs``),
     the weight gradients' 2·rows·m·n each; row passes and the reduce are
-    bytes."""
+    bytes. f32 products at the split-TF32 rate (``op_bounds``)."""
     seen = {}
     for t in [*tensors_in(launch.args), *tensors_in(launch.outputs)]:
         seen[(t.data_ptr(), tuple(t.shape), t.stride())] = t.numel() * t.element_size()
@@ -625,7 +586,16 @@ def launch_bound(launch) -> dict:
         flops = 12 * attn_pairs(a[0].shape[0], a[8], a[9]) * a[0].shape[1]
     elif ref is layer_sm90.weight_partials_reference:
         flops = sum(2 * dy.shape[0] * dy.shape[1] * x.shape[1] for dy, x in a[0])
-    return bound(sum(seen.values()), flops, "bfloat16")
+    dtype = "float32" if launch_dtype(launch) == torch.float32 else "bfloat16"
+    return op_bounds(sum(seen.values()), flops, dtype)
+
+
+def launch_dtype(launch):
+    """The activations' dtype of a recorded launch: bf16 where any of its
+    inputs is bf16, else f32."""
+    if any(t.dtype == torch.bfloat16 for t in tensors_in(launch.args)):
+        return torch.bfloat16
+    return torch.float32
 
 
 def launch_library(launch):
@@ -675,14 +645,15 @@ def launch_device_us(record, n: int) -> list:
     return us, count
 
 
-def sm90_launches(record, kernels: dict, plain: bool, n: int) -> dict:
-    """Every bf16 launch of one layer call, as recorded on the card: its
-    outputs held to its plain version on the same inputs (``SM90_BAR`` ·
-    max|ref| each), its device time per launch (profiler, ``n`` replays),
-    its own bound, and with ``plain`` the plain version's and the library
-    call's stream time. Keyed by the counted kernel's name."""
+def sm90_launches(record, kernels: dict, plain: bool, n: int, dtype=torch.bfloat16) -> dict:
+    """Every launch of one layer call's chain in ``dtype``, as recorded on the
+    card: its outputs held to its plain version on the same inputs
+    (``SM90_BAR[dtype]`` · max|ref| each), its device time per launch
+    (profiler, ``n`` replays), its own bound, and with ``plain`` the plain
+    version's and the library call's stream time. Keyed by the counted
+    kernel's name."""
     names = {id(k): name for name, k in kernels.items()}
-    rows = {}
+    rows, bar = {}, SM90_BAR[dtype]
     for launch in record:
         name = names[id(launch.kernel)]
         want = launch.reference(*launch.args, **launch.kwargs)
@@ -690,7 +661,7 @@ def sm90_launches(record, kernels: dict, plain: bool, n: int) -> dict:
         err = 0.0
         for got, ref in zip(launch.outputs, want, strict=True):
             e, top = max_err(got, ref), float(ref.float().abs().max())
-            check(e <= SM90_BAR * top, f"{name}: {e} > {SM90_BAR} * {top}")
+            check(e <= bar * top, f"{name}: {e} > {bar} * {top}")
             err = max(err, e)
         rows[name] = {"max_abs_err": err, **launch_bound(launch)}
         if launch.reference is layer_sm90.hidden_reference:  # band and share, in full
@@ -712,7 +683,9 @@ def library_layer(args, dy, b: int, decoder: bool) -> dict:
     ReLU, batch_first, dropout 0.30, training mode, in the dtype of
     ``args``: bf16 and f32 both) with the layer's
     weights: forward, and its autograd backward, stream and device time. The
-    port never calls it; it is the yardstick one PyTorch call gives."""
+    port never calls it; it is the yardstick one PyTorch call gives. In f32
+    its products are cuBLAS SGEMMs: TF32 is off for matmuls and cuDNN
+    (``phase_device`` sets both, and ``tf32`` in the result reads them)."""
     h_, t = LAYER_SHAPE["h"], LAYER_SHAPE["t"]
     d, ff = LAYER_SHAPE["d"], LAYER_SHAPE["ff"]
     dev, dtype = args[0].device, args[0].dtype
@@ -765,7 +738,9 @@ def library_layer(args, dy, b: int, decoder: bool) -> dict:
     f1, b1_, b2_, f2 = (time_us(fn, n) / 1000.0 for fn in (fwd, bwd, bwd, fwd))
     return {"fwd_ms": [f1, f2], "bwd_ms": [b1_, b2_],
             "fwd_device_ms": sum(us for us, _ in device_us(fwd, n=3).values()) / 1000.0,
-            "bwd_device_ms": sum(us for us, _ in device_us(bwd, n=3).values()) / 1000.0}
+            "bwd_device_ms": sum(us for us, _ in device_us(bwd, n=3).values()) / 1000.0,
+            "tf32": {"matmul": torch.backends.cuda.matmul.allow_tf32,
+                     "cudnn": torch.backends.cudnn.allow_tf32}}
 
 
 def band_bound(n: int, n_fft: int = 1024, n_bands: int = 16) -> dict:
@@ -849,18 +824,6 @@ def phase_build() -> None:
                  if "registers" in line or "spill" in line or "Compiling entry" in line]
         emit({"phase": "build", "kernel": name, "seconds": time.perf_counter() - t0,
               "nvcc_seconds": info["seconds"], "ptxas": ptxas})
-    d, h, ff, t = LAYER_SHAPE["d"], LAYER_SHAPE["h"], LAYER_SHAPE["ff"], LAYER_SHAPE["t"]
-    emit({"phase": "build", "kernel": "fused_layer", "dynamic_smem_bytes_at_flagship": {
-        "layer_fwd": fl.fwd_smem_bytes(t, d, ff),
-        "layer_bwd_rows": fl.bwd_rows_smem_bytes(t, d, ff),
-        "layer_bwd_weights": fl.bwd_weights_smem_bytes(t, d, h)},
-        "limit": fl.MAX_SMEM_BYTES})
-    emit({"phase": "build", "kernel": "fused_decoder_layer",
-          "dynamic_smem_bytes_at_flagship": {
-              "dec_fwd": fl.fwd_smem_bytes(t, d, ff),
-              "dec_bwd_rows": fdl.bwd_rows_smem_bytes(t, d, ff),
-              "dec_bwd_weights": fl.bwd_weights_smem_bytes(t, d, h)},
-          "limit": fl.MAX_SMEM_BYTES})
     emit({"phase": "build", "kernel": "fused_ffn, fused_ln", "dynamic_smem_bytes": {
         f"d {d}": {"ffn_fwd, ffn_bwd_rows (f32)": ffn.rows_smem_bytes(d), "ln_fwd": 0,
                    "ln_bwd": ln.bwd_smem_bytes(d, torch.bfloat16)} for d in (256, 1024)},
@@ -1197,15 +1160,21 @@ def layer_device_times(kf, kb, pf, pb) -> dict:
             "plain_bwd_device_us": sum(us for us, _ in device_us(pb, n=3).values())}
 
 
+# the timed cases of phases 8 and 14: both dtypes at the YAML's batch and bench.py's
+LAYER_TIMINGS = ((32, torch.bfloat16), (512, torch.bfloat16), (32, torch.float32),
+                 (512, torch.float32))
+
+
 def phase_layer(dev, rng) -> dict:
-    """The three layer kernels against ``encoder_layer_reference`` on the
-    card. Bars: f32 atol 1e-4 on y and the residuals, and 1e-4 · max|grad|
-    on each grad (sums taken in another order); bf16 2e-2 · max|ref| on
-    everything (bf16 rounds P, attention, y1, h and the weight grads, and the
-    kernel rounds its backward's intermediates where the TPU kernel does,
-    autograd does not). The masks are equal (the same Philox bytes). A hidden
-    unit within rounding of 0 may fall on either side of the ReLU's kink: the
-    twin takes the kernel's side at such units only (``kink_flips``: within
+    """The encoder layer's chain, bf16 and f32, against
+    ``encoder_layer_reference`` on the card. Bars: f32 atol 1e-4 on y and the
+    residuals, and 1e-4 · max|grad| on each grad (sums taken in another order,
+    the products in split TF32); bf16 2e-2 · max|ref| on everything (bf16
+    rounds P, attention, y1, h and the weight grads, and the kernel rounds its
+    backward's intermediates where the TPU kernel does, autograd does not).
+    The masks are equal (the same Philox bytes). A hidden unit within
+    rounding of 0 may fall on either side of the ReLU's kink: the twin takes
+    the kernel's side at such units only (``kink_flips``: within
     ``KINK_BAND`` of 0, and few), and its own everywhere else."""
     h_, t = LAYER_SHAPE["h"], LAYER_SHAPE["t"]
     checks, worst = [], {torch.float32: 0.0, torch.bfloat16: 0.0}
@@ -1248,7 +1217,7 @@ def phase_layer(dev, rng) -> dict:
                                "max_abs_err": errs, "bitwise_repeat": bitwise,
                                "relu_kink_flips": kink})
     timings = []
-    for b, dtype in ((32, torch.bfloat16), (512, torch.bfloat16), (32, torch.float32)):
+    for b, dtype in LAYER_TIMINGS:
         args, dy = layer_case(dev, rng, b, dtype)
         seed = torch.tensor([7], dtype=torch.int32, device=dev)
         res = fl.layer_forward(*args, seed, 0.3, h_, t)
@@ -1265,18 +1234,16 @@ def phase_layer(dev, rng) -> dict:
                 fl.encoder_layer_reference(*args, seed, 0.3, h_, t)
 
         pb = lambda: torch.autograd.grad(y_ref, leaves, dy, retain_graph=True)  # noqa: E731
-        row = {"B": b, "dtype": str(dtype)[6:], "rate": 0.3,
-               "bounds": layer_bounds(b, str(dtype)[6:])}
+        row = {"B": b, "dtype": str(dtype)[6:], "rate": 0.3}
         for key, k, p in (("fwd", kf, pf), ("bwd", kb, pb)):
             k1, p1, p2, k2 = (time_us(f, n) / 1000.0 for f in (k, p, p, k))
             row[f"{key}_kernel_ms"], row[f"{key}_plain_ms"] = [k1, k2], [p1, p2]
         row.update(layer_device_times(kf, kb, pf, pb))
-        if dtype == torch.bfloat16:
-            with layer_sm90.recording() as record:
-                kb(kf())
-            row["launches"] = sm90_launches(record, fl.SM90_KERNELS, plain=b == 32,
-                                            n=20 if b == 32 else 5)
-            row["io_bounds"] = layer_io_bounds(b)
+        with layer_sm90.recording() as record:
+            kb(kf())
+        row["launches"] = sm90_launches(record, fl.route_kernels(dtype), plain=b == 32,
+                                        n=20 if b == 32 else 5, dtype=dtype)
+        row["io_bounds"] = layer_io_bounds(b, dtype=str(dtype)[6:])
         row["library"] = library_layer(args, dy, b, decoder=False)
         timings.append(row)
     emit({"phase": "layer", "shape": LAYER_SHAPE, "checks": checks,
@@ -1321,9 +1288,10 @@ def decoder_backward_args(args, res, seed):
 
 
 def phase_decoder_layer(dev, rng) -> dict:
-    """The three decoder-layer kernels against ``decoder_layer_reference`` on
-    the card: y3, the seven residuals, dx, dmem and the 20 parameter grads.
-    Bars, masks and ReLU kinks as ``phase_layer``'s."""
+    """The decoder layer's chain, bf16 and f32, against
+    ``decoder_layer_reference`` on the card: y3, the seven residuals, dx, dmem
+    and the 20 parameter grads. Bars, masks and ReLU kinks as
+    ``phase_layer``'s."""
     h_, t = LAYER_SHAPE["h"], LAYER_SHAPE["t"]
     checks, worst = [], {torch.float32: 0.0, torch.bfloat16: 0.0}
     for b in (32, 512):
@@ -1368,7 +1336,7 @@ def phase_decoder_layer(dev, rng) -> dict:
                                "max_abs_err": errs, "bitwise_repeat": bitwise,
                                "relu_kink_flips": kink})
     timings = []
-    for b, dtype in ((32, torch.bfloat16), (512, torch.bfloat16), (32, torch.float32)):
+    for b, dtype in LAYER_TIMINGS:
         args, dy = decoder_case(dev, rng, b, dtype)
         seed = torch.tensor([7], dtype=torch.int32, device=dev)
         res = fdl.layer_forward(*args, seed, 0.3, h_, t)
@@ -1385,18 +1353,16 @@ def phase_decoder_layer(dev, rng) -> dict:
                 fdl.decoder_layer_reference(*args, seed, 0.3, h_, t)
 
         pb = lambda: torch.autograd.grad(y_ref, leaves, dy, retain_graph=True)  # noqa: E731
-        row = {"B": b, "dtype": str(dtype)[6:], "rate": 0.3,
-               "bounds": decoder_layer_bounds(b, str(dtype)[6:])}
+        row = {"B": b, "dtype": str(dtype)[6:], "rate": 0.3}
         for key, k, p in (("fwd", kf, pf), ("bwd", kb, pb)):
             k1, p1, p2, k2 = (time_us(f, n) / 1000.0 for f in (k, p, p, k))
             row[f"{key}_kernel_ms"], row[f"{key}_plain_ms"] = [k1, k2], [p1, p2]
         row.update(layer_device_times(kf, kb, pf, pb))
-        if dtype == torch.bfloat16:
-            with layer_sm90.recording() as record:
-                kb(kf())
-            row["launches"] = sm90_launches(record, fdl.SM90_KERNELS, plain=b == 32,
-                                            n=20 if b == 32 else 5)
-            row["io_bounds"] = layer_io_bounds(b, decoder=True)
+        with layer_sm90.recording() as record:
+            kb(kf())
+        row["launches"] = sm90_launches(record, fdl.route_kernels(dtype), plain=b == 32,
+                                        n=20 if b == 32 else 5, dtype=dtype)
+        row["io_bounds"] = layer_io_bounds(b, decoder=True, dtype=str(dtype)[6:])
         row["library"] = library_layer(args, dy, b, decoder=True)
         timings.append(row)
     emit({"phase": "decoder_layer", "shape": LAYER_SHAPE, "checks": checks,
@@ -1440,10 +1406,38 @@ class Loops:
         ).astype(np.float32)
 
 
-# encoder and decoder layer kernels: the bf16 chains' launches, the f32 kernels
+# encoder and decoder layer kernels: each dtype's chain, counted apart
 SM90_LAYER_KERNELS = {**fl.SM90_KERNELS, **fdl.SM90_KERNELS}
-F32_LAYER_KERNELS = {**fl.KERNELS, **fdl.KERNELS}
+F32_LAYER_KERNELS = {**fl.SM90_F32_KERNELS, **fdl.SM90_F32_KERNELS}
 LAYER_KERNELS = {**SM90_LAYER_KERNELS, **F32_LAYER_KERNELS}
+N_FWD = {fl: 5, fdl: 9}  # each chain's forward launches, its first
+
+
+def f32_step_launches(mod, steps: int, layers: int) -> dict:
+    """What ``steps`` f32 training steps launch of ``mod``'s f32 chain over
+    ``layers`` layers under ``fused_layers_as("kernel")``: each forward
+    launch twice a layer call (it records h), each backward launch once."""
+    return {k: (2 if i < N_FWD[mod] else 1) * steps * layers
+            for i, k in enumerate(mod.SM90_F32_KERNELS)}
+
+
+def paired_turns(models: dict, corpus, b: int, encoder_only: int = 1) -> dict:
+    """seqs/s of ``models["kernel"]`` and ``models["unfused"]`` in
+    ``F32_PAIRS`` pairs of turns run back to back (each pair's order swapped
+    from the last; a warm-up epoch each first; no profiler): the turns, each
+    pair's ratio, the worst pair's gain (its ratio − 1), each path's spread
+    between its own turns (max / min − 1), and whether the worst pair gains
+    by more than the larger spread."""
+    for model in models.values():
+        seqs_per_s(model, corpus, b, encoder_only)
+    turns = {"kernel": [], "unfused": []}
+    for i in range(F32_PAIRS):
+        for which in ("kernel", "unfused") if i % 2 == 0 else ("unfused", "kernel"):
+            turns[which].append(seqs_per_s(models[which], corpus, b, encoder_only))
+    ratios = [k / u for k, u in zip(turns["kernel"], turns["unfused"])]
+    spread = max(max(v) / min(v) - 1 for v in turns.values())
+    return {"seqs_per_s": turns, "pair_ratios": ratios, "worst_pair_gain": min(ratios) - 1,
+            "spread": spread, "gains": min(ratios) - 1 > spread}
 
 
 def launches(kernels) -> dict:
@@ -1556,7 +1550,7 @@ def phase_train(dev, rng) -> dict:
     check(all(c == steps * n_layers for c in counts.values())
           and not any(launches(F32_LAYER_KERNELS).values()),
           f"layer launches {counts}, expected {steps * n_layers} each ({steps} steps x "
-          f"{n_layers} layers), and the f32 kernels {launches(F32_LAYER_KERNELS)}, expected 0")
+          f"{n_layers} layers), and the f32 chain {launches(F32_LAYER_KERNELS)}, expected 0")
     losses = [m["loss"] for m in metrics]
     check(all(np.isfinite(v) for m in metrics for v in m.values()), f"non-finite: {metrics}")
     check(losses[-1] < losses[0], f"loss did not fall: {losses}")
@@ -1595,9 +1589,8 @@ def phase_train(dev, rng) -> dict:
                 step(b.state, x[32 * i:32 * i + 32].to(device),
                      y[32 * i:32 * i + 32].to(device), None, gen)
         three[name] = {k: v.detach().cpu() for k, v in b.model.state_dict().items()}
-    f32_counts = launches(fl.KERNELS)  # the forward twice a call: fused_layers_as records h
-    check(f32_counts == {"fused_layer_fwd": 2 * 3 * n_layers, "fused_layer_bwd_rows": 3 * n_layers,
-                         "fused_layer_bwd_weights": 3 * n_layers}
+    f32_counts = launches(fl.SM90_F32_KERNELS)  # ... and ends here
+    check(f32_counts == f32_step_launches(fl, 3, n_layers)
           and not any(launches(SM90_LAYER_KERNELS).values()),
           f"3 f32 steps launched {launches(LAYER_KERNELS)}")
     param_err = {other: max(max_err(three["kernel"][k], three[other][k]) for k in three["kernel"])
@@ -1629,6 +1622,19 @@ def phase_train(dev, rng) -> dict:
     breakdown = {b: step_breakdown(initialize_model(flagship_params(), dev)[0], b, 3)
                  for b in THROUGHPUT_BATCHES}
 
+    # f32 (bf16: false), the f32 chain against fused_layer=False in paired
+    # turns: the numbers that set LAYER_KERNEL_MAX_BATCH[torch.float32]
+    f32_turns = {}
+    for b in THROUGHPUT_BATCHES:
+        models = {which: initialize_model(flagship_params(bf16=False, fused_layer=fused), dev)[0]
+                  for which, fused in (("kernel", True), ("unfused", False))}
+        check(models["kernel"].config.compute_dtype == torch.float32,
+              f"bf16=False did not train in f32: {models['kernel'].config}")
+        f32_turns[b] = paired_turns(models, data if b == batch else big, b)
+        f32_turns[b]["auto_picks_kernel"] = resolve_fused_layer(
+            None, FLAGSHIP.d_model, FLAGSHIP.n_heads, FLAGSHIP.dim_feedforward,
+            compute_dtype=torch.float32, batch_size=b)
+
     # the trained weights served by the serving slice, against the CPU plain path
     sd = {k: v.detach().cpu() for k, v in bundle.model.state_dict().items()}
     srv = serve.InfillServer(sd, FLAGSHIP, batch_sizes=BUCKETS, device=dev)
@@ -1648,8 +1654,9 @@ def phase_train(dev, rng) -> dict:
           "three_f32_steps_param_err": param_err,
           "three_f32_steps_kink_flips": kinks, "unfused_bar": UNFUSED_BAR,
           "seqs_per_s": throughput, "step_breakdown": breakdown,
-          "served_max_abs_err_vs_cpu": serve_err})
-    return {"launches": counts, "f32_launches": f32_counts, "seqs_per_s": throughput}
+          "f32_paired_turns": f32_turns, "served_max_abs_err_vs_cpu": serve_err})
+    return {"launches": counts, "f32_launches": f32_counts, "seqs_per_s": throughput,
+            "f32_paired_turns": f32_turns}
 
 
 def augment_corpus():
@@ -2136,7 +2143,7 @@ def phase_train_encdec(dev, rng) -> dict:
     check(all(c == steps * ENCDEC_LAYERS for c in counts.values())
           and not any(launches(F32_LAYER_KERNELS).values()),
           f"layer launches {counts}, expected {steps * ENCDEC_LAYERS} each ({steps} steps x "
-          f"{ENCDEC_LAYERS} encoder and {ENCDEC_LAYERS} decoder layers), and the f32 kernels "
+          f"{ENCDEC_LAYERS} encoder and {ENCDEC_LAYERS} decoder layers), and the f32 chains "
           f"{launches(F32_LAYER_KERNELS)}, expected 0")
     losses = [m["loss"] for m in metrics]
     check(all(np.isfinite(v) for m in metrics for v in m.values()), f"non-finite: {metrics}")
@@ -2165,9 +2172,9 @@ def phase_train_encdec(dev, rng) -> dict:
             epoch_fn(b.state, x, y, torch.Generator(dev).manual_seed(0))
         check(b.state.step == 3, f"{name}: {b.state.step} steps, expected 3")
         three[name] = {k: v.detach().cpu() for k, v in b.model.state_dict().items()}
-    f32_counts = launches(F32_LAYER_KERNELS)  # the forwards twice a call (fused_layers_as)
-    check(all(c == (2 if k.endswith("fwd") else 1) * 3 * ENCDEC_LAYERS
-              for k, c in f32_counts.items())
+    f32_counts = launches(F32_LAYER_KERNELS)  # ... and ends here
+    check(f32_counts == {**f32_step_launches(fl, 3, ENCDEC_LAYERS),
+                         **f32_step_launches(fdl, 3, ENCDEC_LAYERS)}
           and not any(launches(SM90_LAYER_KERNELS).values()),
           f"3 f32 steps launched {launches(LAYER_KERNELS)}")
     param_err = {other: max(max_err(three["kernel"][k], three[other][k]) for k in three["kernel"])
@@ -2190,6 +2197,18 @@ def phase_train_encdec(dev, rng) -> dict:
     # where a step's device time goes (kernel path)
     breakdown = {b: step_breakdown(initialize_model(params(), dev)[0], b, 33, 0)
                  for b in THROUGHPUT_BATCHES}
+
+    # f32, both f32 chains against both fused switches off in paired turns
+    # (4 steps a turn at batch 512)
+    f32_turns, f32_big = {}, Loops(2048, 31)
+    for b in THROUGHPUT_BATCHES:
+        models = {"kernel": initialize_model(params(bf16=False, fused_layer=True,
+                                                    fused_decoder_layer=True), dev)[0],
+                  "unfused": initialize_model(params(bf16=False, **unfused), dev)[0]}
+        f32_turns[b] = paired_turns(models, data if b == batch else f32_big, b, 0)
+        f32_turns[b]["auto_picks_kernel"] = resolve_fused_decoder_layer(
+            None, ENCDEC.d_model, ENCDEC.n_heads, ENCDEC.dim_feedforward,
+            compute_dtype=torch.float32, batch_size=b)
     emit({"phase": "train_encdec",
           "config": {**FLAGSHIP_HP, "encoder_only": 0, "num_decoder_layers": ENCDEC_LAYERS},
           "data": "256 seeded synthetic loops (512 for the rates at batch 512)",
@@ -2199,8 +2218,10 @@ def phase_train_encdec(dev, rng) -> dict:
           "three_f32_steps_launches": f32_counts, "losses": losses,
           "last_metrics": metrics[-1], "unfused_losses": plain_losses,
           "three_f32_steps_param_err": param_err, "three_f32_steps_kink_flips": kinks,
-          "unfused_bar": UNFUSED_BAR, "seqs_per_s": throughput, "step_breakdown": breakdown})
-    return {"launches": counts, "f32_launches": f32_counts, "seqs_per_s": throughput}
+          "unfused_bar": UNFUSED_BAR, "seqs_per_s": throughput, "step_breakdown": breakdown,
+          "f32_paired_turns": f32_turns})
+    return {"launches": counts, "f32_launches": f32_counts, "seqs_per_s": throughput,
+            "f32_paired_turns": f32_turns}
 
 
 def phase_serve_encdec(dev, rng, enc_srv) -> dict:
@@ -3470,71 +3491,57 @@ def main() -> int:
     def timing(phase_out, b, dtype):
         return next(t for t in phase_out["timings"] if t["B"] == b and t["dtype"] == dtype)
 
-    # per layer: the phase, its module, its sources, the f32 kernels' bounds,
-    # the main path's launches and the forward's launch count
-    layers = (("encoder", layer, fl, LAYER_SOURCE, LAYER_TPU_KERNELS, layer_bounds, train, 5,
+    # per layer: the phase, its module, the TPU kernel bodies, the training
+    # phase (its main path's bf16 launches and 3 f32 steps), the forward's
+    # launch count, and the bf16 launches of further paths
+    layers = (("encoder", layer, fl, LAYER_TPU_KERNELS, train,
                {"launches_audio_augment_path": augmented["launches"],
                 "launches_encdec_training_path": encdec["launches"],
                 "launches_checkpoint_path": saved["launches"],
                 **{f"launches_cli_train_{mode}": run["launches"]
                    for mode, run in cli["train"].items()}}),
-              ("decoder", dec_layer, fdl, DEC_SOURCE, DEC_TPU_KERNELS, decoder_layer_bounds,
-               encdec, 9, {}))
-    for which, out, mod, source, tpu, bounds_of, path, n_fwd, more in layers:
-        f32_32, bounds32 = timing(out, 32, "float32"), bounds_of(32, "float32")
-        fwd_key, bwd_key = list(tpu)[0], list(tpu)[1]
-        for kname, k in mod.KERNELS.items():
-            # mean per captured launch (the profiler may lose events)
-            device_ms = sum(us / f32_32["kernel_device_launches"][name]
-                            for name, us in f32_32["kernel_device_us"].items()
-                            if k.entry.removeprefix("tgi_") in name) / 1000.0
-            part = "fwd" if kname.endswith("fwd") else "bwd"
-            library = f32_32["library"]
-            kernels.append({
-                "name": kname, "route": "cuda", "source": source, "replaces": tpu[kname],
-                "launches": path["f32_launches"][kname],
-                "max_abs_err": out["max_abs_err"][torch.float32], "ms": device_ms,
-                "plain_ms": float(np.mean(f32_32[f"{part}_plain_ms"])),
-                "bound_ms": bounds32[kname]["bound_ms"],
-                "bound_by": bounds32[kname]["bound_by"],
-                "library_ms": float(np.mean(library[f"{part}_ms"])),
-                "library_device_ms": library[f"{part}_device_ms"],
-                "at": f"the {which} layer's f32 route: B 32, T 32, d 256, 2 heads, ff 512, "
-                      "float32, rate 0.30; launches: the 3 f32 training steps (the forward "
-                      "twice a call there); ms: device time per call; plain_ms: the twin's "
-                      "whole forward (fwd) or autograd backward (both backward kernels) on "
-                      "the stream; library: nn.Transformer"
-                      f"{which.title()}Layer in f32, its forward (fwd) or autograd backward "
-                      "(both backward kernels), on the stream and as device time; err: the "
-                      "largest over the f32 layer checks"})
-        at32, at512 = timing(out, 32, "bfloat16"), timing(out, 512, "bfloat16")
-        for i, kname in enumerate(mod.SM90_KERNELS):
-            l32, l512 = at32["launches"][kname], at512["launches"][kname]
-            kernels.append({
-                "name": kname, "route": "cuda", "source": LAYER_SM90_SOURCE,
-                "replaces": tpu[fwd_key if i < n_fwd else bwd_key],
-                "launches": path["launches"][kname],
-                **{key: counts[kname] for key, counts in more.items()},
-                "max_abs_err": max(l32["max_abs_err"], l512["max_abs_err"]),
-                "ms": l32["device_ms"], "plain_ms": l32["plain_ms"],
-                "bound_ms": l32["bound_ms"], "bound_by": l32["bound_by"],
-                "library_ms": l32["library_ms"],
-                "B512": {"ms": l512["device_ms"], "bound_ms": l512["bound_ms"],
-                         "bound_by": l512["bound_by"]},
-                "layer_B32": {"fwd_device_ms": at32["kernel_fwd_device_ms"],
-                              "bwd_device_ms": at32["kernel_bwd_device_ms"],
-                              "io_bounds_ms": {k: v["bound_ms"]
-                                               for k, v in at32["io_bounds"].items()},
-                              "library_fwd_device_ms": at32["library"]["fwd_device_ms"],
-                              "library_bwd_device_ms": at32["library"]["bwd_device_ms"]},
-                "at": f"the {which} layer's bf16 chain: B 32 (B512: batch 512), T 32, d 256, "
-                      "2 heads, ff 512, rate 0.30; ms: device time per launch (profiler); "
-                      "plain_ms: its plain version on the stream; bound: this launch's own "
-                      "bytes and operations; library: F.linear (bias products) or one matmul "
-                      "(products without residual), else none; err: the largest over every "
-                      "output at B 32 and 512, each held to 2e-2 of its largest value; "
-                      "layer_B32: the whole layer, the bound from its own inputs, weights "
-                      f"and outputs, the library call nn.Transformer{which.title()}Layer"})
+              ("decoder", dec_layer, fdl, DEC_TPU_KERNELS, encdec, {}))
+    for which, out, mod, tpu, path, more in layers:
+        for dtype in (torch.bfloat16, torch.float32):
+            dname = str(dtype)[6:]
+            at32, at512 = timing(out, 32, dname), timing(out, 512, dname)
+            f32 = dtype == torch.float32
+            main_path = path["f32_launches"] if f32 else path["launches"]
+            for i, kname in enumerate(mod.route_kernels(dtype)):
+                l32, l512 = at32["launches"][kname], at512["launches"][kname]
+                kernels.append({
+                    "name": kname, "route": "cuda", "source": LAYER_SM90_SOURCE,
+                    "replaces": tpu["fwd" if i < N_FWD[mod] else "bwd"],
+                    "launches": main_path[kname],
+                    **({} if f32 else {key: counts[kname] for key, counts in more.items()}),
+                    "max_abs_err": max(l32["max_abs_err"], l512["max_abs_err"]),
+                    "ms": l32["device_ms"], "plain_ms": l32["plain_ms"],
+                    "bound_ms": l32["bound_ms"], "bound_by": l32["bound_by"],
+                    **({"bound_ms_at_67_tflops": l32["at_67"]} if f32 else {}),
+                    "library_ms": l32["library_ms"],
+                    "B512": {"ms": l512["device_ms"], "bound_ms": l512["bound_ms"],
+                             "bound_by": l512["bound_by"]},
+                    **{f"layer_B{b}": {
+                        "fwd_device_ms": row["kernel_fwd_device_ms"],
+                        "bwd_device_ms": row["kernel_bwd_device_ms"],
+                        "io_bounds_ms": {k: v["bound_ms"] for k, v in row["io_bounds"].items()},
+                        "library_fwd_device_ms": row["library"]["fwd_device_ms"],
+                        "library_bwd_device_ms": row["library"]["bwd_device_ms"]}
+                       for b, row in ((32, at32), (512, at512))},
+                    "at": f"the {which} layer's {dname} chain: B 32 (B512: batch 512), T 32, "
+                          "d 256, 2 heads, ff 512, rate 0.30; ms: device time per launch "
+                          "(profiler); plain_ms: its plain version on the stream; bound: this "
+                          "launch's own bytes and operations"
+                          + (" (f32 products at 495/3 TFLOP/s, three TF32 products each; "
+                             "bound_ms_at_67_tflops: at the CUDA cores' f32 rate)" if f32 else "")
+                          + "; library: F.linear (bias products) or one matmul (products "
+                          "without residual), else none; err: the largest over every output "
+                          f"at B 32 and 512, each held to {SM90_BAR[dtype]} of its largest "
+                          "value; layer_B32/B512: the whole layer, the bound from its own "
+                          "inputs, weights and outputs, the library call "
+                          f"nn.Transformer{which.title()}Layer in {dname}"
+                          + (" (TF32 off); launches: the 3 f32 training steps (each forward "
+                             "launch twice a layer call there)" if f32 else "")})
     band1, band64 = front["band_timings"]
     frames418, frames26752 = front["band_frame_timings"]
     synth1, synth64, synth256 = front["synth_timings"]

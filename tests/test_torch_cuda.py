@@ -161,13 +161,13 @@ def _layer_inputs(cuda, rng, t, d, ff, nseq, dtype):
 def test_layer_kernels_match_the_twin(cuda, rng, t, d, h, ff, nseq, dtype, rate):
     """Forward, row backward and weight gradients against
     encoder_layer_reference (same masks; the kernel's side of the ReLU only
-    at units within rounding of 0, kink_flips); f32: summation order only,
-    bf16: the backward's rounding points differ from autograd's. Each launch
-    of the dtype's route once (bf16: the chain of csrc/layer_sm90.cu, f32:
-    the kernels of csrc/fused_layer.cu), the other route's none."""
+    at units within rounding of 0, kink_flips); f32: summation order and the
+    split TF32 products, bf16: the backward's rounding points differ from
+    autograd's. Each launch of the dtype's chain of csrc/layer_sm90.cu once,
+    the other dtype's none."""
     args, dy = _layer_inputs(cuda, rng, t, d, ff, nseq, dtype)
     seed = torch.tensor([99], dtype=torch.int32, device=cuda)
-    every = {**fused_layer.KERNELS, **fused_layer.SM90_KERNELS}
+    every = {**fused_layer.SM90_F32_KERNELS, **fused_layer.SM90_KERNELS}
     before = {k: f.launches for k, f in every.items()}
     leaves = [a.detach().clone().requires_grad_(True) for a in args]
     y = fused_layer.encoder_layer_train(*leaves, seed, rate, h, t)
@@ -280,7 +280,7 @@ def test_decoder_layer_kernels_match_the_twin(cuda, rng, t, d, h, ff, nseq, dtyp
     dl = fused_decoder_layer
     args, dy = _decoder_inputs(cuda, rng, t, d, ff, nseq, dtype)
     seed = torch.tensor([99], dtype=torch.int32, device=cuda)
-    every = {**dl.KERNELS, **dl.SM90_KERNELS}
+    every = {**dl.SM90_F32_KERNELS, **dl.SM90_KERNELS}
     before = {k: f.launches for k, f in every.items()}
     leaves = [a.detach().clone().requires_grad_(True) for a in args]
     y = dl.decoder_layer_train(*leaves, seed, rate, h, t)
@@ -365,15 +365,15 @@ def test_encoder_decoder_server_runs_18_attentions_through_the_kernel(cuda, rng)
     np.testing.assert_allclose(got[..., 9:], plain.infill(x)[..., 9:], atol=1e-4)
 
 
-# ---------------------------------------------------------------- bf16 layer chains
+# ---------------------------------------------------------------- layer chains
 
 
-def _sm90_record(cuda, rng, decoder, t, d, h, ff, nseq, rate, seed=7):
-    """One bf16 layer call (forward and backward through the layer module's
-    chain) with every launch recorded."""
+def _sm90_record(cuda, rng, decoder, t, d, h, ff, nseq, rate, seed=7, dtype=torch.bfloat16):
+    """One layer call in ``dtype`` (forward and backward through the layer
+    module's chain) with every launch recorded."""
     make = _decoder_inputs if decoder else _layer_inputs
     mod = fused_decoder_layer if decoder else fused_layer
-    args, dy = make(cuda, rng, t, d, ff, nseq, torch.bfloat16)
+    args, dy = make(cuda, rng, t, d, ff, nseq, dtype)
     seed = torch.tensor([seed], dtype=torch.int32, device=cuda)
     with layer_sm90.recording() as record:
         leaves = [a.detach().clone().requires_grad_(True) for a in args]
@@ -384,18 +384,29 @@ def _sm90_record(cuda, rng, decoder, t, d, h, ff, nseq, rate, seed=7):
     return mod, record, [y.detach()] + [leaf.grad for leaf in leaves]
 
 
+# each launch against its plain version, · max|ref|. bf16: rounding of the
+# outputs, f32 sums in another order. f32: the split TF32 products (~2⁻²² of
+# each term) and the tensor cores' truncating accumulation, which the 64 × 256
+# LayerNorm tiles cannot promote: ff/8 · 3 truncated adds, up to ~2.3e-5 of a
+# sum over ff 2048 and typically half of that (chip_smoke.py holds ff 512 to 1e-5)
+CHAIN_BARS = {torch.bfloat16: 2e-2, torch.float32: 2e-5}
+
+
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("decoder", [False, True])
 @pytest.mark.parametrize("t, d, h, ff, nseq", [(32, 256, 2, 512, 16), (17, 64, 4, 96, 3),
                                                (32, 256, 2, 2048, 4), (8, 32, 4, 64, 5)])
-def test_sm90_launches_match_their_plain_versions(cuda, rng, decoder, t, d, h, ff, nseq):
-    """Every launch of a bf16 layer call against its plain version on the
-    same inputs, each output within 2e-2 of its largest value (bf16
-    rounding of the outputs, f32 sums in another order), every launch of the
-    layer's chain once."""
-    mod, record, _ = _sm90_record(cuda, rng, decoder, t, d, h, ff, nseq, 0.3)
-    names = {id(k): n for n, k in mod.SM90_KERNELS.items()}
-    assert sorted(names[id(launch.kernel)] for launch in record) == sorted(mod.SM90_KERNELS)
+def test_sm90_launches_match_their_plain_versions(cuda, rng, decoder, t, d, h, ff, nseq, dtype):
+    """Every launch of a layer call against its plain version on the same
+    inputs, each output within its dtype's bar of its largest value
+    (``CHAIN_BARS``), every launch of the dtype's chain once: 13 an encoder
+    layer, 21 a decoder layer."""
+    mod, record, _ = _sm90_record(cuda, rng, decoder, t, d, h, ff, nseq, 0.3, dtype=dtype)
+    route = mod.route_kernels(dtype)
+    names = {id(k): n for n, k in route.items()}
+    assert len(record) == (21 if decoder else 13)
+    assert sorted(names[id(launch.kernel)] for launch in record) == sorted(route)
     for launch in record:
         want = launch.reference(*launch.args, **launch.kwargs)
         want = want if isinstance(want, tuple) else (want,)
@@ -403,16 +414,36 @@ def test_sm90_launches_match_their_plain_versions(cuda, rng, decoder, t, d, h, f
         for got, ref in zip(launch.outputs, want):
             ref = ref.float()
             err = float((got.float() - ref).abs().max())
-            assert err <= 2e-2 * float(ref.abs().max()), names[id(launch.kernel)]
+            assert err <= CHAIN_BARS[dtype] * float(ref.abs().max()), names[id(launch.kernel)]
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("decoder", [False, True])
-def test_sm90_layers_rerun_bit_identical(cuda, rng, decoder):
-    """No float atomics: two bf16 layer calls with one seed agree bit for bit
+@pytest.mark.parametrize("d, h, ff", [(32, 16, 512), (32, 4, 16), (64, 16, 256), (256, 16, 64)])
+def test_f32_chain_takes_the_config_widths(cuda, rng, decoder, d, h, ff):
+    """The f32 chain at the narrow widths of configs/*.yaml (heads of 2, 8, 4
+    and 16): every launch against its plain version (1e-5 of each output's
+    largest value)."""
+    mod, record, _ = _sm90_record(cuda, rng, decoder, 32, d, h, ff, 6, 0.3, dtype=torch.float32)
+    assert len(record) == (21 if decoder else 13)
+    for launch in record:
+        want = launch.reference(*launch.args, **launch.kwargs)
+        want = want if isinstance(want, tuple) else (want,)
+        for got, ref in zip(launch.outputs, want):
+            err = float((got - ref).abs().max())
+            assert err <= 1e-5 * float(ref.abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("decoder", [False, True])
+def test_sm90_layers_rerun_bit_identical(cuda, rng, decoder, dtype):
+    """No float atomics: two layer calls with one seed agree bit for bit
     (forward output and every gradient), also with several row splits."""
-    first = _sm90_record(cuda, np.random.default_rng(3), decoder, 32, 256, 2, 512, 64, 0.3)[2]
-    again = _sm90_record(cuda, np.random.default_rng(3), decoder, 32, 256, 2, 512, 64, 0.3)[2]
+    first = _sm90_record(cuda, np.random.default_rng(3), decoder, 32, 256, 2, 512, 64, 0.3,
+                         dtype=dtype)[2]
+    again = _sm90_record(cuda, np.random.default_rng(3), decoder, 32, 256, 2, 512, 64, 0.3,
+                         dtype=dtype)[2]
     assert all(torch.equal(a, b) for a, b in zip(first, again))
 
 
@@ -424,9 +455,9 @@ def test_sm90_launches_refuse_what_they_do_not_take(cuda, rng):
     x, wqkv, bqkv = args[0], args[1], args[2]
     with pytest.raises(ValueError, match="one CUDA device"):
         layer_sm90.bias_product(k, x, wqkv.cpu(), bqkv)
-    with pytest.raises(ValueError, match="contiguous bf16"):
+    with pytest.raises(ValueError, match="of one dtype"):
         layer_sm90.bias_product(k, x.float(), wqkv, bqkv)
-    with pytest.raises(ValueError, match="contiguous bf16"):
+    with pytest.raises(ValueError, match="contiguous activations"):
         layer_sm90.bias_product(k, x[:, :60], wqkv[:, :60], bqkv)  # rows not a multiple of 8
     wide, _ = _layer_inputs(cuda, rng, 32, 264, 128, 2, torch.bfloat16)  # d beyond 256
     with pytest.raises(ValueError, match="supports_fused_layer"):
@@ -622,13 +653,14 @@ def test_audio_augmented_training_runs_every_kernel(cuda, rng):
     augment = make_on_device_augment(qpms=np.linspace(90.0, 150.0, 24), mode="audio", chunk=16)
     epoch = make_epoch_fn(0.73, 8, 24, augment=augment)
     counts = (device_synth.KERNEL.launches, band_energies.KERNEL.launches)
-    before = {k: f.launches for k, f in fused_layer.KERNELS.items()}
+    route = fused_layer.route_kernels(cfg.compute_dtype)
+    before = {k: f.launches for k, f in route.items()}
     gen = torch.Generator(cuda).manual_seed(0)
     losses = [float(epoch(state, base, base, gen)["loss"]) for _ in range(4)]
     assert (device_synth.KERNEL.launches - counts[0],
             band_energies.KERNEL.launches - counts[1]) == (8, 8)  # 2 chunks × 4 epochs
-    assert {k: f.launches - before[k] for k, f in fused_layer.KERNELS.items()} == {
-        k: 4 * 3 * 2 for k in fused_layer.KERNELS}
+    # each launch of the layer chain once a layer and step: 4 epochs × 3 steps × 2 layers
+    assert {k: f.launches - before[k] for k, f in route.items()} == {k: 4 * 3 * 2 for k in route}
     assert np.isfinite(losses).all() and losses[-1] < losses[0]
 
 

@@ -243,12 +243,17 @@ def test_gate():
     for dtype in (torch.float32, torch.bfloat16):
         assert fdl.supports_fused_decoder_layer(256, 2, 512, 32, dtype)  # the flagship
         assert fdl.supports_fused_decoder_layer(32, 4, 512, 32, dtype)  # the demo width
-    assert fdl.bwd_rows_smem_bytes(32, 256, 512) <= fl.MAX_SMEM_BYTES
+    # the decoder's chain takes what the encoder's takes, in both dtypes
+    for dtype in (torch.float32, torch.bfloat16):
+        for d, h, ff in ((8, 1, 8), (32, 16, 512), (96, 4, 64), (252, 2, 512), (256, 16, 2048),
+                         (264, 2, 512)):
+            assert fdl.supports_fused_decoder_layer(d, h, ff, 32, dtype) \
+                == fl.supports_fused_layer(d, h, ff, 32, dtype)
     assert not fdl.supports_fused_decoder_layer(256, 2, 512, 33)  # T above one block's rows
     assert not fdl.supports_fused_decoder_layer(256, 2, 512, 32, torch.float16)
     assert not fdl.supports_fused_decoder_layer(256, 3, 512, 32)  # d not divisible by H
-    assert not fdl.supports_fused_decoder_layer(1024, 4, 4096, 32)  # shared memory
-    assert not fdl.supports_fused_decoder_layer(30, 2, 64, 32)  # d not a multiple of 4
+    assert not fdl.supports_fused_decoder_layer(1024, 4, 4096, 32)  # beyond the LayerNorm tile
+    assert not fdl.supports_fused_decoder_layer(30, 2, 64, 32)  # d not a multiple of 8
 
 
 def test_forced_fused_decoder_layer_the_gate_rejects_raises():
@@ -264,15 +269,17 @@ def test_forced_fused_decoder_layer_the_gate_rejects_raises():
 
 def test_cpu_tensors_run_the_twin_and_the_launchers_refuse_them():
     args, _ = port_tensors()
-    before = {k: f.launches for k, f in fdl.KERNELS.items()}
+    every = {**fdl.SM90_KERNELS, **fdl.SM90_F32_KERNELS}
+    before = {k: f.launches for k, f in every.items()}
     y = fdl.decoder_layer_train(*args, SEED, 0.3, 2, 32)
     torch.testing.assert_close(y, fdl.decoder_layer_reference(*args, SEED, 0.3, 2, 32),
                                rtol=0, atol=0)
     with pytest.raises(ValueError, match="one CUDA device"):
         fdl.layer_forward(*args, SEED, 0.3, 2, 32)
-    assert {k: f.launches for k, f in fdl.KERNELS.items()} == before
-    assert set(fdl.KERNELS) == {"fused_decoder_layer_fwd", "fused_decoder_layer_bwd_rows",
-                                "fused_decoder_layer_bwd_weights"}
+    assert {k: f.launches for k, f in every.items()} == before
+    assert fdl.route_kernels(torch.float32) is fdl.SM90_F32_KERNELS
+    assert set(fdl.SM90_F32_KERNELS) == {f"fused_decoder_layer_sm90_f32_{k}"
+                                         for k in fdl.SM90_LAUNCHES}
 
 
 def test_relu_flips_take_the_other_side_at_the_given_units_only():
@@ -287,13 +294,15 @@ def test_relu_flips_take_the_other_side_at_the_given_units_only():
 
 
 def test_kernel_source_hash_covers_its_headers(tmp_path, monkeypatch):
-    """Both layer kernels include csrc/layer_common.cuh: an edit to the header
-    must rebuild them, so the build's hash reads every included file."""
+    """The layer chains' source includes the product core and the shared
+    headers: an edit to a header must rebuild every kernel that uses it, so
+    the build's hash reads every included file."""
     from transformergrooveinfilling_tpu_torch.ops import _build
 
-    for name in ("fused_layer", "fused_decoder_layer"):
-        files = [f.name for f in _build.source_files(_build.CSRC / f"{name}.cu")]
-        assert files == [f"{name}.cu", "layer_common.cuh"]
+    files = [f.name for f in _build.source_files(_build.CSRC / "layer_sm90.cu")]
+    assert files == ["layer_sm90.cu", "epilogues_sm90.cuh", "gemm_sm90.cuh", "layer_common.cuh"]
+    files = [f.name for f in _build.source_files(_build.CSRC / "fused_ln.cu")]
+    assert files == ["fused_ln.cu", "layer_common.cuh"]
     assert [f.name for f in _build.source_files(_build.CSRC / "fused_mha.cu")] == ["fused_mha.cu"]
     # a nested include is followed, each file once
     (tmp_path / "a.cu").write_text('#include "b.cuh"\n#include "c.cuh"\n#include <math.h>\n')

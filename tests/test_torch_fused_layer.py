@@ -2,7 +2,7 @@
 where it runs its plain twin, against the JAX package's Pallas kernel in
 interpret mode (rate 0), and against the port's own unfused layer fed the
 same dropout masks (rate 0.30). Also the kernels' counter-based mask
-generator and the Hopper shape gate."""
+generator and the Hopper shape gate of the layer chains."""
 
 import dataclasses
 
@@ -162,13 +162,12 @@ def test_gate():
     for dtype in (torch.float32, torch.bfloat16):
         assert fl.supports_fused_layer(256, 2, 512, 32, dtype)  # the flagship
         assert fl.supports_fused_layer(32, 4, 512, 32, dtype)  # the demo width
-    assert fl.fwd_smem_bytes(32, 256, 512) <= fl.MAX_SMEM_BYTES
-    assert fl.bwd_rows_smem_bytes(32, 256, 512) <= fl.MAX_SMEM_BYTES
+    assert fl.supports_fused_layer(32, 16, 512, 32)  # hd 2: the f32 attention takes any width
     assert not fl.supports_fused_layer(256, 2, 512, 33)  # T above one block's rows
     assert not fl.supports_fused_layer(256, 2, 512, 32, torch.float16)
     assert not fl.supports_fused_layer(256, 3, 512, 32)  # d not divisible by H
-    assert not fl.supports_fused_layer(1024, 4, 4096, 32)  # shared memory
-    assert not fl.supports_fused_layer(30, 2, 64, 32)  # d not a multiple of 4
+    assert not fl.supports_fused_layer(1024, 4, 4096, 32)  # beyond the LayerNorm tile
+    assert not fl.supports_fused_layer(30, 2, 64, 32)  # d not a multiple of 8
 
 
 def test_forced_fused_layer_the_gate_rejects_raises():
@@ -183,10 +182,11 @@ def test_cpu_tensors_run_the_twin():
     x, params, _ = layer_inputs(32, 64, 64, seed=1)
     args = ([torch.from_numpy(a) for a in [x] + port_layout(params)]
             + [torch.tensor([3], dtype=torch.int32)])
-    before = {k: f.launches for k, f in fl.KERNELS.items()}
+    every = {**fl.SM90_KERNELS, **fl.SM90_F32_KERNELS}
+    before = {k: f.launches for k, f in every.items()}
     y = fl.encoder_layer_train(*args, 0.3, 2, 32)
     torch.testing.assert_close(y, fl.encoder_layer_reference(*args, 0.3, 2, 32), rtol=0, atol=0)
-    assert {k: f.launches for k, f in fl.KERNELS.items()} == before
+    assert {k: f.launches for k, f in every.items()} == before
 
 
 def _twin_h(seed=2, rate=0.0):

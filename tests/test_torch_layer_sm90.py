@@ -1,10 +1,12 @@
-"""The bf16 whole-layer chains (ops/layer_sm90.py, composed by ops/fused_layer.py
-and ops/fused_decoder_layer.py) on the CPU, where every launch runs its plain
-version: the chained forward and backward against the JAX package's Pallas
-kernels in interpret mode (f32, rate 0) and against autograd through the
-port's twins (rate 0.30, two layers stacked), the attention's launches
-against autograd with the site-0 mask and causal rows, the LayerNorm
-launches against autograd, the fixed-order split reduce, and the bf16 gates.
+"""The whole-layer chains (ops/layer_sm90.py, composed by ops/fused_layer.py and
+ops/fused_decoder_layer.py), bf16 and f32, on the CPU, where every launch runs
+its plain version: the chained forward and backward against the JAX
+package's Pallas kernels in interpret mode (f32, rate 0; the f32 chain also
+at tighter bars) and against autograd through the port's twins (rate 0.30,
+two layers stacked), the attention's launches against autograd with the
+site-0 mask and causal rows, the LayerNorm launches against autograd, the
+fixed-order split reduce, the split-TF32 arithmetic of the f32 products, and
+the gates.
 
 Tolerances: in f32 the chain and the twin do the same arithmetic in another
 order (the backward by hand, the twin by autograd), so 1e-5 of the largest
@@ -86,7 +88,8 @@ def to_port(arrays, weights, dtype=torch.float32):
 
 
 def encoder_chain(args, dy, seed, rate, h, t):
-    """The bf16 route's forward and backward chains on CPU tensors."""
+    """The forward and backward chains of the activations' dtype on CPU
+    tensors."""
     res = fl.forward_sm90(*args, seed, rate, h, t)
     x, wqkv, _, wo, _, g1, b1, w1, _, w2, _, g2, _ = args
     _, qkv, a1, hid, a2 = res
@@ -152,6 +155,44 @@ def test_decoder_chain_matches_jax_kernel_forward_and_grads(h):
                                             grads_jax)):
         g = g.numpy().T if i in DEC_WEIGHTS else g.numpy()
         np.testing.assert_allclose(g, np.asarray(want), rtol=5e-3, atol=5e-4, err_msg=name)
+
+
+@pytest.mark.parametrize("which, d, h, ff, atol", [
+    ("encoder", 128, 2, 256, 3e-5), ("encoder", 256, 2, 512, 1e-4),
+    ("decoder", 128, 2, 128, 3e-5), ("decoder", 256, 2, 512, 1e-4)])
+def test_f32_chain_matches_jax_kernel_at_f32_bars(which, d, h, ff, atol):
+    """The f32 chain (its counted launches, ``route_kernels(torch.float32)``)
+    composed of per-launch plain versions, forward and backward, against the
+    JAX kernel in interpret mode (rate 0, B 4 × T 32 rows), every output and
+    gradient to an absolute bar alone: 3e-5 at d 128, the narrowest width the
+    JAX gate takes (head pairs of 64 lanes), and 1e-4 at the flagship's d 256.
+    Both sides sum in f32 in different orders; the largest gap on these
+    inputs is 1.4e-5 at d 128 and 1.9e-5 at d 256 (the weight gradients, sums
+    over 128 rows of products up to ~10)."""
+    t, b = 32, 4
+    seed = np.zeros((1,), np.int32)
+    if which == "encoder":
+        x, params, dy = encoder_inputs(d, ff, b * t, seed=5)
+        arrays, weights, jax_fn = [x] + params, [i + 1 for i in ENC_WEIGHTS], jax_encoder_layer_train
+        chain = encoder_chain
+    else:
+        arrays, dy = decoder_inputs(d, ff, b * t, seed=5)
+        weights, jax_fn, chain = DEC_WEIGHTS, jax_decoder_layer_train, decoder_chain
+
+    def jax_layer(*a):
+        return jax_fn(*a, jnp.asarray(seed), 0.0, h, t, True)
+
+    y_jax, vjp = jax.vjp(jax_layer, *map(jnp.asarray, arrays))
+    grads_jax = vjp(jnp.asarray(dy))
+    mod = fl if which == "encoder" else fdl
+    before = {k: f.launches for k, f in mod.route_kernels(torch.float32).items()}
+    res, grads = chain(to_port(arrays, weights), torch.from_numpy(dy), torch.from_numpy(seed),
+                       0.0, h, t)
+    assert {k: f.launches for k, f in mod.route_kernels(torch.float32).items()} == before
+    np.testing.assert_allclose(res[0].numpy(), np.asarray(y_jax), rtol=0, atol=atol)
+    for i, (g, want) in enumerate(zip(grads, grads_jax)):
+        g = g.numpy().T if i in weights else g.numpy()
+        np.testing.assert_allclose(g, np.asarray(want), rtol=0, atol=atol, err_msg=str(i))
 
 
 @pytest.mark.parametrize("dtype, tol", [(torch.float32, 1e-5), (torch.bfloat16, 2e-2)])
@@ -300,6 +341,58 @@ def test_layernorm_launches_match_autograd():
     assert torch.equal(dp, da_next)
 
 
+def test_tf32_round_is_to_nearest_ties_away():
+    """``tf32_round`` is ``cvt.rna.tf32.f32``: 10 mantissa bits kept, the low
+    13 bits of the pattern cleared, to nearest, a tie away from zero, for
+    either sign; within half a TF32 unit (2⁻¹¹ of the value's binade)."""
+    ulp = 2.0 ** -23  # of f32 at 1
+    one = torch.tensor([1 + 0x0FFF * ulp, 1 + 0x1000 * ulp, 1 + 0x2FFF * ulp, 1 + 0x3000 * ulp],
+                       dtype=torch.float32)
+    want = torch.tensor([1.0, 1 + 2.0 ** -10, 1 + 2.0 ** -10, 1 + 2 * 2.0 ** -10])
+    assert torch.equal(L.tf32_round(one), want)
+    assert torch.equal(L.tf32_round(-one), -want)
+    x = torch.from_numpy(np.random.default_rng(11).standard_normal(4096).astype(np.float32)
+                         * np.float32(10.0) ** np.arange(-4, 4).repeat(512).astype(np.float32))
+    r = L.tf32_round(x)
+    assert not (r.view(torch.int32) & 0x1FFF).any()
+    binade = 2.0 ** torch.floor(torch.log2(x.abs()))
+    assert bool(((r - x).abs() <= 2.0 ** -11 * binade).all())
+
+
+def test_split_reconstructs_each_input_to_2_pow_minus_22():
+    """hi + lo, both TF32 values, is within 2⁻²² of each f32 input: hi is
+    within 2⁻¹¹ of x, and lo, x − hi rounded to TF32, within 2⁻¹¹ of x − hi."""
+    x = torch.from_numpy(np.random.default_rng(12).standard_normal(8192).astype(np.float32)
+                         * np.float32(3.0) ** np.arange(-8, 8).repeat(512).astype(np.float32))
+    hi, lo = L.split_tf32(x)
+    assert not ((hi.view(torch.int32) | lo.view(torch.int32)) & 0x1FFF).any()
+    err = (x.double() - hi.double() - lo.double()).abs()
+    assert bool((err <= 2.0 ** -22 * x.double().abs()).all())
+    assert float(err.max()) > 0  # the split is not exact: the remainder is rounded too
+
+
+@pytest.mark.parametrize("k", [16, 128, 512, 2048])
+def test_split_tf32_matmul_within_its_bound(k):
+    """The f32 products' arithmetic, A_lo·B_hi + A_hi·B_lo + A_hi·B_hi of the
+    operands' TF32 splits (exact TF32 products summed in f64 here), against
+    the f64 product: each term a·b misses by at most lo_a·lo_b + hi_a·e_b +
+    e_a·hi_b ≤ 3.01·2⁻²²·|a||b| (e = x − hi − lo), so elementwise |error| ≤
+    3.01·2⁻²²·(|A|·|B|); the terms' errors have random signs, so the largest
+    error stays below 1e-6·√K·max|a|·max|b|, and a hundredth of what one TF32
+    product (hi·hi alone) misses by."""
+    rng = np.random.default_rng(13 + k)
+    a = torch.from_numpy(rng.standard_normal((64, k)).astype(np.float32))
+    b = torch.from_numpy(rng.standard_normal((k, 48)).astype(np.float32))
+    exact = a.double() @ b.double()
+    err = (L.split_tf32_matmul(a, b) - exact).abs()
+    assert bool((err <= 3.01 * 2.0 ** -22 * (a.double().abs() @ b.double().abs())
+                 + 1e-12).all())
+    scale = float(a.abs().max()) * float(b.abs().max())
+    assert float(err.max()) <= 1e-6 * k ** 0.5 * scale
+    one = (L.tf32_round(a).double() @ L.tf32_round(b).double() - exact).abs()
+    assert float(err.max()) * 100 < float(one.max())
+
+
 @pytest.mark.parametrize("splits", [2, 3, 5])
 def test_split_reduce_equals_the_one_split_sum(splits):
     """weight_gradients_reference in row splits, added in split order,
@@ -340,8 +433,8 @@ def test_weight_gradient_splits():
 
 def test_bf16_gate_boundaries():
     """bf16: d a multiple of 8 up to 256, ff a multiple of 8, heads dividing
-    d into widths that are multiples of 8, T up to 32; f32 keeps the
-    shared-memory gate (GrooveXL's d 1024 stays out of both)."""
+    d into widths that are multiples of 8, T up to 32 (GrooveXL's d 1024
+    stays out of both dtypes' gates)."""
     bf16 = torch.bfloat16
     for gate in (fl.supports_fused_layer, fdl.supports_fused_decoder_layer):
         assert gate(256, 2, 512, 32, bf16)  # the flagship
@@ -361,21 +454,57 @@ def test_bf16_gate_boundaries():
         assert gate(256, 2, 512, 32) and not gate(1024, 4, 4096, 32)  # f32
 
 
-def test_cpu_tensors_run_the_plain_versions_and_launch_nothing():
+CONFIG_WIDTHS = {(32, 16, 512), (32, 4, 16), (64, 16, 256), (256, 16, 64), (256, 2, 512),
+                 (256, 2, 2048)}
+
+
+def test_f32_gate_admits_every_config_width():
+    """The f32 chain's gate admits, at T 32, every (d, heads, ff) of
+    configs/*.yaml, hd 2 and 4 among them (the f32 attention takes any head
+    width), and these are all the widths the configs hold. It refuses what
+    the CUDA-core kernels before it took by shared memory alone: d past the
+    LayerNorm tile's 256 (to ~352), and d or ff a multiple of 4 but not of 8."""
+    from transformergrooveinfilling_tpu_torch.utils import yaml_subset
+
+    found = set()
+    for path in sorted((Path(__file__).parents[1] / "configs").glob("*.yaml")):
+        cfg = yaml_subset.load_file(str(path))
+        if isinstance(cfg.get("d_model"), int):
+            found.add((cfg["d_model"], cfg["n_heads"], cfg["dim_feedforward"]))
+    assert found == CONFIG_WIDTHS
+    for gate in (fl.supports_fused_layer, fdl.supports_fused_decoder_layer):
+        for d, h, ff in sorted(CONFIG_WIDTHS):
+            assert gate(d, h, ff, 32, torch.float32), (d, h, ff)
+        for d, h, ff in ((264, 2, 512), (352, 4, 512), (36, 4, 64), (252, 2, 512),
+                         (32, 4, 20), (256, 2, 516)):
+            assert not gate(d, h, ff, 32, torch.float32), (d, h, ff)
+    assert not fl.supports_fused_layer(32, 16, 512, 32, torch.bfloat16)  # hd 2 in bf16
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_cpu_tensors_run_the_plain_versions_and_launch_nothing(dtype):
+    """On CPU tensors each launch of either dtype's chain runs its plain
+    version and no counter moves; each dtype has its own 13 + 21 counted
+    launches, under names of its own."""
     d, ff, t = 64, 128, 8
     x, params, dy = encoder_inputs(d, ff, 2 * t)
-    args = to_port([x] + params, [i + 1 for i in ENC_WEIGHTS], torch.bfloat16)
-    before = {name: f.launches for name, f in {**fl.SM90_KERNELS, **fdl.SM90_KERNELS}.items()}
-    encoder_chain(args, torch.from_numpy(dy).to(torch.bfloat16),
-                  torch.tensor([2], dtype=torch.int32), 0.3, 2, t)
+    args = to_port([x] + params, [i + 1 for i in ENC_WEIGHTS], dtype)
+    every = {**fl.SM90_KERNELS, **fdl.SM90_KERNELS, **fl.SM90_F32_KERNELS,
+             **fdl.SM90_F32_KERNELS}
+    before = {name: f.launches for name, f in every.items()}
+    encoder_chain(args, torch.from_numpy(dy).to(dtype), torch.tensor([2], dtype=torch.int32),
+                  0.3, 2, t)
     dargs, ddy = decoder_inputs(d, ff, 2 * t)
-    decoder_chain(to_port(dargs, DEC_WEIGHTS, torch.bfloat16), torch.from_numpy(ddy).to(
-        torch.bfloat16), torch.tensor([2], dtype=torch.int32), 0.3, 2, t)
-    after = {name: f.launches for name, f in {**fl.SM90_KERNELS, **fdl.SM90_KERNELS}.items()}
-    assert after == before
-    assert len(fl.SM90_KERNELS) == 13 and len(fdl.SM90_KERNELS) == 21
-    assert fl.route_kernels(torch.bfloat16) is fl.SM90_KERNELS
-    assert fdl.route_kernels(torch.float32) is fdl.KERNELS
+    decoder_chain(to_port(dargs, DEC_WEIGHTS, dtype), torch.from_numpy(ddy).to(dtype),
+                  torch.tensor([2], dtype=torch.int32), 0.3, 2, t)
+    assert {name: f.launches for name, f in every.items()} == before
+    assert len(every) == 2 * (13 + 21)
+    for mod, n in ((fl, 13), (fdl, 21)):
+        route = mod.route_kernels(dtype)
+        assert route is (mod.SM90_KERNELS if dtype == torch.bfloat16 else mod.SM90_F32_KERNELS)
+        assert len(route) == n and list(route) == [
+            f"{mod.__name__.split('.')[-1]}_sm90{'_f32' if dtype == torch.float32 else ''}_{k}"
+            for k in mod.SM90_LAUNCHES]
 
 
 def test_entry_points_declare_every_argument():

@@ -108,6 +108,22 @@ def test_flux_from_bands_matches_jax(rng, compression):
         M._flux_from_bands(torch.from_numpy(bands), M.MSOParams(compression="sqrt"))
 
 
+@pytest.mark.parametrize("compression", ["log1p", "db"])
+def test_onset_strength_bands_matches_jax(rng, compression):
+    """The band projection and flux of numpy-seeded magnitudes against the JAX
+    package's ``onset_strength_bands``, within 1e-5 of the largest flux: f32
+    products of 513 bins in another order, then the flux's running sums."""
+    mag = (np.abs(rng.standard_normal((2, 150, 513))) * 3).astype(np.float32)
+    fb = np.array(M.log_frequency_filterbank(P))
+    p, jp = M.MSOParams(compression=compression), J.MSOParams(compression=compression)
+    got = M.onset_strength_bands(torch.from_numpy(mag), torch.from_numpy(fb), p)
+    want = np.asarray(J.onset_strength_bands(jnp.asarray(mag), jnp.asarray(fb), jp))
+    assert got.shape == want.shape == (2, 150, 16) and float(np.abs(want).max()) > 0
+    close(got.numpy(), want, 1e-5)
+    close(M.onset_strength_bands(torch.from_numpy(mag[1]), torch.from_numpy(fb), p).numpy(),
+          got[1].numpy(), 1e-6)  # one item alone: any rank
+
+
 def test_grid_pool_matches_jax_exactly(rng):
     flux = rng.random((len(TEMPOS), 418, 16)).astype(np.float32)
     sps = np.asarray(TEMPOS, np.float32) / 15.0

@@ -520,16 +520,15 @@ def test_config_resolution(monkeypatch):
 
 @pytest.mark.parametrize("resolve", ["resolve_fused_layer", "resolve_fused_decoder_layer"])
 def test_layer_resolvers_turn_auto_on_only_at_a_measured_batch(resolve):
-    """Auto is gated by measurement, as the JAX package's, per route: the
-    whole-layer kernels' bf16 chains beat the unfused path by more than the
-    spread between turns at batch 32 and at 512, the two batches measured on
-    the card, and the f32 route's CUDA-core design won at 32 and lost at 512
-    (PERF.md §5), so auto is on at <= 512 in bf16 and <= 32 in f32, off above
-    and off when no batch is given; a forced value is kept at any batch; the
-    JAX positional signature (switch, d_model, n_heads, dim_feedforward,
-    n_devices) is still accepted."""
+    """Auto is gated by measurement, as the JAX package's, per dtype: the
+    whole-layer chains beat the unfused path by more than the spread between
+    turns at batch 32 and at 512, the two batches measured on the card, in
+    bf16 and in f32 (split TF32; paired turns, PERF.md §5), so auto is on at
+    <= 512 in both, off above and off when no batch is given; a forced value
+    is kept at any batch; the JAX positional signature (switch, d_model,
+    n_heads, dim_feedforward, n_devices) is still accepted."""
     r = getattr(port_config, resolve)
-    assert port_config.LAYER_KERNEL_MAX_BATCH == {torch.bfloat16: 512, torch.float32: 32}
+    assert port_config.LAYER_KERNEL_MAX_BATCH == {torch.bfloat16: 512, torch.float32: 512}
     bf16 = {"compute_dtype": torch.bfloat16}
     assert r(None, 256, 2, 512, batch_size=32, **bf16) is True
     assert r(None, 256, 2, 512, batch_size=16, **bf16) is True
@@ -539,8 +538,8 @@ def test_layer_resolvers_turn_auto_on_only_at_a_measured_batch(resolve):
     assert r(None, 256, 2, 512, **bf16) is False
     assert r(None, 256, 2, 512, batch_size=32) is True  # f32
     assert r(None, 256, 2, 512, batch_size=16) is True
-    assert r(None, 256, 2, 512, batch_size=33) is False
-    assert r(None, 256, 2, 512, batch_size=512) is False
+    assert r(None, 256, 2, 512, batch_size=512) is True
+    assert r(None, 256, 2, 512, batch_size=513) is False
     assert r(None, 256, 2, 512) is False
     assert r(None, 256, 2, 512, 1) is False
     assert r(True, 256, 2, 512, batch_size=1024) is True
@@ -550,8 +549,9 @@ def test_layer_resolvers_turn_auto_on_only_at_a_measured_batch(resolve):
     assert r(None, 30, 2, 64, batch_size=32, **bf16) is False
     hp = HyperParams(d_model=256, n_heads=2, dim_feedforward=512, num_encoder_decoder_layers=2,
                      encoder_only=0)
-    for dtype, batch, on in ((torch.float32, 32, True), (torch.float32, 512, False),
-                             (torch.bfloat16, 512, True), (torch.bfloat16, 1024, False)):
+    for dtype, batch, on in ((torch.float32, 32, True), (torch.float32, 512, True),
+                             (torch.float32, 1024, False), (torch.bfloat16, 512, True),
+                             (torch.bfloat16, 1024, False)):
         hp.batch_size = batch
         cfg = derive_model_config(hp, compute_dtype=dtype, device="cpu")
         assert cfg.fused_layer is on and cfg.fused_decoder_layer is on, (dtype, batch)
@@ -568,7 +568,7 @@ def test_initialize_model_resolves_the_layer_switches_unlike_the_reference():
              "num_encoder_layers": 1, "num_decoder_layers": 1}
     jax_bundle = jax_driver.initialize_model({"model": model, "training": {"batch_size": 16}})[0]
     assert not jax_bundle.config.fused_layer and not jax_bundle.config.fused_decoder_layer
-    for batch, on in ((16, True), (32, True), (512, False)):  # f32 on the CPU
+    for batch, on in ((16, True), (32, True), (512, True), (1024, False)):  # f32 on the CPU
         cfg = initialize_model({"model": model, "training": {"batch_size": batch}}, "cpu")[0].config
         assert cfg.fused_layer is on and cfg.fused_decoder_layer is on, batch
     forced = dict(model, fused_layer=True, fused_decoder_layer=True)

@@ -5,6 +5,9 @@
 // optional f32 residual, and the weight gradients with their column sums and
 // the fixed-order reduce of their row splits.
 //
+// Each is a template over the activations' type T, the launch's operand type:
+// bf16 stores round to bf16 ("rounding" above), f32 stores keep the sum.
+//
 // store() gets the values at (row, col), (row, col+1), (row, col+8),
 // (row, col+9); col is even and the widths are multiples of 8, so a pair is
 // in or out of the matrix as a whole. load() fetches what store() reads
@@ -25,8 +28,9 @@ using bf16 = __nv_bfloat16;
 // share its dropout draws: each computes a quarter of them and passes on the
 // two words that each of the others needs (word q/2 for columns 2q, 2q+1 of
 // a group, word 2 + q/2 for columns 8 + 2q, 9 + 2q).
+template <class T>
 struct EpiHidden : NoExtra {
-  bf16* h;
+  T* h;
   const float* b1;
   const int* seed;
   int rows, ff, thresh, site;
@@ -83,8 +87,9 @@ struct EpiHidden : NoExtra {
 };
 
 // out = round(A·Wᵀ + bias)
+template <class T>
 struct EpiOut : NoExtra {
-  bf16* out;
+  T* out;
   const float* bias;
   int rows, width;
   using Aux = float4;
@@ -99,15 +104,16 @@ struct EpiOut : NoExtra {
   __device__ __forceinline__ void store(int, int, int row, int col, const float (&v)[4],
                                         const Aux& b) const {
     if (row >= rows) return;
-    bf16* o = out + static_cast<size_t>(row) * width + col;
+    T* o = out + static_cast<size_t>(row) * width + col;
     if (col < width) store2(o, v[0] + b.x, v[1] + b.y);
     if (col + 8 < width) store2(o + 8, v[2] + b.z, v[3] + b.w);
   }
 };
 
 // out = round(A·W + resid), resid an f32 (rows, width) matrix or null
+template <class T>
 struct EpiRound : NoExtra {
-  bf16* out;
+  T* out;
   const float* resid;
   int rows, width;
   using Aux = NoAux;
@@ -128,17 +134,20 @@ struct EpiRound : NoExtra {
 };
 
 // dh = round(h > 0 ? g / keep : 0), g = dy·W2
+template <class T>
 struct EpiDh : NoExtra {
-  bf16* dh;
-  const bf16* h;
+  T* dh;
+  const T* h;
   int rows, ff, thresh;
-  using Aux = uint2;  // the bf16 pairs of h at col and col + 8
+  struct Aux {  // the pairs of h at col and col + 8
+    typename Pair<T>::type x, y;
+  };
   __device__ __forceinline__ Aux load_one(int, int, int row, int col) const {
-    uint2 a = make_uint2(0u, 0u);
+    Aux a{};
     if (row >= rows) return a;
-    const uint32_t* p = reinterpret_cast<const uint32_t*>(h + static_cast<size_t>(row) * ff + col);
-    if (col < ff) a.x = p[0];
-    if (col + 8 < ff) a.y = p[4];
+    const T* p = h + static_cast<size_t>(row) * ff + col;
+    if (col < ff) a.x = load_pair(p);
+    if (col + 8 < ff) a.y = load_pair(p + 8);
     return a;
   }
   template <int G>
@@ -154,8 +163,7 @@ struct EpiDh : NoExtra {
     for (int p = 0; p < 2; ++p) {
       const int c = col + 8 * p;
       if (c >= ff) continue;
-      const uint32_t bits = p ? a.y : a.x;
-      const float2 hv = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&bits));
+      const float2 hv = unpack(p ? a.y : a.x);
       store2(dh + static_cast<size_t>(row) * ff + c, hv.x > 0.f ? v[2 * p] * inv_keep : 0.f,
              hv.y > 0.f ? v[2 * p + 1] * inv_keep : 0.f);
     }
@@ -164,6 +172,7 @@ struct EpiDh : NoExtra {
 
 // ---------------------------------------------------------------- weight gradients
 
+// eight activations from a 16- (bf16) or 32-byte (f32) aligned address
 __device__ __forceinline__ void load8(const bf16* p, float (&v)[8]) {
   const uint4 u = *reinterpret_cast<const uint4*>(p);
   const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
@@ -174,16 +183,22 @@ __device__ __forceinline__ void load8(const bf16* p, float (&v)[8]) {
     v[2 * i + 1] = f.y;
   }
 }
+__device__ __forceinline__ void load8(const float* p, float (&v)[8]) {
+  const float4 lo = reinterpret_cast<const float4*>(p)[0], hi = reinterpret_cast<const float4*>(p)[1];
+  v[0] = lo.x, v[1] = lo.y, v[2] = lo.z, v[3] = lo.w;
+  v[4] = hi.x, v[5] = hi.y, v[6] = hi.z, v[7] = hi.w;
+}
 
 constexpr int kMaxSegs = 16;
 
 // A column-sum segment: Σ_r x[r][c]·(z ? ẑ(z[r][c]) : 1) over the split's
-// rows (x bf16 or f32, rows a multiple of 8 wide), ẑ the LayerNorm-normalised
-// z with row r's (mean, rstd) at stats[r·stats_ld]: a bias gradient (z null)
-// or a LayerNorm gain's.
+// rows (x T or f32, rows a multiple of 8 wide), ẑ the LayerNorm-normalised
+// z (T) with row r's (mean, rstd) at stats[r·stats_ld]: a bias gradient (z
+// null) or a LayerNorm gain's.
+template <class T>
 struct ColSeg {
   const void* x;
-  const bf16* z;
+  const T* z;
   const float* stats;
   int width, x_f32, stats_ld, blocks, out;
 };
@@ -195,12 +210,14 @@ struct ColSeg {
 // seg.out). A split's partial: the problems' results in order, then the
 // segments' sums in order (wgrad_layout). No atomics: a reduce adds the
 // splits in order (reduce_splits).
+template <class T>
 struct EpiWgrad {
+  static constexpr bool kPromote = true;  // f32: the rows are a long reduction
   float* part;
   size_t split_stride, vec;
   size_t off[sm90::kMaxProblems];
   int m[sm90::kMaxProblems], n[sm90::kMaxProblems];
-  ColSeg seg[kMaxSegs];
+  ColSeg<T> seg[kMaxSegs];
   using Aux = NoAux;
   template <int G>
   __device__ __forceinline__ void load(int, int, int, int, Aux (&)[G][2]) const {}
@@ -216,7 +233,7 @@ struct EpiWgrad {
     __shared__ float sums[48][64];  // (row groups, columns); up to 384 threads
     int si = 0;
     while (b >= seg[si].blocks) b -= seg[si++].blocks;
-    const ColSeg& sg = seg[si];
+    const ColSeg<T>& sg = seg[si];
     const int c0 = b * 64, cg = threadIdx.x & 7, rg = threadIdx.x >> 3;
     const int groups = blockDim.x >> 3, c = c0 + 8 * cg;
     float s[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
@@ -224,14 +241,10 @@ struct EpiWgrad {
       for (int r = r_begin + rg; r < r_end; r += groups) {
         const size_t at = static_cast<size_t>(r) * sg.width + c;
         float x[8];
-        if (sg.x_f32) {
-          const float4* f = reinterpret_cast<const float4*>(static_cast<const float*>(sg.x) + at);
-          const float4 lo = f[0], hi = f[1];
-          x[0] = lo.x, x[1] = lo.y, x[2] = lo.z, x[3] = lo.w;
-          x[4] = hi.x, x[5] = hi.y, x[6] = hi.z, x[7] = hi.w;
-        } else {
-          load8(static_cast<const bf16*>(sg.x) + at, x);
-        }
+        if (sg.x_f32)
+          load8(static_cast<const float*>(sg.x) + at, x);
+        else
+          load8(static_cast<const T*>(sg.x) + at, x);
         if (sg.z) {
           float z[8];
           load8(sg.z + at, z);
@@ -258,7 +271,8 @@ struct EpiWgrad {
 // Lays out a split's partial from m, n and each segment's width: off, vec,
 // the segments' blocks and offsets, split_stride. Returns the extra blocks a
 // split.
-inline int wgrad_layout(EpiWgrad& e, int problems, int segments) {
+template <class T>
+int wgrad_layout(EpiWgrad<T>& e, int problems, int segments) {
   size_t at = 0;
   for (int p = 0; p < problems; ++p) {
     e.off[p] = at;

@@ -509,7 +509,7 @@ extern "C" {
 int tgi_ffn_fwd_h(void* x, void* w1, void* b1, void* seed, void* h, int rows, int d, int ff,
                   int thresh, int config, void* stream) {
   const Operand a{x, rows}, b{w1, ff};
-  const EpiHidden epi{{}, static_cast<bf16*>(h), static_cast<const float*>(b1),
+  const EpiHidden<bf16> epi{{}, static_cast<bf16*>(h), static_cast<const float*>(b1),
                       static_cast<const int*>(seed), rows, ff, thresh, kSiteFfn};
   return run<0b011, false, false>(config, &a, &b, 1, d, d, 1, 0, epi,
                                   static_cast<cudaStream_t>(stream));
@@ -518,7 +518,7 @@ int tgi_ffn_fwd_h(void* x, void* w1, void* b1, void* seed, void* h, int rows, in
 int tgi_ffn_fwd_out(void* h, void* w2, void* b2, void* out, int rows, int d, int ff, int config,
                     void* stream) {
   const Operand a{h, rows}, b{w2, d};
-  const EpiOut epi{{}, static_cast<bf16*>(out), static_cast<const float*>(b2), rows, d};
+  const EpiOut<bf16> epi{{}, static_cast<bf16*>(out), static_cast<const float*>(b2), rows, d};
   return run<0b011, false, false>(config, &a, &b, 1, ff, ff, 1, 0, epi,
                                   static_cast<cudaStream_t>(stream));
 }
@@ -526,7 +526,7 @@ int tgi_ffn_fwd_out(void* h, void* w2, void* b2, void* out, int rows, int d, int
 int tgi_ffn_bwd_dh(void* dy, void* w2, void* h, void* dh, int rows, int d, int ff, int thresh,
                    int config, void* stream) {
   const Operand a{dy, rows}, b{w2, ff};
-  const EpiDh epi{{}, static_cast<bf16*>(dh), static_cast<const bf16*>(h), rows, ff, thresh};
+  const EpiDh<bf16> epi{{}, static_cast<bf16*>(dh), static_cast<const bf16*>(h), rows, ff, thresh};
   return run<0b011, false, true>(config, &a, &b, 1, d, d, 1, 0, epi,
                                  static_cast<cudaStream_t>(stream));
 }
@@ -534,7 +534,7 @@ int tgi_ffn_bwd_dh(void* dy, void* w2, void* h, void* dh, int rows, int d, int f
 int tgi_ffn_bwd_dx(void* dh, void* w1, void* dx, int rows, int d, int ff, int config,
                    void* stream) {
   const Operand a{dh, rows}, b{w1, d};
-  const EpiRound epi{{}, static_cast<bf16*>(dx), nullptr, rows, d};
+  const EpiRound<bf16> epi{{}, static_cast<bf16*>(dx), nullptr, rows, d};
   return run<0b101, false, true>(config, &a, &b, 1, ff, ff, 1, 0, epi,
                                  static_cast<cudaStream_t>(stream));
 }
@@ -544,7 +544,7 @@ int tgi_ffn_bwd_dx(void* dh, void* w1, void* dx, int rows, int d, int ff, int co
 int tgi_ffn_bwd_wgrad(void* dy, void* x, void* h, void* dh, void* part, int rows, int d, int ff,
                       int splits, int rows_per_split, int config, void* stream) {
   const Operand a[2] = {{dh, ff}, {dy, d}}, b[2] = {{x, d}, {h, ff}};
-  EpiWgrad epi{};  // dW1 = dhᵀ·x, dW2 = dyᵀ·h; db1 = Σ dh, db2 = Σ dy
+  EpiWgrad<bf16> epi{};  // dW1 = dhᵀ·x, dW2 = dyᵀ·h; db1 = Σ dh, db2 = Σ dy
   epi.part = static_cast<float*>(part);
   epi.m[0] = ff, epi.n[0] = d, epi.m[1] = d, epi.n[1] = ff;
   epi.seg[0].x = dh, epi.seg[0].width = ff;

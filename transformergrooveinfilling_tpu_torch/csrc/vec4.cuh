@@ -11,7 +11,7 @@ namespace {
 __device__ __forceinline__ void store4(float* p, const float* v) {
   *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
 }
-// round to nearest even, as st<__nv_bfloat16>
+// round to nearest even, as astype(bf16)
 __device__ __forceinline__ void store4(__nv_bfloat16* p, const float* v) {
   const __nv_bfloat162 lo = __floats2bfloat162_rn(v[0], v[1]);
   const __nv_bfloat162 hi = __floats2bfloat162_rn(v[2], v[3]);

@@ -14,25 +14,19 @@ decoder layer
 with six dropout sites, and its backward, which returns ``dx``, ``dmem`` (the
 cross-attention's gradient into the encoder memory) and 20 parameter
 gradients. The memory rows of a sequence are the target's (source and
-target lengths must be equal). Two routes, by the storage dtype, on the
-encoder layer's designs (``ops/fused_layer.py``):
-
-- bf16: a chain of launches of ``csrc/layer_sm90.cu`` (``ops/layer_sm90.py``)
-  with every product on the tensor cores (``wgmma`` + TMA) and the
-  elementwise work in the products' epilogues (:func:`forward_sm90`,
-  :func:`backward_sm90`): nine launches forward, twelve backward, the seven
-  weight gradients and 13 bias and LayerNorm-parameter sums in one grouped
-  launch with a fixed-order reduce of its row splits. ``SM90_KERNELS``
-  counts each launch.
-- f32: ``csrc/fused_decoder_layer.cu``'s CUDA-core kernels (``KERNELS``): a
-  forward kernel and a row-backward kernel with one block per sequence, and a
-  weight-gradient kernel that sums dYᵀ·X over all rows in a fixed order.
-
-No float atomics on either route: two runs with one seed agree bit for bit.
+target lengths must be equal). One chain of launches of ``csrc/layer_sm90.cu``
+(``ops/layer_sm90.py``) in both storage dtypes, on the encoder layer's design
+(``ops/fused_layer.py``): every product on the tensor cores (``wgmma`` + TMA;
+f32 in split TF32) and the elementwise work in the products' epilogues
+(:func:`forward_sm90`, :func:`backward_sm90`): nine launches forward, twelve
+backward, the seven weight gradients and 13 bias and LayerNorm-parameter sums
+in one grouped launch with a fixed-order reduce of its row splits.
+``SM90_KERNELS`` (bf16) and ``SM90_F32_KERNELS`` (f32) count each launch. No
+float atomics: two runs with one seed agree bit for bit.
 
 What bounds it on the H100: about 1.6 MFLOP of products per row forward and
 twice that backward at d 256 / ff 512: operations, not memory, on the tensor
-cores in bf16 (989 TFLOP/s) and on the CUDA cores in f32 (67 TFLOP/s). The
+cores (989 TFLOP/s in bf16, 165 in split-TF32 f32). The
 probabilities, both attention outputs and every mask are recomputed in the
 backward (masks from the Philox stream of ``ops/fused_layer.py::
 dropout_mask``), and the autograd Function saves exactly what the TPU kernel
@@ -45,18 +39,13 @@ raises.
 
 from __future__ import annotations
 
-import ctypes
-import functools
 import math
 
 import torch
 
-from . import _build, layer_sm90
+from . import layer_sm90
 from .dropout import quantized_threshold
-from .fused_layer import (
-    KERNEL_DTYPES, MAX_SMEM_BYTES, MAX_T, _ln, bwd_weights_smem_bytes,
-    dropout_mask, fwd_smem_bytes, supports_fused_layer,
-)
+from .fused_layer import _ln, dropout_mask, supports_fused_layer
 
 # dropout sites, in the order the layer reaches them
 SITE_SELF, SITE_PROJ1, SITE_CROSS, SITE_PROJ2, SITE_FFN, SITE_OUT = range(6)
@@ -138,77 +127,25 @@ def decoder_layer_reference(y, mem, wqkv, bqkv, wo, bo, wq, bq, wkv, bkv, wo2, b
 
 # ---------------------------------------------------------------- gate
 
-def bwd_rows_smem_bytes(t: int, d: int, ff: int) -> int:
-    """Row-backward block: the carried gradient, a rounded row gradient, a
-    normalised activation or dattn, dhpre then qc | kv then qkv (and their
-    gradients), P and dS, and the three LayerNorms' statistics, in f32."""
-    return 4 * (t * (3 * d + max(3 * d, ff)) + 2 * t * t + 8 * t)
-
-
 def supports_fused_decoder_layer(d_model: int, n_heads: int, dim_feedforward: int,
                                  seq_len: int, dtype=torch.float32) -> bool:
-    """Whether the kernels take this layer, by route.
-
-    bf16 (``csrc/layer_sm90.cu``): the encoder layer's bf16 gate
-    (``supports_fused_layer``: d a multiple of 8 up to the LayerNorm
-    epilogues' 256, ff a multiple of 8, hd a multiple of 8 and T ≤ 32 for
-    the attention's blocks); the cross-attention's blocks are the
-    self-attention's.
-
-    f32 (``csrc/fused_decoder_layer.cu``): the gate is the kernels' own, as
-    ``supports_fused_layer``'s: one block holds one sequence (T ≤ 32 rows),
-    every block's shared memory fits the 232,448 bytes a block may have, the
-    products read 4 columns at a time (d and ff multiples of 4). The decoder
-    layer needs no more shared memory than the encoder layer although it
-    carries more: the forward's qc (d) and kv (2d) share the space qkv (3d)
-    had, and the row backward runs in three stages (FFN, cross-attention,
-    self-attention) that reuse one set of buffers, handing one (T, d) gradient
-    on. The flagship (T 32, d 256, ff 512) needs 168 KB forward and 205 KB in
-    the row backward. The TPU gate's 128-lane widths, ≤ 5 heads and ff ≤ 1024
-    do not apply.
+    """Whether the chain of ``csrc/layer_sm90.cu`` takes this decoder layer
+    in ``dtype``: the encoder layer's gate (``supports_fused_layer``: d a
+    multiple of 8 up to the LayerNorm epilogues' 256, ff a multiple of 8, T ≤
+    32, in bf16 heads a multiple of 8 wide); the cross-attention's blocks are
+    the self-attention's. In f32 it admits every width of ``configs/*.yaml``
+    and refuses what that gate refuses (d from 264 to about 352, d or ff a
+    multiple of 4 but not of 8), which the f32 CUDA-core kernels before it
+    took by shared memory alone. The TPU gate's 128-lane widths, ≤ 5 heads
+    and ff ≤ 1024 do not apply.
     """
-    if dtype == torch.bfloat16:
-        return supports_fused_layer(d_model, n_heads, dim_feedforward, seq_len, dtype)
-    if dtype not in KERNEL_DTYPES or n_heads < 1 or d_model % n_heads:
-        return False
-    if not (1 <= seq_len <= MAX_T and d_model % 4 == 0 and dim_feedforward % 4 == 0):
-        return False
-    return max(fwd_smem_bytes(seq_len, d_model, dim_feedforward),
-               bwd_rows_smem_bytes(seq_len, d_model, dim_feedforward),
-               bwd_weights_smem_bytes(seq_len, d_model, n_heads)) <= MAX_SMEM_BYTES
+    return supports_fused_layer(d_model, n_heads, dim_feedforward, seq_len, dtype)
 
 
 # ---------------------------------------------------------------- kernels
 
-@functools.cache
-def _kernels():
-    lib = _build.load_library("fused_decoder_layer")
-    p, i = ctypes.c_void_p, ctypes.c_int
-    for fn in (lib.tgi_dec_fwd, lib.tgi_dec_bwd_rows, lib.tgi_dec_bwd_weights):
-        # the pointer array and its length; nseq, T, d, H, ff, thresh, is_bf16; the stream
-        fn.argtypes = [ctypes.POINTER(p), i] + [i] * 7 + [p]
-        fn.restype = i
-    lib.tgi_dec_error_string.argtypes = [i]
-    lib.tgi_dec_error_string.restype = ctypes.c_char_p
-    return lib
-
-
-class _Kernel(_build.CountedKernel):
-    """One kernel of ``csrc/fused_decoder_layer.cu``; its entry point reads
-    its pointers from one array and checks their number."""
-
-    @staticmethod
-    def pointers(tensors) -> list:
-        return [(ctypes.c_void_p * len(tensors))(*[t.data_ptr() for t in tensors]), len(tensors)]
-
-
-# f32 route: the three CUDA-core kernels of csrc/fused_decoder_layer.cu
-KERNELS = {name: _Kernel(_kernels, entry, "tgi_dec_error_string")
-           for name, entry in (("fused_decoder_layer_fwd", "tgi_dec_fwd"),
-                               ("fused_decoder_layer_bwd_rows", "tgi_dec_bwd_rows"),
-                               ("fused_decoder_layer_bwd_weights", "tgi_dec_bwd_weights"))}
-# bf16 route: the chain's launches of csrc/layer_sm90.cu, in launch order, by
-# launch type (ops/layer_sm90.py)
+# the chain's launches of csrc/layer_sm90.cu, in launch order, by launch type
+# (ops/layer_sm90.py); each dtype counts its own
 SM90_LAUNCHES = {"qkv": "bias", "self_attn_fwd": "attn_fwd", "proj_ln1": "res_ln",
                  "qc": "bias", "kv": "bias", "cross_attn_fwd": "attn_fwd",
                  "proj2_ln2": "res_ln", "ffn_hidden": "hidden", "ffn_out_ln3": "res_ln",
@@ -217,12 +154,18 @@ SM90_LAUNCHES = {"qkv": "bias", "self_attn_fwd": "attn_fwd", "proj_ln1": "res_ln
                  "dattn": "round", "self_attn_bwd": "attn_bwd", "dx": "round",
                  "wgrad": "wgrad", "reduce": "reduce"}
 SM90_KERNELS = layer_sm90.counted_kernels("fused_decoder_layer_sm90", SM90_LAUNCHES)
+SM90_F32_KERNELS = layer_sm90.counted_kernels("fused_decoder_layer_sm90_f32", SM90_LAUNCHES)
 
 
 def route_kernels(dtype) -> dict:
-    """The counted kernels a layer call launches in ``dtype``: each once per
-    forward (the first nine) or backward (the rest)."""
-    return SM90_KERNELS if dtype == torch.bfloat16 else KERNELS
+    """The counted kernels a layer call launches in ``dtype`` (bf16 or f32):
+    each once per forward (the first nine) or backward (the rest)."""
+    return SM90_KERNELS if dtype == torch.bfloat16 else SM90_F32_KERNELS
+
+
+def _launches(dtype) -> dict:
+    """``route_kernels(dtype)`` keyed by the launch's name in ``SM90_LAUNCHES``."""
+    return dict(zip(SM90_LAUNCHES, route_kernels(dtype).values()))
 
 
 def _check(args: dict, seed, n_heads: int, seq_len: int) -> None:
@@ -257,18 +200,17 @@ def _check(args: dict, seed, n_heads: int, seq_len: int) -> None:
                          "must have the target's rows (equal source and target lengths)")
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("fused_decoder_layer kernels take contiguous tensors")
-    if y.dtype == torch.bfloat16 and any(args[n].data_ptr() % 16
-                                         for n in WEIGHT_NAMES + ("y", "mem")):
-        raise ValueError("fused_decoder_layer's bf16 kernels take y, mem and the weights "
-                         "16-byte aligned (TMA)")
+    if any(args[n].data_ptr() % 16 for n in WEIGHT_NAMES + ("y", "mem")):
+        raise ValueError("fused_decoder_layer kernels take y, mem and the weights 16-byte "
+                         "aligned (TMA)")
 
 
 def forward_sm90(y, mem, wqkv, bqkv, wo, bo, wq, bq, wkv, bkv, wo2, bo2, g1, b1, w1, b1f,
                  w2, b2f, g2, b2, g3, b3, seed, rate: float, n_heads: int, seq_len: int):
-    """The bf16 route's forward as its chain of launches (``SM90_KERNELS``):
+    """The forward as its chain of launches (``route_kernels(y.dtype)``):
     ``(y3, qkv, a1, qc, kv, a2, h, a3)``. On CPU tensors each launch runs its
-    plain version (any dtype)."""
-    k = {name.removeprefix("fused_decoder_layer_sm90_"): f for name, f in SM90_KERNELS.items()}
+    plain version."""
+    k = _launches(y.dtype)
     L = layer_sm90
     d = y.shape[1]
     qkv = L.bias_product(k["qkv"], y, wqkv, bqkv)
@@ -290,10 +232,10 @@ def forward_sm90(y, mem, wqkv, bqkv, wo, bo, wq, bq, wkv, bkv, wo2, bo2, g1, b1,
 
 def backward_sm90(dy, y, mem, qkv, a1, qc, kv, a2, h, a3, wqkv, wo, wq, wkv, wo2, w1, w2,
                   g1, b1, g2, b2, g3, seed, rate: float, n_heads: int, seq_len: int):
-    """The bf16 route's backward as its chain of launches (``SM90_KERNELS``),
+    """The backward as its chain of launches (``route_kernels(y.dtype)``),
     :func:`layer_backward`'s outputs. On CPU tensors each launch runs its
-    plain version (any dtype)."""
-    k = {name.removeprefix("fused_decoder_layer_sm90_"): f for name, f in SM90_KERNELS.items()}
+    plain version."""
+    k = _launches(y.dtype)
     L = layer_sm90
     m, d = y.shape
     ff = w1.shape[0]
@@ -333,67 +275,27 @@ def backward_sm90(dy, y, mem, qkv, a1, qc, kv, a2, h, a3, wqkv, wo, wq, wkv, wo2
             dw2.view(d, ff), db2f, dg2, db2, dg3, db3)
 
 
-def _shape(m, d, n_heads, ff, seq_len, rate, dtype):
-    return (m // seq_len, seq_len, d, n_heads, ff, quantized_threshold(rate),
-            int(dtype == torch.bfloat16))
-
-
 def layer_forward(y, mem, wqkv, bqkv, wo, bo, wq, bq, wkv, bkv, wo2, bo2, g1, b1, w1, b1f,
                   w2, b2f, g2, b2, g3, b3, seed, rate: float, n_heads: int, seq_len: int):
-    """Launch the forward: ``(y3, qkv, a1, qc, kv, a2, h, a3)``. bf16: the
-    chain of :func:`forward_sm90`; f32: one CUDA-core kernel."""
+    """Launch the forward, the chain of :func:`forward_sm90`: ``(y3, qkv, a1,
+    qc, kv, a2, h, a3)``."""
     inputs = (y, mem, wqkv, bqkv, wo, bo, wq, bq, wkv, bkv, wo2, bo2, g1, b1, w1, b1f, w2,
               b2f, g2, b2, g3, b3)
     _check(dict(zip(ARG_NAMES, inputs)), seed, n_heads, seq_len)
-    if y.dtype == torch.bfloat16:
-        return forward_sm90(*inputs, seed, rate, n_heads, seq_len)
-    m, d = y.shape
-    ff = w1.shape[0]
-    out, a1, qc, a2, a3 = (torch.empty_like(y) for _ in range(5))
-    qkv, kv, h = y.new_empty((m, 3 * d)), y.new_empty((m, 2 * d)), y.new_empty((m, ff))
-    KERNELS["fused_decoder_layer_fwd"].launch(
-        (*inputs, seed, out, qkv, a1, qc, kv, a2, h, a3),
-        _shape(m, d, n_heads, ff, seq_len, rate, y.dtype), y.device)
-    return out, qkv, a1, qc, kv, a2, h, a3
+    return forward_sm90(*inputs, seed, rate, n_heads, seq_len)
 
 
 def layer_backward(dy, y, mem, qkv, a1, qc, kv, a2, h, a3, wqkv, wo, wq, wkv, wo2, w1, w2,
                    g1, b1, g2, b2, g3, seed, rate: float, n_heads: int, seq_len: int):
-    """Launch the backward: ``(dx, dmem, dwqkv, dbqkv, dwo, dbo, dwq, dbq,
-    dwkv, dbkv, dwo2, dbo2, dg1, db1, dw1, db1f, dw2, db2f, dg2, db2, dg3,
-    db3)``, weight gradients in f32. bf16: the chain of
-    :func:`backward_sm90`; f32: the row-backward and weight-gradient
-    kernels."""
-    m, d = y.shape
-    ff = w1.shape[0]
+    """Launch the backward, the chain of :func:`backward_sm90`: ``(dx, dmem,
+    dwqkv, dbqkv, dwo, dbo, dwq, dbq, dwkv, dbkv, dwo2, dbo2, dg1, db1, dw1,
+    db1f, dw2, db2f, dg2, db2, dg3, db3)``, weight gradients in f32."""
     dy = dy.contiguous()
     if dy.dtype != y.dtype or dy.shape != y.shape or dy.device != y.device:
         raise ValueError(f"fused_decoder_layer backward: dy {dy.dtype} {tuple(dy.shape)} "
                          f"does not match y {y.dtype} {tuple(y.shape)}")
-    if y.dtype == torch.bfloat16:
-        return backward_sm90(dy, y, mem, qkv, a1, qc, kv, a2, h, a3, wqkv, wo, wq, wkv, wo2,
-                             w1, w2, g1, b1, g2, b2, g3, seed, rate, n_heads, seq_len)
-    shape = _shape(m, d, n_heads, ff, seq_len, rate, y.dtype)
-    dx, dmem = torch.empty_like(y), torch.empty_like(y)
-    f32 = dict(device=y.device, dtype=torch.float32)
-    # row-wise gradients, f32: df | dhpre | dproj2 | dqc | dkv | dproj | dqkv |
-    # dy·zh3 | dy2·zh2 | dy2 | dy1·zh1 | dy1 | (mean, rstd) of LN1 and LN2
-    scratch = torch.empty((m, 14 * d + ff + 4), **f32)
-    KERNELS["fused_decoder_layer_bwd_rows"].launch(
-        (dy, qkv, a1, qc, kv, a2, h, a3, wqkv, wo, wq, wkv, wo2, w1, w2, g1, g2, g3, seed,
-         dx, dmem, scratch), shape, y.device)
-    dwqkv, dwkv = torch.empty((3 * d, d), **f32), torch.empty((2 * d, d), **f32)
-    dwo, dwq, dwo2 = (torch.empty((d, d), **f32) for _ in range(3))
-    dw1, dw2 = torch.empty((ff, d), **f32), torch.empty((d, ff), **f32)
-    # dbqkv | dbo | dbq | dbkv | dbo2 | dg1 | db1 | db1f | db2f | dg2 | db2 | dg3 | db3
-    vec = torch.empty(15 * d + ff, **f32)
-    KERNELS["fused_decoder_layer_bwd_weights"].launch(
-        (dy, y, mem, qkv, a1, qc, kv, a2, h, g1, b1, g2, b2, seed, scratch,
-         dwqkv, dwo, dwq, dwkv, dwo2, dw1, dw2, vec), shape, y.device)
-    (dbqkv, dbo, dbq, dbkv, dbo2, dg1, db1, db1f, db2f, dg2, db2, dg3, db3) = vec.split(
-        [3 * d, d, d, 2 * d, d, d, d, ff, d, d, d, d, d])
-    return (dx, dmem, dwqkv, dbqkv, dwo, dbo, dwq, dbq, dwkv, dbkv, dwo2, dbo2, dg1, db1,
-            dw1, db1f, dw2, db2f, dg2, db2, dg3, db3)
+    return backward_sm90(dy, y, mem, qkv, a1, qc, kv, a2, h, a3, wqkv, wo, wq, wkv, wo2, w1, w2,
+                         g1, b1, g2, b2, g3, seed, rate, n_heads, seq_len)
 
 
 class _DecoderLayerTrain(torch.autograd.Function):

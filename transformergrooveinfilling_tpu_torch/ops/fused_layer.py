@@ -8,29 +8,28 @@ backward ``_bwd_call`` → ``_bwd_kernel``): the whole post-LN encoder layer
     y1 = LN1(x + drop(A·Wo + bo));  h = drop(relu(y1·W1 + b1))
     y2 = LN2(y1 + drop(h·W2 + b2))
 
-with four dropout sites, and its backward. Two routes, by the storage dtype:
-
-- bf16: a chain of launches of ``csrc/layer_sm90.cu`` (``ops/layer_sm90.py``)
-  with every product on the tensor cores (``wgmma`` + TMA) and the layer's
-  elementwise work in the products' epilogues: forward qkv, the attention
-  per (sequence, head), Wo with the residual and LN1, W1 with ReLU and the
-  mask, W2 with the residual and LN2 (:func:`forward_sm90`); backward the
-  LayerNorm rows (LN2's backward, y1 again), dh, dh·W1 with LN1's backward,
-  dattn, the attention's backward, dx, and all weight and LayerNorm-parameter
-  gradients in one grouped launch with a fixed-order reduce of its row splits
-  (:func:`backward_sm90`). ``SM90_KERNELS`` counts each launch.
-- f32: ``csrc/fused_layer.cu``'s CUDA-core kernels: a forward kernel and a
-  row-backward kernel with one block per sequence, and a weight-gradient
-  kernel that sums dYᵀ·X over all rows in a fixed order (``KERNELS``). The
-  tensor cores' f32 mode is TF32, which would miss the f32 bars.
-
-No float atomics on either route, so two runs with one seed agree bit for bit.
+with four dropout sites, and its backward, as a chain of launches of
+``csrc/layer_sm90.cu`` (``ops/layer_sm90.py``) in both storage dtypes, bf16
+and f32, with every product on the tensor cores (``wgmma`` + TMA) and the
+layer's elementwise work in the products' epilogues: forward qkv, the
+attention per (sequence, head), Wo with the residual and LN1, W1 with ReLU
+and the mask, W2 with the residual and LN2 (:func:`forward_sm90`); backward
+the LayerNorm rows (LN2's backward, y1 again), dh, dh·W1 with LN1's backward,
+dattn, the attention's backward, dx, and all weight and LayerNorm-parameter
+gradients in one grouped launch with a fixed-order reduce of its row splits
+(:func:`backward_sm90`). bf16 products run as they are; f32 products run in
+split TF32 (3xTF32: each operand split into a TF32 high part and a TF32
+remainder, three tensor-core products summed in f32), within about 2⁻²² of
+an f32 product, where one TF32 product would miss the f32 bars. Each dtype
+counts its own launches: ``SM90_KERNELS`` (bf16), ``SM90_F32_KERNELS``
+(f32), ``route_kernels(dtype)`` picks. No float atomics, so two runs with
+one seed agree bit for bit.
 
 What bounds it on the H100: about 1.05 MFLOP of products per row forward and
 2.1 MFLOP backward at the flagship width (d 256, ff 512) — operations, not
-memory: on the tensor cores (989 TFLOP/s in bf16) 17 µs forward at 16,384
-rows, on the CUDA cores (67 TFLOP/s in f32) 15 times that. Both routes keep
-what the TPU kernel keeps out of device memory out of it: the probabilities
+memory: on the tensor cores 17 µs forward at 16,384 rows in bf16 (989
+TFLOP/s) and 104 µs in f32 (165 TFLOP/s, a third of TF32's 495). The chain
+keeps what the TPU kernel keeps out of device memory out of it: the probabilities
 and every mask are recomputed (masks from a counter-based Philox4x32-10
 stream keyed by the seed and counted by (site, row, column)), and the
 autograd Function saves exactly x, qkv, a1, h_drop and a2.
@@ -43,13 +42,11 @@ launches the kernels or raises.
 
 from __future__ import annotations
 
-import ctypes
-import functools
 import math
 
 import torch
 
-from . import _build, layer_sm90
+from . import layer_sm90
 from .dropout import quantized_threshold
 
 LN_EPS = 1e-5
@@ -57,11 +54,11 @@ MAX_T = 32
 # shared memory one block may take on Hopper (227 KB)
 MAX_SMEM_BYTES = 232448
 KERNEL_DTYPES = (torch.float32, torch.bfloat16)
-WGRAD_TILE = 64  # the weight-gradient kernel's (k, n) tile
 # dropout sites: attention probabilities, then the three elementwise sites
 SITE_ATTN, SITE_PROJ, SITE_FFN, SITE_OUT = 0, 1, 2, 3
 # kink_flips: how close to 0, relative to max|h|, a hidden unit must be for
-# the kernel and the twin to disagree on its ReLU (f32: summation order only;
+# the kernel and the twin to disagree on its ReLU (f32: summation order and
+# the split product's ~2⁻²² of each term;
 # bf16: an input of the product rounded to a neighbouring value, up to 4.4e-4
 # on an H100 at the flagship width), and the share of units that may. The
 # H100 showed 0-1 flips per call in f32 and 1-2 in 8.4M units in bf16.
@@ -219,96 +216,62 @@ def kink_flips(twin_h: torch.Tensor, kernel_h: torch.Tensor):
 
 # ---------------------------------------------------------------- gate
 
-def fwd_smem_bytes(t: int, d: int, ff: int) -> int:
-    """Forward block: x/y1, qkv then h, attention output then a2, one head's
-    (T, T) scores, in f32."""
-    return 4 * (t * (2 * d + max(3 * d, ff)) + t * t)
-
-
-def bwd_rows_smem_bytes(t: int, d: int, ff: int) -> int:
-    """Row-backward block: da2/da1, dfb/dprojb, zh1/dattn, dhpre then qkv
-    then dqkv, P and dS, and per-row statistics, in f32."""
-    return 4 * (t * (3 * d + max(3 * d, ff)) + 2 * t * t + 4 * t)
-
-
-def bwd_weights_smem_bytes(t: int, d: int, n_heads: int) -> int:
-    """Weight-gradient block: one (T, 64) chunk of each operand, and for
-    dWo the attention recompute of one head (Q, K, P)."""
-    hd = d // n_heads
-    return 4 * (2 * t * WGRAD_TILE + 2 * t * hd + t * t)
-
-
 def supports_fused_layer(d_model: int, n_heads: int, dim_feedforward: int,
                          seq_len: int, dtype=torch.float32) -> bool:
-    """Whether the kernels take this layer, by route.
+    """Whether the chain of ``csrc/layer_sm90.cu`` takes this layer in
+    ``dtype``.
 
-    bf16 (``csrc/layer_sm90.cu``): d a multiple of 8 up to 256 (the
-    LayerNorm epilogues' tile spans a row; TMA's 16-byte strides), ff a
-    multiple of 8, d divisible by the heads into heads of a width hd that is
-    a multiple of 8 (the attention loads 16-byte rows by cp.async and
-    zero-fills hd to the mma's k of 16), and T ≤ 32 (the attention keeps a
-    (sequence, head) in one block of 32 padded rows on the tensor cores).
-    Rows and the head count are otherwise free: the products' ragged edges
-    are TMA's zero fill.
+    Both dtypes: d a multiple of 8 up to 256 (the LayerNorm epilogues' tile
+    spans a row; TMA's 16-byte row strides; the row pass reads 8 columns a
+    lane), ff a multiple of 8 (the column sums read 8 at a time), d divisible
+    by the heads, and T ≤ 32 (the attention keeps a (sequence, head) in one
+    block of at most 32 rows). bf16 also needs heads of a width hd that is a
+    multiple of 8 (its attention loads 16-byte rows by cp.async and
+    zero-fills hd to the mma's k of 16); the f32 attention stages rows in
+    chunks as narrow as one value and zero-fills hd to the TF32 mma's k of 8,
+    so it takes any hd. Rows and the head count are otherwise free: the
+    products' ragged edges are TMA's zero fill.
 
-    f32 (``csrc/fused_layer.cu``): one block holds one sequence (T ≤ 32 rows:
-    the row loops keep T accumulators per thread in registers), every block's
-    shared memory fits the 232,448 bytes a block may have, and the products
-    read 4 columns at a time (d and ff multiples of 4). The flagship (T 32, d
-    256, ff 512) needs 168 KB forward and 205 KB in the row backward.
+    In f32 this admits every width of ``configs/*.yaml`` at T 32: d 32 with
+    16 heads (hd 2) and ff 512, d 32 / 4 heads / ff 16, d 64 / 16 / 256, d
+    256 / 16 / 64, d 256 / 2 / 512 and d 256 / 2 / 2048. The f32 CUDA-core
+    kernels this chain replaced took, by shared memory alone, what this gate
+    now refuses: d from 264 up to about 352 (beyond the LayerNorm tile), and
+    d or ff a multiple of 4 but not of 8. Under auto those widths take the
+    unfused path; a forced ``fused_layer=True`` raises ``ValueError``.
 
     The TPU gate's 128-lane widths, ≤ 5 heads and ff ≤ 1024 (scoped VMEM) do
     not apply.
     """
     if dtype not in KERNEL_DTYPES or n_heads < 1 or d_model % n_heads or not 1 <= seq_len <= MAX_T:
         return False
-    if dtype == torch.bfloat16:
-        return (8 <= d_model <= layer_sm90.LN_TILE and d_model % 8 == 0
-                and (d_model // n_heads) % 8 == 0
-                and dim_feedforward >= 8 and dim_feedforward % 8 == 0)
-    if not (d_model % 4 == 0 and dim_feedforward % 4 == 0):
+    if dtype == torch.bfloat16 and (d_model // n_heads) % 8:
         return False
-    return max(fwd_smem_bytes(seq_len, d_model, dim_feedforward),
-               bwd_rows_smem_bytes(seq_len, d_model, dim_feedforward),
-               bwd_weights_smem_bytes(seq_len, d_model, n_heads)) <= MAX_SMEM_BYTES
+    return (8 <= d_model <= layer_sm90.LN_TILE and d_model % 8 == 0
+            and dim_feedforward >= 8 and dim_feedforward % 8 == 0)
 
 
 # ---------------------------------------------------------------- kernels
 
-@functools.cache
-def _kernels():
-    lib = _build.load_library("fused_layer")
-    p, i = ctypes.c_void_p, ctypes.c_int
-    # shape ints: nseq, T, d, H, ff, thresh, is_bf16; then the stream
-    shape = [i] * 7 + [p]
-    lib.tgi_layer_fwd.argtypes = [p] * 19 + shape
-    lib.tgi_layer_bwd_rows.argtypes = [p] * 16 + shape
-    lib.tgi_layer_bwd_weights.argtypes = [p] * 14 + shape
-    for fn in (lib.tgi_layer_fwd, lib.tgi_layer_bwd_rows, lib.tgi_layer_bwd_weights):
-        fn.restype = i
-    lib.tgi_layer_error_string.argtypes = [i]
-    lib.tgi_layer_error_string.restype = ctypes.c_char_p
-    return lib
-
-
-# f32 route: the three CUDA-core kernels of csrc/fused_layer.cu
-KERNELS = {name: _build.CountedKernel(_kernels, entry, "tgi_layer_error_string")
-           for name, entry in (("fused_layer_fwd", "tgi_layer_fwd"),
-                               ("fused_layer_bwd_rows", "tgi_layer_bwd_rows"),
-                               ("fused_layer_bwd_weights", "tgi_layer_bwd_weights"))}
-# bf16 route: the chain's launches of csrc/layer_sm90.cu, in launch order, by
-# launch type (ops/layer_sm90.py)
+# the chain's launches of csrc/layer_sm90.cu, in launch order, by launch type
+# (ops/layer_sm90.py); each dtype counts its own
 SM90_LAUNCHES = {"qkv": "bias", "attn_fwd": "attn_fwd", "proj_ln1": "res_ln",
                  "ffn_hidden": "hidden", "ffn_out_ln2": "res_ln", "ln_rows": "ln_rows",
                  "dh": "dh", "dy1_ln1": "ln_bwd", "dattn": "round", "attn_bwd": "attn_bwd",
                  "dx": "round", "wgrad": "wgrad", "reduce": "reduce"}
 SM90_KERNELS = layer_sm90.counted_kernels("fused_layer_sm90", SM90_LAUNCHES)
+SM90_F32_KERNELS = layer_sm90.counted_kernels("fused_layer_sm90_f32", SM90_LAUNCHES)
 
 
 def route_kernels(dtype) -> dict:
-    """The counted kernels a layer call launches in ``dtype``: each once per
-    forward (the first five) or backward (the rest)."""
-    return SM90_KERNELS if dtype == torch.bfloat16 else KERNELS
+    """The counted kernels a layer call launches in ``dtype`` (bf16 or f32):
+    each once per forward (the first five) or backward (the rest)."""
+    return SM90_KERNELS if dtype == torch.bfloat16 else SM90_F32_KERNELS
+
+
+def _launches(dtype) -> dict:
+    """``route_kernels(dtype)`` keyed by the launch's name in ``SM90_LAUNCHES``."""
+    return dict(zip(SM90_LAUNCHES, route_kernels(dtype).values()))
 
 
 def _check(x, weights, vectors, seed, n_heads: int, seq_len: int) -> None:
@@ -335,54 +298,50 @@ def _check(x, weights, vectors, seed, n_heads: int, seq_len: int) -> None:
                          f"expected {want}")
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("fused_layer kernels take contiguous tensors")
-    if x.dtype == torch.bfloat16 and any(t.data_ptr() % 16 for t in (x, *weights)):
-        raise ValueError("fused_layer's bf16 kernels take x and the weights 16-byte aligned "
-                         "(TMA)")
+    if any(t.data_ptr() % 16 for t in (x, *weights)):
+        raise ValueError("fused_layer kernels take x and the weights 16-byte aligned (TMA)")
 
 
 def forward_sm90(x, wqkv, bqkv, wo, bo, g1, b1, w1, b1f, w2, b2f, g2, b2, seed,
                  rate: float, n_heads: int, seq_len: int):
-    """The bf16 route's forward as its chain of launches (``SM90_KERNELS``):
+    """The forward as its chain of launches (``route_kernels(x.dtype)``):
     ``(y, qkv, a1, h, a2)``. On CPU tensors each launch runs its plain
-    version (any dtype)."""
-    k = SM90_KERNELS
+    version."""
+    k = _launches(x.dtype)
     d = x.shape[1]
-    qkv = layer_sm90.bias_product(k["fused_layer_sm90_qkv"], x, wqkv, bqkv)
-    attn = layer_sm90.attention_forward(k["fused_layer_sm90_attn_fwd"], qkv[:, :d],
-                                        qkv[:, d:2 * d], qkv[:, 2 * d:], seed, SITE_ATTN, rate,
-                                        n_heads, seq_len, causal=False)
-    a1, y1 = layer_sm90.residual_ln_product(k["fused_layer_sm90_proj_ln1"], attn, wo, bo, x, g1,
-                                            b1, seed, SITE_PROJ, rate)
-    h = layer_sm90.hidden_product(k["fused_layer_sm90_ffn_hidden"], y1, w1, b1f, seed,
-                                  SITE_FFN, rate)
-    a2, y = layer_sm90.residual_ln_product(k["fused_layer_sm90_ffn_out_ln2"], h, w2, b2f, y1,
-                                           g2, b2, seed, SITE_OUT, rate)
+    qkv = layer_sm90.bias_product(k["qkv"], x, wqkv, bqkv)
+    attn = layer_sm90.attention_forward(k["attn_fwd"], qkv[:, :d], qkv[:, d:2 * d],
+                                        qkv[:, 2 * d:], seed, SITE_ATTN, rate, n_heads, seq_len,
+                                        causal=False)
+    a1, y1 = layer_sm90.residual_ln_product(k["proj_ln1"], attn, wo, bo, x, g1, b1, seed,
+                                            SITE_PROJ, rate)
+    h = layer_sm90.hidden_product(k["ffn_hidden"], y1, w1, b1f, seed, SITE_FFN, rate)
+    a2, y = layer_sm90.residual_ln_product(k["ffn_out_ln2"], h, w2, b2f, y1, g2, b2, seed,
+                                           SITE_OUT, rate)
     return y, qkv, a1, h, a2
 
 
 def backward_sm90(dy, x, qkv, a1, h, a2, wqkv, wo, w1, w2, g1, b1, g2, seed,
                   rate: float, n_heads: int, seq_len: int):
-    """The bf16 route's backward as its chain of launches (``SM90_KERNELS``),
+    """The backward as its chain of launches (``route_kernels(x.dtype)``),
     :func:`layer_backward`'s outputs. On CPU tensors each launch runs its
-    plain version (any dtype)."""
-    k = SM90_KERNELS
+    plain version."""
+    k = _launches(x.dtype)
     m, d = x.shape
     ff = w1.shape[0]
     (y1, _), stats, da2, df = layer_sm90.ln_rows(
-        k["fused_layer_sm90_ln_rows"], [(a1, g1, b1, True), (a2, g2, None, False)], dy, seed,
-        SITE_OUT, rate)
-    dh = layer_sm90.dh_product(k["fused_layer_sm90_dh"], df, w2, h, rate)
+        k["ln_rows"], [(a1, g1, b1, True), (a2, g2, None, False)], dy, seed, SITE_OUT, rate)
+    dh = layer_sm90.dh_product(k["dh"], df, w2, h, rate)
     da1, dy1, dproj = layer_sm90.ln_backward_product(
-        k["fused_layer_sm90_dy1_ln1"], dh, w1, da2, g1, a1, stats[:, 0:2], seed, SITE_PROJ, rate)
-    dattn = layer_sm90.round_product(k["fused_layer_sm90_dattn"], dproj, wo)
+        k["dy1_ln1"], dh, w1, da2, g1, a1, stats[:, 0:2], seed, SITE_PROJ, rate)
+    dattn = layer_sm90.round_product(k["dattn"], dproj, wo)
     dqkv, attn = x.new_empty((m, 3 * d)), x.new_empty((m, d))
-    layer_sm90.attention_backward(k["fused_layer_sm90_attn_bwd"], qkv[:, :d], qkv[:, d:2 * d],
-                                  qkv[:, 2 * d:], dattn, dqkv[:, :d], dqkv[:, d:2 * d],
-                                  dqkv[:, 2 * d:], attn, seed, SITE_ATTN, rate, n_heads,
-                                  seq_len, causal=False)
-    dx = layer_sm90.round_product(k["fused_layer_sm90_dx"], dqkv, wqkv, da1)
+    layer_sm90.attention_backward(k["attn_bwd"], qkv[:, :d], qkv[:, d:2 * d], qkv[:, 2 * d:],
+                                  dattn, dqkv[:, :d], dqkv[:, d:2 * d], dqkv[:, 2 * d:], attn,
+                                  seed, SITE_ATTN, rate, n_heads, seq_len, causal=False)
+    dx = layer_sm90.round_product(k["dx"], dqkv, wqkv, da1)
     grads = layer_sm90.weight_gradients(
-        k["fused_layer_sm90_wgrad"], k["fused_layer_sm90_reduce"],
+        k["wgrad"], k["reduce"],
         [(dqkv, x), (dproj, attn), (dh, y1), (df, h)],
         [(dqkv, None, None), (dproj, None, None), (dy1, a1, stats[:, 0:2]), (dy1, None, None),
          (dh, None, None), (df, None, None), (dy, a2, stats[:, 2:4]), (dy, None, None)])
@@ -394,63 +353,24 @@ def backward_sm90(dy, x, qkv, a1, h, a2, wqkv, wo, w1, w2, g1, b1, g2, seed,
 
 def layer_forward(x, wqkv, bqkv, wo, bo, g1, b1, w1, b1f, w2, b2f, g2, b2,
                   seed, rate: float, n_heads: int, seq_len: int):
-    """Launch the forward: ``(y, qkv, a1, h, a2)``. bf16: the chain of
-    :func:`forward_sm90`; f32: one CUDA-core kernel."""
-    weights, vectors = (wqkv, wo, w1, w2), (bqkv, bo, g1, b1, b1f, b2f, g2, b2)
-    _check(x, weights, vectors, seed, n_heads, seq_len)
-    if x.dtype == torch.bfloat16:
-        return forward_sm90(x, wqkv, bqkv, wo, bo, g1, b1, w1, b1f, w2, b2f, g2, b2, seed,
-                            rate, n_heads, seq_len)
-    m, d = x.shape
-    ff = w1.shape[0]
-    y, a1, a2 = (torch.empty_like(x) for _ in range(3))
-    qkv = x.new_empty((m, 3 * d))
-    h = x.new_empty((m, ff))
-    KERNELS["fused_layer_fwd"].launch(
-        (x, wqkv, bqkv, wo, bo, g1, b1, w1, b1f, w2, b2f, g2, b2, seed, y, qkv, a1, h, a2),
-        _shape(m, d, n_heads, ff, seq_len, rate, x.dtype), x.device)
-    return y, qkv, a1, h, a2
-
-
-def _shape(m, d, n_heads, ff, seq_len, rate, dtype):
-    return (m // seq_len, seq_len, d, n_heads, ff, quantized_threshold(rate),
-            int(dtype == torch.bfloat16))
+    """Launch the forward, the chain of :func:`forward_sm90`: ``(y, qkv, a1,
+    h, a2)``."""
+    _check(x, (wqkv, wo, w1, w2), (bqkv, bo, g1, b1, b1f, b2f, g2, b2), seed, n_heads, seq_len)
+    return forward_sm90(x, wqkv, bqkv, wo, bo, g1, b1, w1, b1f, w2, b2f, g2, b2, seed, rate,
+                        n_heads, seq_len)
 
 
 def layer_backward(dy, x, qkv, a1, h, a2, wqkv, wo, w1, w2, g1, b1, g2, seed,
                    rate: float, n_heads: int, seq_len: int):
-    """Launch the backward: ``(dx, dwqkv, dbqkv, dwo, dbo, dg1, db1, dw1,
-    db1f, dw2, db2f, dg2, db2)``, weight gradients in f32. bf16: the chain of
-    :func:`backward_sm90`; f32: the row-backward and weight-gradient
-    kernels."""
-    m, d = x.shape
-    ff = w1.shape[0]
+    """Launch the backward, the chain of :func:`backward_sm90`: ``(dx, dwqkv,
+    dbqkv, dwo, dbo, dg1, db1, dw1, db1f, dw2, db2f, dg2, db2)``, weight
+    gradients in f32."""
     dy = dy.contiguous()
     if dy.dtype != x.dtype or dy.shape != x.shape or dy.device != x.device:
         raise ValueError(f"fused_layer backward: dy {dy.dtype} {tuple(dy.shape)} "
                          f"does not match x {x.dtype} {tuple(x.shape)}")
-    if x.dtype == torch.bfloat16:
-        return backward_sm90(dy, x, qkv, a1, h, a2, wqkv, wo, w1, w2, g1, b1, g2, seed,
-                             rate, n_heads, seq_len)
-    shape = _shape(m, d, n_heads, ff, seq_len, rate, x.dtype)
-    dx = torch.empty_like(x)
-    # row-wise gradients, f32: df | dhpre | dproj | dqkv | dy1·zh1 | dy1 |
-    # dy·zh2 | (mean, rstd) of LN1
-    scratch = torch.empty((m, 8 * d + ff + 2), device=x.device, dtype=torch.float32)
-    KERNELS["fused_layer_bwd_rows"].launch(
-        (dy, x, qkv, a1, h, a2, wqkv, wo, w1, w2, g1, b1, g2, seed, dx, scratch),
-        shape, x.device)
-    f32 = dict(device=x.device, dtype=torch.float32)
-    dwqkv, dwo = torch.empty((3 * d, d), **f32), torch.empty((d, d), **f32)
-    dw1, dw2 = torch.empty((ff, d), **f32), torch.empty((d, ff), **f32)
-    # dbqkv | dbo | dg1 | db1 | db1f | db2f | dg2 | db2
-    vec = torch.empty(9 * d + ff, **f32)
-    KERNELS["fused_layer_bwd_weights"].launch(
-        (dy, x, qkv, a1, h, g1, b1, seed, scratch, dwqkv, dwo, dw1, dw2, vec),
-        shape, x.device)
-    dbqkv, dbo, dg1, db1, db1f, db2f, dg2, db2 = vec.split(
-        [3 * d, d, d, d, ff, d, d, d])
-    return dx, dwqkv, dbqkv, dwo, dbo, dg1, db1, dw1, db1f, dw2, db2f, dg2, db2
+    return backward_sm90(dy, x, qkv, a1, h, a2, wqkv, wo, w1, w2, g1, b1, g2, seed, rate,
+                         n_heads, seq_len)
 
 
 class _EncoderLayerTrain(torch.autograd.Function):

@@ -1,14 +1,17 @@
-"""The launches of the bf16 whole-layer chains on Hopper: wrappers and plain versions.
+"""The launches of the whole-layer chains on Hopper: wrappers and plain versions.
 
 ``csrc/layer_sm90.cu`` holds the launches from which ``ops/fused_layer.py``
 and ``ops/fused_decoder_layer.py`` build the encoder and decoder layers'
-forward and backward in bf16 (their f32 route stays the CUDA-core kernels of
-``csrc/fused_layer.cu`` and ``csrc/fused_decoder_layer.cu``). Every dense
-product runs on the ``wgmma`` core of ``csrc/gemm_sm90.cuh`` with the layer's
-elementwise work in its epilogue; the attention runs one block per (sequence,
-head); the weight gradients of a layer are one grouped launch whose row
-splits a reduce adds in a fixed order (no float atomics: two runs with one
-seed agree bit for bit). See the source's note for what bounds each launch.
+forward and backward, in bf16 or in f32 (the activations' dtype picks; one
+chain for both). Every dense product runs on the ``wgmma`` core of
+``csrc/gemm_sm90.cuh`` with the layer's elementwise work in its epilogue: bf16
+products as they are, f32 products in split TF32 (3xTF32: each operand split
+into a TF32 high part and a TF32 remainder, three tensor-core products
+summed in f32, :func:`split_tf32_matmul`). The attention runs one block per
+(sequence, head); the weight gradients of a layer are one grouped launch
+whose row splits a reduce adds in a fixed order (no float atomics: two runs
+with one seed agree bit for bit). See the source's note for what bounds each
+launch.
 
 Each wrapper here is one launch: it takes the ``_build.CountedKernel`` to
 launch through (so that each layer counts its own launches), runs the
@@ -17,9 +20,11 @@ when every tensor lies on the CPU, and on CUDA tensors launches the kernel
 or raises. Inside :func:`recording` each launch is also kept with its
 arguments, outputs and plain version, for a check on the card. The plain
 versions repeat the kernels' arithmetic: f32 sums, rounding to the activations' dtype where the
-kernels round, the dropout masks of ``ops/fused_layer.py::dropout_mask``
+kernels round (none in f32), the dropout masks of ``ops/fused_layer.py::dropout_mask``
 counted by (site, global row, column) for the elementwise sites and by
-((sequence·H + head)·T + i, j) for the attention's.
+((sequence·H + head)·T + i, j) for the attention's. In f32 their products are
+plain f32 products, which the split TF32 products meet within about 2⁻²² of
+each term (:func:`split_tf32_matmul` holds that arithmetic itself).
 """
 
 from __future__ import annotations
@@ -49,18 +54,19 @@ MAX_LN = 3
 # ---------------------------------------------------------------- kernels
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-# each entry point's arguments before the stream (csrc/layer_sm90.cu)
+# each entry point's arguments before the stream (csrc/layer_sm90.cu); the
+# last int of all but the reduce is ``f32``, the activations' dtype
 SIGNATURES = {
-    "tgi_sm90_bias": [_P] * 4 + [_I] * 4,
-    "tgi_sm90_hidden": [_P] * 5 + [_I] * 6,
-    "tgi_sm90_res_ln": [_P] * 9 + [_I] * 5,
-    "tgi_sm90_dh": [_P] * 4 + [_I] * 5,
-    "tgi_sm90_ln_bwd": [_P] * 10 + [_I] * 6,
-    "tgi_sm90_round": [_P] * 4 + [_I] * 4,
-    "tgi_sm90_ln_rows": [ctypes.POINTER(_P)] + [_I] * 5,
-    "tgi_sm90_attn_fwd": [_P] * 5 + [_I] * 10,
-    "tgi_sm90_attn_bwd": [_P] * 9 + [_I] * 13,
-    "tgi_sm90_wgrad": [ctypes.POINTER(_P), ctypes.POINTER(_I)] + [_I] * 5 + [_P],
+    "tgi_sm90_bias": [_P] * 4 + [_I] * 5,
+    "tgi_sm90_hidden": [_P] * 5 + [_I] * 7,
+    "tgi_sm90_res_ln": [_P] * 9 + [_I] * 6,
+    "tgi_sm90_dh": [_P] * 4 + [_I] * 6,
+    "tgi_sm90_ln_bwd": [_P] * 10 + [_I] * 7,
+    "tgi_sm90_round": [_P] * 4 + [_I] * 5,
+    "tgi_sm90_ln_rows": [ctypes.POINTER(_P)] + [_I] * 6,
+    "tgi_sm90_attn_fwd": [_P] * 5 + [_I] * 11,
+    "tgi_sm90_attn_bwd": [_P] * 9 + [_I] * 14,
+    "tgi_sm90_wgrad": [ctypes.POINTER(_P), ctypes.POINTER(_I)] + [_I] * 5 + [_P, _I],
     "tgi_sm90_reduce": [_P, _P, ctypes.c_longlong, _I],
 }
 
@@ -87,7 +93,8 @@ ENTRIES = {"bias": "tgi_sm90_bias", "hidden": "tgi_sm90_hidden", "res_ln": "tgi_
 
 def counted_kernels(prefix: str, launches: dict) -> dict:
     """``{prefix_name: CountedKernel}`` for ``launches`` = ``{name: launch
-    type}`` (a key of ``ENTRIES``): one counter per launch of a layer."""
+    type}`` (a key of ``ENTRIES``): one counter per launch of a layer (a
+    chain per dtype, so that each dtype counts its own launches)."""
     return {f"{prefix}_{name}": _build.CountedKernel(_library, ENTRIES[kind],
                                                      "tgi_sm90_error_string")
             for name, kind in launches.items()}
@@ -134,23 +141,37 @@ def _on_cpu(*tensors) -> bool:
     return False
 
 
-def _check(bf16=(), f32=(), views=()) -> None:
-    """Raise ``ValueError`` on what the kernels do not take: ``bf16`` and
-    ``f32`` are contiguous tensors of those dtypes, ``views`` bf16 matrices
-    whose rows may be strided (columns contiguous); every bf16 tensor 16-byte
-    aligned (TMA, cp.async) and its rows a multiple of 8 values apart."""
-    for t in bf16:
-        if t.dtype != torch.bfloat16 or not t.is_contiguous() or t.data_ptr() % 16 \
-                or t.shape[-1] % 8:
-            raise ValueError("layer_sm90 takes contiguous bf16 activations and weights, "
+CHAIN_DTYPES = (torch.bfloat16, torch.float32)
+
+
+def _f32(t: torch.Tensor) -> int:
+    """The entry points' ``f32`` argument for activations like ``t``."""
+    return int(t.dtype == torch.float32)
+
+
+def _check(acts=(), f32=(), views=()) -> None:
+    """Raise ``ValueError`` on what the kernels do not take: ``acts`` are the
+    activations and weights of a launch, contiguous, of one dtype of
+    ``CHAIN_DTYPES``, 16-byte aligned (TMA) and rows a multiple of 8 values;
+    ``f32`` contiguous f32 tensors; ``views`` the attention's (rows, width)
+    matrices in the activations' dtype, whose rows may be strided (columns
+    contiguous), in bf16 also 16-byte aligned and rows a multiple of 8 values
+    apart (cp.async)."""
+    dtypes = {t.dtype for t in (*acts, *views)}
+    if len(dtypes) > 1 or not dtypes <= set(CHAIN_DTYPES):
+        raise ValueError("layer_sm90 takes activations and weights of one dtype, bf16 or "
+                         f"f32; got {sorted(str(d) for d in dtypes)}")
+    for t in acts:
+        if not t.is_contiguous() or t.data_ptr() % 16 or t.shape[-1] % 8:
+            raise ValueError("layer_sm90 takes contiguous activations and weights, "
                              f"16-byte aligned, rows a multiple of 8; got {t.dtype} "
                              f"{tuple(t.shape)} stride {t.stride()}")
     for t in views:
-        if t.dtype != torch.bfloat16 or t.dim() != 2 or t.stride(1) != 1 \
-                or t.data_ptr() % 16 or t.stride(0) % 8:
-            raise ValueError("layer_sm90's attention takes bf16 (rows, width) views with "
-                             "contiguous columns, 16-byte aligned, rows a multiple of 8 "
-                             f"values apart; got {t.dtype} {tuple(t.shape)} "
+        if t.dim() != 2 or t.stride(1) != 1 or (t.dtype == torch.bfloat16 and (
+                t.data_ptr() % 16 or t.stride(0) % 8)):
+            raise ValueError("layer_sm90's attention takes (rows, width) views with "
+                             "contiguous columns, in bf16 16-byte aligned and rows a multiple "
+                             f"of 8 values apart; got {t.dtype} {tuple(t.shape)} "
                              f"stride {t.stride()}")
     for t in f32:
         if t.dtype != torch.float32 or not t.is_contiguous():
@@ -182,6 +203,34 @@ def _ln_backward(v, g, zh, rstd):
     """da = rstd·(dz − mean(dz) − ẑ·mean(dz·ẑ)), dz = v·g, per row."""
     dz = v * g
     return rstd * (dz - dz.mean(-1, keepdim=True) - zh * (dz * zh).mean(-1, keepdim=True))
+
+
+# ---------------------------------------------------------------- split TF32
+
+def tf32_round(x: torch.Tensor) -> torch.Tensor:
+    """f32 ``x`` rounded to TF32 (10 mantissa bits) as ``cvt.rna.tf32.f32``
+    does: to nearest, ties away from zero, on the low 13 bits of the pattern
+    (adding half of their range to the sign-magnitude pattern rounds the
+    magnitude up at a tie, for either sign)."""
+    bits = x.float().contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def split_tf32(x: torch.Tensor):
+    """``(hi, lo)``: ``hi`` = TF32(x), ``lo`` = TF32(x − hi), the core's split
+    of an f32 operand; x − hi − lo is within 2⁻²² of x."""
+    hi = tf32_round(x)
+    return hi, tf32_round(x.float() - hi)
+
+
+def split_tf32_matmul(a: torch.Tensor, b: torch.Tensor, dtype=torch.float64) -> torch.Tensor:
+    """``a @ b`` as ``gemm_sm90.cuh`` computes it from f32 operands: A_lo·B_hi
+    + A_hi·B_lo + A_hi·B_hi of the operands' TF32 splits, each TF32 product
+    exact, summed in ``dtype`` (f64 by default, which sets the split's own
+    error apart from the order of the f32 sums)."""
+    (ah, al), (bh, bl) = split_tf32(a), split_tf32(b)
+    ah, al, bh, bl = (t.to(dtype) for t in (ah, al, bh, bl))
+    return al @ bh + ah @ bl + ah @ bh
 
 
 # ---------------------------------------------------------------- recording
@@ -233,7 +282,8 @@ def bias_product(kernel, a, w, bias):
     _check((a, w), (bias,))
     (rows, k), n = a.shape, w.shape[0]
     out = a.new_empty((rows, n))
-    kernel.launch((a, w, bias, out), (rows, n, k, product_config(rows, n, _sms(a))), a.device)
+    kernel.launch((a, w, bias, out), (rows, n, k, product_config(rows, n, _sms(a)), _f32(a)),
+                  a.device)
     return _done(kernel, bias_reference, (a, w, bias), out,
                  lambda: bias_product(kernel, a, w, bias))
 
@@ -250,8 +300,8 @@ def hidden_product(kernel, a, w, bias, seed, site: int, rate: float):
     (rows, k), n = a.shape, w.shape[0]
     h = a.new_empty((rows, n))
     kernel.launch((a, w, bias, seed, h),
-                  (rows, n, k, quantized_threshold(rate), site, product_config(rows, n, _sms(a))),
-                  a.device)
+                  (rows, n, k, quantized_threshold(rate), site, product_config(rows, n, _sms(a)),
+                   _f32(a)), a.device)
     return _done(kernel, hidden_reference, (a, w, bias, seed, site, rate), h,
                  lambda: hidden_product(kernel, a, w, bias, seed, site, rate))
 
@@ -275,7 +325,7 @@ def residual_ln_product(kernel, a, w, bias, resid, g, beta, seed, site: int, rat
         raise ValueError(f"layer_sm90's LayerNorm epilogue takes d ≤ {LN_TILE}; got {d}")
     a_out, y = a.new_empty((rows, d)), a.new_empty((rows, d))
     kernel.launch((a, w, bias, resid, g, beta, seed, a_out, y),
-                  (rows, d, k, quantized_threshold(rate), site), a.device)
+                  (rows, d, k, quantized_threshold(rate), site, _f32(a)), a.device)
     return _done(kernel, residual_ln_reference, args, (a_out, y),
                  lambda: residual_ln_product(kernel, *args))
 
@@ -294,8 +344,8 @@ def dh_product(kernel, df, w2, h, rate: float):
     (rows, k), n = df.shape, w2.shape[1]
     dh = h.new_empty((rows, n))
     kernel.launch((df, w2, h, dh),
-                  (rows, n, k, quantized_threshold(rate), product_config(rows, n, _sms(df))),
-                  df.device)
+                  (rows, n, k, quantized_threshold(rate), product_config(rows, n, _sms(df)),
+                   _f32(df)), df.device)
     return _done(kernel, dh_reference, (df, w2, h, rate), dh,
                  lambda: dh_product(kernel, df, w2, h, rate))
 
@@ -324,7 +374,8 @@ def ln_backward_product(kernel, a, w, resid, g, a_ln, stats, seed, site: int, ra
     da, v = resid.new_empty((rows, d)), resid.new_empty((rows, d))
     dp = a.new_empty((rows, d))
     kernel.launch((a, w, resid, g, a_ln, stats, seed, da, v, dp),
-                  (rows, d, k, stats.stride(0), quantized_threshold(rate), site), a.device)
+                  (rows, d, k, stats.stride(0), quantized_threshold(rate), site, _f32(a)),
+                  a.device)
     return _done(kernel, ln_backward_reference, args, (da, v, dp),
                  lambda: ln_backward_product(kernel, *args))
 
@@ -343,7 +394,8 @@ def round_product(kernel, a, w, resid=None):
     _check((a, w), () if resid is None else (resid,))
     (rows, k), n = a.shape, w.shape[1]
     out = a.new_empty((rows, n))
-    kernel.launch((a, w, resid, out), (rows, n, k, product_config(rows, n, _sms(a))), a.device)
+    kernel.launch((a, w, resid, out), (rows, n, k, product_config(rows, n, _sms(a)), _f32(a)),
+                  a.device)
     return _done(kernel, round_reference, (a, w, resid), out,
                  lambda: round_product(kernel, a, w, resid))
 
@@ -387,7 +439,7 @@ def ln_rows(kernel, lns, dy, seed, site: int, rate: float):
                  None if y is None else y.data_ptr()]
     ptrs += [stats.data_ptr(), dy.data_ptr(), da.data_ptr(), df.data_ptr(), seed.data_ptr()]
     kernel.launch((), ((ctypes.c_void_p * len(ptrs))(*ptrs), len(lns), rows, d,
-                       quantized_threshold(rate), site), dy.device)
+                       quantized_threshold(rate), site, _f32(dy)), dy.device)
     outputs = (*[y for y in ys if y is not None], stats, da, df)
 
     def reference(*args):
@@ -432,9 +484,9 @@ def _check_attention(q, k, v, seq_len, n_heads, *more):
     if k.stride(0) != v.stride(0) or not 1 <= seq_len <= MAX_T or rows % seq_len:
         raise ValueError(f"layer_sm90's attention takes T ≤ {MAX_T} and k, v of one row "
                          f"stride; got T {seq_len}, rows {rows}")
-    if n_heads < 1 or d % n_heads or (d // n_heads) % 8:
-        raise ValueError("layer_sm90's attention takes heads of a width that is a multiple "
-                         f"of 8; got d {d}, {n_heads} heads")
+    if n_heads < 1 or d % n_heads or (q.dtype == torch.bfloat16 and (d // n_heads) % 8):
+        raise ValueError("layer_sm90's attention takes heads dividing d, in bf16 of a width "
+                         f"that is a multiple of 8; got d {d}, {n_heads} heads")
 
 
 def attention_forward_reference(q, k, v, seed, site: int, rate: float, n_heads: int,
@@ -462,7 +514,7 @@ def attention_forward(kernel, q, k, v, seed, site: int, rate: float, n_heads: in
     nseq, t, h, hd, thresh, site_, causal_ = _attn_shape(q, rate, n_heads, seq_len, site,
                                                          causal)
     kernel.launch((q, k, v, out, seed), (q.stride(0), k.stride(0), d, nseq, t, h, hd, thresh,
-                                         site_, causal_), q.device)
+                                         site_, causal_, _f32(q)), q.device)
     return _done(kernel, attention_forward_reference, args, out,
                  lambda: attention_forward(kernel, *args))
 
@@ -506,7 +558,7 @@ def attention_backward(kernel, q, k, v, da, dq, dk, dv, out, seed, site: int, ra
                                                          causal)
     kernel.launch((q, k, v, da, dq, dk, dv, out, seed),
                   (q.stride(0), k.stride(0), da.stride(0), dq.stride(0), dk.stride(0),
-                   out.stride(0), nseq, t, h, hd, thresh, site_, causal_), q.device)
+                   out.stride(0), nseq, t, h, hd, thresh, site_, causal_, _f32(q)), q.device)
     _done(kernel, attention_backward_reference, args, (dq, dk, dv, out),
           lambda: attention_backward(kernel, q, k, v, da, dq, dk, dv, out, seed, site, rate,
                                      n_heads, seq_len, causal))
@@ -569,7 +621,7 @@ def weight_partials(kernel, problems, segments):
         ints += [dy.shape[1], x.shape[1]]
         total += dy.shape[1] * x.shape[1]
     for x, z, stats in segments:
-        if x.dtype not in (torch.bfloat16, torch.float32) or not x.is_contiguous() \
+        if x.dtype not in CHAIN_DTYPES or not x.is_contiguous() \
                 or x.shape[1] % 8 or (stats is not None and stats.stride(1) != 1):
             raise ValueError("layer_sm90's column sums take contiguous bf16 or f32 rows, a "
                              "multiple of 8 wide, and f32 (rows, 2) statistics")
@@ -582,8 +634,8 @@ def weight_partials(kernel, problems, segments):
                                _sms(problems[0][0]))
     part = torch.empty((splits, total), device=problems[0][0].device, dtype=torch.float32)
     kernel.launch((), ((ctypes.c_void_p * len(ptrs))(*ptrs), (ctypes.c_int * len(ints))(*ints),
-                       len(problems), len(segments), rows, splits, per, part.data_ptr()),
-                  part.device)
+                       len(problems), len(segments), rows, splits, per, part.data_ptr(),
+                       _f32(problems[0][0])), part.device)
     _done(kernel, weight_partials_reference, (problems, segments, splits, per), part,
           lambda: weight_partials(kernel, problems, segments))
     return part

@@ -166,6 +166,14 @@ def stft_magnitude_conv(y: torch.Tensor, params: MSOParams) -> torch.Tensor:
     return mag.reshape(lead + mag.shape[1:])
 
 
+def onset_strength_bands(mag: torch.Tensor, fb: torch.Tensor, params: MSOParams) -> torch.Tensor:
+    """Log-compressed band energies → adaptive-threshold spectral flux
+    ``(..., F, n_bands)``: the STFT magnitudes ``mag`` ``(..., F, n_fft/2 +
+    1)`` projected on the filterbank ``fb`` ``(n_bands, n_fft/2 + 1)``, then
+    :func:`_flux_from_bands` (the JAX package's ``onset_strength_bands``)."""
+    return _flux_from_bands(torch.einsum("...fk,bk->...fb", mag, fb), params)
+
+
 def _flux_from_bands(bands: torch.Tensor, params: MSOParams) -> torch.Tensor:
     """Band-energy compression + moving-average adaptive-threshold flux."""
     if params.compression == "db":

@@ -127,13 +127,12 @@ def resolve_fused_ffn(fused_ffn: Optional[bool], dim_feedforward: int, d_model: 
     return False
 
 
-# The largest training batch at which each route's whole-layer kernels were
-# measured faster than the unfused path by more than the spread between turns
-# (PERF.md §5). bf16, the chains of csrc/layer_sm90.cu: faster at 32 and at 512,
-# the two batches measured; above 512 nothing was measured. f32, the CUDA-core
-# kernels of csrc/fused_layer.cu and csrc/fused_decoder_layer.cu: their design
-# won at 32 and ran about 4x slower than the unfused path at 512, so 32
-LAYER_KERNEL_MAX_BATCH = {torch.bfloat16: 512, torch.float32: 32}
+# The largest training batch at which each dtype's whole-layer chains
+# (csrc/layer_sm90.cu) were measured faster than the unfused path by more than
+# the spread between turns (PERF.md §5): faster at 32 and at 512, the two
+# batches measured, in bf16 and in f32 (split TF32); above 512 nothing was
+# measured
+LAYER_KERNEL_MAX_BATCH = {torch.bfloat16: 512, torch.float32: 512}
 
 
 def _measured_batch(batch_size: Optional[int], compute_dtype) -> bool:
@@ -152,10 +151,10 @@ def resolve_fused_layer(fused_layer: Optional[bool], d_model: int, n_heads: int,
     JAX package's positional signature, then ``batch_size``). ``None`` = auto,
     gated by measurement as the JAX package's is: on for a single device
     where the kernels' Hopper gate (``ops/fused_layer.py::supports_fused_layer``)
-    admits the shape and the training batch is one at which the route's
-    kernels were measured faster, ``batch_size`` <= 512 in bf16 and <= 32 in
-    f32 (``LAYER_KERNEL_MAX_BATCH``); off when the batch is larger or not
-    given. A forced True is kept; the model raises if the gate rejects it.
+    admits the shape and the training batch is one at which the dtype's
+    chain was measured faster, ``batch_size`` <= 512 in bf16 and in f32
+    (``LAYER_KERNEL_MAX_BATCH``); off when the batch is larger or not given.
+    A forced True is kept; the model raises if the gate rejects it.
 
     On an NVIDIA H100 80GB HBM3 at 700 W (chip_smoke.py, phase 9; PERF.md §5),
     flagship width, bf16, the bf16 chain of csrc/layer_sm90.cu against
@@ -165,9 +164,15 @@ def resolve_fused_layer(fused_layer: Optional[bool], d_model: int, n_heads: int,
     gains 2.5x at both. Phase 18 gives the same verdict at ff 2048
     (configs/InfillingRandomLow_lm_training.yaml): 2,174-2,298 against the
     unfused path's 721-799 at batch 32, 34,160-37,921 against 10,067-10,984
-    at 512. The f32 route keeps the verdict of its CUDA-core design, measured
-    with bf16 storage before the bf16 chains existed: 1,667-1,713 seqs/s
-    against 855-938 at batch 32, 3,328-3,381 against 12,600-17,500 at 512."""
+    at 512. f32 (``bf16: false``), the split-TF32 chain against
+    ``fused_layer=False`` in 3 pairs of turns run back to back (chip_smoke.py
+    phase 9, NVIDIA H100 80GB HBM3, 700.00 W): 2,938 / 3,430 / 3,206 seqs/s
+    against 1,139 / 1,216 / 1,167 at batch 32 (pairs 2.58, 2.82, 2.75; one
+    path's turns up to 16.7 % apart), 43,949 / 42,759 / 43,641 against
+    19,999 / 14,806 / 21,018 at 512 (pairs 2.20, 2.89, 2.08; up to 42 %
+    apart): the worst pair gains 158 % and 108 %, beyond the spread. A second
+    run of the final code: worst pairs +123 % and +85 % against spreads of
+    15.8 % and 30.7 %."""
     if fused_layer is not None:
         return bool(fused_layer)
     return (n_devices == 1 and _measured_batch(batch_size, compute_dtype)
@@ -182,15 +187,21 @@ def resolve_fused_decoder_layer(fused_decoder_layer: Optional[bool], d_model: in
     (encoder-decoder models), by the rule of :func:`resolve_fused_layer`:
     ``None`` = auto, on for a single device where the decoder kernels' Hopper
     gate (``ops/fused_decoder_layer.py::supports_fused_decoder_layer``) admits
-    the shape and ``batch_size`` is within the route's
-    ``LAYER_KERNEL_MAX_BATCH`` (bf16 512, f32 32); off when the batch is
+    the shape and ``batch_size`` is within the dtype's
+    ``LAYER_KERNEL_MAX_BATCH`` (512 in bf16 and in f32); off when the batch is
     larger or not given. A forced True is kept; the model raises if the gate
     rejects it.
 
     The 6 + 6 layer model at the flagship width on an NVIDIA H100 80GB HBM3
     at 700 W (chip_smoke.py, phase 15; PERF.md §5), bf16: 901-1,134 seqs/s on
     the kernel path against 370-386 with both fused switches off at batch 32;
-    14,845-15,176 against 4,707-4,813 at batch 512."""
+    14,845-15,176 against 4,707-4,813 at batch 512. f32, both split-TF32
+    chains against both switches off in 3 pairs of turns back to back (700.00
+    W): 1,243 / 1,162 / 1,088 against 515 / 387 / 438 at batch 32 (pairs
+    2.41, 3.00, 2.49; one path's turns up to 33 % apart), 16,067 / 17,388 /
+    16,752 against 7,123 / 5,675 / 6,595 at 512 (pairs 2.26, 3.06, 2.54; up
+    to 25.5 % apart): the worst pair gains 141 % and 126 % (a second run of
+    the final code: +154 % and +174 %)."""
     if fused_decoder_layer is not None:
         return bool(fused_decoder_layer)
     return (n_devices == 1 and _measured_batch(batch_size, compute_dtype)
