@@ -313,22 +313,16 @@ DEC_TPU_KERNELS = {"fwd": "transformergrooveinfilling_tpu/ops/fused_decoder_laye
                    "bwd": "transformergrooveinfilling_tpu/ops/fused_decoder_layer.py:236"}
 FFN_SOURCE = "transformergrooveinfilling_tpu_torch/csrc/fused_ffn.cu"
 FFN_TPU_KERNELS = {  # the Pallas kernel bodies each CUDA kernel stands in for
-    **{k: "transformergrooveinfilling_tpu/ops/fused_ffn.py:138"  # and :63
-       for k in ("fused_ffn_fwd_h", "fused_ffn_fwd_out", "fused_ffn_fwd_f32")},
-    **{k: "transformergrooveinfilling_tpu/ops/fused_ffn.py:83"
-       for k in ("fused_ffn_bwd_dh", "fused_ffn_bwd_dx", "fused_ffn_bwd_weights",
-                 "fused_ffn_reduce", "fused_ffn_bwd_rows_f32", "fused_ffn_bwd_weights_f32")},
-}
-# what each FFN launch type is called in a profile (the bf16 products are one
-# template, told apart by their epilogues; the f32 weight launch ends in the
-# reduce)
+    f"fused_ffn_{name}{suffix}": "transformergrooveinfilling_tpu/ops/fused_ffn.py:"
+                                 + ("138" if name.startswith("fwd") else "83")  # and :63
+    for name, _ in ffn.LAUNCHES for suffix in ("", "_f32")}
+# what each FFN launch type is called in a profile: the products are one
+# template, told apart by their epilogues (a timing row holds one dtype's)
 FFN_DEVICE_NAMES = {
-    "fused_ffn_fwd_h": ("EpiHidden",), "fused_ffn_fwd_out": ("EpiOut",),
-    "fused_ffn_bwd_dh": ("EpiDh",), "fused_ffn_bwd_dx": ("EpiRound",),
-    "fused_ffn_bwd_weights": ("EpiWgrad",), "fused_ffn_reduce": ("reduce_splits",),
-    "fused_ffn_fwd_f32": ("ffn_fwd",), "fused_ffn_bwd_rows_f32": ("ffn_bwd_rows",),
-    "fused_ffn_bwd_weights_f32": ("ffn_bwd_weights", "reduce_splits"),
-}
+    f"fused_ffn_{name}{suffix}": (epi,)
+    for (name, _), epi in zip(ffn.LAUNCHES, ("EpiHidden", "EpiOut", "EpiDh", "EpiRound",
+                                             "EpiWgrad", "reduce_splits"))
+    for suffix in ("", "_f32")}
 LN_SOURCE = "transformergrooveinfilling_tpu_torch/csrc/fused_ln.cu"
 LN_TPU_KERNELS = {"fused_ln_fwd": "transformergrooveinfilling_tpu/ops/fused_ln.py:54",
                   "fused_ln_bwd": "transformergrooveinfilling_tpu/ops/fused_ln.py:68"}
@@ -824,10 +818,9 @@ def phase_build() -> None:
                  if "registers" in line or "spill" in line or "Compiling entry" in line]
         emit({"phase": "build", "kernel": name, "seconds": time.perf_counter() - t0,
               "nvcc_seconds": info["seconds"], "ptxas": ptxas})
-    emit({"phase": "build", "kernel": "fused_ffn, fused_ln", "dynamic_smem_bytes": {
-        f"d {d}": {"ffn_fwd, ffn_bwd_rows (f32)": ffn.rows_smem_bytes(d), "ln_fwd": 0,
-                   "ln_bwd": ln.bwd_smem_bytes(d, torch.bfloat16)} for d in (256, 1024)},
-        "limit": fl.MAX_SMEM_BYTES})
+    emit({"phase": "build", "kernel": "fused_ln", "dynamic_smem_bytes": {
+        f"d {d}": {"ln_fwd": 0, "ln_bwd": ln.bwd_smem_bytes(d, torch.bfloat16)}
+        for d in (256, 1024)}, "limit": fl.MAX_SMEM_BYTES})
 
 
 def kernel_resources(name: str) -> dict:
@@ -1116,9 +1109,10 @@ def phase_latency(dev, srv, plain) -> dict:
     return {"in_process": runs["kernel"][0], "http": http}
 
 
-def layer_case(dev, rng, b: int, dtype):
-    """Flagship-shaped layer inputs from ``rng``: (args without the seed, dy)."""
-    d, ff = LAYER_SHAPE["d"], LAYER_SHAPE["ff"]
+def layer_case(dev, rng, b: int, dtype, ff: int = LAYER_SHAPE["ff"]):
+    """Flagship-shaped layer inputs from ``rng`` (ff as given): (args without
+    the seed, dy)."""
+    d = LAYER_SHAPE["d"]
     m = b * LAYER_SHAPE["t"]
 
     def n(*shape, scale=1.0, offset=0.0):
@@ -1158,6 +1152,30 @@ def layer_device_times(kf, kb, pf, pb) -> dict:
             "kernel_device_us": per_kernel, "kernel_device_launches": launched,
             "plain_fwd_device_us": sum(us for us, _ in device_us(pf, n=3).values()),
             "plain_bwd_device_us": sum(us for us, _ in device_us(pb, n=3).values())}
+
+
+def chain_drift(dev, rng, ff: int, b: int = 32) -> dict:
+    """The f32 encoder chain at ff ``ff`` (the flagship layer otherwise), rate
+    0: each launch's outputs against its plain version on the same inputs,
+    max|err| / max|ref| by launch. Measured only: the products that reduce
+    over ff (W2 with LN2, dh·W1 with LN1's backward) run in 64 × 256 tiles
+    without promotion, so their drift grows with ff (``gemm_sm90.cuh``)."""
+    h_, t = LAYER_SHAPE["h"], LAYER_SHAPE["t"]
+    args, dy = layer_case(dev, rng, b, torch.float32, ff=ff)
+    seed = torch.tensor([11], dtype=torch.int32, device=dev)
+    with layer_sm90.recording() as record:
+        res = fl.layer_forward(*args, seed, 0.0, h_, t)
+        fl.layer_backward(dy, *layer_backward_args(args, res, seed), 0.0, h_, t)
+    names = {id(k): name for name, k in fl.SM90_F32_KERNELS.items()}
+    drift = {}
+    for launch in record:
+        want = launch.reference(*launch.args, **launch.kwargs)
+        want = want if isinstance(want, tuple) else (want,)
+        drift[names[id(launch.kernel)]] = max(
+            max_err(got, ref) / max(float(ref.float().abs().max()), 1e-30)
+            for got, ref in zip(launch.outputs, want, strict=True))
+    check(all(np.isfinite(v) for v in drift.values()), f"chain drift at ff {ff}: {drift}")
+    return {"ff": ff, "B": b, "max_abs_err_of_max_by_launch": drift}
 
 
 # the timed cases of phases 8 and 14: both dtypes at the YAML's batch and bench.py's
@@ -1249,7 +1267,8 @@ def phase_layer(dev, rng) -> dict:
     emit({"phase": "layer", "shape": LAYER_SHAPE, "checks": checks,
           "bars": {"float32": "1e-4 abs (y, residuals); 1e-4 * max|grad| (grads)",
                    "bfloat16": "2e-2 * max|ref|"},
-          "kink_survey": kink_survey(dev, decoder=False), "timings": timings})
+          "kink_survey": kink_survey(dev, decoder=False), "timings": timings,
+          "f32_chain_drift": [chain_drift(dev, rng, ff) for ff in (LAYER_SHAPE["ff"], 2048)]})
     return {"max_abs_err": worst, "timings": timings}
 
 
@@ -2294,8 +2313,10 @@ def phase_serve_encdec(dev, rng, enc_srv) -> dict:
 # InfillingRandomLow_lm_training.yaml at batch 32 and 512, then GrooveXL
 # (scripts/bench_groovexl_ffn.py) at batch 128
 FFN_SHAPES = ((1024, 256, 2048, 0.16), (16384, 256, 2048, 0.16), (4096, 1024, 4096, 0.1))
-# widths that are no multiples of the tiles, rows of no whole tile
+# widths that are no multiples of the tiles, rows of no whole tile; then f32
+# widths of 4 mod 8 (the f32 route's 16-byte rows; bf16 asks multiples of 8)
 RAGGED_FFN_SHAPE = (100, 72, 200, 0.16)
+F32_ONLY_FFN_SHAPE = (100, 36, 100, 0.16)
 FFN_GRADS = ("dx", "dw1", "db1", "dw2", "db2")
 LN_GRADS = ("dx", "dy", "dscale", "dbias")
 NEW_KERNELS = {**ffn.KERNELS, **ln.KERNELS}
@@ -2312,46 +2333,50 @@ XL_HP = {
 }
 
 
+def ffn_splits(rows, d, ff, dtype) -> int:
+    """Row splits of the weight-gradient launch the wrappers make."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return ffn.wgrad_splits(rows, d, ff, sms, ffn.tile_configs(rows, d, ff, sms, dtype)[4])[0]
+
+
 def ffn_bounds(rows, d, ff, dtype) -> dict:
-    """Bounds of each FFN launch type: a product of 2·rows·d·ff FLOP, its
+    """Bounds of each FFN launch type of ``dtype``'s route: a product of
+    2·rows·d·ff FLOP (bf16 at its peak, f32 at the split-TF32 rate), its
     inputs read once and its outputs written once (storage dtype s; biases,
-    seed, gradients and the weight partials f32)."""
-    s = 4 if dtype == "float32" else 2
+    seed, gradients and the weight partials f32); ``fwd`` and ``bwd``: the
+    whole call's own bound, 4·rows·d·ff FLOP forward and twice that backward,
+    its own inputs and outputs (no h, dh or partials)."""
+    f32 = dtype == "float32"
+    s, peak, suffix = (4, "tf32x3", "_f32") if f32 else (2, "bfloat16", "")
     flops = 2 * rows * d * ff
     total = 2 * d * ff + ff + d
-    splits = (ffn.wgrad_splits(rows, d, ff, torch.cuda.get_device_properties(0)
-                               .multi_processor_count)[0] if dtype == "bfloat16" else 1)
+    splits = ffn_splits(rows, d, ff, torch.float32 if f32 else torch.bfloat16)
     act, hid, wts = rows * d * s, rows * ff * s, d * ff * s
-    return {
-        "fused_ffn_fwd_h": bound(act + wts + ff * 4 + 4 + hid, flops, dtype),  # x, W1, b1 → h
-        "fused_ffn_fwd_out": bound(hid + wts + d * 4 + act, flops, dtype),  # h, W2, b2 → out
-        "fused_ffn_bwd_dh": bound(act + wts + 2 * hid, flops, dtype),  # dy, W2, h → dh
-        "fused_ffn_bwd_dx": bound(hid + wts + act, flops, dtype),  # dh, W1 → dx
-        "fused_ffn_bwd_weights": bound(2 * act + 2 * hid + splits * total * 4,
-                                       2 * flops + rows * (ff + d), dtype),
-        "fused_ffn_reduce": bound((splits + 1) * total * 4, (splits - 1) * total, "float32"),
-        "fused_ffn_fwd_f32": bound(2 * act + hid + 2 * wts + (ff + d) * 4 + 4, 2 * flops, dtype),
-        "fused_ffn_bwd_rows_f32": bound(2 * act + 2 * hid + 2 * wts, 2 * flops, dtype),
-        "fused_ffn_bwd_weights_f32": bound(2 * act + 2 * hid + total * 4,
-                                           2 * flops + rows * (ff + d), dtype),
-    }
+    return {f"fused_ffn_{name}{suffix}": b for name, b in {
+        "fwd_h": bound(act + wts + ff * 4 + 4 + hid, flops, peak),  # x, W1, b1 → h
+        "fwd_out": bound(hid + wts + d * 4 + act, flops, peak),  # h, W2, b2 → out
+        "bwd_dh": bound(act + wts + 2 * hid, flops, peak),  # dy, W2, h → dh
+        "bwd_dx": bound(hid + wts + act, flops, peak),  # dh, W1 → dx
+        "bwd_weights": bound(2 * act + 2 * hid + splits * total * 4,
+                             2 * flops + rows * (ff + d), peak),
+        "reduce": bound((splits + 1) * total * 4, (splits - 1) * total, "float32"),
+        # x, W1, b1, W2, b2 → out; dy, x, W1, W2 (h kept) → dx and the f32 gradients
+        "fwd": bound(2 * act + 2 * wts + (ff + d) * 4 + 4, 2 * flops, peak),
+        "bwd": bound(3 * act + hid + 2 * wts + total * 4, 4 * flops, peak),
+    }.items()}
 
 
 def ffn_launches(rows, d, ff, dtype, sites: int, forward_passes: int = 1) -> dict:
     """FFN launches of ``sites`` forward and backward passes at ``rows``, each
-    forward run ``forward_passes`` times (2 under remat): bf16 two forward
-    products, two row-backward products, one weight launch and, when it splits
-    the rows, one reduce; f32 its three kernels."""
-    if dtype == torch.bfloat16:
-        splits = ffn.wgrad_splits(rows, d, ff,
-                                  torch.cuda.get_device_properties(0).multi_processor_count)[0]
-        per = {"fused_ffn_fwd_h": forward_passes, "fused_ffn_fwd_out": forward_passes,
-               "fused_ffn_bwd_dh": 1, "fused_ffn_bwd_dx": 1, "fused_ffn_bwd_weights": 1,
-               "fused_ffn_reduce": int(splits > 1)}
-    else:
-        per = {"fused_ffn_fwd_f32": forward_passes, "fused_ffn_bwd_rows_f32": 1,
-               "fused_ffn_bwd_weights_f32": 1}
-    return {k: sites * per.get(k, 0) for k in ffn.KERNELS}
+    forward run ``forward_passes`` times (2 under remat), on ``dtype``'s
+    counters: two forward products, two row-backward products, one weight
+    launch and, when it splits the rows, one reduce."""
+    suffix = "_f32" if dtype == torch.float32 else ""
+    splits = ffn_splits(rows, d, ff, dtype)
+    per = {"fwd_h": forward_passes, "fwd_out": forward_passes, "bwd_dh": 1, "bwd_dx": 1,
+           "bwd_weights": 1, "reduce": int(splits > 1)}
+    return {k: 0 for k in ffn.KERNELS} | {f"fused_ffn_{name}{suffix}": sites * n
+                                          for name, n in per.items()}
 
 
 def ln_bounds(rows, d, dtype) -> dict:
@@ -2405,39 +2430,51 @@ def held_to(errs, name, got, want, dtype, what) -> None:
     check(errs[name] <= bar, f"{name} at {what}: {errs[name]} > {bar}")
 
 
+# the chain's own bias and plain-rounding launches (csrc/layer_sm90.cu): the
+# f32 FFN's h·W2ᵀ and dh·W1 without promotion, counted apart (phase 17 only)
+UNPROMOTED = layer_sm90.counted_kernels("chip_smoke_unpromoted", {"bias": "bias",
+                                                                   "round": "round"})
+
+
 def ffn_tile_shapes(dev, args, dy, seed, rate) -> dict:
-    """Device µs per launch of each bf16 product with each of the two tile
-    shapes it is built for (``ffn.PRODUCT_TILES``; the weight gradients with
-    their row splits for it), launched directly with preallocated outputs,
-    and the shapes the wrappers pick. Every shape's results are held to the
-    wrappers' within 2e-2 of their maxima (phase 17 holds the wrappers to the
-    plain version)."""
+    """Device µs per launch of each product with each of the two tile shapes
+    it is built for in the inputs' dtype (``ffn.PRODUCT_TILES``; the weight
+    gradients with their row splits for it), launched directly with
+    preallocated outputs, and the shapes the wrappers pick. Every shape's
+    results are held to the wrappers' within 2e-2 of their maxima in bf16 and
+    1e-5 in f32 (phase 17 holds the wrappers to the plain version). f32 also:
+    the drift of the two products that reduce over ff, h·W2ᵀ and dh·W1, from
+    their f64 products on the same inputs, promoted (the FFN's launches) and
+    not (the layer chain's bias and rounding launches), each · max|f64|."""
     x, w1, b1, w2, b2 = args
-    (rows, d), ff = x.shape, w1.shape[0]
+    (rows, d), ff, dtype = x.shape, w1.shape[0], x.dtype
+    f32 = int(dtype == torch.float32)
     want_out, want_h = ffn.ffn_forward(*args, seed, rate)
     want_dx, *want_grads = ffn.ffn_backward(dy, x, want_h, w1, w2, rate)
     want = {"h": want_h, "out": want_out, "dx": want_dx,
             "weights": torch.cat([g.flatten() for g in want_grads])}  # dW1 | db1 | dW2 | db2
     out, h, dh, dx = (torch.empty_like(t) for t in (x, want_h, want_h, x))
-    thresh, k = quantized_threshold(rate), ffn.KERNELS
+    thresh, k = quantized_threshold(rate), ffn.route_kernels(dtype)
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     total = 2 * d * ff + ff + d
+    built = ffn.PRODUCT_TILES[dtype]
+    bar = 1e-5 if f32 else 2e-2
 
     def launches_with(cfgs, part):
         splits, per = ffn.wgrad_splits(rows, d, ff, sms, cfgs[4])
         return lambda: (
-            k["fused_ffn_fwd_h"].launch((x, w1, b1, seed, h), (rows, d, ff, thresh, cfgs[0]), dev),
-            k["fused_ffn_fwd_out"].launch((h, w2, b2, out), (rows, d, ff, cfgs[1]), dev),
-            k["fused_ffn_bwd_dh"].launch((dy, w2, h, dh), (rows, d, ff, thresh, cfgs[2]), dev),
-            k["fused_ffn_bwd_dx"].launch((dh, w1, dx), (rows, d, ff, cfgs[3]), dev),
-            k["fused_ffn_bwd_weights"].launch((dy, x, h, dh, part),
-                                              (rows, d, ff, splits, per, cfgs[4]), dev))
+            k["fwd_h"].launch((x, w1, b1, seed, h), (rows, d, ff, thresh, cfgs[0], f32), dev),
+            k["fwd_out"].launch((h, w2, b2, out), (rows, d, ff, cfgs[1], f32), dev),
+            k["bwd_dh"].launch((dy, w2, h, dh), (rows, d, ff, thresh, cfgs[2], f32), dev),
+            k["bwd_dx"].launch((dh, w1, dx), (rows, d, ff, cfgs[3], f32), dev),
+            k["bwd_weights"].launch((dy, x, h, dh, part),
+                                    (rows, d, ff, splits, per, cfgs[4], f32), dev))
 
-    names = ("fused_ffn_fwd_h", "fused_ffn_fwd_out", "fused_ffn_bwd_dh", "fused_ffn_bwd_dx",
-             "fused_ffn_bwd_weights")
+    names = ("fwd_h", "fwd_out", "bwd_dh", "bwd_dx", "bwd_weights")
     result = {name: {} for name in names}
+    suffix = "_f32" if f32 else ""
     for i in range(2):
-        cfgs = tuple(shapes[i] for shapes in ffn.PRODUCT_TILES)
+        cfgs = tuple(shapes[i] for shapes in built)
         part = torch.empty((ffn.wgrad_splits(rows, d, ff, sms, cfgs[4])[0], total), device=dev)
         per = device_us(launches_with(cfgs, part), n=5)
         # the partials in the wrappers' order: dW1 | dW2 | db1 | db2 → dW1 | db1 | dW2 | db2
@@ -2445,12 +2482,28 @@ def ffn_tile_shapes(dev, args, dy, seed, rate) -> dict:
         got = {"h": h, "out": out, "dx": dx, "weights": torch.cat([dw1, db1, dw2, db2])}
         for key, ref in want.items():
             err, top = max_err(got[key], ref.float()), float(ref.float().abs().max())
-            check(err <= 2e-2 * top, f"{key} with tiles {cfgs} at rows {rows} d {d} ff {ff} "
-                                     f"rate {rate}: {err} > 2e-2 * {top}")
+            check(err <= bar * top, f"{key} with tiles {cfgs} at rows {rows} d {d} ff {ff} "
+                                    f"rate {rate} {dtype}: {err} > {bar} * {top}")
         for name, cfg in zip(names, cfgs):
             result[name]["x".join(map(str, ffn.TILES[cfg]))] = sum(
-                us / c for kn, (us, c) in per.items() if FFN_DEVICE_NAMES[name][0] in kn)
-    result["picked"] = dict(zip(names, ffn.tile_configs(rows, d, ff, sms)))
+                us / c for kn, (us, c) in per.items()
+                if FFN_DEVICE_NAMES[f"fused_ffn_{name}{suffix}"][0] in kn)
+    picked = ffn.tile_configs(rows, d, ff, sms, dtype)
+    result["picked"] = dict(zip(names, picked))
+    if f32:  # the launches at the picked tiles, then the drift over ff
+        launches_with(picked, torch.empty((ffn.wgrad_splits(rows, d, ff, sms, picked[4])[0],
+                                           total), device=dev))()
+        plain_out = layer_sm90.bias_product(UNPROMOTED["chip_smoke_unpromoted_bias"], h, w2, b2)
+        plain_dx = layer_sm90.round_product(UNPROMOTED["chip_smoke_unpromoted_round"], dh, w1)
+        want64 = {"out": h.double() @ w2.double().t() + b2.double(),
+                  "dx": dh.double() @ w1.double()}
+        result["drift_over_ff_of_max"] = {}
+        for key, promoted, unpromoted in (("out", out, plain_out), ("dx", dx, plain_dx)):
+            top = float(want64[key].abs().max())
+            result["drift_over_ff_of_max"][key] = {
+                "promoted": float((promoted.double() - want64[key]).abs().max()) / top,
+                "unpromoted": float((unpromoted.double() - want64[key]).abs().max()) / top,
+                "max_abs_f64": top}
     return result
 
 
@@ -2465,81 +2518,84 @@ def ln_grids(dev, rows: int, d: int) -> dict:
 
 
 def phase_ffn_ln(dev, rng) -> dict:
-    """The three FFN kernels against ``ffn_reference`` and the two LN kernels
-    against ``dropout_add_layernorm_reference`` on the card, with the same
-    masks, at the shapes phases 18 and 19 give them. A hidden unit within
+    """The FFN's launches in both dtypes (wrapped: ``ffn_forward`` and
+    ``ffn_backward``) against ``ffn_reference`` and its autograd, and the two
+    LN kernels against ``dropout_add_layernorm_reference`` on the card, with
+    the same masks, at the shapes phases 18 and 19 give them, a ragged one,
+    and in f32 widths of 4 mod 8; each shape's timings. A hidden unit within
     rounding of 0 may fall on either side of the ReLU's kink: the plain
     version takes the kernel's side at such units only (``kink_flips``)."""
     checks, worst = [], {"ffn": 0.0, "ln": 0.0}
-    for rows, d, ff, cfg_rate in (*FFN_SHAPES, RAGGED_FFN_SHAPE):
-        for dtype in (torch.float32, torch.bfloat16):
-            args, dy, y, scale, bias = ffn_case(dev, rng, rows, d, ff, dtype)
-            x, w1, _, w2, _ = args
-            active = None
-            for rate in (0.0, cfg_rate):
-                what = f"rows {rows} d {d} ff {ff} {dtype} rate {rate}"
-                seed = torch.tensor([1234 + rows], dtype=torch.int32, device=dev)
-                runs = []
-                for _ in range(2):
-                    out, h = ffn.ffn_forward(*args, seed, rate)
-                    runs.append((out, h, *ffn.ffn_backward(dy, x, h, w1, w2, rate)))
-                torch.cuda.synchronize()
-                bitwise = all(torch.equal(u, v) for u, v in zip(*runs))
-                check(bitwise, f"two FFN runs with one seed differ at {what}")
-                out, h, *grads = runs[0]
-                with torch.no_grad():
-                    own_h = ffn.ffn_reference(*args, seed, rate, return_hidden=True)[1]
-                flips, kink = fl.kink_flips(own_h, h)
-                leaves = [a.detach().clone().requires_grad_(True) for a in args]
-                want_out, want_h = ffn.ffn_reference(*leaves, seed, rate, return_hidden=True,
-                                                     relu_flips=flips)
-                want_out.backward(dy)
-                errs = {}
-                held_to(errs, "out", out, want_out, dtype, what)
-                held_to(errs, "h", h, want_h, dtype, what)
-                for name, g, leaf in zip(FFN_GRADS, grads, leaves):
-                    held_to(errs, name, g, leaf.grad, dtype, what)
-                # the share of the ReLU's live units that the mask kept: within
-                # 2e-3 of the quantised rate, or 5 standard deviations where
-                # the units are too few for that (the ragged shape)
-                live = int((h > 0).sum())
-                active = live if rate == 0.0 else active
-                kept, p_keep = live / active, quantized_keep_rate(rate)
-                check(abs(kept - p_keep) < max(2e-3, 5 * (p_keep * (1 - p_keep) / active) ** 0.5),
-                      f"FFN mask kept {kept} at {what}")
-                if dtype == torch.float32:
-                    worst["ffn"] = max(worst["ffn"], errs["out"], errs["h"], errs["dx"])
-                checks.append({"kernel": "fused_ffn", "rows": rows, "d": d, "ff": ff,
-                               "dtype": str(dtype)[6:], "rate": rate, "max_abs_err": errs,
-                               "bitwise_repeat": bitwise, "relu_kink_flips": kink,
-                               "kept_share": kept})
-                del leaves, want_out, want_h, own_h, flips, runs
+    cases = [(shape, dtype) for shape in (*FFN_SHAPES, RAGGED_FFN_SHAPE)
+             for dtype in (torch.float32, torch.bfloat16)]
+    for (rows, d, ff, cfg_rate), dtype in cases + [(F32_ONLY_FFN_SHAPE, torch.float32)]:
+        args, dy, y, scale, bias = ffn_case(dev, rng, rows, d, ff, dtype)
+        x, w1, _, w2, _ = args
+        active = None
+        for rate in (0.0, cfg_rate):
+            what = f"rows {rows} d {d} ff {ff} {dtype} rate {rate}"
+            seed = torch.tensor([1234 + rows], dtype=torch.int32, device=dev)
+            runs = []
+            for _ in range(2):
+                out, h = ffn.ffn_forward(*args, seed, rate)
+                runs.append((out, h, *ffn.ffn_backward(dy, x, h, w1, w2, rate)))
+            torch.cuda.synchronize()
+            bitwise = all(torch.equal(u, v) for u, v in zip(*runs))
+            check(bitwise, f"two FFN runs with one seed differ at {what}")
+            out, h, *grads = runs[0]
+            with torch.no_grad():
+                own_h = ffn.ffn_reference(*args, seed, rate, return_hidden=True)[1]
+            flips, kink = fl.kink_flips(own_h, h)
+            leaves = [a.detach().clone().requires_grad_(True) for a in args]
+            want_out, want_h = ffn.ffn_reference(*leaves, seed, rate, return_hidden=True,
+                                                 relu_flips=flips)
+            want_out.backward(dy)
+            errs = {}
+            held_to(errs, "out", out, want_out, dtype, what)
+            held_to(errs, "h", h, want_h, dtype, what)
+            for name, g, leaf in zip(FFN_GRADS, grads, leaves):
+                held_to(errs, name, g, leaf.grad, dtype, what)
+            # the share of the ReLU's live units that the mask kept: within
+            # 2e-3 of the quantised rate, or 5 standard deviations where
+            # the units are too few for that (the ragged shape)
+            live = int((h > 0).sum())
+            active = live if rate == 0.0 else active
+            kept, p_keep = live / active, quantized_keep_rate(rate)
+            check(abs(kept - p_keep) < max(2e-3, 5 * (p_keep * (1 - p_keep) / active) ** 0.5),
+                  f"FFN mask kept {kept} at {what}")
+            if dtype == torch.float32:
+                worst["ffn"] = max(worst["ffn"], errs["out"], errs["h"], errs["dx"])
+            checks.append({"kernel": "fused_ffn", "rows": rows, "d": d, "ff": ff,
+                           "dtype": str(dtype)[6:], "rate": rate, "max_abs_err": errs,
+                           "bitwise_repeat": bitwise, "relu_kink_flips": kink,
+                           "kept_share": kept})
+            del leaves, want_out, want_h, own_h, flips, runs
 
-                runs = []
-                for _ in range(2):
-                    runs.append((ln.ln_forward(x, y, scale, bias, seed, rate),
-                                 *ln.ln_backward(dy, x, y, scale, seed, rate)))
-                torch.cuda.synchronize()
-                bitwise = all(torch.equal(u, v) for u, v in zip(*runs))
-                check(bitwise, f"two LN runs with one seed differ at {what}")
-                out, *grads = runs[0]
-                leaves = [a.detach().clone().requires_grad_(True) for a in (x, y, scale, bias)]
-                want = ln.dropout_add_layernorm_reference(*leaves, seed, rate)
-                want.backward(dy)
-                errs = {}
-                held_to(errs, "out", out, want, dtype, what)
-                for name, g, leaf in zip(LN_GRADS, grads, leaves):
-                    held_to(errs, name, g, leaf.grad, dtype, what)
-                kept = float((grads[1] != 0).float().mean())  # dy is 0 where y was dropped
-                n_el = rows * d
-                check(abs(kept - (1 - rate)) < 5 * (rate * (1 - rate) / n_el) ** 0.5 + 1e-4,
-                      f"LN mask kept {kept} at {what}")
-                if dtype == torch.float32:
-                    worst["ln"] = max(worst["ln"], errs["out"], errs["dx"], errs["dy"])
-                checks.append({"kernel": "fused_ln", "rows": rows, "d": d,
-                               "dtype": str(dtype)[6:], "rate": rate, "max_abs_err": errs,
-                               "bitwise_repeat": bitwise, "kept_share": kept})
-                del leaves, want, runs
+            runs = []
+            for _ in range(2):
+                runs.append((ln.ln_forward(x, y, scale, bias, seed, rate),
+                             *ln.ln_backward(dy, x, y, scale, seed, rate)))
+            torch.cuda.synchronize()
+            bitwise = all(torch.equal(u, v) for u, v in zip(*runs))
+            check(bitwise, f"two LN runs with one seed differ at {what}")
+            out, *grads = runs[0]
+            leaves = [a.detach().clone().requires_grad_(True) for a in (x, y, scale, bias)]
+            want = ln.dropout_add_layernorm_reference(*leaves, seed, rate)
+            want.backward(dy)
+            errs = {}
+            held_to(errs, "out", out, want, dtype, what)
+            for name, g, leaf in zip(LN_GRADS, grads, leaves):
+                held_to(errs, name, g, leaf.grad, dtype, what)
+            kept = float((grads[1] != 0).float().mean())  # dy is 0 where y was dropped
+            n_el = rows * d
+            check(abs(kept - (1 - rate)) < 5 * (rate * (1 - rate) / n_el) ** 0.5 + 1e-4,
+                  f"LN mask kept {kept} at {what}")
+            if dtype == torch.float32:
+                worst["ln"] = max(worst["ln"], errs["out"], errs["dx"], errs["dy"])
+            checks.append({"kernel": "fused_ln", "rows": rows, "d": d,
+                           "dtype": str(dtype)[6:], "rate": rate, "max_abs_err": errs,
+                           "bitwise_repeat": bitwise, "kept_share": kept})
+            del leaves, want, runs
 
     timings = []
     for rows, d, ff, rate in FFN_SHAPES:
@@ -2603,7 +2659,7 @@ def phase_ffn_ln(dev, rng) -> dict:
                                           ((k, n), (p, 3), (lb, n), (lb, n), (p, 3), (k, n)))
                 row[f"{key}_kernel_ms"], row[f"{key}_plain_ms"] = [k1, k2], [p1, p2]
                 row[f"{key}_library_ms"] = [l1, l2]
-            for key in ("ln_fwd", "ln_bwd"):
+            for key in ("ffn_fwd", "ffn_bwd", "ln_fwd", "ln_bwd"):
                 lib_device = device_us(fns[key][2], 5)
                 row[f"{key}_library_device_ms"] = sum(us for us, _ in lib_device.values()) / 1e3
                 row[f"{key}_library_device_launches"] = sum(c for _, c in lib_device.values())
@@ -2618,8 +2674,7 @@ def phase_ffn_ln(dev, rng) -> dict:
             for key in ("ffn_fwd", "ffn_bwd"):
                 row[f"{key}_over_library"] = (float(np.mean(row[f"{key}_kernel_ms"]))
                                               / float(np.mean(row[f"{key}_library_ms"])))
-            if dtype == torch.bfloat16:
-                row["tile_shapes_device_us"] = ffn_tile_shapes(dev, args, dy, seed, rate)
+            row["tile_shapes_device_us"] = ffn_tile_shapes(dev, args, dy, seed, rate)
             timings.append(row)
             del leaves, ref_out, lib, lib_out, ln_leaves, ln_ref, ln_lib, ln_lib_out, fns
     emit({"phase": "ffn_ln_kernels", "checks": checks,
@@ -2682,9 +2737,10 @@ def reconfigure(bundle, **switches) -> None:
 def phase_train_wide(dev, rng) -> dict:
     """The slice's main path: the InfillingRandomLow_lm config (d 256, ff 2048,
     8 layers, dropout 0.16, batch 32; nothing cut) through ``initialize_model``
-    + ``train_loop``: the whole-layer gate rejects ff 2048, and the layers take
-    their unfused path with the FFN kernels in it; then with the LN kernels,
-    then rematerialised, then a 1 + 1 layer encoder-decoder model."""
+    + ``train_loop``, the layers unfused (``fused_layer=False`` given) with
+    the FFN kernels in them; then with the LN kernels, then rematerialised;
+    3 f32 steps through the f32 FFN launches (their main path); a 1 + 1 layer
+    encoder-decoder model; paired turns in bf16 and in f32."""
     data, held = Loops(1024, 41), Loops(256, 42)
     batch, epochs, n_layers = LM_HP["batch_size"], 2, LM_HP["num_encoder_decoder_layers"]
     penalty = LM_HP["hit_loss_penalty"]
@@ -2850,6 +2906,23 @@ def phase_train_wide(dev, rng) -> dict:
     layer_counts = launches(fl.SM90_KERNELS)
     check(len(set(layer_counts.values())) == 1 and min(layer_counts.values()) > 0,
           f"the forced whole-layer path launched {layer_counts}")
+
+    # f32 (bf16: false): fused_ffn on against off in F32_PAIRS pairs of turns
+    # a batch, the layers unfused (lm_params forces fused_layer=False: under
+    # auto the f32 chain would take the whole layer at d 256)
+    f32_models = {"kernel": initialize_model(lm_params(bf16=False), dev)[0],
+                  "unfused": initialize_model(lm_params(bf16=False, fused_ffn=False), dev)[0]}
+    check(f32_models["kernel"].config.compute_dtype == torch.float32
+          and f32_models["kernel"].config.fused_ffn and not f32_models["kernel"].config.fused_layer
+          and not f32_models["unfused"].config.fused_ffn, "the f32 turns' switches")
+    before = launches(ffn.F32_KERNELS)
+    f32_turns = {b: paired_turns(f32_models, Loops(512 if b == 32 else 2048, 45), b)
+                 for b in THROUGHPUT_BATCHES}
+    check(all(v > before[k] for k, v in launches(ffn.F32_KERNELS).items()
+              if not k.startswith("fused_ffn_reduce")),
+          f"the f32 turns did not run the f32 FFN launches: {launches(ffn.F32_KERNELS)}")
+    f32_breakdown = {which: step_breakdown(m, 512, 49) for which, m in f32_models.items()}
+    del f32_models
     emit({"phase": "train_wide_ffn", "config": LM_HP, "data": "1024 seeded synthetic loops",
           "epochs": epochs, "steps": steps, "seconds": seconds, "launches": counts,
           "losses": losses, "last_metrics": metrics[-1],
@@ -2864,15 +2937,18 @@ def phase_train_wide(dev, rng) -> dict:
           "encoder_decoder_1_plus_1": {"steps": encdec_steps, "launches": encdec_counts,
                                        "losses": encdec_losses},
           "seqs_per_s": throughput, "step_breakdown": breakdown,
-          "fused_layer_launches_in_its_turns": layer_counts})
+          "fused_layer_launches_in_its_turns": layer_counts,
+          "f32_paired_turns_fused_ffn": f32_turns,
+          "f32_step_breakdown_batch_512": f32_breakdown})
     return {"launches": counts, "ln_launches": ln_counts, "encdec_launches": encdec_counts,
-            "f32_launches": f32_counts}
+            "f32_launches": f32_counts, "f32_turns": f32_turns}
 
 
 def phase_train_groovexl(dev, rng) -> dict:
     """GrooveXL (d 1024, 8 heads, ff 4096, 12 layers, dropout 0.1, batch 128,
     bf16, remat on; nothing cut but the number of steps) through
-    ``initialize_model`` + ``make_epoch_fn``."""
+    ``initialize_model`` + ``make_epoch_fn``; then the same in f32 through the
+    f32 FFN launches, with fused_ffn on against off in paired turns."""
     hp = XL_HP
     n_layers, batch = hp["num_encoder_layers"], hp["batch_size"]
     params = {"model": {k: hp[k] for k in ("d_model", "n_heads", "dim_feedforward", "dropout",
@@ -2946,8 +3022,55 @@ def phase_train_groovexl(dev, rng) -> dict:
     per_kernel = device_us(lambda: fetch(one_step(bundle.state, x[:batch], y[:batch], gen)), n=2)
     total = sum(us for us, _ in per_kernel.values())
     top = sorted(per_kernel.items(), key=lambda kv: -kv[1][0])[:8]
+    n_params = sum(p.numel() for p in bundle.model.parameters())
+    del bundle
+
+    # f32 (bf16: false) at the same width and depth, under remat: 2 epochs
+    # through the f32 FFN launches, then fused_ffn on against off in
+    # F32_PAIRS pairs of turns, the same model reconfigured
+    f32_bundle, _, _ = initialize_model(dict(params, model={**params["model"], "bf16": False}),
+                                        dev)
+    check(f32_bundle.config.compute_dtype == torch.float32 and f32_bundle.config.fused_ffn
+          and f32_bundle.config.remat and not f32_bundle.config.fused_layer,
+          f"GrooveXL f32's switches: {f32_bundle.config}")
+    f32_epoch = make_epoch_fn(hp["hit_loss_penalty"], batch, n)
+    reset_launches()  # the f32 route's GrooveXL run starts here
+    f32_metrics = [fetch(f32_epoch(f32_bundle.state, x, y, gen)) for _ in range(epochs)]
+    f32_counts = launches(NEW_KERNELS)  # ... and ends here
+    want = {**ffn_launches(xl_rows, hp["d_model"], hp["dim_feedforward"], torch.float32,
+                           steps * n_layers, 2), **{k: 0 for k in ln.KERNELS}}
+    check(f32_counts == want, f"GrooveXL f32 launched {f32_counts}, expected {want}")
+    f32_losses = [m["loss"] for m in f32_metrics]
+    check(all(np.isfinite(v) for m in f32_metrics for v in m.values())
+          and f32_losses[-1] < f32_losses[0], f"GrooveXL f32: {f32_metrics}")
+
+    def f32_rate(fused: bool) -> float:
+        reconfigure(f32_bundle, fused_ffn=fused)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(2):
+            fetch(f32_epoch(f32_bundle.state, x, y, gen))
+        return 2 * n / (time.perf_counter() - t0)
+
+    for fused in (True, False):  # a warm-up epoch each
+        reconfigure(f32_bundle, fused_ffn=fused)
+        fetch(f32_epoch(f32_bundle.state, x, y, gen))
+    f32_turns = {"kernel": [], "unfused": []}
+    for i in range(F32_PAIRS):
+        for which in ("kernel", "unfused") if i % 2 == 0 else ("unfused", "kernel"):
+            f32_turns[which].append(f32_rate(which == "kernel"))
+    ratios = [a / b for a, b in zip(f32_turns["kernel"], f32_turns["unfused"])]
+    spread = max(max(v) / min(v) - 1 for v in f32_turns.values())
+    f32_paired = {"seqs_per_s": f32_turns, "pair_ratios": ratios,
+                  "worst_pair_gain": min(ratios) - 1, "spread": spread,
+                  "gains": min(ratios) - 1 > spread}
+    f32_steps = {}
+    for which in ("unfused", "kernel"):
+        reconfigure(f32_bundle, fused_ffn=which == "kernel")
+        f32_steps[which] = device_us(
+            lambda: fetch(one_step(f32_bundle.state, x[:batch], y[:batch], gen)), n=2)
     emit({"phase": "train_groovexl", "config": hp, "auto_remat_on_this_card": auto_remat,
-          "parameters": sum(p.numel() for p in bundle.model.parameters()),
+          "parameters": n_params,
           "initialize_model_seconds": init_seconds, "data": f"{n} seeded synthetic loops",
           "epochs": epochs, "steps": steps, "seconds": seconds, "launches": counts,
           "losses": losses, "last_metrics": metrics[-1], "step_memory": peak,
@@ -2958,8 +3081,17 @@ def phase_train_groovexl(dev, rng) -> dict:
               "plain": [a / b for a, b in zip(rates["fused_ffn"], rates["unfused"])]},
           "step_breakdown": {"step_device_ms": total / 1e3,
                              "launches_per_step": sum(c for _, c in per_kernel.values()),
-                             "top_kernels_us_per_step": {k: us for k, (us, _) in top}}})
-    return {"launches": counts}
+                             "top_kernels_us_per_step": {k: us for k, (us, _) in top}},
+          "f32": {"launches": f32_counts, "losses": f32_losses,
+                  "last_metrics": f32_metrics[-1], "paired_turns_fused_ffn": f32_paired,
+                  "step_breakdown": {which: {
+                      "step_device_ms": sum(us for us, _ in step.values()) / 1e3,
+                      "launches_per_step": sum(c for _, c in step.values()),
+                      "top_kernels_us_per_step": {
+                          k: us for k, (us, _) in sorted(step.items(),
+                                                         key=lambda kv: -kv[1][0])[:8]}}
+                      for which, step in f32_steps.items()}}})
+    return {"launches": counts, "f32_launches": f32_counts, "f32_turns": f32_paired}
 
 
 class StopAfterBlocks(_GracefulStop):
@@ -3600,14 +3732,22 @@ def main() -> int:
                    if any(e in k for e in entries)) / 1000.0
 
     def at_shape(row, kname, entries, key):
-        library_device = ({"library_device_ms": row[f"{key}_library_device_ms"]}
-                          if key.startswith("ln_") else {})
-        return {"ms": device_ms(row, *entries),
-                "stream_ms_of_the_call": float(np.mean(row[f"{key}_kernel_ms"])),
-                "plain_ms": float(np.mean(row[f"{key}_plain_ms"])),
-                "bound_ms": row["bounds"][kname]["bound_ms"],
-                "bound_by": row["bounds"][kname]["bound_by"],
-                "library_ms": float(np.mean(row[f"{key}_library_ms"])), **library_device}
+        out = {"ms": device_ms(row, *entries),
+               "stream_ms_of_the_call": float(np.mean(row[f"{key}_kernel_ms"])),
+               "plain_ms": float(np.mean(row[f"{key}_plain_ms"])),
+               "bound_ms": row["bounds"][kname]["bound_ms"],
+               "bound_by": row["bounds"][kname]["bound_by"],
+               "library_ms": float(np.mean(row[f"{key}_library_ms"])),
+               "library_device_ms": row[f"{key}_library_device_ms"]}
+        if key.startswith("ffn_"):  # the whole call: its launches' device time, its own bound
+            suffix = "_f32" if row["dtype"] == "float32" else ""
+            direction = key.removeprefix("ffn_")
+            out["call_device_ms"] = sum(
+                device_ms(row, *FFN_DEVICE_NAMES[f"fused_ffn_{name}{suffix}"])
+                for name, _ in ffn.LAUNCHES if name.startswith(direction)
+                or (direction == "bwd" and name == "reduce"))
+            out["call_bound_ms"] = row["bounds"][f"fused_ffn_{direction}{suffix}"]["bound_ms"]
+        return out
 
     names = {**{k: (FFN_DEVICE_NAMES[k], "ffn_") for k in ffn.KERNELS},
              "fused_ln_fwd": (("ln_fwd",), "ln_"), "fused_ln_bwd": (("ln_bwd",), "ln_")}
@@ -3625,23 +3765,25 @@ def main() -> int:
             "replaces": (FFN_TPU_KERNELS if is_ffn else LN_TPU_KERNELS)[kname],
             "launches": launches_main,
             "launches_encdec_1_plus_1_path": wide["encdec_launches"][kname],
-            "launches_groovexl_path": xl["launches"][kname],
+            "launches_groovexl_path": xl["f32_launches" if is_f32 else "launches"][kname],
             "max_abs_err": ffn_ln["max_abs_err"]["ffn" if is_ffn else "ln"],
             **at_shape(small, kname, entries, key),
             "rows_16384": at_shape(ffn_row(16384, 256, dtype), kname, entries, key),
             "groovexl": at_shape(ffn_row(4096, 1024, dtype), kname, entries, key),
             "at": f"rows 1,024 (batch 32), d 256, ff 2048, {dtype}, rate 0.16; rows_16384: "
                   "batch 512; groovexl: rows 4,096, d 1024, ff 4096, rate 0.1; ms: device "
-                  "time per launch (the f32 weight kernel with its reduce); "
-                  "stream_ms_of_the_call, plain_ms and library_ms are on the stream and "
-                  "cover the whole forward or backward call the kernel is part of (the FFN's "
-                  "plain version, ffn_reference or backward_formulas; the LN's the reference "
-                  "and autograd); library: F.linear, relu, F.dropout, F.linear (FFN) or "
-                  "F.layer_norm(x + F.dropout(y)) (LN), and autograd's backward; bound: this "
-                  "launch's own bytes and operations; err: the largest of out, h, dx (FFN) or "
-                  "out, dx, dy (LN) over the f32 checks; launches: phase 18's main run (bf16 "
-                  "FFN kernels), its run with fused_dropout_ln (LN), its 3 f32 steps (f32 FFN "
-                  "kernels, the forward twice a call there)"})
+                  "time per launch; stream_ms_of_the_call, plain_ms and library_ms are on the "
+                  "stream and cover the whole forward or backward call the kernel is part of "
+                  "(the FFN's plain version, ffn_reference or backward_formulas; the LN's the "
+                  "reference and autograd); library: F.linear, relu, F.dropout, F.linear (FFN; "
+                  "f32 with TF32 off) or F.layer_norm(x + F.dropout(y)) (LN), and autograd's "
+                  "backward, library_device_ms its device time; call_device_ms and "
+                  "call_bound_ms: the FFN call's launches and its own bound (f32 products at "
+                  "495/3 TFLOP/s); bound: this launch's own bytes and operations; err: the "
+                  "largest of out, h, dx (FFN) or out, dx, dy (LN) over the f32 checks; "
+                  "launches: phase 18's main run (bf16 FFN kernels), its run with "
+                  "fused_dropout_ln (LN), its 3 f32 steps (f32 FFN launches, the forward twice "
+                  "a call there); groovexl path: phase 19's 2 epochs in the launch's dtype"})
     emit({"kernels": kernels, "seconds": time.perf_counter() - t_start})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,

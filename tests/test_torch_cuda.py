@@ -672,17 +672,16 @@ def _ffn_args(cuda, rng, rows, d, ff, dtype):
 
 
 def _ffn_launches(rows, d, ff, dtype, calls):
-    """Launches of ``calls`` forward + backward passes, per kernel: bf16 runs
-    two products forward, two in the row backward, one weight-gradient launch
-    and the reduce of its row splits; f32 the three CUDA-core kernels."""
-    if dtype == torch.bfloat16:
-        sms = torch.cuda.get_device_properties(0).multi_processor_count
-        splits = fused_ffn.wgrad_splits(rows, d, ff, sms)[0]
-        per = {k: 1 for k in fused_ffn.BF16_KERNELS}
-        per["fused_ffn_reduce"] = int(splits > 1)
-        per.update({k: 0 for k in fused_ffn.F32_KERNELS})
-    else:
-        per = {k: int(k in fused_ffn.F32_KERNELS) for k in fused_ffn.KERNELS}
+    """Launches of ``calls`` forward + backward passes, per kernel: each dtype
+    runs two products forward, two in the row backward, one weight-gradient
+    launch and the reduce of its row splits, on its own counters."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    config = fused_ffn.tile_configs(rows, d, ff, sms, dtype)[4]
+    splits = fused_ffn.wgrad_splits(rows, d, ff, sms, config)[0]
+    suffix = "" if dtype == torch.bfloat16 else "_f32"
+    per = {k: 0 for k in fused_ffn.KERNELS}
+    for name, _entry in fused_ffn.LAUNCHES:
+        per[f"fused_ffn_{name}{suffix}"] = int(splits > 1) if name == "reduce" else 1
     return {k: calls * v for k, v in per.items()}
 
 
@@ -724,6 +723,42 @@ def test_ffn_kernels_match_the_plain_version(cuda, rng, rows, d, ff, dtype, rate
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("rate", [0.0, 0.16])
+@pytest.mark.parametrize("rows, d, ff", [(1024, 256, 2048), (4096, 1024, 4096), (100, 36, 100)])
+def test_ffn_f32_launches_match_the_reference_and_backward_formulas(cuda, rng, rows, d, ff, rate):
+    """The f32 route's five products in split TF32 (and the reduce) at the lm
+    config's and GrooveXL's shapes and at widths of 4 mod 8: out and h against
+    ffn_reference with the kernel's side of each ReLU kink, the gradients
+    against backward_formulas from the kernel's h, within 1e-4 (abs for out
+    and h, of max|grad| for the gradients); two runs bit for bit; only the
+    f32 counters move."""
+    args, dy = _ffn_args(cuda, rng, rows, d, ff, torch.float32)
+    x, w1, _, w2, _ = args
+    seed = torch.tensor([31], dtype=torch.int32, device=cuda)
+    before = {k: f.launches for k, f in fused_ffn.KERNELS.items()}
+    runs = []
+    for _ in range(2):
+        out, h = fused_ffn.ffn_forward(*args, seed, rate)
+        runs.append((out, h, *fused_ffn.ffn_backward(dy, x, h, w1, w2, rate)))
+    torch.cuda.synchronize()
+    assert {k: f.launches - before[k] for k, f in fused_ffn.KERNELS.items()} == \
+        _ffn_launches(rows, d, ff, torch.float32, 2)
+    assert all(torch.equal(a, b) for a, b in zip(*runs))
+    out, h, *grads = runs[0]
+    with torch.no_grad():
+        own_h = fused_ffn.ffn_reference(*args, seed, rate, return_hidden=True)[1]
+        flips, _ = fused_layer.kink_flips(own_h, h)
+        want_out, want_h = fused_ffn.ffn_reference(*args, seed, rate, return_hidden=True,
+                                                   relu_flips=flips)
+        want = fused_ffn.backward_formulas(dy, x, h, w1, w2, rate)
+    assert float((out - want_out).abs().max()) <= 1e-4
+    assert float((h - want_h).abs().max()) <= 1e-4
+    for got, ref in zip(grads, want):
+        assert got.dtype == ref.dtype == torch.float32 and got.shape == ref.shape
+        assert float((got - ref).abs().max()) <= 1e-4 * float(ref.abs().max())
+
+
+@pytest.mark.cuda
 def test_ffn_bf16_kernels_launch_from_a_thread_that_made_no_cuda_call(cuda, rng):
     """The tensor maps are encoded by a driver call, which needs the thread's
     context bound; autograd runs a backward on a worker thread of its own,
@@ -758,7 +793,9 @@ def test_ffn_bf16_route_refuses_widths_that_are_no_multiple_of_8(cuda, rng):
     assert {k: f.launches for k, f in fused_ffn.KERNELS.items()} == before
     f32 = [a.float() if a.dtype == torch.bfloat16 else a for a in args]
     fused_ffn.ffn_forward(*f32, seed, 0.1)
-    assert fused_ffn.KERNELS["fused_ffn_fwd_f32"].launches == before["fused_ffn_fwd_f32"] + 1
+    assert fused_ffn.KERNELS["fused_ffn_fwd_h_f32"].launches == before["fused_ffn_fwd_h_f32"] + 1
+    assert fused_ffn.KERNELS["fused_ffn_fwd_out_f32"].launches == \
+        before["fused_ffn_fwd_out_f32"] + 1
 
 
 @pytest.mark.cuda
@@ -999,7 +1036,13 @@ def test_save_and_restore_round_trip_on_the_card_in_bf16(cuda, rng, tmp_path):
 def test_streaming_producer_launches_on_its_own_stream(cuda, monkeypatch):
     """In audio mode the producer thread renders through kernels #6 and #7 on
     a stream of its own (each launch takes its calling thread's current
-    stream), and its generation agrees with the CPU route (phase 11's bar)."""
+    stream), and its generation agrees with the route it runs, the device
+    route, run on the CPU by the kernels' plain versions (phase 11's bar).
+    The host route (numpy mixer, f64 onsets) is not that route: at these
+    tempos one kick's onset falls a sample apart (126,004.98 samples, item 18
+    at 126 qpm) and moves 13 values of step 24-25 by up to 0.078, in the JAX
+    package's two routes alike (tests/test_torch_streaming.py)."""
+    import functools
     import threading
 
     from transformergrooveinfilling_tpu_torch.data import synthetic
@@ -1020,6 +1063,9 @@ def test_streaming_producer_launches_on_its_own_stream(cuda, monkeypatch):
     kw = dict(qpms=qpms, aug_per_item=2, mode="audio", seed=4)
     with StreamingAugmenter(base, device=cuda, **kw) as st:
         _sl, got_in, got_out = st.next_epoch_delta()
+    # the device route's plain versions on the CPU (the CPU's default is the host route)
+    monkeypatch.setattr(mso, "mso_batch_from_hvo",
+                        functools.partial(mso.mso_batch_from_hvo, device_synth=True))
     with StreamingAugmenter(base, device="cpu", **kw) as st:
         _sl, want_in, want_out = st.next_epoch_delta()
     producer = {(stream, entry) for main, stream, entry in seen if not main}

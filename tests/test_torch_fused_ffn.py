@@ -1,7 +1,13 @@
 """The port's fused FFN wrapper (ops/fused_ffn.py) on the CPU, where it runs
 its plain version, against the JAX package's Pallas kernels in interpret mode
 (rate 0; the resident and the K/F-tiled layout), its dropout mask, the
-Function's hand-written backward against autograd, and the Hopper gate."""
+Function's hand-written backward against autograd, the Hopper gate of both
+dtypes, the tile shapes and row splits, and the C entry points against their
+ctypes declarations."""
+
+import ctypes
+import re
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -157,33 +163,45 @@ def test_relu_flips_take_the_other_side_of_the_kink():
     (1024, 4096, torch.float32, True), (1024, 4096, torch.bfloat16, True),
     (72, 200, torch.float32, True),  # no multiples of 128 are asked for
     (256, 2050, torch.float32, False), (254, 2048, torch.float32, False),
-    (1512, 4096, torch.bfloat16, True),  # the bf16 route keeps no (rows, d) tile on chip
+    (1512, 4096, torch.bfloat16, True),  # no (rows, d) tile is kept on chip
     (256, 2048, torch.float16, False),
-    (1512, 4096, torch.float32, False),  # 232,960 bytes of shared memory
+    (1512, 4096, torch.float32, True),  # nor in f32: d has no cap
     (1020, 4096, torch.float32, True), (1020, 4096, torch.bfloat16, False),  # TMA: d % 8
     (256, 2052, torch.bfloat16, False), (8, 8, torch.bfloat16, True)])
 def test_gate(d, ff, dtype, ok):
     assert ffn.supports_fused_ffn(d, ff, dtype) is ok
-    if dtype == torch.float32:  # the CUDA-core route's (32, d) f32 accumulator
-        assert (ffn.rows_smem_bytes(d) <= 232448) or not ok
+
+
+@pytest.mark.parametrize("d, ff, ok", [
+    (4, 4, True), (36, 100, True), (1020, 4100, True), (8192, 32768, True),
+    (2, 4, False), (4, 2, False), (6, 8, False), (8, 6, False), (1022, 4096, False),
+    (1024, 4098, False), (0, 0, False)])
+def test_f32_gate_takes_16_byte_rows_at_any_width(d, ff, ok):
+    """The f32 route's products read every operand through TMA, whose row
+    strides are whole 16 bytes: d and ff multiples of 4, and nothing else, no
+    cap on d (no (rows, d) accumulator on chip). bf16 asks multiples of 8."""
+    assert ffn.supports_fused_ffn(d, ff, torch.float32) is ok
+    assert ffn.supports_fused_ffn(d, ff, torch.bfloat16) is (ok and d % 8 == 0 and ff % 8 == 0)
 
 
 SHAPES = ((1024, 256, 2048), (16384, 256, 2048), (4096, 1024, 4096))  # chip_smoke.FFN_SHAPES
 
 
-def test_weight_splits_cover_the_rows_in_whole_chunks():
-    """f32: ranges of at least 128 rows; bf16: splits of whole 64-row stages
-    that cover the rows, none empty, where the tiles of dW1 and dW2 are fewer
-    than the SMs, at every tile shape."""
-    for rows, d, ff in SHAPES + ((100, 72, 200),):
-        splits = ffn.weight_splits(rows, d, ff, 132)
-        assert 1 <= splits <= max(1, -(-rows // 128))
-        for config in (None, *ffn.TILES):
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_wgrad_splits_cover_the_rows_in_whole_chunks(dtype):
+    """Splits of whole 64-row chunks (one bf16 stage, two f32 stages) that
+    cover the rows, none empty, where the tiles of dW1 and dW2 are fewer than
+    the SMs, at every tile shape the dtype's weight launch is built for and
+    at the one tile_configs picks."""
+    for rows, d, ff in SHAPES + ((100, 72, 200), (100, 36, 100)):
+        picked = ffn.tile_configs(rows, d, ff, 132, dtype)[4]
+        for config in (picked, *ffn.PRODUCT_TILES[dtype][4]):
             splits, per = ffn.wgrad_splits(rows, d, ff, 132, config)
             assert per % ffn.K_STAGE == 0 and (splits - 1) * per < rows <= splits * per
             assert splits == 1 or per >= ffn.WGRAD_MIN_STAGES * ffn.K_STAGE
-    assert ffn.weight_splits(4096, 1024, 4096, 132) == 1  # 2,128 blocks already
-    assert ffn.weight_splits(16384, 256, 2048, 132) > 1
+            tm, tn = ffn.TILES[config]
+            tiles = -(-ff // tm) * -(-d // tn) + -(-d // tm) * -(-ff // tn)
+            assert splits == 1 or splits * tiles <= 132  # split only to fill the card
     assert ffn.wgrad_splits(4096, 1024, 4096, 132) == (1, 4096)  # 256 tiles of 128 × 256
     assert ffn.wgrad_splits(16384, 256, 2048, 132) == (2, 8192)  # 64 of 128 × 128
     assert ffn.wgrad_splits(1024, 256, 2048, 132) == (2, 512)
@@ -201,18 +219,55 @@ def test_tile_configs_follow_the_measured_choice():
     assert ffn.TILES == {0: (64, 64), 1: (128, 128), 2: (128, 256)}
 
 
+def test_f32_tile_configs_follow_the_measured_choice():
+    """f32 has no 128 × 256 tile: the bf16 choice with 128 × 128 in its
+    place (dh·W1 and the weight gradients)."""
+    f32 = torch.float32
+    assert ffn.tile_configs(1024, 256, 2048, 132, f32) == (1, 0, 1, 0, 1)
+    assert ffn.tile_configs(16384, 256, 2048, 132, f32) == (1, 1, 1, 1, 1)
+    assert ffn.tile_configs(4096, 1024, 4096, 132, f32) == (1, 1, 1, 1, 1)
+    assert ffn.tile_configs(100, 72, 200, 132, f32) == (0, 0, 0, 0, 1)
+    assert ffn.wgrad_splits(16384, 256, 2048, 132, 1) == (2, 8192)
+
+
 @pytest.mark.parametrize("rows", [1, 100, 1024, 4096, 16384, 65536])
 @pytest.mark.parametrize("d, ff", [(8, 8), (72, 200), (256, 2048), (1024, 4096), (4096, 16384)])
 def test_tile_configs_pick_only_the_shapes_that_are_built(rows, d, ff):
     """csrc/fused_ffn.cu builds each product for its two shapes of
-    ``PRODUCT_TILES`` only (another config launches nothing), so every pick of
+    ``PRODUCT_TILES`` for each dtype only (another config launches nothing;
+    f32 never 128 × 256, gemm_sm90.cuh's static_assert), so every pick of
     ``tile_configs`` must be one of them, on this card's 132 SMs and others."""
-    assert all(set(shapes) <= set(ffn.TILES) and len(set(shapes)) == 2
-               for shapes in ffn.PRODUCT_TILES)
-    for sms in (78, 114, 132):
-        picked = ffn.tile_configs(rows, d, ff, sms)
-        assert len(picked) == len(ffn.PRODUCT_TILES)
-        assert all(c in shapes for c, shapes in zip(picked, ffn.PRODUCT_TILES)), (picked, sms)
+    assert set(ffn.PRODUCT_TILES) == {torch.bfloat16, torch.float32}
+    for dtype, built in ffn.PRODUCT_TILES.items():
+        assert all(set(shapes) <= set(ffn.TILES) and len(set(shapes)) == 2 for shapes in built)
+        assert dtype == torch.bfloat16 or not any(2 in shapes for shapes in built)
+        for sms in (78, 114, 132):
+            picked = ffn.tile_configs(rows, d, ff, sms, dtype)
+            assert len(picked) == len(built)
+            assert all(c in shapes for c, shapes in zip(picked, built)), (picked, sms, dtype)
+
+
+def test_entry_points_declare_every_argument():
+    """Each C entry point of csrc/fused_ffn.cu takes what SIGNATURES declares
+    for ctypes, and the stream last (a missing argument would shift every
+    later one); each counter launches one of them, both dtypes every one."""
+    src = (Path(ffn.__file__).parents[1] / "csrc" / "fused_ffn.cu").read_text()
+    kinds = {ctypes.c_void_p: "void*", ctypes.c_int: "int"}
+    found = {}
+    for name, params in re.findall(r"^int (tgi_ffn_\w+)\(([^)]*)\)", src, re.MULTILINE):
+        params = [" ".join(p.split()) for p in params.split(",")]
+        assert params[-1] == "void* stream", name
+        found[name] = [p.rsplit(" ", 1)[0] for p in params[:-1]]
+    assert set(found) == set(ffn.SIGNATURES)
+    for kernels in (ffn.BF16_KERNELS, ffn.F32_KERNELS):
+        assert {k.entry for k in kernels.values()} == set(ffn.SIGNATURES)
+    for name, params in found.items():
+        assert params == [kinds[t] for t in ffn.SIGNATURES[name]], name
+        # the five products take the dtype flag last
+        assert name == "tgi_ffn_reduce" or re.search(rf"{name}\([^)]*int f32, void\* stream\)",
+                                                     " ".join(src.split()))
+    assert ffn.route_kernels(torch.float32)["fwd_h"] is ffn.KERNELS["fused_ffn_fwd_h_f32"]
+    assert ffn.route_kernels(torch.bfloat16)["reduce"] is ffn.KERNELS["fused_ffn_reduce"]
 
 
 def test_cuda_tensors_never_take_the_plain_version():

@@ -70,6 +70,46 @@ def test_audio_generations_match_jax_within_the_mso_bar(monkeypatch):
         StreamingAugmenter(base, qpms=qpms, mode="audio")
 
 
+def test_audio_device_route_matches_jax_where_the_host_route_moves_an_onset(monkeypatch):
+    """The streaming producer's audio inputs on the card run the device route
+    (f32 onsets, the JAX device route's order). Its plain versions on the CPU
+    equal the JAX package's device route within the card test's bar (atol
+    2e-5·max, rtol 1e-3) on that test's items: 16 grids of
+    synthetic_gmd_sequences(16, seed=3), 2 augmentations each, seed 4,
+    tempos 90-150. The host route (numpy mixer, f64 onsets) is another
+    route: item 18 (126 qpm) has a kick at 126,004.98 samples, 126,004 in
+    f64 and 126,005 in f32, which moves 13 band energies of steps 24-25 by
+    up to 0.078. Both packages' routes differ there alike, so the card test
+    holds the producer to the device route."""
+    from transformergrooveinfilling_tpu.ops import mso as jax_mso
+    from transformergrooveinfilling_tpu_torch.ops import mso
+
+    base = np.stack([s.hvo for s in synthetic.synthetic_gmd_sequences(16, seed=3)])
+    kw = dict(qpms=np.linspace(90.0, 150.0, 16), aug_per_item=2, mode="audio", seed=4)
+    with StreamingAugmenter(base, device="cpu", **kw) as st:
+        host_in = st.next_epoch_delta()[1]
+    seen = []
+    real = mso.mso_batch_from_hvo
+
+    def device_route(hvos, sfs, qpms, **k):
+        seen.append((np.array(hvos), np.array(qpms)))
+        return real(hvos, sfs, qpms, **{**k, "device_synth": True})
+
+    monkeypatch.setattr(mso, "mso_batch_from_hvo", device_route)
+    with StreamingAugmenter(base, device="cpu", **kw) as st:
+        _sl, got_in, _out = st.next_epoch_delta()
+    hvos, qpms = seen[0]  # the first generation's (the producer runs on to the next)
+    want = np.asarray(jax_mso.mso_batch_from_hvo(hvos, None, qpms, device_synth=True))
+    np.testing.assert_allclose(got_in, want, atol=2e-5 * np.abs(want).max(), rtol=1e-3)
+    moved = np.abs(host_in - got_in) > 2e-5 * np.abs(got_in).max() + 1e-3 * np.abs(got_in)
+    assert {(int(i), int(t)) for i, t, _b in np.argwhere(moved)} == {(18, 24), (18, 25)}
+    assert moved.sum() == 13 and 0.07 < np.abs(host_in - got_in).max() < 0.08
+    assert qpms[18] == 126.0
+    sps, off = np.float32(126.0 / 15.0), hvos[18, 24, 18]  # the kick's offset (voice 0)
+    assert int((24 + float(off)) / (126.0 / 15.0) * 44100) == 126004
+    assert int((np.float32(24) + off) / sps * np.float32(44100)) == 126005
+
+
 def test_partial_generations_written_in_place_equal_the_full_view():
     kw = dict(base_hvos=_base(9), aug_per_item=2, mode="symbolic", seed=3, partial=3)
     full = _generations(StreamingAugmenter, 5, **kw)

@@ -7,10 +7,12 @@
 //
 // Each is a template over the activations' type T, the launch's operand type:
 // bf16 stores round to bf16 ("rounding" above), f32 stores keep the sum.
+// EpiOut and EpiRound take Promote = true where an f32 launch reduces over a
+// long k (gemm_sm90.cuh's kPromote): the FFN's h·W2ᵀ and dh·W1 over ff.
 //
 // store() gets the values at (row, col), (row, col+1), (row, col+8),
-// (row, col+9); col is even and the widths are multiples of 8, so a pair is
-// in or out of the matrix as a whole. load() fetches what store() reads
+// (row, col+9); col is even and the widths are multiples of 8 (bf16) or 4
+// (f32), so a pair is in or out of the matrix as a whole. load() fetches what store() reads
 // besides them, for a whole tile before its first store. Dropout is the
 // layer kernels' 8-bit rule and Philox stream (layer_common.cuh).
 
@@ -87,8 +89,9 @@ struct EpiHidden : NoExtra {
 };
 
 // out = round(A·Wᵀ + bias)
-template <class T>
+template <class T, bool Promote = false>
 struct EpiOut : NoExtra {
+  static constexpr bool kPromote = Promote;
   T* out;
   const float* bias;
   int rows, width;
@@ -111,8 +114,9 @@ struct EpiOut : NoExtra {
 };
 
 // out = round(A·W + resid), resid an f32 (rows, width) matrix or null
-template <class T>
+template <class T, bool Promote = false>
 struct EpiRound : NoExtra {
+  static constexpr bool kPromote = Promote;
   T* out;
   const float* resid;
   int rows, width;
@@ -172,8 +176,9 @@ struct EpiDh : NoExtra {
 
 // ---------------------------------------------------------------- weight gradients
 
-// eight activations from a 16- (bf16) or 32-byte (f32) aligned address
-__device__ __forceinline__ void load8(const bf16* p, float (&v)[8]) {
+// eight activations from a 16-byte aligned address; `half` (f32 only, a
+// width of 4 mod 8): the last four lie past the row and read as 0
+__device__ __forceinline__ void load8(const bf16* p, float (&v)[8], bool = false) {
   const uint4 u = *reinterpret_cast<const uint4*>(p);
   const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
 #pragma unroll
@@ -183,8 +188,9 @@ __device__ __forceinline__ void load8(const bf16* p, float (&v)[8]) {
     v[2 * i + 1] = f.y;
   }
 }
-__device__ __forceinline__ void load8(const float* p, float (&v)[8]) {
-  const float4 lo = reinterpret_cast<const float4*>(p)[0], hi = reinterpret_cast<const float4*>(p)[1];
+__device__ __forceinline__ void load8(const float* p, float (&v)[8], bool half = false) {
+  const float4 lo = reinterpret_cast<const float4*>(p)[0];
+  const float4 hi = half ? make_float4(0.f, 0.f, 0.f, 0.f) : reinterpret_cast<const float4*>(p)[1];
   v[0] = lo.x, v[1] = lo.y, v[2] = lo.z, v[3] = lo.w;
   v[4] = hi.x, v[5] = hi.y, v[6] = hi.z, v[7] = hi.w;
 }
@@ -192,9 +198,9 @@ __device__ __forceinline__ void load8(const float* p, float (&v)[8]) {
 constexpr int kMaxSegs = 16;
 
 // A column-sum segment: Σ_r x[r][c]·(z ? ẑ(z[r][c]) : 1) over the split's
-// rows (x T or f32, rows a multiple of 8 wide), ẑ the LayerNorm-normalised
-// z (T) with row r's (mean, rstd) at stats[r·stats_ld]: a bias gradient (z
-// null) or a LayerNorm gain's.
+// rows (x T or f32; rows a multiple of 8 wide, or of 4 where T is f32), ẑ the
+// LayerNorm-normalised z (T) with row r's (mean, rstd) at stats[r·stats_ld]:
+// a bias gradient (z null) or a LayerNorm gain's.
 template <class T>
 struct ColSeg {
   const void* x;
@@ -238,16 +244,17 @@ struct EpiWgrad {
     const int groups = blockDim.x >> 3, c = c0 + 8 * cg;
     float s[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
     if (c < sg.width) {
+      const bool half = c + 8 > sg.width;
       for (int r = r_begin + rg; r < r_end; r += groups) {
         const size_t at = static_cast<size_t>(r) * sg.width + c;
         float x[8];
         if (sg.x_f32)
-          load8(static_cast<const float*>(sg.x) + at, x);
+          load8(static_cast<const float*>(sg.x) + at, x, half);
         else
-          load8(static_cast<const T*>(sg.x) + at, x);
+          load8(static_cast<const T*>(sg.x) + at, x, half);
         if (sg.z) {
           float z[8];
-          load8(sg.z + at, z);
+          load8(sg.z + at, z, half);
           const float mu = sg.stats[static_cast<size_t>(r) * sg.stats_ld];
           const float rstd = sg.stats[static_cast<size_t>(r) * sg.stats_ld + 1];
 #pragma unroll

@@ -40,11 +40,13 @@
 //         truncation, so a sum over K drifts by up to K/8 · 3 / 2 units in
 //         the last place (768, 4.6e-5 of the sum, at 4,096 rows a split of
 //         the weight gradients). An epilogue that sets kPromote (the
-//         weight gradients, whose reduction is the rows) has each stage's 12
+//         weight gradients, whose reduction is the rows; the fused FFN's
+//         h·W2ᵀ and dh·W1, over ff up to 4,096) has each stage's 12
 //         products summed in registers of their own and added to the f32
-//         sum with round-to-nearest (32 values of k a stage); the other
-//         launches reduce over d, 2d, 3d or ff (≤ 2,048), where the drift
-//         stays near 1e-5 of the sum or below, and keep the registers.
+//         sum with round-to-nearest (32 values of k a stage); the layer
+//         chains' other launches reduce over d, 2d, 3d or ff (≤ 2,048),
+//         where the drift stays near 1e-5 of the sum or below, and keep the
+//         registers.
 //
 // Shared memory of a stage: the A tile, then the B tile, each a stack of
 // 128-byte rows (kBK = 128 / sizeof(T) values of k) that TMA writes with the
@@ -814,6 +816,23 @@ int run(int config, const Operand* a, const Operand* b, int problems, int k_tota
                                                  extra_blocks, epi, stream);
   }
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+template <class T>
+struct Type {
+  using type = T;
+};
+
+// fn(Type<float>{}) where `f32`, else fn(Type<bf16>{}): one C entry point a
+// launch type, its activations and weights f32 or bf16
+template <class F>
+int by_type(int f32, F&& fn) {
+  return f32 ? fn(Type<float>{}) : fn(Type<__nv_bfloat16>{});
+}
+
+template <class T>
+T* as(void* p) {
+  return static_cast<T*>(p);
 }
 
 // ---------------------------------------------------------------- epilogue helpers

@@ -1,6 +1,6 @@
 // Device functions shared by the layer kernels (layer_sm90.cu, fused_ffn.cu,
-// fused_ln.cu): vector loads, the Philox dropout stream, warp sums and the
-// LayerNorm's normalisation.
+// fused_ln.cu): the Philox dropout stream, warp sums and the LayerNorm's
+// normalisation.
 //
 // Dropout: Philox4x32-10, keyed by (seed, 0) and counted by
 // (col / 16, row, site, 0); element (row, col) takes byte col % 16. A byte
@@ -20,20 +20,7 @@
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kTile = 64;
 constexpr float kLnEps = 1e-5f;
-
-__device__ __forceinline__ void load4(const float* p, float* w) {
-  const float4 v = *reinterpret_cast<const float4*>(p);
-  w[0] = v.x; w[1] = v.y; w[2] = v.z; w[3] = v.w;
-}
-__device__ __forceinline__ void load4(const __nv_bfloat16* p, float* w) {
-  const uint2 v = *reinterpret_cast<const uint2*>(p);
-  const __nv_bfloat162 lo = *reinterpret_cast<const __nv_bfloat162*>(&v.x);
-  const __nv_bfloat162 hi = *reinterpret_cast<const __nv_bfloat162*>(&v.y);
-  w[0] = __low2float(lo); w[1] = __high2float(lo);
-  w[2] = __low2float(hi); w[3] = __high2float(hi);
-}
 
 // ---------------------------------------------------------------- dropout
 
@@ -62,30 +49,6 @@ __device__ __forceinline__ uint32_t word_byte(const uint4& w4, uint32_t col) {
   return (w >> (8 * (col & 3))) & 0xFFu;
 }
 
-__device__ __forceinline__ uint32_t dropout_byte(uint32_t seed, uint32_t site,
-                                                 uint32_t row, uint32_t col) {
-  return word_byte(dropout_words(seed, site, row, col >> 4), col);
-}
-
-struct Drop {
-  uint32_t seed;
-  int thresh;
-  float keep;
-  // dropout of v at (site, row, col): v / keep where kept, else 0
-  __device__ __forceinline__ float apply(float v, int site, int row, int col) const {
-    if (thresh >= 256) return v;
-    return dropout_byte(seed, site, row, col) < static_cast<uint32_t>(thresh) ? v / keep : 0.f;
-  }
-};
-
-__device__ __forceinline__ Drop make_drop(const int* seed, int thresh) {
-  Drop dr;
-  dr.seed = static_cast<uint32_t>(*seed);
-  dr.thresh = thresh;
-  dr.keep = thresh / 256.f;
-  return dr;
-}
-
 // ---------------------------------------------------------------- shared pieces
 
 __device__ __forceinline__ float warp_sum(float v) {
@@ -98,7 +61,5 @@ __device__ __forceinline__ float zhat(float a, float mu, float rstd) {
 __device__ __forceinline__ float affine(float z, float g, float b) {
   return __fadd_rn(__fmul_rn(z, g), b);
 }
-
-__host__ __device__ inline int tiles(int n) { return (n + kTile - 1) / kTile; }
 
 }  // namespace

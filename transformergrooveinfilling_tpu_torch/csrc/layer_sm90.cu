@@ -1057,23 +1057,6 @@ int launch_attn(Kernel kernel, const AttnArgs<E>& a, int nseq, bool backward,
   return static_cast<int>(cudaGetLastError());
 }
 
-template <class T>
-T* as(void* p) {
-  return static_cast<T*>(p);
-}
-
-template <class T>
-struct Type {
-  using type = T;
-};
-
-// fn(Type<float>{}) where `f32`, else fn(Type<bf16>{}): one entry point a
-// launch type, its activations and weights f32 or bf16
-template <class F>
-int by_type(int f32, F&& fn) {
-  return f32 ? fn(Type<float>{}) : fn(Type<bf16>{});
-}
-
 template <class E>
 AttnArgs<E> attn_args(void* q, void* k, void* v, void* da, void* dq, void* dk, void* dv,
                       void* out, void* seed, int ldq, int ldkv, int ldda, int lddq, int lddkv,

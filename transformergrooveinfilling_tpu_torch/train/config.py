@@ -119,8 +119,21 @@ def resolve_fused_ffn(fused_ffn: Optional[bool], dim_feedforward: int, d_model: 
     layers) was slower in 9 of 14 turns at batch 32 and 5 of 14 at 512. The
     steps are host-bound (3,056 launches a GrooveXL step), so the device time
     the kernels save (178 to 31 ms a GrooveXL step) does not reach seqs/s by
-    more than the host's noise. The f32 kernels lose to
-    cuBLAS at every width measured."""
+    more than the host's noise.
+
+    f32 (``bf16: false``; the FFN's five products in split TF32), 3 pairs of
+    turns back to back a run (PERF.md §5): the lm config, layers unfused, at
+    batch 32 pairs 1.127, 0.942, 1.205 and 0.922, 1.065, 1.118 (two runs;
+    one path's turns 24.1 % and 18.7 % apart), at batch 512 0.923, 0.920,
+    0.835 and 0.995, 1.160, 1.139 (12.7 %, 16.4 %; the kernel path's step
+    30.3 ms of device in 41.6 of host, the unfused one's 40.6 in 44.6);
+    GrooveXL under remat in five runs 1.121, 1.041, 1.149 (9.9 %); 1.167,
+    1.205, 1.211 (4.2 %); 1.194, 1.192, 0.967 (22.9 %); 1.594, 1.225, 1.199
+    (31.4 %); 1.214, 1.183, 1.716 (41.0 %), its step 104-106 ms of device
+    against 128. The worst pair clears the spread (ROADMAP §C1's rule) in one
+    GrooveXL run of five and in no lm run, so f32 auto is off too, though each
+    f32 call is faster than the library composition on the stream (forward
+    0.57-0.95 of its time, backward 0.25-0.80; two runs, PERF.md §6)."""
     if fused_ffn is not None:
         return bool(fused_ffn)
     require_device(device, "resolve_fused_ffn")
