@@ -25,7 +25,8 @@ then non-zero):
             device, beside its bound and
             ``torch.nn.functional.scaled_dot_product_attention`` on the same
             views (the library call for the same function; the port never
-            calls it).
+            calls it); also at the eval forwards' B 3,300 and 1,099 (phase 22),
+            contiguous and packed qkv, timed at 3,300 in bf16.
 4. serve    ``InfillServer`` at the flagship width (configs/
             InfillingRandom_training.yaml: d 256, 2 heads, ff 512, 6 layers,
             16 in, 27 out; seeded random weights) on the card: the kernel's
@@ -208,6 +209,25 @@ then non-zero):
             #6's and #7's kernels; one
             host generation and one fused render of the train split timed in
             process, with their launches.
+22. evaluation  on phase 21's datasets, each command line in a child
+            process as there: ``python -m
+            transformergrooveinfilling_tpu_torch.process_evaluator
+            --experiments InfillingRandom --splits train validation`` on the
+            card (#6, #7) beside the validation evaluator built with
+            ``--device cpu`` (tags, indices and GT arrays bit for bit, MSO
+            inputs within atol 1e-5 · max, rtol 1e-4, a row where the host
+            route moves an onset by a sample held to the device route's plain
+            versions on the CPU instead); ``train --config
+            configs/InfillingRandom_training.yaml`` with the evaluator flags
+            at their defaults for a few blocks: both sets' held-out losses
+            every block and metric families every evaluated block, epoch 0's
+            media (piano rolls, heatmaps, audio, stats CSV), no held error of
+            the media worker, #1 six launches a forward of the eval passes,
+            #2's chain in training; ``evaluate`` of the last evaluated
+            ``.ckpt`` on the card (families equal to the run's within 1e-6)
+            and with ``--device cpu``, the weights in f32 on the card against
+            the CPU by ``hit_agreement``; a scalar-only eval pass and a media
+            pass timed in process, with their launches.
 
 Then one line ``{"kernels": [...]}``, the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``. Without CUDA it exits non-zero and prints
@@ -224,6 +244,7 @@ import os
 import re
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 import urllib.error
@@ -258,8 +279,8 @@ from transformergrooveinfilling_tpu_torch.ops.dropout import (
     quantized_keep_rate, quantized_threshold,
 )
 from transformergrooveinfilling_tpu_torch.train import (
-    HyperParams, checkpoint as ckpt, create_train_state, initialize_model, load_hyperparameters,
-    make_epoch_fn, make_train_step, run_training, train_loop,
+    HyperParams, checkpoint as ckpt, create_train_state, eval_log_freq, initialize_model,
+    load_hyperparameters, make_epoch_fn, make_train_step, run_training, train_loop,
 )
 from transformergrooveinfilling_tpu_torch.models import torch_compat
 from transformergrooveinfilling_tpu_torch.train.driver import _GracefulStop
@@ -859,6 +880,9 @@ def mha_inputs(dev, rng, b: int, h: int, hd: int, dtype, form: str, t: int = 32)
 
 
 MHA_FORMS = ("contiguous", "packed_qkv", "packed_kv")
+# the batches phase 22's eval forwards give #1: the train and validation
+# evaluators' rows (seeded, so fixed), each one forward of the whole set
+EVAL_ROWS = {"train": 3300, "validation": 1099}
 MHA_BARS = {torch.float32: (1e-5, 0.0), torch.bfloat16: (2e-2, 2e-2)}
 
 
@@ -869,6 +893,7 @@ def phase_kernel(dev, rng) -> dict:
     worst = {torch.float32: 0.0, torch.bfloat16: 0.0}
     cases = [(b, h, hd, "contiguous") for h, hd in ((2, 128), (4, 8)) for b in (1, 8, 32, 512)]
     cases += [(b, 2, 128, form) for b in (1, 512) for form in MHA_FORMS[1:]]
+    cases += [(b, 2, 128, form) for b in EVAL_ROWS.values() for form in MHA_FORMS[:2]]
     checks = 0
     for b, h, hd, form in cases:
         for dtype, (atol, rtol) in MHA_BARS.items():
@@ -888,9 +913,12 @@ def phase_kernel(dev, rng) -> dict:
                       f"causal={causal}: max abs err {err}")
                 checks += 1
     timings = []
+    eval_b = EVAL_ROWS["train"]
     for b, dtype in ((1, torch.float32), (8, torch.float32), (32, torch.float32),
-                     (512, torch.float32), (1, torch.bfloat16), (512, torch.bfloat16)):
-        forms = MHA_FORMS if b in (1, 512) else MHA_FORMS[:1]
+                     (512, torch.float32), (1, torch.bfloat16), (512, torch.bfloat16),
+                     (eval_b, torch.bfloat16)):
+        forms = (MHA_FORMS if b in (1, 512) else MHA_FORMS[:2] if b == eval_b
+                 else MHA_FORMS[:1])
         for form in forms:
             q, k, v = mha_inputs(dev, rng, b, 2, 128, dtype, form)
             kern = lambda: fused_mha(q, k, v)  # noqa: E731
@@ -3309,15 +3337,16 @@ def phase_checkpoint(dev, rng, smi: str) -> dict:
 # the module's own seconds to the file named after the module
 CLI_RUNNER = """
 import json, runpy, sys, time
-from transformergrooveinfilling_tpu_torch.ops import band_energies, device_synth, fused_layer
+from transformergrooveinfilling_tpu_torch.ops import (
+    attention, band_energies, device_synth, fused_layer)
 module, out = sys.argv[1], sys.argv[2]
 sys.argv = [module] + sys.argv[3:]
 t0 = time.perf_counter()
 try:
     runpy.run_module(module, run_name="__main__", alter_sys=True)
 finally:
-    kernels = {"band_energies": band_energies.KERNEL, "device_synth": device_synth.KERNEL,
-               **fused_layer.SM90_KERNELS}
+    kernels = {"fused_mha": attention.KERNEL, "band_energies": band_energies.KERNEL,
+               "device_synth": device_synth.KERNEL, **fused_layer.SM90_KERNELS}
     with open(out, "w") as f:
         json.dump({"seconds": time.perf_counter() - t0,
                    "launches": {k: v.launches for k, v in kernels.items()}}, f)
@@ -3370,13 +3399,12 @@ def run_cli(module: str, args, cwd: str, what: str, **env) -> dict:
     return finish_cli(start_cli(module, args, cwd, **env), what)
 
 
-def cli_metrics(cwd: str) -> list:
-    """The records of the one run a training command line logged under ``cwd``."""
-    found = [os.path.join(d, "metrics.jsonl") for d, _subs, files in os.walk(cwd)
-             if "metrics.jsonl" in files]
+def run_records(cwd: str) -> tuple:
+    """The run directory of the one run logged under ``cwd`` and its records."""
+    found = [d for d, _subs, files in os.walk(cwd) if "metrics.jsonl" in files]
     check(len(found) == 1, f"{cwd}: {len(found)} metrics.jsonl files")
-    with open(found[0]) as f:
-        return [json.loads(line) for line in f]
+    with open(os.path.join(found[0], "metrics.jsonl")) as f:
+        return found[0], [json.loads(line) for line in f]
 
 
 def newest_epoch(ckpt_dir: str) -> int:
@@ -3454,7 +3482,7 @@ def cli_launches(cli: dict, kernel: str) -> dict:
             **{f"train_{mode}": run["launches"][kernel] for mode, run in cli["train"].items()}}
 
 
-def phase_cli(dev, smi: str) -> dict:
+def phase_cli(dev, smi: str, root: str) -> dict:
     """21. the command lines: ``process_dataset --experiments InfillingRandom``
     at the default synthetic sizes on the card, beside a CPU build of the
     validation split (outputs bit for bit, 64 MSO inputs at the MSO bar);
@@ -3462,83 +3490,81 @@ def phase_cli(dev, smi: str) -> dict:
     width for a few blocks each with ``--streaming off``, ``host`` (auto
     cadence) and ``fused``, the last resumed from the off run's newest
     ``.ckpt`` under ``TGI_PROFILE=1``; one host generation and one fused render
-    timed in process. All under a temporary directory."""
-    import tempfile
-
+    timed in process. All under ``root``, a temporary directory that phase 22
+    goes on to use."""
     from transformergrooveinfilling_tpu_torch.data import load_processed_dataset
 
     on_dev = ["--device", dev.type]
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_cli_") as root:
-        card = start_cli(CLI_PROCESS, ["--experiments", "InfillingRandom", *on_dev],
-                         os.path.join(root, "card"))
-        cpu = start_cli(CLI_PROCESS, ["--experiments", "InfillingRandom", "--splits",
-                                      "validation", "--device", "cpu"],
-                        os.path.join(root, "cpu"), threads=2)
-        built = finish_cli(card, "process_dataset on the card")
-        cpu_built = finish_cli(cpu, "process_dataset --device cpu")
-        data_dir = os.path.join(root, "card", "datasets", "InfillingRandom", "0.0.0")
-        sizes = {s: len(load_processed_dataset(os.path.join(data_dir, s), "InfillingRandom"))
-                 for s in CLI_SPLITS}
-        check(sizes == CLI_SPLITS, f"process_dataset built {sizes}")
-        on_card = load_processed_dataset(os.path.join(data_dir, "validation"), "InfillingRandom")
-        on_cpu = load_processed_dataset(os.path.join(root, "cpu", "datasets", "InfillingRandom",
-                                                     "0.0.0", "validation"), "InfillingRandom")
-        check(np.array_equal(on_card.processed_outputs, on_cpu.processed_outputs)
-              and on_card.hvo_index == on_cpu.hvo_index
-              and on_card.soundfonts == on_cpu.soundfonts,
-              "the card's validation split differs from the CPU build's in its outputs")
-        got, want = on_card.processed_inputs[:CLI_MSO_ITEMS], on_cpu.processed_inputs[:CLI_MSO_ITEMS]
-        mso_err = max_err(got, want)
-        check(np.allclose(got, want, atol=1e-5 * np.abs(want).max(), rtol=1e-4),
-              f"64 MSO inputs from the card against the CPU route: {mso_err}")
-        check(built["launches"]["device_synth"] > 0 and built["launches"]["band_energies"] > 0,
-              f"process_dataset on the card launched {built['launches']}")
+    card = start_cli(CLI_PROCESS, ["--experiments", "InfillingRandom", *on_dev],
+                     os.path.join(root, "card"))
+    cpu = start_cli(CLI_PROCESS, ["--experiments", "InfillingRandom", "--splits",
+                                  "validation", "--device", "cpu"],
+                    os.path.join(root, "cpu"), threads=2)
+    built = finish_cli(card, "process_dataset on the card")
+    cpu_built = finish_cli(cpu, "process_dataset --device cpu")
+    data_dir = os.path.join(root, "card", "datasets", "InfillingRandom", "0.0.0")
+    sizes = {s: len(load_processed_dataset(os.path.join(data_dir, s), "InfillingRandom"))
+             for s in CLI_SPLITS}
+    check(sizes == CLI_SPLITS, f"process_dataset built {sizes}")
+    on_card = load_processed_dataset(os.path.join(data_dir, "validation"), "InfillingRandom")
+    on_cpu = load_processed_dataset(os.path.join(root, "cpu", "datasets", "InfillingRandom",
+                                                 "0.0.0", "validation"), "InfillingRandom")
+    check(np.array_equal(on_card.processed_outputs, on_cpu.processed_outputs)
+          and on_card.hvo_index == on_cpu.hvo_index
+          and on_card.soundfonts == on_cpu.soundfonts,
+          "the card's validation split differs from the CPU build's in its outputs")
+    got, want = on_card.processed_inputs[:CLI_MSO_ITEMS], on_cpu.processed_inputs[:CLI_MSO_ITEMS]
+    mso_err = max_err(got, want)
+    check(np.allclose(got, want, atol=1e-5 * np.abs(want).max(), rtol=1e-4),
+          f"64 MSO inputs from the card against the CPU route: {mso_err}")
+    check(built["launches"]["device_synth"] > 0 and built["launches"]["band_energies"] > 0,
+          f"process_dataset on the card launched {built['launches']}")
 
-        paths = os.path.join(root, "paths.yaml")
-        with open(paths, "w") as f:
-            f.write("InfillingRandom:\n  datasets:\n" + "".join(
-                f"    {s}: {os.path.join(data_dir, s)}\n" for s in CLI_SPLITS))
-        common = ["--config", CLI_CONFIG, "--paths", paths, "--wandb", "False", "--eval_train",
-                  "False", "--eval_validation", "False", "--dump_eval", "False", *on_dev]
-        # off and host from fresh weights; fused resumed from the off run's
-        # newest .ckpt, its first block traced
-        runs, resumed = {}, {}
-        for mode, extra, env in (
-                ("off", [], {}), ("host", ["--regen_cadence", "auto"], {}),
-                ("fused", ["--load_model", os.path.join(root, "off", "ck")],
-                 {"TGI_PROFILE": "1"})):
-            cwd = os.path.join(root, mode)
-            wall = CLI_WALL_S
-            if mode == "fused":
-                resumed["from_epoch"] = newest_epoch(os.path.join(root, "off", "ck"))
-                wall += CLI_TRACE_S
-            run = run_cli(CLI_TRAIN, common + extra + [
-                "--streaming", mode, "--max_wall_s", str(wall),
-                "--ckpt_dir", os.path.join(cwd, "ck")], cwd, f"train --streaming {mode}", **env)
-            records = cli_metrics(cwd)
-            losses = [r["loss"] for r in records]
-            check(len(records) >= 2 and all(np.isfinite(losses)) and losses[-1] < losses[0],
-                  f"--streaming {mode}: losses {losses}")
-            chain = {k: v for k, v in run["launches"].items() if k in fl.SM90_KERNELS}
-            check(all(v > 0 for v in chain.values()),
-                  f"--streaming {mode} did not run #2's bf16 chain: {chain}")
-            if mode != "off":
-                check(run["launches"]["device_synth"] > 0 and run["launches"]["band_energies"] > 0,
-                      f"--streaming {mode} launched {run['launches']}")
-            runs[mode] = {"wall_seconds": run["wall_seconds"], "module_seconds": run["seconds"],
-                          "launches": run["launches"], "losses": losses,
-                          "epochs": [r["epoch"] for r in records],
-                          "seqs_per_sec": [r["seqs_per_sec"] for r in records],
-                          "epoch_time_s": [r["epoch_time_s"] for r in records],
-                          "printed": [line for line in run["stdout"].splitlines()
-                                      if line.startswith("streaming")]}
-        check(runs["fused"]["epochs"][0] == resumed["from_epoch"] + 1,
-              f"resumed from epoch {resumed['from_epoch']}, logged epochs "
-              f"{runs['fused']['epochs']}")
-        resumed["trace"] = trace_kernels(os.path.join(root, "fused"))
-        check(all(resumed["trace"]["by_name"].values()),
-              f"the trace misses kernels: {resumed['trace']['by_name']}")
-        costs = generation_costs(dev, os.path.join(data_dir, "train"))
+    paths = os.path.join(root, "paths.yaml")
+    with open(paths, "w") as f:
+        f.write("InfillingRandom:\n  datasets:\n" + "".join(
+            f"    {s}: {os.path.join(data_dir, s)}\n" for s in CLI_SPLITS))
+    common = ["--config", CLI_CONFIG, "--paths", paths, "--wandb", "False", "--eval_train",
+              "False", "--eval_validation", "False", "--dump_eval", "False", *on_dev]
+    # off and host from fresh weights; fused resumed from the off run's
+    # newest .ckpt, its first block traced
+    runs, resumed = {}, {}
+    for mode, extra, env in (
+            ("off", [], {}), ("host", ["--regen_cadence", "auto"], {}),
+            ("fused", ["--load_model", os.path.join(root, "off", "ck")],
+             {"TGI_PROFILE": "1"})):
+        cwd = os.path.join(root, mode)
+        wall = CLI_WALL_S
+        if mode == "fused":
+            resumed["from_epoch"] = newest_epoch(os.path.join(root, "off", "ck"))
+            wall += CLI_TRACE_S
+        run = run_cli(CLI_TRAIN, common + extra + [
+            "--streaming", mode, "--max_wall_s", str(wall),
+            "--ckpt_dir", os.path.join(cwd, "ck")], cwd, f"train --streaming {mode}", **env)
+        _run_dir, records = run_records(cwd)
+        losses = [r["loss"] for r in records]
+        check(len(records) >= 2 and all(np.isfinite(losses)) and losses[-1] < losses[0],
+              f"--streaming {mode}: losses {losses}")
+        chain = {k: v for k, v in run["launches"].items() if k in fl.SM90_KERNELS}
+        check(all(v > 0 for v in chain.values()),
+              f"--streaming {mode} did not run #2's bf16 chain: {chain}")
+        if mode != "off":
+            check(run["launches"]["device_synth"] > 0 and run["launches"]["band_energies"] > 0,
+                  f"--streaming {mode} launched {run['launches']}")
+        runs[mode] = {"wall_seconds": run["wall_seconds"], "module_seconds": run["seconds"],
+                      "launches": run["launches"], "losses": losses,
+                      "epochs": [r["epoch"] for r in records],
+                      "seqs_per_sec": [r["seqs_per_sec"] for r in records],
+                      "epoch_time_s": [r["epoch_time_s"] for r in records],
+                      "printed": [line for line in run["stdout"].splitlines()
+                                  if line.startswith("streaming")]}
+    check(runs["fused"]["epochs"][0] == resumed["from_epoch"] + 1,
+          f"resumed from epoch {resumed['from_epoch']}, logged epochs "
+          f"{runs['fused']['epochs']}")
+    resumed["trace"] = trace_kernels(os.path.join(root, "fused"))
+    check(all(resumed["trace"]["by_name"].values()),
+          f"the trace misses kernels: {resumed['trace']['by_name']}")
+    costs = generation_costs(dev, os.path.join(data_dir, "train"))
     out = {"card": smi, "process_dataset": {
                "items": CLI_SPLITS, "wall_seconds": built["wall_seconds"],
                "module_seconds": built["seconds"],
@@ -3548,6 +3574,265 @@ def phase_cli(dev, smi: str) -> dict:
                "mso_max_abs_err_vs_cpu": mso_err},
            "train": runs, "resumed": resumed, "generations": costs}
     emit({"phase": "cli", **out})
+    return out
+
+
+# phase 22: evaluation, the command lines of phase 21's datasets with evaluators
+CLI_PROCESS_EVALUATOR = "transformergrooveinfilling_tpu_torch.process_evaluator"
+CLI_EVALUATE = "transformergrooveinfilling_tpu_torch.evaluate"
+EVAL_SPLITS = ("train", "validation")
+EVAL_WALL_S = 12.0  # --max_wall_s of the training run with both evaluators: a few blocks
+EVAL_MEDIA_FAILED = "media worker: a deferred media pass failed"
+
+
+def evaluator_pickle(cwd: str, split: str) -> str:
+    return os.path.join(cwd, "datasets", "preprocessed_evaluators", "InfillingEvaluator_0.3.2",
+                        f"InfillingRandom_{split}_0.0.0_evaluator.pickle")
+
+
+def families_of(records: list, epoch: int, ident: str) -> dict:
+    return {k: v for r in records if r.get("epoch") == epoch for k, v in r.items()
+            if k.startswith(ident + "_") and ("_Accuracy_" in k or "_MSE_" in k)}
+
+
+def media_of(run_dir: str, records: list, epoch: int, ident: str) -> dict:
+    """What epoch ``epoch``'s media pass of the set ``ident`` wrote: the
+    files of its piano rolls, heatmaps and audio (each checked to exist and
+    hold data) and its stats CSV."""
+    (record,) = [r for r in records if r.get("epoch") == epoch and f"{ident}_stats" in r]
+    # {ident: {"{ident}.{kind}": {"{ident}.{kind}.{name}": path or [paths]}}}
+    files = [(kind.split(".")[1], p) for kind, group in record[ident].items()
+             for v in group.values() for p in (v if isinstance(v, list) else [v])]
+    for kind in ("piano_roll_html", "velocity_heatmaps", "audios"):
+        check(any(k == kind for k, _ in files), f"epoch {epoch} {ident}: no {kind}")
+    paths = [p for _, p in files] + [record[f"{ident}_stats"]]
+    sizes = {p: os.path.getsize(os.path.join(run_dir, p)) for p in paths}
+    wavs = [p for p in paths if p.endswith(".wav")]
+    check(bool(wavs) and all(sizes[p] > 44 for p in wavs), f"{ident}: empty audio {wavs[:3]}")
+    check(all(sizes[p] > 0 for p in paths), f"{ident}: an empty media file")
+    csv = [f for f in os.listdir(run_dir) if f.startswith("stats_") and f.endswith(
+        f"_Epoch_{epoch}.csv")]
+    check(len(csv) == 1, f"epoch {epoch}: stats CSV {csv}")
+    return {"files": len(paths), "wav": len(wavs), "bytes": sum(sizes.values()), "csv": csv[0]}
+
+
+def phase_eval(dev, smi: str, root: str) -> dict:
+    """22. evaluation on the card, at the flagship width, nothing cut, each
+    command line in a child process, on phase 21's datasets under ``root``:
+    (a) ``process_evaluator --experiments InfillingRandom --splits train
+    validation`` on the card (#6, #7), beside the validation evaluator built
+    with ``--device cpu``: tags, indices and GT arrays bit for bit, MSO inputs
+    within atol 1e-5 · max and rtol 1e-4 of the CPU's host route, or where an
+    onset moves by a sample between the routes (ROADMAP C9) of the device
+    route's plain versions on the CPU; (b) ``train --config
+    configs/InfillingRandom_training.yaml`` with the evaluator flags at their
+    defaults (train and validation, media asynchronous, evaluator dumps) for
+    a few blocks: every block logs both sets' held-out losses, every block but
+    the stop's their metric families; epoch 0's media pass writes piano
+    rolls, heatmaps, audio and the stats CSV; no held error of the media
+    worker; #1 six launches a forward (two forwards a set a block, one more on
+    a media epoch), #2's bf16 chain in training; (c) ``evaluate`` of the last
+    evaluated epoch's ``.ckpt`` with the validation evaluator on the card,
+    its families equal to the run's within 1e-6, and with ``--device cpu``
+    (bf16 on the CPU, as the checkpoint says); the same weights in f32 on the
+    card and on the CPU, hits by ``hit_agreement`` at 0.5 and at the threshold
+    that makes 5 % of the cells hits, velocities and offsets within 1e-4; (d) in process, the seconds and launches of a scalar-only
+    eval pass over both sets (``train/driver.py::_make_eval_pass`` and one
+    fetch of each packed result) and of a media pass (``log_eval`` of both
+    sets, rendering inline)."""
+    from transformergrooveinfilling_tpu_torch.eval.evaluator import init_evaluator, log_eval
+    from transformergrooveinfilling_tpu_torch.train.driver import ModelBundle, _make_eval_pass
+
+    data_dir = os.path.join(root, "card", "datasets", "InfillingRandom", "0.0.0")
+    card_cwd, cpu_cwd = os.path.join(root, "eval_card"), os.path.join(root, "eval_cpu")
+    paths = os.path.join(root, "paths_eval.yaml")
+    with open(paths, "w") as f:
+        f.write("InfillingRandom:\n  datasets:\n"
+                + "".join(f"    {s}: {os.path.join(data_dir, s)}\n" for s in CLI_SPLITS)
+                + "  evaluators:\n"
+                + "".join(f"    {s}: {evaluator_pickle(card_cwd, s)}\n" for s in EVAL_SPLITS))
+    # (a) the evaluators, on the card and (validation) on the CPU
+    card = start_cli(CLI_PROCESS_EVALUATOR, ["--experiments", "InfillingRandom", "--splits",
+                                             *EVAL_SPLITS, "--paths", paths], card_cwd)
+    cpu = start_cli(CLI_PROCESS_EVALUATOR, ["--experiments", "InfillingRandom", "--splits",
+                                            "validation", "--paths", paths, "--device", "cpu"],
+                    cpu_cwd, threads=2)
+    built = finish_cli(card, "process_evaluator on the card")
+    cpu_built = finish_cli(cpu, "process_evaluator --device cpu")
+    evs = {s: init_evaluator(evaluator_pickle(card_cwd, s), device=dev) for s in EVAL_SPLITS}
+    on_cpu = init_evaluator(evaluator_pickle(cpu_cwd, "validation"), device="cpu")
+    on_card = evs["validation"]
+    for name in ("_gt_tags", "_gt_hvos_array_tags", "hvo_index", "unused_items",
+                 "audio_sample_locations", "soundfonts"):
+        check(getattr(on_card, name) == getattr(on_cpu, name),
+              f"the validation evaluators' {name} differ between the card and the CPU")
+    for name in ("_gt_hvos_array", "_gmd_gt_hvos_array", "processed_gt"):
+        check(np.array_equal(getattr(on_card, name), getattr(on_cpu, name)),
+              f"the validation evaluators' {name} differ between the card and the CPU")
+    # the CPU build takes the host route (numpy mixer, onsets in f64), the card
+    # the device route (onsets in f32): where an onset lands a sample apart
+    # (ROADMAP C9) a row is held to the device route's plain versions instead
+    got, want = on_card.processed_inputs, on_cpu.processed_inputs
+    bar = dict(atol=1e-5 * np.abs(want).max(), rtol=1e-4)
+    moved = np.nonzero(~np.isclose(got, want, **bar).all(axis=(1, 2)))[0]
+    mso_err = max_err(np.delete(got, moved, 0), np.delete(want, moved, 0))
+    if moved.size:
+        rows_in = on_cpu.hvo_sequences_inputs
+        plain = mso.mso_batch_from_hvo(
+            np.stack([rows_in[i].hvo for i in moved]).astype(np.float32),
+            [on_cpu.soundfonts[i] for i in moved],
+            np.asarray([rows_in[i].tempos[0].qpm for i in moved], np.float32),
+            params=mso.MSOParams(**on_cpu.dataset.mso_params), device="cpu",
+            device_synth=True, method="fused")
+        check(np.allclose(got[moved], plain, **bar),
+              f"{moved.size} MSO rows off the host route are off the device route's plain "
+              f"versions too: {max_err(got[moved], plain)}")
+        mso_err = max(mso_err, max_err(got[moved], plain))
+    rows = {s: len(ev.processed_inputs) for s, ev in evs.items()}
+    check(rows == EVAL_ROWS, f"evaluator rows {rows}, phase 3 held #1 at {EVAL_ROWS}")
+    check(built["launches"]["device_synth"] > 0 and built["launches"]["band_energies"] > 0,
+          f"process_evaluator on the card launched {built['launches']}")
+
+    # (b) training with both evaluators, the eval flags at their defaults
+    train_cwd = os.path.join(root, "eval_train")
+    run = run_cli(CLI_TRAIN, ["--config", CLI_CONFIG, "--paths", paths, "--wandb", "False",
+                              "--max_wall_s", str(EVAL_WALL_S), "--ckpt_dir",
+                              os.path.join(train_cwd, "ck"), "--device", dev.type],
+                  train_cwd, "train with evaluators")
+    check(EVAL_MEDIA_FAILED not in run["stdout"],
+          "the media worker held errors:\n" + "\n".join(
+              line for line in run["stdout"].splitlines() if EVAL_MEDIA_FAILED in line))
+    run_dir, records = run_records(train_cwd)
+    blocks = [r for r in records if "loss" in r]
+    losses = [r["loss"] for r in blocks]
+    check(len(blocks) >= 2 and all(np.isfinite(losses)), f"training losses {losses}")
+    for r in blocks:
+        check(all(f"{s}_{k}" in r and np.isfinite(r[f"{s}_{k}"]) for s in EVAL_SPLITS
+                  for k in ("loss", "hit_accuracy", "bce_hits", "mse_velocities", "mse_offsets")),
+              f"epoch {r['epoch']} lacks a held-out loss: {sorted(r)}")
+    evaluated = [r["epoch"] for r in blocks if not r.get("graceful_stop")]
+    for epoch in evaluated:
+        for s in EVAL_SPLITS:
+            fam = families_of(records, epoch, f"{s.capitalize()}_Set")
+            check(len(fam) == 30 and all(np.isfinite(list(fam.values()))),
+                  f"epoch {epoch}: {s}'s families {len(fam)}")
+    hp = load_hyperparameters(CLI_CONFIG)
+    _partial, save_all = eval_log_freq(hp.epochs, 10, 1, 1, 10, 20)
+    media_epochs = [e for e in evaluated if e in set(int(x) for x in save_all)]
+    check(evaluated[0] == 0 and media_epochs[:1] == [0], f"evaluated epochs {evaluated}")
+    media = {s: media_of(run_dir, records, 0, f"{s.capitalize()}_Set") for s in EVAL_SPLITS}
+    forwards = len(EVAL_SPLITS) * (2 * len(blocks) + len(media_epochs))
+    check(run["launches"]["fused_mha"] == 6 * forwards,
+          f"#1 launched {run['launches']['fused_mha']} times in training with evaluators, "
+          f"expected 6 a forward, {forwards} forwards")
+    chain = {k: v for k, v in run["launches"].items() if k in fl.SM90_KERNELS}
+    check(all(v > 0 for v in chain.values()), f"training did not run #2's bf16 chain: {chain}")
+    dumps = sorted(os.listdir(os.path.join(train_cwd, "evaluator")))
+    check(len(dumps) == len(EVAL_SPLITS) * len(media_epochs), f"evaluator dumps {dumps}")
+
+    # (c) re-score the last evaluated epoch's checkpoint
+    epoch = evaluated[-1]
+    rescore = ["--ckpt", os.path.join(train_cwd, "ck"), "--epoch", str(epoch), "--evaluator",
+               evaluator_pickle(card_cwd, "validation"), "--media", "0"]
+    card_eval = start_cli(CLI_EVALUATE, rescore + ["--run_dir", os.path.join(root, "rescore")],
+                          os.path.join(root, "rescore_card"))
+    cpu_eval = start_cli(CLI_EVALUATE, rescore + ["--run_dir", os.path.join(root, "rescore_cpu"),
+                                                  "--device", "cpu"],
+                         os.path.join(root, "rescore_cpu_cwd"), threads=4)
+    card_scored = finish_cli(card_eval, "evaluate on the card")
+    cpu_scored = finish_cli(cpu_eval, "evaluate --device cpu")
+    ident = "Validation_Set"
+    in_run = families_of(records, epoch, ident)
+    rescored = families_of(run_records(os.path.join(root, "rescore"))[1], epoch, ident)
+    rescored_cpu = families_of(run_records(os.path.join(root, "rescore_cpu"))[1], epoch, ident)
+    check(rescored.keys() == in_run.keys() == rescored_cpu.keys(), "families' keys differ")
+    rescore_err = max(abs(rescored[k] - in_run[k]) for k in in_run)
+    check(rescore_err <= 1e-6, f"evaluate's families against the run's: {rescore_err}")
+    check(card_scored["launches"]["fused_mha"] == 6, f"evaluate launched {card_scored['launches']}")
+    state_dict, config, _e, _loss = ckpt.load_params_and_config(
+        os.path.join(train_cwd, "ck", next(f for f in os.listdir(os.path.join(train_cwd, "ck"))
+                                           if f.endswith(f"_Epoch_{epoch}.ckpt"))))
+    f32 = dataclasses.replace(config, compute_dtype=torch.float32)
+    x = on_card.processed_inputs
+    card_model, cpu_model = build_model(f32, dev), build_model(f32, "cpu")
+    for m in (card_model, cpu_model):
+        m.load_state_dict(state_dict, strict=True)
+        m.eval()
+    sig_card, v, o = (a.cpu().numpy() for a in predict(
+        card_model, torch.from_numpy(x).to(dev), use_thres=False))
+    sig, v_cpu, o_cpu = (a.numpy() for a in predict(cpu_model, torch.from_numpy(x),
+                                                    use_thres=False))
+    vo_err = max(max_err(v, v_cpu), max_err(o, o_cpu))
+    check(vo_err <= 1e-4, f"f32 predictions, card against CPU: v/o differ by {vo_err}")
+    # a young run may predict no hit at 0.5: hold the hits at 0.5 and at the
+    # threshold that makes 5 % of the CPU's cells hits
+    thresholds = (0.5, float(np.quantile(sig, 0.95)))
+    for thres in thresholds:
+        check(hit_agreement(sig_card > thres, sig > thres, sig - thres + 0.5),
+              f"f32 predictions: hits at {thres} differ away from the threshold")
+
+    # (d) a scalar-only eval pass and a media pass, timed in process
+    state = create_train_state(config, "sgd", 0.1, 0, dev)
+    state.model.load_state_dict(state_dict, strict=True)
+    bundle = ModelBundle(model=state.model, config=config, state=state, device=dev)
+    sets = {s: tuple(torch.as_tensor(np.asarray(a, np.float32), device=dev)
+                     for a in (ev.processed_inputs, ev.processed_gt, ev._gt_hvos_array))
+            for s, ev in evs.items()}
+    eval_pass = _make_eval_pass(bundle.model, sets, hp.hit_loss_penalty)
+    passes = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        MHA.launches = 0
+        t0 = time.perf_counter()
+        losses_t, stacks_t = eval_pass()
+        losses_np, stacks_np = losses_t.cpu().numpy(), stacks_t.cpu().numpy()
+        passes.append({"seconds": time.perf_counter() - t0, "launches": MHA.launches})
+    check(all(p["launches"] == 6 * 2 * len(sets) for p in passes), f"eval pass {passes}")
+    check(np.isfinite(losses_np).all() and np.isfinite(stacks_np).all(), "eval pass not finite")
+    check(abs(float(stacks_np[1, 0].mean()) - in_run[f"{ident}_Hits_Accuracy_mean"]) <= 1e-6,
+          "the eval pass's validation hit accuracy differs from the run's")
+    media_passes = []
+    xlog.init(config={}, project="chip_smoke_media", run_dir=os.path.join(root, "media_pass"))
+    try:
+        for _ in range(2):
+            MHA.launches = 0
+            t0 = time.perf_counter()
+            for s, ev in evs.items():
+                ev._identifier = f"{s.capitalize()}_Set"
+                log_eval(ev, bundle, log_media=True, epoch=epoch, dump=False)
+            torch.cuda.synchronize()
+            media_passes.append({"seconds": time.perf_counter() - t0, "launches": MHA.launches})
+    finally:
+        xlog.finish()
+    check(all(p["launches"] == 6 * len(evs) for p in media_passes), f"media pass {media_passes}")
+    out = {"card": smi,
+           "process_evaluator": {
+               "rows": rows, "wall_seconds": built["wall_seconds"],
+               "module_seconds": built["seconds"],
+               "launches": {k: built["launches"][k] for k in ("device_synth", "band_energies")},
+               "cpu_validation_wall_seconds": cpu_built["wall_seconds"],
+               "mso_max_abs_err_vs_cpu": mso_err,
+               "mso_rows_held_to_the_device_route": int(moved.size)},
+           "train": {"wall_seconds": run["wall_seconds"], "module_seconds": run["seconds"],
+                     "launches": run["launches"], "epochs": [r["epoch"] for r in blocks],
+                     "evaluated": evaluated, "media_epochs": media_epochs, "losses": losses,
+                     "validation_loss": [r["validation_loss"] for r in blocks],
+                     "seqs_per_sec": [r["seqs_per_sec"] for r in blocks],
+                     "epoch_time_s": [r["epoch_time_s"] for r in blocks],
+                     "media_epoch_0": media, "evaluator_dumps": len(dumps)},
+           "rescore": {"epoch": epoch, "max_abs_err_vs_run": rescore_err,
+                       "card_wall_seconds": card_scored["wall_seconds"],
+                       "cpu_wall_seconds": cpu_scored["wall_seconds"],
+                       "launches": card_scored["launches"]["fused_mha"],
+                       "hits_accuracy_mean": {
+                           "run": in_run[f"{ident}_Hits_Accuracy_mean"],
+                           "card": rescored[f"{ident}_Hits_Accuracy_mean"],
+                           "cpu_bf16": rescored_cpu[f"{ident}_Hits_Accuracy_mean"]},
+                       "f32_vo_max_abs_err_card_vs_cpu": vo_err,
+                       "f32_hit_thresholds": thresholds,
+                       "f32_hit_share_at_0.5": float((sig > 0.5).mean())},
+           "scalar_eval_pass": passes, "media_pass": media_passes}
+    emit({"phase": "eval", **out})
     return out
 
 
@@ -3591,7 +3876,9 @@ def main() -> int:
     wide = timed_phase(phase_train_wide, dev, rng)
     xl = timed_phase(phase_train_groovexl, dev, rng)
     saved = timed_phase(phase_checkpoint, dev, rng, smi)
-    cli = timed_phase(phase_cli, dev, smi)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_cli_") as cli_root:
+        cli = timed_phase(phase_cli, dev, smi, cli_root)
+        evaluation = timed_phase(phase_eval, dev, smi, cli_root)
     emit({"phase_seconds": took})
     def mha_row(b, dtype, form="contiguous"):
         return next(t for t in kernel["timings"]
@@ -3612,10 +3899,16 @@ def main() -> int:
         "launches_hvo_input_path": hvo["launches"]["fused_mha"],
         "launches_checkpoint_serving_path": saved["serving_launches"]["fused_mha"],
         "launches_encdec_serving_path": served_encdec["launches"],
+        "launches_eval_training_path": evaluation["train"]["launches"]["fused_mha"],
+        "launches_evaluate_path": evaluation["rescore"]["launches"],
+        "launches_scalar_eval_pass": evaluation["scalar_eval_pass"][0]["launches"],
+        "launches_media_pass": evaluation["media_pass"][0]["launches"],
         "max_abs_err": kernel["max_abs_err"], **mha_at(b1),
         **{f"B{b}_{dtype}_{form}": mha_at(mha_row(b, dtype, form))
            for b, dtype in ((1, "float32"), (512, "float32"), (512, "bfloat16"), (1, "bfloat16"))
            for form in MHA_FORMS if (b, dtype, form) != (1, "float32", "contiguous")},
+        "eval_forward_B3300_bfloat16_packed_qkv": mha_at(
+            mha_row(EVAL_ROWS["train"], "bfloat16", "packed_qkv")),
         "at": "B 1, H 2, T 32, hd 128, float32, contiguous; ms: stream time; device_ms: the "
               "profiler's per launch; err over all f32 checks; library: "
               "scaled_dot_product_attention on the same views"}]
@@ -3631,7 +3924,8 @@ def main() -> int:
                 "launches_encdec_training_path": encdec["launches"],
                 "launches_checkpoint_path": saved["launches"],
                 **{f"launches_cli_train_{mode}": run["launches"]
-                   for mode, run in cli["train"].items()}}),
+                   for mode, run in cli["train"].items()},
+                "launches_eval_training_path": evaluation["train"]["launches"]}),
               ("decoder", dec_layer, fdl, DEC_TPU_KERNELS, encdec, {}))
     for which, out, mod, tpu, path, more in layers:
         for dtype in (torch.bfloat16, torch.float32):
@@ -3696,6 +3990,8 @@ def main() -> int:
         "launches_audio_augment_path": augmented["launches"]["band_energies"],
         "launches_checkpoint_path": saved["launches"]["band_energies"],
         "launches_cli_path": cli_launches(cli, "band_energies"),
+        "launches_process_evaluator_path":
+            evaluation["process_evaluator"]["launches"]["band_energies"],
         "max_abs_err": front["band_err"], **band_at(band1, "library_ms"),
         "library_device_ms": band1["library_device_ms"],
         "chunk_of_64": {**band_at(band64, "library_ms"),
@@ -3716,6 +4012,8 @@ def main() -> int:
         "launches_audio_augment_path": augmented["launches"]["device_synth"],
         "launches_checkpoint_path": saved["launches"]["device_synth"],
         "launches_cli_path": cli_launches(cli, "device_synth"),
+        "launches_process_evaluator_path":
+            evaluation["process_evaluator"]["launches"]["device_synth"],
         "max_abs_err": front["synth_err"], **synth_at(synth1),
         "chunk_of_64": synth_at(synth64), "chunk_of_256": synth_at(synth256),
         "at": f"M 1 loop, 288 cells, length {synth1['length']} (120 bpm), float32; ms: stream "

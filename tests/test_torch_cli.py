@@ -3,10 +3,17 @@
 ``.ckpt`` on the same processed symbolic dataset (f32, dropout 0, one
 full-batch SGD step an epoch) and log the same ``metrics.jsonl`` keys with
 losses within rtol 2e-4; the flags and defaults; ``--streaming host`` and
-``fused``; and the flags that raise ``NotPortedError`` (ROADMAP A5, A10)."""
+``fused``; the flags that raise ``NotPortedError`` (ROADMAP A8, A10); and
+evaluation: ``process_evaluator`` builds pickles that the JAX package's
+``init_evaluator`` reads, ``train`` with the evaluator flags logs both sets,
+``evaluate`` gives the metrics of the JAX package's ``evaluate.py`` on the
+same ``.ckpt``, and all three command lines run where ``import pandas``,
+``import tqdm``, ``import yaml`` and ``import jax`` fail, as on the machine
+with the card."""
 
 import json
 import os
+import subprocess
 import sys
 
 import numpy as np
@@ -14,7 +21,10 @@ import pytest
 import torch
 
 from transformergrooveinfilling_tpu_torch import NotPortedError
+from transformergrooveinfilling_tpu_torch import evaluate as port_evaluate
 from transformergrooveinfilling_tpu_torch import process_dataset as port_process
+from transformergrooveinfilling_tpu_torch import process_evaluator as port_process_evaluator
+from transformergrooveinfilling_tpu_torch.hvo import VOICE_NAMES
 from transformergrooveinfilling_tpu_torch.train import __main__ as port_train
 from transformergrooveinfilling_tpu_torch.train import checkpoint as ckpt
 from transformergrooveinfilling_tpu_torch.train import (
@@ -32,10 +42,11 @@ def jax_cli():
     sys.path.insert(0, REPO)
     try:
         import process_dataset
+        import process_evaluator
         import train
     finally:
         sys.path.remove(REPO)
-    return train, process_dataset
+    return train, process_dataset, process_evaluator
 
 
 @pytest.fixture(autouse=True)
@@ -121,8 +132,7 @@ def test_flags_and_defaults_are_root_train_pys(jax_cli, capsys):
 
 
 @pytest.mark.parametrize("flags, match", [
-    (["--n_model_shards", "2"], "A10"), (["--pp_stages", "2"], "A10"),
-    (["--eval_train", "True"], "A5.*--eval_train False")])
+    (["--n_model_shards", "2"], "A10"), (["--pp_stages", "2"], "A10")])
 def test_unported_flags_raise(tmp_path, monkeypatch, flags, match):
     paths, name, _ = _dataset(str(tmp_path), "InfillingClosedHH_Symbolic", 4)
     (tmp_path / "evaluator.pickle").write_bytes(b"")
@@ -194,3 +204,217 @@ def test_fused_streaming_trains_on_root_train_pys_items(random_dataset, jax_cli)
     with pytest.raises(SystemExit, match="streaming"):
         symbolic = type("D", (), {})()
         port_train._setup_streaming(args, symbolic)
+
+
+EVAL_EXPERIMENT = "InfillingClosedHH_Symbolic"
+EVAL_SPLITS = ("train", "validation")
+
+
+def _evaluators_built(root: str, n_loops: int = 24):
+    """The ``--testing`` datasets of the symbolic experiment for both splits
+    and their evaluators, each built by the port's command line under
+    ``root`` on the CPU → (paths file, experiment name, {split: pickle})."""
+    cwd = os.getcwd()
+    os.makedirs(root, exist_ok=True)
+    os.chdir(root)
+    try:
+        port_process.main(["--experiments", EVAL_EXPERIMENT, "--testing", "--n-synthetic",
+                           str(n_loops), "--splits", *EVAL_SPLITS, "--device", "cpu"])
+        name = EVAL_EXPERIMENT + "_testing"
+        data = os.path.join(root, "datasets", name, "0.1.1")
+        pickles = {s: os.path.join(root, "datasets", "preprocessed_evaluators",
+                                   "InfillingEvaluator_0.3.2", f"{name}_{s}_0.1.1_evaluator.pickle")
+                   for s in EVAL_SPLITS}
+        paths = os.path.join(root, "paths.yaml")
+        with open(paths, "w") as f:
+            f.write(f"{name}:\n  datasets:\n"
+                    + "".join(f"    {s}: {os.path.join(data, s)}\n" for s in EVAL_SPLITS)
+                    + "  evaluators:\n" + "".join(f"    {s}: {p}\n" for s, p in pickles.items()))
+        port_process_evaluator.main(["--experiments", EVAL_EXPERIMENT, "--testing", "--splits",
+                                     *EVAL_SPLITS, "--paths", paths, "--device", "cpu"])
+    finally:
+        os.chdir(cwd)
+    return paths, name, pickles
+
+
+@pytest.fixture(scope="module")
+def evaluators_built(tmp_path_factory):
+    return _evaluators_built(str(tmp_path_factory.mktemp("evaluators")))
+
+
+def test_process_evaluator_pickles_load_in_jax(evaluators_built, jax_cli, tmp_path, monkeypatch):
+    """The port's pickles load through the JAX package's ``init_evaluator``
+    as its own classes, with root ``process_evaluator.py``'s subsets, tags
+    and sample locations; the port's draws are seeded, so a second build is
+    equal."""
+    from transformergrooveinfilling_tpu.eval.evaluator import InfillingEvaluator, init_evaluator
+
+    paths, name, pickles = evaluators_built
+    monkeypatch.chdir(tmp_path)
+    for split, path in pickles.items():
+        ev = init_evaluator(path)
+        assert type(ev) is InfillingEvaluator and ev._identifier == f"{split.capitalize()}_Set"
+        ds_path = os.path.join(os.path.dirname(paths), "datasets", name, "0.1.1", split)
+        root_ev = init_evaluator(jax_cli[2].build_evaluator(
+            EVAL_EXPERIMENT, split, ds_path, n_samples_to_use=10, n_samples_to_synthesize=5,
+            n_synthetic=24))
+        assert ev._gt_tags == root_ev._gt_tags and ev._gt_hvos_array_tags == root_ev._gt_hvos_array_tags
+        assert ev.audio_sample_locations == root_ev.audio_sample_locations
+        np.testing.assert_array_equal(ev._gmd_gt_hvos_array, root_ev._gmd_gt_hvos_array)
+        again = port_process_evaluator.build_evaluator(
+            EVAL_EXPERIMENT, split, ds_path, n_samples_to_use=10, n_samples_to_synthesize=5,
+            n_synthetic=24, device="cpu")
+        np.testing.assert_array_equal(init_evaluator(again).processed_gt, ev.processed_gt)
+        assert ev.processed_inputs.shape[-1] == 27 and len(ev.processed_gt) > 0
+
+
+def test_train_cli_evaluates_both_sets(evaluators_built, tmp_path, monkeypatch):
+    """``--eval_train True --eval_validation True``: every block logs both
+    sets' held-out losses and metric families; the media epochs write the
+    stats CSV, and ``--dump_eval`` (on by default) the evaluators."""
+    paths, name, _ = evaluators_built
+    monkeypatch.chdir(tmp_path)
+    port_train.main(["--experiment", name, "--paths", paths, "--epochs", "2", "--d_model", "16",
+                     "--n_heads", "2", "--dim_feedforward", "16",
+                     "--num_encoder_decoder_layers", "1", "--wandb", "False",
+                     "--eval_train", "True", "--eval_validation", "True",
+                     "--ckpt_dir", str(tmp_path / "ck")] + CPU)
+    lines = _metrics(str(tmp_path))
+    for epoch in (0, 1):
+        keys = set().union(*(r for r in lines if r.get("epoch") == epoch))
+        for split in EVAL_SPLITS:
+            assert {f"{split}_loss", f"{split}_hit_accuracy",
+                    f"{split.capitalize()}_Set_Hits_Accuracy_mean",
+                    f"{split.capitalize()}_Set_Velocity_MSE_KICK",
+                    f"{split.capitalize()}_Set_Micro_Timing_MSE_mean",
+                    f"{split.capitalize()}_Set_stats"} <= keys, (epoch, split)
+    (run_dir,) = {os.path.dirname(p) for p in _glob(tmp_path, "metrics.jsonl")}
+    assert {f for f in os.listdir(run_dir) if f.startswith("stats_")} == {
+        f"stats_{os.path.basename(run_dir)}_Epoch_{e}.csv" for e in (0, 1)}
+    assert len(os.listdir(tmp_path / "evaluator")) == 4  # 2 sets x 2 media epochs
+
+
+def _glob(root, filename):
+    return [os.path.join(d, filename) for d, _subs, files in os.walk(root) if filename in files]
+
+
+def test_evaluate_cli_matches_jax_on_the_same_ckpt(evaluators_built, jax_cli, tmp_path,
+                                                   monkeypatch, capsys):
+    """The port's ``evaluate`` and the JAX package's on one ``.ckpt`` (written
+    by the JAX package) and one evaluator pickle: the same record keys, hit
+    accuracies within the share of cells whose JAX sigmoid lies within 1e-4
+    of 0.5, the MSE families within 1e-5, the same stats CSV columns;
+    ``--all_epochs`` scores every saved epoch into one run; ``--artifact``
+    raises ``NotPortedError``."""
+    import jax
+    import jax.numpy as jnp
+
+    from transformergrooveinfilling_tpu import evaluate as jax_evaluate
+    from transformergrooveinfilling_tpu.eval.evaluator import init_evaluator
+    from transformergrooveinfilling_tpu.models import build_model, predict
+    from transformergrooveinfilling_tpu.models.transformer import GrooveTransformerConfig
+    from transformergrooveinfilling_tpu.train.checkpoint import save_checkpoint
+    from transformergrooveinfilling_tpu.train.loop import create_train_state as jax_state
+    from transformergrooveinfilling_tpu.train.loop import make_optimizer
+
+    _paths, _name, pickles = evaluators_built
+    monkeypatch.chdir(tmp_path)
+    config = GrooveTransformerConfig(d_model=16, n_heads=2, dim_feedforward=16,
+                                     num_encoder_layers=1, embedding_size_src=27)
+    model = build_model(config)
+    state = jax_state(model, config, make_optimizer("sgd", 0.1), jax.random.PRNGKey(2))
+    save_checkpoint(str(tmp_path / "ck"), "evalrun", 3, state, 1.25, config=config)
+    argv = ["--ckpt", str(tmp_path / "ck"), "--evaluator", pickles["validation"],
+            "--media", "1", "--dump", "0"]
+    records, printed = {}, {}
+    for name, main, extra in (("jax", jax_evaluate.main, []), ("port", port_evaluate.main, CPU)):
+        assert main(argv + ["--run_dir", str(tmp_path / name)] + extra) == 0
+        printed[name] = [line for line in capsys.readouterr().out.splitlines()
+                         if "mean hit accuracy" in line]
+        (metrics,) = _glob(tmp_path / name, "metrics.jsonl")
+        with open(metrics) as f:
+            records[name] = [json.loads(line) for line in f]
+        (csv_file,) = [os.path.join(os.path.dirname(metrics), f)
+                       for f in os.listdir(os.path.dirname(metrics)) if f.startswith("stats_")]
+        with open(csv_file) as f:
+            records[name + "_csv_header"] = f.readline()
+    assert "Validation_Set: mean hit accuracy" in printed["port"][0]
+    assert "checkpoint epoch 3, train loss 1.2500" in printed["port"][0]
+    assert records["port_csv_header"] == records["jax_csv_header"]
+    got, want = records["port"], records["jax"]
+    assert [sorted(r) for r in got] == [sorted(r) for r in want]
+    ev = init_evaluator(pickles["validation"])
+    sig = np.asarray(predict(model, state.params, jnp.asarray(ev.processed_inputs),
+                             use_thres=False)[0])
+    near = (np.abs(sig - 0.5) < 1e-4).mean(axis=(0, 1))
+    g, w = got[0], want[0]
+    for key in w:
+        if "_Hits_Accuracy_" in key and not key.endswith("_mean"):
+            voice = key.rsplit("_Hits_Accuracy_", 1)[1]
+            assert abs(g[key] - w[key]) <= near[list(VOICE_NAMES).index(voice)] + 1e-6, key
+        elif "_MSE_" in key:
+            np.testing.assert_allclose(g[key], w[key], atol=1e-5, err_msg=key)
+    # --all_epochs: one run holding every saved epoch
+    save_checkpoint(str(tmp_path / "ck"), "evalrun", 5, state, 1.0, config=config)
+    assert port_evaluate.main(["--ckpt", str(tmp_path / "ck"), "--all_epochs", "--evaluator",
+                               pickles["validation"], "--run_dir", str(tmp_path / "curve")]
+                              + CPU) == 0
+    out = capsys.readouterr().out
+    assert "checkpoint epoch 3" in out and "checkpoint epoch 5" in out
+    (curve,) = _glob(tmp_path / "curve", "metrics.jsonl")
+    with open(curve) as f:
+        assert {json.loads(line).get("epoch") for line in f} >= {3, 5}
+    with pytest.raises(NotPortedError, match="A8"):
+        port_evaluate.main(["--artifact", "m.tgix", "--evaluator", pickles["validation"]])
+
+
+# a None in sys.modules makes ``import name`` raise ImportError, as an
+# absent package does
+BLOCKED_IMPORTS = """
+import sys
+for name in ("pandas", "tqdm", "yaml", "jax", "jaxlib", "flax", "optax"):
+    sys.modules[name] = None
+import runpy
+module, sys.argv = sys.argv[1], [sys.argv[1]] + sys.argv[2:]
+runpy.run_module(module, run_name="__main__", alter_sys=True)
+"""
+
+
+def test_eval_command_lines_run_without_pandas_tqdm_yaml_or_jax(tmp_path):
+    """As on the machine with the card: ``process_dataset`` →
+    ``process_evaluator`` → ``train`` (both evaluator flags on; two media
+    epochs rendered on the worker, audio included) → ``evaluate`` with media,
+    each a process in which those packages cannot be imported."""
+    def run(module, *args):
+        proc = subprocess.run(
+            [sys.executable, "-c", BLOCKED_IMPORTS, f"transformergrooveinfilling_tpu_torch.{module}",
+             *args], cwd=tmp_path, capture_output=True, text=True, timeout=300,
+            env={**os.environ, "PYTHONPATH": REPO, "OMP_NUM_THREADS": "2"})
+        assert proc.returncode == 0, proc.stderr[-4000:]
+        return proc.stdout
+
+    run("process_dataset", "--experiments", EVAL_EXPERIMENT, "--testing", "--splits",
+        *EVAL_SPLITS, *CPU)
+    name = EVAL_EXPERIMENT + "_testing"
+    data = tmp_path / "datasets" / name / "0.1.1"
+    evals = tmp_path / "datasets" / "preprocessed_evaluators" / "InfillingEvaluator_0.3.2"
+    paths = tmp_path / "paths.yaml"
+    paths.write_text(f"{name}:\n  datasets:\n"
+                     + "".join(f"    {s}: {data / s}\n" for s in EVAL_SPLITS) + "  evaluators:\n"
+                     + "".join(f"    {s}: {evals / f'{name}_{s}_0.1.1_evaluator.pickle'}\n"
+                               for s in EVAL_SPLITS))
+    run("process_evaluator", "--experiments", EVAL_EXPERIMENT, "--testing", "--paths",
+        str(paths), "--splits", *EVAL_SPLITS, *CPU)
+    out = run("train", "--experiment", name, "--paths", str(paths), "--epochs", "2",
+              "--d_model", "16", "--n_heads", "2", "--dim_feedforward", "16",
+              "--num_encoder_decoder_layers", "1", "--wandb", "False", "--dump_eval", "False",
+              "--ckpt_dir", str(tmp_path / "ck"), *CPU)
+    assert "media worker" not in out
+    (metrics,) = _glob(tmp_path / "runs", "metrics.jsonl")
+    run_dir = os.path.dirname(metrics)
+    assert len([f for f in os.listdir(run_dir) if f.startswith("stats_")]) == 2
+    assert any(f.endswith(".wav") for f in os.listdir(os.path.join(run_dir, "media")))
+    out = run("evaluate", "--ckpt", str(tmp_path / "ck"), "--evaluator",
+              str(evals / f"{name}_validation_0.1.1_evaluator.pickle"), "--run_dir",
+              str(tmp_path / "offline"), *CPU)
+    assert "Validation_Set: mean hit accuracy" in out

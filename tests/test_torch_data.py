@@ -27,7 +27,6 @@ from transformergrooveinfilling_tpu.data import samplers as JSamp
 from transformergrooveinfilling_tpu.data import subsetter as JSub
 from transformergrooveinfilling_tpu.data import synthetic as JSyn
 from transformergrooveinfilling_tpu.hvo import sequence as JSeq
-from transformergrooveinfilling_tpu_torch import NotPortedError
 from transformergrooveinfilling_tpu_torch.data import datasets as D
 from transformergrooveinfilling_tpu_torch.data import experiments as E
 from transformergrooveinfilling_tpu_torch.data import legacy_pickle as L
@@ -119,8 +118,7 @@ def test_hvo_sequence_audio_matches_jax_and_defaults_to_cuda(monkeypatch):
     single = j.mso()
     off = {int(s) for s in np.nonzero(np.abs(single - batched[0]).max(axis=1) > 1e-4)[0]}
     assert off <= tie_steps, off - tie_steps
-    with pytest.raises(NotPortedError, match="A5"):
-        p.to_html_plot()
+    assert p.to_html_plot() == j.to_html_plot()  # eval/media.py's piano roll
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         p.mso()
@@ -281,9 +279,12 @@ def test_pickles_name_the_jax_classes_and_refuse_other_jax_names(tmp_path):
     back = serialization.load_pickle(path)
     assert type(back["s"][0]) is Seq.HVOSequence and np.array_equal(back["a"], np.arange(3))
     from transformergrooveinfilling_tpu.data.datasets import GrooveMidiDatasetInfilling
+    from transformergrooveinfilling_tpu.models.transformer import GrooveTransformerConfig
 
+    # the datasets and evaluators cross too (evaluator pickles hold them)
+    assert L.legacy_load(pickle.dumps(GrooveMidiDatasetInfilling)) is D.GrooveMidiDatasetInfilling
     with pytest.raises(pickle.UnpicklingError, match="would import jax"):
-        L.legacy_load(pickle.dumps(GrooveMidiDatasetInfilling))
+        L.legacy_load(pickle.dumps(GrooveTransformerConfig))
 
 
 # ---------------------------------------------------------------- datasets

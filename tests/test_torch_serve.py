@@ -458,11 +458,16 @@ def test_import_leaves_jax_out():
         "import transformergrooveinfilling_tpu_torch.utils.yaml_subset\n"
         "import transformergrooveinfilling_tpu_torch.utils.logging\n"
         "import transformergrooveinfilling_tpu_torch.utils.serialization\n"
+        "import transformergrooveinfilling_tpu_torch.eval\n"
+        "import transformergrooveinfilling_tpu_torch.eval.features\n"
+        "import transformergrooveinfilling_tpu_torch.eval.media\n"
+        "import transformergrooveinfilling_tpu_torch.evaluate\n"
+        "import transformergrooveinfilling_tpu_torch.process_evaluator\n"
         "from transformergrooveinfilling_tpu_torch.train import load_hyperparameters\n"
         "load_hyperparameters('configs/InfillingRandom_training.yaml')\n"
         "import chip_smoke\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'jaxlib', 'flax', 'optax', 'yaml', 'msgpack', 'wandb', "
+        "('jax', 'jaxlib', 'flax', 'optax', 'yaml', 'msgpack', 'wandb', 'pandas', "
         "'transformergrooveinfilling_tpu'))\n"
         "assert not bad, bad\n"
         "assert 'triton' not in sys.modules\n"

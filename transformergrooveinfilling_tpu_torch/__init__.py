@@ -31,16 +31,23 @@ Layering (bottom → top), as far as it is ported:
                 FFN, fused dropout+LayerNorm, remat), the loss, legacy
                 ``.Model`` / flax-parameter interop
 - ``utils``     experiment logging (wandb's call surface over a local run
-                directory), the flax msgpack codec, the configs' YAML reader
+                directory), the flax msgpack codec, the configs' YAML reader,
+                pickles that cross between the packages
+- ``eval``      the metric families (on the tensors' device or in numpy),
+                rhythm features and their stats table, media (SVG piano
+                rolls, heatmaps, tabs), the style-subset evaluators
 - ``train``     the training contract (``initialize_model`` + ``train_loop``),
-                the production loop ``run_training``, checkpoints in the JAX
-                package's format, step and epoch functions, hyperparameters
+                the production loop ``run_training`` with its eval pass over
+                resident eval sets, checkpoints in the JAX package's format,
+                step and epoch functions, hyperparameters
 - ``serve``     bucketed inference server, dynamic batching, HTTP endpoint
-- ``process_dataset``, ``train`` (``python -m``)  the command lines of the
-                repository's root ``process_dataset.py`` and ``train.py``
+- ``process_dataset``, ``process_evaluator``, ``train``, ``evaluate``
+                (``python -m``)  the command lines of the repository's root
+                ``process_dataset.py``, ``process_evaluator.py``, ``train.py``
+                and the JAX package's ``evaluate.py``
 
-Not ported yet (see ROADMAP.md): evaluation, MIDI, SoundFont (``.sf2``) kits,
-the C++ mixer, multi-GPU, export, batched sweeps. Every function of the JAX
+Not ported yet (see ROADMAP.md): MIDI, SoundFont (``.sf2``) kits, the C++
+mixer, multi-GPU, export, batched sweeps. Every function of the JAX
 package that reaches a Pallas kernel has its CUDA counterpart here.
 Every entry point runs on ``"cuda"`` unless the caller names another device,
 and raises without CUDA (:func:`require_device`); none carries on on the CPU.

@@ -11,7 +11,7 @@ the numpy one; the on-device synthesizer is held against it.
 library's ``wave``, as the JAX package does.
 
 Not ported yet: SoundFont kits (a ``sf_path`` other than None raises
-``NotPortedError``), the C++ mixer, ``read_wav`` and ``synthesize_hvo_list``.
+``NotPortedError``), the C++ mixer and ``read_wav`` (ROADMAP A7).
 """
 
 from __future__ import annotations
@@ -53,6 +53,37 @@ def synthesize_hvo(hvo: np.ndarray, qpm: float = 120.0, sf_path: str | None = No
                    sr: int = 44100) -> np.ndarray:
     """Render one ``(T, 3V)`` grid to a float32 waveform."""
     return synthesize_hvo_batch(np.asarray(hvo)[None], np.asarray([qpm]), [sf_path], sr=sr)[0]
+
+
+def synthesize_hvo_list(hvos, qpms, sf_paths, sr: int = 44100) -> list:
+    """Render ``M`` loops in one batched mixer call → a list of per-item
+    waveforms, each equal to its own :func:`synthesize_hvo` call: its own
+    length (its loop at its tempo + its kit's ring-out margin) and its own
+    peak normalisation. The eval media pass renders its sampled loops here."""
+    hvos = np.asarray(hvos, dtype=np.float32)
+    m, t, _ = hvos.shape
+    if m == 0:
+        return []
+    qpms = np.asarray(qpms, dtype=np.float64)
+    if qpms.size == 1:  # a scalar qpm broadcasts, 0-d included (m == 1 too)
+        qpms = np.full((m,), qpms.item())
+    sps = steps_per_second(qpms)
+    # what synthesize_hvo_batch sizes a B = 1 buffer to for each item alone
+    unique_sfs = list(dict.fromkeys(sf_paths))
+    margin = {sf: max(int(_TAIL_SECONDS * sr),
+                      max((len(s) for s in kit_layers(_sample_table(sf, sr))[0]), default=0))
+              for sf in unique_sfs}
+    item_len = [int(np.ceil(t / sps[i] * sr)) + margin[sf_paths[i]] for i in range(m)]
+    out = synthesize_hvo_batch(hvos, qpms, sf_paths, sr=sr, fixed_length=max(item_len),
+                               normalize=False)
+    waves = []
+    for i in range(m):
+        y = out[i, :item_len[i]].copy()
+        peak = np.max(np.abs(y), initial=1e-9)
+        if peak > 1.0:
+            y /= peak
+        waves.append(y)
+    return waves
 
 
 def synthesize_hvo_batch(hvos: np.ndarray, qpms, sf_paths, sr: int = 44100,

@@ -74,7 +74,10 @@ def _mask_voices_batch(hvos: np.ndarray, voice_masks: np.ndarray):
 class GrooveMidiDatasetInfilling:
     """Audio-modality infilling dataset: input = MSO of the partial loop,
     target = the removed voices' HVO grid. A build computes on ``device``
-    (``"cuda"`` without CUDA raises); loading a directory computes nothing."""
+    (``"cuda"`` without CUDA raises); loading a directory computes nothing,
+    and a later :meth:`process_dataset` (the evaluator's) computes on
+    ``device`` then. The device is the holder's: a pickle of the dataset
+    leaves it out, and unpickling sets ``"cuda"``."""
 
     __version__ = "0.1.2"
 
@@ -82,8 +85,8 @@ class GrooveMidiDatasetInfilling:
                  device="cuda", **kwargs):
         self._rng = _random.Random(seed)
         self._np_rng = np.random.default_rng(seed)
-        if not load_dataset_path:
-            self._device = require_device(device, type(self).__name__)
+        self._device = device if load_dataset_path else require_device(device,
+                                                                        type(self).__name__)
 
         if load_dataset_path:
             parts = [p for p in load_dataset_path.split("/") if p]
@@ -273,6 +276,17 @@ class GrooveMidiDatasetInfilling:
 
         return mso_batch_from_hvo(kept_arr, soundfonts, qpms,
                                   params=MSOParams(**self.mso_params), device=self._device)
+
+    def __getstate__(self):
+        # the JAX package's dataset has no device, and its pickles cannot hold
+        # a torch.device (utils/serialization.py)
+        state = dict(self.__dict__)
+        state.pop("_device", None)
+        return state
+
+    def __setstate__(self, state):
+        self.__dict__.update(state)
+        self._device = "cuda"
 
     # -- persistence -----------------------------------------------------------
 

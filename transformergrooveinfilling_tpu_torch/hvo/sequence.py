@@ -8,8 +8,8 @@ package's records carries its state over to the other's classes
 
 ``synthesize``, ``save_audio`` and ``mso`` render through the port's
 ``audio/synth.py`` and ``ops/mso.py``; ``mso`` computes on ``device``
-(``"cuda"`` unless the caller asks for the CPU). ``to_html_plot`` raises
-``NotPortedError`` until the media module is ported (ROADMAP A5).
+(``"cuda"`` unless the caller asks for the CPU). ``to_html_plot`` renders the
+piano roll of ``eval/media.py``.
 """
 
 from __future__ import annotations
@@ -19,7 +19,6 @@ from dataclasses import asdict, dataclass, field
 
 import numpy as np
 
-from .. import NotPortedError
 from .mapping import N_VOICES, ROLAND_REDUCED_MAPPING
 
 
@@ -198,8 +197,10 @@ class HVOSequence:
                                          device=device))
 
     def to_html_plot(self, filename: str = "piano_roll", show_figure: bool = False):
-        raise NotPortedError("HVOSequence.to_html_plot: the piano roll comes from "
-                             "eval/media.py, which is not ported yet (ROADMAP A5)")
+        """Self-contained HTML piano roll (no bokeh)."""
+        from ..eval.media import piano_roll_html
+
+        return piano_roll_html(self, title=filename)
 
 
 def empty_like(seq: HVOSequence) -> HVOSequence:

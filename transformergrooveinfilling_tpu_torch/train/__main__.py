@@ -2,7 +2,7 @@
 the JAX package, on the port::
 
     python -m transformergrooveinfilling_tpu_torch.train \\
-        --config configs/InfillingRandom_training.yaml --wandb False --eval_train False
+        --config configs/InfillingRandom_training.yaml --wandb False
 
 The flags and their defaults are root ``train.py``'s, plus ``--device``
 (default ``cuda``; ``cpu`` to run there). The reference's rules hold: a
@@ -23,9 +23,15 @@ a multiple of 64 items. The 64 is the TPU synthesizer's chunk; the port's
 augment takes any count, and the trim is kept so that both command lines
 train on the same items.
 
+``--eval_train``, ``--eval_test`` and ``--eval_validation`` load the
+evaluator pickles that the paths file names for the experiment (built by
+``python -m transformergrooveinfilling_tpu_torch.process_evaluator``, or by
+root ``process_evaluator.py``), on ``--device``, and ``run_training``
+evaluates every block on them; a pickle that does not exist is skipped with
+a line on stderr, as in root ``train.py``.
+
 Not ported, each raising ``NotPortedError``: ``--n_model_shards`` or
-``--pp_stages`` above 1 (ROADMAP A10), and an evaluator flag whose pickle
-exists (A5; pass ``--eval_<split> False``). ``--fast_prng`` is accepted and
+``--pp_stages`` above 1 (ROADMAP A10). ``--fast_prng`` is accepted and
 changes nothing: it switches the JAX package's dropout PRNG, and the port's
 masks are Philox streams.
 """
@@ -196,6 +202,7 @@ def main(argv=None):
 
 def _run(args, hp_dict, paths):
     from ..data import load_processed_dataset
+    from ..eval.evaluator import init_evaluator
     from .config import HyperParams, embedding_size_src_for
     from .driver import initialize_model, run_training
 
@@ -242,15 +249,14 @@ def _run(args, hp_dict, paths):
     dataset_train = load_processed_dataset(paths[cfg.experiment]["datasets"]["train"],
                                            exp=cfg.experiment)
 
+    evaluators = {}
     ev_paths = paths[cfg.experiment].get("evaluators") or {}
     for name, flag in (("train", args.eval_train), ("test", args.eval_test),
                        ("validation", args.eval_validation)):
         path = ev_paths.get(name) if _flag(flag) else None
         if path and os.path.exists(path):
-            raise NotPortedError(
-                f"--eval_{name}: the evaluator {path} cannot be loaded, evaluation is not "
-                f"ported yet (ROADMAP A5); pass --eval_{name} False")
-        if path:
+            evaluators[name] = init_evaluator(path, device=args.device)
+        elif path:
             print(f"[train] evaluator pickle missing, skipping {name}: {path}",
                   file=sys.stderr)
 
@@ -259,7 +265,7 @@ def _run(args, hp_dict, paths):
         args, dataset_train)
     try:
         run_training(
-            hp, dataset_for_training, {},
+            hp, dataset_for_training, evaluators,
             bundle=bundle, initial_epoch=initial_epoch,
             only_final_eval=_flag(args.only_final_eval),
             dump_eval=_flag(args.dump_eval),

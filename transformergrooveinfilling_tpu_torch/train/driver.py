@@ -19,9 +19,13 @@ generations it swaps into the resident tensors every ``regen_cadence`` blocks
 (an int, or ``"auto"``: fit a generation's build time into the blocks it
 serves), a partial generation written in place; and with ``TGI_PROFILE`` set
 and a run active it writes a ``torch.profiler`` trace of the first block to
-``<run dir>/profile``. Not ported yet, each raising ``NotPortedError``:
-``run_training``'s evaluators (ROADMAP A5) and a ``plan`` (multi-device and
-multi-process streaming, A10).
+``<run dir>/profile``. With evaluators (``eval/evaluator.py``) each block ends
+in an eval pass over every evaluator's set, held resident on the device: the
+held-out losses, fetched once a block, and the metric families, fetched once
+on a scalar-only epoch; a media epoch runs ``log_eval``, its rendering on a
+worker thread (:class:`_MediaWorker`). Not ported yet, raising
+``NotPortedError``: a ``plan`` (multi-device and multi-process streaming,
+ROADMAP A10).
 """
 
 from __future__ import annotations
@@ -29,15 +33,19 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import os
+import queue
 import signal
 import threading
 import time
+import traceback
 from typing import Any
 
 import numpy as np
 import torch
 
 from .. import NotPortedError, require_device
+from ..eval.evaluator import log_eval
+from ..eval.metrics import _metric_stack_torch, format_families
 from ..models import predict as model_predict
 from ..models import torch_compat
 from ..models.transformer import GrooveTransformerConfig
@@ -51,6 +59,92 @@ from .loop import (
     TrainState, create_train_state, fetch, make_epoch_fn, make_eval_loss_fn, make_watch_fn,
 )
 from .schedule import eval_log_freq
+
+
+def _predict_metric_stacks(model, x, gt):
+    """(acc, vel_mse, offset_mse) per-voice stacks, each ``(V,)`` on the
+    device, from the model's thresholded predict in eval mode, composed with
+    the metric reduction of the tensor path (``eval/metrics.py``): one
+    composition for :func:`make_eval_metric_fn` and the driver's eval pass."""
+    was_training = model.training
+    model.eval()
+    try:
+        h, v, o = model_predict(model, x, use_thres=True, thres=0.5)
+    finally:
+        model.train(was_training)
+    return _metric_stack_torch(torch.cat([h, v, o], dim=-1).float(), gt)
+
+
+def make_eval_metric_fn(model):
+    """``(inputs, gt) → (acc, vel_mse, offset_mse)`` per-voice stacks on the
+    device: the standalone form of the driver's eval pass without the
+    losses. The JAX function takes the parameters first; the port's model
+    holds its own."""
+    return lambda inputs, gt: _predict_metric_stacks(model, inputs, gt)
+
+
+# the order of make_eval_loss_fn's metrics in the eval pass's packed losses
+_LOSS_KEYS = ("loss", "hit_accuracy", "bce_hits", "mse_velocities", "mse_offsets")
+
+
+def _make_eval_pass(model, sets: dict, hit_loss_penalty: float, encoder_only: bool = True):
+    """``sets``: name → (inputs, targets, GT grids), tensors on the model's
+    device → ``eval_pass()``: the held-out losses and the metric stacks of
+    every set, packed as ``(n_sets, 5)`` (:data:`_LOSS_KEYS`) and ``(n_sets,
+    3, V)`` device tensors, so that a block fetches each in one transfer."""
+    eval_loss_fn = make_eval_loss_fn(hit_loss_penalty, encoder_only)
+
+    def eval_pass():
+        losses, stacks = [], []
+        for hx, hy, gt in sets.values():
+            held = eval_loss_fn(model, hx, hy)
+            losses.append(torch.stack([held[k].float() for k in _LOSS_KEYS]))
+            stacks.append(torch.stack(_predict_metric_stacks(model, hx, gt)))
+        return torch.stack(losses), torch.stack(stacks)
+
+    return eval_pass
+
+
+class _MediaWorker:
+    """One background thread running eval-media closures (the host half of
+    ``log_eval``) so that they overlap the next epoch block. The queue holds 4
+    passes (backpressure); a pass's exception is held and printed with its
+    traceback at flush, so media never stops a training run."""
+
+    def __init__(self):
+        self._q: queue.Queue = queue.Queue(maxsize=4)
+        self._errors: list = []
+        self._thread = threading.Thread(target=self._loop, daemon=True,
+                                        name="eval-media-writer")
+        self._thread.start()
+
+    def _loop(self):
+        while True:
+            fn = self._q.get()
+            if fn is None:
+                self._q.task_done()
+                return
+            try:
+                fn()
+            except Exception:  # noqa: BLE001 — held, printed at flush
+                self._errors.append(traceback.format_exc())
+            finally:
+                self._q.task_done()
+
+    def submit(self, fn):
+        self._q.put(fn)
+
+    def flush(self):
+        """Block until every submitted pass has run; print held errors."""
+        self._q.join()
+        for e in self._errors:
+            print(f"media worker: a deferred media pass failed:\n{e}", flush=True)
+        self._errors.clear()
+
+    def close(self):
+        self.flush()
+        self._q.put(None)
+        self._thread.join()
 
 
 @dataclasses.dataclass
@@ -96,8 +190,9 @@ def initialize_model(params: dict, device="cuda") -> tuple[ModelBundle, Any, int
     and ``remat`` and leaves both at their default, off, but on the card the
     whole-layer kernels are why the port exists, so auto turns them on at the
     batch sizes where they were measured faster (<= 512,
-    ``resolve_fused_layer``). Every kernel switch is resolved by
-    ``params["training"]["batch_size"]`` (default 16)."""
+    ``resolve_fused_layer``), and on a CUDA device the inference forwards
+    run the attention kernel (``derive_model_config``). Every kernel switch is
+    resolved by ``params["training"]["batch_size"]`` (default 16)."""
     m = params["model"]
     t = params.get("training", {})
     device = require_device(device, "initialize_model")
@@ -121,6 +216,7 @@ def initialize_model(params: dict, device="cuda") -> tuple[ModelBundle, Any, int
                              if n_dec > 0 else False),
         remat=remat,
         remat_policy=m.get("remat_policy"),
+        use_fused_attention=device.type == "cuda",
         d_model=m["d_model"],
         n_heads=m["n_heads"],
         dim_feedforward=m["dim_feedforward"],
@@ -324,13 +420,19 @@ def run_training(hp: HyperParams, dataset, evaluators: dict | None = None, *,
     trace written to ``<run dir>/profile/trace.json``. ``_stopper``: a test
     hook.
 
-    ``log_media``, ``dump_eval`` and ``media_async`` act on the evaluators'
-    passes only. Not ported yet, each raising ``NotPortedError``:
-    ``evaluators`` (ROADMAP A5) and a ``plan`` (A10)."""
-    if evaluators:
-        raise NotPortedError("run_training(evaluators=...): held-out losses and metric "
-                             "families come from the evaluators, which are not ported yet "
-                             "(ROADMAP A5)")
+    ``evaluators``: ``{"train": ev, "test": ev, "validation": ev}`` (any of
+    them; ``eval/evaluator.py``). Their inputs, targets and GT grids stay on
+    the device for the run, and every block ends in one eval pass
+    (:func:`_make_eval_pass`): each set's held-out losses, logged as
+    ``{set}_{key}`` after one fetch, and its metric families. On a
+    scalar-only epoch the families come from that pass, fetched once and
+    logged under ``{Set}_Set``; on a media epoch (``eval_log_freq``'s
+    ``save_all``, with ``log_media``) ``log_eval`` runs instead, its media and
+    feature stats deferred to a worker thread with ``media_async`` unless
+    wandb is online, and ``dump_eval`` dumps the evaluator. A stop skips the
+    families and media of its block.
+
+    Not ported yet, raising ``NotPortedError``: a ``plan`` (ROADMAP A10)."""
     if plan is not None:
         raise NotPortedError("run_training(plan=...): meshes, multi-device training and "
                              "multi-process streaming are not ported yet (ROADMAP A10); the "
@@ -361,6 +463,13 @@ def run_training(hp: HyperParams, dataset, evaluators: dict | None = None, *,
         raise ValueError("dataset is empty")
     encoder_only = bundle.config.encoder_only
     epoch_block = max(1, min(epoch_block, hp.epochs - initial_epoch or 1))
+    evaluators = evaluators or {}
+    eval_pass = (_make_eval_pass(bundle.model, {
+        name: (_device_tensor(ev.processed_inputs, dev), _device_tensor(ev.processed_gt, dev),
+               _device_tensor(ev._gt_hvos_array, dev))
+        for name, ev in evaluators.items()}, hp.hit_loss_penalty, encoder_only)
+        if evaluators else None)
+    media_worker = None
 
     def epoch_fn_of(block: int):
         return make_epoch_fn(hp.hit_loss_penalty, hp.batch_size, n, n_epochs=block,
@@ -427,6 +536,12 @@ def run_training(hp: HyperParams, dataset, evaluators: dict | None = None, *,
                         print(f"streaming: auto regen cadence -> every {new_cadence} "
                               f"block(s) (generation {gen_s:.1f}s, block {dt:.1f}s)")
                     cadence = new_cadence
+                if evaluators:
+                    # the losses now in one fetch; the stacks stay on the device
+                    # until a scalar-only epoch reads them
+                    losses, stacks = eval_pass()
+                    for name, row in zip(evaluators, losses.cpu().tolist()):
+                        metrics.update({f"{name}_{k}": v for k, v in zip(_LOSS_KEYS, row)})
                 stop_now = stopper.requested or (
                     max_wall_s is not None and time.time() - run_start > max_wall_s)
                 if stop_now:
@@ -452,6 +567,23 @@ def run_training(hp: HyperParams, dataset, evaluators: dict | None = None, *,
                         ckpt_dir, run_id, last_ep, ckpt.snapshot_state_on_device(bundle.state),
                         metrics["loss"], bundle.config,
                         legacy=bool(export_legacy and encoder_only))
+                # a stop skips the families and media: the checkpoint above is
+                # what must land in a short grace window
+                if evaluators and not stop_now:
+                    media_now = log_media and any(e in save_all for e in range(ep - block, ep))
+                    if media_now and media_async and media_worker is None:
+                        media_worker = _MediaWorker()
+                    if not media_now:
+                        for (name, ev), (acc, mse_v, mse_o) in zip(evaluators.items(),
+                                                                   stacks.cpu().numpy()):
+                            ev._identifier = f"{name.capitalize()}_Set"
+                            xlog.log({**format_families(ev._identifier, acc, mse_v, mse_o),
+                                      "epoch": last_ep}, commit=True)
+                    else:
+                        for name, ev in evaluators.items():
+                            ev._identifier = f"{name.capitalize()}_Set"
+                            log_eval(ev, bundle, log_media=True, epoch=last_ep, dump=dump_eval,
+                                     defer=media_worker.submit if media_worker else None)
                 xlog.log({"epoch": last_ep}, commit=True)
                 if stop_now:
                     print(f"graceful stop: checkpoint saved at epoch {last_ep} ({run_id}); "
@@ -459,4 +591,6 @@ def run_training(hp: HyperParams, dataset, evaluators: dict | None = None, *,
                     break
     finally:
         ckpt.flush_async_saves()
+        if media_worker is not None:
+            media_worker.close()
     return bundle
