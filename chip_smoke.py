@@ -228,6 +228,24 @@ then non-zero):
             and with ``--device cpu``, the weights in f32 on the card against
             the CPU by ``hit_agreement``; a scalar-only eval pass and a media
             pass timed in process, with their launches.
+23. MIDI and SoundFont kits  under a temporary directory (~60 s): three
+            ``.sf2`` kits written by ``write_minimal_sf2`` (the procedural kit
+            exported; three velocity layers a voice with attenuation, a lowpass
+            and a volume envelope; a looped, panned kit with a filter sweep),
+            #6 on their packed 45-row table at M 1, 64 and 256 against its
+            plain version bit for bit, timed beside its bound and one
+            ``index_add_``, with the table's padded and true bytes; the front
+            end with a kit an item against its plain versions on the CPU (atol
+            2e-5 · max, rtol 1e-3); a MIDI archive of the synthetic corpus
+            (330 / 110 / 110 loops) through ``gmd_to_processed_tree``,
+            ``process_dataset --source <tree> --params-json`` (the kits'
+            directory as ``sf_path``) and ``train --streaming fused`` for 3
+            blocks (the flagship YAML with its epochs cut to 3), each in a
+            child process (#2, #6, #7 counted); ``infill_from_hvo(...,
+            sf_path=kit)`` on the flagship server against the CPU plain path,
+            its B = 1 p50/p99 and its first request apart; an HTTP ``"format":
+            "midi"`` reply parsed back to its hits; a body naming ``sf_path``
+            answered 400.
 
 Then one line ``{"kernels": [...]}``, the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``. Without CUDA it exits non-zero and prints
@@ -428,6 +446,32 @@ def device_us(fn, n: int = 50) -> dict:
             us, count = per_kernel.get(key, (0.0, 0.0))
             per_kernel[key] = (us + e.duration_ns() / 1e3 / n, count + 1 / n)
     return per_kernel
+
+
+def graph_ms(fn, n: int = 20, reps: int = 5) -> float:
+    """ms per call of ``fn`` replayed from one CUDA graph of ``n`` calls: the
+    device's time without the host's launches, plus the graph's gaps between
+    its kernels. It needs no profiler, which can lose every device event of a
+    call (phase 23 on an H100: 0 of 10 captured)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(n):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        graph.replay()
+    end.record()
+    end.synchronize()
+    del graph
+    return start.elapsed_time(end) / (n * reps)
 
 
 def host_us(fn, n: int = 200) -> float:
@@ -786,13 +830,17 @@ def band_audio_bound(m: int, length: int, f: int, n_fft: int = 1024, n_bands: in
 
 def synth_bound(onset, row, gain, table, lengths, length: int) -> dict:
     """What this run's events need: two operations per (live event, sample)
-    pair that lands inside the waveform."""
+    pair that lands inside the waveform, and of the table only the samples
+    they read (per row used, its longest span; a kit table's rows are padded
+    to the longest sample of all kits, and most rows go unread at M 1)."""
     live = gain != 0
-    span = (onset + lengths[row.long()]).clamp(max=length) - onset
-    pairs = int(span[live].sum())
+    rows = row[live].long()
+    span = ((onset[live] + lengths[rows]).clamp(max=length) - onset[live]).long()
+    read = torch.zeros(table.shape[0], dtype=torch.long, device=table.device).scatter_reduce(
+        0, rows, span, "amax")
     m, e = onset.shape
-    return bound(4 * (3 * m * e + table.numel() + lengths.numel() + m * length),
-                 2 * pairs, "float32")
+    return bound(4 * (3 * m * e + int(read.sum()) + lengths.numel() + m * length),
+                 2 * int(span.sum()), "float32")
 
 
 def hit_agreement(h, h_ref, sig_ref, margin=1e-4) -> bool:
@@ -1771,6 +1819,28 @@ def timed(kernel, plain, n_plain: int = 20) -> dict:
             "plain_device_launches": sum(c for _, c in dev_p.values())}
 
 
+def index_add_yardstick(dev, onset, row, gain, table, lengths, length):
+    """The synthesizer's library yardstick: ONE ``index_add_`` over indices
+    and sources prepared outside the timed call (the port never calls it),
+    checked against the kernel → (flat output, index, source, kernel's
+    waveforms)."""
+    m = onset.shape[0]
+    live = (gain != 0).nonzero()
+    o, r = onset[live[:, 0], live[:, 1]].long(), row[live[:, 0], live[:, 1]].long()
+    span = (o + lengths[r]).clamp(max=length) - o
+    event = torch.repeat_interleave(torch.arange(len(span), device=dev), span)
+    within = torch.arange(int(span.sum()), device=dev) - (span.cumsum(0) - span)[event]
+    index = (live[:, 0] * length + o)[event] + within
+    source = gain[live[:, 0], live[:, 1]][event] * table[r[event], within]
+    del event, within
+    flat = torch.zeros(m * length, device=dev)
+    flat.index_add_(0, index, source)
+    want = SYNTH(onset, row, gain, table, lengths, length)
+    lib_err = max_err(flat.view(m, length), want)
+    check(lib_err <= 1e-5, f"index_add_ yardstick differs from the kernel by {lib_err}")
+    return flat, index, source, want
+
+
 def phase_front_end_kernels(dev, rng) -> dict:
     params = mso.MSOParams()
     _, fb_t = mso._filterbank(params, dev)
@@ -1810,20 +1880,8 @@ def phase_front_end_kernels(dev, rng) -> dict:
         onset, row, gain, table, lengths, length = events_for(dev, grids[:m], 120.0, params)
         row_t = timed(lambda: SYNTH(onset, row, gain, table, lengths, length),
                       lambda: ds.synth_events_plain(onset, row, gain, table, length), 3)
-        # the library yardstick: ONE index_add_ over indices and sources
-        # prepared outside the timed call (the port never calls it)
-        live = (gain != 0).nonzero()
-        o, r = onset[live[:, 0], live[:, 1]].long(), row[live[:, 0], live[:, 1]].long()
-        span = (o + lengths[r]).clamp(max=length) - o
-        event = torch.repeat_interleave(torch.arange(len(span), device=dev), span)
-        within = torch.arange(int(span.sum()), device=dev) - (span.cumsum(0) - span)[event]
-        index = (live[:, 0] * length + o)[event] + within
-        source = gain[live[:, 0], live[:, 1]][event] * table[r[event], within]
-        flat = torch.zeros(m * length, device=dev)
-        flat.index_add_(0, index, source)
-        want = SYNTH(onset, row, gain, table, lengths, length)
-        lib_err = max_err(flat.view(m, length), want)
-        check(lib_err <= 1e-5, f"index_add_ yardstick differs from the kernel by {lib_err}")
+        flat, index, source, want = index_add_yardstick(dev, onset, row, gain, table, lengths,
+                                                        length)
         lib = [time_us(lambda: flat.index_add_(0, index, source), 10) / 1e3 for _ in range(2)]
         lib_device = device_us(lambda: flat.index_add_(0, index, source), 3)
         per_thread = ds.samples_per_thread(m, length, sms)
@@ -1847,7 +1905,7 @@ def phase_front_end_kernels(dev, rng) -> dict:
             "samples_per_thread": per_thread,
             "blocks": m * -(-length // (ds.THREADS * per_thread)),
             "dynamic_smem_bytes": ds.smem_bytes(table.shape[0], onset.shape[1])})
-        del event, within, index, source, flat, out
+        del index, source, flat, out
 
     # band_energies: the waveform entry (the front end's) against its plain
     # version on kit renders, M 1 and 64 at three tempos and the shapes phases
@@ -2069,7 +2127,8 @@ def phase_serve_hvo(dev, rng, sd, srv) -> dict:
             check(np.array_equal(np.asarray(payload["hvo"], np.float32), y),
                   f"HTTP hvo_input answer at {q} bpm differs from the direct path")
         code, payload = post(port, {"hvo_input": loops[0].tolist(), "sf_path": "kit.sf2"})
-        check(code == 501, f"sf_path answered {code}, expected 501 (not ported)")
+        check(code == 400 and '"sf_path"' in payload.get("error", ""),
+              f"a body naming sf_path answered {code} {payload}, expected 400 naming the field")
         url = f"http://127.0.0.1:{port}/infill"
         http = serve.latency_benchmark(srv, n_requests=200, url=url, hvo_input=True)
     finally:
@@ -3836,6 +3895,321 @@ def phase_eval(dev, smi: str, root: str) -> dict:
     return out
 
 
+# phase 23: MIDI in and out, and SoundFont kits through #6 and #7
+MIDI_SPLITS = {"train": 330, "test": 110, "validation": 110}  # loops of the archive
+MIDI_SEEDS = {"train": 100, "test": 200, "validation": 300}
+KIT_MS = (1, 64, 256)  # #6 on the three-kit table
+KIT_MSO_ITEMS = 32
+KIT_TRAIN_BLOCKS = 3
+KIT_LATENCY_REQUESTS = 200
+
+
+def cents(hz: float) -> int:
+    """Absolute cents of ``hz`` (8.176 Hz = 0), as SF2 generators take them."""
+    return int(round(1200 * np.log2(hz / 8.176)))
+
+
+def write_kits(directory: str, sr: int = 44100) -> list:
+    """Three ``.sf2`` kits (the tests' too, ``tests/kit_fixtures.py``): the
+    procedural kit exported; three velocity layers a voice with
+    attenuation, a lowpass and a volume envelope; a looped, panned kit with a
+    modulation-envelope filter sweep (rows of 2.24 s unrolled) → their paths."""
+    from transformergrooveinfilling_tpu_torch.audio.drumkit import default_kit
+    from transformergrooveinfilling_tpu_torch.audio.sf2 import write_minimal_sf2
+    from transformergrooveinfilling_tpu_torch.hvo.mapping import VOICE_TO_MIDI_NOTE as keys
+
+    os.makedirs(directory, exist_ok=True)
+    kit = default_kit(sr)
+    t = np.arange(int(0.05 * sr)) / sr
+    paths = [os.path.join(directory, n) for n in ("procedural.sf2", "layered.sf2", "looped.sf2")]
+    write_minimal_sf2(paths[0], {key: kit[v] for v, key in enumerate(keys)}, sr=sr)
+    write_minimal_sf2(paths[1], {key: [
+        {"sample": kit[v][: int(0.2 * sr)], "vel_lo": 0, "vel_hi": 42, "atten_cb": 120,
+         "filter_fc": cents(1500.0 + 300.0 * v)},
+        {"sample": kit[v], "vel_lo": 43, "vel_hi": 85, "atten_cb": 40, "decay_tc": -1200,
+         "sustain_cb": 300},
+        {"sample": np.clip(1.3 * kit[v], -1, 1), "vel_lo": 86, "vel_hi": 127,
+         "attack_tc": -6000}] for v, key in enumerate(keys)}, sr=sr)
+    write_minimal_sf2(paths[2], {key: [
+        {"sample": (0.6 * np.sin(2 * np.pi * 110.0 * (v + 1) * t)).astype(np.float32),
+         "loop": (200, 2000), "release_tc": -2400, "pan": -400 + 100 * v,
+         "filter_fc": cents(400.0), "mod_env_to_filter_fc": 5000, "decay_modenv_tc": -1800,
+         "sustain_modenv": 800}] for v, key in enumerate(keys)}, sr=sr)
+    return paths
+
+
+def write_gmd_archive(root: str) -> int:
+    """A GMD-style archive (``info.csv`` + one ``.mid`` a loop) of the seeded
+    synthetic corpus, written by ``hvo_to_midi`` → the number of files."""
+    import csv
+
+    from transformergrooveinfilling_tpu_torch.data.midi import hvo_to_midi
+    from transformergrooveinfilling_tpu_torch.data.synthetic import synthetic_gmd_sequences
+
+    os.makedirs(os.path.join(root, "d", "s"))
+    rows = []
+    for split, n in MIDI_SPLITS.items():
+        for i, seq in enumerate(synthetic_gmd_sequences(n, seed=MIDI_SEEDS[split])):
+            rel = f"d/s/{split}_{i}.mid"
+            hvo_to_midi(seq, os.path.join(root, rel))
+            rows.append({"drummer": "d", "session": "s", "id": f"{split}_{i}",
+                         "style": seq.metadata.style_primary, "bpm": seq.metadata.bpm,
+                         "beat_type": "beat", "time_signature": "4-4", "midi_filename": rel,
+                         "audio_filename": "", "duration": "", "split": split})
+    with open(os.path.join(root, "info.csv"), "w", newline="") as f:
+        writer = csv.DictWriter(f, fieldnames=list(rows[0]))
+        writer.writeheader()
+        writer.writerows(rows)
+    return len(rows)
+
+
+def kit_events(dev, grids: np.ndarray, kits: list, packed, params, qpm: float = 120.0):
+    """#6's inputs for ``grids`` at ``qpm``, item i through ``kits[i % 3]``
+    of the packed table: (onset, row, gain, length)."""
+    _table, base, luts, sf_index, _lengths = packed
+    m = len(grids)
+    item_kits = [kits[i % len(kits)] for i in range(m)]
+    sf_base = torch.tensor([base[k] for k in item_kits], dtype=torch.int32, device=dev)
+    sf_k = torch.tensor([sf_index[k] for k in item_kits], dtype=torch.int32, device=dev)
+    length = mso.mso_waveform_length(grids.shape[1], qpm / 15.0, params)
+    onset, row, gain = ds._extract_events(torch.from_numpy(grids).to(dev),
+                                          torch.full((m,), qpm / 15.0, device=dev), sf_base,
+                                          length, float(params.sr), luts, sf_k)
+    return onset, row, gain, length
+
+
+def smf_hits(hvo: np.ndarray, steps_per_loop: int = 32) -> set:
+    """The (step, voice) cells a grid's hits land on after ``hvo_to_midi``
+    (480 ticks a quarter, 120 a step: the tick rounded, clipped at 0) and
+    ``midi_to_hvo_sequences`` (the step rounded half to even)."""
+    v = hvo.shape[1] // 3
+    steps, voices = np.nonzero(hvo[:, :v] > 0)
+    ticks = [max(int(round((s + hvo[s, 2 * v + k]) * 120)), 0) for s, k in zip(steps, voices)]
+    return {(int(round(t / 120)), int(k)) for t, k in zip(ticks, voices)}
+
+
+def phase_midi_sf2(dev, smi: str, root: str, srv, sd) -> dict:
+    """23. MIDI in and out, and SoundFont kits on the card, all under ``root``:
+    (a) three ``.sf2`` kits written by ``write_minimal_sf2`` and read back;
+    (b) #6 on their packed table (45 rows, velocity-layer LUTs) at M 1, 64
+    and 256 against its plain version bit for bit, timed beside its bound and
+    one ``index_add_``, with the padded and the true table bytes; (c)
+    ``mso_batch_from_hvo_device`` with a kit an item against the device
+    route's plain versions on the CPU (atol 2e-5 · max, rtol 1e-3); (d) an
+    archive of the synthetic corpus (330 / 110 / 110 loops) written by
+    ``hvo_to_midi``, ``gmd_to_processed_tree``, ``process_dataset --source
+    <tree> --experiments InfillingRandom --params-json`` (``sf_path``: the
+    kits' directory) on the card, then ``train --config`` (the flagship YAML
+    with its epochs cut to 3) ``--streaming fused`` on it, each in a child
+    process (#2, #6, #7 counted); (e) ``infill_from_hvo(grid, 120,
+    sf_path=kit)`` on the flagship server against the CPU plain path (v/o
+    within 1e-4, hits by ``hit_agreement``), B = 1 p50/p99 with the kit and
+    the first request (which parses the kit and packs its table) apart; an
+    HTTP ``"format": "midi"`` reply parsed back to its hits; a body naming
+    ``sf_path`` answered 400."""
+    from transformergrooveinfilling_tpu_torch.audio import sf2
+    from transformergrooveinfilling_tpu_torch.data import load_processed_dataset
+    from transformergrooveinfilling_tpu_torch.data.midi import (
+        gmd_to_processed_tree, midi_to_hvo_sequences, parse_midi,
+    )
+
+    params, t_phase = mso.MSOParams(), time.perf_counter()
+    kits = write_kits(os.path.join(root, "kits"), params.sr)
+    reads = {}
+    for path in kits:
+        t0 = time.perf_counter()
+        kit = sf2.kit_from_sf2(path, params.sr)
+        reads[os.path.basename(path)] = {
+            "seconds": time.perf_counter() - t0, "rows": len(kit.samples),
+            "longest": max(len(x) for x in kit.samples), "file_bytes": os.path.getsize(path)}
+
+    # (b) #6 on the packed three-kit table
+    packed = ds.pack_tables(kits, params.sr, device=dev)
+    table, _base, _luts, _sf_index, lengths = packed
+    rows, s_max = table.shape
+    check(rows == 45, f"the three kits packed {rows} rows, not 45")
+    check(ds.smem_bytes(rows, 288) <= ds.MAX_SMEM,
+          f"{rows} rows and 288 events need {ds.smem_bytes(rows, 288)} B of shared memory")
+    table_bytes = {"rows": rows, "s_max": s_max, "padded_bytes": 4 * rows * s_max,
+                   "true_bytes": 4 * int(lengths.sum()),
+                   "padded_over_true": rows * s_max / int(lengths.sum())}
+    loops = Loops(256, 31).processed_outputs
+    synth_rows, worst = [], 0.0
+    for m in KIT_MS:
+        onset, row, gain, length = kit_events(dev, loops[:m], kits, packed, params)
+        got = SYNTH(onset, row, gain, table, lengths, length)
+        want = ds.synth_events_plain(onset, row, gain, table, length)
+        err = max_err(got, want)
+        worst = max(worst, err)
+        check(torch.equal(got, want), f"#6 on the kit table != plain version at M {m}: {err}")
+        check(bool(torch.isfinite(got).all()) and float(got.abs().max()) > 0.1,
+              f"#6 rendered silence at M {m}")
+        if m > 1:  # the layered kit's items pick rows by velocity
+            layered = row[1::3][gain[1::3] != 0]
+            check(len(layered.unique()) > 9, f"M {m}: the velocity layers picked "
+                                             f"{len(layered.unique())} rows")
+        kernel = lambda: SYNTH(onset, row, gain, table, lengths, length)  # noqa: E731
+        row_t = timed(kernel, lambda: ds.synth_events_plain(onset, row, gain, table, length), 3)
+        flat, index, source, _ = index_add_yardstick(dev, onset, row, gain, table, lengths,
+                                                     length)
+        library = lambda: flat.index_add_(0, index, source)  # noqa: E731
+        lib = [time_us(library, 10) / 1e3 for _ in range(2)]
+        lib_device = device_us(library, 3)
+        bnd = synth_bound(onset, row, gain, table, lengths, length)
+        in_graph = graph_ms(kernel)
+        synth_rows.append({
+            "M": m, "qpm": 120.0, "length": length, **row_t, "index_add_ms": lib,
+            "kernel_graph_ms": in_graph, "index_add_graph_ms": graph_ms(library, 5),
+            "index_add_device_ms": sum(us for us, _ in lib_device.values()) / 1e3,
+            "index_add_device_launches": sum(c for _, c in lib_device.values()),
+            "index_add_elements": int(index.numel()), "live_events": int((gain != 0).sum()),
+            **bnd, "bound_share_of_graph_time": bnd["bound_ms"] / in_graph,
+            "samples_per_thread": ds.samples_per_thread(m, length, _build.sm_count(dev))})
+        del got, want, flat, index, source
+
+    # (c) the front end with a kit an item against its plain versions on the CPU
+    grids = loops[:KIT_MSO_ITEMS]
+    item_kits = [kits[i % 3] for i in range(KIT_MSO_ITEMS)]
+    qpms = np.linspace(90.0, 150.0, KIT_MSO_ITEMS)
+    reset_front_end_launches()
+    got = ds.mso_batch_from_hvo_device(grids, item_kits, qpms, device=dev)
+    mso_launches = {"device_synth": SYNTH_K.launches, "band_energies": BAND_K.launches}
+    want = mso.mso_batch_from_hvo(grids, item_kits, qpms, device="cpu", device_synth=True,
+                                  method="fused")
+    mso_err, scale = max_err(got, want), float(np.abs(want).max())
+    check(np.allclose(got, want, atol=2e-5 * scale, rtol=1e-3),
+          f"kit MSOs on the card vs the plain versions on the CPU: {mso_err} (max {scale})")
+
+    # (d) the data path: MIDI archive → tree → process_dataset → train
+    t0 = time.perf_counter()
+    n_files = write_gmd_archive(os.path.join(root, "gmd"))
+    archive_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    counts = gmd_to_processed_tree(os.path.join(root, "gmd"), os.path.join(root, "tree"))
+    tree_s = time.perf_counter() - t0
+    check(counts == MIDI_SPLITS, f"gmd_to_processed_tree gave {counts}")
+    params_json = os.path.join(root, "params.json")
+    with open(params_json, "w") as f:
+        json.dump({"InfillingRandom": {"sf_path": os.path.join(root, "kits")}}, f)
+    cwd = os.path.join(root, "run")
+    built = run_cli(CLI_PROCESS, ["--experiments", "InfillingRandom", "--source",
+                                  os.path.join(root, "tree"), "--params-json", params_json,
+                                  "--device", dev.type], cwd, "process_dataset --source <tree>")
+    data_dir = os.path.join(cwd, "datasets", "InfillingRandom", "0.0.0")
+    sizes = {split: len(load_processed_dataset(os.path.join(data_dir, split), "InfillingRandom"))
+             for split in MIDI_SPLITS}
+    check(sizes == {k: 10 * v for k, v in MIDI_SPLITS.items()}, f"process_dataset built {sizes}")
+    train_set = load_processed_dataset(os.path.join(data_dir, "train"), "InfillingRandom")
+    check(set(train_set.soundfonts) == set(kits), f"the items drew {set(train_set.soundfonts)}")
+    check(bool(np.isfinite(train_set.processed_inputs).all()), "non-finite MSO inputs")
+    check(built["launches"]["device_synth"] > 0 and built["launches"]["band_energies"] > 0,
+          f"process_dataset launched {built['launches']}")
+    paths, config = os.path.join(root, "paths.yaml"), os.path.join(root, "config.yaml")
+    with open(paths, "w") as f:
+        f.write("InfillingRandom:\n  datasets:\n" + "".join(
+            f"    {s}: {os.path.join(data_dir, s)}\n" for s in MIDI_SPLITS))
+    with open(CLI_CONFIG) as f:
+        yaml_text = f.read()
+    check("epochs: 500\n" in yaml_text, "the flagship YAML no longer says epochs: 500")
+    with open(config, "w") as f:
+        f.write(yaml_text.replace("epochs: 500\n", f"epochs: {KIT_TRAIN_BLOCKS}\n"))
+    trained = run_cli(CLI_TRAIN, ["--config", config, "--paths", paths, "--wandb", "False",
+                                  "--eval_train", "False", "--eval_validation", "False",
+                                  "--dump_eval", "False", "--streaming", "fused",
+                                  "--device", dev.type, "--ckpt_dir", os.path.join(cwd, "ck")],
+                      cwd, "train --streaming fused on the kits")
+    _run_dir, records = run_records(cwd)
+    losses = [r["loss"] for r in records]
+    check(len(records) == KIT_TRAIN_BLOCKS and all(np.isfinite(losses))
+          and losses[-1] < losses[0], f"train on the kits: losses {losses}")
+    chain = {k: v for k, v in trained["launches"].items() if k in fl.SM90_KERNELS}
+    check(all(v > 0 for v in chain.values()) and trained["launches"]["device_synth"] > 0
+          and trained["launches"]["band_energies"] > 0,
+          f"train on the kits launched {trained['launches']}")
+
+    # (e) serving through a kit
+    kit = kits[1]
+    requests = [(loops[200], 120.0), (loops[201:207], 120.0), (loops[207:247], 96.0)]
+    sf2.kit_from_sf2.cache_clear()  # the first request reads the kit and packs its table
+    ds._table_cache.clear()
+    g1 = loops[:1]
+    t0 = time.perf_counter()
+    srv.infill_from_hvo(g1, qpm=120.0, sf_path=kit)
+    first_ms = (time.perf_counter() - t0) * 1e3
+    MHA.launches = 0  # the main path's run starts here
+    reset_front_end_launches()
+    answers = [srv.infill_from_hvo(g, qpm=q, sf_path=kit) for g, q in requests]
+    serve_launches = {"fused_mha": MHA.launches, "device_synth": SYNTH_K.launches,
+                      "band_energies": BAND_K.launches}  # ... and ends here
+    check(serve_launches == {"fused_mha": 6 * 4, "device_synth": 3, "band_energies": 3},
+          f"kit requests launched {serve_launches}")
+    cpu_model = build_model(FLAGSHIP, "cpu")
+    cpu_model.load_state_dict(sd, strict=True)
+    serve_err = 0.0
+    for (g, q), y in zip(requests, answers):
+        g3, y3 = (g[None], y[None]) if g.ndim == 2 else (g, y)
+        x_cpu = mso.mso_batch_from_hvo(g3, [kit] * len(g3), np.full((len(g3),), q), device="cpu",
+                                       device_synth=True, method="fused")
+        h_cpu, v_cpu, o_cpu = predict(cpu_model, torch.from_numpy(x_cpu))
+        sig = predict(cpu_model, torch.from_numpy(x_cpu), use_thres=False)[0].numpy()
+        err = max(max_err(y3[..., 9:18], v_cpu), max_err(y3[..., 18:], o_cpu))
+        serve_err = max(serve_err, err)
+        check(err <= 1e-4, f"kit hvo_input at {q} bpm vs the CPU plain path: {err}")
+        check(hit_agreement(y3[..., :9], h_cpu.numpy(), sig),
+              f"kit hvo_input at {q} bpm: hits differ away from the threshold")
+    latency = []
+    for _ in range(KIT_LATENCY_REQUESTS):
+        t0 = time.perf_counter()
+        srv.infill_from_hvo(g1, qpm=120.0, sf_path=kit)
+        latency.append((time.perf_counter() - t0) * 1e3)
+    httpd = srv.serve_http(port=0, block=False)
+    try:
+        port = httpd.server_address[1]
+        x = Loops(2, 33).processed_inputs
+        code, payload = post(port, {"input": x.tolist(), "format": "midi", "qpm": 100.0})
+        check(code == 200 and "midi_base64" in payload, f"format midi answered {code}")
+        import base64
+
+        blob = base64.b64decode(payload["midi_base64"])
+        first = np.asarray(payload["hvo"], np.float32)[0]
+        mid = parse_midi(blob)
+        back = midi_to_hvo_sequences(blob, drop_empty=False)
+        got_hits = {(32 * i + int(s), int(v)) for i, seq in enumerate(back)
+                    for s, v in zip(*np.nonzero(seq.hits))}
+        check(got_hits == smf_hits(first) and len(mid["notes"]) == int(first[:, :9].sum())
+              and back[0].tempos[0].qpm == 100.0,
+              f"the MIDI reply parses back to {len(got_hits)} hits, the reply has "
+              f"{len(smf_hits(first))}")
+        code, payload = post(port, {"hvo_input": loops[0].tolist(), "sf_path": kit})
+        check(code == 400 and '"sf_path"' in payload.get("error", ""),
+              f"a body naming sf_path answered {code} {payload}")
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+    out = {
+        "card": smi, "kits": reads, "table": table_bytes,
+        "synth": {"bar": "bit for bit", "max_abs_err": worst, "timings": synth_rows},
+        "mso": {"items": KIT_MSO_ITEMS, "max_abs_err_vs_cpu_plain": mso_err, "max_ref": scale,
+                "launches": mso_launches},
+        "archive": {"files": n_files, "seconds": archive_s},
+        "tree": {"counts": counts, "seconds": tree_s},
+        "process_dataset": {"items": sizes, "wall_seconds": built["wall_seconds"],
+                            "module_seconds": built["seconds"],
+                            "items_per_s": sum(sizes.values()) / built["seconds"],
+                            "launches": {k: built["launches"][k]
+                                         for k in ("device_synth", "band_energies")}},
+        "train": {"wall_seconds": trained["wall_seconds"], "module_seconds": trained["seconds"],
+                  "launches": trained["launches"], "losses": losses,
+                  "seqs_per_sec": [r["seqs_per_sec"] for r in records],
+                  "epoch_time_s": [r["epoch_time_s"] for r in records]},
+        "serve": {"launches": serve_launches, "max_abs_err_vs_cpu_plain": serve_err,
+                  "first_request_ms": first_ms, "b1_p50_ms": float(np.percentile(latency, 50)),
+                  "b1_p99_ms": float(np.percentile(latency, 99)), "kit": os.path.basename(kit)},
+        "seconds": time.perf_counter() - t_phase}
+    emit({"phase": "midi_sf2", **out})
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -3879,6 +4253,8 @@ def main() -> int:
     with tempfile.TemporaryDirectory(prefix="chip_smoke_cli_") as cli_root:
         cli = timed_phase(phase_cli, dev, smi, cli_root)
         evaluation = timed_phase(phase_eval, dev, smi, cli_root)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_midi_") as midi_root:
+        midi = timed_phase(phase_midi_sf2, dev, smi, midi_root, srv, sd)
     emit({"phase_seconds": took})
     def mha_row(b, dtype, form="contiguous"):
         return next(t for t in kernel["timings"]
@@ -3903,6 +4279,7 @@ def main() -> int:
         "launches_evaluate_path": evaluation["rescore"]["launches"],
         "launches_scalar_eval_pass": evaluation["scalar_eval_pass"][0]["launches"],
         "launches_media_pass": evaluation["media_pass"][0]["launches"],
+        "launches_kit_serving_path": midi["serve"]["launches"]["fused_mha"],
         "max_abs_err": kernel["max_abs_err"], **mha_at(b1),
         **{f"B{b}_{dtype}_{form}": mha_at(mha_row(b, dtype, form))
            for b, dtype in ((1, "float32"), (512, "float32"), (512, "bfloat16"), (1, "bfloat16"))
@@ -3925,7 +4302,8 @@ def main() -> int:
                 "launches_checkpoint_path": saved["launches"],
                 **{f"launches_cli_train_{mode}": run["launches"]
                    for mode, run in cli["train"].items()},
-                "launches_eval_training_path": evaluation["train"]["launches"]}),
+                "launches_eval_training_path": evaluation["train"]["launches"],
+                "launches_kit_training_path": midi["train"]["launches"]}),
               ("decoder", dec_layer, fdl, DEC_TPU_KERNELS, encdec, {}))
     for which, out, mod, tpu, path, more in layers:
         for dtype in (torch.bfloat16, torch.float32):
@@ -3968,15 +4346,28 @@ def main() -> int:
                           f"nn.Transformer{which.title()}Layer in {dname}"
                           + (" (TF32 off); launches: the 3 f32 training steps (each forward "
                              "launch twice a layer call there)" if f32 else "")})
+    def midi_launches(kernel):
+        return {"mso": midi["mso"]["launches"][kernel],
+                "process_dataset": midi["process_dataset"]["launches"][kernel],
+                "train_fused": midi["train"]["launches"][kernel],
+                "serve": midi["serve"]["launches"][kernel]}
+
     band1, band64 = front["band_timings"]
     frames418, frames26752 = front["band_frame_timings"]
     synth1, synth64, synth256 = front["synth_timings"]
 
     def synth_at(row):
-        return {"ms": float(np.mean(row["kernel_ms"])), "device_ms": row["kernel_device_ms"],
-                "plain_ms": float(np.mean(row["plain_ms"])), "bound_ms": row["bound_ms"],
-                "bound_by": row["bound_by"], "library_ms": float(np.mean(row["index_add_ms"])),
-                "library_device_ms": row["index_add_device_ms"]}
+        """A synthesizer row; a device time the profiler did not capture
+        (no launch seen) is None, not 0."""
+        out = {"ms": float(np.mean(row["kernel_ms"])),
+               "device_ms": row["kernel_device_ms"] if row["kernel_device_launches"] else None,
+               "plain_ms": float(np.mean(row["plain_ms"])), "bound_ms": row["bound_ms"],
+               "bound_by": row["bound_by"], "library_ms": float(np.mean(row["index_add_ms"])),
+               "library_device_ms": row["index_add_device_ms"] or None}
+        if "kernel_graph_ms" in row:
+            out.update(graph_ms=row["kernel_graph_ms"],
+                       library_graph_ms=row["index_add_graph_ms"])
+        return out
 
     def band_at(row, library_key):
         return {"N": row["N"], "ms": float(np.mean(row["kernel_ms"])),
@@ -3992,6 +4383,7 @@ def main() -> int:
         "launches_cli_path": cli_launches(cli, "band_energies"),
         "launches_process_evaluator_path":
             evaluation["process_evaluator"]["launches"]["band_energies"],
+        "launches_midi_sf2_path": midi_launches("band_energies"),
         "max_abs_err": front["band_err"], **band_at(band1, "library_ms"),
         "library_device_ms": band1["library_device_ms"],
         "chunk_of_64": {**band_at(band64, "library_ms"),
@@ -4014,12 +4406,21 @@ def main() -> int:
         "launches_cli_path": cli_launches(cli, "device_synth"),
         "launches_process_evaluator_path":
             evaluation["process_evaluator"]["launches"]["device_synth"],
-        "max_abs_err": front["synth_err"], **synth_at(synth1),
+        "launches_midi_sf2_path": midi_launches("device_synth"),
+        "max_abs_err": max(front["synth_err"], midi["synth"]["max_abs_err"]),
+        **synth_at(synth1),
         "chunk_of_64": synth_at(synth64), "chunk_of_256": synth_at(synth256),
+        "three_kit_table": {**midi["table"], **{
+            f"M {row['M']}": synth_at(row) for row in midi["synth"]["timings"]}},
         "at": f"M 1 loop, 288 cells, length {synth1['length']} (120 bpm), float32; ms: stream "
               "time; device_ms: the profiler's per launch; library: one index_add_ over "
               "indices and sources prepared outside the timed call; chunk_of_256: the audio "
-              "augment's chunk"})
+              "augment's chunk; three_kit_table: phase 23's three SoundFont kits packed "
+              "(velocity-layer LUTs, rows padded to the longest), a kit an item in turn, "
+              "120 bpm, graph_ms: per call replayed from a CUDA graph of 20 calls (device "
+              "time without host launches), library_graph_ms likewise for index_add_; "
+              "err: the largest over phases 10 and 23, both bit for bit; a device time the "
+              "profiler did not capture is null"})
     def ffn_row(rows, d, dtype):
         return next(t for t in ffn_ln["timings"]
                     if t["rows"] == rows and t["d"] == d and t["dtype"] == dtype)

@@ -13,6 +13,8 @@ import numpy as np
 import pytest
 import torch
 
+from kit_fixtures import three_kits
+
 from transformergrooveinfilling_tpu_torch.models import GrooveTransformerConfig, build_model
 from transformergrooveinfilling_tpu_torch.data import make_on_device_augment
 from transformergrooveinfilling_tpu_torch.ops import attention, band_energies, device_synth
@@ -589,6 +591,56 @@ def test_synth_kernel_at_a_length_that_is_no_multiple_of_its_tile(cuda, rng, m):
     torch.cuda.synchronize()
     assert got.shape == (m, length) and bool(got.ne(0).any())
     assert torch.equal(got, device_synth.synth_events_plain(onset, row, gain, table, length))
+
+
+@pytest.fixture(scope="module")
+def kits(tmp_path_factory):
+    """``chip_smoke.py`` phase 23's three SoundFont kits (45 rows packed)."""
+    return three_kits(str(tmp_path_factory.mktemp("kits")))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [1, 64, 256])
+def test_synth_kernel_on_the_three_kit_table_equals_plain_version_bit_for_bit(cuda, rng, kits,
+                                                                              m):
+    """Rows picked through the kits' velocity-layer LUTs, several kits in one
+    table, rows of other lengths than the procedural kit's."""
+    params = mso.MSOParams()
+    table, base, luts, sf_index, lengths = device_synth.pack_tables(kits, params.sr, device=cuda)
+    assert table.shape[0] == 45 and len(set(lengths.tolist())) > 9
+    item_kits = [kits[i] for i in rng.integers(0, 3, m)]
+    sf_base = torch.tensor([base[k] for k in item_kits], dtype=torch.int32, device=cuda)
+    sf_k = torch.tensor([sf_index[k] for k in item_kits], dtype=torch.int32, device=cuda)
+    length = mso.mso_waveform_length(32, 8.0, params)
+    onset, row, gain = device_synth._extract_events(
+        torch.from_numpy(_grids(rng, m)).to(cuda), torch.full((m,), 8.0, device=cuda), sf_base,
+        length, 44100.0, luts, sf_k)
+    before = device_synth.KERNEL.launches
+    got = device_synth.synth_events(onset, row, gain, table, lengths, length)
+    torch.cuda.synchronize()
+    assert device_synth.KERNEL.launches == before + 1
+    assert torch.equal(got, device_synth.synth_events_plain(onset, row, gain, table, length))
+    assert bool(got.ne(0).any())
+
+
+@pytest.mark.cuda
+def test_front_end_and_server_with_kits_match_the_plain_route(cuda, rng, kits):
+    hvos = _grids(rng, 20)
+    qpms = np.linspace(80.0, 160.0, 20)
+    item_kits = [kits[i % 3] for i in range(20)]
+    got = mso.mso_batch_from_hvo(hvos, item_kits, qpms, device=cuda)
+    plain = mso.mso_batch_from_hvo(hvos, item_kits, qpms, device="cpu", device_synth=True,
+                                   method="fused")
+    np.testing.assert_allclose(got, plain, atol=2e-5 * float(np.abs(plain).max()), rtol=1e-3)
+    cfg = GrooveTransformerConfig(d_model=64, n_heads=4, dim_feedforward=128,
+                                  num_encoder_layers=2)
+    sd = build_model(cfg, "cpu", torch.Generator().manual_seed(0)).state_dict()
+    card = InfillServer(sd, cfg, batch_sizes=(1, 4), device=cuda)
+    cpu = InfillServer(sd, cfg, batch_sizes=(1, 4), device="cpu")
+    answer = card.infill_from_hvo(hvos[:3], qpm=97.0, sf_path=kits[1])
+    mso_cpu = mso.mso_batch_from_hvo(hvos[:3], [kits[1]] * 3, np.full(3, 97.0), device="cpu",
+                                     device_synth=True, method="fused")
+    np.testing.assert_allclose(answer[..., 9:], cpu.infill(mso_cpu)[..., 9:], atol=1e-4)
 
 
 @pytest.mark.cuda

@@ -22,7 +22,6 @@ from transformergrooveinfilling_tpu.audio.synth import (
 from transformergrooveinfilling_tpu.data.synthetic import synthetic_gmd_sequences
 from transformergrooveinfilling_tpu.ops import device_synth as JD
 from transformergrooveinfilling_tpu.ops import mso as JM
-from transformergrooveinfilling_tpu_torch import NotPortedError
 from transformergrooveinfilling_tpu_torch.audio import drumkit, synth
 from transformergrooveinfilling_tpu_torch.ops import device_synth as D
 from transformergrooveinfilling_tpu_torch.ops import mso as M
@@ -58,14 +57,29 @@ def test_default_kit_equals_jax_bit_for_bit():
     assert drumkit.kit_layers(kit)[0] == list(ours[:2]) and kit[3] is ours[3]
 
 
-def test_velocity_gain_and_tempo_helpers_equal_jax():
+def test_velocity_gain_and_tempo_helpers_equal_jax(tmp_path):
     v = np.arange(128)
     np.testing.assert_array_equal(synth.velocity_gain(v), jax_velocity_gain(v))
     assert synth.steps_per_second(120.0) == 8.0
-    with pytest.raises(NotPortedError, match="SoundFont"):
-        synth._sample_table("kit.sf2", SR)
-    with pytest.raises(NotPortedError, match="SoundFont"):
-        D.pack_tables(["kit.sf2"], SR, device="cpu")
+    # a SoundFont kit: the velocity-layered table equals the JAX package's,
+    # and so do the packed rows and LUTs
+    from transformergrooveinfilling_tpu.audio.synth import _sample_table as jax_sample_table
+    from transformergrooveinfilling_tpu_torch.audio.sf2 import write_minimal_sf2
+
+    t = np.arange(3000) / SR
+    kit = str(tmp_path / "kit.sf2")
+    write_minimal_sf2(kit, {36: [{"sample": np.sin(2 * np.pi * 70 * t), "vel_hi": 80},
+                                 {"sample": np.sin(2 * np.pi * 50 * t), "vel_lo": 81}]})
+    ours, theirs = synth._sample_table(kit, SR), jax_sample_table(kit, SR)
+    np.testing.assert_array_equal(ours.lut, theirs.lut)
+    assert len(ours.samples) == len(theirs.samples) == 10
+    for a, b in zip(ours.samples, theirs.samples):
+        np.testing.assert_array_equal(a, b)
+    table, base, luts, _, lengths = D.pack_tables([kit], SR, device="cpu")
+    jtable, jbase, jluts, _ = JD.pack_tables([kit], SR)
+    np.testing.assert_array_equal(luts.numpy(), np.asarray(jluts))
+    np.testing.assert_array_equal(table.numpy(), np.asarray(jtable)[:, :table.shape[1]])
+    assert base == jbase == {kit: 0} and lengths.tolist() == [len(s) for s in ours.samples]
 
 
 def test_pack_tables_contents(tables):

@@ -29,7 +29,6 @@ from transformergrooveinfilling_tpu.models.transformer import (
     GrooveTransformerConfig as JaxConfig,
 )
 from transformergrooveinfilling_tpu.utils import logging as jax_xlog
-from transformergrooveinfilling_tpu_torch import NotPortedError
 from transformergrooveinfilling_tpu_torch.audio import synth as Synth
 from transformergrooveinfilling_tpu_torch.data import datasets as D
 from transformergrooveinfilling_tpu_torch.data import synthetic as Syn
@@ -181,13 +180,28 @@ def test_media_helpers_match_jax(pair):
     assert E.style_filters() == JE.style_filters()
 
 
-def test_sf2_audio_stays_empty_and_a_mixer_fault_raises(pair, monkeypatch):
-    port, _ = pair
-    port.set_pred(PerfectModel(port._gt_hvos_array))
-    sub = port.prediction_SubSet_Evaluator
-    sub.sf_dict = {k: ["kit.sf2"] * len(v) for k, v in sub.hvo_comp_dict.items()}
-    assert sub.get_logging_dict(global_features_html=False, piano_roll_html=False,
-                                velocity_heatmap_html=False)["captions_audios"] == []
+def test_sf2_audio_stays_empty_and_a_mixer_fault_raises(pair, monkeypatch, tmp_path):
+    """The media pass's audio through a SoundFont kit equals the JAX
+    package's. Unlike the JAX package, which catches every exception there
+    and leaves the audio empty, a missing kit and a fault of the mixer raise
+    (ROADMAP §C6)."""
+    port, jax_ev = pair
+    kit = _kit(tmp_path)
+    for ev in pair:
+        ev.set_pred(PerfectModel(ev._gt_hvos_array))
+    sub, j_sub = port.prediction_SubSet_Evaluator, jax_ev.prediction_SubSet_Evaluator
+    for s in (sub, j_sub):
+        s.sf_dict = {k: [kit] * len(v) for k, v in s.hvo_comp_dict.items()}
+    quiet = dict(global_features_html=False, piano_roll_html=False, velocity_heatmap_html=False)
+    got = sub.get_logging_dict(**quiet)["captions_audios"]
+    want = j_sub.get_logging_dict(**quiet)["captions_audios"]
+    assert [c for c, _ in got] == [c for c, _ in want] and got
+    for (_, a), (_, b) in zip(got, want):
+        np.testing.assert_array_equal(a, b)
+    sub.sf_dict = {k: [str(tmp_path / "missing.sf2")] * len(v)
+                   for k, v in sub.hvo_comp_dict.items()}
+    with pytest.raises(FileNotFoundError):
+        sub.get_logging_dict(**quiet)
 
     def broken(*a, **k):
         raise ValueError("mixer fault")
@@ -195,8 +209,21 @@ def test_sf2_audio_stays_empty_and_a_mixer_fault_raises(pair, monkeypatch):
     monkeypatch.setattr(Synth, "synthesize_hvo_list", broken)
     sub.sf_dict = {}
     with pytest.raises(ValueError, match="mixer fault"):
-        sub.get_logging_dict(global_features_html=False, piano_roll_html=False,
-                             velocity_heatmap_html=False)
+        sub.get_logging_dict(**quiet)
+
+
+def _kit(tmp_path):
+    """A kit whose kick has two velocity layers and whose snare is
+    attenuated; the other voices are the procedural kit's."""
+    from transformergrooveinfilling_tpu_torch.audio.sf2 import write_minimal_sf2
+
+    t = np.arange(4000) / 44100
+    path = str(tmp_path / "kit.sf2")
+    write_minimal_sf2(path, {36: [{"sample": 0.9 * np.sin(2 * np.pi * 80 * t), "vel_hi": 70},
+                                  {"sample": 0.9 * np.sin(2 * np.pi * 55 * t), "vel_lo": 71}],
+                             38: [{"sample": 0.6 * np.sin(2 * np.pi * 300 * t),
+                                   "atten_cb": 60}]})
+    return path
 
 
 def _records(run_dir):
@@ -285,13 +312,21 @@ def test_audio_evaluator_matches_jax_and_pickles_cross(tmp_path):
     # the loaded dataset computes again, on the device init_evaluator gave it
     again = from_jax.dataset.process_dataset(from_jax._gmd_gt_hvo_sequences[:2])
     assert again["processed_inputs"].shape[1:] == (32, 16)
-    with pytest.raises(NotPortedError, match="SoundFont"):
-        from_jax.dataset.sfs_list = ["kit.sf2"]
-        from_jax.dataset.process_dataset(from_jax._gmd_gt_hvo_sequences[:1])
+    # and through a SoundFont kit, as the JAX package's loaded dataset does
+    kit = _kit(tmp_path)
+    from_port.dataset.process_dataset(from_port._gmd_gt_hvo_sequences[:2])  # again's draws
+    from_jax.dataset.sfs_list = from_port.dataset.sfs_list = [kit]
+    with_kit = from_jax.dataset.process_dataset(from_jax._gmd_gt_hvo_sequences[:2])
+    jax_kit = from_port.dataset.process_dataset(from_port._gmd_gt_hvo_sequences[:2])
+    assert with_kit["soundfonts"] == jax_kit["soundfonts"] == [kit] * len(jax_kit["soundfonts"])
+    want_kit = np.asarray(jax_kit["processed_inputs"])
+    np.testing.assert_allclose(with_kit["processed_inputs"], want_kit,
+                               atol=1e-5 * np.abs(want_kit).max(), rtol=1e-4)
+    assert not np.allclose(with_kit["processed_inputs"], again["processed_inputs"])
 
 
 @pytest.mark.parametrize("qpms", [[90.0, 120.0, 151.0], [100.0]])
-def test_synthesize_hvo_list_matches_jax(rng, qpms):
+def test_synthesize_hvo_list_matches_jax(rng, qpms, tmp_path):
     m = 3
     h = (rng.random((m, 32, 9)) < 0.3).astype(np.float32)
     grids = np.concatenate([h, h * rng.random(h.shape), h * (rng.random(h.shape) - 0.5)], -1)
@@ -303,5 +338,7 @@ def test_synthesize_hvo_list_matches_jax(rng, qpms):
         np.testing.assert_allclose(y, w, atol=1e-4 * np.abs(w).max())
         np.testing.assert_array_equal(y, Synth.synthesize_hvo(g, qpm=float(q)))
     assert Synth.synthesize_hvo_list(np.zeros((0, 32, 27)), [], []) == []
-    with pytest.raises(NotPortedError, match="SoundFont"):
-        Synth.synthesize_hvo_list(grids[:1], [120.0], ["kit.sf2"])
+    kits = [_kit(tmp_path), None, _kit(tmp_path)][:m]
+    for y, w in zip(Synth.synthesize_hvo_list(grids, np.asarray(qpms), kits),
+                    JSynth.synthesize_hvo_list(grids, np.asarray(qpms), kits)):
+        np.testing.assert_array_equal(y, w)

@@ -3,6 +3,7 @@ bucketing, padding, chunking and the threshold; the HTTP contract, coalescing,
 the CLI's checkpoint loading, what is not ported yet, and the no-fallback
 rules."""
 
+import base64
 import json
 import os
 import subprocess
@@ -162,8 +163,20 @@ def test_http_contract(server, state_dict, rng):
                                 "ValueError")):
             code, payload = _post(port, None, raw=raw_body)
             assert code == 400 and payload["error"].startswith(name), raw_body
-        code, payload = _post(port, {"input": x.tolist(), "format": "midi"})
-        assert code == 501 and payload["error"].startswith("NotPortedError")
+        # "format": "midi": the first item of the reply as a standard MIDI
+        # file, the JAX package's hvo_to_midi of the reply's grid at its qpm
+        from transformergrooveinfilling_tpu.data.midi import hvo_to_midi as jax_hvo_to_midi
+        from transformergrooveinfilling_tpu.hvo.sequence import HVOSequence, Tempo
+
+        for body, qpm in (({"input": x.tolist(), "format": "midi"}, 120.0),
+                          ({"input": np.stack([x, x[::-1]]).tolist(), "format": "midi",
+                            "qpm": 97.5}, 97.5)):
+            code, payload = _post(port, body)
+            assert code == 200, payload
+            out = np.asarray(payload["hvo"], np.float32)
+            first = out if out.ndim == 2 else out[0]
+            want = jax_hvo_to_midi(HVOSequence(hvo=first, tempos=[Tempo(qpm=qpm)]))
+            assert base64.b64decode(payload["midi_base64"]) == want
         with pytest.raises(urllib.error.HTTPError) as e:
             urllib.request.urlopen(f"http://127.0.0.1:{port}/nope", timeout=30)
         assert e.value.code == 404
@@ -228,7 +241,7 @@ def test_coalescer_failure_keeps_released_results():
     assert len(errors) + len(results) == 4 and errors
 
 
-def test_hvo_input(state_dict, rng):
+def test_hvo_input(state_dict, rng, tmp_path):
     sym_cfg = GrooveTransformerConfig(dropout=0.0, **{**ARCH, "embedding_size_src": 27})
     sym_params = _jax_params(JaxConfig(dropout=0.0, **{**ARCH, "embedding_size_src": 27}), 4)
     sym = InfillServer(state_dict_from_flax_params(sym_params, sym_cfg), sym_cfg,
@@ -241,21 +254,45 @@ def test_hvo_input(state_dict, rng):
     audio = InfillServer(state_dict, CFG, batch_sizes=(1,), device="cpu")
     with pytest.raises(ValueError, match="HVO grid"):
         audio.infill_from_hvo(grid[:, :16])  # a model-space input is no grid
-    # SoundFont kits are the part of hvo_input that is not ported yet
-    with pytest.raises(NotPortedError, match="SoundFont"):
-        audio.infill_from_hvo(grid, sf_path="kit.sf2")
-    with pytest.raises(NotPortedError, match="SoundFont"):
-        sym.infill_from_hvo(grid, sf_path="kit.sf2")
+    # a SoundFont kit renders the partial grid: the model gets the MSO of
+    # the kit's render (a symbolic model takes the grid, as in JAX)
+    kit = _kit(tmp_path)
+    from transformergrooveinfilling_tpu_torch.ops.mso import mso_batch_from_hvo
+
+    x_kit = mso_batch_from_hvo(grid[None], [kit], [100.0], device="cpu")
+    np.testing.assert_array_equal(audio.infill_from_hvo(grid, qpm=100.0, sf_path=kit),
+                                  audio.infill(x_kit[0]))
+    assert not np.array_equal(x_kit, mso_batch_from_hvo(grid[None], None, [100.0],
+                                                        device="cpu"))
+    np.testing.assert_array_equal(sym.infill_from_hvo(grid, sf_path=kit), sym.infill(grid))
+    with pytest.raises(FileNotFoundError):
+        audio.infill_from_hvo(grid, sf_path=str(tmp_path / "missing.sf2"))
     httpd = audio.serve_http(port=0, block=False)
     try:
+        # over HTTP a body naming a path is refused: 400, naming the field
         code, payload = _post(httpd.server_address[1],
-                              {"hvo_input": grid.tolist(), "sf_path": "kit.sf2"})
-        assert code == 501 and "not ported" in payload["error"]
+                              {"hvo_input": grid.tolist(), "sf_path": kit})
+        assert code == 400 and payload["error"].startswith("ValueError") \
+            and '"sf_path"' in payload["error"]
         code, payload = _post(httpd.server_address[1], {"hvo_input": grid[:, :16].tolist()})
         assert code == 400 and payload["error"].startswith("ValueError")
     finally:
         httpd.shutdown()
         httpd.server_close()
+
+
+def _kit(tmp_path):
+    """A two-layer kick and a filtered snare; the other voices fall back to
+    the procedural kit."""
+    from transformergrooveinfilling_tpu_torch.audio.sf2 import write_minimal_sf2
+
+    t = np.arange(2205) / 44100
+    path = str(tmp_path / "kit.sf2")
+    write_minimal_sf2(path, {36: [{"sample": 0.8 * np.sin(2 * np.pi * 90 * t), "vel_hi": 63},
+                                  {"sample": 0.8 * np.sin(2 * np.pi * 60 * t), "vel_lo": 64}],
+                             38: [{"sample": 0.5 * np.sin(2 * np.pi * 400 * t),
+                                   "filter_fc": 8000}]})
+    return path
 
 
 def _partial_loops(n, seed):
@@ -294,6 +331,24 @@ def test_audio_hvo_input_matches_jax_server(params, state_dict, qpm):
     # the tempo matters: another qpm renders another input
     other = port_srv.infill_from_hvo(grids, qpm=qpm + 37.0)
     assert np.abs(other[..., 9:] - got[..., 9:]).max() > 1e-3
+
+
+def test_audio_hvo_input_with_a_kit_matches_jax_server(params, state_dict, tmp_path):
+    """``infill_from_hvo(sf_path=kit)`` against the JAX server on the same
+    weights and kit: v/o within 1e-4, hits equal away from the threshold."""
+    kit = _kit(tmp_path)
+    jax_srv = JaxInfillServer(params, JAX_CFG, batch_sizes=(1, 4), use_pallas=False)
+    jax_raw = JaxInfillServer(params, JAX_CFG, batch_sizes=(1, 4), use_pallas=False,
+                              use_thres=False)
+    port_srv = InfillServer(state_dict, CFG, batch_sizes=(1, 4), device="cpu")
+    grids = _partial_loops(3, seed=5)
+    want = jax_srv.infill_from_hvo(grids, qpm=111.0, sf_path=kit)
+    sig = jax_raw.infill_from_hvo(grids, qpm=111.0, sf_path=kit)[..., :9]
+    got = port_srv.infill_from_hvo(grids, qpm=111.0, sf_path=kit)
+    np.testing.assert_allclose(got[..., 9:], want[..., 9:], atol=1e-4)
+    sure = np.abs(sig - 0.5) >= 1e-4
+    np.testing.assert_array_equal(got[..., :9][sure], want[..., :9][sure])
+    assert np.abs(got[..., 9:] - port_srv.infill_from_hvo(grids, qpm=111.0)[..., 9:]).max() > 1e-3
 
 
 def test_audio_hvo_input_over_http_matches_jax_server(params, state_dict):
@@ -462,6 +517,9 @@ def test_import_leaves_jax_out():
         "import transformergrooveinfilling_tpu_torch.eval.features\n"
         "import transformergrooveinfilling_tpu_torch.eval.media\n"
         "import transformergrooveinfilling_tpu_torch.evaluate\n"
+        "import transformergrooveinfilling_tpu_torch.data.midi\n"
+        "import transformergrooveinfilling_tpu_torch.audio.sf2\n"
+        "import transformergrooveinfilling_tpu_torch.audio.native_binding\n"
         "import transformergrooveinfilling_tpu_torch.process_evaluator\n"
         "from transformergrooveinfilling_tpu_torch.train import load_hyperparameters\n"
         "load_hyperparameters('configs/InfillingRandom_training.yaml')\n"

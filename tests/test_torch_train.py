@@ -25,7 +25,6 @@ from transformergrooveinfilling_tpu.models.transformer import (
 from transformergrooveinfilling_tpu.train import config as jax_config
 from transformergrooveinfilling_tpu.train import loop as jax_loop
 from transformergrooveinfilling_tpu.train.driver import _LOSS_KEYS
-from transformergrooveinfilling_tpu_torch import NotPortedError
 from transformergrooveinfilling_tpu_torch.models import (
     GrooveTransformerConfig, build_model, calculate_loss,
 )
@@ -410,7 +409,7 @@ def test_augment_is_called_per_epoch_or_per_block(rng):
     assert not calls
 
 
-def test_audio_augment_inputs_are_the_mso_of_the_kept_grids_and_loss_falls(rng):
+def test_audio_augment_inputs_are_the_mso_of_the_kept_grids_and_loss_falls(rng, tmp_path):
     from transformergrooveinfilling_tpu.data.synthetic import synthetic_gmd_sequences
     from transformergrooveinfilling_tpu_torch.data import (
         make_on_device_augment, random_mask_on_device,
@@ -426,9 +425,20 @@ def test_audio_augment_inputs_are_the_mso_of_the_kept_grids_and_loss_falls(rng):
     assert inputs.shape == (12, 32, 16) and torch.equal(outputs, removed)
     want = mso_batch_from_hvo(kept.numpy(), None, qpms, device="cpu", device_synth=True)
     np.testing.assert_allclose(inputs.numpy(), want, atol=1e-6)  # the same code, other chunks
-    with pytest.raises(NotPortedError, match="SoundFont"):
-        make_on_device_augment(mode="audio", soundfonts=["kit.sf2"])(
-            torch.Generator(), base, base)
+    # with SoundFont kits: each item renders through the kit drawn for it
+    from transformergrooveinfilling_tpu_torch.audio.sf2 import write_minimal_sf2
+
+    t = np.arange(3000) / 44100
+    kit = str(tmp_path / "kit.sf2")
+    write_minimal_sf2(kit, {36: [{"sample": np.sin(2 * np.pi * 60 * t), "vel_hi": 60},
+                                 {"sample": np.sin(2 * np.pi * 45 * t), "vel_lo": 61}]})
+    kits = [kit, None]
+    with_kits = make_on_device_augment(qpms=qpms, mode="audio", chunk=5, soundfonts=kits)
+    k_inputs, _ = with_kits(torch.Generator().manual_seed(7), base, base)
+    drawn = [kits[i] for i in np.random.default_rng(0).integers(0, 2, 12)]  # seed=0's draw
+    want = mso_batch_from_hvo(kept.numpy(), drawn, qpms, device="cpu", device_synth=True)
+    np.testing.assert_allclose(k_inputs.numpy(), want, atol=1e-6)
+    assert kit in drawn and np.abs(k_inputs.numpy() - inputs.numpy()).max() > 1e-3
 
     cfg = GrooveTransformerConfig(d_model=32, n_heads=2, dim_feedforward=64, dropout=0.0,
                                   num_encoder_layers=2, embedding_size_src=16)

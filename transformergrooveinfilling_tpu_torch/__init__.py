@@ -21,11 +21,13 @@ Layering (bottom → top), as far as it is ported:
                 synthesizer, dropout, and the kernel build
 - ``hvo``       HVO grid operations on tensors, the drum-voice mapping, the
                 ``HVOSequence`` record
-- ``audio``     the procedural drum kit and the host (numpy) mixer
+- ``audio``     the procedural drum kit, SoundFont (``.sf2``) kits, the
+                host mixer (C++ built with g++ at first use, numpy where no
+                g++ is found), WAV files
 - ``data``      the infilling datasets and their samplers, corpus subsetting,
                 the synthetic corpus, reference-era pickles, the streaming
-                augmenter, and random masking and the synth + MSO front end as
-                a training augmentation on the device
+                augmenter, random masking and the synth + MSO front end as
+                a training augmentation on the device, and MIDI in and out
 - ``models``    the groove transformer (``nn.Module``), encoder-only and
                 encoder-decoder, with its training mode (fused layers, fused
                 FFN, fused dropout+LayerNorm, remat), the loss, legacy
@@ -46,9 +48,9 @@ Layering (bottom → top), as far as it is ported:
                 ``process_dataset.py``, ``process_evaluator.py``, ``train.py``
                 and the JAX package's ``evaluate.py``
 
-Not ported yet (see ROADMAP.md): MIDI, SoundFont (``.sf2``) kits, the C++
-mixer, multi-GPU, export, batched sweeps. Every function of the JAX
-package that reaches a Pallas kernel has its CUDA counterpart here.
+Not ported yet (see ROADMAP.md): export, batched sweeps, multi-GPU. Every
+function of the JAX package that reaches a Pallas kernel has its CUDA
+counterpart here.
 Every entry point runs on ``"cuda"`` unless the caller names another device,
 and raises without CUDA (:func:`require_device`); none carries on on the CPU.
 Importing this package has no side effects: no backend is selected and no

@@ -31,8 +31,8 @@ class DrumKit(tuple):
     - ``lut``: ``(n_voices, 128)`` int32 — MIDI velocity → index into
       ``samples`` for each voice.
 
-    Built from a SoundFont (not ported yet); plain tuples (the procedural
-    kit) are adapted on the fly by :func:`kit_layers`.
+    Built from a SoundFont (``audio/sf2.py::kit_from_sf2``); plain tuples
+    (the procedural kit) are adapted on the fly by :func:`kit_layers`.
     """
 
     def __new__(cls, per_voice, samples, lut):

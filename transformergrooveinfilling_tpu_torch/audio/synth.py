@@ -2,16 +2,16 @@
 ``audio/synth.py``.
 
 An HVO grid renders as sample accumulation: for every hit, its voice's sample
-from the procedural kit is added at the hit's onset time (grid step +
+— from the procedural kit or a SoundFont kit (``audio/sf2.py``), the row its
+MIDI velocity picks — is added at the hit's onset time (grid step +
 fractional offset, in 16th-note units at the loop's tempo), scaled by the SF2
-default modulator's velocity gain (:func:`velocity_gain`). There is one mixer,
-the numpy one; the on-device synthesizer is held against it.
+default modulator's velocity gain (:func:`velocity_gain`). A batch mixes in
+one call of the C++ mixer (``native_binding.py``); where no ``g++`` is found,
+in the numpy mixer below, which gives the same bits. Unlike the JAX package,
+nothing else falls back: a failed build or a fault inside a mix raises.
 
-:func:`write_wav` writes a 16-bit mono WAV file through the standard
-library's ``wave``, as the JAX package does.
-
-Not ported yet: SoundFont kits (a ``sf_path`` other than None raises
-``NotPortedError``), the C++ mixer and ``read_wav`` (ROADMAP A7).
+:func:`write_wav` / :func:`read_wav` write and read 16-bit mono WAV files
+through the standard library's ``wave``, as the JAX package does.
 """
 
 from __future__ import annotations
@@ -21,7 +21,7 @@ import wave
 
 import numpy as np
 
-from .. import NotPortedError
+from . import native_binding
 from .drumkit import default_kit, kit_layers
 
 _TAIL_SECONDS = 1.0  # let the last hits ring out (cymbal decay)
@@ -39,9 +39,9 @@ def velocity_gain(vel_midi):
 def _sample_table(sf_path: str | None, sr: int):
     if sf_path is None:
         return default_kit(sr)
-    raise NotPortedError(
-        f"SoundFont kits are not ported yet (sf_path={sf_path!r}); pass None "
-        "for the procedural kit")
+    from .sf2 import kit_from_sf2  # only when a .sf2 is used
+
+    return kit_from_sf2(sf_path, sr)
 
 
 def steps_per_second(qpm):
@@ -133,9 +133,14 @@ def synthesize_hvo_batch(hvos: np.ndarray, qpms, sf_paths, sr: int = 44100,
         voice_idx = (base_arr[item_k] + luts[item_k, voices, vel_midi]).astype(np.int32)
         event_offsets = np.zeros(m + 1, np.int64)
         np.cumsum(np.bincount(items, minlength=m), out=event_offsets[1:])
-        for i in range(m):
-            lo, hi = event_offsets[i], event_offsets[i + 1]
-            _mix_events_numpy(out[i], combined, voice_idx[lo:hi], onsets[lo:hi], gains[lo:hi])
+        if native_binding.native_available():
+            native_binding.mix_batch_native(out, combined, voice_idx, onsets, gains,
+                                            event_offsets)
+        else:
+            for i in range(m):
+                lo, hi = event_offsets[i], event_offsets[i + 1]
+                _mix_events_numpy(out[i], combined, voice_idx[lo:hi], onsets[lo:hi],
+                                  gains[lo:hi])
 
     # prevent clipping without changing an item's internal dynamics, per item
     if normalize:
@@ -164,3 +169,10 @@ def write_wav(filename: str, y: np.ndarray, sr: int = 44100) -> None:
         w.setframerate(sr)
         w.writeframes(pcm16.tobytes())
 
+
+def read_wav(filename: str):
+    """A 16-bit mono WAV file → ``(float32 waveform in [-1, 1], sample rate)``."""
+    with wave.open(filename, "rb") as w:
+        sr = w.getframerate()
+        raw = np.frombuffer(w.readframes(w.getnframes()), dtype="<i2")
+    return raw.astype(np.float32) / 32767.0, sr

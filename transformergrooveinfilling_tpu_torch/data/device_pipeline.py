@@ -41,8 +41,8 @@ def make_on_device_augment(qpms=None, mode: str = "symbolic", thres_range=(0.4, 
     frames, 2.4 MB per item at 120 bpm), so the base count need not be a
     multiple of it. Per-item kits are assigned once
     (seeded) and stay fixed across epochs; the masking is what regenerates.
-    Only the procedural kit is ported. Pass the epoch fn the clean grids as
-    both inputs and outputs.
+    ``soundfonts``: the ``.sf2`` kits to draw from (None: the procedural
+    kit). Pass the epoch fn the clean grids as both inputs and outputs.
     """
     if mode not in ("symbolic", "audio"):
         raise ValueError(f"unknown augment mode {mode!r}; expected 'symbolic' or 'audio'")

@@ -20,8 +20,9 @@ in the other; :func:`init_evaluator` sets the device the loaded evaluator and
 its dataset compute on.
 
 One difference from the JAX package: :meth:`HVOSeqSubsetInfillingEvaluator.get_logging_dict`
-leaves the audio empty only where a SoundFont kit is not ported
-(``NotPortedError``); a fault of the mixer raises.
+renders the audio or raises. The JAX package catches every exception there
+and leaves the audio empty; here a missing ``.sf2`` (``FileNotFoundError``), a
+malformed one (``audio.sf2.SF2Error``) or a fault of the mixer surfaces.
 """
 
 from __future__ import annotations
@@ -31,7 +32,7 @@ import os
 
 import numpy as np
 
-from .. import NotPortedError, require_device
+from .. import require_device
 from ..hvo import ROLAND_REDUCED_MAPPING
 from ..utils import logging as xlog
 from ..utils.serialization import load_pickle, save_to_pickle
@@ -266,11 +267,7 @@ class HVOSeqSubsetInfillingEvaluator:
             out["velocity_heatmaps"] = self.get_velocity_heatmaps(
                 use_specific_samples_at)
         if audio_files:
-            try:
-                out["captions_audios"] = self.get_audios(
-                    sf_paths, use_specific_samples_at)
-            except NotPortedError:  # a SoundFont kit (ROADMAP A7): no audio
-                out["captions_audios"] = []
+            out["captions_audios"] = self.get_audios(sf_paths, use_specific_samples_at)
         return out
 
     def get_wandb_logging_media(self, **kwargs):

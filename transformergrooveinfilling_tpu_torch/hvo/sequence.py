@@ -170,8 +170,8 @@ class HVOSequence:
         return not np.any(self.hvo)
 
     def synthesize(self, sf_path=None, sr: int = 44100) -> np.ndarray:
-        """Render the loop to a waveform with the host mixer (the procedural
-        kit; ``sf_path`` other than None raises ``NotPortedError``)."""
+        """Render the loop to a waveform with the host mixer, through the
+        ``.sf2`` kit at ``sf_path`` (None: the procedural kit)."""
         from ..audio.synth import synthesize_hvo
 
         return synthesize_hvo(self.hvo, qpm=self.tempos[0].qpm or 120.0, sf_path=sf_path, sr=sr)

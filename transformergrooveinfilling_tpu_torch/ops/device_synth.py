@@ -81,14 +81,20 @@ def pack_tables(sf_paths, sr: int = 44100, s_max: int | None = None, device="cud
     ``(K, V, 128)`` int32 mapping (kit, voice, MIDI velocity) → local table
     row, ``sf_index`` maps kit → its ``luts`` index, and ``lengths`` is
     ``(R,)`` int32, each row's true sample count (the kernel stops there).
-    Cached per (kits, sr, s_max, device), so callers pay the pack and the
-    transfer once. Only the procedural kit (``None``) is ported.
+    Kits are ``.sf2`` paths, or None for the procedural kit.
+
+    Cached per (the set of kits, sr, s_max, device), so callers pay the pack
+    and the transfer once. The kits are packed in one fixed order (sorted,
+    None first) whatever order the caller lists them in: a row index is only
+    an address, and a pipeline that draws a kit per item would otherwise miss
+    the cache on almost every call, and pack, upload and keep a table each
+    time (the JAX package keys on the kits in first-seen order).
     """
     from ..audio.drumkit import kit_layers
     from ..audio.synth import _sample_table
 
     device = require_device(device, "pack_tables")
-    unique = list(dict.fromkeys(sf_paths))
+    unique = sorted(set(sf_paths), key=lambda sf: (sf is not None, str(sf)))
     key = (tuple(unique), sr, s_max, device)
     if key in _table_cache:
         return _table_cache[key]

@@ -296,9 +296,9 @@ def mso_batch_from_hvo(hvos: np.ndarray, soundfonts, qpms, params: MSOParams = M
       chunk on the host, and the DSP runs on ``device``.
 
     ``chunk_size`` (default ``ops.device_synth.DEFAULT_CHUNK``) bounds the
-    memory of one call. ``device="cuda"`` without CUDA raises. Only the
-    procedural kit is ported: a soundfont other than None raises
-    ``NotPortedError``.
+    memory of one call. ``device="cuda"`` without CUDA raises.
+    ``soundfonts``: one ``.sf2`` path (or None, the procedural kit) per item,
+    or None for the procedural kit throughout.
     """
     from .device_synth import DEFAULT_CHUNK, mso_batch_from_hvo_device
 

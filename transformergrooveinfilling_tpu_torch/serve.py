@@ -22,21 +22,27 @@ Counterpart of ``transformergrooveinfilling_tpu/serve.py``. Design:
   (``ops/device_synth.py``, ``ops/band_energies.py``), never leaving the card
   between the grid and the model's input.
 
+- ``infill_from_hvo(..., sf_path=kit)`` renders through a SoundFont kit: its
+  table is packed once per set of kits and kept on the device, and each
+  request's events pick their rows through the kit's velocity layers.
+
 ``InfillServer.serve_http`` exposes a stdlib ThreadingHTTPServer JSON endpoint
 (POST /infill with {"input": [[...]]} or {"hvo_input": [[...]], "qpm": 120};
-GET /healthz).
+GET /healthz). ``"format": "midi"`` adds the first item of the reply as a
+standard MIDI file (``midi_base64``), as the JAX server does. A body naming an
+``sf_path`` is answered 400: the server does not open a path a client names
+(the JAX server ignores the field).
 
 The CLI serves a native ``.ckpt`` (either package's; the architecture comes
 from the file), a directory (newest epoch wins, a ``.Model`` as fallback) or a
 reference ``.Model`` (with the architecture flags).
 
-Not ported yet, each raising :class:`NotPortedError`: a SoundFont
-(``sf_path``) for ``hvo_input``, ``"format": "midi"`` replies and
-``--artifact`` export files.
+Not ported yet, raising :class:`NotPortedError`: ``--artifact`` export files.
 """
 
 from __future__ import annotations
 
+import base64
 import dataclasses
 import json
 import os
@@ -223,12 +229,14 @@ class InfillServer:
         self.stats.record((time.perf_counter() - t0) * 1000.0)
         return out[0] if single else out
 
-    def _front_end(self, grids: np.ndarray, qpm: float) -> np.ndarray:
+    def _front_end(self, grids: np.ndarray, qpm: float, sf_path=None) -> np.ndarray:
         """``(N, T, 27)`` partial grids → ``(N, T, 16)`` MSO of their renders
-        with the procedural kit at ``qpm``, on the server's device."""
+        at ``qpm`` with the kit at ``sf_path`` (None: the procedural kit), on
+        the server's device."""
         from .ops.mso import MSOParams, mso_batch_from_hvo
 
-        return mso_batch_from_hvo(grids, None, np.full((grids.shape[0],), qpm),
+        n = grids.shape[0]
+        return mso_batch_from_hvo(grids, [sf_path] * n, np.full((n,), qpm),
                                   params=MSOParams(), device=self.device)
 
     def infill_from_hvo(self, partial_hvo, qpm: float = 120.0, sf_path=None) -> np.ndarray:
@@ -236,23 +244,19 @@ class InfillServer:
 
         Symbolic models take the grid as their input. Audio-modality models
         (16-wide input) get the full direct-audio front end on the server's
-        device: synthesize the partial loop at ``qpm`` and compute its MSO,
-        then infill. ``sf_path`` other than None raises ``NotPortedError``
-        (only the procedural kit is ported)."""
+        device: synthesize the partial loop at ``qpm`` through the ``.sf2``
+        kit at ``sf_path`` (None: the procedural kit) and compute its MSO,
+        then infill."""
         x = np.asarray(partial_hvo, np.float32)
         width = self.config.embedding_size_tgt
         if x.ndim not in (2, 3) or x.shape[-1] != width:
             raise ValueError(
                 f"hvo_input must be a (T, {width}) or (N, T, {width}) HVO grid; "
                 f"got {x.shape}")
-        if sf_path is not None:
-            raise NotPortedError(
-                f"SoundFont kits are not ported yet (sf_path={sf_path!r}); "
-                "hvo_input renders with the procedural kit")
         if self.config.embedding_size_src == width:
             return self.infill(x)  # symbolic model: the grid is the input
         single = x.ndim == 2
-        out = self.infill(self._front_end(x[None] if single else x, float(qpm)))
+        out = self.infill(self._front_end(x[None] if single else x, float(qpm), sf_path))
         return out[0] if single else out
 
     # -- HTTP endpoint ---------------------------------------------------------
@@ -280,28 +284,40 @@ class InfillServer:
                     return self._not_found()
                 try:
                     payload = self._read_json()
-                    if payload.get("format") == "midi":
-                        raise NotPortedError(
-                            '"format": "midi" replies are not ported yet')
+                    if "sf_path" in payload:
+                        raise ValueError(
+                            '"sf_path" is not accepted over HTTP: the server opens no '
+                            'path a client names (hvo_input renders with the procedural kit)')
                     if "hvo_input" in payload:
                         # partial HVO grid: the server runs the synth + MSO
                         # front end for audio models
                         out = server_self.infill_from_hvo(
-                            payload["hvo_input"], qpm=float(payload.get("qpm", 120.0)),
-                            sf_path=payload.get("sf_path"))
+                            payload["hvo_input"], qpm=float(payload.get("qpm", 120.0)))
                     elif "input" in payload:
                         out = server_self.infill(payload["input"])
                     else:
                         raise ValueError(
                             'request body needs an "input" (model-space) or '
                             '"hvo_input" (partial HVO grid) field')
-                    self._reply(200, {"hvo": out.tolist()})
-                except NotPortedError as e:
-                    self._reply(501, {"error": f"NotPortedError: {e}"})
+                    reply = {"hvo": out.tolist()}
+                    if payload.get("format") == "midi":
+                        reply["midi_base64"] = midi_reply(
+                            out, float(payload.get("qpm", 120.0)))
+                    self._reply(200, reply)
                 except Exception as e:  # bad input → 400 with a named reason
                     self._reply(400, {"error": f"{type(e).__name__}: {e}"})
 
         return _start_http(Handler, host, port, block)
+
+
+def midi_reply(out: np.ndarray, qpm: float) -> str:
+    """The ``"format": "midi"`` field: the first item of a reply (``(T, 27)``
+    or ``(N, T, 27)``) as a base64 standard MIDI file at ``qpm``."""
+    from .data.midi import hvo_to_midi
+    from .hvo.sequence import HVOSequence, Tempo
+
+    seq = HVOSequence(hvo=out if out.ndim == 2 else out[0], tempos=[Tempo(qpm=qpm)])
+    return base64.b64encode(hvo_to_midi(seq)).decode()
 
 
 class _JSONHandler(BaseHTTPRequestHandler):
