@@ -58,7 +58,11 @@ then non-zero):
             bound from its own inputs, weights and outputs; and
             ``nn.TransformerEncoderLayer`` with the same weights, forward and
             autograd backward, in f32 with TF32 off (the library call for the
-            whole layer; the port never calls it).
+            whole layer; the port never calls it). The f32 chain's drift at ff
+            512, 1,024, 2,048, 4,096 and 8,192 (d 256, B 32, 8 seeded inputs
+            each): every launch within 1e-5 · max of its plain version
+            wherever the gate admits the ff (``ops/fused_layer.py::
+            F32_MAX_FF``).
 9. train    ``initialize_model`` + ``train_loop`` with the flagship YAML's
             hyperparameters (written here: the card's machine has no pyyaml;
             a CPU test holds them to the file) on seeded synthetic loops:
@@ -110,7 +114,7 @@ then non-zero):
             reruns bit-identical; forward and backward timed against the
             twin; in each dtype every launch held to its plain version and
             timed, the layer's own bound and ``nn.TransformerDecoderLayer``,
-            as phase 8.
+            and the f32 chain's drift over ff, as phase 8.
 15. train encoder-decoder  the 6 + 6 layer model at the flagship width
             (scripts/bench_encdec.py's) through ``initialize_model`` +
             ``train_loop(encoder_only=0)``: every step launches each encoder
@@ -246,6 +250,18 @@ then non-zero):
             its B = 1 p50/p99 and its first request apart; an HTTP ``"format":
             "midi"`` reply parsed back to its hits; a body naming ``sf_path``
             answered 400.
+24. serving artifacts  (``export.py``) the flagship server's weights and
+            the 6 + 6 model exported (buckets 1/8/32, traced on the CPU) and
+            loaded on the card: each within 1e-5 of ``InfillServer`` and 1e-4
+            of the CPU plain path (hits by ``hit_agreement``), #1 launched 6
+            (18) times a chunk by the programs' ``tgi::fused_mha``;
+            ``InfillServer.from_exported`` answering a B = 1 ``hvo_input``
+            through #6, #7 and #1; in child processes, ``serve --artifact``
+            over HTTP, ``evaluate --artifact`` of phase 22's checkpoint (its
+            families equal to ``evaluate --ckpt``'s within 1e-6) and ``python
+            -m transformergrooveinfilling_tpu_torch.tutorial`` on the card;
+            export and load seconds, artifact and ``params.msgpack`` bytes,
+            B = 1 p50/p99 of the program beside the server.
 
 Then one line ``{"kernels": [...]}``, the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``. Without CUDA it exits non-zero and prints
@@ -1230,28 +1246,48 @@ def layer_device_times(kf, kb, pf, pb) -> dict:
             "plain_bwd_device_us": sum(us for us, _ in device_us(pb, n=3).values())}
 
 
-def chain_drift(dev, rng, ff: int, b: int = 32) -> dict:
-    """The f32 encoder chain at ff ``ff`` (the flagship layer otherwise), rate
-    0: each launch's outputs against its plain version on the same inputs,
-    max|err| / max|ref| by launch. Measured only: the products that reduce
-    over ff (W2 with LN2, dh·W1 with LN1's backward) run in 64 × 256 tiles
-    without promotion, so their drift grows with ff (``gemm_sm90.cuh``)."""
-    h_, t = LAYER_SHAPE["h"], LAYER_SHAPE["t"]
-    args, dy = layer_case(dev, rng, b, torch.float32, ff=ff)
+def chain_drift(dev, rng, ff: int, decoder: bool = False, b: int = 32, draws: int = 8) -> dict:
+    """The f32 encoder (or decoder) chain at ff ``ff`` (the flagship layer
+    otherwise), rate 0, on ``draws`` seeded inputs: each launch's outputs
+    against its plain version on the same inputs, the worst max|err| /
+    max|ref| by launch. The products that reduce over ff (W2 with the last
+    LN, dh·W1 with an LN's backward) run in 64 × 256 tiles without promotion,
+    so their drift grows with ff (``gemm_sm90.cuh``). The chains are called
+    below their gate (``forward_sm90`` / ``backward_sm90``), so a width the
+    gate refuses is measured too; a launch past ``SM90_BAR`` fails unless the
+    gate refuses that ff (``F32_MAX_FF``, ROADMAP §C11)."""
+    h_, t, d = LAYER_SHAPE["h"], LAYER_SHAPE["t"], LAYER_SHAPE["d"]
     seed = torch.tensor([11], dtype=torch.int32, device=dev)
-    with layer_sm90.recording() as record:
-        res = fl.layer_forward(*args, seed, 0.0, h_, t)
-        fl.layer_backward(dy, *layer_backward_args(args, res, seed), 0.0, h_, t)
-    names = {id(k): name for name, k in fl.SM90_F32_KERNELS.items()}
+    mod = fdl if decoder else fl
+    case, backward_args = ((decoder_case, decoder_backward_args) if decoder
+                           else (layer_case, layer_backward_args))
+    names = {id(k): name for name, k in mod.SM90_F32_KERNELS.items()}
     drift = {}
-    for launch in record:
-        want = launch.reference(*launch.args, **launch.kwargs)
-        want = want if isinstance(want, tuple) else (want,)
-        drift[names[id(launch.kernel)]] = max(
-            max_err(got, ref) / max(float(ref.float().abs().max()), 1e-30)
-            for got, ref in zip(launch.outputs, want, strict=True))
+    for _ in range(draws):
+        args, dy = case(dev, rng, b, torch.float32, ff=ff)
+        with layer_sm90.recording() as record:
+            res = mod.forward_sm90(*args, seed, 0.0, h_, t)
+            mod.backward_sm90(dy, *backward_args(args, res, seed), 0.0, h_, t)
+        for launch in record:
+            want = launch.reference(*launch.args, **launch.kwargs)
+            want = want if isinstance(want, tuple) else (want,)
+            name = names[id(launch.kernel)]
+            drift[name] = max(drift.get(name, 0.0), *(
+                max_err(got, ref) / max(float(ref.float().abs().max()), 1e-30)
+                for got, ref in zip(launch.outputs, want, strict=True)))
+    gated = fl.supports_fused_layer(d, h_, ff, t, torch.float32) if not decoder \
+        else fdl.supports_fused_decoder_layer(d, h_, ff, t, torch.float32)
+    worst = max(drift.values())
     check(all(np.isfinite(v) for v in drift.values()), f"chain drift at ff {ff}: {drift}")
-    return {"ff": ff, "B": b, "max_abs_err_of_max_by_launch": drift}
+    check(worst <= SM90_BAR[torch.float32] or not gated,
+          f"the f32 {'decoder' if decoder else 'encoder'} chain at ff {ff} drifts {worst} of "
+          f"max, past {SM90_BAR[torch.float32]}, and its gate admits ff {ff}")
+    return {"ff": ff, "B": b, "draws": draws, "gate_admits": gated, "worst": worst,
+            "max_abs_err_of_max_by_launch": drift}
+
+
+# C11: the f32 chains' drift over ff, at the flagship's ff, the lm config's and above
+DRIFT_FFS = (LAYER_SHAPE["ff"], 1024, 2048, 4096, 8192)
 
 
 # the timed cases of phases 8 and 14: both dtypes at the YAML's batch and bench.py's
@@ -1344,14 +1380,14 @@ def phase_layer(dev, rng) -> dict:
           "bars": {"float32": "1e-4 abs (y, residuals); 1e-4 * max|grad| (grads)",
                    "bfloat16": "2e-2 * max|ref|"},
           "kink_survey": kink_survey(dev, decoder=False), "timings": timings,
-          "f32_chain_drift": [chain_drift(dev, rng, ff) for ff in (LAYER_SHAPE["ff"], 2048)]})
+          "f32_chain_drift": [chain_drift(dev, rng, ff) for ff in DRIFT_FFS]})
     return {"max_abs_err": worst, "timings": timings}
 
 
-def decoder_case(dev, rng, b: int, dtype):
-    """Flagship-shaped decoder-layer inputs from ``rng``: (y, mem and the 20
-    parameters in ``fdl.ARG_NAMES`` order, dy)."""
-    d, ff = LAYER_SHAPE["d"], LAYER_SHAPE["ff"]
+def decoder_case(dev, rng, b: int, dtype, ff: int = LAYER_SHAPE["ff"]):
+    """Flagship-shaped decoder-layer inputs from ``rng`` (ff as given): (y, mem
+    and the 20 parameters in ``fdl.ARG_NAMES`` order, dy)."""
+    d = LAYER_SHAPE["d"]
     m = b * LAYER_SHAPE["t"]
 
     def n(*shape, scale=1.0, offset=0.0):
@@ -1463,7 +1499,8 @@ def phase_decoder_layer(dev, rng) -> dict:
     emit({"phase": "decoder_layer", "shape": LAYER_SHAPE, "checks": checks,
           "bars": {"float32": "1e-4 abs (y, residuals); 1e-4 * max|grad| (grads)",
                    "bfloat16": "2e-2 * max|ref|"},
-          "kink_survey": kink_survey(dev, decoder=True), "timings": timings})
+          "kink_survey": kink_survey(dev, decoder=True), "timings": timings,
+          "f32_chain_drift": [chain_drift(dev, rng, ff, decoder=True) for ff in DRIFT_FFS]})
     return {"max_abs_err": worst, "timings": timings}
 
 
@@ -3892,7 +3929,10 @@ def phase_eval(dev, smi: str, root: str) -> dict:
                        "f32_hit_share_at_0.5": float((sig > 0.5).mean())},
            "scalar_eval_pass": passes, "media_pass": media_passes}
     emit({"phase": "eval", **out})
-    return out
+    ckpt_path = os.path.join(train_cwd, "ck", next(
+        f for f in os.listdir(os.path.join(train_cwd, "ck")) if f.endswith(f"_Epoch_{epoch}.ckpt")))
+    return {**out, "rescored_families": rescored,
+            "paths": {"ckpt": ckpt_path, "evaluator": evaluator_pickle(card_cwd, "validation")}}
 
 
 # phase 23: MIDI in and out, and SoundFont kits through #6 and #7
@@ -4210,6 +4250,225 @@ def phase_midi_sf2(dev, smi: str, root: str, srv, sd) -> dict:
     return out
 
 
+# phase 24: serving artifacts (export.py) on the card
+ARTIFACT_REQUESTS = 100  # B = 1 requests a latency run
+CLI_SERVE = "transformergrooveinfilling_tpu_torch.serve"
+CLI_TUTORIAL = "transformergrooveinfilling_tpu_torch.tutorial"
+
+
+def artifact_bytes(path: str) -> dict:
+    """An artifact's file bytes, its ``params.msgpack``'s and each program's."""
+    import zipfile
+
+    with zipfile.ZipFile(path) as z:
+        sizes = {i.filename: i.file_size for i in z.infolist()}
+    return {"file": os.path.getsize(path), "params_msgpack": sizes["params.msgpack"],
+            "programs": {k: v for k, v in sizes.items() if k.endswith(".pt2")}}
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def wait_healthy(port: int, proc, timeout: float = 120.0) -> None:
+    """Poll a child server's ``/healthz`` until it answers (or it exits)."""
+    t0 = time.perf_counter()
+    while time.perf_counter() - t0 < timeout:
+        if proc.poll() is not None:
+            check(False, f"serve --artifact exited {proc.returncode}:\n"
+                         f"{proc.stderr.read()[-6000:]}")
+        try:
+            with urllib.request.urlopen(f"http://127.0.0.1:{port}/healthz", timeout=5) as r:
+                if r.status == 200:
+                    return
+        except (urllib.error.URLError, ConnectionError):
+            time.sleep(0.25)
+    check(False, f"serve --artifact did not answer within {timeout} s")
+
+
+def phase_artifact(dev, smi: str, root: str, srv, sd, evaluation) -> dict:
+    """24. serving artifacts on the card, under ``root``: (a) the flagship
+    server's weights (d 256, 6 layers, buckets 1/8/32) and the 6 + 6 model's
+    exported (``export_infill``, traced on the CPU) and loaded on the card
+    (``load_infill``): export and load seconds, artifact against
+    ``params.msgpack`` bytes; each held to ``InfillServer`` on the card within
+    1e-5 and to the CPU plain path within 1e-4 by ``hit_agreement`` (phase 7's
+    bars) at N 1, 6 and 40, #1 launched by the programs 6 (18) times a chunk;
+    (b) ``InfillServer.from_exported`` answers a B = 1 ``hvo_input`` through
+    #6, #7 and #1 like the server on the in-memory weights; (c) in child
+    processes, started together: ``serve --artifact`` answers over HTTP like
+    ``InfillServer``; ``evaluate --artifact`` of phase 22's checkpoint on its
+    validation evaluator gives the families of ``evaluate --ckpt`` within
+    1e-6 (the artifact's one bucket is the set's 1,099 rows, so both run one
+    forward of the same shape: a bf16 product over other rows may take
+    another library kernel and round otherwise); ``python -m
+    transformergrooveinfilling_tpu_torch.
+tutorial`` on the card, #1, #6 and #7 launched; (d) B = 1 in-process
+    p50/p99 of the program beside ``InfillServer``, in turns, after the
+    children have ended."""
+    from transformergrooveinfilling_tpu_torch import export
+
+    t_phase = time.perf_counter()
+    rows = EVAL_ROWS["validation"]
+    paths = evaluation["paths"]
+    # (c) first, so the children run while (a) and (b) run here
+    eval_sd, eval_cfg, _epoch, _loss = ckpt.load_params_and_config(paths["ckpt"])
+    t0 = time.perf_counter()
+    eval_art = export.export_infill(eval_sd, eval_cfg, os.path.join(root, "rescore.tgix"),
+                                    batch_sizes=(rows,))
+    eval_export_s = time.perf_counter() - t0
+    flagship_art = export.export_infill(sd, FLAGSHIP, os.path.join(root, "flagship.tgix"),
+                                        batch_sizes=BUCKETS)
+    flagship_export_s = time.perf_counter() - t0 - eval_export_s
+    port = free_port()
+    serve_proc = subprocess.Popen(
+        [sys.executable, "-m", CLI_SERVE, "--artifact", flagship_art, "--port", str(port)],
+        cwd=root, env={**os.environ, "PYTHONPATH": ROOT}, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True)
+    children = [serve_proc]
+    try:
+        evaluating = start_cli(CLI_EVALUATE, [
+            "--artifact", eval_art, "--evaluator", paths["evaluator"], "--media", "0",
+            "--epoch", str(evaluation["rescore"]["epoch"]),
+            "--run_dir", os.path.join(root, "rescore_artifact")],
+            os.path.join(root, "rescore_artifact_cwd"))
+        children.append(evaluating[0])
+        touring = start_cli(CLI_TUTORIAL, [], os.path.join(root, "tutorial"))
+        children.append(touring[0])
+
+        # (a) the flagship and the 6 + 6 model through their programs
+        enc_sd = build_model(ENCDEC, "cpu", torch.Generator().manual_seed(16)).state_dict()
+        t0 = time.perf_counter()
+        encdec_art = export.export_infill(enc_sd, ENCDEC, os.path.join(root, "encdec.tgix"),
+                                          batch_sizes=BUCKETS)
+        encdec_export_s = time.perf_counter() - t0
+        xs = {n: Loops(n, 24 + n).processed_inputs for n in (1, 6, 40)}
+        chunks = 4  # buckets (1, 8, 32): 1 | 8 | 32 + 8
+        models = {}
+        for name, path, cfg, weights, server, export_s in (
+                ("flagship", flagship_art, FLAGSHIP, sd, srv, flagship_export_s),
+                ("encdec_6_6", encdec_art, ENCDEC, enc_sd, None, encdec_export_s)):
+            if server is None:
+                server = serve.InfillServer(weights, cfg, batch_sizes=BUCKETS, device=dev)
+            t0 = time.perf_counter()
+            loaded = export.load_infill(path, device=dev)
+            torch.cuda.synchronize()
+            load_s = time.perf_counter() - t0
+            per_chunk = cfg.num_encoder_layers + 2 * cfg.num_decoder_layers
+            loaded.predict(xs[1])  # the first call of each program builds nothing more
+            loaded.predict(xs[6])
+            loaded.predict(xs[40])
+            MHA.launches = 0  # the artifact path's run starts here
+            out = {n: loaded.predict(x) for n, x in xs.items()}
+            launches = MHA.launches  # ... and ends here
+            check(launches == per_chunk * chunks,
+                  f"{name} artifact: fused_mha launched {launches} times, expected "
+                  f"{per_chunk} a chunk ({per_chunk * chunks})")
+            cpu_model = build_model(cfg, "cpu")
+            cpu_model.load_state_dict(weights, strict=True)
+            err_srv = err_cpu = 0.0
+            for n, x in xs.items():
+                y = out[n]
+                check(y.shape == (n, 32, 27) and np.isfinite(y).all(), f"{name}: bad output")
+                err_srv = max(err_srv, max_err(y, server.infill(x)))
+                h_cpu, v_cpu, o_cpu = predict(cpu_model, torch.from_numpy(x))
+                sig = predict(cpu_model, torch.from_numpy(x), use_thres=False)[0].numpy()
+                err_cpu = max(err_cpu, max_err(y[..., 9:18], v_cpu), max_err(y[..., 18:], o_cpu))
+                check(hit_agreement(y[..., :9], h_cpu.numpy(), sig),
+                      f"{name} artifact at N={n}: hits differ from the CPU plain path")
+            check(err_srv <= 1e-5, f"{name} artifact against InfillServer on the card: {err_srv}")
+            check(err_cpu <= 1e-4, f"{name} artifact against the CPU plain path: {err_cpu}")
+            models[name] = {"export_seconds": export_s, "load_seconds": load_s,
+                            "bytes": artifact_bytes(path), "launches": launches,
+                            "launches_per_chunk": per_chunk,
+                            "max_abs_err_vs_server": err_srv, "max_abs_err_vs_cpu_plain": err_cpu,
+                            "loaded": loaded, "server": server}
+
+        # (b) from_exported answers hvo_input through #6, #7 and #1
+        served = serve.InfillServer.from_exported(flagship_art, device=dev)
+        check(served.batch_sizes == list(BUCKETS) and served.config.use_fused_attention,
+              "from_exported: buckets or kernel not as exported")
+        grid = Loops(1, 41).processed_outputs[0]
+        MHA.launches = 0
+        reset_front_end_launches()
+        y_hvo = served.infill_from_hvo(grid, qpm=120.0)
+        hvo_launches = {"fused_mha": MHA.launches, "band_energies": BAND_K.launches,
+                        "device_synth": SYNTH_K.launches}
+        check(hvo_launches == {"fused_mha": 6, "band_energies": 1, "device_synth": 1},
+              f"from_exported hvo_input launched {hvo_launches}")
+        hvo_err = max_err(y_hvo, srv.infill_from_hvo(grid, qpm=120.0))
+        check(hvo_err <= 1e-5, f"from_exported hvo_input against the server: {hvo_err}")
+
+        # (c) the children
+        wait_healthy(port, serve_proc)
+        x = xs[6]
+        code, reply = post(port, {"input": x.tolist()})
+        check(code == 200, f"serve --artifact answered {code}: {reply}")
+        http_err = max_err(np.asarray(reply["hvo"], np.float32), srv.infill(x))
+        check(http_err <= 1e-5, f"serve --artifact over HTTP against InfillServer: {http_err}")
+        serve_proc.terminate()
+        serve_proc.communicate(timeout=60)
+        scored = finish_cli(evaluating, "evaluate --artifact")
+        toured = finish_cli(touring, "the tutorial on the card")
+    finally:  # no child outlives the phase, whatever failed
+        for proc in children:
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+    ident, epoch = "Validation_Set", evaluation["rescore"]["epoch"]
+    by_artifact = families_of(run_records(os.path.join(root, "rescore_artifact"))[1], epoch,
+                              ident)
+    by_ckpt = evaluation["rescored_families"]
+    check(by_artifact.keys() == by_ckpt.keys(), "evaluate --artifact: families' keys differ")
+    eval_err = max(abs(by_artifact[k] - by_ckpt[k]) for k in by_ckpt)
+    check(eval_err <= 1e-6, f"evaluate --artifact against --ckpt: families differ by {eval_err}")
+    # the server warms its one bucket (and, an audio model on the card, the
+    # front end: #6 and #7 once), then forwards the set
+    check(scored["launches"]["fused_mha"] == 2 * 6,
+          f"evaluate --artifact launched {scored['launches']}")
+    check("tutorial complete." in toured["stdout"], "the tutorial did not finish")
+    check(all(toured["launches"][k] > 0 for k in ("fused_mha", "band_energies", "device_synth")),
+          f"the tutorial on the card launched {toured['launches']}")
+
+    # (d) B = 1 in process, the program and the server in turns
+    x1 = xs[1][0]
+    latency = {}
+    for name in models:
+        loaded, server = models[name].pop("loaded"), models[name].pop("server")
+        runs = {"artifact": [], "server": []}
+        for which in ("artifact", "server", "server", "artifact"):
+            call = loaded.predict if which == "artifact" else server.infill
+            call(x1)
+            lat = []
+            for _ in range(ARTIFACT_REQUESTS):
+                t0 = time.perf_counter()
+                call(x1)
+                lat.append((time.perf_counter() - t0) * 1000.0)
+            runs[which].append({"p50_ms": float(np.percentile(lat, 50)),
+                                "p99_ms": float(np.percentile(lat, 99))})
+        latency[name] = runs
+    out = {"card": smi, "models": models, "latency_b1_in_process": latency,
+           "from_exported_hvo_input": {"launches": hvo_launches, "max_abs_err_vs_server": hvo_err},
+           "serve_artifact_http_max_abs_err": http_err,
+           "evaluate_artifact": {"export_seconds": eval_export_s,
+                                 "buckets": [rows],
+                                 "wall_seconds": scored["wall_seconds"],
+                                 "module_seconds": scored["seconds"],
+                                 "launches": scored["launches"]["fused_mha"],
+                                 "max_abs_err_vs_ckpt": eval_err},
+           "tutorial": {"wall_seconds": toured["wall_seconds"],
+                        "module_seconds": toured["seconds"],
+                        "launches": {k: toured["launches"][k]
+                                     for k in ("fused_mha", "band_energies", "device_synth")}},
+           "seconds": time.perf_counter() - t_phase}
+    emit({"phase": "artifact", **out})
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -4253,8 +4512,9 @@ def main() -> int:
     with tempfile.TemporaryDirectory(prefix="chip_smoke_cli_") as cli_root:
         cli = timed_phase(phase_cli, dev, smi, cli_root)
         evaluation = timed_phase(phase_eval, dev, smi, cli_root)
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_midi_") as midi_root:
-        midi = timed_phase(phase_midi_sf2, dev, smi, midi_root, srv, sd)
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_midi_") as midi_root:
+            midi = timed_phase(phase_midi_sf2, dev, smi, midi_root, srv, sd)
+        artifact = timed_phase(phase_artifact, dev, smi, cli_root, srv, sd, evaluation)
     emit({"phase_seconds": took})
     def mha_row(b, dtype, form="contiguous"):
         return next(t for t in kernel["timings"]
@@ -4280,6 +4540,10 @@ def main() -> int:
         "launches_scalar_eval_pass": evaluation["scalar_eval_pass"][0]["launches"],
         "launches_media_pass": evaluation["media_pass"][0]["launches"],
         "launches_kit_serving_path": midi["serve"]["launches"]["fused_mha"],
+        "launches_artifact_path": {name: m["launches"]
+                                   for name, m in artifact["models"].items()},
+        "launches_from_exported_hvo_input": artifact["from_exported_hvo_input"]["launches"][
+            "fused_mha"],
         "max_abs_err": kernel["max_abs_err"], **mha_at(b1),
         **{f"B{b}_{dtype}_{form}": mha_at(mha_row(b, dtype, form))
            for b, dtype in ((1, "float32"), (512, "float32"), (512, "bfloat16"), (1, "bfloat16"))

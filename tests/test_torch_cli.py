@@ -3,7 +3,7 @@
 ``.ckpt`` on the same processed symbolic dataset (f32, dropout 0, one
 full-batch SGD step an epoch) and log the same ``metrics.jsonl`` keys with
 losses within rtol 2e-4; the flags and defaults; ``--streaming host`` and
-``fused``; the flags that raise ``NotPortedError`` (ROADMAP A8, A10); and
+``fused``; the flags that raise ``NotPortedError`` (ROADMAP A10); and
 evaluation: ``process_evaluator`` builds pickles that the JAX package's
 ``init_evaluator`` reads, ``train`` with the evaluator flags logs both sets,
 ``evaluate`` gives the metrics of the JAX package's ``evaluate.py`` on the
@@ -304,8 +304,8 @@ def test_evaluate_cli_matches_jax_on_the_same_ckpt(evaluators_built, jax_cli, tm
     by the JAX package) and one evaluator pickle: the same record keys, hit
     accuracies within the share of cells whose JAX sigmoid lies within 1e-4
     of 0.5, the MSE families within 1e-5, the same stats CSV columns;
-    ``--all_epochs`` scores every saved epoch into one run; ``--artifact``
-    raises ``NotPortedError``."""
+    ``--all_epochs`` scores every saved epoch into one run; ``--artifact`` of
+    the same weights exported scores the families of ``--ckpt`` within 1e-6."""
     import jax
     import jax.numpy as jnp
 
@@ -364,8 +364,27 @@ def test_evaluate_cli_matches_jax_on_the_same_ckpt(evaluators_built, jax_cli, tm
     (curve,) = _glob(tmp_path / "curve", "metrics.jsonl")
     with open(curve) as f:
         assert {json.loads(line).get("epoch") for line in f} >= {3, 5}
-    with pytest.raises(NotPortedError, match="A8"):
-        port_evaluate.main(["--artifact", "m.tgix", "--evaluator", pickles["validation"]])
+    # --artifact: the same weights exported score the families of --ckpt
+    from transformergrooveinfilling_tpu_torch import export as port_export
+
+    art = str(tmp_path / "ck.tgix")
+    assert port_export.main(["--checkpoint", str(tmp_path / "ck" /
+                                                 "transformer_run_evalrun_Epoch_3.ckpt"),
+                             "--out", art, "--batch_sizes", "1,32", "--platforms", "cpu"]) == 0
+    assert port_evaluate.main(["--artifact", art, "--evaluator", pickles["validation"],
+                               "--media", "0", "--run_dir", str(tmp_path / "art")] + CPU) == 0
+    assert "Validation_Set: mean hit accuracy" in capsys.readouterr().out
+    (metrics,) = _glob(tmp_path / "art", "metrics.jsonl")
+    with open(metrics) as f:
+        (art_record,) = [json.loads(line) for line in f]
+    ckpt_record = got[0]
+    families = [k for k in ckpt_record if "_Hits_Accuracy_" in k or "_MSE_" in k]
+    assert families and set(families) <= set(art_record)
+    for key in families:
+        np.testing.assert_allclose(art_record[key], ckpt_record[key], atol=1e-6, err_msg=key)
+    with pytest.raises(SystemExit):  # --all_epochs applies to --ckpt directories only
+        port_evaluate.main(["--artifact", art, "--all_epochs", "--evaluator",
+                            pickles["validation"]] + CPU)
 
 
 # a None in sys.modules makes ``import name`` raise ImportError, as an

@@ -141,6 +141,52 @@ def test_server_runs_every_layer_through_the_kernel(cuda, rng):
     np.testing.assert_allclose(got[..., 9:], plain.infill(x)[..., 9:], atol=1e-4)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("form", ["contiguous", "packed_qkv"])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("dtype, tol", [(torch.float32, 1e-5), (torch.bfloat16, 2e-2)])
+def test_operator_launches_the_kernel(cuda, rng, dtype, tol, causal, form):
+    """``tgi::fused_mha`` on the card is the kernel's launch: one a call,
+    the ``(B, T, H, hd)`` output layout, within phase 3's bars of
+    ``mha_reference`` on the same views."""
+    b, h, t, hd = 8, 2, 32, 128
+    shape = (b, h, t, hd) if form == "contiguous" else (b, t, 3, h, hd)
+    x = torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(cuda, dtype)
+    q, k, v = (x, x.clone(), x.clone()) if form == "contiguous" else x.permute(2, 0, 3, 1, 4)
+    before = attention.KERNEL.launches
+    got = torch.ops.tgi.fused_mha(q, k, v, causal)
+    torch.cuda.synchronize()
+    assert attention.KERNEL.launches == before + 1
+    assert got.stride() == attention.fused_mha(q, k, v, causal).stride()
+    want = attention.mha_reference(q, k, v, causal)
+    torch.testing.assert_close(got.float(), want.float(), atol=tol,
+                               rtol=0 if dtype == torch.float32 else tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_dec", [0, 2])
+def test_artifact_on_the_card_runs_the_kernel_like_the_server(cuda, rng, tmp_path, n_dec):
+    """A port artifact, traced on the CPU and loaded on the card, answers as
+    ``InfillServer`` on the card does (1e-5), its programs launching #1 once
+    an attention a chunk; ``from_exported`` serves it with the kernel."""
+    from transformergrooveinfilling_tpu_torch import export
+
+    cfg = GrooveTransformerConfig(d_model=64, n_heads=4, dim_feedforward=128,
+                                  num_encoder_layers=2, num_decoder_layers=n_dec)
+    sd = build_model(cfg, "cpu", torch.Generator().manual_seed(0)).state_dict()
+    path = export.export_infill(sd, cfg, str(tmp_path / "m.tgix"), batch_sizes=(1, 4))
+    loaded = export.load_infill(path, device=cuda)
+    server = InfillServer(sd, cfg, batch_sizes=(1, 4), device=cuda)
+    x = rng.standard_normal((6, 32, 16)).astype(np.float32)
+    before = attention.KERNEL.launches
+    got = loaded.predict(x)  # 6 → two chunks of bucket 4
+    assert attention.KERNEL.launches - before == 2 * (2 + 2 * n_dec)
+    np.testing.assert_allclose(got, server.infill(x), atol=1e-5, rtol=0)
+    served = InfillServer.from_exported(path, device=cuda)
+    assert served.config.use_fused_attention and served.batch_sizes == [1, 4]
+    np.testing.assert_allclose(served.infill(x), got, atol=1e-5, rtol=0)
+
+
 def _layer_inputs(cuda, rng, t, d, ff, nseq, dtype):
     def n(*shape, scale=1.0, offset=0.0):
         return torch.from_numpy((offset + scale * rng.standard_normal(shape))
@@ -390,7 +436,8 @@ def _sm90_record(cuda, rng, decoder, t, d, h, ff, nseq, rate, seed=7, dtype=torc
 # outputs, f32 sums in another order. f32: the split TF32 products (~2⁻²² of
 # each term) and the tensor cores' truncating accumulation, which the 64 × 256
 # LayerNorm tiles cannot promote: ff/8 · 3 truncated adds, up to ~2.3e-5 of a
-# sum over ff 2048 and typically half of that (chip_smoke.py holds ff 512 to 1e-5)
+# sum over ff 2048 and typically half of that (chip_smoke.py holds every ff the
+# f32 gate admits, up to F32_MAX_FF, to 1e-5)
 CHAIN_BARS = {torch.bfloat16: 2e-2, torch.float32: 2e-5}
 
 
@@ -403,7 +450,12 @@ def test_sm90_launches_match_their_plain_versions(cuda, rng, decoder, t, d, h, f
     """Every launch of a layer call against its plain version on the same
     inputs, each output within its dtype's bar of its largest value
     (``CHAIN_BARS``), every launch of the dtype's chain once: 13 an encoder
-    layer, 21 a decoder layer."""
+    layer, 21 a decoder layer. An f32 layer past ``F32_MAX_FF`` is refused
+    (ROADMAP §C11: phases 8 and 14 of chip_smoke.py hold the chain there)."""
+    if dtype == torch.float32 and ff > fused_layer.F32_MAX_FF:
+        with pytest.raises(ValueError, match="do not take"):
+            _sm90_record(cuda, rng, decoder, t, d, h, ff, nseq, 0.3, dtype=dtype)
+        return
     mod, record, _ = _sm90_record(cuda, rng, decoder, t, d, h, ff, nseq, 0.3, dtype=dtype)
     route = mod.route_kernels(dtype)
     names = {id(k): n for n, k in route.items()}

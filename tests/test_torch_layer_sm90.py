@@ -460,10 +460,13 @@ CONFIG_WIDTHS = {(32, 16, 512), (32, 4, 16), (64, 16, 256), (256, 16, 64), (256,
 
 def test_f32_gate_admits_every_config_width():
     """The f32 chain's gate admits, at T 32, every (d, heads, ff) of
-    configs/*.yaml, hd 2 and 4 among them (the f32 attention takes any head
-    width), and these are all the widths the configs hold. It refuses what
-    the CUDA-core kernels before it took by shared memory alone: d past the
-    LayerNorm tile's 256 (to ~352), and d or ff a multiple of 4 but not of 8."""
+    configs/*.yaml up to ff 1,024, hd 2 and 4 among them (the f32 attention
+    takes any head width), and these are all the widths the configs hold; the
+    lm config's ff 2,048 is past ``F32_MAX_FF`` (its unpromoted sums drift
+    past the chain's 1e-5 bar on the card, ROADMAP §C11) and takes the
+    unfused path in f32. It refuses what the CUDA-core kernels before it took
+    by shared memory alone: d past the LayerNorm tile's 256 (to ~352), and d
+    or ff a multiple of 4 but not of 8."""
     from transformergrooveinfilling_tpu_torch.utils import yaml_subset
 
     found = set()
@@ -474,7 +477,7 @@ def test_f32_gate_admits_every_config_width():
     assert found == CONFIG_WIDTHS
     for gate in (fl.supports_fused_layer, fdl.supports_fused_decoder_layer):
         for d, h, ff in sorted(CONFIG_WIDTHS):
-            assert gate(d, h, ff, 32, torch.float32), (d, h, ff)
+            assert gate(d, h, ff, 32, torch.float32) == (ff <= fl.F32_MAX_FF), (d, h, ff)
         for d, h, ff in ((264, 2, 512), (352, 4, 512), (36, 4, 64), (252, 2, 512),
                          (32, 4, 20), (256, 2, 516)):
             assert not gate(d, h, ff, 32, torch.float32), (d, h, ff)

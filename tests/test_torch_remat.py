@@ -280,8 +280,9 @@ def test_lm_config_resolves_to_the_fused_ffn_and_not_the_fused_layer(monkeypatch
     FFN kernels are taken when the config asks for them, and auto leaves them
     off at 32, 512 and 1,024, with and without remat; GrooveXL at batch 128
     on 80 GB needs no remat by the estimate. On the CPU (f32) the f32 chain's
-    gate admits ff 2048 too, so auto takes the whole-layer path there as
-    well."""
+    gate stops at ff 1,024 (``F32_MAX_FF``: its unpromoted sums drift past
+    the chain's bar at 2,048 on the card, ROADMAP §C11), so auto takes the
+    unfused path there."""
     hp = load_hyperparameters(os.path.join(REPO, "configs",
                                            "InfillingRandomLow_lm_training.yaml"))
     with monkeypatch.context() as m:
@@ -303,9 +304,9 @@ def test_lm_config_resolves_to_the_fused_ffn_and_not_the_fused_layer(monkeypatch
             compute_dtype=torch.bfloat16, device="cuda") is False
     hp.fused_ffn = None
     cpu = derive_model_config(hp, device="cpu")
-    # f32 on the CPU at batch 32: the f32 chain's gate takes ff 2048 (the
-    # CUDA-core kernels' shared-memory gate did not), and f32 auto is on up to 512
-    assert not cpu.fused_ffn and cpu.fused_layer
+    # f32 on the CPU at batch 32: ff 2048 is past the f32 chain's cap, so auto
+    # leaves the whole-layer path off though f32 auto is on up to batch 512
+    assert not cpu.fused_ffn and not cpu.fused_layer
 
 
 def test_chip_smoke_lm_hyperparameters_equal_the_yaml():

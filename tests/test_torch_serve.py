@@ -25,7 +25,6 @@ from transformergrooveinfilling_tpu.models.transformer import (
     GrooveTransformerConfig as JaxConfig,
 )
 from transformergrooveinfilling_tpu.serve import InfillServer as JaxInfillServer
-from transformergrooveinfilling_tpu_torch import NotPortedError
 from transformergrooveinfilling_tpu_torch import serve
 from transformergrooveinfilling_tpu_torch.models import GrooveTransformerConfig
 from transformergrooveinfilling_tpu_torch.models.torch_compat import (
@@ -451,8 +450,11 @@ def test_main_serves_the_demo_checkpoint_like_jax(rng, capsys):
 
 
 def test_main_refuses_what_is_not_ported():
-    with pytest.raises(NotPortedError, match="artifact"):
-        serve.main(["--artifact", "m.tgix", "--device", "cpu"])
+    """Nothing of ``main`` raises ``NotPortedError`` any more: ``--artifact``
+    serves (tests/test_torch_export.py), and exactly one of ``--ckpt`` /
+    ``--artifact`` is required, as in the JAX command line."""
+    with pytest.raises(SystemExit):
+        serve.main(["--artifact", "m.tgix", "--ckpt", DEMO_DIR, "--device", "cpu"])
     # a native .ckpt is ported now: it serves (its test is below)
     httpd = serve.main(["--ckpt", os.path.join(DEMO_DIR, "transformer_run_demo_Epoch_799.ckpt"),
                         "--device", "cpu", "--port", "0"], block=False)
@@ -521,6 +523,8 @@ def test_import_leaves_jax_out():
         "import transformergrooveinfilling_tpu_torch.audio.sf2\n"
         "import transformergrooveinfilling_tpu_torch.audio.native_binding\n"
         "import transformergrooveinfilling_tpu_torch.process_evaluator\n"
+        "import transformergrooveinfilling_tpu_torch.export\n"
+        "import transformergrooveinfilling_tpu_torch.tutorial\n"
         "from transformergrooveinfilling_tpu_torch.train import load_hyperparameters\n"
         "load_hyperparameters('configs/InfillingRandom_training.yaml')\n"
         "import chip_smoke\n"

@@ -567,6 +567,42 @@ def test_layer_resolvers_turn_auto_on_only_at_a_measured_batch(resolve):
         assert cfg.fused_layer is on and cfg.fused_decoder_layer is on, (dtype, batch)
 
 
+@pytest.mark.parametrize("decoder", [False, True])
+def test_f32_layer_gate_and_auto_stop_at_the_measured_ff(decoder):
+    """The f32 chains' LayerNorm-epilogue products cannot promote their sums
+    over ff: on the card they hold the 1e-5 bar at ff 1,024 and not at 2,048
+    (ROADMAP §C11). So in f32 the gate, and auto with it, stops at
+    ``F32_MAX_FF`` = 1,024, bf16 does not, and a forced switch above the cap
+    raises in the model."""
+    from transformergrooveinfilling_tpu_torch.ops import fused_layer
+    from transformergrooveinfilling_tpu_torch.ops.fused_decoder_layer import (
+        supports_fused_decoder_layer,
+    )
+
+    assert fused_layer.F32_MAX_FF == 1024
+    gate = supports_fused_decoder_layer if decoder else fused_layer.supports_fused_layer
+    resolve = (port_config.resolve_fused_decoder_layer if decoder
+               else port_config.resolve_fused_layer)
+    f32, bf16 = torch.float32, torch.bfloat16
+    assert gate(256, 2, 1024, 32, f32) and gate(256, 2, 1024, 32, bf16)
+    for ff in (1032, 2048, 4096, 8192):
+        assert not gate(256, 2, ff, 32, f32) and gate(256, 2, ff, 32, bf16)
+    assert resolve(None, 256, 2, 1024, batch_size=32, compute_dtype=f32) is True
+    assert resolve(None, 256, 2, 2048, batch_size=32, compute_dtype=f32) is False
+    assert resolve(None, 256, 2, 2048, batch_size=32, compute_dtype=bf16) is True
+    assert resolve(True, 256, 2, 2048, batch_size=32, compute_dtype=f32) is True  # kept
+    hp = HyperParams(d_model=32, n_heads=4, dim_feedforward=2048, num_encoder_decoder_layers=1,
+                     encoder_only=0 if decoder else 1, batch_size=32)
+    cfg = derive_model_config(hp, compute_dtype=f32, device="cpu")
+    assert not cfg.fused_layer and not cfg.fused_decoder_layer
+    switch = "fused_decoder_layer" if decoder else "fused_layer"
+    forced = dataclasses.replace(cfg, dim_feedforward=1032, num_decoder_layers=int(decoder),
+                                 **{switch: True})
+    model = build_model(forced, "cpu").train()
+    with pytest.raises(ValueError, match=f"{switch}=True, but the fused"):
+        model(torch.zeros(2, 32, 16), generator=torch.Generator().manual_seed(0))
+
+
 def test_initialize_model_resolves_the_layer_switches_unlike_the_reference():
     """The reference's ``initialize_model`` passes only ``fused_ffn`` and
     ``remat`` and leaves ``fused_layer`` and ``fused_decoder_layer`` off; the

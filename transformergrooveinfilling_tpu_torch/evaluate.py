@@ -9,10 +9,11 @@
 Per-voice metric families, media (audio, piano rolls, heatmaps), the
 feature-stats CSV/HTML and the optional ``.Eval`` dump, from a checkpoint of
 either package (``.ckpt``, or a reference ``.Model`` with the architecture
-flags) and evaluator pickles of either package. The flags are the JAX
-command line's, plus ``--device`` (default ``cuda``): where the model runs
-and the evaluators' datasets compute. ``--artifact`` (export files) raises
-``NotPortedError`` (ROADMAP A8).
+flags) or an ``export.py`` artifact (``--artifact``, either package's; served
+through ``InfillServer.from_exported``, its own threshold applies), and
+evaluator pickles of either package. The flags are the JAX command line's,
+plus ``--device`` (default ``cuda``): where the model runs and the
+evaluators' datasets compute.
 """
 
 from __future__ import annotations
@@ -23,8 +24,6 @@ import os
 import re
 
 import numpy as np
-
-from . import NotPortedError
 
 
 def _default_identifier(path: str) -> str:
@@ -43,7 +42,9 @@ def main(argv=None) -> int:
         description="Re-score a checkpoint with preprocessed evaluators (the in-training "
                     "log_eval pass, offline)")
     p.add_argument("--ckpt", help=".ckpt/.Model file, or a directory (newest epoch wins)")
-    p.add_argument("--artifact", help="an export.py artifact (.tgix): not ported yet")
+    p.add_argument("--artifact",
+                   help="evaluate an export.py artifact (.tgix) instead of a checkpoint; "
+                        "the artifact's embedded threshold applies")
     p.add_argument("--evaluator", action="append", required=True,
                    help="preprocessed evaluator pickle (repeatable)")
     p.add_argument("--identifier", action="append", default=None,
@@ -76,9 +77,8 @@ def main(argv=None) -> int:
                 "evaluators (must match, in order)")
     if bool(args.ckpt) == bool(args.artifact):
         p.error("exactly one of --ckpt / --artifact is required")
-    if args.artifact:
-        raise NotPortedError("--artifact: export artifacts (.tgix) are not ported yet "
-                             "(ROADMAP A8); evaluate a --ckpt")
+    if args.artifact and args.all_epochs:
+        p.error("--all_epochs applies to --ckpt directories, not artifacts")
 
     # offline by default, as the command line's purpose and --run_dir say;
     # export WANDB_MODE=online to upload instead
@@ -86,6 +86,16 @@ def main(argv=None) -> int:
 
     from .models.transformer import GrooveTransformerConfig
     from .train import checkpoint as ckpt_mod
+
+    if args.artifact:
+        # the server's bucketing maps any evaluator size onto the artifact's
+        # batch sizes, and its predict thresholds with the artifact's settings
+        from .serve import InfillServer
+
+        server = InfillServer.from_exported(args.artifact, device=args.device)
+        epoch = 0 if args.epoch is None else args.epoch
+        return _evaluate(args, _ArtifactModel(server), server.config, epoch, float("nan"),
+                         args.artifact)
 
     legacy_config = GrooveTransformerConfig(
         d_model=args.d_model, n_heads=args.n_heads, dim_feedforward=args.dim_feedforward,
@@ -105,6 +115,19 @@ def main(argv=None) -> int:
     epoch = args.epoch if args.epoch is not None else ckpt_epoch
     return _evaluate(args, _bundle_for(state_dict, config, args.device), config, epoch, loss,
                      path)
+
+
+class _ArtifactModel:
+    """The reference predict contract over an artifact's server: the hits
+    come thresholded with the artifact's own settings (the arguments are the
+    contract's, and unused)."""
+
+    def __init__(self, server):
+        self.server = server
+
+    def predict(self, inputs, use_thres: bool = True, thres: float = 0.5):
+        hvo = self.server.infill(np.asarray(inputs, np.float32))
+        return list(np.split(hvo, 3, axis=2))
 
 
 def _bundle_for(state_dict, config, device):

@@ -60,7 +60,7 @@ from torch import nn
 from torch.utils import checkpoint as torch_checkpoint
 
 from .. import require_device
-from ..ops.attention import fused_mha, mha_reference
+from ..ops.attention import fused_mha, fused_mha_op, mha_reference
 from ..ops.dropout import dropout as drop_site
 from ..ops.fused_decoder_layer import decoder_layer_train, supports_fused_decoder_layer
 from ..ops.fused_ffn import ffn_train, supports_fused_ffn
@@ -277,10 +277,13 @@ class SelfAttention(nn.Module):
             q = q.view(b, t, h, d // h).transpose(1, 2)
             k_v = _linear(kv, self.in_proj_weight[d:], self.in_proj_bias[d:], self.dtype)
             k, v = k_v.view(b, kv.shape[1], 2, h, d // h).permute(2, 0, 3, 1, 4)
-        if dropout is None:
-            out = self.attend(q, k, v, self.causal)
-        else:
+        if dropout is not None:
             out = attention_train(q, k, v, *dropout, causal=self.causal)
+        elif self.attend is fused_mha and torch.compiler.is_exporting():
+            # a traced forward (export.py) holds the kernel as one operator
+            out = fused_mha_op(q, k, v, self.causal)
+        else:
+            out = self.attend(q, k, v, self.causal)
         out = out.transpose(1, 2).reshape(b, t, d)
         return _linear(out, self.out_proj.weight, self.out_proj.bias, self.dtype)
 

@@ -30,6 +30,20 @@ an FMA) took 19.3, 94.9 and 85.3 µs.
 On a CPU tensor the wrapper runs ``mha_reference`` (into the same output
 layout); on a CUDA tensor it launches the kernel or raises — it never gives
 way to the plain version. Every launch adds one to ``KERNEL.launches``.
+
+The same function is the operator ``torch.ops.tgi.fused_mha(q, k, v,
+causal)`` (``torch.library.custom_op``), registered when this module is
+imported: its CUDA implementation is the kernel's launch above, its CPU
+implementation ``mha_reference`` into the same layout, and its fake
+implementation gives the ``(B, T, H, hd)`` buffer's strides, so a traced
+``out.transpose(1, 2).reshape(B, T, H·hd)`` stays a view. Only a traced
+forward calls the operator (``export.py``'s artifacts: the model's attention
+takes it while ``torch.compiler.is_exporting()``); eager forwards call
+:func:`fused_mha` itself and pay no dispatcher. An exported program therefore
+holds this kernel, not the plain attention (where JAX's artifacts take the
+plain path: a Mosaic custom call would pin them to one TPU toolchain, while
+the operator here is the kernel built from ``csrc/`` at first use); loading
+such a program needs this module imported, and nothing of the model.
 """
 
 from __future__ import annotations
@@ -166,3 +180,18 @@ def fused_mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   (*strides, b, h, t, hd, int(causal), int(q.dtype == torch.bfloat16),
                    int(tensor_cores), int(vec4), 1.0 / math.sqrt(hd)), q.device)
     return out
+
+
+@torch.library.custom_op("tgi::fused_mha", mutates_args=())
+def fused_mha_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 causal: bool) -> torch.Tensor:
+    """:func:`fused_mha` as an operator, for traced programs: on the card
+    the kernel's launch (counted in ``KERNEL.launches``), on the CPU its
+    plain version in the same layout, on any other device a ``ValueError``."""
+    return fused_mha(q, k, v, causal)
+
+
+@fused_mha_op.register_fake
+def _fused_mha_fake(q, k, v, causal):
+    b, h, t, hd = q.shape
+    return q.new_empty((b, t, h, hd)).transpose(1, 2)

@@ -132,7 +132,8 @@ def supports_fused_decoder_layer(d_model: int, n_heads: int, dim_feedforward: in
     """Whether the chain of ``csrc/layer_sm90.cu`` takes this decoder layer
     in ``dtype``: the encoder layer's gate (``supports_fused_layer``: d a
     multiple of 8 up to the LayerNorm epilogues' 256, ff a multiple of 8, T ≤
-    32, in bf16 heads a multiple of 8 wide); the cross-attention's blocks are
+    32, in bf16 heads a multiple of 8 wide, in f32 ff ≤ ``F32_MAX_FF``,
+    measured on this chain too); the cross-attention's blocks are
     the self-attention's. In f32 it admits every width of ``configs/*.yaml``
     and refuses what that gate refuses (d from 264 to about 352, d or ff a
     multiple of 4 but not of 8), which the f32 CUDA-core kernels before it

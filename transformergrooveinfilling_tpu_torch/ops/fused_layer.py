@@ -216,6 +216,18 @@ def kink_flips(twin_h: torch.Tensor, kernel_h: torch.Tensor):
 
 # ---------------------------------------------------------------- gate
 
+# The widest ff the f32 chain takes. Its LayerNorm-epilogue products (W2 with
+# the last LayerNorm; dh·W1 with an LN's backward) sum over ff in 64 × 256
+# tiles that cannot promote their sums, so their drift grows with ff. On an
+# NVIDIA H100 80GB HBM3 at 700 W (chip_smoke.py phases 8 and 14: d 256, B 32,
+# each launch against its plain version, the worst of 8 seeded inputs), the
+# worst launch of the encoder / decoder chain reads 5.0e-6 / 5.6e-6 of its
+# largest value at ff 1,024, 1.04e-5 / 1.01e-5 at 2,048, 1.9e-5 / 2.0e-5 at
+# 4,096 and 4.0e-5 / 4.1e-5 at 8,192, against the chain's 1e-5 bar. Wider f32
+# layers take the unfused path (a forced switch raises).
+F32_MAX_FF = 1024
+
+
 def supports_fused_layer(d_model: int, n_heads: int, dim_feedforward: int,
                          seq_len: int, dtype=torch.float32) -> bool:
     """Whether the chain of ``csrc/layer_sm90.cu`` takes this layer in
@@ -232,9 +244,11 @@ def supports_fused_layer(d_model: int, n_heads: int, dim_feedforward: int,
     so it takes any hd. Rows and the head count are otherwise free: the
     products' ragged edges are TMA's zero fill.
 
-    In f32 this admits every width of ``configs/*.yaml`` at T 32: d 32 with
-    16 heads (hd 2) and ff 512, d 32 / 4 heads / ff 16, d 64 / 16 / 256, d
-    256 / 16 / 64, d 256 / 2 / 512 and d 256 / 2 / 2048. The f32 CUDA-core
+    f32 also needs ff ≤ ``F32_MAX_FF`` (1,024: the widest measured ff whose
+    unpromoted sums hold the chain's 1e-5 bar on the card). In f32 this
+    admits every width of ``configs/*.yaml`` at T 32 but the lm config's ff
+    2,048: d 32 with 16 heads (hd 2) and ff 512, d 32 / 4 heads / ff 16, d 64
+    / 16 / 256, d 256 / 16 / 64 and d 256 / 2 / 512. The f32 CUDA-core
     kernels this chain replaced took, by shared memory alone, what this gate
     now refuses: d from 264 up to about 352 (beyond the LayerNorm tile), and
     d or ff a multiple of 4 but not of 8. Under auto those widths take the
@@ -246,6 +260,8 @@ def supports_fused_layer(d_model: int, n_heads: int, dim_feedforward: int,
     if dtype not in KERNEL_DTYPES or n_heads < 1 or d_model % n_heads or not 1 <= seq_len <= MAX_T:
         return False
     if dtype == torch.bfloat16 and (d_model // n_heads) % 8:
+        return False
+    if dtype == torch.float32 and dim_feedforward > F32_MAX_FF:
         return False
     return (8 <= d_model <= layer_sm90.LN_TILE and d_model % 8 == 0
             and dim_feedforward >= 8 and dim_feedforward % 8 == 0)

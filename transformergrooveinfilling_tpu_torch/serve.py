@@ -34,10 +34,11 @@ standard MIDI file (``midi_base64``), as the JAX server does. A body naming an
 (the JAX server ignores the field).
 
 The CLI serves a native ``.ckpt`` (either package's; the architecture comes
-from the file), a directory (newest epoch wins, a ``.Model`` as fallback) or a
-reference ``.Model`` (with the architecture flags).
-
-Not ported yet, raising :class:`NotPortedError`: ``--artifact`` export files.
+from the file), a directory (newest epoch wins, a ``.Model`` as fallback), a
+reference ``.Model`` (with the architecture flags), or an ``export.py``
+artifact (``--artifact``; either package's): :meth:`InfillServer.from_exported`
+rebuilds the model from the artifact's config and parameters, and its buckets
+and threshold apply unless ``--batch-sizes`` / ``--thres`` are given.
 """
 
 from __future__ import annotations
@@ -56,7 +57,7 @@ from typing import Sequence
 import numpy as np
 import torch
 
-from . import NotPortedError, require_device
+from . import require_device
 from .models import build_model
 from .models.transformer import GrooveTransformerConfig
 
@@ -177,6 +178,24 @@ class InfillServer:
             torch.cuda.synchronize(self.device)
         self._coalescer = (_Coalescer(self, coalesce_wait_ms) if coalesce
                            else None)
+
+    @classmethod
+    def from_exported(cls, path: str, **kwargs) -> "InfillServer":
+        """A full server (coalescing, HTTP, stats) from an artifact written by
+        ``export.export_infill`` (either package's): the model is rebuilt
+        from the artifact's config and parameters, on the card with the
+        attention kernel; ``batch_sizes``, ``use_thres`` and ``thres``
+        default to the artifact's. ``export.load_infill`` runs the
+        artifact's own programs instead, without the model code."""
+        from .export import load_infill
+        from .train.checkpoint import config_from_json_dict
+
+        loaded = load_infill(path, device=kwargs.get("device", "cuda"))
+        config = config_from_json_dict(loaded.config_dict)
+        kwargs.setdefault("batch_sizes", tuple(loaded.batch_sizes))
+        kwargs.setdefault("use_thres", loaded.meta["use_thres"])
+        kwargs.setdefault("thres", loaded.meta["thres"])
+        return cls(loaded.params, config, **kwargs)
 
     @torch.inference_mode()
     def _forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -479,20 +498,27 @@ def main(argv=None, block: bool = True):
     """Serve a trained checkpoint over HTTP.
 
     Usage: python -m transformergrooveinfilling_tpu_torch.serve \\
-               --ckpt <file-or-dir> [--port 8327] [--batch-sizes 1 8 32]
+               (--ckpt <file-or-dir> | --artifact <m.tgix>) [--port 8327]
+               [--batch-sizes 1 8 32] [--thres 0.5]
     A native ``.ckpt`` carries its model config; legacy ``.Model`` files
-    carry none: pass the architecture flags.
+    carry none: pass the architecture flags. An artifact carries its config,
+    buckets and threshold; a flag given overrides them.
     Returns the HTTP server (with ``block=False`` it serves on a thread).
     """
     import argparse
 
     p = argparse.ArgumentParser()
     p.add_argument("--ckpt", help=".ckpt/.Model file, or a directory (newest epoch wins)")
-    p.add_argument("--artifact", help="export.py artifact (.tgix): not ported yet")
+    p.add_argument("--artifact",
+                   help="serve an export.py artifact (.tgix) instead of a checkpoint: "
+                        "config, params, buckets and threshold come from it unless "
+                        "--batch-sizes/--thres override")
     p.add_argument("--host", default="127.0.0.1")
     p.add_argument("--port", type=int, default=8327)
-    p.add_argument("--batch-sizes", type=int, nargs="*", default=[1, 8, 32])
-    p.add_argument("--thres", type=float, default=0.5)
+    # None: with --artifact an unset flag defers to the artifact's buckets and
+    # threshold; with --ckpt it means 1 8 32 and 0.5
+    p.add_argument("--batch-sizes", type=int, nargs="*", default=None)
+    p.add_argument("--thres", type=float, default=None)
     p.add_argument("--device", default="cuda")
     p.add_argument("--no-kernel", action="store_true",
                    help="plain PyTorch attention instead of the CUDA kernel")
@@ -506,10 +532,20 @@ def main(argv=None, block: bool = True):
     p.add_argument("--num_encoder_layers", type=int, default=6)
     p.add_argument("--embedding_size_src", type=int, default=16)
     args = p.parse_args(argv)
+    if bool(args.ckpt) == bool(args.artifact):
+        p.error("exactly one of --ckpt / --artifact is required")
+    kw = dict(use_kernel=False if args.no_kernel else None, coalesce=args.coalesce,
+              device=args.device)
+
     if args.artifact:
-        raise NotPortedError("--artifact (.tgix export files) is not ported yet")
-    if not args.ckpt:
-        p.error("--ckpt is required")
+        if args.batch_sizes is not None:
+            kw["batch_sizes"] = args.batch_sizes
+        if args.thres is not None:
+            kw["thres"] = args.thres
+        server = InfillServer.from_exported(args.artifact, **kw)
+        print(f"serving artifact {args.artifact} (buckets {server.batch_sizes}, "
+              f"{server.device}) on http://{args.host}:{args.port}/infill")
+        return server.serve_http(host=args.host, port=args.port, block=block)
 
     legacy_config = GrooveTransformerConfig(
         d_model=args.d_model, n_heads=args.n_heads,
@@ -518,9 +554,9 @@ def main(argv=None, block: bool = True):
         embedding_size_src=args.embedding_size_src)
     state_dict, config, _ep, _loss = load_checkpoint(args.ckpt, legacy_config)
     server = InfillServer(
-        state_dict, config, batch_sizes=args.batch_sizes, thres=args.thres,
-        use_kernel=False if args.no_kernel else None, coalesce=args.coalesce,
-        device=args.device)
+        state_dict, config,
+        batch_sizes=args.batch_sizes if args.batch_sizes is not None else (1, 8, 32),
+        thres=args.thres if args.thres is not None else 0.5, **kw)
     print(f"serving {args.ckpt} ({config.d_model}d/{config.num_encoder_layers}L, "
           f"{server.device}) on http://{args.host}:{args.port}/infill")
     return server.serve_http(host=args.host, port=args.port, block=block)
