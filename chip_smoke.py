@@ -262,6 +262,24 @@ then non-zero):
             -m transformergrooveinfilling_tpu_torch.tutorial`` on the card;
             export and load seconds, artifact and ``params.msgpack`` bytes,
             B = 1 p50/p99 of the program beside the server.
+25. batched sweeps  (``train/vmap_sweep.py``, ``sweep.py``) on phase 21's
+            datasets: one group of 8 trials at the flagship width (learning
+            rate, penalty and dropout drawn from
+            configs/InfillingRandom_sweep.yaml; one lr 0) trained 2 SGD epochs
+            by ``make_batched_sweep_fn`` (losses finite and distinct, the lr-0
+            trial's weights bit for bit); ``stacked_eval_loss`` through #1's
+            vmap rule (6 launches a stacked forward for the 8 trials, each
+            trial's loss at the dtype's bar of its eager forward) and the
+            folded launch at (K·B, 2, 32, 128) against its plain version
+            (phase 3's bars); the sweep command line in child processes,
+            ``--batched --count 5`` with the flagship's architecture pinned
+            (one vmapped group), ``--batched --count 3`` on
+            configs/InfillingRandom_sweep.yaml as it stands (groups of one,
+            each through the regular step and #2's chain) and ``--count 1``
+            (``train`` with #2 and, in its final eval, #1), no trial failed;
+            then, the card to itself, the folded launch timed beside SDPA
+            and trial·seqs/s at K 1, 2, 4, 5 and 8 beside one trial through
+            ``make_epoch_fn`` (#2's chain); the phase's seconds.
 
 Then one line ``{"kernels": [...]}``, the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``. Without CUDA it exits non-zero and prints
@@ -320,6 +338,7 @@ from transformergrooveinfilling_tpu_torch.models import torch_compat
 from transformergrooveinfilling_tpu_torch.train.driver import _GracefulStop
 from transformergrooveinfilling_tpu_torch.train.loop import fetch
 from transformergrooveinfilling_tpu_torch.utils import logging as xlog
+from transformergrooveinfilling_tpu_torch.utils import yaml_subset
 from transformergrooveinfilling_tpu_torch.train.config import (
     embedding_size_src_for, resolve_fused_decoder_layer, resolve_fused_ffn, resolve_fused_layer,
     resolve_remat,
@@ -4469,6 +4488,299 @@ tutorial`` on the card, #1, #6 and #7 launched; (d) B = 1 in-process
     return out
 
 
+# phase 25: batched sweeps
+SWEEP_CONFIG = os.path.join(ROOT, "configs", "InfillingRandom_sweep.yaml")
+CLI_SWEEP = "transformergrooveinfilling_tpu_torch.sweep"
+SWEEP_TRIALS = 8  # K of the in-process group
+SWEEP_EPOCHS = 2
+SWEEP_THROUGHPUT_STEPS = 20  # steps a throughput turn (batch 32)
+SWEEP_KS = (1, 2, 4, 5, 8)
+# --count of the batched command lines: the pinned one a group that vmaps
+# (sweep.VMAP_MIN_TRIALS), both within the 5 ranked lines a sweep prints
+SWEEP_CLI_TRIALS = {"pinned": 5, "unpinned": 3}
+# the flagship's architecture, pinned in the command lines' sweep files
+SWEEP_PINNED = {k: FLAGSHIP_HP[k] for k in (
+    "batch_size", "d_model", "dim_feedforward", "n_heads", "num_encoder_decoder_layers")}
+
+
+def sweep_file(path: str, metric: str, **pinned) -> dict:
+    """configs/InfillingRandom_sweep.yaml with ``pinned`` parameters as
+    values and ``metric`` minimised, written to ``path`` in flow style (the
+    port's YAML reader reads it back to the same parameters)."""
+    spec = yaml_subset.load_file(SWEEP_CONFIG)
+    params = {**spec["parameters"], **{k: {"value": v} for k, v in pinned.items()}}
+    lines = [f"method: {spec['method']}", f"metric: {{goal: minimize, name: {metric}}}",
+             f"project: '{spec['project']}'", "parameters:"]
+    lines += ["  " + k + ": {" + ", ".join(f"{a}: {b!r}" for a, b in v.items()) + "}"
+              for k, v in params.items()]
+    with open(path, "w") as f:
+        f.write("\n".join(lines) + "\n")
+    check(yaml_subset.load_file(path)["parameters"] == params, f"{path} reads back otherwise")
+    return params
+
+
+def phase_sweep(dev, smi: str, root: str) -> dict:
+    """25. batched sweeps on phase 21's datasets under ``root``: (a) in
+    process, one group of 8 trials at the flagship width (batch 32, the
+    flagship's resolved dtype, the whole-layer kernels off as in any batched
+    group) with learning rate, hit-loss penalty and dropout drawn from
+    configs/InfillingRandom_sweep.yaml (seed 0; trial 0's lr set to 0), 2
+    SGD epochs on the 3,300-item train split through
+    ``make_batched_sweep_fn``: losses finite and distinct, the lr-0 trial's
+    weights bit for bit; (b) ``stacked_eval_loss`` over the whole set: #1
+    launched 6 times a stacked forward for the 8 trials (its vmap rule folds
+    them), each trial's loss within the dtype's bar of the same trial's eager
+    eval forward (#1 by the ctypes call), and the folded launch at (K·B, 2,
+    32, 128) against its plain version (phase 3's bars), K 8 × B 32 and
+    3,300; (c) in child processes ``python -m
+    transformergrooveinfilling_tpu_torch.sweep``, 1 epoch: ``--count 5
+    --batched`` on the sweep file with the flagship's architecture pinned
+    (one group of 5, vmapped, every trial ranked), ``--count 3 --batched`` on
+    configs/InfillingRandom_sweep.yaml as it stands (its draws sample the
+    architecture: 3 groups of one trial, each through the regular step, #2's
+    chain where its auto resolves on), and ``--count 1`` on the pinned file
+    with the metric ``validation_loss`` (which loads the validation evaluator
+    of phase 22, so the trial's final eval runs #1 beside #2's chain in its
+    training), no trial failed; the group sizes that ``--count 32`` (seed 0)
+    draws of every configs/*_sweep*.yaml give. The children start first and
+    run beside (a) and (b), whose seconds are therefore the card shared;
+    (d), timed after they end, the card to itself: the ranking forward, the
+    folded call at K 8 × B 3,300 in bf16 beside SDPA on the folded views,
+    and trial·seqs/s of the vmapped step at K 1, 2, 4, 5 and 8 (20 steps of
+    batch 32 a turn, launches a step) beside one trial through
+    ``make_epoch_fn`` with the flagship's auto switches (#2's bf16 chain)."""
+    import glob
+    import random
+
+    from torch.func import vmap
+
+    from transformergrooveinfilling_tpu_torch import sweep
+    from transformergrooveinfilling_tpu_torch.data import load_processed_dataset
+    from transformergrooveinfilling_tpu_torch.train import vmap_sweep
+    from transformergrooveinfilling_tpu_torch.train.config import derive_model_config
+    from transformergrooveinfilling_tpu_torch.train.loop import make_eval_loss_fn
+
+    t_phase = time.perf_counter()
+    data = load_processed_dataset(os.path.join(root, "card", "datasets", "InfillingRandom",
+                                               "0.0.0", "train"), "InfillingRandom")
+    x = torch.as_tensor(data.processed_inputs, dtype=torch.float32, device=dev)
+    y = torch.as_tensor(data.processed_outputs, dtype=torch.float32, device=dev)
+    n = x.shape[0]
+    hp = HyperParams.from_dict(FLAGSHIP_HP)
+    config = sweep.batched_config(hp, FLAGSHIP_HP, dev)
+    dtype = config.compute_dtype
+    check(config.use_fused_attention and not config.fused_layer and not config.remat,
+          f"the batched group's config: {config}")
+    spec = yaml_subset.load_file(SWEEP_CONFIG)
+    draw = random.Random(0)
+    drawn = [sweep.sample_config(spec, draw) for _ in range(SWEEP_TRIALS)]
+    lrs = [0.0] + [t["learning_rate"] for t in drawn[1:]]
+    pens = [t["hit_loss_penalty"] for t in drawn]
+    rates = [t["dropout"] for t in drawn]
+    model = build_model(config, dev)
+    on = functools.partial(torch.tensor, dtype=torch.float32, device=dev)
+    seconds = {"setup": time.perf_counter() - t_phase}
+
+    # (c) the command line, batched and sequential, in child processes,
+    # started first: they run beside (a) and (b), and end before (d) is timed
+    cwd = os.path.join(root, "sweep")
+    os.makedirs(cwd, exist_ok=True)
+    paths = os.path.join(root, "paths_eval.yaml")  # phase 22's: datasets and evaluators
+    files = {"pinned": os.path.join(cwd, "pinned_sweep.yaml"),
+             "unpinned": SWEEP_CONFIG,
+             "sequential": os.path.join(cwd, "sequential_sweep.yaml")}
+    sweep_file(files["pinned"], "loss", epochs=1, **SWEEP_PINNED)
+    sweep_file(files["sequential"], "validation_loss", epochs=1, **SWEEP_PINNED)
+    started = {mode: start_cli(CLI_SWEEP, ["--sweep", files[mode], "--count", str(count),
+                                           "--batched", "--epochs", "1", "--paths", paths],
+                               os.path.join(cwd, mode))
+               for mode, count in SWEEP_CLI_TRIALS.items()}
+    started["sequential"] = start_cli(CLI_SWEEP, ["--sweep", files["sequential"], "--count",
+                                                  "1", "--paths", paths],
+                                      os.path.join(cwd, "sequential"))
+
+    # (a) the group
+    init = vmap_sweep.init_stacked_params(model, config, SWEEP_TRIALS,
+                                          torch.Generator().manual_seed(0), dev)
+    fn = vmap_sweep.make_batched_sweep_fn(model, hp.batch_size, n, SWEEP_EPOCHS,
+                                          config=config)
+    MHA.launches = 0
+    reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params, last = fn(init, (), on(lrs), on(pens), on(rates), x, y,
+                      torch.Generator(dev).manual_seed(1))
+    last = last.tolist()
+    group_s = time.perf_counter() - t0  # the card shared with the children
+    train_launches = {"fused_mha": MHA.launches, **{
+        k: v for k, v in launches({**LAYER_KERNELS, **ffn.KERNELS, **ln.KERNELS}).items() if v}}
+    check(all(np.isfinite(last)) and len(set(last)) == SWEEP_TRIALS,
+          f"the group's last-batch losses: {last}")
+    check(all(torch.equal(params[k][0], init[k][0]) for k in init),
+          "the lr-0 trial's weights moved")
+    seconds["group"] = time.perf_counter() - t0
+
+    # (b) the ranking forward through #1's vmap rule, against eager forwards
+    MHA.launches = 0
+    t0 = time.perf_counter()
+    stacked = vmap_sweep.stacked_eval_loss(model, params, x, y, pens, device=dev).tolist()
+    eval_launches = MHA.launches
+    check(eval_launches == FLAGSHIP.num_encoder_layers,
+          f"a stacked eval forward of {SWEEP_TRIALS} trials launched #1 {eval_launches} times")
+    eager = []
+    for k in range(SWEEP_TRIALS):
+        model.load_state_dict({name: v[k] for name, v in params.items()})
+        eager.append(float(make_eval_loss_fn(pens[k])(model, x, y)["loss"]))
+    bar = MHA_BARS[dtype][0]
+    eval_err = max(abs(a - b) / abs(b) for a, b in zip(stacked, eager))
+    check(eval_err <= max(bar, 1e-5), f"stacked eval losses {stacked} against eager {eager}")
+
+    def folded(b, dt):
+        """q, k, v of K trials as the slices of a vmapped packed projection
+        (drawn on the card: at B 3,300 they are 650 M values)."""
+        packed = torch.randn((SWEEP_TRIALS, b, 32, 3 * 256), device=dev,
+                             generator=torch.Generator(dev).manual_seed(b)).to(dt)
+        split = lambda p: p.view(b, 32, 3, 2, 128).permute(2, 0, 3, 1, 4)  # noqa: E731
+        call = lambda: vmap(lambda p: attention.fused_mha_op(*split(p), False))(packed)  # noqa: E731
+        views = packed.view(SWEEP_TRIALS * b, 32, 3, 2, 128).permute(2, 0, 3, 1, 4)
+        return call, views
+
+    folded_checks, folded_err = [], 0.0
+    for b in (hp.batch_size, n):
+        for dt, (atol, rtol) in MHA_BARS.items():
+            call, views = folded(b, dt)
+            before = MHA.launches
+            got = call()
+            torch.cuda.synchronize()
+            check(MHA.launches == before + 1, "the folded call launched #1 more than once")
+            want = mha_reference(*(v.contiguous() for v in views)).view(got.shape)
+            err = max_err(got, want)
+            if dt == torch.float32:
+                folded_err = max(folded_err, err)
+            check(torch.allclose(got.float(), want.float(), atol=atol, rtol=rtol),
+                  f"#1 folded at {(SWEEP_TRIALS * b, 2, 32, 128)} {dt}: max abs err {err}")
+            folded_checks.append({"shape": [SWEEP_TRIALS * b, 2, 32, 128],
+                                  "dtype": str(dt)[6:], "max_abs_err": err})
+    seconds["ranking_and_folded_checks"] = time.perf_counter() - t0
+
+    # the group sizes the repository's sweep files draw (root's order, seed 0)
+    yaml_groups = {}
+    for path in sorted(glob.glob(os.path.join(ROOT, "configs", "*_sweep*.yaml"))):
+        draw, drawn_spec = random.Random(0), yaml_subset.load_file(path)
+        sizes = [len(g) for g in sweep.group_trials(
+            [sweep.sample_config(drawn_spec, draw) for _ in range(32)]).values()]
+        yaml_groups[os.path.basename(path)] = {"groups": len(sizes), "largest": max(sizes)}
+    # the unpinned command line's trials (its draws, seed 0): where #2's auto is on
+    draw = random.Random(0)
+    chained = [derive_model_config(HyperParams.from_dict(sweep.sample_config(spec, draw)),
+                                   device=dev).fused_layer
+               for _ in range(SWEEP_CLI_TRIALS["unpinned"])]
+
+    t1 = time.perf_counter()
+    cli = {}
+    for mode, proc in started.items():
+        run = finish_cli(proc, f"sweep {mode}")
+        out = run["stdout"]
+        check("trial failed" not in out, f"sweep {mode}: a trial failed:\n{out[-3000:]}")
+        cli[mode] = {"wall_seconds": run["wall_seconds"], "module_seconds": run["seconds"],
+                     "launches": run["launches"],
+                     "printed": [line for line in out.splitlines()
+                                 if line.startswith(("batched sweep", "--- group", "  loss ",
+                                                     "    ", "best "))]}
+    ranked = {mode: sum(line.startswith("  loss ") for line in cli[mode]["printed"])
+              for mode in SWEEP_CLI_TRIALS}
+    regular = {mode: sum("through the regular step" in line for line in cli[mode]["printed"])
+               for mode in SWEEP_CLI_TRIALS}
+    pinned = SWEEP_CLI_TRIALS["pinned"]
+    check(pinned >= sweep.VMAP_MIN_TRIALS and any(
+        f"{pinned} trials in 1 architecture group(s)" in line for line in cli["pinned"]["printed"])
+          and ranked["pinned"] == pinned and regular["pinned"] == 0,
+          f"the pinned batched sweep printed {cli['pinned']['printed']}")
+    check(cli["pinned"]["launches"]["fused_mha"] == FLAGSHIP.num_encoder_layers,
+          f"the pinned batched sweep's ranking launched #1 "
+          f"{cli['pinned']['launches']['fused_mha']} times for one group")
+    check(any("3 trials in 3 architecture group(s)" in line
+              for line in cli["unpinned"]["printed"])
+          and ranked["unpinned"] == 3 and regular["unpinned"] == 3,
+          f"the unpinned batched sweep printed {cli['unpinned']['printed']}")
+    chain_launches = cli["unpinned"]["launches"]
+    check(all((chain_launches[k] > 0) == any(chained) for k in fl.SM90_KERNELS)
+          and chain_launches["fused_mha"] > 0,
+          f"the unpinned batched sweep launched {chain_launches} (chain on: {chained})")
+    check(any(line.startswith("best validation_loss = ") for line in cli["sequential"]["printed"]),
+          f"the sequential sweep printed {cli['sequential']['printed']}")
+    seq = cli["sequential"]["launches"]
+    check(seq["fused_mha"] > 0 and all(seq[k] > 0 for k in fl.SM90_KERNELS),
+          f"the sequential trial launched {seq}")
+    seconds["waiting_for_the_command_lines"] = time.perf_counter() - t1
+
+    # (d) timed with the card to itself: the ranking forward, the folded
+    # call beside SDPA and the plain version, K trials a step against one
+    # trial through make_epoch_fn
+    t1 = time.perf_counter()
+    eval_s = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        vmap_sweep.stacked_eval_loss(model, params, x, y, pens, device=dev).tolist()
+        eval_s.append(time.perf_counter() - t0)
+    call, views = folded(n, torch.bfloat16)
+    sdpa = lambda: F.scaled_dot_product_attention(*views)  # noqa: E731
+    plain = lambda: mha_reference(*views)  # noqa: E731
+    k1, p1, l1, l2, p2, k2 = (time_us(f, 50) for f in (call, plain, sdpa, sdpa, plain, call))
+    folded_timing = {"shape": [SWEEP_TRIALS * n, 2, 32, 128], "dtype": "bfloat16",
+                     "kernel_us": [k1, k2], "plain_us": [p1, p2], "sdpa_us": [l1, l2],
+                     **mha_bound(SWEEP_TRIALS * n, 2, 32, 128, "bfloat16")}
+    del call, views
+    steps = SWEEP_THROUGHPUT_STEPS
+    part = (x[:steps * hp.batch_size], y[:steps * hp.batch_size])
+    throughput = {}
+    for k in SWEEP_KS:
+        step_fn = vmap_sweep.make_batched_sweep_fn(model, hp.batch_size, len(part[0]), 1,
+                                                   config=config)
+        args = ({name: v[:k].clone() for name, v in init.items()}, (), on(lrs[:k]),
+                on(pens[:k]), on(rates[:k]), *part)
+        step_fn(*args, torch.Generator(dev).manual_seed(2))  # warm-up
+        MHA.launches = 0
+        reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step_fn(*args, torch.Generator(dev).manual_seed(3))[1].tolist()
+        s = time.perf_counter() - t0
+        counts = {"fused_mha": MHA.launches, **launches({**LAYER_KERNELS, **ffn.KERNELS,
+                                                          **ln.KERNELS})}
+        throughput[f"K{k}"] = {"seconds": s, "trial_seqs_per_s": k * len(part[0]) / s,
+                               "launches_per_step": {a: c / steps for a, c in counts.items() if c}}
+    regular = create_train_state(derive_model_config(hp, device=dev), "sgd",
+                                 hp.learning_rate, device=dev)
+    epoch = make_epoch_fn(hp.hit_loss_penalty, hp.batch_size, len(part[0]))
+    fetch(epoch(regular, *part, torch.Generator(dev).manual_seed(2)))  # warm-up
+    reset_launches()
+    t0 = time.perf_counter()
+    fetch(epoch(regular, *part, torch.Generator(dev).manual_seed(3)))
+    s = time.perf_counter() - t0
+    chain = {k: v / steps for k, v in launches(fl.SM90_KERNELS).items()}
+    check(all(v == FLAGSHIP.num_encoder_layers for v in chain.values()),
+          f"make_epoch_fn launched #2's chain {chain} a step")
+    throughput["make_epoch_fn_one_trial"] = {
+        "seconds": s, "trial_seqs_per_s": len(part[0]) / s, "launches_per_step": chain}
+    seconds["throughput"] = time.perf_counter() - t1
+
+    out = {"card": smi, "trials": SWEEP_TRIALS, "epochs": SWEEP_EPOCHS, "items": n,
+           "dtype": str(dtype)[6:], "lrs": lrs, "penalties": pens, "rates": rates,
+           "group_seconds_card_shared": group_s, "yaml_group_sizes_count32": yaml_groups,
+           "unpinned_trials_chain_on": chained,
+           "last_batch_losses": last, "train_launches": train_launches,
+           "stacked_eval_losses": stacked, "eager_eval_losses": eager,
+           "eval_max_rel_err": eval_err, "eval_seconds": eval_s,
+           "eval_launches_per_stacked_forward": eval_launches,
+           "folded_checks": folded_checks, "folded_max_abs_err_f32": folded_err,
+           "folded_timing": folded_timing, "throughput": throughput, "cli": cli,
+           "seconds": {**seconds, "phase": time.perf_counter() - t_phase}}
+    emit({"phase": "sweep", **out})
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -4515,6 +4827,7 @@ def main() -> int:
         with tempfile.TemporaryDirectory(prefix="chip_smoke_midi_") as midi_root:
             midi = timed_phase(phase_midi_sf2, dev, smi, midi_root, srv, sd)
         artifact = timed_phase(phase_artifact, dev, smi, cli_root, srv, sd, evaluation)
+        swept = timed_phase(phase_sweep, dev, smi, cli_root)
     emit({"phase_seconds": took})
     def mha_row(b, dtype, form="contiguous"):
         return next(t for t in kernel["timings"]
@@ -4544,6 +4857,15 @@ def main() -> int:
                                    for name, m in artifact["models"].items()},
         "launches_from_exported_hvo_input": artifact["from_exported_hvo_input"]["launches"][
             "fused_mha"],
+        "launches_stacked_eval_forward": swept["eval_launches_per_stacked_forward"],
+        "launches_sweep_cli": {mode: run["launches"]["fused_mha"]
+                               for mode, run in swept["cli"].items()},
+        f"vmap_folded_K{SWEEP_TRIALS}xB{swept['items']}_bfloat16": {
+            "ms": float(np.mean(swept["folded_timing"]["kernel_us"])) / 1000.0,
+            "plain_ms": float(np.mean(swept["folded_timing"]["plain_us"])) / 1000.0,
+            "bound_ms": swept["folded_timing"]["bound_ms"],
+            "bound_by": swept["folded_timing"]["bound_by"],
+            "library_ms": float(np.mean(swept["folded_timing"]["sdpa_us"])) / 1000.0},
         "max_abs_err": kernel["max_abs_err"], **mha_at(b1),
         **{f"B{b}_{dtype}_{form}": mha_at(mha_row(b, dtype, form))
            for b, dtype in ((1, "float32"), (512, "float32"), (512, "bfloat16"), (1, "bfloat16"))
@@ -4552,7 +4874,9 @@ def main() -> int:
             mha_row(EVAL_ROWS["train"], "bfloat16", "packed_qkv")),
         "at": "B 1, H 2, T 32, hd 128, float32, contiguous; ms: stream time; device_ms: the "
               "profiler's per launch; err over all f32 checks; library: "
-              "scaled_dot_product_attention on the same views"}]
+              "scaled_dot_product_attention on the same views; vmap_folded: one call of "
+              "tgi::fused_mha under torch.func.vmap over 8 trials (phase 25's ranking "
+              "forward), stream time, SDPA on the folded views"}]
 
     def timing(phase_out, b, dtype):
         return next(t for t in phase_out["timings"] if t["B"] == b and t["dtype"] == dtype)
@@ -4567,7 +4891,9 @@ def main() -> int:
                 **{f"launches_cli_train_{mode}": run["launches"]
                    for mode, run in cli["train"].items()},
                 "launches_eval_training_path": evaluation["train"]["launches"],
-                "launches_kit_training_path": midi["train"]["launches"]}),
+                "launches_kit_training_path": midi["train"]["launches"],
+                "launches_sweep_sequential_path": swept["cli"]["sequential"]["launches"],
+                "launches_sweep_regular_step_path": swept["cli"]["unpinned"]["launches"]}),
               ("decoder", dec_layer, fdl, DEC_TPU_KERNELS, encdec, {}))
     for which, out, mod, tpu, path, more in layers:
         for dtype in (torch.bfloat16, torch.float32):

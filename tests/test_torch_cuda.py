@@ -66,6 +66,30 @@ def test_kernel_refuses_a_cpu_tensor_mix(cuda):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype, tol", [(torch.float32, 1e-5), (torch.bfloat16, 2e-2)])
+def test_vmap_rule_folds_the_trials_into_one_launch(cuda, rng, dtype, tol):
+    """``tgi::fused_mha`` under ``torch.func.vmap`` over 8 trials' packed qkv
+    projections (a batched sweep's ranking forward): one launch at the folded
+    (8·64, 2, 32, 128), each trial equal to ``mha_reference``."""
+    k_trials, b, t, h, hd = 8, 64, 32, 2, 128
+    packed = torch.from_numpy(rng.standard_normal((k_trials, b, t, 3 * h * hd))
+                              .astype(np.float32)).to(cuda, dtype)
+
+    def split(p):
+        return p.view(b, t, 3, h, hd).permute(2, 0, 3, 1, 4)
+
+    before = attention.KERNEL.launches
+    got = torch.func.vmap(lambda p: attention.fused_mha_op(*split(p), False))(packed)
+    torch.cuda.synchronize()
+    assert attention.KERNEL.launches == before + 1
+    assert got.shape == (k_trials, b, h, t, hd)
+    for i in range(k_trials):
+        want = attention.mha_reference(*(x.contiguous() for x in split(packed[i])))
+        torch.testing.assert_close(got[i].float(), want.float(), atol=tol,
+                                   rtol=0 if dtype == torch.float32 else tol)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("causal", [False, True])
 @pytest.mark.parametrize("dtype, tol", [(torch.float32, 1e-5), (torch.bfloat16, 2e-2)])
 @pytest.mark.parametrize("form", ["self", "cross"])

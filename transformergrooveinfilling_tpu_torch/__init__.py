@@ -41,18 +41,20 @@ Layering (bottom → top), as far as it is ported:
 - ``train``     the training contract (``initialize_model`` + ``train_loop``),
                 the production loop ``run_training`` with its eval pass over
                 resident eval sets, checkpoints in the JAX package's format,
-                step and epoch functions, hyperparameters
+                step and epoch functions, hyperparameters, batched sweeps
+                (K trials in one ``torch.func.vmap`` program)
 - ``serve``     bucketed inference server, dynamic batching, HTTP endpoint
 - ``export``    serving artifacts: ``torch.export`` programs per batch bucket
                 with the attention kernel inside, parameters beside them;
                 loading one needs no model code
 - ``process_dataset``, ``process_evaluator``, ``train``, ``evaluate``,
-                ``export`` (``python -m``)  the command lines of the repository's root
-                ``process_dataset.py``, ``process_evaluator.py``, ``train.py``
-                and the JAX package's ``evaluate.py`` and ``export.py``
+                ``export``, ``sweep`` (``python -m``)  the command lines of the
+                repository's root ``process_dataset.py``, ``process_evaluator.py``,
+                ``train.py``, ``sweep.py`` and the JAX package's ``evaluate.py``
+                and ``export.py``
 - ``tutorial``  (``python -m``) the walkthrough of root ``tutorial.py``
 
-Not ported yet (see ROADMAP.md): batched sweeps, multi-GPU. Every
+Not ported yet (see ROADMAP.md): multi-GPU. Every
 function of the JAX package that reaches a Pallas kernel has its CUDA
 counterpart here.
 Every entry point runs on ``"cuda"`` unless the caller names another device,

@@ -44,6 +44,14 @@ raises ``ValueError``. ``remat`` runs each layer under
 ``torch.utils.checkpoint`` and replays ``generator`` in the recompute, so the
 backward sees the masks of the forward. No switch changes a parameter's name
 or shape.
+
+``forward(..., dropout_rate=r)`` overrides the config's rate at every dropout
+site of a training forward with the 0-d tensor ``r`` (``ops/dropout.py::
+fast_dropout_as_data``), as a traced rate does in the JAX model: what a
+batched sweep (``train/vmap_sweep.py``) vmaps over, a rate per trial. The
+kernel switches take the config's rate only and raise with a per-call one.
+Under ``torch.func.vmap`` an inference forward's attention goes through the
+operator ``tgi::fused_mha`` and its vmap rule (``ops/attention.py``).
 """
 
 from __future__ import annotations
@@ -57,6 +65,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch._C._functorch import is_batchedtensor
 from torch.utils import checkpoint as torch_checkpoint
 
 from .. import require_device
@@ -279,8 +288,10 @@ class SelfAttention(nn.Module):
             k, v = k_v.view(b, kv.shape[1], 2, h, d // h).permute(2, 0, 3, 1, 4)
         if dropout is not None:
             out = attention_train(q, k, v, *dropout, causal=self.causal)
-        elif self.attend is fused_mha and torch.compiler.is_exporting():
-            # a traced forward (export.py) holds the kernel as one operator
+        elif self.attend is fused_mha and (torch.compiler.is_exporting()
+                                           or is_batchedtensor(q)):
+            # a traced forward (export.py) holds the kernel as one operator;
+            # under vmap the operator's rule folds the trials into one launch
             out = fused_mha_op(q, k, v, self.causal)
         else:
             out = self.attend(q, k, v, self.causal)
@@ -316,6 +327,8 @@ def _ffn(layer: nn.Module, x: torch.Tensor, dropout=None) -> torch.Tensor:
     return _linear(ff, layer.linear2.weight, layer.linear2.bias, layer.dtype)
 
 
+# the training switches whose kernels take the config's dropout rate, a float
+KERNEL_SWITCHES = ("fused_layer", "fused_decoder_layer", "fused_ffn", "fused_dropout_ln")
 REMAT_POLICIES = (None, "nothing", "dots")
 # what "dots" keeps from the forward: the dense products' outputs (JAX's
 # dots_with_no_batch_dims_saveable: not the attention's batched products)
@@ -356,6 +369,12 @@ def _remat(config: "GrooveTransformerConfig", generator, layer, *tensors) -> tor
     return torch_checkpoint.checkpoint(run, *tensors, use_reentrant=False, **kwargs)
 
 
+def _rate(config: "GrooveTransformerConfig", dropout_rate):
+    """The rate of a training forward's dropout sites: the per-call tensor
+    when one is given, else the config's."""
+    return config.dropout if dropout_rate is None else dropout_rate
+
+
 def _layer_seed(generator, device) -> torch.Tensor:
     """One int32 seed for a fused layer's dropout stream (per step and layer)."""
     return torch.randint(0, 2**31 - 1, (1,), generator=generator, device=device,
@@ -377,14 +396,14 @@ class EncoderLayer(nn.Module):
         self.norm1 = nn.LayerNorm(cfg.d_model, eps=1e-5, device=device)
         self.norm2 = nn.LayerNorm(cfg.d_model, eps=1e-5, device=device)
 
-    def forward(self, x: torch.Tensor, generator=None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, generator=None, dropout_rate=None) -> torch.Tensor:
         if not self.training:
             x = _add_layer_norm(x, self.self_attn(x), self.norm1)
             return _add_layer_norm(x, _ffn(self, x), self.norm2)
         cfg = self.config
         if cfg.fused_layer:
             return self._fused(x, generator)
-        drop = (cfg.dropout, cfg.fast_dropout, generator)
+        drop = (_rate(cfg, dropout_rate), cfg.fast_dropout, generator)
         fused_ln = cfg.fused_dropout_ln
         x = _drop_add_layer_norm(x, self.self_attn(x, dropout=drop), self.norm1, *drop, fused_ln)
         return _drop_add_layer_norm(x, _ffn(self, x, drop), self.norm2, *drop, fused_ln)
@@ -433,7 +452,8 @@ class DecoderLayer(nn.Module):
         self.norm2 = nn.LayerNorm(cfg.d_model, eps=1e-5, device=device)
         self.norm3 = nn.LayerNorm(cfg.d_model, eps=1e-5, device=device)
 
-    def forward(self, y: torch.Tensor, memory: torch.Tensor, generator=None) -> torch.Tensor:
+    def forward(self, y: torch.Tensor, memory: torch.Tensor, generator=None,
+                dropout_rate=None) -> torch.Tensor:
         if not self.training:
             y = _add_layer_norm(y, self.self_attn(y), self.norm1)
             y = _add_layer_norm(y, self.multihead_attn(y, kv=memory), self.norm2)
@@ -441,7 +461,7 @@ class DecoderLayer(nn.Module):
         cfg = self.config
         if cfg.fused_decoder_layer:
             return self._fused(y, memory, generator)
-        drop = (cfg.dropout, cfg.fast_dropout, generator)
+        drop = (_rate(cfg, dropout_rate), cfg.fast_dropout, generator)
         fused_ln = cfg.fused_dropout_ln
         y = _drop_add_layer_norm(y, self.self_attn(y, dropout=drop), self.norm1, *drop, fused_ln)
         ca = self.multihead_attn(y, dropout=drop, kv=memory)
@@ -517,35 +537,47 @@ class GrooveTransformerEncoder(nn.Module):
     def _build_decoder(self, device) -> None:
         """Nothing here; :class:`GrooveTransformer` adds its decoder."""
 
-    def _embed(self, input_layer: InputLayer, x: torch.Tensor, generator) -> torch.Tensor:
+    def _embed(self, input_layer: InputLayer, x: torch.Tensor, generator,
+               dropout_rate) -> torch.Tensor:
         x = input_layer(x.to(self.config.compute_dtype))
         if self.training:
-            x = drop_site(x, generator, self.config.dropout, self.config.fast_dropout)
+            x = drop_site(x, generator, _rate(self.config, dropout_rate),
+                          self.config.fast_dropout)
         return x
 
-    def _encode(self, src: torch.Tensor, generator) -> torch.Tensor:
+    def _encode(self, src: torch.Tensor, generator, dropout_rate) -> torch.Tensor:
         """The encoder stack's f32 normalised output; checks what a training
         forward needs."""
         if self.training and generator is None:
             raise ValueError("a training forward needs a torch.Generator "
                              "for its dropout draws")
+        if self.training and dropout_rate is not None:
+            forced = [s for s in KERNEL_SWITCHES if getattr(self.config, s)]
+            if forced:
+                raise ValueError(f"{', '.join(forced)}: the kernels take the config's "
+                                 "dropout rate, not a per-call dropout_rate")
         stack = self.Encoder["Encoder"]
-        x = self._embed(self.InputLayerEncoder, src, generator)
+        x = self._embed(self.InputLayerEncoder, src, generator, dropout_rate)
         for layer in stack["layers"]:
-            x = self._run_layer(layer, generator, x)
+            x = self._run_layer(layer, generator, dropout_rate, x)
         return _final_norm(x, stack["norm"])
 
-    def _run_layer(self, layer, generator, *tensors) -> torch.Tensor:
+    def _run_layer(self, layer, generator, dropout_rate, *tensors) -> torch.Tensor:
         """One encoder or decoder layer, rematerialised in ``train()`` mode
         when the config says so."""
+        if dropout_rate is not None:
+            layer = functools.partial(layer, dropout_rate=dropout_rate)
         if self.training and self.config.remat:
             return _remat(self.config, generator, layer, *tensors)
         return layer(*tensors, generator)
 
-    def forward(self, src: torch.Tensor, generator: Optional[torch.Generator] = None):
+    def forward(self, src: torch.Tensor, generator: Optional[torch.Generator] = None,
+                dropout_rate: Optional[torch.Tensor] = None):
         """``generator`` (on ``src``'s device) feeds every dropout site in
-        ``train()`` mode; ``eval()`` mode needs none."""
-        return self.OutputLayer(self._encode(src, generator))  # heads in f32
+        ``train()`` mode; ``eval()`` mode needs none. ``dropout_rate``: a 0-d
+        tensor that replaces the config's rate at every site (module
+        docstring)."""
+        return self.OutputLayer(self._encode(src, generator, dropout_rate))  # heads in f32
 
 
 class GrooveTransformer(GrooveTransformerEncoder):
@@ -566,19 +598,20 @@ class GrooveTransformer(GrooveTransformerEncoder):
             "norm": nn.LayerNorm(cfg.d_model, eps=1e-6, device=device)})})
 
     def forward(self, src: torch.Tensor, tgt: Optional[torch.Tensor] = None,
-                generator: Optional[torch.Generator] = None):
-        """``tgt=None`` (serving) decodes over zeros. ``generator`` as the
-        encoder-only model's."""
+                generator: Optional[torch.Generator] = None,
+                dropout_rate: Optional[torch.Tensor] = None):
+        """``tgt=None`` (serving) decodes over zeros. ``generator`` and
+        ``dropout_rate`` as the encoder-only model's."""
         cfg = self.config
-        memory = self._encode(src, generator).to(cfg.compute_dtype)
+        memory = self._encode(src, generator, dropout_rate).to(cfg.compute_dtype)
         if tgt is None:
             tgt = src.new_zeros(src.shape[:-1] + (cfg.embedding_size_tgt,))
         # shift right with a zero "start" row (teacher forcing)
         tgt_in = torch.cat([torch.zeros_like(tgt[..., :1, :]), tgt[..., :-1, :]], dim=-2)
         stack = self.Decoder["Decoder"]
-        y = self._embed(self.InputLayerDecoder, tgt_in, generator)
+        y = self._embed(self.InputLayerDecoder, tgt_in, generator, dropout_rate)
         for layer in stack["layers"]:
-            y = self._run_layer(layer, generator, y, memory)
+            y = self._run_layer(layer, generator, dropout_rate, y, memory)
         return self.OutputLayer(_final_norm(y, stack["norm"]))  # heads in f32
 
 

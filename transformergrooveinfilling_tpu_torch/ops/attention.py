@@ -44,6 +44,17 @@ holds this kernel, not the plain attention (where JAX's artifacts take the
 plain path: a Mosaic custom call would pin them to one TPU toolchain, while
 the operator here is the kernel built from ``csrc/`` at first use); loading
 such a program needs this module imported, and nothing of the model.
+
+The operator also has a ``vmap`` rule, the second call site: a batched
+sweep's ranking forward (``train/vmap_sweep.py::stacked_eval_loss``) runs the
+model under ``torch.func.vmap`` over K trials' stacked weights, and there the
+model's attention calls the operator too (its input is a batched tensor, which
+a ctypes launch cannot read). The kernel does not depend on the weights, so
+the rule folds the trial axis into the batch axis, ``(K, B, H, T, hd) → (K·B,
+H, T, hd)``, and launches once for all K trials: a view when the trial stride
+is B times the batch stride, as it is for the slices of a vmapped packed
+projection, else a contiguous copy; an operand without a trial axis is
+expanded. The result is the ``(K, B, H, T, hd)`` view of the folded output.
 """
 
 from __future__ import annotations
@@ -195,3 +206,15 @@ def fused_mha_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def _fused_mha_fake(q, k, v, causal):
     b, h, t, hd = q.shape
     return q.new_empty((b, t, h, hd)).transpose(1, 2)
+
+
+@fused_mha_op.register_vmap
+def _fused_mha_vmap(info, in_dims, q, k, v, causal):
+    """K trials in one launch: the trial axis of q, k and v moved to the
+    front and folded into the batch axis (see the module docstring)."""
+    n = info.batch_size
+    q, k, v = (x.expand(n, *x.shape) if dim is None else x.movedim(dim, 0)
+               for x, dim in zip((q, k, v), in_dims))
+    b = q.shape[1]
+    out = fused_mha_op(*(x.reshape(n * b, *x.shape[2:]) for x in (q, k, v)), causal)
+    return out.unflatten(0, (n, b)), 0

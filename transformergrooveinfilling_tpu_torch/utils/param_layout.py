@@ -11,6 +11,10 @@ carries these under the same names.
   its packed ``kv`` the other 2d).
 - :func:`state_dict_from_flax_params` and its inverse
   :func:`flax_params_from_state_dict`, both through that table.
+- :func:`stacked_state_dict_from_flax_params` and
+  :func:`stacked_flax_params_from_state_dict`: the same with a leading trial
+  axis on every leaf, for the stacked weights of a batched sweep
+  (``train/vmap_sweep.py``; the JAX ``init_stacked_params``' trees).
 
 ``config`` is any object with ``d_model``, ``num_encoder_layers`` and
 ``num_decoder_layers`` (a ``GrooveTransformerConfig``, or an artifact's
@@ -108,3 +112,40 @@ def flax_params_from_state_dict(state_dict, config) -> dict:
         # a copy: on the CPU the state dict's tensors are the live parameters
         _set(params, path, np.array(a.T if transposed else a, dtype=np.float32, order="C"))
     return params
+
+
+def _trial(tree, k: int):
+    """Trial ``k`` of a tree of arrays stacked on a leading axis."""
+    if isinstance(tree, dict):
+        return {name: _trial(sub, k) for name, sub in tree.items()}
+    return np.asarray(tree)[k]
+
+
+def _n_trials(tree) -> int:
+    while isinstance(tree, dict):
+        tree = next(iter(tree.values()))
+    return np.shape(tree)[0]
+
+
+def stacked_state_dict_from_flax_params(params, config) -> dict:
+    """Stacked JAX ``params`` (every leaf with a leading trial axis K) →
+    ``{name: (K, ...) float32 CPU tensor}``, trial k being
+    :func:`state_dict_from_flax_params` of trial k's tree."""
+    per = [state_dict_from_flax_params(_trial(params, k), config)
+           for k in range(_n_trials(params))]
+    return {key: torch.stack([sd[key] for sd in per]) for key in per[0]}
+
+
+def stacked_flax_params_from_state_dict(state_dict, config) -> dict:
+    """Stacked state dict (``(K, ...)`` tensors on any device, or arrays) →
+    the stacked JAX ``params`` tree of float32 numpy arrays."""
+    n = len(next(iter(state_dict.values())))
+    per = [flax_params_from_state_dict({key: v[k] for key, v in state_dict.items()}, config)
+           for k in range(n)]
+
+    def stack(trees):
+        if isinstance(trees[0], dict):
+            return {name: stack([t[name] for t in trees]) for name in trees[0]}
+        return np.stack(trees)
+
+    return stack(per)
