@@ -280,6 +280,30 @@ then non-zero):
             then, the card to itself, the folded launch timed beside SDPA
             and trial·seqs/s at K 1, 2, 4, 5 and 8 beside one trial through
             ``make_epoch_fn`` (#2's chain); the phase's seconds.
+26. multi-GPU training  (``parallel/``) with every rank a process of this
+            script on the one card (``--parallel-rank``; NCCL refuses two
+            ranks on one device, so a group of several ranks runs gloo with
+            its tensors staged through pinned host memory): #1 at one head
+            of width 128 held to its plain version; (a) one rank over NCCL,
+            ``run_training(plan=make_mesh())`` bit for bit as ``plan=None``
+            (flagship, bf16, batch 32, 3 epochs, #2's chain); (b) dp 2 at
+            the flagship in bf16, global batch 64, #2's chain on every rank:
+            at rate 0 two global batches held to one process's chain (2e-2 ·
+            max over the parameters), at rate 0.30 the loss falls over 4
+            epochs; (c) tp 2 in f32: the eval forward (#1 on one head a
+            rank) within 1e-5 · max of one process's, 3 SGD steps within
+            5e-5; (d) dp 2 × pp 2 at GrooveXL's width in bf16, 4
+            microbatches, ``fused_ffn`` given: the deterministic pipelined
+            forward (#1 in the stages) within 2e-2 · max of the plain model,
+            3 training steps (#4 in the stages); (e) pp 2 × tp 2, flagship,
+            f32: the forward within 2e-5 · max; (f) ``train
+            --n_model_shards 2`` started with the JAX package's names and
+            ``train --pp_stages 2`` with torchrun's, side by side on phase
+            21's datasets for a few blocks, and the tensor-parallel run's newest ``.ckpt``
+            resumed in one process for an epoch (#2) and served (#1). Each
+            leg prints its backend and transport, seconds, seqs/s and launches
+            per rank; ranks share the card, so none of these is a scaling
+            figure.
 
 Then one line ``{"kernels": [...]}``, the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``. Without CUDA it exits non-zero and prints
@@ -332,7 +356,7 @@ from transformergrooveinfilling_tpu_torch.ops.dropout import (
 )
 from transformergrooveinfilling_tpu_torch.train import (
     HyperParams, checkpoint as ckpt, create_train_state, eval_log_freq, initialize_model,
-    load_hyperparameters, make_epoch_fn, make_train_step, run_training, train_loop,
+    TrainState, load_hyperparameters, make_epoch_fn, make_train_step, run_training, train_loop,
 )
 from transformergrooveinfilling_tpu_torch.models import torch_compat
 from transformergrooveinfilling_tpu_torch.train.driver import _GracefulStop
@@ -4781,6 +4805,421 @@ def phase_sweep(dev, smi: str, root: str) -> dict:
     return out
 
 
+# phase 26: multi-GPU training (parallel/); each group's ranks are processes
+# of this script on the one card (``--parallel-rank``)
+PARALLEL_N = 256  # seeded loops a leg trains on
+PARALLEL_GROUPS = {  # group → (ranks, the environment names it starts with, its legs)
+    "a": (1, "torchrun", ("a",)), "bc": (2, "jax", ("b", "c")),
+    "de": (4, "torchrun", ("d", "e"))}
+DP_BAR = SM90_BAR[torch.bfloat16]  # bf16: 2e-2 · max (the chain's bar, phases 8 and 9)
+TP_FWD_BAR, TP_SGD_BAR, PPTP_FWD_BAR = 1e-5, 5e-5, 2e-5
+GROOVEXL = GrooveTransformerConfig(  # phase 19's width, fused_ffn given (auto leaves it off)
+    d_model=1024, n_heads=8, dim_feedforward=4096, dropout=0.1, num_encoder_layers=12,
+    embedding_size_src=16, compute_dtype=torch.bfloat16, use_fused_attention=True,
+    fused_ffn=True)
+PARALLEL_KERNELS = {"fused_mha": attention.KERNEL, **fl.SM90_KERNELS, **ffn.KERNELS}
+PARALLEL_CLI_WALL_S = 4.0  # --max_wall_s of each command line of leg (f)
+
+
+def rank_launches() -> dict:
+    return {k: v for k, v in launches(PARALLEL_KERNELS).items() if v}
+
+
+def reset_rank_launches() -> None:
+    for f in PARALLEL_KERNELS.values():
+        f.launches = 0
+
+
+def flat_tree(tree) -> np.ndarray:
+    """A flax tree's leaves, flattened and joined in key order."""
+    if isinstance(tree, dict):
+        return np.concatenate([flat_tree(tree[k]) for k in sorted(tree)])
+    return np.asarray(tree, np.float64).reshape(-1)
+
+
+def tree_err(a, b, relative: bool) -> float:
+    """Largest |a - b| over two flax trees (relative: over b's largest
+    value, the parameters taken as one output, as phase 8 takes each)."""
+    fa, fb = flat_tree(a), flat_tree(b)
+    err = float(np.abs(fa - fb).max())
+    return err / float(np.abs(fb).max()) if relative else err
+
+
+def gathered(model, optimizer) -> dict:
+    """The whole model's flax parameters (a split model's parts gathered)."""
+    return ckpt.fetch_state_to_host(TrainState(0, model, optimizer))["params"]
+
+
+def heads_err(got, want) -> float:
+    """Largest |got - want| over the three heads, over want's largest."""
+    return max(max_err(g, w) / float(w.abs().max()) for g, w in zip(got, want))
+
+
+def timed_on(dev, fn):
+    """``fn()`` and its seconds, the device synchronised at both ends."""
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda _d: None)
+    sync(dev)
+    t0 = time.perf_counter()
+    out = fn()
+    sync(dev)
+    return out, time.perf_counter() - t0
+
+
+def leg_a(dev, plan_of) -> dict:
+    """(a) one rank over NCCL: ``run_training(plan=make_mesh())`` bit for bit
+    as ``plan=None`` (flagship, bf16, batch 32, 3 epochs, #2's chain)."""
+    plan = plan_of("mesh")
+    check(plan.backend == "nccl" and plan.transport == "device",
+          f"one rank ran {plan.backend}/{plan.transport}")
+    hp = HyperParams.from_dict(dict(FLAGSHIP_HP, epochs=3))
+    data, out, states = Loops(PARALLEL_N, 26), {}, {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_leg_a_") as tmp:
+        for which, kw in (("plain", {}), ("plan", {"plan": plan})):
+            reset_rank_launches()
+            bundle, secs = timed_on(dev, lambda: run_training(
+                hp, data, device=dev, ckpt_dir=os.path.join(tmp, which), watch_log_freq=None,
+                log_media=False, **kw))
+            states[which] = bundle.model.state_dict()
+            out[which] = {"seconds": secs, "launches": rank_launches(),
+                          "seqs_per_s_per_rank": PARALLEL_N * 3 / secs}
+    a, b = states["plain"], states["plan"]
+    check(all(torch.equal(a[k], b[k]) for k in a), "plan=make_mesh() differs from plan=None")
+    check(all(out["plan"]["launches"].get(k, 0) > 0 for k in fl.SM90_KERNELS),
+          f"the one-rank plan did not run #2's chain: {out['plan']['launches']}")
+    return out
+
+
+def leg_b(dev, plan_of) -> dict:
+    """(b) dp 2, flagship, bf16, global batch 64, #2's chain on every rank:
+    at rate 0 one epoch of 128 loops (two global batches) held to one
+    process's chain on the same batches; at rate 0.30 four epochs of 256,
+    the loss falls."""
+    plan = plan_of("mesh")
+    rank = torch.distributed.get_rank()
+    data = Loops(PARALLEL_N, 27)
+    x = torch.as_tensor(data.processed_inputs, device=dev)
+    y = torch.as_tensor(data.processed_outputs, device=dev)
+    penalty, lr = FLAGSHIP_HP["hit_loss_penalty"], FLAGSHIP_HP["learning_rate"]
+    out = {}
+    for rate, epochs, n in ((0.0, 1, 128), (0.30, 4, PARALLEL_N)):
+        cfg = dataclasses.replace(FLAGSHIP, dropout=rate, compute_dtype=torch.bfloat16,
+                                  fused_layer=True, use_fused_attention=True)
+        state = create_train_state(cfg, "sgd", lr, 0, dev)
+        epoch = make_epoch_fn(penalty, 64, n, plan=plan)
+        reset_rank_launches()
+        losses, secs = timed_on(dev, lambda: [
+            fetch(epoch(state, x[:n], y[:n], torch.Generator(dev).manual_seed(e)))["loss"]
+            for e in range(epochs)])
+        row = {"seconds": secs, "losses": losses, "launches": rank_launches(),
+               "seqs_per_s_per_rank": n * epochs / plan.n_data / secs}
+        check(all(row["launches"].get(k, 0) > 0 for k in fl.SM90_KERNELS),
+              f"rank {rank} did not run #2's chain: {row['launches']}")
+        if rate == 0.0 and rank == 0:
+            ref = create_train_state(cfg, "sgd", lr, 0, dev)
+            start = gathered(ref.model, ref.optimizer)
+            one = make_epoch_fn(penalty, 64, n)
+            ref_loss = fetch(one(ref, x[:n], y[:n], torch.Generator(dev).manual_seed(0)))["loss"]
+            got, want = gathered(state.model, state.optimizer), gathered(ref.model, ref.optimizer)
+            row["param_err_of_max_vs_one_process"] = tree_err(got, want, True)
+            # the same difference over the largest change one process made
+            row["param_err_of_max_update"] = (tree_err(got, want, False) / float(
+                np.abs(flat_tree(want) - flat_tree(start)).max()))
+            row["loss_one_process"] = ref_loss
+            check(row["param_err_of_max_vs_one_process"] <= DP_BAR
+                  and abs(losses[0] - ref_loss) <= DP_BAR * abs(ref_loss),
+                  f"dp 2 against one process: {row}")
+        if rate > 0:
+            check(np.isfinite(losses).all() and losses[-1] < losses[0],
+                  f"dp 2 at rate 0.30: losses {losses}")
+        out[f"rate_{rate}"] = row
+    return out
+
+
+def leg_c(dev, plan_of) -> dict:
+    """(c) tp 2, flagship, f32: the eval forward (#1 on one head of width 128
+    a rank) within 1e-5 · max of one process's; 3 SGD steps within 5e-5."""
+    from transformergrooveinfilling_tpu_torch.parallel import shard_params
+    from transformergrooveinfilling_tpu_torch.train.loop import make_optimizer
+
+    plan = plan_of("mesh", n_model=2)
+    cfg = dataclasses.replace(FLAGSHIP, dropout=0.0, use_fused_attention=True)
+    lr, penalty = FLAGSHIP_HP["learning_rate"], FLAGSHIP_HP["hit_loss_penalty"]
+    ref = build_model(cfg, dev, torch.Generator().manual_seed(3))
+    model = build_model(cfg, dev, torch.Generator().manual_seed(3))
+    opt = make_optimizer("sgd", lr, model.parameters())
+    shard_params(model, plan, optimizer=opt)
+    check(model.Encoder["Encoder"]["layers"][0].self_attn.n_heads == 1, "not one head a rank")
+    data = Loops(64, 28)
+    x = torch.as_tensor(data.processed_inputs, device=dev)
+    y = torch.as_tensor(data.processed_outputs, device=dev)
+    reset_rank_launches()
+    with torch.no_grad():
+        got, fwd_s = timed_on(dev, lambda: model(x))
+        fwd_launches = rank_launches()
+        err = heads_err(got, ref(x))
+    check(fwd_launches.get("fused_mha", 0) == cfg.num_encoder_layers,
+          f"tp eval forward launched {fwd_launches}")
+    check(err <= TP_FWD_BAR, f"tp 2 eval forward: {err} of max")
+    state = TrainState(0, model, opt)
+    ref_state = TrainState(0, ref, make_optimizer("sgd", lr, ref.parameters()))
+    step = make_train_step(penalty, plan=plan)
+    _, steps_s = timed_on(dev, lambda: [step(state, x, y, None, torch.Generator(dev).manual_seed(i))
+                                        for i in range(3)])
+    ref_step = make_train_step(penalty)
+    for i in range(3):
+        ref_step(ref_state, x, y, None, torch.Generator(dev).manual_seed(i))
+    sgd_err = tree_err(gathered(model, opt), gathered(ref, ref_state.optimizer), False)
+    check(sgd_err <= TP_SGD_BAR, f"tp 2, 3 SGD steps: {sgd_err}")
+    return {"eval_forward_err_of_max": err, "eval_forward_seconds": fwd_s,
+            "eval_forward_launches": fwd_launches, "sgd3_max_abs_err": sgd_err,
+            "steps_seconds": steps_s, "seqs_per_s_per_rank": 3 * 64 / steps_s}
+
+
+def leg_d(dev, plan_of) -> dict:
+    """(d) dp 2 × pp 2, GrooveXL, bf16, 4 microbatches, fused_ffn given: the
+    deterministic pipelined forward (#1 in the stages) within the bf16 bar of
+    the plain model, then 3 training steps (#4 in the stages)."""
+    from transformergrooveinfilling_tpu_torch.parallel import pipeline_forward
+    from transformergrooveinfilling_tpu_torch.parallel.pipeline import make_pipeline_step
+    from transformergrooveinfilling_tpu_torch.train.loop import make_optimizer
+
+    plan = plan_of("pipe", n_stages=2, n_micro=4)
+    model = build_model(GROOVEXL, dev, torch.Generator().manual_seed(4))
+    data = Loops(32, 29)
+    x = torch.as_tensor(data.processed_inputs, device=dev)
+    y = torch.as_tensor(data.processed_outputs, device=dev)
+    reset_rank_launches()
+    got, fwd_s = timed_on(dev, lambda: pipeline_forward(model, x, plan))
+    fwd_launches = rank_launches()
+    with torch.no_grad():
+        err = heads_err(got, model(x))
+    check(err <= DP_BAR, f"dp 2 x pp 2 GrooveXL forward: {err} of max")
+    check(fwd_launches.get("fused_mha", 0) == GROOVEXL.num_encoder_layers // 2 * 4,
+          f"a stage's eval forward launched {fwd_launches}")
+    state = TrainState(0, model, make_optimizer("sgd", XL_HP["learning_rate"],
+                                                model.parameters()))
+    step = make_pipeline_step(plan, XL_HP["hit_loss_penalty"])
+    reset_rank_launches()
+    metrics, steps_s = timed_on(dev, lambda: [
+        fetch(step(state, x, y, None, torch.Generator(dev).manual_seed(i))) for i in range(3)])
+    train_launches = rank_launches()
+    check(all(np.isfinite(m["loss"]) for m in metrics), f"GrooveXL pp losses {metrics}")
+    check(all(train_launches.get(k, 0) > 0 for k in ffn.BF16_KERNELS
+              if not k.endswith("reduce")), f"a stage's training launched {train_launches}")
+    return {"forward_err_of_max": err, "forward_seconds": fwd_s,
+            "forward_launches": fwd_launches, "losses": [m["loss"] for m in metrics],
+            "steps_seconds": steps_s, "train_launches": train_launches,
+            "seqs_per_s_per_rank": 3 * 32 / plan.n_data / steps_s}
+
+
+def leg_e(dev, plan_of) -> dict:
+    """(e) pp 2 × tp 2, flagship, f32: the pipelined forward within 2e-5 ·
+    max of the plain model."""
+    from transformergrooveinfilling_tpu_torch.parallel import pipeline_forward, shard_params
+
+    plan = plan_of("pipe", n_stages=2, n_model=2, n_micro=4)
+    cfg = dataclasses.replace(FLAGSHIP, use_fused_attention=True)
+    ref = build_model(cfg, dev, torch.Generator().manual_seed(5))
+    model = build_model(cfg, dev, torch.Generator().manual_seed(5))
+    shard_params(model, plan)
+    x = torch.as_tensor(Loops(32, 30).processed_inputs, device=dev)
+    reset_rank_launches()
+    got, secs = timed_on(dev, lambda: pipeline_forward(model, x, plan))
+    fwd_launches = rank_launches()
+    with torch.no_grad():
+        err = heads_err(got, ref(x))
+    check(err <= PPTP_FWD_BAR, f"pp 2 x tp 2 forward: {err} of max")
+    check(fwd_launches.get("fused_mha", 0) == cfg.num_encoder_layers // 2 * 4,
+          f"a stage's eval forward launched {fwd_launches}")
+    return {"forward_err_of_max": err, "forward_seconds": secs, "forward_launches": fwd_launches,
+            "seqs_per_s_per_rank": 32 / secs}
+
+
+PARALLEL_LEGS = {"a": leg_a, "b": leg_b, "c": leg_c, "d": leg_d, "e": leg_e}
+
+
+def parallel_rank(group: str, out: str) -> int:
+    """One rank of a phase 26 group (started by :func:`phase_parallel` with
+    the group in the environment): its legs, one after another; writes
+    ``out_<rank>.json``."""
+    from transformergrooveinfilling_tpu_torch.parallel import (
+        initialize_from_env, make_mesh, make_pipeline_mesh,
+    )
+    from transformergrooveinfilling_tpu_torch.parallel.multihost import context
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    check(initialize_from_env("cuda"), "no group in the environment")
+    dev = context().device
+    _build.build_all(KERNEL_NAMES)  # built by the parent: loads its libraries
+    legs, plans = {}, []
+
+    def plan_of(kind, **kw):
+        plan = (make_mesh(device="cuda", **kw) if kind == "mesh"
+                else make_pipeline_mesh(device="cuda", **kw))
+        plans.append({"kind": kind, "backend": plan.backend, "transport": plan.transport})
+        return plan
+
+    for leg in PARALLEL_GROUPS[group][2]:
+        torch.distributed.barrier()
+        t0 = time.perf_counter()
+        legs[leg] = PARALLEL_LEGS[leg](dev, plan_of)
+        legs[leg].update(plans[-1], wall_seconds=time.perf_counter() - t0)
+    rank = torch.distributed.get_rank()
+    with open(f"{out}_{rank}.json", "w") as f:
+        json.dump({"rank": rank, "device": str(dev), "legs": legs,
+                   "jax_loaded": "jax" in sys.modules}, f)
+    torch.distributed.barrier()
+    torch.distributed.destroy_process_group()
+    return 0
+
+
+def group_env(n: int, rank: int, port: int, names: str) -> dict:
+    """Rank ``rank`` of ``n``'s environment, under the JAX package's names or
+    torchrun's."""
+    if names == "jax":
+        return {"JAX_COORDINATOR_ADDRESS": f"127.0.0.1:{port}", "JAX_NUM_PROCESSES": str(n),
+                "JAX_PROCESS_ID": str(rank)}
+    return {"MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(port), "WORLD_SIZE": str(n),
+            "RANK": str(rank), "LOCAL_RANK": str(rank)}
+
+
+def start_group(argv_of, n: int, names: str, cwd_of) -> list:
+    """``n`` processes (``argv_of(rank)``, in ``cwd_of(rank)``) started
+    together as one group."""
+    port = free_port()
+    procs = []
+    for r in range(n):
+        os.makedirs(cwd_of(r), exist_ok=True)
+        procs.append(subprocess.Popen(
+            argv_of(r), cwd=cwd_of(r), env={**os.environ, "PYTHONPATH": ROOT,
+                                            **group_env(n, r, port, names)},
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+    return procs
+
+
+def finish_group(procs: list, what: str, timeout: float = 300.0) -> list:
+    """Wait for a group of :func:`start_group`; each rank must exit 0 →
+    their (stdout, stderr)."""
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=timeout))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    for r, (p, (_o, e)) in enumerate(zip(procs, outs)):
+        check(p.returncode == 0, f"{what}: rank {r} exited {p.returncode}:\n{e[-6000:]}")
+    return outs
+
+
+def phase_parallel(dev, smi: str, root: str) -> dict:
+    """26. multi-GPU training on the one card: the groups of
+    :data:`PARALLEL_GROUPS` (legs (a)-(e)), then (f) the command lines
+    ``train --n_model_shards 2`` (the JAX names) and ``train --pp_stages 2``
+    (torchrun's) on phase 21's datasets, and rank 0's checkpoint resumed in
+    one process and served through ``InfillServer``. Ranks share the card,
+    so no number here is a scaling figure."""
+    t_phase = time.perf_counter()
+    # #1 at the tensor-parallel eval forward's shape (one head of width 128 a
+    # rank), held to its plain version; not counted in any leg
+    q, k, v = (torch.randn(64, 1, 32, 128, device=dev) for _ in range(3))
+    mha_err = max_err(fused_mha(q, k, v, False), mha_reference(q, k, v, False))
+    check(mha_err <= 1e-5, f"fused_mha at H 1, hd 128: {mha_err}")
+    out = {"card": smi, "note": "ranks share one card: no number of this phase is a "
+           "scaling figure", "fused_mha_H1_max_abs_err": mha_err, "groups": {}}
+    for group, (n, names, legs) in PARALLEL_GROUPS.items():
+        prefix = os.path.join(root, f"group_{group}")
+        t0 = time.perf_counter()
+        finish_group(start_group(lambda r: [sys.executable, os.path.join(ROOT, "chip_smoke.py"),
+                                            "--parallel-rank", group, prefix],
+                                 n, names, lambda r: root), f"phase 26 group {group}")
+        ranks = []
+        for r in range(n):
+            with open(f"{prefix}_{r}.json") as f:
+                ranks.append(json.load(f))
+        check(not any(rk["jax_loaded"] for rk in ranks), "a rank imported jax")
+        out["groups"][group] = {"ranks": n, "names": names, "seconds": time.perf_counter() - t0,
+                                "legs": {leg: [rk["legs"][leg] for rk in ranks]
+                                         for leg in legs}}
+        for leg in legs:
+            emit({"phase": "parallel", "leg": leg, "card": smi, "ranks": n, "names": names,
+                  "backend": ranks[0]["legs"][leg]["backend"],
+                  "transport": ranks[0]["legs"][leg]["transport"],
+                  "per_rank": [rk["legs"][leg] for rk in ranks],
+                  "note": out["note"]})
+    out["cli"] = parallel_cli(dev, smi, root)
+    out["seconds"] = time.perf_counter() - t_phase
+    emit({"phase": "parallel", "card": smi, "seconds": out["seconds"], "note": out["note"],
+          "fused_mha_H1_max_abs_err": mha_err})
+    return out
+
+
+def parallel_cli(dev, smi: str, root: str) -> dict:
+    """(f) the training command line over two processes, once with
+    ``--n_model_shards 2`` (the JAX names) and once with ``--pp_stages 2``
+    (torchrun's), the two groups side by side, flagship YAML on phase 21's
+    InfillingRandom datasets for a few blocks; the tensor-parallel run's
+    newest ``.ckpt`` resumed in one process for an epoch and served."""
+    paths = os.path.join(root, "paths.yaml")  # phase 21's
+    out, started = {}, {}
+    modes = (("tp", ["--n_model_shards", "2"], "jax"), ("pp", ["--pp_stages", "2"], "torchrun"))
+    for mode, flags, names in modes:
+        base = os.path.join(root, f"parallel_{mode}")
+        args = ["--config", CLI_CONFIG, "--paths", paths, "--wandb", "False", "--eval_train",
+                "False", "--eval_validation", "False", "--dump_eval", "False",
+                "--max_wall_s", str(PARALLEL_CLI_WALL_S), "--ckpt_dir", os.path.join(base, "ck"),
+                *flags]
+        started[mode] = (time.perf_counter(), start_group(
+            lambda r, base=base, args=args: [sys.executable, "-c", CLI_RUNNER, CLI_TRAIN,
+                                             os.path.join(base, f"rank{r}", "counts.json"),
+                                             *args],
+            2, names, lambda r, base=base: os.path.join(base, f"rank{r}")))
+    for mode, flags, names in modes:
+        base = os.path.join(root, f"parallel_{mode}")
+        t0, procs = started[mode]
+        finish_group(procs, f"train {flags}")
+        rows = []
+        for r in range(2):
+            with open(os.path.join(base, f"rank{r}", "counts.json")) as f:
+                counts = json.load(f)
+            _d, records = run_records(os.path.join(base, f"rank{r}"))
+            losses = [rec["loss"] for rec in records if "loss" in rec]
+            check(len(losses) >= 1 and np.isfinite(losses).all(), f"{mode}: losses {losses}")
+            rows.append({"losses": losses, "launches": {k: v for k, v in counts["launches"].items()
+                                                         if v},
+                         "seqs_per_s": [rec["seqs_per_sec"] for rec in records
+                                        if "seqs_per_sec" in rec]})
+        out[mode] = {"names": names, "wall_seconds": time.perf_counter() - t0, "ranks": rows,
+                     "newest_epoch": newest_epoch(os.path.join(base, "ck"))}
+        emit({"phase": "parallel", "leg": f"f_{mode}", "card": smi, **out[mode]})
+    # rank 0's checkpoint (the one-device layout) resumed in one process
+    ck = os.path.join(root, "parallel_tp", "ck")
+    params = flagship_params()
+    params["load_model"] = {"location": "local", "dir": ck}
+    bundle, _opt, initial = initialize_model(params, dev)
+    check(initial == out["tp"]["newest_epoch"] + 1, f"resumed at {initial}")
+    hp = HyperParams.from_dict(dict(FLAGSHIP_HP, epochs=initial + 1))
+    reset_launches()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_resume_") as tmp:
+        run_training(hp, Loops(PARALLEL_N, 31), bundle=bundle, initial_epoch=initial,
+                     device=dev, ckpt_dir=tmp, watch_log_freq=None, log_media=False)
+    resume_launches = {k: v for k, v in launches(fl.SM90_KERNELS).items()}
+    check(all(v > 0 for v in resume_launches.values()), f"resume: {resume_launches}")
+    attention.KERNEL.launches = 0
+    srv = serve.InfillServer(bundle.model.state_dict(), bundle.config, batch_sizes=BUCKETS,
+                             device=dev)
+    answer = srv.infill(Loops(4, 32).processed_inputs)
+    check(answer.shape == (4, 32, 27) and np.isfinite(answer).all(), "served checkpoint")
+    out["resume"] = {"from_epoch": initial, "launches": resume_launches,
+                     "serve_fused_mha_launches": attention.KERNEL.launches}
+    check(out["resume"]["serve_fused_mha_launches"] > 0, "the served checkpoint skipped #1")
+    emit({"phase": "parallel", "leg": "f_resume", "card": smi, **out["resume"]})
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -4828,7 +5267,15 @@ def main() -> int:
             midi = timed_phase(phase_midi_sf2, dev, smi, midi_root, srv, sd)
         artifact = timed_phase(phase_artifact, dev, smi, cli_root, srv, sd, evaluation)
         swept = timed_phase(phase_sweep, dev, smi, cli_root)
+        par = timed_phase(phase_parallel, dev, smi, cli_root)
     emit({"phase_seconds": took})
+
+    def per_rank(group: str, leg: str, *keys) -> list:
+        rows = par["groups"][group]["legs"][leg]
+        for key in keys:
+            rows = [row[key] for row in rows]
+        return rows
+
     def mha_row(b, dtype, form="contiguous"):
         return next(t for t in kernel["timings"]
                     if t["shape"] == [b, 2, 32, 128] and t["dtype"] == dtype and t["form"] == form)
@@ -4860,6 +5307,12 @@ def main() -> int:
         "launches_stacked_eval_forward": swept["eval_launches_per_stacked_forward"],
         "launches_sweep_cli": {mode: run["launches"]["fused_mha"]
                                for mode, run in swept["cli"].items()},
+        "launches_tp_eval_forward_per_rank": [
+            c["fused_mha"] for c in per_rank("bc", "c", "eval_forward_launches")],
+        "launches_pp_stage_eval_forward_per_rank": {
+            "groovexl_dp2_pp2": [c["fused_mha"] for c in per_rank("de", "d", "forward_launches")],
+            "flagship_pp2_tp2": [c["fused_mha"] for c in per_rank("de", "e", "forward_launches")]},
+        "launches_served_parallel_checkpoint": par["cli"]["resume"]["serve_fused_mha_launches"],
         f"vmap_folded_K{SWEEP_TRIALS}xB{swept['items']}_bfloat16": {
             "ms": float(np.mean(swept["folded_timing"]["kernel_us"])) / 1000.0,
             "plain_ms": float(np.mean(swept["folded_timing"]["plain_us"])) / 1000.0,
@@ -4893,7 +5346,12 @@ def main() -> int:
                 "launches_eval_training_path": evaluation["train"]["launches"],
                 "launches_kit_training_path": midi["train"]["launches"],
                 "launches_sweep_sequential_path": swept["cli"]["sequential"]["launches"],
-                "launches_sweep_regular_step_path": swept["cli"]["unpinned"]["launches"]}),
+                "launches_sweep_regular_step_path": swept["cli"]["unpinned"]["launches"],
+                "launches_dp2_per_rank_path": {
+                    k: [c[k] for c in per_rank("bc", "b", "rate_0.3", "launches")]
+                    for k in fl.SM90_KERNELS},
+                "launches_one_rank_plan_path": per_rank("a", "a", "plan", "launches")[0],
+                "launches_resumed_parallel_checkpoint": par["cli"]["resume"]["launches"]}),
               ("decoder", dec_layer, fdl, DEC_TPU_KERNELS, encdec, {}))
     for which, out, mod, tpu, path, more in layers:
         for dtype in (torch.bfloat16, torch.float32):
@@ -5055,6 +5513,8 @@ def main() -> int:
             "launches": launches_main,
             "launches_encdec_1_plus_1_path": wide["encdec_launches"][kname],
             "launches_groovexl_path": xl["f32_launches" if is_f32 else "launches"][kname],
+            **({} if is_f32 or not is_ffn else {"launches_groovexl_dp2_pp2_per_rank": [
+                c.get(kname, 0) for c in per_rank("de", "d", "train_launches")]}),
             "max_abs_err": ffn_ln["max_abs_err"]["ffn" if is_ffn else "ln"],
             **at_shape(small, kname, entries, key),
             "rows_16384": at_shape(ffn_row(16384, 256, dtype), kname, entries, key),
@@ -5081,4 +5541,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--parallel-rank"]:  # a rank of phase 26
+        sys.exit(parallel_rank(sys.argv[2], sys.argv[3]))
     sys.exit(main())

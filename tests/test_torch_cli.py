@@ -3,7 +3,7 @@
 ``.ckpt`` on the same processed symbolic dataset (f32, dropout 0, one
 full-batch SGD step an epoch) and log the same ``metrics.jsonl`` keys with
 losses within rtol 2e-4; the flags and defaults; ``--streaming host`` and
-``fused``; the flags that raise ``NotPortedError`` (ROADMAP A10); and
+``fused``; ``--n_model_shards`` and ``--pp_stages`` over two processes; and
 evaluation: ``process_evaluator`` builds pickles that the JAX package's
 ``init_evaluator`` reads, ``train`` with the evaluator flags logs both sets,
 ``evaluate`` gives the metrics of the JAX package's ``evaluate.py`` on the
@@ -20,7 +20,6 @@ import numpy as np
 import pytest
 import torch
 
-from transformergrooveinfilling_tpu_torch import NotPortedError
 from transformergrooveinfilling_tpu_torch import evaluate as port_evaluate
 from transformergrooveinfilling_tpu_torch import process_dataset as port_process
 from transformergrooveinfilling_tpu_torch import process_evaluator as port_process_evaluator
@@ -131,16 +130,32 @@ def test_flags_and_defaults_are_root_train_pys(jax_cli, capsys):
     assert port_train.hyperparameters_from_args(args) == jax_cli[0].hyperparameters_from_args(args)
 
 
-@pytest.mark.parametrize("flags, match", [
-    (["--n_model_shards", "2"], "A10"), (["--pp_stages", "2"], "A10")])
-def test_unported_flags_raise(tmp_path, monkeypatch, flags, match):
+@pytest.mark.parametrize("flags, names", [
+    pytest.param(["--n_model_shards", "2"], "jax", id="flags0-A10"),
+    pytest.param(["--pp_stages", "2"], "torchrun", id="flags1-A10")])
+def test_unported_flags_raise(tmp_path, flags, names):
+    """The flags of ROADMAP A10 train, as root ``train.py``'s do: the
+    command line once per process of a 2-rank group (named with the JAX
+    package's variables, or torchrun's), the layers split over both ranks
+    (``--n_model_shards 2``) or pipelined over them (``--pp_stages 2``, 2
+    layers, 4 microbatches); rank 0 writes the checkpoint of the one-device
+    layout, which restores in one process."""
+    from torch_parallel_group import launch
+
     paths, name, _ = _dataset(str(tmp_path), "InfillingClosedHH_Symbolic", 4)
-    (tmp_path / "evaluator.pickle").write_bytes(b"")
-    monkeypatch.chdir(tmp_path)
-    argv = ["--experiment", name, "--paths", paths, "--epochs", "1", "--d_model", "16",
-            "--n_heads", "2", "--dim_feedforward", "16", "--num_encoder_decoder_layers", "1"]
-    with pytest.raises(NotPortedError, match=match):
-        port_train.main(argv + QUIET + CPU + flags)
+    ck = tmp_path / "ck"
+    argv = [sys.executable, "-m", "transformergrooveinfilling_tpu_torch.train",
+            "--experiment", name, "--paths", paths, "--epochs", "1", "--d_model", "16",
+            "--n_heads", "2", "--dim_feedforward", "16", "--num_encoder_decoder_layers", "2",
+            "--ckpt_dir", str(ck)] + QUIET + CPU + flags
+    outs = launch(2, lambda r: argv, str(tmp_path), timeout=200, names=names)
+    assert [rc for rc, _, _ in outs] == [0, 0], outs[0][2][-3000:] + outs[1][2][-3000:]
+    (path,) = [os.path.join(ck, f) for f in os.listdir(ck) if f.endswith(".ckpt")]
+    cfg = derive_model_config(HyperParams.from_dict(dict(
+        experiment=name, d_model=16, n_heads=2, dim_feedforward=16,
+        num_encoder_decoder_layers=2, bf16=False)), device="cpu")
+    params, _opt, epoch = ckpt.restore({"dir": str(ck)}, cfg)
+    assert epoch == 1 and params["encoder_layer_1"]["self_attn"]["qkv"]["kernel"].shape == (16, 48)
 
 
 def test_missing_evaluator_is_skipped_and_cuda_is_the_default(tmp_path, monkeypatch, capsys):

@@ -1201,3 +1201,50 @@ def test_streaming_producer_launches_on_its_own_stream(cuda, monkeypatch):
     assert torch.cuda.default_stream(cuda).cuda_stream not in {s for s, _e in producer}
     assert np.array_equal(got_out, want_out)
     np.testing.assert_allclose(got_in, want_in, atol=2e-5 * np.abs(want_in).max(), rtol=1e-3)
+
+
+RANK_ON_THE_CARD = """
+import json, sys
+import torch
+from transformergrooveinfilling_tpu_torch.models import GrooveTransformerConfig, build_model
+from transformergrooveinfilling_tpu_torch.parallel import (
+    initialize_from_env, make_mesh, shard_params)
+from transformergrooveinfilling_tpu_torch.parallel.multihost import context
+
+assert initialize_from_env("cuda")
+plan = make_mesh(n_model=2, device="cuda")
+cfg = GrooveTransformerConfig(d_model=256, n_heads=2, dim_feedforward=512, dropout=0.0,
+                              num_encoder_layers=2, use_fused_attention=True)
+ref = build_model(cfg, plan.device, torch.Generator().manual_seed(1))
+model = build_model(cfg, plan.device, torch.Generator().manual_seed(1))
+shard_params(model, plan)
+x = torch.randn(8, 32, 16, generator=torch.Generator().manual_seed(2)).to(plan.device)
+with torch.no_grad():
+    err = max(float((a - b).abs().max()) for a, b in zip(model(x), ref(x)))
+print(json.dumps({"backend": plan.backend, "transport": plan.transport,
+                  "device": str(plan.device), "ranks_on_node": context().ranks_on_node,
+                  "err": err, "jax": "jax" in sys.modules}))
+"""
+
+
+@pytest.mark.cuda
+def test_two_rank_group_on_the_card_follows_the_backend_rule(cuda, tmp_path):
+    """Two ranks on the host's cards: NCCL where each has a card of its
+    own, gloo with host-staged tensors where they share one; either way the
+    tensor-parallel forward (#1 on one head a rank) equals one process's."""
+    import json
+    import sys
+
+    from torch_parallel_group import launch
+
+    outs = launch(2, lambda r: [sys.executable, "-c", RANK_ON_THE_CARD], str(tmp_path),
+                  timeout=300)
+    assert [rc for rc, _, _ in outs] == [0, 0], outs[0][2][-3000:] + outs[1][2][-3000:]
+    ranks = [json.loads(o.strip().splitlines()[-1]) for _, o, _ in outs]
+    shared = torch.cuda.device_count() < 2
+    for r, rank in enumerate(ranks):
+        assert rank["ranks_on_node"] == 2 and not rank["jax"]
+        assert (rank["backend"], rank["transport"]) == (
+            ("gloo", "host") if shared else ("nccl", "device"))
+        assert rank["device"] == f"cuda:{0 if shared else r}"
+        assert rank["err"] <= 1e-5

@@ -28,7 +28,6 @@ from transformergrooveinfilling_tpu.train.config import HyperParams as JaxHyperP
 from transformergrooveinfilling_tpu.train.schedule import eval_log_freq as jax_eval_log_freq
 from transformergrooveinfilling_tpu.utils import logging as jax_xlog
 from transformergrooveinfilling_tpu.utils import serialization as jax_serialization
-from transformergrooveinfilling_tpu_torch import NotPortedError
 from transformergrooveinfilling_tpu_torch.models import GrooveTransformerConfig
 from transformergrooveinfilling_tpu_torch.models import torch_compat
 from transformergrooveinfilling_tpu_torch.train import (
@@ -485,10 +484,23 @@ def test_graceful_stop(tmp_path, rng, how):
 
 
 @pytest.mark.parametrize("kwargs, item", [
-    pytest.param({"plan": object()}, "A10", id="kwargs1-A10")])
-def test_unported_arguments_raise_naming_their_roadmap_item(rng, kwargs, item):
-    with pytest.raises(NotPortedError, match=item):
-        run_training(HyperParams.from_dict(HP), _Data(rng, 8), device="cpu", **kwargs)
+    pytest.param({"plan": "mesh"}, "A10", id="kwargs1-A10")])
+def test_unported_arguments_raise_naming_their_roadmap_item(rng, tmp_path, kwargs, item):
+    """``plan=`` (ROADMAP A10) trains: a one-rank mesh plan
+    (``parallel.make_mesh``, a group of one rank in this process) trains bit
+    for bit as no plan does, over epochs of a partial final batch."""
+    from transformergrooveinfilling_tpu_torch.parallel import make_mesh
+
+    data = _Data(rng, 12)
+    hp = HyperParams.from_dict(dict(HP, epochs=2))
+    plain = run_training(hp, data, device="cpu", ckpt_dir=str(tmp_path / "a"))
+    plan = make_mesh(device="cpu")
+    assert (plan.n_data, plan.n_model, plan.backend) == (1, 1, "gloo")
+    meshed = run_training(hp, data, device="cpu", ckpt_dir=str(tmp_path / "b"), **{
+        "plan": plan} if kwargs["plan"] == "mesh" else kwargs)
+    for (k, a), (_, b) in zip(plain.model.state_dict().items(),
+                              meshed.model.state_dict().items()):
+        assert torch.equal(a, b), (item, k)
 
 
 def test_run_training_exports_legacy_and_defaults_to_cuda(tmp_path, rng, monkeypatch):

@@ -38,11 +38,17 @@ Layering (bottom → top), as far as it is ported:
 - ``eval``      the metric families (on the tensors' device or in numpy),
                 rhythm features and their stats table, media (SVG piano
                 rolls, heatmaps, tabs), the style-subset evaluators
+- ``parallel``  multi-GPU and multi-process training on
+                ``torch.distributed``: the ("data", "model") mesh, tensor
+                parallelism split by heads, the GPipe pipeline, the process
+                group from the JAX package's or torchrun's environment, the
+                backend rule and the host-staged transport
 - ``train``     the training contract (``initialize_model`` + ``train_loop``),
                 the production loop ``run_training`` with its eval pass over
                 resident eval sets, checkpoints in the JAX package's format,
-                step and epoch functions, hyperparameters, batched sweeps
-                (K trials in one ``torch.func.vmap`` program)
+                step and epoch functions (and the data-parallel step over a
+                plan), hyperparameters, batched sweeps (K trials in one
+                ``torch.func.vmap`` program)
 - ``serve``     bucketed inference server, dynamic batching, HTTP endpoint
 - ``export``    serving artifacts: ``torch.export`` programs per batch bucket
                 with the attention kernel inside, parameters beside them;
@@ -54,9 +60,8 @@ Layering (bottom → top), as far as it is ported:
                 and ``export.py``
 - ``tutorial``  (``python -m``) the walkthrough of root ``tutorial.py``
 
-Not ported yet (see ROADMAP.md): multi-GPU. Every
-function of the JAX package that reaches a Pallas kernel has its CUDA
-counterpart here.
+Every module of the JAX package has its counterpart here, and every function
+of it that reaches a Pallas kernel has its CUDA counterpart.
 Every entry point runs on ``"cuda"`` unless the caller names another device,
 and raises without CUDA (:func:`require_device`); none carries on on the CPU.
 Importing this package has no side effects: no backend is selected and no
@@ -64,10 +69,6 @@ kernel is built until a CUDA tensor first reaches a kernel wrapper.
 """
 
 __version__ = "0.1.0"
-
-
-class NotPortedError(NotImplementedError):
-    """A feature of the JAX package that this port does not carry yet."""
 
 
 def require_device(device, who: str):

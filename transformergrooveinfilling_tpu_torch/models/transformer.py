@@ -233,16 +233,20 @@ class InputLayer(nn.Module):
 
 
 def attention_train(q, k, v, rate: float, fast: bool, generator,
-                    causal: bool = False) -> torch.Tensor:
+                    causal: bool = False, tp=None) -> torch.Tensor:
     """Attention with dropout on the probabilities (the JAX unfused training
     path): f32 scores (``-1e9`` above the diagonal when ``causal``) and
     softmax, probabilities rounded to ``v.dtype``, then dropped and multiplied
-    by V with f32 accumulation."""
+    by V with f32 accumulation. ``tp``: the heads are one rank's part of a
+    tensor-parallel layer (``parallel/tensor.py``), whose whole mask is
+    drawn."""
     s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * (1.0 / math.sqrt(q.shape[-1]))
     if causal:
         t = s.shape[-1]
         s = s.masked_fill(torch.ones(t, t, dtype=torch.bool, device=s.device).triu(1), -1e9)
-    p = drop_site(torch.softmax(s, dim=-1).to(v.dtype), generator, rate, fast)
+    p = torch.softmax(s, dim=-1).to(v.dtype)
+    p = (drop_site(p, generator, rate, fast) if tp is None
+         else tp.drop(p, generator, rate, fast, dim=1))
     return torch.matmul(p.float(), v.float()).to(q.dtype)
 
 
@@ -253,7 +257,14 @@ class SelfAttention(nn.Module):
     self-attention). ``forward(x, kv=memory)`` is cross-attention: the first
     d rows of ``in_proj_weight`` project the queries from ``x``, the other 2d
     the keys and values from ``memory`` (the JAX module's ``q`` and packed
-    ``kv`` projections)."""
+    ``kv`` projections).
+
+    ``tp`` (set by ``parallel/tensor.py::shard_model``, None otherwise):
+    the module holds one rank's heads of a tensor-parallel layer, and its
+    output is the sum over the "model" group, the ``out_proj`` bias added
+    once."""
+
+    tp = None
 
     def __init__(self, d_model: int, n_heads: int, dtype: torch.dtype,
                  use_fused: bool, device=None, causal: bool = False):
@@ -273,21 +284,26 @@ class SelfAttention(nn.Module):
         """``dropout``: ``(rate, fast, generator)`` on the training path, where
         the probabilities are dropped and the plain attention runs (the JAX
         kernel path is deterministic only)."""
-        b, t, d = x.shape
+        tp = self.tp
+        if tp is not None:
+            x = tp.enter(x)
+            kv = None if kv is None else tp.enter(kv)
+        b, t, _ = x.shape
         h = self.n_heads
+        w = self.in_proj_weight.shape[0] // 3  # h·hd: d_model, or this rank's heads
         # (B, H, T, hd) views of the packed projections, no copies: the
         # kernel reads them through their strides and writes its output as
         # (B, T, H, hd), so the transpose back below is a view as well
         if kv is None:
             qkv = _linear(x, self.in_proj_weight, self.in_proj_bias, self.dtype)
-            q, k, v = qkv.view(b, t, 3, h, d // h).permute(2, 0, 3, 1, 4)
+            q, k, v = qkv.view(b, t, 3, h, w // h).permute(2, 0, 3, 1, 4)
         else:
-            q = _linear(x, self.in_proj_weight[:d], self.in_proj_bias[:d], self.dtype)
-            q = q.view(b, t, h, d // h).transpose(1, 2)
-            k_v = _linear(kv, self.in_proj_weight[d:], self.in_proj_bias[d:], self.dtype)
-            k, v = k_v.view(b, kv.shape[1], 2, h, d // h).permute(2, 0, 3, 1, 4)
+            q = _linear(x, self.in_proj_weight[:w], self.in_proj_bias[:w], self.dtype)
+            q = q.view(b, t, h, w // h).transpose(1, 2)
+            k_v = _linear(kv, self.in_proj_weight[w:], self.in_proj_bias[w:], self.dtype)
+            k, v = k_v.view(b, kv.shape[1], 2, h, w // h).permute(2, 0, 3, 1, 4)
         if dropout is not None:
-            out = attention_train(q, k, v, *dropout, causal=self.causal)
+            out = attention_train(q, k, v, *dropout, causal=self.causal, tp=tp)
         elif self.attend is fused_mha and (torch.compiler.is_exporting()
                                            or is_batchedtensor(q)):
             # a traced forward (export.py) holds the kernel as one operator;
@@ -295,36 +311,54 @@ class SelfAttention(nn.Module):
             out = fused_mha_op(q, k, v, self.causal)
         else:
             out = self.attend(q, k, v, self.causal)
-        out = out.transpose(1, 2).reshape(b, t, d)
-        return _linear(out, self.out_proj.weight, self.out_proj.bias, self.dtype)
+        out = out.transpose(1, 2).reshape(b, t, w)
+        if tp is None:
+            return _linear(out, self.out_proj.weight, self.out_proj.bias, self.dtype)
+        y = tp.reduce(F.linear(out.to(self.dtype), self.out_proj.weight.to(self.dtype)))
+        return y + self.out_proj.bias.to(self.dtype)
 
 
 def _ffn(layer: nn.Module, x: torch.Tensor, dropout=None) -> torch.Tensor:
     """``W2·Drop(relu(W1·x))`` of an encoder or decoder layer; ``dropout``:
     ``(rate, fast, generator)`` on the training path, where ``fused_ffn`` sends
     the whole block through ``ops/fused_ffn.py`` (JAX ``_ffn_block``): one
-    seed per step and layer, weights cast to the compute dtype, biases f32."""
+    seed per step and layer, weights cast to the compute dtype, biases f32.
+
+    In a tensor-parallel layer (``layer.tp``, ``parallel/tensor.py``) the
+    block runs on this rank's hidden units and its output is summed over the
+    "model" group, the ``linear2`` bias added once; the fused FFN then takes
+    the layer's seed plus the rank, so that the ranks' masks differ."""
     cfg = layer.config
+    tp = layer.tp
+    if tp is not None:
+        x = tp.enter(x)
+    b2 = layer.linear2.bias
     if dropout is not None and cfg.fused_ffn:
         rate, _, generator = dropout
         b, t, d = x.shape
+        ff_width = layer.linear1.weight.shape[0]
         cd, f32 = layer.dtype, torch.float32
-        if not supports_fused_ffn(d, cfg.dim_feedforward, cd):
+        if not supports_fused_ffn(d, ff_width, cd):
             raise ValueError(
                 f"fused_ffn=True, but the fused FFN does not take d_model={d}, "
-                f"dim_feedforward={cfg.dim_feedforward}, {cd} "
+                f"dim_feedforward={ff_width}, {cd} "
                 "(ops/fused_ffn.py::supports_fused_ffn)")
+        seed = _layer_seed(generator, x.device)
         out = ffn_train(
             x.reshape(b * t, d).to(cd),
             layer.linear1.weight.to(cd), layer.linear1.bias.to(f32),
-            layer.linear2.weight.to(cd), layer.linear2.bias.to(f32),
-            _layer_seed(generator, x.device), float(rate))
-        return out.reshape(b, t, d)
+            layer.linear2.weight.to(cd), (b2 if tp is None else torch.zeros_like(b2)).to(f32),
+            seed if tp is None else seed + tp.rank, float(rate)).reshape(b, t, d)
+        return out if tp is None else tp.reduce(out) + b2.to(out.dtype)
     ff = torch.relu(_linear(x, layer.linear1.weight, layer.linear1.bias, layer.dtype))
     if dropout is not None:
         rate, fast, generator = dropout
-        ff = drop_site(ff, generator, rate, fast)
-    return _linear(ff, layer.linear2.weight, layer.linear2.bias, layer.dtype)
+        ff = (drop_site(ff, generator, rate, fast) if tp is None
+              else tp.drop(ff, generator, rate, fast, dim=-1))
+    if tp is None:
+        return _linear(ff, layer.linear2.weight, b2, layer.dtype)
+    return tp.reduce(F.linear(ff.to(layer.dtype), layer.linear2.weight.to(layer.dtype))) \
+        + b2.to(layer.dtype)
 
 
 # the training switches whose kernels take the config's dropout rate, a float
@@ -383,7 +417,10 @@ def _layer_seed(generator, device) -> torch.Tensor:
 
 class EncoderLayer(nn.Module):
     """Post-LN encoder layer, torch 1.10 ``TransformerEncoderLayer``:
-    ``x = LN(x + Drop(SA(x))); x = LN(x + Drop(W2·Drop(relu(W1·x))))``."""
+    ``x = LN(x + Drop(SA(x))); x = LN(x + Drop(W2·Drop(relu(W1·x))))``.
+    ``tp``: as :class:`SelfAttention`'s."""
+
+    tp = None
 
     def __init__(self, config: GrooveTransformerConfig, device=None):
         super().__init__()
@@ -414,6 +451,9 @@ class EncoderLayer(nn.Module):
         cfg = self.config
         b, t, d = x.shape
         cd = self.dtype
+        if self.tp is not None:
+            raise NotImplementedError("fused_layer on a tensor-parallel layer: the "
+                                      "whole-layer kernels take an unsplit layer")
         if not supports_fused_layer(d, cfg.n_heads, cfg.dim_feedforward, t, cd):
             raise ValueError(
                 f"fused_layer=True, but the fused layer does not take d_model={d}, "
@@ -436,7 +476,9 @@ class EncoderLayer(nn.Module):
 class DecoderLayer(nn.Module):
     """Post-LN decoder layer, torch 1.10 ``TransformerDecoderLayer``:
     ``y = LN(y + Drop(SA_causal(y))); y = LN(y + Drop(CA(y, memory)));
-    y = LN(y + Drop(W2·Drop(relu(W1·y))))``."""
+    y = LN(y + Drop(W2·Drop(relu(W1·y))))``. ``tp``: as :class:`SelfAttention`'s."""
+
+    tp = None
 
     def __init__(self, config: GrooveTransformerConfig, device=None):
         super().__init__()
@@ -474,6 +516,9 @@ class DecoderLayer(nn.Module):
         cfg = self.config
         b, t, d = y.shape
         cd = self.dtype
+        if self.tp is not None:
+            raise NotImplementedError("fused_decoder_layer on a tensor-parallel layer: the "
+                                      "whole-layer kernels take an unsplit layer")
         if memory.shape != y.shape or not supports_fused_decoder_layer(
                 d, cfg.n_heads, cfg.dim_feedforward, t, cd):
             raise ValueError(
@@ -508,7 +553,11 @@ class OutputLayer(nn.Module):
         self.Linear = _new_linear(d_model, embedding_size_tgt, device)
 
     def forward(self, x: torch.Tensor):
-        y = self.Linear(x)
+        return self.heads(self.Linear(x))
+
+    @staticmethod
+    def heads(y: torch.Tensor):
+        """The projection's ``3V`` columns → (hit logits, velocity, offset)."""
         n = y.shape[-1] // 3
         return y[..., :n], torch.sigmoid(y[..., n : 2 * n]), torch.tanh(y[..., 2 * n :]) * 0.5
 

@@ -30,10 +30,20 @@ root ``process_evaluator.py``), on ``--device``, and ``run_training``
 evaluates every block on them; a pickle that does not exist is skipped with
 a line on stderr, as in root ``train.py``.
 
-Not ported, each raising ``NotPortedError``: ``--n_model_shards`` or
-``--pp_stages`` above 1 (ROADMAP A10). ``--fast_prng`` is accepted and
-changes nothing: it switches the JAX package's dropout PRNG, and the port's
-masks are Philox streams.
+Several processes, one rank each (``parallel/``): launched once per rank
+with the JAX package's names (``JAX_COORDINATOR_ADDRESS``,
+``JAX_NUM_PROCESSES``, ``JAX_PROCESS_ID``) or torchrun's (``MASTER_ADDR``,
+``MASTER_PORT``, ``WORLD_SIZE``, ``RANK``, ``LOCAL_RANK``), the command line
+starts the process group before any CUDA use
+(``parallel/multihost.py::initialize_from_env``) and trains data-parallel
+over the ranks, ``--n_model_shards N`` splitting each layer over N of them
+(tensor parallelism) and ``--pp_stages S`` pipelining the encoder over S
+(``--pp_micro`` microbatches, default 2·S), as root ``train.py`` builds its
+plan. As root ``train.py`` does under several processes: ranks other than 0
+log offline, the in-training evaluators are disabled (with a note), and each
+rank's host streamer takes its equal shard of the corpus, seeded ``rank <<
+20``. ``--fast_prng`` is accepted and changes nothing: it switches the JAX
+package's dropout PRNG, and the port's masks are Philox streams.
 """
 
 from __future__ import annotations
@@ -45,7 +55,6 @@ import sys
 
 import numpy as np
 
-from .. import NotPortedError
 from ..utils import logging as xlog
 from ..utils import yaml_subset
 from .config import load_paths
@@ -65,9 +74,9 @@ def parse_args(argv=None):
     parser.add_argument("--notes", help="wandb run notes", default=None)
     parser.add_argument("--tags", help="wandb run tags", default=None)
     parser.add_argument("--n_model_shards", type=int, default=1,
-                        help="tensor-parallel mesh axis size (not ported: 1 only)")
+                        help="tensor-parallel mesh axis size (ranks each layer is split over)")
     parser.add_argument("--pp_stages", type=int, default=1,
-                        help="pipeline-parallel stages (not ported: 1 only)")
+                        help="pipeline-parallel stages (GPipe over the encoder layers)")
     parser.add_argument("--pp_micro", type=int, default=None,
                         help="microbatches per global batch (pipeline parallelism only)")
     parser.add_argument("--export_legacy", default=False,
@@ -186,11 +195,21 @@ def main(argv=None):
     pprint.pprint(hp_dict)
     paths = load_paths(args.paths)
     os.environ["WANDB_MODE"] = "online" if _flag(args.wandb) else "offline"
-    if args.n_model_shards > 1 or args.pp_stages > 1:
-        raise NotPortedError(
-            f"--n_model_shards {args.n_model_shards} --pp_stages {args.pp_stages}: tensor "
-            "and pipeline parallelism are not ported yet (ROADMAP A10); the port trains on "
-            "one device")
+    # several processes: start the group from the environment before any CUDA
+    # use (root train.py's order)
+    from ..parallel.multihost import initialize_from_env, process_count, process_index
+
+    if initialize_from_env(args.device) and process_count() > 1:
+        if process_index() != 0:
+            # one wandb run per job; every rank keeps its local run directory
+            os.environ["WANDB_MODE"] = "offline"
+        if any(_flag(f) for f in (args.eval_train, args.eval_test, args.eval_validation)):
+            if process_index() == 0:
+                print("multi-host run: in-training evaluators disabled (evaluate offline "
+                      "from checkpoints: python -m "
+                      "transformergrooveinfilling_tpu_torch.evaluate)")
+            args.eval_train = args.eval_test = args.eval_validation = "False"
+            args.dump_eval = "False"
     xlog.init(config=hp_dict, project=hp_dict["experiment"], job_type="train",
               notes=args.notes, tags=args.tags)
     try:
@@ -198,6 +217,24 @@ def main(argv=None):
     finally:
         # a failed run must not leave the logging singleton active
         xlog.finish()
+
+
+def _plan(args):
+    """The mesh plan of the flags and the group (root ``train.py``'s): a
+    pipeline plan with ``--pp_stages`` > 1, else a ("data", "model") mesh
+    with ``--n_model_shards``; None in one process without either."""
+    from ..parallel.multihost import process_count
+
+    if args.pp_stages > 1:
+        from ..parallel.pipeline import make_pipeline_mesh
+
+        return make_pipeline_mesh(args.pp_stages, n_micro=args.pp_micro,
+                                  n_model=args.n_model_shards, device=args.device)
+    if args.n_model_shards > 1 or process_count() > 1:
+        from ..parallel.mesh import make_mesh
+
+        return make_mesh(n_model=args.n_model_shards, device=args.device)
+    return None
 
 
 def _run(args, hp_dict, paths):
@@ -243,7 +280,8 @@ def _run(args, hp_dict, paths):
     }
     xlog.config.update(params["model"])
 
-    bundle, _opt, initial_epoch = initialize_model(params, device=args.device)
+    plan = _plan(args)
+    bundle, _opt, initial_epoch = initialize_model(params, device=args.device, plan=plan)
     xlog.watch(bundle.model)
 
     dataset_train = load_processed_dataset(paths[cfg.experiment]["datasets"]["train"],
@@ -266,7 +304,7 @@ def _run(args, hp_dict, paths):
     try:
         run_training(
             hp, dataset_for_training, evaluators,
-            bundle=bundle, initial_epoch=initial_epoch,
+            bundle=bundle, initial_epoch=initial_epoch, plan=plan,
             only_final_eval=_flag(args.only_final_eval),
             dump_eval=_flag(args.dump_eval),
             ckpt_dir=args.ckpt_dir,
@@ -289,8 +327,9 @@ def _run(args, hp_dict, paths):
 
 def _setup_streaming(args, dataset_train):
     """``--streaming`` → (streamer, on_device_augment, dataset_for_training):
-    fresh-augmentation training for the random-masking experiments, on one
-    process (see the module docstring)."""
+    fresh-augmentation training for the random-masking experiments (see the
+    module docstring); under several processes each rank's host streamer
+    takes its equal shard of the corpus."""
     if args.streaming == "off":
         return None, None, dataset_train
 
@@ -313,11 +352,26 @@ def _setup_streaming(args, dataset_train):
 
     if args.streaming == "host":
         from ..data.pipeline import StreamingAugmenter
+        from ..parallel.multihost import context, process_count, process_index
 
+        n_proc, pid = process_count(), process_index()
+        if n_proc > 1:
+            per = len(base) // n_proc
+            if per == 0:
+                raise SystemExit(f"--streaming with {n_proc} processes needs a corpus of at "
+                                 f"least {n_proc} loops (got {len(base)})")
+            if per * n_proc != len(base) and pid == 0:
+                print(f"streaming: trimming corpus {len(base)} -> {per * n_proc} loops "
+                      f"({n_proc} equal process shards)")
+            base = base[pid * per:(pid + 1) * per]
+            qpms = qpms[pid * per:(pid + 1) * per]
         streamer = StreamingAugmenter(
             base, qpms=qpms, aug_per_item=fanout, mode="audio", thres_range=thres,
-            soundfonts=sfs, mso_params=mso_params, partial=args.regen_partial, seed=0,
-            device=args.device)
+            soundfonts=sfs, mso_params=mso_params, partial=args.regen_partial,
+            # distinct streams, spaced far apart: generation g of a streamer
+            # draws from default_rng(seed + g)
+            seed=pid * (1 << 20),
+            device=context().device if context() is not None else args.device)
         print(f"streaming(host): {len(base)} loops x {fanout} fresh augmentations = "
               f"{streamer.n_samples} items/generation, partial=1/{args.regen_partial}, "
               f"cadence={args.regen_cadence}")

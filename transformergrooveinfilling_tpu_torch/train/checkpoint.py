@@ -66,10 +66,16 @@ def _payload_from(config: GrooveTransformerConfig, params: dict, algorithm: str,
 
 def fetch_state_to_host(state) -> dict:
     """A ``TrainState``'s parameters and optimizer state → the checkpoint
-    payload, copied to the host on the calling thread."""
+    payload, copied to the host on the calling thread. A tensor-parallel
+    model's parts are gathered first (``parallel/tensor.py::gather_full``, a
+    collective: every rank of the group calls this), so the payload is the
+    one-device layout."""
+    from ..parallel.tensor import gather_full
+
     model = state.model
-    return _payload_from(model.config, model.state_dict(),
-                         *torch_compat.optimizer_moments(state.optimizer, model))
+    algorithm, count, mu, nu = torch_compat.optimizer_moments(state.optimizer, model)
+    return _payload_from(model.config, gather_full(model, model.state_dict()), algorithm,
+                         count, gather_full(model, mu), gather_full(model, nu))
 
 
 @dataclasses.dataclass

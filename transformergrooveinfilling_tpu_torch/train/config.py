@@ -156,18 +156,36 @@ def _measured_batch(batch_size: Optional[int], compute_dtype) -> bool:
     return batch_size is not None and limit is not None and batch_size <= limit
 
 
+def _topology_batch(n_devices: int, dp_shard_ok: bool,
+                    batch_size: Optional[int]) -> Optional[int]:
+    """The batch one device's kernels see: the whole batch on one device, a
+    data rank's share on a dp-only plan whose batch divides its data axis
+    (``dp_shard_ok``), None (no kernel) on any other topology."""
+    if n_devices == 1:
+        return batch_size
+    if dp_shard_ok and batch_size is not None:
+        return batch_size // n_devices
+    return None
+
+
 def resolve_fused_layer(fused_layer: Optional[bool], d_model: int, n_heads: int,
                         dim_feedforward: int, n_devices: int = 1,
                         compute_dtype=torch.float32, seq_len: int = MAX_LEN, *,
-                        batch_size: Optional[int] = None) -> bool:
+                        batch_size: Optional[int] = None, dp_shard_ok: bool = False) -> bool:
     """fused_layer hyperparameter → whole-encoder-layer kernel switch (the
-    JAX package's positional signature, then ``batch_size``). ``None`` = auto,
-    gated by measurement as the JAX package's is: on for a single device
-    where the kernels' Hopper gate (``ops/fused_layer.py::supports_fused_layer``)
-    admits the shape and the training batch is one at which the dtype's
-    chain was measured faster, ``batch_size`` <= 512 in bf16 and in f32
-    (``LAYER_KERNEL_MAX_BATCH``); off when the batch is larger or not given.
-    A forced True is kept; the model raises if the gate rejects it.
+    JAX package's positional signature, then ``batch_size`` and the JAX
+    ``dp_shard_ok``). ``None`` = auto, gated by measurement as the JAX
+    package's is: on where the kernels' Hopper gate
+    (``ops/fused_layer.py::supports_fused_layer``) admits the shape and the
+    batch one device sees is one at which the dtype's chain was measured
+    faster, <= 512 in bf16 and in f32 (``LAYER_KERNEL_MAX_BATCH``); off when
+    the batch is larger or not given. The topology, as the JAX package's: a
+    single device, or a data-parallel-only plan whose batch divides the data
+    axis (``dp_shard_ok``, from ``train/driver.py::plan_topology``; each rank
+    runs the chain on ``batch_size / n_devices`` rows,
+    ``train/loop.py::_make_dp_shard_step``); tensor- or pipeline-parallel
+    plans keep it off. A forced True is kept; the model raises if the gate
+    rejects it, and ``train/driver.py`` on a topology the chain cannot take.
 
     On an NVIDIA H100 80GB HBM3 at 700 W (chip_smoke.py, phase 9; PERF.md §5),
     flagship width, bf16, the bf16 chain of csrc/layer_sm90.cu against
@@ -188,19 +206,22 @@ def resolve_fused_layer(fused_layer: Optional[bool], d_model: int, n_heads: int,
     15.8 % and 30.7 %."""
     if fused_layer is not None:
         return bool(fused_layer)
-    return (n_devices == 1 and _measured_batch(batch_size, compute_dtype)
+    per_device = _topology_batch(n_devices, dp_shard_ok, batch_size)
+    return (_measured_batch(per_device, compute_dtype)
             and supports_fused_layer(d_model, n_heads, dim_feedforward, seq_len, compute_dtype))
 
 
 def resolve_fused_decoder_layer(fused_decoder_layer: Optional[bool], d_model: int,
                                 n_heads: int, dim_feedforward: int, n_devices: int = 1,
                                 compute_dtype=torch.float32, seq_len: int = MAX_LEN, *,
-                                batch_size: Optional[int] = None) -> bool:
+                                batch_size: Optional[int] = None,
+                                dp_shard_ok: bool = False) -> bool:
     """fused_decoder_layer hyperparameter → whole-decoder-layer kernel switch
     (encoder-decoder models), by the rule of :func:`resolve_fused_layer`:
-    ``None`` = auto, on for a single device where the decoder kernels' Hopper
-    gate (``ops/fused_decoder_layer.py::supports_fused_decoder_layer``) admits
-    the shape and ``batch_size`` is within the dtype's
+    ``None`` = auto, on for a single device or a dp-only plan
+    (``dp_shard_ok``) where the decoder kernels' Hopper gate
+    (``ops/fused_decoder_layer.py::supports_fused_decoder_layer``) admits
+    the shape and the batch one device sees is within the dtype's
     ``LAYER_KERNEL_MAX_BATCH`` (512 in bf16 and in f32); off when the batch is
     larger or not given. A forced True is kept; the model raises if the gate
     rejects it.
@@ -217,7 +238,8 @@ def resolve_fused_decoder_layer(fused_decoder_layer: Optional[bool], d_model: in
     the final code: +154 % and +174 %)."""
     if fused_decoder_layer is not None:
         return bool(fused_decoder_layer)
-    return (n_devices == 1 and _measured_batch(batch_size, compute_dtype)
+    per_device = _topology_batch(n_devices, dp_shard_ok, batch_size)
+    return (_measured_batch(per_device, compute_dtype)
             and supports_fused_decoder_layer(d_model, n_heads, dim_feedforward, seq_len,
                                              compute_dtype))
 
@@ -274,9 +296,10 @@ def resolve_remat(remat: Optional[bool], *, d_model: int, n_heads: int,
 
 
 def derive_model_config(hp: HyperParams, compute_dtype=None, n_devices: int = 1,
-                        device="cuda") -> GrooveTransformerConfig:
+                        dp_shard_ok: bool = False, device="cuda") -> GrooveTransformerConfig:
     """The model config of a :class:`HyperParams`, switches resolved for
-    ``device`` (``"cuda"`` without CUDA raises). On a CUDA device the
+    ``device`` (``"cuda"`` without CUDA raises) and the topology
+    (``n_devices``, ``dp_shard_ok``: :func:`resolve_fused_layer`). On a CUDA device the
     inference forwards (held-out losses, predict) run the attention kernel
     (``use_fused_attention``), faster than its plain version at every
     measured shape; the JAX package leaves its kernel off in training."""
@@ -294,11 +317,11 @@ def derive_model_config(hp: HyperParams, compute_dtype=None, n_devices: int = 1,
                                     device),
         fused_layer=resolve_fused_layer(hp.fused_layer, hp.d_model, hp.n_heads,
                                         hp.dim_feedforward, n_devices, compute_dtype,
-                                        batch_size=hp.batch_size),
+                                        batch_size=hp.batch_size, dp_shard_ok=dp_shard_ok),
         fused_decoder_layer=(
             resolve_fused_decoder_layer(hp.fused_decoder_layer, hp.d_model, hp.n_heads,
                                         hp.dim_feedforward, n_devices, compute_dtype,
-                                        batch_size=hp.batch_size)
+                                        batch_size=hp.batch_size, dp_shard_ok=dp_shard_ok)
             if n_dec > 0 else False),
         remat=remat,
         remat_policy=hp.remat_policy,

@@ -23,9 +23,9 @@ and a run active it writes a ``torch.profiler`` trace of the first block to
 in an eval pass over every evaluator's set, held resident on the device: the
 held-out losses, fetched once a block, and the metric families, fetched once
 on a scalar-only epoch; a media epoch runs ``log_eval``, its rendering on a
-worker thread (:class:`_MediaWorker`). Not ported yet, raising
-``NotPortedError``: a ``plan`` (multi-device and multi-process streaming,
-ROADMAP A10).
+worker thread (:class:`_MediaWorker`). With a ``plan`` (``parallel/``)
+it trains over data, tensor and pipeline parallelism, one rank per process
+(:func:`_PlanRun`).
 """
 
 from __future__ import annotations
@@ -43,7 +43,7 @@ from typing import Any
 import numpy as np
 import torch
 
-from .. import NotPortedError, require_device
+from .. import require_device
 from ..eval.evaluator import log_eval
 from ..eval.metrics import _metric_stack_torch, format_families
 from ..models import predict as model_predict
@@ -172,7 +172,21 @@ class ModelBundle:
         return list(torch.stack(out).cpu().numpy())
 
 
-def initialize_model(params: dict, device="cuda") -> tuple[ModelBundle, Any, int]:
+def plan_topology(plan, batch_size: int) -> tuple[int, bool]:
+    """``(n_devices, dp_shard_ok)`` of a plan for the kernel switches
+    (``train/config.py::resolve_fused_layer``): dp_shard_ok on a dp-only
+    plan of several ranks whose data axis divides the batch (the JAX
+    training driver's test)."""
+    from ..parallel.pipeline import PipelinePlan
+
+    if plan is None:
+        return 1, False
+    ok = (not isinstance(plan, PipelinePlan) and plan.size > 1 and plan.n_model == 1
+          and batch_size % plan.n_data == 0)
+    return plan.size, ok
+
+
+def initialize_model(params: dict, device="cuda", plan=None) -> tuple[ModelBundle, Any, int]:
     """Reference ``initialize_model`` contract: ``params = {"model": {...},
     "training": {...}, "load_model": None | ...}`` → (bundle, optimizer,
     initial_epoch), on ``device`` (``"cuda"`` without CUDA raises; the CPU
@@ -192,14 +206,17 @@ def initialize_model(params: dict, device="cuda") -> tuple[ModelBundle, Any, int
     batch sizes where they were measured faster (<= 512,
     ``resolve_fused_layer``), and on a CUDA device the inference forwards
     run the attention kernel (``derive_model_config``). Every kernel switch is
-    resolved by ``params["training"]["batch_size"]`` (default 16)."""
+    resolved by ``params["training"]["batch_size"]`` (default 16), and by
+    ``plan``'s topology when a mesh plan (``parallel/``) is given
+    (:func:`plan_topology`; the model is then built on the plan's device)."""
     m = params["model"]
     t = params.get("training", {})
-    device = require_device(device, "initialize_model")
+    device = require_device(plan.device if plan is not None else device, "initialize_model")
     compute_dtype = resolve_compute_dtype(m.get("bf16"), device)
     n_dec = m.get("num_decoder_layers", 0)
     batch = t.get("batch_size", 16)
-    gate = (m["d_model"], m["n_heads"], m["dim_feedforward"], 1, compute_dtype,
+    n_devices, dp_shard_ok = plan_topology(plan, batch)
+    gate = (m["d_model"], m["n_heads"], m["dim_feedforward"], n_devices, compute_dtype,
             m.get("max_len", 32))
     remat = resolve_remat(
         m.get("remat"), d_model=m["d_model"], n_heads=m["n_heads"],
@@ -210,9 +227,11 @@ def initialize_model(params: dict, device="cuda") -> tuple[ModelBundle, Any, int
         fused_ffn=resolve_fused_ffn(m.get("fused_ffn"), m["dim_feedforward"], m["d_model"],
                                     compute_dtype, device),
         fused_dropout_ln=bool(m.get("fused_dropout_ln", False)),
-        fused_layer=resolve_fused_layer(m.get("fused_layer"), *gate, batch_size=batch),
+        fused_layer=resolve_fused_layer(m.get("fused_layer"), *gate, batch_size=batch,
+                                        dp_shard_ok=dp_shard_ok),
         fused_decoder_layer=(resolve_fused_decoder_layer(m.get("fused_decoder_layer"), *gate,
-                                                         batch_size=batch)
+                                                         batch_size=batch,
+                                                         dp_shard_ok=dp_shard_ok)
                              if n_dec > 0 else False),
         remat=remat,
         remat_policy=m.get("remat_policy"),
@@ -382,6 +401,121 @@ def _device_trace(profile_dir: str, device: torch.device):
     prof.export_chrome_trace(os.path.join(profile_dir, "trace.json"))
 
 
+class _PlanRun:
+    """What ``run_training(plan=...)`` adds to the one-device loop, following
+    the JAX driver: the plan's topology gates the kernel switches
+    (``dp_shard_ok``), a pipeline plan swaps in its step, a "model" axis
+    splits the parameters, and across processes the ranks agree on the stop,
+    the streaming swaps and their cadence, checkpoints are gathered on every
+    rank and written by rank 0, and each rank's streamer feeds its
+    generation into the global array every rank trains from."""
+
+    def __init__(self, plan, hp: HyperParams):
+        import torch.distributed as dist
+
+        from ..parallel.comm import Comm
+        from ..parallel.multihost import context
+        from ..parallel.pipeline import PipelinePlan
+
+        self.plan = plan
+        self.is_pp = isinstance(plan, PipelinePlan)
+        self.n_proc = dist.get_world_size()
+        self.rank = dist.get_rank()
+        if self.is_pp and context().n_nodes > 1:
+            raise NotImplementedError(
+                "pipeline parallelism runs on one node: its point-to-point ring of ranks "
+                "spans no network here (the JAX package's pipeline is single-process); "
+                "across nodes use dp or dp×tp (parallel/mesh.py)")
+        self.world = Comm(None, plan.transport, self.n_proc)
+        self.dp_shard_ok = plan_topology(plan, hp.batch_size)[1]
+
+    def check_config(self, config: GrooveTransformerConfig, hp: HyperParams) -> None:
+        """The JAX driver's refusals, with its exception types."""
+        forced = [f for f in ("fused_layer", "fused_decoder_layer") if getattr(config, f)]
+        if forced and self.plan.size > 1 and not self.dp_shard_ok:
+            raise NotImplementedError(
+                f"{'/'.join(forced)} on this mesh is unsupported: the whole-layer kernels "
+                "(encoder and decoder) compose with DATA parallelism only, each rank running "
+                "them on its rows (batch_size must divide the data axis); tensor- and "
+                f"pipeline-parallel layers are split. Drop "
+                f"{'those flags' if len(forced) > 1 else 'that flag'} (auto turns them off "
+                "here), use a dp-only mesh with a dividing batch size, or run on one device.")
+        if self.is_pp:
+            from ..parallel.pipeline import check_pipeline_batch
+
+            if not config.encoder_only:
+                raise NotImplementedError(
+                    "pipeline parallelism covers the encoder-only family; the "
+                    "encoder-decoder family is trained with dp or dp×tp")
+            check_pipeline_batch(self.plan, hp.batch_size, config.num_encoder_layers)
+
+    def step_fn(self, hp: HyperParams):
+        if not self.is_pp:
+            return None
+        from ..parallel.pipeline import make_pipeline_step
+
+        return make_pipeline_step(self.plan, hp.hit_loss_penalty)
+
+    def shard(self, bundle: "ModelBundle") -> None:
+        if self.plan.n_model > 1:
+            from ..parallel.mesh import shard_params
+
+            shard_params(bundle.model, self.plan, True, bundle.state.optimizer)
+
+    def any(self, flag: bool) -> bool:
+        """True on every rank when ``flag`` is on any rank."""
+        t = torch.tensor([float(flag)], device=self.plan.device)
+        return bool(self.world.all_reduce(t).item() > 0)
+
+    def max(self, value: int) -> int:
+        t = torch.tensor([int(value)], device=self.plan.device)
+        return int(max(int(v.item()) for v in self.world.all_gather(t)))
+
+    def check_streamer(self, streamer) -> int:
+        """Every rank's generation size must be equal (the JAX check) →
+        the global sample count."""
+        n_local = int(streamer.n_samples)
+        t = torch.tensor([n_local], device=self.plan.device)
+        sizes = [int(v.item()) for v in self.world.all_gather(t)]
+        if any(s != n_local for s in sizes):
+            raise ValueError(
+                f"multi-host streaming needs equal per-process generation "
+                f"sizes, got {sizes} — shard the corpus into equal "
+                f"parts (train.py does this automatically)")
+        return n_local * self.n_proc
+
+    def swap(self, streamer, n: int, dev):
+        """One streaming swap across ranks: every rank builds its generation,
+        the ranks agree that all succeeded, then gather the global arrays."""
+        error = None
+        try:
+            fresh_in, fresh_out = streamer.next_epoch()
+            if fresh_in.shape[0] * self.n_proc != n or fresh_out.shape[0] * self.n_proc != n:
+                raise ValueError(
+                    f"streamer generation sizes {fresh_in.shape[0]}/{fresh_out.shape[0]} "
+                    f"!= local shard size {n // self.n_proc}; generations must keep a "
+                    "constant per-process size")
+        except Exception as e:  # noqa: BLE001 — agreed across ranks, then raised
+            error = e
+        if self.any(error is not None):
+            if error is not None:
+                raise error
+            raise RuntimeError("streaming generation failed on a peer process (its error is "
+                               "in that process's log); stopping the group")
+        return (torch.cat(self.world.all_gather(_device_tensor(fresh_in, dev))),
+                torch.cat(self.world.all_gather(_device_tensor(fresh_out, dev))))
+
+    def save(self, bundle: "ModelBundle", ckpt_dir, run_id, epoch, loss, legacy: bool) -> None:
+        """Gather on every rank (a collective under tensor parallelism),
+        write on rank 0."""
+        payload = ckpt.fetch_state_to_host(bundle.state)
+        if self.rank == 0:
+            ckpt.save_payload_async(ckpt_dir, run_id, epoch, payload, loss, bundle.config)
+            if legacy:
+                ckpt.export_legacy(ckpt_dir, run_id, epoch, payload["params"], bundle.config,
+                                   loss)
+
+
 def run_training(hp: HyperParams, dataset, evaluators: dict | None = None, *,
                  bundle: ModelBundle | None = None, initial_epoch: int = 0, plan=None,
                  only_final_eval: bool = False, dump_eval: bool = False,
@@ -432,11 +566,36 @@ def run_training(hp: HyperParams, dataset, evaluators: dict | None = None, *,
     wandb is online, and ``dump_eval`` dumps the evaluator. A stop skips the
     families and media of its block.
 
-    Not ported yet, raising ``NotPortedError``: a ``plan`` (ROADMAP A10)."""
-    if plan is not None:
-        raise NotPortedError("run_training(plan=...): meshes, multi-device training and "
-                             "multi-process streaming are not ported yet (ROADMAP A10); the "
-                             "port trains on one device")
+    ``plan``: a ``parallel/mesh.py::MeshPlan`` (data and tensor parallelism)
+    or ``parallel/pipeline.py::PipelinePlan`` (dp × pp [× tp]); the model
+    lives on the plan's device. Every rank holds the resident corpus and
+    trains on its rows of each global batch (the same batches as one
+    process); a "model" axis splits the layers (``shard_params``, also of a
+    restored bundle); a pipeline plan runs its step
+    (``make_pipeline_step``; the encoder-decoder family and a pipe spanning
+    nodes are refused with ``NotImplementedError``, as are the whole-layer
+    kernels forced on a tensor- or pipeline-parallel plan). Across
+    processes: each rank's ``streamer`` streams its own equal corpus shard,
+    gathered into the global generation at each swap (full generations);
+    the ranks agree on the stop and the auto cadence; checkpoints are
+    gathered on every rank and written by rank 0 in the one-device flax
+    layout (they load in either package and in a one-rank run); the
+    evaluators and the watch pass run in a single process only (the command
+    line disables the evaluators, as root ``train.py`` does)."""
+    plan_run = _PlanRun(plan, hp) if plan is not None else None
+    if plan_run is not None:
+        device = plan.device
+        if bundle is not None and bundle.device != plan.device:
+            raise ValueError(f"the bundle lives on {bundle.device}, the plan's rank on "
+                             f"{plan.device}")
+    multi = plan_run is not None and plan_run.n_proc > 1
+    if multi and evaluators:
+        if plan_run.rank == 0:
+            print("multi-host run: in-training evaluators disabled (evaluate offline from "
+                  "checkpoints: python -m transformergrooveinfilling_tpu_torch.evaluate)")
+        evaluators = {}
+    if multi:
+        watch_log_freq = None
     if streamer is not None and on_device_augment is not None:
         raise ValueError("streamer and on_device_augment are mutually exclusive")
     auto_cadence = regen_cadence == "auto"
@@ -445,16 +604,25 @@ def run_training(hp: HyperParams, dataset, evaluators: dict | None = None, *,
                          f"{regen_cadence!r}")
     if bundle is None:
         device = require_device(device, "run_training")
-        config = derive_model_config(hp, device=device)
+        n_devices, dp_shard_ok = plan_topology(plan, hp.batch_size)
+        config = derive_model_config(hp, n_devices=n_devices, dp_shard_ok=dp_shard_ok,
+                                     device=device)
         state = create_train_state(config, hp.optimizer_algorithm, hp.learning_rate, seed,
                                    device)
         bundle = ModelBundle(model=state.model, config=config, state=state, device=device,
                              optimizer_algorithm=hp.optimizer_algorithm,
                              learning_rate=hp.learning_rate)
     dev = bundle.device
+    step_fn = None
+    if plan_run is not None:
+        plan_run.check_config(bundle.config, hp)
+        plan_run.shard(bundle)
+        step_fn = plan_run.step_fn(hp)
     if streamer is not None:
         # the first generation fills them before any use
         n, inputs, outputs = int(streamer.n_samples), None, None
+        if multi:
+            n = plan_run.check_streamer(streamer)
     else:
         inputs = _device_tensor(dataset.processed_inputs, dev)
         outputs = _device_tensor(dataset.processed_outputs, dev)
@@ -474,7 +642,7 @@ def run_training(hp: HyperParams, dataset, evaluators: dict | None = None, *,
     def epoch_fn_of(block: int):
         return make_epoch_fn(hp.hit_loss_penalty, hp.batch_size, n, n_epochs=block,
                              augment=on_device_augment, augment_per_epoch=augment_per_epoch,
-                             encoder_only=encoder_only)
+                             encoder_only=encoder_only, plan=plan, step_fn=step_fn)
 
     epoch_fn = epoch_fn_of(epoch_block)
     save_partial, save_all = eval_log_freq(
@@ -501,7 +669,9 @@ def run_training(hp: HyperParams, dataset, evaluators: dict | None = None, *,
                 block = min(epoch_block, hp.epochs - ep)
                 run_fn = epoch_fn if block == epoch_block else epoch_fn_of(block)
                 t0 = time.time()
-                if streamer is not None and blocks_run % cadence == 0:
+                if multi and streamer is not None and blocks_run % cadence == 0:
+                    inputs, outputs = plan_run.swap(streamer, n, dev)
+                elif streamer is not None and blocks_run % cadence == 0:
                     if hasattr(streamer, "next_epoch_delta"):
                         sl, fresh_in, fresh_out = streamer.next_epoch_delta()
                     else:  # plain next_epoch streamers (tests, custom producers)
@@ -530,8 +700,15 @@ def run_training(hp: HyperParams, dataset, evaluators: dict | None = None, *,
                 blocks_run += 1
                 if streamer is not None and auto_cadence:
                     gen_s = getattr(streamer, "last_generation_seconds", 0.0)
+                    if multi:
+                        # the slowest rank's build sets every rank's cadence, so
+                        # all ranks swap on the same blocks
+                        gen_s = plan_run.max(int(np.ceil(gen_s * 1000))) / 1000.0
+                        dt_agreed = plan_run.max(int(dt * 1000)) / 1000.0
+                    else:
+                        dt_agreed = dt
                     new_cadence, cadence_pending = _next_cadence(cadence, cadence_pending,
-                                                                 gen_s, dt)
+                                                                 gen_s, dt_agreed)
                     if new_cadence != cadence:
                         print(f"streaming: auto regen cadence -> every {new_cadence} "
                               f"block(s) (generation {gen_s:.1f}s, block {dt:.1f}s)")
@@ -544,6 +721,8 @@ def run_training(hp: HyperParams, dataset, evaluators: dict | None = None, *,
                         metrics.update({f"{name}_{k}": v for k, v in zip(_LOSS_KEYS, row)})
                 stop_now = stopper.requested or (
                     max_wall_s is not None and time.time() - run_start > max_wall_s)
+                if multi:  # a one-sided stop would leave the peers in a collective
+                    stop_now = plan_run.any(stop_now)
                 if stop_now:
                     metrics["graceful_stop"] = 1.0
                 last_ep = ep - 1
@@ -563,10 +742,14 @@ def run_training(hp: HyperParams, dataset, evaluators: dict | None = None, *,
                              commit=False)
 
                 if stop_now or any(e in scheduled for e in range(ep - block, ep)):
-                    ckpt.save_snapshot_async(
-                        ckpt_dir, run_id, last_ep, ckpt.snapshot_state_on_device(bundle.state),
-                        metrics["loss"], bundle.config,
-                        legacy=bool(export_legacy and encoder_only))
+                    if multi:
+                        plan_run.save(bundle, ckpt_dir, run_id, last_ep, metrics["loss"],
+                                      bool(export_legacy and encoder_only))
+                    else:
+                        ckpt.save_snapshot_async(
+                            ckpt_dir, run_id, last_ep,
+                            ckpt.snapshot_state_on_device(bundle.state), metrics["loss"],
+                            bundle.config, legacy=bool(export_legacy and encoder_only))
                 # a stop skips the families and media: the checkpoint above is
                 # what must land in a short grace window
                 if evaluators and not stop_now:

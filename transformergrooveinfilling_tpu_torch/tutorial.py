@@ -14,14 +14,19 @@ Eight steps, end to end, in a temporary directory that is removed at the end:
    directory resumed, and its reference-era ``.Model`` resumed on its own;
 4. prediction over the evaluator and its metric families;
 5. serving an infill through ``InfillServer``;
-6. scale-out: the matmul dtype this device resolves to; the pipeline-parallel
-   forward needs 4 devices, and multi-GPU is not ported yet (ROADMAP A10);
+6. scale-out: the matmul dtype this device resolves to, and, in a group of
+   at least 4 ranks, the pipelined forward over data 2 × pipe 2 (else how to
+   start such a group);
 7. an exported artifact (``export_infill``, ``load_infill``), its programs
    holding the attention kernel;
 8. offline evaluation of the saved checkpoint (``evaluate``).
 
 ``--device`` (default ``cuda``) is where everything runs; ``cuda`` without
-CUDA raises, as every entry point of the port does.
+CUDA raises, as every entry point of the port does. Started once per rank
+with torchrun's names (``torchrun --nproc-per-node 4 -m
+transformergrooveinfilling_tpu_torch.tutorial``) or the JAX package's
+(``JAX_COORDINATOR_ADDRESS``, ``JAX_NUM_PROCESSES``, ``JAX_PROCESS_ID``), every
+rank walks through all steps, and step 6 runs the pipeline over the group.
 """
 
 from __future__ import annotations
@@ -137,11 +142,24 @@ def run(device: str, work: str) -> None:
 
     print(f"\n[6] scale-out: matmul dtype here by default = "
           f"{str(resolve_compute_dtype(None, device)).removeprefix('torch.')}")
-    n_dev = torch.cuda.device_count() if device.startswith("cuda") else 1
-    print(f"    (the pipeline-parallel forward needs >= 4 devices, and multi-GPU "
-          f"training is not ported yet: ROADMAP A10; this run has {n_dev} "
-          f"{'CUDA device' if device.startswith('cuda') else 'CPU device'}"
-          f"{'s' if n_dev != 1 else ''})")
+    # pipeline parallelism for deep configs: a ("data", "pipe") mesh splits
+    # the encoder stack across ranks (GPipe microbatch schedule,
+    # parallel/pipeline.py); runs in a group of exactly 4 ranks
+    from .parallel.multihost import process_count
+
+    if process_count() == 4 and bundle.config.num_encoder_layers % 2 == 0:
+        from .parallel import make_pipeline_mesh, pipeline_forward
+
+        plan = make_pipeline_mesh(n_stages=2, n_data=2, n_micro=2, device=device)
+        x4 = torch.as_tensor(np.repeat(x0[None], 4, axis=0), device=plan.device)
+        h_, _v, _o = pipeline_forward(bundle.model, x4, plan)
+        print(f"    pipelined forward over data=2 x pipe=2 ({plan.backend}, "
+              f"{plan.transport} transport): {tuple(h_.shape)}")
+    else:
+        print(f"    (the pipelined forward runs in a group of 4 ranks, this run has "
+              f"{process_count()}: start one with torchrun --nproc-per-node 4 -m "
+              "transformergrooveinfilling_tpu_torch.tutorial, or with the JAX names "
+              "JAX_COORDINATOR_ADDRESS / JAX_NUM_PROCESSES / JAX_PROCESS_ID per rank)")
 
     # -- 7. deployment: serving artifacts -------------------------------------
     # a checkpoint's serving predict exports to one artifact: torch.export
@@ -171,6 +189,10 @@ def main(argv=None) -> int:
     p.add_argument("--device", default="cuda", help="'cuda' (default) or 'cpu'")
     args = p.parse_args(argv)
     os.environ.setdefault("WANDB_MODE", "offline")
+    from . import require_device
+    from .parallel.multihost import initialize_from_env
+
+    initialize_from_env(require_device(args.device, "tutorial"))
     with tempfile.TemporaryDirectory(prefix="tgi_tutorial_") as work:
         cwd = os.getcwd()
         os.chdir(work)  # the evaluator's dumps and logs land under the work dir
