@@ -305,6 +305,30 @@ then non-zero):
             per rank; ranks share the card, so none of these is a scaling
             figure.
 
+27. training kernels under vmap  #2-#5 through their operators' vmap rules
+            (``ops/per_trial.py``): (a) each wrapper, bf16 and f32, rate
+            0.30, under ``vmap(grad_and_value(...), randomness="different")``
+            at K 4 (#2 at the flagship width, B 32; #3 at the 6 + 6 model's;
+            #4 and #5 at the lm config's, rows 1,024, ff 2,048) bit for bit
+            4 unbatched calls with each trial's seed, 4 × a call's launches,
+            each trial within phase 8's bars of its plain version, both
+            timed once (c) has ended; (b) ``make_batched_sweep_fn`` at K 5
+            and 8, batch 32, rate 0.30, on phase 21's train split: the
+            flagship with ``fused_layer=1``, the 6 + 6 model with
+            ``fused_layer=1, fused_decoder_layer=1``, the lm config with
+            ``fused_ffn=1, fused_dropout_ln=1``: launches a step K × one
+            trial's through ``make_epoch_fn``, each trial's full-set loss
+            lower after its turn, trial·seqs/s beside the switches off (phase
+            25's plain vmapped step) and one trial through ``make_epoch_fn``;
+            each group in f32 at rate 0, K 5, 3 steps, within phase 8's twin
+            bar (1e-4) of each trial alone through ``make_train_step`` and
+            the same kernels, both beside the switches off from the same
+            init; (c) ``sweep --batched --count 5`` on
+            configs/InfillingRandom_sweep.yaml with the flagship's
+            architecture, rate 0.30 and ``fused_layer: 1`` pinned: one
+            vmapped group, #2's chain 5 × 6 layers × 104 steps. The kernels
+            line gains each kernel's ``vmap`` route.
+
 Then one line ``{"kernels": [...]}``, the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``. Without CUDA it exits non-zero and prints
 no result.
@@ -5220,6 +5244,395 @@ def parallel_cli(dev, smi: str, root: str) -> dict:
     return out
 
 
+# phase 27: the training kernels #2-#5 under torch.func.vmap, one launch per
+# trial (ops/per_trial.py)
+VMAP_K = 4  # trials of (a)
+VMAP_RATE = 0.30
+VMAP_GROUP_KS = (5, 8)  # K of (b)
+VMAP_STEPS = 10  # steps of batch 32 a turn of (b)
+VMAP_LRS = [0.089 * f for f in (0.5, 0.75, 1.0, 1.25, 1.5, 0.6, 0.9, 1.1)]
+VMAP_PENS = [0.73, 0.6, 0.9, 0.65, 0.8, 0.7, 0.85, 0.75]
+# (b)'s groups: their hyperparameters and the kernel counters they launch
+VMAP_GROUPS = {
+    "flagship_fused_layer": (dict(FLAGSHIP_HP, fused_layer=1), fl.SM90_KERNELS),
+    "encdec_6_6_fused_layers": (dict(FLAGSHIP_HP, encoder_only=0, fused_layer=1,
+                                     fused_decoder_layer=1),
+                                {**fl.SM90_KERNELS, **fdl.SM90_KERNELS}),
+    "lm_fused_ffn_ln": (dict(LM_HP, dropout=VMAP_RATE, fused_ffn=1, fused_dropout_ln=1),
+                        {**ffn.BF16_KERNELS, **ln.KERNELS})}
+# (c): the sweep file with the flagship's architecture, the rate and #2 pinned
+VMAP_CLI_PINNED = dict(SWEEP_PINNED, epochs=1, dropout=VMAP_RATE, fused_layer=1)
+
+
+def vmap_op_cases(dev, rng, dtype):
+    """(a)'s four kernels in ``dtype``: name → (per-trial arguments without
+    the seed, per-trial dy, the wrapper, the counters, the plain check)."""
+    h_, t = LAYER_SHAPE["h"], LAYER_SHAPE["t"]
+
+    def enc(*a):
+        return fl.encoder_layer_train(*a, VMAP_RATE, h_, t)
+
+    def dec(*a):
+        return fdl.decoder_layer_train(*a, VMAP_RATE, h_, t)
+
+    def ffn_call(*a):
+        return ffn.ffn_train(*a, VMAP_RATE)
+
+    def ln_call(*a):
+        return ln.dropout_add_layernorm(*a, VMAP_RATE)
+
+    def enc_plain(args, seed):
+        own = fl.encoder_layer_reference(*args, seed, VMAP_RATE, h_, t, return_residuals=True)
+        res = fl.layer_forward(*args, seed, VMAP_RATE, h_, t)
+        flips = layer_flips(own[3], res[3])[0]
+        return lambda *a: fl.encoder_layer_reference(*a, seed, VMAP_RATE, h_, t,
+                                                      relu_flips=flips)
+
+    def dec_plain(args, seed):
+        own = fdl.decoder_layer_reference(*args, seed, VMAP_RATE, h_, t, return_residuals=True)
+        res = fdl.layer_forward(*args, seed, VMAP_RATE, h_, t)
+        flips = layer_flips(own[6], res[6])[0]
+        return lambda *a: fdl.decoder_layer_reference(*a, seed, VMAP_RATE, h_, t,
+                                                       relu_flips=flips)
+
+    def ffn_plain(args, seed):
+        own = ffn.ffn_reference(*args, seed, VMAP_RATE, return_hidden=True)[1]
+        flips = fl.kink_flips(own, ffn.ffn_forward(*args, seed, VMAP_RATE)[1])[0]
+        return lambda *a: ffn.ffn_reference(*a, seed, VMAP_RATE, relu_flips=flips)
+
+    def ln_plain(args, seed):
+        return lambda *a: ln.dropout_add_layernorm_reference(*a, seed, VMAP_RATE)
+
+    cases = {}
+    trials = [layer_case(dev, rng, 32, dtype) for _ in range(VMAP_K)]
+    cases["fused_layer"] = ([a for a, _ in trials], [dy for _, dy in trials], enc,
+                            fl.route_kernels(dtype), enc_plain)
+    trials = [decoder_case(dev, rng, 32, dtype) for _ in range(VMAP_K)]
+    cases["fused_decoder_layer"] = ([a for a, _ in trials], [dy for _, dy in trials], dec,
+                                    fdl.route_kernels(dtype), dec_plain)
+    trials = [ffn_case(dev, rng, 1024, 256, LM_HP["dim_feedforward"], dtype)
+              for _ in range(VMAP_K)]
+    cases["fused_ffn"] = ([a for a, *_ in trials], [dy for _, dy, *_ in trials], ffn_call,
+                          ffn.BF16_KERNELS if dtype == torch.bfloat16 else ffn.F32_KERNELS,
+                          ffn_plain)
+    cases["fused_dropout_ln"] = ([[a[0], y, s, b] for a, _, y, s, b in trials],
+                                 [dy for _, dy, *_ in trials], ln_call, ln.KERNELS, ln_plain)
+    return cases
+
+
+def vmap_op_check(dev, name, trials, dys, call, kernels, plain, dtype) -> dict:
+    """(a) for one kernel: ``vmap(grad_and_value(...), randomness="different")``
+    over K trials against K unbatched calls with each trial's seed, output and
+    every gradient bit for bit, the same launches (K × a call's); each trial's
+    output and gradients held to the plain version (phase 8's bars,
+    ``held_to``, the plain version taking the kernel's side of a ReLU kink).
+    Returns the result and a function that times the vmapped call and the K
+    unbatched calls on the stream, for when nothing else runs on the card."""
+    from torch.func import grad_and_value, vmap
+
+    k = len(trials)
+    # one seed a trial, each its own 16-byte aligned tensor, and their stack
+    seed_list = [torch.tensor([4242 + 31 * i], dtype=torch.int32, device=dev) for i in range(k)]
+    seeds = torch.stack(seed_list)
+    stacked = [torch.stack(col) for col in zip(*trials)]
+    dy = torch.stack(dys)
+    diff = tuple(i for i, a in enumerate(trials[0]) if a.is_floating_point())
+
+    def loss(*a):
+        *ins, seed, g = a
+        out = call(*ins, seed)
+        return (out.float() * g.float()).sum(), out
+
+    batched = vmap(grad_and_value(loss, argnums=diff, has_aux=True), randomness="different")
+
+    def unbatched():
+        outs = []
+        for i in range(k):
+            leaves = [a.clone().requires_grad_(True) if j in diff else a
+                      for j, a in enumerate(trials[i])]
+            value, out = loss(*leaves, seed_list[i], dys[i])
+            value.backward()
+            outs.append((out.detach(), [leaves[j].grad for j in diff]))
+        return outs
+
+    for f in kernels.values():
+        f.launches = 0
+    want = unbatched()
+    torch.cuda.synchronize()
+    per_call = {n: f.launches / k for n, f in kernels.items()}
+    for f in kernels.values():
+        f.launches = 0
+    grads, (_value, out) = batched(*stacked, seeds, dy)
+    torch.cuda.synchronize()
+    got = {n: f.launches for n, f in kernels.items()}
+    check(all(got[n] == k * per_call[n] for n in kernels) and all(per_call.values()),
+          f"{name} {dtype} under vmap launched {got}, {k} x a call's {per_call}")
+    bitwise = all(torch.equal(out[i], want[i][0])
+                  and all(torch.equal(g[i], w) for g, w in zip(grads, want[i][1]))
+                  for i in range(k))
+    check(bitwise, f"{name} {dtype}: vmapped outputs or gradients differ from unbatched calls")
+    errs = {}
+    for i in range(k):
+        ref = plain(trials[i], seed_list[i])
+        leaves = [a.clone().requires_grad_(True) if j in diff else a
+                  for j, a in enumerate(trials[i])]
+        w_out = ref(*leaves)
+        w_out.backward(dys[i])
+        held_to(errs, "out", want[i][0], w_out, dtype, f"{name} trial {i}")
+        for j, g in zip(diff, want[i][1]):
+            e = {}
+            held_to(e, f"d{j}", g, leaves[j].grad, dtype, f"{name} trial {i} input {j}")
+            errs["grads"] = max(errs.get("grads", 0.0), e[f"d{j}"])
+    del grads, out, want
+
+    def timed() -> dict:
+        return {"vmapped_ms": time_ms(lambda: batched(*stacked, seeds, dy), 5, warm=1),
+                "unbatched_ms": time_ms(unbatched, 5, warm=1)}
+
+    return {"dtype": str(dtype)[6:], "K": k, "bitwise": bitwise, "launches_per_call": per_call,
+            "launches_vmapped": got, "max_abs_err_against_plain": errs}, timed
+
+
+def vmap_group_configs(dev, name: str, hp_dict: dict):
+    """(b)'s group ``name``: its hyperparameters, the config ``sweep.py``
+    gives its batched group (the forced switches kept, remat off, checked)
+    and the same config with every kernel switch off."""
+    from transformergrooveinfilling_tpu_torch import sweep
+
+    hp = HyperParams.from_dict(hp_dict)
+    config = sweep.batched_config(hp, hp_dict, dev)
+    k_max = max(VMAP_GROUP_KS)
+    check(sweep.remat_chunk(hp, config, k_max, dev) == k_max,
+          f"{name}: {k_max} stacked trials would need remat")
+    config = dataclasses.replace(config, remat=False)
+    forced = {s: getattr(config, s) for s in transformer.KERNEL_SWITCHES}
+    check(all(forced[s] == bool(hp_dict.get(s)) for s in forced) and config.dropout == VMAP_RATE,
+          f"{name}: the group's config {config}")
+    return hp, config, dataclasses.replace(config, **{s: False for s in forced})
+
+
+def vmap_group(dev, name: str, hp_dict: dict, kernels: dict, x, y) -> dict:
+    """(b) for one group: ``batched_sweep``'s step (``make_batched_sweep_fn``,
+    rates uniform, so static) with the forced switches at K 5 and 8, 10
+    steps of batch 32 a turn (each model warmed up by a turn at K 5 first): launches a step against K ×
+    one trial's through ``make_epoch_fn`` at the same config, the loss of
+    every trial at K 8 lower after its turn than at its start
+    (``stacked_eval_loss``), trial·seqs/s beside the same step with every
+    kernel switch off (phase 25's plain vmapped step) and one trial through
+    ``make_epoch_fn`` with the switches on."""
+    from transformergrooveinfilling_tpu_torch.train import vmap_sweep
+
+    hp, config, plain_config = vmap_group_configs(dev, name, hp_dict)
+    forced = {s: getattr(config, s) for s in transformer.KERNEL_SWITCHES}
+    k_max = max(VMAP_GROUP_KS)
+    enc = config.encoder_only
+    steps = len(x) // hp.batch_size
+    on = functools.partial(torch.tensor, dtype=torch.float32, device=dev)
+    model, plain_model = build_model(config, dev), build_model(plain_config, dev)
+    init = vmap_sweep.init_stacked_params(model, config, k_max, torch.Generator().manual_seed(5),
+                                          dev)
+    out = {"config": {s: v for s, v in forced.items() if v}, "dtype": str(config.compute_dtype)[6:],
+           "layers": [config.num_encoder_layers, config.num_decoder_layers]}
+
+    def turn(m, k):
+        fn = vmap_sweep.make_batched_sweep_fn(m, hp.batch_size, len(x), 1, encoder_only=enc,
+                                              config=m.config, rates_as_data=False)
+        args = ({p: v[:k].clone() for p, v in init.items()}, (), on(VMAP_LRS[:k]),
+                on(VMAP_PENS[:k]), on([VMAP_RATE] * k), x, y)
+        if k == VMAP_GROUP_KS[0]:  # a model's first turn warms it up
+            fn(*args, torch.Generator(dev).manual_seed(2))
+        for f in kernels.values():
+            f.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, last = fn(*args, torch.Generator(dev).manual_seed(3))
+        last = last.tolist()
+        s = time.perf_counter() - t0
+        check(all(np.isfinite(last)), f"{name} K {k}: last-batch losses {last}")
+        return params, {"seconds": s, "trial_seqs_per_s": k * len(x) / s,
+                        "launches_per_step": {n: f.launches / steps
+                                              for n, f in kernels.items() if f.launches}}
+
+    regular = create_train_state(config, "sgd", VMAP_LRS[0], device=dev)
+    epoch = make_epoch_fn(VMAP_PENS[0], hp.batch_size, len(x), encoder_only=enc)
+    fetch(epoch(regular, x, y, torch.Generator(dev).manual_seed(2)))  # warm-up
+    for f in kernels.values():
+        f.launches = 0
+    t0 = time.perf_counter()
+    fetch(epoch(regular, x, y, torch.Generator(dev).manual_seed(3)))
+    s = time.perf_counter() - t0
+    one = {n: f.launches / steps for n, f in kernels.items()}
+    check(all(one.values()), f"{name}: one trial's step launched {one}")
+    out["make_epoch_fn_one_trial"] = {"seconds": s, "trial_seqs_per_s": len(x) / s,
+                                      "launches_per_step": one}
+    for k in VMAP_GROUP_KS:
+        params, out[f"K{k}"] = turn(model, k)
+        per_step = out[f"K{k}"]["launches_per_step"]
+        check(per_step == {n: k * c for n, c in one.items()},
+              f"{name} K {k}: launches a step {per_step}, {k} x one trial's {one}")
+        _, out[f"K{k}_switches_off"] = turn(plain_model, k)
+        check(not out[f"K{k}_switches_off"]["launches_per_step"],
+              f"{name} K {k} with the switches off launched the kernels")
+    before = vmap_sweep.stacked_eval_loss(model, init, x, y, VMAP_PENS[:k_max], encoder_only=enc,
+                                          device=dev).tolist()
+    after = vmap_sweep.stacked_eval_loss(model, params, x, y, VMAP_PENS[:k_max],
+                                         encoder_only=enc, device=dev).tolist()
+    check(all(a < b for a, b in zip(after, before)),
+          f"{name}: full-set losses {before} -> {after} after one turn at K {k_max}")
+    out["eval_loss_before_after_K8"] = [before, after]
+    return out
+
+
+def vmap_group_at_zero(dev, name: str, hp_dict: dict, x, y) -> dict:
+    """(b)'s group in f32 at rate 0, K 5, 3 steps on one batch (3 epochs of
+    its first ``b`` items) from one init: the forced group
+    (``make_batched_sweep_fn``) held to each trial alone through
+    ``make_train_step`` with the same switches, which launches the same
+    kernels (phase 8's twin bar, 1e-4). Beside it, per trial, both against
+    the same group with the switches off: the kernels' own distance from the
+    unfused path, which the batched step must not change. Per trial, the
+    largest parameter error of each pair and the parameter it is in."""
+    from transformergrooveinfilling_tpu_torch.train import vmap_sweep
+    from transformergrooveinfilling_tpu_torch.train.loop import make_optimizer
+
+    hp, config, plain_config = vmap_group_configs(dev, name, hp_dict)
+    k, f32, b, enc = VMAP_GROUP_KS[0], torch.float32, hp.batch_size, config.encoder_only
+    xb, yb = x[:b], y[:b]
+    on = functools.partial(torch.tensor, dtype=torch.float32, device=dev)
+    counted = {**fl.route_kernels(f32), **fdl.route_kernels(f32), **ffn.route_kernels(f32)}
+    params, launched = {}, {}
+    for which, cfg in (("forced", config), ("switches_off", plain_config)):
+        cfg = dataclasses.replace(cfg, dropout=0.0, compute_dtype=f32)
+        model = build_model(cfg, dev)
+        init = vmap_sweep.init_stacked_params(model, cfg, k, torch.Generator().manual_seed(5), dev)
+        fn = vmap_sweep.make_batched_sweep_fn(model, b, b, 3, encoder_only=enc, config=cfg,
+                                              rates_as_data=False)
+        for f in counted.values():
+            f.launches = 0
+        params[which], last = fn({p: v.clone() for p, v in init.items()}, (), on(VMAP_LRS[:k]),
+                                 on(VMAP_PENS[:k]), on([0.0] * k), xb, yb,
+                                 torch.Generator(dev).manual_seed(3))
+        check(all(np.isfinite(last.tolist())), f"{name} f32 rate 0 {which}: losses {last}")
+        launched[which] = {n: f.launches for n, f in counted.items() if f.launches}
+        if which == "forced":
+            alone = []
+            for f in counted.values():
+                f.launches = 0
+            for t in range(k):
+                trial = build_model(cfg, dev)
+                trial.load_state_dict({p: v[t] for p, v in init.items()}, strict=False)
+                state = TrainState(step=0, model=trial,
+                                   optimizer=make_optimizer("sgd", VMAP_LRS[t], trial.parameters()))
+                step = make_train_step(VMAP_PENS[t], encoder_only=enc)
+                for _ in range(3):
+                    step(state, xb, yb, None, torch.Generator(dev).manual_seed(3))
+                alone.append({p: v.detach() for p, v in trial.named_parameters()})
+            launched["alone"] = {n: f.launches for n, f in counted.items() if f.launches}
+            params["alone"] = {p: torch.stack([a[p] for a in alone]) for p in alone[0]}
+
+    def worst(a, c) -> list:
+        return [max(((max_err(a[p][t], c[p][t]), p) for p in a), key=lambda e: e[0])
+                for t in range(k)]
+
+    out = {"K": k, "lrs": VMAP_LRS[:k], "launches": launched,
+           "forced_against_alone": worst(params["forced"], params["alone"]),
+           "forced_against_switches_off": worst(params["forced"], params["switches_off"]),
+           "alone_against_switches_off": worst(params["alone"], params["switches_off"]),
+           "bar": 1e-4}
+    emit({"phase": "vmap_kernels", "part": "b at rate 0", "group": name, **out})
+    check(launched["forced"] and launched["forced"] == launched["alone"]
+          and not launched["switches_off"],
+          f"{name} f32 rate 0: launched {launched}")
+    check(max(e for e, _ in out["forced_against_alone"]) <= out["bar"],
+          f"{name} f32 rate 0, 3 steps: the group against each trial alone {out}")
+    return out
+
+
+def phase_vmap_kernels(dev, rng, smi: str, root: str) -> dict:
+    """27. The training kernels #2-#5 under ``torch.func.vmap``: (a) each of
+    the four wrappers (``encoder_layer_train`` at the flagship width, d 256, 2
+    heads, ff 512, T 32, B 32; ``decoder_layer_train`` at the 6 + 6 model's
+    layer width; ``ffn_train`` and ``dropout_add_layernorm`` at the lm
+    config's, rows 1,024, d 256, ff 2,048), bf16 and f32, rate 0.30, through
+    ``vmap(grad_and_value(...), randomness="different")`` at K 4 against 4
+    unbatched calls with each trial's seed, bit for bit, the launches 4 × a
+    call's, and against the plain version (``vmap_op_check``); (b)
+    ``make_batched_sweep_fn`` at K 5 and 8, batch 32, rate 0.30, on the first
+    320 items of phase 21's train split: the flagship with ``fused_layer=1``, the 6 + 6 model with
+    ``fused_layer=1, fused_decoder_layer=1`` and
+    configs/InfillingRandomLow_lm_training.yaml with ``fused_ffn=1,
+    fused_dropout_ln=1`` (``vmap_group``); (c) ``python -m
+    transformergrooveinfilling_tpu_torch.sweep --batched --count 5 --epochs 1``
+    on configs/InfillingRandom_sweep.yaml with the flagship's architecture,
+    rate 0.30 and ``fused_layer: 1`` pinned, on phase 21's datasets under
+    ``root`` (``paths.yaml``): one vmapped group of 5, every trial ranked,
+    #2's bf16 chain launched 5 × 6 layers × the steps of an epoch. (c) runs in a child
+    process beside (a)'s checks and (b)'s rate-0 checks (``vmap_group_at_zero``),
+    which share the card with it; (a)'s calls and (b)'s turns are timed after
+    it ends."""
+    from transformergrooveinfilling_tpu_torch.data import load_processed_dataset
+
+    t_phase = time.perf_counter()
+    cwd = os.path.join(root, "vmap_kernels")
+    os.makedirs(cwd, exist_ok=True)
+    sweep_path = os.path.join(cwd, "pinned_fused_layer_sweep.yaml")
+    sweep_file(sweep_path, "loss", **VMAP_CLI_PINNED)
+    started = start_cli(CLI_SWEEP, ["--sweep", sweep_path, "--count", "5", "--batched",
+                                    "--epochs", "1", "--paths",
+                                    os.path.join(root, "paths.yaml")], cwd)
+    seconds = {}
+    ops, timers = {}, {}
+    for dtype in (torch.bfloat16, torch.float32):
+        for name, case in vmap_op_cases(dev, rng, dtype).items():
+            key = f"{name}_{str(dtype)[6:]}"
+            ops[key], timers[key] = vmap_op_check(dev, name, *case, dtype)
+    seconds["a"] = time.perf_counter() - t_phase
+
+    t0 = time.perf_counter()
+    data = load_processed_dataset(os.path.join(root, "card", "datasets", "InfillingRandom",
+                                               "0.0.0", "train"), "InfillingRandom")
+    x = torch.as_tensor(data.processed_inputs[:VMAP_STEPS * 32], dtype=torch.float32, device=dev)
+    y = torch.as_tensor(data.processed_outputs[:VMAP_STEPS * 32], dtype=torch.float32,
+                        device=dev)
+    at_zero = {name: vmap_group_at_zero(dev, name, hp_dict, x, y)
+               for name, (hp_dict, _) in VMAP_GROUPS.items()}
+    seconds["b_rate_0"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    run = finish_cli(started, "sweep --batched with fused_layer: 1")
+    printed = [line for line in run["stdout"].splitlines()
+               if line.startswith(("batched sweep", "--- group", "  loss ", "    "))]
+    steps = -(-len(data) // FLAGSHIP_HP["batch_size"])
+    chain = {n: run["launches"][n] for n in fl.SM90_KERNELS}
+    check("trial failed" not in run["stdout"]
+          and any("5 trials in 1 architecture group(s)" in line for line in printed)
+          and sum(line.startswith("  loss ") for line in printed) == 5
+          and not any("through the regular step" in line for line in printed),
+          f"sweep --batched with fused_layer: 1 printed {printed}")
+    check(all(c == 5 * FLAGSHIP.num_encoder_layers * steps for c in chain.values()),
+          f"sweep --batched with fused_layer: 1 launched #2's chain {chain}, not 5 trials x "
+          f"{FLAGSHIP.num_encoder_layers} layers x {steps} steps")
+    cli = {"printed": printed, "launches": run["launches"], "steps": steps,
+           "wall_seconds": run["wall_seconds"]}
+    seconds["c_wait"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()  # the card is (a)'s alone from here
+    for key, timed in timers.items():
+        ops[key].update(timed())
+    del timers
+    seconds["a_timed"] = time.perf_counter() - t0
+    emit({"phase": "vmap_kernels", "part": "a and c", "card": smi, "ops": ops, "cli": cli})
+    t0 = time.perf_counter()
+    groups = {name: {**vmap_group(dev, name, hp_dict, kernels, x, y),
+                     "f32_rate0_3_steps": at_zero[name]}
+              for name, (hp_dict, kernels) in VMAP_GROUPS.items()}
+    seconds["b"] = time.perf_counter() - t0
+    out = {"card": smi, "rate": VMAP_RATE, "ops": ops, "groups": groups, "cli": cli,
+           "seconds": {**seconds, "phase": time.perf_counter() - t_phase}}
+    emit({"phase": "vmap_kernels", **out})
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -5268,6 +5681,7 @@ def main() -> int:
         artifact = timed_phase(phase_artifact, dev, smi, cli_root, srv, sd, evaluation)
         swept = timed_phase(phase_sweep, dev, smi, cli_root)
         par = timed_phase(phase_parallel, dev, smi, cli_root)
+        vk = timed_phase(phase_vmap_kernels, dev, rng, smi, cli_root)
     emit({"phase_seconds": took})
 
     def per_rank(group: str, leg: str, *keys) -> list:
@@ -5334,6 +5748,24 @@ def main() -> int:
     def timing(phase_out, b, dtype):
         return next(t for t in phase_out["timings"] if t["B"] == b and t["dtype"] == dtype)
 
+    def vmap_route(switch, dname, kname):
+        """Phase 27's numbers of one kernel: its operators' vmap rule."""
+        op = vk["ops"][f"{switch}_{dname}"]
+        out = {"route": "the tgi:: operators' vmap rule, one launch a trial",
+               "K4_bitwise_against_unbatched": op["bitwise"],
+               "K4_launches_vmapped_grad_call": op["launches_vmapped"][kname],
+               "K4_vmapped_grad_call_ms": op["vmapped_ms"],
+               "K4_unbatched_grad_calls_ms": op["unbatched_ms"],
+               "K4_max_abs_err_against_plain": op["max_abs_err_against_plain"]}
+        if dname == "bfloat16":
+            out["launches_per_batched_sweep_step"] = {
+                f"{g}_K{k}": vk["groups"][g][f"K{k}"]["launches_per_step"][kname]
+                for g, (_, counters) in VMAP_GROUPS.items() if kname in counters
+                for k in VMAP_GROUP_KS}
+        if kname in vk["cli"]["launches"] and switch == "fused_layer" and dname == "bfloat16":
+            out["launches_sweep_cli_fused_layer"] = vk["cli"]["launches"][kname]
+        return out
+
     # per layer: the phase, its module, the TPU kernel bodies, the training
     # phase (its main path's bf16 launches and 3 f32 steps), the forward's
     # launch count, and the bf16 launches of further paths
@@ -5366,6 +5798,8 @@ def main() -> int:
                     "replaces": tpu["fwd" if i < N_FWD[mod] else "bwd"],
                     "launches": main_path[kname],
                     **({} if f32 else {key: counts[kname] for key, counts in more.items()}),
+                    "vmap": vmap_route("fused_layer" if which == "encoder"
+                                       else "fused_decoder_layer", dname, kname),
                     "max_abs_err": max(l32["max_abs_err"], l512["max_abs_err"]),
                     "ms": l32["device_ms"], "plain_ms": l32["plain_ms"],
                     "bound_ms": l32["bound_ms"], "bound_by": l32["bound_by"],
@@ -5516,6 +5950,7 @@ def main() -> int:
             **({} if is_f32 or not is_ffn else {"launches_groovexl_dp2_pp2_per_rank": [
                 c.get(kname, 0) for c in per_rank("de", "d", "train_launches")]}),
             "max_abs_err": ffn_ln["max_abs_err"]["ffn" if is_ffn else "ln"],
+            "vmap": vmap_route("fused_ffn" if is_ffn else "fused_dropout_ln", dtype, kname),
             **at_shape(small, kname, entries, key),
             "rows_16384": at_shape(ffn_row(16384, 256, dtype), kname, entries, key),
             "groovexl": at_shape(ffn_row(4096, 1024, dtype), kname, entries, key),

@@ -1248,3 +1248,34 @@ def test_two_rank_group_on_the_card_follows_the_backend_rule(cuda, tmp_path):
             ("gloo", "host") if shared else ("nccl", "device"))
         assert rank["device"] == f"cuda:{0 if shared else r}"
         assert rank["err"] <= 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kernel", ["fused_layer", "fused_decoder_layer", "fused_ffn",
+                                    "fused_dropout_ln"])
+def test_training_kernels_under_vmap_equal_unbatched_launches(cuda, kernel, dtype):
+    """Kernels #2-#5 through their operators' vmap rules, under
+    ``vmap(grad_and_value(...), randomness="different")`` over 3 trials at
+    rate 0.3: outputs and every gradient bit for bit those of 3 unbatched
+    calls with each trial's seed, and 3 times a call's launches of each
+    kernel."""
+    from torch_vmap_cases import assert_equal, calls, trials, unbatched, vmapped
+
+    counters = {"fused_layer": fused_layer.route_kernels(dtype),
+                "fused_decoder_layer": fused_decoder_layer.route_kernels(dtype),
+                "fused_ffn": fused_ffn.BF16_KERNELS if dtype == torch.bfloat16
+                else fused_ffn.F32_KERNELS,
+                "fused_dropout_ln": fused_ln.KERNELS}[kernel]
+    call = calls(0.3, 2, 32)[kernel]
+    args, dys, seeds = trials(kernel, 3, 19, dtype, cuda, d=64, ff=128, rows=64)
+    before = {n: f.launches for n, f in counters.items()}
+    want = unbatched(call, args, dys, seeds)
+    torch.cuda.synchronize()
+    mid = {n: f.launches for n, f in counters.items()}
+    grads, outs = vmapped(call, args, dys, seeds)
+    torch.cuda.synchronize()
+    for n, f in counters.items():  # the reduce of a row split launches where there are several
+        assert f.launches - mid[n] == mid[n] - before[n], n
+    assert sum(mid.values()) - sum(before.values()) >= 3 * 2
+    assert_equal(grads, outs, want)

@@ -3,8 +3,9 @@ transformergrooveinfilling_tpu_torch.sweep``) with ``--device cpu``: the
 trial draws of root ``sweep.py`` on every ``configs/*_sweep*.yaml``, both
 modes on a tiny processed symbolic dataset, root's fallbacks (a maximize
 metric, an optimizer the batched step has no rule for), Adam groups, failed
-trials, the switches a batched group refuses, the auto-remat split and the
-groups that train through the regular step."""
+trials, the switches a batched group refuses (``remat``, and a kernel switch
+where the trials' rates differ), a forced ``fused_layer`` group, the
+auto-remat split and the groups that train through the regular step."""
 
 import glob
 import os
@@ -166,9 +167,33 @@ def test_failed_trial_is_reported_and_left_out(tmp_path, paths, capsys):
 
 @pytest.mark.parametrize("switch", ["fused_layer", "fused_ffn", "fused_dropout_ln", "remat"])
 def test_forced_switch_in_a_batched_group_raises(tmp_path, paths, capsys, switch):
-    path = sweep_file(tmp_path, **{switch: {"value": 1}})
+    """A vmapped group of 5 whose dropout rates differ (the sweep samples
+    them): rates that differ ride the vmap as data, which a kernel switch
+    does not take, so a forced kernel switch raises; ``remat`` raises
+    whatever the rates."""
+    path = sweep_file(tmp_path, d_model={"value": 16}, **{switch: {"value": 1}})
     with pytest.raises(ValueError, match=switch):
-        run(capsys, "--sweep", path, "--count", "2", "--batched", "--paths", paths)
+        run(capsys, "--sweep", path, "--count", "5", "--batched", "--paths", paths)
+
+
+def test_forced_fused_layer_trains_a_batched_group(tmp_path, paths, capsys, monkeypatch):
+    """``fused_layer: 1`` with the architecture and the dropout rate pinned:
+    one vmapped group of 5 trains through the whole-layer path (on the CPU
+    its twin, under vmap) and every trial is ranked."""
+    from transformergrooveinfilling_tpu_torch.models import transformer
+
+    called = []
+    real = transformer.encoder_layer_train
+    monkeypatch.setattr(transformer, "encoder_layer_train",
+                        lambda *a: called.append(a[0].shape) or real(*a))
+    path = sweep_file(tmp_path, d_model={"value": 16}, dropout={"value": 0.2},
+                      fused_layer={"value": 1})
+    rc, out = run(capsys, "--sweep", path, "--count", "5", "--batched", "--paths", paths)
+    assert rc == 0
+    assert "5 trials in 1 architecture group(s)" in out
+    assert "through the regular step" not in out and "trial failed" not in out
+    assert out.count("  loss ") == 5
+    assert called and all(shape == (4 * 32, 16) for shape in called)
 
 
 def one_trial_bytes(hp) -> int:

@@ -51,7 +51,10 @@ fast_dropout_as_data``), as a traced rate does in the JAX model: what a
 batched sweep (``train/vmap_sweep.py``) vmaps over, a rate per trial. The
 kernel switches take the config's rate only and raise with a per-call one.
 Under ``torch.func.vmap`` an inference forward's attention goes through the
-operator ``tgi::fused_mha`` and its vmap rule (``ops/attention.py``).
+operator ``tgi::fused_mha`` and its vmap rule (``ops/attention.py``), and a
+training forward with a kernel switch on goes through that kernel's
+operators, whose vmap rules launch once per trial with the trial's own seed
+(``ops/per_trial.py``); nothing on that path reads a batched tensor's data.
 """
 
 from __future__ import annotations

@@ -35,6 +35,15 @@ stores: y, mem, qkv, a1, qc, kv, a2, h_drop, a3.
 On a CPU tensor :func:`decoder_layer_train` runs the twin
 :func:`decoder_layer_reference`; on a CUDA tensor it launches the kernels or
 raises.
+
+The chain is two operators, ``tgi::decoder_layer_fwd`` (``(y3, qkv, a1, qc,
+kv, a2, h, a3)``) and ``tgi::decoder_layer_bwd`` (dx, dmem and the 20
+parameter gradients flat), bound for autograd by :class:`DecoderLayerTrain`;
+under ``torch.func.vmap`` their vmap rules launch each trial's chain on its
+slices and seed (``ops/per_trial.py``; a memory without a trial axis is every
+trial's), and on CPU tensors their bodies run each launch's plain version.
+Outside ``torch.func`` the wrapper takes :class:`_DecoderLayerTrain`, which
+launches the chain directly, as it did before the operators.
 """
 
 from __future__ import annotations
@@ -43,9 +52,9 @@ import math
 
 import torch
 
-from . import layer_sm90
+from . import layer_sm90, per_trial
 from .dropout import quantized_threshold
-from .fused_layer import _ln, dropout_mask, supports_fused_layer
+from .fused_layer import _ln, _on_cpu, dropout_mask, supports_fused_layer
 
 # dropout sites, in the order the layer reaches them
 SITE_SELF, SITE_PROJ1, SITE_CROSS, SITE_PROJ2, SITE_FFN, SITE_OUT = range(6)
@@ -236,6 +245,16 @@ def backward_sm90(dy, y, mem, qkv, a1, qc, kv, a2, h, a3, wqkv, wo, wq, wkv, wo2
     """The backward as its chain of launches (``route_kernels(y.dtype)``),
     :func:`layer_backward`'s outputs. On CPU tensors each launch runs its
     plain version."""
+    dx, dmem, grads = _backward_flat(dy, y, mem, qkv, a1, qc, kv, a2, h, a3, wqkv, wo, wq, wkv,
+                                     wo2, w1, w2, g1, b1, g2, b2, g3, seed, rate, n_heads,
+                                     seq_len)
+    return dx, dmem, *split_grads(grads, y.shape[1], w1.shape[0])
+
+
+def _backward_flat(dy, y, mem, qkv, a1, qc, kv, a2, h, a3, wqkv, wo, wq, wkv, wo2, w1, w2,
+                   g1, b1, g2, b2, g3, seed, rate: float, n_heads: int, seq_len: int):
+    """:func:`backward_sm90` with the parameter gradients as the one flat f32
+    tensor the weight-gradient launch writes (:func:`split_grads`)."""
     k = _launches(y.dtype)
     L = layer_sm90
     m, d = y.shape
@@ -267,13 +286,21 @@ def backward_sm90(dy, y, mem, qkv, a1, qc, kv, a2, h, a3, wqkv, wo, wq, wkv, wo2
          (dproj2, None, None), (dy1, a1, stats[:, 0:2]), (dy1, None, None), (dh, None, None),
          (df, None, None), (dy2, a2, stats[:, 2:4]), (dy2, None, None),
          (dy, a3, stats[:, 4:6]), (dy, None, None)])
+    return dx, dmem, grads
+
+
+def split_grads(grads, d: int, ff: int):
+    """The backward's flat f32 parameter gradients → the 20 gradients in the
+    JAX argument order (``dwqkv, dbqkv, dwo, dbo, dwq, dbq, dwkv, dbkv, dwo2,
+    dbo2, dg1, db1, dw1, db1f, dw2, db2f, dg2, db2, dg3, db3``), views."""
     dwqkv, dwo, dwq, dwkv, dwo2, dw1, dw2, vec = grads.split(
         [3 * d * d, d * d, d * d, 2 * d * d, d * d, ff * d, d * ff, 15 * d + ff])
     (dbqkv, dbo, dbq, dbkv, dbo2, dg1, db1, db1f, db2f, dg2, db2, dg3, db3) = vec.split(
         [3 * d, d, d, 2 * d, d, d, d, ff, d, d, d, d, d])
-    return (dx, dmem, dwqkv.view(3 * d, d), dbqkv, dwo.view(d, d), dbo, dwq.view(d, d), dbq,
+    return (dwqkv.view(3 * d, d), dbqkv, dwo.view(d, d), dbo, dwq.view(d, d), dbq,
             dwkv.view(2 * d, d), dbkv, dwo2.view(d, d), dbo2, dg1, db1, dw1.view(ff, d), db1f,
             dw2.view(d, ff), db2f, dg2, db2, dg3, db3)
+
 
 
 def layer_forward(y, mem, wqkv, bqkv, wo, bo, wq, bq, wkv, bkv, wo2, bo2, g1, b1, w1, b1f,
@@ -291,12 +318,79 @@ def layer_backward(dy, y, mem, qkv, a1, qc, kv, a2, h, a3, wqkv, wo, wq, wkv, wo
     """Launch the backward, the chain of :func:`backward_sm90`: ``(dx, dmem,
     dwqkv, dbqkv, dwo, dbo, dwq, dbq, dwkv, dbkv, dwo2, dbo2, dg1, db1, dw1,
     db1f, dw2, db2f, dg2, db2, dg3, db3)``, weight gradients in f32."""
+    dx, dmem, grads = _launch_backward(dy, y, mem, qkv, a1, qc, kv, a2, h, a3, wqkv, wo, wq, wkv,
+                                       wo2, w1, w2, g1, b1, g2, b2, g3, seed, rate, n_heads,
+                                       seq_len)
+    return dx, dmem, *split_grads(grads, y.shape[1], w1.shape[0])
+
+
+def _launch_backward(dy, y, *saved):
+    """:func:`layer_backward` with the parameter gradients flat."""
     dy = dy.contiguous()
     if dy.dtype != y.dtype or dy.shape != y.shape or dy.device != y.device:
         raise ValueError(f"fused_decoder_layer backward: dy {dy.dtype} {tuple(dy.shape)} "
                          f"does not match y {y.dtype} {tuple(y.shape)}")
-    return backward_sm90(dy, y, mem, qkv, a1, qc, kv, a2, h, a3, wqkv, wo, wq, wkv, wo2, w1, w2,
-                         g1, b1, g2, b2, g3, seed, rate, n_heads, seq_len)
+    return _backward_flat(dy, y, *saved)
+
+
+_T = torch.Tensor
+
+
+def _layer_fwd(y: _T, mem: _T, wqkv: _T, bqkv: _T, wo: _T, bo: _T, wq: _T, bq: _T, wkv: _T,
+               bkv: _T, wo2: _T, bo2: _T, g1: _T, b1: _T, w1: _T, b1f: _T, w2: _T, b2f: _T,
+               g2: _T, b2: _T, g3: _T, b3: _T, seed: _T, rate: float, n_heads: int,
+               seq_len: int) -> tuple[_T, _T, _T, _T, _T, _T, _T, _T]:
+    """The forward as an operator, ``(y3, qkv, a1, qc, kv, a2, h, a3)``: the
+    chain of :func:`layer_forward` (or its ``ValueError``); on CPU tensors
+    each launch's plain version."""
+    args = (y, mem, wqkv, bqkv, wo, bo, wq, bq, wkv, bkv, wo2, bo2, g1, b1, w1, b1f, w2, b2f,
+            g2, b2, g3, b3, seed)
+    if _on_cpu(args):
+        return per_trial.apart(forward_sm90(*args, rate, n_heads, seq_len), args)
+    return layer_forward(*args, rate, n_heads, seq_len)
+
+
+layer_fwd_op = torch.library.custom_op("tgi::decoder_layer_fwd", _layer_fwd,
+                                       mutates_args=())
+
+
+@layer_fwd_op.register_fake
+def _layer_fwd_fake(y, mem, wqkv, bqkv, wo, bo, wq, bq, wkv, bkv, wo2, bo2, g1, b1, w1, b1f, w2,
+                    b2f, g2, b2, g3, b3, seed, rate, n_heads, seq_len):
+    m, d = y.shape
+    like = torch.empty_like
+    return (like(y), y.new_empty((m, 3 * d)), like(y), like(y), y.new_empty((m, 2 * d)),
+            like(y), y.new_empty((m, w1.shape[0])), like(y))
+
+
+def _layer_bwd(dy: _T, y: _T, mem: _T, qkv: _T, a1: _T, qc: _T, kv: _T, a2: _T, h: _T, a3: _T,
+               wqkv: _T, wo: _T, wq: _T, wkv: _T, wo2: _T, w1: _T, w2: _T, g1: _T, b1: _T,
+               g2: _T, b2: _T, g3: _T, seed: _T, rate: float, n_heads: int,
+               seq_len: int) -> tuple[_T, _T, _T]:
+    """The backward as an operator, ``(dx, dmem, grads)``: ``grads`` the 20
+    parameter gradients flat in f32 (:func:`split_grads`); the chain of
+    :func:`layer_backward`, on CPU tensors each launch's plain version."""
+    args = (dy, y, mem, qkv, a1, qc, kv, a2, h, a3, wqkv, wo, wq, wkv, wo2, w1, w2, g1, b1, g2,
+            b2, g3, seed)
+    if _on_cpu(args):
+        return per_trial.apart(_backward_flat(*args, rate, n_heads, seq_len), args)
+    return _launch_backward(*args, rate, n_heads, seq_len)
+
+
+layer_bwd_op = torch.library.custom_op("tgi::decoder_layer_bwd", _layer_bwd,
+                                       mutates_args=())
+
+
+@layer_bwd_op.register_fake
+def _layer_bwd_fake(dy, y, mem, qkv, a1, qc, kv, a2, h, a3, wqkv, wo, wq, wkv, wo2, w1, w2, g1,
+                    b1, g2, b2, g3, seed, rate, n_heads, seq_len):
+    d, ff = y.shape[1], w1.shape[0]
+    return (torch.empty_like(y), torch.empty_like(mem),
+            y.new_empty((9 * d * d + 2 * d * ff + 15 * d + ff,), dtype=torch.float32))
+
+
+layer_fwd_op.register_vmap(per_trial.rule(layer_fwd_op))
+layer_bwd_op.register_vmap(per_trial.rule(layer_bwd_op))
 
 
 class _DecoderLayerTrain(torch.autograd.Function):
@@ -327,6 +421,42 @@ class _DecoderLayerTrain(torch.autograd.Function):
         return (*grads, None, None, None, None)
 
 
+class DecoderLayerTrain(torch.autograd.Function):
+    """The two operators under autograd, for ``torch.func``: saves what
+    :class:`_DecoderLayerTrain` saves, the residuals travelling as the
+    forward's outputs. Under ``torch.func.vmap`` both run once per trial
+    (``ops/per_trial.py``); a memory without a trial axis is every trial's."""
+
+    generate_vmap_rule = True
+
+    @staticmethod
+    def forward(*args):
+        return layer_fwd_op(*args)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        args = dict(zip(ARG_NAMES, inputs))
+        residuals = output[1:]
+        ctx.save_for_backward(args["y"], args["mem"], *residuals,
+                              *(args[n] for n in WEIGHT_NAMES),
+                              *(args[n] for n in ("g1", "b1", "g2", "b2", "g3")), inputs[22])
+        ctx.mark_non_differentiable(*residuals)
+        ctx.static = inputs[23:]
+
+    @staticmethod
+    def backward(ctx, dy, *_residuals):
+        saved = ctx.saved_tensors
+        with torch.no_grad():  # torch.func.grad records the backward otherwise
+            dx, dmem, grads = layer_bwd_op(dy, *saved, *ctx.static)
+        y, weights = saved[0], saved[9:16]
+        out = list(split_grads(grads, y.shape[-1], weights[5].shape[-2]))
+        # weight grads rounded to the weights' dtype, as _layer_bwd does:
+        # dwqkv, dwo, dwq, dwkv, dwo2 at 0, 2, 4, 6, 8; dw1, dw2 at 12, 14
+        for i, w in zip((0, 2, 4, 6, 8, 12, 14), weights):
+            out[i] = out[i].to(w.dtype)
+        return (dx, dmem, *out, None, None, None, None)
+
+
 def decoder_layer_train(y, mem, wqkv, bqkv, wo, bo, wq, bq, wkv, bkv, wo2, bo2, g1, b1,
                         w1, b1f, w2, b2f, g2, b2, g3, b3, seed, rate: float, n_heads: int,
                         seq_len: int):
@@ -338,10 +468,16 @@ def decoder_layer_train(y, mem, wqkv, bqkv, wo, bo, wq, bq, wkv, bkv, wo2, bo2, 
     (the JAX function takes their transposes) and the compute dtype; biases
     and LN parameters f32; ``seed`` a one-element int32 tensor (one per step
     and layer). CPU tensors run :func:`decoder_layer_reference`; CUDA tensors
-    the kernels, or it raises.
+    the kernels through :class:`_DecoderLayerTrain`, or it raises. Under a
+    ``torch.func`` transform tensors on either device go through
+    :class:`DecoderLayerTrain` (on CPU tensors its operators' plain bodies), and
+    under ``vmap`` each trial launches the chain with its own slices and seed.
     """
     tensors = (y, mem, wqkv, bqkv, wo, bo, wq, bq, wkv, bkv, wo2, bo2, g1, b1, w1, b1f, w2,
                b2f, g2, b2, g3, b3, seed)
-    if all(t.device.type == "cpu" for t in tensors):
+    if per_trial.transformed():
+        per_trial.check_devices("fused_decoder_layer", tensors)
+        return DecoderLayerTrain.apply(*tensors, float(rate), int(n_heads), int(seq_len))[0]
+    if _on_cpu(tensors):
         return decoder_layer_reference(*tensors, rate, n_heads, seq_len)
     return _DecoderLayerTrain.apply(*tensors, rate, n_heads, seq_len)

@@ -53,6 +53,13 @@ column of the hidden), not the TPU kernel's per-tile seeds: the mask does not
 depend on the tiling, and :func:`ffn_reference` draws the same one. On CPU
 tensors :func:`ffn_train` runs the plain forward and the backward's formulas in
 plain PyTorch; on CUDA tensors it launches the kernels or raises.
+
+Each direction is an operator, ``tgi::ffn_fwd`` (``(out, h)``) and
+``tgi::ffn_bwd`` (dx and the weight and bias gradients flat), bound for
+autograd by :class:`FfnTrain`; under ``torch.func.vmap`` their vmap rules
+launch once per trial on its slices and seed (``ops/per_trial.py``).
+Outside ``torch.func`` the wrapper takes :class:`_FfnTrain`, which launches
+the kernels directly, as it did before the operators.
 """
 
 from __future__ import annotations
@@ -62,7 +69,7 @@ import functools
 
 import torch
 
-from . import _build
+from . import _build, per_trial
 from .dropout import quantized_keep_rate, quantized_threshold
 from .fused_layer import SITE_FFN, dropout_mask
 
@@ -282,12 +289,20 @@ def ffn_backward(dy, x, h, w1, w2, rate: float):
     bias gradients (and the reduce of its row splits)."""
     dy = dy.contiguous()
     _check({"x": (x, "d"), "dy": (dy, "d"), "h": (h, "ff")}, w1, w2, ())
-    return _launch_backward(dy, x, h, w1, w2, rate)
+    return _launch_backward_split(dy, x, h, w1, w2, rate)
+
+
+def _launch_backward_split(dy, x, h, w1, w2, rate: float):
+    """:func:`_launch_backward` with the gradients split as
+    :func:`ffn_backward` returns them."""
+    dx, grads = _launch_backward(dy, x, h, w1, w2, rate)
+    return dx, *split_grads(grads, x.shape[1], w1.shape[0])
 
 
 def _launch_backward(dy, x, h, w1, w2, rate: float):
-    """:func:`ffn_backward` without its checks, for a Function whose forward
-    checked x, h and the weights (and whose dy autograd shapes like out)."""
+    """:func:`ffn_backward` without its checks, for the backward of a
+    forward that checked x, h and the weights, and with the weight and bias
+    gradients as one flat f32 tensor, ``dw1, dw2, db1, db2`` in that order."""
     rows, d = x.shape
     ff = w1.shape[0]
     thresh, f32 = quantized_threshold(rate), int(x.dtype == torch.float32)
@@ -306,8 +321,63 @@ def _launch_backward(dy, x, h, w1, w2, rate: float):
                             x.device)
     if splits > 1:
         k["reduce"].launch((part, grads), (total, splits), x.device)
+    return dx, grads
+
+
+def split_grads(grads, d: int, ff: int):
+    """The backward's flat f32 gradients → ``(dw1, db1, dw2, db2)`` views."""
     dw1, dw2, db1, db2 = grads.split([d * ff, d * ff, ff, d])
-    return dx, dw1.view(ff, d), db1, dw2.view(d, ff), db2
+    return dw1.view(ff, d), db1, dw2.view(d, ff), db2
+
+
+def _ffn_fwd(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor, w2: torch.Tensor,
+             b2: torch.Tensor, seed: torch.Tensor,
+             rate: float) -> tuple[torch.Tensor, torch.Tensor]:
+    """The forward as an operator, ``(out, h)``: on CPU tensors
+    :func:`ffn_reference`, else the launches of :func:`ffn_forward` (or its
+    ``ValueError``)."""
+    args = (x, w1, b1, w2, b2, seed)
+    if all(t.device.type == "cpu" for t in args):
+        return per_trial.apart(ffn_reference(*args, rate, return_hidden=True), args)
+    return ffn_forward(*args, rate)
+
+
+ffn_fwd_op = torch.library.custom_op("tgi::ffn_fwd", _ffn_fwd, mutates_args=())
+
+
+@ffn_fwd_op.register_fake
+def _ffn_fwd_fake(x, w1, b1, w2, b2, seed, rate):
+    return torch.empty_like(x), x.new_empty((x.shape[0], w1.shape[0]))
+
+
+def _ffn_bwd(dy: torch.Tensor, x: torch.Tensor, h: torch.Tensor, w1: torch.Tensor,
+             w2: torch.Tensor, rate: float) -> tuple[torch.Tensor, torch.Tensor]:
+    """The backward as an operator, ``(dx, grads)``: ``grads`` the flat f32
+    weight and bias gradients (:func:`split_grads`); on CPU tensors
+    :func:`backward_formulas`, else the launches of :func:`ffn_backward`
+    (whose checks of x, h and the weights the forward made)."""
+    args = (dy, x, h, w1, w2)
+    if all(t.device.type == "cpu" for t in args):
+        dx, dw1, db1, dw2, db2 = backward_formulas(*args, rate)
+        return per_trial.apart(
+            (dx, torch.cat([dw1.reshape(-1), dw2.reshape(-1), db1, db2])), args)
+    dy = dy.contiguous()
+    if dy.dtype != x.dtype or dy.shape != x.shape or dy.device != x.device or dy.data_ptr() % 16:
+        raise ValueError(f"fused_ffn backward takes dy like x; got {tuple(dy.shape)} {dy.dtype}")
+    return _launch_backward(dy, x, h, w1, w2, rate)
+
+
+ffn_bwd_op = torch.library.custom_op("tgi::ffn_bwd", _ffn_bwd, mutates_args=())
+
+
+@ffn_bwd_op.register_fake
+def _ffn_bwd_fake(dy, x, h, w1, w2, rate):
+    ff, d = w1.shape
+    return torch.empty_like(x), x.new_empty((2 * d * ff + ff + d,), dtype=torch.float32)
+
+
+ffn_fwd_op.register_vmap(per_trial.rule(ffn_fwd_op))
+ffn_bwd_op.register_vmap(per_trial.rule(ffn_bwd_op))
 
 
 class _FfnTrain(torch.autograd.Function):
@@ -333,8 +403,36 @@ class _FfnTrain(torch.autograd.Function):
             if dy.dtype != x.dtype or dy.shape != x.shape or dy.data_ptr() % 16:
                 raise ValueError(f"fused_ffn backward takes dy like x; got {tuple(dy.shape)} "
                                  f"{dy.dtype}")
-            run = _launch_backward
+            run = _launch_backward_split
         dx, dw1, db1, dw2, db2 = run(dy, x, h, w1, w2, ctx.rate)
+        # weight grads rounded to the weights' dtype, as _ffn_bwd does
+        return dx, dw1.to(w1.dtype), db1, dw2.to(w2.dtype), db2, None, None
+
+
+class FfnTrain(torch.autograd.Function):
+    """The two operators under autograd, for ``torch.func``: saves what
+    :class:`_FfnTrain` saves, h travelling as the forward's second output.
+    Under ``torch.func.vmap`` both run once per trial (``ops/per_trial.py``)."""
+
+    generate_vmap_rule = True
+
+    @staticmethod
+    def forward(x, w1, b1, w2, b2, seed, rate):
+        return ffn_fwd_op(x, w1, b1, w2, b2, seed, rate)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        x, w1, _b1, w2, _b2, _seed, rate = inputs
+        ctx.save_for_backward(x, output[1], w1, w2)
+        ctx.mark_non_differentiable(output[1])
+        ctx.rate = rate
+
+    @staticmethod
+    def backward(ctx, dy, _dh):
+        x, h, w1, w2 = ctx.saved_tensors
+        with torch.no_grad():  # torch.func.grad records the backward otherwise
+            dx, grads = ffn_bwd_op(dy, x, h, w1, w2, ctx.rate)
+        dw1, db1, dw2, db2 = split_grads(grads, x.shape[-1], w1.shape[-2])
         # weight grads rounded to the weights' dtype, as _ffn_bwd does
         return dx, dw1.to(w1.dtype), db1, dw2.to(w2.dtype), db2, None, None
 
@@ -348,11 +446,15 @@ def ffn_train(x, w1, b1, w2, b2, seed, rate: float):
     one-element int32 tensor (one per step and layer); ``rate`` the dropout
     rate on the hidden (the 8-bit rule of ``ops/dropout.py``). CPU tensors run
     the plain version (its backward the kernels' formulas in plain PyTorch);
-    CUDA tensors the kernels, or it raises.
+    CUDA tensors the kernels, or it raises. Under ``torch.func.vmap`` each
+    trial launches with its own slices and seed.
     """
     if not 0.0 <= rate < 1.0:
         raise ValueError(f"dropout rate must be in [0, 1), got {rate}")
     tensors = (x, w1, b1, w2, b2, seed)
+    if per_trial.transformed():
+        per_trial.check_devices("fused_ffn", tensors)
+        return FfnTrain.apply(*tensors, float(rate))[0]
     if not all(t.device.type == "cpu" for t in tensors) and x.device.type == "cpu":
         _check({"x": (x, "d")}, w1, w2, (b1, b2), seed)  # a mix: raises
     return _FfnTrain.apply(*tensors, float(rate))

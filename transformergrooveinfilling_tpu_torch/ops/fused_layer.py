@@ -38,6 +38,15 @@ autograd Function saves exactly x, qkv, a1, h_drop and a2.
 kernel and :func:`encoder_layer_reference` draw the same masks. On a CPU
 tensor :func:`encoder_layer_train` runs the twin; on a CUDA tensor it
 launches the kernels or raises.
+
+The chain is two operators, ``tgi::encoder_layer_fwd`` (``(y, qkv, a1, h,
+a2)``) and ``tgi::encoder_layer_bwd`` (dx and the 12 parameter gradients
+flat), bound for autograd by :class:`EncoderLayerTrain`; under
+``torch.func.vmap`` their vmap rules launch each trial's chain on its slices
+and seed (``ops/per_trial.py``), and on CPU tensors their bodies run each
+launch's plain version. Outside ``torch.func`` the wrapper takes
+:class:`_EncoderLayerTrain`, which launches the chain directly, as it did
+before the operators.
 """
 
 from __future__ import annotations
@@ -46,7 +55,7 @@ import math
 
 import torch
 
-from . import layer_sm90
+from . import layer_sm90, per_trial
 from .dropout import quantized_threshold
 
 LN_EPS = 1e-5
@@ -342,6 +351,15 @@ def backward_sm90(dy, x, qkv, a1, h, a2, wqkv, wo, w1, w2, g1, b1, g2, seed,
     """The backward as its chain of launches (``route_kernels(x.dtype)``),
     :func:`layer_backward`'s outputs. On CPU tensors each launch runs its
     plain version."""
+    dx, grads = _backward_flat(dy, x, qkv, a1, h, a2, wqkv, wo, w1, w2, g1, b1, g2, seed, rate,
+                               n_heads, seq_len)
+    return dx, *split_grads(grads, x.shape[1], w1.shape[0])
+
+
+def _backward_flat(dy, x, qkv, a1, h, a2, wqkv, wo, w1, w2, g1, b1, g2, seed,
+                   rate: float, n_heads: int, seq_len: int):
+    """:func:`backward_sm90` with the parameter gradients as the one flat f32
+    tensor the weight-gradient launch writes (:func:`split_grads`)."""
     k = _launches(x.dtype)
     m, d = x.shape
     ff = w1.shape[0]
@@ -361,9 +379,15 @@ def backward_sm90(dy, x, qkv, a1, h, a2, wqkv, wo, w1, w2, g1, b1, g2, seed,
         [(dqkv, x), (dproj, attn), (dh, y1), (df, h)],
         [(dqkv, None, None), (dproj, None, None), (dy1, a1, stats[:, 0:2]), (dy1, None, None),
          (dh, None, None), (df, None, None), (dy, a2, stats[:, 2:4]), (dy, None, None)])
+    return dx, grads
+
+
+def split_grads(grads, d: int, ff: int):
+    """The backward's flat f32 parameter gradients → ``(dwqkv, dbqkv, dwo,
+    dbo, dg1, db1, dw1, db1f, dw2, db2f, dg2, db2)`` views."""
     dwqkv, dwo, dw1, dw2, vec = grads.split([3 * d * d, d * d, ff * d, d * ff, 9 * d + ff])
     dbqkv, dbo, dg1, db1, db1f, db2f, dg2, db2 = vec.split([3 * d, d, d, d, ff, d, d, d])
-    return (dx, dwqkv.view(3 * d, d), dbqkv, dwo.view(d, d), dbo, dg1, db1, dw1.view(ff, d),
+    return (dwqkv.view(3 * d, d), dbqkv, dwo.view(d, d), dbo, dg1, db1, dw1.view(ff, d),
             db1f, dw2.view(d, ff), db2f, dg2, db2)
 
 
@@ -381,12 +405,79 @@ def layer_backward(dy, x, qkv, a1, h, a2, wqkv, wo, w1, w2, g1, b1, g2, seed,
     """Launch the backward, the chain of :func:`backward_sm90`: ``(dx, dwqkv,
     dbqkv, dwo, dbo, dg1, db1, dw1, db1f, dw2, db2f, dg2, db2)``, weight
     gradients in f32."""
+    dx, grads = _launch_backward(dy, x, qkv, a1, h, a2, wqkv, wo, w1, w2, g1, b1, g2, seed, rate,
+                                 n_heads, seq_len)
+    return dx, *split_grads(grads, x.shape[1], w1.shape[0])
+
+
+def _launch_backward(dy, x, *saved):
+    """:func:`layer_backward` with the parameter gradients flat."""
     dy = dy.contiguous()
     if dy.dtype != x.dtype or dy.shape != x.shape or dy.device != x.device:
         raise ValueError(f"fused_layer backward: dy {dy.dtype} {tuple(dy.shape)} "
                          f"does not match x {x.dtype} {tuple(x.shape)}")
-    return backward_sm90(dy, x, qkv, a1, h, a2, wqkv, wo, w1, w2, g1, b1, g2, seed, rate,
-                         n_heads, seq_len)
+    return _backward_flat(dy, x, *saved)
+
+
+def _on_cpu(tensors) -> bool:
+    return all(t.device.type == "cpu" for t in tensors)
+
+
+def _layer_fwd(x: torch.Tensor, wqkv: torch.Tensor, bqkv: torch.Tensor, wo: torch.Tensor,
+               bo: torch.Tensor, g1: torch.Tensor, b1: torch.Tensor, w1: torch.Tensor,
+               b1f: torch.Tensor, w2: torch.Tensor, b2f: torch.Tensor, g2: torch.Tensor,
+               b2: torch.Tensor, seed: torch.Tensor, rate: float, n_heads: int,
+               seq_len: int) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor,
+                                      torch.Tensor]:
+    """The forward as an operator, ``(y, qkv, a1, h, a2)``: the chain of
+    :func:`layer_forward` (or its ``ValueError``); on CPU tensors each
+    launch's plain version."""
+    args = (x, wqkv, bqkv, wo, bo, g1, b1, w1, b1f, w2, b2f, g2, b2, seed)
+    if _on_cpu(args):
+        return per_trial.apart(forward_sm90(*args, rate, n_heads, seq_len), args)
+    return layer_forward(*args, rate, n_heads, seq_len)
+
+
+layer_fwd_op = torch.library.custom_op("tgi::encoder_layer_fwd", _layer_fwd,
+                                       mutates_args=())
+
+
+@layer_fwd_op.register_fake
+def _layer_fwd_fake(x, wqkv, bqkv, wo, bo, g1, b1, w1, b1f, w2, b2f, g2, b2, seed, rate,
+                    n_heads, seq_len):
+    m, d = x.shape
+    return (torch.empty_like(x), x.new_empty((m, 3 * d)), torch.empty_like(x),
+            x.new_empty((m, w1.shape[0])), torch.empty_like(x))
+
+
+def _layer_bwd(dy: torch.Tensor, x: torch.Tensor, qkv: torch.Tensor, a1: torch.Tensor,
+               h: torch.Tensor, a2: torch.Tensor, wqkv: torch.Tensor, wo: torch.Tensor,
+               w1: torch.Tensor, w2: torch.Tensor, g1: torch.Tensor, b1: torch.Tensor,
+               g2: torch.Tensor, seed: torch.Tensor, rate: float, n_heads: int,
+               seq_len: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """The backward as an operator, ``(dx, grads)``: ``grads`` the 12
+    parameter gradients flat in f32 (:func:`split_grads`); the chain of
+    :func:`layer_backward`, on CPU tensors each launch's plain version."""
+    args = (dy, x, qkv, a1, h, a2, wqkv, wo, w1, w2, g1, b1, g2, seed)
+    if _on_cpu(args):
+        return per_trial.apart(_backward_flat(*args, rate, n_heads, seq_len), args)
+    return _launch_backward(*args, rate, n_heads, seq_len)
+
+
+layer_bwd_op = torch.library.custom_op("tgi::encoder_layer_bwd", _layer_bwd,
+                                       mutates_args=())
+
+
+@layer_bwd_op.register_fake
+def _layer_bwd_fake(dy, x, qkv, a1, h, a2, wqkv, wo, w1, w2, g1, b1, g2, seed, rate, n_heads,
+                    seq_len):
+    d, ff = x.shape[1], w1.shape[0]
+    return torch.empty_like(x), x.new_empty((4 * d * d + 2 * d * ff + 9 * d + ff,),
+                                            dtype=torch.float32)
+
+
+layer_fwd_op.register_vmap(per_trial.rule(layer_fwd_op))
+layer_bwd_op.register_vmap(per_trial.rule(layer_bwd_op))
 
 
 class _EncoderLayerTrain(torch.autograd.Function):
@@ -415,6 +506,42 @@ class _EncoderLayerTrain(torch.autograd.Function):
                 None, None, None, None)
 
 
+class EncoderLayerTrain(torch.autograd.Function):
+    """The two operators under autograd, for ``torch.func``: saves what
+    :class:`_EncoderLayerTrain` saves, the residuals travelling as the
+    forward's outputs. Under ``torch.func.vmap`` both run once per trial
+    (``ops/per_trial.py``)."""
+
+    generate_vmap_rule = True
+
+    @staticmethod
+    def forward(x, wqkv, bqkv, wo, bo, g1, b1, w1, b1f, w2, b2f, g2, b2, seed, rate, n_heads,
+                seq_len):
+        return layer_fwd_op(x, wqkv, bqkv, wo, bo, g1, b1, w1, b1f, w2, b2f, g2, b2, seed, rate,
+                            n_heads, seq_len)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        x, wqkv, _bqkv, wo, _bo, g1, b1, w1, _b1f, w2, _b2f, g2, _b2, seed = inputs[:14]
+        _y, qkv, a1, h, a2 = output
+        ctx.save_for_backward(x, qkv, a1, h, a2, wqkv, wo, w1, w2, g1, b1, g2, seed)
+        ctx.mark_non_differentiable(qkv, a1, h, a2)
+        ctx.static = inputs[14:]
+
+    @staticmethod
+    def backward(ctx, dy, *_residuals):
+        saved = ctx.saved_tensors
+        with torch.no_grad():  # torch.func.grad records the backward otherwise
+            dx, grads = layer_bwd_op(dy, *saved, *ctx.static)
+        x, wqkv, wo, w1, w2 = saved[0], *saved[5:9]
+        (dwqkv, dbqkv, dwo, dbo, dg1, db1, dw1, db1f, dw2, db2f, dg2,
+         db2) = split_grads(grads, x.shape[-1], w1.shape[-2])
+        # weight grads rounded to the weights' dtype, as _layer_bwd does
+        return (dx, dwqkv.to(wqkv.dtype), dbqkv, dwo.to(wo.dtype), dbo, dg1, db1,
+                dw1.to(w1.dtype), db1f, dw2.to(w2.dtype), db2f, dg2, db2,
+                None, None, None, None)
+
+
 def encoder_layer_train(x, wqkv, bqkv, wo, bo, g1, b1, w1, b1f, w2, b2f, g2,
                         b2, seed, rate: float, n_heads: int, seq_len: int):
     """Fused post-LN encoder layer for training, the JAX signature.
@@ -424,9 +551,15 @@ def encoder_layer_train(x, wqkv, bqkv, wo, bo, g1, b1, w1, b1f, w2, b2f, g2,
     JAX function takes their transposes) and the compute dtype; biases and
     LN parameters f32; ``seed`` a one-element int32 tensor (one per step and
     layer). CPU tensors run :func:`encoder_layer_reference`; CUDA tensors
-    the kernels, or it raises.
+    the kernels through :class:`_EncoderLayerTrain`, or it raises. Under a
+    ``torch.func`` transform tensors on either device go through
+    :class:`EncoderLayerTrain` (on CPU tensors its operators' plain bodies), and
+    under ``vmap`` each trial launches the chain with its own slices and seed.
     """
     tensors = (x, wqkv, bqkv, wo, bo, g1, b1, w1, b1f, w2, b2f, g2, b2, seed)
-    if all(t.device.type == "cpu" for t in tensors):
+    if per_trial.transformed():
+        per_trial.check_devices("fused_layer", tensors)
+        return EncoderLayerTrain.apply(*tensors, float(rate), int(n_heads), int(seq_len))[0]
+    if _on_cpu(tensors):
         return encoder_layer_reference(*tensors, rate, n_heads, seq_len)
     return _EncoderLayerTrain.apply(*tensors, rate, n_heads, seq_len)

@@ -38,6 +38,12 @@ in plain PyTorch, so the kernel and :func:`dropout_add_layernorm_reference`
 draw the same mask. On CPU tensors :func:`dropout_add_layernorm` runs the plain
 forward and the backward's formulas in plain PyTorch; on CUDA tensors it
 launches the kernels or raises.
+
+Each direction is an operator, ``tgi::ln_fwd`` and ``tgi::ln_bwd``, bound for
+autograd by :class:`DropoutAddLayerNorm`; under ``torch.func.vmap`` their vmap
+rules launch once per trial on its slices and seed (``ops/per_trial.py``).
+Outside ``torch.func`` the wrapper takes :class:`_DropoutAddLayerNorm`, which
+launches the kernels directly, as it did before the operators.
 """
 
 from __future__ import annotations
@@ -49,7 +55,7 @@ import threading
 
 import torch
 
-from . import _build
+from . import _build, per_trial
 from .fused_layer import KERNEL_DTYPES, LN_EPS, _U32, philox4x32
 
 SITE_LN = 4  # the word stream's site, apart from the layer kernels' 0-3
@@ -287,6 +293,13 @@ def ln_forward(x, y, scale, bias, seed, rate: float):
 def ln_backward(g, x, y, scale, seed, rate: float):
     """Launch the backward kernel, one launch in all: ``(dx, dy, dscale,
     dbias)``, dscale and dbias summed inside it."""
+    dx, dy, dparams = _launch_backward(g, x, y, scale, seed, rate)
+    return dx, dy, dparams[0], dparams[1]
+
+
+def _launch_backward(g, x, y, scale, seed, rate: float):
+    """:func:`ln_backward` with dscale and dbias as the rows of one (2, d)
+    f32 tensor."""
     g = g.contiguous()
     _check((x, y, g), (scale,), seed)
     rows, d = x.numel() // x.shape[-1], x.shape[-1]
@@ -301,7 +314,51 @@ def ln_backward(g, x, y, scale, seed, rate: float):
     KERNELS["fused_ln_bwd"].launch(
         (x, y, scale, seed, g, dx, dy, dparams, partials, _ticket_buffer(x.device)),
         (*_scalars(x, rate), blocks), x.device)
-    return dx, dy, dparams[0], dparams[1]
+    return dx, dy, dparams
+
+
+def _ln_fwd(x: torch.Tensor, y: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+            seed: torch.Tensor, rate: float) -> torch.Tensor:
+    """The forward as an operator: on CPU tensors
+    :func:`dropout_add_layernorm_reference`, else the launch of
+    :func:`ln_forward` (or its ``ValueError``)."""
+    args = (x, y, scale, bias, seed)
+    if all(t.device.type == "cpu" for t in args):
+        return per_trial.apart((dropout_add_layernorm_reference(*args, rate),), args)[0]
+    return ln_forward(*args, rate)
+
+
+ln_fwd_op = torch.library.custom_op("tgi::ln_fwd", _ln_fwd, mutates_args=())
+
+
+@ln_fwd_op.register_fake
+def _ln_fwd_fake(x, y, scale, bias, seed, rate):
+    return torch.empty_like(x)
+
+
+def _ln_bwd(g: torch.Tensor, x: torch.Tensor, y: torch.Tensor, scale: torch.Tensor,
+            seed: torch.Tensor, rate: float) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The backward as an operator: ``(dx, dy, dparams)``, dparams (2, d) f32
+    holding dscale and dbias; on CPU tensors :func:`backward_formulas`, else
+    the launch of :func:`ln_backward`."""
+    args = (g, x, y, scale, seed)
+    if all(t.device.type == "cpu" for t in args):
+        dx, dy, dscale, dbias = backward_formulas(*args, rate)
+        return per_trial.apart((dx, dy, torch.stack([dscale, dbias])), args)
+    return _launch_backward(*args, rate)
+
+
+ln_bwd_op = torch.library.custom_op("tgi::ln_bwd", _ln_bwd, mutates_args=())
+
+
+@ln_bwd_op.register_fake
+def _ln_bwd_fake(g, x, y, scale, seed, rate):
+    return (torch.empty_like(x), torch.empty_like(y),
+            x.new_empty((2, x.shape[-1]), dtype=torch.float32))
+
+
+ln_fwd_op.register_vmap(per_trial.rule(ln_fwd_op))
+ln_bwd_op.register_vmap(per_trial.rule(ln_bwd_op))
 
 
 class _DropoutAddLayerNorm(torch.autograd.Function):
@@ -326,6 +383,31 @@ class _DropoutAddLayerNorm(torch.autograd.Function):
         return dx, dy, dscale, dbias, None, None
 
 
+class DropoutAddLayerNorm(torch.autograd.Function):
+    """The two operators under autograd, for ``torch.func``: saves what
+    :class:`_DropoutAddLayerNorm` saves. Under ``torch.func.vmap`` both run
+    once per trial (``ops/per_trial.py``)."""
+
+    generate_vmap_rule = True
+
+    @staticmethod
+    def forward(x, y, scale, bias, seed, rate):
+        return ln_fwd_op(x, y, scale, bias, seed, rate)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        x, y, scale, _bias, seed, rate = inputs
+        ctx.save_for_backward(x, y, scale, seed)
+        ctx.rate = rate
+
+    @staticmethod
+    def backward(ctx, g):
+        x, y, scale, seed = ctx.saved_tensors
+        with torch.no_grad():  # torch.func.grad records the backward otherwise
+            dx, dy, dparams = ln_bwd_op(g, x, y, scale, seed, ctx.rate)
+        return dx, dy, dparams[0], dparams[1], None, None
+
+
 def dropout_add_layernorm(x, y, scale, bias, seed, rate: float):
     """``LN(x + dropout(y; rate))·scale + bias``, the JAX signature.
 
@@ -333,11 +415,15 @@ def dropout_add_layernorm(x, y, scale, bias, seed, rate: float):
     ``scale``, ``bias``: (d,) f32; ``seed`` a one-element int32 tensor (one per
     step and site); ``rate`` in [0, 1). CPU tensors run the plain version (its
     backward the kernel's formulas in plain PyTorch); CUDA tensors the kernels,
-    or it raises.
+    or it raises. Under ``torch.func.vmap`` each trial launches with its own
+    slices and seed.
     """
     if not 0.0 <= rate < 1.0:
         raise ValueError(f"dropout rate must be in [0, 1), got {rate}")
     tensors = (x, y, scale, bias, seed)
+    if per_trial.transformed():
+        per_trial.check_devices("fused_ln", tensors)
+        return DropoutAddLayerNorm.apply(*tensors, float(rate))
     if not all(t.device.type == "cpu" for t in tensors):
         _check((x, y), (scale, bias), seed)
     return _DropoutAddLayerNorm.apply(*tensors, float(rate))

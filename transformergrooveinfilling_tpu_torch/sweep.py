@@ -20,9 +20,12 @@ With ``--batched`` the trials are grouped by every sampled parameter except
 the per-trial ones (learning rate, hit-loss penalty, dropout), and each group
 trains as one vmapped program (``train/vmap_sweep.py``) and is ranked by its
 deterministic full-train-set loss, one vmapped eval forward through kernel #1
-on the card. In a group the whole-layer kernels' auto resolves off (their
-ctypes chains cannot read vmapped tensors), and a kernel switch or ``remat``
-given as 1 raises ``ValueError``. Where auto remat would engage for the whole
+on the card. In a group the whole-layer kernels' auto resolves off, as in
+root; a kernel switch given as 1 trains the group through its kernel, one
+launch per trial (``fused_layer``, ``fused_decoder_layer``, ``fused_ffn``,
+``fused_dropout_ln``), and ``remat`` given as 1 raises ``ValueError``
+(``torch.utils.checkpoint`` does not run under ``torch.func.grad``). Where
+auto remat would engage for the whole
 group, the group is split into the fewest chunks of trials that fit without
 it, each its own program.
 
@@ -185,13 +188,14 @@ def group_trials(trials) -> dict:
 
 
 def batched_config(hp, trial: dict, device):
-    """The model config of a batched group: ``derive_model_config`` with the
-    whole-layer kernels' auto resolved off and ``fused_dropout_ln`` as the
-    trial gives it. The port's auto would turn them on at batch <= 512 on the
-    card, but their launches are chains of ctypes calls that read
-    ``data_ptr()``, which a vmapped (batched) tensor does not have; a switch
-    given as 1 is kept, and ``train/vmap_sweep.py::check_batchable`` raises
-    on it."""
+    """The model config of a batched group, as root ``sweep.py`` builds it:
+    ``derive_model_config`` with the whole-layer kernels' auto resolved off
+    (a switch the trial gives as 1 is kept), ``fused_ffn`` as resolved and
+    ``fused_dropout_ln`` as the trial gives it. Every kernel switch runs
+    under ``torch.func.vmap``, one launch per trial
+    (``train/vmap_sweep.py``); auto keeps the whole-layer chains off because
+    a vmapped step of plain ops costs about the same at every K and the
+    chain's K launches grow with it (``batches``)."""
     from .train.config import derive_model_config
 
     config = derive_model_config(hp, device=device)
@@ -316,7 +320,7 @@ def run_batched(trials, metric: str, goal: str, project: str, args) -> int:
                 print(f"--- group {gi}: auto remat would engage for {len(idxs)} stacked "
                       f"trials; running them as {-(-len(idxs) // chunk)} programs of at "
                       f"most {chunk} trial(s) without remat")
-        check_batchable(config)  # a forced switch raises whatever the group's size
+        check_batchable(config)  # remat given as 1 raises whatever the group's size
         # the regular step's switches: a chunk too small for vmap takes them
         regular = derive_model_config(hp, device=args.device)
         model = build_model(config, args.device)

@@ -12,15 +12,24 @@ the vmap as data (``forward(..., dropout_rate=r)``,
 ``ops/dropout.py::fast_dropout_as_data``); rates that are all equal stay
 static, and the model keeps its configured dropout path.
 
-Where the JAX package's step vmaps its Pallas kernels, here only the attention
-kernel #1 runs under ``vmap``: the ranking forward (:func:`stacked_eval_loss`)
-reaches ``tgi::fused_mha``, whose vmap rule folds the K trials into one launch
+The JAX package's step vmaps its Pallas kernels with it, and so does this
+one. The ranking forward (:func:`stacked_eval_loss`) reaches kernel #1 as
+``tgi::fused_mha``, whose vmap rule folds the K trials into one launch
 (``ops/attention.py``). The training forward runs the plain attention with
-dropout, as every training forward of the port does. The whole-layer, FFN and
-dropout+LayerNorm kernels are ctypes launches that read ``data_ptr()``, which
-a batched tensor does not have, and ``torch.utils.checkpoint`` raises under
-``torch.func.grad`` ("torch.func.{grad, vjp, jacrev, hessian} don't yet support
-saved tensor hooks"): a config with any of those switches on raises
+dropout, as every training forward of the port does, unless a training
+kernel is switched on: ``fused_layer`` (#2), ``fused_decoder_layer`` (#3),
+``fused_ffn`` (#4) and ``fused_dropout_ln`` (#5) reach the card through
+operators (``tgi::encoder_layer_fwd``/``_bwd``, ``tgi::decoder_layer_fwd``/
+``_bwd``, ``tgi::ffn_fwd``/``_bwd``, ``tgi::ln_fwd``/``_bwd``) bound by
+autograd Functions with ``setup_context``, whose vmap rules launch once per
+trial on that trial's slices and seed (``ops/per_trial.py``): K launches of
+each kernel a call, trial t's outputs and gradients bit for bit those of an
+unbatched call with trial t's seed. Under ``randomness="different"`` each
+trial draws its own seed for each kernel call. These switches take the
+config's rate: with rates that differ they raise
+(``models/transformer.py``). ``torch.utils.checkpoint`` raises under
+``torch.func.grad`` ("torch.func.{grad, vjp, jacrev, hessian} don't yet
+support saved tensor hooks"): a config with ``remat`` on raises
 ``ValueError`` (:func:`check_batchable`).
 
 Optimizers: sgd and adam. The learning rate enters the update as data: sgd
@@ -45,18 +54,11 @@ from torch.func import functional_call, grad_and_value, stack_module_state, vmap
 from .. import require_device
 from ..models import build_model
 from ..models.losses import calculate_loss
-from ..models.transformer import KERNEL_SWITCHES
 
 
 def check_batchable(config) -> None:
-    """Raise ``ValueError`` when ``config`` turns on a switch that cannot
-    run under ``torch.func.vmap`` (module docstring), naming it."""
-    forced = [s for s in KERNEL_SWITCHES if getattr(config, s)]
-    if forced:
-        raise ValueError(
-            f"{', '.join(forced)}=1 in a batched sweep: these kernels are ctypes launches "
-            "that cannot read vmapped (batched) tensors; leave them unset (auto is off in "
-            "a batched group) or run the trials without --batched")
+    """Raise ``ValueError`` when ``config`` turns on ``remat``, which cannot
+    run under ``torch.func.grad`` (module docstring)."""
     if config.remat:
         raise ValueError(
             "remat=1 in a batched sweep: torch.utils.checkpoint raises under "
