@@ -205,7 +205,9 @@ then non-zero):
             configs/InfillingRandom_training.yaml --wandb False --eval_train
             False`` at the flagship width, nothing cut, for a few blocks
             (``--max_wall_s``) each with ``--streaming off``, ``host``
-            (``--regen_cadence auto``) and ``fused``: #2's bf16 chain in every
+            (``--regen_cadence auto``) and ``fused``, the build and these
+            three one after another in one child process (its start read
+            apart): #2's bf16 chain in every
             run, #6 and #7 in the streaming ones, the loss finite and falling,
             seqs/s per block; the fused run resumes the off run's newest
             ``.ckpt`` (``--load_model``) at its epoch + 1 under
@@ -213,8 +215,9 @@ then non-zero):
             #6's and #7's kernels; one
             host generation and one fused render of the train split timed in
             process, with their launches.
-22. evaluation  on phase 21's datasets, each command line in a child
-            process as there: ``python -m
+22. evaluation  on phase 21's datasets, the command lines in child
+            processes as there (the card's evaluators and the training with
+            them one after the other in one): ``python -m
             transformergrooveinfilling_tpu_torch.process_evaluator
             --experiments InfillingRandom --splits train validation`` on the
             card (#6, #7) beside the validation evaluator built with
@@ -241,11 +244,11 @@ then non-zero):
             ``index_add_``, with the table's padded and true bytes; the front
             end with a kit an item against its plain versions on the CPU (atol
             2e-5 · max, rtol 1e-3); a MIDI archive of the synthetic corpus
-            (330 / 110 / 110 loops) through ``gmd_to_processed_tree``,
+            (165 / 55 / 55 loops) through ``gmd_to_processed_tree``,
             ``process_dataset --source <tree> --params-json`` (the kits'
-            directory as ``sf_path``) and ``train --streaming fused`` for 3
-            blocks (the flagship YAML with its epochs cut to 3), each in a
-            child process (#2, #6, #7 counted); ``infill_from_hvo(...,
+            directory as ``sf_path``) and ``train --streaming fused`` for 2
+            blocks (the flagship YAML with its epochs cut to 2), one after
+            the other in a child process (#2, #6, #7 counted); ``infill_from_hvo(...,
             sf_path=kit)`` on the flagship server against the CPU plain path,
             its B = 1 p50/p99 and its first request apart; an HTTP ``"format":
             "midi"`` reply parsed back to its hits; a body naming ``sf_path``
@@ -265,7 +268,7 @@ then non-zero):
 25. batched sweeps  (``train/vmap_sweep.py``, ``sweep.py``) on phase 21's
             datasets: one group of 8 trials at the flagship width (learning
             rate, penalty and dropout drawn from
-            configs/InfillingRandom_sweep.yaml; one lr 0) trained 2 SGD epochs
+            configs/InfillingRandom_sweep.yaml; one lr 0) trained 1 SGD epoch
             by ``make_batched_sweep_fn`` (losses finite and distinct, the lr-0
             trial's weights bit for bit); ``stacked_eval_loss`` through #1's
             vmap rule (6 launches a stacked forward for the 8 trials, each
@@ -286,14 +289,14 @@ then non-zero):
             its tensors staged through pinned host memory): #1 at one head
             of width 128 held to its plain version; (a) one rank over NCCL,
             ``run_training(plan=make_mesh())`` bit for bit as ``plan=None``
-            (flagship, bf16, batch 32, 3 epochs, #2's chain); (b) dp 2 at
+            (flagship, bf16, batch 32, 2 epochs, #2's chain); (b) dp 2 at
             the flagship in bf16, global batch 64, #2's chain on every rank:
             at rate 0 two global batches held to one process's chain (2e-2 ·
             max over the parameters), at rate 0.30 the loss falls over 4
             epochs; (c) tp 2 in f32: the eval forward (#1 on one head a
             rank) within 1e-5 · max of one process's, 3 SGD steps within
-            5e-5; (d) dp 2 × pp 2 at GrooveXL's width in bf16, 4
-            microbatches, ``fused_ffn`` given: the deterministic pipelined
+            5e-5; (d) dp 2 × pp 2 at GrooveXL's width (4 of its 12 layers)
+            in bf16, 4 microbatches, ``fused_ffn`` given: the deterministic pipelined
             forward (#1 in the stages) within 2e-2 · max of the plain model,
             3 training steps (#4 in the stages); (e) pp 2 × tp 2, flagship,
             f32: the forward within 2e-5 · max; (f) ``train
@@ -328,6 +331,22 @@ then non-zero):
             architecture, rate 0.30 and ``fused_layer: 1`` pinned: one
             vmapped group, #2's chain 5 × 6 layers × 104 steps. The kernels
             line gains each kernel's ``vmap`` route.
+28. remat under vmap  each layer of a batched group recomputed in the
+            backward under ``torch.func`` (``models/transformer.py::
+            _LayerRemat``): (a) GrooveXL (d 1024, 8 heads, ff 4096, 12
+            layers, batch 128, bf16, rate 0.1, SGD) at K 8 without remat,
+            with ``remat=1`` and with ``"dots"``, from one init: the peak
+            allocated bytes of a step, trial·seqs/s over 3 steps, the final
+            parameters bit for bit against remat off, the peaks with remat
+            below the one without; (b) phase 27's three groups at K 5, 3
+            steps with ``remat=1``: bit for bit the same group without remat,
+            each forward launch of #2-#5 twice a layer and trial; (c)
+            ``sweep --batched --count 5 --epochs 1`` at the flagship's
+            architecture with ``remat: 1`` pinned, and with remat unset and
+            ``TGI_HBM_BYTES`` set so that auto remat engages for 5 stacked
+            trials and not for 1: each one vmapped group under remat, 5
+            trials ranked, #1 launched 6 times. The kernels line gains #2-#5's
+            ``launches_per_batched_remat_step``.
 
 Then one line ``{"kernels": [...]}``, the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``. Without CUDA it exits non-zero and prints
@@ -347,6 +366,7 @@ import sys
 import tempfile
 import threading
 import time
+import types
 import urllib.error
 import urllib.request
 
@@ -3499,26 +3519,37 @@ def phase_checkpoint(dev, rng, smi: str) -> dict:
 # writes its kernels' launch counts (each starts at 0 in a new process) and
 # the module's own seconds to the file named after the module
 CLI_RUNNER = """
-import json, runpy, sys, time
+import json, os, runpy, sys, time
 from transformergrooveinfilling_tpu_torch.ops import (
     attention, band_energies, device_synth, fused_layer)
-module, out = sys.argv[1], sys.argv[2]
-sys.argv = [module] + sys.argv[3:]
-t0 = time.perf_counter()
-try:
-    runpy.run_module(module, run_name="__main__", alter_sys=True)
-finally:
-    kernels = {"fused_mha": attention.KERNEL, "band_energies": band_energies.KERNEL,
-               "device_synth": device_synth.KERNEL, **fused_layer.SM90_KERNELS}
-    with open(out, "w") as f:
-        json.dump({"seconds": time.perf_counter() - t0,
-                   "launches": {k: v.launches for k, v in kernels.items()}}, f)
+kernels = {"fused_mha": attention.KERNEL, "band_energies": band_energies.KERNEL,
+           "device_synth": device_synth.KERNEL, **fused_layer.SM90_KERNELS}
+for step in json.loads(sys.argv[1]):
+    os.chdir(step["cwd"])
+    os.environ.update(step["env"])
+    for k in kernels.values():
+        k.launches = 0
+    print(step["mark"], flush=True)
+    sys.argv = [step["module"]] + step["args"]
+    t0 = time.perf_counter()
+    try:
+        runpy.run_module(step["module"], run_name="__main__", alter_sys=True)
+    except SystemExit as e:
+        if e.code not in (None, 0):
+            raise
+    finally:
+        with open(step["out"], "w") as f:
+            json.dump({"seconds": time.perf_counter() - t0,
+                       "launches": {k: v.launches for k, v in kernels.items()}}, f)
+    for key in step["env"]:
+        os.environ.pop(key)
 """
+STEP_MARK = "=== chip_smoke step "  # the runner's line before each command line's output
 CLI_PROCESS = "transformergrooveinfilling_tpu_torch.process_dataset"
 CLI_TRAIN = "transformergrooveinfilling_tpu_torch.train"
 CLI_SPLITS = {"train": 3300, "test": 1100, "validation": 1100}  # 330 / 110 / 110 loops x 10
 CLI_WALL_S = 5.0  # --max_wall_s of each training run: a few flagship blocks
-CLI_TRACE_S = 10.0  # and more for the traced run: its first block writes a ~90 MB trace
+CLI_TRACE_S = 7.0  # and more for the traced run: its first block writes a ~90 MB trace
 CLI_MSO_ITEMS = 64
 CLI_CONFIG = os.path.join(ROOT, "configs", "InfillingRandom_training.yaml")
 # the kernels a trace of the first block must name: #2's bf16 chain (its
@@ -3527,23 +3558,43 @@ TRACE_KERNELS = ("gemm_kernel", "attn_fwd_mma", "attn_bwd_mma", "ln_rows", "synt
                  "band_energies_kernel")
 
 
-def start_cli(module: str, args, cwd: str, threads: int | None = None, **env):
-    """Start ``python -m module args`` (through :data:`CLI_RUNNER`) in
-    ``cwd`` with this checkout on the path → (process, counts file, start)."""
-    os.makedirs(cwd, exist_ok=True)
-    counts = os.path.join(cwd, f"{module.rsplit('.', 1)[-1]}.launches.json")
-    child_env = {**os.environ, "PYTHONPATH": ROOT, **env}
+def runner_steps(steps) -> tuple[str, list]:
+    """:data:`CLI_RUNNER`'s argument for ``steps``, each ``(module, args,
+    cwd, env)``: one ``python -m module args`` after another in one
+    process, each in its cwd with its environment and its launch counts
+    written beside it → (argument, counts files)."""
+    spec, counts = [], []
+    for i, (module, args, cwd, env) in enumerate(steps):
+        os.makedirs(cwd, exist_ok=True)
+        counts.append(os.path.join(cwd, f"{module.rsplit('.', 1)[-1]}.launches.json"))
+        spec.append({"module": module, "args": list(args), "cwd": cwd, "env": env,
+                     "out": counts[-1], "mark": f"{STEP_MARK}{i}"})
+    return json.dumps(spec), counts
+
+
+def start_steps(steps, threads: int | None = None):
+    """Start the command lines ``steps`` (:func:`runner_steps`) in one child
+    process with this checkout on the path → (process, counts files, start)."""
+    arg, counts = runner_steps(steps)
+    child_env = {**os.environ, "PYTHONPATH": ROOT}
     if threads:
         child_env["OMP_NUM_THREADS"] = str(threads)
-    proc = subprocess.Popen([sys.executable, "-c", CLI_RUNNER, module, counts, *args], cwd=cwd,
+    proc = subprocess.Popen([sys.executable, "-c", CLI_RUNNER, arg], cwd=steps[0][2],
                             env=child_env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
                             text=True)
     return proc, counts, time.perf_counter()
 
 
-def finish_cli(started, what: str, timeout: float = 300.0) -> dict:
-    """Wait for a child of :func:`start_cli`; it must exit 0 → its wall
-    seconds, module seconds, launch counts and output."""
+def start_cli(module: str, args, cwd: str, threads: int | None = None, **env):
+    """Start ``python -m module args`` (through :data:`CLI_RUNNER`) in
+    ``cwd`` → (process, counts files, start)."""
+    return start_steps([(module, args, cwd, env)], threads)
+
+
+def finish_steps(started, what: str, timeout: float = 300.0) -> list:
+    """Wait for a child of :func:`start_steps`; it must exit 0 → per command
+    line its module seconds, launch counts and output, the first also the
+    child's wall seconds (its start included) and all of its errors."""
     proc, counts, t0 = started
     try:
         out, err = proc.communicate(timeout=timeout)
@@ -3553,9 +3604,20 @@ def finish_cli(started, what: str, timeout: float = 300.0) -> dict:
         raise
     wall = time.perf_counter() - t0
     check(proc.returncode == 0, f"{what} exited {proc.returncode}:\n{err[-6000:]}")
-    with open(counts) as f:
-        result = json.load(f)
-    return {**result, "wall_seconds": wall, "stdout": out, "stderr": err}
+    parts = re.split(rf"^{re.escape(STEP_MARK)}\d+\n", out, flags=re.M)[1:]
+    check(len(parts) == len(counts), f"{what}: {len(parts)} outputs for {len(counts)} steps")
+    results = []
+    for path, part in zip(counts, parts):
+        with open(path) as f:
+            results.append({**json.load(f), "stdout": part, "stderr": err})
+    results[0]["wall_seconds"] = wall
+    return results
+
+
+def finish_cli(started, what: str, timeout: float = 300.0) -> dict:
+    """:func:`finish_steps` of one command line: its wall seconds, module
+    seconds, launch counts and output."""
+    return finish_steps(started, what, timeout)[0]
 
 
 def run_cli(module: str, args, cwd: str, what: str, **env) -> dict:
@@ -3652,20 +3714,43 @@ def phase_cli(dev, smi: str, root: str) -> dict:
     ``train --config configs/InfillingRandom_training.yaml`` at the flagship
     width for a few blocks each with ``--streaming off``, ``host`` (auto
     cadence) and ``fused``, the last resumed from the off run's newest
-    ``.ckpt`` under ``TGI_PROFILE=1``; one host generation and one fused render
+    ``.ckpt`` under ``TGI_PROFILE=1``, the build and the three runs one after
+    another in one child process; one host generation and one fused render
     timed in process. All under ``root``, a temporary directory that phase 22
     goes on to use."""
     from transformergrooveinfilling_tpu_torch.data import load_processed_dataset
 
     on_dev = ["--device", dev.type]
-    card = start_cli(CLI_PROCESS, ["--experiments", "InfillingRandom", *on_dev],
-                     os.path.join(root, "card"))
+    data_dir = os.path.join(root, "card", "datasets", "InfillingRandom", "0.0.0")
+    paths = os.path.join(root, "paths.yaml")
+    with open(paths, "w") as f:
+        f.write("InfillingRandom:\n  datasets:\n" + "".join(
+            f"    {s}: {os.path.join(data_dir, s)}\n" for s in CLI_SPLITS))
+    common = ["--config", CLI_CONFIG, "--paths", paths, "--wandb", "False", "--eval_train",
+              "False", "--eval_validation", "False", "--dump_eval", "False", *on_dev]
+    # the build on the card, then training on it: off and host from fresh
+    # weights, fused resumed from the off run's newest .ckpt, its first block
+    # traced; the four command lines one after another in one child process,
+    # so one process start is paid; beside it the CPU build of the validation
+    # split
+    runs, resumed = {}, {}
+    steps = [(CLI_PROCESS, ["--experiments", "InfillingRandom", *on_dev],
+              os.path.join(root, "card"), {})]
+    modes = (("off", [], {}), ("host", ["--regen_cadence", "auto"], {}),
+             ("fused", ["--load_model", os.path.join(root, "off", "ck")], {"TGI_PROFILE": "1"}))
+    for mode, extra, env in modes:
+        cwd = os.path.join(root, mode)
+        wall = CLI_WALL_S + (CLI_TRACE_S if mode == "fused" else 0.0)
+        steps.append((CLI_TRAIN, common + extra + [
+            "--streaming", mode, "--max_wall_s", str(wall),
+            "--ckpt_dir", os.path.join(cwd, "ck")], cwd, env))
+    card = start_steps(steps)
     cpu = start_cli(CLI_PROCESS, ["--experiments", "InfillingRandom", "--splits",
                                   "validation", "--device", "cpu"],
                     os.path.join(root, "cpu"), threads=2)
-    built = finish_cli(card, "process_dataset on the card")
     cpu_built = finish_cli(cpu, "process_dataset --device cpu")
-    data_dir = os.path.join(root, "card", "datasets", "InfillingRandom", "0.0.0")
+    built, *trained = finish_steps(card, "process_dataset on the card, then train --streaming "
+                                   "off, host and fused", timeout=900.0)
     sizes = {s: len(load_processed_dataset(os.path.join(data_dir, s), "InfillingRandom"))
              for s in CLI_SPLITS}
     check(sizes == CLI_SPLITS, f"process_dataset built {sizes}")
@@ -3682,29 +3767,9 @@ def phase_cli(dev, smi: str, root: str) -> dict:
           f"64 MSO inputs from the card against the CPU route: {mso_err}")
     check(built["launches"]["device_synth"] > 0 and built["launches"]["band_energies"] > 0,
           f"process_dataset on the card launched {built['launches']}")
-
-    paths = os.path.join(root, "paths.yaml")
-    with open(paths, "w") as f:
-        f.write("InfillingRandom:\n  datasets:\n" + "".join(
-            f"    {s}: {os.path.join(data_dir, s)}\n" for s in CLI_SPLITS))
-    common = ["--config", CLI_CONFIG, "--paths", paths, "--wandb", "False", "--eval_train",
-              "False", "--eval_validation", "False", "--dump_eval", "False", *on_dev]
-    # off and host from fresh weights; fused resumed from the off run's
-    # newest .ckpt, its first block traced
-    runs, resumed = {}, {}
-    for mode, extra, env in (
-            ("off", [], {}), ("host", ["--regen_cadence", "auto"], {}),
-            ("fused", ["--load_model", os.path.join(root, "off", "ck")],
-             {"TGI_PROFILE": "1"})):
-        cwd = os.path.join(root, mode)
-        wall = CLI_WALL_S
-        if mode == "fused":
-            resumed["from_epoch"] = newest_epoch(os.path.join(root, "off", "ck"))
-            wall += CLI_TRACE_S
-        run = run_cli(CLI_TRAIN, common + extra + [
-            "--streaming", mode, "--max_wall_s", str(wall),
-            "--ckpt_dir", os.path.join(cwd, "ck")], cwd, f"train --streaming {mode}", **env)
-        _run_dir, records = run_records(cwd)
+    resumed["from_epoch"] = newest_epoch(os.path.join(root, "off", "ck"))
+    for (mode, _extra, _env), run in zip(modes, trained):
+        _run_dir, records = run_records(os.path.join(root, mode))
         losses = [r["loss"] for r in records]
         check(len(records) >= 2 and all(np.isfinite(losses)) and losses[-1] < losses[0],
               f"--streaming {mode}: losses {losses}")
@@ -3714,7 +3779,7 @@ def phase_cli(dev, smi: str, root: str) -> dict:
         if mode != "off":
             check(run["launches"]["device_synth"] > 0 and run["launches"]["band_energies"] > 0,
                   f"--streaming {mode} launched {run['launches']}")
-        runs[mode] = {"wall_seconds": run["wall_seconds"], "module_seconds": run["seconds"],
+        runs[mode] = {"module_seconds": run["seconds"],
                       "launches": run["launches"], "losses": losses,
                       "epochs": [r["epoch"] for r in records],
                       "seqs_per_sec": [r["seqs_per_sec"] for r in records],
@@ -3729,8 +3794,12 @@ def phase_cli(dev, smi: str, root: str) -> dict:
           f"the trace misses kernels: {resumed['trace']['by_name']}")
     costs = generation_costs(dev, os.path.join(data_dir, "train"))
     out = {"card": smi, "process_dataset": {
-               "items": CLI_SPLITS, "wall_seconds": built["wall_seconds"],
-               "module_seconds": built["seconds"],
+               "items": CLI_SPLITS, "module_seconds": built["seconds"],
+               # the child's wall seconds and, less its four command lines',
+               # a process's start
+               "child_wall_seconds_with_train": built["wall_seconds"],
+               "process_start_seconds": built["wall_seconds"] - built["seconds"]
+               - sum(run["seconds"] for run in trained),
                "items_per_s": sum(CLI_SPLITS.values()) / built["seconds"],
                "launches": {k: built["launches"][k] for k in ("device_synth", "band_energies")},
                "cpu_validation_wall_seconds": cpu_built["wall_seconds"],
@@ -3780,8 +3849,9 @@ def media_of(run_dir: str, records: list, epoch: int, ident: str) -> dict:
 
 
 def phase_eval(dev, smi: str, root: str) -> dict:
-    """22. evaluation on the card, at the flagship width, nothing cut, each
-    command line in a child process, on phase 21's datasets under ``root``:
+    """22. evaluation on the card, at the flagship width, nothing cut, the
+    command lines in child processes ((a)'s card build and (b) one after the
+    other in one), on phase 21's datasets under ``root``:
     (a) ``process_evaluator --experiments InfillingRandom --splits train
     validation`` on the card (#6, #7), beside the validation evaluator built
     with ``--device cpu``: tags, indices and GT arrays bit for bit, MSO inputs
@@ -3802,7 +3872,7 @@ def phase_eval(dev, smi: str, root: str) -> dict:
     that makes 5 % of the cells hits, velocities and offsets within 1e-4; (d) in process, the seconds and launches of a scalar-only
     eval pass over both sets (``train/driver.py::_make_eval_pass`` and one
     fetch of each packed result) and of a media pass (``log_eval`` of both
-    sets, rendering inline)."""
+    sets, rendering inline), once."""
     from transformergrooveinfilling_tpu_torch.eval.evaluator import init_evaluator, log_eval
     from transformergrooveinfilling_tpu_torch.train.driver import ModelBundle, _make_eval_pass
 
@@ -3814,14 +3884,21 @@ def phase_eval(dev, smi: str, root: str) -> dict:
                 + "".join(f"    {s}: {os.path.join(data_dir, s)}\n" for s in CLI_SPLITS)
                 + "  evaluators:\n"
                 + "".join(f"    {s}: {evaluator_pickle(card_cwd, s)}\n" for s in EVAL_SPLITS))
-    # (a) the evaluators, on the card and (validation) on the CPU
-    card = start_cli(CLI_PROCESS_EVALUATOR, ["--experiments", "InfillingRandom", "--splits",
-                                             *EVAL_SPLITS, "--paths", paths], card_cwd)
+    # (a) the evaluators on the card, then (b) training with both of them,
+    # the evaluator flags at their defaults, one after the other in one child
+    # process; beside it the validation evaluator built on the CPU
+    train_cwd = os.path.join(root, "eval_train")
+    card = start_steps([
+        (CLI_PROCESS_EVALUATOR, ["--experiments", "InfillingRandom", "--splits", *EVAL_SPLITS,
+                                 "--paths", paths], card_cwd, {}),
+        (CLI_TRAIN, ["--config", CLI_CONFIG, "--paths", paths, "--wandb", "False",
+                     "--max_wall_s", str(EVAL_WALL_S), "--ckpt_dir",
+                     os.path.join(train_cwd, "ck"), "--device", dev.type], train_cwd, {})])
     cpu = start_cli(CLI_PROCESS_EVALUATOR, ["--experiments", "InfillingRandom", "--splits",
                                             "validation", "--paths", paths, "--device", "cpu"],
                     cpu_cwd, threads=2)
-    built = finish_cli(card, "process_evaluator on the card")
     cpu_built = finish_cli(cpu, "process_evaluator --device cpu")
+    built, run = finish_steps(card, "process_evaluator on the card, then train with evaluators")
     evs = {s: init_evaluator(evaluator_pickle(card_cwd, s), device=dev) for s in EVAL_SPLITS}
     on_cpu = init_evaluator(evaluator_pickle(cpu_cwd, "validation"), device="cpu")
     on_card = evs["validation"]
@@ -3856,12 +3933,7 @@ def phase_eval(dev, smi: str, root: str) -> dict:
     check(built["launches"]["device_synth"] > 0 and built["launches"]["band_energies"] > 0,
           f"process_evaluator on the card launched {built['launches']}")
 
-    # (b) training with both evaluators, the eval flags at their defaults
-    train_cwd = os.path.join(root, "eval_train")
-    run = run_cli(CLI_TRAIN, ["--config", CLI_CONFIG, "--paths", paths, "--wandb", "False",
-                              "--max_wall_s", str(EVAL_WALL_S), "--ckpt_dir",
-                              os.path.join(train_cwd, "ck"), "--device", dev.type],
-                  train_cwd, "train with evaluators")
+    # (b) training with both evaluators
     check(EVAL_MEDIA_FAILED not in run["stdout"],
           "the media worker held errors:\n" + "\n".join(
               line for line in run["stdout"].splitlines() if EVAL_MEDIA_FAILED in line))
@@ -3957,7 +4029,7 @@ def phase_eval(dev, smi: str, root: str) -> dict:
     media_passes = []
     xlog.init(config={}, project="chip_smoke_media", run_dir=os.path.join(root, "media_pass"))
     try:
-        for _ in range(2):
+        for _ in range(1):
             MHA.launches = 0
             t0 = time.perf_counter()
             for s, ev in evs.items():
@@ -3970,13 +4042,13 @@ def phase_eval(dev, smi: str, root: str) -> dict:
     check(all(p["launches"] == 6 * len(evs) for p in media_passes), f"media pass {media_passes}")
     out = {"card": smi,
            "process_evaluator": {
-               "rows": rows, "wall_seconds": built["wall_seconds"],
+               "rows": rows, "child_wall_seconds_with_train": built["wall_seconds"],
                "module_seconds": built["seconds"],
                "launches": {k: built["launches"][k] for k in ("device_synth", "band_energies")},
                "cpu_validation_wall_seconds": cpu_built["wall_seconds"],
                "mso_max_abs_err_vs_cpu": mso_err,
                "mso_rows_held_to_the_device_route": int(moved.size)},
-           "train": {"wall_seconds": run["wall_seconds"], "module_seconds": run["seconds"],
+           "train": {"module_seconds": run["seconds"],
                      "launches": run["launches"], "epochs": [r["epoch"] for r in blocks],
                      "evaluated": evaluated, "media_epochs": media_epochs, "losses": losses,
                      "validation_loss": [r["validation_loss"] for r in blocks],
@@ -4003,12 +4075,12 @@ def phase_eval(dev, smi: str, root: str) -> dict:
 
 
 # phase 23: MIDI in and out, and SoundFont kits through #6 and #7
-MIDI_SPLITS = {"train": 330, "test": 110, "validation": 110}  # loops of the archive
+MIDI_SPLITS = {"train": 165, "test": 55, "validation": 55}  # loops of the archive
 MIDI_SEEDS = {"train": 100, "test": 200, "validation": 300}
 KIT_MS = (1, 64, 256)  # #6 on the three-kit table
 KIT_MSO_ITEMS = 32
-KIT_TRAIN_BLOCKS = 3
-KIT_LATENCY_REQUESTS = 200
+KIT_TRAIN_BLOCKS = 2
+KIT_LATENCY_REQUESTS = 100
 
 
 def cents(hz: float) -> int:
@@ -4199,18 +4271,7 @@ def phase_midi_sf2(dev, smi: str, root: str, srv, sd) -> dict:
     with open(params_json, "w") as f:
         json.dump({"InfillingRandom": {"sf_path": os.path.join(root, "kits")}}, f)
     cwd = os.path.join(root, "run")
-    built = run_cli(CLI_PROCESS, ["--experiments", "InfillingRandom", "--source",
-                                  os.path.join(root, "tree"), "--params-json", params_json,
-                                  "--device", dev.type], cwd, "process_dataset --source <tree>")
     data_dir = os.path.join(cwd, "datasets", "InfillingRandom", "0.0.0")
-    sizes = {split: len(load_processed_dataset(os.path.join(data_dir, split), "InfillingRandom"))
-             for split in MIDI_SPLITS}
-    check(sizes == {k: 10 * v for k, v in MIDI_SPLITS.items()}, f"process_dataset built {sizes}")
-    train_set = load_processed_dataset(os.path.join(data_dir, "train"), "InfillingRandom")
-    check(set(train_set.soundfonts) == set(kits), f"the items drew {set(train_set.soundfonts)}")
-    check(bool(np.isfinite(train_set.processed_inputs).all()), "non-finite MSO inputs")
-    check(built["launches"]["device_synth"] > 0 and built["launches"]["band_energies"] > 0,
-          f"process_dataset launched {built['launches']}")
     paths, config = os.path.join(root, "paths.yaml"), os.path.join(root, "config.yaml")
     with open(paths, "w") as f:
         f.write("InfillingRandom:\n  datasets:\n" + "".join(
@@ -4220,11 +4281,24 @@ def phase_midi_sf2(dev, smi: str, root: str, srv, sd) -> dict:
     check("epochs: 500\n" in yaml_text, "the flagship YAML no longer says epochs: 500")
     with open(config, "w") as f:
         f.write(yaml_text.replace("epochs: 500\n", f"epochs: {KIT_TRAIN_BLOCKS}\n"))
-    trained = run_cli(CLI_TRAIN, ["--config", config, "--paths", paths, "--wandb", "False",
-                                  "--eval_train", "False", "--eval_validation", "False",
-                                  "--dump_eval", "False", "--streaming", "fused",
-                                  "--device", dev.type, "--ckpt_dir", os.path.join(cwd, "ck")],
-                      cwd, "train --streaming fused on the kits")
+    # the two command lines one after the other in one child process
+    built, trained = finish_steps(start_steps([
+        (CLI_PROCESS, ["--experiments", "InfillingRandom", "--source",
+                       os.path.join(root, "tree"), "--params-json", params_json,
+                       "--device", dev.type], cwd, {}),
+        (CLI_TRAIN, ["--config", config, "--paths", paths, "--wandb", "False",
+                     "--eval_train", "False", "--eval_validation", "False",
+                     "--dump_eval", "False", "--streaming", "fused", "--device", dev.type,
+                     "--ckpt_dir", os.path.join(cwd, "ck")], cwd, {})]),
+        "process_dataset --source <tree>, then train --streaming fused on the kits")
+    sizes = {split: len(load_processed_dataset(os.path.join(data_dir, split), "InfillingRandom"))
+             for split in MIDI_SPLITS}
+    check(sizes == {k: 10 * v for k, v in MIDI_SPLITS.items()}, f"process_dataset built {sizes}")
+    train_set = load_processed_dataset(os.path.join(data_dir, "train"), "InfillingRandom")
+    check(set(train_set.soundfonts) == set(kits), f"the items drew {set(train_set.soundfonts)}")
+    check(bool(np.isfinite(train_set.processed_inputs).all()), "non-finite MSO inputs")
+    check(built["launches"]["device_synth"] > 0 and built["launches"]["band_energies"] > 0,
+          f"process_dataset launched {built['launches']}")
     _run_dir, records = run_records(cwd)
     losses = [r["loss"] for r in records]
     check(len(records) == KIT_TRAIN_BLOCKS and all(np.isfinite(losses))
@@ -4300,12 +4374,12 @@ def phase_midi_sf2(dev, smi: str, root: str, srv, sd) -> dict:
                 "launches": mso_launches},
         "archive": {"files": n_files, "seconds": archive_s},
         "tree": {"counts": counts, "seconds": tree_s},
-        "process_dataset": {"items": sizes, "wall_seconds": built["wall_seconds"],
-                            "module_seconds": built["seconds"],
+        "process_dataset": {"items": sizes, "module_seconds": built["seconds"],
+                            "child_wall_seconds_with_train": built["wall_seconds"],
                             "items_per_s": sum(sizes.values()) / built["seconds"],
                             "launches": {k: built["launches"][k]
                                          for k in ("device_synth", "band_energies")}},
-        "train": {"wall_seconds": trained["wall_seconds"], "module_seconds": trained["seconds"],
+        "train": {"module_seconds": trained["seconds"],
                   "launches": trained["launches"], "losses": losses,
                   "seqs_per_sec": [r["seqs_per_sec"] for r in records],
                   "epoch_time_s": [r["epoch_time_s"] for r in records]},
@@ -4318,7 +4392,7 @@ def phase_midi_sf2(dev, smi: str, root: str, srv, sd) -> dict:
 
 
 # phase 24: serving artifacts (export.py) on the card
-ARTIFACT_REQUESTS = 100  # B = 1 requests a latency run
+ARTIFACT_REQUESTS = 50  # B = 1 requests a latency run
 CLI_SERVE = "transformergrooveinfilling_tpu_torch.serve"
 CLI_TUTORIAL = "transformergrooveinfilling_tpu_torch.tutorial"
 
@@ -4540,8 +4614,8 @@ tutorial`` on the card, #1, #6 and #7 launched; (d) B = 1 in-process
 SWEEP_CONFIG = os.path.join(ROOT, "configs", "InfillingRandom_sweep.yaml")
 CLI_SWEEP = "transformergrooveinfilling_tpu_torch.sweep"
 SWEEP_TRIALS = 8  # K of the in-process group
-SWEEP_EPOCHS = 2
-SWEEP_THROUGHPUT_STEPS = 20  # steps a throughput turn (batch 32)
+SWEEP_EPOCHS = 1
+SWEEP_THROUGHPUT_STEPS = 10  # steps a throughput turn (batch 32)
 SWEEP_KS = (1, 2, 4, 5, 8)
 # --count of the batched command lines: the pinned one a group that vmaps
 # (sweep.VMAP_MIN_TRIALS), both within the 5 ranked lines a sweep prints
@@ -4572,8 +4646,8 @@ def phase_sweep(dev, smi: str, root: str) -> dict:
     process, one group of 8 trials at the flagship width (batch 32, the
     flagship's resolved dtype, the whole-layer kernels off as in any batched
     group) with learning rate, hit-loss penalty and dropout drawn from
-    configs/InfillingRandom_sweep.yaml (seed 0; trial 0's lr set to 0), 2
-    SGD epochs on the 3,300-item train split through
+    configs/InfillingRandom_sweep.yaml (seed 0; trial 0's lr set to 0), 1
+    SGD epoch on the 3,300-item train split through
     ``make_batched_sweep_fn``: losses finite and distinct, the lr-0 trial's
     weights bit for bit; (b) ``stacked_eval_loss`` over the whole set: #1
     launched 6 times a stacked forward for the 8 trials (its vmap rule folds
@@ -4594,7 +4668,7 @@ def phase_sweep(dev, smi: str, root: str) -> dict:
     run beside (a) and (b), whose seconds are therefore the card shared;
     (d), timed after they end, the card to itself: the ranking forward, the
     folded call at K 8 × B 3,300 in bf16 beside SDPA on the folded views,
-    and trial·seqs/s of the vmapped step at K 1, 2, 4, 5 and 8 (20 steps of
+    and trial·seqs/s of the vmapped step at K 1, 2, 4, 5 and 8 (10 steps of
     batch 32 a turn, launches a step) beside one trial through
     ``make_epoch_fn`` with the flagship's auto switches (#2's bf16 chain)."""
     import glob
@@ -4837,12 +4911,15 @@ PARALLEL_GROUPS = {  # group → (ranks, the environment names it starts with, i
     "de": (4, "torchrun", ("d", "e"))}
 DP_BAR = SM90_BAR[torch.bfloat16]  # bf16: 2e-2 · max (the chain's bar, phases 8 and 9)
 TP_FWD_BAR, TP_SGD_BAR, PPTP_FWD_BAR = 1e-5, 5e-5, 2e-5
-GROOVEXL = GrooveTransformerConfig(  # phase 19's width, fused_ffn given (auto leaves it off)
-    d_model=1024, n_heads=8, dim_feedforward=4096, dropout=0.1, num_encoder_layers=12,
+# phase 19's width, fused_ffn given (auto leaves it off); 4 of its 12 layers,
+# 2 a pipeline stage (each rank initialises its model on the host)
+GROOVEXL = GrooveTransformerConfig(
+    d_model=1024, n_heads=8, dim_feedforward=4096, dropout=0.1, num_encoder_layers=4,
     embedding_size_src=16, compute_dtype=torch.bfloat16, use_fused_attention=True,
     fused_ffn=True)
 PARALLEL_KERNELS = {"fused_mha": attention.KERNEL, **fl.SM90_KERNELS, **ffn.KERNELS}
-PARALLEL_CLI_WALL_S = 4.0  # --max_wall_s of each command line of leg (f)
+PARALLEL_CLI_WALL_S = 2.0  # --max_wall_s of each command line of leg (f)
+PARALLEL_EPOCHS = 2  # epochs of leg (a)
 
 
 def rank_launches() -> dict:
@@ -4891,11 +4968,11 @@ def timed_on(dev, fn):
 
 def leg_a(dev, plan_of) -> dict:
     """(a) one rank over NCCL: ``run_training(plan=make_mesh())`` bit for bit
-    as ``plan=None`` (flagship, bf16, batch 32, 3 epochs, #2's chain)."""
+    as ``plan=None`` (flagship, bf16, batch 32, 2 epochs, #2's chain)."""
     plan = plan_of("mesh")
     check(plan.backend == "nccl" and plan.transport == "device",
           f"one rank ran {plan.backend}/{plan.transport}")
-    hp = HyperParams.from_dict(dict(FLAGSHIP_HP, epochs=3))
+    hp = HyperParams.from_dict(dict(FLAGSHIP_HP, epochs=PARALLEL_EPOCHS))
     data, out, states = Loops(PARALLEL_N, 26), {}, {}
     with tempfile.TemporaryDirectory(prefix="chip_smoke_leg_a_") as tmp:
         for which, kw in (("plain", {}), ("plan", {"plan": plan})):
@@ -4905,7 +4982,7 @@ def leg_a(dev, plan_of) -> dict:
                 log_media=False, **kw))
             states[which] = bundle.model.state_dict()
             out[which] = {"seconds": secs, "launches": rank_launches(),
-                          "seqs_per_s_per_rank": PARALLEL_N * 3 / secs}
+                          "seqs_per_s_per_rank": PARALLEL_N * PARALLEL_EPOCHS / secs}
     a, b = states["plain"], states["plan"]
     check(all(torch.equal(a[k], b[k]) for k in a), "plan=make_mesh() differs from plan=None")
     check(all(out["plan"]["launches"].get(k, 0) > 0 for k in fl.SM90_KERNELS),
@@ -5197,9 +5274,9 @@ def parallel_cli(dev, smi: str, root: str) -> dict:
                 "--max_wall_s", str(PARALLEL_CLI_WALL_S), "--ckpt_dir", os.path.join(base, "ck"),
                 *flags]
         started[mode] = (time.perf_counter(), start_group(
-            lambda r, base=base, args=args: [sys.executable, "-c", CLI_RUNNER, CLI_TRAIN,
-                                             os.path.join(base, f"rank{r}", "counts.json"),
-                                             *args],
+            lambda r, base=base, args=args: [
+                sys.executable, "-c", CLI_RUNNER,
+                runner_steps([(CLI_TRAIN, args, os.path.join(base, f"rank{r}"), {})])[0]],
             2, names, lambda r, base=base: os.path.join(base, f"rank{r}")))
     for mode, flags, names in modes:
         base = os.path.join(root, f"parallel_{mode}")
@@ -5207,7 +5284,7 @@ def parallel_cli(dev, smi: str, root: str) -> dict:
         finish_group(procs, f"train {flags}")
         rows = []
         for r in range(2):
-            with open(os.path.join(base, f"rank{r}", "counts.json")) as f:
+            with open(os.path.join(base, f"rank{r}", "train.launches.json")) as f:
                 counts = json.load(f)
             _d, records = run_records(os.path.join(base, f"rank{r}"))
             losses = [rec["loss"] for rec in records if "loss" in rec]
@@ -5395,16 +5472,14 @@ def vmap_op_check(dev, name, trials, dys, call, kernels, plain, dtype) -> dict:
 
 def vmap_group_configs(dev, name: str, hp_dict: dict):
     """(b)'s group ``name``: its hyperparameters, the config ``sweep.py``
-    gives its batched group (the forced switches kept, remat off, checked)
-    and the same config with every kernel switch off."""
+    gives its batched group of 8 (the forced switches kept, auto remat off,
+    checked) and the same config with every kernel switch off."""
     from transformergrooveinfilling_tpu_torch import sweep
 
     hp = HyperParams.from_dict(hp_dict)
-    config = sweep.batched_config(hp, hp_dict, dev)
     k_max = max(VMAP_GROUP_KS)
-    check(sweep.remat_chunk(hp, config, k_max, dev) == k_max,
-          f"{name}: {k_max} stacked trials would need remat")
-    config = dataclasses.replace(config, remat=False)
+    config = sweep.batched_config(hp, hp_dict, dev, k_max)
+    check(not config.remat, f"{name}: auto remat engages for {k_max} stacked trials")
     forced = {s: getattr(config, s) for s in transformer.KERNEL_SWITCHES}
     check(all(forced[s] == bool(hp_dict.get(s)) for s in forced) and config.dropout == VMAP_RATE,
           f"{name}: the group's config {config}")
@@ -5633,6 +5708,226 @@ def phase_vmap_kernels(dev, rng, smi: str, root: str) -> dict:
     return out
 
 
+# phase 28: remat inside a batched sweep: each layer through the recompute
+# that runs under torch.func (models/transformer.py::_LayerRemat)
+REMAT_XL_HP = {  # scripts/bench_groovexl_ffn.py's model, as a sweep's trial
+    "experiment": "InfillingRandom", "batch_size": 128, "d_model": 1024,
+    "dim_feedforward": 4096, "dropout": 0.1, "optimizer_algorithm": "sgd",
+    "learning_rate": 0.003, "n_heads": 8, "num_encoder_decoder_layers": 12,
+    "epochs": 1, "encoder_only": 1, "hit_loss_penalty": 0.73,
+}
+REMAT_XL_K = 8  # trials of (a)
+REMAT_KERNEL_K = 5  # trials of (b)
+REMAT_STEPS = 3  # steps a group of (a) and (b) is timed or compared over
+REMAT_WAYS = {"off": dict(remat=False), "remat": dict(remat=True, remat_policy=None),
+              "dots": dict(remat=True, remat_policy="dots")}
+# the forward launches of #2-#5, which the recompute runs again
+FORWARD_LAUNCHES = (*list(fl.SM90_KERNELS)[:N_FWD[fl]], *list(fdl.SM90_KERNELS)[:N_FWD[fdl]],
+                    "fused_ffn_fwd_h", "fused_ffn_fwd_out", "fused_ln_fwd")
+REMAT_CLI_PINNED = dict(SWEEP_PINNED, epochs=1)
+
+
+def remat_groovexl(dev, x, y) -> dict:
+    """(a): a K 8 GrooveXL group (``batched_config`` of :data:`REMAT_XL_HP`,
+    bf16, rate 0.1, SGD) three ways, remat off, ``remat=1`` (policy None)
+    and ``"dots"``, from one init: each way's peak allocated bytes over one
+    step (reset before it), trial·seqs/s over 3 steps after it, and its
+    final stacked parameters and losses against remat off, bit for bit."""
+    from transformergrooveinfilling_tpu_torch import sweep
+    from transformergrooveinfilling_tpu_torch.train import vmap_sweep
+
+    hp = HyperParams.from_dict(REMAT_XL_HP)
+    config = sweep.batched_config(hp, REMAT_XL_HP, dev, REMAT_XL_K)
+    auto = {f"K{k}": sweep.batched_config(hp, REMAT_XL_HP, dev, k).remat for k in (8, 16)}
+    b, k = hp.batch_size, REMAT_XL_K
+    check(config.compute_dtype == torch.bfloat16 and not config.fused_ffn
+          and not config.fused_layer and config.dropout == 0.1,
+          f"GrooveXL's batched config {config}")
+    on = functools.partial(torch.tensor, dtype=torch.float32, device=dev)
+    lrs = on([hp.learning_rate * f for f in (0.5, 0.75, 1.0, 1.25, 1.5, 0.6, 0.9, 1.1)])
+    pens, rates = on(VMAP_PENS[:k]), on([hp.dropout] * k)
+    bundle = types.SimpleNamespace(model=build_model(config, dev), config=config)
+    # one initialisation for every trial (a GrooveXL init is 151 M draws on
+    # the host); the trials differ in lr, penalty and dropout masks
+    init = {name: p.detach().expand(k, *p.shape).clone()
+            for name, p in bundle.model.named_parameters()}
+    out, final = {"K": k, "batch": b, "auto_remat": auto}, {}
+    for way, switches in REMAT_WAYS.items():
+        reconfigure(bundle, **switches)
+        model = bundle.model
+
+        def sweep_fn(n_samples):
+            return vmap_sweep.make_batched_sweep_fn(model, b, n_samples, 1, config=bundle.config,
+                                                    rates_as_data=False)
+
+        torch.cuda.synchronize()
+        resident = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        params, _ = sweep_fn(b)(init, (), lrs, pens, rates, x[:b], y[:b],
+                                torch.Generator(dev).manual_seed(2))
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated(dev)
+        del params
+        n = b * REMAT_STEPS
+        t0 = time.perf_counter()
+        params, last = sweep_fn(n)(init, (), lrs, pens, rates, x[:n], y[:n],
+                                   torch.Generator(dev).manual_seed(3))
+        last = last.tolist()
+        s = time.perf_counter() - t0
+        check(all(np.isfinite(last)) and len(set(last)) == k, f"GrooveXL {way}: losses {last}")
+        # remat off's result waits on the host, so every way starts from the
+        # same resident bytes
+        host = {p: v.cpu() for p, v in params.items()}
+        del params
+        if way == "off":
+            final = {"params": host, "last": last}
+            bitwise = None
+        else:
+            bitwise = last == final["last"] and all(
+                torch.equal(host[p], final["params"][p]) for p in host)
+            check(bitwise, f"GrooveXL K {k} {way}: parameters or losses differ from remat off")
+        del host
+        out[way] = {"peak_bytes": peak, "resident_bytes": resident,
+                    "step_bytes": peak - resident, "seconds": s,
+                    "trial_seqs_per_s": k * n / s, "last_batch_losses": last,
+                    "bitwise_against_off": bitwise}
+    del final, init, bundle
+    torch.cuda.empty_cache()
+    check(out["remat"]["peak_bytes"] < out["off"]["peak_bytes"]
+          and out["dots"]["peak_bytes"] < out["off"]["peak_bytes"],
+          f"GrooveXL K {k}: peak bytes {[out[w]['peak_bytes'] for w in REMAT_WAYS]}")
+    return out
+
+
+def remat_kernel_group(dev, name: str, hp_dict: dict, kernels: dict, x, y) -> dict:
+    """(b) for one of phase 27's groups: K 5 with its switches forced, 3
+    steps of batch 32 with remat off and with ``remat=1`` from one init: the
+    stacked parameters and losses bit for bit, and under remat each forward
+    launch twice a layer and trial (the recompute), each backward launch
+    once, counted by the wrappers."""
+    from transformergrooveinfilling_tpu_torch.train import vmap_sweep
+
+    hp, config, _plain = vmap_group_configs(dev, name, hp_dict)
+    k, b = REMAT_KERNEL_K, hp.batch_size
+    n = b * REMAT_STEPS
+    on = functools.partial(torch.tensor, dtype=torch.float32, device=dev)
+    bundle = types.SimpleNamespace(model=build_model(config, dev), config=config)
+    init = vmap_sweep.init_stacked_params(bundle.model, config, k,
+                                          torch.Generator().manual_seed(5), dev)
+    runs = {}
+    for way in ("off", "remat"):
+        reconfigure(bundle, remat=way == "remat")
+        fn = vmap_sweep.make_batched_sweep_fn(bundle.model, b, n, 1,
+                                              encoder_only=config.encoder_only,
+                                              config=bundle.config, rates_as_data=False)
+        for f in kernels.values():
+            f.launches = 0
+        params, last = fn(init, (), on(VMAP_LRS[:k]), on(VMAP_PENS[:k]), on([VMAP_RATE] * k),
+                          x[:n], y[:n], torch.Generator(dev).manual_seed(3))
+        last = last.tolist()
+        check(all(np.isfinite(last)), f"{name} {way}: losses {last}")
+        runs[way] = (params, last, launches(kernels))
+    (p_off, l_off, n_off), (p_on, l_on, n_on) = runs["off"], runs["remat"]
+    bitwise = l_off == l_on and all(torch.equal(p_off[p], p_on[p]) for p in p_off)
+    check(bitwise, f"{name} K {k}: remat's parameters or losses differ from remat off")
+    want = {kn: c * (2 if kn in FORWARD_LAUNCHES else 1) for kn, c in n_off.items()}
+    check(all(n_off.values()) and n_on == want,
+          f"{name} K {k}: launches under remat {n_on}, without {n_off}")
+    return {"K": k, "steps": REMAT_STEPS, "bitwise": bitwise, "last_batch_losses": l_on,
+            "off": {"launches_per_step": {kn: c / REMAT_STEPS for kn, c in n_off.items()}},
+            "remat": {"launches_per_step": {kn: c / REMAT_STEPS for kn, c in n_on.items()}}}
+
+
+def phase_vmap_remat(dev, smi: str, root: str) -> dict:
+    """28. Remat inside a batched sweep, each layer recomputed in the
+    backward under ``torch.func`` (``models/transformer.py::_LayerRemat``):
+    (c) first, in child processes beside (b), ``python -m
+    transformergrooveinfilling_tpu_torch.sweep --batched --count 5 --epochs
+    1`` at the flagship's architecture on phase 21's datasets, once with
+    ``remat: 1`` pinned and once with remat unset and ``TGI_HBM_BYTES`` set
+    so that the auto-remat estimate engages for 5 stacked trials and not for
+    one: each one vmapped group of 5 under remat, every trial ranked, #1
+    launched 6 times (the one ranking forward); (b) phase 27's three groups
+    (#2 flagship, #2 + #3 6 + 6, #4 + #5 lm config) at K 5, rate 0.30, 3
+    steps with and without ``remat=1`` (``remat_kernel_group``); (a), the
+    card to itself once the children end, GrooveXL at K 8 without remat,
+    with ``remat=1`` and with ``"dots"`` (``remat_groovexl``)."""
+    from transformergrooveinfilling_tpu_torch import sweep
+    from transformergrooveinfilling_tpu_torch.data import load_processed_dataset
+    from transformergrooveinfilling_tpu_torch.train.config import resolve_remat
+
+    t_phase = time.perf_counter()
+    seconds = {}
+    cwd = os.path.join(root, "vmap_remat")
+    os.makedirs(cwd, exist_ok=True)
+    hp = HyperParams.from_dict(FLAGSHIP_HP)
+    dtype = sweep.batched_config(hp, FLAGSHIP_HP, dev).compute_dtype
+
+    def needs(n: int, hbm: int) -> bool:
+        return resolve_remat(None, d_model=hp.d_model, n_heads=hp.n_heads,
+                             dim_feedforward=hp.dim_feedforward,
+                             n_layers=hp.num_encoder_decoder_layers, optimizer="sgd",
+                             batch_size=hp.batch_size, n_replicas=n, compute_dtype=dtype,
+                             hbm_bytes=hbm)
+
+    lo, hi = 1, 1 << 40  # the least memory that holds one trial without remat
+    while lo < hi:
+        mid = (lo + hi) // 2
+        lo, hi = (mid + 1, hi) if needs(1, mid) else (lo, mid)
+    hbm = 3 * lo
+    check(needs(5, hbm) and not needs(1, hbm), f"TGI_HBM_BYTES={hbm} for 5 trials and 1")
+    paths = os.path.join(root, "paths.yaml")
+    started = {}
+    for mode, pinned, env in (("given", dict(REMAT_CLI_PINNED, remat=1), {}),
+                              ("auto", REMAT_CLI_PINNED, {"TGI_HBM_BYTES": str(hbm)})):
+        path = os.path.join(cwd, f"{mode}_sweep.yaml")
+        sweep_file(path, "loss", **pinned)
+        started[mode] = start_cli(CLI_SWEEP, ["--sweep", path, "--count", "5", "--batched",
+                                              "--epochs", "1", "--paths", paths],
+                                  os.path.join(cwd, mode), **env)
+
+    data = load_processed_dataset(os.path.join(root, "card", "datasets", "InfillingRandom",
+                                               "0.0.0", "train"), "InfillingRandom")
+    x = torch.as_tensor(data.processed_inputs[:REMAT_XL_HP["batch_size"] * REMAT_STEPS],
+                        dtype=torch.float32, device=dev)
+    y = torch.as_tensor(data.processed_outputs[:REMAT_XL_HP["batch_size"] * REMAT_STEPS],
+                        dtype=torch.float32, device=dev)
+    t0 = time.perf_counter()
+    groups = {name: remat_kernel_group(dev, name, hp_dict, kernels, x, y)
+              for name, (hp_dict, kernels) in VMAP_GROUPS.items()}
+    seconds["b"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    cli = {}
+    for mode, proc in started.items():
+        run = finish_cli(proc, f"sweep --batched, remat {mode}")
+        printed = [line for line in run["stdout"].splitlines()
+                   if line.startswith(("batched sweep", "--- group", "  loss ", "    "))]
+        said = ("(policy None; given)" if mode == "given"
+                else "(policy None; auto, 5 stacked trials)")
+        check("trial failed" not in run["stdout"]
+              and any("5 trials in 1 architecture group(s)" in line for line in printed)
+              and any(f"one vmapped program under remat {said}" in line for line in printed)
+              and sum(line.startswith("  loss ") for line in printed) == 5
+              and not any("through the regular step" in line for line in printed),
+              f"sweep --batched, remat {mode}, printed {printed}")
+        check(run["launches"]["fused_mha"] == FLAGSHIP.num_encoder_layers,
+              f"sweep --batched, remat {mode}: #1 launched {run['launches']['fused_mha']} "
+              "times, not once a layer for the group's one ranking forward")
+        cli[mode] = {"printed": printed, "launches": run["launches"],
+                     "wall_seconds": run["wall_seconds"], "module_seconds": run["seconds"]}
+    cli["auto"]["TGI_HBM_BYTES"] = hbm
+    seconds["c_wait"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()  # the card is (a)'s alone from here
+    xl = remat_groovexl(dev, x, y)
+    seconds["a"] = time.perf_counter() - t0
+    out = {"card": smi, "groovexl": xl, "groups": groups, "cli": cli,
+           "seconds": {**seconds, "phase": time.perf_counter() - t_phase}}
+    emit({"phase": "vmap_remat", **out})
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -5682,6 +5977,7 @@ def main() -> int:
         swept = timed_phase(phase_sweep, dev, smi, cli_root)
         par = timed_phase(phase_parallel, dev, smi, cli_root)
         vk = timed_phase(phase_vmap_kernels, dev, rng, smi, cli_root)
+        vr = timed_phase(phase_vmap_remat, dev, smi, cli_root)
     emit({"phase_seconds": took})
 
     def per_rank(group: str, leg: str, *keys) -> list:
@@ -5762,6 +6058,9 @@ def main() -> int:
                 f"{g}_K{k}": vk["groups"][g][f"K{k}"]["launches_per_step"][kname]
                 for g, (_, counters) in VMAP_GROUPS.items() if kname in counters
                 for k in VMAP_GROUP_KS}
+            out["launches_per_batched_remat_step"] = {
+                f"{g}_K{REMAT_KERNEL_K}": vr["groups"][g]["remat"]["launches_per_step"][kname]
+                for g, (_, counters) in VMAP_GROUPS.items() if kname in counters}
         if kname in vk["cli"]["launches"] and switch == "fused_layer" and dname == "bfloat16":
             out["launches_sweep_cli_fused_layer"] = vk["cli"]["launches"][kname]
         return out

@@ -1279,3 +1279,47 @@ def test_training_kernels_under_vmap_equal_unbatched_launches(cuda, kernel, dtyp
         assert f.launches - mid[n] == mid[n] - before[n], n
     assert sum(mid.values()) - sum(before.values()) >= 3 * 2
     assert_equal(grads, outs, want)
+
+
+@pytest.mark.cuda
+def test_flagship_group_with_fused_layer_under_remat_equals_the_group_without(cuda, rng):
+    """A K 3 group at the flagship width (d 256, 2 heads, ff 512, 6 layers,
+    bf16, rate 0.3) with ``fused_layer`` forced, 2 steps of batch 32 through
+    ``make_batched_sweep_fn`` with ``remat=1`` and without: stacked
+    parameters and losses bit for bit, and #2's forward launches twice a
+    layer and trial under remat (the recompute), its backward launches once."""
+    from transformergrooveinfilling_tpu_torch.train import vmap_sweep
+
+    k, b, steps = 3, 32, 2
+    cfg = GrooveTransformerConfig(d_model=256, n_heads=2, dim_feedforward=512, dropout=0.3,
+                                  num_encoder_layers=6, embedding_size_src=16,
+                                  compute_dtype=torch.bfloat16, fused_layer=True)
+    x = torch.from_numpy(rng.standard_normal((steps * b, 32, 16)).astype(np.float32)).to(cuda)
+    h = (rng.random((steps * b, 32, 9)) < 0.3).astype(np.float32)
+    y = torch.from_numpy(np.concatenate([h, h * rng.random(h.shape),
+                                         h * (rng.random(h.shape) - 0.5)], -1)).to(cuda)
+    init = None
+    runs = {}
+    for remat in (False, True):
+        config = dataclasses.replace(cfg, remat=remat)
+        model = build_model(config, cuda)
+        if init is None:
+            init = vmap_sweep.init_stacked_params(model, config, k, torch.Generator().manual_seed(0),
+                                                  cuda)
+        fn = vmap_sweep.make_batched_sweep_fn(model, b, steps * b, 1, config=config,
+                                              rates_as_data=False)
+        on = dict(dtype=torch.float32, device=cuda)
+        before = {n: f.launches for n, f in fused_layer.SM90_KERNELS.items()}
+        params, losses = fn(init, (), torch.tensor([0.05, 0.089, 0.1], **on),
+                            torch.tensor([0.73, 0.5, 0.9], **on), torch.tensor([0.3] * k, **on),
+                            x, y, torch.Generator(cuda).manual_seed(1))
+        torch.cuda.synchronize()
+        runs[remat] = (params, losses, {n: f.launches - before[n]
+                                        for n, f in fused_layer.SM90_KERNELS.items()})
+    (p0, l0, n0), (p1, l1, n1) = runs[False], runs[True]
+    assert torch.equal(l0, l1)
+    for name in p0:
+        assert torch.equal(p0[name], p1[name]), name
+    forward = list(fused_layer.SM90_KERNELS)[:5]
+    assert all(c == k * 6 * steps for c in n0.values()), n0
+    assert n1 == {n: c * (2 if n in forward else 1) for n, c in n0.items()}, n1

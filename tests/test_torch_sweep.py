@@ -3,9 +3,10 @@ transformergrooveinfilling_tpu_torch.sweep``) with ``--device cpu``: the
 trial draws of root ``sweep.py`` on every ``configs/*_sweep*.yaml``, both
 modes on a tiny processed symbolic dataset, root's fallbacks (a maximize
 metric, an optimizer the batched step has no rule for), Adam groups, failed
-trials, the switches a batched group refuses (``remat``, and a kernel switch
-where the trials' rates differ), a forced ``fused_layer`` group, the
-auto-remat split and the groups that train through the regular step."""
+trials, the switches a batched group refuses (a kernel switch where the
+trials' rates differ), a forced ``fused_layer`` group, ``remat`` given and
+auto in a group (one vmapped program under remat, root's rule) and the groups
+that train through the regular step."""
 
 import glob
 import os
@@ -165,15 +166,47 @@ def test_failed_trial_is_reported_and_left_out(tmp_path, paths, capsys):
     assert "no successful trials" in out
 
 
-@pytest.mark.parametrize("switch", ["fused_layer", "fused_ffn", "fused_dropout_ln", "remat"])
+@pytest.mark.parametrize("switch", ["fused_layer", "fused_ffn", "fused_dropout_ln"])
 def test_forced_switch_in_a_batched_group_raises(tmp_path, paths, capsys, switch):
     """A vmapped group of 5 whose dropout rates differ (the sweep samples
     them): rates that differ ride the vmap as data, which a kernel switch
-    does not take, so a forced kernel switch raises; ``remat`` raises
-    whatever the rates."""
+    does not take, so a forced kernel switch raises."""
     path = sweep_file(tmp_path, d_model={"value": 16}, **{switch: {"value": 1}})
     with pytest.raises(ValueError, match=switch):
         run(capsys, "--sweep", path, "--count", "5", "--batched", "--paths", paths)
+
+
+def remat_programs(monkeypatch) -> list:
+    """The configs of the vmapped programs a sweep runs, and a count of the
+    layers rematerialised under ``torch.func`` (appended as ``"layer"``)."""
+    from transformergrooveinfilling_tpu_torch.models import transformer
+
+    seen = []
+    real_sweep, real_remat = vmap_sweep.batched_sweep, transformer._remat_transformed
+    monkeypatch.setattr(vmap_sweep, "batched_sweep",
+                        lambda model, config, *a, **kw: seen.append(config)
+                        or real_sweep(model, config, *a, **kw))
+    monkeypatch.setattr(transformer, "_remat_transformed",
+                        lambda *a: seen.append("layer") or real_remat(*a))
+    return seen
+
+
+def test_forced_remat_trains_a_batched_group(tmp_path, paths, capsys, monkeypatch):
+    """``remat: 1`` in a sweep file whose dropout rates differ (they ride the
+    vmap as data, into the recompute): one vmapped group of 5 trains under
+    remat, every layer through the recompute that runs under ``torch.func``,
+    and every trial is ranked."""
+    seen = remat_programs(monkeypatch)
+    path = sweep_file(tmp_path, d_model={"value": 16}, remat={"value": 1})
+    rc, out = run(capsys, "--sweep", path, "--count", "5", "--batched", "--paths", paths)
+    assert rc == 0
+    assert "5 trials in 1 architecture group(s)" in out
+    assert "one vmapped program under remat (policy None; given)" in out
+    assert "through the regular step" not in out and "trial failed" not in out
+    assert out.count("  loss ") == 5
+    programs = [c for c in seen if c != "layer"]
+    assert len(programs) == 1 and programs[0].remat
+    assert seen.count("layer") > 0
 
 
 def test_forced_fused_layer_trains_a_batched_group(tmp_path, paths, capsys, monkeypatch):
@@ -211,27 +244,34 @@ def one_trial_bytes(hp) -> int:
     return lo
 
 
-def test_auto_remat_splits_a_batched_group(tmp_path, paths, capsys, monkeypatch):
-    """With ``TGI_HBM_BYTES`` room for 2 stacked trials and not 3, a group
-    of 3 runs as 2 programs without remat and every trial is ranked; with
-    room for none its trials train one at a time through the regular step,
-    under remat, and are ranked."""
-    path = sweep_file(tmp_path, d_model={"value": 16})
+def test_auto_remat_trains_a_batched_group_as_one_program(tmp_path, paths, capsys,
+                                                         monkeypatch):
+    """Root ``sweep.py``'s rule: with ``TGI_HBM_BYTES`` room for 2 stacked
+    trials and not 3, auto remat engages for the group of 3, which trains as
+    one vmapped program under remat, and every trial is ranked; with room for
+    none it also trains as one program under remat. With room for 3 the same
+    group trains without remat. ``fused_layer: 0`` keeps the regular step off
+    #2's chain (auto takes it on the CPU at batch 4), so that a group of 3
+    gains from vmap (``sweep.py::batches``)."""
+    path = sweep_file(tmp_path, d_model={"value": 16}, fused_layer={"value": 0})
     hp = HyperParams.from_dict({k: v.get("value", 0.1) for k, v in
                                 yaml_subset.load_file(path)["parameters"].items()})
     per = one_trial_bytes(hp)
-    monkeypatch.setenv("TGI_HBM_BYTES", str(int(per * 2.5)))
-    rc, out = run(capsys, "--sweep", path, "--count", "3", "--batched", "--paths", paths)
-    assert rc == 0
-    assert ("auto remat would engage for 3 stacked trials; running them as 2 programs of "
-            "at most 2 trial(s) without remat") in out
-    assert out.count("  loss ") == 3
-    monkeypatch.setattr(vmap_sweep, "batched_sweep", _no_vmap)
-    monkeypatch.setenv("TGI_HBM_BYTES", "1")
-    rc, out = run(capsys, "--sweep", path, "--count", "2", "--batched", "--paths", paths)
-    assert rc == 0
-    assert "one trial needs remat" in out and "trial failed" not in out
-    assert out.count("  loss ") == 2
+    for room, remat in ((per * 2.5, True), (1, True), (per * 3.5, False)):
+        seen = remat_programs(monkeypatch)
+        monkeypatch.setenv("TGI_HBM_BYTES", str(int(room)))
+        rc, out = run(capsys, "--sweep", path, "--count", "3", "--batched", "--paths", paths)
+        assert rc == 0, room
+        assert "3 trials in 1 architecture group(s)" in out
+        assert ("one vmapped program under remat (policy None; auto, 3 stacked trials)"
+                in out) is remat
+        assert "through the regular step" not in out and "trial failed" not in out
+        assert out.count("  loss ") == 3
+        programs = [c for c in seen if c != "layer"]
+        assert len(programs) == 1 and programs[0].remat is remat, room
+        assert (seen.count("layer") > 0) is remat
+        monkeypatch.undo()
+        monkeypatch.chdir(tmp_path)
 
 
 def _no_vmap(*args, **kwargs):

@@ -4,8 +4,9 @@ layers (2 + 2 for the encoder-decoder), K = 3 trials: ``adam_update``; the
 whole sweep from JAX's ``init_stacked_params`` (carried across by
 ``utils/param_layout.py``), SGD and Adam, both families; ``stacked_eval_loss``
 through the vmap rule of ``tgi::fused_mha``; that rule alone; per-trial
-dropout rates as data; the kernel switches a batched group trains through,
-the ``remat`` it refuses; and that the new modules import no JAX."""
+dropout rates as data; the kernel switches and ``remat`` a batched group
+trains through (remat alone: ``tests/test_torch_vmap_remat.py``); and that
+the new modules import no JAX."""
 
 import dataclasses
 import os
@@ -297,16 +298,18 @@ def test_non_uniform_rates(family):
 
 
 @pytest.mark.parametrize("switch", ["fused_layer", "fused_decoder_layer", "fused_ffn",
-                                    "fused_dropout_ln"])
+                                    "fused_dropout_ln", "remat"])
 def test_forced_switches_train(switch, monkeypatch):
     """A kernel switch given on trains a group of the encoder-decoder family
     at rate 0.3 through its kernel's path (on the CPU the twin or the
-    operators' plain bodies): finite losses, distinct trials, and the
-    kernel's wrapper called."""
+    operators' plain bodies), and ``remat`` given on through the recompute
+    that runs under ``torch.func`` (``models/transformer.py::_LayerRemat``):
+    finite losses, distinct trials, and the path's entry called."""
     from transformergrooveinfilling_tpu_torch.models import transformer
 
     wrapper = {"fused_layer": "encoder_layer_train", "fused_decoder_layer": "decoder_layer_train",
-               "fused_ffn": "ffn_train", "fused_dropout_ln": "dropout_add_layernorm"}[switch]
+               "fused_ffn": "ffn_train", "fused_dropout_ln": "dropout_add_layernorm",
+               "remat": "_remat_transformed"}[switch]
     called = []
     real = getattr(transformer, wrapper)
     monkeypatch.setattr(transformer, wrapper, lambda *a: called.append(1) or real(*a))
@@ -318,17 +321,6 @@ def test_forced_switches_train(switch, monkeypatch):
     assert called and torch.isfinite(losses).all() and losses[0] != losses[1]
     assert not torch.equal(params["OutputLayer.Linear.weight"][0],
                            params["OutputLayer.Linear.weight"][1])
-
-
-@pytest.mark.parametrize("switch", ["remat"])
-def test_forced_switches_raise(switch):
-    """``remat`` given on raises: ``torch.utils.checkpoint`` does not run
-    under ``torch.func.grad``."""
-    _, cfg = configs(2, **{switch: True})
-    x, y = grids(0, 4)
-    with pytest.raises(ValueError, match=switch):
-        vmap_sweep.batched_sweep(build_model(cfg, "cpu"), cfg, x, y, [0.1, 0.2], [0.5, 0.5],
-                                 epochs=1, batch_size=4, device="cpu")
 
 
 @pytest.mark.parametrize("switch", ["fused_layer", "fused_ffn"])

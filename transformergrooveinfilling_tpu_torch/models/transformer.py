@@ -42,8 +42,10 @@ unfused path of either layer, ``fused_ffn`` runs the feed-forward block through
 drawn from ``generator``; a forced switch whose kernel does not take the shape
 raises ``ValueError``. ``remat`` runs each layer under
 ``torch.utils.checkpoint`` and replays ``generator`` in the recompute, so the
-backward sees the masks of the forward. No switch changes a parameter's name
-or shape.
+backward sees the masks of the forward; inside a ``torch.func`` transform,
+where checkpoint's saved-tensor hooks raise, each layer runs through
+:class:`_LayerRemat` instead, which replays it under ``torch.func.vjp``. No
+switch changes a parameter's name or shape.
 
 ``forward(..., dropout_rate=r)`` overrides the config's rate at every dropout
 site of a training forward with the 0-d tensor ``r`` (``ops/dropout.py::
@@ -59,9 +61,11 @@ operators, whose vmap rules launch once per trial with the trial's own seed
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 import math
+import threading
 from typing import Optional
 
 import numpy as np
@@ -69,6 +73,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 from torch._C._functorch import is_batchedtensor
+from torch.func import functional_call
 from torch.utils import checkpoint as torch_checkpoint
 
 from .. import require_device
@@ -78,6 +83,7 @@ from ..ops.fused_decoder_layer import decoder_layer_train, supports_fused_decode
 from ..ops.fused_ffn import ffn_train, supports_fused_ffn
 from ..ops.fused_layer import encoder_layer_train, supports_fused_layer
 from ..ops.fused_ln import dropout_add_layernorm, supports_fused_ln
+from ..ops.per_trial import transformed
 
 
 @dataclasses.dataclass(frozen=True)
@@ -143,8 +149,14 @@ def sinusoidal_positional_encoding(max_len: int, d_model: int,
 
 def _linear(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
             dtype: torch.dtype) -> torch.Tensor:
-    """``x·Wᵀ + b`` in ``dtype`` (flax ``Dense(dtype=...)``: cast at the op)."""
-    return F.linear(x.to(dtype), weight.to(dtype), bias.to(dtype))
+    """``x·Wᵀ + b`` in ``dtype`` (flax ``Dense(dtype=...)``: cast at the op).
+    Inside a ``"dots"`` remat under ``torch.func`` (:class:`_DenseProducts`)
+    the forward keeps the product and the recompute takes it back."""
+    x, weight, bias = x.to(dtype), weight.to(dtype), bias.to(dtype)
+    products = getattr(_dense_products, "active", None)
+    if products is not None:
+        return products(x, weight, bias)
+    return F.linear(x, weight, bias)
 
 
 def _new_linear(in_features: int, out_features: int, device) -> nn.Linear:
@@ -380,9 +392,6 @@ def _remat(config: "GrooveTransformerConfig", generator, layer, *tensors) -> tor
     from the state ``generator`` had before the forward, and puts the current
     state back afterwards. The fused kernels then get the same seeds and draw
     the same masks again."""
-    policy = config.remat_policy
-    if policy not in REMAT_POLICIES:
-        raise ValueError(f"unknown remat_policy: {policy!r}")
     before = generator.get_state()
     first = True
 
@@ -399,11 +408,165 @@ def _remat(config: "GrooveTransformerConfig", generator, layer, *tensors) -> tor
             generator.set_state(now)
 
     kwargs = {}
-    if policy == "dots":
+    if config.remat_policy == "dots":
         ops = [getattr(torch.ops.aten, name).default for name in _DOT_OPS]
         kwargs["context_fn"] = functools.partial(
             torch_checkpoint.create_selective_checkpoint_contexts, ops)
     return torch_checkpoint.checkpoint(run, *tensors, use_reentrant=False, **kwargs)
+
+
+# the products a "dots" forward keeps, or a recompute takes back, on this thread
+_dense_products = threading.local()
+
+
+class _DenseProducts:
+    """The dense products of one layer call under ``"dots"``: in the forward
+    each runs and its output is kept; in the recompute (``kept`` given) the
+    outputs are taken back in the same order, each through
+    :class:`_KeptLinear`, so that its backward still runs."""
+
+    def __init__(self, kept=None):
+        self.replay = kept is not None
+        self.kept = list(kept) if self.replay else []
+
+    def __call__(self, x, weight, bias):
+        if self.replay:
+            return _KeptLinear.apply(self.kept.pop(0), x, weight, bias)
+        out = F.linear(x, weight, bias)
+        self.kept.append(out)
+        return out
+
+
+class _KeptLinear(torch.autograd.Function):
+    """``F.linear(x, weight, bias)`` whose output was kept by the forward: it
+    returns the kept tensor and differentiates as autograd differentiates
+    ``F.linear`` of a (..., in) input (``addmm`` over the flattened rows:
+    ``dx = dy·W``, ``dW = dyᵀ·x``, ``db = Σ dy``, the same products in the same
+    layouts), so the gradients are those of the recompute bit for bit."""
+
+    generate_vmap_rule = True
+
+    @staticmethod
+    def forward(kept, x, weight, bias):
+        return kept.view_as(kept)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        _kept, x, weight, _bias = inputs
+        ctx.save_for_backward(x, weight)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, weight = ctx.saved_tensors
+        dy2 = dy.reshape(-1, dy.shape[-1])
+        dx = dy2.mm(weight).reshape(x.shape)
+        dw = dy2.t().mm(x.reshape(-1, x.shape[-1]))
+        return None, dx, dw, dy2.sum(0)
+
+
+@contextlib.contextmanager
+def _replaying(generator, state):
+    """Run the block with ``generator`` at ``state`` (the one it had before
+    the layer's forward) and put its current state back afterwards. A state
+    taken or set inside a ``torch.func`` transform is a wrapped tensor that
+    ``set_state`` refuses, so both happen with the transforms switched off."""
+    with torch._C._DisableFuncTorch():
+        now = generator.get_state()
+        generator.set_state(state)
+    try:
+        yield
+    finally:
+        with torch._C._DisableFuncTorch():
+            generator.set_state(now)
+
+
+class _RematCall:
+    """What :class:`_LayerRemat` needs beside its tensors: the layer, the
+    generator and its state before the forward, the names of the layer's
+    parameters, and how the tensors split into inputs, parameters and the
+    per-trial rate."""
+
+    def __init__(self, layer, generator, n_inputs: int, has_rate: bool, dots: bool):
+        self.layer, self.generator = layer, generator
+        self.names = [name for name, _ in layer.named_parameters()]
+        self.n_inputs, self.has_rate, self.dots = n_inputs, has_rate, dots
+        with torch._C._DisableFuncTorch():
+            self.state = generator.get_state()
+
+    def split(self, tensors):
+        """``(inputs, parameters, rate)`` of :class:`_LayerRemat`'s tensors."""
+        n, p = self.n_inputs, len(self.names)
+        return tensors[:n], tensors[n:n + p], tensors[n + p] if self.has_rate else None
+
+    def run(self, inputs, params, rate, products=None):
+        """The layer's training forward on ``inputs`` with ``params``, its
+        :func:`_linear` calls through ``products`` when given."""
+        kwargs = {} if rate is None else {"dropout_rate": rate}
+        _dense_products.active = products
+        try:
+            return functional_call(self.layer, dict(zip(self.names, params)),
+                                   (*inputs, self.generator), kwargs)
+        finally:
+            _dense_products.active = None
+
+
+class _LayerRemat(torch.autograd.Function):
+    """One layer rematerialised inside a ``torch.func`` transform, where
+    ``torch.utils.checkpoint`` raises (its saved-tensor hooks): the forward
+    runs the layer without keeping its activations, and saves the layer's
+    inputs and parameters (and, under ``"dots"``, the dense products'
+    outputs, returned beside ``y``); the backward puts the generator back to
+    its state before the forward, replays the layer under ``torch.func.vjp``
+    from the saved tensors (the same dropout draws, so the fused kernels get
+    the same seeds), puts the generator's later state back, and returns the
+    cotangents. Under ``vmap`` both run on the stacked trials (the generated
+    rule), so a trial's gradients are those of the step without remat."""
+
+    generate_vmap_rule = True
+
+    @staticmethod
+    def forward(call, *tensors):
+        products = _DenseProducts() if call.dots else None
+        with torch.no_grad():
+            y = call.run(*call.split(tensors), products)
+        return (y, *(products.kept if products else ()))
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.call = inputs[0]
+        ctx.save_for_backward(*inputs[1:], *output[1:])
+        ctx.mark_non_differentiable(*output[1:])
+
+    @staticmethod
+    def backward(ctx, dy, *kept_grads):
+        call = ctx.call
+        saved = ctx.saved_tensors
+        n = len(saved) - len(kept_grads)
+        inputs, params, rate = call.split(saved[:n])
+
+        def layer(inputs, params):
+            products = _DenseProducts(saved[n:]) if call.dots else None
+            return call.run(inputs, params, rate, products)
+
+        with _replaying(call.generator, call.state):
+            _y, vjp = torch.func.vjp(layer, tuple(inputs), tuple(params))
+        # no graph of the gradients (the Function has no double backward), and
+        # the replay's activations freed as its backward consumes them: under
+        # torch.func.grad the engine runs a backward with grad mode on, which
+        # would otherwise keep every layer's replay alive until the step ends
+        d_inputs, d_params = vjp(dy, retain_graph=False, create_graph=False)
+        return (None, *d_inputs, *d_params, *((None,) if call.has_rate else ()))
+
+
+def _remat_transformed(config: "GrooveTransformerConfig", generator, layer, dropout_rate,
+                       *tensors) -> torch.Tensor:
+    """``layer(*tensors, generator)`` rematerialised under a ``torch.func``
+    transform (:class:`_LayerRemat`): the route of a batched sweep's step."""
+    call = _RematCall(layer, generator, len(tensors), dropout_rate is not None,
+                      config.remat_policy == "dots")
+    params = [p for _, p in layer.named_parameters()]
+    rate = () if dropout_rate is None else (dropout_rate,)
+    return _LayerRemat.apply(call, *tensors, *params, *rate)[0]
 
 
 def _rate(config: "GrooveTransformerConfig", dropout_rate):
@@ -616,10 +779,17 @@ class GrooveTransformerEncoder(nn.Module):
 
     def _run_layer(self, layer, generator, dropout_rate, *tensors) -> torch.Tensor:
         """One encoder or decoder layer, rematerialised in ``train()`` mode
-        when the config says so."""
+        when the config says so: under ``torch.utils.checkpoint`` by
+        :func:`_remat`, inside a ``torch.func`` transform (a batched sweep's
+        step) by :func:`_remat_transformed`."""
+        remat = self.training and self.config.remat
+        if remat and self.config.remat_policy not in REMAT_POLICIES:
+            raise ValueError(f"unknown remat_policy: {self.config.remat_policy!r}")
+        if remat and transformed():
+            return _remat_transformed(self.config, generator, layer, dropout_rate, *tensors)
         if dropout_rate is not None:
             layer = functools.partial(layer, dropout_rate=dropout_rate)
-        if self.training and self.config.remat:
+        if remat:
             return _remat(self.config, generator, layer, *tensors)
         return layer(*tensors, generator)
 

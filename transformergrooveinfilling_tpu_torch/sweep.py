@@ -23,22 +23,21 @@ deterministic full-train-set loss, one vmapped eval forward through kernel #1
 on the card. In a group the whole-layer kernels' auto resolves off, as in
 root; a kernel switch given as 1 trains the group through its kernel, one
 launch per trial (``fused_layer``, ``fused_decoder_layer``, ``fused_ffn``,
-``fused_dropout_ln``), and ``remat`` given as 1 raises ``ValueError``
-(``torch.utils.checkpoint`` does not run under ``torch.func.grad``). Where
-auto remat would engage for the whole
-group, the group is split into the fewest chunks of trials that fit without
-it, each its own program.
+``fused_dropout_ln``). ``remat`` follows root's rule: given as 1 it is on,
+and unset it is on where the auto-remat estimate over the group's K stacked
+trials (``resolve_remat(..., n_replicas=K)``) says so; either way the group
+trains as its one vmapped program, each layer recomputed in the backward
+(``models/transformer.py::_LayerRemat``).
 
-A group (or chunk) too small to gain from vmap trains its trials one at a
-time through the regular step instead (:func:`train_unbatched`: the
-``train`` command line's switches, so #2's chain runs on the card), ranked
-on the same full-train-set loss: a group of one trial, which is what every
-draw of the repository's ``configs/*_sweep*.yaml`` gives (they sample the
-architecture), a group below :data:`VMAP_MIN_TRIALS` where the regular step
-runs the whole-layer kernels, and a group in which one trial alone would
-need remat. As in root, a sweep whose metric is not a minimised ``loss``,
-and groups with an optimizer other than sgd or adam, run sequentially, with
-a note.
+A group too small to gain from vmap trains its trials one at a time through
+the regular step instead (:func:`train_unbatched`: the ``train`` command
+line's switches, remat as one trial's estimate resolves it, so #2's chain runs
+on the card), ranked on the same full-train-set loss: a group of one trial,
+which is what every draw of the repository's ``configs/*_sweep*.yaml`` gives
+(they sample the architecture), and a group below :data:`VMAP_MIN_TRIALS`
+where the regular step runs the whole-layer kernels. As in root, a sweep
+whose metric is not a minimised ``loss``, and groups with an optimizer other
+than sgd or adam, run sequentially, with a note.
 """
 
 from __future__ import annotations
@@ -187,22 +186,30 @@ def group_trials(trials) -> dict:
     return groups
 
 
-def batched_config(hp, trial: dict, device):
-    """The model config of a batched group, as root ``sweep.py`` builds it:
-    ``derive_model_config`` with the whole-layer kernels' auto resolved off
-    (a switch the trial gives as 1 is kept), ``fused_ffn`` as resolved and
-    ``fused_dropout_ln`` as the trial gives it. Every kernel switch runs
-    under ``torch.func.vmap``, one launch per trial
-    (``train/vmap_sweep.py``); auto keeps the whole-layer chains off because
-    a vmapped step of plain ops costs about the same at every K and the
-    chain's K launches grow with it (``batches``)."""
-    from .train.config import derive_model_config
+def batched_config(hp, trial: dict, device, n_trials: int = 1):
+    """The model config of a batched group of ``n_trials`` trials, as root
+    ``sweep.py`` builds it: ``derive_model_config`` with the whole-layer
+    kernels' auto resolved off (a switch the trial gives as 1 is kept),
+    ``fused_ffn`` as resolved, ``fused_dropout_ln`` as the trial gives it, and
+    an unset ``remat`` resolved by the auto-remat estimate over the
+    ``n_trials`` stacked trials of parameters, optimizer state and batch that
+    share the one device. Every switch runs under ``torch.func.vmap``
+    (``train/vmap_sweep.py``), the kernels one launch per trial; auto keeps
+    the whole-layer chains off because a vmapped step of plain ops costs about
+    the same at every K and the chain's K launches grow with it
+    (``batches``)."""
+    from .train.config import derive_model_config, resolve_remat
 
     config = derive_model_config(hp, device=device)
+    remat = resolve_remat(
+        hp.remat, d_model=hp.d_model, n_heads=hp.n_heads, dim_feedforward=hp.dim_feedforward,
+        n_layers=hp.num_encoder_decoder_layers, n_decoder_layers=config.num_decoder_layers,
+        optimizer=hp.optimizer_algorithm, batch_size=hp.batch_size, n_data_shards=1,
+        n_replicas=n_trials, compute_dtype=config.compute_dtype, device=device)
     return dataclasses.replace(
         config, fused_layer=hp.fused_layer is not None and config.fused_layer,
         fused_decoder_layer=hp.fused_decoder_layer is not None and config.fused_decoder_layer,
-        fused_dropout_ln=bool(trial.get("fused_dropout_ln", False)))
+        fused_dropout_ln=bool(trial.get("fused_dropout_ln", False)), remat=remat)
 
 
 # the fewest trials a group trains as one vmapped program where the regular
@@ -240,36 +247,18 @@ def train_unbatched(trial: dict, x, y, seed: int, device) -> float:
     return float(eval_loss(state.model, x, y)["loss"])
 
 
-def remat_chunk(hp, config, n_trials: int, device) -> int:
-    """The most trials of a group that fit one device without remat by the
-    auto-remat estimate (``resolve_remat`` over ``n_replicas`` stacked trials),
-    up to ``n_trials``; 0 when one trial alone would need it."""
-    from .train.config import resolve_remat
-
-    def fits(n: int) -> bool:
-        return not resolve_remat(
-            None, d_model=hp.d_model, n_heads=hp.n_heads,
-            dim_feedforward=hp.dim_feedforward, n_layers=hp.num_encoder_decoder_layers,
-            n_decoder_layers=config.num_decoder_layers, optimizer=hp.optimizer_algorithm,
-            batch_size=hp.batch_size, n_data_shards=1, n_replicas=n,
-            compute_dtype=config.compute_dtype, device=device)
-
-    return next((n for n in range(n_trials, 0, -1) if fits(n)), 0)
-
-
 def run_batched(trials, metric: str, goal: str, project: str, args) -> int:
     """vmap-batched trials, grouped by architecture (module docstring); sweeps
     batched mode cannot rank (a non-loss metric or a maximize goal) and groups
     it cannot train (an optimizer other than sgd or adam) run sequentially,
-    with a note; groups too small for vmap, or that need remat, train one
-    trial at a time through :func:`train_unbatched`."""
+    with a note; groups too small for vmap train one trial at a time through
+    :func:`train_unbatched`."""
     import torch
 
     from .data import load_processed_dataset
     from .models import build_model
     from .train.config import HyperParams, derive_model_config, load_paths
-    from .train.vmap_sweep import (batched_sweep, check_batchable, stacked_eval_loss,
-                                   trial_seeds)
+    from .train.vmap_sweep import batched_sweep, stacked_eval_loss, trial_seeds
 
     if goal != "minimize" or metric != "loss":
         # batched mode ranks on the deterministic full-TRAIN-set loss; any
@@ -305,23 +294,8 @@ def run_batched(trials, metric: str, goal: str, project: str, args) -> int:
                   f"running its {len(idxs)} trial(s) sequentially")
             sequential(idxs)
             continue
-        config = batched_config(hp, base, args.device)
-        chunk, needs_remat = len(idxs), False
-        if hp.remat is None:
-            # the auto-remat estimate must see the K stacked trials of
-            # params, optimizer state and batch that share the one device
-            chunk = remat_chunk(hp, config, len(idxs), args.device)
-            config = dataclasses.replace(config, remat=False)
-            if chunk == 0:
-                print(f"--- group {gi}: one trial needs remat, which cannot run under "
-                      f"vmap; training its {len(idxs)} trial(s) one at a time")
-                chunk, needs_remat = len(idxs), True
-            elif chunk < len(idxs):
-                print(f"--- group {gi}: auto remat would engage for {len(idxs)} stacked "
-                      f"trials; running them as {-(-len(idxs) // chunk)} programs of at "
-                      f"most {chunk} trial(s) without remat")
-        check_batchable(config)  # remat given as 1 raises whatever the group's size
-        # the regular step's switches: a chunk too small for vmap takes them
+        config = batched_config(hp, base, args.device, len(idxs))
+        # the regular step's switches: a group too small for vmap takes them
         regular = derive_model_config(hp, device=args.device)
         model = build_model(config, args.device)
         if hp.experiment not in data_cache:
@@ -335,36 +309,34 @@ def run_batched(trials, metric: str, goal: str, project: str, args) -> int:
               f"d{hp.d_model}/ff{hp.dim_feedforward}/"
               f"{hp.num_encoder_decoder_layers}L bs{hp.batch_size} "
               f"x {hp.epochs} epochs")
-        # every chunk of a group starts from the same seed, as every
-        # sequential trial starts from the same initial weights
-        for start in range(0, len(idxs), chunk):
-            part = idxs[start:start + chunk]
-            if needs_remat or not batches(regular, len(part)):
-                if not needs_remat:
-                    print(f"    {len(part)} trial(s) one at a time through the regular step "
-                          + ("(one trial needs no vmap)" if len(part) == 1 else
-                             f"(below {VMAP_MIN_TRIALS} trials a vmapped step loses to "
-                             "the whole-layer kernels' chain)"))
-                seeds = trial_seeds(torch.Generator().manual_seed(args.seed + gi), len(part))
-                for i, s in zip(part, seeds):
-                    try:
-                        losses_by_trial[i] = train_unbatched(trials[i], x, y, s, args.device)
-                    except Exception as e:
-                        print(f"    trial failed: {type(e).__name__}: {e}")
-                continue
-            lrs = [float(trials[i].get("learning_rate", 0.05)) for i in part]
-            pens = [float(trials[i].get("hit_loss_penalty", 1.0)) for i in part]
-            rates = [float(trials[i].get("dropout", hp.dropout)) for i in part]
-            params, _last_batch_losses = batched_sweep(
-                model, config, x, y, lrs, pens, rates=rates, epochs=hp.epochs,
-                batch_size=hp.batch_size, seed=args.seed + gi,
-                optimizer=hp.optimizer_algorithm, device=args.device)
-            # rank on the deterministic full-dataset loss, not the last
-            # training batch (the sequential runner's logged-loss semantics)
-            losses = stacked_eval_loss(model, params, x, y, pens,
-                                       encoder_only=config.encoder_only, device=args.device)
-            for i, loss in zip(part, losses.tolist()):
-                losses_by_trial[i] = loss
+        if not batches(regular, len(idxs)):
+            print(f"    {len(idxs)} trial(s) one at a time through the regular step "
+                  + ("(one trial needs no vmap)" if len(idxs) == 1 else
+                     f"(below {VMAP_MIN_TRIALS} trials a vmapped step loses to "
+                     "the whole-layer kernels' chain)"))
+            seeds = trial_seeds(torch.Generator().manual_seed(args.seed + gi), len(idxs))
+            for i, s in zip(idxs, seeds):
+                try:
+                    losses_by_trial[i] = train_unbatched(trials[i], x, y, s, args.device)
+                except Exception as e:
+                    print(f"    trial failed: {type(e).__name__}: {e}")
+            continue
+        if config.remat:
+            print(f"    one vmapped program under remat (policy {config.remat_policy}; "
+                  + ("given" if hp.remat else f"auto, {len(idxs)} stacked trials") + ")")
+        lrs = [float(trials[i].get("learning_rate", 0.05)) for i in idxs]
+        pens = [float(trials[i].get("hit_loss_penalty", 1.0)) for i in idxs]
+        rates = [float(trials[i].get("dropout", hp.dropout)) for i in idxs]
+        params, _last_batch_losses = batched_sweep(
+            model, config, x, y, lrs, pens, rates=rates, epochs=hp.epochs,
+            batch_size=hp.batch_size, seed=args.seed + gi,
+            optimizer=hp.optimizer_algorithm, device=args.device)
+        # rank on the deterministic full-dataset loss, not the last
+        # training batch (the sequential runner's logged-loss semantics)
+        losses = stacked_eval_loss(model, params, x, y, pens,
+                                   encoder_only=config.encoder_only, device=args.device)
+        for i, loss in zip(idxs, losses.tolist()):
+            losses_by_trial[i] = loss
 
     scored = [i for i, v in enumerate(losses_by_trial) if v is not None]
     if not scored:

@@ -27,9 +27,22 @@ each kernel a call, trial t's outputs and gradients bit for bit those of an
 unbatched call with trial t's seed. Under ``randomness="different"`` each
 trial draws its own seed for each kernel call. These switches take the
 config's rate: with rates that differ they raise
-(``models/transformer.py``). ``torch.utils.checkpoint`` raises under
+(``models/transformer.py``).
+
+``remat`` (given as 1, or resolved on by the sweep's auto rule) trains the
+group as the same one program. ``torch.utils.checkpoint`` raises under
 ``torch.func.grad`` ("torch.func.{grad, vjp, jacrev, hessian} don't yet
-support saved tensor hooks"): a config with ``remat`` on raises
+support saved tensor hooks"), so inside a transform each layer runs through
+``models/transformer.py::_LayerRemat``, an autograd Function with
+``setup_context`` and a generated vmap rule: its forward keeps only the
+layer's inputs and parameters (and, under ``remat_policy="dots"``, the dense
+products' outputs, one per trial), and its backward sets the dropout
+generator back to its state before the forward, replays the layer under
+``torch.func.vjp`` on the stacked trials and puts the generator's later state
+back. The replay draws the same masks and seeds, so a kernel switch's forward
+launches again per trial with the same seed, and a trial's gradients are
+those of the group without remat bit for bit, as ``nn.remat`` under
+``jax.vmap`` gives the JAX sweep. An unknown ``remat_policy`` raises
 ``ValueError`` (:func:`check_batchable`).
 
 Optimizers: sgd and adam. The learning rate enters the update as data: sgd
@@ -54,17 +67,16 @@ from torch.func import functional_call, grad_and_value, stack_module_state, vmap
 from .. import require_device
 from ..models import build_model
 from ..models.losses import calculate_loss
+from ..models.transformer import REMAT_POLICIES
 
 
 def check_batchable(config) -> None:
-    """Raise ``ValueError`` when ``config`` turns on ``remat``, which cannot
-    run under ``torch.func.grad`` (module docstring)."""
-    if config.remat:
-        raise ValueError(
-            "remat=1 in a batched sweep: torch.utils.checkpoint raises under "
-            "torch.func.grad (\"torch.func.{grad, vjp, jacrev, hessian} don't yet support "
-            "saved tensor hooks\"); leave remat unset (auto splits the group instead) or "
-            "run the trials without --batched")
+    """Raise ``ValueError`` when ``config`` turns on ``remat`` with a
+    ``remat_policy`` the model does not know (the JAX package's
+    ``_remat_wrap`` raises there too)."""
+    if config.remat and config.remat_policy not in REMAT_POLICIES:
+        raise ValueError(f"unknown remat_policy: {config.remat_policy!r} "
+                         f"(one of {REMAT_POLICIES})")
 
 
 def trial_seeds(generator: torch.Generator, n_trials: int) -> list:
