@@ -10,7 +10,7 @@ then non-zero):
 1. device   the card (``nvidia-smi`` name and power limit), torch and CUDA
             versions; TF32 is switched off for matmuls and cuDNN.
 2. build    ``csrc/fused_mha.cu``, ``csrc/layer_sm90.cu``,
-            ``csrc/band_energies.cu``,
+            ``csrc/layer_wide_sm90.cu``, ``csrc/band_energies.cu``,
             ``csrc/device_synth.cu``, ``csrc/fused_ffn.cu`` and
             ``csrc/fused_ln.cu`` compiled from this checkout with nvcc,
             one process each, in parallel;
@@ -26,7 +26,11 @@ then non-zero):
             ``torch.nn.functional.scaled_dot_product_attention`` on the same
             views (the library call for the same function; the port never
             calls it); also at the eval forwards' B 3,300 and 1,099 (phase 22),
-            contiguous and packed qkv, timed at 3,300 in bf16.
+            contiguous and packed qkv, timed at 3,300 in bf16; at the wide
+            heads of a d 512 model with one head (hd 512) and hd 384, B 1
+            and 512, contiguous and packed qkv, both dtypes, causal off/on,
+            and timed at hd 512 (B 1 and 512, packed qkv, both dtypes) beside
+            SDPA on the same views.
 4. serve    ``InfillServer`` at the flagship width (configs/
             InfillingRandom_training.yaml: d 256, 2 heads, ff 512, 6 layers,
             16 in, 27 out; seeded random weights) on the card: the kernel's
@@ -62,7 +66,14 @@ then non-zero):
             512, 1,024, 2,048, 4,096 and 8,192 (d 256, B 32, 8 seeded inputs
             each): every launch within 1e-5 · max of its plain version
             wherever the gate admits the ff (``ops/fused_layer.py::
-            F32_MAX_FF``).
+            F32_MAX_FF``). The chain's wide route (d past 256: 16 launches,
+            the LayerNorm epilogues' three as a product and a row pass each)
+            at d 512 with 4 heads and ff 1,024 (B 32 and 512) and with one
+            head of 512 and ff 512 (B 32), both dtypes, rate 0.30: two runs
+            bit-identical, the layer against its twin, every launch held to
+            its plain version (bf16 2e-2, f32 1e-5 · max, ``kink_flips``), at
+            the first shape timed with the layer's bound and
+            ``nn.TransformerEncoderLayer``.
 9. train    ``initialize_model`` + ``train_loop`` with the flagship YAML's
             hyperparameters (written here: the card's machine has no pyyaml;
             a CPU test holds them to the file) on seeded synthetic loops:
@@ -75,8 +86,14 @@ then non-zero):
             device time goes; f32 (``bf16: false``) seqs/s of the f32 chain
             and ``fused_layer=False`` in 3 pairs of turns at batch 32 and
             512, no profiler in the timed epochs (the numbers behind
-            ``LAYER_KERNEL_MAX_BATCH[torch.float32]``); the trained weights
-            served by ``InfillServer``.
+            ``LAYER_KERNEL_MAX_BATCH[torch.float32]``); the wide route in
+            training: d 512 with one head (hd 512) and the chain forced, 4
+            bf16 steps and 2 f32 steps, each with its held-out loss through #1
+            at hd 512, every launch of the route once a layer and step; d 512
+            / 4 heads / ff 1,024, the chain against ``fused_layer=False`` in 3
+            pairs of turns, each dtype at batch 32 and 512 (the numbers
+            behind ``LAYER_KERNEL_MAX_D``); the trained weights served by
+            ``InfillServer``.
 10. front-end kernels  ``device_synth`` against its plain version bit for
             bit, and ``band_energies_from_audio`` (framing inside the kernel)
             against its plain version on kit renders (bar 1e-4 · max|ref|: an
@@ -114,7 +131,8 @@ then non-zero):
             reruns bit-identical; forward and backward timed against the
             twin; in each dtype every launch held to its plain version and
             timed, the layer's own bound and ``nn.TransformerDecoderLayer``,
-            and the f32 chain's drift over ff, as phase 8.
+            the f32 chain's drift over ff, and the wide route (26 launches),
+            as phase 8.
 15. train encoder-decoder  the 6 + 6 layer model at the flagship width
             (scripts/bench_encdec.py's) through ``initialize_model`` +
             ``train_loop(encoder_only=0)``: every step launches each encoder
@@ -125,7 +143,9 @@ then non-zero):
             the unfused path; seqs/s at batch 32 and 512, kernel path and
             unfused path in turns; where a step's device time goes; f32
             seqs/s of both f32 chains and both switches off in 3 pairs of
-            turns at batch 32 and 512.
+            turns at batch 32 and 512; the wide route as phase 9 (the d 512 /
+            1 head model with 6 + 6 layers; the turns at 2 + 2, both
+            switches against both off).
 16. serve encoder-decoder  ``InfillServer`` over the same config: 18
             ``fused_mha`` launches per forward chunk (6 encoder, 6 causal
             decoder self-, 6 decoder cross-attentions), answers within 1e-4
@@ -423,6 +443,7 @@ BUCKETS = (1, 8, 32)
 KERNEL_SOURCE = "transformergrooveinfilling_tpu_torch/csrc/fused_mha.cu"
 TPU_KERNEL = "transformergrooveinfilling_tpu/ops/attention.py:25"
 LAYER_SM90_SOURCE = "transformergrooveinfilling_tpu_torch/csrc/layer_sm90.cu"
+LAYER_WIDE_SOURCE = f"transformergrooveinfilling_tpu_torch/csrc/{layer_sm90.WIDE_SOURCE}.cu"
 # the Pallas kernel bodies a layer chain's forward and backward launches stand in for
 LAYER_TPU_KERNELS = {"fwd": "transformergrooveinfilling_tpu/ops/fused_layer.py:164",
                      "bwd": "transformergrooveinfilling_tpu/ops/fused_layer.py:236"}
@@ -468,8 +489,8 @@ FFN_DEVICE_NAMES = {
 LN_SOURCE = "transformergrooveinfilling_tpu_torch/csrc/fused_ln.cu"
 LN_TPU_KERNELS = {"fused_ln_fwd": "transformergrooveinfilling_tpu/ops/fused_ln.py:54",
                   "fused_ln_bwd": "transformergrooveinfilling_tpu/ops/fused_ln.py:68"}
-KERNEL_NAMES = ["fused_mha", "layer_sm90", "band_energies", "device_synth", "fused_ffn",
-                "fused_ln"]
+KERNEL_NAMES = ["fused_mha", "layer_sm90", layer_sm90.WIDE_SOURCE, "band_energies",
+                "device_synth", "fused_ffn", "fused_ln"]
 # the wrappers, and the counts of launches of their kernels
 BAND, BAND_AUDIO, SYNTH = be.band_energies, be.band_energies_from_audio, ds.synth_events
 MHA, BAND_K, SYNTH_K = attention.KERNEL, be.KERNEL, ds.KERNEL
@@ -610,7 +631,8 @@ def attn_pairs(rows: int, t: int, causal: bool) -> int:
     return rows * (t + 1) // 2 if causal else rows * t
 
 
-def layer_io_bounds(b: int, decoder: bool = False, dtype: str = "bfloat16") -> dict:
+def layer_io_bounds(b: int, decoder: bool = False, dtype: str = "bfloat16",
+                    shape: dict = LAYER_SHAPE) -> dict:
     """The least time for a whole layer's forward and for its backward at the
     flagship layer, batch ``b``, from the function's own inputs, weights and
     outputs alone (no residual, no design's scratch): the forward reads x
@@ -620,8 +642,9 @@ def layer_io_bounds(b: int, decoder: bool = False, dtype: str = "bfloat16") -> d
     dense products (forward once, backward twice) and per attention QKᵀ and
     PV forward, dP, dV, dQ and dK backward, the causal one over its T(T+1)/2
     pairs only; in ``dtype`` bf16 at the bf16 peak, float32 at the split-TF32
-    rate (the bound) and at the CUDA cores' 67 TFLOP/s (``at_67``)."""
-    d, ff, t = LAYER_SHAPE["d"], LAYER_SHAPE["ff"], LAYER_SHAPE["t"]
+    rate (the bound) and at the CUDA cores' 67 TFLOP/s (``at_67``). ``shape``:
+    another layer's d, ff and t."""
+    d, ff, t = shape["d"], shape["ff"], shape["t"]
     m, s = b * t, 4 if dtype == "float32" else 2
     if decoder:
         weights, vectors, acts = 8 * d * d + 2 * d * ff, 15 * d + ff, 2
@@ -658,12 +681,13 @@ LAYER_KINK_SHARE = 1e-4
 KINK_SEEDS = 4  # further inputs and seeds a rate at which phases 8 and 14 read the flips
 
 
-def layer_flips(twin_h, kernel_h):
+def layer_flips(twin_h, kernel_h, share: float = LAYER_KINK_SHARE):
     """The hidden units at which a whole layer's kernels and its twin fall on
     opposite sides of the ReLU's kink, for the twin's ``relu_flips``. f32:
     ``kink_flips`` (within ``KINK_BAND`` of 0, at most ``KINK_SHARE`` of the
     units). bf16: each within ``KINK_BAND`` of 0 as well, and at most
-    ``LAYER_KINK_SHARE`` of the units (plus 4). ``KINK_SHARE`` itself is held
+    ``share`` of the units (plus 4; ``LAYER_KINK_SHARE``, at the wide route's
+    d 512 ``fl.WIDE_KINK_SHARE``). ``KINK_SHARE`` itself is held
     where the kernel decides the side, the hidden product against its plain
     version on the same inputs (``sm90_launches``: 0–1 flips in 8.4M units),
     and not across the whole layer: there the tensor cores' f32 accumulation
@@ -675,15 +699,7 @@ def layer_flips(twin_h, kernel_h):
     units, each within 1.8e-3 of max|h|)."""
     if twin_h.dtype == torch.float32:
         return fl.kink_flips(twin_h, kernel_h)
-    th, kh = twin_h.float(), kernel_h.float()
-    flips = (th > 0) != (kh > 0)
-    n = int(flips.sum())
-    largest = float(torch.maximum(th, kh)[flips].max()) / float(th.abs().max()) if n else 0.0
-    stats = {"flips": n, "units": flips.numel(), "largest_rel": largest}
-    check(largest <= fl.KINK_BAND[twin_h.dtype] and n <= LAYER_KINK_SHARE * flips.numel() + 4,
-          f"kernel and twin ReLU decisions differ beyond rounding: {stats}, "
-          f"band {fl.KINK_BAND[twin_h.dtype]}, share {LAYER_KINK_SHARE}")
-    return flips, stats
+    return fl.kink_flips(twin_h, kernel_h, share)
 
 
 def kink_survey(dev, decoder: bool) -> dict:
@@ -740,7 +756,8 @@ def launch_bound(launch) -> dict:
     flops = 0
     if ref in (layer_sm90.bias_reference, layer_sm90.hidden_reference,
                layer_sm90.residual_ln_reference, layer_sm90.dh_reference,
-               layer_sm90.round_reference, layer_sm90.ln_backward_reference):
+               layer_sm90.round_reference, layer_sm90.ln_backward_reference,
+               layer_sm90.residual_sum_reference, layer_sm90.grad_sum_reference):
         flops = 2 * a[0].shape[0] * a[1].shape[0] * a[1].shape[1]
     elif ref is layer_sm90.attention_forward_reference:
         flops = 4 * attn_pairs(a[0].shape[0], a[7], a[8]) * a[0].shape[1]
@@ -763,13 +780,18 @@ def launch_dtype(launch):
 def launch_library(launch):
     """One PyTorch call computing a launch's function, where there is one:
     F.linear for the bias products (the bias in bf16), a matmul for the
-    products without a residual or epilogue."""
+    products without a residual or epilogue, ``addmm`` for the wide route's
+    f32 gradient sum, ``F.layer_norm`` for its f32 row pass of the forward."""
     a = launch.args
     if launch.reference is layer_sm90.bias_reference:
         bias = a[2].to(a[0].dtype)
         return lambda: F.linear(a[0], a[1], bias)
     if launch.reference is layer_sm90.round_reference and a[2] is None:
         return lambda: torch.matmul(a[0], a[1])
+    if launch.reference is layer_sm90.grad_sum_reference and a[0].dtype == torch.float32:
+        return lambda: torch.addmm(a[2], a[0], a[1])
+    if launch.reference is layer_sm90.ln_y_reference and a[3] == torch.float32:
+        return lambda: F.layer_norm(a[0], (a[0].shape[1],), a[1], a[2], layer_sm90.LN_EPS)
     return None
 
 
@@ -811,9 +833,9 @@ def sm90_launches(record, kernels: dict, plain: bool, n: int, dtype=torch.bfloat
     """Every launch of one layer call's chain in ``dtype``, as recorded on the
     card: its outputs held to its plain version on the same inputs
     (``SM90_BAR[dtype]`` · max|ref| each), its device time per launch
-    (profiler, ``n`` replays), its own bound, and with ``plain`` the plain
-    version's and the library call's stream time. Keyed by the counted
-    kernel's name."""
+    (profiler, ``n`` replays; none where ``n`` is 0), its own bound, and with
+    ``plain`` the plain version's and the library call's stream time. Keyed
+    by the counted kernel's name."""
     names = {id(k): name for name, k in kernels.items()}
     rows, bar = {}, SM90_BAR[dtype]
     for launch in record:
@@ -828,6 +850,8 @@ def sm90_launches(record, kernels: dict, plain: bool, n: int, dtype=torch.bfloat
         rows[name] = {"max_abs_err": err, **launch_bound(launch)}
         if launch.reference is layer_sm90.hidden_reference:  # band and share, in full
             rows[name]["relu_kink_flips"] = fl.kink_flips(want[0], launch.outputs[0])[1]
+    if n == 0:
+        return rows
     us, count = launch_device_us(record, n)
     for launch, u, c in zip(record, us, count):
         name = names[id(launch.kernel)]
@@ -840,16 +864,17 @@ def sm90_launches(record, kernels: dict, plain: bool, n: int, dtype=torch.bfloat
     return rows
 
 
-def library_layer(args, dy, b: int, decoder: bool) -> dict:
+def library_layer(args, dy, b: int, decoder: bool, shape: dict = LAYER_SHAPE) -> dict:
     """``nn.TransformerEncoderLayer`` / ``nn.TransformerDecoderLayer`` (post-LN,
     ReLU, batch_first, dropout 0.30, training mode, in the dtype of
     ``args``: bf16 and f32 both) with the layer's
     weights: forward, and its autograd backward, stream and device time. The
     port never calls it; it is the yardstick one PyTorch call gives. In f32
     its products are cuBLAS SGEMMs: TF32 is off for matmuls and cuDNN
-    (``phase_device`` sets both, and ``tf32`` in the result reads them)."""
-    h_, t = LAYER_SHAPE["h"], LAYER_SHAPE["t"]
-    d, ff = LAYER_SHAPE["d"], LAYER_SHAPE["ff"]
+    (``phase_device`` sets both, and ``tf32`` in the result reads them).
+    ``shape``: another layer's d, h, ff and t."""
+    h_, t = shape["h"], shape["t"]
+    d, ff = shape["d"], shape["ff"]
     dev, dtype = args[0].device, args[0].dtype
     kw = dict(dropout=0.3, batch_first=True, device=dev, dtype=dtype)
     with torch.no_grad():
@@ -896,7 +921,7 @@ def library_layer(args, dy, b: int, decoder: bool) -> dict:
     def bwd():
         return torch.autograd.grad(out, leaves, grad, retain_graph=True)
 
-    n = 50 if b == 32 else 10
+    n = 20 if b == 32 else 5
     f1, b1_, b2_, f2 = (time_us(fn, n) / 1000.0 for fn in (fwd, bwd, bwd, fwd))
     return {"fwd_ms": [f1, f2], "bwd_ms": [b1_, b2_],
             "fwd_device_ms": sum(us for us, _ in device_us(fwd, n=3).values()) / 1000.0,
@@ -1031,6 +1056,9 @@ def mha_inputs(dev, rng, b: int, h: int, hd: int, dtype, form: str, t: int = 32)
 
 
 MHA_FORMS = ("contiguous", "packed_qkv", "packed_kv")
+# #1 past the flagship's heads: a d 512 model with one head (hd 512, the
+# widest MAX_HEAD_DIM takes) and hd 384, one head (the sweeps' d 512 / 1 head)
+MHA_WIDE_HDS = (384, 512)
 # the batches phase 22's eval forwards give #1: the train and validation
 # evaluators' rows (seeded, so fixed), each one forward of the whole set
 EVAL_ROWS = {"train": 3300, "validation": 1099}
@@ -1045,6 +1073,7 @@ def phase_kernel(dev, rng) -> dict:
     cases = [(b, h, hd, "contiguous") for h, hd in ((2, 128), (4, 8)) for b in (1, 8, 32, 512)]
     cases += [(b, 2, 128, form) for b in (1, 512) for form in MHA_FORMS[1:]]
     cases += [(b, 2, 128, form) for b in EVAL_ROWS.values() for form in MHA_FORMS[:2]]
+    cases += [(b, 1, hd, form) for hd in MHA_WIDE_HDS for b in (1, 512) for form in MHA_FORMS[:2]]
     checks = 0
     for b, h, hd, form in cases:
         for dtype, (atol, rtol) in MHA_BARS.items():
@@ -1065,39 +1094,42 @@ def phase_kernel(dev, rng) -> dict:
                 checks += 1
     timings = []
     eval_b = EVAL_ROWS["train"]
-    for b, dtype in ((1, torch.float32), (8, torch.float32), (32, torch.float32),
-                     (512, torch.float32), (1, torch.bfloat16), (512, torch.bfloat16),
-                     (eval_b, torch.bfloat16)):
-        forms = (MHA_FORMS if b in (1, 512) else MHA_FORMS[:2] if b == eval_b
-                 else MHA_FORMS[:1])
-        for form in forms:
-            q, k, v = mha_inputs(dev, rng, b, 2, 128, dtype, form)
-            kern = lambda: fused_mha(q, k, v)  # noqa: E731
-            plain = lambda: mha_reference(q, k, v)  # noqa: E731
-            # the library call that computes the same function; timed, never used
-            sdpa = lambda: F.scaled_dot_product_attention(q, k, v)  # noqa: E731
-            check(torch.allclose(sdpa().float(), kern().float(),
-                                 atol=2e-2 if dtype == torch.bfloat16 else 1e-5),
-                  "scaled_dot_product_attention disagrees with fused_mha")
-            k1, p1, l1, l2, p2, k2 = (time_us(f) for f in (kern, plain, sdpa, sdpa, plain, kern))
-            before = MHA.launches
-            dk, dp, dl = device_us(kern), device_us(plain), device_us(sdpa)
-            launches_profiled = MHA.launches - before
-            dtype_name = str(dtype).replace("torch.", "")
-            bnd = mha_bound(b, 2, 32, 128, dtype_name)
-            # per captured launch (the profiler may lose events)
-            kernel_device = max(sum(us / c for us, c in dk.values()), 1e-9)
-            timings.append({
-                "shape": [b, 2, 32, 128], "dtype": dtype_name, "form": form,
-                "tensor_cores": attention.uses_tensor_cores(q, k, v),
-                "kernel_us": [k1, k2], "plain_us": [p1, p2], "sdpa_us": [l1, l2],
-                "sdpa_device_us": sum(us for us, _ in dl.values()),
-                **bnd, "kernel_device_us": kernel_device,
-                "kernel_device_launches_per_call": sum(c for _, c in dk.values()),
-                "wrapper_launches_in_profiled_calls": launches_profiled,
-                "bound_share_of_device_time": bnd["bound_ms"] * 1e3 / kernel_device,
-                "plain_device_us": sum(us for us, _ in dp.values()),
-                "plain_kernels_us": {k: us for k, (us, _) in dp.items()}})
+    timed = [(b, dtype, 2, 128, form)
+             for b, dtype in ((1, torch.float32), (8, torch.float32), (32, torch.float32),
+                              (512, torch.float32), (1, torch.bfloat16), (512, torch.bfloat16),
+                              (eval_b, torch.bfloat16))
+             for form in (MHA_FORMS if b in (1, 512) else MHA_FORMS[:2] if b == eval_b
+                          else MHA_FORMS[:1])]
+    timed += [(b, dtype, 1, MHA_WIDE_HDS[-1], "packed_qkv") for dtype in MHA_BARS
+              for b in (1, 512)]
+    for b, dtype, h, hd, form in timed:
+        q, k, v = mha_inputs(dev, rng, b, h, hd, dtype, form)
+        kern = lambda: fused_mha(q, k, v)  # noqa: E731
+        plain = lambda: mha_reference(q, k, v)  # noqa: E731
+        # the library call that computes the same function; timed, never used
+        sdpa = lambda: F.scaled_dot_product_attention(q, k, v)  # noqa: E731
+        check(torch.allclose(sdpa().float(), kern().float(),
+                             atol=2e-2 if dtype == torch.bfloat16 else 1e-5),
+              "scaled_dot_product_attention disagrees with fused_mha")
+        k1, p1, l1, l2, p2, k2 = (time_us(f, 100) for f in (kern, plain, sdpa, sdpa, plain, kern))
+        before = MHA.launches
+        dk, dp, dl = device_us(kern), device_us(plain), device_us(sdpa)
+        launches_profiled = MHA.launches - before
+        dtype_name = str(dtype).replace("torch.", "")
+        bnd = mha_bound(b, h, 32, hd, dtype_name)
+        # per captured launch (the profiler may lose events)
+        kernel_device = max(sum(us / c for us, c in dk.values()), 1e-9)
+        timings.append({
+            "shape": [b, h, 32, hd], "dtype": dtype_name, "form": form,
+            "tensor_cores": attention.uses_tensor_cores(q, k, v),
+            "kernel_us": [k1, k2], "plain_us": [p1, p2], "sdpa_us": [l1, l2],
+            "sdpa_device_us": sum(us for us, _ in dl.values()),
+            **bnd, "kernel_device_us": kernel_device,
+            "kernel_device_launches_per_call": sum(c for _, c in dk.values()),
+            "wrapper_launches_in_profiled_calls": launches_profiled,
+            "bound_share_of_device_time": bnd["bound_ms"] * 1e3 / kernel_device,
+            "plain_device_us": sum(us for us, _ in dp.values()),
+            "plain_kernels_us": {k: us for k, (us, _) in dp.items()}})
     emit({"phase": "kernel", "checks": checks,
           "max_abs_err": {"float32": worst[torch.float32], "bfloat16": worst[torch.bfloat16]},
           "bars": {"float32": {"atol": 1e-5}, "bfloat16": {"atol": 2e-2, "rtol": 2e-2}},
@@ -1288,10 +1320,9 @@ def phase_latency(dev, srv, plain) -> dict:
     return {"in_process": runs["kernel"][0], "http": http}
 
 
-def layer_case(dev, rng, b: int, dtype, ff: int = LAYER_SHAPE["ff"]):
-    """Flagship-shaped layer inputs from ``rng`` (ff as given): (args without
-    the seed, dy)."""
-    d = LAYER_SHAPE["d"]
+def layer_case(dev, rng, b: int, dtype, ff: int = LAYER_SHAPE["ff"], d: int = LAYER_SHAPE["d"]):
+    """Flagship-shaped layer inputs from ``rng`` (ff and d as given): (args
+    without the seed, dy)."""
     m = b * LAYER_SHAPE["t"]
 
     def n(*shape, scale=1.0, offset=0.0):
@@ -1373,6 +1404,47 @@ def chain_drift(dev, rng, ff: int, decoder: bool = False, b: int = 32, draws: in
             "max_abs_err_of_max_by_launch": drift}
 
 
+def against_twin(mod, args, dy, seed, rate: float, h_: int, res, grads, dtype, what: str,
+                 relative: bool = False):
+    """A layer call's outputs ``res`` and gradients ``grads`` on the chain
+    of ``mod`` (``fl`` or ``fdl``) against autograd through its twin on the
+    same inputs and masks, the twin taking the chain's side of the ReLU's
+    kink at the units ``layer_flips`` admits and its own everywhere else:
+    ``(errs, kink)``. Bars: f32 1e-4 on y and the residuals and 1e-4 ·
+    max|grad| on each grad (sums in another order, the products in split
+    TF32); bf16 2e-2 · max|ref| on everything (the chain rounds its
+    backward's intermediates where the TPU kernel does, autograd does not).
+    ``relative`` (the wide route's layers, d 512): f32 y and residuals at
+    1e-4 · max|ref| too (their products reduce over 512 to 1,536 terms and
+    carry the error of one more launch into each residual; a launch alone is
+    held to 1e-5 · max by ``sm90_launches``), and bf16 ReLU flips to
+    ``fl.WIDE_KINK_SHARE``."""
+    t, decoder = LAYER_SHAPE["t"], mod is fdl
+    ref, h_at = (fdl.decoder_layer_reference, 6) if decoder else (fl.encoder_layer_reference, 3)
+    out_names = ("y",) + (fdl.RESIDUAL_NAMES if decoder else ("qkv", "a1", "h", "a2"))
+    with torch.no_grad():
+        own = ref(*args, seed, rate, h_, t, return_residuals=True)
+    flips, kink = layer_flips(own[h_at], res[h_at],
+                              fl.WIDE_KINK_SHARE if relative else LAYER_KINK_SHARE)
+    leaves = [a.detach().clone().requires_grad_(True) for a in args]
+    want = ref(*leaves, seed, rate, h_, t, return_residuals=True, relu_flips=flips)
+    want[0].backward(dy)
+    errs = {}
+    for name, g, w in zip(out_names, res, want):
+        w = w.detach().float()
+        top = float(w.abs().max())
+        bar = (1e-4 * (top if relative else 1.0) if dtype == torch.float32 else 2e-2 * top)
+        errs[name] = max_err(g, w)
+        check(errs[name] <= bar, f"{name} {what}: {errs[name]} > {bar}")
+    for name, g, leaf in zip(DEC_GRAD_NAMES if decoder else GRAD_NAMES, grads, leaves):
+        w = leaf.grad.float()
+        rel = 1e-4 if dtype == torch.float32 else 2e-2
+        errs[name] = max_err(g, w)
+        check(errs[name] <= rel * float(w.abs().max()),
+              f"{name} {what}: {errs[name]} > {rel} * {float(w.abs().max())}")
+    return errs, kink
+
+
 # C11: the f32 chains' drift over ff, at the flagship's ff, the lm config's and above
 DRIFT_FFS = (LAYER_SHAPE["ff"], 1024, 2048, 4096, 8192)
 
@@ -1380,6 +1452,68 @@ DRIFT_FFS = (LAYER_SHAPE["ff"], 1024, 2048, 4096, 8192)
 # the timed cases of phases 8 and 14: both dtypes at the YAML's batch and bench.py's
 LAYER_TIMINGS = ((32, torch.bfloat16), (512, torch.bfloat16), (32, torch.float32),
                  (512, torch.float32))
+# The chains' wide route (d past layer_sm90.LN_TILE): d 512 with 4 heads and ff
+# 1,024, a width the JAX gate admits and configs/InfillingRandom_sweep.yaml,
+# InfillingKicksAndSnares_sweep_2.yaml draw, timed; d 512 with one head (hd
+# 512, the widest head) and ff 512, checked
+WIDE_SHAPES = (dict(d=512, h=4, ff=1024, t=32), dict(d=512, h=1, ff=512, t=32))
+
+
+def wide_layers(dev, rng, decoder: bool) -> dict:
+    """The wide route of the encoder (or decoder) chain at ``WIDE_SHAPES``,
+    both dtypes, rate 0.30, B 32: two calls with one seed bit-identical, the
+    layer against its twin (``against_twin``), every launch of the route
+    recorded and held to its plain version (``sm90_launches``: bf16 2e-2, f32
+    1e-5 · max, the hidden product's ReLU decisions by ``kink_flips``); at
+    the first shape, B 32 and 512, each launch's device time, the layer's
+    forward and backward device time, its own bound and
+    ``nn.Transformer*Layer``'s."""
+    mod, case, backward_args = ((fdl, decoder_case, decoder_backward_args) if decoder
+                                else (fl, layer_case, layer_backward_args))
+    checks, timings = [], []
+    for shape in WIDE_SHAPES:
+        d, h_, ff, t = shape["d"], shape["h"], shape["ff"], shape["t"]
+        for dtype in (torch.bfloat16, torch.float32):
+            dname = str(dtype)[6:]
+            route = mod.route_kernels(dtype, d)
+            for b in (32, 512) if shape is WIDE_SHAPES[0] else (32,):
+                args, dy = case(dev, rng, b, dtype, ff=ff, d=d)
+                seed = torch.tensor([2024 + b], dtype=torch.int32, device=dev)
+                kf = lambda: mod.layer_forward(*args, seed, 0.3, h_, t)  # noqa: E731
+
+                def kb(fwd):
+                    return mod.layer_backward(dy, *backward_args(args, fwd, seed), 0.3, h_, t)
+
+                with layer_sm90.recording() as record:
+                    res = kf()
+                    grads = kb(res)
+                res2 = kf()
+                runs = [res + grads, res2 + kb(res2)]
+                torch.cuda.synchronize()
+                bitwise = all(torch.equal(u, v) for u, v in zip(*runs))
+                what = f"{'decoder' if decoder else 'encoder'} {shape} B {b} {dname}"
+                check(bitwise, f"two runs with one seed differ, {what}")
+                check(len(record) == len(route), f"{what}: {len(record)} launches, route "
+                                                 f"{len(route)}")
+                timed = shape is WIDE_SHAPES[0]
+                row = {"shape": shape, "B": b, "dtype": dname, "rate": 0.3,
+                       "bitwise_repeat": bitwise,
+                       "launches": sm90_launches(record, route, plain=timed and b == 32,
+                                                 n=(20 if b == 32 else 5) if timed else 0,
+                                                 dtype=dtype)}
+                if b == 32:
+                    row["max_abs_err"], row["relu_kink_flips"] = against_twin(
+                        mod, args, dy, seed, 0.3, h_, res, grads, dtype, what, relative=True)
+                if timed:
+                    row["kernel_fwd_device_ms"] = sum(
+                        us for us, _ in device_us(kf, n=3).values()) / 1000.0
+                    row["kernel_bwd_device_ms"] = sum(
+                        us for us, _ in device_us(lambda: kb(res), n=3).values()) / 1000.0
+                    row["io_bounds"] = layer_io_bounds(b, decoder, dname, shape)
+                    row["library"] = library_layer(args, dy, b, decoder, shape)
+                (timings if timed else checks).append(row)
+    return {"checked": checks, "timings": timings}
+
 
 
 def phase_layer(dev, rng) -> dict:
@@ -1407,28 +1541,8 @@ def phase_layer(dev, rng) -> dict:
                 torch.cuda.synchronize()
                 bitwise = all(torch.equal(u, v) for u, v in zip(res + grads, res2 + grads2))
                 check(bitwise, f"two runs with one seed differ at B {b} {dtype} rate {rate}")
-                with torch.no_grad():
-                    own = fl.encoder_layer_reference(*args, seed, rate, h_, t,
-                                                     return_residuals=True)
-                flips, kink = layer_flips(own[3], res[3])
-                leaves = [a.detach().clone().requires_grad_(True) for a in args]
-                want = fl.encoder_layer_reference(*leaves, seed, rate, h_, t,
-                                                  return_residuals=True, relu_flips=flips)
-                want[0].backward(dy)
-                errs = {}
-                for name, g, w in zip(("y", "qkv", "a1", "h", "a2"), res, want):
-                    w = w.detach().float()
-                    bar = 1e-4 if dtype == torch.float32 else 2e-2 * float(w.abs().max())
-                    errs[name] = max_err(g, w)
-                    check(errs[name] <= bar, f"{name} at B {b} {dtype} rate {rate}: "
-                                             f"{errs[name]} > {bar}")
-                for name, g, leaf in zip(GRAD_NAMES, grads, leaves):
-                    w = leaf.grad.float()
-                    rel = 1e-4 if dtype == torch.float32 else 2e-2
-                    errs[name] = max_err(g, w)
-                    check(errs[name] <= rel * float(w.abs().max()),
-                          f"{name} at B {b} {dtype} rate {rate}: {errs[name]} > "
-                          f"{rel} * {float(w.abs().max())}")
+                errs, kink = against_twin(fl, args, dy, seed, rate, h_, res, grads, dtype,
+                                          f"at B {b} {dtype} rate {rate}")
                 worst[dtype] = max(worst[dtype], *errs.values())
                 checks.append({"B": b, "dtype": str(dtype)[6:], "rate": rate,
                                "max_abs_err": errs, "bitwise_repeat": bitwise,
@@ -1440,7 +1554,7 @@ def phase_layer(dev, rng) -> dict:
         res = fl.layer_forward(*args, seed, 0.3, h_, t)
         leaves = [a.detach().clone().requires_grad_(True) for a in args]
         y_ref = fl.encoder_layer_reference(*leaves, seed, 0.3, h_, t)
-        n = 50 if b == 32 else 10  # calls per timing, after 10 warm-up calls
+        n = 20 if b == 32 else 5  # calls per timing, after 10 warm-up calls
         kf = lambda: fl.layer_forward(*args, seed, 0.3, h_, t)  # noqa: E731
 
         def kb(fwd=res):
@@ -1463,18 +1577,18 @@ def phase_layer(dev, rng) -> dict:
         row["io_bounds"] = layer_io_bounds(b, dtype=str(dtype)[6:])
         row["library"] = library_layer(args, dy, b, decoder=False)
         timings.append(row)
+    wide = wide_layers(dev, rng, decoder=False)
     emit({"phase": "layer", "shape": LAYER_SHAPE, "checks": checks,
           "bars": {"float32": "1e-4 abs (y, residuals); 1e-4 * max|grad| (grads)",
                    "bfloat16": "2e-2 * max|ref|"},
           "kink_survey": kink_survey(dev, decoder=False), "timings": timings,
-          "f32_chain_drift": [chain_drift(dev, rng, ff) for ff in DRIFT_FFS]})
-    return {"max_abs_err": worst, "timings": timings}
+          "f32_chain_drift": [chain_drift(dev, rng, ff) for ff in DRIFT_FFS], "wide": wide})
+    return {"max_abs_err": worst, "timings": timings, "wide": wide}
 
 
-def decoder_case(dev, rng, b: int, dtype, ff: int = LAYER_SHAPE["ff"]):
-    """Flagship-shaped decoder-layer inputs from ``rng`` (ff as given): (y, mem
-    and the 20 parameters in ``fdl.ARG_NAMES`` order, dy)."""
-    d = LAYER_SHAPE["d"]
+def decoder_case(dev, rng, b: int, dtype, ff: int = LAYER_SHAPE["ff"], d: int = LAYER_SHAPE["d"]):
+    """Flagship-shaped decoder-layer inputs from ``rng`` (ff and d as given):
+    (y, mem and the 20 parameters in ``fdl.ARG_NAMES`` order, dy)."""
     m = b * LAYER_SHAPE["t"]
 
     def n(*shape, scale=1.0, offset=0.0):
@@ -1527,28 +1641,8 @@ def phase_decoder_layer(dev, rng) -> dict:
                 bitwise = all(torch.equal(u, v) for u, v in zip(res + grads, res2 + grads2))
                 check(bitwise, f"decoder layer: two runs with one seed differ at B {b} "
                                f"{dtype} rate {rate}")
-                with torch.no_grad():
-                    own = fdl.decoder_layer_reference(*args, seed, rate, h_, t,
-                                                      return_residuals=True)
-                flips, kink = layer_flips(own[6], res[6])
-                leaves = [a.detach().clone().requires_grad_(True) for a in args]
-                want = fdl.decoder_layer_reference(*leaves, seed, rate, h_, t,
-                                                   return_residuals=True, relu_flips=flips)
-                want[0].backward(dy)
-                errs = {}
-                for name, g, w in zip(("y",) + fdl.RESIDUAL_NAMES, res, want):
-                    w = w.detach().float()
-                    bar = 1e-4 if dtype == torch.float32 else 2e-2 * float(w.abs().max())
-                    errs[name] = max_err(g, w)
-                    check(errs[name] <= bar, f"decoder {name} at B {b} {dtype} rate {rate}: "
-                                             f"{errs[name]} > {bar}")
-                for name, g, leaf in zip(DEC_GRAD_NAMES, grads, leaves):
-                    w = leaf.grad.float()
-                    rel = 1e-4 if dtype == torch.float32 else 2e-2
-                    errs[name] = max_err(g, w)
-                    check(errs[name] <= rel * float(w.abs().max()),
-                          f"decoder {name} at B {b} {dtype} rate {rate}: {errs[name]} > "
-                          f"{rel} * {float(w.abs().max())}")
+                errs, kink = against_twin(fdl, args, dy, seed, rate, h_, res, grads, dtype,
+                                          f"decoder at B {b} {dtype} rate {rate}")
                 worst[dtype] = max(worst[dtype], *errs.values())
                 checks.append({"B": b, "dtype": str(dtype)[6:], "rate": rate,
                                "max_abs_err": errs, "bitwise_repeat": bitwise,
@@ -1560,7 +1654,7 @@ def phase_decoder_layer(dev, rng) -> dict:
         res = fdl.layer_forward(*args, seed, 0.3, h_, t)
         leaves = [a.detach().clone().requires_grad_(True) for a in args]
         y_ref = fdl.decoder_layer_reference(*leaves, seed, 0.3, h_, t)
-        n = 30 if b == 32 else 5  # calls per timing, after 10 warm-up calls
+        n = 12 if b == 32 else 3  # calls per timing, after 10 warm-up calls
         kf = lambda: fdl.layer_forward(*args, seed, 0.3, h_, t)  # noqa: E731
 
         def kb(fwd=res):
@@ -1583,12 +1677,14 @@ def phase_decoder_layer(dev, rng) -> dict:
         row["io_bounds"] = layer_io_bounds(b, decoder=True, dtype=str(dtype)[6:])
         row["library"] = library_layer(args, dy, b, decoder=True)
         timings.append(row)
+    wide = wide_layers(dev, rng, decoder=True)
     emit({"phase": "decoder_layer", "shape": LAYER_SHAPE, "checks": checks,
           "bars": {"float32": "1e-4 abs (y, residuals); 1e-4 * max|grad| (grads)",
                    "bfloat16": "2e-2 * max|ref|"},
           "kink_survey": kink_survey(dev, decoder=True), "timings": timings,
-          "f32_chain_drift": [chain_drift(dev, rng, ff, decoder=True) for ff in DRIFT_FFS]})
-    return {"max_abs_err": worst, "timings": timings}
+          "f32_chain_drift": [chain_drift(dev, rng, ff, decoder=True) for ff in DRIFT_FFS],
+          "wide": wide})
+    return {"max_abs_err": worst, "timings": timings, "wide": wide}
 
 
 def model_params(hp: dict, **model):
@@ -1628,8 +1724,19 @@ class Loops:
 # encoder and decoder layer kernels: each dtype's chain, counted apart
 SM90_LAYER_KERNELS = {**fl.SM90_KERNELS, **fdl.SM90_KERNELS}
 F32_LAYER_KERNELS = {**fl.SM90_F32_KERNELS, **fdl.SM90_F32_KERNELS}
-LAYER_KERNELS = {**SM90_LAYER_KERNELS, **F32_LAYER_KERNELS}
+# the chains' wide route (d past layer_sm90.LN_TILE), each dtype's: 16 launches an
+# encoder layer, 26 a decoder layer, the shared ones the counters above
+WIDE_LAYER_KERNELS = {**fl.SM90_WIDE_KERNELS, **fdl.SM90_WIDE_KERNELS,
+                      **fl.SM90_WIDE_F32_KERNELS, **fdl.SM90_WIDE_F32_KERNELS}
+LAYER_KERNELS = {**SM90_LAYER_KERNELS, **F32_LAYER_KERNELS, **WIDE_LAYER_KERNELS}
 N_FWD = {fl: 5, fdl: 9}  # each chain's forward launches, its first
+N_WIDE_FWD = {fl: 7, fdl: 12}  # likewise in the wide route
+# configs/InfillingRandom_sweep.yaml's draws past d 256 on the flagship's other
+# hyperparameters: d 512 with 4 heads and ff 1,024 (the turns behind
+# LAYER_KERNEL_MAX_D) and d 512 with one head of 512 and ff 512
+WIDE_HP = {**FLAGSHIP_HP, "d_model": 512, "n_heads": 4, "dim_feedforward": 1024}
+WIDE_HEAD_HP = {**FLAGSHIP_HP, "d_model": 512, "n_heads": 1, "dim_feedforward": 512}
+WIDE_DEC_LAYERS = 2  # the encoder-decoder's layers a side in the wide turns (cut from 6)
 
 
 def f32_step_launches(mod, steps: int, layers: int) -> dict:
@@ -1703,6 +1810,63 @@ def step_breakdown(bundle, b: int, seed: int, encoder_only: int = 1, count=()) -
             **({"launches_per_step_of": {name: sum(c for k, (_, c) in per_kernel.items()
                                                    if name in k) / 2 for name in count}}
                if count else {})}
+
+
+def wide_training(dev, decoder: bool) -> dict:
+    """The chains' wide route in training, the encoder-only family (or the
+    encoder-decoder with ``decoder``). (a) ``WIDE_HEAD_HP`` (d 512, one head of
+    512, 6 layers a side) with the chain forced (auto leaves it off past
+    ``LAYER_KERNEL_MAX_D``), the counts reset just before: one bf16 epoch of
+    4 steps, then 2 f32 steps, each with its held-out loss through #1 at hd
+    512 (the parent raised there): every launch of the route once a layer
+    and step, #1 6 launches a held-out forward (18 in the encoder-decoder),
+    the loss finite. (b) ``WIDE_HP`` (d 512, 4 heads, ff 1,024; the
+    encoder-decoder at ``WIDE_DEC_LAYERS`` a side), the chain against the
+    unfused path in ``F32_PAIRS`` pairs of turns, each dtype at batch 32 and
+    512, and what auto picks there."""
+    layers = FLAGSHIP_HP["num_encoder_decoder_layers"]
+    if decoder:
+        forced, unfused = ({"fused_layer": v, "fused_decoder_layer": v} for v in (True, False))
+        resolve, enc_only = resolve_fused_decoder_layer, 0
+    else:
+        forced, unfused = {"fused_layer": True}, {"fused_layer": False}
+        resolve, enc_only = resolve_fused_layer, 1
+    d, held, batch = WIDE_HEAD_HP["d_model"], Loops(64, 42), FLAGSHIP_HP["batch_size"]
+    path = {}
+    for dtype, items in ((torch.bfloat16, 128), (torch.float32, 64)):
+        dname, steps = str(dtype)[6:], items // batch
+        extra = {"num_decoder_layers": layers} if decoder else {}
+        bundle, _, _ = initialize_model(
+            model_params(WIDE_HEAD_HP, bf16=dtype == torch.bfloat16, **forced, **extra), dev)
+        check(bundle.config.compute_dtype == dtype, f"{bundle.config} is not {dtype}")
+        route = {**fl.route_kernels(dtype, d), **(fdl.route_kernels(dtype, d) if decoder else {})}
+        reset_launches()  # the main path's run starts here
+        MHA.launches = 0
+        metrics = run_epochs(bundle, Loops(items, 41), held, 1, batch, enc_only)[0]
+        torch.cuda.synchronize()
+        counts, mha = launches(route), MHA.launches  # ... and ends here
+        check(all(c == steps * layers for c in counts.values()),
+              f"wide route, {dname}: launches {counts}, expected {steps * layers} each")
+        check(mha == (18 if decoder else 6), f"#1 launched {mha} times in a held-out forward")
+        check(all(np.isfinite(v) for v in metrics.values()), f"non-finite: {metrics}")
+        path[dname] = {"launches": counts, "fused_mha_launches": mha, "steps": steps,
+                       "metrics": metrics}
+    turns = {}
+    extra = {"num_encoder_decoder_layers": WIDE_DEC_LAYERS} if decoder else {}
+    small, big = Loops(256, 43), Loops(1024, 43)  # 8 and 2 steps a turn
+    for dtype in (torch.bfloat16, torch.float32):
+        hp = {**WIDE_HP, **extra}
+        for b in THROUGHPUT_BATCHES:
+            models = {which: initialize_model(model_params(
+                hp, bf16=dtype == torch.bfloat16, **switches,
+                **({"num_decoder_layers": hp["num_encoder_decoder_layers"]} if decoder else {})),
+                dev)[0] for which, switches in (("kernel", forced), ("unfused", unfused))}
+            row = paired_turns(models, small if b == batch else big, b, enc_only)
+            row["auto_picks_kernel"] = resolve(None, WIDE_HP["d_model"], WIDE_HP["n_heads"],
+                                               WIDE_HP["dim_feedforward"], compute_dtype=dtype,
+                                               batch_size=b)
+            turns[f"{str(dtype)[6:]}_B{b}"] = row
+    return {"path": path, "paired_turns": turns}
 
 
 @contextlib.contextmanager
@@ -1854,6 +2018,8 @@ def phase_train(dev, rng) -> dict:
             None, FLAGSHIP.d_model, FLAGSHIP.n_heads, FLAGSHIP.dim_feedforward,
             compute_dtype=torch.float32, batch_size=b)
 
+    wide = wide_training(dev, decoder=False)
+
     # the trained weights served by the serving slice, against the CPU plain path
     sd = {k: v.detach().cpu() for k, v in bundle.model.state_dict().items()}
     srv = serve.InfillServer(sd, FLAGSHIP, batch_sizes=BUCKETS, device=dev)
@@ -1873,9 +2039,10 @@ def phase_train(dev, rng) -> dict:
           "three_f32_steps_param_err": param_err,
           "three_f32_steps_kink_flips": kinks, "unfused_bar": UNFUSED_BAR,
           "seqs_per_s": throughput, "step_breakdown": breakdown,
-          "f32_paired_turns": f32_turns, "served_max_abs_err_vs_cpu": serve_err})
+          "f32_paired_turns": f32_turns, "served_max_abs_err_vs_cpu": serve_err,
+          "wide": wide})
     return {"launches": counts, "f32_launches": f32_counts, "seqs_per_s": throughput,
-            "f32_paired_turns": f32_turns}
+            "f32_paired_turns": f32_turns, "wide": wide}
 
 
 def augment_corpus():
@@ -2439,6 +2606,7 @@ def phase_train_encdec(dev, rng) -> dict:
         f32_turns[b]["auto_picks_kernel"] = resolve_fused_decoder_layer(
             None, ENCDEC.d_model, ENCDEC.n_heads, ENCDEC.dim_feedforward,
             compute_dtype=torch.float32, batch_size=b)
+    wide = wide_training(dev, decoder=True)
     emit({"phase": "train_encdec",
           "config": {**FLAGSHIP_HP, "encoder_only": 0, "num_decoder_layers": ENCDEC_LAYERS},
           "data": "256 seeded synthetic loops (512 for the rates at batch 512)",
@@ -2449,9 +2617,9 @@ def phase_train_encdec(dev, rng) -> dict:
           "last_metrics": metrics[-1], "unfused_losses": plain_losses,
           "three_f32_steps_param_err": param_err, "three_f32_steps_kink_flips": kinks,
           "unfused_bar": UNFUSED_BAR, "seqs_per_s": throughput, "step_breakdown": breakdown,
-          "f32_paired_turns": f32_turns})
+          "f32_paired_turns": f32_turns, "wide": wide})
     return {"launches": counts, "f32_launches": f32_counts, "seqs_per_s": throughput,
-            "f32_paired_turns": f32_turns}
+            "f32_paired_turns": f32_turns, "wide": wide}
 
 
 def phase_serve_encdec(dev, rng, enc_srv) -> dict:
@@ -5986,9 +6154,9 @@ def main() -> int:
             rows = [row[key] for row in rows]
         return rows
 
-    def mha_row(b, dtype, form="contiguous"):
+    def mha_row(b, dtype, form="contiguous", h=2, hd=128):
         return next(t for t in kernel["timings"]
-                    if t["shape"] == [b, 2, 32, 128] and t["dtype"] == dtype and t["form"] == form)
+                    if t["shape"] == [b, h, 32, hd] and t["dtype"] == dtype and t["form"] == form)
 
     def mha_at(row):
         return {"ms": float(np.mean(row["kernel_us"])) / 1000.0,
@@ -6035,11 +6203,20 @@ def main() -> int:
            for form in MHA_FORMS if (b, dtype, form) != (1, "float32", "contiguous")},
         "eval_forward_B3300_bfloat16_packed_qkv": mha_at(
             mha_row(EVAL_ROWS["train"], "bfloat16", "packed_qkv")),
+        **{f"hd{MHA_WIDE_HDS[-1]}_B{b}_{dtype}_packed_qkv": mha_at(
+            mha_row(b, dtype, "packed_qkv", 1, MHA_WIDE_HDS[-1]))
+           for dtype in ("float32", "bfloat16") for b in (1, 512)},
+        "launches_wide_head_held_out_forward": {
+            f"{which}_{dname}": run["fused_mha_launches"]
+            for which, out in (("encoder", train), ("encoder_decoder", encdec))
+            for dname, run in out["wide"]["path"].items()},
         "at": "B 1, H 2, T 32, hd 128, float32, contiguous; ms: stream time; device_ms: the "
               "profiler's per launch; err over all f32 checks; library: "
               "scaled_dot_product_attention on the same views; vmap_folded: one call of "
               "tgi::fused_mha under torch.func.vmap over 8 trials (phase 25's ranking "
-              "forward), stream time, SDPA on the folded views"}]
+              "forward), stream time, SDPA on the folded views; hd512: one head of 512 (a d "
+              "512 model with one head); launches_wide_head_held_out_forward: the held-out "
+              "forward of phases 9 and 15's d 512 / 1 head runs"}]
 
     def timing(phase_out, b, dtype):
         return next(t for t in phase_out["timings"] if t["B"] == b and t["dtype"] == dtype)
@@ -6084,13 +6261,49 @@ def main() -> int:
                 "launches_one_rank_plan_path": per_rank("a", "a", "plan", "launches")[0],
                 "launches_resumed_parallel_checkpoint": par["cli"]["resume"]["launches"]}),
               ("decoder", dec_layer, fdl, DEC_TPU_KERNELS, encdec, {}))
+    def wide_at(out, path, dname, kname):
+        """A launch of the wide route: its launches on the d 512 / 1 head main
+        path, its worst error over both shapes, at d 512 / 4 heads / ff 1,024
+        its device time, bound, plain and library times at B 32 and 512."""
+        rows = {r["B"]: r["launches"][kname] for r in out["wide"]["timings"]
+                if r["dtype"] == dname}
+        errs = [r["launches"][kname]["max_abs_err"]
+                for r in out["wide"]["timings"] + out["wide"]["checked"] if r["dtype"] == dname]
+        return {"launches": path["wide"]["path"][dname]["launches"][kname],
+                "max_abs_err": max(errs), "ms": rows[32]["device_ms"],
+                "plain_ms": rows[32]["plain_ms"], "bound_ms": rows[32]["bound_ms"],
+                "bound_by": rows[32]["bound_by"], "library_ms": rows[32]["library_ms"],
+                "B512": {"ms": rows[512]["device_ms"], "bound_ms": rows[512]["bound_ms"],
+                         "bound_by": rows[512]["bound_by"]}}
+
     for which, out, mod, tpu, path, more in layers:
         for dtype in (torch.bfloat16, torch.float32):
             dname = str(dtype)[6:]
             at32, at512 = timing(out, 32, dname), timing(out, 512, dname)
             f32 = dtype == torch.float32
             main_path = path["f32_launches"] if f32 else path["launches"]
-            for i, kname in enumerate(mod.route_kernels(dtype)):
+            narrow_route = mod.route_kernels(dtype)
+            wide_route = mod.route_kernels(dtype, WIDE_SHAPES[0]["d"])
+            for i, kname in enumerate(wide_route):
+                if kname in narrow_route:
+                    continue
+                kernels.append({
+                    "name": kname, "route": "cuda", "source": LAYER_WIDE_SOURCE,
+                    "replaces": tpu["fwd" if i < N_WIDE_FWD[mod] else "bwd"],
+                    **wide_at(out, path, dname, kname),
+                    "at": f"the {which} layer's {dname} chain in its wide route (d past 256): "
+                          "B 32 (B512: batch 512), T 32, d 512, 4 heads, ff 1,024, rate 0.30; "
+                          "ms: device time per launch (profiler); plain_ms: its plain version "
+                          "on the stream; bound: this launch's own bytes and operations"
+                          + (" (f32 products at 495/3 TFLOP/s)" if f32 else "")
+                          + "; library: addmm for the f32 gradient sum, F.layer_norm for the f32 "
+                          "forward row pass (ln_y), else none; err: the "
+                          "largest over every output at d 512 with 4 heads / ff 1,024 (B 32 "
+                          "and 512) and 1 head / ff 512 (B 32), each held to "
+                          f"{SM90_BAR[dtype]} of its largest value; launches: the d 512 / 1 "
+                          f"head main path of phase {9 if which == 'encoder' else 15} ("
+                          + ("2 f32 steps" if f32 else "4 bf16 steps") + ")"})
+            for i, kname in enumerate(narrow_route):
                 l32, l512 = at32["launches"][kname], at512["launches"][kname]
                 kernels.append({
                     "name": kname, "route": "cuda", "source": LAYER_SM90_SOURCE,
@@ -6100,6 +6313,8 @@ def main() -> int:
                     "vmap": vmap_route("fused_layer" if which == "encoder"
                                        else "fused_decoder_layer", dname, kname),
                     "max_abs_err": max(l32["max_abs_err"], l512["max_abs_err"]),
+                    **({"wide_route": wide_at(out, path, dname, kname)}
+                       if kname in wide_route else {}),
                     "ms": l32["device_ms"], "plain_ms": l32["plain_ms"],
                     "bound_ms": l32["bound_ms"], "bound_by": l32["bound_by"],
                     **({"bound_ms_at_67_tflops": l32["at_67"]} if f32 else {}),

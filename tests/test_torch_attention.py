@@ -98,6 +98,22 @@ def test_strided_views_match_jax_fused_mha(rng, form, dtype, causal):
                                atol=2e-5 if dtype == "float32" else 1e-2)
 
 
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_fused_mha_at_hd_512_matches_jax_fused_mha(rng, dtype, causal):
+    """A d 512 model with one head: ``fused_mha`` at hd 512 (``MAX_HEAD_DIM``)
+    on the slices of a packed qkv, against the JAX kernel in interpret mode,
+    which takes any hd."""
+    b, t, h, hd = 2, 32, 1, port.MAX_HEAD_DIM
+    views, arrays = _packed(rng, b, t, h, hd, "self")
+    tdt, jdt = getattr(torch, dtype), getattr(jnp, dtype)
+    got = port.fused_mha(*(x.to(tdt) for x in views), causal=causal)
+    assert got.shape == (b, h, t, hd) and got.dtype == tdt
+    want = jax_fused_mha(*(jnp.asarray(a, jdt) for a in arrays), interpret=True, causal=causal)
+    np.testing.assert_allclose(got.float().numpy(), np.asarray(want.astype(jnp.float32)),
+                               atol=2e-5 if dtype == "float32" else 1e-2)
+
+
 def test_tensor_core_path_selection(rng):
     """bf16, hd a multiple of 16 and 16-byte aligned rows take the tensor
     cores; anything else the CUDA-core path of the same kernel."""
@@ -134,7 +150,7 @@ def _meta(shape, dtype=torch.float32):
      "shape"),
     (lambda: [_meta((2, 32, 16))] * 3, "shape"),
     (lambda: [_meta((1, 2, 65, 16))] * 3, "T ≤ 64"),
-    (lambda: [_meta((1, 2, 32, 257))] * 3, "hd ≤ 256"),
+    (lambda: [_meta((1, 2, 32, 513))] * 3, "hd ≤ 512"),
     (lambda: [_meta((0, 2, 32, 16))] * 3, "B·H ≥ 1"),
     (lambda: [_meta((1, 2, 16, 32)).transpose(2, 3)] * 3, "unit stride on hd"),
 ])
@@ -145,7 +161,7 @@ def test_check_kernel_args_rejects(make, match):
 
 def test_kernel_args_accept_the_serving_shapes():
     for shape in ((1, 2, 32, 128), (512, 2, 32, 128), (32, 4, 32, 8),
-                  (4, 1, 64, 256)):
+                  (4, 1, 64, 256), (512, 1, 32, 512)):
         for dtype in port.KERNEL_DTYPES:
             port.check_kernel_args(*[_meta(shape, dtype)] * 3)
 
@@ -163,6 +179,13 @@ def test_kernel_smem_bytes():
     # the largest shape the kernel takes fits one block on both paths
     assert port.kernel_smem_bytes(64, 256) <= port.MAX_SMEM_BYTES
     assert port.kernel_smem_bytes(64, 256, tensor_cores=True) <= port.MAX_SMEM_BYTES
+    # hd 512 (d 512, one head) at the model's T 32: 83 KB and 167 KB; at T 64
+    # the tensor cores' 150 KB fits and the f32 path's 301 KB does not (past
+    # hd 392 there the wrapper refuses the shape)
+    assert port.kernel_smem_bytes(32, 512, tensor_cores=True) == 2 * (16 + 64) * 520 == 83200
+    assert port.kernel_smem_bytes(32, 512) == 4 * ((16 + 32 + 32) * 516 + 16 * 32) == 167168
+    assert port.kernel_smem_bytes(64, 512, tensor_cores=True) <= port.MAX_SMEM_BYTES
+    assert port.kernel_smem_bytes(64, 392) <= port.MAX_SMEM_BYTES < port.kernel_smem_bytes(64, 400)
 
 
 def test_build_without_nvcc_raises(tmp_path, monkeypatch):

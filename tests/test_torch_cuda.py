@@ -44,7 +44,7 @@ def rng():
 @pytest.mark.parametrize("causal", [False, True])
 @pytest.mark.parametrize("dtype, tol", [(torch.float32, 1e-5), (torch.bfloat16, 2e-2)])
 @pytest.mark.parametrize("shape", [(8, 2, 32, 128), (8, 4, 32, 8), (2, 2, 64, 256),
-                                   (3, 1, 17, 5)])
+                                   (3, 1, 17, 5), (8, 1, 32, 512), (4, 1, 32, 384)])
 def test_kernel_matches_plain_version(cuda, rng, shape, dtype, tol, causal):
     q, k, v = (torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
                .to(cuda, dtype) for _ in range(3))
@@ -63,6 +63,18 @@ def test_kernel_refuses_a_cpu_tensor_mix(cuda):
     q = torch.zeros(1, 2, 32, 16, device=cuda)
     with pytest.raises(ValueError, match="one CUDA device"):
         attention.fused_mha(q, q.cpu(), q)
+
+
+@pytest.mark.cuda
+def test_kernel_refuses_a_block_past_the_shared_memory_limit(cuda):
+    """f32 at T 64 and hd 512 would need 301 KB of shared memory a block;
+    bf16 on the tensor cores fits (150 KB)."""
+    q = torch.zeros(1, 1, 64, 512, device=cuda)
+    with pytest.raises(ValueError, match="shared memory"):
+        attention.fused_mha(q, q, q)
+    out = attention.fused_mha(*[q.to(torch.bfloat16)] * 3)
+    torch.cuda.synchronize()
+    assert out.shape == q.shape
 
 
 @pytest.mark.cuda
@@ -94,7 +106,7 @@ def test_vmap_rule_folds_the_trials_into_one_launch(cuda, rng, dtype, tol):
 @pytest.mark.parametrize("dtype, tol", [(torch.float32, 1e-5), (torch.bfloat16, 2e-2)])
 @pytest.mark.parametrize("form", ["self", "cross"])
 @pytest.mark.parametrize("b, t, h, hd", [(1, 32, 2, 128), (64, 32, 2, 128), (3, 17, 4, 16),
-                                         (2, 64, 1, 256), (5, 32, 4, 8)])
+                                         (2, 64, 1, 256), (5, 32, 4, 8), (16, 32, 1, 512)])
 def test_kernel_reads_packed_projections(cuda, rng, b, t, h, hd, form, dtype, tol, causal):
     """The slices of the model's packed qkv (self) or of q and a packed kv
     (cross) without a copy, against the plain version on contiguous copies;
@@ -255,6 +267,59 @@ def test_layer_kernels_match_the_twin(cuda, rng, t, d, h, ff, nseq, dtype, rate)
     ref_leaves = [a.detach().clone().requires_grad_(True) for a in args]
     want = fused_layer.encoder_layer_reference(*ref_leaves, seed, rate, h, t,
                                                return_residuals=True, relu_flips=flips)
+    want[0].backward(dy)
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    for got, ref in [(y.detach(), want[0])] + list(zip(res[1:], want[1:])):
+        ref = ref.detach().float()
+        assert float((got.float() - ref).abs().max()) <= tol * max(1.0, float(ref.abs().max()))
+    for leaf, ref in zip(leaves, ref_leaves):
+        assert leaf.grad.dtype == leaf.dtype
+        scale = float(ref.grad.float().abs().max())
+        assert float((leaf.grad.float() - ref.grad.float()).abs().max()) <= tol * scale
+
+
+def _wide_flips(own_h, kernel_h):
+    """A whole layer at d 512 against its twin: each ReLU decision that
+    differs within KINK_BAND of 0, and at most KINK_SHARE (f32) or
+    WIDE_KINK_SHARE (bf16) of the units, plus 4."""
+    share = (fused_layer.KINK_SHARE if own_h.dtype == torch.float32
+             else fused_layer.WIDE_KINK_SHARE)
+    return fused_layer.kink_flips(own_h, kernel_h, share)[0]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rate", [0.0, 0.3])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("decoder", [False, True])
+def test_wide_layers_match_the_twin(cuda, rng, decoder, dtype, rate):
+    """d 512, 4 heads, ff 1,024, the chains' wide route: forward, row
+    backward and weight gradients through the layer's autograd Function
+    against autograd through the twin (same masks; the kernel's side of the
+    ReLU at the units ``_wide_flips`` admits), the bars of the layer tests
+    above; each launch of the dtype's wide route once, nothing else."""
+    t, d, h, ff, nseq = 32, 512, 4, 1024, 4
+    mod = fused_decoder_layer if decoder else fused_layer
+    args, dy = (_decoder_inputs if decoder else _layer_inputs)(cuda, rng, t, d, ff, nseq, dtype)
+    seed = torch.tensor([99], dtype=torch.int32, device=cuda)
+    every = {**mod.SM90_KERNELS, **mod.SM90_F32_KERNELS, **mod.SM90_WIDE_KERNELS,
+             **mod.SM90_WIDE_F32_KERNELS}
+    before = {k: f.launches for k, f in every.items()}
+    train = mod.decoder_layer_train if decoder else mod.encoder_layer_train
+    leaves = [a.detach().clone().requires_grad_(True) for a in args]
+    y = train(*leaves, seed, rate, h, t)
+    y.backward(dy)
+    torch.cuda.synchronize()
+    route = mod.route_kernels(dtype, d)
+    assert {k: f.launches - before[k] for k, f in every.items()} == {
+        k: int(k in route) for k in every}
+    reference = mod.decoder_layer_reference if decoder else mod.encoder_layer_reference
+    res = mod.layer_forward(*args, seed, rate, h, t)
+    with torch.no_grad():
+        own = reference(*args, seed, rate, h, t, return_residuals=True)
+    h_at = 6 if decoder else 3
+    flips = _wide_flips(own[h_at], res[h_at])
+    ref_leaves = [a.detach().clone().requires_grad_(True) for a in args]
+    want = reference(*ref_leaves, seed, rate, h, t, return_residuals=True, relu_flips=flips)
     want[0].backward(dy)
     tol = 1e-4 if dtype == torch.float32 else 2e-2
     for got, ref in [(y.detach(), want[0])] + list(zip(res[1:], want[1:])):
@@ -469,21 +534,27 @@ CHAIN_BARS = {torch.bfloat16: 2e-2, torch.float32: 2e-5}
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("decoder", [False, True])
 @pytest.mark.parametrize("t, d, h, ff, nseq", [(32, 256, 2, 512, 16), (17, 64, 4, 96, 3),
-                                               (32, 256, 2, 2048, 4), (8, 32, 4, 64, 5)])
+                                               (32, 256, 2, 2048, 4), (8, 32, 4, 64, 5),
+                                               (32, 512, 4, 1024, 16), (32, 512, 1, 512, 8),
+                                               (17, 1024, 2, 1024, 3)])
 def test_sm90_launches_match_their_plain_versions(cuda, rng, decoder, t, d, h, ff, nseq, dtype):
     """Every launch of a layer call against its plain version on the same
     inputs, each output within its dtype's bar of its largest value
     (``CHAIN_BARS``), every launch of the dtype's chain once: 13 an encoder
-    layer, 21 a decoder layer. An f32 layer past ``F32_MAX_FF`` is refused
-    (ROADMAP §C11: phases 8 and 14 of chip_smoke.py hold the chain there)."""
+    layer, 21 a decoder layer; past d 256 the wide route's 16 and 26 (the
+    LayerNorm epilogues' launches as a product and a row pass each, the
+    row passes in chunks of 256 columns up to d 1,024, the f32 attention's
+    backward at hd 512 reading V from device memory). An f32 layer past
+    ``F32_MAX_FF`` is refused (ROADMAP §C11: phases 8 and 14 of chip_smoke.py
+    hold the chain there)."""
     if dtype == torch.float32 and ff > fused_layer.F32_MAX_FF:
         with pytest.raises(ValueError, match="do not take"):
             _sm90_record(cuda, rng, decoder, t, d, h, ff, nseq, 0.3, dtype=dtype)
         return
     mod, record, _ = _sm90_record(cuda, rng, decoder, t, d, h, ff, nseq, 0.3, dtype=dtype)
-    route = mod.route_kernels(dtype)
+    route = mod.route_kernels(dtype, d)
     names = {id(k): n for n, k in route.items()}
-    assert len(record) == (21 if decoder else 13)
+    assert len(record) == (21 if decoder else 13) + (d > layer_sm90.LN_TILE) * (5 if decoder else 3)
     assert sorted(names[id(launch.kernel)] for launch in record) == sorted(route)
     for launch in record:
         want = launch.reference(*launch.args, **launch.kwargs)
@@ -537,9 +608,16 @@ def test_sm90_launches_refuse_what_they_do_not_take(cuda, rng):
         layer_sm90.bias_product(k, x.float(), wqkv, bqkv)
     with pytest.raises(ValueError, match="contiguous activations"):
         layer_sm90.bias_product(k, x[:, :60], wqkv[:, :60], bqkv)  # rows not a multiple of 8
-    wide, _ = _layer_inputs(cuda, rng, 32, 264, 128, 2, torch.bfloat16)  # d beyond 256
+    wide, _ = _layer_inputs(cuda, rng, 32, 1032, 128, 2, torch.bfloat16)  # d beyond 1,024
     with pytest.raises(ValueError, match="supports_fused_layer"):
-        fused_layer.encoder_layer_train(*wide, seed, 0.3, 2, 32)
+        fused_layer.encoder_layer_train(*wide, seed, 0.3, 3, 32)
+    one_head, _ = _layer_inputs(cuda, rng, 32, 1024, 128, 2, torch.bfloat16)  # hd 1,024
+    with pytest.raises(ValueError, match="supports_fused_layer"):
+        fused_layer.encoder_layer_train(*one_head, seed, 0.3, 1, 32)
+    x2, w2 = wide[0][:, :512].contiguous(), wide[3][:512, :512].contiguous()
+    with pytest.raises(ValueError, match="wide route"):  # one kernel where d 512 takes two
+        layer_sm90.residual_ln_product(k, x2, w2, wide[4][:512], x2, wide[5][:512],
+                                       wide[6][:512], seed, 1, 0.3)
     with pytest.raises(ValueError, match="supports_fused_layer"):
         fused_layer.encoder_layer_train(*args, seed, 0.3, 2, 64)  # T beyond one warp
     mixed = list(args)
@@ -1252,23 +1330,25 @@ def test_two_rank_group_on_the_card_follows_the_backend_rule(cuda, tmp_path):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("kernel", ["fused_layer", "fused_decoder_layer", "fused_ffn",
-                                    "fused_dropout_ln"])
-def test_training_kernels_under_vmap_equal_unbatched_launches(cuda, kernel, dtype):
+@pytest.mark.parametrize("kernel, d, ff", [
+    pytest.param(k, 64, 128, id=k)
+    for k in ("fused_layer", "fused_decoder_layer", "fused_ffn", "fused_dropout_ln")] + [
+    pytest.param(k, 512, 1024, id=f"{k}-512") for k in ("fused_layer", "fused_decoder_layer")])
+def test_training_kernels_under_vmap_equal_unbatched_launches(cuda, kernel, d, ff, dtype):
     """Kernels #2-#5 through their operators' vmap rules, under
     ``vmap(grad_and_value(...), randomness="different")`` over 3 trials at
     rate 0.3: outputs and every gradient bit for bit those of 3 unbatched
     calls with each trial's seed, and 3 times a call's launches of each
-    kernel."""
+    kernel (at d 512 the layers' wide route)."""
     from torch_vmap_cases import assert_equal, calls, trials, unbatched, vmapped
 
-    counters = {"fused_layer": fused_layer.route_kernels(dtype),
-                "fused_decoder_layer": fused_decoder_layer.route_kernels(dtype),
+    counters = {"fused_layer": fused_layer.route_kernels(dtype, d),
+                "fused_decoder_layer": fused_decoder_layer.route_kernels(dtype, d),
                 "fused_ffn": fused_ffn.BF16_KERNELS if dtype == torch.bfloat16
                 else fused_ffn.F32_KERNELS,
                 "fused_dropout_ln": fused_ln.KERNELS}[kernel]
     call = calls(0.3, 2, 32)[kernel]
-    args, dys, seeds = trials(kernel, 3, 19, dtype, cuda, d=64, ff=128, rows=64)
+    args, dys, seeds = trials(kernel, 3, 19, dtype, cuda, d=d, ff=ff, rows=64)
     before = {n: f.launches for n, f in counters.items()}
     want = unbatched(call, args, dys, seeds)
     torch.cuda.synchronize()

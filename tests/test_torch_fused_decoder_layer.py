@@ -63,13 +63,17 @@ def port_tensors(d=32, ff=64, rows=64, seed=1):
 SEED = torch.tensor([3], dtype=torch.int32)
 
 
-@pytest.mark.parametrize("h", [2, 1])
-def test_rate0_matches_jax_kernel_forward_and_grads(h):
+@pytest.mark.parametrize("d, h, ff, b", [pytest.param(128, 2, 128, 4, id="2"),
+                                         pytest.param(128, 1, 128, 4, id="1"),
+                                         (512, 4, 1024, 8), (512, 1, 512, 8)])
+def test_rate0_matches_jax_kernel_forward_and_grads(d, h, ff, b):
     """y3, dx, dmem and all 20 parameter grads at f32 against JAX
     decoder_layer_train in interpret mode (jax.vjp), at the smallest shape the
     JAX gate takes: d 128 (2 heads of 64, lane-packed there, and 1 head of
-    128), ff 128, B 4 × T 32 rows."""
-    d, ff, t, b = 128, 128, 32, 4
+    128), ff 128, B 4 × T 32 rows; and past d 256 (the chain's wide route on
+    the card) d 512 with 4 heads / ff 1,024 and 1 head of 512 / ff 512, B 8 ×
+    T 32."""
+    t = 32
     args, dy = layer_inputs(d, ff, b * t)
     seed = np.zeros((1,), np.int32)
 
@@ -246,13 +250,17 @@ def test_gate():
     # the decoder's chain takes what the encoder's takes, in both dtypes
     for dtype in (torch.float32, torch.bfloat16):
         for d, h, ff in ((8, 1, 8), (32, 16, 512), (96, 4, 64), (252, 2, 512), (256, 16, 2048),
-                         (264, 2, 512)):
+                         (264, 2, 512), (512, 4, 1024), (512, 1, 512), (1024, 1, 1024),
+                         (1032, 3, 1024)):
             assert fdl.supports_fused_decoder_layer(d, h, ff, 32, dtype) \
                 == fl.supports_fused_layer(d, h, ff, 32, dtype)
     assert not fdl.supports_fused_decoder_layer(256, 2, 512, 33)  # T above one block's rows
     assert not fdl.supports_fused_decoder_layer(256, 2, 512, 32, torch.float16)
     assert not fdl.supports_fused_decoder_layer(256, 3, 512, 32)  # d not divisible by H
-    assert not fdl.supports_fused_decoder_layer(1024, 4, 4096, 32)  # beyond the LayerNorm tile
+    assert not fdl.supports_fused_decoder_layer(1024, 4, 4096, 32)  # f32: ff past F32_MAX_FF
+    assert fdl.supports_fused_decoder_layer(1024, 4, 4096, 32, torch.bfloat16)  # the wide route
+    assert not fdl.supports_fused_decoder_layer(1032, 3, 1024, 32, torch.bfloat16)  # d > 1,024
+    assert not fdl.supports_fused_decoder_layer(1024, 1, 1024, 32)  # hd 1,024 > 512
     assert not fdl.supports_fused_decoder_layer(30, 2, 64, 32)  # d not a multiple of 8
 
 
@@ -294,13 +302,16 @@ def test_relu_flips_take_the_other_side_at_the_given_units_only():
 
 
 def test_kernel_source_hash_covers_its_headers(tmp_path, monkeypatch):
-    """The layer chains' source includes the product core and the shared
-    headers: an edit to a header must rebuild every kernel that uses it, so
-    the build's hash reads every included file."""
+    """The layer chains' sources (the wide route's too) include the row
+    passes, the product core and the shared headers: an edit to a header must
+    rebuild every kernel that uses it, so the build's hash reads every
+    included file."""
     from transformergrooveinfilling_tpu_torch.ops import _build
 
-    files = [f.name for f in _build.source_files(_build.CSRC / "layer_sm90.cu")]
-    assert files == ["layer_sm90.cu", "epilogues_sm90.cuh", "gemm_sm90.cuh", "layer_common.cuh"]
+    for source in ("layer_sm90", "layer_wide_sm90"):
+        files = [f.name for f in _build.source_files(_build.CSRC / f"{source}.cu")]
+        assert files == [f"{source}.cu", "rows_sm90.cuh", "epilogues_sm90.cuh", "gemm_sm90.cuh",
+                         "layer_common.cuh"]
     files = [f.name for f in _build.source_files(_build.CSRC / "fused_ln.cu")]
     assert files == ["fused_ln.cu", "layer_common.cuh"]
     assert [f.name for f in _build.source_files(_build.CSRC / "fused_mha.cu")] == ["fused_mha.cu"]

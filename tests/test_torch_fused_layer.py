@@ -51,10 +51,12 @@ def port_layout(params):
     return [np.ascontiguousarray(p.T) if i in WEIGHTS else p for i, p in enumerate(params)]
 
 
-@pytest.mark.parametrize("d, h, ff", [(256, 2, 512), (128, 2, 256)])
+@pytest.mark.parametrize("d, h, ff", [(256, 2, 512), (128, 2, 256), (512, 4, 1024),
+                                      (512, 1, 512)])
 def test_rate0_matches_jax_kernel_forward_and_grads(d, h, ff):
     """y, dx and all 12 parameter grads at f32 against JAX encoder_layer_train
-    in interpret mode (jax.vjp), B 8 × T 32 rows; hd 128 and hd 64."""
+    in interpret mode (jax.vjp), B 8 × T 32 rows; hd 128 and hd 64, and past
+    d 256 (the chain's wide route on the card) hd 128 and hd 512."""
     t, b = 32, 8
     x, params, dy = layer_inputs(d, ff, b * t)
     seed = np.zeros((1,), np.int32)
@@ -166,7 +168,10 @@ def test_gate():
     assert not fl.supports_fused_layer(256, 2, 512, 33)  # T above one block's rows
     assert not fl.supports_fused_layer(256, 2, 512, 32, torch.float16)
     assert not fl.supports_fused_layer(256, 3, 512, 32)  # d not divisible by H
-    assert not fl.supports_fused_layer(1024, 4, 4096, 32)  # beyond the LayerNorm tile
+    assert not fl.supports_fused_layer(1032, 3, 1024, 32)  # beyond the wide route's 1,024
+    assert not fl.supports_fused_layer(1024, 1, 1024, 32, torch.bfloat16)  # hd 1,024 > 512
+    assert fl.supports_fused_layer(1024, 4, 4096, 32, torch.bfloat16)  # GrooveXL, forced bf16
+    assert not fl.supports_fused_layer(1024, 4, 4096, 32)  # f32: ff past F32_MAX_FF
     assert not fl.supports_fused_layer(30, 2, 64, 32)  # d not a multiple of 8
 
 

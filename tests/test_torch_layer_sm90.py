@@ -111,10 +111,11 @@ def _rel(got, want) -> float:
                                                                  float(want.abs().max()))
 
 
-@pytest.mark.parametrize("d, h, ff", [(256, 2, 512), (128, 2, 256)])
+@pytest.mark.parametrize("d, h, ff", [(256, 2, 512), (128, 2, 256), (512, 1, 512)])
 def test_encoder_chain_matches_jax_kernel_forward_and_grads(d, h, ff):
     """The chained plain forward and backward at f32 against JAX
-    encoder_layer_train in interpret mode (jax.vjp), B 4 × T 32 rows."""
+    encoder_layer_train in interpret mode (jax.vjp), B 4 × T 32 rows; at d
+    512 (one head of 512) the wide route's composition."""
     t, b = 32, 4
     x, params, dy = encoder_inputs(d, ff, b * t)
     seed = np.zeros((1,), np.int32)
@@ -134,12 +135,14 @@ def test_encoder_chain_matches_jax_kernel_forward_and_grads(d, h, ff):
         np.testing.assert_allclose(g, np.asarray(want), rtol=5e-3, atol=5e-4, err_msg=name)
 
 
-@pytest.mark.parametrize("h", [2, 1])
-def test_decoder_chain_matches_jax_kernel_forward_and_grads(h):
+@pytest.mark.parametrize("d, h, ff", [pytest.param(128, 2, 128, id="2"),
+                                      pytest.param(128, 1, 128, id="1"), (512, 4, 1024)])
+def test_decoder_chain_matches_jax_kernel_forward_and_grads(d, h, ff):
     """The decoder's chained plain forward and backward at f32 against JAX
     decoder_layer_train in interpret mode: y3, dx, dmem and 20 grads, d 128,
-    ff 128, B 4 × T 32 (the smallest shape the JAX gate takes)."""
-    d, ff, t, b = 128, 128, 32, 4
+    ff 128, B 4 × T 32 (the smallest shape the JAX gate takes), and the wide
+    route's composition at d 512, 4 heads, ff 1,024."""
+    t, b = 32, 4
     args, dy = decoder_inputs(d, ff, b * t)
     seed = np.zeros((1,), np.int32)
 
@@ -341,6 +344,82 @@ def test_layernorm_launches_match_autograd():
     assert torch.equal(dp, da_next)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [264, 512, 1024])
+def test_wide_route_plain_versions_compose_to_the_definitions(d, dtype):
+    """Past ``LN_TILE`` each LayerNorm-epilogue launch is two: the plain
+    versions of the product and the row pass, composed as the wrappers
+    compose them, are the one-launch definitions bit for bit
+    (``residual_sum_reference`` then ``ln_y_reference`` is
+    ``residual_ln_reference``; ``grad_sum_reference`` then
+    ``ln_grad_reference`` is ``ln_backward_reference``), at rate 0.3 with
+    the sites' masks, and the wrappers on CPU tensors route by d through the
+    pair of counted kernels and launch nothing."""
+    rng = np.random.default_rng(d)
+    rows, k = 48, 72
+
+    def n(*shape, scale=1.0, offset=0.0):
+        return torch.from_numpy((offset + scale * rng.standard_normal(shape)).astype(np.float32))
+
+    a, w, resid = n(rows, k).to(dtype), n(d, k, scale=k ** -0.5).to(dtype), n(rows, d).to(dtype)
+    bias, g, beta = n(d, scale=0.1), n(d, scale=0.1, offset=1.0), n(d, scale=0.1)
+    seed = torch.tensor([7], dtype=torch.int32)
+    pairs = L.by_launch(fl.SM90_LAUNCHES, fl.route_kernels(dtype, d), L.is_wide(d))
+    before = {name: f.launches for name, f in fl.route_kernels(dtype, d).items()}
+    want = L.residual_ln_reference(a, w, bias, resid, g, beta, seed, 1, 0.3)
+    a_out, s = L.residual_sum_reference(a, w, bias, resid, seed, 1, 0.3)
+    assert s.dtype == torch.float32 and torch.equal(a_out, want[0])
+    assert torch.equal(L.ln_y_reference(s, g, beta, dtype), want[1])
+    got = L.residual_ln_product(pairs["proj_ln1"], a, w, bias, resid, g, beta, seed, 1, 0.3)
+    assert all(torch.equal(u, v) for u, v in zip(got, want))
+
+    dh, w1, da = n(rows, k).to(dtype), n(k, d, scale=k ** -0.5).to(dtype), n(rows, d)
+    stats = torch.cat(L._stats(want[0].float()), 1)
+    want = L.ln_backward_reference(dh, w1, da, g, want[0], stats, seed, 1, 0.3)
+    v = L.grad_sum_reference(dh, w1, da)
+    assert torch.equal(v, want[1])
+    assert all(torch.equal(u, t) for u, t in zip(
+        L.ln_grad_reference(v, g, got[0], stats, seed, 1, 0.3), (want[0], want[2])))
+    got = L.ln_backward_product(pairs["dy1_ln1"], dh, w1, da, g, got[0], stats, seed, 1, 0.3)
+    assert all(torch.equal(u, t) for u, t in zip(got, want))
+    assert {name: f.launches for name, f in fl.route_kernels(dtype, d).items()} == before
+    with pytest.raises(ValueError, match="wide route"):  # one kernel where d takes two
+        L.residual_ln_product(fl.SM90_KERNELS["fused_layer_sm90_proj_ln1"], a, w, bias, resid,
+                              g, beta, seed, 1, 0.3)
+
+
+@pytest.mark.parametrize("mod, n, n_fwd", [(fl, 16, 7), (fdl, 26, 12)])
+def test_wide_route_kernels(mod, n, n_fwd):
+    """Past d 256 a chain launches its wide route: each ``res_ln`` / ``ln_bwd``
+    launch of the narrow route as ``_sum`` (the product) and ``_rows`` (the
+    row pass) in its place, 16 launches an encoder layer and 26 a decoder
+    layer, the launches both routes make counted by the same counters; up to
+    d 256 and without a d, the narrow route (``is_wide``)."""
+    for dtype, narrow, wide in ((torch.bfloat16, mod.SM90_KERNELS, mod.SM90_WIDE_KERNELS),
+                                (torch.float32, mod.SM90_F32_KERNELS, mod.SM90_WIDE_F32_KERNELS)):
+        assert mod.route_kernels(dtype) is narrow and mod.route_kernels(dtype, 256) is narrow
+        assert mod.route_kernels(dtype, 264) is wide and mod.route_kernels(dtype, 1024) is wide
+        assert len(wide) == n == len(mod.SM90_WIDE_LAUNCHES)
+        prefix = f"{mod.__name__.split('.')[-1]}_sm90{'_f32' if dtype == torch.float32 else ''}_"
+        assert list(wide) == [prefix + k for k in mod.SM90_WIDE_LAUNCHES]
+        for name, kind in mod.SM90_LAUNCHES.items():
+            if kind in L.WIDE:
+                assert prefix + name not in wide
+                for part, wide_kind in zip(("_sum", "_rows"), L.WIDE[kind]):
+                    assert wide[prefix + name + part].entry == L.ENTRIES[wide_kind]
+                    assert mod.SM90_WIDE_LAUNCHES[name + part] == wide_kind
+            else:
+                assert wide[prefix + name] is narrow[prefix + name]
+        split = list(L.by_launch(mod.SM90_LAUNCHES, wide, True).items())
+        assert [k for k, _ in split] == list(mod.SM90_LAUNCHES)
+        assert sum(2 if isinstance(v, tuple) else 1 for _, v in split) == n
+        assert L.by_launch(mod.SM90_LAUNCHES, narrow, False) == dict(
+            zip(mod.SM90_LAUNCHES, narrow.values()))
+    assert not L.is_wide(None) and not L.is_wide(256) and L.is_wide(264)
+    forward = list(mod.SM90_WIDE_LAUNCHES)[:n_fwd]
+    assert forward[-1].endswith("_rows") and mod.SM90_WIDE_LAUNCHES[forward[-1]] == "ln_y"
+
+
 def test_tf32_round_is_to_nearest_ties_away():
     """``tf32_round`` is ``cvt.rna.tf32.f32``: 10 mantissa bits kept, the low
     13 bits of the pattern cleared, to nearest, a tie away from zero, for
@@ -432,17 +511,21 @@ def test_weight_gradient_splits():
 
 
 def test_bf16_gate_boundaries():
-    """bf16: d a multiple of 8 up to 256, ff a multiple of 8, heads dividing
-    d into widths that are multiples of 8, T up to 32 (GrooveXL's d 1024
-    stays out of both dtypes' gates)."""
+    """bf16: d a multiple of 8 up to 1,024 (past 256 the wide route), ff a
+    multiple of 8, heads dividing d into widths that are multiples of 8 up to
+    512, T up to 32 (GrooveXL's d 1024 / ff 4,096 is in the bf16 gate, not in
+    the f32 one)."""
     bf16 = torch.bfloat16
     for gate in (fl.supports_fused_layer, fdl.supports_fused_decoder_layer):
         assert gate(256, 2, 512, 32, bf16)  # the flagship
         assert gate(256, 2, 2048, 32, bf16)  # InfillingRandomLow_lm's width
         assert gate(8, 1, 8, 1, bf16)
         assert gate(32, 4, 512, 32, bf16)  # the demo width
-        assert not gate(264, 2, 512, 32, bf16)  # beyond the LayerNorm epilogue's tile
-        assert not gate(1024, 4, 4096, 32, bf16)
+        assert gate(264, 3, 512, 32, bf16)  # past the LayerNorm epilogue's tile: the wide route
+        assert gate(1024, 4, 4096, 32, bf16)  # GrooveXL
+        assert gate(512, 1, 512, 32, bf16)  # hd 512
+        assert not gate(1032, 3, 512, 32, bf16)  # beyond the wide route's row passes
+        assert not gate(1024, 1, 1024, 32, bf16)  # hd 1,024: past the attention's 512
         assert not gate(252, 2, 512, 32, bf16)  # d not a multiple of 8
         assert not gate(256, 2, 516, 32, bf16)  # ff not a multiple of 8
         assert not gate(256, 2, 512, 33, bf16)  # T beyond one warp's softmax row
@@ -452,6 +535,7 @@ def test_bf16_gate_boundaries():
         assert gate(96, 4, 512, 32, bf16)  # hd 24, zero-filled to 32 in the attention
         assert not gate(256, 2, 512, 0, bf16)
         assert gate(256, 2, 512, 32) and not gate(1024, 4, 4096, 32)  # f32
+        assert gate(1024, 2, 1024, 32) and not gate(1024, 1, 1024, 32)  # f32, hd 512 and 1,024
 
 
 CONFIG_WIDTHS = {(32, 16, 512), (32, 4, 16), (64, 16, 256), (256, 16, 64), (256, 2, 512),
@@ -464,9 +548,10 @@ def test_f32_gate_admits_every_config_width():
     takes any head width), and these are all the widths the configs hold; the
     lm config's ff 2,048 is past ``F32_MAX_FF`` (its unpromoted sums drift
     past the chain's 1e-5 bar on the card, ROADMAP §C11) and takes the
-    unfused path in f32. It refuses what the CUDA-core kernels before it took
-    by shared memory alone: d past the LayerNorm tile's 256 (to ~352), and d
-    or ff a multiple of 4 but not of 8."""
+    unfused path in f32. It refuses d or ff a multiple of 4 but not of 8,
+    which the CUDA-core kernels before it took by shared memory alone, and
+    takes the d past the LayerNorm tile's 256 that they took (to ~352) by
+    the wide route."""
     from transformergrooveinfilling_tpu_torch.utils import yaml_subset
 
     found = set()
@@ -478,9 +563,10 @@ def test_f32_gate_admits_every_config_width():
     for gate in (fl.supports_fused_layer, fdl.supports_fused_decoder_layer):
         for d, h, ff in sorted(CONFIG_WIDTHS):
             assert gate(d, h, ff, 32, torch.float32) == (ff <= fl.F32_MAX_FF), (d, h, ff)
-        for d, h, ff in ((264, 2, 512), (352, 4, 512), (36, 4, 64), (252, 2, 512),
-                         (32, 4, 20), (256, 2, 516)):
+        for d, h, ff in ((36, 4, 64), (252, 2, 512), (32, 4, 20), (256, 2, 516)):
             assert not gate(d, h, ff, 32, torch.float32), (d, h, ff)
+        for d, h, ff in ((264, 2, 512), (352, 4, 512)):
+            assert gate(d, h, ff, 32, torch.float32), (d, h, ff)
     assert not fl.supports_fused_layer(32, 16, 512, 32, torch.bfloat16)  # hd 2 in bf16
 
 
@@ -511,16 +597,23 @@ def test_cpu_tensors_run_the_plain_versions_and_launch_nothing(dtype):
 
 
 def test_entry_points_declare_every_argument():
-    """Each C entry point of csrc/layer_sm90.cu takes what SIGNATURES declares
+    """Each C entry point of csrc/layer_sm90.cu and csrc/layer_wide_sm90.cu
+    (the wide route's, ``WIDE_ENTRIES``) takes what SIGNATURES declares
     for ctypes, and the stream last: a missing argument would shift every
     later one (the card rejects too few; too many it would read as garbage)."""
-    src = (Path(L.__file__).parents[1] / "csrc" / "layer_sm90.cu").read_text()
-    found = {}
-    for name, params in re.findall(r"^int (tgi_sm90_\w+)\(([^)]*)\)", src, re.MULTILINE):
-        params = [p.strip() for p in params.split(",")]
-        assert params[-1] == "void* stream", name
-        found[name] = params[:-1]
+    csrc = Path(L.__file__).parents[1] / "csrc"
+    found, wide = {}, set()
+    for source in ("layer_sm90", L.WIDE_SOURCE):
+        src = (csrc / f"{source}.cu").read_text()
+        for name, params in re.findall(r"^int (tgi_sm90_\w+)\(([^)]*)\)", src, re.MULTILINE):
+            params = [p.strip() for p in params.split(",")]
+            assert params[-1] == "void* stream", name
+            found[name] = params[:-1]
+            if source == L.WIDE_SOURCE:
+                wide.add(name)
+        assert f"const char* {L.ERROR_STRINGS[source]}(int code)" in src
     assert set(found) == set(L.SIGNATURES) == set(L.ENTRIES.values())
+    assert wide == set(L.WIDE_ENTRIES)
     for name, params in found.items():
         want = ["int" if t is ctypes.c_int else "long long" if t is ctypes.c_longlong else "ptr"
                 for t in L.SIGNATURES[name]]

@@ -536,7 +536,8 @@ def test_layer_resolvers_turn_auto_on_only_at_a_measured_batch(resolve):
     bf16 and in f32 (split TF32; paired turns, PERF.md §5), so auto is on at
     <= 512 in both, off above and off when no batch is given; a forced value
     is kept at any batch; the JAX positional signature (switch, d_model,
-    n_heads, dim_feedforward, n_devices) is still accepted."""
+    n_heads, dim_feedforward, n_devices) is still accepted. Past d 256 auto
+    follows ``LAYER_KERNEL_MAX_D`` and the measured head width and ff."""
     r = getattr(port_config, resolve)
     assert port_config.LAYER_KERNEL_MAX_BATCH == {torch.bfloat16: 512, torch.float32: 512}
     bf16 = {"compute_dtype": torch.bfloat16}
@@ -557,6 +558,24 @@ def test_layer_resolvers_turn_auto_on_only_at_a_measured_batch(resolve):
     assert r(False, 256, 2, 512, batch_size=32) is False
     assert r(None, 30, 2, 64, batch_size=32) is False  # the gate still decides
     assert r(None, 30, 2, 64, batch_size=32, **bf16) is False
+    # past d 256 the wide route, measured at d 512 with heads of 128 and ff
+    # 1,024: on in bf16 up to d 512 at that head width and ff up to 1,024,
+    # off in f32 (its worst pair did not clear the spread); forced, it is kept
+    assert port_config.LAYER_KERNEL_MAX_D == {torch.bfloat16: 512, torch.float32: 256}
+    assert (port_config.LAYER_KERNEL_WIDE_HEAD_DIM, port_config.LAYER_KERNEL_WIDE_MAX_FF) == \
+        (128, 1024)
+    assert r(None, 512, 4, 1024, batch_size=32, **bf16) is True
+    assert r(None, 512, 4, 512, batch_size=512, **bf16) is True
+    assert r(None, 384, 3, 768, batch_size=32, **bf16) is True
+    assert r(None, 512, 1, 512, batch_size=512, **bf16) is False  # one head of 512
+    assert r(None, 512, 8, 1024, batch_size=32, **bf16) is False  # heads of 64
+    assert r(None, 512, 4, 2048, batch_size=32, **bf16) is False  # ff past 1,024
+    assert r(True, 512, 1, 512, batch_size=512, **bf16) is True
+    assert r(None, 520, 4, 1024, batch_size=32, **bf16) is False
+    assert r(None, 1024, 8, 4096, batch_size=128, **bf16) is False  # GrooveXL
+    assert r(True, 1024, 8, 4096, batch_size=128, **bf16) is True
+    assert r(None, 512, 4, 1024, batch_size=32) is False  # f32
+    assert r(True, 512, 4, 1024, batch_size=32) is True
     hp = HyperParams(d_model=256, n_heads=2, dim_feedforward=512, num_encoder_decoder_layers=2,
                      encoder_only=0)
     for dtype, batch, on in ((torch.float32, 32, True), (torch.float32, 512, True),

@@ -2,7 +2,7 @@
 //
 // Counterpart of the Pallas kernel transformergrooveinfilling_tpu/ops/
 // attention.py::_mha_kernel: softmax(Q·Kᵀ/√hd, optional causal mask)·V over
-// (batch, head, T, hd), T ≤ 64, hd ≤ 256, float32 or bfloat16. Math as the
+// (batch, head, T, hd), T ≤ 64, hd ≤ 512, float32 or bfloat16. Math as the
 // TPU kernel does it:
 //   s = (q·kᵀ in f32) · scale; causal: s[i][j] = -1e9 for j > i;
 //   p = exp(s - rowmax) / rowsum;  p rounded to the input dtype (bf16);
@@ -38,6 +38,13 @@
 //   float4s, so an FMA no longer costs two shared-memory loads. Full f32: no
 //   TF32, sums over d and over keys in order.
 //
+// Wide heads. Both paths keep the whole head in shared memory and walk hd in
+// chunks (16 columns of a product at a time, or a thread's 4 columns of O),
+// so no register holds more than a chunk of a row: a head of 512 at T 32
+// takes 83 KB (tensor cores) or 167 KB (f32). A shape whose block would need
+// more than the 227 KB an SM gives one block (f32 at T 64 past hd 392) is
+// refused.
+//
 // Plain C entry points, bound from Python with ctypes
 // (ops/attention.py); the launch returns cudaGetLastError().
 
@@ -54,7 +61,8 @@ namespace {
 constexpr int kRows = 16;          // query rows a block
 constexpr int kSimtThreads = 128;
 constexpr int kMaxT = 64;
-constexpr int kMaxHd = 256;
+constexpr int kMaxHd = 512;
+constexpr size_t kMaxSmem = 232448;  // dynamic shared memory one block may take
 constexpr size_t kStaticSmemLimit = 48 * 1024;
 
 struct Args {
@@ -467,17 +475,20 @@ int tgi_fused_mha(const void* q, const void* k, const void* v, void* o, long lon
   if (path == 1) {
     static size_t opted = kStaticSmemLimit;
     const size_t smem = mma_smem_bytes(t, hd);
+    if (smem > kMaxSmem) return static_cast<int>(cudaErrorInvalidValue);
     if ((err = opt_in(mha_mma_kernel, smem, opted)) != cudaSuccess) return static_cast<int>(err);
     mha_mma_kernel<<<grid, 32, smem, s>>>(a);
   } else if (is_bf16) {
     static size_t opted = kStaticSmemLimit;
     const size_t smem = simt_smem_bytes(t, hd);
+    if (smem > kMaxSmem) return static_cast<int>(cudaErrorInvalidValue);
     if ((err = opt_in(mha_simt_kernel<__nv_bfloat16>, smem, opted)) != cudaSuccess)
       return static_cast<int>(err);
     mha_simt_kernel<__nv_bfloat16><<<grid, kSimtThreads, smem, s>>>(a, 0);
   } else {
     static size_t opted = kStaticSmemLimit;
     const size_t smem = simt_smem_bytes(t, hd);
+    if (smem > kMaxSmem) return static_cast<int>(cudaErrorInvalidValue);
     if ((err = opt_in(mha_simt_kernel<float>, smem, opted)) != cudaSuccess)
       return static_cast<int>(err);
     mha_simt_kernel<float><<<grid, kSimtThreads, smem, s>>>(a, vec4);

@@ -35,6 +35,7 @@
 //   sm90_ln_rows   one warp a row: the LayerNorm statistics of the stored
 //                  inputs, y recomputed where a weight gradient needs it, and
 //                  the last LayerNorm's backward from dy, with its site's mask
+//                  (a lane holds 8 columns of each 256-column chunk of a row)
 //   sm90_attn_fwd  one block per (sequence, head): P = softmax(QKᵀ/√hd)
 //                  (causal for the decoder's self-attention), its dropout
 //                  mask, round(drop(P))·V
@@ -73,8 +74,19 @@
 // (sequence, head) (fused_mha.cu's layout: the 64-row wgmma tiles would leave
 // most of a warpgroup idle at T 32); hd is a multiple of 8 (16-byte rows for
 // cp.async), zero-filled in shared memory to a multiple of 16 (the mma's k).
-// f32: FFMA in registers, one block of 256 threads a (sequence, head), any hd
-// (the configs' f32 layers have heads of 2, 4, 8, 16 and 128).
+// f32: split TF32 on mma.sync, one block of two warps a (sequence, head), any
+// hd (the configs' f32 layers have heads of 2, 4, 8, 16 and 128). A
+// (sequence, head) of hd 512 takes 100 KB (bf16 forward) to 138 KB (bf16
+// backward) of shared memory, and the f32 forward 203 KB; the f32 backward
+// would need 273 KB there, so past the 232,448 bytes a block may take it
+// reads V from device memory (L2) instead of staging it: 207 KB at hd 512.
+//
+// The wide route. A 64 × 256 tile spans a row up to d 256, which the
+// LayerNorm epilogues need (kLnTile). Past it, up to d 1,024, each
+// LayerNorm-epilogue launch becomes a product and a row pass, the launches of
+// layer_wide_sm90.cu; the chain takes 16 launches an encoder layer and 26 a
+// decoder layer there. The row pass of the backward (sm90_ln_rows) walks a row
+// in chunks of 256 columns (rows_sm90.cuh) in both routes.
 //
 // Dropout: the layer kernels' 8-bit rule and Philox stream (layer_common.cuh),
 // sites and counters as the TPU kernels number them, so the masks are
@@ -87,19 +99,20 @@
 // by a row stride) and 16-byte aligned; biases, LayerNorm parameters,
 // statistics and residual gradients are f32.
 
-#include "epilogues_sm90.cuh"
+#include <type_traits>
+
+#include "rows_sm90.cuh"  // and epilogues_sm90.cuh
 
 namespace {
 
 constexpr int kLnTile = 256;  // the LayerNorm epilogues' tile width: d ≤ 256
+constexpr size_t kMaxSmem = 232448;  // dynamic shared memory one block may take
+// the longest reduction an f32 plain-rounding product runs unpromoted: the
+// route up to d 256 reduces over at most 3·256 = 768 there, unchanged
+constexpr int kPromoteK = 3 * kLnTile;
 constexpr int kLnConfig = 3;  // run()'s 64 × 256 tile
 constexpr int kWgradConfig = 1;  // run()'s 128 × 128 tile
 constexpr int kMaxLn = 3;
-constexpr int kRowsPerBlock = kThreads / 32;  // sm90_ln_rows: a warp a row
-
-__device__ __forceinline__ float drop_by(float v, uint32_t byte, int thresh, float keep) {
-  return byte < static_cast<uint32_t>(thresh) ? v / keep : 0.f;
-}
 
 __device__ __forceinline__ float quad_sum(float v) {
   v += __shfl_xor_sync(0xffffffffu, v, 1);
@@ -336,7 +349,8 @@ struct EpiLnBwd : NoExtra {
 
 // ---------------------------------------------------------------- LayerNorm rows
 
-// One warp a row; lane l holds the 8 columns 8l .. 8l + 7 (d ≤ 256).
+// One warp a row in C chunks of 256 columns (rows_sm90.cuh; C = 1 up to d
+// 256, the route of every width the LayerNorm epilogues take).
 // LayerNorm k of n_ln: statistics of the stored a[k] into stats (rows ×
 // 2·n_ln: mean, rstd), and y[k] = round(LN(a[k])·g + b) where y[k] is not
 // null. The last one's backward from dy: da (f32) and df = round(drop(da))
@@ -355,84 +369,57 @@ struct LnRowsArgs {
   int n_ln, rows, d, thresh, site;
 };
 
-__device__ __forceinline__ void store8(bf16* p, const float (&v)[8]) {
-  uint4 u;
-  uint32_t* w = reinterpret_cast<uint32_t*>(&u);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const __nv_bfloat162 h = __floats2bfloat162_rn(v[2 * i], v[2 * i + 1]);
-    w[i] = *reinterpret_cast<const uint32_t*>(&h);
-  }
-  *reinterpret_cast<uint4*>(p) = u;
-}
-__device__ __forceinline__ void store8(float* p, const float (&v)[8]) {
-  reinterpret_cast<float4*>(p)[0] = make_float4(v[0], v[1], v[2], v[3]);
-  reinterpret_cast<float4*>(p)[1] = make_float4(v[4], v[5], v[6], v[7]);
-}
-
-template <class T>
+template <class T, int C>
 __global__ void __launch_bounds__(kThreads) ln_rows(const LnRowsArgs<T> p) {
-  const int lane = threadIdx.x & 31;
-  const int r = blockIdx.x * kRowsPerBlock + (threadIdx.x >> 5);
-  if (r >= p.rows) return;  // a whole warp
-  const int d = p.d, c0 = 8 * lane;
-  const bool mine = c0 < d;
-  const size_t base = static_cast<size_t>(r) * d + c0;
+  int c0[C];
+  const int r = row_lanes(p.rows, c0);
+  if (r < 0) return;  // a whole warp
+  const int d = p.d;
+  const size_t base = static_cast<size_t>(r) * d;
   for (int k = 0; k < p.n_ln; ++k) {
-    float a[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-    if (mine) load8(p.a[k] + base, a);
-    float s = 0.f, s2 = 0.f;
+    float a[C][8];
 #pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      s += a[i];
-      s2 = fmaf(a[i], a[i], s2);
+    for (int c = 0; c < C; ++c) {
+#pragma unroll
+      for (int i = 0; i < 8; ++i) a[c][i] = 0.f;
+      if (c0[c] < d) load8(p.a[k] + base + c0[c], a[c]);
     }
-    s = warp_sum(s);
-    s2 = warp_sum(s2);
-    const float mu = s / d;
-    const float rstd = rsqrtf(fmaxf(s2 / d - mu * mu, 0.f) + kLnEps);
-    if (lane == 0) {
+    float mu, rstd;
+    row_stats(a, d, mu, rstd);
+    if ((threadIdx.x & 31) == 0) {
       p.stats[static_cast<size_t>(r) * 2 * p.n_ln + 2 * k] = mu;
       p.stats[static_cast<size_t>(r) * 2 * p.n_ln + 2 * k + 1] = rstd;
     }
-    if (p.y[k] && mine) {
-      float y[8];
+    if (p.y[k]) {
 #pragma unroll
-      for (int i = 0; i < 8; ++i)
-        y[i] = affine(zhat(a[i], mu, rstd), p.g[k][c0 + i], p.b[k][c0 + i]);
-      store8(p.y[k] + base, y);
+      for (int c = 0; c < C; ++c) {
+        if (c0[c] >= d) continue;
+        float y[8];
+#pragma unroll
+        for (int i = 0; i < 8; ++i)
+          y[i] = affine(zhat(a[c][i], mu, rstd), p.g[k][c0[c] + i], p.b[k][c0[c] + i]);
+        store8(p.y[k] + base + c0[c], y);
+      }
     }
     if (k < p.n_ln - 1) continue;
-    float dz[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f}, m1 = 0.f, m2 = 0.f;
-    if (mine) {
-      load8(p.dy + base, dz);
+    float dz[C][8], df[C][8];
 #pragma unroll
-      for (int i = 0; i < 8; ++i) {
-        dz[i] *= p.g[k][c0 + i];
-        m1 += dz[i];
-        m2 = fmaf(dz[i], zhat(a[i], mu, rstd), m2);
-      }
+    for (int c = 0; c < C; ++c) {
+#pragma unroll
+      for (int i = 0; i < 8; ++i) dz[c][i] = 0.f;
+      if (c0[c] >= d) continue;
+      load8(p.dy + base + c0[c], dz[c]);
+#pragma unroll
+      for (int i = 0; i < 8; ++i) dz[c][i] *= p.g[k][c0[c] + i];
     }
-    m1 = warp_sum(m1) / d;
-    m2 = warp_sum(m2) / d;
-    if (!mine) continue;
-    const float keep = p.thresh / 256.f;
-    uint4 w = make_uint4(0u, 0u, 0u, 0u);
-    if (p.thresh < 256) w = dropout_words(static_cast<uint32_t>(*p.seed), p.site, r, c0 >> 4);
-    float df[8];
+    row_backward(dz, df, a, c0, d, mu, rstd, static_cast<uint32_t>(*p.seed), p.site, r,
+                 p.thresh);
 #pragma unroll
-    for (int i = 0; i < 8; i += 4) {
-      float da[4];
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        da[e] = rstd * (dz[i + e] - m1 - zhat(a[i + e], mu, rstd) * m2);
-        df[i + e] = p.thresh < 256
-                        ? drop_by(da[e], word_byte(w, (c0 + i + e) & 15), p.thresh, keep)
-                        : da[e];
-      }
-      *reinterpret_cast<float4*>(p.da + base + i) = make_float4(da[0], da[1], da[2], da[3]);
+    for (int c = 0; c < C; ++c) {
+      if (c0[c] >= d) continue;
+      store8(p.da + base + c0[c], dz[c]);
+      store8(p.df + base + c0[c], df[c]);
     }
-    store8(p.df + base, df);
   }
 }
 
@@ -805,10 +792,30 @@ __host__ __device__ __forceinline__ int attn_f32_ld(int hd) {
   return p + ((36 - p % 32) % 32);
 }
 
-size_t attn_f32_smem(int hd, bool backward) {
-  return sizeof(float) * (static_cast<size_t>(backward ? 4 : 3) * kAttnRows * attn_f32_ld(hd) +
+// the f32 kernels' shared memory: Q, K, V (unless v_staged is false: the
+// backward past the limit reads V from device memory) and dA in head tiles,
+// P (and dS) in (32, kPld32) tiles
+size_t attn_f32_smem(int hd, bool backward, bool v_staged = true) {
+  const int tiles = (backward ? 4 : 3) - (v_staged ? 0 : 1);
+  return sizeof(float) * (static_cast<size_t>(tiles) * kAttnRows * attn_f32_ld(hd) +
                           static_cast<size_t>(backward ? 2 : 1) * kAttnRows * kPld32);
 }
+
+// The rows of a head tile as the f32 products read them: staged in shared
+// memory (rows past T and columns past hd zero-filled there), or straight
+// from device memory with the same zeros
+struct StagedRows {
+  const float* p;
+  int ld;
+  __device__ __forceinline__ float at(int r, int c) const { return p[r * ld + c]; }
+};
+struct DeviceRows {
+  const float* p;  // the head's row 0, column 0
+  int ld, rows, cols;
+  __device__ __forceinline__ float at(int r, int c) const {
+    return r < rows && c < cols ? __ldg(p + static_cast<size_t>(r) * ld + c) : 0.f;
+  }
+};
 
 // BYTES (4, 8 or 16) global → shared; zero-filled (nothing read) when !valid
 template <int BYTES>
@@ -894,28 +901,27 @@ __device__ __forceinline__ void mma_x3(float (&d)[4], const SplitA& a, float b0,
 
 // acc (16 × 32) = A (this warp's 16 rows of `a`) · B (the 32 rows of `b`)ᵀ
 // over hd: S = Q·Kᵀ and dP = dA·Vᵀ
+template <class Rows = StagedRows>
 __device__ __forceinline__ void rows_by_rows_f32(float (&acc)[4][4], const float* a,
-                                                 const float* b, int hd) {
+                                                 const Rows& b, int hd) {
   const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3, ld = attn_f32_ld(hd);
 #pragma unroll
   for (int n = 0; n < 4; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
   for (int k0 = 0; k0 < hd; k0 += 8) {
     const SplitA fa = a_frag<false>(a, ld, k0);
 #pragma unroll
-    for (int n = 0; n < 4; ++n) {
-      const float* bn = b + (8 * n + g) * ld + k0 + t;
-      mma_x3(acc[n], fa, bn[0], bn[4]);
-    }
+    for (int n = 0; n < 4; ++n)
+      mma_x3(acc[n], fa, b.at(8 * n + g, k0 + t), b.at(8 * n + g, k0 + t + 4));
   }
 }
 
 // out (16 × hd) = M (16 rows of the (32, kPld32) tile `m`, or with TRANS its
 // columns 16w ..) · X (the 32 rows of `x`), columns ≥ hd and rows ≥
 // rows_valid not stored: O = P·V, dQ = dS·K, dK = dSᵀ·Q, dV = Pᵀ·dA
-template <bool TRANS>
-__device__ __forceinline__ void tile_by_rows_f32(const float* m, const float* x, int hd,
+template <bool TRANS, class Rows = StagedRows>
+__device__ __forceinline__ void tile_by_rows_f32(const float* m, const Rows& x, int hd,
                                                  float* out, int ldo, int rows_valid) {
-  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3, ld = attn_f32_ld(hd);
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
   SplitA fa[kAttnRows / 8];  // M's four k steps, split once for every column tile
 #pragma unroll
   for (int k = 0; k < kAttnRows / 8; ++k) fa[k] = a_frag<TRANS>(m, kPld32, 8 * k);
@@ -924,9 +930,9 @@ __device__ __forceinline__ void tile_by_rows_f32(const float* m, const float* x,
     float acc[2][4] = {};
 #pragma unroll
     for (int k = 0; k < kAttnRows / 8; ++k) {
-      const float* xk = x + (8 * k + t) * ld + n0 + g;
-      mma_x3(acc[0], fa[k], xk[0], xk[4 * ld]);
-      if (n0 + 8 < hd) mma_x3(acc[1], fa[k], xk[8], xk[4 * ld + 8]);
+      const int r = 8 * k + t, c = n0 + g;
+      mma_x3(acc[0], fa[k], x.at(r, c), x.at(r + 4, c));
+      if (n0 + 8 < hd) mma_x3(acc[1], fa[k], x.at(r, c + 8), x.at(r + 4, c + 8));
     }
 #pragma unroll
     for (int j = 0; j < 2; ++j)
@@ -964,28 +970,37 @@ __global__ void __launch_bounds__(64) attn_fwd_f32(const AttnArgs<float> p) {
   __syncthreads();
   const int w16 = 16 * (threadIdx.x >> 5);
   float sc[4][4];
-  rows_by_rows_f32(sc, sq + w16 * ld, sk, hd);
+  rows_by_rows_f32(sc, sq + w16 * ld, StagedRows{sk, ld}, hd);
   softmax_frags(sc, 1.f / sqrtf(static_cast<float>(hd)), T, p.causal != 0);
   drop_frags(sc, w, p.thresh);
   frags_to_tile_f32(sp, sc);
   __syncwarp();
-  tile_by_rows_f32<false>(sp + w16 * kPld32, sv, hd,
+  tile_by_rows_f32<false>(sp + w16 * kPld32, StagedRows{sv, ld}, hd,
                           p.out + static_cast<size_t>(s * T + w16) * p.ldo + hh * hd, p.ldo,
                           T - w16);
 }
 
+// V_STAGED false (a head too wide for four staged tiles): V is read from
+// device memory (DeviceRows) by the two products that take it
+template <bool V_STAGED>
 __global__ void __launch_bounds__(64) attn_bwd_f32(const AttnArgs<float> p) {
   extern __shared__ __align__(16) float sm[];
   const int T = p.T, hd = p.hd, ld = attn_f32_ld(hd), s = blockIdx.x / p.H,
             hh = blockIdx.x - s * p.H;
   float *sq = sm, *sk = sq + kAttnRows * ld, *sv = sk + kAttnRows * ld;
-  float* sa = sv + kAttnRows * ld;  // dA
+  float* sa = V_STAGED ? sv + kAttnRows * ld : sv;  // dA
   float* sp = sa + kAttnRows * ld;  // drop(P), (32, kPld32)
   float* sd = sp + kAttnRows * kPld32;  // dS
   const int c0 = hh * hd;
+  using VRows = std::conditional_t<V_STAGED, StagedRows, DeviceRows>;
+  VRows vr;
+  if constexpr (V_STAGED)
+    vr = StagedRows{sv, ld};
+  else
+    vr = DeviceRows{p.v + static_cast<size_t>(s * T) * p.ldkv + c0, p.ldkv, T, hd};
   stage_head_f32(sq, p.q, p.ldq, s * T, c0, T, hd);
   stage_head_f32(sk, p.k, p.ldkv, s * T, c0, T, hd);
-  stage_head_f32(sv, p.v, p.ldkv, s * T, c0, T, hd);
+  if constexpr (V_STAGED) stage_head_f32(sv, p.v, p.ldkv, s * T, c0, T, hd);
   stage_head_f32(sa, p.da, p.ldda, s * T, c0, T, hd);
   asm volatile("cp.async.commit_group;\n" ::);
   uint4 w[2][2];
@@ -997,7 +1012,7 @@ __global__ void __launch_bounds__(64) attn_bwd_f32(const AttnArgs<float> p) {
   const float scale = 1.f / sqrtf(static_cast<float>(hd));
   // P again, exactly as the forward, and the attention output again
   float pr[4][4];
-  rows_by_rows_f32(pr, sq + w16 * ld, sk, hd);
+  rows_by_rows_f32(pr, sq + w16 * ld, StagedRows{sk, ld}, hd);
   softmax_frags(pr, scale, T, p.causal != 0);
   float pd[4][4];
 #pragma unroll
@@ -1007,10 +1022,10 @@ __global__ void __launch_bounds__(64) attn_bwd_f32(const AttnArgs<float> p) {
   drop_frags(pd, w, p.thresh);
   frags_to_tile_f32(sp, pd);
   __syncwarp();
-  tile_by_rows_f32<false>(sp + w16 * kPld32, sv, hd, p.out + row_w * p.ldo + c0, p.ldo, T - w16);
+  tile_by_rows_f32<false>(sp + w16 * kPld32, vr, hd, p.out + row_w * p.ldo + c0, p.ldo, T - w16);
   // dP = drop(dA·Vᵀ); dS = P·(dP − Σ_j dP·P)·scale
   float dp[4][4];
-  rows_by_rows_f32(dp, sa + w16 * ld, sv, hd);
+  rows_by_rows_f32(dp, sa + w16 * ld, vr, hd);
   drop_frags(dp, w, p.thresh);
   float dot[2] = {0.f, 0.f};
 #pragma unroll
@@ -1026,28 +1041,26 @@ __global__ void __launch_bounds__(64) attn_bwd_f32(const AttnArgs<float> p) {
   frags_to_tile_f32(sd, dp);
   __syncwarp();
   // dQ = dS·K for this warp's rows
-  tile_by_rows_f32<false>(sd + w16 * kPld32, sk, hd, p.dq + row_w * p.lddq + c0, p.lddq,
-                          T - w16);
+  tile_by_rows_f32<false>(sd + w16 * kPld32, StagedRows{sk, ld}, hd,
+                          p.dq + row_w * p.lddq + c0, p.lddq, T - w16);
   __syncthreads();
   // dV = Pᵀ·dA and dK = dSᵀ·Q for keys 16w ..
-  tile_by_rows_f32<true>(sp + w16, sa, hd, p.dv + row_w * p.lddkv + c0, p.lddkv, T - w16);
-  tile_by_rows_f32<true>(sd + w16, sq, hd, p.dk + row_w * p.lddkv + c0, p.lddkv, T - w16);
+  tile_by_rows_f32<true>(sp + w16, StagedRows{sa, ld}, hd, p.dv + row_w * p.lddkv + c0,
+                         p.lddkv, T - w16);
+  tile_by_rows_f32<true>(sd + w16, StagedRows{sq, ld}, hd, p.dk + row_w * p.lddkv + c0,
+                         p.lddkv, T - w16);
 }
 
 template <class E, typename Kernel>
-int launch_attn(Kernel kernel, const AttnArgs<E>& a, int nseq, bool backward,
+int launch_attn(Kernel kernel, const AttnArgs<E>& a, int nseq, bool backward, size_t smem,
                 cudaStream_t stream) {
   constexpr bool kF32 = sizeof(E) == 4;
   bool ok;
-  size_t smem;
-  if constexpr (kF32) {
+  if constexpr (kF32)
     ok = a.T >= 1 && a.T <= kAttnRows && a.hd >= 1;
-    smem = attn_f32_smem(a.hd, backward);
-  } else {
+  else
     ok = attn_args_ok(a, backward);
-    smem = attn_mma_smem(a.hd, backward);
-  }
-  if (!ok) return static_cast<int>(cudaErrorInvalidValue);
+  if (!ok || smem > kMaxSmem) return static_cast<int>(cudaErrorInvalidValue);
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
@@ -1164,12 +1177,22 @@ int tgi_sm90_ln_bwd(void* a, void* w, void* resid, void* g, void* a_ln, void* st
   });
 }
 
-// out = round(A·W + resid); W (k × n); resid f32 (rows × n) or null
+// out = round(A·W + resid); W (k × n); resid f32 (rows × n) or null. In f32
+// a k past kPromoteK promotes each stage's sums (gemm_sm90.cuh's kPromote):
+// dx over 3d and dmem over 2d in the wide route drift past 1e-5 of their
+// largest value unpromoted (1.05e-5 to 1.7e-5 at d 512 and 1,024 on an H100)
 int tgi_sm90_round(void* a, void* w, void* resid, void* out, int rows, int n, int k, int config,
                    int f32, void* stream) {
   return by_type(f32, [&](auto type) {
     using T = typename decltype(type)::type;
     const Operand A{a, rows}, B{w, n};
+    if constexpr (sizeof(T) == 4) {
+      if (k > kPromoteK) {
+        const EpiRound<T, true> epi{{}, as<T>(out), as<const float>(resid), rows, n};
+        return run<0b011, false, true, 2, T>(config, &A, &B, 1, k, k, 1, 0, epi,
+                                             static_cast<cudaStream_t>(stream));
+      }
+    }
     const EpiRound<T> epi{{}, as<T>(out), as<const float>(resid), rows, n};
     return run<0b011, false, true, 2, T>(config, &A, &B, 1, k, k, 1, 0, epi,
                                          static_cast<cudaStream_t>(stream));
@@ -1180,7 +1203,7 @@ int tgi_sm90_round(void* a, void* w, void* resid, void* out, int rows, int n, in
 // df, seed
 int tgi_sm90_ln_rows(void* const* ptr, int n_ln, int rows, int d, int thresh, int site, int f32,
                      void* stream) {
-  if (n_ln < 1 || n_ln > kMaxLn || d > kLnTile) return static_cast<int>(cudaErrorInvalidValue);
+  if (n_ln < 1 || n_ln > kMaxLn) return static_cast<int>(cudaErrorInvalidValue);
   return by_type(f32, [&](auto type) {
     using T = typename decltype(type)::type;
     LnRowsArgs<T> a{};
@@ -1201,9 +1224,11 @@ int tgi_sm90_ln_rows(void* const* ptr, int n_ln, int rows, int d, int thresh, in
     a.d = d;
     a.thresh = thresh;
     a.site = site;
-    ln_rows<T><<<(rows + kRowsPerBlock - 1) / kRowsPerBlock, kThreads, 0,
-                 static_cast<cudaStream_t>(stream)>>>(a);
-    return static_cast<int>(cudaGetLastError());
+    return by_chunks(d, [&](auto chunks) {
+      ln_rows<T, decltype(chunks)::value><<<(rows + kRowsPerBlock - 1) / kRowsPerBlock, kThreads,
+                                            0, static_cast<cudaStream_t>(stream)>>>(a);
+      return static_cast<int>(cudaGetLastError());
+    });
   });
 }
 
@@ -1216,11 +1241,11 @@ int tgi_sm90_attn_fwd(void* q, void* k, void* v, void* out, void* seed, int ldq,
     return launch_attn(attn_fwd_f32,
                        attn_args<float>(q, k, v, nullptr, nullptr, nullptr, nullptr, out, seed,
                                         ldq, ldkv, 0, 0, 0, ldo, T, H, hd, thresh, site, causal),
-                       nseq, false, st);
+                       nseq, false, attn_f32_smem(hd, false), st);
   return launch_attn(attn_fwd_mma,
                      attn_args<bf16>(q, k, v, nullptr, nullptr, nullptr, nullptr, out, seed, ldq,
                                      ldkv, 0, 0, 0, ldo, T, H, hd, thresh, site, causal),
-                     nseq, false, st);
+                     nseq, false, attn_mma_smem(hd, false), st);
 }
 
 // dq, dk, dv from da = d(attention output), and out = the attention output again
@@ -1229,15 +1254,17 @@ int tgi_sm90_attn_bwd(void* q, void* k, void* v, void* da, void* dq, void* dk, v
                       int ldo, int nseq, int T, int H, int hd, int thresh, int site, int causal,
                       int f32, void* stream) {
   const auto st = static_cast<cudaStream_t>(stream);
-  if (f32)
-    return launch_attn(attn_bwd_f32,
-                       attn_args<float>(q, k, v, da, dq, dk, dv, out, seed, ldq, ldkv, ldda,
-                                        lddq, lddkv, ldo, T, H, hd, thresh, site, causal),
-                       nseq, true, st);
+  if (f32) {
+    const auto a = attn_args<float>(q, k, v, da, dq, dk, dv, out, seed, ldq, ldkv, ldda, lddq,
+                                    lddkv, ldo, T, H, hd, thresh, site, causal);
+    if (attn_f32_smem(hd, true) <= kMaxSmem)
+      return launch_attn(attn_bwd_f32<true>, a, nseq, true, attn_f32_smem(hd, true), st);
+    return launch_attn(attn_bwd_f32<false>, a, nseq, true, attn_f32_smem(hd, true, false), st);
+  }
   return launch_attn(attn_bwd_mma,
                      attn_args<bf16>(q, k, v, da, dq, dk, dv, out, seed, ldq, ldkv, ldda, lddq,
                                      lddkv, ldo, T, H, hd, thresh, site, causal),
-                     nseq, true, st);
+                     nseq, true, attn_mma_smem(hd, true), st);
 }
 
 // ptr: per problem dY (rows × m), X (rows × n); per segment x, z, stats.

@@ -20,7 +20,12 @@ per (batch·head, 16 query rows), so batch 1 × 2 heads is 4 blocks. bf16 with
 hd % 16 == 0 and 16-byte aligned rows runs both products on the tensor cores
 (``mma.sync`` m16n8k16, f32 accumulators, P rounded to bf16 as
 :func:`mha_reference` rounds it); f32, and bf16 at other head widths or
-alignments, run register-tiled f32 FMAs on the CUDA cores (no TF32). On an
+alignments, run register-tiled f32 FMAs on the CUDA cores (no TF32). Both
+keep a whole head in shared memory and walk hd in chunks, so heads up to
+``MAX_HEAD_DIM`` (512, the width of a d 512 model with one head) take no
+more registers than narrow ones; a shape whose block needs more shared
+memory than an SM gives one block (``kernel_smem_bytes`` above
+``MAX_SMEM_BYTES``: f32 at T 64 past hd 392) raises ``ValueError``. On an
 NVIDIA H100 80GB HBM3 at 700 W (``chip_smoke.py`` phase 3, PERF.md §6) a
 call takes 7.6 µs of device time at batch 1 in f32, 57.9 µs at batch 512 in
 f32 and 17.3 µs in bf16, against SDPA's 10.4, 88.0 and 26.5 µs on the same
@@ -68,7 +73,7 @@ import torch
 from . import _build
 
 MAX_T = 64
-MAX_HEAD_DIM = 256
+MAX_HEAD_DIM = 512
 ROWS_PER_BLOCK = 16  # query rows of one block
 # shared memory one block may take on Hopper (227 KB), opt-in above 48 KB
 MAX_SMEM_BYTES = 232448
@@ -185,8 +190,13 @@ def fused_mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             f"{q.device}, {k.device}, {v.device}")
     check_kernel_args(q, k, v)
     b, h, t, hd = q.shape
-    out = _output(q)
     strides, tensor_cores, vec4 = _layout(q, k, v)
+    if kernel_smem_bytes(t, hd, tensor_cores) > MAX_SMEM_BYTES:
+        raise ValueError(
+            f"fused_mha kernel: a block of shape {tuple(q.shape)} needs "
+            f"{kernel_smem_bytes(t, hd, tensor_cores)} bytes of shared memory, above "
+            f"{MAX_SMEM_BYTES}")
+    out = _output(q)
     KERNEL.launch((q, k, v, out),
                   (*strides, b, h, t, hd, int(causal), int(q.dtype == torch.bfloat16),
                    int(tensor_cores), int(vec4), 1.0 / math.sqrt(hd)), q.device)

@@ -21,8 +21,12 @@ f32 in split TF32) and the elementwise work in the products' epilogues
 (:func:`forward_sm90`, :func:`backward_sm90`): nine launches forward, twelve
 backward, the seven weight gradients and 13 bias and LayerNorm-parameter sums
 in one grouped launch with a fixed-order reduce of its row splits.
-``SM90_KERNELS`` (bf16) and ``SM90_F32_KERNELS`` (f32) count each launch. No
-float atomics: two runs with one seed agree bit for bit.
+``SM90_KERNELS`` (bf16) and ``SM90_F32_KERNELS`` (f32) count each launch.
+Past d 256 (``layer_sm90.LN_TILE``) the chain takes its wide route, 26
+launches (twelve forward) where the three residual LayerNorms and the two
+LayerNorm backwards in products' epilogues become a product and a row pass
+each (``SM90_WIDE_KERNELS``, ``SM90_WIDE_F32_KERNELS``, ``route_kernels(dtype,
+d)``). No float atomics: two runs with one seed agree bit for bit.
 
 What bounds it on the H100: about 1.6 MFLOP of products per row forward and
 twice that backward at d 256 / ff 512: operations, not memory, on the tensor
@@ -140,14 +144,16 @@ def supports_fused_decoder_layer(d_model: int, n_heads: int, dim_feedforward: in
                                  seq_len: int, dtype=torch.float32) -> bool:
     """Whether the chain of ``csrc/layer_sm90.cu`` takes this decoder layer
     in ``dtype``: the encoder layer's gate (``supports_fused_layer``: d a
-    multiple of 8 up to the LayerNorm epilogues' 256, ff a multiple of 8, T ≤
+    multiple of 8 up to 1,024, heads of at most 512, ff a multiple of 8, T ≤
     32, in bf16 heads a multiple of 8 wide, in f32 ff ≤ ``F32_MAX_FF``,
     measured on this chain too); the cross-attention's blocks are
     the self-attention's. In f32 it admits every width of ``configs/*.yaml``
-    and refuses what that gate refuses (d from 264 to about 352, d or ff a
-    multiple of 4 but not of 8), which the f32 CUDA-core kernels before it
-    took by shared memory alone. The TPU gate's 128-lane widths, ≤ 5 heads
-    and ff ≤ 1024 do not apply.
+    up to ff 1,024 and refuses what that gate refuses (d or ff a multiple of
+    4 but not of 8), which the f32 CUDA-core kernels before it took by shared
+    memory alone. It admits every width of the JAX decoder's gate (the
+    encoder's, ``transformergrooveinfilling_tpu/ops/fused_decoder_layer.py``)
+    up to d 1,024 but one head of 1,024. The TPU gate's 128-lane widths, ≤ 5
+    heads and ff ≤ 1024 do not apply.
     """
     return supports_fused_layer(d_model, n_heads, dim_feedforward, seq_len, dtype)
 
@@ -163,19 +169,29 @@ SM90_LAUNCHES = {"qkv": "bias", "self_attn_fwd": "attn_fwd", "proj_ln1": "res_ln
                  "cross_attn_bwd": "attn_bwd", "dy1_ln1": "ln_bwd", "dmem": "round",
                  "dattn": "round", "self_attn_bwd": "attn_bwd", "dx": "round",
                  "wgrad": "wgrad", "reduce": "reduce"}
-SM90_KERNELS = layer_sm90.counted_kernels("fused_decoder_layer_sm90", SM90_LAUNCHES)
-SM90_F32_KERNELS = layer_sm90.counted_kernels("fused_decoder_layer_sm90_f32", SM90_LAUNCHES)
+_ROUTES = layer_sm90.routes("fused_decoder_layer_sm90", SM90_LAUNCHES)
+SM90_KERNELS = _ROUTES[torch.bfloat16, False]
+SM90_F32_KERNELS = _ROUTES[torch.float32, False]
+# the wide route (d past layer_sm90.LN_TILE): each LayerNorm-epilogue launch as
+# a product (_sum) and a row pass (_rows), the others shared with the route above
+# (the same counters)
+SM90_WIDE_LAUNCHES = layer_sm90.wide_launches(SM90_LAUNCHES)
+SM90_WIDE_KERNELS = _ROUTES[torch.bfloat16, True]
+SM90_WIDE_F32_KERNELS = _ROUTES[torch.float32, True]
 
 
-def route_kernels(dtype) -> dict:
-    """The counted kernels a layer call launches in ``dtype`` (bf16 or f32):
-    each once per forward (the first nine) or backward (the rest)."""
-    return SM90_KERNELS if dtype == torch.bfloat16 else SM90_F32_KERNELS
+def route_kernels(dtype, d: int | None = None) -> dict:
+    """The counted kernels a layer call launches in ``dtype`` (bf16 or f32)
+    at width ``d`` (None: up to ``layer_sm90.LN_TILE``), in launch order, each
+    once per call: 21, the first nine forward; past d 256 the wide route's
+    26, the first twelve forward."""
+    return layer_sm90.route(_ROUTES, dtype, d)
 
 
-def _launches(dtype) -> dict:
-    """``route_kernels(dtype)`` keyed by the launch's name in ``SM90_LAUNCHES``."""
-    return dict(zip(SM90_LAUNCHES, route_kernels(dtype).values()))
+def _launches(dtype, d: int) -> dict:
+    """``route_kernels(dtype, d)`` keyed by the launch's name in
+    ``SM90_LAUNCHES`` (a split launch as its (product, row pass) pair)."""
+    return layer_sm90.by_launch(SM90_LAUNCHES, route_kernels(dtype, d), layer_sm90.is_wide(d))
 
 
 def _check(args: dict, seed, n_heads: int, seq_len: int) -> None:
@@ -217,12 +233,12 @@ def _check(args: dict, seed, n_heads: int, seq_len: int) -> None:
 
 def forward_sm90(y, mem, wqkv, bqkv, wo, bo, wq, bq, wkv, bkv, wo2, bo2, g1, b1, w1, b1f,
                  w2, b2f, g2, b2, g3, b3, seed, rate: float, n_heads: int, seq_len: int):
-    """The forward as its chain of launches (``route_kernels(y.dtype)``):
+    """The forward as its chain of launches (``route_kernels(y.dtype, d)``):
     ``(y3, qkv, a1, qc, kv, a2, h, a3)``. On CPU tensors each launch runs its
     plain version."""
-    k = _launches(y.dtype)
     L = layer_sm90
     d = y.shape[1]
+    k = _launches(y.dtype, d)
     qkv = L.bias_product(k["qkv"], y, wqkv, bqkv)
     attn = L.attention_forward(k["self_attn_fwd"], qkv[:, :d], qkv[:, d:2 * d], qkv[:, 2 * d:],
                                seed, SITE_SELF, rate, n_heads, seq_len, causal=True)
@@ -242,7 +258,7 @@ def forward_sm90(y, mem, wqkv, bqkv, wo, bo, wq, bq, wkv, bkv, wo2, bo2, g1, b1,
 
 def backward_sm90(dy, y, mem, qkv, a1, qc, kv, a2, h, a3, wqkv, wo, wq, wkv, wo2, w1, w2,
                   g1, b1, g2, b2, g3, seed, rate: float, n_heads: int, seq_len: int):
-    """The backward as its chain of launches (``route_kernels(y.dtype)``),
+    """The backward as its chain of launches (``route_kernels(y.dtype, d)``),
     :func:`layer_backward`'s outputs. On CPU tensors each launch runs its
     plain version."""
     dx, dmem, grads = _backward_flat(dy, y, mem, qkv, a1, qc, kv, a2, h, a3, wqkv, wo, wq, wkv,
@@ -255,9 +271,9 @@ def _backward_flat(dy, y, mem, qkv, a1, qc, kv, a2, h, a3, wqkv, wo, wq, wkv, wo
                    g1, b1, g2, b2, g3, seed, rate: float, n_heads: int, seq_len: int):
     """:func:`backward_sm90` with the parameter gradients as the one flat f32
     tensor the weight-gradient launch writes (:func:`split_grads`)."""
-    k = _launches(y.dtype)
     L = layer_sm90
     m, d = y.shape
+    k = _launches(y.dtype, d)
     ff = w1.shape[0]
     (y1, y2, _), stats, da3, df = L.ln_rows(
         k["ln_rows"], [(a1, g1, b1, True), (a2, g2, b2, True), (a3, g3, None, False)], dy, seed,

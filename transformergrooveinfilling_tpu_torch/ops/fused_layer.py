@@ -22,8 +22,11 @@ split TF32 (3xTF32: each operand split into a TF32 high part and a TF32
 remainder, three tensor-core products summed in f32), within about 2⁻²² of
 an f32 product, where one TF32 product would miss the f32 bars. Each dtype
 counts its own launches: ``SM90_KERNELS`` (bf16), ``SM90_F32_KERNELS``
-(f32), ``route_kernels(dtype)`` picks. No float atomics, so two runs with
-one seed agree bit for bit.
+(f32), ``route_kernels(dtype)`` picks. Past d 256 (``layer_sm90.LN_TILE``)
+the chain takes its wide route, 16 launches where the LayerNorm epilogues'
+three launches become a product and a row pass each (``SM90_WIDE_KERNELS``,
+``SM90_WIDE_F32_KERNELS``, ``route_kernels(dtype, d)``). No float atomics,
+so two runs with one seed agree bit for bit.
 
 What bounds it on the H100: about 1.05 MFLOP of products per row forward and
 2.1 MFLOP backward at the flagship width (d 256, ff 512) — operations, not
@@ -73,6 +76,12 @@ SITE_ATTN, SITE_PROJ, SITE_FFN, SITE_OUT = 0, 1, 2, 3
 # H100 showed 0-1 flips per call in f32 and 1-2 in 8.4M units in bf16.
 KINK_BAND = {torch.float32: 1e-5, torch.bfloat16: 2e-3}
 KINK_SHARE = 1e-5
+# ... and of a whole bf16 layer of the wide route (d 512) against its twin,
+# each flip within KINK_BAND: an H100 read up to 1.57e-4 of the units at the
+# decoder (B 32, 4 heads, ff 1,024) and 5.3e-5 at the encoder, an input of W1
+# rounded to the neighbouring bf16 value upstream, where the tensor cores sum
+# in another order than the twin (the hidden product alone holds KINK_SHARE)
+WIDE_KINK_SHARE = 3e-4
 
 _M0, _M1 = 0xD2511F53, 0xCD9E8D57
 _W0, _W1 = 0x9E3779B9, 0xBB67AE85
@@ -199,7 +208,7 @@ def encoder_layer_reference(x, wqkv, bqkv, wo, bo, g1, b1, w1, b1f, w2, b2f,
     return y
 
 
-def kink_flips(twin_h: torch.Tensor, kernel_h: torch.Tensor):
+def kink_flips(twin_h: torch.Tensor, kernel_h: torch.Tensor, share: float = KINK_SHARE):
     """The FFN hidden units at which the kernel and the twin, run on the same
     inputs and masks, fall on opposite sides of the ReLU's kink: ``(flips,
     stats)``, ``flips`` for ``encoder_layer_reference(relu_flips=...)``.
@@ -208,8 +217,9 @@ def kink_flips(twin_h: torch.Tensor, kernel_h: torch.Tensor):
     of its sum, and the gradient through it is then all or nothing. ``twin_h``
     and ``kernel_h`` are the two ``h_drop`` (rows, ff). Raises ``ValueError``
     unless every flipped unit is within ``KINK_BAND`` · max|h| of 0 and
-    flips are at most ``KINK_SHARE`` of the units (plus 4): a kernel that
-    zeroes units it should keep, or keeps units it should zero, fails here.
+    flips are at most ``share`` of the units (plus 4; ``KINK_SHARE`` for one
+    launch, a whole layer's more, ``WIDE_KINK_SHARE``): a kernel that zeroes
+    units it should keep, or keeps units it should zero, fails here.
     """
     th, kh = twin_h.float(), kernel_h.float()
     flips = (th > 0) != (kh > 0)
@@ -217,9 +227,9 @@ def kink_flips(twin_h: torch.Tensor, kernel_h: torch.Tensor):
     n = int(flips.sum())
     largest = float(torch.maximum(th, kh)[flips].max()) / scale if n else 0.0
     stats = {"flips": n, "units": flips.numel(), "largest_rel": largest}
-    if largest > KINK_BAND[twin_h.dtype] or n > KINK_SHARE * flips.numel() + 4:
+    if largest > KINK_BAND[twin_h.dtype] or n > share * flips.numel() + 4:
         raise ValueError(f"kernel and twin ReLU decisions differ beyond rounding: {stats}, "
-                         f"band {KINK_BAND[twin_h.dtype]}, share {KINK_SHARE}")
+                         f"band {KINK_BAND[twin_h.dtype]}, share {share}")
     return flips, stats
 
 
@@ -237,42 +247,55 @@ def kink_flips(twin_h: torch.Tensor, kernel_h: torch.Tensor):
 F32_MAX_FF = 1024
 
 
+# the widest head the chain's attention takes: a (sequence, head) in one
+# block's shared memory (at hd 512: 138 KB in bf16, 207 KB in f32, V read from
+# device memory in the f32 backward)
+MAX_HEAD_DIM = 512
+
+
 def supports_fused_layer(d_model: int, n_heads: int, dim_feedforward: int,
                          seq_len: int, dtype=torch.float32) -> bool:
     """Whether the chain of ``csrc/layer_sm90.cu`` takes this layer in
     ``dtype``.
 
-    Both dtypes: d a multiple of 8 up to 256 (the LayerNorm epilogues' tile
-    spans a row; TMA's 16-byte row strides; the row pass reads 8 columns a
-    lane), ff a multiple of 8 (the column sums read 8 at a time), d divisible
-    by the heads, and T ≤ 32 (the attention keeps a (sequence, head) in one
-    block of at most 32 rows). bf16 also needs heads of a width hd that is a
-    multiple of 8 (its attention loads 16-byte rows by cp.async and
+    Both dtypes: d a multiple of 8 up to 1,024 (``layer_sm90.MAX_D``: the
+    LayerNorm epilogues' tile spans a row up to 256, the wide route's row
+    passes take four chunks of 256 columns; TMA's 16-byte row strides; the
+    row passes read 8 columns a lane), ff a multiple of 8 (the column sums
+    read 8 at a time), d divisible by the heads into heads of at most
+    ``MAX_HEAD_DIM`` (512), and T ≤ 32 (the attention keeps a (sequence, head)
+    in one block of at most 32 rows). bf16 also needs heads of a width hd
+    that is a multiple of 8 (its attention loads 16-byte rows by cp.async and
     zero-fills hd to the mma's k of 16); the f32 attention stages rows in
     chunks as narrow as one value and zero-fills hd to the TF32 mma's k of 8,
     so it takes any hd. Rows and the head count are otherwise free: the
-    products' ragged edges are TMA's zero fill.
+    products' ragged edges are TMA's zero fill. This admits every (d, heads,
+    ff) of the JAX gate (``transformergrooveinfilling_tpu/ops/fused_layer.py::
+    supports_fused_layer``: d and ff multiples of 128, ≤ 5 heads of a width
+    that is a multiple of 128 or 64 in pairs, ff ≤ 1,024) up to d 1,024 but
+    d 1,024 with one head (hd 1,024, whose block does not fit).
 
     f32 also needs ff ≤ ``F32_MAX_FF`` (1,024: the widest measured ff whose
     unpromoted sums hold the chain's 1e-5 bar on the card). In f32 this
     admits every width of ``configs/*.yaml`` at T 32 but the lm config's ff
     2,048: d 32 with 16 heads (hd 2) and ff 512, d 32 / 4 heads / ff 16, d 64
     / 16 / 256, d 256 / 16 / 64 and d 256 / 2 / 512. The f32 CUDA-core
-    kernels this chain replaced took, by shared memory alone, what this gate
-    now refuses: d from 264 up to about 352 (beyond the LayerNorm tile), and
-    d or ff a multiple of 4 but not of 8. Under auto those widths take the
-    unfused path; a forced ``fused_layer=True`` raises ``ValueError``.
+    kernels this chain replaced took, by shared memory alone, d or ff a
+    multiple of 4 but not of 8, which this gate refuses. Under auto those
+    widths take the unfused path; a forced ``fused_layer=True`` raises
+    ``ValueError``.
 
     The TPU gate's 128-lane widths, ≤ 5 heads and ff ≤ 1024 (scoped VMEM) do
     not apply.
     """
     if dtype not in KERNEL_DTYPES or n_heads < 1 or d_model % n_heads or not 1 <= seq_len <= MAX_T:
         return False
-    if dtype == torch.bfloat16 and (d_model // n_heads) % 8:
+    hd = d_model // n_heads
+    if hd > MAX_HEAD_DIM or (dtype == torch.bfloat16 and hd % 8):
         return False
     if dtype == torch.float32 and dim_feedforward > F32_MAX_FF:
         return False
-    return (8 <= d_model <= layer_sm90.LN_TILE and d_model % 8 == 0
+    return (8 <= d_model <= layer_sm90.MAX_D and d_model % 8 == 0
             and dim_feedforward >= 8 and dim_feedforward % 8 == 0)
 
 
@@ -284,19 +307,29 @@ SM90_LAUNCHES = {"qkv": "bias", "attn_fwd": "attn_fwd", "proj_ln1": "res_ln",
                  "ffn_hidden": "hidden", "ffn_out_ln2": "res_ln", "ln_rows": "ln_rows",
                  "dh": "dh", "dy1_ln1": "ln_bwd", "dattn": "round", "attn_bwd": "attn_bwd",
                  "dx": "round", "wgrad": "wgrad", "reduce": "reduce"}
-SM90_KERNELS = layer_sm90.counted_kernels("fused_layer_sm90", SM90_LAUNCHES)
-SM90_F32_KERNELS = layer_sm90.counted_kernels("fused_layer_sm90_f32", SM90_LAUNCHES)
+_ROUTES = layer_sm90.routes("fused_layer_sm90", SM90_LAUNCHES)
+SM90_KERNELS = _ROUTES[torch.bfloat16, False]
+SM90_F32_KERNELS = _ROUTES[torch.float32, False]
+# the wide route (d past layer_sm90.LN_TILE): each LayerNorm-epilogue launch as
+# a product (_sum) and a row pass (_rows), the others shared with the route above
+# (the same counters)
+SM90_WIDE_LAUNCHES = layer_sm90.wide_launches(SM90_LAUNCHES)
+SM90_WIDE_KERNELS = _ROUTES[torch.bfloat16, True]
+SM90_WIDE_F32_KERNELS = _ROUTES[torch.float32, True]
 
 
-def route_kernels(dtype) -> dict:
-    """The counted kernels a layer call launches in ``dtype`` (bf16 or f32):
-    each once per forward (the first five) or backward (the rest)."""
-    return SM90_KERNELS if dtype == torch.bfloat16 else SM90_F32_KERNELS
+def route_kernels(dtype, d: int | None = None) -> dict:
+    """The counted kernels a layer call launches in ``dtype`` (bf16 or f32)
+    at width ``d`` (None: up to ``layer_sm90.LN_TILE``), in launch order, each
+    once per call: 13, the first five forward; past d 256 the wide route's
+    16, the first seven forward."""
+    return layer_sm90.route(_ROUTES, dtype, d)
 
 
-def _launches(dtype) -> dict:
-    """``route_kernels(dtype)`` keyed by the launch's name in ``SM90_LAUNCHES``."""
-    return dict(zip(SM90_LAUNCHES, route_kernels(dtype).values()))
+def _launches(dtype, d: int) -> dict:
+    """``route_kernels(dtype, d)`` keyed by the launch's name in
+    ``SM90_LAUNCHES`` (a split launch as its (product, row pass) pair)."""
+    return layer_sm90.by_launch(SM90_LAUNCHES, route_kernels(dtype, d), layer_sm90.is_wide(d))
 
 
 def _check(x, weights, vectors, seed, n_heads: int, seq_len: int) -> None:
@@ -329,11 +362,11 @@ def _check(x, weights, vectors, seed, n_heads: int, seq_len: int) -> None:
 
 def forward_sm90(x, wqkv, bqkv, wo, bo, g1, b1, w1, b1f, w2, b2f, g2, b2, seed,
                  rate: float, n_heads: int, seq_len: int):
-    """The forward as its chain of launches (``route_kernels(x.dtype)``):
+    """The forward as its chain of launches (``route_kernels(x.dtype, d)``):
     ``(y, qkv, a1, h, a2)``. On CPU tensors each launch runs its plain
     version."""
-    k = _launches(x.dtype)
     d = x.shape[1]
+    k = _launches(x.dtype, d)
     qkv = layer_sm90.bias_product(k["qkv"], x, wqkv, bqkv)
     attn = layer_sm90.attention_forward(k["attn_fwd"], qkv[:, :d], qkv[:, d:2 * d],
                                         qkv[:, 2 * d:], seed, SITE_ATTN, rate, n_heads, seq_len,
@@ -348,7 +381,7 @@ def forward_sm90(x, wqkv, bqkv, wo, bo, g1, b1, w1, b1f, w2, b2f, g2, b2, seed,
 
 def backward_sm90(dy, x, qkv, a1, h, a2, wqkv, wo, w1, w2, g1, b1, g2, seed,
                   rate: float, n_heads: int, seq_len: int):
-    """The backward as its chain of launches (``route_kernels(x.dtype)``),
+    """The backward as its chain of launches (``route_kernels(x.dtype, d)``),
     :func:`layer_backward`'s outputs. On CPU tensors each launch runs its
     plain version."""
     dx, grads = _backward_flat(dy, x, qkv, a1, h, a2, wqkv, wo, w1, w2, g1, b1, g2, seed, rate,
@@ -360,8 +393,8 @@ def _backward_flat(dy, x, qkv, a1, h, a2, wqkv, wo, w1, w2, g1, b1, g2, seed,
                    rate: float, n_heads: int, seq_len: int):
     """:func:`backward_sm90` with the parameter gradients as the one flat f32
     tensor the weight-gradient launch writes (:func:`split_grads`)."""
-    k = _launches(x.dtype)
     m, d = x.shape
+    k = _launches(x.dtype, d)
     ff = w1.shape[0]
     (y1, _), stats, da2, df = layer_sm90.ln_rows(
         k["ln_rows"], [(a1, g1, b1, True), (a2, g2, None, False)], dy, seed, SITE_OUT, rate)

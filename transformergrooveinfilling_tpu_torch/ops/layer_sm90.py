@@ -1,6 +1,7 @@
 """The launches of the whole-layer chains on Hopper: wrappers and plain versions.
 
-``csrc/layer_sm90.cu`` holds the launches from which ``ops/fused_layer.py``
+``csrc/layer_sm90.cu`` (and, for the wide route, ``csrc/layer_wide_sm90.cu``)
+holds the launches from which ``ops/fused_layer.py``
 and ``ops/fused_decoder_layer.py`` build the encoder and decoder layers'
 forward and backward, in bf16 or in f32 (the activations' dtype picks; one
 chain for both). Every dense product runs on the ``wgmma`` core of
@@ -13,8 +14,20 @@ whose row splits a reduce adds in a fixed order (no float atomics: two runs
 with one seed agree bit for bit). See the source's note for what bounds each
 launch.
 
-Each wrapper here is one launch: it takes the ``_build.CountedKernel`` to
-launch through (so that each layer counts its own launches), runs the
+Two routes, by the model width d. Up to ``LN_TILE`` (256) the LayerNorm
+runs in the epilogue of the product before it (one 64 × 256 tile spans a
+row). Past it, up to ``MAX_D`` (1,024), each such launch is two (the wide
+route, :data:`WIDE`): the product with a plain epilogue that also writes the
+f32 row, then a row pass that normalises it (:func:`residual_ln_product`,
+:func:`ln_backward_product`); the backward's row pass (:func:`ln_rows`) walks
+a row in chunks of 256 columns. :func:`is_wide` is the one place that
+decides the route; :func:`routes` gives a chain's counted kernels in both
+routes and both dtypes, :func:`route` picks among them.
+
+Each wrapper here is one launch (but :func:`residual_ln_product` and
+:func:`ln_backward_product` in the wide route, two wrappers' launches): it
+takes the ``_build.CountedKernel`` to launch through (so that each layer
+counts its own launches), runs the
 launch's plain PyTorch version (the ``*_reference`` beside it, any device)
 when every tensor lies on the CPU, and on CUDA tensors launches the kernel
 or raises. Inside :func:`recording` each launch is also kept with its
@@ -42,6 +55,7 @@ from .dropout import quantized_threshold
 
 LN_EPS = 1e-5
 LN_TILE = 256  # the LayerNorm epilogues' tile: one tile spans a row, d ≤ 256
+MAX_D = 1024  # the row passes: four chunks of 256 columns a warp, d ≤ 1,024
 MAX_T = 32  # the attention's block: two warps of 16 query rows, 32 padded keys
 WGRAD_TILE = 128  # the weight gradients' (m, n) tile
 K_STAGE = 64  # rows a stage of the weight gradients; a split is whole stages
@@ -64,6 +78,10 @@ SIGNATURES = {
     "tgi_sm90_ln_bwd": [_P] * 10 + [_I] * 7,
     "tgi_sm90_round": [_P] * 4 + [_I] * 5,
     "tgi_sm90_ln_rows": [ctypes.POINTER(_P)] + [_I] * 6,
+    "tgi_sm90_res_sum": [_P] * 7 + [_I] * 7,
+    "tgi_sm90_ln_y": [_P] * 4 + [_I] * 3,
+    "tgi_sm90_grad_sum": [_P] * 4 + [_I] * 5,
+    "tgi_sm90_ln_grad": [_P] * 7 + [_I] * 6,
     "tgi_sm90_attn_fwd": [_P] * 5 + [_I] * 11,
     "tgi_sm90_attn_bwd": [_P] * 9 + [_I] * 14,
     "tgi_sm90_wgrad": [ctypes.POINTER(_P), ctypes.POINTER(_I)] + [_I] * 5 + [_P, _I],
@@ -71,15 +89,24 @@ SIGNATURES = {
 }
 
 
+# the wide route's entry points: csrc/layer_wide_sm90.cu, built apart from
+# csrc/layer_sm90.cu so that nvcc compiles the two in parallel
+WIDE_SOURCE = "layer_wide_sm90"
+WIDE_ENTRIES = ("tgi_sm90_res_sum", "tgi_sm90_ln_y", "tgi_sm90_grad_sum", "tgi_sm90_ln_grad")
+ERROR_STRINGS = {"layer_sm90": "tgi_sm90_error_string",
+                 WIDE_SOURCE: "tgi_sm90_wide_error_string"}
+
+
 @functools.cache
-def _library():
-    lib = _build.load_library("layer_sm90")
+def _library(source: str = "layer_sm90"):
+    lib = _build.load_library(source)
     for name, args in SIGNATURES.items():
-        fn = getattr(lib, name)
-        fn.argtypes = args + [_P]  # the stream last
-        fn.restype = _I
-    lib.tgi_sm90_error_string.argtypes = [_I]
-    lib.tgi_sm90_error_string.restype = ctypes.c_char_p
+        if (name in WIDE_ENTRIES) == (source == WIDE_SOURCE):
+            fn = getattr(lib, name)
+            fn.argtypes = args + [_P]  # the stream last
+            fn.restype = _I
+    error = getattr(lib, ERROR_STRINGS[source])
+    error.argtypes, error.restype = [_I], ctypes.c_char_p
     return lib
 
 
@@ -88,15 +115,77 @@ ENTRIES = {"bias": "tgi_sm90_bias", "hidden": "tgi_sm90_hidden", "res_ln": "tgi_
            "dh": "tgi_sm90_dh", "ln_bwd": "tgi_sm90_ln_bwd", "round": "tgi_sm90_round",
            "ln_rows": "tgi_sm90_ln_rows", "attn_fwd": "tgi_sm90_attn_fwd",
            "attn_bwd": "tgi_sm90_attn_bwd", "wgrad": "tgi_sm90_wgrad",
-           "reduce": "tgi_sm90_reduce"}
+           "reduce": "tgi_sm90_reduce", "res_sum": "tgi_sm90_res_sum", "ln_y": "tgi_sm90_ln_y",
+           "grad_sum": "tgi_sm90_grad_sum", "ln_grad": "tgi_sm90_ln_grad"}
+# the wide route: each LayerNorm-epilogue launch type as (its product, its row pass)
+WIDE = {"res_ln": ("res_sum", "ln_y"), "ln_bwd": ("grad_sum", "ln_grad")}
 
 
 def counted_kernels(prefix: str, launches: dict) -> dict:
     """``{prefix_name: CountedKernel}`` for ``launches`` = ``{name: launch
     type}`` (a key of ``ENTRIES``): one counter per launch of a layer (a
     chain per dtype, so that each dtype counts its own launches)."""
-    return {f"{prefix}_{name}": _build.CountedKernel(_library, ENTRIES[kind],
-                                                     "tgi_sm90_error_string")
+    def kernel(entry):
+        source = WIDE_SOURCE if entry in WIDE_ENTRIES else "layer_sm90"
+        return _build.CountedKernel(functools.partial(_library, source), entry,
+                                    ERROR_STRINGS[source])
+
+    return {f"{prefix}_{name}": kernel(ENTRIES[kind]) for name, kind in launches.items()}
+
+
+def wide_launches(launches: dict) -> dict:
+    """A chain's ``launches`` (``{name: launch type}``, in launch order) in
+    the wide route: each launch ``name`` of a type in ``WIDE`` becomes
+    ``name_sum`` (its product) and ``name_rows`` (its row pass)."""
+    out = {}
+    for name, kind in launches.items():
+        if kind in WIDE:
+            out[f"{name}_sum"], out[f"{name}_rows"] = WIDE[kind]
+        else:
+            out[name] = kind
+    return out
+
+
+def is_wide(d: int | None) -> bool:
+    """Whether a chain of width ``d`` takes the wide route (None: a width up
+    to ``LN_TILE``)."""
+    return d is not None and d > LN_TILE
+
+
+def wide_route(prefix: str, launches: dict, narrow: dict) -> dict:
+    """The counted kernels of a chain's wide route, in launch order: the
+    ``narrow`` route's (``counted_kernels(prefix, launches)``) for the
+    launches both routes make, new counters for the split launches."""
+    wide = wide_launches(launches)
+    new = counted_kernels(prefix, {n: k for n, k in wide.items() if n not in launches})
+    return {f"{prefix}_{n}": narrow.get(f"{prefix}_{n}") or new[f"{prefix}_{n}"] for n in wide}
+
+
+def routes(prefix: str, launches: dict) -> dict:
+    """A chain's counted kernels by ``(dtype, wide)``: bf16 under ``prefix``,
+    f32 under ``prefix_f32`` (each dtype counts its own launches), each
+    narrow (:func:`counted_kernels`) and wide (:func:`wide_route`)."""
+    out = {}
+    for dtype, tag in ((torch.bfloat16, ""), (torch.float32, "_f32")):
+        narrow = counted_kernels(prefix + tag, launches)
+        out[dtype, False] = narrow
+        out[dtype, True] = wide_route(prefix + tag, launches, narrow)
+    return out
+
+
+def route(chain: dict, dtype, d: int | None = None) -> dict:
+    """The counted kernels that a call of width ``d`` (None: up to
+    ``LN_TILE``) launches in ``dtype``, from a chain's :func:`routes`."""
+    return chain[torch.bfloat16 if dtype == torch.bfloat16 else torch.float32, is_wide(d)]
+
+
+def by_launch(launches: dict, kernels: dict, wide: bool) -> dict:
+    """``{name: kernel}`` of a chain's ``launches`` from its route's
+    ``kernels`` (the narrow route's, or with ``wide`` :func:`wide_route`'s),
+    where a launch the wide route splits is the pair (product, row pass)
+    that :func:`residual_ln_product` and :func:`ln_backward_product` take."""
+    it = iter(kernels.values())
+    return {name: (next(it), next(it)) if wide and kind in WIDE else next(it)
             for name, kind in launches.items()}
 
 
@@ -306,6 +395,14 @@ def hidden_product(kernel, a, w, bias, seed, site: int, rate: float):
                  lambda: hidden_product(kernel, a, w, bias, seed, site, rate))
 
 
+def _pair(kernel, d: int):
+    """The (product, row pass) kernels of a wide-route launch."""
+    if not isinstance(kernel, tuple) or len(kernel) != 2:
+        raise ValueError(f"layer_sm90: d {d} is past the LayerNorm tile ({LN_TILE}), a launch "
+                         "of the wide route, which takes a (product, row pass) pair of kernels")
+    return kernel
+
+
 def residual_ln_reference(a, w, bias, resid, g, beta, seed, site: int, rate: float):
     s = resid.float() + _site(a.float() @ w.float().t() + bias, seed, site, rate)
     mu, rstd = _stats(s)
@@ -314,20 +411,77 @@ def residual_ln_reference(a, w, bias, resid, g, beta, seed, site: int, rate: flo
 
 def residual_ln_product(kernel, a, w, bias, resid, g, beta, seed, site: int, rate: float):
     """``s = resid + drop(a·wᵀ + bias)`` at ``site``, then ``(round(s),
-    round(LN(s)·g + beta))``, the statistics from the f32 ``s``. The width d
-    (``w``'s rows) is at most ``LN_TILE``: one tile spans a row."""
+    round(LN(s)·g + beta))``, the statistics from the f32 ``s``. Up to d
+    (``w``'s rows) ``LN_TILE``, one launch: a tile spans a row. Past it, the
+    wide route: ``kernel`` is the pair (product, row pass), and the launches
+    :func:`residual_sum_product` and :func:`ln_y_rows`."""
     args = (a, w, bias, resid, g, beta, seed, site, rate)
+    if is_wide(w.shape[0]):
+        k_sum, k_rows = _pair(kernel, w.shape[0])
+        a_out, s = residual_sum_product(k_sum, a, w, bias, resid, seed, site, rate)
+        return a_out, ln_y_rows(k_rows, s, g, beta, a.dtype)
     if _on_cpu(a, w, bias, resid, g, beta, seed):
         return residual_ln_reference(*args)
     _check((a, w, resid), (bias, g, beta))
     (rows, k), d = a.shape, w.shape[0]
-    if d > LN_TILE:
-        raise ValueError(f"layer_sm90's LayerNorm epilogue takes d ≤ {LN_TILE}; got {d}")
     a_out, y = a.new_empty((rows, d)), a.new_empty((rows, d))
     kernel.launch((a, w, bias, resid, g, beta, seed, a_out, y),
                   (rows, d, k, quantized_threshold(rate), site, _f32(a)), a.device)
     return _done(kernel, residual_ln_reference, args, (a_out, y),
                  lambda: residual_ln_product(kernel, *args))
+
+
+def residual_sum_reference(a, w, bias, resid, seed, site: int, rate: float):
+    s = resid.float() + _site(a.float() @ w.float().t() + bias, seed, site, rate)
+    return s.to(a.dtype), s
+
+
+def residual_sum_product(kernel, a, w, bias, resid, seed, site: int, rate: float):
+    """The wide route's product of :func:`residual_ln_product`: ``s = resid
+    + drop(a·wᵀ + bias)`` at ``site``, written as ``(round(s), s)``, the
+    second in f32."""
+    args = (a, w, bias, resid, seed, site, rate)
+    if _on_cpu(a, w, bias, resid, seed):
+        return residual_sum_reference(*args)
+    _check((a, w, resid), (bias,))
+    (rows, k), d = a.shape, w.shape[0]
+    a_out = a.new_empty((rows, d))
+    s = torch.empty((rows, d), device=a.device, dtype=torch.float32)
+    kernel.launch((a, w, bias, resid, seed, a_out, s),
+                  (rows, d, k, quantized_threshold(rate), site, product_config(rows, d, _sms(a)),
+                   _f32(a)), a.device)
+    return _done(kernel, residual_sum_reference, args, (a_out, s),
+                 lambda: residual_sum_product(kernel, *args))
+
+
+def _check_rows(rows, *vectors) -> None:
+    """Raise ``ValueError`` on what a wide-route row pass does not take: f32
+    ``rows`` of a width d that is a multiple of 8 up to ``MAX_D``, read 16
+    bytes at a time, and contiguous f32 ``vectors``."""
+    _check(f32=(rows, *vectors))
+    d = rows.shape[1]
+    if d % 8 or not 8 <= d <= MAX_D or rows.data_ptr() % 16:
+        raise ValueError(f"layer_sm90's row passes take d a multiple of 8 up to {MAX_D} and "
+                         f"16-byte aligned rows; got d {d}")
+
+
+def ln_y_reference(s, g, beta, dtype):
+    mu, rstd = _stats(s)
+    return ((s - mu) * rstd * g + beta).to(dtype)
+
+
+def ln_y_rows(kernel, s, g, beta, dtype):
+    """The wide route's row pass of :func:`residual_ln_product`:
+    ``round(LN(s)·g + beta)`` in ``dtype``, the statistics from the f32
+    ``s`` (rows, d)."""
+    args = (s, g, beta, dtype)
+    if _on_cpu(s, g, beta):
+        return ln_y_reference(*args)
+    rows, d = s.shape
+    _check_rows(s, g, beta)
+    y = torch.empty((rows, d), device=s.device, dtype=dtype)
+    kernel.launch((s, g, beta, y), (rows, d, int(dtype == torch.float32)), s.device)
+    return _done(kernel, ln_y_reference, args, y, lambda: ln_y_rows(kernel, *args))
 
 
 def dh_reference(df, w2, h, rate: float):
@@ -350,6 +504,11 @@ def dh_product(kernel, df, w2, h, rate: float):
                  lambda: dh_product(kernel, df, w2, h, rate))
 
 
+def _check_stats(stats) -> None:
+    if stats.dtype != torch.float32 or stats.stride(1) != 1:
+        raise ValueError("layer_sm90 takes LayerNorm statistics as an f32 (rows, 2) view")
+
+
 def ln_backward_reference(a, w, resid, g, a_ln, stats, seed, site: int, rate: float):
     v = a.float() @ w.float() + resid
     mu, rstd = stats[:, 0:1], stats[:, 1:2]
@@ -361,16 +520,21 @@ def ln_backward_product(kernel, a, w, resid, g, a_ln, stats, seed, site: int, ra
     """``v = a·w + resid``, the gradient at a LayerNorm's output, and the
     LayerNorm's backward from its stored input ``a_ln`` and that row's
     ``stats`` (a (rows, 2) f32 view: mean, rstd): ``(da, v, round(drop(da)))``,
-    ``da`` and ``v`` in f32, the last at dropout site ``site``."""
+    ``da`` and ``v`` in f32, the last at dropout site ``site``. Up to d
+    ``LN_TILE`` one launch; past it the wide route: ``kernel`` is the pair
+    (product, row pass), the launches :func:`grad_sum_product` and
+    :func:`ln_grad_rows`."""
     args = (a, w, resid, g, a_ln, stats, seed, site, rate)
+    if is_wide(w.shape[1]):
+        k_sum, k_rows = _pair(kernel, w.shape[1])
+        v = grad_sum_product(k_sum, a, w, resid)
+        da, dp = ln_grad_rows(k_rows, v, g, a_ln, stats, seed, site, rate)
+        return da, v, dp
     if _on_cpu(a, w, resid, g, a_ln, stats, seed):
         return ln_backward_reference(*args)
     _check((a, w, a_ln), (resid, g))
-    if stats.dtype != torch.float32 or stats.stride(1) != 1:
-        raise ValueError("layer_sm90 takes LayerNorm statistics as an f32 (rows, 2) view")
+    _check_stats(stats)
     (rows, k), d = a.shape, w.shape[1]
-    if d > LN_TILE:
-        raise ValueError(f"layer_sm90's LayerNorm epilogue takes d ≤ {LN_TILE}; got {d}")
     da, v = resid.new_empty((rows, d)), resid.new_empty((rows, d))
     dp = a.new_empty((rows, d))
     kernel.launch((a, w, resid, g, a_ln, stats, seed, da, v, dp),
@@ -378,6 +542,49 @@ def ln_backward_product(kernel, a, w, resid, g, a_ln, stats, seed, site: int, ra
                   a.device)
     return _done(kernel, ln_backward_reference, args, (da, v, dp),
                  lambda: ln_backward_product(kernel, *args))
+
+
+def grad_sum_reference(a, w, resid):
+    return a.float() @ w.float() + resid
+
+
+def grad_sum_product(kernel, a, w, resid):
+    """The wide route's product of :func:`ln_backward_product`: ``v = a·w
+    + resid`` in f32, ``w`` (k, d), ``resid`` an f32 (rows, d)."""
+    args = (a, w, resid)
+    if _on_cpu(a, w, resid):
+        return grad_sum_reference(*args)
+    _check((a, w), (resid,))
+    (rows, k), n = a.shape, w.shape[1]
+    v = resid.new_empty((rows, n))
+    kernel.launch((a, w, resid, v), (rows, n, k, product_config(rows, n, _sms(a)), _f32(a)),
+                  a.device)
+    return _done(kernel, grad_sum_reference, args, v, lambda: grad_sum_product(kernel, *args))
+
+
+def ln_grad_reference(v, g, a_ln, stats, seed, site: int, rate: float):
+    mu, rstd = stats[:, 0:1], stats[:, 1:2]
+    da = _ln_backward(v, g, (a_ln.float() - mu) * rstd, rstd)
+    return da, _site(da, seed, site, rate).to(a_ln.dtype)
+
+
+def ln_grad_rows(kernel, v, g, a_ln, stats, seed, site: int, rate: float):
+    """The wide route's row pass of :func:`ln_backward_product`: from the
+    gradient ``v`` (f32, rows × d) at a LayerNorm's output, its stored input
+    ``a_ln`` and that row's ``stats`` (an f32 (rows, 2) view: mean, rstd),
+    ``(da, round(drop(da)))``, ``da`` in f32, the second at ``site``."""
+    args = (v, g, a_ln, stats, seed, site, rate)
+    if _on_cpu(v, g, a_ln, stats, seed):
+        return ln_grad_reference(*args)
+    rows, d = v.shape
+    _check((a_ln,))
+    _check_rows(v, g)
+    _check_stats(stats)
+    da, dp = torch.empty_like(v), a_ln.new_empty((rows, d))
+    kernel.launch((v, g, a_ln, stats, seed, da, dp),
+                  (rows, d, stats.stride(0), quantized_threshold(rate), site, _f32(a_ln)),
+                  v.device)
+    return _done(kernel, ln_grad_reference, args, (da, dp), lambda: ln_grad_rows(kernel, *args))
 
 
 def round_reference(a, w, resid=None):
@@ -420,15 +627,16 @@ def ln_rows(kernel, lns, dy, seed, site: int, rate: float):
     inputs: ``(ys, stats, da, df)``. ``stats`` (rows, 2·len(lns)) f32 holds
     each one's (mean, rstd); ``ys[k]`` = round(LN(a)·g + b) where ``want_y``,
     else None; ``da`` (f32) is the last one's input gradient from ``dy`` and
-    ``df`` = round(drop(da)) at ``site``."""
+    ``df`` = round(drop(da)) at ``site``. A warp takes a row, in chunks of
+    256 columns up to ``MAX_D``."""
     if _on_cpu(*[t for a, g, b, _ in lns for t in (a, g, b)], dy, seed):
         return ln_rows_reference(lns, dy, seed, site, rate)
     _check([a for a, *_ in lns] + [dy], [t for _, g, b, _ in lns for t in (g, b)
                                           if t is not None])
     rows, d = dy.shape
-    if not 1 <= len(lns) <= MAX_LN or d > LN_TILE:
+    if not 1 <= len(lns) <= MAX_LN or d > MAX_D:
         raise ValueError(f"layer_sm90's row pass takes 1 to {MAX_LN} LayerNorms of d ≤ "
-                         f"{LN_TILE}; got {len(lns)} of {d}")
+                         f"{MAX_D}; got {len(lns)} of {d}")
     ys = [dy.new_empty((rows, d)) if want else None for *_, want in lns]
     stats = torch.empty((rows, 2 * len(lns)), device=dy.device, dtype=torch.float32)
     da = torch.empty((rows, d), device=dy.device, dtype=torch.float32)

@@ -13,6 +13,7 @@ from .loop import (
     make_train_step, make_watch_fn, train_epoch,
 )
 from .schedule import eval_log_freq
+from ..models.losses import calculate_loss
 
 __all__ = [
     "checkpoint",
@@ -22,4 +23,5 @@ __all__ = [
     "TrainState", "create_train_state", "make_epoch_fn", "make_eval_loss_fn",
     "make_optimizer", "make_train_step", "make_watch_fn", "train_epoch",
     "eval_log_freq",
+    "calculate_loss",
 ]

@@ -26,6 +26,7 @@ import torch
 
 from .. import require_device
 from ..models.transformer import GrooveTransformerConfig
+from ..ops import layer_sm90
 from ..ops.fused_decoder_layer import supports_fused_decoder_layer
 from ..ops.fused_layer import supports_fused_layer
 from ..utils import yaml_subset
@@ -146,6 +147,25 @@ def resolve_fused_ffn(fused_ffn: Optional[bool], dim_feedforward: int, d_model: 
 # batches measured, in bf16 and in f32 (split TF32); above 512 nothing was
 # measured
 LAYER_KERNEL_MAX_BATCH = {torch.bfloat16: 512, torch.float32: 512}
+# The widest d at which auto turns each dtype's whole-layer chains on. Up to
+# 256 the chains put the LayerNorm in their products' epilogues (the turns
+# above); past it they take their wide route (16 launches an encoder layer, 26
+# a decoder layer). Its paired turns were taken at one shape, d 512 with 4
+# heads of 128 and ff 1,024 (chip_smoke.py phases 9 and 15: 3 pairs a batch,
+# the chains against the unfused path, the decoder at 2 + 2 layers; NVIDIA
+# H100 80GB HBM3, 700.00 W; PERF.md §5 names each run). In bf16 every run's
+# worst pair gained beyond its turns' spread at batch 32 and 512 in both
+# layers (the encoder: +149 % / +102 % against spreads of 32 % / 21 % in the
+# first run, +106 % / +130 % against 37 % / 18 % in a later one), so bf16 auto reaches 512, the widest d measured (GrooveXL's 1,024
+# stays unfused under auto). In f32 the encoder's worst pair at batch 32
+# gained +44 % against a 47 % spread in that first run, so f32 auto stops at
+# 256.
+LAYER_KERNEL_MAX_D = {torch.bfloat16: 512, torch.float32: 256}
+# ... and past d 256 only at the measured head width and ff: one head of 512
+# runs the chain's attention one block an SM, 8 or 16 heads and ff 2,048 were
+# not measured
+LAYER_KERNEL_WIDE_HEAD_DIM = 128
+LAYER_KERNEL_WIDE_MAX_FF = 1024
 
 
 def _measured_batch(batch_size: Optional[int], compute_dtype) -> bool:
@@ -154,6 +174,18 @@ def _measured_batch(batch_size: Optional[int], compute_dtype) -> bool:
     given."""
     limit = LAYER_KERNEL_MAX_BATCH.get(compute_dtype)
     return batch_size is not None and limit is not None and batch_size <= limit
+
+
+def _measured_width(d_model: int, n_heads: int, dim_feedforward: int, compute_dtype) -> bool:
+    """Whether the chains of ``compute_dtype`` were measured faster at this
+    width: d up to ``LAYER_KERNEL_MAX_D``, and past d 256 (the wide route)
+    heads of ``LAYER_KERNEL_WIDE_HEAD_DIM`` and ff up to
+    ``LAYER_KERNEL_WIDE_MAX_FF``."""
+    if d_model > LAYER_KERNEL_MAX_D.get(compute_dtype, 0):
+        return False
+    return (not layer_sm90.is_wide(d_model)
+            or (d_model == n_heads * LAYER_KERNEL_WIDE_HEAD_DIM
+                and dim_feedforward <= LAYER_KERNEL_WIDE_MAX_FF))
 
 
 def _topology_batch(n_devices: int, dp_shard_ok: bool,
@@ -178,8 +210,11 @@ def resolve_fused_layer(fused_layer: Optional[bool], d_model: int, n_heads: int,
     package's is: on where the kernels' Hopper gate
     (``ops/fused_layer.py::supports_fused_layer``) admits the shape and the
     batch one device sees is one at which the dtype's chain was measured
-    faster, <= 512 in bf16 and in f32 (``LAYER_KERNEL_MAX_BATCH``); off when
-    the batch is larger or not given. The topology, as the JAX package's: a
+    faster, <= 512 in bf16 and in f32 (``LAYER_KERNEL_MAX_BATCH``), at a
+    width where it was measured faster (``_measured_width``: d up to
+    ``LAYER_KERNEL_MAX_D``, past 256 heads of 128 and ff up to 1,024); off
+    when the batch is larger or not given, and at other widths (a forced True
+    trains there). The topology, as the JAX package's: a
     single device, or a data-parallel-only plan whose batch divides the data
     axis (``dp_shard_ok``, from ``train/driver.py::plan_topology``; each rank
     runs the chain on ``batch_size / n_devices`` rows,
@@ -208,6 +243,7 @@ def resolve_fused_layer(fused_layer: Optional[bool], d_model: int, n_heads: int,
         return bool(fused_layer)
     per_device = _topology_batch(n_devices, dp_shard_ok, batch_size)
     return (_measured_batch(per_device, compute_dtype)
+            and _measured_width(d_model, n_heads, dim_feedforward, compute_dtype)
             and supports_fused_layer(d_model, n_heads, dim_feedforward, seq_len, compute_dtype))
 
 
@@ -222,9 +258,10 @@ def resolve_fused_decoder_layer(fused_decoder_layer: Optional[bool], d_model: in
     (``dp_shard_ok``) where the decoder kernels' Hopper gate
     (``ops/fused_decoder_layer.py::supports_fused_decoder_layer``) admits
     the shape and the batch one device sees is within the dtype's
-    ``LAYER_KERNEL_MAX_BATCH`` (512 in bf16 and in f32); off when the batch is
-    larger or not given. A forced True is kept; the model raises if the gate
-    rejects it.
+    ``LAYER_KERNEL_MAX_BATCH`` (512 in bf16 and in f32), at a width where it
+    was measured faster (``_measured_width``); off when the batch is larger
+    or not given. A forced True is kept; the model raises if the gate rejects
+    it.
 
     The 6 + 6 layer model at the flagship width on an NVIDIA H100 80GB HBM3
     at 700 W (chip_smoke.py, phase 15; PERF.md §5), bf16: 901-1,134 seqs/s on
@@ -240,6 +277,7 @@ def resolve_fused_decoder_layer(fused_decoder_layer: Optional[bool], d_model: in
         return bool(fused_decoder_layer)
     per_device = _topology_batch(n_devices, dp_shard_ok, batch_size)
     return (_measured_batch(per_device, compute_dtype)
+            and _measured_width(d_model, n_heads, dim_feedforward, compute_dtype)
             and supports_fused_decoder_layer(d_model, n_heads, dim_feedforward, seq_len,
                                              compute_dtype))
 
