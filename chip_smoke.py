@@ -27,10 +27,10 @@ then non-zero):
             views (the library call for the same function; the port never
             calls it); also at the eval forwards' B 3,300 and 1,099 (phase 22),
             contiguous and packed qkv, timed at 3,300 in bf16; at the wide
-            heads of a d 512 model with one head (hd 512) and hd 384, B 1
-            and 512, contiguous and packed qkv, both dtypes, causal off/on,
-            and timed at hd 512 (B 1 and 512, packed qkv, both dtypes) beside
-            SDPA on the same views.
+            heads of one head, hd 384, 512 (a d 512 model), 768 and 1,024 (a
+            d 1,024 model), B 1 and 512, contiguous and packed qkv, both
+            dtypes, causal off/on, and timed at hd 512 and 1,024 (B 1 and
+            512, packed qkv, both dtypes) beside SDPA on the same views.
 4. serve    ``InfillServer`` at the flagship width (configs/
             InfillingRandom_training.yaml: d 256, 2 heads, ff 512, 6 layers,
             16 in, 27 out; seeded random weights) on the card: the kernel's
@@ -68,12 +68,15 @@ then non-zero):
             wherever the gate admits the ff (``ops/fused_layer.py::
             F32_MAX_FF``). The chain's wide route (d past 256: 16 launches,
             the LayerNorm epilogues' three as a product and a row pass each)
-            at d 512 with 4 heads and ff 1,024 (B 32 and 512) and with one
-            head of 512 and ff 512 (B 32), both dtypes, rate 0.30: two runs
-            bit-identical, the layer against its twin, every launch held to
-            its plain version (bf16 2e-2, f32 1e-5 · max, ``kink_flips``), at
-            the first shape timed with the layer's bound and
-            ``nn.TransformerEncoderLayer``.
+            at B 32, both dtypes, rate 0.30, at d 512 with 4 heads / ff 1,024,
+            d 1,024 with one head of 1,024 / ff 1,024 (the attention streams
+            the head), d 2,048 with 2 heads / ff 1,024 (the row passes a block
+            a row), d 512 with one head / ff 512 and d 1,280 with 5 heads / ff
+            1,024: two runs bit-identical, the layer against its twin, every
+            launch held to its plain version (bf16 2e-2, f32 1e-5 · max,
+            ``kink_flips``); at d 1,024 every launch timed with the layer's
+            bound and ``nn.TransformerEncoderLayer``, at d 2,048 the
+            attention's and the row passes' launches.
 9. train    ``initialize_model`` + ``train_loop`` with the flagship YAML's
             hyperparameters (written here: the card's machine has no pyyaml;
             a CPU test holds them to the file) on seeded synthetic loops:
@@ -87,12 +90,17 @@ then non-zero):
             and ``fused_layer=False`` in 3 pairs of turns at batch 32 and
             512, no profiler in the timed epochs (the numbers behind
             ``LAYER_KERNEL_MAX_BATCH[torch.float32]``); the wide route in
-            training: d 512 with one head (hd 512) and the chain forced, 4
-            bf16 steps and 2 f32 steps, each with its held-out loss through #1
-            at hd 512, every launch of the route once a layer and step; d 512
-            / 4 heads / ff 1,024, the chain against ``fused_layer=False`` in 3
-            pairs of turns, each dtype at batch 32 and 512 (the numbers
-            behind ``LAYER_KERNEL_MAX_D``); the trained weights served by
+            training: d 1,024 with one head of 1,024 and ff 1,024 (6 layers)
+            and the chain forced, 4 bf16 steps and 2 f32 steps, each with its
+            held-out loss through #1 at hd 1,024, every launch of the route
+            once a layer and step; its f32 weights carried through the JAX
+            layout to ``InfillServer``, a B 1 request and a bucket of 32
+            through #1 at hd 1,024 against the CPU plain path; the sweep
+            files' draw d 512 / 1 head on #1 in an eval forward and in the
+            vmapped ranking forward of 4 trials; d 512 / 4 heads / ff 1,024,
+            the chain against ``fused_layer=False`` in 3 pairs of turns, each
+            dtype at batch 32 and 512 (the numbers behind
+            ``LAYER_KERNEL_MAX_D``); the trained weights served by
             ``InfillServer``.
 10. front-end kernels  ``device_synth`` against its plain version bit for
             bit, and ``band_energies_from_audio`` (framing inside the kernel)
@@ -143,9 +151,9 @@ then non-zero):
             the unfused path; seqs/s at batch 32 and 512, kernel path and
             unfused path in turns; where a step's device time goes; f32
             seqs/s of both f32 chains and both switches off in 3 pairs of
-            turns at batch 32 and 512; the wide route as phase 9 (the d 512 /
-            1 head model with 6 + 6 layers; the turns at 2 + 2, both
-            switches against both off).
+            turns at batch 32 and 512; the wide route as phase 9 (the d 1,024
+            / 1 head model at 2 + 2 layers, cut from 6 + 6; the turns at 2 +
+            2, both switches against both off).
 16. serve encoder-decoder  ``InfillServer`` over the same config: 18
             ``fused_mha`` launches per forward chunk (6 encoder, 6 causal
             decoder self-, 6 decoder cross-attentions), answers within 1e-4
@@ -829,13 +837,15 @@ def launch_device_us(record, n: int) -> list:
     return us, count
 
 
-def sm90_launches(record, kernels: dict, plain: bool, n: int, dtype=torch.bfloat16) -> dict:
+def sm90_launches(record, kernels: dict, plain: bool, n: int, dtype=torch.bfloat16,
+                  kinds=None) -> dict:
     """Every launch of one layer call's chain in ``dtype``, as recorded on the
     card: its outputs held to its plain version on the same inputs
     (``SM90_BAR[dtype]`` · max|ref| each), its device time per launch
-    (profiler, ``n`` replays; none where ``n`` is 0), its own bound, and with
-    ``plain`` the plain version's and the library call's stream time. Keyed
-    by the counted kernel's name."""
+    (profiler, ``n`` replays; none where ``n`` is 0; with ``kinds``, only of
+    the launches of those types of ``layer_sm90.ENTRIES``), its own bound,
+    and with ``plain`` the plain version's and the library call's stream
+    time. Keyed by the counted kernel's name."""
     names = {id(k): name for name, k in kernels.items()}
     rows, bar = {}, SM90_BAR[dtype]
     for launch in record:
@@ -852,6 +862,9 @@ def sm90_launches(record, kernels: dict, plain: bool, n: int, dtype=torch.bfloat
             rows[name]["relu_kink_flips"] = fl.kink_flips(want[0], launch.outputs[0])[1]
     if n == 0:
         return rows
+    if kinds is not None:
+        record = [launch for launch in record
+                  if launch.kernel.entry in {layer_sm90.ENTRIES[k] for k in kinds}]
     us, count = launch_device_us(record, n)
     for launch, u, c in zip(record, us, count):
         name = names[id(launch.kernel)]
@@ -1056,9 +1069,11 @@ def mha_inputs(dev, rng, b: int, h: int, hd: int, dtype, form: str, t: int = 32)
 
 
 MHA_FORMS = ("contiguous", "packed_qkv", "packed_kv")
-# #1 past the flagship's heads: a d 512 model with one head (hd 512, the
-# widest MAX_HEAD_DIM takes) and hd 384, one head (the sweeps' d 512 / 1 head)
-MHA_WIDE_HDS = (384, 512)
+# #1 past the flagship's heads, one head: hd 384, 512 (the sweeps' d 512 / 1
+# head), 768 and 1,024 (a d 1,024 model with one head, phase 9's wide path);
+# timed at 512 and 1,024
+MHA_WIDE_HDS = (384, 512, 768, 1024)
+MHA_TIMED_HDS = (512, 1024)
 # the batches phase 22's eval forwards give #1: the train and validation
 # evaluators' rows (seeded, so fixed), each one forward of the whole set
 EVAL_ROWS = {"train": 3300, "validation": 1099}
@@ -1100,7 +1115,7 @@ def phase_kernel(dev, rng) -> dict:
                               (eval_b, torch.bfloat16))
              for form in (MHA_FORMS if b in (1, 512) else MHA_FORMS[:2] if b == eval_b
                           else MHA_FORMS[:1])]
-    timed += [(b, dtype, 1, MHA_WIDE_HDS[-1], "packed_qkv") for dtype in MHA_BARS
+    timed += [(b, dtype, 1, hd, "packed_qkv") for hd in MHA_TIMED_HDS for dtype in MHA_BARS
               for b in (1, 512)]
     for b, dtype, h, hd, form in timed:
         q, k, v = mha_inputs(dev, rng, b, h, hd, dtype, form)
@@ -1111,9 +1126,9 @@ def phase_kernel(dev, rng) -> dict:
         check(torch.allclose(sdpa().float(), kern().float(),
                              atol=2e-2 if dtype == torch.bfloat16 else 1e-5),
               "scaled_dot_product_attention disagrees with fused_mha")
-        k1, p1, l1, l2, p2, k2 = (time_us(f, 100) for f in (kern, plain, sdpa, sdpa, plain, kern))
+        k1, p1, l1, l2, p2, k2 = (time_us(f, 20) for f in (kern, plain, sdpa, sdpa, plain, kern))
         before = MHA.launches
-        dk, dp, dl = device_us(kern), device_us(plain), device_us(sdpa)
+        dk, dp, dl = device_us(kern, n=20), device_us(plain, n=20), device_us(sdpa, n=20)
         launches_profiled = MHA.launches - before
         dtype_name = str(dtype).replace("torch.", "")
         bnd = mha_bound(b, h, 32, hd, dtype_name)
@@ -1121,7 +1136,7 @@ def phase_kernel(dev, rng) -> dict:
         kernel_device = max(sum(us / c for us, c in dk.values()), 1e-9)
         timings.append({
             "shape": [b, h, 32, hd], "dtype": dtype_name, "form": form,
-            "tensor_cores": attention.uses_tensor_cores(q, k, v),
+            "copy_bytes": attention.copy_bytes(q, k, v),
             "kernel_us": [k1, k2], "plain_us": [p1, p2], "sdpa_us": [l1, l2],
             "sdpa_device_us": sum(us for us, _ in dl.values()),
             **bnd, "kernel_device_us": kernel_device,
@@ -1414,18 +1429,19 @@ def against_twin(mod, args, dy, seed, rate: float, h_: int, res, grads, dtype, w
     max|grad| on each grad (sums in another order, the products in split
     TF32); bf16 2e-2 · max|ref| on everything (the chain rounds its
     backward's intermediates where the TPU kernel does, autograd does not).
-    ``relative`` (the wide route's layers, d 512): f32 y and residuals at
-    1e-4 · max|ref| too (their products reduce over 512 to 1,536 terms and
+    ``relative`` (the wide route's layers, d past 256): f32 y and residuals
+    at 1e-4 · max|ref| too (their products reduce over 512 to 6,144 terms and
     carry the error of one more launch into each residual; a launch alone is
     held to 1e-5 · max by ``sm90_launches``), and bf16 ReLU flips to
-    ``fl.WIDE_KINK_SHARE``."""
+    ``fl.wide_kink_share(d)`` (``WIDE_KINK_SHARE`` up to d 1,024)."""
     t, decoder = LAYER_SHAPE["t"], mod is fdl
     ref, h_at = (fdl.decoder_layer_reference, 6) if decoder else (fl.encoder_layer_reference, 3)
     out_names = ("y",) + (fdl.RESIDUAL_NAMES if decoder else ("qkv", "a1", "h", "a2"))
     with torch.no_grad():
         own = ref(*args, seed, rate, h_, t, return_residuals=True)
     flips, kink = layer_flips(own[h_at], res[h_at],
-                              fl.WIDE_KINK_SHARE if relative else LAYER_KINK_SHARE)
+                              fl.wide_kink_share(args[0].shape[1]) if relative
+                              else LAYER_KINK_SHARE)
     leaves = [a.detach().clone().requires_grad_(True) for a in args]
     want = ref(*leaves, seed, rate, h_, t, return_residuals=True, relu_flips=flips)
     want[0].backward(dy)
@@ -1452,11 +1468,21 @@ DRIFT_FFS = (LAYER_SHAPE["ff"], 1024, 2048, 4096, 8192)
 # the timed cases of phases 8 and 14: both dtypes at the YAML's batch and bench.py's
 LAYER_TIMINGS = ((32, torch.bfloat16), (512, torch.bfloat16), (32, torch.float32),
                  (512, torch.float32))
-# The chains' wide route (d past layer_sm90.LN_TILE): d 512 with 4 heads and ff
-# 1,024, a width the JAX gate admits and configs/InfillingRandom_sweep.yaml,
-# InfillingKicksAndSnares_sweep_2.yaml draw, timed; d 512 with one head (hd
-# 512, the widest head) and ff 512, checked
-WIDE_SHAPES = (dict(d=512, h=4, ff=1024, t=32), dict(d=512, h=1, ff=512, t=32))
+# The chains' wide route (d past layer_sm90.LN_TILE), each shape a width the
+# JAX gate admits: d 512 with 4 heads and ff 1,024 (a draw of
+# configs/InfillingRandom_sweep.yaml and InfillingKicksAndSnares_sweep_2.yaml),
+# d 1,024 with one head of 1,024 and ff 1,024 (phase 9's wide path: the
+# attention streams the head), d 2,048 with 2 heads and ff 1,024 (the row
+# passes a block a row), d 512 with one head of 512 and ff 512 (the sweeps'
+# draw) and d 1,280 with 5 heads of 256 and ff 1,024 (the JAX gate's most
+# heads)
+WIDE_SHAPES = (dict(d=512, h=4, ff=1024, t=32), dict(d=1024, h=1, ff=1024, t=32),
+               dict(d=2048, h=2, ff=1024, t=32), dict(d=512, h=1, ff=512, t=32),
+               dict(d=1280, h=5, ff=1024, t=32))
+WIDE_TIMED = WIDE_SHAPES[1]  # every launch timed at B 32: the main path's width
+WIDE_STREAMED = WIDE_SHAPES[2]  # the launches this slice redesigned timed at B 32
+# the launch types of the attention and the row passes (ops/layer_sm90.py)
+STREAMED_KINDS = ("attn_fwd", "attn_bwd", "ln_rows", "ln_y", "ln_grad")
 
 
 def wide_layers(dev, rng, decoder: bool) -> dict:
@@ -1465,55 +1491,55 @@ def wide_layers(dev, rng, decoder: bool) -> dict:
     layer against its twin (``against_twin``), every launch of the route
     recorded and held to its plain version (``sm90_launches``: bf16 2e-2, f32
     1e-5 · max, the hidden product's ReLU decisions by ``kink_flips``); at
-    the first shape, B 32 and 512, each launch's device time, the layer's
-    forward and backward device time, its own bound and
-    ``nn.Transformer*Layer``'s."""
+    ``WIDE_TIMED`` each launch's device time, the layer's forward and backward
+    device time, its own bound and ``nn.Transformer*Layer``'s; at
+    ``WIDE_STREAMED`` the device time of the attention's and the row passes'
+    launches."""
     mod, case, backward_args = ((fdl, decoder_case, decoder_backward_args) if decoder
                                 else (fl, layer_case, layer_backward_args))
     checks, timings = [], []
     for shape in WIDE_SHAPES:
         d, h_, ff, t = shape["d"], shape["h"], shape["ff"], shape["t"]
+        timed, streamed = shape is WIDE_TIMED, shape is WIDE_STREAMED
         for dtype in (torch.bfloat16, torch.float32):
             dname = str(dtype)[6:]
             route = mod.route_kernels(dtype, d)
-            for b in (32, 512) if shape is WIDE_SHAPES[0] else (32,):
-                args, dy = case(dev, rng, b, dtype, ff=ff, d=d)
-                seed = torch.tensor([2024 + b], dtype=torch.int32, device=dev)
-                kf = lambda: mod.layer_forward(*args, seed, 0.3, h_, t)  # noqa: E731
+            b = 32
+            args, dy = case(dev, rng, b, dtype, ff=ff, d=d)
+            seed = torch.tensor([2024 + b], dtype=torch.int32, device=dev)
+            kf = lambda: mod.layer_forward(*args, seed, 0.3, h_, t)  # noqa: E731
 
-                def kb(fwd):
-                    return mod.layer_backward(dy, *backward_args(args, fwd, seed), 0.3, h_, t)
+            def kb(fwd):
+                return mod.layer_backward(dy, *backward_args(args, fwd, seed), 0.3, h_, t)
 
-                with layer_sm90.recording() as record:
-                    res = kf()
-                    grads = kb(res)
-                res2 = kf()
-                runs = [res + grads, res2 + kb(res2)]
-                torch.cuda.synchronize()
-                bitwise = all(torch.equal(u, v) for u, v in zip(*runs))
-                what = f"{'decoder' if decoder else 'encoder'} {shape} B {b} {dname}"
-                check(bitwise, f"two runs with one seed differ, {what}")
-                check(len(record) == len(route), f"{what}: {len(record)} launches, route "
-                                                 f"{len(route)}")
-                timed = shape is WIDE_SHAPES[0]
-                row = {"shape": shape, "B": b, "dtype": dname, "rate": 0.3,
-                       "bitwise_repeat": bitwise,
-                       "launches": sm90_launches(record, route, plain=timed and b == 32,
-                                                 n=(20 if b == 32 else 5) if timed else 0,
-                                                 dtype=dtype)}
-                if b == 32:
-                    row["max_abs_err"], row["relu_kink_flips"] = against_twin(
-                        mod, args, dy, seed, 0.3, h_, res, grads, dtype, what, relative=True)
-                if timed:
-                    row["kernel_fwd_device_ms"] = sum(
-                        us for us, _ in device_us(kf, n=3).values()) / 1000.0
-                    row["kernel_bwd_device_ms"] = sum(
-                        us for us, _ in device_us(lambda: kb(res), n=3).values()) / 1000.0
-                    row["io_bounds"] = layer_io_bounds(b, decoder, dname, shape)
-                    row["library"] = library_layer(args, dy, b, decoder, shape)
-                (timings if timed else checks).append(row)
+            with layer_sm90.recording() as record:
+                res = kf()
+                grads = kb(res)
+            res2 = kf()
+            runs = [res + grads, res2 + kb(res2)]
+            torch.cuda.synchronize()
+            bitwise = all(torch.equal(u, v) for u, v in zip(*runs))
+            what = f"{'decoder' if decoder else 'encoder'} {shape} B {b} {dname}"
+            check(bitwise, f"two runs with one seed differ, {what}")
+            check(len(record) == len(route), f"{what}: {len(record)} launches, route "
+                                             f"{len(route)}")
+            row = {"shape": shape, "B": b, "dtype": dname, "rate": 0.3,
+                   "bitwise_repeat": bitwise,
+                   "launches": sm90_launches(record, route, plain=timed,
+                                             n=5 if timed or streamed else 0,
+                                             dtype=dtype,
+                                             kinds=None if timed else STREAMED_KINDS)}
+            row["max_abs_err"], row["relu_kink_flips"] = against_twin(
+                mod, args, dy, seed, 0.3, h_, res, grads, dtype, what, relative=True)
+            if timed:
+                row["kernel_fwd_device_ms"] = sum(
+                    us for us, _ in device_us(kf, n=3).values()) / 1000.0
+                row["kernel_bwd_device_ms"] = sum(
+                    us for us, _ in device_us(lambda: kb(res), n=3).values()) / 1000.0
+                row["io_bounds"] = layer_io_bounds(b, decoder, dname, shape)
+                row["library"] = library_layer(args, dy, b, decoder, shape)
+            (timings if timed or streamed else checks).append(row)
     return {"checked": checks, "timings": timings}
-
 
 
 def phase_layer(dev, rng) -> dict:
@@ -1731,12 +1757,16 @@ WIDE_LAYER_KERNELS = {**fl.SM90_WIDE_KERNELS, **fdl.SM90_WIDE_KERNELS,
 LAYER_KERNELS = {**SM90_LAYER_KERNELS, **F32_LAYER_KERNELS, **WIDE_LAYER_KERNELS}
 N_FWD = {fl: 5, fdl: 9}  # each chain's forward launches, its first
 N_WIDE_FWD = {fl: 7, fdl: 12}  # likewise in the wide route
-# configs/InfillingRandom_sweep.yaml's draws past d 256 on the flagship's other
-# hyperparameters: d 512 with 4 heads and ff 1,024 (the turns behind
-# LAYER_KERNEL_MAX_D) and d 512 with one head of 512 and ff 512
+# Past d 256 on the flagship's other hyperparameters: d 512 with 4 heads and ff
+# 1,024 (a draw of configs/InfillingRandom_sweep.yaml; the turns behind
+# LAYER_KERNEL_MAX_D), d 1,024 with one head of 1,024 and ff 1,024 (the widest
+# head the JAX gate admits at d 1,024: phases 9 and 15's wide path) and d 512
+# with one head of 512 and ff 512 (the sweep files' draw)
 WIDE_HP = {**FLAGSHIP_HP, "d_model": 512, "n_heads": 4, "dim_feedforward": 1024}
-WIDE_HEAD_HP = {**FLAGSHIP_HP, "d_model": 512, "n_heads": 1, "dim_feedforward": 512}
-WIDE_DEC_LAYERS = 2  # the encoder-decoder's layers a side in the wide turns (cut from 6)
+WIDE_HEAD_HP = {**FLAGSHIP_HP, "d_model": 1024, "n_heads": 1, "dim_feedforward": 1024}
+SWEEP_HEAD_HP = {**FLAGSHIP_HP, "d_model": 512, "n_heads": 1, "dim_feedforward": 512}
+WIDE_DEC_LAYERS = 2  # the encoder-decoder's layers a side past d 256 (cut from 6)
+SWEEP_HEAD_K = 4  # trials of the d 512 / 1-head ranking forward
 
 
 def f32_step_launches(mod, steps: int, layers: int) -> dict:
@@ -1814,30 +1844,40 @@ def step_breakdown(bundle, b: int, seed: int, encoder_only: int = 1, count=()) -
 
 def wide_training(dev, decoder: bool) -> dict:
     """The chains' wide route in training, the encoder-only family (or the
-    encoder-decoder with ``decoder``). (a) ``WIDE_HEAD_HP`` (d 512, one head of
-    512, 6 layers a side) with the chain forced (auto leaves it off past
+    encoder-decoder with ``decoder``). (a) ``WIDE_HEAD_HP`` (d 1,024, one head
+    of 1,024, ff 1,024; 6 layers, the encoder-decoder at ``WIDE_DEC_LAYERS``
+    a side) with the chain forced (auto leaves it off past
     ``LAYER_KERNEL_MAX_D``), the counts reset just before: one bf16 epoch of
     4 steps, then 2 f32 steps, each with its held-out loss through #1 at hd
-    512 (the parent raised there): every launch of the route once a layer
-    and step, #1 6 launches a held-out forward (18 in the encoder-decoder),
-    the loss finite. (b) ``WIDE_HP`` (d 512, 4 heads, ff 1,024; the
-    encoder-decoder at ``WIDE_DEC_LAYERS`` a side), the chain against the
-    unfused path in ``F32_PAIRS`` pairs of turns, each dtype at batch 32 and
-    512, and what auto picks there."""
-    layers = FLAGSHIP_HP["num_encoder_decoder_layers"]
+    1,024 (the parent raised there): every launch of the route once a layer
+    and step, #1 once a layer's attention in a held-out forward, the loss
+    finite. Encoder family: the f32 weights carried through the JAX layout
+    (``torch_compat``) to ``InfillServer``, which answers a B 1 request and a
+    bucket of 32 through #1 at hd 1,024 (6 launches a chunk) within 1e-4 of
+    the plain path on the CPU; and the sweep files' draw ``SWEEP_HEAD_HP`` (d
+    512, one head of 512) on #1 in an eval forward and in the vmapped ranking
+    forward of ``SWEEP_HEAD_K`` trials (6 launches for all of them), each
+    trial's loss within the dtype's bar of its eager eval forward. (b)
+    ``WIDE_HP`` (d 512, 4 heads, ff 1,024; the encoder-decoder at
+    ``WIDE_DEC_LAYERS`` a side), the chain against the unfused path in
+    ``F32_PAIRS`` pairs of turns, each dtype at batch 32 and 512, and what
+    auto picks there."""
     if decoder:
         forced, unfused = ({"fused_layer": v, "fused_decoder_layer": v} for v in (True, False))
         resolve, enc_only = resolve_fused_decoder_layer, 0
+        layers = WIDE_DEC_LAYERS
     else:
         forced, unfused = {"fused_layer": True}, {"fused_layer": False}
         resolve, enc_only = resolve_fused_layer, 1
+        layers = FLAGSHIP_HP["num_encoder_decoder_layers"]
     d, held, batch = WIDE_HEAD_HP["d_model"], Loops(64, 42), FLAGSHIP_HP["batch_size"]
     path = {}
     for dtype, items in ((torch.bfloat16, 128), (torch.float32, 64)):
         dname, steps = str(dtype)[6:], items // batch
+        hp = {**WIDE_HEAD_HP, "num_encoder_decoder_layers": layers}
         extra = {"num_decoder_layers": layers} if decoder else {}
         bundle, _, _ = initialize_model(
-            model_params(WIDE_HEAD_HP, bf16=dtype == torch.bfloat16, **forced, **extra), dev)
+            model_params(hp, bf16=dtype == torch.bfloat16, **forced, **extra), dev)
         check(bundle.config.compute_dtype == dtype, f"{bundle.config} is not {dtype}")
         route = {**fl.route_kernels(dtype, d), **(fdl.route_kernels(dtype, d) if decoder else {})}
         reset_launches()  # the main path's run starts here
@@ -1847,10 +1887,15 @@ def wide_training(dev, decoder: bool) -> dict:
         counts, mha = launches(route), MHA.launches  # ... and ends here
         check(all(c == steps * layers for c in counts.values()),
               f"wide route, {dname}: launches {counts}, expected {steps * layers} each")
-        check(mha == (18 if decoder else 6), f"#1 launched {mha} times in a held-out forward")
+        check(mha == (3 if decoder else 1) * layers,
+              f"#1 launched {mha} times in a held-out forward")
         check(all(np.isfinite(v) for v in metrics.values()), f"non-finite: {metrics}")
         path[dname] = {"launches": counts, "fused_mha_launches": mha, "steps": steps,
                        "metrics": metrics}
+    out = {"path": path}
+    if not decoder:
+        out["served"] = wide_served(dev, bundle)
+        out["sweep_draw"] = sweep_head_draw(dev)
     turns = {}
     extra = {"num_encoder_decoder_layers": WIDE_DEC_LAYERS} if decoder else {}
     small, big = Loops(256, 43), Loops(1024, 43)  # 8 and 2 steps a turn
@@ -1866,7 +1911,82 @@ def wide_training(dev, decoder: bool) -> dict:
                                                WIDE_HP["dim_feedforward"], compute_dtype=dtype,
                                                batch_size=b)
             turns[f"{str(dtype)[6:]}_B{b}"] = row
-    return {"path": path, "paired_turns": turns}
+    return {**out, "paired_turns": turns}
+
+
+def wide_served(dev, bundle) -> dict:
+    """The f32 weights of ``bundle`` (``WIDE_HEAD_HP``, encoder-only) carried
+    through the JAX layout (``torch_compat``) to an ``InfillServer`` on the
+    card: a B 1 request and a bucket of 32 through #1 at hd 1,024, 6
+    launches a forward chunk, hits thresholded, v/o within 1e-4 of the plain
+    path on the CPU."""
+    config = dataclasses.replace(FLAGSHIP, d_model=WIDE_HEAD_HP["d_model"],
+                                 n_heads=WIDE_HEAD_HP["n_heads"],
+                                 dim_feedforward=WIDE_HEAD_HP["dim_feedforward"])
+    flax = torch_compat.flax_params_from_state_dict(bundle.model.state_dict(), config)
+    sd = torch_compat.state_dict_from_flax_params(flax, config)
+    srv = serve.InfillServer(sd, config, batch_sizes=BUCKETS, device=dev)
+    cpu_model = build_model(config, "cpu")
+    cpu_model.load_state_dict(sd, strict=True)
+    rng = np.random.default_rng(7)
+    out = {}
+    for n in (1, 32):
+        x = rng.standard_normal((n, 32, 16)).astype(np.float32)
+        MHA.launches = 0
+        y = srv.infill(x)
+        mha = MHA.launches
+        check(mha == 6, f"a bucket-{n} request at hd 1,024 launched #1 {mha} times, not 6")
+        check(y.shape == (n, 32, 27) and np.isfinite(y).all()
+              and set(np.unique(y[..., :9])) <= {0.0, 1.0}, f"bad output at N={n}")
+        _, v_cpu, o_cpu = predict(cpu_model, torch.from_numpy(x))
+        err = max(max_err(y[..., 9:18], v_cpu), max_err(y[..., 18:], o_cpu))
+        check(err <= 1e-4, f"hd 1,024 server at N={n}: v/o differ from the CPU by {err}")
+        out[f"N{n}"] = {"fused_mha_launches": mha, "max_abs_err_vs_cpu": err}
+    return out
+
+
+def sweep_head_draw(dev) -> dict:
+    """The sweep files' draw d 512 / one head (``SWEEP_HEAD_HP``) on #1: an
+    eval forward of trial 0 (6 launches) and the vmapped ranking forward of
+    ``SWEEP_HEAD_K`` trials' stacked weights (``stacked_eval_loss``: 6
+    launches for all of them, #1's vmap rule folding the trials), each
+    trial's loss within the dtype's bar of its eager eval forward."""
+    from transformergrooveinfilling_tpu_torch import sweep
+    from transformergrooveinfilling_tpu_torch.train import vmap_sweep
+    from transformergrooveinfilling_tpu_torch.train.loop import make_eval_loss_fn
+
+    config = sweep.batched_config(HyperParams.from_dict(SWEEP_HEAD_HP), SWEEP_HEAD_HP, dev)
+    check(config.use_fused_attention and config.d_model // config.n_heads == 512,
+          f"the d 512 / 1-head sweep config: {config}")
+    model = build_model(config, dev)
+    params = vmap_sweep.init_stacked_params(model, config, SWEEP_HEAD_K,
+                                            torch.Generator().manual_seed(3), dev)
+    loops = Loops(1099, 44)  # the validation evaluator's rows (phase 22)
+    x = torch.as_tensor(loops.processed_inputs, device=dev)
+    y = torch.as_tensor(loops.processed_outputs, device=dev)
+    pens = [SWEEP_HEAD_HP["hit_loss_penalty"] * (1 + 0.1 * k) for k in range(SWEEP_HEAD_K)]
+    MHA.launches = 0
+    stacked = vmap_sweep.stacked_eval_loss(model, params, x, y, pens, device=dev).tolist()
+    ranking = MHA.launches
+    check(ranking == config.num_encoder_layers,
+          f"the stacked ranking forward launched #1 {ranking} times")
+    eager, per_forward = [], []
+    for k in range(SWEEP_HEAD_K):
+        model.load_state_dict({name: v[k] for name, v in params.items()})
+        MHA.launches = 0
+        eager.append(float(make_eval_loss_fn(pens[k])(model, x, y)["loss"]))
+        per_forward.append(MHA.launches)
+    check(per_forward == [config.num_encoder_layers] * SWEEP_HEAD_K,
+          f"eval forwards launched #1 {per_forward} times")
+    err = max(abs(a - b) / abs(b) for a, b in zip(stacked, eager))
+    check(all(np.isfinite(stacked)) and err <= max(MHA_BARS[config.compute_dtype][0], 1e-5),
+          f"stacked eval losses {stacked} against eager {eager}")
+    return {"config": SWEEP_HEAD_HP, "dtype": str(config.compute_dtype)[6:],
+            "trials": SWEEP_HEAD_K, "rows": x.shape[0],
+            "fused_mha_launches_ranking_forward": ranking,
+            "fused_mha_launches_eval_forward": per_forward,
+            "stacked_eval_losses": stacked, "eager_eval_losses": eager,
+            "max_rel_err": err}
 
 
 @contextlib.contextmanager
@@ -3722,7 +3842,7 @@ CLI_MSO_ITEMS = 64
 CLI_CONFIG = os.path.join(ROOT, "configs", "InfillingRandom_training.yaml")
 # the kernels a trace of the first block must name: #2's bf16 chain (its
 # products, attention and LayerNorm launches), #6 and #7
-TRACE_KERNELS = ("gemm_kernel", "attn_fwd_mma", "attn_bwd_mma", "ln_rows", "synth_kernel",
+TRACE_KERNELS = ("gemm_kernel", "attn_fwd", "attn_bwd", "ln_rows", "synth_kernel",
                  "band_energies_kernel")
 
 
@@ -6203,20 +6323,28 @@ def main() -> int:
            for form in MHA_FORMS if (b, dtype, form) != (1, "float32", "contiguous")},
         "eval_forward_B3300_bfloat16_packed_qkv": mha_at(
             mha_row(EVAL_ROWS["train"], "bfloat16", "packed_qkv")),
-        **{f"hd{MHA_WIDE_HDS[-1]}_B{b}_{dtype}_packed_qkv": mha_at(
-            mha_row(b, dtype, "packed_qkv", 1, MHA_WIDE_HDS[-1]))
-           for dtype in ("float32", "bfloat16") for b in (1, 512)},
+        **{f"hd{hd}_B{b}_{dtype}_packed_qkv": mha_at(mha_row(b, dtype, "packed_qkv", 1, hd))
+           for hd in MHA_TIMED_HDS for dtype in ("float32", "bfloat16") for b in (1, 512)},
         "launches_wide_head_held_out_forward": {
             f"{which}_{dname}": run["fused_mha_launches"]
             for which, out in (("encoder", train), ("encoder_decoder", encdec))
             for dname, run in out["wide"]["path"].items()},
+        "launches_hd1024_served": {n: r["fused_mha_launches"]
+                                   for n, r in train["wide"]["served"].items()},
+        "launches_hd512_sweep_draw": {
+            "ranking_forward": train["wide"]["sweep_draw"]["fused_mha_launches_ranking_forward"],
+            "eval_forward": train["wide"]["sweep_draw"]["fused_mha_launches_eval_forward"][0]},
         "at": "B 1, H 2, T 32, hd 128, float32, contiguous; ms: stream time; device_ms: the "
               "profiler's per launch; err over all f32 checks; library: "
               "scaled_dot_product_attention on the same views; vmap_folded: one call of "
               "tgi::fused_mha under torch.func.vmap over 8 trials (phase 25's ranking "
-              "forward), stream time, SDPA on the folded views; hd512: one head of 512 (a d "
-              "512 model with one head); launches_wide_head_held_out_forward: the held-out "
-              "forward of phases 9 and 15's d 512 / 1 head runs"}]
+              "forward), stream time, SDPA on the folded views; hd512 / hd1024: one head of "
+              "512 / 1,024 (d 512 / 1,024 models with one head); "
+              "launches_wide_head_held_out_forward: the held-out forward of phases 9 and 15's "
+              "d 1,024 / 1 head runs (6 layers; 2 + 2); launches_hd1024_served: phase 9's "
+              "trained d 1,024 / 1 head weights served, a B 1 and a bucket-32 request; "
+              "launches_hd512_sweep_draw: the d 512 / 1 head sweep draw's ranking forward "
+              "of 4 stacked trials and an eval forward (phase 9)"}]
 
     def timing(phase_out, b, dtype):
         return next(t for t in phase_out["timings"] if t["B"] == b and t["dtype"] == dtype)
@@ -6262,19 +6390,23 @@ def main() -> int:
                 "launches_resumed_parallel_checkpoint": par["cli"]["resume"]["launches"]}),
               ("decoder", dec_layer, fdl, DEC_TPU_KERNELS, encdec, {}))
     def wide_at(out, path, dname, kname):
-        """A launch of the wide route: its launches on the d 512 / 1 head main
-        path, its worst error over both shapes, at d 512 / 4 heads / ff 1,024
-        its device time, bound, plain and library times at B 32 and 512."""
-        rows = {r["B"]: r["launches"][kname] for r in out["wide"]["timings"]
+        """A launch of the wide route: its launches on the d 1,024 / 1 head
+        main path, its worst error over every shape of ``WIDE_SHAPES``, at
+        ``WIDE_TIMED`` (d 1,024, one head, ff 1,024, B 32) its device time,
+        bound, plain and library times, and at ``WIDE_STREAMED`` (d 2,048,
+        two heads) the device time of a launch of ``STREAMED_KINDS``."""
+        rows = {r["shape"]["d"]: r["launches"][kname] for r in out["wide"]["timings"]
                 if r["dtype"] == dname}
         errs = [r["launches"][kname]["max_abs_err"]
                 for r in out["wide"]["timings"] + out["wide"]["checked"] if r["dtype"] == dname]
+        at, wider = rows[WIDE_TIMED["d"]], rows[WIDE_STREAMED["d"]]
         return {"launches": path["wide"]["path"][dname]["launches"][kname],
-                "max_abs_err": max(errs), "ms": rows[32]["device_ms"],
-                "plain_ms": rows[32]["plain_ms"], "bound_ms": rows[32]["bound_ms"],
-                "bound_by": rows[32]["bound_by"], "library_ms": rows[32]["library_ms"],
-                "B512": {"ms": rows[512]["device_ms"], "bound_ms": rows[512]["bound_ms"],
-                         "bound_by": rows[512]["bound_by"]}}
+                "max_abs_err": max(errs), "ms": at["device_ms"],
+                "plain_ms": at["plain_ms"], "bound_ms": at["bound_ms"],
+                "bound_by": at["bound_by"], "library_ms": at["library_ms"],
+                **({"d2048_h2": {"ms": wider["device_ms"], "bound_ms": wider["bound_ms"],
+                                 "bound_by": wider["bound_by"]}}
+                   if "device_ms" in wider else {})}
 
     for which, out, mod, tpu, path, more in layers:
         for dtype in (torch.bfloat16, torch.float32):
@@ -6283,7 +6415,7 @@ def main() -> int:
             f32 = dtype == torch.float32
             main_path = path["f32_launches"] if f32 else path["launches"]
             narrow_route = mod.route_kernels(dtype)
-            wide_route = mod.route_kernels(dtype, WIDE_SHAPES[0]["d"])
+            wide_route = mod.route_kernels(dtype, WIDE_TIMED["d"])
             for i, kname in enumerate(wide_route):
                 if kname in narrow_route:
                     continue
@@ -6292,17 +6424,19 @@ def main() -> int:
                     "replaces": tpu["fwd" if i < N_WIDE_FWD[mod] else "bwd"],
                     **wide_at(out, path, dname, kname),
                     "at": f"the {which} layer's {dname} chain in its wide route (d past 256): "
-                          "B 32 (B512: batch 512), T 32, d 512, 4 heads, ff 1,024, rate 0.30; "
+                          "B 32, T 32, d 1,024, one head, ff 1,024, rate 0.30 (d2048_h2: d "
+                          "2,048, 2 heads, the row passes a block a row); "
                           "ms: device time per launch (profiler); plain_ms: its plain version "
                           "on the stream; bound: this launch's own bytes and operations"
                           + (" (f32 products at 495/3 TFLOP/s)" if f32 else "")
                           + "; library: addmm for the f32 gradient sum, F.layer_norm for the f32 "
-                          "forward row pass (ln_y), else none; err: the "
-                          "largest over every output at d 512 with 4 heads / ff 1,024 (B 32 "
-                          "and 512) and 1 head / ff 512 (B 32), each held to "
-                          f"{SM90_BAR[dtype]} of its largest value; launches: the d 512 / 1 "
-                          f"head main path of phase {9 if which == 'encoder' else 15} ("
-                          + ("2 f32 steps" if f32 else "4 bf16 steps") + ")"})
+                          "forward row pass (ln_y), else none; err: the largest over every "
+                          "output at d 512 / 4 heads, 1,024 / 1, 2,048 / 2, 512 / 1 and 1,280 "
+                          f"/ 5 (B 32), each held to {SM90_BAR[dtype]} of its largest value; "
+                          "launches: the d 1,024 / 1 head main path of phase "
+                          f"{9 if which == 'encoder' else 15} ("
+                          + ("2 f32 steps" if f32 else "4 bf16 steps")
+                          + (", 6 layers)" if which == "encoder" else ", 2 + 2 layers)")})
             for i, kname in enumerate(narrow_route):
                 l32, l512 = at32["launches"][kname], at512["launches"][kname]
                 kernels.append({

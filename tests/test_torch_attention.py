@@ -101,10 +101,27 @@ def test_strided_views_match_jax_fused_mha(rng, form, dtype, causal):
 @pytest.mark.parametrize("causal", [False, True])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_fused_mha_at_hd_512_matches_jax_fused_mha(rng, dtype, causal):
-    """A d 512 model with one head: ``fused_mha`` at hd 512 (``MAX_HEAD_DIM``)
-    on the slices of a packed qkv, against the JAX kernel in interpret mode,
-    which takes any hd."""
-    b, t, h, hd = 2, 32, 1, port.MAX_HEAD_DIM
+    """A d 512 model with one head: ``fused_mha`` at hd 512 on the slices of
+    a packed qkv, against the JAX kernel in interpret mode, which takes any
+    hd."""
+    b, t, h, hd = 2, 32, 1, 512
+    views, arrays = _packed(rng, b, t, h, hd, "self")
+    tdt, jdt = getattr(torch, dtype), getattr(jnp, dtype)
+    got = port.fused_mha(*(x.to(tdt) for x in views), causal=causal)
+    assert got.shape == (b, h, t, hd) and got.dtype == tdt
+    want = jax_fused_mha(*(jnp.asarray(a, jdt) for a in arrays), interpret=True, causal=causal)
+    np.testing.assert_allclose(got.float().numpy(), np.asarray(want.astype(jnp.float32)),
+                               atol=2e-5 if dtype == "float32" else 1e-2)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("hd", [768, 1024])
+def test_fused_mha_past_hd_512_matches_jax_fused_mha(rng, hd, dtype, causal):
+    """Heads past 512 (a d 1,024 model with one head: hd 1,024), which the
+    kernel streams through shared memory: ``fused_mha`` on the slices of a
+    packed qkv against the JAX kernel in interpret mode, at the bars above."""
+    b, t, h = 2, 32, 1
     views, arrays = _packed(rng, b, t, h, hd, "self")
     tdt, jdt = getattr(torch, dtype), getattr(jnp, dtype)
     got = port.fused_mha(*(x.to(tdt) for x in views), causal=causal)
@@ -115,18 +132,24 @@ def test_fused_mha_at_hd_512_matches_jax_fused_mha(rng, dtype, causal):
 
 
 def test_tensor_core_path_selection(rng):
-    """bf16, hd a multiple of 16 and 16-byte aligned rows take the tensor
-    cores; anything else the CUDA-core path of the same kernel."""
+    """Every layout takes the tensor cores (bf16 ``mma.sync``, f32 in split
+    TF32); what the layout picks is how the rows arrive: ``cp.async`` copies
+    of 16 bytes where every stride, hd and base pointer allow them (the slices
+    of a packed projection at hd a multiple of 8 in bf16, of 4 in f32), else
+    of 8 or 4, and bf16 rows that allow none element by element."""
     views, _ = _packed(rng, 2, 32, 2, 128, "self")
     packed = [x.to(torch.bfloat16) for x in views]
-    assert port.uses_tensor_cores(*packed)  # slices of (B, T, 3, H, 128)
-    assert not port.uses_tensor_cores(*views)  # f32
+    assert port.copy_bytes(*packed) == 16  # slices of (B, T, 3, H, 128)
+    assert port.copy_bytes(*views) == 16  # f32
     demo = [torch.zeros(2, 4, 32, 8, dtype=torch.bfloat16)] * 3
-    assert not port.uses_tensor_cores(*demo)  # hd 8
+    assert port.copy_bytes(*demo) == 16  # hd 8: zero-filled to the mma's 16
+    assert port.copy_bytes(*[torch.zeros(3, 1, 17, 5)] * 3) == 4  # f32 hd 5
+    assert port.copy_bytes(*[torch.zeros(3, 1, 17, 6)] * 3) == 8  # f32 hd 6
+    assert port.copy_bytes(*[torch.zeros(3, 1, 17, 5, dtype=torch.bfloat16)] * 3) == 2
     base = torch.zeros(2 * 2 * 32 * 16 + 1, dtype=torch.bfloat16)
     shifted = base[1:].view(2, 2, 32, 16)  # rows 2 bytes off 16-byte alignment
-    assert port.uses_tensor_cores(*[base[:-1].view(2, 2, 32, 16)] * 3)
-    assert not port.uses_tensor_cores(shifted, shifted, shifted)
+    assert port.copy_bytes(*[base[:-1].view(2, 2, 32, 16)] * 3) == 16
+    assert port.copy_bytes(shifted, shifted, shifted) == 2
 
 
 def test_fused_mha_refuses_a_non_cuda_device_mix():
@@ -150,7 +173,7 @@ def _meta(shape, dtype=torch.float32):
      "shape"),
     (lambda: [_meta((2, 32, 16))] * 3, "shape"),
     (lambda: [_meta((1, 2, 65, 16))] * 3, "T ≤ 64"),
-    (lambda: [_meta((1, 2, 32, 513))] * 3, "hd ≤ 512"),
+    (lambda: [_meta((1, 2, 32, 0))] * 3, "hd ≥ 1"),
     (lambda: [_meta((0, 2, 32, 16))] * 3, "B·H ≥ 1"),
     (lambda: [_meta((1, 2, 16, 32)).transpose(2, 3)] * 3, "unit stride on hd"),
 ])
@@ -161,31 +184,24 @@ def test_check_kernel_args_rejects(make, match):
 
 def test_kernel_args_accept_the_serving_shapes():
     for shape in ((1, 2, 32, 128), (512, 2, 32, 128), (32, 4, 32, 8),
-                  (4, 1, 64, 256), (512, 1, 32, 512)):
+                  (4, 1, 64, 256), (512, 1, 32, 512), (32, 1, 32, 1024), (2, 1, 64, 8192)):
         for dtype in port.KERNEL_DTYPES:
             port.check_kernel_args(*[_meta(shape, dtype)] * 3)
 
 
 def test_kernel_smem_bytes():
-    # CUDA-core path, T 32, hd 256, f32: Q (16 rows), K (32), V (32) in rows of
-    # 260 floats and the 16 × 32 scores ≈ 85 KB — above the 48 KB default, so
-    # the kernel opts in to the larger carve-out
-    assert port.kernel_smem_bytes(32, 256) == 4 * ((16 + 32 + 32) * 260 + 16 * 32) == 85248
-    # ragged T and hd: T 17 → V and the scores padded to 20 keys; hd 5 → rows of 12
-    assert port.kernel_smem_bytes(17, 5) == 4 * ((16 + 17 + 20) * 12 + 16 * 20)
-    # tensor-core path: bf16 Q (16 rows), K and V (T rounded up to 16), rows of hd + 8
-    assert port.kernel_smem_bytes(32, 128, tensor_cores=True) == 2 * (16 + 64) * 136 == 21760
-    assert port.kernel_smem_bytes(17, 16, tensor_cores=True) == 2 * (16 + 64) * 24
-    # the largest shape the kernel takes fits one block on both paths
-    assert port.kernel_smem_bytes(64, 256) <= port.MAX_SMEM_BYTES
-    assert port.kernel_smem_bytes(64, 256, tensor_cores=True) <= port.MAX_SMEM_BYTES
-    # hd 512 (d 512, one head) at the model's T 32: 83 KB and 167 KB; at T 64
-    # the tensor cores' 150 KB fits and the f32 path's 301 KB does not (past
-    # hd 392 there the wrapper refuses the shape)
-    assert port.kernel_smem_bytes(32, 512, tensor_cores=True) == 2 * (16 + 64) * 520 == 83200
-    assert port.kernel_smem_bytes(32, 512) == 4 * ((16 + 32 + 32) * 516 + 16 * 32) == 167168
-    assert port.kernel_smem_bytes(64, 512, tensor_cores=True) <= port.MAX_SMEM_BYTES
-    assert port.kernel_smem_bytes(64, 392) <= port.MAX_SMEM_BYTES < port.kernel_smem_bytes(64, 400)
+    # the ring: 4 stages of Q and K (then two chunks of V), T rows rounded up
+    # to 16 each, 128 bytes of each row a stage: bf16 rows of 64 + 8 values,
+    # f32 rows of 32 + 4; the warps' output staging tiles (16 such rows a
+    # warp, a warp every 16 rows of T); in f32 the (T, T + 4) probabilities
+    assert port.kernel_smem_bytes(32, torch.bfloat16) == (4 * 2 + 1) * 32 * 72 * 2 == 41472
+    assert port.kernel_smem_bytes(32) == (4 * 2 + 1) * 32 * 36 * 4 + 4 * 32 * 36 == 46080
+    # ragged T: 17 rows take two 16-row tiles
+    assert port.kernel_smem_bytes(17) == port.kernel_smem_bytes(32)
+    assert port.kernel_smem_bytes(16, torch.bfloat16) == (4 * 2 + 1) * 16 * 72 * 2
+    # the largest block, T 64 in f32, is 98 KB, below the 227 KB a block may
+    # take, and no size depends on hd
+    assert port.kernel_smem_bytes(64) == (4 * 2 + 1) * 64 * 36 * 4 + 4 * 64 * 68 == 100352
 
 
 def test_build_without_nvcc_raises(tmp_path, monkeypatch):

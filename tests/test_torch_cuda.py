@@ -44,7 +44,8 @@ def rng():
 @pytest.mark.parametrize("causal", [False, True])
 @pytest.mark.parametrize("dtype, tol", [(torch.float32, 1e-5), (torch.bfloat16, 2e-2)])
 @pytest.mark.parametrize("shape", [(8, 2, 32, 128), (8, 4, 32, 8), (2, 2, 64, 256),
-                                   (3, 1, 17, 5), (8, 1, 32, 512), (4, 1, 32, 384)])
+                                   (3, 1, 17, 5), (8, 1, 32, 512), (4, 1, 32, 384),
+                                   (4, 1, 32, 1024), (2, 1, 64, 2056), (3, 2, 40, 100)])
 def test_kernel_matches_plain_version(cuda, rng, shape, dtype, tol, causal):
     q, k, v = (torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
                .to(cuda, dtype) for _ in range(3))
@@ -66,15 +67,19 @@ def test_kernel_refuses_a_cpu_tensor_mix(cuda):
 
 
 @pytest.mark.cuda
-def test_kernel_refuses_a_block_past_the_shared_memory_limit(cuda):
-    """f32 at T 64 and hd 512 would need 301 KB of shared memory a block;
-    bf16 on the tensor cores fits (150 KB)."""
-    q = torch.zeros(1, 1, 64, 512, device=cuda)
-    with pytest.raises(ValueError, match="shared memory"):
-        attention.fused_mha(q, q, q)
-    out = attention.fused_mha(*[q.to(torch.bfloat16)] * 3)
-    torch.cuda.synchronize()
-    assert out.shape == q.shape
+def test_kernel_refuses_a_block_past_the_shared_memory_limit(cuda, rng):
+    """No block is past the limit any more: f32 at T 64 and hd 512, which a
+    block holding the whole head could not fit (301 KB), streams the head
+    through 98 KB of shared memory (``kernel_smem_bytes``, the same at any
+    hd) and matches the plain version, as bf16 does."""
+    assert attention.kernel_smem_bytes(64) == 100352
+    for dtype, tol in ((torch.float32, 1e-5), (torch.bfloat16, 2e-2)):
+        q, k, v = (torch.from_numpy(rng.standard_normal((1, 1, 64, 512)).astype(np.float32))
+                   .to(cuda, dtype) for _ in range(3))
+        out = attention.fused_mha(q, k, v)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(out.float(), attention.mha_reference(q, k, v).float(),
+                                   atol=tol, rtol=0 if dtype == torch.float32 else tol)
 
 
 @pytest.mark.cuda
@@ -106,12 +111,15 @@ def test_vmap_rule_folds_the_trials_into_one_launch(cuda, rng, dtype, tol):
 @pytest.mark.parametrize("dtype, tol", [(torch.float32, 1e-5), (torch.bfloat16, 2e-2)])
 @pytest.mark.parametrize("form", ["self", "cross"])
 @pytest.mark.parametrize("b, t, h, hd", [(1, 32, 2, 128), (64, 32, 2, 128), (3, 17, 4, 16),
-                                         (2, 64, 1, 256), (5, 32, 4, 8), (16, 32, 1, 512)])
+                                         (2, 64, 1, 256), (5, 32, 4, 8), (16, 32, 1, 512),
+                                         (16, 32, 1, 768), (8, 32, 1, 1024), (2, 64, 1, 1024)])
 def test_kernel_reads_packed_projections(cuda, rng, b, t, h, hd, form, dtype, tol, causal):
     """The slices of the model's packed qkv (self) or of q and a packed kv
     (cross) without a copy, against the plain version on contiguous copies;
-    the output a (B, H, T, hd) view of a (B, T, H, hd) buffer. bf16 at hd 16,
-    128, 256 takes the tensor cores, at hd 8 the CUDA-core path."""
+    the output a (B, H, T, hd) view of a (B, T, H, hd) buffer; a rerun bit
+    for bit. Every width here arrives by 16-byte copies (hd 8 zero-filled to
+    the mma's 16), the head streamed through shared memory (hd 128 to
+    1,024)."""
     def n(*shape):
         return torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(cuda, dtype)
 
@@ -120,7 +128,7 @@ def test_kernel_reads_packed_projections(cuda, rng, b, t, h, hd, form, dtype, to
     else:
         q = n(b, t, h, hd).transpose(1, 2)
         k, v = n(b, t, 2, h, hd).permute(2, 0, 3, 1, 4)
-    assert attention.uses_tensor_cores(q, k, v) == (dtype == torch.bfloat16 and hd % 16 == 0)
+    assert attention.copy_bytes(q, k, v) == 16
     before = attention.KERNEL.launches
     got = attention.fused_mha(q, k, v, causal=causal)
     again = attention.fused_mha(q, k, v, causal=causal)
@@ -278,26 +286,22 @@ def test_layer_kernels_match_the_twin(cuda, rng, t, d, h, ff, nseq, dtype, rate)
         assert float((leaf.grad.float() - ref.grad.float()).abs().max()) <= tol * scale
 
 
-def _wide_flips(own_h, kernel_h):
-    """A whole layer at d 512 against its twin: each ReLU decision that
-    differs within KINK_BAND of 0, and at most KINK_SHARE (f32) or
-    WIDE_KINK_SHARE (bf16) of the units, plus 4."""
+def _wide_flips(own_h, kernel_h, d):
+    """A whole layer of the wide route against its twin: each ReLU decision
+    that differs within KINK_BAND of 0, and at most KINK_SHARE (f32) or
+    ``wide_kink_share(d)`` (bf16) of the units, plus 4."""
     share = (fused_layer.KINK_SHARE if own_h.dtype == torch.float32
-             else fused_layer.WIDE_KINK_SHARE)
+             else fused_layer.wide_kink_share(d))
     return fused_layer.kink_flips(own_h, kernel_h, share)[0]
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("rate", [0.0, 0.3])
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("decoder", [False, True])
-def test_wide_layers_match_the_twin(cuda, rng, decoder, dtype, rate):
-    """d 512, 4 heads, ff 1,024, the chains' wide route: forward, row
-    backward and weight gradients through the layer's autograd Function
-    against autograd through the twin (same masks; the kernel's side of the
-    ReLU at the units ``_wide_flips`` admits), the bars of the layer tests
-    above; each launch of the dtype's wide route once, nothing else."""
-    t, d, h, ff, nseq = 32, 512, 4, 1024, 4
+def _wide_layer_against_twin(cuda, rng, decoder, dtype, rate, d, h, ff, nseq):
+    """The chains' wide route at d, h, ff: forward, row backward and weight
+    gradients through the layer's autograd Function against autograd through
+    the twin (same masks; the kernel's side of the ReLU at the units
+    ``_wide_flips`` admits), the bars of the layer tests above; each launch of
+    the dtype's wide route once, nothing else."""
+    t = 32
     mod = fused_decoder_layer if decoder else fused_layer
     args, dy = (_decoder_inputs if decoder else _layer_inputs)(cuda, rng, t, d, ff, nseq, dtype)
     seed = torch.tensor([99], dtype=torch.int32, device=cuda)
@@ -317,7 +321,7 @@ def test_wide_layers_match_the_twin(cuda, rng, decoder, dtype, rate):
     with torch.no_grad():
         own = reference(*args, seed, rate, h, t, return_residuals=True)
     h_at = 6 if decoder else 3
-    flips = _wide_flips(own[h_at], res[h_at])
+    flips = _wide_flips(own[h_at], res[h_at], d)
     ref_leaves = [a.detach().clone().requires_grad_(True) for a in args]
     want = reference(*ref_leaves, seed, rate, h, t, return_residuals=True, relu_flips=flips)
     want[0].backward(dy)
@@ -329,6 +333,27 @@ def test_wide_layers_match_the_twin(cuda, rng, decoder, dtype, rate):
         assert leaf.grad.dtype == leaf.dtype
         scale = float(ref.grad.float().abs().max())
         assert float((leaf.grad.float() - ref.grad.float()).abs().max()) <= tol * scale
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rate", [0.0, 0.3])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("decoder", [False, True])
+def test_wide_layers_match_the_twin(cuda, rng, decoder, dtype, rate):
+    """d 512, 4 heads, ff 1,024, the chains' wide route, against the twin
+    (``_wide_layer_against_twin``)."""
+    _wide_layer_against_twin(cuda, rng, decoder, dtype, rate, 512, 4, 1024, 4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("decoder", [False, True])
+@pytest.mark.parametrize("d, h", [(1024, 1), (2048, 2)])
+def test_widest_layers_match_the_twin(cuda, rng, d, h, decoder, dtype):
+    """d 1,024 with one head of 1,024 (the attention streams the head) and d
+    2,048 with two (the row passes a block a row), ff 1,024, rate 0.3: the
+    layers against the twin (``_wide_layer_against_twin``)."""
+    _wide_layer_against_twin(cuda, rng, decoder, dtype, 0.3, d, h, 1024, 2)
 
 
 @pytest.mark.cuda
@@ -536,15 +561,17 @@ CHAIN_BARS = {torch.bfloat16: 2e-2, torch.float32: 2e-5}
 @pytest.mark.parametrize("t, d, h, ff, nseq", [(32, 256, 2, 512, 16), (17, 64, 4, 96, 3),
                                                (32, 256, 2, 2048, 4), (8, 32, 4, 64, 5),
                                                (32, 512, 4, 1024, 16), (32, 512, 1, 512, 8),
-                                               (17, 1024, 2, 1024, 3)])
+                                               (17, 1024, 2, 1024, 3), (32, 1024, 1, 1024, 8),
+                                               (32, 2048, 2, 1024, 4), (32, 1280, 5, 1024, 4)])
 def test_sm90_launches_match_their_plain_versions(cuda, rng, decoder, t, d, h, ff, nseq, dtype):
     """Every launch of a layer call against its plain version on the same
     inputs, each output within its dtype's bar of its largest value
     (``CHAIN_BARS``), every launch of the dtype's chain once: 13 an encoder
     layer, 21 a decoder layer; past d 256 the wide route's 16 and 26 (the
     LayerNorm epilogues' launches as a product and a row pass each, the
-    row passes in chunks of 256 columns up to d 1,024, the f32 attention's
-    backward at hd 512 reading V from device memory). An f32 layer past
+    row passes a warp a row in chunks of 256 columns up to d 1,024 and a
+    block a row past it, the attention streaming heads of 512 and 1,024).
+    An f32 layer past
     ``F32_MAX_FF`` is refused (ROADMAP §C11: phases 8 and 14 of chip_smoke.py
     hold the chain there)."""
     if dtype == torch.float32 and ff > fused_layer.F32_MAX_FF:
@@ -608,16 +635,14 @@ def test_sm90_launches_refuse_what_they_do_not_take(cuda, rng):
         layer_sm90.bias_product(k, x.float(), wqkv, bqkv)
     with pytest.raises(ValueError, match="contiguous activations"):
         layer_sm90.bias_product(k, x[:, :60], wqkv[:, :60], bqkv)  # rows not a multiple of 8
-    wide, _ = _layer_inputs(cuda, rng, 32, 1032, 128, 2, torch.bfloat16)  # d beyond 1,024
-    with pytest.raises(ValueError, match="supports_fused_layer"):
-        fused_layer.encoder_layer_train(*wide, seed, 0.3, 3, 32)
-    one_head, _ = _layer_inputs(cuda, rng, 32, 1024, 128, 2, torch.bfloat16)  # hd 1,024
-    with pytest.raises(ValueError, match="supports_fused_layer"):
-        fused_layer.encoder_layer_train(*one_head, seed, 0.3, 1, 32)
-    x2, w2 = wide[0][:, :512].contiguous(), wide[3][:512, :512].contiguous()
+    rows = torch.zeros(64, 8200, device=cuda)  # d beyond the row passes' 8,192
+    with pytest.raises(ValueError, match="up to 8192"):
+        layer_sm90.ln_y_rows(fused_layer.SM90_WIDE_KERNELS["fused_layer_sm90_proj_ln1_rows"],
+                             rows, rows[0], rows[0], torch.bfloat16)
+    wide, _ = _layer_inputs(cuda, rng, 32, 512, 128, 2, torch.bfloat16)
+    x2, w2 = wide[0], wide[3]
     with pytest.raises(ValueError, match="wide route"):  # one kernel where d 512 takes two
-        layer_sm90.residual_ln_product(k, x2, w2, wide[4][:512], x2, wide[5][:512],
-                                       wide[6][:512], seed, 1, 0.3)
+        layer_sm90.residual_ln_product(k, x2, w2, wide[4], x2, wide[5], wide[6], seed, 1, 0.3)
     with pytest.raises(ValueError, match="supports_fused_layer"):
         fused_layer.encoder_layer_train(*args, seed, 0.3, 2, 64)  # T beyond one warp
     mixed = list(args)

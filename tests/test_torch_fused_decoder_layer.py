@@ -13,6 +13,7 @@ import torch
 import jax
 import jax.numpy as jnp
 
+from transformergrooveinfilling_tpu.ops import fused_decoder_layer as jax_fused_decoder_layer
 from transformergrooveinfilling_tpu.ops.fused_decoder_layer import (
     decoder_layer_train as jax_decoder_layer_train,
 )
@@ -23,6 +24,7 @@ from transformergrooveinfilling_tpu_torch.models.transformer import (
 from transformergrooveinfilling_tpu_torch.ops import fused_decoder_layer as fdl
 from transformergrooveinfilling_tpu_torch.ops import fused_layer as fl
 from transformergrooveinfilling_tpu_torch.ops.dropout import quantized_threshold
+from test_torch_fused_layer import kink_sided
 
 WEIGHTS = [fdl.ARG_NAMES.index(n) for n in fdl.WEIGHT_NAMES]
 
@@ -65,14 +67,16 @@ SEED = torch.tensor([3], dtype=torch.int32)
 
 @pytest.mark.parametrize("d, h, ff, b", [pytest.param(128, 2, 128, 4, id="2"),
                                          pytest.param(128, 1, 128, 4, id="1"),
-                                         (512, 4, 1024, 8), (512, 1, 512, 8)])
+                                         (512, 4, 1024, 8), (512, 1, 512, 8),
+                                         (1024, 1, 1024, 8), (2048, 2, 1024, 8)])
 def test_rate0_matches_jax_kernel_forward_and_grads(d, h, ff, b):
     """y3, dx, dmem and all 20 parameter grads at f32 against JAX
     decoder_layer_train in interpret mode (jax.vjp), at the smallest shape the
     JAX gate takes: d 128 (2 heads of 64, lane-packed there, and 1 head of
     128), ff 128, B 4 × T 32 rows; and past d 256 (the chain's wide route on
-    the card) d 512 with 4 heads / ff 1,024 and 1 head of 512 / ff 512, B 8 ×
-    T 32."""
+    the card) d 512 with 4 heads / ff 1,024 and 1 head of 512 / ff 512, d
+    1,024 with one head of 1,024 and d 2,048 with 2 (the row passes a block a
+    row on the card), ff 1,024, B 8 × T 32."""
     t = 32
     args, dy = layer_inputs(d, ff, b * t)
     seed = np.zeros((1,), np.int32)
@@ -84,7 +88,11 @@ def test_rate0_matches_jax_kernel_forward_and_grads(d, h, ff, b):
     grads_jax = vjp(jnp.asarray(dy))
 
     leaves = [torch.from_numpy(a).requires_grad_(True) for a in port_layout(args)]
-    y = fdl.decoder_layer_train(*leaves, torch.from_numpy(seed), 0.0, h, t)
+    layer = kink_sided(fdl.decoder_layer_train, fdl.decoder_layer_reference, 6, leaves, seed, h,
+                       t, jax_fused_decoder_layer._fwd_call(
+                           *map(jnp.asarray, args), jnp.asarray(seed), rate=0.0, n_heads=h,
+                           seq_len=t, interpret=True)[6])
+    y = layer(*leaves, torch.from_numpy(seed), 0.0, h, t)
     y.backward(torch.from_numpy(dy))
     # the JAX package's own bars (tests/test_fused_decoder_layer.py)
     np.testing.assert_allclose(y.detach().numpy(), np.asarray(y_jax), rtol=2e-4, atol=2e-4)
@@ -259,8 +267,9 @@ def test_gate():
     assert not fdl.supports_fused_decoder_layer(256, 3, 512, 32)  # d not divisible by H
     assert not fdl.supports_fused_decoder_layer(1024, 4, 4096, 32)  # f32: ff past F32_MAX_FF
     assert fdl.supports_fused_decoder_layer(1024, 4, 4096, 32, torch.bfloat16)  # the wide route
-    assert not fdl.supports_fused_decoder_layer(1032, 3, 1024, 32, torch.bfloat16)  # d > 1,024
-    assert not fdl.supports_fused_decoder_layer(1024, 1, 1024, 32)  # hd 1,024 > 512
+    assert fdl.supports_fused_decoder_layer(1032, 3, 1024, 32, torch.bfloat16)  # d > 1,024
+    assert fdl.supports_fused_decoder_layer(1024, 1, 1024, 32)  # hd 1,024: streamed
+    assert not fdl.supports_fused_decoder_layer(8200, 1, 1024, 32)  # past the row passes' 8,192
     assert not fdl.supports_fused_decoder_layer(30, 2, 64, 32)  # d not a multiple of 8
 
 
@@ -310,11 +319,13 @@ def test_kernel_source_hash_covers_its_headers(tmp_path, monkeypatch):
 
     for source in ("layer_sm90", "layer_wide_sm90"):
         files = [f.name for f in _build.source_files(_build.CSRC / f"{source}.cu")]
-        assert files == [f"{source}.cu", "rows_sm90.cuh", "epilogues_sm90.cuh", "gemm_sm90.cuh",
-                         "layer_common.cuh"]
+        head = ["attn_stream_sm90.cuh"] if source == "layer_sm90" else []
+        assert files == [f"{source}.cu", *head, "rows_sm90.cuh", "epilogues_sm90.cuh",
+                         "gemm_sm90.cuh", "layer_common.cuh"]
     files = [f.name for f in _build.source_files(_build.CSRC / "fused_ln.cu")]
     assert files == ["fused_ln.cu", "layer_common.cuh"]
-    assert [f.name for f in _build.source_files(_build.CSRC / "fused_mha.cu")] == ["fused_mha.cu"]
+    assert [f.name for f in _build.source_files(_build.CSRC / "fused_mha.cu")] == [
+        "fused_mha.cu", "attn_stream_sm90.cuh"]
     # a nested include is followed, each file once
     (tmp_path / "a.cu").write_text('#include "b.cuh"\n#include "c.cuh"\n#include <math.h>\n')
     (tmp_path / "b.cuh").write_text('  #  include "c.cuh"\n')

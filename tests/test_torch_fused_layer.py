@@ -13,6 +13,7 @@ import torch
 import jax
 import jax.numpy as jnp
 
+from transformergrooveinfilling_tpu.ops import fused_layer as jax_fused_layer
 from transformergrooveinfilling_tpu.ops.fused_layer import (
     encoder_layer_train as jax_encoder_layer_train,
 )
@@ -51,12 +52,32 @@ def port_layout(params):
     return [np.ascontiguousarray(p.T) if i in WEIGHTS else p for i, p in enumerate(params)]
 
 
+def kink_sided(layer, reference, h_at, leaves, seed, n_heads, t, jax_h):
+    """``layer`` (the wrapper, which runs its twin on CPU tensors), or where
+    the JAX kernel's ReLU decisions (from its hidden ``jax_h``) differ from
+    the twin's, the twin taking the JAX kernel's side at those units. A unit
+    within rounding of 0 lands on either side of the kink by the order of its
+    sum (at d 2,048 one unit's input is 0.0 in the twin), and the gradient
+    through it is then all or nothing; ``fl.kink_flips`` raises unless every
+    such unit is within ``KINK_BAND`` of max|h| (f32: 1e-5) and they are at
+    most ``KINK_SHARE`` of the units plus 4, as ``chip_smoke.py`` holds the
+    card's chains to the twin."""
+    with torch.no_grad():
+        own_h = reference(*[a.detach() for a in leaves], torch.from_numpy(seed), 0.0, n_heads,
+                          t, return_residuals=True)[h_at]
+    flips, _ = fl.kink_flips(own_h, torch.from_numpy(np.array(jax_h)))
+    if not flips.any():
+        return layer
+    return lambda *a: reference(*a, relu_flips=flips)
+
+
 @pytest.mark.parametrize("d, h, ff", [(256, 2, 512), (128, 2, 256), (512, 4, 1024),
-                                      (512, 1, 512)])
+                                      (512, 1, 512), (1024, 1, 1024), (2048, 2, 1024)])
 def test_rate0_matches_jax_kernel_forward_and_grads(d, h, ff):
     """y, dx and all 12 parameter grads at f32 against JAX encoder_layer_train
     in interpret mode (jax.vjp), B 8 × T 32 rows; hd 128 and hd 64, and past
-    d 256 (the chain's wide route on the card) hd 128 and hd 512."""
+    d 256 (the chain's wide route on the card) hd 128, 512 and 1,024, and d
+    2,048 (the row passes a block a row on the card)."""
     t, b = 32, 8
     x, params, dy = layer_inputs(d, ff, b * t)
     seed = np.zeros((1,), np.int32)
@@ -68,7 +89,11 @@ def test_rate0_matches_jax_kernel_forward_and_grads(d, h, ff):
     grads_jax = vjp(jnp.asarray(dy))
 
     leaves = [torch.from_numpy(a).requires_grad_(True) for a in [x] + port_layout(params)]
-    y = fl.encoder_layer_train(*leaves, torch.from_numpy(seed), 0.0, h, t)
+    layer = kink_sided(fl.encoder_layer_train, fl.encoder_layer_reference, 3, leaves, seed, h, t,
+                       jax_fused_layer._fwd_call(jnp.asarray(x), *map(jnp.asarray, params),
+                                                 jnp.asarray(seed), rate=0.0, n_heads=h,
+                                                 seq_len=t, interpret=True)[3])
+    y = layer(*leaves, torch.from_numpy(seed), 0.0, h, t)
     y.backward(torch.from_numpy(dy))
     # the JAX package's own bars (tests/test_fused_layer.py)
     np.testing.assert_allclose(y.detach().numpy(), np.asarray(y_jax), rtol=2e-4, atol=2e-4)
@@ -168,8 +193,10 @@ def test_gate():
     assert not fl.supports_fused_layer(256, 2, 512, 33)  # T above one block's rows
     assert not fl.supports_fused_layer(256, 2, 512, 32, torch.float16)
     assert not fl.supports_fused_layer(256, 3, 512, 32)  # d not divisible by H
-    assert not fl.supports_fused_layer(1032, 3, 1024, 32)  # beyond the wide route's 1,024
-    assert not fl.supports_fused_layer(1024, 1, 1024, 32, torch.bfloat16)  # hd 1,024 > 512
+    assert fl.supports_fused_layer(1032, 3, 1024, 32)  # past d 1,024: a block a row
+    assert fl.supports_fused_layer(1024, 1, 1024, 32, torch.bfloat16)  # hd 1,024: streamed
+    assert fl.supports_fused_layer(8192, 1, 1024, 32)  # the row passes' widest row
+    assert not fl.supports_fused_layer(8200, 1, 1024, 32, torch.bfloat16)  # past MAX_D
     assert fl.supports_fused_layer(1024, 4, 4096, 32, torch.bfloat16)  # GrooveXL, forced bf16
     assert not fl.supports_fused_layer(1024, 4, 4096, 32)  # f32: ff past F32_MAX_FF
     assert not fl.supports_fused_layer(30, 2, 64, 32)  # d not a multiple of 8

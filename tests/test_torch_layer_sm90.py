@@ -33,6 +33,9 @@ from transformergrooveinfilling_tpu.ops.fused_decoder_layer import (
 from transformergrooveinfilling_tpu.ops.fused_layer import (
     encoder_layer_train as jax_encoder_layer_train,
 )
+from transformergrooveinfilling_tpu.ops.fused_layer import (
+    supports_fused_layer as jax_supports_fused_layer,
+)
 from transformergrooveinfilling_tpu_torch.ops import fused_decoder_layer as fdl
 from transformergrooveinfilling_tpu_torch.ops import fused_layer as fl
 from transformergrooveinfilling_tpu_torch.ops import layer_sm90 as L
@@ -345,7 +348,7 @@ def test_layernorm_launches_match_autograd():
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("d", [264, 512, 1024])
+@pytest.mark.parametrize("d", [264, 512, 1024, 2048])
 def test_wide_route_plain_versions_compose_to_the_definitions(d, dtype):
     """Past ``LN_TILE`` each LayerNorm-epilogue launch is two: the plain
     versions of the product and the row pass, composed as the wrappers
@@ -511,10 +514,11 @@ def test_weight_gradient_splits():
 
 
 def test_bf16_gate_boundaries():
-    """bf16: d a multiple of 8 up to 1,024 (past 256 the wide route), ff a
-    multiple of 8, heads dividing d into widths that are multiples of 8 up to
-    512, T up to 32 (GrooveXL's d 1024 / ff 4,096 is in the bf16 gate, not in
-    the f32 one)."""
+    """bf16: d a multiple of 8 up to 8,192 (past 256 the wide route, past
+    1,024 its row passes a block a row), ff a multiple of 8, heads dividing d
+    into widths that are multiples of 8 (any width: the attention streams the
+    head), T up to 32 (GrooveXL's d 1024 / ff 4,096 is in the bf16 gate, not
+    in the f32 one)."""
     bf16 = torch.bfloat16
     for gate in (fl.supports_fused_layer, fdl.supports_fused_decoder_layer):
         assert gate(256, 2, 512, 32, bf16)  # the flagship
@@ -524,8 +528,10 @@ def test_bf16_gate_boundaries():
         assert gate(264, 3, 512, 32, bf16)  # past the LayerNorm epilogue's tile: the wide route
         assert gate(1024, 4, 4096, 32, bf16)  # GrooveXL
         assert gate(512, 1, 512, 32, bf16)  # hd 512
-        assert not gate(1032, 3, 512, 32, bf16)  # beyond the wide route's row passes
-        assert not gate(1024, 1, 1024, 32, bf16)  # hd 1,024: past the attention's 512
+        assert gate(1032, 3, 512, 32, bf16)  # past d 1,024: the row passes a block a row
+        assert gate(1024, 1, 1024, 32, bf16)  # hd 1,024: the attention streams the head
+        assert gate(8192, 2, 1024, 32, bf16)  # the row passes' widest row
+        assert not gate(8200, 1, 1024, 32, bf16)  # beyond the row passes' 8,192
         assert not gate(252, 2, 512, 32, bf16)  # d not a multiple of 8
         assert not gate(256, 2, 516, 32, bf16)  # ff not a multiple of 8
         assert not gate(256, 2, 512, 33, bf16)  # T beyond one warp's softmax row
@@ -535,7 +541,22 @@ def test_bf16_gate_boundaries():
         assert gate(96, 4, 512, 32, bf16)  # hd 24, zero-filled to 32 in the attention
         assert not gate(256, 2, 512, 0, bf16)
         assert gate(256, 2, 512, 32) and not gate(1024, 4, 4096, 32)  # f32
-        assert gate(1024, 2, 1024, 32) and not gate(1024, 1, 1024, 32)  # f32, hd 512 and 1,024
+        assert gate(1024, 2, 1024, 32) and gate(1024, 1, 1024, 32)  # f32, hd 512 and 1,024
+
+
+def test_gates_admit_every_width_of_the_jax_gate_up_to_d_4096():
+    """Every (d, heads, ff) the JAX package's gate admits at rows 256 and T 32
+    with d up to 4,096 (multiples of 128), 1 to 5 heads and ff 128 to 1,024
+    (its ceiling), the port's encoder and decoder gates admit in bf16 and in
+    f32: the chains run every layer the JAX kernels run there."""
+    admitted = [(d, h, ff) for d in range(128, 4097, 128) for h in range(1, 6)
+                for ff in range(128, 1025, 128) if jax_supports_fused_layer(d, h, ff, 256, 32)]
+    assert (1024, 1, 1024) in admitted and (2048, 2, 1024) in admitted
+    assert (1280, 5, 1024) in admitted and len(admitted) > 500
+    for gate in (fl.supports_fused_layer, fdl.supports_fused_decoder_layer):
+        for dtype in (torch.bfloat16, torch.float32):
+            refused = [w for w in admitted if not gate(*w, 32, dtype)]
+            assert not refused, (gate.__name__, dtype, refused[:5])
 
 
 CONFIG_WIDTHS = {(32, 16, 512), (32, 4, 16), (64, 16, 256), (256, 16, 64), (256, 2, 512),
@@ -551,7 +572,7 @@ def test_f32_gate_admits_every_config_width():
     unfused path in f32. It refuses d or ff a multiple of 4 but not of 8,
     which the CUDA-core kernels before it took by shared memory alone, and
     takes the d past the LayerNorm tile's 256 that they took (to ~352) by
-    the wide route."""
+    the wide route, and every d up to the row passes' 8,192 past them."""
     from transformergrooveinfilling_tpu_torch.utils import yaml_subset
 
     found = set()
@@ -565,8 +586,10 @@ def test_f32_gate_admits_every_config_width():
             assert gate(d, h, ff, 32, torch.float32) == (ff <= fl.F32_MAX_FF), (d, h, ff)
         for d, h, ff in ((36, 4, 64), (252, 2, 512), (32, 4, 20), (256, 2, 516)):
             assert not gate(d, h, ff, 32, torch.float32), (d, h, ff)
-        for d, h, ff in ((264, 2, 512), (352, 4, 512)):
+        for d, h, ff in ((264, 2, 512), (352, 4, 512), (1024, 1, 1024), (2048, 2, 1024),
+                         (8192, 1, 1024)):
             assert gate(d, h, ff, 32, torch.float32), (d, h, ff)
+        assert not gate(8200, 1, 1024, 32, torch.float32)
     assert not fl.supports_fused_layer(32, 16, 512, 32, torch.bfloat16)  # hd 2 in bf16
 
 

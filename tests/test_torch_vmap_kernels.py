@@ -101,6 +101,21 @@ def test_vmap_equals_unbatched_calls_in_the_wide_route(monkeypatch, kernel):
     assert_equal(grads, outs, want, atol=BAR)
 
 
+@pytest.mark.parametrize("kernel", ["fused_layer", "fused_decoder_layer"])
+def test_vmap_equals_unbatched_calls_at_one_head_of_1024(monkeypatch, kernel):
+    """At d 1,024 with one head of 1,024 (ff 1,024: the attention streams the
+    head on the card) the layers' vmap rule runs each trial's chain once: K
+    unbatched calls' outputs and gradients within ``BAR``, each operator's
+    body once a trial, f32, rate 0.3, B 2 × T 32 a trial."""
+    call = calls(RATE, 1, T)[kernel]
+    args, dys, seeds = trials(kernel, 2, 13, torch.float32, "cpu", d=1024, ff=1024, rows=2 * T)
+    want = unbatched(call, args, dys, seeds)
+    counts = counted_bodies(monkeypatch, kernel)
+    grads, outs = vmapped(call, args, dys, seeds)
+    assert counts == {"forward": 2, "backward": 2}
+    assert_equal(grads, outs, want, atol=BAR)
+
+
 @pytest.mark.parametrize("kernel, twin", [("fused_layer", fl.encoder_layer_reference),
                                            ("fused_decoder_layer", fdl.decoder_layer_reference)])
 def test_layer_functions_under_vmap_match_autograd_through_the_twin(kernel, twin):

@@ -7,8 +7,9 @@
 //
 // Each is a template over the activations' type T, the launch's operand type:
 // bf16 stores round to bf16 ("rounding" above), f32 stores keep the sum.
-// EpiOut and EpiRound take Promote = true where an f32 launch reduces over a
-// long k (gemm_sm90.cuh's kPromote): the FFN's h·W2ᵀ and dh·W1 over ff.
+// EpiHidden, EpiOut, EpiRound and EpiDh take Promote = true where an f32
+// launch reduces over a long k (gemm_sm90.cuh's kPromote): the FFN's h·W2ᵀ and
+// dh·W1 over ff, the layer chains' products over d past 768.
 //
 // store() gets the values at (row, col), (row, col+1), (row, col+8),
 // (row, col+9); col is even and the widths are multiples of 8 (bf16) or 4
@@ -30,8 +31,9 @@ using bf16 = __nv_bfloat16;
 // share its dropout draws: each computes a quarter of them and passes on the
 // two words that each of the others needs (word q/2 for columns 2q, 2q+1 of
 // a group, word 2 + q/2 for columns 8 + 2q, 9 + 2q).
-template <class T>
+template <class T, bool Promote = false>
 struct EpiHidden : NoExtra {
+  static constexpr bool kPromote = Promote;
   T* h;
   const float* b1;
   const int* seed;
@@ -138,8 +140,9 @@ struct EpiRound : NoExtra {
 };
 
 // dh = round(h > 0 ? g / keep : 0), g = dy·W2
-template <class T>
+template <class T, bool Promote = false>
 struct EpiDh : NoExtra {
+  static constexpr bool kPromote = Promote;
   T* dh;
   const T* h;
   int rows, ff, thresh;

@@ -32,10 +32,11 @@
 //                  the LayerNorm's backward in the epilogue: da' (f32), v
 //                  (f32, for the LN parameters' sums) and round(drop(da'))
 //   sm90_round     round(dY·W [+ an f32 residual]) (dattn, dx, dmem)
-//   sm90_ln_rows   one warp a row: the LayerNorm statistics of the stored
-//                  inputs, y recomputed where a weight gradient needs it, and
-//                  the last LayerNorm's backward from dy, with its site's mask
-//                  (a lane holds 8 columns of each 256-column chunk of a row)
+//   sm90_ln_rows   one warp a row (past d 1,024 one block): the LayerNorm
+//                  statistics of the stored inputs, y recomputed where a
+//                  weight gradient needs it, and the last LayerNorm's
+//                  backward from dy, with its site's mask (a thread holds 8
+//                  columns of each 256- or 2,048-column chunk of a row)
 //   sm90_attn_fwd  one block per (sequence, head): P = softmax(QKᵀ/√hd)
 //                  (causal for the decoder's self-attention), its dropout
 //                  mask, round(drop(P))·V
@@ -69,24 +70,25 @@
 // reach a LayerNorm (da, v) are f32 in both dtypes.
 //
 // The attention (4·T·d FLOP a row forward at T ≤ 32, 3 % of the layer's
-// products, but a (sequence, head)'s Q, K, V and dA cross device memory
-// once). bf16: on the tensor cores as mma.sync m16n8k16, two warps a
-// (sequence, head) (fused_mha.cu's layout: the 64-row wgmma tiles would leave
-// most of a warpgroup idle at T 32); hd is a multiple of 8 (16-byte rows for
-// cp.async), zero-filled in shared memory to a multiple of 16 (the mma's k).
-// f32: split TF32 on mma.sync, one block of two warps a (sequence, head), any
-// hd (the configs' f32 layers have heads of 2, 4, 8, 16 and 128). A
-// (sequence, head) of hd 512 takes 100 KB (bf16 forward) to 138 KB (bf16
-// backward) of shared memory, and the f32 forward 203 KB; the f32 backward
-// would need 273 KB there, so past the 232,448 bytes a block may take it
-// reads V from device memory (L2) instead of staging it: 207 KB at hd 512.
+// products, but a (sequence, head)'s Q, K, V and dA cross device memory):
+// kernel #1's streamed-head design (attn_stream_sm90.cuh), two warps a
+// (sequence, head) (split over a cluster of up to 8 blocks where the heads
+// are fewer than two an SM), the scores, probabilities and score gradients in
+// registers, the head's columns through a cp.async ring, so a block takes
+// 38 to 45 KB of shared memory at any hd (a head of 1,024 and
+// more). bf16 on mma.sync m16n8k16 (the 64-row wgmma tiles would leave most
+// of a warpgroup idle at T 32), hd a multiple of 8 (16-byte rows for
+// cp.async) zero-filled to the mma's 16; f32 in split TF32 on mma.sync
+// m16n8k8, any hd (the configs' f32 layers have heads of 2, 4, 8, 16 and
+// 128), rows copied 16, 8 or 4 bytes at a time as they allow.
 //
 // The wide route. A 64 × 256 tile spans a row up to d 256, which the
-// LayerNorm epilogues need (kLnTile). Past it, up to d 1,024, each
+// LayerNorm epilogues need (kLnTile). Past it, up to d 8,192, each
 // LayerNorm-epilogue launch becomes a product and a row pass, the launches of
 // layer_wide_sm90.cu; the chain takes 16 launches an encoder layer and 26 a
-// decoder layer there. The row pass of the backward (sm90_ln_rows) walks a row
-// in chunks of 256 columns (rows_sm90.cuh) in both routes.
+// decoder layer there. The row passes, the backward's (sm90_ln_rows) in both
+// routes, hold a row in a warp up to d 1,024 and in a block past it
+// (rows_sm90.cuh).
 //
 // Dropout: the layer kernels' 8-bit rule and Philox stream (layer_common.cuh),
 // sites and counters as the TPU kernels number them, so the masks are
@@ -99,17 +101,30 @@
 // by a row stride) and 16-byte aligned; biases, LayerNorm parameters,
 // statistics and residual gradients are f32.
 
+#include <numeric>
 #include <type_traits>
 
+#include "attn_stream_sm90.cuh"
 #include "rows_sm90.cuh"  // and epilogues_sm90.cuh
 
 namespace {
 
 constexpr int kLnTile = 256;  // the LayerNorm epilogues' tile width: d ≤ 256
-constexpr size_t kMaxSmem = 232448;  // dynamic shared memory one block may take
-// the longest reduction an f32 plain-rounding product runs unpromoted: the
-// route up to d 256 reduces over at most 3·256 = 768 there, unchanged
+// the longest reduction an f32 product with a plain epilogue runs unpromoted:
+// the route up to d 256 reduces over at most 3·256 = 768 there, unchanged
 constexpr int kPromoteK = 3 * kLnTile;
+
+// fn(std::bool_constant<promote>): an f32 launch over k past kPromoteK
+// promotes each stage's sums (gemm_sm90.cuh's kPromote). Unpromoted, the
+// tensor cores' truncating accumulation took dx over 3d and dmem over 2d past
+// 1e-5 of their largest value (1.05e-5 to 1.7e-5 at d 512 and 1,024 on an
+// H100), and the qkv product over d 2,048 to 1.7e-5.
+template <class T, class F>
+int by_promote(int k, F&& fn) {
+  if constexpr (sizeof(T) == 4)
+    if (k > kPromoteK) return fn(std::true_type{});
+  return fn(std::false_type{});
+}
 constexpr int kLnConfig = 3;  // run()'s 64 × 256 tile
 constexpr int kWgradConfig = 1;  // run()'s 128 × 128 tile
 constexpr int kMaxLn = 3;
@@ -349,8 +364,9 @@ struct EpiLnBwd : NoExtra {
 
 // ---------------------------------------------------------------- LayerNorm rows
 
-// One warp a row in C chunks of 256 columns (rows_sm90.cuh; C = 1 up to d
-// 256, the route of every width the LayerNorm epilogues take).
+// A group of G threads a row in C chunks of 8·G columns (rows_sm90.cuh: a
+// warp up to d 1,024, C = 1 up to d 256, the route of every width the
+// LayerNorm epilogues take; the block past d 1,024).
 // LayerNorm k of n_ln: statistics of the stored a[k] into stats (rows ×
 // 2·n_ln: mean, rstd), and y[k] = round(LN(a[k])·g + b) where y[k] is not
 // null. The last one's backward from dy: da (f32) and df = round(drop(da))
@@ -369,11 +385,11 @@ struct LnRowsArgs {
   int n_ln, rows, d, thresh, site;
 };
 
-template <class T, int C>
+template <class T, int C, int G>
 __global__ void __launch_bounds__(kThreads) ln_rows(const LnRowsArgs<T> p) {
   int c0[C];
-  const int r = row_lanes(p.rows, c0);
-  if (r < 0) return;  // a whole warp
+  const int r = row_lanes<C, G>(p.rows, c0);
+  if (r < 0) return;  // a whole group
   const int d = p.d;
   const size_t base = static_cast<size_t>(r) * d;
   for (int k = 0; k < p.n_ln; ++k) {
@@ -385,8 +401,8 @@ __global__ void __launch_bounds__(kThreads) ln_rows(const LnRowsArgs<T> p) {
       if (c0[c] < d) load8(p.a[k] + base + c0[c], a[c]);
     }
     float mu, rstd;
-    row_stats(a, d, mu, rstd);
-    if ((threadIdx.x & 31) == 0) {
+    row_stats<C, G>(a, d, mu, rstd);
+    if (threadIdx.x % G == 0) {
       p.stats[static_cast<size_t>(r) * 2 * p.n_ln + 2 * k] = mu;
       p.stats[static_cast<size_t>(r) * 2 * p.n_ln + 2 * k + 1] = rstd;
     }
@@ -412,8 +428,8 @@ __global__ void __launch_bounds__(kThreads) ln_rows(const LnRowsArgs<T> p) {
 #pragma unroll
       for (int i = 0; i < 8; ++i) dz[c][i] *= p.g[k][c0[c] + i];
     }
-    row_backward(dz, df, a, c0, d, mu, rstd, static_cast<uint32_t>(*p.seed), p.site, r,
-                 p.thresh);
+    row_backward<C, G>(dz, df, a, c0, d, mu, rstd, static_cast<uint32_t>(*p.seed), p.site, r,
+                       p.thresh);
 #pragma unroll
     for (int c = 0; c < C; ++c) {
       if (c0[c] >= d) continue;
@@ -425,186 +441,63 @@ __global__ void __launch_bounds__(kThreads) ln_rows(const LnRowsArgs<T> p) {
 
 // ---------------------------------------------------------------- attention
 
-// One block per (sequence, head). q, k, v (and da, dq, dk, dv, out) point at
-// column 0 of row 0 of packed buffers; the head's columns start at head·hd,
-// the sequence's rows at seq·T, with the row strides given.
+// One block of two warps per (sequence, head), warp w taking query rows 16w ..
+// 16w + 15 (T ≤ 32: keys padded to 32, rows past T zero-filled and their
+// results dropped). The head's columns stream through kernel #1's ring
+// (attn_stream_sm90.cuh: the scores in registers, Q and K then V in chunks
+// through three cp.async stages, every product on mma.sync, bf16 m16n8k16 or
+// split-TF32 m16n8k8, the score sums promoted a chunk at a time), so a
+// block's shared memory does not grow with hd: 41 KB (bf16) and 45 KB (f32)
+// forward, 38 and 42 KB backward, at every width; each warp's output chunks
+// are staged in shared memory and stored 16 bytes a lane. The forward is
+// #1's with the site's dropout mask on P. The backward keeps each warp's (16 × 32) P,
+// dP and dS in registers and streams Q, K, V and dA twice, the four a stage:
+// first S = Q·Kᵀ and dP = drop(dA·Vᵀ); then P, dS = P·(dP − Σ_j dP·P)·scale
+// and their tiles for the transposed products; then, chunk by chunk, the
+// attention output again (for dWo), dQ = dS·K, dV = Pᵀ·dA and dK = dSᵀ·Q.
+// bf16 rounds drop(P), dS and every output; f32 rounds nothing. The forward
+// and the backward compute S and P by the same code (and split a head over
+// the same cluster), so the backward's output again equals the forward's bit
+// for bit. A lane holds rows 16w +
+// lane/4 (h = 0) and + 8 (h = 1), keys 8n + 2·(lane % 4) + {0, 1}.
+
+// q, k, v (and da, dq, dk, dv, out) point at column 0 of row 0 of packed
+// buffers; the head's columns start at head·hd, the sequence's rows at
+// seq·T, with the row strides given; copy: the bytes of each cp.async
 template <class E>
 struct AttnArgs {
   const E *q, *k, *v, *da;
   E *dq, *dk, *dv, *out;
   const int* seed;
   int ldq, ldkv, ldda, lddq, lddkv, ldo;
-  int T, H, hd, thresh, site, causal;
+  int T, H, hd, thresh, site, causal, copy;
+  int ranks;  // the blocks of a (sequence, head): a cluster that splits its columns
 };
 
-// ---------------------------------------------------------------- attention on mma.sync
-
-// The two attention kernels (hd a multiple of 8, rows 16-byte aligned): one
-// block of two warps per (sequence, head), warp w taking query rows
-// 16w .. 16w + 15 (T ≤ 32: keys padded to 32, rows past T zero-filled and
-// their results dropped; hd zero-filled to a multiple of 16, columns past hd
-// not stored, so the zeros add nothing to S, dP or a stored output). Q, K, V
-// (and dA) arrive by cp.async in rows padded by 16 bytes; S = Q·Kᵀ, O = P·V, dP = dA·Vᵀ,
-// dQ = dS·K, dV = Pᵀ·dA and dK = dSᵀ·Q run as mma.sync m16n8k16 bf16 → f32
-// (the layout of fused_mha.cu's serving kernel); the softmax, its dropout
-// mask and dS in f32 on the accumulator fragments. A lane holds rows
-// 16w + lane/4 (h = 0) and + 8 (h = 1), keys 8n + 2·(lane % 4) + {0, 1}. The
-// forward and the backward compute S and P by the same code, so the
-// backward's output again equals the forward's bit for bit.
-
 constexpr int kAttnRows = 32;  // the padded T
+constexpr int kAttnKt = kAttnRows / 16;
+// the rings' stages: the forward's three chunks in flight (a head of 128
+// at once), the backward's two (its stages hold four operands)
+constexpr int kAttnFwdStages = 4, kAttnBwdStages = 3;
 
-__host__ __device__ __forceinline__ int pad16(int hd) { return (hd + 15) & ~15; }
-__host__ __device__ __forceinline__ int attn_ld(int hd) { return pad16(hd) + 8; }  // bf16
-constexpr int kPld = kAttnRows + 8;  // row stride of the (32, 32) P and dS tiles
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+// the row stride of the backward's (32, 32) P and dS tiles: bf16 rows padded
+// by 16 bytes (ldmatrix), f32 rows of 36
+template <class E>
+__host__ __device__ constexpr int attn_tile_ld() {
+  return sizeof(E) == 2 ? kAttnRows + 8 : kAttnRows + 4;
 }
 
-// 16 bytes global → shared; zero-filled (nothing read) when !valid
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
-               "l"(src), "r"(valid ? 16 : 0));
+size_t attn_fwd_smem(bool f32) {
+  return f32 ? attn::forward_smem<float, kAttnKt, kAttnFwdStages>()
+             : attn::forward_smem<bf16, kAttnKt, kAttnFwdStages>();
 }
 
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
-}
-__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
-}
-
-// d += a·b, m16n8k16, bf16 inputs, f32 accumulator
-__device__ __forceinline__ void mma16816(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack2(float lo, float hi) {
-  const __nv_bfloat162 p = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&p);
-}
-
-// the sequence's T rows of one head (columns col0 .. col0 + hd) into 32
-// padded shared-memory rows, rows past T and columns past hd zero-filled;
-// both warps
-__device__ __forceinline__ void stage_head(bf16* dst, const bf16* src, int stride, int row0,
-                                           int col0, int T, int hd) {
-  const int chunks = pad16(hd) / 8, ld = attn_ld(hd);
-  for (int idx = threadIdx.x; idx < kAttnRows * chunks; idx += blockDim.x) {
-    const int r = idx / chunks, c = 8 * (idx - r * chunks);
-    const bool valid = r < T && c < hd;
-    cp_async16(dst + r * ld + c,
-               valid ? src + static_cast<size_t>(row0 + r) * stride + col0 + c : src, valid);
-  }
-}
-
-// acc (16 × 32, 4 tiles of 8 columns) = A (this warp's 16 rows of `a`) ·
-// B (the 32 rows of `b`)ᵀ over hd
-__device__ __forceinline__ void rows_by_rows(float (&acc)[4][4], const bf16* a, const bf16* b,
-                                             int hd) {
-  const int lane = threadIdx.x & 31, mi = lane >> 3, mr = lane & 7, ld = attn_ld(hd);
-#pragma unroll
-  for (int n = 0; n < 4; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
-  for (int kc = 0; kc < pad16(hd) / 16; ++kc) {
-    uint32_t fa[4];
-    ldsm_x4(fa, a + ((mi & 1) * 8 + mr) * ld + 16 * kc + (mi >> 1) * 8);
-#pragma unroll
-    for (int np = 0; np < 2; ++np) {
-      uint32_t fb[4];
-      ldsm_x4(fb, b + (16 * np + (mi >> 1) * 8 + mr) * ld + 16 * kc + (mi & 1) * 8);
-      mma16816(acc[2 * np], fa, fb[0], fb[1]);
-      mma16816(acc[2 * np + 1], fa, fb[2], fb[3]);
-    }
-  }
-}
-
-// out (16 × hd, stored rounded) = P (A fragments, 16 × 32) · V (32 rows of
-// `v`); rows ≥ rows_valid and columns ≥ hd are not stored
-__device__ __forceinline__ void frags_by_rows(const uint32_t (&pa)[2][4], const bf16* v, int hd,
-                                              bf16* out, int ldo, int rows_valid) {
-  const int lane = threadIdx.x & 31, mi = lane >> 3, mr = lane & 7, ld = attn_ld(hd);
-  const int r0 = lane >> 2, c0 = 2 * (lane & 3);
-  for (int dp = 0; dp < pad16(hd) / 16; ++dp) {
-    float acc[2][4] = {};
-#pragma unroll
-    for (int kc = 0; kc < 2; ++kc) {
-      uint32_t fb[4];
-      ldsm_x4_trans(fb, v + (16 * kc + (mi & 1) * 8 + mr) * ld + 16 * dp + (mi >> 1) * 8);
-      mma16816(acc[0], pa[kc], fb[0], fb[1]);
-      mma16816(acc[1], pa[kc], fb[2], fb[3]);
-    }
-#pragma unroll
-    for (int n = 0; n < 2; ++n) {
-      if (16 * dp + 8 * n >= hd) break;  // the zero-filled columns
-      const int col = 16 * dp + 8 * n + c0;
-      if (r0 < rows_valid)
-        *reinterpret_cast<uint32_t*>(out + static_cast<size_t>(r0) * ldo + col) =
-            pack2(acc[n][0], acc[n][1]);
-      if (r0 + 8 < rows_valid)
-        *reinterpret_cast<uint32_t*>(out + static_cast<size_t>(r0 + 8) * ldo + col) =
-            pack2(acc[n][2], acc[n][3]);
-    }
-  }
-}
-
-// out (16 × hd, rounded) = Mᵀ·X over the 32 rows k: M (32 × 32, row k, column
-// m) in shared memory, this warp's columns m = 16w ..; X the 32 rows of `x`
-__device__ __forceinline__ void tiles_t_by_rows(const bf16* m, const bf16* x, int hd, bf16* out,
-                                                int ldo, int rows_valid) {
-  const int lane = threadIdx.x & 31, mi = lane >> 3, mr = lane & 7, w = threadIdx.x >> 5;
-  uint32_t fa[2][4];
-#pragma unroll
-  for (int kc = 0; kc < 2; ++kc)
-    ldsm_x4_trans(fa[kc], m + (16 * kc + (mi >> 1) * 8 + mr) * kPld + 16 * w + (mi & 1) * 8);
-  frags_by_rows(fa, x, hd, out, ldo, rows_valid);
-}
-
-// the softmax of this warp's score rows (scaled, causal, keys ≥ T masked):
-// p = exp(s - max) / sum, in place
-__device__ __forceinline__ void softmax_frags(float (&s)[4][4], float scale, int T, bool causal) {
-  const int lane = threadIdx.x & 31, i0 = 16 * (threadIdx.x >> 5) + (lane >> 2);
-  const int c0 = 2 * (lane & 3);
-  float m[2] = {-INFINITY, -INFINITY};
-#pragma unroll
-  for (int n = 0; n < 4; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int i = i0 + (e >> 1) * 8, j = 8 * n + c0 + (e & 1);
-      float x = s[n][e] * scale;
-      if (j >= T || (causal && j > i)) x = -INFINITY;
-      s[n][e] = x;
-      m[e >> 1] = fmaxf(m[e >> 1], x);
-    }
-  float sum[2] = {0.f, 0.f};
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    m[h] = fmaxf(m[h], __shfl_xor_sync(0xffffffffu, m[h], 1));
-    m[h] = fmaxf(m[h], __shfl_xor_sync(0xffffffffu, m[h], 2));
-  }
-#pragma unroll
-  for (int n = 0; n < 4; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const float x = expf(s[n][e] - m[e >> 1]);
-      s[n][e] = x;
-      sum[e >> 1] += x;
-    }
-#pragma unroll
-  for (int h = 0; h < 2; ++h) sum[h] = quad_sum(sum[h]);
-#pragma unroll
-  for (int n = 0; n < 4; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) s[n][e] = s[n][e] / sum[e >> 1];
+// the backward's: its ring, the P and dS tiles, the warps' output staging tiles
+template <class E>
+__host__ __device__ constexpr size_t attn_bwd_smem() {
+  return attn::Ring<E, attn::bwd_cw<E>(), kAttnRows, 4, kAttnBwdStages>::kBytes +
+         sizeof(E) * (2 * kAttnRows * attn_tile_ld<E>() +
+                      kAttnKt * attn::out_tile<E, attn::bwd_cw<E>()>());
 }
 
 // the dropout words of this lane's rows (h) and 16-key groups (g): the four
@@ -619,455 +512,201 @@ __device__ __forceinline__ void attn_words(uint4 (&w)[2][2], uint32_t seed, int 
   for (int k = 0; k < 4; ++k) w[k >> 1][k & 1] = quad_word(mine, k);
 }
 
-// x → x / keep where the site's byte at (row h, key j) keeps it, else 0
-__device__ __forceinline__ void drop_frags(float (&x)[4][4], const uint4 (&w)[2][2], int thresh) {
-  if (thresh >= 256) return;
-  const float keep = thresh / 256.f;
-  const int c0 = 2 * (threadIdx.x & 3);
-#pragma unroll
-  for (int n = 0; n < 4; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int j = 8 * n + c0 + (e & 1);
-      x[n][e] = drop_by(x[n][e], word_byte(w[e >> 1][j >> 4], j & 15), thresh, keep);
-    }
-}
+// The site's dropout of this warp's (16 × 32) fragments: x → x / keep where
+// the byte at (row h, key j) keeps it, else 0
+struct AttnDrop {
+  uint4 w[2][2];
+  int thresh;
 
-// P (f32 fragments) → round(drop(P)) as the A fragments of P·V
-__device__ __forceinline__ void dropped_frags(uint32_t (&pa)[2][4], const float (&p)[4][4],
-                                              const uint4 (&w)[2][2], int thresh) {
-  float x[4][4];
-#pragma unroll
-  for (int n = 0; n < 4; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) x[n][e] = p[n][e];
-  drop_frags(x, w, thresh);
-#pragma unroll
-  for (int kc = 0; kc < 2; ++kc) {
-    pa[kc][0] = pack2(x[2 * kc][0], x[2 * kc][1]);
-    pa[kc][1] = pack2(x[2 * kc][2], x[2 * kc][3]);
-    pa[kc][2] = pack2(x[2 * kc + 1][0], x[2 * kc + 1][1]);
-    pa[kc][3] = pack2(x[2 * kc + 1][2], x[2 * kc + 1][3]);
+  __device__ __forceinline__ AttnDrop(uint32_t seed, int site, int row0, int thresh_)
+      : thresh(thresh_) {
+    attn_words(w, seed, site, row0, thresh_);
   }
-}
 
-// A fragments (16 × 32) into the (32, kPld) tile `t` at this warp's rows
-__device__ __forceinline__ void frags_to_tile(bf16* t, const uint32_t (&fa)[2][4]) {
-  const int lane = threadIdx.x & 31, r = 16 * (threadIdx.x >> 5) + (lane >> 2);
-  const int c0 = 2 * (lane & 3);
+  __device__ __forceinline__ void operator()(float (&x)[4][4]) const {
+    if (thresh >= 256) return;
+    const float keep = thresh / 256.f;
+    const int c0 = 2 * (threadIdx.x & 3);
 #pragma unroll
-  for (int kc = 0; kc < 2; ++kc)
+    for (int n = 0; n < 4; ++n)
 #pragma unroll
-    for (int k = 0; k < 4; ++k)
-      *reinterpret_cast<uint32_t*>(t + (r + 8 * (k & 1)) * kPld + 16 * kc + 8 * (k >> 1) + c0) =
-          fa[kc][k];
+      for (int e = 0; e < 4; ++e) {
+        const int j = 8 * n + c0 + (e & 1);
+        x[n][e] = drop_by(x[n][e], word_byte(w[e >> 1][j >> 4], j & 15), thresh, keep);
+      }
+  }
+};
+
+// a head of a packed (rows, ·) buffer: the sequence's row 0, the head's column 0
+template <class E>
+__device__ __forceinline__ attn::Rows<E> head_rows(const E* base, int ld, int row0, int col0) {
+  return {base + static_cast<size_t>(row0) * ld + col0, ld};
+}
+template <class E>
+__device__ __forceinline__ attn::Out<E> head_out(E* base, int ld, int row0, int col0, int T,
+                                                 int hd) {
+  return attn::Out<E>(base + static_cast<size_t>(row0) * ld + col0, ld, T, hd);
 }
 
-size_t attn_mma_smem(int hd, bool backward) {
-  return sizeof(bf16) * (static_cast<size_t>(backward ? 4 : 3) * kAttnRows * attn_ld(hd) +
-                         (backward ? 2 * kAttnRows * kPld : 0));
+// block (sequence·H + head)·ranks + rank: the rank's share of the head's
+// columns (attn::Share, in the forward's chunks)
+template <class E>
+__global__ void __launch_bounds__(64) attn_fwd(const AttnArgs<E> p) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int rank = blockIdx.x % p.ranks, head = blockIdx.x / p.ranks;
+  const int T = p.T, hd = p.hd, s = head / p.H, hh = head - s * p.H;
+  const int r0 = s * T, c0 = hh * hd;
+  const attn::Share sh(hd, attn::fwd_cw<E>(), rank, p.ranks);
+  const AttnDrop drop(static_cast<uint32_t>(*p.seed), p.site, (s * p.H + hh) * T, p.thresh);
+  attn::forward<E, kAttnKt, kAttnFwdStages>(
+      smem, head_rows(p.q, p.ldq, r0, c0), head_rows(p.k, p.ldkv, r0, c0),
+      head_rows(p.v, p.ldkv, r0, c0), head_out(p.out, p.ldo, r0, c0, T, hd), T, sh.per,
+      sh.c_begin, sh.c_end, 1.f / sqrtf(static_cast<float>(hd)), p.causal != 0, -INFINITY,
+      p.copy, drop, attn::Split{rank, p.ranks});
 }
 
-__global__ void __launch_bounds__(64) attn_fwd_mma(const AttnArgs<bf16> p) {
-  extern __shared__ __align__(16) float sm[];
-  const int T = p.T, hd = p.hd, ld = attn_ld(hd), s = blockIdx.x / p.H, hh = blockIdx.x - s * p.H;
-  bf16* sq = reinterpret_cast<bf16*>(sm);
-  bf16* sk = sq + kAttnRows * ld;
-  bf16* sv = sk + kAttnRows * ld;
-  stage_head(sq, p.q, p.ldq, s * T, hh * hd, T, hd);
-  stage_head(sk, p.k, p.ldkv, s * T, hh * hd, T, hd);
-  asm volatile("cp.async.commit_group;\n" ::);
-  stage_head(sv, p.v, p.ldkv, s * T, hh * hd, T, hd);
-  asm volatile("cp.async.commit_group;\n" ::);
-  uint4 w[2][2];
-  attn_words(w, static_cast<uint32_t>(*p.seed), p.site, (s * p.H + hh) * T, p.thresh);
-  asm volatile("cp.async.wait_group 1;\n" ::);
-  __syncthreads();
-  const int w16 = 16 * (threadIdx.x >> 5);
-  float sc[4][4];
-  rows_by_rows(sc, sq + w16 * ld, sk, hd);
-  softmax_frags(sc, 1.f / sqrtf(static_cast<float>(hd)), T, p.causal != 0);
-  uint32_t pa[2][4];
-  dropped_frags(pa, sc, w, p.thresh);
-  asm volatile("cp.async.wait_group 0;\n" ::);
-  __syncthreads();
-  frags_by_rows(pa, sv, hd, p.out + static_cast<size_t>(s * T + w16) * p.ldo + hh * hd, p.ldo,
-                T - w16);
-}
-
-__global__ void __launch_bounds__(64) attn_bwd_mma(const AttnArgs<bf16> p) {
-  extern __shared__ __align__(16) float sm[];
-  const int T = p.T, hd = p.hd, ld = attn_ld(hd), s = blockIdx.x / p.H, hh = blockIdx.x - s * p.H;
-  bf16* sq = reinterpret_cast<bf16*>(sm);
-  bf16* sk = sq + kAttnRows * ld;
-  bf16* sv = sk + kAttnRows * ld;
-  bf16* sa = sv + kAttnRows * ld;  // dA
-  bf16* sp = sa + kAttnRows * ld;  // round(drop(P)), (32, kPld)
-  bf16* sd = sp + kAttnRows * kPld;  // dS
-  const int c0 = hh * hd;
-  stage_head(sq, p.q, p.ldq, s * T, c0, T, hd);
-  stage_head(sk, p.k, p.ldkv, s * T, c0, T, hd);
-  stage_head(sv, p.v, p.ldkv, s * T, c0, T, hd);
-  stage_head(sa, p.da, p.ldda, s * T, c0, T, hd);
-  asm volatile("cp.async.commit_group;\n" ::);
-  uint4 w[2][2];
-  attn_words(w, static_cast<uint32_t>(*p.seed), p.site, (s * p.H + hh) * T, p.thresh);
-  asm volatile("cp.async.wait_group 0;\n" ::);
-  __syncthreads();
-  const int w16 = 16 * (threadIdx.x >> 5);
-  const size_t row_w = static_cast<size_t>(s * T + w16);
+template <class E>
+__global__ void __launch_bounds__(64) attn_bwd(const AttnArgs<E> p) {
+  constexpr int CW = attn::bwd_cw<E>(), KT = kAttnKt, kTld = attn_tile_ld<E>();
+  static_assert(2 * CW == attn::fwd_cw<E>(), "two backward chunks a forward chunk");
+  using Ring = attn::Ring<E, CW, kAttnRows, 4, kAttnBwdStages>;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const Ring ring{reinterpret_cast<E*>(smem)};
+  E* sp = reinterpret_cast<E*>(smem + Ring::kBytes);  // drop(P), (32, kTld)
+  E* sd = sp + kAttnRows * kTld;  // dS
+  const int rank = blockIdx.x % p.ranks, head = blockIdx.x / p.ranks;
+  const int T = p.T, hd = p.hd, s = head / p.H, hh = head - s * p.H;
+  const int r0 = s * T, c0 = hh * hd, w16 = 16 * (threadIdx.x >> 5);
+  const attn::Share sh(hd, attn::fwd_cw<E>(), rank, p.ranks);  // the forward's share
+  E* wt = sd + kAttnRows * kTld + (w16 / 16) * attn::out_tile<E, CW>();  // this warp's staging
+  const attn::Rows<E> src[4] = {head_rows(p.q, p.ldq, r0, c0), head_rows(p.k, p.ldkv, r0, c0),
+                                head_rows(p.v, p.ldkv, r0, c0), head_rows(p.da, p.ldda, r0, c0)};
+  const attn::Out<E> out = head_out(p.out, p.ldo, r0, c0, T, hd);
+  const attn::Out<E> dq = head_out(p.dq, p.lddq, r0, c0, T, hd);
+  const attn::Out<E> dk = head_out(p.dk, p.lddkv, r0, c0, T, hd);
+  const attn::Out<E> dv = head_out(p.dv, p.lddkv, r0, c0, T, hd);
+  const AttnDrop drop(static_cast<uint32_t>(*p.seed), p.site, (s * p.H + hh) * T, p.thresh);
   const float scale = 1.f / sqrtf(static_cast<float>(hd));
-  // P again, exactly as the forward, and the attention output again
-  float pr[4][4];
-  rows_by_rows(pr, sq + w16 * ld, sk, hd);
-  softmax_frags(pr, scale, T, p.causal != 0);
-  uint32_t pa[2][4];
-  dropped_frags(pa, pr, w, p.thresh);
-  frags_to_tile(sp, pa);
-  frags_by_rows(pa, sv, hd, p.out + row_w * p.ldo + c0, p.ldo, T - w16);
-  // dP = drop(dA·Vᵀ); dS = round(P·(dP − Σ_j dP·P)·scale)
-  float dp[4][4];
-  rows_by_rows(dp, sa + w16 * ld, sv, hd);
-  drop_frags(dp, w, p.thresh);
-  float dot[2] = {0.f, 0.f};
+  const int n_c = 2 * sh.per;  // this rank's chunks, the same in every rank
+  float pr[4][4] = {}, dp[4][4] = {};  // S, then P; dP, then dS
+  float ps[4][4] = {}, pdp[4][4] = {};  // their promotion groups' sums: two chunks each
+  uint32_t pa[KT][4], da[KT][4];  // bf16: round(drop(P)), round(dS) as A fragments
+  auto load = [&](int i) {
+    const int c = sh.c_begin + (i % n_c) * CW, cols[4] = {c, c, c, c};
+    attn::load_chunk<E, CW, kAttnRows, 4>(ring.tile(i, 0), src, cols, T, sh.c_end, p.copy);
+  };
+  auto compute = [&](int i) {
+    const E *tq = ring.tile(i, 0), *tk = ring.tile(i, 1), *tv = ring.tile(i, 2),
+            *ta = ring.tile(i, 3);
+    if (i < n_c) {
+      attn::rows_by_rows<CW, KT>(ps, tq + w16 * Ring::kLd, tk);
+      attn::rows_by_rows<CW, KT>(pdp, ta + w16 * Ring::kLd, tv);
+      if (i % 2 == 1 || i == n_c - 1) {  // the forward's 128 bytes of a row
+        attn::promote(pr, ps);
+        attn::promote(dp, pdp);
+      }
+      if (i < n_c - 1) return;
+      if (p.ranks > 1) {  // the cluster's partial S and dP added in rank order
+        float* red = reinterpret_cast<float*>(ring.tile(i, 0));
+        attn::cluster_sum<KT>(pr, p.ranks, red);
+        attn::cluster_sum<KT>(dp, p.ranks, red);
+      }
+      // P again, exactly as the forward; dP = drop(dA·Vᵀ); dS = P·(dP − Σ_j dP·P)·scale
+      attn::softmax(pr, scale, T, p.causal != 0, -INFINITY);
+      float pd[4][4];
 #pragma unroll
-  for (int n = 0; n < 4; ++n)
+      for (int n = 0; n < 4; ++n)
 #pragma unroll
-    for (int e = 0; e < 4; ++e) dot[e >> 1] = fmaf(dp[n][e], pr[n][e], dot[e >> 1]);
-  dot[0] = quad_sum(dot[0]);
-  dot[1] = quad_sum(dot[1]);
-  uint32_t da[2][4];
+        for (int e = 0; e < 4; ++e) pd[n][e] = pr[n][e];
+      drop(pd);
+      drop(dp);
+      float dot[2] = {0.f, 0.f};
 #pragma unroll
-  for (int kc = 0; kc < 2; ++kc)
+      for (int n = 0; n < 4; ++n)
 #pragma unroll
-    for (int k = 0; k < 4; ++k) {
-      const int n = 2 * kc + (k >> 1), h = k & 1;
-      da[kc][k] = pack2(pr[n][2 * h] * (dp[n][2 * h] - dot[h]) * scale,
-                        pr[n][2 * h + 1] * (dp[n][2 * h + 1] - dot[h]) * scale);
+        for (int e = 0; e < 4; ++e) dot[e >> 1] = fmaf(dp[n][e], pr[n][e], dot[e >> 1]);
+      dot[0] = quad_sum(dot[0]);
+      dot[1] = quad_sum(dot[1]);
+#pragma unroll
+      for (int n = 0; n < 4; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) dp[n][e] = pr[n][e] * (dp[n][e] - dot[e >> 1]) * scale;
+      if constexpr (sizeof(E) == 2) {
+        attn::to_a_frags(pa, pd);
+        attn::to_a_frags(da, dp);
+        attn::frags_to_tile(sp, kTld, pa);
+        attn::frags_to_tile(sd, kTld, da);
+      } else {
+        attn::frags_to_tile(sp, kTld, pd);
+        attn::frags_to_tile(sd, kTld, dp);
+      }
+      return;  // the next step's barrier orders the tiles before the other warp reads them
     }
-  frags_to_tile(sd, da);
-  // dQ = dS·K for this warp's rows
-  frags_by_rows(da, sk, hd, p.dq + row_w * p.lddq + c0, p.lddq, T - w16);
-  __syncthreads();
-  // dV = Pᵀ·dA and dK = dSᵀ·Q for keys 16w ..
-  tiles_t_by_rows(sp, sa, hd, p.dv + row_w * p.lddkv + c0, p.lddkv, T - w16);
-  tiles_t_by_rows(sd, sq, hd, p.dk + row_w * p.lddkv + c0, p.lddkv, T - w16);
+    // the output again, dQ = dS·K for this warp's rows; dV = Pᵀ·dA and dK =
+    // dSᵀ·Q for keys 16w .., the rank's columns
+    const int col = sh.c_begin + (i - n_c) * CW;
+    if (col >= sh.c_end) return;
+    if constexpr (sizeof(E) == 2) {
+      attn::frags_by_chunk<CW, KT>(pa, tv, wt, out, w16, col);
+      attn::frags_by_chunk<CW, KT>(da, tk, wt, dq, w16, col);
+      attn::tile_t_by_chunk<CW, KT>(sp, kTld, ta, wt, dv, w16, col);
+      attn::tile_t_by_chunk<CW, KT>(sd, kTld, tq, wt, dk, w16, col);
+    } else {
+      attn::tile_by_chunk<false, CW, KT>(sp + w16 * kTld, kTld, tv, wt, out, w16, col);
+      attn::tile_by_chunk<false, CW, KT>(sd + w16 * kTld, kTld, tk, wt, dq, w16, col);
+      attn::tile_by_chunk<true, CW, KT>(sp + w16, kTld, ta, wt, dv, w16, col);
+      attn::tile_by_chunk<true, CW, KT>(sd + w16, kTld, tq, wt, dk, w16, col);
+    }
+  };
+  attn::pipeline<kAttnBwdStages>(2 * n_c, load, compute);
 }
 
-// what the kernels take: hd a multiple of 8 and every row 16 bytes aligned
-// (q, k, v and the outputs; backward dA, dq, dk and dv too)
-bool attn_args_ok(const AttnArgs<bf16>& a, bool backward) {
+// what the kernels take: T ≤ 32, hd ≥ 1; bf16 also hd a multiple of 8 and
+// every row 16 bytes aligned (q, k, v and the outputs; backward dA, dq, dk
+// and dv too)
+template <class E>
+bool attn_args_ok(const AttnArgs<E>& a, bool backward) {
   auto aligned = [](const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; };
-  bool ok = a.T >= 1 && a.T <= kAttnRows && a.hd >= 8 && a.hd % 8 == 0 && a.ldq % 8 == 0 &&
-            a.ldkv % 8 == 0 && a.ldo % 8 == 0 && aligned(a.q) && aligned(a.k) &&
-            aligned(a.v) && aligned(a.out);
-  if (backward)
-    ok = ok && a.ldda % 8 == 0 && a.lddq % 8 == 0 && a.lddkv % 8 == 0 && aligned(a.da) &&
-         aligned(a.dq) && aligned(a.dk) && aligned(a.dv);
+  bool ok = a.T >= 1 && a.T <= kAttnRows && a.hd >= 1;
+  if constexpr (sizeof(E) == 2) {
+    ok = ok && a.hd % 8 == 0 && a.ldq % 8 == 0 && a.ldkv % 8 == 0 && a.ldo % 8 == 0 &&
+         aligned(a.q) && aligned(a.k) && aligned(a.v) && aligned(a.out);
+    if (backward)
+      ok = ok && a.ldda % 8 == 0 && a.lddq % 8 == 0 && a.lddkv % 8 == 0 && aligned(a.da) &&
+           aligned(a.dq) && aligned(a.dk) && aligned(a.dv);
+  }
   return ok;
 }
 
-// ---------------------------------------------------------------- attention in f32
-
-// The f32 route's two attention kernels, the bf16 kernels' layout on split
-// TF32 (3xTF32): one block of two warps per (sequence, head), warp w taking
-// query rows 16w .. 16w + 15 of 32 (keys padded to 32, rows past T and
-// columns past hd zero-filled, so they add nothing), every product as
-// mma.sync m16n8k8 .tf32 on fragments split in registers (A_lo·B_hi +
-// A_hi·B_lo + A_hi·B_hi into f32 accumulators), any hd (the configs' f32
-// layers have heads of 2, 4, 8, 16 and 128; hd is zero-filled to a multiple
-// of 8, the mma's k). Fragments are read from shared memory by scalar loads:
-// Q, K, V and dA in rows whose stride is 4 mod 32 (a fragment's 32 loads hit
-// 32 banks), P and dS in rows of 36. The softmax, its mask and dS run on the
-// accumulator fragments (the bf16 kernels' functions: the m16n8 accumulator
-// layout is the same), and the forward and the backward's recompute of P and
-// of the output are one code, so both equal the forward's bit for bit.
-// Nothing is rounded.
-
-constexpr int kPld32 = 36;  // row stride of the (32, 32) f32 P and dS tiles
-
-// the row stride of an f32 head tile: at least hd padded to 8, and 4 mod 32
-__host__ __device__ __forceinline__ int attn_f32_ld(int hd) {
-  const int p = (hd + 7) & ~7;
-  return p + ((36 - p % 32) % 32);
-}
-
-// the f32 kernels' shared memory: Q, K, V (unless v_staged is false: the
-// backward past the limit reads V from device memory) and dA in head tiles,
-// P (and dS) in (32, kPld32) tiles
-size_t attn_f32_smem(int hd, bool backward, bool v_staged = true) {
-  const int tiles = (backward ? 4 : 3) - (v_staged ? 0 : 1);
-  return sizeof(float) * (static_cast<size_t>(tiles) * kAttnRows * attn_f32_ld(hd) +
-                          static_cast<size_t>(backward ? 2 : 1) * kAttnRows * kPld32);
-}
-
-// The rows of a head tile as the f32 products read them: staged in shared
-// memory (rows past T and columns past hd zero-filled there), or straight
-// from device memory with the same zeros
-struct StagedRows {
-  const float* p;
-  int ld;
-  __device__ __forceinline__ float at(int r, int c) const { return p[r * ld + c]; }
-};
-struct DeviceRows {
-  const float* p;  // the head's row 0, column 0
-  int ld, rows, cols;
-  __device__ __forceinline__ float at(int r, int c) const {
-    return r < rows && c < cols ? __ldg(p + static_cast<size_t>(r) * ld + c) : 0.f;
+// the widest cp.async copy, 16, 8 or 4 bytes, that every operand's pointer,
+// row stride and the head width allow (the head's columns start at multiples
+// of hd); bf16 rows are 16-byte aligned (attn_args_ok)
+template <class E>
+int attn_copy(const AttnArgs<E>& a, bool backward) {
+  uintptr_t ptrs = reinterpret_cast<uintptr_t>(a.q) | reinterpret_cast<uintptr_t>(a.k) |
+                   reinterpret_cast<uintptr_t>(a.v);
+  long long g = std::gcd(std::gcd(a.ldq, a.ldkv), a.hd);
+  if (backward) {
+    ptrs |= reinterpret_cast<uintptr_t>(a.da);
+    g = std::gcd(g, static_cast<long long>(a.ldda));
   }
-};
-
-// BYTES (4, 8 or 16) global → shared; zero-filled (nothing read) when !valid
-template <int BYTES>
-__device__ __forceinline__ void cp_async_n(void* dst, const void* src, bool valid) {
-  if constexpr (BYTES == 16)
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
-                 "l"(src), "r"(valid ? 16 : 0));
-  else
-    asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(smem_addr(dst)),
-                 "l"(src), "n"(BYTES), "r"(valid ? BYTES : 0));
+  g *= sizeof(E);
+  if (g % 16 == 0 && ptrs % 16 == 0) return 16;
+  return g % 8 == 0 && ptrs % 8 == 0 ? 8 : 4;
 }
 
-// chunks of V floats of the head's rows into the padded tile (see below)
-template <int V>
-__device__ __forceinline__ void stage_chunks_f32(float* dst, const float* src, int stride,
-                                                 int row0, int col0, int T, int hd) {
-  const int ld = attn_f32_ld(hd), per_row = ld / V;
-  for (int idx = threadIdx.x; idx < kAttnRows * per_row; idx += blockDim.x) {
-    const int r = idx / per_row, c = V * (idx - r * per_row);
-    const bool valid = r < T && c < hd;
-    cp_async_n<4 * V>(dst + r * ld + c,
-                      valid ? src + static_cast<size_t>(row0 + r) * stride + col0 + c : src,
-                      valid);
-  }
-}
-
-// the sequence's T rows of one head (columns col0 .. col0 + hd) into 32 rows
-// of attn_f32_ld(hd), rows past T and columns past hd zero, by cp.async in
-// chunks of 16 bytes (hd a multiple of 4), 8 (even hd) or 4: every copy in
-// flight at once; both warps, the caller commits and waits
-__device__ __forceinline__ void stage_head_f32(float* dst, const float* src, int stride, int row0,
-                                               int col0, int T, int hd) {
-  if (hd % 4 == 0 && stride % 4 == 0 && col0 % 4 == 0 &&
-      (reinterpret_cast<uintptr_t>(src) & 15) == 0)
-    stage_chunks_f32<4>(dst, src, stride, row0, col0, T, hd);
-  else if (hd % 2 == 0 && stride % 2 == 0 && col0 % 2 == 0 &&
-           (reinterpret_cast<uintptr_t>(src) & 7) == 0)
-    stage_chunks_f32<2>(dst, src, stride, row0, col0, T, hd);
-  else
-    stage_chunks_f32<1>(dst, src, stride, row0, col0, T, hd);
-}
-
-__device__ __forceinline__ void mma1688(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                        uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// An m16n8k8 A fragment split into TF32 parts: a0 (g, t), a1 (g + 8, t), a2
-// (g, t + 4), a3 (g + 8, t + 4), g = lane / 4, t = lane % 4
-struct SplitA {
-  uint32_t hi[4], lo[4];
-};
-
-// the A fragment of rows 0..15, columns k0 .. k0 + 7 of the row-major `m`
-// (or, with TRANS, of its transpose: rows are m's columns), split
-template <bool TRANS>
-__device__ __forceinline__ SplitA a_frag(const float* m, int ld, int k0) {
-  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-  SplitA a;
-#pragma unroll
-  for (int e = 0; e < 4; ++e) {
-    const int r = g + 8 * (e & 1), c = k0 + t + 4 * (e >> 1);
-    const float x = TRANS ? m[c * ld + r] : m[r * ld + c], h = sm90::tf32_round(x);
-    a.hi[e] = __float_as_uint(h);
-    a.lo[e] = __float_as_uint(sm90::tf32_round(x - h));
-  }
-  return a;
-}
-
-// d += a·b of an m16n8k8 step in split TF32, b the f32 B fragment (b0 (k t,
-// n g), b1 (k t + 4, n g))
-__device__ __forceinline__ void mma_x3(float (&d)[4], const SplitA& a, float b0, float b1) {
-  const float bh0 = sm90::tf32_round(b0), bh1 = sm90::tf32_round(b1);
-  mma1688(d, a.lo, __float_as_uint(bh0), __float_as_uint(bh1));
-  mma1688(d, a.hi, __float_as_uint(sm90::tf32_round(b0 - bh0)),
-          __float_as_uint(sm90::tf32_round(b1 - bh1)));
-  mma1688(d, a.hi, __float_as_uint(bh0), __float_as_uint(bh1));
-}
-
-// acc (16 × 32) = A (this warp's 16 rows of `a`) · B (the 32 rows of `b`)ᵀ
-// over hd: S = Q·Kᵀ and dP = dA·Vᵀ
-template <class Rows = StagedRows>
-__device__ __forceinline__ void rows_by_rows_f32(float (&acc)[4][4], const float* a,
-                                                 const Rows& b, int hd) {
-  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3, ld = attn_f32_ld(hd);
-#pragma unroll
-  for (int n = 0; n < 4; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
-  for (int k0 = 0; k0 < hd; k0 += 8) {
-    const SplitA fa = a_frag<false>(a, ld, k0);
-#pragma unroll
-    for (int n = 0; n < 4; ++n)
-      mma_x3(acc[n], fa, b.at(8 * n + g, k0 + t), b.at(8 * n + g, k0 + t + 4));
-  }
-}
-
-// out (16 × hd) = M (16 rows of the (32, kPld32) tile `m`, or with TRANS its
-// columns 16w ..) · X (the 32 rows of `x`), columns ≥ hd and rows ≥
-// rows_valid not stored: O = P·V, dQ = dS·K, dK = dSᵀ·Q, dV = Pᵀ·dA
-template <bool TRANS, class Rows = StagedRows>
-__device__ __forceinline__ void tile_by_rows_f32(const float* m, const Rows& x, int hd,
-                                                 float* out, int ldo, int rows_valid) {
-  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-  SplitA fa[kAttnRows / 8];  // M's four k steps, split once for every column tile
-#pragma unroll
-  for (int k = 0; k < kAttnRows / 8; ++k) fa[k] = a_frag<TRANS>(m, kPld32, 8 * k);
-  // two column tiles a step, each its own chain of products
-  for (int n0 = 0; n0 < hd; n0 += 16) {
-    float acc[2][4] = {};
-#pragma unroll
-    for (int k = 0; k < kAttnRows / 8; ++k) {
-      const int r = 8 * k + t, c = n0 + g;
-      mma_x3(acc[0], fa[k], x.at(r, c), x.at(r + 4, c));
-      if (n0 + 8 < hd) mma_x3(acc[1], fa[k], x.at(r, c + 8), x.at(r + 4, c + 8));
-    }
-#pragma unroll
-    for (int j = 0; j < 2; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int r = g + 8 * (e >> 1), c = n0 + 8 * j + 2 * t + (e & 1);
-        if (r < rows_valid && c < hd) out[static_cast<size_t>(r) * ldo + c] = acc[j][e];
-      }
-  }
-}
-
-// this warp's 16 × 32 fragments into rows 16w .. of the (32, kPld32) tile `t`
-__device__ __forceinline__ void frags_to_tile_f32(float* tile, const float (&x)[4][4]) {
-  const int lane = threadIdx.x & 31, r = 16 * (threadIdx.x >> 5) + (lane >> 2);
-  const int c0 = 2 * (lane & 3);
-#pragma unroll
-  for (int n = 0; n < 4; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) tile[(r + 8 * (e >> 1)) * kPld32 + 8 * n + c0 + (e & 1)] = x[n][e];
-}
-
-__global__ void __launch_bounds__(64) attn_fwd_f32(const AttnArgs<float> p) {
-  extern __shared__ __align__(16) float sm[];
-  const int T = p.T, hd = p.hd, ld = attn_f32_ld(hd), s = blockIdx.x / p.H,
-            hh = blockIdx.x - s * p.H;
-  float *sq = sm, *sk = sq + kAttnRows * ld, *sv = sk + kAttnRows * ld;
-  float* sp = sv + kAttnRows * ld;  // drop(P), (32, kPld32)
-  stage_head_f32(sq, p.q, p.ldq, s * T, hh * hd, T, hd);
-  stage_head_f32(sk, p.k, p.ldkv, s * T, hh * hd, T, hd);
-  stage_head_f32(sv, p.v, p.ldkv, s * T, hh * hd, T, hd);
-  asm volatile("cp.async.commit_group;\n" ::);
-  uint4 w[2][2];
-  attn_words(w, static_cast<uint32_t>(*p.seed), p.site, (s * p.H + hh) * T, p.thresh);
-  asm volatile("cp.async.wait_group 0;\n" ::);
-  __syncthreads();
-  const int w16 = 16 * (threadIdx.x >> 5);
-  float sc[4][4];
-  rows_by_rows_f32(sc, sq + w16 * ld, StagedRows{sk, ld}, hd);
-  softmax_frags(sc, 1.f / sqrtf(static_cast<float>(hd)), T, p.causal != 0);
-  drop_frags(sc, w, p.thresh);
-  frags_to_tile_f32(sp, sc);
-  __syncwarp();
-  tile_by_rows_f32<false>(sp + w16 * kPld32, StagedRows{sv, ld}, hd,
-                          p.out + static_cast<size_t>(s * T + w16) * p.ldo + hh * hd, p.ldo,
-                          T - w16);
-}
-
-// V_STAGED false (a head too wide for four staged tiles): V is read from
-// device memory (DeviceRows) by the two products that take it
-template <bool V_STAGED>
-__global__ void __launch_bounds__(64) attn_bwd_f32(const AttnArgs<float> p) {
-  extern __shared__ __align__(16) float sm[];
-  const int T = p.T, hd = p.hd, ld = attn_f32_ld(hd), s = blockIdx.x / p.H,
-            hh = blockIdx.x - s * p.H;
-  float *sq = sm, *sk = sq + kAttnRows * ld, *sv = sk + kAttnRows * ld;
-  float* sa = V_STAGED ? sv + kAttnRows * ld : sv;  // dA
-  float* sp = sa + kAttnRows * ld;  // drop(P), (32, kPld32)
-  float* sd = sp + kAttnRows * kPld32;  // dS
-  const int c0 = hh * hd;
-  using VRows = std::conditional_t<V_STAGED, StagedRows, DeviceRows>;
-  VRows vr;
-  if constexpr (V_STAGED)
-    vr = StagedRows{sv, ld};
-  else
-    vr = DeviceRows{p.v + static_cast<size_t>(s * T) * p.ldkv + c0, p.ldkv, T, hd};
-  stage_head_f32(sq, p.q, p.ldq, s * T, c0, T, hd);
-  stage_head_f32(sk, p.k, p.ldkv, s * T, c0, T, hd);
-  if constexpr (V_STAGED) stage_head_f32(sv, p.v, p.ldkv, s * T, c0, T, hd);
-  stage_head_f32(sa, p.da, p.ldda, s * T, c0, T, hd);
-  asm volatile("cp.async.commit_group;\n" ::);
-  uint4 w[2][2];
-  attn_words(w, static_cast<uint32_t>(*p.seed), p.site, (s * p.H + hh) * T, p.thresh);
-  asm volatile("cp.async.wait_group 0;\n" ::);
-  __syncthreads();
-  const int w16 = 16 * (threadIdx.x >> 5);
-  const size_t row_w = static_cast<size_t>(s * T + w16);
-  const float scale = 1.f / sqrtf(static_cast<float>(hd));
-  // P again, exactly as the forward, and the attention output again
-  float pr[4][4];
-  rows_by_rows_f32(pr, sq + w16 * ld, StagedRows{sk, ld}, hd);
-  softmax_frags(pr, scale, T, p.causal != 0);
-  float pd[4][4];
-#pragma unroll
-  for (int n = 0; n < 4; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) pd[n][e] = pr[n][e];
-  drop_frags(pd, w, p.thresh);
-  frags_to_tile_f32(sp, pd);
-  __syncwarp();
-  tile_by_rows_f32<false>(sp + w16 * kPld32, vr, hd, p.out + row_w * p.ldo + c0, p.ldo, T - w16);
-  // dP = drop(dA·Vᵀ); dS = P·(dP − Σ_j dP·P)·scale
-  float dp[4][4];
-  rows_by_rows_f32(dp, sa + w16 * ld, vr, hd);
-  drop_frags(dp, w, p.thresh);
-  float dot[2] = {0.f, 0.f};
-#pragma unroll
-  for (int n = 0; n < 4; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dot[e >> 1] = fmaf(dp[n][e], pr[n][e], dot[e >> 1]);
-  dot[0] = quad_sum(dot[0]);
-  dot[1] = quad_sum(dot[1]);
-#pragma unroll
-  for (int n = 0; n < 4; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dp[n][e] = pr[n][e] * (dp[n][e] - dot[e >> 1]) * scale;
-  frags_to_tile_f32(sd, dp);
-  __syncwarp();
-  // dQ = dS·K for this warp's rows
-  tile_by_rows_f32<false>(sd + w16 * kPld32, StagedRows{sk, ld}, hd,
-                          p.dq + row_w * p.lddq + c0, p.lddq, T - w16);
-  __syncthreads();
-  // dV = Pᵀ·dA and dK = dSᵀ·Q for keys 16w ..
-  tile_by_rows_f32<true>(sp + w16, StagedRows{sa, ld}, hd, p.dv + row_w * p.lddkv + c0,
-                         p.lddkv, T - w16);
-  tile_by_rows_f32<true>(sd + w16, StagedRows{sq, ld}, hd, p.dk + row_w * p.lddkv + c0,
-                         p.lddkv, T - w16);
-}
-
+// a block of two warps a (sequence, head), in clusters splitting a head's
+// columns where the heads are fewer than two an SM (attn::ranks_for: the
+// forward and the backward of a call split alike)
 template <class E, typename Kernel>
-int launch_attn(Kernel kernel, const AttnArgs<E>& a, int nseq, bool backward, size_t smem,
+int launch_attn(Kernel kernel, AttnArgs<E> a, int nseq, bool backward, size_t smem,
                 cudaStream_t stream) {
-  constexpr bool kF32 = sizeof(E) == 4;
-  bool ok;
-  if constexpr (kF32)
-    ok = a.T >= 1 && a.T <= kAttnRows && a.hd >= 1;
-  else
-    ok = attn_args_ok(a, backward);
-  if (!ok || smem > kMaxSmem) return static_cast<int>(cudaErrorInvalidValue);
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  kernel<<<nseq * a.H, 64, smem, stream>>>(a);
-  return static_cast<int>(cudaGetLastError());
+  if (!attn_args_ok(a, backward) || smem > 48 * 1024)
+    return static_cast<int>(cudaErrorInvalidValue);
+  a.copy = attn_copy(a, backward);
+  const long long heads = static_cast<long long>(nseq) * a.H;
+  a.ranks = attn::ranks_for(heads, (a.hd + attn::fwd_cw<E>() - 1) / attn::fwd_cw<E>());
+  return static_cast<int>(attn::launch_clustered(kernel, heads, a.ranks, 64, smem, stream, a));
 }
 
 template <class E>
@@ -1104,7 +743,8 @@ AttnArgs<E> attn_args(void* q, void* k, void* v, void* da, void* dq, void* dk, v
 extern "C" {
 
 // Products: A (rows × k) and W in the activations' type (bf16, or f32 when
-// `f32`: split TF32 on the tensor cores), W in nn.Linear's (out, in) layout;
+// `f32`: split TF32 on the tensor cores; over k past kPromoteK its sums
+// promoted a stage at a time, by_promote), W in nn.Linear's (out, in) layout;
 // n output columns; config a tile shape of gemm_sm90.cuh's run() (0 or 1 here).
 
 // out = round(A·Wᵀ + bias)
@@ -1112,10 +752,13 @@ int tgi_sm90_bias(void* a, void* w, void* bias, void* out, int rows, int n, int 
                   int f32, void* stream) {
   return by_type(f32, [&](auto type) {
     using T = typename decltype(type)::type;
-    const Operand A{a, rows}, B{w, n};
-    const EpiOut<T> epi{{}, as<T>(out), as<const float>(bias), rows, n};
-    return run<0b011, false, false, 2, T>(config, &A, &B, 1, k, k, 1, 0, epi,
-                                          static_cast<cudaStream_t>(stream));
+    return by_promote<T>(k, [&](auto promote) {
+      const Operand A{a, rows}, B{w, n};
+      const EpiOut<T, decltype(promote)::value> epi{{}, as<T>(out), as<const float>(bias), rows,
+                                                    n};
+      return run<0b011, false, false, 2, T>(config, &A, &B, 1, k, k, 1, 0, epi,
+                                            static_cast<cudaStream_t>(stream));
+    });
   });
 }
 
@@ -1124,11 +767,13 @@ int tgi_sm90_hidden(void* a, void* w, void* bias, void* seed, void* h, int rows,
                     int thresh, int site, int config, int f32, void* stream) {
   return by_type(f32, [&](auto type) {
     using T = typename decltype(type)::type;
-    const Operand A{a, rows}, B{w, n};
-    const EpiHidden<T> epi{{}, as<T>(h), as<const float>(bias), as<const int>(seed), rows, n,
-                           thresh, site};
-    return run<0b011, false, false, 2, T>(config, &A, &B, 1, k, k, 1, 0, epi,
-                                          static_cast<cudaStream_t>(stream));
+    return by_promote<T>(k, [&](auto promote) {
+      const Operand A{a, rows}, B{w, n};
+      const EpiHidden<T, decltype(promote)::value> epi{
+          {}, as<T>(h), as<const float>(bias), as<const int>(seed), rows, n, thresh, site};
+      return run<0b011, false, false, 2, T>(config, &A, &B, 1, k, k, 1, 0, epi,
+                                            static_cast<cudaStream_t>(stream));
+    });
   });
 }
 
@@ -1153,10 +798,12 @@ int tgi_sm90_dh(void* df, void* w, void* h, void* dh, int rows, int n, int k, in
                 int config, int f32, void* stream) {
   return by_type(f32, [&](auto type) {
     using T = typename decltype(type)::type;
-    const Operand A{df, rows}, B{w, n};
-    const EpiDh<T> epi{{}, as<T>(dh), as<const T>(h), rows, n, thresh};
-    return run<0b011, false, true, 2, T>(config, &A, &B, 1, k, k, 1, 0, epi,
-                                         static_cast<cudaStream_t>(stream));
+    return by_promote<T>(k, [&](auto promote) {
+      const Operand A{df, rows}, B{w, n};
+      const EpiDh<T, decltype(promote)::value> epi{{}, as<T>(dh), as<const T>(h), rows, n, thresh};
+      return run<0b011, false, true, 2, T>(config, &A, &B, 1, k, k, 1, 0, epi,
+                                           static_cast<cudaStream_t>(stream));
+    });
   });
 }
 
@@ -1177,25 +824,18 @@ int tgi_sm90_ln_bwd(void* a, void* w, void* resid, void* g, void* a_ln, void* st
   });
 }
 
-// out = round(A·W + resid); W (k × n); resid f32 (rows × n) or null. In f32
-// a k past kPromoteK promotes each stage's sums (gemm_sm90.cuh's kPromote):
-// dx over 3d and dmem over 2d in the wide route drift past 1e-5 of their
-// largest value unpromoted (1.05e-5 to 1.7e-5 at d 512 and 1,024 on an H100)
+// out = round(A·W + resid); W (k × n); resid f32 (rows × n) or null
 int tgi_sm90_round(void* a, void* w, void* resid, void* out, int rows, int n, int k, int config,
                    int f32, void* stream) {
   return by_type(f32, [&](auto type) {
     using T = typename decltype(type)::type;
-    const Operand A{a, rows}, B{w, n};
-    if constexpr (sizeof(T) == 4) {
-      if (k > kPromoteK) {
-        const EpiRound<T, true> epi{{}, as<T>(out), as<const float>(resid), rows, n};
-        return run<0b011, false, true, 2, T>(config, &A, &B, 1, k, k, 1, 0, epi,
-                                             static_cast<cudaStream_t>(stream));
-      }
-    }
-    const EpiRound<T> epi{{}, as<T>(out), as<const float>(resid), rows, n};
-    return run<0b011, false, true, 2, T>(config, &A, &B, 1, k, k, 1, 0, epi,
-                                         static_cast<cudaStream_t>(stream));
+    return by_promote<T>(k, [&](auto promote) {
+      const Operand A{a, rows}, B{w, n};
+      const EpiRound<T, decltype(promote)::value> epi{{}, as<T>(out), as<const float>(resid),
+                                                      rows, n};
+      return run<0b011, false, true, 2, T>(config, &A, &B, 1, k, k, 1, 0, epi,
+                                           static_cast<cudaStream_t>(stream));
+    });
   });
 }
 
@@ -1225,8 +865,9 @@ int tgi_sm90_ln_rows(void* const* ptr, int n_ln, int rows, int d, int thresh, in
     a.thresh = thresh;
     a.site = site;
     return by_chunks(d, [&](auto chunks) {
-      ln_rows<T, decltype(chunks)::value><<<(rows + kRowsPerBlock - 1) / kRowsPerBlock, kThreads,
-                                            0, static_cast<cudaStream_t>(stream)>>>(a);
+      using S = decltype(chunks);
+      ln_rows<T, S::kC, S::kG><<<(rows + S::kRows - 1) / S::kRows, kThreads, 0,
+                                 static_cast<cudaStream_t>(stream)>>>(a);
       return static_cast<int>(cudaGetLastError());
     });
   });
@@ -1237,15 +878,13 @@ int tgi_sm90_attn_fwd(void* q, void* k, void* v, void* out, void* seed, int ldq,
                       int ldo, int nseq, int T, int H, int hd, int thresh, int site, int causal,
                       int f32, void* stream) {
   const auto st = static_cast<cudaStream_t>(stream);
-  if (f32)
-    return launch_attn(attn_fwd_f32,
-                       attn_args<float>(q, k, v, nullptr, nullptr, nullptr, nullptr, out, seed,
-                                        ldq, ldkv, 0, 0, 0, ldo, T, H, hd, thresh, site, causal),
-                       nseq, false, attn_f32_smem(hd, false), st);
-  return launch_attn(attn_fwd_mma,
-                     attn_args<bf16>(q, k, v, nullptr, nullptr, nullptr, nullptr, out, seed, ldq,
+  return by_type(f32, [&](auto type) {
+    using T_ = typename decltype(type)::type;
+    return launch_attn(attn_fwd<T_>,
+                       attn_args<T_>(q, k, v, nullptr, nullptr, nullptr, nullptr, out, seed, ldq,
                                      ldkv, 0, 0, 0, ldo, T, H, hd, thresh, site, causal),
-                     nseq, false, attn_mma_smem(hd, false), st);
+                       nseq, false, attn_fwd_smem(f32 != 0), st);
+  });
 }
 
 // dq, dk, dv from da = d(attention output), and out = the attention output again
@@ -1254,17 +893,13 @@ int tgi_sm90_attn_bwd(void* q, void* k, void* v, void* da, void* dq, void* dk, v
                       int ldo, int nseq, int T, int H, int hd, int thresh, int site, int causal,
                       int f32, void* stream) {
   const auto st = static_cast<cudaStream_t>(stream);
-  if (f32) {
-    const auto a = attn_args<float>(q, k, v, da, dq, dk, dv, out, seed, ldq, ldkv, ldda, lddq,
-                                    lddkv, ldo, T, H, hd, thresh, site, causal);
-    if (attn_f32_smem(hd, true) <= kMaxSmem)
-      return launch_attn(attn_bwd_f32<true>, a, nseq, true, attn_f32_smem(hd, true), st);
-    return launch_attn(attn_bwd_f32<false>, a, nseq, true, attn_f32_smem(hd, true, false), st);
-  }
-  return launch_attn(attn_bwd_mma,
-                     attn_args<bf16>(q, k, v, da, dq, dk, dv, out, seed, ldq, ldkv, ldda, lddq,
+  return by_type(f32, [&](auto type) {
+    using T_ = typename decltype(type)::type;
+    return launch_attn(attn_bwd<T_>,
+                       attn_args<T_>(q, k, v, da, dq, dk, dv, out, seed, ldq, ldkv, ldda, lddq,
                                      lddkv, ldo, T, H, hd, thresh, site, causal),
-                     nseq, true, attn_mma_smem(hd, true), st);
+                       nseq, true, attn_bwd_smem<T_>(), st);
+  });
 }
 
 // ptr: per problem dY (rows × m), X (rows × n); per segment x, z, stats.

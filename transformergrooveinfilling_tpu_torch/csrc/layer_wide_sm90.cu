@@ -1,7 +1,7 @@
 // The wide route of the whole-layer chains (layer_sm90.cu) on Hopper
 // (sm_90a), in bf16 or f32: the launches that take a layer past d 256, the
 // width up to which a 64 × 256 tile spans a row and the LayerNorm runs in a
-// product's epilogue (layer_sm90.cu's sm90_res_ln, sm90_ln_bwd), up to d 1,024.
+// product's epilogue (layer_sm90.cu's sm90_res_ln, sm90_ln_bwd), up to d 8,192.
 //
 // Part of the replacement of the Pallas TPU kernels transformergrooveinfilling_tpu/
 // ops/fused_layer.py::encoder_layer_train and ops/fused_decoder_layer.py::
@@ -80,12 +80,12 @@ struct EpiResSum : NoExtra {
 
 // The wide route's row pass of res_ln: y = round(LN(s)·g + beta), the
 // statistics from the f32 s (rows × d) that sm90_res_sum wrote.
-template <class T, int C>
+template <class T, int C, int G>
 __global__ void __launch_bounds__(kThreads)
     ln_y_rows(const float* __restrict__ s, const float* __restrict__ g,
               const float* __restrict__ beta, T* __restrict__ y, int rows, int d) {
   int c0[C];
-  const int r = row_lanes(rows, c0);
+  const int r = row_lanes<C, G>(rows, c0);
   if (r < 0) return;
   const size_t base = static_cast<size_t>(r) * d;
   float a[C][8];
@@ -96,7 +96,7 @@ __global__ void __launch_bounds__(kThreads)
     if (c0[c] < d) load8(s + base + c0[c], a[c]);
   }
   float mu, rstd;
-  row_stats(a, d, mu, rstd);
+  row_stats<C, G>(a, d, mu, rstd);
 #pragma unroll
   for (int c = 0; c < C; ++c) {
     if (c0[c] >= d) continue;
@@ -112,14 +112,14 @@ __global__ void __launch_bounds__(kThreads)
 // sm90_grad_sum) and the LayerNorm's stored input a_ln with its row
 // statistics at stats[r·stats_ld], the backward da (f32) and dp =
 // round(drop(da)) at `site`.
-template <class T, int C>
+template <class T, int C, int G>
 __global__ void __launch_bounds__(kThreads)
     ln_grad_rows(const float* __restrict__ v, const float* __restrict__ g,
                  const T* __restrict__ a_ln, const float* __restrict__ stats, int stats_ld,
                  const int* __restrict__ seed, float* __restrict__ da, T* __restrict__ dp,
                  int rows, int d, int thresh, int site) {
   int c0[C];
-  const int r = row_lanes(rows, c0);
+  const int r = row_lanes<C, G>(rows, c0);
   if (r < 0) return;
   const size_t base = static_cast<size_t>(r) * d;
   const float mu = stats[static_cast<size_t>(r) * stats_ld];
@@ -135,7 +135,7 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
     for (int i = 0; i < 8; ++i) dz[c][i] *= g[c0[c] + i];
   }
-  row_backward(dz, df, a, c0, d, mu, rstd, static_cast<uint32_t>(*seed), site, r, thresh);
+  row_backward<C, G>(dz, df, a, c0, d, mu, rstd, static_cast<uint32_t>(*seed), site, r, thresh);
 #pragma unroll
   for (int c = 0; c < C; ++c) {
     if (c0[c] >= d) continue;
@@ -148,7 +148,7 @@ __global__ void __launch_bounds__(kThreads)
 
 extern "C" {
 
-// The two products reduce over d or ff, up to 1,024 here. In f32 each stage's
+// The two products reduce over d or ff (ff ≤ 1,024 in f32). In f32 each stage's
 // sums are promoted (gemm_sm90.cuh's kPromote; a bf16 launch ignores it):
 // unpromoted, the tensor cores' truncating accumulation took a sum over 1,024
 // terms to 1.05e-5 of its largest value on an H100, past the chains' 1e-5.
@@ -176,8 +176,9 @@ int tgi_sm90_ln_y(void* s, void* g, void* beta, void* y, int rows, int d, int f3
   return by_type(f32, [&](auto type) {
     using T = typename decltype(type)::type;
     return by_chunks(d, [&](auto chunks) {
-      ln_y_rows<T, decltype(chunks)::value>
-          <<<(rows + kRowsPerBlock - 1) / kRowsPerBlock, kThreads, 0,
+      using S = decltype(chunks);
+      ln_y_rows<T, S::kC, S::kG>
+          <<<(rows + S::kRows - 1) / S::kRows, kThreads, 0,
              static_cast<cudaStream_t>(stream)>>>(as<const float>(s), as<const float>(g),
                                                  as<const float>(beta), as<T>(y), rows, d);
       return static_cast<int>(cudaGetLastError());
@@ -205,8 +206,9 @@ int tgi_sm90_ln_grad(void* v, void* g, void* a_ln, void* stats, void* seed, void
   return by_type(f32, [&](auto type) {
     using T = typename decltype(type)::type;
     return by_chunks(d, [&](auto chunks) {
-      ln_grad_rows<T, decltype(chunks)::value>
-          <<<(rows + kRowsPerBlock - 1) / kRowsPerBlock, kThreads, 0,
+      using S = decltype(chunks);
+      ln_grad_rows<T, S::kC, S::kG>
+          <<<(rows + S::kRows - 1) / S::kRows, kThreads, 0,
              static_cast<cudaStream_t>(stream)>>>(
               as<const float>(v), as<const float>(g), as<const T>(a_ln), as<const float>(stats),
               stats_ld, as<const int>(seed), as<float>(da), as<T>(dp), rows, d, thresh, site);

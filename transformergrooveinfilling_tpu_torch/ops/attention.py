@@ -16,21 +16,23 @@ one (batch·head) is two 32×32×128 products around a 32×32 softmax — about
 0.5 MFLOP against 48 KB of Q/K/V read and 16 KB written in f32 — below the
 card's balance point, so the floor is memory: 20 µs at batch 512 in f32,
 10 µs in bf16; at batch 1 one block's latency. The kernel launches one block
-per (batch·head, 16 query rows), so batch 1 × 2 heads is 4 blocks. bf16 with
-hd % 16 == 0 and 16-byte aligned rows runs both products on the tensor cores
-(``mma.sync`` m16n8k16, f32 accumulators, P rounded to bf16 as
-:func:`mha_reference` rounds it); f32, and bf16 at other head widths or
-alignments, run register-tiled f32 FMAs on the CUDA cores (no TF32). Both
-keep a whole head in shared memory and walk hd in chunks, so heads up to
-``MAX_HEAD_DIM`` (512, the width of a d 512 model with one head) take no
-more registers than narrow ones; a shape whose block needs more shared
-memory than an SM gives one block (``kernel_smem_bytes`` above
-``MAX_SMEM_BYTES``: f32 at T 64 past hd 392) raises ``ValueError``. On an
-NVIDIA H100 80GB HBM3 at 700 W (``chip_smoke.py`` phase 3, PERF.md §6) a
-call takes 7.6 µs of device time at batch 1 in f32, 57.9 µs at batch 512 in
-f32 and 17.3 µs in bf16, against SDPA's 10.4, 88.0 and 26.5 µs on the same
-views; the first version (one block per batch·head, two shared-memory loads
-an FMA) took 19.3, 94.9 and 85.3 µs.
+per (batch·head), a warp for every 16 query rows, and keeps the scores in
+registers while the head's columns stream through a ring of shared memory
+(``csrc/attn_stream_sm90.cuh``), each warp's output staged there and stored
+16 bytes a lane, so a block's shared memory (:func:`kernel_smem_bytes`: 41 KB
+in bf16, 45 KB in f32 at T 32) does not grow with hd and hd has no limit but
+int32 indexing. Where the (batch, head)s are fewer than two an SM (B 1
+serving), a head's columns are split over a thread-block cluster of up to 8
+blocks that add their partial scores in rank order. Every product runs on
+the tensor cores: bf16 as ``mma.sync`` m16n8k16, f32 in split TF32 (three
+TF32 products of each operand's high part and remainder, within ~2⁻²² of
+each f32 term), P rounded to V's dtype as :func:`mha_reference` rounds it.
+Rows arrive by ``cp.async`` in copies of 16, 8 or 4 bytes, the widest that
+the strides, hd and pointers allow (:func:`copy_bytes`), or bf16 rows that
+allow none by element loads. Its times on an NVIDIA H100 are in PERF.md §6
+(``chip_smoke.py`` phase 3), beside those of the two designs before it (the
+whole head in shared memory: at hd 512 one block an SM in f32, one warp a
+block in bf16, 2.2× slower than SDPA).
 
 On a CPU tensor the wrapper runs ``mha_reference`` (into the same output
 layout); on a CUDA tensor it launches the kernel or raises — it never gives
@@ -72,11 +74,12 @@ import torch
 
 from . import _build
 
+# The longest sequence: a block holds a (batch·head)'s T query rows, a warp
+# for every 16, and each warp its 16 × T scores in registers (four warps and
+# 16 × 64 scores at most); every path's sequences are the grid's 32 steps
 MAX_T = 64
-MAX_HEAD_DIM = 512
-ROWS_PER_BLOCK = 16  # query rows of one block
-# shared memory one block may take on Hopper (227 KB), opt-in above 48 KB
-MAX_SMEM_BYTES = 232448
+STAGES = 4  # the ring of shared-memory stages: three chunks of a head in flight
+STAGE_ROW_BYTES = 128  # a stage's columns of each row
 KERNEL_DTYPES = (torch.float32, torch.bfloat16)
 
 
@@ -98,15 +101,19 @@ def mha_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return torch.matmul(p.float(), v.float()).to(q.dtype)
 
 
-def kernel_smem_bytes(t: int, hd: int, tensor_cores: bool = False) -> int:
-    """Dynamic shared memory of one block. Tensor-core path: Q (16 rows), K
-    and V (T rounded up to 16) in bf16, rows padded by 8 values. CUDA-core
-    path: Q (16 rows), K (T), V (T rounded up to 4) in f32, rows of hd rounded
-    up to 8 plus 4, and the (16, T rounded up to 4) scores."""
-    if tensor_cores:
-        return 2 * (ROWS_PER_BLOCK + 2 * (-(-t // 16) * 16)) * (hd + 8)
-    ld, tp = -(-hd // 8) * 8 + 4, -(-t // 4) * 4
-    return 4 * ((ROWS_PER_BLOCK + t + tp) * ld + ROWS_PER_BLOCK * tp)
+def kernel_smem_bytes(t: int, dtype=torch.float32) -> int:
+    """Dynamic shared memory of one block, whatever hd is: the ring of
+    ``STAGES`` stages, each the 128 bytes of two tiles of T rows rounded up
+    to 16 (Q and K, then two chunks of V), bf16 rows padded by 8 values and
+    f32 rows by 4; a warp's 16-row output staging tile of the same rows for
+    every 16 rows of T; in f32 also the (T, T + 4) probabilities, T rounded
+    up to 16. (The partial scores a cluster adds are staged in a spent
+    stage.)"""
+    size = dtype.itemsize
+    rows = -(-t // 16) * 16
+    cols = STAGE_ROW_BYTES // size + (8 if size == 2 else 4)
+    ring = (STAGES * 2 + 1) * rows * cols * size
+    return ring if size == 2 else ring + 4 * rows * (rows + 4)
 
 
 def check_kernel_args(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
@@ -122,10 +129,9 @@ def check_kernel_args(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None
             f"fused_mha kernel takes q, k, v of one (B, H, T, hd) shape; got "
             f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
     b, h, t, hd = q.shape
-    if b * h == 0 or b * h >= 2 ** 31 or not (1 <= t <= MAX_T) \
-            or not (1 <= hd <= MAX_HEAD_DIM):
+    if b * h == 0 or b * h >= 2 ** 31 or not (1 <= t <= MAX_T) or not (1 <= hd < 2 ** 31):
         raise ValueError(
-            f"fused_mha kernel takes B·H ≥ 1 (below 2**31), T ≤ {MAX_T}, hd ≤ {MAX_HEAD_DIM}; "
+            f"fused_mha kernel takes B·H ≥ 1 and hd ≥ 1 (below 2**31), T ≤ {MAX_T}; "
             f"got shape {tuple(q.shape)}")
     if any(x.stride(-1) != 1 for x in (q, k, v)):
         raise ValueError(
@@ -133,31 +139,23 @@ def check_kernel_args(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None
             f"{q.stride()}, {k.stride()}, {v.stride()}")
 
 
-def _layout(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
-    """The kernel's layout arguments: the nine (batch, head, token) strides,
-    whether it takes its tensor-core path (bf16, hd a multiple of 16, every
-    stride a multiple of 8 and every base pointer 16-byte aligned: the slices
-    of a packed projection are, when hd is a multiple of 8), and whether its
-    f32 path reads rows as float4s (hd and strides multiples of 4, aligned)."""
-    strides = (*q.stride()[:3], *k.stride()[:3], *v.stride()[:3])
-    aligned = (q.data_ptr() | k.data_ptr() | v.data_ptr()) % 16 == 0
-    g, hd = math.gcd(*strides), q.shape[-1]
-    tensor_cores = q.dtype == torch.bfloat16 and hd % 16 == 0 and aligned and g % 8 == 0
-    vec4 = q.dtype == torch.float32 and hd % 4 == 0 and aligned and g % 4 == 0
-    return strides, tensor_cores, vec4
-
-
-def uses_tensor_cores(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> bool:
-    """Whether the kernel takes its tensor-core path for these inputs (any
-    other layout or dtype takes its CUDA-core path)."""
-    return _layout(q, k, v)[1]
+def copy_bytes(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> int:
+    """The bytes of each ``cp.async`` copy of the kernel's rows: 16, 8 or 4,
+    the widest that every (batch, head, token) stride, hd and base pointer
+    of q, k and v are multiples of (the slices of a packed projection take
+    16 when hd is a multiple of 8 in bf16, of 4 in f32); 2 for bf16 rows that
+    allow none, read element by element."""
+    size = q.element_size()
+    g = math.gcd(*q.stride()[:3], *k.stride()[:3], *v.stride()[:3], q.shape[-1]) * size
+    ptrs = q.data_ptr() | k.data_ptr() | v.data_ptr()
+    return next((c for c in (16, 8, 4) if g % c == 0 and ptrs % c == 0), size)
 
 
 @functools.cache
 def _library():
     lib = _build.load_library("fused_mha")
     lib.tgi_fused_mha.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_longlong] * 9 + [
-        ctypes.c_int] * 8 + [ctypes.c_float, ctypes.c_void_p]
+        ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_void_p]
     lib.tgi_fused_mha.restype = ctypes.c_int
     lib.tgi_cuda_error_string.argtypes = [ctypes.c_int]
     lib.tgi_cuda_error_string.restype = ctypes.c_char_p
@@ -190,16 +188,11 @@ def fused_mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             f"{q.device}, {k.device}, {v.device}")
     check_kernel_args(q, k, v)
     b, h, t, hd = q.shape
-    strides, tensor_cores, vec4 = _layout(q, k, v)
-    if kernel_smem_bytes(t, hd, tensor_cores) > MAX_SMEM_BYTES:
-        raise ValueError(
-            f"fused_mha kernel: a block of shape {tuple(q.shape)} needs "
-            f"{kernel_smem_bytes(t, hd, tensor_cores)} bytes of shared memory, above "
-            f"{MAX_SMEM_BYTES}")
     out = _output(q)
     KERNEL.launch((q, k, v, out),
-                  (*strides, b, h, t, hd, int(causal), int(q.dtype == torch.bfloat16),
-                   int(tensor_cores), int(vec4), 1.0 / math.sqrt(hd)), q.device)
+                  (*q.stride()[:3], *k.stride()[:3], *v.stride()[:3], b, h, t, hd, int(causal),
+                   int(q.dtype == torch.bfloat16), copy_bytes(q, k, v), 1.0 / math.sqrt(hd)),
+                  q.device)
     return out
 
 

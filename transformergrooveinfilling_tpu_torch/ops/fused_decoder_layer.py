@@ -144,7 +144,7 @@ def supports_fused_decoder_layer(d_model: int, n_heads: int, dim_feedforward: in
                                  seq_len: int, dtype=torch.float32) -> bool:
     """Whether the chain of ``csrc/layer_sm90.cu`` takes this decoder layer
     in ``dtype``: the encoder layer's gate (``supports_fused_layer``: d a
-    multiple of 8 up to 1,024, heads of at most 512, ff a multiple of 8, T ≤
+    multiple of 8 up to 8,192, heads of any width, ff a multiple of 8, T ≤
     32, in bf16 heads a multiple of 8 wide, in f32 ff ≤ ``F32_MAX_FF``,
     measured on this chain too); the cross-attention's blocks are
     the self-attention's. In f32 it admits every width of ``configs/*.yaml``
@@ -152,8 +152,8 @@ def supports_fused_decoder_layer(d_model: int, n_heads: int, dim_feedforward: in
     4 but not of 8), which the f32 CUDA-core kernels before it took by shared
     memory alone. It admits every width of the JAX decoder's gate (the
     encoder's, ``transformergrooveinfilling_tpu/ops/fused_decoder_layer.py``)
-    up to d 1,024 but one head of 1,024. The TPU gate's 128-lane widths, ≤ 5
-    heads and ff ≤ 1024 do not apply.
+    up to d 8,192. The TPU gate's 128-lane widths, ≤ 5 heads and ff ≤ 1024 do
+    not apply.
     """
     return supports_fused_layer(d_model, n_heads, dim_feedforward, seq_len, dtype)
 

@@ -82,6 +82,18 @@ KINK_SHARE = 1e-5
 # rounded to the neighbouring bf16 value upstream, where the tensor cores sum
 # in another order than the twin (the hidden product alone holds KINK_SHARE)
 WIDE_KINK_SHARE = 3e-4
+# ... and past d 1,024, where more rounded values of a row reach W1's input
+# and each pre-activation sums more of them: an H100 read 4.4e-4 of the units
+# (29 of 65,536) at the bf16 decoder at d 2,048 (2 heads, ff 1,024, B 2, rate
+# 0.30), each flip within KINK_BAND (8.7e-4 of max|h|)
+WIDEST_KINK_SHARE = 1e-3
+
+
+def wide_kink_share(d: int) -> float:
+    """The share of a whole bf16 layer's hidden units of width ``d`` (the
+    wide route) that may flip against its twin: ``WIDE_KINK_SHARE`` up to d
+    1,024, ``WIDEST_KINK_SHARE`` past it."""
+    return WIDEST_KINK_SHARE if d > 1024 else WIDE_KINK_SHARE
 
 _M0, _M1 = 0xD2511F53, 0xCD9E8D57
 _W0, _W1 = 0x9E3779B9, 0xBB67AE85
@@ -247,33 +259,30 @@ def kink_flips(twin_h: torch.Tensor, kernel_h: torch.Tensor, share: float = KINK
 F32_MAX_FF = 1024
 
 
-# the widest head the chain's attention takes: a (sequence, head) in one
-# block's shared memory (at hd 512: 138 KB in bf16, 207 KB in f32, V read from
-# device memory in the f32 backward)
-MAX_HEAD_DIM = 512
-
-
 def supports_fused_layer(d_model: int, n_heads: int, dim_feedforward: int,
                          seq_len: int, dtype=torch.float32) -> bool:
     """Whether the chain of ``csrc/layer_sm90.cu`` takes this layer in
     ``dtype``.
 
-    Both dtypes: d a multiple of 8 up to 1,024 (``layer_sm90.MAX_D``: the
-    LayerNorm epilogues' tile spans a row up to 256, the wide route's row
-    passes take four chunks of 256 columns; TMA's 16-byte row strides; the
-    row passes read 8 columns a lane), ff a multiple of 8 (the column sums
-    read 8 at a time), d divisible by the heads into heads of at most
-    ``MAX_HEAD_DIM`` (512), and T ≤ 32 (the attention keeps a (sequence, head)
-    in one block of at most 32 rows). bf16 also needs heads of a width hd
-    that is a multiple of 8 (its attention loads 16-byte rows by cp.async and
-    zero-fills hd to the mma's k of 16); the f32 attention stages rows in
-    chunks as narrow as one value and zero-fills hd to the TF32 mma's k of 8,
-    so it takes any hd. Rows and the head count are otherwise free: the
-    products' ragged edges are TMA's zero fill. This admits every (d, heads,
-    ff) of the JAX gate (``transformergrooveinfilling_tpu/ops/fused_layer.py::
+    Both dtypes: d a multiple of 8 up to 8,192 (``layer_sm90.MAX_D``: the
+    LayerNorm epilogues' tile spans a row up to 256; past it the wide route's
+    row passes hold a row in a warp up to 1,024 and in a block of 256 threads
+    up to 8,192, 32 values of it a thread; TMA's 16-byte row strides; the row
+    passes read 8 columns a lane), ff a multiple of 8 (the column sums read 8
+    at a time), d divisible by the heads, and T ≤ 32 (the attention's block
+    holds a (sequence, head) of at most 32 rows). Heads of any width: the
+    attention streams a head's columns through shared memory
+    (``csrc/attn_stream_sm90.cuh``), so its blocks do not grow with hd. bf16
+    also needs heads of a width hd that is a multiple of 8 (its attention
+    loads 16-byte rows by cp.async and zero-fills hd to the mma's k of 16);
+    the f32 attention copies rows in chunks as narrow as one value and
+    zero-fills hd to the TF32 mma's k of 8, so it takes any hd. Rows and the
+    head count are otherwise free: the products' ragged edges are TMA's zero
+    fill. This admits every (d, heads, ff) of the JAX gate
+    (``transformergrooveinfilling_tpu/ops/fused_layer.py::
     supports_fused_layer``: d and ff multiples of 128, ≤ 5 heads of a width
-    that is a multiple of 128 or 64 in pairs, ff ≤ 1,024) up to d 1,024 but
-    d 1,024 with one head (hd 1,024, whose block does not fit).
+    that is a multiple of 128 or 64 in pairs, ff ≤ 1,024) up to d 8,192; past
+    it (ROADMAP) the layer takes the unfused path.
 
     f32 also needs ff ≤ ``F32_MAX_FF`` (1,024: the widest measured ff whose
     unpromoted sums hold the chain's 1e-5 bar on the card). In f32 this
@@ -290,8 +299,7 @@ def supports_fused_layer(d_model: int, n_heads: int, dim_feedforward: int,
     """
     if dtype not in KERNEL_DTYPES or n_heads < 1 or d_model % n_heads or not 1 <= seq_len <= MAX_T:
         return False
-    hd = d_model // n_heads
-    if hd > MAX_HEAD_DIM or (dtype == torch.bfloat16 and hd % 8):
+    if dtype == torch.bfloat16 and (d_model // n_heads) % 8:
         return False
     if dtype == torch.float32 and dim_feedforward > F32_MAX_FF:
         return False

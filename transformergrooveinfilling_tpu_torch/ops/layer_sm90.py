@@ -9,18 +9,21 @@ chain for both). Every dense product runs on the ``wgmma`` core of
 products as they are, f32 products in split TF32 (3xTF32: each operand split
 into a TF32 high part and a TF32 remainder, three tensor-core products
 summed in f32, :func:`split_tf32_matmul`). The attention runs one block per
-(sequence, head); the weight gradients of a layer are one grouped launch
+(sequence, head), the head's columns streamed through shared memory
+(``csrc/attn_stream_sm90.cuh``, kernel #1's design), so it takes any head
+width; the weight gradients of a layer are one grouped launch
 whose row splits a reduce adds in a fixed order (no float atomics: two runs
 with one seed agree bit for bit). See the source's note for what bounds each
 launch.
 
 Two routes, by the model width d. Up to ``LN_TILE`` (256) the LayerNorm
 runs in the epilogue of the product before it (one 64 × 256 tile spans a
-row). Past it, up to ``MAX_D`` (1,024), each such launch is two (the wide
+row). Past it, up to ``MAX_D`` (8,192), each such launch is two (the wide
 route, :data:`WIDE`): the product with a plain epilogue that also writes the
 f32 row, then a row pass that normalises it (:func:`residual_ln_product`,
-:func:`ln_backward_product`); the backward's row pass (:func:`ln_rows`) walks
-a row in chunks of 256 columns. :func:`is_wide` is the one place that
+:func:`ln_backward_product`); the row passes (and the backward's,
+:func:`ln_rows`) hold a row in a warp, in chunks of 256 columns, up to d
+1,024, and in a block of 256 threads, in chunks of 2,048, past it. :func:`is_wide` is the one place that
 decides the route; :func:`routes` gives a chain's counted kernels in both
 routes and both dtypes, :func:`route` picks among them.
 
@@ -55,7 +58,10 @@ from .dropout import quantized_threshold
 
 LN_EPS = 1e-5
 LN_TILE = 256  # the LayerNorm epilogues' tile: one tile spans a row, d ≤ 256
-MAX_D = 1024  # the row passes: four chunks of 256 columns a warp, d ≤ 1,024
+# the row passes' widest row: four chunks of 2,048 columns over a block's 256
+# threads, each thread holding 32 values of a row in each of up to three
+# register arrays (a warp a row, four chunks of 256, up to d 1,024)
+MAX_D = 8192
 MAX_T = 32  # the attention's block: two warps of 16 query rows, 32 padded keys
 WGRAD_TILE = 128  # the weight gradients' (m, n) tile
 K_STAGE = 64  # rows a stage of the weight gradients; a split is whole stages
@@ -628,7 +634,8 @@ def ln_rows(kernel, lns, dy, seed, site: int, rate: float):
     each one's (mean, rstd); ``ys[k]`` = round(LN(a)·g + b) where ``want_y``,
     else None; ``da`` (f32) is the last one's input gradient from ``dy`` and
     ``df`` = round(drop(da)) at ``site``. A warp takes a row, in chunks of
-    256 columns up to ``MAX_D``."""
+    256 columns, up to d 1,024, a block of 256 threads past it, in chunks of
+    2,048 up to ``MAX_D``."""
     if _on_cpu(*[t for a, g, b, _ in lns for t in (a, g, b)], dy, seed):
         return ln_rows_reference(lns, dy, seed, site, rate)
     _check([a for a, *_ in lns] + [dy], [t for _, g, b, _ in lns for t in (g, b)

@@ -161,9 +161,9 @@ LAYER_KERNEL_MAX_BATCH = {torch.bfloat16: 512, torch.float32: 512}
 # gained +44 % against a 47 % spread in that first run, so f32 auto stops at
 # 256.
 LAYER_KERNEL_MAX_D = {torch.bfloat16: 512, torch.float32: 256}
-# ... and past d 256 only at the measured head width and ff: one head of 512
-# runs the chain's attention one block an SM, 8 or 16 heads and ff 2,048 were
-# not measured
+# ... and past d 256 only at the measured head width and ff: no turns were
+# paired at other heads (one head of 512 or 1,024, 8 or 16 heads) or at ff
+# 2,048, so auto leaves them unfused and a forced switch trains them
 LAYER_KERNEL_WIDE_HEAD_DIM = 128
 LAYER_KERNEL_WIDE_MAX_FF = 1024
 
