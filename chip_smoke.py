@@ -10,7 +10,8 @@ then non-zero):
 1. device   the card (``nvidia-smi`` name and power limit), torch and CUDA
             versions; TF32 is switched off for matmuls and cuDNN.
 2. build    ``csrc/fused_mha.cu``, ``csrc/layer_sm90.cu``,
-            ``csrc/layer_wide_sm90.cu``, ``csrc/band_energies.cu``,
+            ``csrc/layer_wide_sm90.cu``, ``csrc/layer_attn_sm90.cu``,
+            ``csrc/band_energies.cu``,
             ``csrc/device_synth.cu``, ``csrc/fused_ffn.cu`` and
             ``csrc/fused_ln.cu`` compiled from this checkout with nvcc,
             one process each, in parallel;
@@ -18,8 +19,9 @@ then non-zero):
             entry, and the FFN and LN kernels' dynamic shared memory.
 3. kernel   ``fused_mha`` against ``mha_reference`` on the card, at the
             serving shapes (B 1/8/32/512 × flagship H 2 hd 128 and demo H 4
-            hd 8, T 32, causal off/on; f32 at atol 1e-5, bf16 at atol and
-            rtol 2e-2), contiguous and, at B 1 and 512, as the slices of a
+            hd 8, T 32, causal off/on; f32 at atol 1e-5, bf16 at rtol 2e-2
+            and atol 2e-2 · min(1, max|ref|), ``mha_tolerance``),
+            contiguous and, at B 1 and 512, as the slices of a
             packed qkv and of q with a packed kv (no copies), one launch a
             call and the (B, T, H, hd) output layout; then timed, stream and
             device, beside its bound and
@@ -31,6 +33,15 @@ then non-zero):
             d 1,024 model), B 1 and 512, contiguous and packed qkv, both
             dtypes, causal off/on, and timed at hd 512 and 1,024 (B 1 and
             512, packed qkv, both dtypes) beside SDPA on the same views.
+            Past T 64 (the long route: its flash form at hd ≤ 128, the
+            scores in shared memory past it) checked at ``LONG_MHA_CASES``
+            (T 65 to the ceiling 2,048, each bucket of query rows a block),
+            a call past the ceiling refused naming it, and timed at T 128,
+            256 and 1,024 (B 1 and 512, H 2, hd 128, packed qkv, both
+            dtypes; the kernel's and SDPA's device times each from a CUDA
+            graph of their calls; f32's bound at the split-TF32 rate its
+            products run at) and at the eval
+            forward's 3,300 rows at T 128.
 4. serve    ``InfillServer`` at the flagship width (configs/
             InfillingRandom_training.yaml: d 256, 2 heads, ff 512, 6 layers,
             16 in, 27 out; seeded random weights) on the card: the kernel's
@@ -76,7 +87,10 @@ then non-zero):
             launch held to its plain version (bf16 2e-2, f32 1e-5 · max,
             ``kink_flips``); at d 1,024 every launch timed with the layer's
             bound and ``nn.TransformerEncoderLayer``, at d 2,048 the
-            attention's and the row passes' launches.
+            attention's and the row passes' launches, their plain versions
+            and ``nn.TransformerEncoderLayer`` on the stream. The same at the
+            flagship width in 8- and 16-bar loops (``LONG_SHAPES``: T 128,
+            every launch timed; T 256, the attention's and the row passes').
 9. train    ``initialize_model`` + ``train_loop`` with the flagship YAML's
             hyperparameters (written here: the card's machine has no pyyaml;
             a CPU test holds them to the file) on seeded synthetic loops:
@@ -100,8 +114,13 @@ then non-zero):
             vmapped ranking forward of 4 trials; d 512 / 4 heads / ff 1,024,
             the chain against ``fused_layer=False`` in 3 pairs of turns, each
             dtype at batch 32 and 512 (the numbers behind
-            ``LAYER_KERNEL_MAX_D``); the trained weights served by
-            ``InfillServer``.
+            ``LAYER_KERNEL_MAX_D``); 8-bar loops (``long_training``): the
+            flagship at ``max_len`` 128, the chain given, 4 bf16 and 2 f32
+            steps with held-out losses through #1, its f32 weights served at
+            T 128 (B 1 and 32, MSO input and ``hvo_input``), and the chain
+            against ``fused_layer=False`` in 3 pairs of turns at batch 32 in
+            each dtype (the numbers behind ``LAYER_KERNEL_LONG_T``); the
+            trained weights served by ``InfillServer``.
 10. front-end kernels  ``device_synth`` against its plain version bit for
             bit, and ``band_energies_from_audio`` (framing inside the kernel)
             against its plain version on kit renders (bar 1e-4 · max|ref|: an
@@ -139,8 +158,9 @@ then non-zero):
             reruns bit-identical; forward and backward timed against the
             twin; in each dtype every launch held to its plain version and
             timed, the layer's own bound and ``nn.TransformerDecoderLayer``,
-            the f32 chain's drift over ff, and the wide route (26 launches),
-            as phase 8.
+            the f32 chain's drift over ff, the wide route (26 launches) and
+            the 8- and 16-bar loops (causal self-attention and
+            cross-attention over T 128 and 256), as phase 8.
 15. train encoder-decoder  the 6 + 6 layer model at the flagship width
             (scripts/bench_encdec.py's) through ``initialize_model`` +
             ``train_loop(encoder_only=0)``: every step launches each encoder
@@ -153,7 +173,9 @@ then non-zero):
             seqs/s of both f32 chains and both switches off in 3 pairs of
             turns at batch 32 and 512; the wide route as phase 9 (the d 1,024
             / 1 head model at 2 + 2 layers, cut from 6 + 6; the turns at 2 +
-            2, both switches against both off).
+            2, both switches against both off), and the 8-bar loops as phase
+            9 (6 + 6 at ``max_len`` 128, 18 #1 launches a served chunk; the
+            turns on 128 loops, 4 steps a turn).
 16. serve encoder-decoder  ``InfillServer`` over the same config: 18
             ``fused_mha`` launches per forward chunk (6 encoder, 6 causal
             decoder self-, 6 decoder cross-attentions), answers within 1e-4
@@ -452,6 +474,7 @@ KERNEL_SOURCE = "transformergrooveinfilling_tpu_torch/csrc/fused_mha.cu"
 TPU_KERNEL = "transformergrooveinfilling_tpu/ops/attention.py:25"
 LAYER_SM90_SOURCE = "transformergrooveinfilling_tpu_torch/csrc/layer_sm90.cu"
 LAYER_WIDE_SOURCE = f"transformergrooveinfilling_tpu_torch/csrc/{layer_sm90.WIDE_SOURCE}.cu"
+LAYER_ATTN_SOURCE = f"transformergrooveinfilling_tpu_torch/csrc/{layer_sm90.ATTN_SOURCE}.cu"
 # the Pallas kernel bodies a layer chain's forward and backward launches stand in for
 LAYER_TPU_KERNELS = {"fwd": "transformergrooveinfilling_tpu/ops/fused_layer.py:164",
                      "bwd": "transformergrooveinfilling_tpu/ops/fused_layer.py:236"}
@@ -497,8 +520,8 @@ FFN_DEVICE_NAMES = {
 LN_SOURCE = "transformergrooveinfilling_tpu_torch/csrc/fused_ln.cu"
 LN_TPU_KERNELS = {"fused_ln_fwd": "transformergrooveinfilling_tpu/ops/fused_ln.py:54",
                   "fused_ln_bwd": "transformergrooveinfilling_tpu/ops/fused_ln.py:68"}
-KERNEL_NAMES = ["fused_mha", "layer_sm90", layer_sm90.WIDE_SOURCE, "band_energies",
-                "device_synth", "fused_ffn", "fused_ln"]
+KERNEL_NAMES = ["fused_mha", "layer_sm90", layer_sm90.WIDE_SOURCE, layer_sm90.ATTN_SOURCE,
+                "band_energies", "device_synth", "fused_ffn", "fused_ln"]
 # the wrappers, and the counts of launches of their kernels
 BAND, BAND_AUDIO, SYNTH = be.band_energies, be.band_energies_from_audio, ds.synth_events
 MHA, BAND_K, SYNTH_K = attention.KERNEL, be.KERNEL, ds.KERNEL
@@ -527,9 +550,10 @@ def max_err(a, b) -> float:
     return float((torch.as_tensor(a).float() - torch.as_tensor(b).float()).abs().max())
 
 
-def time_us(fn, n: int = 200) -> float:
-    """Mean µs per call on the stream, by CUDA events over ``n`` calls."""
-    for _ in range(10):
+def time_us(fn, n: int = 200, warm: int = 10) -> float:
+    """Mean µs per call on the stream, by CUDA events over ``n`` calls after
+    ``warm`` calls."""
+    for _ in range(warm):
         fn()
     torch.cuda.synchronize()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -628,8 +652,11 @@ def bound(n_bytes: float, flops: float, dtype: str) -> dict:
 
 
 def mha_bound(b, h, t, hd, dtype) -> dict:
+    """#1's bound: q, k, v read and o written once, QKᵀ and PV over every
+    (query, key) pair; f32 at the split-TF32 rate its products run at, with
+    the CUDA cores' rate beside it (``op_bounds``)."""
     size = 4 if dtype == "float32" else 2
-    return bound(4 * b * h * t * hd * size, 4 * b * h * t * t * hd, dtype)
+    return op_bounds(4 * b * h * t * hd * size, 4 * b * h * t * t * hd, dtype)
 
 
 def attn_pairs(rows: int, t: int, causal: bool) -> int:
@@ -838,7 +865,7 @@ def launch_device_us(record, n: int) -> list:
 
 
 def sm90_launches(record, kernels: dict, plain: bool, n: int, dtype=torch.bfloat16,
-                  kinds=None) -> dict:
+                  kinds=None, warm: int = 10) -> dict:
     """Every launch of one layer call's chain in ``dtype``, as recorded on the
     card: its outputs held to its plain version on the same inputs
     (``SM90_BAR[dtype]`` · max|ref| each), its device time per launch
@@ -871,13 +898,14 @@ def sm90_launches(record, kernels: dict, plain: bool, n: int, dtype=torch.bfloat
         rows[name].update(device_ms=u / 1000.0, device_launches_per_call=c)
         if plain:
             rows[name]["plain_ms"] = time_us(
-                lambda: launch.reference(*launch.args, **launch.kwargs), 5) / 1000.0
+                lambda: launch.reference(*launch.args, **launch.kwargs), 5, warm) / 1000.0
             lib = launch_library(launch)
-            rows[name]["library_ms"] = time_us(lib, 50) / 1000.0 if lib else None
+            rows[name]["library_ms"] = time_us(lib, 50, warm) / 1000.0 if lib else None
     return rows
 
 
-def library_layer(args, dy, b: int, decoder: bool, shape: dict = LAYER_SHAPE) -> dict:
+def library_layer(args, dy, b: int, decoder: bool, shape: dict = LAYER_SHAPE,
+                  device: bool = True) -> dict:
     """``nn.TransformerEncoderLayer`` / ``nn.TransformerDecoderLayer`` (post-LN,
     ReLU, batch_first, dropout 0.30, training mode, in the dtype of
     ``args``: bf16 and f32 both) with the layer's
@@ -885,7 +913,8 @@ def library_layer(args, dy, b: int, decoder: bool, shape: dict = LAYER_SHAPE) ->
     port never calls it; it is the yardstick one PyTorch call gives. In f32
     its products are cuBLAS SGEMMs: TF32 is off for matmuls and cuDNN
     (``phase_device`` sets both, and ``tf32`` in the result reads them).
-    ``shape``: another layer's d, h, ff and t."""
+    ``shape``: another layer's d, h, ff and t; without ``device``, stream
+    times only (no profiler)."""
     h_, t = shape["h"], shape["t"]
     d, ff = shape["d"], shape["ff"]
     dev, dtype = args[0].device, args[0].dtype
@@ -937,8 +966,10 @@ def library_layer(args, dy, b: int, decoder: bool, shape: dict = LAYER_SHAPE) ->
     n = 20 if b == 32 else 5
     f1, b1_, b2_, f2 = (time_us(fn, n) / 1000.0 for fn in (fwd, bwd, bwd, fwd))
     return {"fwd_ms": [f1, f2], "bwd_ms": [b1_, b2_],
-            "fwd_device_ms": sum(us for us, _ in device_us(fwd, n=3).values()) / 1000.0,
-            "bwd_device_ms": sum(us for us, _ in device_us(bwd, n=3).values()) / 1000.0,
+            "fwd_device_ms": (sum(us for us, _ in device_us(fwd, n=3).values()) / 1000.0
+                              if device else None),
+            "bwd_device_ms": (sum(us for us, _ in device_us(bwd, n=3).values()) / 1000.0
+                              if device else None),
             "tf32": {"matmul": torch.backends.cuda.matmul.allow_tf32,
                      "cudnn": torch.backends.cudnn.allow_tf32}}
 
@@ -1056,8 +1087,12 @@ def kernel_resources(name: str) -> dict:
 def mha_inputs(dev, rng, b: int, h: int, hd: int, dtype, form: str, t: int = 32):
     """q, k, v of shape (b, h, t, hd) as the model passes them: contiguous, the
     slices of a packed qkv (b, t, 3, h, hd), or q (b, t, h, hd) with the
-    slices of a packed kv (b, t, 2, h, hd)."""
+    slices of a packed kv (b, t, 2, h, hd). ``rng`` a numpy generator, or a
+    torch generator on the card (the long route's large inputs, drawn
+    there)."""
     def n(*shape):
+        if isinstance(rng, torch.Generator):
+            return torch.randn(shape, generator=rng, device=dev).to(dtype)
         return torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(dev, dtype)
 
     if form == "contiguous":
@@ -1080,19 +1115,87 @@ EVAL_ROWS = {"train": 3300, "validation": 1099}
 MHA_BARS = {torch.float32: (1e-5, 0.0), torch.bfloat16: (2e-2, 2e-2)}
 
 
-def phase_kernel(dev, rng) -> dict:
-    """``fused_mha`` against ``mha_reference`` (on contiguous copies) at the
-    serving shapes, contiguous and as the slices of packed projections; then
-    device times beside the bound and SDPA on the same views."""
-    worst = {torch.float32: 0.0, torch.bfloat16: 0.0}
-    cases = [(b, h, hd, "contiguous") for h, hd in ((2, 128), (4, 8)) for b in (1, 8, 32, 512)]
-    cases += [(b, 2, 128, form) for b in (1, 512) for form in MHA_FORMS[1:]]
-    cases += [(b, 2, 128, form) for b in EVAL_ROWS.values() for form in MHA_FORMS[:2]]
-    cases += [(b, 1, hd, form) for hd in MHA_WIDE_HDS for b in (1, 512) for form in MHA_FORMS[:2]]
+def mha_tolerance(dtype, want) -> tuple:
+    """(atol, rtol) for #1 against its plain version: f32 1e-5; bf16 2e-2
+    and 2e-2 · |ref|, with the atol scaled by max|ref| where that is below 1
+    (long sequences average more values, so their outputs shrink: about
+    √(e/T), 0.05 at T 1,024, where a bare 2e-2 would be half a typical
+    value)."""
+    atol, rtol = MHA_BARS[dtype]
+    if dtype == torch.bfloat16:
+        atol *= min(1.0, float(want.float().abs().max()))
+    return atol, rtol
+# #1 past T 64 (loops past 4 bars at sixteenths: the long route, its flash form
+# at heads up to 128), (b, h, hd, form, T): each of the long route's buckets of
+# query rows a block (64 up to T 256, 32 up to 512, 16 past it), the flash form
+# at the flagship's heads from T 65 to the ceiling, odd heads and lengths
+LONG_MHA_CASES = ((4, 2, 128, "packed_qkv", 65), (4, 2, 128, "contiguous", 128),
+                  (2, 2, 128, "packed_kv", 256), (1, 2, 128, "packed_qkv", 1024),
+                  (1, 2, 128, "contiguous", attention.MAX_T), (2, 1, 256, "packed_qkv", 128),
+                  (1, 1, 512, "contiguous", 400), (1, 1, 384, "contiguous", 1100),
+                  (3, 2, 72, "contiguous", 300), (2, 4, 8, "contiguous", 96))
+# ... timed at 8, 16 and 64 bars (B 1 and 512, H 2, hd 128, packed qkv), and
+# the eval forward at 8 bars (the train evaluator's rows)
+LONG_MHA_TS = (128, 256, 1024)
+LONG_T = 128  # phases 9 and 15's path: 8-bar loops
+
+
+def mha_timing(dev, rng, b: int, dtype, h: int, hd: int, form: str, t: int = 32,
+               n: int = 20, long: bool = False) -> dict:
+    """``fused_mha`` at (b, h, t, hd) in ``dtype`` and ``form``: stream time
+    in turns with its plain version and SDPA on the same views (``n`` calls
+    each), the profiler's device times, and the bound. ``long`` (the long
+    route's lengths, where a call takes up to 26 ms): 2 warm-up calls a
+    timing, not 10, and no profiler: the kernel's and SDPA's device times
+    each from a CUDA graph of their calls, so the two compare alike."""
+    q, k, v = mha_inputs(dev, rng, b, h, hd, dtype, form, t)
+    kern = lambda: fused_mha(q, k, v)  # noqa: E731
+    plain = lambda: mha_reference(q, k, v)  # noqa: E731
+    # the library call that computes the same function; timed, never used
+    sdpa = lambda: F.scaled_dot_product_attention(q, k, v)  # noqa: E731
+    check(torch.allclose(sdpa().float(), kern().float(),
+                         atol=2e-2 if dtype == torch.bfloat16 else 1e-5),
+          "scaled_dot_product_attention disagrees with fused_mha")
+    warm = 2 if long else 10
+    k1, p1, l1, l2, p2, k2 = (time_us(f, n, warm)
+                              for f in (kern, plain, sdpa, sdpa, plain, kern))
+    before = MHA.launches
+    if long:  # replayed from a CUDA graph: the device's time without the host's launches
+        dk, dp, dl = {}, {}, {}
+        kernel_device = graph_ms(kern, n=n, reps=2) * 1e3
+        sdpa_device = graph_ms(sdpa, n=n, reps=2) * 1e3
+    else:
+        dk, dp, dl = device_us(kern, n=n), device_us(plain, n=n), device_us(sdpa, n=n)
+        # per captured launch (the profiler may lose events)
+        kernel_device = max(sum(us / c for us, c in dk.values()), 1e-9)
+        sdpa_device = sum(us for us, _ in dl.values()) if dl else None
+    launches_profiled = MHA.launches - before
+    dtype_name = str(dtype).replace("torch.", "")
+    bnd = mha_bound(b, h, t, hd, dtype_name)
+    return {
+        "shape": [b, h, t, hd], "dtype": dtype_name, "form": form,
+        "copy_bytes": attention.copy_bytes(q, k, v),
+        "smem_bytes": attention.kernel_smem_bytes(t, dtype, hd),
+        "kernel_us": [k1, k2], "plain_us": [p1, p2], "sdpa_us": [l1, l2],
+        "sdpa_device_us": sdpa_device, "device_time_from": "cuda_graph" if long else "profiler",
+        **bnd, "kernel_device_us": kernel_device,
+        "kernel_device_launches_per_call": sum(c for _, c in dk.values()) if dk else None,
+        "wrapper_launches_in_profiled_calls": launches_profiled,
+        "bound_share_of_device_time": bnd["bound_ms"] * 1e3 / kernel_device,
+        "plain_device_us": sum(us for us, _ in dp.values()) if dp else None,
+        "plain_kernels_us": {k: us for k, (us, _) in dp.items()}}
+
+
+def mha_checked(dev, rng, cases, worst: dict) -> int:
+    """``fused_mha`` against ``mha_reference`` (on contiguous copies) at each
+    (b, h, hd, form[, t]) of ``cases``, both dtypes, causal and not, one
+    launch each; the largest error a dtype into ``worst``. Returns the
+    checks made."""
     checks = 0
-    for b, h, hd, form in cases:
-        for dtype, (atol, rtol) in MHA_BARS.items():
-            q, k, v = mha_inputs(dev, rng, b, h, hd, dtype, form)
+    for b, h, hd, form, *rest in cases:
+        t = rest[0] if rest else 32
+        for dtype in MHA_BARS:
+            q, k, v = mha_inputs(dev, rng, b, h, hd, dtype, form, t)
             for causal in (False, True):
                 before = MHA.launches
                 got = fused_mha(q, k, v, causal=causal)
@@ -1101,12 +1204,28 @@ def phase_kernel(dev, rng) -> dict:
                                      causal=causal)
                 err = max_err(got, want)
                 worst[dtype] = max(worst[dtype], err)
+                atol, rtol = mha_tolerance(dtype, want)
                 ok = torch.allclose(got.float(), want.float(), atol=atol, rtol=rtol)
                 check(ok and got.dtype == dtype and got.shape == q.shape
                       and got.transpose(1, 2).is_contiguous() and MHA.launches == before + 1,
-                      f"fused_mha != mha_reference at {(b, h, 32, hd)} {dtype} {form} "
+                      f"fused_mha != mha_reference at {(b, h, t, hd)} {dtype} {form} "
                       f"causal={causal}: max abs err {err}")
                 checks += 1
+    return checks
+
+
+def phase_kernel(dev, rng) -> dict:
+    """``fused_mha`` against ``mha_reference`` (on contiguous copies) at the
+    serving shapes, contiguous and as the slices of packed projections; then
+    device times beside the bound and SDPA on the same views. Past T 64 (the
+    long route) the same at ``LONG_MHA_CASES`` and ``LONG_MHA_TS``, and a
+    call past the ceiling refused with a ``ValueError`` that names it."""
+    worst = {torch.float32: 0.0, torch.bfloat16: 0.0}
+    cases = [(b, h, hd, "contiguous") for h, hd in ((2, 128), (4, 8)) for b in (1, 8, 32, 512)]
+    cases += [(b, 2, 128, form) for b in (1, 512) for form in MHA_FORMS[1:]]
+    cases += [(b, 2, 128, form) for b in EVAL_ROWS.values() for form in MHA_FORMS[:2]]
+    cases += [(b, 1, hd, form) for hd in MHA_WIDE_HDS for b in (1, 512) for form in MHA_FORMS[:2]]
+    checks = mha_checked(dev, rng, cases, worst)
     timings = []
     eval_b = EVAL_ROWS["train"]
     timed = [(b, dtype, 2, 128, form)
@@ -1118,38 +1237,35 @@ def phase_kernel(dev, rng) -> dict:
     timed += [(b, dtype, 1, hd, "packed_qkv") for hd in MHA_TIMED_HDS for dtype in MHA_BARS
               for b in (1, 512)]
     for b, dtype, h, hd, form in timed:
-        q, k, v = mha_inputs(dev, rng, b, h, hd, dtype, form)
-        kern = lambda: fused_mha(q, k, v)  # noqa: E731
-        plain = lambda: mha_reference(q, k, v)  # noqa: E731
-        # the library call that computes the same function; timed, never used
-        sdpa = lambda: F.scaled_dot_product_attention(q, k, v)  # noqa: E731
-        check(torch.allclose(sdpa().float(), kern().float(),
-                             atol=2e-2 if dtype == torch.bfloat16 else 1e-5),
-              "scaled_dot_product_attention disagrees with fused_mha")
-        k1, p1, l1, l2, p2, k2 = (time_us(f, 20) for f in (kern, plain, sdpa, sdpa, plain, kern))
-        before = MHA.launches
-        dk, dp, dl = device_us(kern, n=20), device_us(plain, n=20), device_us(sdpa, n=20)
-        launches_profiled = MHA.launches - before
-        dtype_name = str(dtype).replace("torch.", "")
-        bnd = mha_bound(b, h, 32, hd, dtype_name)
-        # per captured launch (the profiler may lose events)
-        kernel_device = max(sum(us / c for us, c in dk.values()), 1e-9)
-        timings.append({
-            "shape": [b, h, 32, hd], "dtype": dtype_name, "form": form,
-            "copy_bytes": attention.copy_bytes(q, k, v),
-            "kernel_us": [k1, k2], "plain_us": [p1, p2], "sdpa_us": [l1, l2],
-            "sdpa_device_us": sum(us for us, _ in dl.values()),
-            **bnd, "kernel_device_us": kernel_device,
-            "kernel_device_launches_per_call": sum(c for _, c in dk.values()),
-            "wrapper_launches_in_profiled_calls": launches_profiled,
-            "bound_share_of_device_time": bnd["bound_ms"] * 1e3 / kernel_device,
-            "plain_device_us": sum(us for us, _ in dp.values()),
-            "plain_kernels_us": {k: us for k, (us, _) in dp.items()}})
+        timings.append(mha_timing(dev, rng, b, dtype, h, hd, form))
+    # past T 64: the long route's buckets checked, the ceiling refused, and
+    # 8, 16 and 64 bars timed (the long buckets timed with 5 calls a turn)
+    long_worst = {torch.float32: 0.0, torch.bfloat16: 0.0}
+    long_checks = mha_checked(dev, rng, LONG_MHA_CASES, long_worst)
+    past = torch.zeros(1, 1, attention.MAX_T + 1, 16, device=dev)
+    try:
+        fused_mha(past, past, past)
+        refused = ""
+    except ValueError as e:
+        refused = str(e)
+    check(f"T ≤ {attention.MAX_T}" in refused,
+          f"fused_mha past its ceiling T {attention.MAX_T}: {refused or 'no ValueError'}")
+    card_rng = torch.Generator(dev).manual_seed(23)
+    long_timings = [mha_timing(dev, card_rng, b, dtype, 2, 128, "packed_qkv", t, n=3, long=True)
+                    for t in LONG_MHA_TS for dtype in MHA_BARS for b in (1, 512)]
+    long_timings.append(mha_timing(dev, card_rng, eval_b, torch.bfloat16, 2, 128, "packed_qkv",
+                                   LONG_T, n=3, long=True))
     emit({"phase": "kernel", "checks": checks,
           "max_abs_err": {"float32": worst[torch.float32], "bfloat16": worst[torch.bfloat16]},
-          "bars": {"float32": {"atol": 1e-5}, "bfloat16": {"atol": 2e-2, "rtol": 2e-2}},
+          "bars": {"float32": {"atol": 1e-5},
+                   "bfloat16": {"atol": "2e-2 * min(1, max|ref|)", "rtol": 2e-2}},
           "timings": timings})
-    return {"max_abs_err": worst[torch.float32], "timings": timings}
+    emit({"phase": "kernel_long_t", "checks": long_checks, "cases": LONG_MHA_CASES,
+          "max_abs_err": {str(k)[6:]: v for k, v in long_worst.items()},
+          "refused_past_the_ceiling": refused, "timings": long_timings})
+    return {"max_abs_err": max(worst[torch.float32], long_worst[torch.float32]),
+            "timings": timings, "long_timings": long_timings,
+            "long_max_abs_err": {str(k)[6:]: v for k, v in long_worst.items()}}
 
 
 def phase_serve(dev, rng, sd):
@@ -1335,10 +1451,11 @@ def phase_latency(dev, srv, plain) -> dict:
     return {"in_process": runs["kernel"][0], "http": http}
 
 
-def layer_case(dev, rng, b: int, dtype, ff: int = LAYER_SHAPE["ff"], d: int = LAYER_SHAPE["d"]):
-    """Flagship-shaped layer inputs from ``rng`` (ff and d as given): (args
-    without the seed, dy)."""
-    m = b * LAYER_SHAPE["t"]
+def layer_case(dev, rng, b: int, dtype, ff: int = LAYER_SHAPE["ff"], d: int = LAYER_SHAPE["d"],
+               t: int = LAYER_SHAPE["t"]):
+    """Flagship-shaped layer inputs from ``rng`` (ff, d and T as given):
+    (args without the seed, dy)."""
+    m = b * t
 
     def n(*shape, scale=1.0, offset=0.0):
         a = (offset + scale * rng.standard_normal(shape)).astype(np.float32)
@@ -1420,7 +1537,7 @@ def chain_drift(dev, rng, ff: int, decoder: bool = False, b: int = 32, draws: in
 
 
 def against_twin(mod, args, dy, seed, rate: float, h_: int, res, grads, dtype, what: str,
-                 relative: bool = False):
+                 relative: bool = False, t: int = LAYER_SHAPE["t"]):
     """A layer call's outputs ``res`` and gradients ``grads`` on the chain
     of ``mod`` (``fl`` or ``fdl``) against autograd through its twin on the
     same inputs and masks, the twin taking the chain's side of the ReLU's
@@ -1433,8 +1550,9 @@ def against_twin(mod, args, dy, seed, rate: float, h_: int, res, grads, dtype, w
     at 1e-4 · max|ref| too (their products reduce over 512 to 6,144 terms and
     carry the error of one more launch into each residual; a launch alone is
     held to 1e-5 · max by ``sm90_launches``), and bf16 ReLU flips to
-    ``fl.wide_kink_share(d)`` (``WIDE_KINK_SHARE`` up to d 1,024)."""
-    t, decoder = LAYER_SHAPE["t"], mod is fdl
+    ``fl.wide_kink_share(d)`` (``WIDE_KINK_SHARE`` up to d 1,024). ``t``:
+    the sequences' length."""
+    decoder = mod is fdl
     ref, h_at = (fdl.decoder_layer_reference, 6) if decoder else (fl.encoder_layer_reference, 3)
     out_names = ("y",) + (fdl.RESIDUAL_NAMES if decoder else ("qkv", "a1", "h", "a2"))
     with torch.no_grad():
@@ -1468,6 +1586,21 @@ DRIFT_FFS = (LAYER_SHAPE["ff"], 1024, 2048, 4096, 8192)
 # the timed cases of phases 8 and 14: both dtypes at the YAML's batch and bench.py's
 LAYER_TIMINGS = ((32, torch.bfloat16), (512, torch.bfloat16), (32, torch.float32),
                  (512, torch.float32))
+# the launch types of the attention and the row passes (ops/layer_sm90.py)
+STREAMED_KINDS = ("attn_fwd", "attn_bwd", "ln_rows", "ln_y", "ln_grad")
+# what ``layer_route_cases`` times at a shape of each role, B 32: which
+# launches (``kinds``, None for every one) with their plain versions or not,
+# the whole layer (through the profiler and on the stream, on the stream
+# only, or not at all, each beside its bound and nn.Transformer*Layer), and
+# the warm-up calls before a timing; "checked" times nothing
+LAYER_ROLES = {
+    "checked": None,
+    "timed": dict(kinds=None, plain=True, layer="device", warm=10),
+    "streamed": dict(kinds=STREAMED_KINDS, plain=True, layer="stream", warm=10),
+    # longer loops, whose launches take longer: 2 warm-up calls
+    "timed_long": dict(kinds=None, plain=True, layer="stream", warm=2),
+    "streamed_long": dict(kinds=STREAMED_KINDS, plain=False, layer=None, warm=2),
+}
 # The chains' wide route (d past layer_sm90.LN_TILE), each shape a width the
 # JAX gate admits: d 512 with 4 heads and ff 1,024 (a draw of
 # configs/InfillingRandom_sweep.yaml and InfillingKicksAndSnares_sweep_2.yaml),
@@ -1476,36 +1609,41 @@ LAYER_TIMINGS = ((32, torch.bfloat16), (512, torch.bfloat16), (32, torch.float32
 # passes a block a row), d 512 with one head of 512 and ff 512 (the sweeps'
 # draw) and d 1,280 with 5 heads of 256 and ff 1,024 (the JAX gate's most
 # heads)
-WIDE_SHAPES = (dict(d=512, h=4, ff=1024, t=32), dict(d=1024, h=1, ff=1024, t=32),
-               dict(d=2048, h=2, ff=1024, t=32), dict(d=512, h=1, ff=512, t=32),
-               dict(d=1280, h=5, ff=1024, t=32))
-WIDE_TIMED = WIDE_SHAPES[1]  # every launch timed at B 32: the main path's width
-WIDE_STREAMED = WIDE_SHAPES[2]  # the launches this slice redesigned timed at B 32
-# the launch types of the attention and the row passes (ops/layer_sm90.py)
-STREAMED_KINDS = ("attn_fwd", "attn_bwd", "ln_rows", "ln_y", "ln_grad")
+# (timed: every launch at the main path's width, d 1,024 / 1 head; the
+# attention and the row passes at d 2,048)
+WIDE_SHAPES = (dict(d=512, h=4, ff=1024, t=32, role="checked"),
+               dict(d=1024, h=1, ff=1024, t=32, role="timed"),
+               dict(d=2048, h=2, ff=1024, t=32, role="streamed"),
+               dict(d=512, h=1, ff=512, t=32, role="checked"),
+               dict(d=1280, h=5, ff=1024, t=32, role="checked"))
+WIDE_TIMED, WIDE_STREAMED = WIDE_SHAPES[1], WIDE_SHAPES[2]
+# The flagship's layers in longer loops, 8 and 16 bars (the attention
+# launches' long route past T 32): every launch timed at 8 bars, with its
+# plain version, and the whole layer beside nn.Transformer*Layer; the
+# attention's and the row passes' device time at 16
+LONG_SHAPES = (dict(d=256, h=2, ff=512, t=LONG_T, role="timed_long"),
+               dict(d=256, h=2, ff=512, t=256, role="streamed_long"))
 
 
-def wide_layers(dev, rng, decoder: bool) -> dict:
-    """The wide route of the encoder (or decoder) chain at ``WIDE_SHAPES``,
-    both dtypes, rate 0.30, B 32: two calls with one seed bit-identical, the
+def layer_route_cases(dev, rng, decoder: bool, shapes) -> dict:
+    """The encoder (or decoder) chain at each of ``shapes`` (``WIDE_SHAPES``:
+    the wide route; ``LONG_SHAPES``: the long route of the attention), both
+    dtypes, rate 0.30, B 32: two calls with one seed bit-identical, the
     layer against its twin (``against_twin``), every launch of the route
-    recorded and held to its plain version (``sm90_launches``: bf16 2e-2, f32
-    1e-5 · max, the hidden product's ReLU decisions by ``kink_flips``); at
-    ``WIDE_TIMED`` each launch's device time, the layer's forward and backward
-    device time, its own bound and ``nn.Transformer*Layer``'s; at
-    ``WIDE_STREAMED`` the device time of the attention's and the row passes'
-    launches."""
+    recorded and held to its plain version (``sm90_launches``: bf16 2e-2,
+    f32 1e-5 · max, the hidden product's ReLU decisions by ``kink_flips``),
+    and what the shape's role (``LAYER_ROLES``) times."""
     mod, case, backward_args = ((fdl, decoder_case, decoder_backward_args) if decoder
                                 else (fl, layer_case, layer_backward_args))
     checks, timings = [], []
-    for shape in WIDE_SHAPES:
+    for shape in shapes:
         d, h_, ff, t = shape["d"], shape["h"], shape["ff"], shape["t"]
-        timed, streamed = shape is WIDE_TIMED, shape is WIDE_STREAMED
+        role = LAYER_ROLES[shape["role"]]
         for dtype in (torch.bfloat16, torch.float32):
             dname = str(dtype)[6:]
             route = mod.route_kernels(dtype, d)
             b = 32
-            args, dy = case(dev, rng, b, dtype, ff=ff, d=d)
+            args, dy = case(dev, rng, b, dtype, ff=ff, d=d, t=t)
             seed = torch.tensor([2024 + b], dtype=torch.int32, device=dev)
             kf = lambda: mod.layer_forward(*args, seed, 0.3, h_, t)  # noqa: E731
 
@@ -1523,22 +1661,26 @@ def wide_layers(dev, rng, decoder: bool) -> dict:
             check(bitwise, f"two runs with one seed differ, {what}")
             check(len(record) == len(route), f"{what}: {len(record)} launches, route "
                                              f"{len(route)}")
+            timed = role or dict(kinds=None, plain=False, layer=None, warm=10)
             row = {"shape": shape, "B": b, "dtype": dname, "rate": 0.3,
                    "bitwise_repeat": bitwise,
-                   "launches": sm90_launches(record, route, plain=timed,
-                                             n=5 if timed or streamed else 0,
-                                             dtype=dtype,
-                                             kinds=None if timed else STREAMED_KINDS)}
+                   "launches": sm90_launches(record, route, plain=timed["plain"],
+                                             n=5 if role else 0, dtype=dtype,
+                                             kinds=timed["kinds"], warm=timed["warm"])}
             row["max_abs_err"], row["relu_kink_flips"] = against_twin(
-                mod, args, dy, seed, 0.3, h_, res, grads, dtype, what, relative=True)
-            if timed:
+                mod, args, dy, seed, 0.3, h_, res, grads, dtype, what, relative=True, t=t)
+            if timed["layer"] == "device":
                 row["kernel_fwd_device_ms"] = sum(
                     us for us, _ in device_us(kf, n=3).values()) / 1000.0
                 row["kernel_bwd_device_ms"] = sum(
                     us for us, _ in device_us(lambda: kb(res), n=3).values()) / 1000.0
+            if timed["layer"]:
+                row["kernel_fwd_ms"] = time_us(kf, 5) / 1000.0
+                row["kernel_bwd_ms"] = time_us(lambda: kb(res), 5) / 1000.0
                 row["io_bounds"] = layer_io_bounds(b, decoder, dname, shape)
-                row["library"] = library_layer(args, dy, b, decoder, shape)
-            (timings if timed or streamed else checks).append(row)
+                row["library"] = library_layer(args, dy, b, decoder, shape,
+                                               device=timed["layer"] == "device")
+            (timings if role else checks).append(row)
     return {"checked": checks, "timings": timings}
 
 
@@ -1603,19 +1745,22 @@ def phase_layer(dev, rng) -> dict:
         row["io_bounds"] = layer_io_bounds(b, dtype=str(dtype)[6:])
         row["library"] = library_layer(args, dy, b, decoder=False)
         timings.append(row)
-    wide = wide_layers(dev, rng, decoder=False)
+    wide = layer_route_cases(dev, rng, decoder=False, shapes=WIDE_SHAPES)
+    long = layer_route_cases(dev, rng, decoder=False, shapes=LONG_SHAPES)
     emit({"phase": "layer", "shape": LAYER_SHAPE, "checks": checks,
           "bars": {"float32": "1e-4 abs (y, residuals); 1e-4 * max|grad| (grads)",
                    "bfloat16": "2e-2 * max|ref|"},
           "kink_survey": kink_survey(dev, decoder=False), "timings": timings,
-          "f32_chain_drift": [chain_drift(dev, rng, ff) for ff in DRIFT_FFS], "wide": wide})
-    return {"max_abs_err": worst, "timings": timings, "wide": wide}
+          "f32_chain_drift": [chain_drift(dev, rng, ff) for ff in DRIFT_FFS], "wide": wide,
+          "long": long})
+    return {"max_abs_err": worst, "timings": timings, "wide": wide, "long": long}
 
 
-def decoder_case(dev, rng, b: int, dtype, ff: int = LAYER_SHAPE["ff"], d: int = LAYER_SHAPE["d"]):
-    """Flagship-shaped decoder-layer inputs from ``rng`` (ff and d as given):
-    (y, mem and the 20 parameters in ``fdl.ARG_NAMES`` order, dy)."""
-    m = b * LAYER_SHAPE["t"]
+def decoder_case(dev, rng, b: int, dtype, ff: int = LAYER_SHAPE["ff"], d: int = LAYER_SHAPE["d"],
+                 t: int = LAYER_SHAPE["t"]):
+    """Flagship-shaped decoder-layer inputs from ``rng`` (ff, d and T as
+    given): (y, mem and the 20 parameters in ``fdl.ARG_NAMES`` order, dy)."""
+    m = b * t
 
     def n(*shape, scale=1.0, offset=0.0):
         a = (offset + scale * rng.standard_normal(shape)).astype(np.float32)
@@ -1703,14 +1848,15 @@ def phase_decoder_layer(dev, rng) -> dict:
         row["io_bounds"] = layer_io_bounds(b, decoder=True, dtype=str(dtype)[6:])
         row["library"] = library_layer(args, dy, b, decoder=True)
         timings.append(row)
-    wide = wide_layers(dev, rng, decoder=True)
+    wide = layer_route_cases(dev, rng, decoder=True, shapes=WIDE_SHAPES)
+    long = layer_route_cases(dev, rng, decoder=True, shapes=LONG_SHAPES)
     emit({"phase": "decoder_layer", "shape": LAYER_SHAPE, "checks": checks,
           "bars": {"float32": "1e-4 abs (y, residuals); 1e-4 * max|grad| (grads)",
                    "bfloat16": "2e-2 * max|ref|"},
           "kink_survey": kink_survey(dev, decoder=True), "timings": timings,
           "f32_chain_drift": [chain_drift(dev, rng, ff, decoder=True) for ff in DRIFT_FFS],
-          "wide": wide})
-    return {"max_abs_err": worst, "timings": timings, "wide": wide}
+          "wide": wide, "long": long})
+    return {"max_abs_err": worst, "timings": timings, "wide": wide, "long": long}
 
 
 def model_params(hp: dict, **model):
@@ -1736,12 +1882,13 @@ lm_params = functools.partial(model_params, LM_HP, fused_ffn=True, fused_layer=F
 
 class Loops:
     """Seeded synthetic loops (bench.py's recipe): ``processed_inputs``
-    (N, 32, 16) normal, ``processed_outputs`` HVO grids with 30 % hits."""
+    (N, t, 16) normal, ``processed_outputs`` HVO grids with 30 % hits; t 32
+    steps (2 bars at sixteenths) unless given."""
 
-    def __init__(self, n: int, seed: int):
+    def __init__(self, n: int, seed: int, t: int = 32):
         rng = np.random.default_rng(seed)
-        self.processed_inputs = rng.standard_normal((n, 32, 16)).astype(np.float32)
-        h = (rng.random((n, 32, 9)) < 0.3).astype(np.float32)
+        self.processed_inputs = rng.standard_normal((n, t, 16)).astype(np.float32)
+        h = (rng.random((n, t, 9)) < 0.3).astype(np.float32)
         self.processed_outputs = np.concatenate(
             [h, h * rng.random(h.shape), h * (rng.random(h.shape) - 0.5)], axis=2
         ).astype(np.float32)
@@ -1989,6 +2136,104 @@ def sweep_head_draw(dev) -> dict:
             "max_rel_err": err}
 
 
+def long_training(dev, decoder: bool) -> dict:
+    """8-bar loops (``LONG_T``): the flagship (the 6 + 6 encoder-decoder
+    with ``decoder``) at ``max_len`` 128 through ``initialize_model``, the
+    chains given (auto follows ``LAYER_KERNEL_LONG_T``), the counts reset
+    just before: a bf16 epoch of 4 steps and 2 f32 steps on loops of 128
+    steps, each with its held-out loss through #1: every launch of the
+    chain once a layer and step (the attention's long route), #1 once a
+    layer's attention in the held-out forward, the loss finite. The f32
+    weights served at T 128 (``long_served``). Then the chains against the
+    unfused path in ``F32_PAIRS`` pairs of turns at batch 32 in each dtype
+    (4 steps a turn; the turns behind ``LAYER_KERNEL_LONG_T``), and what auto
+    picks there."""
+    if decoder:
+        forced, unfused = ({"fused_layer": v, "fused_decoder_layer": v} for v in (True, False))
+        resolve, enc_only = resolve_fused_decoder_layer, 0
+        extra = {"num_decoder_layers": ENCDEC_LAYERS}
+    else:
+        forced, unfused = {"fused_layer": True}, {"fused_layer": False}
+        resolve, enc_only, extra = resolve_fused_layer, 1, {}
+    layers = FLAGSHIP_HP["num_encoder_decoder_layers"]
+    held, batch = Loops(64, 52, LONG_T), FLAGSHIP_HP["batch_size"]
+    path = {}
+    for dtype, items in ((torch.bfloat16, 128), (torch.float32, 64)):
+        dname, steps = str(dtype)[6:], items // batch
+        bundle, _, _ = initialize_model(flagship_params(
+            bf16=dtype == torch.bfloat16, max_len=LONG_T, **forced, **extra), dev)
+        check(bundle.config.compute_dtype == dtype and bundle.config.max_len == LONG_T,
+              f"{bundle.config} is not {dtype} at max_len {LONG_T}")
+        route = {**fl.route_kernels(dtype), **(fdl.route_kernels(dtype) if decoder else {})}
+        reset_launches()  # the main path's run starts here
+        MHA.launches = 0
+        metrics = run_epochs(bundle, Loops(items, 51, LONG_T), held, 1, batch, enc_only)[0]
+        torch.cuda.synchronize()
+        counts, mha = launches(route), MHA.launches  # ... and ends here
+        check(all(c == steps * layers for c in counts.values()),
+              f"T {LONG_T}, {dname}: launches {counts}, expected {steps * layers} each")
+        check(mha == (3 if decoder else 1) * layers,
+              f"#1 launched {mha} times in a held-out forward at T {LONG_T}")
+        check(all(np.isfinite(v) for v in metrics.values()), f"non-finite: {metrics}")
+        path[dname] = {"launches": counts, "fused_mha_launches": mha, "steps": steps,
+                       "metrics": metrics}
+    served = long_served(dev, bundle, decoder)
+    turns = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        models = {which: initialize_model(flagship_params(
+            bf16=dtype == torch.bfloat16, max_len=LONG_T, **switches, **extra), dev)[0]
+            for which, switches in (("kernel", forced), ("unfused", unfused))}
+        row = paired_turns(models, Loops(128, 53, LONG_T), batch, enc_only)
+        row["auto_picks_kernel"] = resolve(None, FLAGSHIP.d_model, FLAGSHIP.n_heads,
+                                           FLAGSHIP.dim_feedforward, compute_dtype=dtype,
+                                           seq_len=LONG_T, batch_size=batch)
+        turns[f"{str(dtype)[6:]}_B{batch}_T{LONG_T}"] = row
+    return {"path": path, "served": served, "paired_turns": turns}
+
+
+def long_served(dev, bundle, decoder: bool) -> dict:
+    """The f32 weights of ``bundle`` served at T ``LONG_T`` by an
+    ``InfillServer`` on the card: a B 1 request and a bucket of 32, MSO input
+    and ``hvo_input`` at 120 bpm (the front end's kernels once a request),
+    through #1 (6 launches a forward chunk, 18 for the 6 + 6), v/o within
+    1e-4 of the plain path's server on the card (``use_kernel=False``,
+    unthresholded) and the hits equal away from the threshold."""
+    config = dataclasses.replace(ENCDEC if decoder else FLAGSHIP, max_len=LONG_T)
+    sd = {k: v.detach() for k, v in bundle.model.state_dict().items()}
+    srv, raw = (serve.InfillServer(sd, config, batch_sizes=BUCKETS, device=dev, **kw)
+                for kw in ({}, {"use_kernel": False, "use_thres": False}))
+    per_chunk = config.num_encoder_layers + 2 * config.num_decoder_layers
+    out = {}
+    for n in (1, 32):
+        loops = Loops(n, 54 + n, LONG_T)
+        for which in ("mso_input", "hvo_input"):
+            def answer(server):
+                if which == "mso_input":
+                    return server.infill(loops.processed_inputs)
+                return server.infill_from_hvo(loops.processed_outputs, qpm=120.0)
+
+            MHA.launches = 0
+            reset_front_end_launches()
+            y = answer(srv)
+            counts = {"fused_mha": MHA.launches, "band_energies": BAND_K.launches,
+                      "device_synth": SYNTH_K.launches}
+            front = int(which == "hvo_input")
+            check(counts == {"fused_mha": per_chunk, "band_energies": front,
+                             "device_synth": front},
+                  f"a {which} request of {n} at T {LONG_T} launched {counts}")
+            want = answer(raw)
+            sig = want[..., :9]
+            check(y.shape == (n, LONG_T, 27) and np.isfinite(y).all(),
+                  f"bad {which} answer at T {LONG_T}, N={n}")
+            err = max_err(y[..., 9:], want[..., 9:])
+            check(err <= 1e-4, f"{which} at T {LONG_T}, N={n}: v/o differ from the plain path "
+                               f"by {err}")
+            check(hit_agreement(y[..., :9], (sig > 0.5).astype(y.dtype), sig),
+                  f"{which} at T {LONG_T}, N={n}: hits differ away from the threshold")
+            out[f"{which}_N{n}"] = {"launches": counts, "max_abs_err_vs_plain": err}
+    return out
+
+
 @contextlib.contextmanager
 def fused_layers_as(role: str, kernel_h: list, kinks: list):
     """Stand-ins for the model's two fused layer functions, for comparing a
@@ -2139,6 +2384,7 @@ def phase_train(dev, rng) -> dict:
             compute_dtype=torch.float32, batch_size=b)
 
     wide = wide_training(dev, decoder=False)
+    long = long_training(dev, decoder=False)
 
     # the trained weights served by the serving slice, against the CPU plain path
     sd = {k: v.detach().cpu() for k, v in bundle.model.state_dict().items()}
@@ -2160,9 +2406,9 @@ def phase_train(dev, rng) -> dict:
           "three_f32_steps_kink_flips": kinks, "unfused_bar": UNFUSED_BAR,
           "seqs_per_s": throughput, "step_breakdown": breakdown,
           "f32_paired_turns": f32_turns, "served_max_abs_err_vs_cpu": serve_err,
-          "wide": wide})
+          "wide": wide, "long": long})
     return {"launches": counts, "f32_launches": f32_counts, "seqs_per_s": throughput,
-            "f32_paired_turns": f32_turns, "wide": wide}
+            "f32_paired_turns": f32_turns, "wide": wide, "long": long}
 
 
 def augment_corpus():
@@ -2727,6 +2973,7 @@ def phase_train_encdec(dev, rng) -> dict:
             None, ENCDEC.d_model, ENCDEC.n_heads, ENCDEC.dim_feedforward,
             compute_dtype=torch.float32, batch_size=b)
     wide = wide_training(dev, decoder=True)
+    long = long_training(dev, decoder=True)
     emit({"phase": "train_encdec",
           "config": {**FLAGSHIP_HP, "encoder_only": 0, "num_decoder_layers": ENCDEC_LAYERS},
           "data": "256 seeded synthetic loops (512 for the rates at batch 512)",
@@ -2737,9 +2984,9 @@ def phase_train_encdec(dev, rng) -> dict:
           "last_metrics": metrics[-1], "unfused_losses": plain_losses,
           "three_f32_steps_param_err": param_err, "three_f32_steps_kink_flips": kinks,
           "unfused_bar": UNFUSED_BAR, "seqs_per_s": throughput, "step_breakdown": breakdown,
-          "f32_paired_turns": f32_turns, "wide": wide})
+          "f32_paired_turns": f32_turns, "wide": wide, "long": long})
     return {"launches": counts, "f32_launches": f32_counts, "seqs_per_s": throughput,
-            "f32_paired_turns": f32_turns, "wide": wide}
+            "f32_paired_turns": f32_turns, "wide": wide, "long": long}
 
 
 def phase_serve_encdec(dev, rng, enc_srv) -> dict:
@@ -4903,7 +5150,7 @@ SWEEP_CONFIG = os.path.join(ROOT, "configs", "InfillingRandom_sweep.yaml")
 CLI_SWEEP = "transformergrooveinfilling_tpu_torch.sweep"
 SWEEP_TRIALS = 8  # K of the in-process group
 SWEEP_EPOCHS = 1
-SWEEP_THROUGHPUT_STEPS = 10  # steps a throughput turn (batch 32)
+SWEEP_THROUGHPUT_STEPS = 6  # steps a throughput turn (batch 32)
 SWEEP_KS = (1, 2, 4, 5, 8)
 # --count of the batched command lines: the pinned one a group that vmaps
 # (sweep.VMAP_MIN_TRIALS), both within the 5 ranked lines a sweep prints
@@ -6280,11 +6527,13 @@ def main() -> int:
 
     def mha_at(row):
         return {"ms": float(np.mean(row["kernel_us"])) / 1000.0,
-                "device_ms": row["kernel_device_us"] / 1000.0,
+                "device_ms": row["kernel_device_us"] / 1000.0,  # long rows: a graph's
+                "device_time_from": row["device_time_from"],
                 "plain_ms": float(np.mean(row["plain_us"])) / 1000.0,
                 "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
                 "library_ms": float(np.mean(row["sdpa_us"])) / 1000.0,
-                "library_device_ms": row["sdpa_device_us"] / 1000.0}
+                "library_device_ms": (row["sdpa_device_us"] / 1000.0
+                                      if row["sdpa_device_us"] is not None else None)}
 
     b1 = mha_row(1, "float32")
     kernels = [{
@@ -6334,6 +6583,17 @@ def main() -> int:
         "launches_hd512_sweep_draw": {
             "ranking_forward": train["wide"]["sweep_draw"]["fused_mha_launches_ranking_forward"],
             "eval_forward": train["wide"]["sweep_draw"]["fused_mha_launches_eval_forward"][0]},
+        "long_max_abs_err": kernel["long_max_abs_err"],
+        **{f"T{row['shape'][2]}_B{row['shape'][0]}_{row['dtype']}_packed_qkv": mha_at(row)
+           for row in kernel["long_timings"]},
+        f"launches_T{LONG_T}_held_out_forward": {
+            f"{which}_{dname}": run["fused_mha_launches"]
+            for which, out in (("encoder", train), ("encoder_decoder", encdec))
+            for dname, run in out["long"]["path"].items()},
+        f"launches_T{LONG_T}_served": {
+            f"{which}_{request}": r["launches"]["fused_mha"]
+            for which, out in (("encoder", train), ("encoder_decoder", encdec))
+            for request, r in out["long"]["served"].items()},
         "at": "B 1, H 2, T 32, hd 128, float32, contiguous; ms: stream time; device_ms: the "
               "profiler's per launch; err over all f32 checks; library: "
               "scaled_dot_product_attention on the same views; vmap_folded: one call of "
@@ -6344,7 +6604,13 @@ def main() -> int:
               "d 1,024 / 1 head runs (6 layers; 2 + 2); launches_hd1024_served: phase 9's "
               "trained d 1,024 / 1 head weights served, a B 1 and a bucket-32 request; "
               "launches_hd512_sweep_draw: the d 512 / 1 head sweep draw's ranking forward "
-              "of 4 stacked trials and an eval forward (phase 9)"}]
+              "of 4 stacked trials and an eval forward (phase 9); T128 / T256 / T1024: "
+              "8-, 16- and 64-bar loops, H 2, hd 128, packed qkv, the long route's flash "
+              "form, device_ms and library_device_ms each from a CUDA graph of their calls "
+              "(T128_B3300: the eval forward of 8-bar loops); long_max_abs_err over "
+              "the long route's checks (phase 3); launches_T128_*: the held-out forward "
+              "of phases 9 and 15's max_len 128 runs and their f32 weights served, B 1 "
+              "and a bucket of 32, MSO input and hvo_input"}]
 
     def timing(phase_out, b, dtype):
         return next(t for t in phase_out["timings"] if t["B"] == b and t["dtype"] == dtype)
@@ -6397,6 +6663,8 @@ def main() -> int:
         two heads) the device time of a launch of ``STREAMED_KINDS``."""
         rows = {r["shape"]["d"]: r["launches"][kname] for r in out["wide"]["timings"]
                 if r["dtype"] == dname}
+        streamed = next(r for r in out["wide"]["timings"]
+                        if r["dtype"] == dname and r["shape"] is WIDE_STREAMED)
         errs = [r["launches"][kname]["max_abs_err"]
                 for r in out["wide"]["timings"] + out["wide"]["checked"] if r["dtype"] == dname]
         at, wider = rows[WIDE_TIMED["d"]], rows[WIDE_STREAMED["d"]]
@@ -6405,8 +6673,40 @@ def main() -> int:
                 "plain_ms": at["plain_ms"], "bound_ms": at["bound_ms"],
                 "bound_by": at["bound_by"], "library_ms": at["library_ms"],
                 **({"d2048_h2": {"ms": wider["device_ms"], "bound_ms": wider["bound_ms"],
-                                 "bound_by": wider["bound_by"]}}
-                   if "device_ms" in wider else {})}
+                                 "bound_by": wider["bound_by"], "plain_ms": wider["plain_ms"],
+                                 "library_ms": wider["library_ms"]}}
+                   if "device_ms" in wider else {}),
+                "d2048_h2_layer": {
+                    "fwd_ms": streamed["kernel_fwd_ms"], "bwd_ms": streamed["kernel_bwd_ms"],
+                    "library_fwd_ms": float(np.mean(streamed["library"]["fwd_ms"])),
+                    "library_bwd_ms": float(np.mean(streamed["library"]["bwd_ms"]))}}
+
+    def long_at(out, path, dname, kname):
+        """A launch in 8- and 16-bar loops (``LONG_SHAPES``, B 32): its
+        launches on phase 9 / 15's max_len 128 path, and at each T its device
+        time, plain and library times, bound and error, and the whole layer's
+        device times beside its bound and nn.Transformer*Layer's."""
+        res = {f"launches_T{LONG_T}_path": path["long"]["path"][dname]["launches"][kname]}
+        for r in out["long"]["timings"]:
+            if r["dtype"] != dname:
+                continue
+            at = r["launches"][kname]
+            res[f"T{r['shape']['t']}"] = {
+                key: at.get(key) for key in ("max_abs_err", "bound_ms", "bound_by",
+                                             "plain_ms", "library_ms")}
+            res[f"T{r['shape']['t']}"]["ms"] = at.get("device_ms")
+            if "kernel_fwd_ms" not in r:
+                continue
+            res[f"T{r['shape']['t']}_layer"] = {
+                "fwd_device_ms": r.get("kernel_fwd_device_ms"),
+                "bwd_device_ms": r.get("kernel_bwd_device_ms"),
+                "fwd_ms": r["kernel_fwd_ms"], "bwd_ms": r["kernel_bwd_ms"],
+                "io_bounds_ms": {k: v["bound_ms"] for k, v in r["io_bounds"].items()},
+                "library_fwd_device_ms": r["library"]["fwd_device_ms"],
+                "library_bwd_device_ms": r["library"]["bwd_device_ms"],
+                "library_fwd_ms": float(np.mean(r["library"]["fwd_ms"])),
+                "library_bwd_ms": float(np.mean(r["library"]["bwd_ms"]))}
+        return res
 
     for which, out, mod, tpu, path, more in layers:
         for dtype in (torch.bfloat16, torch.float32):
@@ -6440,7 +6740,9 @@ def main() -> int:
             for i, kname in enumerate(narrow_route):
                 l32, l512 = at32["launches"][kname], at512["launches"][kname]
                 kernels.append({
-                    "name": kname, "route": "cuda", "source": LAYER_SM90_SOURCE,
+                    "name": kname, "route": "cuda",
+                    "source": (LAYER_ATTN_SOURCE if narrow_route[kname].entry
+                               in layer_sm90.ATTN_ENTRIES else LAYER_SM90_SOURCE),
                     "replaces": tpu["fwd" if i < N_FWD[mod] else "bwd"],
                     "launches": main_path[kname],
                     **({} if f32 else {key: counts[kname] for key, counts in more.items()}),
@@ -6449,6 +6751,7 @@ def main() -> int:
                     "max_abs_err": max(l32["max_abs_err"], l512["max_abs_err"]),
                     **({"wide_route": wide_at(out, path, dname, kname)}
                        if kname in wide_route else {}),
+                    "long_t": long_at(out, path, dname, kname),
                     "ms": l32["device_ms"], "plain_ms": l32["plain_ms"],
                     "bound_ms": l32["bound_ms"], "bound_by": l32["bound_by"],
                     **({"bound_ms_at_67_tflops": l32["at_67"]} if f32 else {}),
@@ -6475,7 +6778,13 @@ def main() -> int:
                           "inputs, weights and outputs, the library call "
                           f"nn.Transformer{which.title()}Layer in {dname}"
                           + (" (TF32 off); launches: the 3 f32 training steps (each forward "
-                             "launch twice a layer call there)" if f32 else "")})
+                             "launch twice a layer call there)" if f32 else "")
+                          + "; long_t: B 32 in 8- and 16-bar loops (T 128, 256: the "
+                          "attention launches' long route), each launch's device time, plain "
+                          "and library times, bound and error, and the whole layer's; "
+                          f"launches_T{LONG_T}_path: phase {9 if which == 'encoder' else 15}'s "
+                          f"max_len {LONG_T} run, the chain given ("
+                          + ("2 f32 steps" if f32 else "4 bf16 steps") + ", 6 layers)"})
     def midi_launches(kernel):
         return {"mso": midi["mso"]["launches"][kernel],
                 "process_dataset": midi["process_dataset"]["launches"][kernel],

@@ -77,13 +77,21 @@ def _packed(rng, b, t, h, hd, form):
     return [torch.from_numpy(q).transpose(1, 2), k, v], [a.copy() for a in arrays]
 
 
+def _t_ids(*ts):
+    """Sequence lengths, T 32 under no id of its own (the cases before T varied)."""
+    return [pytest.param(t, id="") if t == 32 else pytest.param(t, id=f"T{t}") for t in ts]
+
+
+@pytest.mark.parametrize("t", _t_ids(32, 48, 96, 128, 256, 1024))
 @pytest.mark.parametrize("causal", [False, True])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("form", ["self", "cross"])
-def test_strided_views_match_jax_fused_mha(rng, form, dtype, causal):
+def test_strided_views_match_jax_fused_mha(rng, form, dtype, causal, t):
     """The slices of the packed projections go in without a copy, and the
-    result is a (B, H, T, hd) view of a (B, T, H, hd) buffer."""
-    b, t, h, hd = 2, 32, 4, 16
+    result is a (B, H, T, hd) view of a (B, T, H, hd) buffer; at the grid's
+    T 32 and at loops of 3 to 64 bars (T 48 to 1,024: the kernel's long
+    route on the card past T 64)."""
+    b, h, hd = 2, 4, 16
     views, arrays = _packed(rng, b, t, h, hd, form)
     assert not any(x.is_contiguous() for x in views)
     tdt, jdt = getattr(torch, dtype), getattr(jnp, dtype)
@@ -93,9 +101,10 @@ def test_strided_views_match_jax_fused_mha(rng, form, dtype, causal):
     assert got.transpose(1, 2).is_contiguous()  # stored as (B, T, H, hd)
     assert got.transpose(1, 2).reshape(b, t, h * hd).data_ptr() == got.data_ptr()
     want = jax_fused_mha(*(jnp.asarray(a, jdt) for a in arrays), interpret=True, causal=causal)
-    # the bars of the contiguous tests above
+    # f32: 1e-5 (both sides f32 on the CPU; the worst case reads 6e-7); bf16:
+    # the contiguous test's bar above
     np.testing.assert_allclose(got.float().numpy(), np.asarray(want.astype(jnp.float32)),
-                               atol=2e-5 if dtype == "float32" else 1e-2)
+                               atol=1e-5 if dtype == "float32" else 1e-2)
 
 
 @pytest.mark.parametrize("causal", [False, True])
@@ -172,7 +181,7 @@ def _meta(shape, dtype=torch.float32):
     (lambda: [_meta((1, 2, 32, 16)), _meta((1, 2, 32, 8)), _meta((1, 2, 32, 16))],
      "shape"),
     (lambda: [_meta((2, 32, 16))] * 3, "shape"),
-    (lambda: [_meta((1, 2, 65, 16))] * 3, "T ≤ 64"),
+    (lambda: [_meta((1, 2, 2049, 16))] * 3, "T ≤ 2048 \\(its ceiling\\)"),
     (lambda: [_meta((1, 2, 32, 0))] * 3, "hd ≥ 1"),
     (lambda: [_meta((0, 2, 32, 16))] * 3, "B·H ≥ 1"),
     (lambda: [_meta((1, 2, 16, 32)).transpose(2, 3)] * 3, "unit stride on hd"),
@@ -184,7 +193,9 @@ def test_check_kernel_args_rejects(make, match):
 
 def test_kernel_args_accept_the_serving_shapes():
     for shape in ((1, 2, 32, 128), (512, 2, 32, 128), (32, 4, 32, 8),
-                  (4, 1, 64, 256), (512, 1, 32, 512), (32, 1, 32, 1024), (2, 1, 64, 8192)):
+                  (4, 1, 64, 256), (512, 1, 32, 512), (32, 1, 32, 1024), (2, 1, 64, 8192),
+                  (1, 2, 128, 128), (512, 2, 128, 128), (512, 2, 1024, 128),
+                  (1, 1, 2048, 1024)):
         for dtype in port.KERNEL_DTYPES:
             port.check_kernel_args(*[_meta(shape, dtype)] * 3)
 
@@ -202,6 +213,26 @@ def test_kernel_smem_bytes():
     # the largest block, T 64 in f32, is 98 KB, below the 227 KB a block may
     # take, and no size depends on hd
     assert port.kernel_smem_bytes(64) == (4 * 2 + 1) * 64 * 36 * 4 + 4 * 64 * 68 == 100352
+    # past T 64, the long route: 3 stages, each the larger of (rows + 64 keys)
+    # rows of a 64-byte chunk and 64 key rows of a 128-byte chunk; the four
+    # warps' staging tiles of their share of 128 bytes; the (rows, T + 4) f32
+    # scores, T rounded up to 64 keys. 64 rows a block up to T 256, 32 up to
+    # 512, 16 past it: the same in both dtypes
+    for dtype in port.KERNEL_DTYPES:
+        assert port.kernel_smem_bytes(128, dtype) == 3 * 128 * 80 + 4 * 16 * 144 + 4 * 64 * 132
+        assert port.kernel_smem_bytes(100, dtype) == port.kernel_smem_bytes(128, dtype)
+        assert port.kernel_smem_bytes(256, dtype) == 106496
+        assert port.kernel_smem_bytes(512, dtype) == 3 * 64 * 144 + 4 * 16 * 80 + 4 * 32 * 516
+        assert port.kernel_smem_bytes(1024, dtype) == 3 * 64 * 144 + 4 * 16 * 48 + 4 * 16 * 1028
+        # the ceiling's block, 162 KB, within the 227 KB a block may take
+        assert port.kernel_smem_bytes(port.MAX_T, dtype) == 162048 <= 232448
+        assert port.kernel_smem_bytes(256, dtype, hd=256) == 106496  # past FLASH_HD
+    # heads up to FLASH_HD past T 64: the flash form, Q and 3 key tiles of 64
+    # rows × 128 columns, in f32 also the (64, 68) probabilities, at every T
+    for t in (65, 128, 1024, port.MAX_T):
+        assert port.kernel_smem_bytes(t, torch.bfloat16, hd=128) == 4 * 64 * 136 * 2 == 69632
+        assert port.kernel_smem_bytes(t, hd=8) == 4 * 64 * 132 * 4 + 4 * 64 * 68 == 152576
+    assert port.kernel_smem_bytes(32, hd=128) == port.kernel_smem_bytes(32)  # the short route
 
 
 def test_build_without_nvcc_raises(tmp_path, monkeypatch):

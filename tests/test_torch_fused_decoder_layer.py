@@ -65,19 +65,28 @@ def port_tensors(d=32, ff=64, rows=64, seed=1):
 SEED = torch.tensor([3], dtype=torch.int32)
 
 
-@pytest.mark.parametrize("d, h, ff, b", [pytest.param(128, 2, 128, 4, id="2"),
-                                         pytest.param(128, 1, 128, 4, id="1"),
-                                         (512, 4, 1024, 8), (512, 1, 512, 8),
-                                         (1024, 1, 1024, 8), (2048, 2, 1024, 8)])
-def test_rate0_matches_jax_kernel_forward_and_grads(d, h, ff, b):
+def _t(*cases):
+    """(d, h, ff, b, T) cases, those at T 32 under their former ids."""
+    return [c if c[4] != 32 else pytest.param(*c, id=str(c[1])) if c[0] == 128
+            else pytest.param(*c, id="-".join(map(str, c[:4]))) for c in cases]
+
+
+@pytest.mark.parametrize("d, h, ff, b, t", _t((128, 2, 128, 4, 32), (128, 1, 128, 4, 32),
+                                              (512, 4, 1024, 8, 32), (512, 1, 512, 8, 32),
+                                              (1024, 1, 1024, 8, 32), (2048, 2, 1024, 8, 32),
+                                              (128, 2, 128, 2, 64), (128, 2, 128, 1, 128),
+                                              (128, 2, 128, 1, 256), (128, 1, 128, 2, 64),
+                                              (128, 1, 128, 1, 128), (128, 1, 128, 1, 256)))
+def test_rate0_matches_jax_kernel_forward_and_grads(d, h, ff, b, t):
     """y3, dx, dmem and all 20 parameter grads at f32 against JAX
     decoder_layer_train in interpret mode (jax.vjp), at the smallest shape the
     JAX gate takes: d 128 (2 heads of 64, lane-packed there, and 1 head of
     128), ff 128, B 4 × T 32 rows; and past d 256 (the chain's wide route on
     the card) d 512 with 4 heads / ff 1,024 and 1 head of 512 / ff 512, d
     1,024 with one head of 1,024 and d 2,048 with 2 (the row passes a block a
-    row on the card), ff 1,024, B 8 × T 32."""
-    t = 32
+    row on the card), ff 1,024, B 8 × T 32; and the longer loops the JAX gate
+    takes at d 128, T 64, 128 and 256 (the attention's long route on the
+    card: causal self-attention and cross-attention over T 256)."""
     args, dy = layer_inputs(d, ff, b * t)
     seed = np.zeros((1,), np.int32)
 
@@ -262,7 +271,9 @@ def test_gate():
                          (1032, 3, 1024)):
             assert fdl.supports_fused_decoder_layer(d, h, ff, 32, dtype) \
                 == fl.supports_fused_layer(d, h, ff, 32, dtype)
-    assert not fdl.supports_fused_decoder_layer(256, 2, 512, 33)  # T above one block's rows
+    assert fdl.supports_fused_decoder_layer(256, 2, 512, 33)  # past T 32: the long route
+    assert fdl.supports_fused_decoder_layer(256, 2, 512, 256)  # a 16-bar loop
+    assert not fdl.supports_fused_decoder_layer(256, 2, 512, 257)  # T past layer_sm90.MAX_T
     assert not fdl.supports_fused_decoder_layer(256, 2, 512, 32, torch.float16)
     assert not fdl.supports_fused_decoder_layer(256, 3, 512, 32)  # d not divisible by H
     assert not fdl.supports_fused_decoder_layer(1024, 4, 4096, 32)  # f32: ff past F32_MAX_FF
@@ -311,15 +322,15 @@ def test_relu_flips_take_the_other_side_at_the_given_units_only():
 
 
 def test_kernel_source_hash_covers_its_headers(tmp_path, monkeypatch):
-    """The layer chains' sources (the wide route's too) include the row
-    passes, the product core and the shared headers: an edit to a header must
-    rebuild every kernel that uses it, so the build's hash reads every
-    included file."""
+    """The layer chains' sources (the wide route's and the attention's too)
+    include the row passes, the product core and the shared headers: an edit
+    to a header must rebuild every kernel that uses it, so the build's hash
+    reads every included file."""
     from transformergrooveinfilling_tpu_torch.ops import _build
 
-    for source in ("layer_sm90", "layer_wide_sm90"):
+    for source in ("layer_sm90", "layer_wide_sm90", "layer_attn_sm90"):
         files = [f.name for f in _build.source_files(_build.CSRC / f"{source}.cu")]
-        head = ["attn_stream_sm90.cuh"] if source == "layer_sm90" else []
+        head = ["attn_stream_sm90.cuh"] if source == "layer_attn_sm90" else []
         assert files == [f"{source}.cu", *head, "rows_sm90.cuh", "epilogues_sm90.cuh",
                          "gemm_sm90.cuh", "layer_common.cuh"]
     files = [f.name for f in _build.source_files(_build.CSRC / "fused_ln.cu")]

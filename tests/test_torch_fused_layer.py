@@ -71,14 +71,26 @@ def kink_sided(layer, reference, h_at, leaves, seed, n_heads, t, jax_h):
     return lambda *a: reference(*a, relu_flips=flips)
 
 
-@pytest.mark.parametrize("d, h, ff", [(256, 2, 512), (128, 2, 256), (512, 4, 1024),
-                                      (512, 1, 512), (1024, 1, 1024), (2048, 2, 1024)])
-def test_rate0_matches_jax_kernel_forward_and_grads(d, h, ff):
+def _t(*cases):
+    """(d, h, ff, T) cases, those at T 32 under their former (d, h, ff) ids."""
+    return [pytest.param(*c, id="-".join(map(str, c[:3]))) if c[3] == 32 else c for c in cases]
+
+
+@pytest.mark.parametrize("d, h, ff, t", _t((256, 2, 512, 32), (128, 2, 256, 32),
+                                           (512, 4, 1024, 32), (512, 1, 512, 32),
+                                           (1024, 1, 1024, 32), (2048, 2, 1024, 32),
+                                           (128, 2, 256, 64), (128, 2, 256, 128),
+                                           (128, 2, 256, 256), (128, 1, 256, 64),
+                                           (128, 1, 256, 128), (128, 1, 256, 256)))
+def test_rate0_matches_jax_kernel_forward_and_grads(d, h, ff, t):
     """y, dx and all 12 parameter grads at f32 against JAX encoder_layer_train
-    in interpret mode (jax.vjp), B 8 × T 32 rows; hd 128 and hd 64, and past
-    d 256 (the chain's wide route on the card) hd 128, 512 and 1,024, and d
-    2,048 (the row passes a block a row on the card)."""
-    t, b = 32, 8
+    in interpret mode (jax.vjp), 256 rows (B 8 × T 32); hd 128 and hd 64, and
+    past d 256 (the chain's wide route on the card) hd 128, 512 and 1,024,
+    and d 2,048 (the row passes a block a row on the card); and the longer
+    loops the JAX gate takes, T 64, 128 and 256 (B 4, 2, 1: 4- to 16-bar
+    loops; the attention's long route on the card) at d 128, two heads of 64
+    and one of 128."""
+    b = 256 // t
     x, params, dy = layer_inputs(d, ff, b * t)
     seed = np.zeros((1,), np.int32)
 
@@ -190,7 +202,9 @@ def test_gate():
         assert fl.supports_fused_layer(256, 2, 512, 32, dtype)  # the flagship
         assert fl.supports_fused_layer(32, 4, 512, 32, dtype)  # the demo width
     assert fl.supports_fused_layer(32, 16, 512, 32)  # hd 2: the f32 attention takes any width
-    assert not fl.supports_fused_layer(256, 2, 512, 33)  # T above one block's rows
+    assert fl.supports_fused_layer(256, 2, 512, 33)  # past T 32: the attention's long route
+    assert fl.supports_fused_layer(256, 2, 512, 256)  # a 16-bar loop
+    assert not fl.supports_fused_layer(256, 2, 512, 257)  # T past layer_sm90.MAX_T
     assert not fl.supports_fused_layer(256, 2, 512, 32, torch.float16)
     assert not fl.supports_fused_layer(256, 3, 512, 32)  # d not divisible by H
     assert fl.supports_fused_layer(1032, 3, 1024, 32)  # past d 1,024: a block a row

@@ -282,7 +282,8 @@ def _attention_reference(q, k, v, seed, rate, n_heads, t, causal):
 
 
 @pytest.mark.parametrize("causal", [False, True])
-@pytest.mark.parametrize("t, n_heads, hd", [(32, 2, 128), (8, 4, 16), (8, 4, 8)])
+@pytest.mark.parametrize("t, n_heads, hd", [(32, 2, 128), (8, 4, 16), (8, 4, 8), (128, 2, 64),
+                                            (256, 1, 128)])
 def test_attention_launches_match_autograd(t, n_heads, hd, causal):
     """attention_forward and attention_backward (f32, rate 0.30, on strided
     views of a packed qkv) against autograd through softmax attention with
@@ -307,6 +308,38 @@ def test_attention_launches_match_autograd(t, n_heads, hd, causal):
     if causal:  # a sequence's first query sees only its first key: its dS and dq are 0
         first = torch.arange(0, rows, t)
         assert float(dqkv[first, :d].abs().max()) <= 1e-6
+
+
+@pytest.mark.parametrize("rate", [0.1, 0.3])
+@pytest.mark.parametrize("t", [128, 256])
+def test_attention_masks_past_t_32(t, rate):
+    """The attention site's mask in 8- and 16-bar loops (the kernels' long
+    route on the card draws a row's 16 columns a lane): with one head, hd =
+    T and V the identity, the output is drop(P) itself, nonzero exactly
+    where ``dropout_mask`` keeps; the backward's output again shows the same
+    mask; the kept share is the quantized keep rate within 4σ; a rerun with
+    the seed is bit for bit, another seed another mask."""
+    nseq = 3
+    rng = np.random.default_rng(t)
+    q, k, da = (torch.from_numpy(0.1 * rng.standard_normal((nseq * t, t)).astype(np.float32))
+                for _ in range(3))
+    v = torch.eye(t).repeat(nseq, 1)
+
+    def mask(seed):
+        s = torch.tensor([seed], dtype=torch.int32)
+        out = L.attention_forward(None, q, k, v, s, fl.SITE_ATTN, rate, 1, t, False)
+        grads = [torch.zeros_like(q) for _ in range(4)]
+        L.attention_backward(None, q, k, v, da, *grads, s, fl.SITE_ATTN, rate, 1, t, False)
+        assert torch.equal(grads[3], out)
+        return out != 0
+
+    keep = fl.dropout_mask(torch.tensor([7], dtype=torch.int32), fl.SITE_ATTN, (nseq * t, t),
+                           rate)
+    got = mask(7)
+    assert torch.equal(got, keep) and torch.equal(mask(7), got)
+    assert not torch.equal(mask(8), got)
+    p = L.quantized_threshold(rate) / 256.0
+    assert abs(float(got.float().mean()) - p) <= 4 * np.sqrt(p * (1 - p) / got.numel())
 
 
 def _layernorm(a, g, b):
@@ -534,7 +567,9 @@ def test_bf16_gate_boundaries():
         assert not gate(8200, 1, 1024, 32, bf16)  # beyond the row passes' 8,192
         assert not gate(252, 2, 512, 32, bf16)  # d not a multiple of 8
         assert not gate(256, 2, 516, 32, bf16)  # ff not a multiple of 8
-        assert not gate(256, 2, 512, 33, bf16)  # T beyond one warp's softmax row
+        assert gate(256, 2, 512, 33, bf16)  # past T 32: the attention's long route
+        assert gate(256, 2, 512, 256, bf16)  # a 16-bar loop
+        assert not gate(256, 2, 512, 257, bf16)  # T beyond layer_sm90.MAX_T
         assert not gate(256, 3, 512, 32, bf16)  # d not divisible by the heads
         assert not gate(32, 8, 512, 32, bf16)  # hd 4: below the attention's 16-byte rows
         assert not gate(96, 8, 512, 32, bf16)  # hd 12
@@ -545,18 +580,26 @@ def test_bf16_gate_boundaries():
 
 
 def test_gates_admit_every_width_of_the_jax_gate_up_to_d_4096():
-    """Every (d, heads, ff) the JAX package's gate admits at rows 256 and T 32
-    with d up to 4,096 (multiples of 128), 1 to 5 heads and ff 128 to 1,024
-    (its ceiling), the port's encoder and decoder gates admit in bf16 and in
-    f32: the chains run every layer the JAX kernels run there."""
-    admitted = [(d, h, ff) for d in range(128, 4097, 128) for h in range(1, 6)
-                for ff in range(128, 1025, 128) if jax_supports_fused_layer(d, h, ff, 256, 32)]
-    assert (1024, 1, 1024) in admitted and (2048, 2, 1024) in admitted
-    assert (1280, 5, 1024) in admitted and len(admitted) > 500
+    """Every (d, heads, ff) the JAX package's gate admits at rows 256 and T
+    32, 64, 128 and 256 (2- to 16-bar loops: every T whose sequences tile its
+    256-row block) with d up to 4,096 (multiples of 128), 1 to 5 heads and
+    ff 128 to 1,024 (its ceiling), the port's encoder and decoder gates admit
+    in bf16 and in f32: the chains run every layer the JAX kernels run there.
+    Past T 256 the JAX gate admits none at rows 256, and the port's gates
+    none at any rows."""
+    for t in (32, 64, 128, 256):
+        admitted = [(d, h, ff) for d in range(128, 4097, 128) for h in range(1, 6)
+                    for ff in range(128, 1025, 128)
+                    if jax_supports_fused_layer(d, h, ff, 256, t)]
+        assert (1024, 1, 1024) in admitted and (2048, 2, 1024) in admitted
+        assert (1280, 5, 1024) in admitted and len(admitted) > 500
+        for gate in (fl.supports_fused_layer, fdl.supports_fused_decoder_layer):
+            for dtype in (torch.bfloat16, torch.float32):
+                refused = [w for w in admitted if not gate(*w, t, dtype)]
+                assert not refused, (gate.__name__, dtype, t, refused[:5])
+    assert not jax_supports_fused_layer(256, 2, 512, 512, 512)
     for gate in (fl.supports_fused_layer, fdl.supports_fused_decoder_layer):
-        for dtype in (torch.bfloat16, torch.float32):
-            refused = [w for w in admitted if not gate(*w, 32, dtype)]
-            assert not refused, (gate.__name__, dtype, refused[:5])
+        assert not gate(256, 2, 512, L.MAX_T + 1) and gate(256, 2, 512, L.MAX_T)
 
 
 CONFIG_WIDTHS = {(32, 16, 512), (32, 4, 16), (64, 16, 256), (256, 16, 64), (256, 2, 512),
@@ -620,18 +663,20 @@ def test_cpu_tensors_run_the_plain_versions_and_launch_nothing(dtype):
 
 
 def test_entry_points_declare_every_argument():
-    """Each C entry point of csrc/layer_sm90.cu and csrc/layer_wide_sm90.cu
-    (the wide route's, ``WIDE_ENTRIES``) takes what SIGNATURES declares
-    for ctypes, and the stream last: a missing argument would shift every
-    later one (the card rejects too few; too many it would read as garbage)."""
+    """Each C entry point of csrc/layer_sm90.cu, csrc/layer_wide_sm90.cu (the
+    wide route's, ``WIDE_ENTRIES``) and csrc/layer_attn_sm90.cu (the
+    attention's, ``ATTN_ENTRIES``) takes what SIGNATURES declares for
+    ctypes, and the stream last: a missing argument would shift every later
+    one (the card rejects too few; too many it would read as garbage)."""
     csrc = Path(L.__file__).parents[1] / "csrc"
     found, wide = {}, set()
-    for source in ("layer_sm90", L.WIDE_SOURCE):
+    for source in ("layer_sm90", L.WIDE_SOURCE, L.ATTN_SOURCE):
         src = (csrc / f"{source}.cu").read_text()
         for name, params in re.findall(r"^int (tgi_sm90_\w+)\(([^)]*)\)", src, re.MULTILINE):
             params = [p.strip() for p in params.split(",")]
             assert params[-1] == "void* stream", name
             found[name] = params[:-1]
+            assert L.source_of(name) == source, name
             if source == L.WIDE_SOURCE:
                 wide.add(name)
         assert f"const char* {L.ERROR_STRINGS[source]}(int code)" in src

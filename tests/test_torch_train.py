@@ -586,6 +586,45 @@ def test_layer_resolvers_turn_auto_on_only_at_a_measured_batch(resolve):
         assert cfg.fused_layer is on and cfg.fused_decoder_layer is on, (dtype, batch)
 
 
+@pytest.mark.parametrize("resolve", ["resolve_fused_layer", "resolve_fused_decoder_layer"])
+def test_layer_resolvers_turn_auto_on_only_at_a_measured_length(resolve):
+    """Past T 32 the chains' attention takes its long route, whose paired
+    turns were taken at one point, T 128 (8-bar loops), batch 32, the
+    flagship width, in both dtypes and families, each beyond its spread
+    (PERF.md §5): auto is on there only, off at every other length past 32,
+    at a larger batch and at other widths, where a forced switch is kept up
+    to the gate's 256; up to T 32 the other rules decide."""
+    r = getattr(port_config, resolve)
+    assert (port_config.LAYER_KERNEL_LONG_T, port_config.LAYER_KERNEL_LONG_MAX_BATCH,
+            port_config.LAYER_KERNEL_LONG_WIDTH) == (128, 32, (256, 2, 512))
+    for dtype in (torch.bfloat16, torch.float32):
+        for t, on in ((16, True), (32, True), (33, False), (64, False), (127, False),
+                      (128, True), (129, False), (256, False)):
+            assert r(None, 256, 2, 512, compute_dtype=dtype, seq_len=t, batch_size=32) is on, t
+        assert r(None, 256, 2, 512, compute_dtype=dtype, seq_len=128, batch_size=8) is True
+        for t in (64, 128, 256):
+            assert r(True, 256, 2, 512, compute_dtype=dtype, seq_len=t, batch_size=512) is True
+        for batch in (33, 512, 1024, None):
+            assert r(None, 256, 2, 512, compute_dtype=dtype, seq_len=128,
+                     batch_size=batch) is False, batch
+        for d, heads, ff in ((512, 4, 1024), (128, 2, 256), (256, 4, 512), (256, 2, 1024)):
+            assert r(None, d, heads, ff, compute_dtype=dtype, seq_len=128,
+                     batch_size=32) is False, (d, heads, ff)
+            assert r(None, d, heads, ff, compute_dtype=dtype, seq_len=32,
+                     batch_size=32) is (d <= 256 or dtype == torch.bfloat16), (d, heads, ff)
+        # a data rank's share of a dp-only plan is the batch that counts
+        assert r(None, 256, 2, 512, 4, dtype, 128, batch_size=128, dp_shard_ok=True) is True
+        assert r(None, 256, 2, 512, 4, dtype, 128, batch_size=256, dp_shard_ok=True) is False
+    params = {"model": {**FLAGSHIP, "dropout": 0.1, "max_len": 256,
+                        "num_decoder_layers": 2 if "decoder" in resolve else 0},
+              "training": {"batch_size": 32}, "load_model": None}
+    cfg = initialize_model(params, "cpu")[0].config
+    assert not cfg.fused_layer and not cfg.fused_decoder_layer  # T 256: not measured
+    params["model"]["max_len"] = 128
+    cfg = initialize_model(params, "cpu")[0].config
+    assert cfg.fused_layer and cfg.fused_decoder_layer == ("decoder" in resolve)
+
+
 @pytest.mark.parametrize("decoder", [False, True])
 def test_f32_layer_gate_and_auto_stop_at_the_measured_ff(decoder):
     """The f32 chains' LayerNorm-epilogue products cannot promote their sums
@@ -707,6 +746,58 @@ def test_initialize_model_and_train_loop(rng, tmp_path):
     assert epoch == 7
     for name, p in bundle.model.state_dict().items():
         assert torch.equal(resumed.model.state_dict()[name], p), name
+
+
+def test_initialize_model_at_max_len_128_trains_like_jax():
+    """8-bar loops: ``initialize_model`` at ``max_len`` 128 (fused_layer given:
+    its twin on the CPU, the chains past T 32 on the card) and the JAX
+    package's at the same weights train 3 SGD steps on a ``max_seq_len`` 128
+    synthetic dataset (the audio experiment's MSO inputs) to within 5e-5 of
+    each other; the served answer of the trained weights at T 128 (the port's
+    ``InfillServer``, #1 on the card) matches the JAX bundle's ``predict``."""
+    from transformergrooveinfilling_tpu.train.driver import initialize_model as jax_initialize
+    from transformergrooveinfilling_tpu_torch.data.datasets import (
+        GrooveMidiDatasetInfillingRandom,
+    )
+    from transformergrooveinfilling_tpu_torch.data.synthetic import synthetic_gmd_sequences
+    from transformergrooveinfilling_tpu_torch.serve import InfillServer
+
+    t, batch = 128, 4
+    ds = GrooveMidiDatasetInfillingRandom(data=synthetic_gmd_sequences(12, seed=0, t=t),
+                                          max_seq_len=t, seed=0, device="cpu", save=False,
+                                          max_aug_items=1)
+    assert ds.processed_inputs.shape == (12, t, 16) and ds.processed_outputs.shape == (12, t, 27)
+    params = {"model": {**{k: v for k, v in FLAGSHIP.items() if k != "num_encoder_layers"},
+                        "num_encoder_layers": 2, "dropout": 0.0, "max_len": t,
+                        "optimizer": "sgd", "fused_layer": True},
+              "training": {"learning_rate": LR, "batch_size": batch, "seed": 0},
+              "load_model": None}
+    jax_bundle, _, _ = jax_initialize(params)
+    bundle, _, _ = initialize_model(params, "cpu")
+    assert bundle.config.max_len == jax_bundle.config.max_len == t and bundle.config.fused_layer
+    bundle.model.load_state_dict(state_dict_from_flax_params(
+        jax.tree.map(np.asarray, jax_bundle.state.params), bundle.config), strict=True)
+    jax_step = jax.jit(jax_loop.make_train_step(jax_bundle.model, jax_bundle.tx, PENALTY))
+    step, gen = make_train_step(PENALTY), torch.Generator().manual_seed(0)
+    jax_state, w = jax_bundle.state, np.ones(batch, np.float32)
+    for i in range(3):
+        x, y = (a[batch * i:batch * (i + 1)] for a in (ds.processed_inputs, ds.processed_outputs))
+        jax_state, want = jax_step(jax_state, jnp.asarray(x), jnp.asarray(y), jnp.asarray(w),
+                                   jax.random.PRNGKey(i))
+        got = step(bundle.state, torch.from_numpy(x), torch.from_numpy(y),
+                   torch.from_numpy(w), gen)
+        for k in got:
+            np.testing.assert_allclose(float(got[k]), float(want[k]), rtol=2e-4, atol=1e-6,
+                                       err_msg=f"step {i} {k}")
+    _assert_params_close(bundle.state, jax_state, bundle.config)
+    jax_bundle.state = jax_state
+    srv = InfillServer(bundle.model.state_dict(), bundle.config, batch_sizes=(1, 8),
+                       device="cpu")
+    x = ds.processed_inputs[:3]
+    got, want = srv.infill(x), np.concatenate(jax_bundle.predict(x), axis=-1)
+    assert got.shape == (3, t, 27)
+    np.testing.assert_allclose(got[..., 9:], want[..., 9:], atol=1e-5)
+    assert np.mean(got[..., :9] == want[..., :9]) > 0.999
 
 
 def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):

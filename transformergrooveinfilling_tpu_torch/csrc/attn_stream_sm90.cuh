@@ -285,11 +285,10 @@ __device__ __forceinline__ void pipeline(int steps, Load&& load, Compute&& compu
 // ---------------------------------------------------------------- scores
 
 // part (16 × 16·KT: 2·KT tiles of 8 keys) += A (16 rows of `a`) · B (16·KT
-// rows of `b`)ᵀ over a chunk of CW columns
-template <int CW, int KT>
+// rows of `b`)ᵀ over a chunk of CW columns (rows kLd apart: a stage's)
+template <int CW, int KT, int kLd = stage_ld<bf16, CW>()>
 __device__ __forceinline__ void rows_by_rows(float (&part)[2 * KT][4], const bf16* a,
                                              const bf16* b) {
-  constexpr int kLd = stage_ld<bf16, CW>();
   const int lane = threadIdx.x & 31, mi = lane >> 3, mr = lane & 7;
 #pragma unroll
   for (int kc = 0; kc < CW / 16; ++kc) {
@@ -305,10 +304,9 @@ __device__ __forceinline__ void rows_by_rows(float (&part)[2 * KT][4], const bf1
   }
 }
 
-template <int CW, int KT>
+template <int CW, int KT, int kLd = stage_ld<float, CW>()>
 __device__ __forceinline__ void rows_by_rows(float (&part)[2 * KT][4], const float* a,
                                              const float* b) {
-  constexpr int kLd = stage_ld<float, CW>();
   const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
 #pragma unroll
   for (int k0 = 0; k0 < CW; k0 += 8) {
@@ -691,7 +689,781 @@ struct Share {
 struct NoDrop {
   template <int NT>
   __device__ __forceinline__ void operator()(float (&)[NT][4]) const {}
+  // the long route's: query row i, columns 16g .. 16g + 15
+  __device__ __forceinline__ void operator()(int, int, float (&)[16]) const {}
 };
+
+// ---------------------------------------------------------------- the long route
+//
+// Past the short route's rows (#1 past T 64, the chains past T 32) a warp's
+// (16 × T) scores no longer fit its registers (at T 256, 128 of a lane's
+// registers a score array, and the backward holds four). So a (sequence,
+// head) is split over blocks by its query rows, QR = 16·QW of them a block of
+// kLongWarps warps, and the block's (QR × T) f32 scores live in shared memory
+// (4·QR·(T + 4) bytes: QR 64 up to T 256, 32 up to 512, 16 past it, so a
+// block takes 66 KB of scores at T 256, 512 and 1,024). The head's columns
+// still stream through a cp.async ring, so shared memory does not grow with
+// hd. A block's work, through one ring:
+//   scores  for each key tile of kKeys keys, for each chunk of CW columns
+//           (64 bytes of a row): S_tile += Q_chunk · K_tileᵀ, each warp its
+//           16 rows × kKeys / P keys (P = kLongWarps / QW parts of a tile),
+//           the sums promoted every 128 bytes of a row as in the short route,
+//           then stored to the scores;
+//   softmax each row from shared memory in three sweeps (max; exp and sum;
+//           divide and drop), a row's 16-column groups one a lane;
+//   output  for each chunk of CWO columns, for each key tile: O_chunk +=
+//           round(P_tile) · V_tile (each warp its 16 rows × CWO / P columns),
+//           a fresh accumulator a key tile added to the running sums in key
+//           order, then stored 16 bytes a lane through a staging tile.
+// The backward (the chains) runs two kernels: rows (the forward's scores and
+// softmax, dP = drop(dA·Vᵀ) beside S, dS, then the output again and dQ, and
+// round(drop(P)) and round(dS) written to a scratch (heads, T, ldT)), then
+// columns, a block per key tile, dV = Σ over the query tiles of
+// drop(P)ᵀ·dA and dK = Σ dSᵀ·Q read from that scratch, a fresh accumulator
+// a query tile. Every sum has one order, and no block adds into another's
+// output: a rerun is bit for bit.
+
+constexpr int kKeys = 64;  // a key tile
+constexpr int kLongMaxT = 2048;  // the long forward's longest sequence (#1's ceiling)
+constexpr int kLongWarps = 4;
+constexpr int kLongStages = 3;  // the forward's ring (the backward's: 2)
+
+template <class E>
+__host__ __device__ constexpr int long_cw() {
+  return bwd_cw<E>();  // 64 bytes of a row a score chunk
+}
+
+// the scores' row stride (floats): T rounded up to a key tile, + 4 (4 mod 8:
+// the fragments' scalar reads fall in 32 banks)
+__host__ __device__ constexpr int scores_ld(int t) {
+  return kKeys * ((t + kKeys - 1) / kKeys) + 4;
+}
+
+// a long forward's blocks: QW 16-row groups of query rows a block
+__host__ __device__ constexpr int long_qw(int t) { return t <= 256 ? 4 : t <= 512 ? 2 : 1; }
+
+template <class E, int QW>
+struct LongFwd {
+  static constexpr int QR = 16 * QW, P = kLongWarps / QW, CW = long_cw<E>(), CWO = 2 * CW;
+  static constexpr int CWW = CWO / P;  // a warp's output columns
+  static constexpr int S = kLongStages;
+  static constexpr size_t kStage =
+      sizeof(E) * ((QR + kKeys) * stage_ld<E, CW>() > kKeys * stage_ld<E, CWO>()
+                       ? (QR + kKeys) * stage_ld<E, CW>()
+                       : kKeys * stage_ld<E, CWO>());
+  static constexpr size_t kFixed = S * kStage + sizeof(E) * kLongWarps * out_tile<E, CWW>();
+  static constexpr size_t smem(int t) { return kFixed + sizeof(float) * QR * scores_ld(t); }
+};
+
+// ... the backward's rows kernel: 32 query rows a block, Q, K, dA and V a
+// stage, the output and dQ in chunks of CW (16 of a warp's columns in bf16, 8
+// in f32), two ring stages and two score arrays (S then P; dP then dS)
+template <class E>
+struct LongBwd {
+  static constexpr int QW = 2, QR = 32, P = kLongWarps / QW, CW = long_cw<E>(), CWO = CW;
+  static constexpr int CWW = CWO / P;
+  static constexpr int S = 2;
+  static constexpr size_t kStage = sizeof(E) * 2 * (QR + kKeys) * stage_ld<E, CW>();
+  static constexpr size_t kFixed = S * kStage + sizeof(E) * kLongWarps * out_tile<E, CWW>();
+  static constexpr size_t smem(int t) { return kFixed + 2 * sizeof(float) * QR * scores_ld(t); }
+};
+
+// ... and its columns kernel: a block per key tile, a warp its 16 keys; a
+// stage holds the key tile's (64 query rows × kKeys) drop(P) and dS and the
+// query tile's chunk of dA and Q
+template <class E>
+struct LongCols {
+  static constexpr int CW = long_cw<E>(), S = 2;
+  static constexpr size_t kStage =
+      sizeof(E) * 2 * kKeys * (stage_ld<E, kKeys>() + stage_ld<E, CW>());
+  static constexpr size_t smem() { return S * kStage + sizeof(E) * kLongWarps * out_tile<E, CW>(); }
+};
+
+// scratch rows: T rounded up to 8 (16-byte rows in both dtypes)
+__host__ __device__ constexpr int scratch_ld(int t) { return (t + 7) / 8 * 8; }
+
+// rows [0, n) of `src` (rows < valid and columns col .. col + CW below hd
+// read, the rest zero) into `dst` (rows of stage_ld<E, CW>()), copies of
+// BYTES shared by the block's threads
+template <int BYTES, class E, int CW>
+__device__ __forceinline__ void load_tile_by(E* dst, const Rows<E>& src, int n, int valid,
+                                             int col, int hd) {
+  constexpr int kLd = stage_ld<E, CW>(), kPer = BYTES / sizeof(E), kRow = CW / kPer;
+  for (int idx = threadIdx.x; idx < n * kRow; idx += blockDim.x) {
+    const int r = idx / kRow, c = kPer * (idx - r * kRow);
+    const bool ok = r < valid && col + c < hd;
+    E* d = dst + r * kLd + c;
+    const E* s = ok ? src.p + r * src.ld + col + c : src.p;
+    if constexpr (BYTES >= 4)
+      cp_async<BYTES>(d, s, ok);
+    else
+      *d = ok ? *s : __float2bfloat16(0.f);
+  }
+}
+
+template <class E, int CW>
+__device__ __forceinline__ void load_tile(E* dst, const Rows<E>& src, int n, int valid, int col,
+                                          int hd, int copy) {
+  if (copy == 16)
+    load_tile_by<16, E, CW>(dst, src, n, valid, col, hd);
+  else if (copy == 8)
+    load_tile_by<8, E, CW>(dst, src, n, valid, col, hd);
+  else if constexpr (sizeof(E) == 2) {
+    if (copy == 4)
+      load_tile_by<4, E, CW>(dst, src, n, valid, col, hd);
+    else
+      load_tile_by<2, E, CW>(dst, src, n, valid, col, hd);
+  } else {
+    load_tile_by<4, E, CW>(dst, src, n, valid, col, hd);
+  }
+}
+
+// rows [row0, ...) of a head's rows
+template <class E>
+__device__ __forceinline__ Rows<E> from_row(const Rows<E>& h, int row0) {
+  return {h.p + row0 * h.ld, h.ld};
+}
+
+// f32 fragments (16 × 8·NT) into 16 rows of `dst` (row stride ld floats)
+template <int NT>
+__device__ __forceinline__ void frags_store(float* dst, int ld, const float (&x)[NT][4]) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, c0 = 2 * (lane & 3);
+#pragma unroll
+  for (int n = 0; n < NT; ++n) {
+    *reinterpret_cast<float2*>(dst + g * ld + 8 * n + c0) = make_float2(x[n][0], x[n][1]);
+    *reinterpret_cast<float2*>(dst + (g + 8) * ld + 8 * n + c0) = make_float2(x[n][2], x[n][3]);
+  }
+}
+
+template <int NT>
+__device__ __forceinline__ void zero(float (&x)[NT][4]) {
+#pragma unroll
+  for (int n = 0; n < NT; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) x[n][e] = 0.f;
+}
+
+// The A fragment (16 × 16, k chunk kc) of 16 f32 rows `p` (stride ld),
+// rounded to bf16
+__device__ __forceinline__ void a_frag_f32(uint32_t (&a)[4], const float* p, int ld, int kc) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, c = 16 * kc + 2 * (lane & 3);
+  const float2 x0 = *reinterpret_cast<const float2*>(p + g * ld + c);
+  const float2 x1 = *reinterpret_cast<const float2*>(p + (g + 8) * ld + c);
+  const float2 x2 = *reinterpret_cast<const float2*>(p + g * ld + c + 8);
+  const float2 x3 = *reinterpret_cast<const float2*>(p + (g + 8) * ld + c + 8);
+  a[0] = pack_bf16(x0.x, x0.y);
+  a[1] = pack_bf16(x1.x, x1.y);
+  a[2] = pack_bf16(x2.x, x2.y);
+  a[3] = pack_bf16(x3.x, x3.y);
+}
+
+// The A fragment (16 × 16, k chunk kc) of 16 columns (TRANS: rows are the
+// tile's columns c0 .. c0 + 15) of the bf16 tile `m` (stride ld)
+__device__ __forceinline__ void a_frag_t(uint32_t (&a)[4], const bf16* m, int ld, int c0,
+                                         int kc) {
+  const int lane = threadIdx.x & 31, mi = lane >> 3, mr = lane & 7;
+  ldsm_x4_t(a, m + (16 * kc + (mi >> 1) * 8 + mr) * ld + c0 + (mi & 1) * 8);
+}
+
+// acc (16 × 8·NT) += A (16 × 16·KT) · X (16·KT rows of `x`, stride XLD,
+// columns 0 .. 8·NT), bf16: A's fragments from `a(kc, frag)`
+template <int NT, int KT, int XLD, class AFrag>
+__device__ __forceinline__ void mma_into(float (&acc)[NT][4], const AFrag& a, const bf16* x) {
+  static_assert(NT % 2 == 0, "bf16 products take 16 columns at a time");
+  const int lane = threadIdx.x & 31, mi = lane >> 3, mr = lane & 7;
+#pragma unroll
+  for (int kc = 0; kc < KT; ++kc) {
+    uint32_t fa[4];
+    a(kc, fa);
+#pragma unroll
+    for (int dp = 0; dp < NT / 2; ++dp) {
+      uint32_t fb[4];
+      ldsm_x4_t(fb, x + (16 * kc + (mi & 1) * 8 + mr) * XLD + 16 * dp + (mi >> 1) * 8);
+      mma_bf16(acc[2 * dp], fa, fb[0], fb[1]);
+      mma_bf16(acc[2 * dp + 1], fa, fb[2], fb[3]);
+    }
+  }
+}
+
+// ... f32 in split TF32: A the 16 rows (TRANS: 16 columns) of the f32 `m`
+// (stride ld), k = 16·KT
+template <int NT, int KT, int XLD, bool TRANS>
+__device__ __forceinline__ void mma_into(float (&acc)[NT][4], const float* m, int ld,
+                                         const float* x) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int k = 0; k < 2 * KT; ++k) {
+    const SplitA fa = a_frag<TRANS>(m, ld, 8 * k);
+    const int r = 8 * k + t;
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+      mma_x3(acc[n], fa, x[r * XLD + 8 * n + g], x[(r + 4) * XLD + 8 * n + g]);
+  }
+}
+
+// acc (16 × 8·NT) as E through this warp's staging tile `wt` (16 rows of
+// TLD) into out's rows row0 .. row0 + 15, columns c0 .. c0 + 8·NT
+template <int NT, int TLD, class E>
+__device__ __forceinline__ void store_acc(const float (&acc)[NT][4], E* wt, const Out<E>& out,
+                                          int row0, int c0) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, cl = 2 * (lane & 3);
+#pragma unroll
+  for (int n = 0; n < NT; ++n) {
+    if constexpr (sizeof(E) == 2) {
+      *reinterpret_cast<uint32_t*>(wt + g * TLD + 8 * n + cl) = pack_bf16(acc[n][0], acc[n][1]);
+      *reinterpret_cast<uint32_t*>(wt + (g + 8) * TLD + 8 * n + cl) =
+          pack_bf16(acc[n][2], acc[n][3]);
+    } else {
+      *reinterpret_cast<float2*>(wt + g * TLD + 8 * n + cl) = make_float2(acc[n][0], acc[n][1]);
+      *reinterpret_cast<float2*>(wt + (g + 8) * TLD + 8 * n + cl) =
+          make_float2(acc[n][2], acc[n][3]);
+    }
+  }
+  __syncwarp();
+  out.template store<8 * NT, TLD>(wt, row0, c0);
+  __syncwarp();  // the tile is read before it is written again
+}
+
+// acc (16 × 8·NT) += round(P) · X: P 16 f32 rows of the scores (keys k0 ..
+// k0 + kKeys), X a stage tile of kKeys rows (stride XLD) from its column 0
+template <int NT, int XLD, class E>
+__device__ __forceinline__ void scores_by_tile(float (&acc)[NT][4], const float* p, int ld,
+                                               const E* x) {
+  if constexpr (sizeof(E) == 2)
+    mma_into<NT, kKeys / 16, XLD>(
+        acc, [&](int kc, uint32_t(&fa)[4]) { a_frag_f32(fa, p, ld, kc); }, x);
+  else
+    mma_into<NT, kKeys / 16, XLD, false>(acc, p, ld, x);
+}
+
+// ... and acc += Mᵀ · X: M this warp's 16 columns c0 .. of a (kKeys, ML)
+// stage tile (the columns kernel: drop(P)ᵀ or dSᵀ over a query tile)
+template <int NT, int ML, int XLD, class E>
+__device__ __forceinline__ void tile_t_by_tile(float (&acc)[NT][4], const E* m, int c0,
+                                               const E* x) {
+  if constexpr (sizeof(E) == 2)
+    mma_into<NT, kKeys / 16, XLD>(
+        acc, [&](int kc, uint32_t(&fa)[4]) { a_frag_t(fa, m, ML, c0, kc); }, x);
+  else
+    mma_into<NT, kKeys / 16, XLD, true>(acc, m + c0, ML, x);
+}
+
+// ---------------------------------------------------------------- its softmax
+
+// a row's lanes: one for each of its groups of 16 columns, a power of two ≤ 32
+__device__ __forceinline__ int lanes_per_row(int groups) {
+  int l = 1;
+  while (l < groups && l < 32) l <<= 1;
+  return l;
+}
+
+__device__ __forceinline__ float lanes_max(float x, int lanes) {
+  for (int o = lanes >> 1; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
+  return x;
+}
+__device__ __forceinline__ float lanes_sum(float x, int lanes) {
+  for (int o = lanes >> 1; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
+  return x;
+}
+
+__device__ __forceinline__ void load16(float (&x)[16], const float* p) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float4 v = reinterpret_cast<const float4*>(p)[i];
+    x[4 * i] = v.x;
+    x[4 * i + 1] = v.y;
+    x[4 * i + 2] = v.z;
+    x[4 * i + 3] = v.w;
+  }
+}
+__device__ __forceinline__ void store16(float* p, const float (&x)[16]) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    reinterpret_cast<float4*>(p)[i] = make_float4(x[4 * i], x[4 * i + 1], x[4 * i + 2],
+                                                  x[4 * i + 3]);
+}
+
+// The rows of the block's scores this warp takes, in sets of 32 / lanes, a
+// row's lanes on one aligned group: fn(r, sub, on), r the block's row, sub
+// the lane's place in the row's group, on unless past `rows` or T. Every
+// lane of the warp calls fn the same number of times (fn's shuffles).
+template <class Fn>
+__device__ __forceinline__ void warp_rows(int rows, int row0, int t, int lanes, Fn&& fn) {
+  const int lane = threadIdx.x & 31, per = 32 / lanes, w = threadIdx.x >> 5;
+  const int first = w * rows;
+  for (int base = 0; base < rows; base += per) {
+    const int r = first + base + lane / lanes;
+    fn(r, lane & (lanes - 1), base + lane / lanes < rows && row0 + r < t);
+  }
+}
+
+// This lane's groups of 16 columns of a row (groups sub, sub + lanes, ..., NG
+// of them at most), scaled and masked: keys ≥ t no weight, keys after the
+// row's own (i) `fill` where causal; returns the lane's largest value
+template <int NG>
+__device__ __forceinline__ float load_masked(float (&x)[NG][16], const float* row, int i, int t,
+                                             int groups, int sub, int lanes, bool on, float scale,
+                                             bool causal, float fill) {
+  float m = -INFINITY;
+#pragma unroll
+  for (int k = 0; k < NG; ++k) {
+    const int g = sub + k * lanes;
+    if (!on || g >= groups) continue;
+    load16(x[k], row + 16 * g);
+#pragma unroll
+    for (int e = 0; e < 16; ++e) {
+      const int j = 16 * g + e;
+      x[k][e] = j >= t ? -INFINITY : causal && j > i ? fill : x[k][e] * scale;
+      m = fmaxf(m, x[k][e]);
+    }
+  }
+  return m;
+}
+
+// The softmax of a row held by its lanes' groups, in place: e = exp(x − max)
+// times 1 / Σ e, the max and the sum over the row's lanes
+template <int NG>
+__device__ __forceinline__ void softmax_vals(float (&x)[NG][16], float m, int groups, int sub,
+                                             int lanes, bool on) {
+  m = lanes_max(m, lanes);
+  float sum = 0.f;
+#pragma unroll
+  for (int k = 0; k < NG; ++k) {
+    if (!on || sub + k * lanes >= groups) continue;
+#pragma unroll
+    for (int e = 0; e < 16; ++e) {
+      x[k][e] = expf(x[k][e] - m);
+      sum += x[k][e];
+    }
+  }
+  const float inv = 1.f / lanes_sum(sum, lanes);
+#pragma unroll
+  for (int k = 0; k < NG; ++k)
+#pragma unroll
+    for (int e = 0; e < 16; ++e) x[k][e] *= inv;
+}
+
+// The forward's softmax of the block's QR rows (query rows row0 ..), in
+// place: P = drop(softmax), drop(i, g, x) the dropout of row i's columns 16g
+// .. 16g + 15; a lane holds NG groups of a row in registers (lanes · NG · 16
+// ≥ T), so each score is read and written once
+template <int NG, class Drop>
+__device__ __forceinline__ void softmax_rows(float* sc, int ld, int qr, int row0, int t,
+                                             float scale, bool causal, float fill,
+                                             const Drop& drop) {
+  const int groups = (t + 15) / 16, lanes = lanes_per_row(groups);
+  warp_rows(qr / kLongWarps, row0, t, lanes, [&](int r, int sub, bool on) {
+    float* row = sc + r * ld;
+    float x[NG][16];
+    const float m = load_masked(x, row, row0 + r, t, groups, sub, lanes, on, scale, causal, fill);
+    softmax_vals(x, m, groups, sub, lanes, on);
+#pragma unroll
+    for (int k = 0; k < NG; ++k) {
+      const int g = sub + k * lanes;
+      if (!on || g >= groups) continue;
+      drop(row0 + r, g, x[k]);
+      store16(row + 16 * g, x[k]);
+    }
+  });
+}
+
+// ---------------------------------------------------------------- its forward
+
+// The (QR × kKeys) score tile of key tile kt over a chunk of CW columns, this
+// warp's 16 rows (rg) × kKeys / P keys (pw); the sums promoted every 128
+// bytes of a row (every two chunks), stored to the scores after the last
+template <class E, int QR, int P, int CW>
+__device__ __forceinline__ void score_step(float (&acc)[8 / P][4], float (&part)[8 / P][4],
+                                           const E* tq, const E* tk, int c, int n_c, float* sc,
+                                           int ld, int kt) {
+  constexpr int KT = 4 / P, kLd = stage_ld<E, CW>(), QW = QR / 16;
+  const int w = threadIdx.x >> 5, rg = w % QW, pw = w / QW;
+  rows_by_rows<CW, KT>(part, tq + 16 * rg * kLd, tk + 16 * KT * pw * kLd);
+  if (c % 2 == 1 || c == n_c - 1) promote(acc, part);
+  if (c == n_c - 1) {
+    frags_store(sc + 16 * rg * ld + kKeys * kt + 16 * KT * pw, ld, acc);
+    zero(acc);
+  }
+}
+
+// The attention of query rows row0 .. row0 + QR of one (sequence, head):
+// out = round(drop(P))·V, P = softmax(q·kᵀ · scale) (keys after a row's own
+// filled with `fill` where causal), by the block's kLongWarps warps
+template <class E, int QW, class Drop>
+__device__ __forceinline__ void long_forward(unsigned char* smem, const Rows<E>& q,
+                                             const Rows<E>& k, const Rows<E>& v,
+                                             const Out<E>& out, int t, int hd, int row0,
+                                             float scale, bool causal, float fill, int copy,
+                                             const Drop& drop) {
+  using L = LongFwd<E, QW>;
+  constexpr int QR = L::QR, P = L::P, CW = L::CW, CWO = L::CWO, CWW = L::CWW;
+  constexpr int kLd = stage_ld<E, CW>(), kOld = stage_ld<E, CWO>();
+  const int n_kt = (t + kKeys - 1) / kKeys, n_c = (hd + CW - 1) / CW;
+  const int n_co = (hd + CWO - 1) / CWO, n_s = n_kt * n_c, ld = scores_ld(t);
+  E* wt = reinterpret_cast<E*>(smem + L::S * L::kStage) + (threadIdx.x >> 5) * out_tile<E, CWW>();
+  float* sc = reinterpret_cast<float*>(smem + L::kFixed);
+  auto stage = [&](int i) { return reinterpret_cast<E*>(smem + (i % L::S) * L::kStage); };
+  const int w = threadIdx.x >> 5, rg = w % QW, pw = w / QW;
+  float acc[8 / P][4] = {}, part[8 / P][4] = {};
+  float o[CWW / 8][4] = {}, po[CWW / 8][4] = {};
+  auto load = [&](int i) {
+    E* st = stage(i);
+    if (i < n_s) {
+      const int kt = i / n_c, c = (i % n_c) * CW;
+      load_tile<E, CW>(st, from_row(q, row0), QR, t - row0, c, hd, copy);
+      load_tile<E, CW>(st + QR * kLd, from_row(k, kKeys * kt), kKeys, t - kKeys * kt, c, hd, copy);
+    } else {
+      const int j = i - n_s, kt = j % n_kt;
+      load_tile<E, CWO>(st, from_row(v, kKeys * kt), kKeys, t - kKeys * kt, (j / n_kt) * CWO, hd,
+                        copy);
+    }
+  };
+  auto compute = [&](int i) {
+    const E* st = stage(i);
+    if (i < n_s) {
+      score_step<E, QR, P, CW>(acc, part, st, st + QR * kLd, i % n_c, n_c, sc, ld, i / n_c);
+      return;
+    }
+    const int j = i - n_s, co = j / n_kt, kt = j % n_kt;
+    if (j == 0) {  // every warp's scores stored (the step's barrier)
+      softmax_rows<QW == 1 ? kLongMaxT / (32 * 16) : 1>(sc, ld, QR, row0, t, scale, causal, fill,
+                                                          drop);
+      __syncthreads();
+    }
+    scores_by_tile<CWW / 8, kOld>(po, sc + 16 * rg * ld + kKeys * kt, ld, st + CWW * pw);
+    promote(o, po);
+    if (kt == n_kt - 1) {
+      if (co * CWO + CWW * pw < hd)
+        store_acc<CWW / 8, stage_ld<E, CWW>()>(o, wt, out, row0 + 16 * rg, co * CWO + CWW * pw);
+      zero(o);
+    }
+  };
+  pipeline<L::S>(n_s + n_co * n_kt, load, compute);
+}
+
+// ---------------------------------------------------------------- its flash forward
+//
+// For heads up to kFlashHd (128: the flagship's) the long forward needs no
+// scores in shared memory: a block keeps its 64 query rows resident and each
+// warp its 16 × hd output in registers, and walks the key tiles once, K then
+// V a ring stage each: S = Q·Kᵀ (sums promoted every 128 bytes of a row as
+// in the short route), each row's running max and sum (the output so far
+// scaled by exp(m_old − m_new)), then O += round(P̃)·V with P̃ = exp(S − m)
+// (f32: a fresh accumulator a key tile and 64 columns, added in key order;
+// bf16 into the running sums, whose truncation the output's rounding to bf16
+// hides, for the registers of a third block an SM); O / Σ at the end. Each of
+// K and V crosses into the block once, and a causal block stops at its last
+// row's key tile (past it every weight is exp(fill − m) = 0). #1's: it rounds
+// the unnormalised P̃ to bf16 where the plain version rounds P, which its bar
+// takes; the chains' forward keeps the scores form, which rounds P.
+
+constexpr int kFlashHd = 128;
+
+template <class E>
+struct Flash {
+  static constexpr int QR = kKeys, CW = kFlashHd, kLd = stage_ld<E, CW>(), S = 3;
+  static constexpr size_t kTile = sizeof(E) * kKeys * kLd;  // Q, or a key tile of K or V
+  // Q, the ring, and in f32 the warps' (16, 68) probabilities
+  static constexpr size_t smem() {
+    return (1 + S) * kTile + (sizeof(E) == 2 ? 0 : sizeof(float) * QR * p_ld<4>());
+  }
+};
+
+template <class E>
+__device__ __forceinline__ void flash_forward(unsigned char* smem, const Rows<E>& q,
+                                              const Rows<E>& k, const Rows<E>& v,
+                                              const Out<E>& out, int t, int hd, int row0,
+                                              float scale, bool causal, float fill, int copy) {
+  using F = Flash<E>;
+  constexpr int CW = F::CW, kLd = F::kLd, PC = fwd_cw<E>();  // PC: a promotion chunk
+  E* tq = reinterpret_cast<E*>(smem);
+  auto stage = [&](int i) { return reinterpret_cast<E*>(smem + (1 + i % F::S) * F::kTile); };
+  float* ptile = reinterpret_cast<float*>(smem + (1 + F::S) * F::kTile);  // f32 only
+  const int w16 = 16 * (threadIdx.x >> 5), lane = threadIdx.x & 31, g = lane >> 2;
+  const int c0 = 2 * (lane & 3);
+  int n_kt = (t + kKeys - 1) / kKeys;
+  if (causal) n_kt = min(n_kt, (row0 + F::QR - 1) / kKeys + 1);
+  const int n_pc = (min(hd, CW) + PC - 1) / PC;
+  float o[CW / 8][4] = {}, s[8][4], part[8][4] = {};
+  float m_run[2] = {-INFINITY, -INFINITY}, l_run[2] = {0.f, 0.f};
+  uint32_t pa[4][4];  // bf16: round(P̃) as A fragments
+  auto load = [&](int i) {
+    const int kt = i / 2;
+    if (i == 0) load_tile<E, CW>(tq, from_row(q, row0), F::QR, t - row0, 0, hd, copy);
+    load_tile<E, CW>(stage(i), from_row(i % 2 ? v : k, kKeys * kt), kKeys, t - kKeys * kt, 0,
+                     hd, copy);
+  };
+  auto compute = [&](int i) {
+    const int kt = i / 2;
+    const E* tile = stage(i);
+    if (i % 2 == 0) {
+      zero(s);
+      for (int c = 0; c < n_pc; ++c) {
+        rows_by_rows<PC, 4, kLd>(part, tq + w16 * kLd + c * PC, tile + c * PC);
+        promote(s, part);
+      }
+      float m_new[2] = {m_run[0], m_run[1]};
+#pragma unroll
+      for (int n = 0; n < 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int ri = row0 + w16 + g + 8 * (e >> 1), j = kKeys * kt + 8 * n + c0 + (e & 1);
+          s[n][e] = j >= t ? -INFINITY : causal && j > ri ? fill : s[n][e] * scale;
+          m_new[e >> 1] = fmaxf(m_new[e >> 1], s[n][e]);
+        }
+      float alpha[2];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        m_new[h] = fmaxf(m_new[h], __shfl_xor_sync(0xffffffffu, m_new[h], 1));
+        m_new[h] = fmaxf(m_new[h], __shfl_xor_sync(0xffffffffu, m_new[h], 2));
+        alpha[h] = expf(m_run[h] - m_new[h]);
+        m_run[h] = m_new[h];
+        l_run[h] *= alpha[h];
+      }
+#pragma unroll
+      for (int n = 0; n < 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          s[n][e] = expf(s[n][e] - m_run[e >> 1]);
+          l_run[e >> 1] += s[n][e];
+        }
+#pragma unroll
+      for (int n = 0; n < CW / 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) o[n][e] *= alpha[e >> 1];
+      if constexpr (sizeof(E) == 2) {
+        to_a_frags(pa, s);
+      } else {
+        frags_to_tile(ptile, p_ld<4>(), s);
+        __syncwarp();
+      }
+      return;
+    }
+#pragma unroll
+    for (int h = 0; h < CW / 64; ++h) {
+      if (64 * h >= hd) break;
+      if constexpr (sizeof(E) == 2) {  // into the running sums: rounded to bf16 at the end
+        const int mi = lane >> 3, mr = lane & 7;
+#pragma unroll
+        for (int kc = 0; kc < 4; ++kc)
+#pragma unroll
+          for (int dp = 0; dp < 4; ++dp) {
+            uint32_t fb[4];
+            ldsm_x4_t(fb, tile + (16 * kc + (mi & 1) * 8 + mr) * kLd + 64 * h + 16 * dp +
+                              (mi >> 1) * 8);
+            mma_bf16(o[8 * h + 2 * dp], pa[kc], fb[0], fb[1]);
+            mma_bf16(o[8 * h + 2 * dp + 1], pa[kc], fb[2], fb[3]);
+          }
+      } else {  // f32: a fresh accumulator a key tile, added in key order
+        float pv[8][4] = {};
+        mma_into<8, 4, kLd, false>(pv, ptile + w16 * p_ld<4>(), p_ld<4>(), tile + 64 * h);
+#pragma unroll
+        for (int n = 0; n < 8; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) o[8 * h + n][e] += pv[n][e];
+      }
+    }
+  };
+  pipeline<F::S>(2 * n_kt, load, compute);
+  float inv[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    float l = l_run[h] + __shfl_xor_sync(0xffffffffu, l_run[h], 1);
+    l += __shfl_xor_sync(0xffffffffu, l, 2);
+    inv[h] = 1.f / l;
+  }
+#pragma unroll
+  for (int n = 0; n < CW / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[n][e] *= inv[e >> 1];
+  E* wt = tq + w16 * kLd;  // this warp's own Q rows: no other warp reads them
+#pragma unroll
+  for (int h = 0; h < CW / 64; ++h) {
+    if (64 * h >= hd) break;
+    float oh[8][4];
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) oh[n][e] = o[8 * h + n][e];
+    store_acc<8, kLd>(oh, wt, out, row0 + w16, 64 * h);
+  }
+}
+
+// ---------------------------------------------------------------- its backward
+
+__device__ __forceinline__ void put8(bf16* p, const float* v) {
+  uint4 u;
+  u.x = pack_bf16(v[0], v[1]);
+  u.y = pack_bf16(v[2], v[3]);
+  u.z = pack_bf16(v[4], v[5]);
+  u.w = pack_bf16(v[6], v[7]);
+  *reinterpret_cast<uint4*>(p) = u;
+}
+__device__ __forceinline__ void put8(float* p, const float* v) {
+  reinterpret_cast<float4*>(p)[0] = make_float4(v[0], v[1], v[2], v[3]);
+  reinterpret_cast<float4*>(p)[1] = make_float4(v[4], v[5], v[6], v[7]);
+}
+
+// columns 16g .. 16g + 15 of a scratch row (stride-ld rows, columns < ld)
+template <class E>
+__device__ __forceinline__ void put16(E* row, int g, int ld, const float (&x)[16]) {
+  if (16 * g < ld) put8(row + 16 * g, x);
+  if (16 * g + 8 < ld) put8(row + 16 * g + 8, x + 8);
+}
+
+// The backward's softmax of the block's QR rows (T ≤ 512: a group of each
+// row a lane): P again as the forward computes it, dP = drop(dP) and Σ_j
+// dP·P, then dS = P·(dP − Σ_j dP·P)·scale into `sdp` and drop(P) into `sc`
+// (both f32), and round(drop(P)), round(dS) into the scratch rows (query row
+// i at sp + i·sld)
+template <class E, class Drop>
+__device__ __forceinline__ void softmax_bwd_rows(float* sc, float* sdp, int ld, int qr, int row0,
+                                                 int t, float scale, bool causal, float fill,
+                                                 const Drop& drop, E* sp, E* sd, int sld) {
+  const int groups = (t + 15) / 16, lanes = lanes_per_row(groups);
+  warp_rows(qr / kLongWarps, row0, t, lanes, [&](int r, int sub, bool on) {
+    float *row = sc + r * ld, *drow = sdp + r * ld;
+    const int i = row0 + r;
+    float p[1][16], dp[16];
+    const float m = load_masked(p, row, i, t, groups, sub, lanes, on, scale, causal, fill);
+    softmax_vals(p, m, groups, sub, lanes, on);
+    on = on && sub < groups;
+    float dot = 0.f;
+    if (on) {
+      load16(dp, drow + 16 * sub);
+      drop(i, sub, dp);
+#pragma unroll
+      for (int e = 0; e < 16; ++e) dot = fmaf(dp[e], p[0][e], dot);
+    }
+    dot = lanes_sum(dot, lanes);
+    if (on) {
+#pragma unroll
+      for (int e = 0; e < 16; ++e) dp[e] = p[0][e] * (dp[e] - dot) * scale;
+      drop(i, sub, p[0]);
+      store16(row + 16 * sub, p[0]);
+      store16(drow + 16 * sub, dp);
+      put16(sp + static_cast<size_t>(i) * sld, sub, sld, p[0]);
+      put16(sd + static_cast<size_t>(i) * sld, sub, sld, dp);
+    }
+  });
+}
+
+// The backward's rows kernel, query rows row0 .. row0 + 32 of one (sequence,
+// head): S = Q·Kᵀ and dP = dA·Vᵀ by the forward's score steps, the softmax
+// above, then chunk by chunk the output again (round(drop(P))·V, for dWo) and
+// dQ = round(dS)·K; drop(P) and dS to the scratch rows for the columns kernel
+template <class E, class Drop>
+__device__ __forceinline__ void long_backward_rows(unsigned char* smem, const Rows<E>& q,
+                                                   const Rows<E>& k, const Rows<E>& v,
+                                                   const Rows<E>& da, const Out<E>& out,
+                                                   const Out<E>& dq, E* sp, E* sd, int sld, int t,
+                                                   int hd, int row0, float scale, bool causal,
+                                                   float fill, int copy, const Drop& drop) {
+  using L = LongBwd<E>;
+  constexpr int QR = L::QR, QW = L::QW, P = L::P, CW = L::CW, CWW = L::CWW;
+  constexpr int kLd = stage_ld<E, CW>();
+  const int n_kt = (t + kKeys - 1) / kKeys, n_c = (hd + CW - 1) / CW, n_s = n_kt * n_c;
+  const int ld = scores_ld(t);
+  E* wt = reinterpret_cast<E*>(smem + L::S * L::kStage) + (threadIdx.x >> 5) * out_tile<E, CWW>();
+  float* sc = reinterpret_cast<float*>(smem + L::kFixed);
+  float* sdp = sc + QR * ld;
+  auto stage = [&](int i) { return reinterpret_cast<E*>(smem + (i % L::S) * L::kStage); };
+  const int w = threadIdx.x >> 5, rg = w % QW, pw = w / QW;
+  float s_acc[8 / P][4] = {}, s_part[8 / P][4] = {}, d_acc[8 / P][4] = {}, d_part[8 / P][4] = {};
+  float o[CWW / 8][4] = {}, po[CWW / 8][4] = {}, dqa[CWW / 8][4] = {}, pdq[CWW / 8][4] = {};
+  // a stage: Q, K, dA, V (the scores' steps) or V, K (the outputs')
+  auto load = [&](int i) {
+    E* st = stage(i);
+    if (i < n_s) {
+      const int kt = i / n_c, c = (i % n_c) * CW;
+      load_tile<E, CW>(st, from_row(q, row0), QR, t - row0, c, hd, copy);
+      load_tile<E, CW>(st + QR * kLd, from_row(k, kKeys * kt), kKeys, t - kKeys * kt, c, hd, copy);
+      load_tile<E, CW>(st + (QR + kKeys) * kLd, from_row(da, row0), QR, t - row0, c, hd, copy);
+      load_tile<E, CW>(st + (2 * QR + kKeys) * kLd, from_row(v, kKeys * kt), kKeys,
+                       t - kKeys * kt, c, hd, copy);
+    } else {
+      const int j = i - n_s, kt = j % n_kt, c = (j / n_kt) * CW;
+      load_tile<E, CW>(st, from_row(v, kKeys * kt), kKeys, t - kKeys * kt, c, hd, copy);
+      load_tile<E, CW>(st + kKeys * kLd, from_row(k, kKeys * kt), kKeys, t - kKeys * kt, c, hd,
+                       copy);
+    }
+  };
+  auto compute = [&](int i) {
+    const E* st = stage(i);
+    if (i < n_s) {
+      const int c = i % n_c, kt = i / n_c;
+      score_step<E, QR, P, CW>(s_acc, s_part, st, st + QR * kLd, c, n_c, sc, ld, kt);
+      score_step<E, QR, P, CW>(d_acc, d_part, st + (QR + kKeys) * kLd,
+                               st + (2 * QR + kKeys) * kLd, c, n_c, sdp, ld, kt);
+      return;
+    }
+    const int j = i - n_s, c = (j / n_kt) * CW, kt = j % n_kt;
+    if (j == 0) {
+      softmax_bwd_rows(sc, sdp, ld, QR, row0, t, scale, causal, fill, drop, sp, sd, sld);
+      __syncthreads();
+    }
+    const int at = 16 * rg * ld + kKeys * kt;
+    scores_by_tile<CWW / 8, kLd>(po, sc + at, ld, st + CWW * pw);
+    scores_by_tile<CWW / 8, kLd>(pdq, sdp + at, ld, st + kKeys * kLd + CWW * pw);
+    promote(o, po);
+    promote(dqa, pdq);
+    if (kt == n_kt - 1) {
+      if (c + CWW * pw < hd) {
+        store_acc<CWW / 8, stage_ld<E, CWW>()>(o, wt, out, row0 + 16 * rg, c + CWW * pw);
+        store_acc<CWW / 8, stage_ld<E, CWW>()>(dqa, wt, dq, row0 + 16 * rg, c + CWW * pw);
+      }
+      zero(o);
+      zero(dqa);
+    }
+  };
+  pipeline<L::S>(n_s + ((hd + CW - 1) / CW) * n_kt, load, compute);
+}
+
+// The backward's columns kernel, keys kt·kKeys .. + kKeys of one (sequence,
+// head), a warp its 16: chunk by chunk over hd, dV = Σ over the query tiles
+// of drop(P)ᵀ·dA and dK = Σ dSᵀ·Q, drop(P) and dS read from the rows
+// kernel's scratch (the head's (T, sld) rows `ps`, `ds`; columns past T zero)
+template <class E>
+__device__ __forceinline__ void long_backward_cols(unsigned char* smem, const Rows<E>& ps,
+                                                   const Rows<E>& ds, const Rows<E>& q,
+                                                   const Rows<E>& da, const Out<E>& dk,
+                                                   const Out<E>& dv, int sld, int t, int hd,
+                                                   int kt, int copy) {
+  using L = LongCols<E>;
+  constexpr int CW = L::CW, kLd = stage_ld<E, CW>(), kPld = stage_ld<E, kKeys>();
+  const int n_qt = (t + kKeys - 1) / kKeys, n_c = (hd + CW - 1) / CW;
+  const int w = threadIdx.x >> 5, key0 = kKeys * kt + 16 * w;
+  E* wt = reinterpret_cast<E*>(smem + L::S * L::kStage) + w * out_tile<E, CW>();
+  auto stage = [&](int i) { return reinterpret_cast<E*>(smem + (i % L::S) * L::kStage); };
+  float dv_acc[CW / 8][4] = {}, dv_part[CW / 8][4] = {};
+  float dk_acc[CW / 8][4] = {}, dk_part[CW / 8][4] = {};
+  // a stage: drop(P) and dS of (the query tile, this key tile), dA and Q of the chunk
+  auto load = [&](int i) {
+    E* st = stage(i);
+    const int qt = i % n_qt, c = (i / n_qt) * CW, r0 = kKeys * qt;
+    load_tile<E, kKeys>(st, from_row(ps, r0), kKeys, t - r0, kKeys * kt, sld, 16);
+    load_tile<E, kKeys>(st + kKeys * kPld, from_row(ds, r0), kKeys, t - r0, kKeys * kt, sld, 16);
+    E* x = st + 2 * kKeys * kPld;
+    load_tile<E, CW>(x, from_row(da, r0), kKeys, t - r0, c, hd, copy);
+    load_tile<E, CW>(x + kKeys * kLd, from_row(q, r0), kKeys, t - r0, c, hd, copy);
+  };
+  auto compute = [&](int i) {
+    const E* st = stage(i);
+    const E* x = st + 2 * kKeys * kPld;
+    tile_t_by_tile<CW / 8, kPld, kLd>(dv_part, st, 16 * w, x);
+    tile_t_by_tile<CW / 8, kPld, kLd>(dk_part, st + kKeys * kPld, 16 * w, x + kKeys * kLd);
+    promote(dv_acc, dv_part);
+    promote(dk_acc, dk_part);
+    if (i % n_qt == n_qt - 1) {
+      const int c = (i / n_qt) * CW;
+      store_acc<CW / 8, kLd>(dv_acc, wt, dv, key0, c);
+      store_acc<CW / 8, kLd>(dk_acc, wt, dk, key0, c);
+      zero(dv_acc);
+      zero(dk_acc);
+    }
+  };
+  pipeline<L::S>(n_c * n_qt, load, compute);
+}
 
 }  // namespace attn
 }  // namespace

@@ -2,7 +2,7 @@
 //
 // Counterpart of the Pallas kernel transformergrooveinfilling_tpu/ops/
 // attention.py::_mha_kernel: softmax(Q·Kᵀ/√hd, optional causal mask)·V over
-// (batch, head, T, hd), T ≤ 64, any hd, float32 or bfloat16. Math as the TPU
+// (batch, head, T, hd), T ≤ 2,048, any hd, float32 or bfloat16. Math as the TPU
 // kernel does it:
 //   s = (q·kᵀ in f32) · scale; causal: s[i][j] = -1e9 for j > i;
 //   p = exp(s - rowmax) / rowsum;  p rounded to the input dtype (bf16);
@@ -40,6 +40,21 @@
 // 512, one block an SM; bf16 one warp a block) and ran 2.2× slower than SDPA
 // at hd 512 (PERF.md §6).
 //
+// Past T 64 (loops longer than 4 bars at sixteenths) a warp's 16 × T scores
+// outgrow its registers, and the long route takes over (attn_stream_sm90.cuh),
+// a (batch, head) split by its query rows over blocks of four warps. At heads
+// up to attn::kFlashHd (128) its flash form: 64 query rows a block resident
+// in shared memory, each warp's 16 × hd output in registers, K and V a key
+// tile of 64 a ring stage, the rows' running max and sum, O / Σ at the end
+// (69 KB a block in bf16, 152 KB in f32, at every T). At wider heads each
+// block's (rows × T) f32 scores lie in shared memory (64 rows a block up to T
+// 256, 32 up to 512, 16 past it: 66 KB of scores at T 256, 512 and 1,024)
+// while the head's columns stream through the ring in 64-byte chunks: scores
+// key tile by key tile, the softmax row by row, then the output chunk by
+// chunk, a fresh accumulator a key tile. Past T 256 the work grows as T²·hd
+// against 4·T·hd bytes, and from about T 600 in bf16 it is bound by the
+// tensor cores' operations, not by memory.
+//
 // Plain C entry points, bound from Python with ctypes
 // (ops/attention.py); the launch returns cudaGetLastError().
 
@@ -47,8 +62,16 @@
 
 namespace {
 
-constexpr int kMaxT = 16 * attn::kMaxKt;
-constexpr int kStages = 4;  // the ring's
+constexpr int kShortT = 16 * attn::kMaxKt;  // the short route's: a block per (batch, head)
+// The longest sequence, the long route's (a (batch, head) split by query
+// rows, the scores in shared memory): 16 query rows a block past T 512, 16 ×
+// (T + 4) f32 scores, 131 KB at T 2,048, 162 KB with the ring, of the 232 KB
+// a block may take. The TPU kernel holds a (batch, head)'s (T, T) f32 scores
+// in VMEM beside its (T, hd) q, k, v and o blocks, double-buffered: at T
+// 2,048 the scores alone are 16 MB, v5e's whole scoped VMEM, so it cannot
+// compile there, and this ceiling lies above the TPU kernel's.
+constexpr int kMaxT = attn::kLongMaxT;
+constexpr int kStages = 4;  // the short route's ring
 constexpr size_t kStaticSmemLimit = 48 * 1024;
 
 struct Args {
@@ -80,20 +103,81 @@ __global__ void __launch_bounds__(32 * KT) mha_kernel(const Args a) {
                           attn::Split{rank, a.ranks});
 }
 
-// the opt-in above 48 KB is per kernel (T past 32); raise it once, to the
-// kernel's fixed size
+// The long route (T past 64): block (batch·head)·n_qb + qb takes query rows
+// 16·QW·qb .. of its (batch, head), all T keys
+template <class E, int QW>
+__global__ void __launch_bounds__(32 * attn::kLongWarps) mha_long_kernel(const Args a) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  constexpr int QR = 16 * QW;
+  const int n_qb = (a.t + QR - 1) / QR, qb = blockIdx.x % n_qb;
+  const long long head = blockIdx.x / n_qb, bi = head / a.heads, hi = head % a.heads;
+  const attn::Rows<E> q{static_cast<const E*>(a.q) + bi * a.qs[0] + hi * a.qs[1], a.qs[2]};
+  const attn::Rows<E> k{static_cast<const E*>(a.k) + bi * a.ks[0] + hi * a.ks[1], a.ks[2]};
+  const attn::Rows<E> v{static_cast<const E*>(a.v) + bi * a.vs[0] + hi * a.vs[1], a.vs[2]};
+  const long long row = static_cast<long long>(a.heads) * a.hd;  // (B, T, H, hd)
+  const attn::Out<E> out(static_cast<E*>(a.o) + bi * a.t * row + hi * a.hd, row, a.t, a.hd);
+  attn::long_forward<E, QW>(smem, q, k, v, out, a.t, a.hd, QR * qb, a.scale, a.causal != 0,
+                            -1e9f, a.copy, attn::NoDrop{});
+}
+
+// ... its flash form for heads up to attn::kFlashHd: block (batch·head)·n_qb +
+// qb takes query rows 64·qb ..
+template <class E>
+__global__ void __launch_bounds__(32 * attn::kLongWarps, sizeof(E) == 2 ? 3 : 1)
+    mha_flash_kernel(const Args a) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  constexpr int QR = attn::Flash<E>::QR;
+  const int n_qb = (a.t + QR - 1) / QR, qb = blockIdx.x % n_qb;
+  const long long head = blockIdx.x / n_qb, bi = head / a.heads, hi = head % a.heads;
+  const attn::Rows<E> q{static_cast<const E*>(a.q) + bi * a.qs[0] + hi * a.qs[1], a.qs[2]};
+  const attn::Rows<E> k{static_cast<const E*>(a.k) + bi * a.ks[0] + hi * a.ks[1], a.ks[2]};
+  const attn::Rows<E> v{static_cast<const E*>(a.v) + bi * a.vs[0] + hi * a.vs[1], a.vs[2]};
+  const long long row = static_cast<long long>(a.heads) * a.hd;  // (B, T, H, hd)
+  const attn::Out<E> out(static_cast<E*>(a.o) + bi * a.t * row + hi * a.hd, row, a.t, a.hd);
+  attn::flash_forward<E>(smem, q, k, v, out, a.t, a.hd, QR * qb, a.scale, a.causal != 0, -1e9f,
+                         a.copy);
+}
+
+// the opt-in above 48 KB is per kernel; raise it to the largest size asked
+// of it so far
 template <typename Kernel>
-cudaError_t opt_in(Kernel kernel, size_t smem, bool& done) {
-  if (smem <= kStaticSmemLimit || done) return cudaSuccess;
+cudaError_t opt_in(Kernel kernel, size_t smem, size_t& opted) {
+  if (smem <= kStaticSmemLimit || smem <= opted) return cudaSuccess;
   const cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-  if (err == cudaSuccess) done = true;
+  if (err == cudaSuccess) opted = smem;
   return err;
+}
+
+// a long-route kernel, `rows` query rows a block, `smem` bytes of it
+template <typename Kernel>
+int launch_blocks(Kernel kernel, size_t& opted, size_t smem, int rows, const Args& a, int b,
+                cudaStream_t stream) {
+  const cudaError_t err = opt_in(kernel, smem, opted);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const long long blocks = static_cast<long long>(b) * a.heads * ((a.t + rows - 1) / rows);
+  if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  kernel<<<static_cast<unsigned>(blocks), 32 * attn::kLongWarps, smem, stream>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <class E, int QW>
+int launch_long(const Args& a, int b, cudaStream_t stream) {
+  static size_t opted = 0;
+  return launch_blocks(mha_long_kernel<E, QW>, opted, attn::LongFwd<E, QW>::smem(a.t), 16 * QW, a,
+                     b, stream);
+}
+
+template <class E>
+int launch_flash(const Args& a, int b, cudaStream_t stream) {
+  static size_t opted = 0;
+  return launch_blocks(mha_flash_kernel<E>, opted, attn::Flash<E>::smem(), attn::Flash<E>::QR, a,
+                     b, stream);
 }
 
 template <class E, int KT, int S>
 int launch(Args a, int b, cudaStream_t stream) {
-  static bool opted = false;
+  static size_t opted = 0;
   constexpr size_t smem = attn::forward_smem<E, KT, S>();
   const cudaError_t err = opt_in(mha_kernel<E, KT, S>, smem, opted);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -106,6 +190,12 @@ int launch(Args a, int b, cudaStream_t stream) {
 
 template <class E, int S>
 int launch_by_t(const Args& a, int b, cudaStream_t stream) {
+  if (a.t > kShortT && a.hd <= attn::kFlashHd) return launch_flash<E>(a, b, stream);
+  if (a.t > kShortT) switch (attn::long_qw(a.t)) {
+      case 4: return launch_long<E, 4>(a, b, stream);
+      case 2: return launch_long<E, 2>(a, b, stream);
+      default: return launch_long<E, 1>(a, b, stream);
+    }
   switch ((a.t + 15) / 16) {
     case 1: return launch<E, 1, S>(a, b, stream);
     case 2: return launch<E, 2, S>(a, b, stream);

@@ -49,7 +49,20 @@ __device__ __forceinline__ uint32_t word_byte(const uint4& w4, uint32_t col) {
   return (w >> (8 * (col & 3))) & 0xFFu;
 }
 
+// the four dropout words of 16-column group 4t + q of a row, when the quad's
+// thread q drew group 4t + q (`mine`)
+__device__ __forceinline__ uint4 quad_word(const uint4& mine, int q) {
+  const int src = (threadIdx.x & 28) | q;
+  return make_uint4(__shfl_sync(0xffffffffu, mine.x, src), __shfl_sync(0xffffffffu, mine.y, src),
+                    __shfl_sync(0xffffffffu, mine.z, src), __shfl_sync(0xffffffffu, mine.w, src));
+}
+
 // ---------------------------------------------------------------- shared pieces
+
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
+}
 
 __device__ __forceinline__ float warp_sum(float v) {
   for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);

@@ -34,6 +34,20 @@ allow none by element loads. Its times on an NVIDIA H100 are in PERF.md §6
 whole head in shared memory: at hd 512 one block an SM in f32, one warp a
 block in bf16, 2.2× slower than SDPA).
 
+Past ``SHORT_T`` (64: loops longer than 4 bars at sixteenths), up to
+``MAX_T`` (2,048), a warp's 16 × T scores outgrow its registers and the
+kernel's long route takes over, a (batch, head) split by its query rows over
+blocks of four warps. At heads up to ``FLASH_HD`` (128, the flagship's) its
+flash form: a block's 64 query rows resident in shared memory, each warp's
+output in registers, K and V one key tile of 64 a ring stage, each row's
+running max and sum (the output so far rescaled as the max grows), O / Σ at
+the end; no scores reach shared memory, and K and V cross into a block once.
+At wider heads each block's (rows, T) f32 scores lie in shared memory
+(:func:`long_rows` rows a block) while the head's columns stream through the
+ring in 64-byte chunks (scores key tile by key tile, the softmax row by row,
+then the output chunk by chunk, a fresh accumulator every 64 keys), so
+shared memory still does not grow with hd. A rerun is bit for bit in both.
+
 On a CPU tensor the wrapper runs ``mha_reference`` (into the same output
 layout); on a CUDA tensor it launches the kernel or raises — it never gives
 way to the plain version. Every launch adds one to ``KERNEL.launches``.
@@ -74,12 +88,28 @@ import torch
 
 from . import _build
 
-# The longest sequence: a block holds a (batch·head)'s T query rows, a warp
-# for every 16, and each warp its 16 × T scores in registers (four warps and
-# 16 × 64 scores at most); every path's sequences are the grid's 32 steps
-MAX_T = 64
-STAGES = 4  # the ring of shared-memory stages: three chunks of a head in flight
+# The short route's longest sequence: a block holds a (batch·head)'s T query
+# rows, a warp for every 16, and each warp its 16 × T scores in registers
+# (four warps and 16 × 64 scores at most)
+SHORT_T = 64
+# The longest sequence, the long route's (a (batch·head) split by its query
+# rows over blocks of four warps, their f32 scores in shared memory: 64 rows
+# a block up to T 256, 32 up to 512, 16 past it, 162 KB a block at T 2,048).
+# A loop of L bars at sixteenths is T 16·L: 2 bars T 32 (the grid's), 8 bars
+# T 128, 64 bars T 1,024. The TPU kernel holds a (batch·head)'s (T, T) f32
+# scores in VMEM beside its double-buffered (T, hd) blocks of q, k, v and o:
+# at T 2,048 the scores alone are 16 MB, v5e's whole scoped VMEM, so this
+# ceiling lies above the TPU kernel's.
+MAX_T = 2048
+STAGES = 4  # the short route's ring of shared-memory stages: three chunks in flight
 STAGE_ROW_BYTES = 128  # a stage's columns of each row
+LONG_STAGES = 3  # the long route's ring
+LONG_CHUNK_BYTES = 64  # the long route's score chunks; its output chunks are twice that
+LONG_KEYS = 64  # the long route's key tiles
+LONG_WARPS = 4
+# heads up to FLASH_HD take the long route's flash form: a block's 64 query
+# rows resident, each warp's output in registers, no scores in shared memory
+FLASH_HD = 128
 KERNEL_DTYPES = (torch.float32, torch.bfloat16)
 
 
@@ -101,19 +131,43 @@ def mha_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return torch.matmul(p.float(), v.float()).to(q.dtype)
 
 
-def kernel_smem_bytes(t: int, dtype=torch.float32) -> int:
-    """Dynamic shared memory of one block, whatever hd is: the ring of
+def long_rows(t: int) -> int:
+    """The query rows a block of the long route takes at sequence length
+    ``t`` (past ``SHORT_T``)."""
+    return 64 if t <= 256 else 32 if t <= 512 else 16
+
+
+def kernel_smem_bytes(t: int, dtype=torch.float32, hd: int | None = None) -> int:
+    """Dynamic shared memory of one block, whatever hd is (bf16 stage rows
+    padded by 8 values, f32 rows by 4). Up to ``SHORT_T``: the ring of
     ``STAGES`` stages, each the 128 bytes of two tiles of T rows rounded up
-    to 16 (Q and K, then two chunks of V), bf16 rows padded by 8 values and
-    f32 rows by 4; a warp's 16-row output staging tile of the same rows for
-    every 16 rows of T; in f32 also the (T, T + 4) probabilities, T rounded
-    up to 16. (The partial scores a cluster adds are staged in a spent
-    stage.)"""
+    to 16 (Q and K, then two chunks of V); a warp's 16-row output staging
+    tile of the same rows for every 16 rows of T; in f32 also the (T, T + 4)
+    probabilities, T rounded up to 16 (the partial scores a cluster adds are
+    staged in a spent stage). Past it, at heads up to ``FLASH_HD`` (``hd``
+    given), the flash form: the block's 64 query rows and a ring of
+    ``LONG_STAGES`` key tiles (K or V), each 64 rows of ``FLASH_HD``
+    columns, and in f32 the (64, 68) probabilities; at wider heads the long
+    route: ``LONG_STAGES`` stages, each the larger of a 64-byte chunk of the
+    block's query rows and a key tile's, or a 128-byte chunk of a key tile's
+    V; the four warps' staging tiles of their share of the 128 bytes; the
+    (rows, T + 4) f32 scores, T rounded up to ``LONG_KEYS``."""
     size = dtype.itemsize
-    rows = -(-t // 16) * 16
-    cols = STAGE_ROW_BYTES // size + (8 if size == 2 else 4)
-    ring = (STAGES * 2 + 1) * rows * cols * size
-    return ring if size == 2 else ring + 4 * rows * (rows + 4)
+    pad = 8 if size == 2 else 4
+    if t > SHORT_T and hd is not None and hd <= FLASH_HD:
+        tile = LONG_KEYS * (FLASH_HD + pad) * size
+        return (1 + LONG_STAGES) * tile + (0 if size == 2 else 4 * 64 * 68)
+    if t <= SHORT_T:
+        rows = -(-t // 16) * 16
+        cols = STAGE_ROW_BYTES // size + pad
+        ring = (STAGES * 2 + 1) * rows * cols * size
+        return ring if size == 2 else ring + 4 * rows * (rows + 4)
+    qr = long_rows(t)
+    cw = LONG_CHUNK_BYTES // size
+    stage = max((qr + LONG_KEYS) * (cw + pad), LONG_KEYS * (2 * cw + pad)) * size
+    staging = LONG_WARPS * 16 * (2 * cw * qr // (16 * LONG_WARPS) + pad) * size
+    scores = 4 * qr * (LONG_KEYS * -(-t // LONG_KEYS) + 4)
+    return LONG_STAGES * stage + staging + scores
 
 
 def check_kernel_args(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
@@ -129,10 +183,11 @@ def check_kernel_args(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None
             f"fused_mha kernel takes q, k, v of one (B, H, T, hd) shape; got "
             f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
     b, h, t, hd = q.shape
-    if b * h == 0 or b * h >= 2 ** 31 or not (1 <= t <= MAX_T) or not (1 <= hd < 2 ** 31):
+    blocks = b * h * (1 if t <= SHORT_T else -(-t // long_rows(t)))
+    if b * h == 0 or blocks >= 2 ** 31 or not (1 <= t <= MAX_T) or not (1 <= hd < 2 ** 31):
         raise ValueError(
-            f"fused_mha kernel takes B·H ≥ 1 and hd ≥ 1 (below 2**31), T ≤ {MAX_T}; "
-            f"got shape {tuple(q.shape)}")
+            f"fused_mha kernel takes B·H ≥ 1 and hd ≥ 1 (blocks below 2**31), T ≤ {MAX_T} "
+            f"(its ceiling); got shape {tuple(q.shape)}")
     if any(x.stride(-1) != 1 for x in (q, k, v)):
         raise ValueError(
             f"fused_mha kernel takes q, k, v with unit stride on hd; got strides "

@@ -145,9 +145,9 @@ def supports_fused_decoder_layer(d_model: int, n_heads: int, dim_feedforward: in
     """Whether the chain of ``csrc/layer_sm90.cu`` takes this decoder layer
     in ``dtype``: the encoder layer's gate (``supports_fused_layer``: d a
     multiple of 8 up to 8,192, heads of any width, ff a multiple of 8, T ≤
-    32, in bf16 heads a multiple of 8 wide, in f32 ff ≤ ``F32_MAX_FF``,
-    measured on this chain too); the cross-attention's blocks are
-    the self-attention's. In f32 it admits every width of ``configs/*.yaml``
+    256, in bf16 heads a multiple of 8 wide, in f32 ff ≤ ``F32_MAX_FF``,
+    measured on this chain too); the cross-attention's blocks, and the
+    causal self-attention's, are the encoder's self-attention's at every T. In f32 it admits every width of ``configs/*.yaml``
     up to ff 1,024 and refuses what that gate refuses (d or ff a multiple of
     4 but not of 8), which the f32 CUDA-core kernels before it took by shared
     memory alone. It admits every width of the JAX decoder's gate (the

@@ -62,7 +62,7 @@ from . import layer_sm90, per_trial
 from .dropout import quantized_threshold
 
 LN_EPS = 1e-5
-MAX_T = 32
+MAX_T = layer_sm90.MAX_T  # the attention launches' longest sequence (256)
 # shared memory one block may take on Hopper (227 KB)
 MAX_SMEM_BYTES = 232448
 KERNEL_DTYPES = (torch.float32, torch.bfloat16)
@@ -269,8 +269,14 @@ def supports_fused_layer(d_model: int, n_heads: int, dim_feedforward: int,
     row passes hold a row in a warp up to 1,024 and in a block of 256 threads
     up to 8,192, 32 values of it a thread; TMA's 16-byte row strides; the row
     passes read 8 columns a lane), ff a multiple of 8 (the column sums read 8
-    at a time), d divisible by the heads, and T ≤ 32 (the attention's block
-    holds a (sequence, head) of at most 32 rows). Heads of any width: the
+    at a time), d divisible by the heads, and T ≤ 256 (a loop of 16 bars at
+    sixteenths; the attention launches take a (sequence, head) in one block
+    up to T 32, scores in registers, and past it split by query rows over
+    blocks whose scores lie in shared memory, ``layer_sm90.MAX_T``); the
+    caller's rows are whole sequences, a multiple of T (the chain raises
+    otherwise). That covers every T of the JAX gate (32, 64, 128 and 256:
+    the lengths whose sequences tile its 128- or 256-row blocks) and the
+    lengths between. Heads of any width: the
     attention streams a head's columns through shared memory
     (``csrc/attn_stream_sm90.cuh``), so its blocks do not grow with hd. bf16
     also needs heads of a width hd that is a multiple of 8 (its attention

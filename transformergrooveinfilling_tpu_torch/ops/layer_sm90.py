@@ -1,17 +1,19 @@
 """The launches of the whole-layer chains on Hopper: wrappers and plain versions.
 
-``csrc/layer_sm90.cu`` (and, for the wide route, ``csrc/layer_wide_sm90.cu``)
-holds the launches from which ``ops/fused_layer.py``
+``csrc/layer_sm90.cu`` (and, for the wide route, ``csrc/layer_wide_sm90.cu``;
+for the attention, ``csrc/layer_attn_sm90.cu``) holds the launches from which ``ops/fused_layer.py``
 and ``ops/fused_decoder_layer.py`` build the encoder and decoder layers'
 forward and backward, in bf16 or in f32 (the activations' dtype picks; one
 chain for both). Every dense product runs on the ``wgmma`` core of
 ``csrc/gemm_sm90.cuh`` with the layer's elementwise work in its epilogue: bf16
 products as they are, f32 products in split TF32 (3xTF32: each operand split
 into a TF32 high part and a TF32 remainder, three tensor-core products
-summed in f32, :func:`split_tf32_matmul`). The attention runs one block per
-(sequence, head), the head's columns streamed through shared memory
-(``csrc/attn_stream_sm90.cuh``, kernel #1's design), so it takes any head
-width; the weight gradients of a layer are one grouped launch
+summed in f32, :func:`split_tf32_matmul`). The attention runs, up to
+``SHORT_T`` (32), one block per (sequence, head), and past it, up to
+``MAX_T`` (256), a block per 64 query rows (the backward two kernels, rows
+then key tiles, through :func:`attention_scratch`), the head's columns
+streamed through shared memory (``csrc/attn_stream_sm90.cuh``, kernel #1's
+design), so it takes any head width; the weight gradients of a layer are one grouped launch
 whose row splits a reduce adds in a fixed order (no float atomics: two runs
 with one seed agree bit for bit). See the source's note for what bounds each
 launch.
@@ -62,7 +64,14 @@ LN_TILE = 256  # the LayerNorm epilogues' tile: one tile spans a row, d ≤ 256
 # threads, each thread holding 32 values of a row in each of up to three
 # register arrays (a warp a row, four chunks of 256, up to d 1,024)
 MAX_D = 8192
-MAX_T = 32  # the attention's block: two warps of 16 query rows, 32 padded keys
+# The attention's sequence lengths. Up to SHORT_T a block of two warps takes a
+# (sequence, head), its scores in registers; past it, up to MAX_T (a loop of
+# 16 bars at sixteenths; the JAX gate's longest, whose 128- or 256-row tiles
+# hold whole sequences), the long route of csrc/attn_stream_sm90.cuh splits a
+# (sequence, head) by its query rows, the scores in shared memory, and the
+# backward writes drop(P) and dS to a scratch (:func:`attention_scratch`)
+SHORT_T = 32
+MAX_T = 256
 WGRAD_TILE = 128  # the weight gradients' (m, n) tile
 K_STAGE = 64  # rows a stage of the weight gradients; a split is whole stages
 WGRAD_MIN_STAGES = 4  # stages a row split walks at least
@@ -89,25 +98,35 @@ SIGNATURES = {
     "tgi_sm90_grad_sum": [_P] * 4 + [_I] * 5,
     "tgi_sm90_ln_grad": [_P] * 7 + [_I] * 6,
     "tgi_sm90_attn_fwd": [_P] * 5 + [_I] * 11,
-    "tgi_sm90_attn_bwd": [_P] * 9 + [_I] * 14,
+    "tgi_sm90_attn_bwd": [_P] * 10 + [_I] * 14,
     "tgi_sm90_wgrad": [ctypes.POINTER(_P), ctypes.POINTER(_I)] + [_I] * 5 + [_P, _I],
     "tgi_sm90_reduce": [_P, _P, ctypes.c_longlong, _I],
 }
 
 
-# the wide route's entry points: csrc/layer_wide_sm90.cu, built apart from
-# csrc/layer_sm90.cu so that nvcc compiles the two in parallel
+# the wide route's entry points: csrc/layer_wide_sm90.cu, and the attention's:
+# csrc/layer_attn_sm90.cu, each built apart from csrc/layer_sm90.cu so that
+# nvcc compiles the three in parallel
 WIDE_SOURCE = "layer_wide_sm90"
 WIDE_ENTRIES = ("tgi_sm90_res_sum", "tgi_sm90_ln_y", "tgi_sm90_grad_sum", "tgi_sm90_ln_grad")
+ATTN_SOURCE = "layer_attn_sm90"
+ATTN_ENTRIES = ("tgi_sm90_attn_fwd", "tgi_sm90_attn_bwd")
 ERROR_STRINGS = {"layer_sm90": "tgi_sm90_error_string",
-                 WIDE_SOURCE: "tgi_sm90_wide_error_string"}
+                 WIDE_SOURCE: "tgi_sm90_wide_error_string",
+                 ATTN_SOURCE: "tgi_sm90_attn_error_string"}
+
+
+def source_of(entry: str) -> str:
+    """The ``csrc`` source (library) that holds an entry point."""
+    return (WIDE_SOURCE if entry in WIDE_ENTRIES else ATTN_SOURCE if entry in ATTN_ENTRIES
+            else "layer_sm90")
 
 
 @functools.cache
 def _library(source: str = "layer_sm90"):
     lib = _build.load_library(source)
     for name, args in SIGNATURES.items():
-        if (name in WIDE_ENTRIES) == (source == WIDE_SOURCE):
+        if source_of(name) == source:
             fn = getattr(lib, name)
             fn.argtypes = args + [_P]  # the stream last
             fn.restype = _I
@@ -132,7 +151,7 @@ def counted_kernels(prefix: str, launches: dict) -> dict:
     type}`` (a key of ``ENTRIES``): one counter per launch of a layer (a
     chain per dtype, so that each dtype counts its own launches)."""
     def kernel(entry):
-        source = WIDE_SOURCE if entry in WIDE_ENTRIES else "layer_sm90"
+        source = source_of(entry)
         return _build.CountedKernel(functools.partial(_library, source), entry,
                                     ERROR_STRINGS[source])
 
@@ -754,12 +773,23 @@ def attention_backward_reference(q, k, v, da, seed, site: int, rate: float, n_he
             back(torch.matmul(pd.transpose(-1, -2), dah)), back(torch.matmul(pd, vh)))
 
 
+def attention_scratch(q, n_heads: int, seq_len: int):
+    """The long backward's scratch (past ``SHORT_T``): drop(P) and dS of
+    every (sequence, head), two ``(sequences·H, T, ⌈T / 8⌉·8)`` arrays in
+    q's dtype, flat; None up to ``SHORT_T``."""
+    if seq_len <= SHORT_T:
+        return None
+    heads = q.shape[0] // seq_len * n_heads
+    return q.new_empty(2 * heads * seq_len * (-(-seq_len // 8) * 8))
+
+
 def attention_backward(kernel, q, k, v, da, dq, dk, dv, out, seed, site: int, rate: float,
                        n_heads: int, seq_len: int, causal: bool) -> None:
     """The attention's backward from ``da`` (rows, d) = d(its output),
     written into the views ``dq``, ``dk``, ``dv`` (each rounded, as dS is),
     and the attention output again into ``out`` (for the output
-    projection's weight gradient)."""
+    projection's weight gradient). Past ``SHORT_T`` the launch runs two
+    kernels (rows, then columns) through :func:`attention_scratch`."""
     args = (q, k, v, da, seed, site, rate, n_heads, seq_len, causal)
     if _on_cpu(q, k, v, da, dq, dk, dv, out, seed):
         for dst, src in zip((dq, dk, dv, out), attention_backward_reference(*args)):
@@ -771,7 +801,7 @@ def attention_backward(kernel, q, k, v, da, dq, dk, dv, out, seed, site: int, ra
     rows, d = q.shape
     nseq, t, h, hd, thresh, site_, causal_ = _attn_shape(q, rate, n_heads, seq_len, site,
                                                          causal)
-    kernel.launch((q, k, v, da, dq, dk, dv, out, seed),
+    kernel.launch((q, k, v, da, dq, dk, dv, out, attention_scratch(q, n_heads, seq_len), seed),
                   (q.stride(0), k.stride(0), da.stride(0), dq.stride(0), dk.stride(0),
                    out.stride(0), nseq, t, h, hd, thresh, site_, causal_, _f32(q)), q.device)
     _done(kernel, attention_backward_reference, args, (dq, dk, dv, out),

@@ -166,6 +166,22 @@ LAYER_KERNEL_MAX_D = {torch.bfloat16: 512, torch.float32: 256}
 # 2,048, so auto leaves them unfused and a forced switch trains them
 LAYER_KERNEL_WIDE_HEAD_DIM = 128
 LAYER_KERNEL_WIDE_MAX_FF = 1024
+# Where auto turns the chains on past T 32. Every turn above was taken at T 32
+# (2-bar loops); past it the attention launches take their long route
+# (csrc/attn_stream_sm90.cuh: a (sequence, head) split by query rows), whose
+# paired turns were taken at one point only: T 128 (8-bar loops), batch 32,
+# the flagship width d 256 / 2 heads / ff 512 (chip_smoke.py phases 9 and 15:
+# 3 pairs a dtype, the chains against both switches off; NVIDIA H100 80GB
+# HBM3, 700.00 W; PERF.md §5). There the flagship gained +113 % in bf16 at its
+# worst pair against an 11 % spread between a path's turns (1,518-1,554
+# seqs/s against 651-721), +140 % in f32 against 29 %; the 6 + 6 +137 %
+# against 15 % in bf16, +134 % against 22 % in f32 (an earlier run: +93 % to
+# +141 % against spreads of 24 to 55 %). No other length (33-127, 129-256),
+# no batch past 32 rows a device and no other width was paired past T 32:
+# auto leaves them unfused and a forced switch trains them.
+LAYER_KERNEL_LONG_T = 128
+LAYER_KERNEL_LONG_MAX_BATCH = 32
+LAYER_KERNEL_LONG_WIDTH = (256, 2, 512)  # d, heads, ff
 
 
 def _measured_batch(batch_size: Optional[int], compute_dtype) -> bool:
@@ -186,6 +202,20 @@ def _measured_width(d_model: int, n_heads: int, dim_feedforward: int, compute_dt
     return (not layer_sm90.is_wide(d_model)
             or (d_model == n_heads * LAYER_KERNEL_WIDE_HEAD_DIM
                 and dim_feedforward <= LAYER_KERNEL_WIDE_MAX_FF))
+
+
+def _measured_length(seq_len: int, batch_size: Optional[int], d_model: int, n_heads: int,
+                     dim_feedforward: int) -> bool:
+    """Whether the chains were measured faster at sequence length ``seq_len``
+    with this batch (a device's) and width: any up to ``layer_sm90.SHORT_T``
+    (the other rules decide there); past it only ``LAYER_KERNEL_LONG_T`` at
+    batches up to ``LAYER_KERNEL_LONG_MAX_BATCH`` and the
+    ``LAYER_KERNEL_LONG_WIDTH``, where the paired turns were taken."""
+    if seq_len <= layer_sm90.SHORT_T:
+        return True
+    return (seq_len == LAYER_KERNEL_LONG_T and batch_size is not None
+            and batch_size <= LAYER_KERNEL_LONG_MAX_BATCH
+            and (d_model, n_heads, dim_feedforward) == LAYER_KERNEL_LONG_WIDTH)
 
 
 def _topology_batch(n_devices: int, dp_shard_ok: bool,
@@ -212,9 +242,11 @@ def resolve_fused_layer(fused_layer: Optional[bool], d_model: int, n_heads: int,
     batch one device sees is one at which the dtype's chain was measured
     faster, <= 512 in bf16 and in f32 (``LAYER_KERNEL_MAX_BATCH``), at a
     width where it was measured faster (``_measured_width``: d up to
-    ``LAYER_KERNEL_MAX_D``, past 256 heads of 128 and ff up to 1,024); off
-    when the batch is larger or not given, and at other widths (a forced True
-    trains there). The topology, as the JAX package's: a
+    ``LAYER_KERNEL_MAX_D``, past 256 heads of 128 and ff up to 1,024) and a
+    sequence length where it was (``_measured_length``: past T 32 only T 128
+    at batch 32 or less and the flagship width); off when the
+    batch is larger or not given, and at other widths and lengths (a forced
+    True trains there). The topology, as the JAX package's: a
     single device, or a data-parallel-only plan whose batch divides the data
     axis (``dp_shard_ok``, from ``train/driver.py::plan_topology``; each rank
     runs the chain on ``batch_size / n_devices`` rows,
@@ -244,6 +276,7 @@ def resolve_fused_layer(fused_layer: Optional[bool], d_model: int, n_heads: int,
     per_device = _topology_batch(n_devices, dp_shard_ok, batch_size)
     return (_measured_batch(per_device, compute_dtype)
             and _measured_width(d_model, n_heads, dim_feedforward, compute_dtype)
+            and _measured_length(seq_len, per_device, d_model, n_heads, dim_feedforward)
             and supports_fused_layer(d_model, n_heads, dim_feedforward, seq_len, compute_dtype))
 
 
@@ -258,10 +291,10 @@ def resolve_fused_decoder_layer(fused_decoder_layer: Optional[bool], d_model: in
     (``dp_shard_ok``) where the decoder kernels' Hopper gate
     (``ops/fused_decoder_layer.py::supports_fused_decoder_layer``) admits
     the shape and the batch one device sees is within the dtype's
-    ``LAYER_KERNEL_MAX_BATCH`` (512 in bf16 and in f32), at a width where it
-    was measured faster (``_measured_width``); off when the batch is larger
-    or not given. A forced True is kept; the model raises if the gate rejects
-    it.
+    ``LAYER_KERNEL_MAX_BATCH`` (512 in bf16 and in f32), at a width and a
+    sequence length where it was measured faster (``_measured_width``,
+    ``_measured_length``); off when the batch is larger or not given. A
+    forced True is kept; the model raises if the gate rejects it.
 
     The 6 + 6 layer model at the flagship width on an NVIDIA H100 80GB HBM3
     at 700 W (chip_smoke.py, phase 15; PERF.md §5), bf16: 901-1,134 seqs/s on
@@ -278,6 +311,7 @@ def resolve_fused_decoder_layer(fused_decoder_layer: Optional[bool], d_model: in
     per_device = _topology_batch(n_devices, dp_shard_ok, batch_size)
     return (_measured_batch(per_device, compute_dtype)
             and _measured_width(d_model, n_heads, dim_feedforward, compute_dtype)
+            and _measured_length(seq_len, per_device, d_model, n_heads, dim_feedforward)
             and supports_fused_decoder_layer(d_model, n_heads, dim_feedforward, seq_len,
                                              compute_dtype))
 
