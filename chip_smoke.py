@@ -33,15 +33,18 @@ then non-zero):
             d 1,024 model), B 1 and 512, contiguous and packed qkv, both
             dtypes, causal off/on, and timed at hd 512 and 1,024 (B 1 and
             512, packed qkv, both dtypes) beside SDPA on the same views.
-            Past T 64 (the long route: its flash form at hd ≤ 128, the
-            scores in shared memory past it) checked at ``LONG_MHA_CASES``
-            (T 65 to the ceiling 2,048, each bucket of query rows a block),
-            a call past the ceiling refused naming it, and timed at T 128,
-            256 and 1,024 (B 1 and 512, H 2, hd 128, packed qkv, both
-            dtypes; the kernel's and SDPA's device times each from a CUDA
-            graph of their calls; f32's bound at the split-TF32 rate its
-            products run at) and at the eval
-            forward's 3,300 rows at T 128.
+            Past T 64 (the long route: ``attention.route``'s flash form on
+            TMA and wgmma at hd ≤ 128 where TMA reads the views, else the
+            scores in shared memory) checked at ``LONG_MHA_CASES`` (T 65 to
+            the ceiling 2,048, 64 and 128 query rows an item, each bucket of
+            the scores form's query rows a block, hd 5 on the scores form),
+            each check's form and error recorded, a call past the ceiling
+            refused naming it, and timed at T 128, 256 and 1,024 (B 1 and
+            512, H 2, hd 128, packed qkv, both dtypes; the kernel's and SDPA's
+            device times each from a CUDA graph of their calls; f32's bound at
+            the split-TF32 rate its products run at) and at the eval forward's
+            3,300 rows at T 128, each with its form. Phases 9, 12, 15 and 16
+            record #1's launches by form (``attention.FORM_LAUNCHES``).
 4. serve    ``InfillServer`` at the flagship width (configs/
             InfillingRandom_training.yaml: d 256, 2 heads, ff 512, 6 layers,
             16 in, 27 out; seeded random weights) on the card: the kernel's
@@ -90,7 +93,9 @@ then non-zero):
             attention's and the row passes' launches, their plain versions
             and ``nn.TransformerEncoderLayer`` on the stream. The same at the
             flagship width in 8- and 16-bar loops (``LONG_SHAPES``: T 128,
-            every launch timed; T 256, the attention's and the row passes').
+            every launch timed; T 256, the attention's and the row passes'
+            device times from a CUDA graph, their plain versions and
+            ``nn.TransformerEncoderLayer`` on the stream).
 9. train    ``initialize_model`` + ``train_loop`` with the flagship YAML's
             hyperparameters (written here: the card's machine has no pyyaml;
             a CPU test holds them to the file) on seeded synthetic loops:
@@ -865,14 +870,16 @@ def launch_device_us(record, n: int) -> list:
 
 
 def sm90_launches(record, kernels: dict, plain: bool, n: int, dtype=torch.bfloat16,
-                  kinds=None, warm: int = 10) -> dict:
+                  kinds=None, warm: int = 10, graph: bool = False) -> dict:
     """Every launch of one layer call's chain in ``dtype``, as recorded on the
     card: its outputs held to its plain version on the same inputs
     (``SM90_BAR[dtype]`` · max|ref| each), its device time per launch
-    (profiler, ``n`` replays; none where ``n`` is 0; with ``kinds``, only of
-    the launches of those types of ``layer_sm90.ENTRIES``), its own bound,
-    and with ``plain`` the plain version's and the library call's stream
-    time. Keyed by the counted kernel's name."""
+    (profiler, ``n`` replays, or with ``graph`` a CUDA graph of ``n``
+    replays, where the profiler loses events; none where ``n`` is 0; with
+    ``kinds``, only of the launches of those types of
+    ``layer_sm90.ENTRIES``), its own bound, and with ``plain`` the plain
+    version's and the library call's stream time. Keyed by the counted
+    kernel's name."""
     names = {id(k): name for name, k in kernels.items()}
     rows, bar = {}, SM90_BAR[dtype]
     for launch in record:
@@ -892,7 +899,11 @@ def sm90_launches(record, kernels: dict, plain: bool, n: int, dtype=torch.bfloat
     if kinds is not None:
         record = [launch for launch in record
                   if launch.kernel.entry in {layer_sm90.ENTRIES[k] for k in kinds}]
-    us, count = launch_device_us(record, n)
+    if graph:
+        us = [graph_ms(launch.replay, n=n, reps=2) * 1e3 for launch in record]
+        count = [1] * len(record)
+    else:
+        us, count = launch_device_us(record, n)
     for launch, u, c in zip(record, us, count):
         name = names[id(launch.kernel)]
         rows[name].update(device_ms=u / 1000.0, device_launches_per_call=c)
@@ -1125,15 +1136,19 @@ def mha_tolerance(dtype, want) -> tuple:
     if dtype == torch.bfloat16:
         atol *= min(1.0, float(want.float().abs().max()))
     return atol, rtol
-# #1 past T 64 (loops past 4 bars at sixteenths: the long route, its flash form
-# at heads up to 128), (b, h, hd, form, T): each of the long route's buckets of
-# query rows a block (64 up to T 256, 32 up to 512, 16 past it), the flash form
-# at the flagship's heads from T 65 to the ceiling, odd heads and lengths
+# #1 past T 64 (loops past 4 bars at sixteenths: the long route), (b, h, hd,
+# form, T): the flash form (heads up to 128 that TMA reads) at the flagship's
+# heads from T 65 to the ceiling, 64 query rows an item (one wave) and 128
+# (B 300), odd heads and lengths; the scores form at wider heads, each of its
+# buckets of query rows a block (64 up to T 256, 32 up to 512, 16 past it),
+# and at hd 5 (rows of 10 or 20 bytes, which TMA does not read)
 LONG_MHA_CASES = ((4, 2, 128, "packed_qkv", 65), (4, 2, 128, "contiguous", 128),
                   (2, 2, 128, "packed_kv", 256), (1, 2, 128, "packed_qkv", 1024),
-                  (1, 2, 128, "contiguous", attention.MAX_T), (2, 1, 256, "packed_qkv", 128),
+                  (1, 2, 128, "contiguous", attention.MAX_T), (300, 2, 128, "packed_qkv", 128),
+                  (2, 1, 256, "packed_qkv", 128),
                   (1, 1, 512, "contiguous", 400), (1, 1, 384, "contiguous", 1100),
-                  (3, 2, 72, "contiguous", 300), (2, 4, 8, "contiguous", 96))
+                  (3, 2, 72, "contiguous", 300), (2, 4, 8, "contiguous", 96),
+                  (3, 2, 5, "contiguous", 200))
 # ... timed at 8, 16 and 64 bars (B 1 and 512, H 2, hd 128, packed qkv), and
 # the eval forward at 8 bars (the train evaluator's rows)
 LONG_MHA_TS = (128, 256, 1024)
@@ -1172,10 +1187,12 @@ def mha_timing(dev, rng, b: int, dtype, h: int, hd: int, form: str, t: int = 32,
     launches_profiled = MHA.launches - before
     dtype_name = str(dtype).replace("torch.", "")
     bnd = mha_bound(b, h, t, hd, dtype_name)
+    route = attention.route(q, k, v)
+    rows = attention.flash_rows(b, h, t, _build.sm_count(q.device)) if route == "flash" else None
     return {
-        "shape": [b, h, t, hd], "dtype": dtype_name, "form": form,
-        "copy_bytes": attention.copy_bytes(q, k, v),
-        "smem_bytes": attention.kernel_smem_bytes(t, dtype, hd),
+        "shape": [b, h, t, hd], "dtype": dtype_name, "form": form, "route": route,
+        "flash_rows": rows, "copy_bytes": attention.copy_bytes(q, k, v),
+        "smem_bytes": attention.kernel_smem_bytes(t, dtype, hd, rows),
         "kernel_us": [k1, k2], "plain_us": [p1, p2], "sdpa_us": [l1, l2],
         "sdpa_device_us": sdpa_device, "device_time_from": "cuda_graph" if long else "profiler",
         **bnd, "kernel_device_us": kernel_device,
@@ -1186,11 +1203,12 @@ def mha_timing(dev, rng, b: int, dtype, h: int, hd: int, form: str, t: int = 32,
         "plain_kernels_us": {k: us for k, (us, _) in dp.items()}}
 
 
-def mha_checked(dev, rng, cases, worst: dict) -> int:
+def mha_checked(dev, rng, cases, worst: dict, record: list | None = None) -> int:
     """``fused_mha`` against ``mha_reference`` (on contiguous copies) at each
     (b, h, hd, form[, t]) of ``cases``, both dtypes, causal and not, one
-    launch each; the largest error a dtype into ``worst``. Returns the
-    checks made."""
+    launch each; the largest error a dtype into ``worst``, and each check's
+    form of the kernel (``attention.route``), error and bar into ``record``.
+    Returns the checks made."""
     checks = 0
     for b, h, hd, form, *rest in cases:
         t = rest[0] if rest else 32
@@ -1205,6 +1223,11 @@ def mha_checked(dev, rng, cases, worst: dict) -> int:
                 err = max_err(got, want)
                 worst[dtype] = max(worst[dtype], err)
                 atol, rtol = mha_tolerance(dtype, want)
+                if record is not None:
+                    record.append({"shape": [b, h, t, hd], "form": form,
+                                   "dtype": str(dtype)[6:], "causal": causal,
+                                   "route": attention.route(q, k, v), "max_abs_err": err,
+                                   "atol": atol, "rtol": rtol})
                 ok = torch.allclose(got.float(), want.float(), atol=atol, rtol=rtol)
                 check(ok and got.dtype == dtype and got.shape == q.shape
                       and got.transpose(1, 2).is_contiguous() and MHA.launches == before + 1,
@@ -1241,7 +1264,10 @@ def phase_kernel(dev, rng) -> dict:
     # past T 64: the long route's buckets checked, the ceiling refused, and
     # 8, 16 and 64 bars timed (the long buckets timed with 5 calls a turn)
     long_worst = {torch.float32: 0.0, torch.bfloat16: 0.0}
-    long_checks = mha_checked(dev, rng, LONG_MHA_CASES, long_worst)
+    long_record = []
+    long_checks = mha_checked(dev, rng, LONG_MHA_CASES, long_worst, long_record)
+    check({r["route"] for r in long_record} == {"flash", "scores"},
+          f"the long checks took the forms {sorted({r['route'] for r in long_record})}")
     past = torch.zeros(1, 1, attention.MAX_T + 1, 16, device=dev)
     try:
         fused_mha(past, past, past)
@@ -1261,6 +1287,7 @@ def phase_kernel(dev, rng) -> dict:
                    "bfloat16": {"atol": "2e-2 * min(1, max|ref|)", "rtol": 2e-2}},
           "timings": timings})
     emit({"phase": "kernel_long_t", "checks": long_checks, "cases": LONG_MHA_CASES,
+          "checked": long_record,
           "max_abs_err": {str(k)[6:]: v for k, v in long_worst.items()},
           "refused_past_the_ceiling": refused, "timings": long_timings})
     return {"max_abs_err": max(worst[torch.float32], long_worst[torch.float32]),
@@ -1599,7 +1626,9 @@ LAYER_ROLES = {
     "streamed": dict(kinds=STREAMED_KINDS, plain=True, layer="stream", warm=10),
     # longer loops, whose launches take longer: 2 warm-up calls
     "timed_long": dict(kinds=None, plain=True, layer="stream", warm=2),
-    "streamed_long": dict(kinds=STREAMED_KINDS, plain=False, layer=None, warm=2),
+    # (16 bars: the launches' device times from a CUDA graph, where the
+    # profiler lost most of the forwards' events, PR 23)
+    "streamed_long": dict(kinds=STREAMED_KINDS, plain=True, layer="stream", warm=2, graph=True),
 }
 # The chains' wide route (d past layer_sm90.LN_TILE), each shape a width the
 # JAX gate admits: d 512 with 4 heads and ff 1,024 (a draw of
@@ -1619,8 +1648,9 @@ WIDE_SHAPES = (dict(d=512, h=4, ff=1024, t=32, role="checked"),
 WIDE_TIMED, WIDE_STREAMED = WIDE_SHAPES[1], WIDE_SHAPES[2]
 # The flagship's layers in longer loops, 8 and 16 bars (the attention
 # launches' long route past T 32): every launch timed at 8 bars, with its
-# plain version, and the whole layer beside nn.Transformer*Layer; the
-# attention's and the row passes' device time at 16
+# plain version, and the whole layer beside nn.Transformer*Layer; at 16 the
+# attention's and the row passes' device time (a CUDA graph's), their plain
+# versions, and the layer beside nn.Transformer*Layer on the stream
 LONG_SHAPES = (dict(d=256, h=2, ff=512, t=LONG_T, role="timed_long"),
                dict(d=256, h=2, ff=512, t=256, role="streamed_long"))
 
@@ -1666,7 +1696,8 @@ def layer_route_cases(dev, rng, decoder: bool, shapes) -> dict:
                    "bitwise_repeat": bitwise,
                    "launches": sm90_launches(record, route, plain=timed["plain"],
                                              n=5 if role else 0, dtype=dtype,
-                                             kinds=timed["kinds"], warm=timed["warm"])}
+                                             kinds=timed["kinds"], warm=timed["warm"],
+                                             graph=timed.get("graph", False))}
             row["max_abs_err"], row["relu_kink_flips"] = against_twin(
                 mod, args, dy, seed, 0.3, h_, res, grads, dtype, what, relative=True, t=t)
             if timed["layer"] == "device":
@@ -1947,6 +1978,17 @@ def launches(kernels) -> dict:
     return {name: f.launches for name, f in kernels.items()}
 
 
+def reset_mha_forms() -> None:
+    """#1's launches by form (``attention.FORM_LAUNCHES``) set to 0."""
+    for form in attention.FORM_LAUNCHES:
+        attention.FORM_LAUNCHES[form] = 0
+
+
+def mha_forms() -> dict:
+    """#1's launches by form since ``reset_mha_forms``, those that took any."""
+    return {form: n for form, n in attention.FORM_LAUNCHES.items() if n}
+
+
 def reset_launches() -> None:
     for f in (*LAYER_KERNELS.values(), *ffn.KERNELS.values(), *ln.KERNELS.values()):
         f.launches = 0
@@ -2167,16 +2209,17 @@ def long_training(dev, decoder: bool) -> dict:
         route = {**fl.route_kernels(dtype), **(fdl.route_kernels(dtype) if decoder else {})}
         reset_launches()  # the main path's run starts here
         MHA.launches = 0
+        reset_mha_forms()
         metrics = run_epochs(bundle, Loops(items, 51, LONG_T), held, 1, batch, enc_only)[0]
         torch.cuda.synchronize()
-        counts, mha = launches(route), MHA.launches  # ... and ends here
+        counts, mha, forms = launches(route), MHA.launches, mha_forms()  # ... and ends here
         check(all(c == steps * layers for c in counts.values()),
               f"T {LONG_T}, {dname}: launches {counts}, expected {steps * layers} each")
-        check(mha == (3 if decoder else 1) * layers,
-              f"#1 launched {mha} times in a held-out forward at T {LONG_T}")
+        check(mha == (3 if decoder else 1) * layers and forms == {"flash": mha},
+              f"#1 launched {mha} times ({forms}) in a held-out forward at T {LONG_T}")
         check(all(np.isfinite(v) for v in metrics.values()), f"non-finite: {metrics}")
-        path[dname] = {"launches": counts, "fused_mha_launches": mha, "steps": steps,
-                       "metrics": metrics}
+        path[dname] = {"launches": counts, "fused_mha_launches": mha,
+                       "fused_mha_launches_by_form": forms, "steps": steps, "metrics": metrics}
     served = long_served(dev, bundle, decoder)
     turns = {}
     for dtype in (torch.bfloat16, torch.float32):
@@ -2213,14 +2256,16 @@ def long_served(dev, bundle, decoder: bool) -> dict:
                 return server.infill_from_hvo(loops.processed_outputs, qpm=120.0)
 
             MHA.launches = 0
+            reset_mha_forms()
             reset_front_end_launches()
             y = answer(srv)
             counts = {"fused_mha": MHA.launches, "band_energies": BAND_K.launches,
                       "device_synth": SYNTH_K.launches}
+            forms = mha_forms()
             front = int(which == "hvo_input")
             check(counts == {"fused_mha": per_chunk, "band_energies": front,
-                             "device_synth": front},
-                  f"a {which} request of {n} at T {LONG_T} launched {counts}")
+                             "device_synth": front} and forms == {"flash": per_chunk},
+                  f"a {which} request of {n} at T {LONG_T} launched {counts} ({forms})")
             want = answer(raw)
             sig = want[..., :9]
             check(y.shape == (n, LONG_T, 27) and np.isfinite(y).all(),
@@ -2230,7 +2275,8 @@ def long_served(dev, bundle, decoder: bool) -> dict:
                                f"by {err}")
             check(hit_agreement(y[..., :9], (sig > 0.5).astype(y.dtype), sig),
                   f"{which} at T {LONG_T}, N={n}: hits differ away from the threshold")
-            out[f"{which}_N{n}"] = {"launches": counts, "max_abs_err_vs_plain": err}
+            out[f"{which}_N{n}"] = {"launches": counts, "fused_mha_launches_by_form": forms,
+                                    "max_abs_err_vs_plain": err}
     return out
 
 
@@ -2751,10 +2797,13 @@ def phase_serve_hvo(dev, rng, sd, srv) -> dict:
     requests = [(loops[0], 90.0), (loops[:6], 120.0), (loops, 150.0)]
     chunks = [1, 1, 2]  # model buckets (1, 8, 32): 1 | 8 | 32 + 8; front end: 1 chunk each
     MHA.launches = 0  # the main path's run starts here
+    reset_mha_forms()
     reset_front_end_launches()
     out = [srv.infill_from_hvo(g, qpm=q) for g, q in requests]
     counts = {"fused_mha": MHA.launches, "band_energies": BAND_K.launches,
               "device_synth": SYNTH_K.launches}  # ... and ends here
+    forms = mha_forms()
+    check(forms == {"short": counts["fused_mha"]}, f"#1 at T 32 took the forms {forms}")
     check(counts == {"fused_mha": 6 * sum(chunks), "band_energies": 3, "device_synth": 3},
           f"hvo_input requests launched {counts}; expected 6 fused_mha per model chunk "
           f"({6 * sum(chunks)}) and the front-end kernels once per request")
@@ -2806,7 +2855,8 @@ def phase_serve_hvo(dev, rng, sd, srv) -> dict:
     device_total = sum(us for us, _ in per_kernel.values())
     emit({"phase": "serve_hvo_input", "config": "InfillingRandom flagship d256 h2 ff512 6L",
           "requests": [[1 if g.ndim == 2 else len(g), q] for g, q in requests],
-          "launches": counts, "max_abs_err_vs_cpu_plain": worst})
+          "launches": counts, "fused_mha_launches_by_form": forms,
+          "max_abs_err_vs_cpu_plain": worst})
     emit({"phase": "serve_hvo_input_latency", "batch": 1, "qpm": 120.0,
           "in_process": runs, "http_hvo_input": http})
     emit({"phase": "serve_hvo_input_split",
@@ -2999,8 +3049,11 @@ def phase_serve_encdec(dev, rng, enc_srv) -> dict:
     chunks = {1: 1, 6: 1, 40: 2}  # buckets (1, 8, 32): 1 | 8 | 32 + 8
     per_chunk = ENCDEC.num_encoder_layers + 2 * ENCDEC.num_decoder_layers
     MHA.launches = 0  # the main path's run starts here
+    reset_mha_forms()
     out = {n: srv.infill(x) for n, x in xs.items()}
     launches_mha = MHA.launches  # ... and ends here
+    forms = mha_forms()
+    check(forms == {"short": launches_mha}, f"#1 at T 32 took the forms {forms}")
     check(launches_mha == per_chunk * sum(chunks.values()),
           f"fused_mha launched {launches_mha} times, expected {per_chunk} per forward chunk "
           f"({per_chunk * sum(chunks.values())})")
@@ -3042,6 +3095,7 @@ def phase_serve_encdec(dev, rng, enc_srv) -> dict:
     device_total = sum(us for us, _ in per_kernel.values())
     emit({"phase": "serve_encdec", "config": "d256 h2 ff512, 6 + 6 layers, f32",
           "requests": sorted(xs), "chunks": sum(chunks.values()), "launches": launches_mha,
+          "fused_mha_launches_by_form": forms,
           "launches_per_chunk": per_chunk, "max_abs_err_vs_cpu_plain": worst,
           "hvo_input": {"launches": hvo_counts, "max_abs_err_vs_cpu_plain": hvo_err},
           "latency_b1_in_process": runs,
@@ -6526,7 +6580,7 @@ def main() -> int:
                     if t["shape"] == [b, h, 32, hd] and t["dtype"] == dtype and t["form"] == form)
 
     def mha_at(row):
-        return {"ms": float(np.mean(row["kernel_us"])) / 1000.0,
+        return {"kernel_form": row["route"], "ms": float(np.mean(row["kernel_us"])) / 1000.0,
                 "device_ms": row["kernel_device_us"] / 1000.0,  # long rows: a graph's
                 "device_time_from": row["device_time_from"],
                 "plain_ms": float(np.mean(row["plain_us"])) / 1000.0,
@@ -6606,7 +6660,8 @@ def main() -> int:
               "launches_hd512_sweep_draw: the d 512 / 1 head sweep draw's ranking forward "
               "of 4 stacked trials and an eval forward (phase 9); T128 / T256 / T1024: "
               "8-, 16- and 64-bar loops, H 2, hd 128, packed qkv, the long route's flash "
-              "form, device_ms and library_device_ms each from a CUDA graph of their calls "
+              "form (TMA and wgmma; kernel_form: attention.route), device_ms and "
+              "library_device_ms each from a CUDA graph of their calls "
               "(T128_B3300: the eval forward of 8-bar loops); long_max_abs_err over "
               "the long route's checks (phase 3); launches_T128_*: the held-out forward "
               "of phases 9 and 15's max_len 128 runs and their f32 weights served, B 1 "

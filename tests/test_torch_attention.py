@@ -227,12 +227,81 @@ def test_kernel_smem_bytes():
         # the ceiling's block, 162 KB, within the 227 KB a block may take
         assert port.kernel_smem_bytes(port.MAX_T, dtype) == 162048 <= 232448
         assert port.kernel_smem_bytes(256, dtype, hd=256) == 106496  # past FLASH_HD
-    # heads up to FLASH_HD past T 64: the flash form, Q and 3 key tiles of 64
-    # rows × 128 columns, in f32 also the (64, 68) probabilities, at every T
+    # heads up to FLASH_HD past T 64: the flash form, the same at every T and
+    # hd, each row FLASH_HD values wide. 128 rows: bf16 two Q buffers of 128
+    # rows × 256 bytes and 2 stages of K and V tiles of 128 keys; f32 Q with
+    # its lo plane, a K tile of 32 keys with its lo plane, the V tile and its
+    # two transposed planes. 64 rows (one wave at B 1): bf16 one Q buffer and 2
+    # stages of 64-key tiles; f32 the same layout with 64-key tiles. Then the
+    # mbarriers and 1,024 bytes of alignment; every block within 227 KB.
     for t in (65, 128, 1024, port.MAX_T):
-        assert port.kernel_smem_bytes(t, torch.bfloat16, hd=128) == 4 * 64 * 136 * 2 == 69632
-        assert port.kernel_smem_bytes(t, hd=8) == 4 * 64 * 132 * 4 + 4 * 64 * 68 == 152576
+        assert port.kernel_smem_bytes(t, torch.bfloat16, hd=128) == (
+            2 * 128 * 256 + 2 * 2 * 128 * 256 + 8 * 12 + 1024) == 197728
+        assert port.kernel_smem_bytes(t, hd=8) == (
+            2 * 128 * 512 + 2 * 32 * 512 + 32 * 512 + 2 * 32 * 512 + 8 * 10 + 1024) == 214096
+        assert port.kernel_smem_bytes(t, torch.bfloat16, hd=64, rows=64) == (
+            64 * 256 + 2 * 2 * 64 * 256 + 8 * 10 + 1024) == 83024
+        assert port.kernel_smem_bytes(t, hd=128, rows=64) == (
+            2 * 64 * 512 + 2 * 64 * 512 + 64 * 512 + 2 * 64 * 512 + 8 * 10 + 1024) == 230480
+    assert max(port.flash_smem_bytes(dtype, rows) for dtype in port.KERNEL_DTYPES
+               for rows in (64, 128)) <= 232448
     assert port.kernel_smem_bytes(32, hd=128) == port.kernel_smem_bytes(32)  # the short route
+
+
+def _meta_packed(b, t, h, hd, dtype, form, offset=0):
+    """The model's projections as meta tensors: the (B, H, T, hd) slices of a
+    packed qkv (``"self"``) or q and the slices of a packed kv (``"cross"``),
+    their storage ``offset`` elements in."""
+    def buf(*shape):
+        n = int(np.prod(shape))
+        return torch.empty(n + offset, dtype=dtype, device="meta")[offset:].view(*shape)
+
+    if form == "self":
+        return list(buf(b, t, 3, h, hd).permute(2, 0, 3, 1, 4))
+    k, v = buf(b, t, 2, h, hd).permute(2, 0, 3, 1, 4)
+    return [buf(b, t, h, hd).transpose(1, 2), k, v]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("form", ["self", "cross"])
+@pytest.mark.parametrize("hd", [128, 64, 8])
+def test_route_rule_sends_the_models_long_views_to_the_flash_form(hd, form, dtype):
+    """Past T 64 the slices of the model's packed projections at heads up to
+    FLASH_HD take the flash form (TMA reads them: hd·size, every stride and
+    base 16-byte multiples); up to T 64 the short route."""
+    for t in (65, 128, 1024, port.MAX_T):
+        assert port.route(*_meta_packed(2, t, 2, hd, dtype, form)) == "flash"
+    assert port.route(*_meta_packed(2, 64, 2, hd, dtype, form)) == "short"
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", ["hd5", "hd1", "misaligned", "hd256", "stride0"])
+def test_route_rule_sends_what_tma_cannot_read_to_the_scores_form(case, dtype):
+    """hd 5 and hd 1 (rows no 16-byte multiple), a base 2 bytes off 16-byte
+    alignment, a head past FLASH_HD and an expanded (stride 0) batch take the
+    scores form, which takes any shape."""
+    t = 128
+    if case == "hd5":
+        views = _meta_packed(2, t, 2, 5, dtype, "self")
+    elif case == "hd1":
+        views = [_meta((2, 16, t, 1), dtype)] * 3  # the sweep's d 16 / 16 heads
+    elif case == "misaligned":
+        views = _meta_packed(2, t, 2, 64, dtype, "self", offset=1)
+        assert views[0].data_ptr() % 16 == dtype.itemsize
+    elif case == "hd256":
+        views = _meta_packed(2, t, 1, 256, dtype, "self")
+    else:
+        views = [_meta((1, 2, t, 64), dtype).expand(3, 2, t, 64)] * 3
+    assert port.route(*views) == "scores"
+
+
+def test_flash_rows_fill_one_wave_before_they_grow():
+    # 64 rows where B·H·⌈T/64⌉ items fit in one wave of 132 SMs, else 128
+    assert port.flash_rows(1, 2, 128, 132) == 64  # B 1 serving: 4 items
+    assert port.flash_rows(1, 2, 2048, 132) == 64  # 64 items
+    assert port.flash_rows(33, 2, 128, 132) == 64  # 132 items: one wave
+    assert port.flash_rows(34, 2, 128, 132) == 128
+    assert port.flash_rows(512, 2, 1024, 132) == 128
 
 
 def test_build_without_nvcc_raises(tmp_path, monkeypatch):

@@ -62,7 +62,8 @@ def _assert_mha_close(got, want, dtype, tol):
                                    (4, 2, 128, 128), (2, 2, 256, 128), (1, 2, 1024, 128),
                                    (3, 2, 96, 40), (2, 1, 400, 64), (2, 1, 520, 24),
                                    (1, 1, 2048, 72), (2, 1, 130, 1024), (1, 1, 300, 256),
-                                   (1, 1, 1100, 160)])
+                                   (1, 1, 1100, 160), (3, 2, 65, 128), (2, 2, 1000, 64),
+                                   (1, 2, 2048, 128), (200, 2, 128, 128)])
 def test_kernel_matches_plain_version(cuda, rng, shape, dtype, tol, causal):
     q, k, v = (torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
                .to(cuda, dtype) for _ in range(3))
@@ -128,14 +129,17 @@ def test_vmap_rule_folds_the_trials_into_one_launch(cuda, rng, dtype, tol):
 @pytest.mark.parametrize("b, t, h, hd", [(1, 32, 2, 128), (64, 32, 2, 128), (3, 17, 4, 16),
                                          (2, 128, 2, 128), (1, 256, 2, 128),
                                          (2, 64, 1, 256), (5, 32, 4, 8), (16, 32, 1, 512),
-                                         (16, 32, 1, 768), (8, 32, 1, 1024), (2, 64, 1, 1024)])
+                                         (16, 32, 1, 768), (8, 32, 1, 1024), (2, 64, 1, 1024),
+                                         (2, 65, 2, 128), (3, 1000, 2, 64), (1, 2048, 2, 128),
+                                         (300, 128, 2, 128)])
 def test_kernel_reads_packed_projections(cuda, rng, b, t, h, hd, form, dtype, tol, causal):
     """The slices of the model's packed qkv (self) or of q and a packed kv
     (cross) without a copy, against the plain version on contiguous copies;
     the output a (B, H, T, hd) view of a (B, T, H, hd) buffer; a rerun bit
     for bit. Every width here arrives by 16-byte copies (hd 8 zero-filled to
     the mma's 16), the head streamed through shared memory (hd 128 to
-    1,024)."""
+    1,024); past T 64 at heads up to 128 the flash form reads them by TMA
+    (64 query rows an item at B 1, 128 at B 300)."""
     def n(*shape):
         return torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(cuda, dtype)
 
@@ -145,6 +149,8 @@ def test_kernel_reads_packed_projections(cuda, rng, b, t, h, hd, form, dtype, to
         q = n(b, t, h, hd).transpose(1, 2)
         k, v = n(b, t, 2, h, hd).permute(2, 0, 3, 1, 4)
     assert attention.copy_bytes(q, k, v) == 16
+    assert attention.route(q, k, v) == (
+        "short" if t <= attention.SHORT_T else "flash" if hd <= attention.FLASH_HD else "scores")
     before = attention.KERNEL.launches
     got = attention.fused_mha(q, k, v, causal=causal)
     again = attention.fused_mha(q, k, v, causal=causal)
@@ -152,6 +158,33 @@ def test_kernel_reads_packed_projections(cuda, rng, b, t, h, hd, form, dtype, to
     assert attention.KERNEL.launches == before + 2
     assert got.shape == (b, h, t, hd) and got.transpose(1, 2).is_contiguous()
     assert torch.equal(got, again)
+    want = attention.mha_reference(q.contiguous(), k.contiguous(), v.contiguous(), causal=causal)
+    _assert_mha_close(got, want, dtype, tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("dtype, tol, case", [(torch.float32, 1e-5, "hd5"),
+                                              (torch.bfloat16, 2e-2, "misaligned")])
+def test_long_views_tma_cannot_read_take_the_scores_form(cuda, rng, dtype, tol, case, causal):
+    """At heads up to 128 past T 64, views TMA cannot read (f32 hd 5: rows of
+    20 bytes; bf16 slices whose base lies 2 bytes off 16-byte alignment) take
+    the scores form by the rule, match the plain version and rerun bit for
+    bit, one launch a call."""
+    if case == "hd5":
+        q, k, v = (torch.from_numpy(rng.standard_normal((3, 2, 200, 5)).astype(np.float32))
+                   .to(cuda, dtype) for _ in range(3))
+    else:
+        t, h, hd = 130, 2, 64
+        flat = torch.from_numpy(rng.standard_normal(2 * t * 3 * h * hd + 1).astype(np.float32))
+        q, k, v = flat.to(cuda, dtype)[1:].view(2, t, 3, h, hd).permute(2, 0, 3, 1, 4)
+        assert q.data_ptr() % 16 == 2
+    assert attention.route(q, k, v) == "scores"
+    before = attention.KERNEL.launches
+    got = attention.fused_mha(q, k, v, causal=causal)
+    again = attention.fused_mha(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert attention.KERNEL.launches == before + 2 and torch.equal(got, again)
     want = attention.mha_reference(q.contiguous(), k.contiguous(), v.contiguous(), causal=causal)
     _assert_mha_close(got, want, dtype, tol)
 

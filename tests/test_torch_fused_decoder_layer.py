@@ -335,8 +335,10 @@ def test_kernel_source_hash_covers_its_headers(tmp_path, monkeypatch):
                          "gemm_sm90.cuh", "layer_common.cuh"]
     files = [f.name for f in _build.source_files(_build.CSRC / "fused_ln.cu")]
     assert files == ["fused_ln.cu", "layer_common.cuh"]
+    # #1: the flash form's header (on the product core's PTX helpers) and the
+    # streamed forms'
     assert [f.name for f in _build.source_files(_build.CSRC / "fused_mha.cu")] == [
-        "fused_mha.cu", "attn_stream_sm90.cuh"]
+        "fused_mha.cu", "attn_flash_sm90.cuh", "attn_stream_sm90.cuh", "gemm_sm90.cuh"]
     # a nested include is followed, each file once
     (tmp_path / "a.cu").write_text('#include "b.cuh"\n#include "c.cuh"\n#include <math.h>\n')
     (tmp_path / "b.cuh").write_text('  #  include "c.cuh"\n')

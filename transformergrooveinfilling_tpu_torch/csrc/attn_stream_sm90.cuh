@@ -1141,154 +1141,6 @@ __device__ __forceinline__ void long_forward(unsigned char* smem, const Rows<E>&
   pipeline<L::S>(n_s + n_co * n_kt, load, compute);
 }
 
-// ---------------------------------------------------------------- its flash forward
-//
-// For heads up to kFlashHd (128: the flagship's) the long forward needs no
-// scores in shared memory: a block keeps its 64 query rows resident and each
-// warp its 16 × hd output in registers, and walks the key tiles once, K then
-// V a ring stage each: S = Q·Kᵀ (sums promoted every 128 bytes of a row as
-// in the short route), each row's running max and sum (the output so far
-// scaled by exp(m_old − m_new)), then O += round(P̃)·V with P̃ = exp(S − m)
-// (f32: a fresh accumulator a key tile and 64 columns, added in key order;
-// bf16 into the running sums, whose truncation the output's rounding to bf16
-// hides, for the registers of a third block an SM); O / Σ at the end. Each of
-// K and V crosses into the block once, and a causal block stops at its last
-// row's key tile (past it every weight is exp(fill − m) = 0). #1's: it rounds
-// the unnormalised P̃ to bf16 where the plain version rounds P, which its bar
-// takes; the chains' forward keeps the scores form, which rounds P.
-
-constexpr int kFlashHd = 128;
-
-template <class E>
-struct Flash {
-  static constexpr int QR = kKeys, CW = kFlashHd, kLd = stage_ld<E, CW>(), S = 3;
-  static constexpr size_t kTile = sizeof(E) * kKeys * kLd;  // Q, or a key tile of K or V
-  // Q, the ring, and in f32 the warps' (16, 68) probabilities
-  static constexpr size_t smem() {
-    return (1 + S) * kTile + (sizeof(E) == 2 ? 0 : sizeof(float) * QR * p_ld<4>());
-  }
-};
-
-template <class E>
-__device__ __forceinline__ void flash_forward(unsigned char* smem, const Rows<E>& q,
-                                              const Rows<E>& k, const Rows<E>& v,
-                                              const Out<E>& out, int t, int hd, int row0,
-                                              float scale, bool causal, float fill, int copy) {
-  using F = Flash<E>;
-  constexpr int CW = F::CW, kLd = F::kLd, PC = fwd_cw<E>();  // PC: a promotion chunk
-  E* tq = reinterpret_cast<E*>(smem);
-  auto stage = [&](int i) { return reinterpret_cast<E*>(smem + (1 + i % F::S) * F::kTile); };
-  float* ptile = reinterpret_cast<float*>(smem + (1 + F::S) * F::kTile);  // f32 only
-  const int w16 = 16 * (threadIdx.x >> 5), lane = threadIdx.x & 31, g = lane >> 2;
-  const int c0 = 2 * (lane & 3);
-  int n_kt = (t + kKeys - 1) / kKeys;
-  if (causal) n_kt = min(n_kt, (row0 + F::QR - 1) / kKeys + 1);
-  const int n_pc = (min(hd, CW) + PC - 1) / PC;
-  float o[CW / 8][4] = {}, s[8][4], part[8][4] = {};
-  float m_run[2] = {-INFINITY, -INFINITY}, l_run[2] = {0.f, 0.f};
-  uint32_t pa[4][4];  // bf16: round(P̃) as A fragments
-  auto load = [&](int i) {
-    const int kt = i / 2;
-    if (i == 0) load_tile<E, CW>(tq, from_row(q, row0), F::QR, t - row0, 0, hd, copy);
-    load_tile<E, CW>(stage(i), from_row(i % 2 ? v : k, kKeys * kt), kKeys, t - kKeys * kt, 0,
-                     hd, copy);
-  };
-  auto compute = [&](int i) {
-    const int kt = i / 2;
-    const E* tile = stage(i);
-    if (i % 2 == 0) {
-      zero(s);
-      for (int c = 0; c < n_pc; ++c) {
-        rows_by_rows<PC, 4, kLd>(part, tq + w16 * kLd + c * PC, tile + c * PC);
-        promote(s, part);
-      }
-      float m_new[2] = {m_run[0], m_run[1]};
-#pragma unroll
-      for (int n = 0; n < 8; ++n)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int ri = row0 + w16 + g + 8 * (e >> 1), j = kKeys * kt + 8 * n + c0 + (e & 1);
-          s[n][e] = j >= t ? -INFINITY : causal && j > ri ? fill : s[n][e] * scale;
-          m_new[e >> 1] = fmaxf(m_new[e >> 1], s[n][e]);
-        }
-      float alpha[2];
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        m_new[h] = fmaxf(m_new[h], __shfl_xor_sync(0xffffffffu, m_new[h], 1));
-        m_new[h] = fmaxf(m_new[h], __shfl_xor_sync(0xffffffffu, m_new[h], 2));
-        alpha[h] = expf(m_run[h] - m_new[h]);
-        m_run[h] = m_new[h];
-        l_run[h] *= alpha[h];
-      }
-#pragma unroll
-      for (int n = 0; n < 8; ++n)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          s[n][e] = expf(s[n][e] - m_run[e >> 1]);
-          l_run[e >> 1] += s[n][e];
-        }
-#pragma unroll
-      for (int n = 0; n < CW / 8; ++n)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) o[n][e] *= alpha[e >> 1];
-      if constexpr (sizeof(E) == 2) {
-        to_a_frags(pa, s);
-      } else {
-        frags_to_tile(ptile, p_ld<4>(), s);
-        __syncwarp();
-      }
-      return;
-    }
-#pragma unroll
-    for (int h = 0; h < CW / 64; ++h) {
-      if (64 * h >= hd) break;
-      if constexpr (sizeof(E) == 2) {  // into the running sums: rounded to bf16 at the end
-        const int mi = lane >> 3, mr = lane & 7;
-#pragma unroll
-        for (int kc = 0; kc < 4; ++kc)
-#pragma unroll
-          for (int dp = 0; dp < 4; ++dp) {
-            uint32_t fb[4];
-            ldsm_x4_t(fb, tile + (16 * kc + (mi & 1) * 8 + mr) * kLd + 64 * h + 16 * dp +
-                              (mi >> 1) * 8);
-            mma_bf16(o[8 * h + 2 * dp], pa[kc], fb[0], fb[1]);
-            mma_bf16(o[8 * h + 2 * dp + 1], pa[kc], fb[2], fb[3]);
-          }
-      } else {  // f32: a fresh accumulator a key tile, added in key order
-        float pv[8][4] = {};
-        mma_into<8, 4, kLd, false>(pv, ptile + w16 * p_ld<4>(), p_ld<4>(), tile + 64 * h);
-#pragma unroll
-        for (int n = 0; n < 8; ++n)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) o[8 * h + n][e] += pv[n][e];
-      }
-    }
-  };
-  pipeline<F::S>(2 * n_kt, load, compute);
-  float inv[2];
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    float l = l_run[h] + __shfl_xor_sync(0xffffffffu, l_run[h], 1);
-    l += __shfl_xor_sync(0xffffffffu, l, 2);
-    inv[h] = 1.f / l;
-  }
-#pragma unroll
-  for (int n = 0; n < CW / 8; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) o[n][e] *= inv[e >> 1];
-  E* wt = tq + w16 * kLd;  // this warp's own Q rows: no other warp reads them
-#pragma unroll
-  for (int h = 0; h < CW / 64; ++h) {
-    if (64 * h >= hd) break;
-    float oh[8][4];
-#pragma unroll
-    for (int n = 0; n < 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) oh[n][e] = o[8 * h + n][e];
-    store_acc<8, kLd>(oh, wt, out, row0 + w16, 64 * h);
-  }
-}
-
 // ---------------------------------------------------------------- its backward
 
 __device__ __forceinline__ void put8(bf16* p, const float* v) {

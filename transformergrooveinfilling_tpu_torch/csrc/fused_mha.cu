@@ -41,23 +41,27 @@
 // at hd 512 (PERF.md §6).
 //
 // Past T 64 (loops longer than 4 bars at sixteenths) a warp's 16 × T scores
-// outgrow its registers, and the long route takes over (attn_stream_sm90.cuh),
-// a (batch, head) split by its query rows over blocks of four warps. At heads
-// up to attn::kFlashHd (128) its flash form: 64 query rows a block resident
-// in shared memory, each warp's 16 × hd output in registers, K and V a key
-// tile of 64 a ring stage, the rows' running max and sum, O / Σ at the end
-// (69 KB a block in bf16, 152 KB in f32, at every T). At wider heads each
-// block's (rows × T) f32 scores lie in shared memory (64 rows a block up to T
-// 256, 32 up to 512, 16 past it: 66 KB of scores at T 256, 512 and 1,024)
-// while the head's columns stream through the ring in 64-byte chunks: scores
-// key tile by key tile, the softmax row by row, then the output chunk by
-// chunk, a fresh accumulator a key tile. Past T 256 the work grows as T²·hd
-// against 4·T·hd bytes, and from about T 600 in bf16 it is bound by the
-// tensor cores' operations, not by memory.
+// outgrow its registers, and the long route takes over, a (batch, head) split
+// by its query rows over blocks. The rule (ops/attention.py::route states it
+// too): where hd ≤ 128 and TMA can read the views (hd·element size, every
+// stride and every base pointer a multiple of 16 bytes, no stride 0: copy ==
+// 16), the flash form of attn_flash_sm90.cuh, on TMA and wgmma (work items of
+// 128 query rows, 64 where B·H·⌈T/64⌉ items fill no more than one wave; at
+// most one persistent block an SM). Every other long shape takes the scores
+// form (attn_stream_sm90.cuh): each block's (rows × T) f32 scores lie in
+// shared memory (64 rows a block up to T 256, 32 up to 512, 16 past it: 66 KB
+// of scores at T 256, 512 and 1,024) while the head's columns stream through a
+// cp.async ring in 64-byte chunks: scores key tile by key tile, the softmax
+// row by row, then the output chunk by chunk, a fresh accumulator a key tile.
+// Past T 256 the work grows as T²·hd against 4·T·hd bytes, and from about T
+// 600 in bf16 it is bound by the tensor cores' operations, not by memory. The
+// rule is decided before the launch; a refused encode or launch returns its
+// error.
 //
 // Plain C entry points, bound from Python with ctypes
 // (ops/attention.py); the launch returns cudaGetLastError().
 
+#include "attn_flash_sm90.cuh"
 #include "attn_stream_sm90.cuh"
 
 namespace {
@@ -120,24 +124,6 @@ __global__ void __launch_bounds__(32 * attn::kLongWarps) mha_long_kernel(const A
                             -1e9f, a.copy, attn::NoDrop{});
 }
 
-// ... its flash form for heads up to attn::kFlashHd: block (batch·head)·n_qb +
-// qb takes query rows 64·qb ..
-template <class E>
-__global__ void __launch_bounds__(32 * attn::kLongWarps, sizeof(E) == 2 ? 3 : 1)
-    mha_flash_kernel(const Args a) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  constexpr int QR = attn::Flash<E>::QR;
-  const int n_qb = (a.t + QR - 1) / QR, qb = blockIdx.x % n_qb;
-  const long long head = blockIdx.x / n_qb, bi = head / a.heads, hi = head % a.heads;
-  const attn::Rows<E> q{static_cast<const E*>(a.q) + bi * a.qs[0] + hi * a.qs[1], a.qs[2]};
-  const attn::Rows<E> k{static_cast<const E*>(a.k) + bi * a.ks[0] + hi * a.ks[1], a.ks[2]};
-  const attn::Rows<E> v{static_cast<const E*>(a.v) + bi * a.vs[0] + hi * a.vs[1], a.vs[2]};
-  const long long row = static_cast<long long>(a.heads) * a.hd;  // (B, T, H, hd)
-  const attn::Out<E> out(static_cast<E*>(a.o) + bi * a.t * row + hi * a.hd, row, a.t, a.hd);
-  attn::flash_forward<E>(smem, q, k, v, out, a.t, a.hd, QR * qb, a.scale, a.causal != 0, -1e9f,
-                         a.copy);
-}
-
 // the opt-in above 48 KB is per kernel; raise it to the largest size asked
 // of it so far
 template <typename Kernel>
@@ -168,11 +154,68 @@ int launch_long(const Args& a, int b, cudaStream_t stream) {
                      b, stream);
 }
 
-template <class E>
+// the card's SMs (once)
+inline int sm_count() {
+  static int sms = 0;
+  if (!sms) {
+    int dev = 0;
+    if (cudaGetDevice(&dev) != cudaSuccess ||
+        cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
+      sms = 132;
+  }
+  return sms;
+}
+
+// The flash form (attn_flash_sm90.cuh): 4-D tensor maps of q, k, v and the
+// (B, T, H, hd) output, encoded each call (so a CUDA graph captures the
+// launch with its maps), and a block per kRows query rows of a (batch, head)
+template <class E, int WG>
 int launch_flash(const Args& a, int b, cudaStream_t stream) {
-  static size_t opted = 0;
-  return launch_blocks(mha_flash_kernel<E>, opted, attn::Flash<E>::smem(), attn::Flash<E>::QR, a,
-                     b, stream);
+  using C = flash::Cfg<E, WG>;
+  auto kernel = flash::flash_kernel<E, WG>;
+  static bool opted = false;
+  if (!opted) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(C::kSmem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+    opted = true;
+  }
+  if (const int err = sm90::bind_context()) return err;
+  flash::Maps maps;
+  const long long row = static_cast<long long>(a.heads) * a.hd;  // (B, T, H, hd)
+  int err = flash::make_map<E>(&maps.q, a.q, a.hd, a.t, a.heads, b, a.qs[2], a.qs[1], a.qs[0],
+                               C::kRows);
+  if (!err) err = flash::make_map<E>(&maps.k, a.k, a.hd, a.t, a.heads, b, a.ks[2], a.ks[1],
+                                     a.ks[0], C::kKeys);
+  if (!err) err = flash::make_map<E>(&maps.v, a.v, a.hd, a.t, a.heads, b, a.vs[2], a.vs[1],
+                                     a.vs[0], C::kKeys);
+  if (!err) err = flash::make_map<E>(&maps.o, a.o, a.hd, a.t, a.heads, b, row, a.hd, a.t * row,
+                                     64);
+  if (err) return err;
+  const int n_qb = (a.t + C::kRows - 1) / C::kRows;
+  const long long items = static_cast<long long>(b) * a.heads * n_qb;
+  if (items > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  const flash::Params p{a.t, a.heads, a.hd, n_qb, static_cast<int>(items), a.causal, a.scale,
+                        -1e9f};
+  const long long blocks = items > sm_count() ? sm_count() : items;  // persistent
+  kernel<<<static_cast<unsigned>(blocks), C::kThreads, C::kSmem, stream>>>(maps, p);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// the flash form's rule (ops/attention.py::route): hd ≤ 128, TMA's 16-byte
+// alignment (copy 16: hd·element size, every stride and base pointer), no stride 0
+bool flash_form(const Args& a) {
+  if (a.hd > flash::kHd || a.copy != 16) return false;
+  const long long* strides[3] = {a.qs, a.ks, a.vs};
+  for (int j = 0; j < 3; ++j)
+    for (int i = 0; i < 3; ++i)
+      if (strides[j][i] == 0) return false;
+  return true;
+}
+
+// blocks of 128 query rows, 64 where those fill no more than one wave
+inline int flash_wg(const Args& a, int b) {
+  return static_cast<long long>(b) * a.heads * ((a.t + 63) / 64) <= sm_count() ? 1 : 2;
 }
 
 template <class E, int KT, int S>
@@ -190,7 +233,10 @@ int launch(Args a, int b, cudaStream_t stream) {
 
 template <class E, int S>
 int launch_by_t(const Args& a, int b, cudaStream_t stream) {
-  if (a.t > kShortT && a.hd <= attn::kFlashHd) return launch_flash<E>(a, b, stream);
+  if (a.t > kShortT && flash_form(a)) {
+    return flash_wg(a, b) == 2 ? launch_flash<E, 2>(a, b, stream)
+                               : launch_flash<E, 1>(a, b, stream);
+  }
   if (a.t > kShortT) switch (attn::long_qw(a.t)) {
       case 4: return launch_long<E, 4>(a, b, stream);
       case 2: return launch_long<E, 2>(a, b, stream);

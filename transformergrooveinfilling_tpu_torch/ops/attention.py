@@ -37,20 +37,28 @@ block in bf16, 2.2× slower than SDPA).
 Past ``SHORT_T`` (64: loops longer than 4 bars at sixteenths), up to
 ``MAX_T`` (2,048), a warp's 16 × T scores outgrow its registers and the
 kernel's long route takes over, a (batch, head) split by its query rows over
-blocks of four warps. At heads up to ``FLASH_HD`` (128, the flagship's) its
-flash form: a block's 64 query rows resident in shared memory, each warp's
-output in registers, K and V one key tile of 64 a ring stage, each row's
-running max and sum (the output so far rescaled as the max grows), O / Σ at
-the end; no scores reach shared memory, and K and V cross into a block once.
-At wider heads each block's (rows, T) f32 scores lie in shared memory
-(:func:`long_rows` rows a block) while the head's columns stream through the
-ring in 64-byte chunks (scores key tile by key tile, the softmax row by row,
-then the output chunk by chunk, a fresh accumulator every 64 keys), so
-shared memory still does not grow with hd. A rerun is bit for bit in both.
+blocks. :func:`route` states the rule that picks its form, and the kernel
+follows it: at heads up to ``FLASH_HD`` (128, the flagship's) whose views TMA
+can read (hd·element size, every stride and every base pointer a multiple of
+16 bytes, no stride 0), the flash form (``csrc/attn_flash_sm90.cuh``): work
+items of query rows (:func:`flash_rows`: 128, or 64 where items of 64 fill no
+more than one wave of the SMs) in consumer warpgroups of 64, at most one
+persistent block an SM walking the items, one producer thread loading each
+item's Q and its key tiles' K and V by TMA into a ring under mbarriers, S =
+Q·Kᵀ and O += P̃·V on ``wgmma`` (f32 in split TF32, the producer warpgroup's
+other warps splitting Q, K and V), each row's running max and sum in
+registers, O / Σ at the end, stored by TMA. Every
+other long shape takes the scores form: each block's (rows, T) f32 scores lie
+in shared memory (:func:`long_rows` rows a block) while the head's columns
+stream through a ``cp.async`` ring in 64-byte chunks (scores key tile by key
+tile, the softmax row by row, then the output chunk by chunk, a fresh
+accumulator every 64 keys), so shared memory does not grow with hd. A rerun
+is bit for bit in both.
 
 On a CPU tensor the wrapper runs ``mha_reference`` (into the same output
 layout); on a CUDA tensor it launches the kernel or raises — it never gives
-way to the plain version. Every launch adds one to ``KERNEL.launches``.
+way to the plain version. Every launch adds one to ``KERNEL.launches``, and
+one to ``FORM_LAUNCHES`` under the form :func:`route` names.
 
 The same function is the operator ``torch.ops.tgi.fused_mha(q, k, v,
 causal)`` (``torch.library.custom_op``), registered when this module is
@@ -83,6 +91,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
+import threading
 
 import torch
 
@@ -107,9 +116,10 @@ LONG_STAGES = 3  # the long route's ring
 LONG_CHUNK_BYTES = 64  # the long route's score chunks; its output chunks are twice that
 LONG_KEYS = 64  # the long route's key tiles
 LONG_WARPS = 4
-# heads up to FLASH_HD take the long route's flash form: a block's 64 query
-# rows resident, each warp's output in registers, no scores in shared memory
+# heads up to FLASH_HD take the long route's flash form where TMA can read
+# the views (FLASH_ALIGN: hd·element size, every stride and base pointer)
 FLASH_HD = 128
+FLASH_ALIGN = 16
 KERNEL_DTYPES = (torch.float32, torch.bfloat16)
 
 
@@ -137,7 +147,54 @@ def long_rows(t: int) -> int:
     return 64 if t <= 256 else 32 if t <= 512 else 16
 
 
-def kernel_smem_bytes(t: int, dtype=torch.float32, hd: int | None = None) -> int:
+def flash_rows(b: int, h: int, t: int, sms: int) -> int:
+    """The query rows a work item of the flash form takes, both dtypes: 64 (one
+    consumer warpgroup a block) where B·H·⌈T/64⌉ such items fill no more than
+    one wave of the card's ``sms`` SMs (B 1 serving), else 128 (two)."""
+    return 64 if b * h * -(-t // 64) <= sms else 128
+
+
+def route(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> str:
+    """The form of the kernel that takes these ``(B, H, T, hd)`` views, by the
+    rule ``csrc/fused_mha.cu`` follows: ``"short"`` up to ``SHORT_T``; past it
+    ``"flash"`` where hd ≤ ``FLASH_HD``, hd·element size, every (batch, head,
+    token) stride and every base pointer are multiples of ``FLASH_ALIGN``
+    bytes and no stride is 0 (what TMA reads), else ``"scores"``."""
+    strides = _strides(q, k, v)
+    return _form(q.shape[-2], q.shape[-1], _copy(q, k, v, strides), strides)
+
+
+def _form(t: int, hd: int, copy: int, strides: tuple) -> str:
+    """:func:`route` from T, hd, the copy bytes and the views' strides."""
+    if t <= SHORT_T:
+        return "short"
+    if hd <= FLASH_HD and copy == FLASH_ALIGN and 0 not in strides:
+        return "flash"
+    return "scores"
+
+
+def flash_smem_bytes(dtype, rows: int) -> int:
+    """Dynamic shared memory of one block of the flash form at ``rows`` query
+    rows, each row ``FLASH_HD`` values wide whatever hd is. Key tiles of 64
+    keys at 64 rows; at 128 rows bf16 128, f32 32. bf16: the Q tile (two
+    buffers at 128 rows) and a 2-stage ring of K and V tiles; f32: Q and a K
+    tile each with its lo plane beside, the raw V tile and its two transposed
+    planes, one stage. Then the mbarriers (Q full and empty a buffer; K full
+    and empty, V full and empty a stage; f32 four more) and 1,024 bytes to
+    align the base for the 128-byte swizzle."""
+    f32 = dtype.itemsize == 4
+    keys = 64 if rows == 64 else 32 if f32 else 128
+    qbufs = 2 if rows == 128 and not f32 else 1
+    stages = 1 if f32 else 2
+    q = rows * FLASH_HD * dtype.itemsize * (2 if f32 else 1)
+    tile = keys * FLASH_HD * dtype.itemsize
+    stage = (2 * tile if f32 else tile) + tile
+    bars = 2 * qbufs + 4 * stages + (4 if f32 else 0)
+    return qbufs * q + stages * stage + (2 * tile if f32 else 0) + 8 * bars + 1024
+
+
+def kernel_smem_bytes(t: int, dtype=torch.float32, hd: int | None = None,
+                      rows: int | None = None) -> int:
     """Dynamic shared memory of one block, whatever hd is (bf16 stage rows
     padded by 8 values, f32 rows by 4). Up to ``SHORT_T``: the ring of
     ``STAGES`` stages, each the 128 bytes of two tiles of T rows rounded up
@@ -145,18 +202,16 @@ def kernel_smem_bytes(t: int, dtype=torch.float32, hd: int | None = None) -> int
     tile of the same rows for every 16 rows of T; in f32 also the (T, T + 4)
     probabilities, T rounded up to 16 (the partial scores a cluster adds are
     staged in a spent stage). Past it, at heads up to ``FLASH_HD`` (``hd``
-    given), the flash form: the block's 64 query rows and a ring of
-    ``LONG_STAGES`` key tiles (K or V), each 64 rows of ``FLASH_HD``
-    columns, and in f32 the (64, 68) probabilities; at wider heads the long
-    route: ``LONG_STAGES`` stages, each the larger of a 64-byte chunk of the
+    given), the flash form (:func:`flash_smem_bytes` at ``rows``, by default
+    128); at wider heads the scores
+    form: ``LONG_STAGES`` stages, each the larger of a 64-byte chunk of the
     block's query rows and a key tile's, or a 128-byte chunk of a key tile's
     V; the four warps' staging tiles of their share of the 128 bytes; the
     (rows, T + 4) f32 scores, T rounded up to ``LONG_KEYS``."""
     size = dtype.itemsize
     pad = 8 if size == 2 else 4
     if t > SHORT_T and hd is not None and hd <= FLASH_HD:
-        tile = LONG_KEYS * (FLASH_HD + pad) * size
-        return (1 + LONG_STAGES) * tile + (0 if size == 2 else 4 * 64 * 68)
+        return flash_smem_bytes(dtype, rows or 128)
     if t <= SHORT_T:
         rows = -(-t // 16) * 16
         cols = STAGE_ROW_BYTES // size + pad
@@ -200,8 +255,18 @@ def copy_bytes(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> int:
     of q, k and v are multiples of (the slices of a packed projection take
     16 when hd is a multiple of 8 in bf16, of 4 in f32); 2 for bf16 rows that
     allow none, read element by element."""
+    return _copy(q, k, v, _strides(q, k, v))
+
+
+def _strides(q, k, v) -> tuple:
+    """The (batch, head, token) strides of q, k and v, the kernel's arguments."""
+    return (*q.stride()[:3], *k.stride()[:3], *v.stride()[:3])
+
+
+def _copy(q, k, v, strides: tuple) -> int:
+    """:func:`copy_bytes` given the views' strides."""
     size = q.element_size()
-    g = math.gcd(*q.stride()[:3], *k.stride()[:3], *v.stride()[:3], q.shape[-1]) * size
+    g = math.gcd(*strides, q.shape[-1]) * size
     ptrs = q.data_ptr() | k.data_ptr() | v.data_ptr()
     return next((c for c in (16, 8, 4) if g % c == 0 and ptrs % c == 0), size)
 
@@ -218,6 +283,9 @@ def _library():
 
 
 KERNEL = _build.CountedKernel(_library, "tgi_fused_mha", "tgi_cuda_error_string")
+# the launches by the form that took them (route()); reset by whoever reads them
+FORM_LAUNCHES = {"short": 0, "flash": 0, "scores": 0}
+_form_lock = threading.Lock()
 
 
 def _output(q: torch.Tensor) -> torch.Tensor:
@@ -244,10 +312,14 @@ def fused_mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     check_kernel_args(q, k, v)
     b, h, t, hd = q.shape
     out = _output(q)
+    strides = _strides(q, k, v)
+    copy = _copy(q, k, v, strides)
     KERNEL.launch((q, k, v, out),
-                  (*q.stride()[:3], *k.stride()[:3], *v.stride()[:3], b, h, t, hd, int(causal),
-                   int(q.dtype == torch.bfloat16), copy_bytes(q, k, v), 1.0 / math.sqrt(hd)),
-                  q.device)
+                  (*strides, b, h, t, hd, int(causal), int(q.dtype == torch.bfloat16), copy,
+                   1.0 / math.sqrt(hd)), q.device)
+    form = _form(t, hd, copy, strides)
+    with _form_lock:
+        FORM_LAUNCHES[form] += 1
     return out
 
 
