@@ -480,6 +480,14 @@ TPU_KERNEL = "transformergrooveinfilling_tpu/ops/attention.py:25"
 LAYER_SM90_SOURCE = "transformergrooveinfilling_tpu_torch/csrc/layer_sm90.cu"
 LAYER_WIDE_SOURCE = f"transformergrooveinfilling_tpu_torch/csrc/{layer_sm90.WIDE_SOURCE}.cu"
 LAYER_ATTN_SOURCE = f"transformergrooveinfilling_tpu_torch/csrc/{layer_sm90.ATTN_SOURCE}.cu"
+# the chains' attention past T 32 in bf16 (the registers form), launched from
+# LAYER_ATTN_SOURCE's entry points, and the Pallas code it stands in for
+LAYER_REGS_SOURCE = "transformergrooveinfilling_tpu_torch/csrc/attn_regs_sm90.cuh"
+REGS_TPU_KERNELS = {
+    "fwd": "transformergrooveinfilling_tpu/ops/fused_layer.py:143 (_block_diag_softmax, "
+           "in _fwd_kernel :184-204; fused_decoder_layer.py:402 _fwd_call)",
+    "bwd": "transformergrooveinfilling_tpu/ops/fused_layer.py:236 (_bwd_kernel, softmax "
+           "again :318; fused_decoder_layer.py:475 _bwd_call)"}
 # the Pallas kernel bodies a layer chain's forward and backward launches stand in for
 LAYER_TPU_KERNELS = {"fwd": "transformergrooveinfilling_tpu/ops/fused_layer.py:164",
                      "bwd": "transformergrooveinfilling_tpu/ops/fused_layer.py:236"}
@@ -817,12 +825,40 @@ def launch_dtype(launch):
     return torch.float32
 
 
+def attention_library(launch):
+    """``F.scaled_dot_product_attention`` with ``dropout_p`` at the launch's
+    rate on its (B, H, T, hd) views (``is_causal`` where the launch is
+    causal): its forward for an ``attn_fwd`` launch, its forward and autograd
+    backward for an ``attn_bwd`` launch. It computes the same function with
+    its own mask stream, so only its time is read; the port never calls it."""
+    a = launch.args
+    backward = launch.reference is layer_sm90.attention_backward_reference
+    rate, h, t, causal = a[-4], a[-3], a[-2], bool(a[-1])
+
+    def heads(x):
+        return x.detach().view(x.shape[0] // t, t, h, -1).transpose(1, 2)
+
+    q4, k4, v4 = (heads(x).requires_grad_(backward) for x in a[:3])
+
+    def fwd():
+        return F.scaled_dot_product_attention(q4, k4, v4, dropout_p=rate, is_causal=causal)
+
+    if not backward:
+        return fwd
+    g4 = heads(a[3])
+    return lambda: torch.autograd.grad(fwd(), (q4, k4, v4), g4)
+
+
 def launch_library(launch):
     """One PyTorch call computing a launch's function, where there is one:
     F.linear for the bias products (the bias in bf16), a matmul for the
     products without a residual or epilogue, ``addmm`` for the wide route's
-    f32 gradient sum, ``F.layer_norm`` for its f32 row pass of the forward."""
+    f32 gradient sum, ``F.layer_norm`` for its f32 row pass of the forward,
+    SDPA with dropout for the attention (``attention_library``)."""
     a = launch.args
+    if launch.reference in (layer_sm90.attention_forward_reference,
+                            layer_sm90.attention_backward_reference):
+        return attention_library(launch)
     if launch.reference is layer_sm90.bias_reference:
         bias = a[2].to(a[0].dtype)
         return lambda: F.linear(a[0], a[1], bias)
@@ -878,8 +914,9 @@ def sm90_launches(record, kernels: dict, plain: bool, n: int, dtype=torch.bfloat
     replays, where the profiler loses events; none where ``n`` is 0; with
     ``kinds``, only of the launches of those types of
     ``layer_sm90.ENTRIES``), its own bound, and with ``plain`` the plain
-    version's and the library call's stream time. Keyed by the counted
-    kernel's name."""
+    version's stream time and the library call's (with ``graph`` its device
+    time, from a CUDA graph of its calls). Keyed by the counted kernel's
+    name."""
     names = {id(k): name for name, k in kernels.items()}
     rows, bar = {}, SM90_BAR[dtype]
     for launch in record:
@@ -911,7 +948,8 @@ def sm90_launches(record, kernels: dict, plain: bool, n: int, dtype=torch.bfloat
             rows[name]["plain_ms"] = time_us(
                 lambda: launch.reference(*launch.args, **launch.kwargs), 5, warm) / 1000.0
             lib = launch_library(launch)
-            rows[name]["library_ms"] = time_us(lib, 50, warm) / 1000.0 if lib else None
+            rows[name]["library_ms"] = (None if lib is None else graph_ms(lib, n=n, reps=2)
+                                        if graph else time_us(lib, 50, warm) / 1000.0)
     return rows
 
 
@@ -976,6 +1014,7 @@ def library_layer(args, dy, b: int, decoder: bool, shape: dict = LAYER_SHAPE,
 
     n = 20 if b == 32 else 5
     f1, b1_, b2_, f2 = (time_us(fn, n) / 1000.0 for fn in (fwd, bwd, bwd, fwd))
+
     return {"fwd_ms": [f1, f2], "bwd_ms": [b1_, b2_],
             "fwd_device_ms": (sum(us for us, _ in device_us(fwd, n=3).values()) / 1000.0
                               if device else None),
@@ -1152,6 +1191,9 @@ LONG_MHA_CASES = ((4, 2, 128, "packed_qkv", 65), (4, 2, 128, "contiguous", 128),
 # ... timed at 8, 16 and 64 bars (B 1 and 512, H 2, hd 128, packed qkv), and
 # the eval forward at 8 bars (the train evaluator's rows)
 LONG_MHA_TS = (128, 256, 1024)
+# ... and the scores form past hd 128 at 8 bars (one head of 256, 512 and
+# 1,024; B 1 and 512; both dtypes), beside its bound and SDPA
+SCORES_TIMED_HDS = (256, 512, 1024)
 LONG_T = 128  # phases 9 and 15's path: 8-bar loops
 
 
@@ -1281,6 +1323,11 @@ def phase_kernel(dev, rng) -> dict:
                     for t in LONG_MHA_TS for dtype in MHA_BARS for b in (1, 512)]
     long_timings.append(mha_timing(dev, card_rng, eval_b, torch.bfloat16, 2, 128, "packed_qkv",
                                    LONG_T, n=3, long=True))
+    scores_timings = [mha_timing(dev, card_rng, b, dtype, 1, hd, "packed_qkv", LONG_T, n=3,
+                                 long=True)
+                      for hd in SCORES_TIMED_HDS for dtype in MHA_BARS for b in (1, 512)]
+    check(all(r["route"] == "scores" for r in scores_timings),
+          f"past hd 128 #1 took {sorted({r['route'] for r in scores_timings})}")
     emit({"phase": "kernel", "checks": checks,
           "max_abs_err": {"float32": worst[torch.float32], "bfloat16": worst[torch.bfloat16]},
           "bars": {"float32": {"atol": 1e-5},
@@ -1289,9 +1336,10 @@ def phase_kernel(dev, rng) -> dict:
     emit({"phase": "kernel_long_t", "checks": long_checks, "cases": LONG_MHA_CASES,
           "checked": long_record,
           "max_abs_err": {str(k)[6:]: v for k, v in long_worst.items()},
-          "refused_past_the_ceiling": refused, "timings": long_timings})
+          "refused_past_the_ceiling": refused, "timings": long_timings,
+          "scores_form_timings": scores_timings})
     return {"max_abs_err": max(worst[torch.float32], long_worst[torch.float32]),
-            "timings": timings, "long_timings": long_timings,
+            "timings": timings, "long_timings": long_timings, "scores_timings": scores_timings,
             "long_max_abs_err": {str(k)[6:]: v for k, v in long_worst.items()}}
 
 
@@ -1624,8 +1672,9 @@ LAYER_ROLES = {
     "checked": None,
     "timed": dict(kinds=None, plain=True, layer="device", warm=10),
     "streamed": dict(kinds=STREAMED_KINDS, plain=True, layer="stream", warm=10),
-    # longer loops, whose launches take longer: 2 warm-up calls
-    "timed_long": dict(kinds=None, plain=True, layer="stream", warm=2),
+    # longer loops, whose launches take longer: 2 warm-up calls, every
+    # launch's device time from a CUDA graph of its calls (no profiler)
+    "timed_long": dict(kinds=None, plain=True, layer="stream", warm=2, graph=True),
     # (16 bars: the launches' device times from a CUDA graph, where the
     # profiler lost most of the forwards' events, PR 23)
     "streamed_long": dict(kinds=STREAMED_KINDS, plain=True, layer="stream", warm=2, graph=True),
@@ -1680,9 +1729,11 @@ def layer_route_cases(dev, rng, decoder: bool, shapes) -> dict:
             def kb(fwd):
                 return mod.layer_backward(dy, *backward_args(args, fwd, seed), 0.3, h_, t)
 
+            layer_sm90.reset_form_launches()
             with layer_sm90.recording() as record:
                 res = kf()
                 grads = kb(res)
+            forms = layer_sm90.form_launches()
             res2 = kf()
             runs = [res + grads, res2 + kb(res2)]
             torch.cuda.synchronize()
@@ -1691,9 +1742,12 @@ def layer_route_cases(dev, rng, decoder: bool, shapes) -> dict:
             check(bitwise, f"two runs with one seed differ, {what}")
             check(len(record) == len(route), f"{what}: {len(record)} launches, route "
                                              f"{len(route)}")
+            form = layer_sm90.attention_form(t, d // h_, dtype)
+            check(all(set(counts) == {form} for counts in forms.values()),
+                  f"{what}: the attention launches took the forms {forms}, not {form}")
             timed = role or dict(kinds=None, plain=False, layer=None, warm=10)
             row = {"shape": shape, "B": b, "dtype": dname, "rate": 0.3,
-                   "bitwise_repeat": bitwise,
+                   "bitwise_repeat": bitwise, "attention_forms": forms,
                    "launches": sm90_launches(record, route, plain=timed["plain"],
                                              n=5 if role else 0, dtype=dtype,
                                              kinds=timed["kinds"], warm=timed["warm"],
@@ -1992,6 +2046,7 @@ def mha_forms() -> dict:
 def reset_launches() -> None:
     for f in (*LAYER_KERNELS.values(), *ffn.KERNELS.values(), *ln.KERNELS.values()):
         f.launches = 0
+    layer_sm90.reset_form_launches()
 
 
 def run_epochs(bundle, data, held, epochs: int, batch: int, encoder_only: int = 1,
@@ -2213,13 +2268,21 @@ def long_training(dev, decoder: bool) -> dict:
         metrics = run_epochs(bundle, Loops(items, 51, LONG_T), held, 1, batch, enc_only)[0]
         torch.cuda.synchronize()
         counts, mha, forms = launches(route), MHA.launches, mha_forms()  # ... and ends here
+        chain_forms = layer_sm90.form_launches()
         check(all(c == steps * layers for c in counts.values()),
               f"T {LONG_T}, {dname}: launches {counts}, expected {steps * layers} each")
+        form = layer_sm90.attention_form(LONG_T, FLAGSHIP.d_model // FLAGSHIP.n_heads, dtype)
+        check(chain_forms == {kind: {form: sum(c for name, c in counts.items()
+                                               if name.endswith(kind))}
+                              for kind in ("attn_fwd", "attn_bwd")},
+              f"T {LONG_T}, {dname}: the chains' attention took the forms {chain_forms}, "
+              f"expected every launch {form}")
         check(mha == (3 if decoder else 1) * layers and forms == {"flash": mha},
               f"#1 launched {mha} times ({forms}) in a held-out forward at T {LONG_T}")
         check(all(np.isfinite(v) for v in metrics.values()), f"non-finite: {metrics}")
         path[dname] = {"launches": counts, "fused_mha_launches": mha,
-                       "fused_mha_launches_by_form": forms, "steps": steps, "metrics": metrics}
+                       "fused_mha_launches_by_form": forms, "attention_forms": chain_forms,
+                       "steps": steps, "metrics": metrics}
     served = long_served(dev, bundle, decoder)
     turns = {}
     for dtype in (torch.bfloat16, torch.float32):
@@ -2257,11 +2320,15 @@ def long_served(dev, bundle, decoder: bool) -> dict:
 
             MHA.launches = 0
             reset_mha_forms()
+            layer_sm90.reset_form_launches()
             reset_front_end_launches()
             y = answer(srv)
             counts = {"fused_mha": MHA.launches, "band_energies": BAND_K.launches,
                       "device_synth": SYNTH_K.launches}
-            forms = mha_forms()
+            forms, chain_forms = mha_forms(), layer_sm90.form_launches()
+            check(chain_forms == {"attn_fwd": {}, "attn_bwd": {}},
+                  f"a {which} request at T {LONG_T} launched the chains' attention: "
+                  f"{chain_forms}")
             front = int(which == "hvo_input")
             check(counts == {"fused_mha": per_chunk, "band_energies": front,
                              "device_synth": front} and forms == {"flash": per_chunk},
@@ -2276,6 +2343,7 @@ def long_served(dev, bundle, decoder: bool) -> dict:
             check(hit_agreement(y[..., :9], (sig > 0.5).astype(y.dtype), sig),
                   f"{which} at T {LONG_T}, N={n}: hits differ away from the threshold")
             out[f"{which}_N{n}"] = {"launches": counts, "fused_mha_launches_by_form": forms,
+                                    "chain_attention_forms": chain_forms,
                                     "max_abs_err_vs_plain": err}
     return out
 
@@ -6640,6 +6708,9 @@ def main() -> int:
         "long_max_abs_err": kernel["long_max_abs_err"],
         **{f"T{row['shape'][2]}_B{row['shape'][0]}_{row['dtype']}_packed_qkv": mha_at(row)
            for row in kernel["long_timings"]},
+        f"scores_form_T{LONG_T}": {
+            f"hd{row['shape'][3]}_B{row['shape'][0]}_{row['dtype']}_packed_qkv": mha_at(row)
+            for row in kernel["scores_timings"]},
         f"launches_T{LONG_T}_held_out_forward": {
             f"{which}_{dname}": run["fused_mha_launches"]
             for which, out in (("encoder", train), ("encoder_decoder", encdec))
@@ -6662,7 +6733,9 @@ def main() -> int:
               "8-, 16- and 64-bar loops, H 2, hd 128, packed qkv, the long route's flash "
               "form (TMA and wgmma; kernel_form: attention.route), device_ms and "
               "library_device_ms each from a CUDA graph of their calls "
-              "(T128_B3300: the eval forward of 8-bar loops); long_max_abs_err over "
+              "(T128_B3300: the eval forward of 8-bar loops); scores_form_T128: one head "
+              "of 256, 512 and 1,024 at 8 bars, the long route's scores form, timed "
+              "likewise; long_max_abs_err over "
               "the long route's checks (phase 3); launches_T128_*: the held-out forward "
               "of phases 9 and 15's max_len 128 runs and their f32 weights served, B 1 "
               "and a bucket of 32, MSO input and hvo_input"}]
@@ -6840,6 +6913,45 @@ def main() -> int:
                           f"launches_T{LONG_T}_path: phase {9 if which == 'encoder' else 15}'s "
                           f"max_len {LONG_T} run, the chain given ("
                           + ("2 f32 steps" if f32 else "4 bf16 steps") + ", 6 layers)"})
+    def registers_form(kind):
+        """The chains' attention launches of ``kind`` in the registers form
+        (bf16 past T 32): their launches on phases 9 and 15's max_len 128
+        paths, and per counted launch and T (8 and 16 bars, phases 8 and 14)
+        device time, plain and library times, bound and error."""
+        per, errs = {}, []
+        for out in (layer, dec_layer):
+            for r in out["long"]["timings"]:
+                if r["dtype"] != "bfloat16":
+                    continue
+                for kname, at in r["launches"].items():
+                    if kname.endswith(kind):
+                        errs.append(at["max_abs_err"])
+                        per[f"{kname}_T{r['shape']['t']}"] = {
+                            "ms": at.get("device_ms"),
+                            **{key: at.get(key) for key in ("plain_ms", "bound_ms", "bound_by",
+                                                            "library_ms")}}
+        main = per[f"fused_layer_sm90_{kind}_T{LONG_T}"]
+        counts = [out["long"]["path"]["bfloat16"]["attention_forms"][kind].get("registers", 0)
+                  for out in (train, encdec)]
+        check(all(c > 0 for c in counts), f"the registers form's {kind} launched {counts}")
+        return {"name": f"chain_attention_registers_{kind.split('_')[1]}", "route": "cuda",
+                "source": LAYER_REGS_SOURCE, "replaces": REGS_TPU_KERNELS[kind.split("_")[1]],
+                "launches": sum(counts), "launches_by_path": dict(zip(("phase9", "phase15"),
+                                                                      counts)),
+                "max_abs_err": max(errs), **main, "by_launch": per,
+                "at": "the chains' attention past T 32 in bf16 (heads up to 128, views TMA "
+                      "reads), launched from " + LAYER_ATTN_SOURCE + "'s entry points; ms, "
+                      "plain_ms, bound, library: the encoder's launch at B 32, T 128, d 256, 2 "
+                      "heads, rate 0.30 (by_launch: every counted launch, encoder, decoder self "
+                      "and cross, at T 128 and 256); ms and library_ms: device time from a CUDA "
+                      "graph of its calls; library: F.scaled_dot_product_attention with "
+                      "dropout_p 0.30 on the same views (forward; forward and backward for "
+                      "attn_bwd); err: the largest over every output held to 2e-2 of its "
+                      "largest value; launches: phases 9 and 15's max_len 128 bf16 runs "
+                      "(4 steps, 6 layers; the 6 + 6 model)"}
+
+    kernels += [registers_form("attn_fwd"), registers_form("attn_bwd")]
+
     def midi_launches(kernel):
         return {"mso": midi["mso"]["launches"][kernel],
                 "process_dataset": midi["process_dataset"]["launches"][kernel],

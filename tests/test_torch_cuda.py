@@ -701,23 +701,28 @@ def test_kernel_raises_past_its_t_ceiling(cuda):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("t", [128, 256])
-def test_long_attention_masks_are_the_plain_versions_bit_for_bit(cuda, rng, t):
-    """Past T 32 the attention launches draw a row's mask 16 columns a lane.
-    With one head, hd = T and V the identity, the f32 output is drop(P)
+@pytest.mark.parametrize("t, dtype", [(128, torch.float32), (256, torch.float32),
+                                      (64, torch.bfloat16), (128, torch.bfloat16)])
+def test_long_attention_masks_are_the_plain_versions_bit_for_bit(cuda, rng, t, dtype):
+    """Past T 32 the attention launches draw a row's mask 16 columns a lane
+    (the registers form: a quad's lanes share each draw's keep bits). With
+    one head, hd = T and V the identity, the output is round(drop(P))
     itself, nonzero exactly where the mask keeps: the forward's and the
     backward's output again show the plain version's mask bit for bit, and
-    the backward's output equals the forward's; a rerun is bit for bit."""
+    the backward's output equals the forward's; a rerun is bit for bit. f32
+    takes the scores form, bf16 (hd = T ≤ 128) the registers form."""
     nseq = 3
 
     def n(*shape):
-        return torch.from_numpy(0.1 * rng.standard_normal(shape).astype(np.float32)).to(cuda)
+        return torch.from_numpy(0.1 * rng.standard_normal(shape).astype(np.float32)).to(cuda,
+                                                                                       dtype)
 
     q, k, da = n(nseq * t, t), n(nseq * t, t), n(nseq * t, t)
-    v = torch.eye(t, device=cuda).repeat(nseq, 1)
+    v = torch.eye(t, device=cuda, dtype=dtype).repeat(nseq, 1)
     seed = torch.tensor([11], dtype=torch.int32, device=cuda)
-    fwd, bwd = _attention_kernels(torch.float32)
+    fwd, bwd = _attention_kernels(dtype)
     keep = fused_layer.dropout_mask(seed, fused_layer.SITE_ATTN, (nseq * t, t), 0.3)
+    layer_sm90.reset_form_launches()
     out = layer_sm90.attention_forward(fwd, q, k, v, seed, fused_layer.SITE_ATTN, 0.3, 1, t,
                                        False)
     grads = [torch.empty_like(q) for _ in range(4)]
@@ -726,42 +731,72 @@ def test_long_attention_masks_are_the_plain_versions_bit_for_bit(cuda, rng, t):
     again = layer_sm90.attention_forward(fwd, q, k, v, seed, fused_layer.SITE_ATTN, 0.3, 1, t,
                                          False)
     torch.cuda.synchronize()
+    form = "registers" if dtype == torch.bfloat16 else "scores"
+    assert layer_sm90.form_launches() == {"attn_fwd": {form: 2}, "attn_bwd": {form: 1}}
     assert torch.equal(out != 0, keep)
     assert torch.equal(grads[3], out) and torch.equal(again, out)
+
+
+def _packed_attention_views(cuda, rng, nseq, t, d, dtype, packing):
+    """q, k, v and da as the chains pass them (``packing`` "qkv": the
+    slices of a packed qkv, the self-attention's; "kv": q its own buffer, k
+    and v the slices of a packed kv, the cross-attention's), and the
+    backward's outputs of the same layout (dq, dk, dv views and out)."""
+    def n(*shape):
+        return torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(cuda, dtype)
+
+    if packing == "qkv":
+        qkv = n(nseq * t, 3 * d)
+        views = (qkv[:, :d], qkv[:, d:2 * d], qkv[:, 2 * d:])
+        grad = torch.empty_like(qkv)
+        grads = (grad[:, :d], grad[:, d:2 * d], grad[:, 2 * d:])
+    else:
+        q, kv = n(nseq * t, d), n(nseq * t, 2 * d)
+        views = (q, kv[:, :d], kv[:, d:])
+        dkv = torch.empty_like(kv)
+        grads = (torch.empty_like(q), dkv[:, :d], dkv[:, d:])
+    return views, n(nseq * t, d), grads
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("causal", [False, True])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("t, h, hd, nseq", [(128, 2, 128, 4), (256, 2, 128, 2), (48, 4, 16, 3),
-                                            (200, 1, 512, 2)])
-def test_long_attention_launches_match_their_plain_versions(cuda, rng, t, h, hd, nseq, dtype,
-                                                            causal):
-    """The attention launches past T 32 on the slices of a packed qkv, at
-    rate 0.3: forward and backward (dq, dk, dv and the output again) within
-    the chain's bars of their plain versions, and a rerun bit for bit."""
+@pytest.mark.parametrize("t, h, hd, nseq, packing", [
+    (128, 2, 128, 4, "qkv"), (256, 2, 128, 2, "qkv"), (48, 4, 16, 3, "qkv"),
+    (200, 1, 512, 2, "qkv"),
+    # the registers form (bf16, hd ≤ 128): T 33 to 256, hd 64 and 128, fewer
+    # blocks than SMs and more (70 · 2 · 1 and 40 · 2 · 2, 40 · 2 · 4), the
+    # cross-attention's packed kv
+    (33, 2, 64, 3, "qkv"), (64, 2, 128, 70, "qkv"), (128, 2, 64, 40, "kv"),
+    (200, 4, 64, 3, "kv"), (256, 2, 128, 40, "qkv"), (256, 2, 64, 3, "kv")])
+def test_long_attention_launches_match_their_plain_versions(cuda, rng, t, h, hd, nseq, packing,
+                                                            dtype, causal):
+    """The attention launches past T 32 on the slices of a packed qkv (or
+    q and a packed kv), at rate 0.3: forward and backward (dq, dk, dv and
+    the output again) within the chain's bars of their plain versions, a
+    rerun bit for bit, the output again the forward's, and each launch in
+    the form ``attention_route`` names (bf16 heads up to 128: registers)."""
     d = h * hd
-    qkv = torch.from_numpy(rng.standard_normal((nseq * t, 3 * d)).astype(np.float32)).to(cuda,
-                                                                                       dtype)
-    da = torch.from_numpy(rng.standard_normal((nseq * t, d)).astype(np.float32)).to(cuda, dtype)
-    q, k, v = qkv[:, :d], qkv[:, d:2 * d], qkv[:, 2 * d:]
+    (q, k, v), da, (dq, dk, dv) = _packed_attention_views(cuda, rng, nseq, t, d, dtype, packing)
     seed = torch.tensor([3], dtype=torch.int32, device=cuda)
     fwd, bwd = _attention_kernels(dtype)
     args = (seed, fused_layer.SITE_ATTN, 0.3, h, t, causal)
+    form = layer_sm90.attention_route(q, k, v, t, h)
+    assert form == ("registers" if dtype == torch.bfloat16 and hd <= 128 else "scores")
     runs = []
+    layer_sm90.reset_form_launches()
     for _ in range(2):
         out = layer_sm90.attention_forward(fwd, q, k, v, *args)
-        dqkv = torch.empty_like(qkv)
         again = torch.empty_like(da)
-        layer_sm90.attention_backward(bwd, q, k, v, da, dqkv[:, :d], dqkv[:, d:2 * d],
-                                      dqkv[:, 2 * d:], again, *args)
+        layer_sm90.attention_backward(bwd, q, k, v, da, dq, dk, dv, again, *args)
         torch.cuda.synchronize()
-        runs.append((out, dqkv, again))
+        runs.append((out, dq.clone(), dk.clone(), dv.clone(), again))
+    assert layer_sm90.form_launches() == {"attn_fwd": {form: 2}, "attn_bwd": {form: 2}}
     assert all(torch.equal(a, b) for a, b in zip(*runs))
-    out, dqkv, again = runs[0]
+    out, dq, dk, dv, again = runs[0]
     assert torch.equal(again, out)
     want = layer_sm90.attention_backward_reference(q, k, v, da, *args)
-    got = (dqkv[:, :d], dqkv[:, d:2 * d], dqkv[:, 2 * d:], out)
+    got = (dq, dk, dv, out)
     for name, g, ref in zip(("dq", "dk", "dv", "out"), got, want):
         ref = ref.float()
         err = float((g.float() - ref).abs().max())

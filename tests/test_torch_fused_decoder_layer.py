@@ -328,11 +328,15 @@ def test_kernel_source_hash_covers_its_headers(tmp_path, monkeypatch):
     reads every included file."""
     from transformergrooveinfilling_tpu_torch.ops import _build
 
-    for source in ("layer_sm90", "layer_wide_sm90", "layer_attn_sm90"):
+    for source in ("layer_sm90", "layer_wide_sm90"):
         files = [f.name for f in _build.source_files(_build.CSRC / f"{source}.cu")]
-        head = ["attn_stream_sm90.cuh"] if source == "layer_attn_sm90" else []
-        assert files == [f"{source}.cu", *head, "rows_sm90.cuh", "epilogues_sm90.cuh",
+        assert files == [f"{source}.cu", "rows_sm90.cuh", "epilogues_sm90.cuh",
                          "gemm_sm90.cuh", "layer_common.cuh"]
+    # the attention's: its registers form's header, on the flash form's PTX
+    # helpers, and the streamed forms'
+    assert [f.name for f in _build.source_files(_build.CSRC / "layer_attn_sm90.cu")] == [
+        "layer_attn_sm90.cu", "attn_regs_sm90.cuh", "attn_stream_sm90.cuh", "rows_sm90.cuh",
+        "attn_flash_sm90.cuh", "layer_common.cuh", "epilogues_sm90.cuh", "gemm_sm90.cuh"]
     files = [f.name for f in _build.source_files(_build.CSRC / "fused_ln.cu")]
     assert files == ["fused_ln.cu", "layer_common.cuh"]
     # #1: the flash form's header (on the product core's PTX helpers) and the

@@ -688,3 +688,102 @@ def test_entry_points_declare_every_argument():
         got = ["int" if p.startswith("int ") else "long long" if p.startswith("long long")
                else "ptr" for p in params]
         assert got == want, name
+
+
+def _views(rows, d, dtype, packing, offset=0, pad=0):
+    """The chains' attention views as meta tensors: the slices of a packed
+    qkv (``"qkv"``), or q and the slices of a packed kv (``"kv"``); storage
+    ``offset`` elements in, rows ``pad`` elements longer than packed."""
+    def buf(width):
+        base = torch.empty(rows * (width + pad) + offset, dtype=dtype, device="meta")
+        return base[offset:].as_strided((rows, width), (width + pad, 1))
+
+    if packing == "qkv":
+        qkv = buf(3 * d)
+        return qkv[:, :d], qkv[:, d:2 * d], qkv[:, 2 * d:]
+    kv = buf(2 * d)
+    return buf(d), kv[:, :d], kv[:, d:]
+
+
+@pytest.mark.parametrize("packing", ["qkv", "kv"])
+@pytest.mark.parametrize("d, h", [(256, 2), (512, 4), (256, 4), (32, 4)])
+def test_attention_route_sends_the_configs_bf16_views_to_the_registers_form(d, h, packing):
+    """Past T 32 the configs' bf16 views (the flagship's d 256 / 2 heads of
+    128, the sweeps' 512 / 4, 256 / 4 and 32 / 4: heads of 128, 64 and 8),
+    self- and cross-attention, take the registers form at every T of the JAX
+    gate (64, 128, 256) and at T 33; up to T 32 the short route."""
+    for t in (33, 64, 128, 200, 256):
+        assert L.attention_route(*_views(4 * t, d, torch.bfloat16, packing), t, h) == "registers"
+    for t in (8, 32):
+        assert L.attention_route(*_views(4 * t, d, torch.bfloat16, packing), t, h) == "short"
+
+
+@pytest.mark.parametrize("case", ["f32", "hd256", "misaligned", "row_stride"])
+def test_attention_route_keeps_the_scores_form_for_the_rest(case):
+    """f32, a head past REGISTERS_HD, and views TMA cannot read (a base 2
+    bytes off a 16-byte multiple, a row stride that is not one) are the
+    scores form's by the rule. (In bf16 the kernels take only views whose
+    bases and row strides are 16-byte multiples, so on the card such views
+    raise at launch in either form.)"""
+    t = 128
+    if case == "f32":
+        views, h = _views(4 * t, 256, torch.float32, "qkv"), 2
+    elif case == "hd256":
+        views, h = _views(4 * t, 256, torch.bfloat16, "qkv"), 1
+    elif case == "misaligned":
+        views, h = _views(4 * t, 256, torch.bfloat16, "qkv", offset=1), 2
+        assert views[0].data_ptr() % 16 == 2
+    else:
+        views, h = _views(4 * t, 256, torch.bfloat16, "kv", pad=4), 2
+        assert views[1].stride(0) * 2 % 16 == 8
+    assert L.attention_route(*views, t, h) == "scores"
+
+
+def test_attention_scratch_allocates_nothing_for_the_registers_form():
+    """The registers form's backward is one launch with no device-memory
+    scratch; the scores form's keeps drop(P) and dS of every (sequence,
+    head): 2 · sequences · H · T · ⌈T / 8⌉ · 8 values."""
+    t, h = 128, 2
+    q = torch.zeros(4 * t, 256, dtype=torch.bfloat16)
+    assert L.attention_scratch(q, h, t) is None
+    assert L.attention_scratch(q, h, t, "registers") is None
+    assert L.attention_scratch(q, h, 32) is None  # the short route
+    # the scores form: f32, a head of 256, or the form named
+    for scratch, heads in ((L.attention_scratch(q.float(), h, t), h),
+                           (L.attention_scratch(q, 1, t), 1),
+                           (L.attention_scratch(q, h, t, "scores"), h)):
+        assert scratch.numel() == 2 * 4 * heads * t * t
+    assert L.attention_scratch(torch.zeros(3 * 196, 256), 1, 196).numel() == 2 * 3 * 196 * 200
+
+
+def test_registers_form_shared_memory_fits_a_block():
+    """The registers form's shared memory (``registers_smem_bytes``, the
+    layout of csrc/attn_regs_sm90.cuh) stays within the 232,448 bytes a
+    block may take at every T past 32 and head up to 128: at T 256 and hd
+    128 the forward takes 149,576 bytes and the backward 232,024; at T 128
+    two forward blocks fit an SM."""
+    limit = 232448
+    for t in range(33, L.MAX_T + 1):
+        for hd in range(8, L.REGISTERS_HD + 1, 8):
+            assert L.registers_smem_bytes(t, hd, False) <= limit
+            assert L.registers_smem_bytes(t, hd, True) <= limit
+    box = 64 * 128
+    red = 2 * 64 * 4  # each warpgroup's 64 rows, f32
+    assert L.registers_smem_bytes(256, 128, False) == 18 * box + 8 * 9 + 2 * red + 1024 == 149576
+    assert L.registers_smem_bytes(256, 128, True) == 28 * box + 8 * 11 + 3 * red + 1024 == 232024
+    assert 2 * L.registers_smem_bytes(128, 128, False) <= 228 * 1024
+
+
+def test_registers_form_rule_mirrors_the_source():
+    """The Python rule's bounds are csrc/attn_regs_sm90.cuh's (kMaxT, kMaxHd),
+    and csrc/layer_attn_sm90.cu takes the form where ``regs_form`` says so,
+    for both entry points."""
+    csrc = Path(L.__file__).parents[1] / "csrc"
+    header = (csrc / "attn_regs_sm90.cuh").read_text()
+    found = re.search(r"constexpr int kMaxT = (\d+), kMaxHd = (\d+);", header)
+    assert (int(found.group(1)), int(found.group(2))) == (L.MAX_T, L.REGISTERS_HD)
+    src = (csrc / f"{L.ATTN_SOURCE}.cu").read_text()
+    assert "return sizeof(E) == 2 && a.T > kAttnRows && a.T <= regs::kMaxT && " \
+           "a.hd <= regs::kMaxHd;" in src
+    assert src.count("if (regs_form(a)) return launch_regs_by<") == 2
+    assert L.SHORT_T == 32 and "constexpr int kAttnRows = 32;" in src

@@ -30,6 +30,7 @@
 
 #include <numeric>
 
+#include "attn_regs_sm90.cuh"
 #include "attn_stream_sm90.cuh"
 #include "rows_sm90.cuh"  // drop_by; by_type and as (gemm_sm90.cuh)
 
@@ -57,8 +58,12 @@ namespace {
 // for bit. A lane holds rows 16w +
 // lane/4 (h = 0) and + 8 (h = 1), keys 8n + 2·(lane % 4) + {0, 1}.
 //
-// Past T 32, up to 256 (loops of 2 to 16 bars), the long route of
-// attn_stream_sm90.cuh, a block of four warps per 64 query rows of a
+// Past T 32, up to 256 (loops of 2 to 16 bars), bf16 heads up to 128 take
+// the registers form of attn_regs_sm90.cuh (TMA, wgmma, a row's scores in
+// registers; the backward one launch of a cluster a (sequence, head), no
+// scratch): regs_form is the rule, ops/layer_sm90.py::attention_route its
+// mirror. Elsewhere past T 32 (f32, wider heads), the scores form: the long
+// route of attn_stream_sm90.cuh, a block of four warps per 64 query rows of a
 // (sequence, head), their (64 × T) f32 scores in shared memory (106 KB a block
 // at T 256): P is normalised before it is rounded to bf16, as the plain
 // version rounds it. (#1's flash form rounds the unnormalised P̃ of each key
@@ -350,6 +355,14 @@ __global__ void __launch_bounds__(32 * attn::kLongWarps) attn_bwd_cols(const Att
       sld, p.T, p.hd, h.part, p.copy);
 }
 
+// the registers form's rule (ops/layer_sm90.py::attention_route): bf16, T
+// past 32, hd ≤ 128; the views TMA reads (every base and row stride a 16-byte
+// multiple, hd a multiple of 8) are what attn_args_ok asks of bf16
+template <class E>
+bool regs_form(const AttnArgs<E>& a) {
+  return sizeof(E) == 2 && a.T > kAttnRows && a.T <= regs::kMaxT && a.hd <= regs::kMaxHd;
+}
+
 // what the kernels take: T ≤ 256, hd ≥ 1; bf16 also hd a multiple of 8 and
 // every row 16 bytes aligned (q, k, v and the outputs; backward dA, dq, dk
 // and dv too)
@@ -357,7 +370,7 @@ template <class E>
 bool attn_args_ok(const AttnArgs<E>& a, bool backward) {
   auto aligned = [](const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; };
   bool ok = a.T >= 1 && a.T <= kAttnMaxT && a.hd >= 1;
-  if (backward && a.T > kAttnRows)  // the long backward's scratch: 16-byte aligned
+  if (backward && a.T > kAttnRows && !regs_form(a))  // the scores form's scratch: 16-byte aligned
     ok = ok && a.scratch != nullptr && (reinterpret_cast<uintptr_t>(a.scratch) & 15) == 0;
   if constexpr (sizeof(E) == 2) {
     ok = ok && a.hd % 8 == 0 && a.ldq % 8 == 0 && a.ldkv % 8 == 0 && a.ldo % 8 == 0 &&
@@ -414,9 +427,74 @@ int launch_long(Kernel kernel, size_t& opted, size_t smem, long long nseq, int H
   return static_cast<int>(cudaGetLastError());
 }
 
+// The registers form at NT key tiles of 64 and NB column boxes of 64: 4-D
+// tensor maps of every operand encoded each call (so that a CUDA graph
+// captures the launch with its maps), a block per 64 query rows of a
+// (sequence, head), the backward's ⌈T/64⌉ blocks of a (sequence, head) a
+// cluster. 0, or the launch's error (cudaErrorInvalidValue for a map the
+// driver refuses).
+template <int NT, int NB, bool BWD>
+int launch_regs(const AttnArgs<__nv_bfloat16>& a, int nseq, cudaStream_t stream) {
+  constexpr size_t smem = BWD ? regs::Bwd<NT, NB>::kSmem : regs::Fwd<NT, NB>::kSmem;
+  void (*kernel)(const regs::Maps, const regs::Params) =
+      BWD ? regs::bwd_kernel<NT, NB> : regs::fwd_kernel<NT, NB>;
+  static bool opted = false;
+  if (!opted) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+    opted = true;
+  }
+  if (const int err = sm90::bind_context()) return err;
+  regs::Maps maps{};
+  auto map = [&](CUtensorMap* m, const void* base, int ld) {
+    return regs::map_of(m, base, a.hd, a.T, a.H, nseq, ld);
+  };
+  int err = map(&maps.q, a.q, a.ldq);
+  if (!err) err = map(&maps.k, a.k, a.ldkv);
+  if (!err) err = map(&maps.v, a.v, a.ldkv);
+  if (!err) err = map(&maps.out, a.out, a.ldo);
+  if (BWD && !err) err = map(&maps.da, a.da, a.ldda);
+  if (BWD && !err) err = map(&maps.dq, a.dq, a.lddq);
+  if (BWD && !err) err = map(&maps.dk, a.dk, a.lddkv);
+  if (BWD && !err) err = map(&maps.dv, a.dv, a.lddkv);
+  if (err) return err;
+  const regs::Params p{a.T, a.H, a.causal, a.thresh, a.site,
+                       1.f / sqrtf(static_cast<float>(a.hd)), -INFINITY, a.seed};
+  const long long blocks = static_cast<long long>(nseq) * a.H * NT;
+  if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(static_cast<unsigned>(blocks));
+  cfg.blockDim = dim3(regs::kThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute cluster[1];
+  cluster[0].id = cudaLaunchAttributeClusterDimension;
+  cluster[0].val.clusterDim.x = BWD ? NT : 1;
+  cluster[0].val.clusterDim.y = 1;
+  cluster[0].val.clusterDim.z = 1;
+  cfg.attrs = cluster;
+  cfg.numAttrs = 1;
+  const cudaError_t launched = cudaLaunchKernelEx(&cfg, kernel, maps, p);
+  return static_cast<int>(launched != cudaSuccess ? launched : cudaGetLastError());
+}
+
+template <bool BWD>
+int launch_regs_by(const AttnArgs<__nv_bfloat16>& a, int nseq, cudaStream_t stream) {
+  const bool wide = a.hd > 64;
+  switch ((a.T + 63) / 64) {
+    case 1: return wide ? launch_regs<1, 2, BWD>(a, nseq, stream) : launch_regs<1, 1, BWD>(a, nseq, stream);
+    case 2: return wide ? launch_regs<2, 2, BWD>(a, nseq, stream) : launch_regs<2, 1, BWD>(a, nseq, stream);
+    case 3: return wide ? launch_regs<3, 2, BWD>(a, nseq, stream) : launch_regs<3, 1, BWD>(a, nseq, stream);
+    default: return wide ? launch_regs<4, 2, BWD>(a, nseq, stream) : launch_regs<4, 1, BWD>(a, nseq, stream);
+  }
+}
+
 template <class E>
 int attn_forward(AttnArgs<E> a, int nseq, cudaStream_t stream) {
   if (!attn_args_ok(a, false)) return static_cast<int>(cudaErrorInvalidValue);
+  if constexpr (sizeof(E) == 2)
+    if (regs_form(a)) return launch_regs_by<false>(a, nseq, stream);
   a.copy = attn_copy(a, false);
   if (a.T <= kAttnRows)
     return launch_attn(attn_fwd<E>, a, nseq,
@@ -430,6 +508,8 @@ int attn_forward(AttnArgs<E> a, int nseq, cudaStream_t stream) {
 template <class E>
 int attn_backward(AttnArgs<E> a, int nseq, cudaStream_t stream) {
   if (!attn_args_ok(a, true)) return static_cast<int>(cudaErrorInvalidValue);
+  if constexpr (sizeof(E) == 2)
+    if (regs_form(a)) return launch_regs_by<true>(a, nseq, stream);
   a.copy = attn_copy(a, true);
   if (a.T <= kAttnRows) return launch_attn(attn_bwd<E>, a, nseq, attn_bwd_smem<E>(), stream);
   static size_t rows_opted = 0, cols_opted = 0;
@@ -489,9 +569,10 @@ int tgi_sm90_attn_fwd(void* q, void* k, void* v, void* out, void* seed, int ldq,
 }
 
 // dq, dk, dv from da = d(attention output), and out = the attention output
-// again; past T 32 scratch holds 2·nseq·H·T·⌈T / 8⌉·8 values of the
-// activations' dtype (drop(P) and dS, written by the rows kernel and read by
-// the columns kernel), else it may be null
+// again; past T 32 the scores form's scratch holds 2·nseq·H·T·⌈T / 8⌉·8
+// values of the activations' dtype (drop(P) and dS, written by the rows
+// kernel and read by the columns kernel), else (T ≤ 32, the registers form)
+// it may be null
 int tgi_sm90_attn_bwd(void* q, void* k, void* v, void* da, void* dq, void* dk, void* dv,
                       void* out, void* scratch, void* seed, int ldq, int ldkv, int ldda, int lddq,
                       int lddkv, int ldo, int nseq, int T, int H, int hd, int thresh, int site,

@@ -10,10 +10,14 @@ products as they are, f32 products in split TF32 (3xTF32: each operand split
 into a TF32 high part and a TF32 remainder, three tensor-core products
 summed in f32, :func:`split_tf32_matmul`). The attention runs, up to
 ``SHORT_T`` (32), one block per (sequence, head), and past it, up to
-``MAX_T`` (256), a block per 64 query rows (the backward two kernels, rows
-then key tiles, through :func:`attention_scratch`), the head's columns
-streamed through shared memory (``csrc/attn_stream_sm90.cuh``, kernel #1's
-design), so it takes any head width; the weight gradients of a layer are one grouped launch
+``MAX_T`` (256), a block per 64 query rows in one of two forms
+(:func:`attention_route`): bf16 heads up to ``REGISTERS_HD`` take the
+registers form (``csrc/attn_regs_sm90.cuh``: operands by TMA, products on
+``wgmma``, a row's scores in registers, the backward one launch of a cluster
+a (sequence, head)); f32 and wider heads the scores form (the backward two
+kernels, rows then key tiles, through :func:`attention_scratch`), the head's
+columns streamed through shared memory (``csrc/attn_stream_sm90.cuh``,
+kernel #1's design), so it takes any head width; the weight gradients of a layer are one grouped launch
 whose row splits a reduce adds in a fixed order (no float atomics: two runs
 with one seed agree bit for bit). See the source's note for what bounds each
 launch.
@@ -52,6 +56,7 @@ import ctypes
 import dataclasses
 import functools
 import math
+import threading
 
 import torch
 
@@ -67,11 +72,19 @@ MAX_D = 8192
 # The attention's sequence lengths. Up to SHORT_T a block of two warps takes a
 # (sequence, head), its scores in registers; past it, up to MAX_T (a loop of
 # 16 bars at sixteenths; the JAX gate's longest, whose 128- or 256-row tiles
-# hold whole sequences), the long route of csrc/attn_stream_sm90.cuh splits a
-# (sequence, head) by its query rows, the scores in shared memory, and the
-# backward writes drop(P) and dS to a scratch (:func:`attention_scratch`)
+# hold whole sequences), a (sequence, head) is split by its query rows, 64 a
+# block: in the registers form (csrc/attn_regs_sm90.cuh) the scores stay in a
+# warpgroup's registers, in the scores form (csrc/attn_stream_sm90.cuh's long
+# route) they live in shared memory and the backward writes drop(P) and dS to
+# a scratch (:func:`attention_scratch`)
 SHORT_T = 32
 MAX_T = 256
+# Past SHORT_T, bf16 heads up to REGISTERS_HD whose views TMA reads (every
+# base and row stride, and hd·2 bytes, multiples of TMA_ALIGN) take the
+# registers form (csrc/attn_regs_sm90.cuh); the rest the scores form
+REGISTERS_HD = 128
+TMA_ALIGN = 16
+ATTENTION_FORMS = ("short", "registers", "scores")
 WGRAD_TILE = 128  # the weight gradients' (m, n) tile
 K_STAGE = 64  # rows a stage of the weight gradients; a split is whole stages
 WGRAD_MIN_STAGES = 4  # stages a row split walks at least
@@ -734,6 +747,74 @@ def attention_forward_reference(q, k, v, seed, site: int, rate: float, n_heads: 
     return out.transpose(1, 2).reshape(rows, d).to(q.dtype)
 
 
+def attention_route(q, k, v, seq_len: int, n_heads: int, *more) -> str:
+    """The form of the attention launches that take these (rows, d) views
+    (``more``: the backward's dA and outputs), by the rule
+    ``csrc/layer_attn_sm90.cu``'s ``regs_form`` follows: ``"short"`` up to
+    ``SHORT_T``; past it ``"registers"`` in bf16 where hd ≤ ``REGISTERS_HD``
+    and TMA reads every view (hd·2 bytes, each base and row stride multiples
+    of ``TMA_ALIGN`` bytes); else ``"scores"``."""
+    views = (q, k, v, *more)
+    aligned = all(t.data_ptr() % TMA_ALIGN == 0
+                  and t.stride(0) * t.element_size() % TMA_ALIGN == 0 for t in views)
+    return attention_form(seq_len, q.shape[1] // n_heads, q.dtype, aligned)
+
+
+def attention_form(seq_len: int, hd: int, dtype, aligned: bool = True) -> str:
+    """:func:`attention_route` from T, hd, the dtype and whether the views'
+    bases and row strides are TMA's 16-byte multiples (as the chains' own
+    views always are)."""
+    if seq_len <= SHORT_T:
+        return "short"
+    if (dtype == torch.bfloat16 and hd <= REGISTERS_HD and hd * 2 % TMA_ALIGN == 0
+            and aligned):
+        return "registers"
+    return "scores"
+
+
+def registers_smem_bytes(seq_len: int, hd: int, backward: bool) -> int:
+    """Dynamic shared memory of one block of the registers form
+    (``csrc/attn_regs_sm90.cuh``): boxes of 64 rows × 128 bytes, ``nt`` key
+    tiles of 64 and ``nb`` column boxes of 64. Forward: Q (nb boxes), K and V
+    (nb·nt each), the mbarriers (Q, a K and a V tile's each), each
+    warpgroup's 64 rows' max and sum (f32). Backward: Q and dA (nb each), K
+    and V, round(drop(P)) and round(dS) (nt each), the mbarriers (also a
+    slot's: the slots of the sums over the cluster, where K and V were,
+    2·nb + 2 boxes each, at most 2), the rows' max, sum and Σ_j dP·P. And
+    1,024 bytes to align the base for the 128-byte swizzle."""
+    box, red, nt, nb = 64 * 128, 2 * 64 * 4, -(-seq_len // 64), -(-hd // 64)
+    if not backward:
+        return box * nb * (1 + 2 * nt) + 8 * (1 + 2 * nt) + 2 * red + 1024
+    slots = min(2, max(1, 2 * nb * nt // (2 * nb + 2)))
+    return (box * (2 * nb + 2 * nb * nt + 2 * nt) + 8 * (1 + 2 * nt + slots) + 3 * red
+            + 1024)
+
+
+# the attention launches by launch type and the form that took them
+# (attention_route); reset by whoever reads them
+FORM_LAUNCHES = {kind: dict.fromkeys(ATTENTION_FORMS, 0) for kind in ("attn_fwd", "attn_bwd")}
+_form_lock = threading.Lock()
+
+
+def _count_form(kind: str, form: str) -> None:
+    with _form_lock:
+        FORM_LAUNCHES[kind][form] += 1
+
+
+def reset_form_launches() -> None:
+    with _form_lock:
+        for counts in FORM_LAUNCHES.values():
+            for form in counts:
+                counts[form] = 0
+
+
+def form_launches() -> dict:
+    """A copy of :data:`FORM_LAUNCHES`, the forms no launch took left out."""
+    with _form_lock:
+        return {kind: {f: n for f, n in counts.items() if n}
+                for kind, counts in FORM_LAUNCHES.items()}
+
+
 def attention_forward(kernel, q, k, v, seed, site: int, rate: float, n_heads: int,
                       seq_len: int, causal: bool):
     """``round(round(drop(softmax(QKᵀ/√hd)))·V)`` per (sequence, head):
@@ -749,6 +830,7 @@ def attention_forward(kernel, q, k, v, seed, site: int, rate: float, n_heads: in
                                                          causal)
     kernel.launch((q, k, v, out, seed), (q.stride(0), k.stride(0), d, nseq, t, h, hd, thresh,
                                          site_, causal_, _f32(q)), q.device)
+    _count_form("attn_fwd", attention_route(q, k, v, seq_len, n_heads, out))
     return _done(kernel, attention_forward_reference, args, out,
                  lambda: attention_forward(kernel, *args))
 
@@ -773,11 +855,13 @@ def attention_backward_reference(q, k, v, da, seed, site: int, rate: float, n_he
             back(torch.matmul(pd.transpose(-1, -2), dah)), back(torch.matmul(pd, vh)))
 
 
-def attention_scratch(q, n_heads: int, seq_len: int):
-    """The long backward's scratch (past ``SHORT_T``): drop(P) and dS of
-    every (sequence, head), two ``(sequences·H, T, ⌈T / 8⌉·8)`` arrays in
-    q's dtype, flat; None up to ``SHORT_T``."""
-    if seq_len <= SHORT_T:
+def attention_scratch(q, n_heads: int, seq_len: int, form: str | None = None):
+    """The scores form's backward scratch (past ``SHORT_T``): drop(P) and dS
+    of every (sequence, head), two ``(sequences·H, T, ⌈T / 8⌉·8)`` arrays in
+    q's dtype, flat; None for the other forms (``form``, by default the
+    route of views as aligned as TMA needs)."""
+    form = form or attention_form(seq_len, q.shape[1] // n_heads, q.dtype)
+    if form != "scores":
         return None
     heads = q.shape[0] // seq_len * n_heads
     return q.new_empty(2 * heads * seq_len * (-(-seq_len // 8) * 8))
@@ -788,8 +872,9 @@ def attention_backward(kernel, q, k, v, da, dq, dk, dv, out, seed, site: int, ra
     """The attention's backward from ``da`` (rows, d) = d(its output),
     written into the views ``dq``, ``dk``, ``dv`` (each rounded, as dS is),
     and the attention output again into ``out`` (for the output
-    projection's weight gradient). Past ``SHORT_T`` the launch runs two
-    kernels (rows, then columns) through :func:`attention_scratch`."""
+    projection's weight gradient). Past ``SHORT_T`` the scores form runs two
+    kernels (rows, then columns) through :func:`attention_scratch`, the
+    registers form one (a cluster a (sequence, head), no scratch)."""
     args = (q, k, v, da, seed, site, rate, n_heads, seq_len, causal)
     if _on_cpu(q, k, v, da, dq, dk, dv, out, seed):
         for dst, src in zip((dq, dk, dv, out), attention_backward_reference(*args)):
@@ -801,9 +886,12 @@ def attention_backward(kernel, q, k, v, da, dq, dk, dv, out, seed, site: int, ra
     rows, d = q.shape
     nseq, t, h, hd, thresh, site_, causal_ = _attn_shape(q, rate, n_heads, seq_len, site,
                                                          causal)
-    kernel.launch((q, k, v, da, dq, dk, dv, out, attention_scratch(q, n_heads, seq_len), seed),
+    form = attention_route(q, k, v, seq_len, n_heads, da, dq, dk, dv, out)
+    kernel.launch((q, k, v, da, dq, dk, dv, out, attention_scratch(q, n_heads, seq_len, form),
+                   seed),
                   (q.stride(0), k.stride(0), da.stride(0), dq.stride(0), dk.stride(0),
                    out.stride(0), nseq, t, h, hd, thresh, site_, causal_, _f32(q)), q.device)
+    _count_form("attn_bwd", form)
     _done(kernel, attention_backward_reference, args, (dq, dk, dv, out),
           lambda: attention_backward(kernel, q, k, v, da, dq, dk, dv, out, seed, site, rate,
                                      n_heads, seq_len, causal))
